@@ -1,29 +1,53 @@
 """Smoke run of the PyTorch port (svd_xtend_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile DIR]
 
 Phases, each of which raises on failure (non-zero exit):
   1. device: needs CUDA; prints the card's name and power limit and the TF32
      switches (both off).
-  2. build: compiles the CUDA kernels from csrc/ (nvcc, sm_90a).
+  2. build: compiles the CUDA kernels from csrc/ (nvcc, sm_90a, one process
+     per source, in parallel).
   3. kernels: each hand-written kernel against its plain PyTorch version on
-     the card, in bf16, at the shapes the main path gives it; the error bound
-     is 4 bf16 ulps of the output's scale (the kernel and its plain version
-     round the same products at different points). Kernel and plain times at
-     the UNet's L0 shape.
-  4. whole UNet: full SVD widths on a 2-frame 16x16 latent (all four kernels
+     the card, in bf16, at the shapes the main paths give it; the forward
+     bound is 4 bf16 ulps of the output's scale (the kernel and its plain
+     version round the same products at different points). The flash
+     backward kernels (dQ, dK/dV) are held, like the plain bf16 gradient,
+     against the f32 plain gradient: the kernels' max-abs error must be
+     finite and at most 1.5x the plain bf16 one's; the forward's LSE against
+     logsumexp of the f32 scores. Kernel and plain times at the UNet's L0
+     shape.
+  4. whole UNet: full SVD widths on a 2-frame 16x16 latent (all kernels
      engage), bf16 with the kernels on the card against f32 with the plain
-     versions on the host CPU, from the same seeded weights.
-  5. main path: ``generate`` at the default PipelineConfig (512x320, 14
-     frames, 25 Euler steps, stacked CFG, decode chunks of 8) with the full
-     UNet, VAE and CLIP in bf16 from seeded random weights, batch 1: one
-     warm-up run, then a timed run whose kernel launch counts must all be > 0.
-  6. the kernels JSON line, then the device JSON line last.
+     versions on the host CPU, from the same seeded weights: the forward
+     output, then the gradient of edm_denoising_loss (fixed draws) with
+     respect to the temporal-scope parameters, also against the card's bf16
+     plain path (ops/kernels/dispatch.plain_versions).
+  5. generate (the serving path): ``generate`` at the default PipelineConfig
+     (512x320, 14 frames, 25 Euler steps, stacked CFG, decode chunks of 8)
+     with the full UNet, VAE and CLIP in bf16 from seeded random weights,
+     batch 1, GEGLU kernel on: one warm-up run, then a timed run whose
+     forward-kernel launch counts must all be > 0.
+  6. train (this slice's main path): the default TrainConfig (temporal
+     scope, 512x320x14f, batch 1, remat "block", AdamW with f32 masters,
+     bf16 compute) through make_optimizer/create_train_state/make_train_step
+     on a seeded synthetic batch in [-1, 1]: one warm-up step, then 3 timed
+     steps whose launch counts of every kernel (forward and flash backward)
+     must all be > 0; finite loss and grad_norm, trainable weights changed,
+     frozen ones bit-identical; s/step and peak memory. Then one full-scope
+     step at the same size: finite loss, peak memory.
+  7. the kernels JSON line (launches from the train path), then the device
+     JSON line last.
+
+--profile DIR additionally writes a torch.profiler table of one train step
+(and its Chrome trace) into DIR.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
+import os
+import re
 import subprocess
 import sys
 import time
@@ -35,6 +59,16 @@ SEED = 0
 # every activation and weight to 8 significant bits (2^-9 ~ 2e-3 relative),
 # and the error compounds over ~50 sequential residual/attention blocks
 UNET_REL_L2_BOUND = 5e-2
+# the temporal-scope gradient of the same comparison: below 0.1, and at most
+# 1.25x the rel-L2 of the card's bf16 plain path (kernels off)
+GRAD_REL_L2_BOUND = 0.1
+GRAD_PLAIN_RATIO = 1.25
+# flash backward: the kernels' max-abs error against the f32 plain gradient,
+# at most this multiple of the bf16 plain gradient's
+FLASH_BWD_RATIO = 1.5
+# LSE: f32 log-sum-exp of the same f32 scores summed in another order
+LSE_ATOL = 1e-4
+TRAIN_STEPS = 3
 
 
 def log(*a):
@@ -79,14 +113,27 @@ class KernelPhase:
             raise RuntimeError(f"{name} {label}: error {err} above bound {bound}")
         self.err[name] = max(self.err.get(name, 0.0), err)
 
+    def check_grad(self, name, got, plain, ref32, label):
+        """got (kernel) and plain (bf16 plain version) against ref32."""
+        torch.cuda.synchronize()
+        err = (got.float() - ref32).abs().max().item()
+        perr = (plain.float() - ref32).abs().max().item()
+        log(f"  {name} {label}: max_abs_err {err:.6g} vs f32; bf16 plain {perr:.6g} "
+            f"(bound {FLASH_BWD_RATIO}x)")
+        if not bool(torch.isfinite(got).all()) or err > FLASH_BWD_RATIO * perr:
+            raise RuntimeError(f"{name} {label}: error {err} above {FLASH_BWD_RATIO} x {perr}")
+        self.err[name] = max(self.err.get(name, 0.0), err)
+
     def time(self, name, kernel_fn, plain_fn):
         k_ms, p_ms = cuda_ms(kernel_fn), cuda_ms(plain_fn, 3)
         self.times[name] = (k_ms, p_ms)
         log(f"  {name} L0: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+        return k_ms, p_ms
 
 
 def kernel_phases(dev) -> KernelPhase:
     from svd_xtend_tpu_torch.ops.kernels import flash_attention as fa
+    from svd_xtend_tpu_torch.ops.kernels import geglu as gg
     from svd_xtend_tpu_torch.ops.kernels import groupnorm as gn
     from svd_xtend_tpu_torch.ops.kernels import temporal_attention as ta
     from svd_xtend_tpu_torch.ops.kernels import temporal_resnet as tr
@@ -95,8 +142,8 @@ def kernel_phases(dev) -> KernelPhase:
     rn = lambda *s, sc=1.0: (torch.randn(*s, device=dev, generator=g) * sc).to(torch.bfloat16)
     ph = KernelPhase()
 
-    log("kernels: flash attention (CFG batch 2x14 frames)")
-    for b, s, h in [(28, 2560, 5), (28, 640, 10)]:
+    log("kernels: flash attention (CFG batch 2x14 frames; batch 14 in the backward below)")
+    for b, s, h in [(28, 2560, 5), (28, 640, 10), (28, 160, 20), (28, 40, 20)]:
         q, k, v = rn(b, s, h * 64), rn(b, s, h * 64), rn(b, s, h * 64)
         run = lambda: fa.flash_attention_packed(q, k, v, num_heads=h, scale=0.125)
         plain = lambda: fa.flash_attention_packed_reference(q, k, v, num_heads=h, scale=0.125)
@@ -106,7 +153,7 @@ def kernel_phases(dev) -> KernelPhase:
         del q, k, v
 
     log("kernels: temporal attention")
-    for b, f, s, h in [(2, 14, 2560, 5), (2, 14, 640, 10)]:
+    for b, f, s, h in [(2, 14, 2560, 5), (2, 14, 640, 10), (2, 14, 160, 20), (2, 14, 40, 20)]:
         q, k, v = rn(b, f, s, h * 64), rn(b, f, s, h * 64), rn(b, f, s, h * 64)
         run = lambda: ta.frame_attention(q, k, v, num_heads=h, scale=0.125)
         plain = lambda: ta.frame_attention_reference(q, k, v, num_heads=h, scale=0.125)
@@ -162,6 +209,70 @@ def kernel_phases(dev) -> KernelPhase:
         ph.check("group_norm_silu", run(), plain(), f"{shape} silu={silu}")
         if shape == (28, 2560, 320):
             ph.time("group_norm_silu", run, plain)
+
+    log("kernels: fused residual GEGLU (T x C at the four UNet levels: training, then "
+        "serving with CFG, 2T)")
+    for t, c in [(35840, 320), (8960, 640), (2240, 1280), (560, 1280),
+                 (71680, 320), (17920, 640), (4480, 1280), (1120, 1280)]:
+        args = [rn(t, c), 1 + 0.1 * rn(c), 0.1 * rn(c), rn(8 * c, c, sc=c ** -0.5),
+                0.1 * rn(8 * c), rn(c, 4 * c, sc=(4 * c) ** -0.5), 0.1 * rn(c)]
+        run = lambda: gg.ln_geglu_residual(*args)
+        plain = lambda: gg.ln_geglu_residual_reference(*args)
+        ph.check("geglu_fwd", run(), plain(), f"T {t} C {c}")
+        x, ls, lb, w1, b1, w2, b2 = args
+        ln = torch.nn.LayerNorm(c, device=dev, dtype=torch.bfloat16)
+        ln.weight.data.copy_(ls)
+        ln.bias.data.copy_(lb)
+        b1b, b2b = b1.to(torch.bfloat16), b2.to(torch.bfloat16)
+
+        def module_path():
+            h, g = torch.nn.functional.linear(ln(x), w1, b1b).chunk(2, dim=-1)
+            return x + torch.nn.functional.linear(
+                h * torch.nn.functional.gelu(g, approximate="tanh"), w2, b2b)
+        if t == 35840:
+            ph.time("geglu_fwd", run, plain)
+        else:
+            log(f"  geglu_fwd T {t} C {c}: kernel {cuda_ms(run):.4f} ms")
+        log(f"    unfused bf16 module path (LayerNorm + cuBLAS GEMMs + gate): {cuda_ms(module_path):.4f} ms")
+        del args
+
+    log("kernels: flash attention forward with LSE and backward (training batch 14 frames)")
+    for b, s_len, h in [(14, 2560, 5), (14, 640, 10), (14, 160, 20), (14, 40, 20)]:
+        q, k, v, do = (rn(b, s_len, h * 64) for _ in range(4))
+        o, lse = fa.flash_attention_fwd(q, k, v, h, 0.125)
+        ref_o, ref_lse = fa.flash_attention_fwd_reference(q, k, v, h, 0.125)
+        ph.check("flash_attention_fwd", o, ref_o, f"{(b, s_len, h * 64)} heads {h}")
+        lerr = (lse - ref_lse).abs().max().item()
+        log(f"  flash LSE {(b, s_len, h)}: max_abs_err {lerr:.3g} (bound {LSE_ATOL})")
+        if not bool(torch.isfinite(lse).all()) or lerr > LSE_ATOL:
+            raise RuntimeError(f"flash LSE error {lerr}")
+        delta = fa.attention_delta(o, do, h)
+        dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, h, 0.125)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, h, 0.125)
+        plain_fn = lambda q, k, v: fa.flash_attention_packed_reference(q, k, v, num_heads=h,
+                                                                       scale=0.125)
+        grads = []
+        for inputs, dout in (((q, k, v), do),
+                             ((q.float(), k.float(), v.float()), do.float())):
+            leaves = [x.detach().requires_grad_(True) for x in inputs]
+            grads.append(torch.autograd.grad(plain_fn(*leaves), leaves, dout))
+        (pq, pk, pv), (rq, rk, rv) = grads
+        label = f"{(b, s_len, h * 64)} heads {h}"
+        ph.check_grad("flash_attention_bwd_dq", dq, pq, rq, label + " dQ")
+        ph.check_grad("flash_attention_bwd_dkv", dk, pk, rk, label + " dK")
+        ph.check_grad("flash_attention_bwd_dkv", dv, pv, rv, label + " dV")
+        del grads, pq, pk, pv, rq, rk, rv
+        if s_len == 2560:
+            plain_bwd = lambda: fa.flash_attention_bwd_reference(q, k, v, o, lse, do, h, 0.125)
+            ph.time("flash_attention_bwd_dq",
+                    lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, h, 0.125),
+                    plain_bwd)
+            ph.time("flash_attention_bwd_dkv",
+                    lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, h, 0.125),
+                    plain_bwd)
+            log("    (plain_ms of both backward kernels is the plain backward computing "
+                "dQ, dK and dV together)")
+        del q, k, v, do, o, ref_o, dq, dk, dv
     return ph
 
 
@@ -197,8 +308,52 @@ def whole_unet_phase(dev):
     if not bool(torch.isfinite(got).all()) or rel > UNET_REL_L2_BOUND:
         raise RuntimeError(f"whole-UNet phase: rel_l2 {rel} above {UNET_REL_L2_BOUND}")
 
+    from svd_xtend_tpu_torch.core.config import TrainConfig
+    from svd_xtend_tpu_torch.diffusion.pipeline import SVDModels
+    from svd_xtend_tpu_torch.diffusion.training import TrainBatchEncodings, edm_denoising_loss
+    from svd_xtend_tpu_torch.ops.kernels.dispatch import plain_versions
+    from svd_xtend_tpu_torch.train.state import trainable_mask
+
+    enc = TrainBatchEncodings(latents=torch.randn(1, 2, 16, 16, 4, generator=gen),
+                              cond_latents=torch.randn(1, 16, 16, 4, generator=gen),
+                              image_embeds=ehs, noise_aug=torch.tensor([0.02]))
+    sigma, noise = torch.tensor([1.7]), torch.randn(1, 2, 16, 16, 4, generator=gen)
+    tcfg = TrainConfig(remat_policy="none")
+
+    def temporal_grad(unet, device):
+        names = [n for n, m in trainable_mask(unet, "temporal").items() if m]
+        named = dict(unet.named_parameters())
+        params = [named[n] for n in names]
+        unet.requires_grad_(False)
+        for p in params:
+            p.requires_grad_(True)
+        e = TrainBatchEncodings(*(x.to(device) for x in enc))
+        loss = edm_denoising_loss(SVDModels(unet, None, None), e, tcfg, sigma.to(device),
+                                  noise.to(device))
+        grads = torch.autograd.grad(loss, params, materialize_grads=True)
+        return loss.item(), torch.cat([g.float().flatten().cpu() for g in grads])
+
+    t0 = time.time()
+    loss_ref, g_ref = temporal_grad(cpu, "cpu")
+    log(f"  host f32 loss + temporal-scope gradient {time.time() - t0:.1f} s")
+    loss_k, g_k = temporal_grad(gpu, dev)
+    with plain_versions():
+        loss_p, g_p = temporal_grad(gpu, dev)
+    rel_k = ((g_k - g_ref).norm() / g_ref.norm()).item()
+    rel_p = ((g_p - g_ref).norm() / g_ref.norm()).item()
+    log(f"  temporal-scope gradient ({g_ref.numel()} values), loss {loss_ref:.5g} host, "
+        f"{loss_k:.5g} kernels, {loss_p:.5g} plain: rel_l2 kernels {rel_k:.4g}, "
+        f"bf16 plain {rel_p:.4g} (bounds {GRAD_REL_L2_BOUND}, {GRAD_PLAIN_RATIO}x plain)")
+    if (not bool(torch.isfinite(g_k).all()) or rel_k >= GRAD_REL_L2_BOUND
+            or rel_k > GRAD_PLAIN_RATIO * rel_p):
+        raise RuntimeError(f"whole-UNet gradient: rel_l2 {rel_k} (plain {rel_p})")
+
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--profile", default="",
+                        help="directory for a torch.profiler table of one train step")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
         return 1
@@ -220,17 +375,86 @@ def main() -> int:
     ph = kernel_phases(dev)
     torch.cuda.empty_cache()
 
-    log("whole UNet: full widths, card bf16 kernels vs host f32 plain")
+    log("whole UNet: full widths, card bf16 kernels vs host f32 plain (output, gradient)")
     whole_unet_phase(dev)
     torch.cuda.empty_cache()
 
-    log("main path: generate at PipelineConfig() with full UNet/VAE/CLIP, bf16")
-    from svd_xtend_tpu_torch.core.config import PipelineConfig
-    from svd_xtend_tpu_torch.diffusion.pipeline import SVDModels, generate
+    counters = kernel_counters()
+    log("generate: PipelineConfig() with full UNet/VAE/CLIP, bf16, GEGLU kernel on")
+    generate_phase(dev, smi, counters)
+    torch.cuda.empty_cache()
+
+    log("train: default TrainConfig (temporal scope, 512x320x14f, batch 1, remat block)")
+    launches = train_phase(dev, smi, counters, args.profile)
+    torch.cuda.empty_cache()
+
+    sources = {
+        "flash_attention_fwd": ("cuda", "svd_xtend_tpu_torch/csrc/flash_attention.cu",
+                                "svd_xtend_tpu/ops/pallas/flash_attention.py:223"),
+        "frame_attention_fwd": ("cuda", "svd_xtend_tpu_torch/csrc/temporal_attention.cu",
+                                "svd_xtend_tpu/ops/pallas/temporal_attention.py:86"),
+        "temporal_resnet_conv_a": ("cuda", "svd_xtend_tpu_torch/csrc/temporal_resnet.cu",
+                                   "svd_xtend_tpu/ops/pallas/temporal_resnet.py:126"),
+        "temporal_resnet_conv_b": ("cuda", "svd_xtend_tpu_torch/csrc/temporal_resnet.cu",
+                                   "svd_xtend_tpu/ops/pallas/temporal_resnet.py:140"),
+        "group_norm_silu": ("triton", "svd_xtend_tpu_torch/ops/kernels/groupnorm.py",
+                            "svd_xtend_tpu/ops/pallas/groupnorm.py:51"),
+        "geglu_fwd": ("cuda", "svd_xtend_tpu_torch/csrc/geglu.cu",
+                      "svd_xtend_tpu/ops/pallas/geglu.py:119"),
+        "flash_attention_bwd_dq": ("cuda", "svd_xtend_tpu_torch/csrc/flash_attention.cu",
+                                   "svd_xtend_tpu/ops/pallas/flash_attention.py:345"),
+        "flash_attention_bwd_dkv": ("cuda", "svd_xtend_tpu_torch/csrc/flash_attention.cu",
+                                    "svd_xtend_tpu/ops/pallas/flash_attention.py:395"),
+    }
+    kernels = []
+    for name, (route, src, replaces) in sources.items():
+        k_ms, p_ms = ph.times[name]
+        kernels.append({"name": name, "route": route, "source": src, "replaces": replaces,
+                        "launches": launches[name], "max_abs_err": ph.err[name],
+                        "ms": k_ms, "plain_ms": p_ms})
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def kernel_counters():
+    """name -> the wrapper whose `launches` counts that kernel."""
     from svd_xtend_tpu_torch.ops.kernels import flash_attention as fa
+    from svd_xtend_tpu_torch.ops.kernels import geglu as gg
     from svd_xtend_tpu_torch.ops.kernels import groupnorm as gn
     from svd_xtend_tpu_torch.ops.kernels import temporal_attention as ta
     from svd_xtend_tpu_torch.ops.kernels import temporal_resnet as tr
+    return {
+        "flash_attention_fwd": fa.flash_attention_packed,
+        "frame_attention_fwd": ta.frame_attention,
+        "temporal_resnet_conv_a": tr.conv_a,
+        "temporal_resnet_conv_b": tr.conv_b,
+        "group_norm_silu": gn.group_norm_silu,
+        "geglu_fwd": gg.ln_geglu_residual,
+        "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
+        "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
+    }
+
+
+def reset(counters):
+    for fn in counters.values():
+        fn.launches = 0
+
+
+def read(counters, names):
+    launches = {name: counters[name].launches for name in names}
+    log(f"  launches in the timed run: {launches}")
+    missing = [n for n, c in launches.items() if c == 0]
+    if missing:
+        raise RuntimeError(f"kernels never launched on the path: {missing}")
+    return launches
+
+
+def generate_phase(dev, smi, counters):
+    from svd_xtend_tpu_torch.core.config import PipelineConfig
+    from svd_xtend_tpu_torch.diffusion.pipeline import SVDModels, generate
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     t0 = time.time()
@@ -244,21 +468,13 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"  warm-up video: {time.time() - t0:.2f} s")
 
-    wrappers = {
-        "flash_attention_fwd": fa.flash_attention_packed,
-        "frame_attention_fwd": ta.frame_attention,
-        "temporal_resnet_conv_a": tr.conv_a,
-        "temporal_resnet_conv_b": tr.conv_b,
-        "group_norm_silu": gn.group_norm_silu,
-    }
-    for fn in wrappers.values():
-        fn.launches = 0
+    reset(counters)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     video = generate(models, image, cfg, generator=torch.Generator(device=dev).manual_seed(SEED))
     torch.cuda.synchronize()
     secs = time.time() - t0
-    launches = {name: fn.launches for name, fn in wrappers.items()}
+    read(counters, [n for n in counters if "bwd" not in n])
     peak = torch.cuda.max_memory_allocated()
 
     expect = (1, cfg.num_frames, cfg.height, cfg.width, 3)
@@ -269,36 +485,179 @@ def main() -> int:
     if video.min().item() < -1.0 or video.max().item() > 1.0:
         raise RuntimeError("video outside [-1, 1]")
     log(f"  video {tuple(video.shape)} finite, in [-1, 1], std {video.std().item():.4f}")
-    log(f"  launches in the timed run: {launches}")
-    missing = [n for n, c in launches.items() if c == 0]
-    if missing:
-        raise RuntimeError(f"kernels never launched on the main path: {missing}")
     log(f"  [{smi}] seconds/video {secs:.3f}; frames/s {cfg.num_frames / secs:.3f}; "
         f"peak allocated {peak / 2**30:.2f} GiB")
 
-    sources = {
-        "flash_attention_fwd": ("cuda", "svd_xtend_tpu_torch/csrc/flash_attention.cu",
-                                "svd_xtend_tpu/ops/pallas/flash_attention.py:223"),
-        "frame_attention_fwd": ("cuda", "svd_xtend_tpu_torch/csrc/temporal_attention.cu",
-                                "svd_xtend_tpu/ops/pallas/temporal_attention.py:86"),
-        "temporal_resnet_conv_a": ("cuda", "svd_xtend_tpu_torch/csrc/temporal_resnet.cu",
-                                   "svd_xtend_tpu/ops/pallas/temporal_resnet.py:126"),
-        "temporal_resnet_conv_b": ("cuda", "svd_xtend_tpu_torch/csrc/temporal_resnet.cu",
-                                   "svd_xtend_tpu/ops/pallas/temporal_resnet.py:140"),
-        "group_norm_silu": ("triton", "svd_xtend_tpu_torch/ops/kernels/groupnorm.py",
-                            "svd_xtend_tpu/ops/pallas/groupnorm.py:51"),
-    }
-    kernels = []
-    for name, (route, src, replaces) in sources.items():
-        k_ms, p_ms = ph.times[name]
-        kernels.append({"name": name, "route": route, "source": src, "replaces": replaces,
-                        "launches": launches[name], "max_abs_err": ph.err[name],
-                        "ms": k_ms, "plain_ms": p_ms})
-    print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu",
-                                             "kind": torch.cuda.get_device_name(0),
-                                             "count": torch.cuda.device_count()}}))
-    return 0
+
+def train_phase(dev, smi, counters, profile_dir):
+    import dataclasses
+
+    from svd_xtend_tpu_torch.core.config import TrainConfig
+    from svd_xtend_tpu_torch.diffusion.pipeline import SVDModels
+    from svd_xtend_tpu_torch.train.state import (cast_frozen_to_compute, create_train_state,
+                                                 make_train_step)
+
+    cfg = TrainConfig()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    t0 = time.time()
+    models = SVDModels.create(device=dev, dtype=torch.float32, generator=gen)
+    state = create_train_state(cfg, models)
+    cast_frozen_to_compute(models, torch.bfloat16)
+    step = make_train_step(models, cfg)
+    torch.cuda.synchronize()
+    n_train = sum(p.numel() for p in state.params)
+    log(f"  models (f32 init, then bf16) and state: {time.time() - t0:.1f} s; "
+        f"{len(state.names)} trainable tensors, {n_train} values")
+    batch = torch.rand(cfg.per_device_batch_size, cfg.num_frames, cfg.height, cfg.width, 3,
+                       device=dev, generator=gen) * 2 - 1
+    draws = torch.Generator(device=dev).manual_seed(SEED + 5)
+
+    t0 = time.time()
+    state, m = step(state, batch, generator=draws)
+    torch.cuda.synchronize()
+    log(f"  warm-up step: {time.time() - t0:.2f} s, loss {m['loss']:.5g}, "
+        f"grad_norm {m['grad_norm']:.5g}")
+
+    trained = set(state.names)
+    named = dict(models.unet.named_parameters())
+    # the copies to compare against stay on the host, out of the peak below
+    before_train = [m.cpu() for m in state.params]
+    before_frozen = {n: p.detach().cpu() for n, p in named.items() if n not in trained}
+    reset(counters)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    metrics = []
+    for _ in range(TRAIN_STEPS):
+        state, m = step(state, batch, generator=draws)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    secs = (time.time() - t0) / TRAIN_STEPS
+    launches = read(counters, list(counters))
+    peak = torch.cuda.max_memory_allocated()
+    for m in metrics:
+        log(f"  step: loss {m['loss']:.5g} grad_norm {m['grad_norm']:.5g} lr {m['lr']:.3g}")
+        if not (torch.isfinite(torch.tensor(m["loss"])) and torch.isfinite(
+                torch.tensor(m["grad_norm"]))):
+            raise RuntimeError(f"non-finite train metrics {m}")
+    changed = sum(not torch.equal(m.cpu(), b) for m, b in zip(state.params, before_train))
+    if changed == 0:
+        raise RuntimeError("no trainable weight changed")
+    for n, m in zip(state.names, state.params):
+        if not torch.equal(named[n], m.to(named[n].dtype)):
+            raise RuntimeError(f"compute copy of {n} out of step with its master")
+    moved = [n for n, b in before_frozen.items() if not torch.equal(named[n].cpu(), b)]
+    if moved:
+        raise RuntimeError(f"frozen weights changed: {moved[:5]}")
+    log(f"  {changed}/{len(state.names)} trainable f32 masters changed, "
+        f"{len(before_frozen)} frozen bit-identical")
+    log(f"  [{smi}] temporal scope: seconds/step {secs:.3f}; "
+        f"peak allocated {peak / 2**30:.2f} GiB")
+    del before_train, before_frozen
+
+    if profile_dir:
+        profile_step(step, state, batch, draws, profile_dir)
+
+    del state
+    torch.cuda.empty_cache()
+    full_cfg = dataclasses.replace(cfg, train_mode="full")
+    state = create_train_state(full_cfg, models)
+    step = make_train_step(models, full_cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    state, m = step(state, batch, generator=draws)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    if not torch.isfinite(torch.tensor(m["loss"])):
+        raise RuntimeError(f"full scope: non-finite loss {m}")
+    log(f"  [{smi}] full scope ({sum(p.numel() for p in state.params)} values): one step "
+        f"{time.time() - t0:.2f} s (first of its scope), loss {m['loss']:.5g}, grad_norm "
+        f"{m['grad_norm']:.5g}; peak allocated {peak / 2**30:.2f} GiB")
+    return launches
+
+
+# the port's own kernels: the __global__ functions of csrc/*.cu and the
+# Triton kernels of ops/kernels/groupnorm.py, by their unqualified names
+HAND_KERNELS = frozenset({"flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
+                          "tconv_kernel", "frame_attention_kernel", "ln_kernel", "gemm1_kernel",
+                          "gemm2_kernel", "stats_kernel", "norm_kernel"})
+
+
+def kernel_base_name(name: str) -> str:
+    """'void (anonymous namespace)::tconv_kernel<true, 128>(...)' ->
+    'tconv_kernel'; names in a named namespace keep it ('at::native::...')."""
+    name = name.removeprefix("void ").replace("(anonymous namespace)::", "")
+    return re.match(r"[\w:]*", name).group(0)
+
+
+def kernel_kind(name: str) -> str:
+    if kernel_base_name(name) in HAND_KERNELS:
+        return "hand kernels"
+    if "f32f32" in name or "sgemm" in name:
+        return "f32 GEMMs (plain backwards)"
+    if "fprop" in name or "dgrad" in name or "wgrad" in name or "conv" in name.lower():
+        return "cuDNN convs"
+    if "gemm" in name.lower() or "cutlass" in name or "nvjet" in name:
+        return "bf16 GEMMs (cuBLAS)"
+    return "elementwise/reduce/copy"
+
+
+def step_breakdown(trace_path: str) -> None:
+    """Device time of one traced train step by phase (from the labels of
+    train/state.py, diffusion/training.py and models/unet.py: a kernel is
+    charged to the label range its launch falls in) and by kind."""
+    with open(trace_path) as fh:
+        events = [e for e in json.load(fh)["traceEvents"] if e.get("ph") == "X"]
+    labels = [e for e in events if e.get("cat") == "user_annotation"]
+    launch = {e["args"]["correlation"]: e["ts"] for e in events
+              if e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {})}
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    span = max(e["ts"] + e["dur"] for e in kernels) - min(e["ts"] for e in kernels)
+
+    def inside(name, ts):
+        return any(e["name"] == name and e["ts"] <= ts <= e["ts"] + e["dur"] for e in labels)
+
+    table = {}
+    for e in kernels:
+        ts = launch.get(e["args"].get("correlation"), e["ts"])
+        if inside("train.backward", ts):
+            phase = "recompute" if inside("unet.checkpointed_block", ts) else "backward"
+        elif inside("train.optimizer", ts):
+            phase = "optimizer"
+        elif inside("train.encode", ts):
+            phase = "encode (VAE, CLIP)"
+        elif inside("train.unet_loss", ts):
+            phase = "forward"
+        else:
+            phase = "other"
+        key = (phase, kernel_kind(e["name"]))
+        table[key] = table.get(key, 0.0) + e["dur"] / 1e3
+    busy = sum(table.values())
+    log(f"  traced step: device span {span / 1e3:.1f} ms, kernels busy {busy:.1f} ms "
+        f"(idle {100 * (1 - busy * 1e3 / span):.1f} % under the profiler)")
+    for phase in ("encode (VAE, CLIP)", "forward", "recompute", "backward", "optimizer",
+                  "other"):
+        rows = {k: v for (p, k), v in table.items() if p == phase}
+        if rows:
+            parts = ", ".join(f"{k} {v:.1f}" for k, v in sorted(rows.items(), key=lambda r: -r[1]))
+            log(f"    {phase}: {sum(rows.values()):.1f} ms ({parts})")
+
+
+def profile_step(step, state, batch, draws, out_dir):
+    """torch.profiler over one train step: the table by device time and the
+    Chrome trace into out_dir, and the breakdown by phase and kind."""
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(out_dir, exist_ok=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(state, batch, generator=draws)
+        torch.cuda.synchronize()
+    table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=60)
+    with open(os.path.join(out_dir, "train_step_profile.txt"), "w") as fh:
+        fh.write(table)
+    trace = os.path.join(out_dir, "train_step_trace.json")
+    prof.export_chrome_trace(trace)
+    log(f"  profile of one train step written to {out_dir}")
+    step_breakdown(trace)
 
 
 if __name__ == "__main__":

@@ -1,8 +1,8 @@
 """Model and pipeline configuration dataclasses.
 
-A field-for-field copy of the serving configs of
-``svd_xtend_tpu/core/config.py`` (UNetConfig, VAEConfig, CLIPVisionConfig,
-SchedulerConfig, PipelineConfig and the TINY_* test configs). The port keeps
+A field-for-field copy of the configs of ``svd_xtend_tpu/core/config.py``
+(UNetConfig, VAEConfig, CLIPVisionConfig, SchedulerConfig, PipelineConfig,
+MeshConfig, TrainConfig and the TINY_* test configs). The port keeps
 its own copy because the JAX package's ``core/__init__.py`` imports modules
 that import jax; ``tests/test_torch_port_basics.py`` holds this copy equal
 to the JAX dataclasses. Defaults reproduce the SVD checkpoint config.
@@ -161,3 +161,101 @@ class PipelineConfig:
     vae_quant: Optional[str] = None
     deep_cache_interval: int = 1
     deep_cache_depth: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Device-mesh layout. axis sizes of -1 mean "fill with what's left".
+    Not used by the port yet (one card); kept so TrainConfig matches."""
+
+    data: int = -1
+    model: int = 1
+    frames: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training hyperparameters (the reference's flag surface).
+
+    The port runs the default train step: the 'temporal' and 'full' scopes,
+    AdamW with f32 masters, gradient accumulation, EMA, remat. The options
+    outside that slice are refused at use (``check_ported``): 8-bit Adam,
+    ZeRO-1, host offload, bf16 gradient storage, the 'lora' and 'tracklet'
+    scopes and the Tracklet2Video branch. ``encode_chunk_size`` chunks the
+    frozen VAE encode (0 = unchunked); the posterior noise is drawn per
+    chunk, as in the JAX package."""
+
+    # data
+    base_folder: str = ""
+    width: int = 512
+    height: int = 320
+    num_frames: int = 14
+    per_device_batch_size: int = 1
+    num_workers: int = 8
+    encode_chunk_size: int = 8
+    # optimization
+    learning_rate: float = 1e-4
+    scale_lr: bool = False
+    lr_scheduler: str = "constant"      # linear|cosine|cosine_with_restarts|polynomial|constant|constant_with_warmup
+    lr_warmup_steps: int = 500
+    max_train_steps: int = 50000
+    gradient_accumulation_steps: int = 1
+    adam_beta1: float = 0.9
+    adam_beta2: float = 0.999
+    adam_weight_decay: float = 1e-2
+    adam_epsilon: float = 1e-8
+    max_grad_norm: float = 1.0
+    use_8bit_adam: bool = False
+    zero1: bool = False
+    host_offload: str = "none"
+    # EDM
+    p_mean: float = 0.7
+    p_std: float = 1.6
+    cond_aug_loc: float = -3.0
+    cond_aug_std: float = 0.5
+    conditioning_dropout_prob: float = 0.1
+    # trainable scope: 'full' | 'temporal' | 'lora' | 'tracklet'
+    train_mode: str = "temporal"
+    lora_rank: int = 4
+    lora_alpha: int = 4
+    tracklet_dim: int = 0
+    tracklet_gate_init: float = 0.0
+    max_boxes: int = 16
+    # EMA
+    use_ema: bool = False
+    ema_decay: float = 0.9999
+    # precision
+    mixed_precision: str = "bf16"       # no|bf16
+    grad_dtype: str = "fp32"            # fp32|bf16
+    # checkpointing
+    output_dir: str = "./outputs"
+    checkpointing_steps: int = 500
+    checkpoints_total_limit: int = 2
+    resume_from_checkpoint: str = ""
+    validation_steps: int = 500
+    num_validation_images: int = 1
+    # misc
+    seed: int = 123
+    report_to: str = "tensorboard"
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
+    # performance
+    remat_policy: str = "block"         # none|block|outer (models/unet.py)
+    vae_encode_in_loop: bool = True
+
+    def check_ported(self) -> None:
+        """Raise ValueError for an option the port does not run yet."""
+        unported = {
+            "use_8bit_adam": self.use_8bit_adam,
+            "zero1": self.zero1,
+            "host_offload": self.host_offload != "none",
+            "grad_dtype": self.grad_dtype != "fp32",
+            "train_mode": self.train_mode not in ("temporal", "full"),
+            "tracklet_dim": self.tracklet_dim > 0,
+            "vae_encode_in_loop": not self.vae_encode_in_loop,
+        }
+        bad = [k for k, v in unported.items() if v]
+        if bad:
+            raise ValueError(f"not ported yet: {', '.join(bad)} (the port trains the "
+                             "temporal and full scopes with fp32 AdamW masters on one card)")
+        if self.remat_policy not in ("none", "block", "outer"):
+            raise ValueError(f"unknown remat policy {self.remat_policy!r}")

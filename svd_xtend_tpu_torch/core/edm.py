@@ -1,18 +1,28 @@
 """EDM (Karras et al. 2022) diffusion math on f32 tensors.
 
-Port of ``svd_xtend_tpu/core/edm.py`` (the inference half): timestep
+Port of ``svd_xtend_tpu/core/edm.py``: the log-normal σ sampler, timestep
 t = 0.25·ln σ, the σ_data = 1 preconditioning scalings, the denoiser, the
-Karras schedule and the Euler step. Every function computes in f32
-regardless of the input dtype.
+loss weight and weighted denoising loss, the Karras schedule and the Euler
+step. Every function computes in f32 regardless of the input dtype.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 
 def _f32(x) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32)
+
+
+def rand_log_normal(shape, loc: float = 0.0, scale: float = 1.0, *,
+                    generator: Optional[torch.Generator] = None,
+                    device=None) -> torch.Tensor:
+    """σ ~ exp(N(loc, scale²)), f32, drawn from `generator`."""
+    return torch.exp(torch.randn(shape, generator=generator, device=device,
+                                 dtype=torch.float32) * scale + loc)
 
 
 def sigma_to_t(sigma) -> torch.Tensor:
@@ -32,6 +42,21 @@ def denoise(model_out: torch.Tensor, noisy: torch.Tensor, sigma) -> torch.Tensor
     """EDM preconditioned denoiser output; `sigma` broadcasts on the sample."""
     c_skip, c_out, _ = edm_scalings(sigma)
     return model_out.float() * c_out + noisy.float() * c_skip
+
+
+def loss_weight(sigma) -> torch.Tensor:
+    """λ(σ) = (1 + σ²) / σ²."""
+    sigma = _f32(sigma)
+    return (1.0 + sigma * sigma) / (sigma * sigma)
+
+
+def weighted_denoising_loss(denoised: torch.Tensor, target: torch.Tensor,
+                            sigma) -> torch.Tensor:
+    """Mean over the batch of each sample's mean λ(σ)-weighted squared
+    error, f32; `sigma` broadcasts on the sample, (B, 1, ...)."""
+    err = (denoised.float() - target.float()) ** 2
+    per_sample = (loss_weight(sigma) * err).reshape(err.shape[0], -1).mean(1)
+    return per_sample.mean()
 
 
 def karras_sigmas(num_steps: int, sigma_min: float = 0.002,

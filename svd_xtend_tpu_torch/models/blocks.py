@@ -23,6 +23,7 @@ from torch import nn
 from ..ops import video
 from ..ops.kernels import groupnorm as gnk
 from ..ops.kernels import temporal_resnet as trk
+from ..ops.kernels.dispatch import kernels_enabled
 
 
 class GroupNormSiLU(nn.Module):
@@ -36,7 +37,7 @@ class GroupNormSiLU(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if gnk.supports(x, self.groups):
+        if kernels_enabled() and gnk.supports(x, self.groups):
             return gnk.group_norm_silu(x, self.weight, self.bias, groups=self.groups,
                                        eps=self.eps, silu=self.silu)
         return gnk.group_norm_silu_reference(x, self.weight, self.bias,
@@ -139,7 +140,7 @@ class TemporalResnetBlock(nn.Module):
         args = (xs, t, self.conv1.taps(), self.conv1.bias, self.conv2.taps(),
                 self.conv2.bias, self.norm1.weight, self.norm1.bias,
                 self.norm2.weight, self.norm2.bias, blend_weight)
-        if trk.supports(xs):
+        if kernels_enabled() and trk.supports(xs):
             out = trk.temporal_resnet_block(*args, groups=self.groups, eps=self.eps)
         else:
             out = trk.temporal_resnet_reference(*args, self.groups, self.eps)

@@ -8,10 +8,11 @@ sigmoid weights the temporal branch.
 
 Kernel sites: the spatial self-attention ``attn1`` goes to the flash kernel
 (ops/attention.py), the frame self-attention to the temporal-attention
-kernel, and the transformer ``norm`` to the GroupNorm kernel (blocks.py).
-The feed-forward is LayerNorm -> Dense -> tanh-GELU gate -> Dense, as the
-JAX package runs it with its fused GEGLU kernel off (``SVDX_PALLAS_GEGLU=0``);
-JAX's ``nn.gelu`` is the tanh form. State-dict keys are the diffusers names.
+kernel, the transformer ``norm`` to the GroupNorm kernel (blocks.py), and
+every pre-LN feed-forward (norm3/ff, norm_in/ff_in) to the fused residual
+GEGLU kernel (ops/kernels/geglu.py), as the JAX package runs it by default
+(``SVDX_PALLAS_GEGLU`` on). The GELU is the tanh form, as JAX's ``nn.gelu``.
+State-dict keys are the diffusers names.
 """
 
 from __future__ import annotations
@@ -23,7 +24,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import dot_product_attention_packed
+from ..ops.kernels import geglu as gk
 from ..ops.kernels import temporal_attention as tak
+from ..ops.kernels.dispatch import kernels_enabled
 from ..ops.video import spatial_tokens
 from .blocks import AlphaBlender, GroupNormSiLU
 from .embeddings import TimestepEmbedding, sinusoidal_embedding
@@ -79,9 +82,14 @@ class FeedForward(nn.Module):
 
 
 def residual_geglu(x: torch.Tensor, ln: nn.LayerNorm, ff: FeedForward) -> torch.Tensor:
-    """x + FeedForward(LayerNorm(x)): the module path of the JAX package's
-    ResidualGEGLU (its fused kernel is not ported yet)."""
-    return x + ff(ln(x))
+    """x + FeedForward(LayerNorm(x)), the JAX package's ResidualGEGLU: the
+    fused kernel wherever it takes the call (its plain version on the CPU),
+    the module path for a CUDA call it does not take."""
+    proj, out = ff.net[0].proj, ff.net[2]
+    if x.is_cuda and not (kernels_enabled() and gk.supports(x, out.in_features)):
+        return x + ff(ln(x))
+    return gk.ln_geglu_residual(x, ln.weight, ln.bias, proj.weight, proj.bias,
+                                out.weight, out.bias)
 
 
 class BasicTransformerBlock(nn.Module):
@@ -116,7 +124,7 @@ class FrameAxisAttention(Attention):
             return out[:, :, None, :].expand(b, f, s, out.shape[-1])
         q, k, v = self.to_q(x), self.to_k(x), self.to_v(x)
         scale = self.head_dim ** -0.5
-        if tak.supports(q, self.num_heads):
+        if kernels_enabled() and tak.supports(q, self.num_heads):
             o = tak.frame_attention(q, k, v, num_heads=self.num_heads, scale=scale)
         else:
             o = tak.frame_attention_reference(q, k, v, num_heads=self.num_heads,

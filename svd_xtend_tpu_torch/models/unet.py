@@ -1,10 +1,21 @@
 """UNetSpatioTemporalConditionModel — the SVD denoiser.
 
-Port of ``svd_xtend_tpu/models/unet.py`` (the full forward; the DeepCache
-split, remat and the Tracklet2Video branch are not ported). Inputs are
-channels-last: sample (B, F, H, W, 8), a scalar or (B,) timestep, encoder
-states (B, N, D), added_time_ids (B, 3); output (B, F, H, W, 4). The
-module computes in the dtype of its parameters; the sinusoids are f32.
+Port of ``svd_xtend_tpu/models/unet.py`` (the full forward and its remat
+policy; the DeepCache split and the Tracklet2Video branch are not ported).
+Inputs are channels-last: sample (B, F, H, W, 8), a scalar or (B,)
+timestep, encoder states (B, N, D), added_time_ids (B, 3); output
+(B, F, H, W, 4). The module computes in the dtype of its parameters; the
+sinusoids are f32.
+
+Remat (``remat=``, unet.py:200-295 in the JAX package): "none" keeps every
+activation for the backward; "block" recomputes every top-level block (the
+down blocks, the mid block, the up blocks) in the backward; "outer" only
+those of resolution levels 0-1 (down blocks 0-1 and their up mirrors),
+which hold most of the activation bytes. It uses
+``torch.utils.checkpoint(use_reentrant=False)`` and applies only while grad
+mode is on; the kernels launch again in the recompute. Each checkpointed
+block runs under the profiler label ``unet.checkpointed_block``, so a trace
+tells its recompute (inside the backward) from the rest of the backward.
 """
 
 from __future__ import annotations
@@ -13,6 +24,7 @@ from typing import List, Optional, Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.config import UNetConfig
 from .blocks import (Conv2d, Downsample2D, GroupNormSiLU, SpatioTemporalResBlock,
@@ -155,8 +167,19 @@ class UNetSpatioTemporalConditionModel(nn.Module):
         self.conv_out = Conv2d(chs[0], cfg.out_channels, 3, padding=1)
 
     def forward(self, sample: torch.Tensor, timestep, encoder_hidden_states: torch.Tensor,
-                added_time_ids: torch.Tensor) -> torch.Tensor:
+                added_time_ids: torch.Tensor, remat: str = "none") -> torch.Tensor:
         cfg = self.config
+        if remat not in ("none", "block", "outer"):
+            raise ValueError(f"unknown remat policy {remat!r}")
+        n_levels = len(cfg.block_out_channels)
+
+        def run(block, level, *args):
+            # level: resolution index (0 = highest); None = the mid block
+            if (remat == "none" or not torch.is_grad_enabled()
+                    or (remat == "outer" and (level is None or level > 1))):
+                return block(*args)
+            return checkpoint(_labelled(block), *args, use_reentrant=False)
+
         b, f, h, w, _ = sample.shape
         dtype = self.conv_in.weight.dtype
         device = sample.device
@@ -174,16 +197,23 @@ class UNetSpatioTemporalConditionModel(nn.Module):
 
         x = self.conv_in(x)
         skips = [x]
-        for block in self.down_blocks:
-            x, res = block(x, emb_f, ehs_f, f)
+        for i, block in enumerate(self.down_blocks):
+            x, res = run(block, i, x, emb_f, ehs_f, f)
             skips.extend(res)
-        x = self.mid_block(x, emb_f, ehs_f, f)
-        for block in self.up_blocks:
+        x = run(self.mid_block, None, x, emb_f, ehs_f, f)
+        for i, block in enumerate(self.up_blocks):
             n_res = len(block.resnets)
-            x = block(x, skips[-n_res:], emb_f, ehs_f, f)
+            x = run(block, n_levels - 1 - i, x, skips[-n_res:], emb_f, ehs_f, f)
             skips = skips[:-n_res]
         x = self.conv_out(self.conv_norm_out(x))
         return x.reshape(b, f, h, w, cfg.out_channels)
+
+
+def _labelled(block):
+    def run(*args):
+        with torch.profiler.record_function("unet.checkpointed_block"):
+            return block(*args)
+    return run
 
 
 def _block_kind(block_type: str, direction: str) -> bool:

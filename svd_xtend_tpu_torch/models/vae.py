@@ -2,9 +2,11 @@
 
 Port of ``svd_xtend_tpu/models/vae.py``: the KL Encoder (4 stages with
 asymmetric-padding downsamplers, mid resnet-attention-resnet), the
-posterior's mode, and the TemporalDecoder whose resnets are spatio-temporal
-with a final ``time_conv_out`` frame conv. Channels-last throughout; the
-encoder takes (N, H, W, 3), the decoder (B, F, h, w, latent).
+posterior (its mode for generation, a sample for training, with the
+frame-chunked encode of diffusion/training.py:55-81), and the
+TemporalDecoder whose resnets are spatio-temporal with a final
+``time_conv_out`` frame conv. Channels-last throughout; the encoder takes
+(N, H, W, 3), the decoder (B, F, h, w, latent).
 """
 
 from __future__ import annotations
@@ -137,7 +139,8 @@ class TemporalDecoder(nn.Module):
 
 @dataclasses.dataclass
 class DiagonalGaussian:
-    """Latent posterior N(mean, exp(logvar)); generation uses its mode."""
+    """Latent posterior N(mean, exp(logvar)); generation uses its mode,
+    training a sample."""
 
     mean: torch.Tensor
     logvar: torch.Tensor
@@ -149,6 +152,10 @@ class DiagonalGaussian:
 
     def mode(self) -> torch.Tensor:
         return self.mean
+
+    def sample(self, noise: torch.Tensor) -> torch.Tensor:
+        """mean + std·noise for unit-normal `noise` shaped like the mean."""
+        return self.mean + torch.exp(0.5 * self.logvar) * noise.to(self.mean.dtype)
 
 
 class AutoencoderKLTemporalDecoder(nn.Module):
@@ -162,6 +169,17 @@ class AutoencoderKLTemporalDecoder(nn.Module):
     def encode(self, images: torch.Tensor) -> DiagonalGaussian:
         """(N, H, W, 3) -> posterior over (N, H/8, W/8, latent), f32."""
         return DiagonalGaussian.from_moments(self.quant_conv(self.encoder(images)).float())
+
+    def encode_sample_chunked(self, images: torch.Tensor, chunk_size: int,
+                              noise: torch.Tensor) -> torch.Tensor:
+        """(N, H, W, 3) -> posterior samples (N, H/8, W/8, latent) f32,
+        encoding `chunk_size` images at a time (0: all at once), the last
+        chunk ragged. The encoder never mixes images, so chunking is exact;
+        `noise` (N, h, w, latent) holds each chunk's draws in image order."""
+        n = images.shape[0]
+        cap = min(chunk_size or n, n)
+        return torch.cat([self.encode(images[i:i + cap]).sample(noise[i:i + cap])
+                          for i in range(0, n, cap)])
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         """(B, F, h, w, latent), already divided by the scaling factor."""

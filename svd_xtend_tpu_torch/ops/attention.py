@@ -17,6 +17,7 @@ from typing import Optional
 import torch
 
 from .kernels import flash_attention as fa
+from .kernels.dispatch import kernels_enabled
 
 
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -37,7 +38,7 @@ def dot_product_attention_packed(q: torch.Tensor, k: torch.Tensor,
     d = q.shape[-1] // num_heads
     if scale is None:
         scale = d ** -0.5
-    if fa.supports(q, k, num_heads):
+    if kernels_enabled() and fa.supports(q, k, num_heads):
         return fa.flash_attention_packed(q, k, v, num_heads=num_heads, scale=scale)
     o = dot_product_attention(split_heads(q, num_heads), split_heads(k, num_heads),
                               split_heads(v, num_heads), scale=scale)

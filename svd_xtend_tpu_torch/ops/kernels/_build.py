@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels (csrc/*.cu).
 
-All sources compile with one ``nvcc`` call into one shared library with a
-plain C interface, loaded with ctypes. The build runs at first use, into
+Each source compiles in its own ``nvcc`` process, all started together, and
+one more ``nvcc`` links the objects into one shared library with a plain C
+interface, loaded with ctypes. The build runs at first use, into
 ``svd_xtend_tpu_torch/_build/``, and is keyed by a hash of the sources, so a
 fresh checkout builds everything on its first kernel launch and an unchanged
 tree reuses the library. A failed build raises.
@@ -21,14 +22,18 @@ PACKAGE_ROOT = Path(__file__).resolve().parents[2]
 CSRC = PACKAGE_ROOT / "csrc"
 BUILD_DIR = PACKAGE_ROOT / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # name -> argtypes of every exported C function (each returns a cudaError_t)
 _SIGNATURES = {
-    "svdx_flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "svdx_flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "svdx_flash_attention_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "svdx_flash_attention_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                                     _P],
+    "svdx_ln_geglu_residual": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     "svdx_frame_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "svdx_temporal_resnet_conv": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _I, _I, _I, _I, _I, _P],
@@ -56,18 +61,38 @@ def library_path() -> Path:
     return BUILD_DIR / f"libsvdx_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(procs) -> None:
+    """Wait for every nvcc process; raise with the output of those that failed."""
+    failed = []
+    for name, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name} ({proc.returncode}):\n{err}")
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+
+
 def build() -> None:
     """Compile the sources unless the library for this tree exists."""
     so = library_path()
     if so.exists():
         return
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    work = BUILD_DIR / f"{so.stem}.{os.getpid()}"
+    work.mkdir(parents=True, exist_ok=True)
+    objs, procs = [], []
+    for src in _sources():
+        obj = work / f"{src.stem}.o"
+        objs.append(str(obj))
+        procs.append((src.name, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    _run(procs)
+    tmp = work / so.name
+    _run([("link", subprocess.Popen(
+        [_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp), *objs],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))])
     os.replace(tmp, so)
+    shutil.rmtree(work, ignore_errors=True)
 
 
 @functools.cache

@@ -8,13 +8,15 @@ see the source for the design.
 
 On a CPU tensor the wrapper runs ``frame_attention_reference`` (the einsum
 form of ``_xla_reference``); on a CUDA tensor it launches the kernel or
-raises.
+raises. The backward recomputes the reference and differentiates it, as the
+JAX package does (``jax.vjp(_xla_reference)``, temporal_attention.py:182).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ._autograd import differentiable
 from ._build import check, library
 
 HEAD_DIM = 64
@@ -44,11 +46,20 @@ def supports(q: torch.Tensor, num_heads: int) -> bool:
 
 
 def frame_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    num_heads: int, scale: float) -> torch.Tensor:
-    """(B, F, S, H*64) -> (B, F, S, H*64), softmax over the F axis."""
-    if q.device.type == "cpu":
-        return frame_attention_reference(q, k, v, num_heads=num_heads,
-                                         scale=scale)
+                    num_heads: int, scale: float, kernel=None) -> torch.Tensor:
+    """(B, F, S, H*64) -> (B, F, S, H*64), softmax over the F axis.
+    ``kernel`` replaces the CUDA launch (the CPU tests pass the reference to
+    run the autograd wiring without a card)."""
+    if kernel is None:
+        if q.device.type == "cpu":
+            return frame_attention_reference(q, k, v, num_heads=num_heads,
+                                             scale=scale)
+        kernel = _launch
+    return differentiable(kernel, frame_attention_reference, q, k, v,
+                          num_heads=num_heads, scale=scale)
+
+
+def _launch(q, k, v, *, num_heads: int, scale: float) -> torch.Tensor:
     if not supports(q, num_heads):
         raise ValueError(
             f"frame_attention kernel needs CUDA bf16 (B, F<={MAX_FRAMES}, S, "

@@ -16,7 +16,9 @@ weights and bias. The GN folds around them are plain torch, as they are XLA
 code in the JAX package.
 
 On a CPU tensor ``temporal_resnet_block`` runs the reference; on a CUDA
-tensor it launches the kernels or raises. Weights are taps (3, C, C):
+tensor it launches the kernels or raises. The backward recomputes the
+reference and differentiates it, the blend weight ``w`` included
+(temporal_resnet.py:318 in the JAX package). Weights are taps (3, C, C):
 ``out[f] = x[f-1] @ k[0] + x[f] @ k[1] + x[f+1] @ k[2] + b``.
 """
 
@@ -24,6 +26,7 @@ from __future__ import annotations
 
 import torch
 
+from ._autograd import differentiable
 from ._build import check, library
 from .groupnorm import (fold_from_channel_sums, group_norm_fold,
                         group_norm_silu_reference)
@@ -137,11 +140,21 @@ def _validate(x, t, k1, k2):
 
 
 def temporal_resnet_block(x, t, k1, b1, k2, b2, scale1, bias1, scale2, bias2,
-                          w, *, groups: int = 32, eps: float = 1e-5):
-    """Fused temporal resnet + blend; semantics of temporal_resnet_reference."""
-    if x.device.type == "cpu":
-        return temporal_resnet_reference(x, t, k1, b1, k2, b2, scale1, bias1,
-                                         scale2, bias2, w, groups, eps)
+                          w, *, groups: int = 32, eps: float = 1e-5, kernel=None):
+    """Fused temporal resnet + blend; semantics of temporal_resnet_reference.
+    ``kernel`` replaces the CUDA launches (the CPU tests pass the reference
+    to run the autograd wiring without a card)."""
+    if kernel is None:
+        if x.device.type == "cpu":
+            return temporal_resnet_reference(x, t, k1, b1, k2, b2, scale1, bias1,
+                                             scale2, bias2, w, groups, eps)
+        kernel = _launch_block
+    return differentiable(kernel, temporal_resnet_reference, x, t, k1, b1, k2, b2,
+                          scale1, bias1, scale2, bias2, w, groups=groups, eps=eps)
+
+
+def _launch_block(x, t, k1, b1, k2, b2, scale1, bias1, scale2, bias2, w, *,
+                  groups: int, eps: float):
     _validate(x, t, k1, k2)
     _, f, s, _ = x.shape
     sc1, sh1 = group_norm_fold(x, scale1, bias1, groups=groups, eps=eps)

@@ -1,6 +1,9 @@
 """The port's hand-written kernels against their plain PyTorch versions on
-an NVIDIA GPU, in bf16, at small ragged shapes (the full-size check is
-chip_smoke.py). Every test is marked ``cuda`` and skips without a card.
+an NVIDIA GPU, in bf16, at small ragged shapes and at the training sites'
+shapes (the full-size run is chip_smoke.py), and the kernels inside
+autograd: every kernel's output on inputs that require grad carries a
+grad_fn, and its gradients match those of its plain version. Every test is
+marked ``cuda`` and skips without a card.
 
 This file imports no jax, so it runs where jax is absent; there, skip the
 repository conftest (which sets up jax for the JAX package's tests):
@@ -14,6 +17,7 @@ import pytest
 import torch
 
 from svd_xtend_tpu_torch.ops.kernels import flash_attention as fa
+from svd_xtend_tpu_torch.ops.kernels import geglu as gg
 from svd_xtend_tpu_torch.ops.kernels import groupnorm as gn
 from svd_xtend_tpu_torch.ops.kernels import temporal_attention as ta
 from svd_xtend_tpu_torch.ops.kernels import temporal_resnet as tr
@@ -86,3 +90,118 @@ def test_wrappers_raise_on_untaken_shapes(rn):
                                   scale=0.1)
     with pytest.raises(ValueError):
         ta.frame_attention(*(rn(1, 33, 4, 64) for _ in range(3)), num_heads=1, scale=0.1)
+
+
+# ------------------------------------------------- kernels inside autograd --
+
+def _grads(fn, inputs, dout):
+    leaves = [x.detach().requires_grad_(True) for x in inputs]
+    out = fn(*leaves)
+    assert out.grad_fn is not None
+    return out, torch.autograd.grad(out, leaves, dout)
+
+
+def _geglu_args(rn, t, c):
+    return [rn(t, c), 1 + 0.1 * rn(c), 0.1 * rn(c), rn(8 * c, c, sc=c ** -0.5),
+            0.1 * rn(8 * c), rn(c, 4 * c, sc=(4 * c) ** -0.5), 0.1 * rn(c)]
+
+
+def _tresnet_args(rn, f, s, c):
+    return [rn(2, f, s, c), rn(2, f, c), rn(3, c, c, sc=(3 * c) ** -0.5), rn(c, sc=0.1),
+            rn(3, c, c, sc=(3 * c) ** -0.5), rn(c, sc=0.1), 1 + 0.1 * rn(c), 0.1 * rn(c),
+            1 + 0.1 * rn(c), 0.1 * rn(c), torch.tensor(0.37, device="cuda")]
+
+
+def _kernel_cases(rn):
+    """(name, kernel call, plain call, inputs) of every kernel Function whose
+    backward is its plain version's."""
+    return [
+        ("frame_attention",
+         lambda q, k, v: ta.frame_attention(q, k, v, num_heads=2, scale=0.125),
+         lambda q, k, v: ta.frame_attention_reference(q, k, v, num_heads=2, scale=0.125),
+         [rn(2, 14, 40, 128) for _ in range(3)]),
+        ("temporal_resnet_block",
+         lambda *a: tr.temporal_resnet_block(*a, groups=32, eps=1e-5),
+         lambda *a: tr.temporal_resnet_reference(*a, 32, 1e-5),
+         _tresnet_args(rn, 14, 40, 320)),
+        ("group_norm_silu",
+         lambda x, w, b: gn.group_norm_silu(x, w, b, groups=32, eps=1e-6, silu=True),
+         lambda x, w, b: gn.group_norm_silu_reference(x, w, b, 32, 1e-6, True),
+         [rn(4, 40, 64, 320) * 3 + 1, 1 + 0.1 * rn(320), 0.1 * rn(320)]),
+        ("ln_geglu_residual", gg.ln_geglu_residual, gg.ln_geglu_residual_reference,
+         _geglu_args(rn, 300, 320)),
+    ]
+
+
+@pytest.mark.parametrize("case", range(4))
+def test_kernel_function_gradients_match_plain(rn, case):
+    """Forward through the kernel, backward through the plain version: the
+    gradients equal autograd's of the plain version on the same inputs (the
+    same recompute, so the bound is the bf16 one of the forward)."""
+    name, kernel, plain, inputs = _kernel_cases(rn)[case]
+    ref_out = plain(*inputs)
+    dout = torch.randn(ref_out.shape, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(1)).to(ref_out.dtype)
+    out, got = _grads(kernel, inputs, dout)
+    _, ref = _grads(plain, inputs, dout)
+    _assert_close_bf16(out, ref_out)
+    for i, (g, r) in enumerate(zip(got, ref)):
+        assert g is not None and g.shape == inputs[i].shape, (name, i)
+        _assert_close_bf16(g, r)
+
+
+def _flash_grad_errors(rn, b, s, heads):
+    """Max-abs error against the f32 plain gradient of (the kernels' dq, dk,
+    dv) and (the bf16 plain version's), per input."""
+    q, k, v = (rn(b, s, heads * 64) for _ in range(3))
+    do = rn(b, s, heads * 64)
+    run = lambda q, k, v: fa.flash_attention_packed(q, k, v, num_heads=heads, scale=0.125)
+    plain = lambda q, k, v: fa.flash_attention_packed_reference(q, k, v, num_heads=heads,
+                                                                scale=0.125)
+    _, got = _grads(run, (q, k, v), do)
+    _, bf = _grads(plain, (q, k, v), do)
+    _, f32 = _grads(plain, (q.float(), k.float(), v.float()), do.float())
+    torch.cuda.synchronize()
+    err = lambda a, r: (a.float() - r).abs().max().item()
+    return [(err(g, r), err(p, r), bool(torch.isfinite(g).all()))
+            for g, p, r in zip(got, bf, f32)]
+
+
+@pytest.mark.parametrize("b,s,heads", [(3, 40, 2), (2, 160, 2), (1, 2560, 1)])
+def test_flash_backward_kernels_against_plain(rn, b, s, heads):
+    """dQ/dK/dV of the kernels at ragged (40, 160) and full (2560) lengths:
+    the kernels' error against the f32 plain gradient is finite and at most
+    1.5x the bf16 plain version's."""
+    n_dq, n_dkv = fa.flash_attention_bwd_dq.launches, fa.flash_attention_bwd_dkv.launches
+    for kernel_err, plain_err, finite in _flash_grad_errors(rn, b, s, heads):
+        assert finite and kernel_err <= 1.5 * plain_err, (kernel_err, plain_err)
+    assert fa.flash_attention_bwd_dq.launches == n_dq + 1
+    assert fa.flash_attention_bwd_dkv.launches == n_dkv + 1
+
+
+@pytest.mark.parametrize("s", [40, 160, 2560])
+def test_flash_forward_lse(rn, s):
+    q, k, v = rn(2, s, 128), rn(2, s, 128), rn(2, s, 128)
+    o, lse = fa.flash_attention_fwd(q, k, v, 2, 0.125)
+    ref_o, ref_lse = fa.flash_attention_fwd_reference(q, k, v, 2, 0.125)
+    _assert_close_bf16(o, ref_o)
+    assert lse.shape == (2, 2, s) and lse.dtype == torch.float32
+    # f32 log-sum-exp of the same f32 scores, summed in another order
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("t,c", [(35840, 320), (8960, 640), (2240, 1280), (560, 1280),
+                                 (100, 320), (37, 64)])
+def test_geglu_kernel(rn, t, c):
+    """The four UNet sites at training batch 1 (T x C), and a ragged T."""
+    args = _geglu_args(rn, t, c)
+    n = gg.ln_geglu_residual.launches
+    got = gg.ln_geglu_residual(*args)
+    assert gg.ln_geglu_residual.launches == n + 1
+    _assert_close_bf16(got - args[0], gg.ln_geglu_residual_reference(*args) - args[0])
+    _assert_close_bf16(got, gg.ln_geglu_residual_reference(*args))
+
+
+def test_geglu_wrapper_raises_on_untaken_shapes(rn):
+    with pytest.raises(ValueError):
+        gg.ln_geglu_residual(*_geglu_args(rn, 10, 96))

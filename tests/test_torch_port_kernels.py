@@ -1,11 +1,15 @@
 """Each hand-written kernel's plain PyTorch version against the JAX package:
 the Pallas kernels run as the JAX package's own tests run them on the CPU
-(interpret mode, or SVDX_PALLAS_TRESNET=force), and the XLA references.
-Float32; shapes include ragged frame counts (F = 3).
+(interpret mode, or SVDX_PALLAS_TRESNET / SVDX_PALLAS_GEGLU=force), and the
+XLA references. Float32; shapes include ragged frame counts (F = 3). Also
+the kernels' autograd wiring, with each plain forward injected in place of
+the CUDA launch: the gradient through the Function equals the plain
+version's.
 
 The CUDA and Triton kernels themselves run only on a GPU: see
 tests/test_torch_port_cuda.py and chip_smoke.py."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -13,10 +17,12 @@ import torch
 
 from svd_xtend_tpu.ops.attention import _xla_attention
 from svd_xtend_tpu.ops.pallas import flash_attention as jfa
+from svd_xtend_tpu.ops.pallas import geglu as jgg
 from svd_xtend_tpu.ops.pallas import groupnorm as jgn
 from svd_xtend_tpu.ops.pallas import temporal_attention as jta
 from svd_xtend_tpu.ops.pallas import temporal_resnet as jtr
 from svd_xtend_tpu_torch.ops.kernels import flash_attention as tfa
+from svd_xtend_tpu_torch.ops.kernels import geglu as tgg
 from svd_xtend_tpu_torch.ops.kernels import groupnorm as tgn
 from svd_xtend_tpu_torch.ops.kernels import temporal_attention as tta
 from svd_xtend_tpu_torch.ops.kernels import temporal_resnet as ttr
@@ -176,3 +182,136 @@ def test_kernel_a_b_plain_versions_compose_to_the_block():
     got = ttr.conv_b_reference(h, k2 * w, b2 * w, sc2, sh2, x)
     ref = ttr.temporal_resnet_reference(*args, 8, 1e-5)
     np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=ATOL, rtol=RTOL)
+
+
+# ----------------------------------------------------------------- GEGLU --
+
+def _geglu_args(rs, t, c):
+    """x, LN scale/bias, w1 (C, 8C), b1, w2 (4C, C), b2 in the JAX layouts."""
+    return [_rand(rs, *t, c), 1 + _rand(rs, c, scale=0.1), _rand(rs, c, scale=0.1),
+            _rand(rs, c, 8 * c, scale=c ** -0.5), _rand(rs, 8 * c, scale=0.1),
+            _rand(rs, 4 * c, c, scale=(4 * c) ** -0.5), _rand(rs, c, scale=0.1)]
+
+
+def _geglu_port_args(args):
+    """The port's nn.Linear layouts: w1 (8C, C), w2 (C, 4C)."""
+    x, ls, lb, w1, b1, w2, b2 = args
+    return [_t(x), _t(ls), _t(lb), _t(w1.T), _t(b1), _t(w2.T), _t(b2)]
+
+
+@pytest.mark.parametrize("t,c", [((2, 40), 64), ((160,), 128), ((2, 4, 10), 64)])
+def test_geglu_plain_matches_jax(monkeypatch, t, c):
+    """Against geglu._reference and the Pallas kernel in interpret mode
+    (SVDX_PALLAS_GEGLU=force; ln_geglu_residual itself, not the TPU gate)."""
+    args = _geglu_args(np.random.RandomState(c + len(t)), t, c)
+    jargs = [jnp.asarray(a) for a in args]
+    x2 = jargs[0].reshape(-1, c)
+    ref = np.asarray(jgg._reference(x2, *jargs[1:])).reshape(args[0].shape)
+    monkeypatch.setenv("SVDX_PALLAS_GEGLU", "force")
+    pallas = np.asarray(jgg.ln_geglu_residual(*jargs))
+    got = tgg.ln_geglu_residual(*_geglu_port_args(args)).numpy()
+    np.testing.assert_allclose(got, ref, atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(got, pallas, atol=ATOL, rtol=RTOL)
+
+
+def test_geglu_split_follows_the_module_layout():
+    """w1 rows [:inner] are the value half and [inner:] the gate half, as
+    FeedForward's proj(x).chunk(2, -1) splits them: the plain version equals
+    the transformer's LayerNorm + FeedForward modules."""
+    from svd_xtend_tpu_torch.models.transformer import FeedForward
+    torch.manual_seed(0)
+    ln, ff = torch.nn.LayerNorm(64, eps=1e-5), FeedForward(64)
+    with torch.no_grad():
+        ln.weight.normal_(1.0, 0.1)
+        ln.bias.normal_(0.0, 0.1)
+    x = torch.randn(3, 20, 64)
+    with torch.no_grad():
+        ref = x + ff(ln(x))
+        got = tgg.ln_geglu_residual(x, ln.weight, ln.bias, ff.net[0].proj.weight,
+                                    ff.net[0].proj.bias, ff.net[2].weight, ff.net[2].bias)
+    torch.testing.assert_close(got, ref, atol=ATOL, rtol=RTOL)
+
+
+# --------------------------------------------------------- flash backward --
+
+@pytest.mark.parametrize("b,s,heads", [(2, 128, 2), (1, 256, 3)])
+def test_flash_plain_backward_matches_pallas_vjp(b, s, heads):
+    """flash_attention_bwd_reference (with the LSE of
+    flash_attention_fwd_reference) against jax.vjp of the packed flash,
+    whose backward runs the Pallas dQ and dK/dV kernels in interpret mode.
+    Gradients are sums over 128-256 keys of O(1) terms: 5e-5."""
+    rs = np.random.RandomState(s + b)
+    q, k, v, do = (_rand(rs, b, s, heads * 64) for _ in range(4))
+    scale = 64 ** -0.5
+    _, vjp = jax.vjp(lambda q, k, v: jfa.flash_attention_packed(
+        q, k, v, num_heads=heads, scale=scale), jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    ref = vjp(jnp.asarray(do))
+    o, lse = tfa.flash_attention_fwd_reference(_t(q), _t(k), _t(v), heads, scale)
+    got = tfa.flash_attention_bwd_reference(_t(q), _t(k), _t(v), o, lse, _t(do), heads, scale)
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=5e-5, rtol=5e-5)
+    # the LSE against the f32 log-sum-exp of the scores
+    logits = np.einsum("bshd,bthd->bhst", q.reshape(b, s, heads, 64),
+                       k.reshape(b, s, heads, 64)) * scale
+    m = logits.max(-1, keepdims=True)
+    np.testing.assert_allclose(lse.numpy(), (m + np.log(np.exp(logits - m).sum(-1, keepdims=True)))[..., 0],
+                               atol=ATOL, rtol=RTOL)
+
+
+# ----------------------------------------------- autograd wiring (F1) --
+
+def _wiring_cases(rs):
+    """(name, call through the Function with the plain forward injected,
+    plain call, inputs)."""
+    q, k, v = (_t(_rand(rs, 2, 40, 128)) for _ in range(3))
+    fq, fk, fv = (_t(_rand(rs, 2, 3, 10, 128)) for _ in range(3))
+    plain_fa = (tfa.flash_attention_fwd_reference, tfa.flash_attention_bwd_reference)
+    return [
+        ("flash_attention_packed",
+         lambda q, k, v: tfa.flash_attention_packed(q, k, v, num_heads=2, scale=0.125,
+                                                    kernels=plain_fa),
+         lambda q, k, v: tfa.flash_attention_packed_reference(q, k, v, num_heads=2,
+                                                              scale=0.125),
+         [q, k, v]),
+        ("frame_attention",
+         lambda q, k, v: tta.frame_attention(q, k, v, num_heads=2, scale=0.125,
+                                             kernel=tta.frame_attention_reference),
+         lambda q, k, v: tta.frame_attention_reference(q, k, v, num_heads=2, scale=0.125),
+         [fq, fk, fv]),
+        ("temporal_resnet_block",
+         lambda *a: ttr.temporal_resnet_block(*a, groups=8, eps=1e-5,
+                                              kernel=ttr.temporal_resnet_reference),
+         lambda *a: ttr.temporal_resnet_reference(*a, 8, 1e-5),
+         [_t(a) for a in _tresnet_args(rs, 2, 3, 10, 64)]),
+        ("group_norm_silu",
+         lambda x, w, b: tgn.group_norm_silu(x, w, b, groups=8, eps=1e-6,
+                                             kernel=tgn.group_norm_silu_reference),
+         lambda x, w, b: tgn.group_norm_silu_reference(x, w, b, 8, 1e-6),
+         [_t(_rand(rs, 2, 5, 6, 64)), _t(1 + _rand(rs, 64, scale=0.1)),
+          _t(_rand(rs, 64, scale=0.1))]),
+        ("ln_geglu_residual",
+         lambda *a: tgg.ln_geglu_residual(*a, kernel=tgg.ln_geglu_residual_reference),
+         tgg.ln_geglu_residual_reference,
+         _geglu_port_args(_geglu_args(rs, (2, 20), 32))),
+    ]
+
+
+@pytest.mark.parametrize("case", range(5))
+def test_kernel_functions_differentiate_like_their_plain_versions(case):
+    """Every input requires grad (the blend weight w of the temporal resnet
+    included): the output carries the Function's grad_fn, and its gradients
+    equal autograd's of the plain version. The same f32 ops run in both
+    (the reference recomputed), except the flash backward's explicit
+    formulas: 1e-5. Without grad, no Function is recorded."""
+    name, through, plain, inputs = _wiring_cases(np.random.RandomState(case))[case]
+    leaves = [x.clone().requires_grad_(True) for x in inputs]
+    out = through(*leaves)
+    assert out.grad_fn is not None and "Backward" in type(out.grad_fn).__name__, name
+    dout = torch.from_numpy(np.random.RandomState(9).randn(*out.shape).astype(np.float32))
+    got = torch.autograd.grad(out, leaves, dout)
+    ref_leaves = [x.clone().requires_grad_(True) for x in inputs]
+    ref = torch.autograd.grad(plain(*ref_leaves), ref_leaves, dout)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, atol=1e-5, rtol=1e-5)
+    with torch.no_grad():
+        assert through(*leaves).grad_fn is None

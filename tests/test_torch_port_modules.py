@@ -103,6 +103,23 @@ def test_frame_axis_attention_module(f, cross):
     np.testing.assert_allclose(got, ref, **TOL)
 
 
+@pytest.mark.parametrize("temporal", [False, True])
+def test_transformer_blocks_with_geglu_on(monkeypatch, temporal):
+    """BasicTransformerBlock and TemporalBasicTransformerBlock with the JAX
+    package's fused GEGLU forced on (the Pallas kernel in interpret mode,
+    SVDX_PALLAS_GEGLU=force) against the port's blocks, whose feed-forwards
+    go through ln_geglu_residual (its plain version on the CPU)."""
+    monkeypatch.setenv("SVDX_PALLAS_GEGLU", "force")
+    shape = (2, 4, 10, 64) if temporal else (2, 40, 64)
+    x = _rand(10, *shape)
+    ctx = _rand(11, 2, 1, 32)
+    jcls = jt.TemporalBasicTransformerBlock if temporal else jt.BasicTransformerBlock
+    tcls = tt.TemporalBasicTransformerBlock if temporal else tt.BasicTransformerBlock
+    params, ref = _init(jcls(1, 64), x, ctx)
+    got = _run(_load(tcls(64, 1, 64, 32), params), x, torch.from_numpy(ctx))
+    np.testing.assert_allclose(got, ref, **TOL)
+
+
 def test_transformer_spatio_temporal_model():
     f, b = 3, 2
     x = _rand(8, b * f, 4, 5, 64)
