@@ -14,8 +14,20 @@ Phases, each of which raises on failure (non-zero exit):
      backward kernels (dQ, dK/dV) are held, like the plain bf16 gradient,
      against the f32 plain gradient: the kernels' max-abs error must be
      finite and at most 1.5x the plain bf16 one's; the forward's LSE against
-     logsumexp of the f32 scores. Kernel and plain times at the UNet's L0
-     shape.
+     logsumexp of the f32 scores. For each kernel at the UNet's L0 shape: its
+     time, its plain version's, one PyTorch library call's computing the same
+     function where there is one (SDPA, F.group_norm, F.conv2d), and the
+     bound (the larger of its products over 989 TFLOP/s and its bytes, each
+     input read once and each output written once, over 3.35 TB/s: the H100
+     SXM's dense bf16 and HBM peaks).
+  3b. conv3x3: the kernel against its plain version at every site of the
+     UNet (CFG batch 28 for generate, batch 14 for the train step, each with
+     the epilogue that site uses), at every dU shape of the train step's
+     backward, and at every VAE site (decode and train-encode chunks of 8
+     frames); per site kernel, plain, F.conv2d alone (bf16, channels-last,
+     with bias) and bound, and the sum over each path's sites of
+     (kernel - F.conv2d) x launches. The BSHD flash entry point at the L0
+     CFG shape.
   4. whole UNet: full SVD widths on a 2-frame 16x16 latent (all kernels
      engage), bf16 with the kernels on the card against f32 with the plain
      versions on the host CPU, from the same seeded weights: the forward
@@ -35,8 +47,8 @@ Phases, each of which raises on failure (non-zero exit):
      must all be > 0; finite loss and grad_norm, trainable weights changed,
      frozen ones bit-identical; s/step and peak memory. Then one full-scope
      step at the same size: finite loss, peak memory.
-  7. the kernels JSON line (launches from the train path), then the device
-     JSON line last.
+  7. the kernels JSON line (launches from the train path; launches_generate
+     from the generate run), then the device JSON line last.
 
 --profile DIR additionally writes a torch.profiler table of one train step
 (and its Chrome trace) into DIR.
@@ -53,6 +65,7 @@ import sys
 import time
 
 import torch
+import torch.nn.functional as F
 
 SEED = 0
 # rel-L2 bound of the bf16 card UNet against the f32 host UNet: bf16 rounds
@@ -66,6 +79,13 @@ GRAD_PLAIN_RATIO = 1.25
 # flash backward: the kernels' max-abs error against the f32 plain gradient,
 # at most this multiple of the bf16 plain gradient's
 FLASH_BWD_RATIO = 1.5
+# H100 SXM dense bf16 tensor-core rate and HBM3 bandwidth (NVIDIA's data
+# sheet): the bound of a kernel is the larger of its products over the first
+# and its bytes over the second
+PEAK_FLOPS = 989e12
+PEAK_BYTES = 3.35e12
+# the kernel entry points that no main path calls: their launches may be 0
+OFF_PATH = frozenset({"flash_attention"})
 # LSE: f32 log-sum-exp of the same f32 scores summed in another order
 LSE_ATOL = 1e-4
 TRAIN_STEPS = 3
@@ -79,6 +99,16 @@ def bf16_bound(ref: torch.Tensor) -> float:
     scale = ref.float().abs().max().item()
     exp = torch.floor(torch.log2(torch.tensor(max(scale, 1e-30)))).item()
     return 4.0 * 2.0 ** (exp - 7)
+
+
+def bound_ms(flops: float, nbytes: float):
+    """(least time in ms, "operations" or "bytes")."""
+    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
 def cuda_ms(fn, iters: int = 10) -> float:
@@ -124,10 +154,18 @@ class KernelPhase:
             raise RuntimeError(f"{name} {label}: error {err} above {FLASH_BWD_RATIO} x {perr}")
         self.err[name] = max(self.err.get(name, 0.0), err)
 
-    def time(self, name, kernel_fn, plain_fn):
+    def time(self, name, kernel_fn, plain_fn, flops, moved, library_fn=None,
+             library="none", label="L0"):
+        """Kernel, plain and library ms at one shape, beside the bound of
+        `flops` products and `moved` bytes."""
         k_ms, p_ms = cuda_ms(kernel_fn), cuda_ms(plain_fn, 3)
-        self.times[name] = (k_ms, p_ms)
-        log(f"  {name} L0: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+        lib_ms = cuda_ms(library_fn) if library_fn is not None else None
+        b_ms, b_by = bound_ms(flops, moved)
+        self.times[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                                library_ms=lib_ms)
+        lib = f"{lib_ms:.4f} ms ({library})" if lib_ms is not None else "none"
+        log(f"  {name} {label}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library {lib}, "
+            f"bound {b_ms:.4f} ms ({b_by}; {flops / 1e9:.1f} GFLOP, {moved / 1e6:.1f} MB)")
         return k_ms, p_ms
 
 
@@ -149,7 +187,11 @@ def kernel_phases(dev) -> KernelPhase:
         plain = lambda: fa.flash_attention_packed_reference(q, k, v, num_heads=h, scale=0.125)
         ph.check("flash_attention_fwd", run(), plain(), f"{(b, s, h * 64)} heads {h}")
         if s == 2560:
-            ph.time("flash_attention_fwd", run, plain)
+            heads = lambda a: a.view(b, s, h, 64).transpose(1, 2)
+            ph.time("flash_attention_fwd", run, plain, 4 * b * h * s * s * 64,
+                    nbytes(q, k, v, q),
+                    lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v),
+                                                           scale=0.125), "SDPA")
         del q, k, v
 
     log("kernels: temporal attention")
@@ -159,7 +201,11 @@ def kernel_phases(dev) -> KernelPhase:
         plain = lambda: ta.frame_attention_reference(q, k, v, num_heads=h, scale=0.125)
         ph.check("frame_attention_fwd", run(), plain(), f"{(b, f, s, h * 64)}")
         if s == 2560:
-            ph.time("frame_attention_fwd", run, plain)
+            frames = lambda a: a.view(b, f, s, h, 64).permute(0, 2, 3, 1, 4)
+            ph.time("frame_attention_fwd", run, plain, 4 * b * s * h * f * f * 64,
+                    nbytes(q, k, v, q),
+                    lambda: F.scaled_dot_product_attention(frames(q), frames(k), frames(v),
+                                                           scale=0.125), "SDPA over frames")
 
     log("kernels: temporal resnet A and B (UNet levels, VAE decoder top)")
     for b, f, s, c, temb in [(2, 14, 2560, 320, True), (2, 14, 640, 640, True),
@@ -194,8 +240,9 @@ def kernel_phases(dev) -> KernelPhase:
         ph.check("temporal_resnet_block", tr.temporal_resnet_block(*args, groups=32, eps=1e-5),
                  tr.temporal_resnet_reference(*args, 32, 1e-5), label)
         if s == 2560:
-            ph.time("temporal_resnet_conv_a", run_a, plain_a)
-            ph.time("temporal_resnet_conv_b", run_b, plain_b)
+            flops = 2 * b * f * s * 3 * c * c
+            ph.time("temporal_resnet_conv_a", run_a, plain_a, flops, nbytes(x, x, wt1, t))
+            ph.time("temporal_resnet_conv_b", run_b, plain_b, flops, nbytes(x, x, x, wt2))
         del x, h, rh
 
     log("kernels: GroupNorm (transformer norm, UNet conv_norm_out, VAE decoder)")
@@ -208,7 +255,9 @@ def kernel_phases(dev) -> KernelPhase:
         plain = lambda: gn.group_norm_silu_reference(x, sc, bi, 32, eps, silu)
         ph.check("group_norm_silu", run(), plain(), f"{shape} silu={silu}")
         if shape == (28, 2560, 320):
-            ph.time("group_norm_silu", run, plain)
+            ph.time("group_norm_silu", run, plain, 0, nbytes(x, x),
+                    lambda: F.group_norm(x.transpose(1, 2), 32, sc.to(x.dtype),
+                                         bi.to(x.dtype), eps), "F.group_norm")
 
     log("kernels: fused residual GEGLU (T x C at the four UNet levels: training, then "
         "serving with CFG, 2T)")
@@ -230,7 +279,7 @@ def kernel_phases(dev) -> KernelPhase:
             return x + torch.nn.functional.linear(
                 h * torch.nn.functional.gelu(g, approximate="tanh"), w2, b2b)
         if t == 35840:
-            ph.time("geglu_fwd", run, plain)
+            ph.time("geglu_fwd", run, plain, 2 * t * c * 12 * c, nbytes(x, x, w1, w2))
         else:
             log(f"  geglu_fwd T {t} C {c}: kernel {cuda_ms(run):.4f} ms")
         log(f"    unfused bf16 module path (LayerNorm + cuBLAS GEMMs + gate): {cuda_ms(module_path):.4f} ms")
@@ -264,16 +313,176 @@ def kernel_phases(dev) -> KernelPhase:
         del grads, pq, pk, pv, rq, rk, rv
         if s_len == 2560:
             plain_bwd = lambda: fa.flash_attention_bwd_reference(q, k, v, o, lse, do, h, 0.125)
+            heads = lambda a: a.view(b, s_len, h, 64).transpose(1, 2)
+            sq, sk, sv = (heads(a).detach().requires_grad_(True) for a in (q, k, v))
+            sdpa_out = F.scaled_dot_product_attention(sq, sk, sv, scale=0.125)
+            sdpa_bwd = lambda: torch.autograd.grad(sdpa_out, (sq, sk, sv), heads(do),
+                                                   retain_graph=True)
+            mm = 2 * b * h * s_len * s_len * 64     # one product's FLOPs
+            stats = 2 * b * h * s_len * 4           # LSE and delta, f32
             ph.time("flash_attention_bwd_dq",
                     lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, h, 0.125),
-                    plain_bwd)
+                    plain_bwd, 3 * mm, nbytes(q, k, v, do, q) + stats, sdpa_bwd,
+                    "SDPA backward")
             ph.time("flash_attention_bwd_dkv",
                     lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, h, 0.125),
-                    plain_bwd)
-            log("    (plain_ms of both backward kernels is the plain backward computing "
-                "dQ, dK and dV together)")
+                    plain_bwd, 4 * mm, nbytes(q, k, v, do, k, v) + stats, sdpa_bwd,
+                    "SDPA backward")
+            log("    (plain and library ms of both backward kernels compute dQ, dK and "
+                "dV together)")
+            del sq, sk, sv, sdpa_out
         del q, k, v, do, o, ref_o, dq, dk, dv
     return ph
+
+
+# conv3x3 sites of one UNet pass at the default 512x320 (latent 40x64),
+# UNetConfig() widths: (H, W, Ci, Co, epilogue, launches per pass). conv1 of
+# every resnet adds the time embedding ("preS+post"), conv2 the skip
+# ("preS+res"); the up blocks' conv1 reads the concat of the running
+# features and a skip. conv_out (Co 4) is declined by supports: 46 convs,
+# 45 on the kernel.
+UNET_CONV_SITES = [
+    (40, 64, 8, 320, "none", 1), (40, 64, 320, 320, "preS+post", 2),
+    (40, 64, 320, 320, "preS+res", 5), (40, 64, 960, 320, "preS+post", 1),
+    (40, 64, 640, 320, "preS+post", 2),
+    (20, 32, 320, 640, "preS+post", 1), (20, 32, 640, 640, "preS+post", 1),
+    (20, 32, 640, 640, "preS+res", 5), (20, 32, 1920, 640, "preS+post", 1),
+    (20, 32, 1280, 640, "preS+post", 1), (20, 32, 960, 640, "preS+post", 1),
+    (10, 16, 640, 1280, "preS+post", 1), (10, 16, 1280, 1280, "preS+post", 1),
+    (10, 16, 1280, 1280, "preS+res", 5), (10, 16, 2560, 1280, "preS+post", 2),
+    (10, 16, 1920, 1280, "preS+post", 1),
+    (5, 8, 1280, 1280, "preS+post", 4), (5, 8, 1280, 1280, "preS+res", 7),
+    (5, 8, 2560, 1280, "preS+post", 3),
+]
+# the train step's dU launches: dy (H, W, Co) -> Ci for every conv whose
+# input needs a gradient (not conv_in, not the first L0 resnet, which sit
+# before the first trainable temporal layer): (H, W, Co, Ci, launches per step)
+UNET_DGRAD_SITES = [
+    (40, 64, 320, 320, 5), (40, 64, 320, 960, 1), (40, 64, 320, 640, 2),
+    (20, 32, 640, 320, 1), (20, 32, 640, 640, 6), (20, 32, 640, 1920, 1),
+    (20, 32, 640, 1280, 1), (20, 32, 640, 960, 1),
+    (10, 16, 1280, 640, 1), (10, 16, 1280, 1280, 6), (10, 16, 1280, 2560, 2),
+    (10, 16, 1280, 1920, 1),
+    (5, 8, 1280, 1280, 11), (5, 8, 1280, 2560, 3),
+]
+# VAE sites at 512x320 (VAEConfig() widths), per chunk of 8 frames:
+# the temporal decoder's spatial resnets (28 launches) and the encoder's
+# resnets + conv_out (21 launches; conv_in Ci 3, the decoder's conv_in Ci 4
+# and conv_out Co 3 are declined)
+VAE_DECODE_SITES = [
+    (40, 64, 512, 512, "preS", 5), (40, 64, 512, 512, "preS+res", 5),
+    (80, 128, 512, 512, "preS", 3), (80, 128, 512, 512, "preS+res", 3),
+    (160, 256, 512, 256, "preS", 1), (160, 256, 256, 256, "preS", 2),
+    (160, 256, 256, 256, "preS+res", 3), (320, 512, 256, 128, "preS", 1),
+    (320, 512, 128, 128, "preS", 2), (320, 512, 128, 128, "preS+res", 3),
+]
+VAE_ENCODE_SITES = [
+    (320, 512, 128, 128, "preS", 2), (320, 512, 128, 128, "preS+res", 2),
+    (160, 256, 128, 256, "preS", 1), (160, 256, 256, 256, "preS", 1),
+    (160, 256, 256, 256, "preS+res", 2), (80, 128, 256, 512, "preS", 1),
+    (80, 128, 512, 512, "preS", 1), (80, 128, 512, 512, "preS+res", 2),
+    (40, 64, 512, 512, "preS", 4), (40, 64, 512, 512, "preS+res", 4),
+    (40, 64, 512, 8, "none", 1),
+]
+
+
+def conv_phase(dev, ph: KernelPhase):
+    """conv3x3 and its dU launch at every site of the paths: checked against
+    the plain version, timed beside F.conv2d alone and the bound. Returns
+    {path: sum over its sites of (kernel - F.conv2d) ms x launches}."""
+    from svd_xtend_tpu_torch.ops import video
+    from svd_xtend_tpu_torch.ops.kernels import conv3x3 as cv
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    rn = lambda *s, sc=1.0: (torch.randn(*s, device=dev, generator=g) * sc).to(torch.bfloat16)
+    log("  site (N, H, W, Ci -> Co, epilogue) x launches: kernel / plain / F.conv2d alone "
+        "/ bound ms, kernel TFLOP/s")
+
+    def site(name, n, h, w, ci, co, epi, per, first=False):
+        # x is dy (N, H, W, Ci) for dU, and the weight the forward's (Ci, Co, 3, 3)
+        x = rn(n, h, w, ci) * 2 + 0.5
+        shape = (co, ci) if name == "conv3x3" else (ci, co)
+        weight = rn(*shape, 3, 3, sc=(9 * ci) ** -0.5).contiguous(
+            memory_format=torch.channels_last)
+        bias = 0.1 * rn(co)
+        kw = {}
+        if epi.startswith("preS"):
+            kw = dict(pre_scale=(1 + 0.2 * rn(n, ci)).float() / 2,
+                      pre_shift=0.3 * rn(n, ci).float(), pre_silu=True)
+        if "post" in epi:
+            kw["post_shift"] = 0.5 * rn(n, co).float()
+        if "res" in epi:
+            kw["residual"] = rn(n, h, w, co)
+        if name == "conv3x3":
+            run = lambda: cv.conv3x3(x, weight, bias, **kw)
+            plain = lambda: cv.conv3x3_fused_reference(
+                x, weight, bias, kw.get("pre_scale"), kw.get("pre_shift"),
+                kw.get("post_shift"), kw.get("residual"), kw.get("pre_silu", False))
+            lib_w = weight
+        else:
+            run = lambda: cv.conv3x3_input_grad(x, weight)
+            plain = lambda: cv.conv3x3_input_grad_reference(x, weight)
+            lib_w = cv.flipped_weight(weight).contiguous(memory_format=torch.channels_last)
+            bias = None
+        label = f"{(n, h, w, ci)} -> {co} {epi}"
+        ph.check(name, run(), plain(), label)
+        cout = lib_w.shape[0]
+        flops = 2 * n * h * w * 9 * ci * cout
+        moved = nbytes(x, lib_w, kw.get("residual")) + n * h * w * cout * 2
+        library = lambda: F.conv2d(video.nchw(x), lib_w, bias, padding=1)
+        if first:
+            ph.time(name, run, plain, flops, moved, library, "F.conv2d alone", label)
+            k_ms, lib_ms = ph.times[name]["ms"], ph.times[name]["library_ms"]
+        else:
+            k_ms, p_ms, lib_ms = cuda_ms(run), cuda_ms(plain, 3), cuda_ms(library)
+            b_ms, b_by = bound_ms(flops, moved)
+            log(f"  {name} {label} x{per}: {k_ms:.4f} / {p_ms:.4f} / {lib_ms:.4f} / "
+                f"{b_ms:.4f} ms ({b_by}), {flops / k_ms / 1e9:.1f} TFLOP/s")
+        return (k_ms - lib_ms) * per
+
+    cost = {}
+    log("kernels: conv3x3, UNet sites at CFG batch 28 (generate, per UNet step)")
+    cost["generate UNet step"] = sum(
+        site("conv3x3", 28, *st, first=st[:5] == (40, 64, 320, 320, "preS+post"))
+        for st in UNET_CONV_SITES)
+    log("kernels: conv3x3, UNet sites at batch 14 (train step: forward and remat recompute)")
+    cost["train forward + recompute"] = sum(
+        site("conv3x3", 14, *st[:5], st[5] * (1 if st[4] == "none" else 2))
+        for st in UNET_CONV_SITES)
+    log("kernels: conv3x3 dU in the train step's backward (batch 14)")
+    cost["train backward dU"] = sum(
+        site("conv3x3_input_grad", 14, h, w, co, ci, "dU", per, first=i == 0)
+        for i, (h, w, co, ci, per) in enumerate(UNET_DGRAD_SITES))
+    log("kernels: conv3x3, VAE decoder sites (chunks of 8 frames)")
+    cost["VAE decode chunk"] = sum(site("conv3x3", 8, *st) for st in VAE_DECODE_SITES)
+    log("kernels: conv3x3, VAE encoder sites (train encode, chunks of 8 frames)")
+    cost["VAE encode chunk"] = sum(site("conv3x3", 8, *st) for st in VAE_ENCODE_SITES)
+    for path, ms in cost.items():
+        log(f"  conv3x3 kernel - F.conv2d alone, summed over sites x launches: {path} "
+            f"{ms:+.3f} ms")
+    log(f"  => generate (25 CFG UNet steps + 2 decode chunks): "
+        f"{25 * cost['generate UNet step'] + 2 * cost['VAE decode chunk']:+.1f} ms/video; "
+        f"train step (forward, recompute, dU, 2 encode chunks): "
+        f"{cost['train forward + recompute'] + cost['train backward dU'] + 2 * cost['VAE encode chunk']:+.1f} ms")
+    return cost
+
+
+def flash_bshd_phase(dev, ph: KernelPhase):
+    """The head-major entry point on (B, S, H, 64) at the L0 CFG shape."""
+    from svd_xtend_tpu_torch.ops.kernels import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    b, s, h = 28, 2560, 5
+    q, k, v = ((torch.randn(b, s, h, 64, device=dev, generator=g)).to(torch.bfloat16)
+               for _ in range(3))
+    run = lambda: fa.flash_attention(q, k, v, scale=0.125)
+    plain = lambda: fa.flash_attention_packed_reference(
+        q.flatten(2), k.flatten(2), v.flatten(2), num_heads=h, scale=0.125).view(b, s, h, 64)
+    log("kernels: flash attention, head-major (B, S, H, 64) entry point")
+    ph.check("flash_attention", run(), plain(), f"{(b, s, h, 64)}")
+    ph.time("flash_attention", run, plain, 4 * b * h * s * s * 64, nbytes(q, k, v, q),
+            lambda: F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                                   v.transpose(1, 2), scale=0.125), "SDPA")
 
 
 def whole_unet_phase(dev):
@@ -374,14 +583,17 @@ def main() -> int:
 
     ph = kernel_phases(dev)
     torch.cuda.empty_cache()
+    conv_phase(dev, ph)
+    flash_bshd_phase(dev, ph)
+    torch.cuda.empty_cache()
 
     log("whole UNet: full widths, card bf16 kernels vs host f32 plain (output, gradient)")
     whole_unet_phase(dev)
     torch.cuda.empty_cache()
 
     counters = kernel_counters()
-    log("generate: PipelineConfig() with full UNet/VAE/CLIP, bf16, GEGLU kernel on")
-    generate_phase(dev, smi, counters)
+    log("generate: PipelineConfig() with full UNet/VAE/CLIP, bf16, all kernels on")
+    gen_launches = generate_phase(dev, smi, counters)
     torch.cuda.empty_cache()
 
     log("train: default TrainConfig (temporal scope, 512x320x14f, batch 1, remat block)")
@@ -405,13 +617,18 @@ def main() -> int:
                                    "svd_xtend_tpu/ops/pallas/flash_attention.py:345"),
         "flash_attention_bwd_dkv": ("cuda", "svd_xtend_tpu_torch/csrc/flash_attention.cu",
                                     "svd_xtend_tpu/ops/pallas/flash_attention.py:395"),
+        "conv3x3": ("cuda", "svd_xtend_tpu_torch/csrc/conv3x3.cu",
+                    "svd_xtend_tpu/ops/pallas/conv3x3.py:46"),
+        "conv3x3_input_grad": ("cuda", "svd_xtend_tpu_torch/csrc/conv3x3.cu",
+                               "svd_xtend_tpu/ops/pallas/conv3x3.py:46"),
+        "flash_attention": ("cuda", "svd_xtend_tpu_torch/csrc/flash_attention.cu",
+                            "svd_xtend_tpu/ops/pallas/flash_attention.py:103"),
     }
     kernels = []
     for name, (route, src, replaces) in sources.items():
-        k_ms, p_ms = ph.times[name]
         kernels.append({"name": name, "route": route, "source": src, "replaces": replaces,
                         "launches": launches[name], "max_abs_err": ph.err[name],
-                        "ms": k_ms, "plain_ms": p_ms})
+                        **ph.times[name], "launches_generate": gen_launches.get(name, 0)})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -421,6 +638,7 @@ def main() -> int:
 
 def kernel_counters():
     """name -> the wrapper whose `launches` counts that kernel."""
+    from svd_xtend_tpu_torch.ops.kernels import conv3x3 as cv
     from svd_xtend_tpu_torch.ops.kernels import flash_attention as fa
     from svd_xtend_tpu_torch.ops.kernels import geglu as gg
     from svd_xtend_tpu_torch.ops.kernels import groupnorm as gn
@@ -435,6 +653,9 @@ def kernel_counters():
         "geglu_fwd": gg.ln_geglu_residual,
         "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
         "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
+        "conv3x3": cv.conv3x3,
+        "conv3x3_input_grad": cv.conv3x3_input_grad,
+        "flash_attention": fa.flash_attention,
     }
 
 
@@ -446,7 +667,7 @@ def reset(counters):
 def read(counters, names):
     launches = {name: counters[name].launches for name in names}
     log(f"  launches in the timed run: {launches}")
-    missing = [n for n, c in launches.items() if c == 0]
+    missing = [n for n, c in launches.items() if c == 0 and n not in OFF_PATH]
     if missing:
         raise RuntimeError(f"kernels never launched on the path: {missing}")
     return launches
@@ -474,8 +695,15 @@ def generate_phase(dev, smi, counters):
     video = generate(models, image, cfg, generator=torch.Generator(device=dev).manual_seed(SEED))
     torch.cuda.synchronize()
     secs = time.time() - t0
-    read(counters, [n for n in counters if "bwd" not in n])
+    launches = read(counters, [n for n in counters
+                               if "bwd" not in n and n != "conv3x3_input_grad"])
     peak = torch.cuda.max_memory_allocated()
+    unet = sum(st[5] for st in UNET_CONV_SITES)
+    vae = (sum(st[5] for st in VAE_ENCODE_SITES)
+           + -(-cfg.num_frames // cfg.decode_chunk_size) * sum(st[5] for st in VAE_DECODE_SITES))
+    log(f"  conv3x3 launches {launches['conv3x3']}; the site tables give "
+        f"{cfg.num_inference_steps} x {unet} (UNet) + {vae} (VAE) = "
+        f"{cfg.num_inference_steps * unet + vae}")
 
     expect = (1, cfg.num_frames, cfg.height, cfg.width, 3)
     if tuple(video.shape) != expect:
@@ -487,6 +715,7 @@ def generate_phase(dev, smi, counters):
     log(f"  video {tuple(video.shape)} finite, in [-1, 1], std {video.std().item():.4f}")
     log(f"  [{smi}] seconds/video {secs:.3f}; frames/s {cfg.num_frames / secs:.3f}; "
         f"peak allocated {peak / 2**30:.2f} GiB")
+    return launches
 
 
 def train_phase(dev, smi, counters, profile_dir):
@@ -579,7 +808,7 @@ def train_phase(dev, smi, counters, profile_dir):
 # Triton kernels of ops/kernels/groupnorm.py, by their unqualified names
 HAND_KERNELS = frozenset({"flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
                           "tconv_kernel", "frame_attention_kernel", "ln_kernel", "gemm1_kernel",
-                          "gemm2_kernel", "stats_kernel", "norm_kernel"})
+                          "gemm2_kernel", "stats_kernel", "norm_kernel", "conv3x3_kernel"})
 
 
 def kernel_base_name(name: str) -> str:

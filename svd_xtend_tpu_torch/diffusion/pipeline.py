@@ -80,10 +80,18 @@ class SVDModels:
                vae_config: VAEConfig = VAEConfig(),
                clip_config: CLIPVisionConfig = CLIPVisionConfig(),
                scheduler_config: SchedulerConfig = SchedulerConfig(), *,
-               device="cpu", dtype: torch.dtype = torch.float32,
+               device=None, dtype: torch.dtype = torch.float32,
                generator: Optional[torch.Generator] = None) -> "SVDModels":
-        """Build the networks on `device`; with a generator, initialise them
-        (in f32, on the device) from it, then cast to `dtype`."""
+        """Build the networks on `device` (by default the card: without one
+        this raises; pass ``device="cpu"`` to build on the CPU); with a
+        generator, initialise them (in f32, on the device) from it, then cast
+        to `dtype`."""
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError("SVDModels.create builds on the CUDA device by "
+                                   "default and none is available; pass device='cpu' "
+                                   "to build on the CPU")
+            device = "cuda"
         nets = []
         for build, cfg in ((UNetSpatioTemporalConditionModel, unet_config),
                            (AutoencoderKLTemporalDecoder, vae_config),

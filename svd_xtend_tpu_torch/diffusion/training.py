@@ -48,7 +48,9 @@ def sample_train_draws(models: SVDModels, pixel_shape, cfg: TrainConfig,
                        generator: Optional[torch.Generator] = None,
                        device=None) -> TrainDraws:
     """Draw a micro-batch's randomness for pixels of `pixel_shape`
-    (B, F, H, W, 3)."""
+    (B, F, H, W, 3), on `device` (by default the UNet's)."""
+    if device is None:
+        device = next(models.unet.parameters()).device
     b, f, h, w, _ = pixel_shape
     ds = models.vae.config.downsample_factor
     lat = (h // ds, w // ds, models.vae.config.latent_channels)

@@ -2,14 +2,27 @@
 
 Port of ``svd_xtend_tpu/models/blocks.py`` as plain diffusers math on
 channels-last activations: spatial blocks act on (N, H, W, C), temporal
-blocks on (B, F, H*W, C). Spatial convs go to ``F.conv2d`` through the NCHW
-view of the NHWC tensor (``torch.channels_last``, no copy). The up-block skip
-is concatenated; the upsample is nearest 2x then a 3x3 conv.
+blocks on (B, F, H*W, C). Convs other than the 3x3 SAME ones (the 1x1
+shortcuts, the stride-2 downsamplers, the upsamplers' convs, as the JAX
+package keeps them outside its Pallas kernel) go to ``F.conv2d`` through the
+NCHW view of the NHWC tensor (``torch.channels_last``, no copy). The up-block
+skip is concatenated; the upsample is nearest 2x then a 3x3 conv.
 
-Kernel sites: every GroupNorm(+SiLU) goes to the GroupNorm kernel on CUDA
-(ops/kernels/groupnorm.py), and every TemporalResnetBlock with its collapsed
-AlphaBlender goes to the fused temporal-resnet kernels
-(ops/kernels/temporal_resnet.py). State-dict keys are the diffusers names.
+Kernel sites on CUDA:
+  - ``Conv3x3``: the conv3x3 kernel (ops/kernels/conv3x3.py) wherever its
+    ``supports`` takes the call: both convs of every ResnetBlock2D of the UNet
+    and the VAE (in the GN-fold form: the GroupNorm statistics folded into a
+    per-(sample, channel) affine that the kernel's prologue applies with the
+    SiLU, the time embedding and the skip added in its epilogue),
+    the UNet's ``conv_in`` and the VAE encoder's ``conv_out``. It declines,
+    for channel counts that are not multiples of 8, the UNet's ``conv_out``
+    (Co 4), the VAE encoder's ``conv_in`` (Ci 3), the decoder's ``conv_in``
+    (Ci 4) and ``conv_out`` (Co 3); those take ``F.conv2d``;
+  - every other GroupNorm(+SiLU) goes to the GroupNorm kernel
+    (ops/kernels/groupnorm.py), and every TemporalResnetBlock with its
+    collapsed AlphaBlender to the fused temporal-resnet kernels
+    (ops/kernels/temporal_resnet.py).
+State-dict keys are the diffusers names.
 """
 
 from __future__ import annotations
@@ -21,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import video
+from ..ops.kernels import conv3x3 as cvk
 from ..ops.kernels import groupnorm as gnk
 from ..ops.kernels import temporal_resnet as trk
 from ..ops.kernels.dispatch import kernels_enabled
@@ -42,6 +56,15 @@ class GroupNormSiLU(nn.Module):
                                        eps=self.eps, silu=self.silu)
         return gnk.group_norm_silu_reference(x, self.weight, self.bias,
                                              self.groups, self.eps, self.silu)
+
+    def fold(self, x: torch.Tensor):
+        """The statistics half only: per-(sample, channel) f32 (sc, sh) with
+        GN(x)·weight + bias == x·sc + sh, for a consumer that applies the
+        normalise (+ SiLU) as it reads x (the JAX module's ``fold_only``).
+        Over an up-block's concatenated input it equals JAX's
+        ``group_norm_fold_cat``, groups straddling the two parts included."""
+        return gnk.group_norm_fold(x, self.weight, self.bias, groups=self.groups,
+                                   eps=self.eps)
 
 
 class AlphaBlender(nn.Module):
@@ -72,6 +95,39 @@ class Conv2d(nn.Conv2d):
         return video.nhwc(super().forward(video.nchw(x)))
 
 
+class Conv3x3(nn.Conv2d):
+    """3x3 stride-1 SAME conv on NHWC with the fused epilogues of the JAX
+    package's ``Conv3x3`` (blocks.py:225-348; its int8, Winograd and tiled
+    forms are not ported): ``pre=(sc, sh, silu)`` a per-(N, Ci) f32 input
+    affine (+ SiLU), ``post_shift`` (N, Co) f32 and ``residual`` added to the
+    output. The parameter is diffusers' OIHW weight, stored channels_last so
+    that the kernel reads it as (Co, 3, 3, Ci) without a copy.
+
+    On CUDA every call ``supports`` takes goes to the conv3x3 kernel; the
+    rest (and every call on the CPU) takes the JAX package's route where its
+    dispatch declines: the affine as plain ops, the conv (``F.conv2d``),
+    then the shift and the residual (blocks.py:325-348)."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__(in_channels, out_channels, 3, padding=1)
+        self.weight.data = self.weight.data.contiguous(memory_format=torch.channels_last)
+
+    def forward(self, x: torch.Tensor, pre=None, post_shift: Optional[torch.Tensor] = None,
+                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+        sc, sh, silu = pre if pre is not None else (None, None, False)
+        if kernels_enabled() and cvk.supports(x, self.weight):
+            return cvk.conv3x3(x, self.weight, self.bias, pre_scale=sc, pre_shift=sh,
+                               pre_silu=silu, post_shift=post_shift, residual=residual)
+        if pre is not None:
+            x = cvk.apply_pre_affine(x, sc, sh, silu)
+        y = video.nhwc(super().forward(video.nchw(x)))
+        if post_shift is not None:
+            y = y + post_shift[:, None, None, :].to(y.dtype)
+        if residual is not None:
+            y = y + residual
+        return y
+
+
 class TemporalConv(nn.Conv3d):
     """(3, 1) conv over the frame axis of (B, F, S, C), zero padding, as
     three channel matmuls; parameters are diffusers' Conv3d (O, I, 3, 1, 1)."""
@@ -88,28 +144,34 @@ class TemporalConv(nn.Conv3d):
 
 
 class ResnetBlock2D(nn.Module):
-    """GN -> SiLU -> conv3x3, + t-emb, GN -> SiLU -> conv3x3, + skip."""
+    """GN -> SiLU -> conv3x3, + t-emb, GN -> SiLU -> conv3x3, + skip, in the
+    JAX package's GN-fold form (blocks.py:494-536, its default): each
+    GroupNorm contributes only its folded (sc, sh), and the normalise + SiLU,
+    the time-embedding add (f32) and the skip add ride the two Conv3x3
+    calls."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  temb_channels: Optional[int] = None, eps: float = 1e-5,
                  groups: int = 32):
         super().__init__()
         self.norm1 = GroupNormSiLU(in_channels, groups, eps)
-        self.conv1 = Conv2d(in_channels, out_channels, 3, padding=1)
+        self.conv1 = Conv3x3(in_channels, out_channels)
         self.time_emb_proj = (nn.Linear(temb_channels, out_channels)
                               if temb_channels is not None else None)
         self.norm2 = GroupNormSiLU(out_channels, groups, eps)
-        self.conv2 = Conv2d(out_channels, out_channels, 3, padding=1)
+        self.conv2 = Conv3x3(out_channels, out_channels)
         self.conv_shortcut = (Conv2d(in_channels, out_channels, 1)
                               if in_channels != out_channels else None)
 
     def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor] = None):
-        h = self.conv1(self.norm1(x))
+        t = None
         if self.time_emb_proj is not None:
-            h = h + self.time_emb_proj(F.silu(temb))[:, None, None, :]
-        h = self.conv2(self.norm2(h))
+            t = self.time_emb_proj(F.silu(temb)).float()
+        sc, sh = self.norm1.fold(x)
+        h = self.conv1(x, pre=(sc, sh, True), post_shift=t)
         skip = x if self.conv_shortcut is None else self.conv_shortcut(x)
-        return skip + h
+        sc2, sh2 = self.norm2.fold(h)
+        return self.conv2(h, pre=(sc2, sh2, True), residual=skip)
 
 
 class TemporalResnetBlock(nn.Module):

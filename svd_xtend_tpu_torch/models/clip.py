@@ -29,7 +29,7 @@ class CLIPAttention(nn.Module):
         n, s, w = x.shape
         split = lambda y: y.reshape(n, s, self.num_heads, w // self.num_heads)
         o = dot_product_attention(split(self.q_proj(x)), split(self.k_proj(x)),
-                                  split(self.v_proj(x)))
+                                  split(self.v_proj(x)), impl="plain")
         return self.out_proj(o.reshape(n, s, w))
 
 

@@ -27,7 +27,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..core.config import UNetConfig
-from .blocks import (Conv2d, Downsample2D, GroupNormSiLU, SpatioTemporalResBlock,
+from .blocks import (Conv3x3, Downsample2D, GroupNormSiLU, SpatioTemporalResBlock,
                      Upsample2D)
 from .embeddings import TimestepEmbedding, sinusoidal_embedding
 from .transformer import TransformerSpatioTemporalModel
@@ -132,7 +132,7 @@ class UNetSpatioTemporalConditionModel(nn.Module):
         ctx = cfg.cross_attention_dim
         eps = cfg.resnet_eps
         n = len(chs)
-        self.conv_in = Conv2d(cfg.in_channels, chs[0], 3, padding=1)
+        self.conv_in = Conv3x3(cfg.in_channels, chs[0])
         self.time_embedding = TimestepEmbedding(chs[0], tdim)
         self.add_embedding = TimestepEmbedding(cfg.projection_class_embeddings_input_dim, tdim)
 
@@ -164,7 +164,7 @@ class UNetSpatioTemporalConditionModel(nn.Module):
                 rev_heads[i] if cross else None, ctx, rev_tl[i]))
             prev = rev[i]
         self.conv_norm_out = GroupNormSiLU(chs[0], 32, eps)
-        self.conv_out = Conv2d(chs[0], cfg.out_channels, 3, padding=1)
+        self.conv_out = Conv3x3(chs[0], cfg.out_channels)
 
     def forward(self, sample: torch.Tensor, timestep, encoder_hidden_states: torch.Tensor,
                 added_time_ids: torch.Tensor, remat: str = "none") -> torch.Tensor:

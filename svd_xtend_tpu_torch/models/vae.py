@@ -18,7 +18,7 @@ from torch import nn
 
 from ..core.config import VAEConfig
 from ..ops.attention import dot_product_attention
-from .blocks import (Conv2d, Downsample2D, GroupNormSiLU, ResnetBlock2D,
+from .blocks import (Conv2d, Conv3x3, Downsample2D, GroupNormSiLU, ResnetBlock2D,
                      SpatioTemporalResBlock, TemporalConv, Upsample2D)
 
 
@@ -39,7 +39,7 @@ class VAEAttention(nn.Module):
         tokens = self.group_norm(x).reshape(n, h * w, c)
         split = lambda y: y.reshape(n, h * w, self.num_heads, c // self.num_heads)
         o = dot_product_attention(split(self.to_q(tokens)), split(self.to_k(tokens)),
-                                  split(self.to_v(tokens)))
+                                  split(self.to_v(tokens)), impl="plain")
         return self.to_out[0](o.reshape(n, h * w, c)).reshape(n, h, w, c) + x
 
 
@@ -66,7 +66,7 @@ class Encoder(nn.Module):
     def __init__(self, cfg: VAEConfig):
         super().__init__()
         chs, eps = cfg.block_out_channels, cfg.norm_eps
-        self.conv_in = Conv2d(cfg.in_channels, chs[0], 3, padding=1)
+        self.conv_in = Conv3x3(cfg.in_channels, chs[0])
         self.down_blocks = nn.ModuleList()
         cin = chs[0]
         for i, ch in enumerate(chs):
@@ -80,7 +80,7 @@ class Encoder(nn.Module):
         self.mid_block = _Mid([ResnetBlock2D(chs[-1], chs[-1], None, eps)
                                for _ in range(2)], VAEAttention(chs[-1], eps))
         self.conv_norm_out = GroupNormSiLU(chs[-1], 32, eps)
-        self.conv_out = Conv2d(chs[-1], 2 * cfg.latent_channels, 3, padding=1)
+        self.conv_out = Conv3x3(chs[-1], 2 * cfg.latent_channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.conv_in(x)
@@ -104,7 +104,7 @@ class TemporalDecoder(nn.Module):
         st = lambda cin, cout: SpatioTemporalResBlock(cin, cout, None, eps,
                                                       temporal_eps=1e-5, merge_factor=0.0)
         top = chs[-1]
-        self.conv_in = Conv2d(cfg.latent_channels, top, 3, padding=1)
+        self.conv_in = Conv3x3(cfg.latent_channels, top)
         self.mid_block = _Mid([st(top, top) for _ in range(2)], VAEAttention(top, eps))
         rev = list(reversed(chs))
         self.up_blocks = nn.ModuleList()
@@ -117,7 +117,7 @@ class TemporalDecoder(nn.Module):
             self.up_blocks.append(_Stage(
                 resnets, upsamplers=[Upsample2D(ch)] if i < len(rev) - 1 else None))
         self.conv_norm_out = GroupNormSiLU(chs[0], 32, eps)
-        self.conv_out = Conv2d(chs[0], cfg.out_channels, 3, padding=1)
+        self.conv_out = Conv3x3(chs[0], cfg.out_channels)
         self.time_conv_out = TemporalConv(cfg.out_channels, cfg.out_channels)
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:

@@ -38,6 +38,7 @@ _SIGNATURES = {
     "svdx_temporal_resnet_conv": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _I, _I, _I, _I, _I, _P],
     "svdx_temporal_resnet_tile_rows": [],
+    "svdx_conv3x3": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

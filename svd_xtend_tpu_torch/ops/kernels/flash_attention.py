@@ -15,6 +15,13 @@ by autograd; on a CUDA tensor it launches the kernels or raises. The plain
 versions of the kernels themselves are ``flash_attention_fwd_reference``
 (output and LSE) and ``flash_attention_bwd_reference`` (the explicit
 backward formulas in f32).
+
+``flash_attention`` is the port of the head-major entry point
+(``flash_attention.py::flash_attention``, its kernel ``_fwd_kernel``) on
+(B, S, H, 64) tensors: a contiguous (B, S, H, 64) tensor has the memory
+layout of the packed (B, S, H*64) one, so the same forward kernel computes it
+on the same memory, with no transposes, and its backward goes through the
+same dQ and dK/dV kernels. It counts its forward launches apart.
 """
 
 from __future__ import annotations
@@ -107,6 +114,12 @@ def _stream(x):
 
 def flash_attention_fwd(q, k, v, num_heads: int, scale: float, with_lse: bool = True):
     """The forward kernel: (o, f32 LSE (B, H, S) or None)."""
+    out = _fwd_launch(q, k, v, num_heads, scale, with_lse)
+    flash_attention_packed.launches += 1
+    return out
+
+
+def _fwd_launch(q, k, v, num_heads: int, scale: float, with_lse: bool):
     _validate(q, k, v, num_heads)
     o = torch.empty_like(q)
     b, s, _ = q.shape
@@ -117,7 +130,6 @@ def flash_attention_fwd(q, k, v, num_heads: int, scale: float, with_lse: bool = 
         None if lse is None else lse.data_ptr(), b, s, k.shape[1], num_heads,
         float(scale), _stream(q))
     check(err, "flash_attention_fwd")
-    flash_attention_packed.launches += 1
     return o, lse
 
 
@@ -207,9 +219,43 @@ def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     fwd, bwd = kernels
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return _FlashAttention.apply(q, k, v, num_heads, float(scale), fwd, bwd)
-    if fwd is flash_attention_fwd:
+    if fwd in (flash_attention_fwd, _bshd_fwd):
         return fwd(q, k, v, num_heads, scale, with_lse=False)[0]
     return fwd(q, k, v, num_heads, scale)[0]
 
 
 flash_attention_packed.launches = 0  # forward-kernel launches
+
+
+def _bshd_fwd(q, k, v, num_heads: int, scale: float, with_lse: bool = True):
+    """The forward kernel on the packed view of (B, S, H, 64) tensors."""
+    out = _fwd_launch(q, k, v, num_heads, scale, with_lse)
+    flash_attention.launches += 1
+    return out
+
+
+def supports_bshd(q: torch.Tensor, k: torch.Tensor) -> bool:
+    """Structural dispatch predicate of ``flash_attention``: CUDA bf16
+    (B, S, H, 64) q and (B, T, H, 64) k."""
+    return (q.dim() == 4 and k.dim() == 4 and q.shape[2] == k.shape[2]
+            and q.shape[3] == k.shape[3] == HEAD_DIM
+            and supports(q.flatten(2), k.flatten(2), q.shape[2]))
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    scale: float, kernels=None) -> torch.Tensor:
+    """softmax(q kᵀ·scale) v on (B, S, H, 64) x (B, T, H, 64) -> (B, S, H, 64).
+    ``kernels`` as for ``flash_attention_packed``."""
+    b, s, h, d = q.shape
+    if kernels is None:
+        if q.device.type == "cuda" and not supports_bshd(q, k):
+            raise ValueError(f"flash_attention kernel needs CUDA bf16 (B, S, H, "
+                             f"{HEAD_DIM}) q, k, v; got q {tuple(q.shape)} {q.dtype}, "
+                             f"k {tuple(k.shape)}")
+        kernels = (_bshd_fwd, flash_attention_bwd) if q.device.type == "cuda" else None
+    packed = [a.reshape(a.shape[0], a.shape[1], h * d) for a in (q, k, v)]
+    return flash_attention_packed(*packed, num_heads=h, scale=scale,
+                                  kernels=kernels).reshape(b, s, h, d)
+
+
+flash_attention.launches = 0  # forward-kernel launches

@@ -16,6 +16,7 @@ import math
 import pytest
 import torch
 
+from svd_xtend_tpu_torch.ops.kernels import conv3x3 as cv
 from svd_xtend_tpu_torch.ops.kernels import flash_attention as fa
 from svd_xtend_tpu_torch.ops.kernels import geglu as gg
 from svd_xtend_tpu_torch.ops.kernels import groupnorm as gn
@@ -205,3 +206,99 @@ def test_geglu_kernel(rn, t, c):
 def test_geglu_wrapper_raises_on_untaken_shapes(rn):
     with pytest.raises(ValueError):
         gg.ln_geglu_residual(*_geglu_args(rn, 10, 96))
+
+
+# ------------------------------------------------------------------ conv3x3 --
+
+@pytest.fixture
+def no_tf32(monkeypatch):
+    """The plain versions' f32 convs in full f32 (cuDNN defaults to TF32)."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+
+
+def _conv_args(rn, n, h, w, ci, co, pre, silu, post, res):
+    x = rn(n, h, w, ci) * 2 + 0.5
+    weight = rn(co, ci, 3, 3, sc=(9 * ci) ** -0.5)
+    kw = dict(pre_silu=silu)
+    if pre:
+        kw.update(pre_scale=(1 + 0.2 * rn(n, ci)).float() / 2, pre_shift=0.3 * rn(n, ci).float())
+    if post:
+        kw["post_shift"] = 0.5 * rn(n, co).float()
+    if res:
+        kw["residual"] = rn(n, h, w, co)
+    return x, weight, 0.1 * rn(co), kw
+
+
+# (pre, silu, post, res): none, pre, preS, preS+post, preS+res, post+res
+_EPILOGUES = [(False, False, False, False), (True, False, False, False),
+              (True, True, False, False), (True, True, True, False),
+              (True, True, False, True), (False, False, True, True)]
+
+
+@pytest.mark.parametrize("epi", range(6))
+@pytest.mark.parametrize("shape", [(2, 40, 64, 320, 320), (2, 10, 16, 640, 1280),
+                                   (4, 5, 8, 2560, 1280), (3, 7, 13, 64, 320),
+                                   (2, 9, 5, 8, 40)])
+def test_conv3x3_kernel(rn, no_tf32, shape, epi):
+    """The UNet's L0, L2 and L3 resnet shapes, a W that is not a multiple of
+    64 with Co 320 (ragged 128-column tiles), and Ci 8 with Co 40 (the
+    conv_in width, a ragged 64-column tile), with each epilogue."""
+    x, weight, bias, kw = _conv_args(rn, *shape, *_EPILOGUES[epi])
+    n = cv.conv3x3.launches
+    got = cv.conv3x3(x, weight, bias, **kw)
+    assert cv.conv3x3.launches == n + 1
+    ref = cv.conv3x3_fused_reference(x, weight, bias, kw.get("pre_scale"), kw.get("pre_shift"),
+                                     kw.get("post_shift"), kw.get("residual"), kw["pre_silu"])
+    _assert_close_bf16(got, ref)
+
+
+@pytest.mark.parametrize("shape", [(2, 20, 32, 64, 128), (3, 5, 8, 320, 640)])
+def test_conv3x3_gradients_against_plain(rn, no_tf32, shape):
+    """The Function's gradients (dU through the kernel, dW through cuDNN)
+    against the f32 plain gradient: finite, and each at most 1.5x the max-abs
+    error of the bf16 plain version's gradient on the same inputs."""
+    x, weight, bias, kw = _conv_args(rn, *shape, True, True, True, True)
+    names = ("pre_scale", "pre_shift", "post_shift", "residual")
+    inputs = [x, weight, bias] + [kw[a] for a in names]
+    run = lambda x, w, b, sc, sh, post, res: cv.conv3x3(
+        x, w, b, pre_scale=sc, pre_shift=sh, pre_silu=True, post_shift=post, residual=res)
+    plain = lambda *a: cv.conv3x3_fused_reference(*a, True)
+    dy = rn(*shape[:3], shape[4])
+    n = cv.conv3x3_input_grad.launches
+    _, got = _grads(run, inputs, dy)
+    assert cv.conv3x3_input_grad.launches == n + 1
+    _, bf = _grads(plain, inputs, dy)
+    _, f32 = _grads(plain, [a.float() for a in inputs], dy.float())
+    torch.cuda.synchronize()
+    for i, (g, p, r) in enumerate(zip(got, bf, f32)):
+        err, perr = ((a.float() - r).abs().max().item() for a in (g, p))
+        assert bool(torch.isfinite(g).all()) and err <= 1.5 * perr, (i, err, perr)
+
+
+def test_conv3x3_wrapper_raises_on_untaken_calls(rn):
+    with pytest.raises(ValueError):                 # Ci 12: not a multiple of 8
+        cv.conv3x3(rn(1, 4, 4, 12), rn(16, 12, 3, 3), rn(16))
+    with pytest.raises(ValueError):                 # f32 activations
+        cv.conv3x3(rn(1, 4, 4, 16).float(), rn(16, 16, 3, 3), rn(16))
+    with pytest.raises(ValueError):                 # residual of the wrong width
+        cv.conv3x3(rn(1, 4, 4, 16), rn(16, 16, 3, 3), rn(16), residual=rn(1, 4, 4, 8))
+
+
+@pytest.mark.parametrize("s", [40, 2560])
+def test_flash_attention_bshd_kernel(rn, s):
+    """The head-major entry point on (B, S, H, 64): the forward kernel on the
+    same memory, and its gradients through the dQ and dK/dV kernels."""
+    q, k, v = (rn(2, s, 2, 64) for _ in range(3))
+    plain = lambda q, k, v: fa.flash_attention_packed_reference(
+        q.flatten(2), k.flatten(2), v.flatten(2), num_heads=2, scale=0.125).reshape(q.shape)
+    n = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, scale=0.125)
+    assert fa.flash_attention.launches == n + 1 and got.shape == q.shape
+    _assert_close_bf16(got, plain(q, k, v))
+    do = rn(2, s, 2, 64)
+    _, g = _grads(lambda q, k, v: fa.flash_attention(q, k, v, scale=0.125), (q, k, v), do)
+    _, bf = _grads(plain, (q, k, v), do)
+    _, f32 = _grads(plain, (q.float(), k.float(), v.float()), do.float())
+    for a, p, r in zip(g, bf, f32):
+        err, perr = ((x.float() - r).abs().max().item() for x in (a, p))
+        assert err <= 1.5 * perr, (err, perr)

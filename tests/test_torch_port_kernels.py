@@ -21,6 +21,7 @@ from svd_xtend_tpu.ops.pallas import geglu as jgg
 from svd_xtend_tpu.ops.pallas import groupnorm as jgn
 from svd_xtend_tpu.ops.pallas import temporal_attention as jta
 from svd_xtend_tpu.ops.pallas import temporal_resnet as jtr
+from svd_xtend_tpu_torch.ops.kernels import conv3x3 as tcv
 from svd_xtend_tpu_torch.ops.kernels import flash_attention as tfa
 from svd_xtend_tpu_torch.ops.kernels import geglu as tgg
 from svd_xtend_tpu_torch.ops.kernels import groupnorm as tgn
@@ -168,6 +169,8 @@ def test_wrappers_raise_on_untaken_cuda_shapes():
     assert not tta.supports(torch.zeros(1, 33, 4, 64), 1)
     assert not ttr.supports(torch.zeros(1, 2, 4, 96))
     assert not tgn.supports(torch.zeros(2, 4, 48), 32)
+    assert not tcv.supports(torch.zeros(1, 4, 8, 16), torch.zeros(32, 16, 3, 3))
+    assert not tfa.supports_bshd(torch.zeros(1, 8, 2, 64), torch.zeros(1, 8, 2, 64))
 
 
 def test_kernel_a_b_plain_versions_compose_to_the_block():
@@ -293,10 +296,26 @@ def _wiring_cases(rs):
          lambda *a: tgg.ln_geglu_residual(*a, kernel=tgg.ln_geglu_residual_reference),
          tgg.ln_geglu_residual_reference,
          _geglu_port_args(_geglu_args(rs, (2, 20), 32))),
+        ("conv3x3",
+         lambda x, w, b, sc, sh, post, res: tcv.conv3x3(
+             x, w, b, pre_scale=sc, pre_shift=sh, pre_silu=True, post_shift=post,
+             residual=res, kernel=tcv.conv3x3_fused_reference),
+         lambda x, w, b, sc, sh, post, res: tcv.conv3x3_fused_reference(
+             x, w, b, sc, sh, post, res, True),
+         [_t(_rand(rs, 2, 5, 6, 16)), _t(_rand(rs, 24, 16, 3, 3, scale=0.1)),
+          _t(_rand(rs, 24, scale=0.1)), _t(1 + _rand(rs, 2, 16, scale=0.3)),
+          _t(_rand(rs, 2, 16, scale=0.3)), _t(_rand(rs, 2, 24, scale=0.2)),
+          _t(_rand(rs, 2, 5, 6, 24))]),
+        ("flash_attention",
+         lambda q, k, v: tfa.flash_attention(q, k, v, scale=0.125, kernels=plain_fa),
+         lambda q, k, v: tfa.flash_attention_packed_reference(
+             q.flatten(2), k.flatten(2), v.flatten(2), num_heads=2,
+             scale=0.125).reshape(q.shape),
+         [_t(_rand(rs, 2, 40, 2, 64)) for _ in range(3)]),
     ]
 
 
-@pytest.mark.parametrize("case", range(5))
+@pytest.mark.parametrize("case", range(7))
 def test_kernel_functions_differentiate_like_their_plain_versions(case):
     """Every input requires grad (the blend weight w of the temporal resnet
     included): the output carries the Function's grad_fn, and its gradients

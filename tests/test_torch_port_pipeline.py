@@ -28,7 +28,8 @@ def pair():
     jm = jpipe.SVDModels(unet_config=jcfg.TINY_UNET, vae_config=jcfg.TINY_VAE,
                          clip_config=jcfg.TINY_CLIP, dtype=jnp.float32)
     params = jpipe.init_pipeline_params(jm, jax.random.PRNGKey(0))
-    tm = tpipe.SVDModels.create(tcfg.TINY_UNET, tcfg.TINY_VAE, tcfg.TINY_CLIP)
+    tm = tpipe.SVDModels.create(tcfg.TINY_UNET, tcfg.TINY_VAE, tcfg.TINY_CLIP,
+                                device="cpu")
     sds = state_dict_from_jax(jconv.flatten(params))
     tm.unet.load_state_dict(sds["unet"], strict=True)
     tm.vae.load_state_dict(sds["vae"], strict=True)
@@ -110,3 +111,15 @@ def test_generate_is_seeded_by_generator(pair):
     c = tpipe.generate(tm, image, cfg, generator=torch.Generator().manual_seed(6))
     torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert (a - c).abs().max() > 1e-6
+
+
+def test_create_builds_on_the_card_by_default():
+    """SVDModels.create without `device` builds on the CUDA device where there
+    is one, and raises where there is none rather than returning modules on
+    the CPU (the CPU tests pass device="cpu")."""
+    if torch.cuda.is_available():
+        m = tpipe.SVDModels.create(tcfg.TINY_UNET, tcfg.TINY_VAE, tcfg.TINY_CLIP)
+        assert all(p.is_cuda for net in (m.unet, m.vae, m.clip) for p in net.parameters())
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tpipe.SVDModels.create(tcfg.TINY_UNET, tcfg.TINY_VAE, tcfg.TINY_CLIP)

@@ -121,7 +121,8 @@ def pair():
 
 
 def _port_models(sds):
-    tm = tpipe.SVDModels.create(tcfg.TINY_UNET, tcfg.TINY_VAE, tcfg.TINY_CLIP)
+    tm = tpipe.SVDModels.create(tcfg.TINY_UNET, tcfg.TINY_VAE, tcfg.TINY_CLIP,
+                                device="cpu")
     for name in ("unet", "vae", "clip"):
         getattr(tm, name).load_state_dict(sds[name], strict=True)
     return tm
