@@ -47,8 +47,13 @@ Phases, each of which raises on failure (non-zero exit):
      must all be > 0; finite loss and grad_norm, trainable weights changed,
      frozen ones bit-identical; s/step and peak memory. Then one full-scope
      step at the same size: finite loss, peak memory.
-  7. the kernels JSON line (launches from the train path; launches_generate
-     from the generate run), then the device JSON line last.
+  7. mha (the head-major attention entry point, ops/attention.py::mha, as a
+     caller outside the UNet uses it): the UNet's L0 self-attention shape,
+     (2x14, 2560, 320) in 5 heads of 64, through the BSHD flash kernel: its
+     launch count must be > 0, and the output within 4 bf16 ulps of
+     impl="plain".
+  8. the kernels JSON line (launches: the sum over the three paths' timed
+     runs, launches_by_path: each path's), then the device JSON line last.
 
 --profile DIR additionally writes a torch.profiler table of one train step
 (and its Chrome trace) into DIR.
@@ -84,8 +89,6 @@ FLASH_BWD_RATIO = 1.5
 # and its bytes over the second
 PEAK_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
-# the kernel entry points that no main path calls: their launches may be 0
-OFF_PATH = frozenset({"flash_attention"})
 # LSE: f32 log-sum-exp of the same f32 scores summed in another order
 LSE_ATOL = 1e-4
 TRAIN_STEPS = 3
@@ -597,8 +600,12 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     log("train: default TrainConfig (temporal scope, 512x320x14f, batch 1, remat block)")
-    launches = train_phase(dev, smi, counters, args.profile)
+    train_launches = train_phase(dev, smi, counters, args.profile)
     torch.cuda.empty_cache()
+
+    log("mha: the head-major attention entry point at the UNet's L0 shape")
+    mha_launches = mha_phase(dev, counters)
+    by_path = {"generate": gen_launches, "train": train_launches, "mha": mha_launches}
 
     sources = {
         "flash_attention_fwd": ("cuda", "svd_xtend_tpu_torch/csrc/flash_attention.cu",
@@ -626,9 +633,10 @@ def main() -> int:
     }
     kernels = []
     for name, (route, src, replaces) in sources.items():
+        paths = {path: counts.get(name, 0) for path, counts in by_path.items()}
         kernels.append({"name": name, "route": route, "source": src, "replaces": replaces,
-                        "launches": launches[name], "max_abs_err": ph.err[name],
-                        **ph.times[name], "launches_generate": gen_launches.get(name, 0)})
+                        "launches": sum(paths.values()), "max_abs_err": ph.err[name],
+                        **ph.times[name], "launches_by_path": paths})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -659,6 +667,13 @@ def kernel_counters():
     }
 
 
+# kernels that only the train step's backward launches, and the entry point
+# that only the mha path calls
+BACKWARD_ONLY = frozenset({"flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+                           "conv3x3_input_grad"})
+MHA_ONLY = frozenset({"flash_attention"})
+
+
 def reset(counters):
     for fn in counters.values():
         fn.launches = 0
@@ -667,7 +682,7 @@ def reset(counters):
 def read(counters, names):
     launches = {name: counters[name].launches for name in names}
     log(f"  launches in the timed run: {launches}")
-    missing = [n for n, c in launches.items() if c == 0 and n not in OFF_PATH]
+    missing = [n for n, c in launches.items() if c == 0]
     if missing:
         raise RuntimeError(f"kernels never launched on the path: {missing}")
     return launches
@@ -695,8 +710,7 @@ def generate_phase(dev, smi, counters):
     video = generate(models, image, cfg, generator=torch.Generator(device=dev).manual_seed(SEED))
     torch.cuda.synchronize()
     secs = time.time() - t0
-    launches = read(counters, [n for n in counters
-                               if "bwd" not in n and n != "conv3x3_input_grad"])
+    launches = read(counters, [n for n in counters if n not in BACKWARD_ONLY | MHA_ONLY])
     peak = torch.cuda.max_memory_allocated()
     unet = sum(st[5] for st in UNET_CONV_SITES)
     vae = (sum(st[5] for st in VAE_ENCODE_SITES)
@@ -715,6 +729,27 @@ def generate_phase(dev, smi, counters):
     log(f"  video {tuple(video.shape)} finite, in [-1, 1], std {video.std().item():.4f}")
     log(f"  [{smi}] seconds/video {secs:.3f}; frames/s {cfg.num_frames / secs:.3f}; "
         f"peak allocated {peak / 2**30:.2f} GiB")
+    return launches
+
+
+def mha_phase(dev, counters):
+    """``mha`` on (B, S, C) projections at the UNet's L0 self-attention shape
+    (CFG batch 2x14 frames): the BSHD flash kernel, against impl="plain"."""
+    from svd_xtend_tpu_torch.ops.attention import mha
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+    q, k, v = (torch.randn(28, 2560, 320, device=dev, generator=g).to(torch.bfloat16)
+               for _ in range(3))
+    reset(counters)
+    out = mha(q, k, v, num_heads=5)
+    torch.cuda.synchronize()
+    launches = read(counters, sorted(MHA_ONLY))
+    ref = mha(q, k, v, num_heads=5, impl="plain")
+    err, bound = (out.float() - ref.float()).abs().max().item(), bf16_bound(ref)
+    log(f"  mha (28, 2560, 320) heads 5: max_abs_err {err:.6g} against impl='plain' "
+        f"(bound {bound:.6g})")
+    if not bool(torch.isfinite(out).all()) or err > bound:
+        raise RuntimeError(f"mha: error {err} above bound {bound}")
     return launches
 
 
@@ -761,7 +796,7 @@ def train_phase(dev, smi, counters, profile_dir):
         metrics.append(m)
     torch.cuda.synchronize()
     secs = (time.time() - t0) / TRAIN_STEPS
-    launches = read(counters, list(counters))
+    launches = read(counters, [n for n in counters if n not in MHA_ONLY])
     peak = torch.cuda.max_memory_allocated()
     for m in metrics:
         log(f"  step: loss {m['loss']:.5g} grad_norm {m['grad_norm']:.5g} lr {m['lr']:.3g}")

@@ -17,7 +17,7 @@
 // 1440 at Ci = Co = 320, 5760 at 1280. Tensor-core bound at every UNet and
 // VAE site: about 5.8 ms of tensor time per CFG UNet step against about
 // 1.0 ms of device-memory bytes. So the products run on the tensor cores
-// (mma.sync m16n8k16 bf16 -> f32, fragments by ldmatrix) fed by a 3-stage
+// (mma.sync m16n8k16 bf16 -> f32, fragments by ldmatrix) fed by a 4-stage
 // cp.async ring, as the GEMMs of geglu.cu.
 //
 // Design: an implicit GEMM with a per-tap K loop (M = N*H*W, N = Co,
@@ -29,7 +29,11 @@
 // 16-byte chunk of the A tile (8 channels of one tap) is fetched from the
 // shifted source pixel, zero-filled by cp.async where the tap falls outside
 // the image (the padding), so it needs no per-width tiling and no halo
-// bookkeeping, and reads its input in place.
+// bookkeeping, and reads its input in place. Where Ci % 32 == 0 (every site
+// but the UNet's conv_in) a K tile is 32 channels of one tap, and each
+// thread computes its source rows and padding flags once per tap; address
+// arithmetic per chunk (a division by Ci, the tap's bounds) had left the
+// mainloop issue-bound rather than tensor-bound.
 //
 // The affine + SiLU prologue runs as its own pass, u = bf16([silu](x*sc +
 // sh)) through device memory, which the conv then reads with its zero-filled
@@ -41,12 +45,18 @@
 // same conv at batch 14 without a prologue (H100 80GB HBM3, 700 W). The
 // separate pass moves 2*|x| bytes once (92 MB, about 30 us at L0 CFG).
 //
-// Tiles: 128 x BN x 32, 8 warps; BN = 128 where Co % 128 == 0 and the grid
-// has at least two waves of blocks, else 64 (Co = 320, 960, and the small-M
+// Tiles: 128 x BN x 32, 8 warps. BN = 128 in warps of 64 x 32 where the
+// grid has at least two waves of blocks (the last column tile masked when
+// Co % 128 != 0, e.g. 320); else BN = 64 in warps of 32 x 32 (the small-M
 // 5x8 level, which fills the 132 SMs through column tiles, not split-K).
-// Rows past M, columns past Co and k past 9*Ci are zero-filled; the
-// epilogue masks rows and columns. Needs Ci % 8 == 0 and Co % 8 == 0 (one
-// 16-byte chunk is 8 channels of one tap).
+// The 32 x 32 warp tile reads shared memory at 4/3 the rate per product of
+// the 64 x 32 one and measured 125-166 TFLOP/s at the L0 site against
+// 198-204 for 64 x 32; 4 warps of 64 x 64, which read a third less again,
+// measured slower still (178 at L0, the 10x16 level 211-223 against
+// 237-248; H100 80GB HBM3, 700 W). Rows past M, columns past Co and k past
+// 9*Ci are zero-filled; the epilogue masks rows and columns. Needs
+// Ci % 8 == 0 and Co % 8 == 0 (one 16-byte chunk is 8 channels of one
+// tap).
 //
 // Weights: (Co, 3, 3, Ci) contiguous, i.e. (Co, 9*Ci) row-major, K-contiguous
 // per output channel as mma.sync's B operand wants; the module stores its
@@ -62,11 +72,12 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // 8 warps
+constexpr int kPrologueThreads = 256;
 constexpr int kBM = 128;
 constexpr int kBK = 32;
-constexpr int kStages = 3;
-constexpr int kLds = kBK + 8;  // 80-byte rows: conflict-free ldmatrix
+constexpr int kStages = 4;
+constexpr int kLds = kBK + 8;  // rows padded by 16 bytes: conflict-free ldmatrix
+constexpr int kChunks = kBK / 8;  // 16-byte chunks per row of a K tile
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -106,11 +117,19 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
 }
 
-template <int BN>
+// A 128 x BN block tile in kWarpsM x kWarpsN warps of kWM x kWN. A thread
+// loads one 16-byte chunk of rows r, r + kRowStep, ... of the A and B
+// tiles.
+template <int BN, int kWarpsM, int kWarpsN>
 struct Tile {
-  static constexpr int kWarpsN = BN / 32;  // warp tile: (128 / kWarpsM) x 32
-  static constexpr int kWarpsM = 8 / kWarpsN;
-  static constexpr int kMI = 128 / kWarpsM / 16;
+  static constexpr int kThreads = 32 * kWarpsM * kWarpsN;
+  static constexpr int kWM = kBM / kWarpsM;
+  static constexpr int kWN = BN / kWarpsN;
+  static constexpr int kMI = kWM / 16;  // m16 blocks per warp
+  static constexpr int kNI = kWN / 8;   // n8 blocks per warp
+  static constexpr int kRowStep = kThreads / kChunks;
+  static constexpr int kARows = kBM / kRowStep;
+  static constexpr int kBRows = BN / kRowStep;
   static constexpr int kStageElems = (kBM + BN) * kLds;
   static constexpr int kSmemBytes = kStages * kStageElems * 2;
 };
@@ -143,11 +162,11 @@ __device__ __forceinline__ bool a_source(const Params& p, int k, bool row_ok, in
 // u = bf16([silu](x*sc + sh)), 8 channels (16 bytes) per thread; sc, sh
 // are per (sample, channel) f32.
 template <bool kSilu>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kPrologueThreads)
 prologue_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ sc,
                 const float* __restrict__ sh, __nv_bfloat16* __restrict__ u, long long chunks,
                 int ci, int hw) {
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const long long i = (long long)blockIdx.x * kPrologueThreads + threadIdx.x;
   if (i >= chunks) return;
   const long long e0 = i * 8;                  // first element of the chunk
   const long long m = e0 / ci;
@@ -175,57 +194,97 @@ prologue_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ s
   *reinterpret_cast<uint4*>(u + e0) = make_uint4(o[0], o[1], o[2], o[3]);
 }
 
-template <int BN>
-__global__ void __launch_bounds__(kThreads)
+// kTapAligned (Ci % 32 == 0): a K tile is 32 channels of one tap, and the
+// loader walks the taps in order, so a thread's A source rows and their
+// padding flags change once per tap, not per tile.
+template <int BN, int kWarpsM, int kWarpsN, bool kTapAligned>
+__global__ void __launch_bounds__(32 * kWarpsM * kWarpsN)
 conv3x3_kernel(const Params p) {
-  using T = Tile<BN>;
+  using T = Tile<BN, kWarpsM, kWarpsN>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp / T::kWarpsN, wn = warp % T::kWarpsN;
+  const int wm = warp / kWarpsN, wn = warp % kWarpsN;
   const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * BN;
   const int kdim = 9 * p.ci;
   const int hw = p.h * p.wd;
 
-  // this thread's two A rows (tile rows r and r + 64) and its chunk column
-  const int ch = (tid & 3) * 8;
-  int a_m[2], a_y[2], a_x[2], a_n[2];
-  bool a_ok[2];
+  // this thread's A rows (tile rows r, r + kRowStep, ...) and chunk column
+  const int r0 = tid / kChunks, ch = (tid % kChunks) * 8;
+  int a_m[T::kARows], a_y[T::kARows], a_x[T::kARows];
+  bool a_ok[T::kARows];
 #pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int m = m0 + (tid >> 2) + 64 * j;
+  for (int j = 0; j < T::kARows; ++j) {
+    const int m = m0 + r0 + T::kRowStep * j;
     a_ok[j] = m < p.m;
     a_m[j] = m;
-    a_n[j] = m / hw;
-    const int rem = m - a_n[j] * hw;
+    const int rem = m - (m / hw) * hw;
     a_y[j] = rem / p.wd;
     a_x[j] = rem - a_y[j] * p.wd;
   }
 
-  float acc[T::kMI][4][4];
+  // this thread's B rows, K-contiguous
+  const __nv_bfloat16* b_src[T::kBRows];
+  bool b_ok[T::kBRows];
+#pragma unroll
+  for (int i = 0; i < T::kBRows; ++i) {
+    const int co = n0 + r0 + T::kRowStep * i;
+    b_ok[i] = co < p.co;
+    b_src[i] = p.wt + (b_ok[i] ? (size_t)co * kdim + ch : 0);
+  }
+
+  float acc[T::kMI][T::kNI][4];
 #pragma unroll
   for (int i = 0; i < T::kMI; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < T::kNI; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 
+  // the tap-aligned loader's position (the next tile's tap and channel
+  // offset) and this thread's A source rows for that tap
+  int l_tap = 0, l_ci = 0;
+  const __nv_bfloat16* l_src[T::kARows];
+  bool l_ok[T::kARows];
+  auto set_tap = [&](int tap) {
+    const int dy = tap / 3 - 1, dx = tap % 3 - 1;
+#pragma unroll
+    for (int j = 0; j < T::kARows; ++j) {
+      const int ys = a_y[j] + dy, xs = a_x[j] + dx;
+      l_ok[j] = a_ok[j] && ys >= 0 && ys < p.h && xs >= 0 && xs < p.wd;
+      l_src[j] = p.x + (l_ok[j] ? (size_t)(a_m[j] + dy * p.wd + dx) * p.ci + ch : 0);
+    }
+  };
+  if (kTapAligned) set_tap(0);
+
+  // tiles are loaded in order kt = 0, 1, ...
   auto load = [&](int stage, int kt) {
     __nv_bfloat16* as = smem + stage * T::kStageElems;
     __nv_bfloat16* bs = as + kBM * kLds;
     const int k = kt * kBK + ch;
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      size_t off = 0;
-      int ci = 0;
-      const bool ok = a_source(p, k, a_ok[j], a_m[j], a_y[j], a_x[j], off, ci);
-      cp_async16(as + ((tid >> 2) + 64 * j) * kLds + ch, p.x + (ok ? off : 0), ok);
+    for (int j = 0; j < T::kARows; ++j) {
+      __nv_bfloat16* dst = as + (r0 + T::kRowStep * j) * kLds + ch;
+      if (kTapAligned) {
+        cp_async16(dst, l_src[j] + l_ci, l_ok[j]);
+      } else {
+        size_t off = 0;
+        int ci = 0;
+        const bool ok = a_source(p, k, a_ok[j], a_m[j], a_y[j], a_x[j], off, ci);
+        cp_async16(dst, p.x + (ok ? off : 0), ok);
+      }
+    }
+    if (kTapAligned) {
+      l_ci += kBK;
+      if (l_ci == p.ci) {
+        l_ci = 0;
+        if (++l_tap < 9) set_tap(l_tap);
+      }
     }
 #pragma unroll
-    for (int i = tid; i < BN * (kBK / 8); i += kThreads) {
-      const int r = i >> 2;
-      const bool ok = n0 + r < p.co && k < kdim;
-      cp_async16(bs + r * kLds + ch, p.wt + (ok ? (size_t)(n0 + r) * kdim + k : 0), ok);
+    for (int i = 0; i < T::kBRows; ++i) {
+      const bool ok = b_ok[i] && k < kdim;
+      cp_async16(bs + (r0 + T::kRowStep * i) * kLds + ch, ok ? b_src[i] + kt * kBK : p.wt, ok);
     }
   };
 
@@ -249,17 +308,17 @@ conv3x3_kernel(const Params p) {
       uint32_t af[T::kMI][4];
 #pragma unroll
       for (int mi = 0; mi < T::kMI; ++mi)
-        ldmatrix_x4(af[mi], as + (wm * T::kMI * 16 + mi * 16 + (lane & 15)) * kLds + kk +
+        ldmatrix_x4(af[mi], as + (wm * T::kWM + mi * 16 + (lane & 15)) * kLds + kk +
                                 (lane >> 4) * 8);
-      uint32_t bf[2][4];
+      uint32_t bf[T::kNI / 2][4];
 #pragma unroll
-      for (int nj = 0; nj < 2; ++nj)
-        ldmatrix_x4(bf[nj], bs + (wn * 32 + nj * 16 + (lane >> 4) * 8 + (lane & 7)) * kLds +
+      for (int nj = 0; nj < T::kNI / 2; ++nj)
+        ldmatrix_x4(bf[nj], bs + (wn * T::kWN + nj * 16 + (lane >> 4) * 8 + (lane & 7)) * kLds +
                                 kk + ((lane >> 3) & 1) * 8);
 #pragma unroll
       for (int mi = 0; mi < T::kMI; ++mi)
 #pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
+        for (int ni = 0; ni < T::kNI; ++ni)
           mma_bf16(acc[mi][ni], af[mi], bf[ni >> 1][(ni & 1) * 2], bf[ni >> 1][(ni & 1) * 2 + 1]);
     }
   }
@@ -268,15 +327,15 @@ conv3x3_kernel(const Params p) {
   // epilogue: + bias [+ post[n, co]] [+ res] in f32, one cast
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int ni = 0; ni < 4; ++ni) {
-    const int col = n0 + wn * 32 + ni * 8 + 2 * t;
+  for (int ni = 0; ni < T::kNI; ++ni) {
+    const int col = n0 + wn * T::kWN + ni * 8 + 2 * t;
     if (col >= p.co) continue;
     const float b0 = p.bias ? p.bias[col] : 0.f, b1 = p.bias ? p.bias[col + 1] : 0.f;
 #pragma unroll
     for (int mi = 0; mi < T::kMI; ++mi)
 #pragma unroll
       for (int hlf = 0; hlf < 2; ++hlf) {
-        const int row = m0 + wm * T::kMI * 16 + mi * 16 + g + 8 * hlf;
+        const int row = m0 + wm * T::kWM + mi * 16 + g + 8 * hlf;
         if (row >= p.m) continue;
         float v0 = acc[mi][ni][2 * hlf] + b0, v1 = acc[mi][ni][2 * hlf + 1] + b1;
         if (p.post) {
@@ -295,15 +354,23 @@ conv3x3_kernel(const Params p) {
   }
 }
 
-template <int BN>
+template <int BN, int kWarpsM, int kWarpsN, bool kTapAligned>
 int launch(const Params& p, cudaStream_t s) {
-  const int smem = Tile<BN>::kSmemBytes;
-  int err = static_cast<int>(cudaFuncSetAttribute(
-      conv3x3_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
+  using T = Tile<BN, kWarpsM, kWarpsN>;
+  const auto kernel = conv3x3_kernel<BN, kWarpsM, kWarpsN, kTapAligned>;
+  int err = static_cast<int>(cudaFuncSetAttribute(kernel,
+                                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                  T::kSmemBytes));
   if (err) return err;
   const dim3 grid((p.m + kBM - 1) / kBM, (p.co + BN - 1) / BN);
-  conv3x3_kernel<BN><<<grid, kThreads, smem, s>>>(p);
+  kernel<<<grid, T::kThreads, T::kSmemBytes, s>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int BN, int kWarpsM, int kWarpsN>
+int launch_tile(const Params& p, cudaStream_t s) {
+  return p.ci % kBK == 0 ? launch<BN, kWarpsM, kWarpsN, true>(p, s)
+                         : launch<BN, kWarpsM, kWarpsN, false>(p, s);
 }
 
 }  // namespace
@@ -324,14 +391,14 @@ extern "C" int svdx_conv3x3(const void* x, const void* wt, const void* bias, con
   p.x = static_cast<const __nv_bfloat16*>(x);
   if (sc) {
     const long long chunks = (long long)n * h * w * ci / 8;
-    const int blocks = static_cast<int>((chunks + kThreads - 1) / kThreads);
+    const int blocks = static_cast<int>((chunks + kPrologueThreads - 1) / kPrologueThreads);
     auto* up = static_cast<__nv_bfloat16*>(u);
     const auto* scp = static_cast<const float*>(sc);
     const auto* shp = static_cast<const float*>(sh);
     if (silu)
-      prologue_kernel<true><<<blocks, kThreads, 0, s>>>(p.x, scp, shp, up, chunks, ci, h * w);
+      prologue_kernel<true><<<blocks, kPrologueThreads, 0, s>>>(p.x, scp, shp, up, chunks, ci, h * w);
     else
-      prologue_kernel<false><<<blocks, kThreads, 0, s>>>(p.x, scp, shp, up, chunks, ci, h * w);
+      prologue_kernel<false><<<blocks, kPrologueThreads, 0, s>>>(p.x, scp, shp, up, chunks, ci, h * w);
     const int err = static_cast<int>(cudaGetLastError());
     if (err) return err;
     p.x = up;
@@ -347,7 +414,9 @@ extern "C" int svdx_conv3x3(const void* x, const void* wt, const void* bias, con
   p.co = co;
   p.m = n * h * w;
   const int m_tiles = (p.m + kBM - 1) / kBM;
-  // two waves of 128-wide column tiles on 132 SMs, else 64-wide tiles
-  if (co % 128 == 0 && m_tiles * (co / 128) >= 2 * 132) return launch<128>(p, s);
-  return launch<64>(p, s);
+  // 128-wide column tiles (masked past Co) in 2 x 4 warps of 64 x 32 where
+  // they make two waves on 132 SMs, else 64-wide tiles in 4 x 2 warps of
+  // 32 x 32
+  if (co > 64 && m_tiles * ((co + 127) / 128) >= 2 * 132) return launch_tile<128, 2, 4>(p, s);
+  return launch_tile<64, 4, 2>(p, s);
 }

@@ -118,9 +118,7 @@ def _run(x, weight, bias, pre_scale, pre_shift, post_shift, residual, pre_silu):
             f"{tuple(weight.shape)}")
     n, h, w, ci = x.shape
     co = weight.shape[0]
-    if (pre_scale is None) != (pre_shift is None):
-        raise ValueError("conv3x3: pre_scale and pre_shift must be given together")
-    f32 = lambda a: None if a is None else a.float().contiguous()
+    f32 =lambda a: None if a is None else a.float().contiguous()
     wk = weight.permute(0, 2, 3, 1).to(torch.bfloat16).contiguous()
     bias, sc, sh, post = f32(bias), f32(pre_scale), f32(pre_shift), f32(post_shift)
     for name, a, shape in (("bias", bias, (co,)), ("pre_scale", sc, (n, ci)),

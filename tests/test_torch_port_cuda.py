@@ -236,13 +236,16 @@ _EPILOGUES = [(False, False, False, False), (True, False, False, False),
 
 
 @pytest.mark.parametrize("epi", range(6))
-@pytest.mark.parametrize("shape", [(2, 40, 64, 320, 320), (2, 10, 16, 640, 1280),
-                                   (4, 5, 8, 2560, 1280), (3, 7, 13, 64, 320),
-                                   (2, 9, 5, 8, 40)])
+@pytest.mark.parametrize("shape", [(14, 40, 64, 320, 320), (2, 10, 16, 640, 1280),
+                                   (4, 5, 8, 2560, 1280), (100, 9, 13, 64, 320),
+                                   (2, 9, 5, 8, 40), (14, 40, 64, 8, 320)])
 def test_conv3x3_kernel(rn, no_tf32, shape, epi):
-    """The UNet's L0, L2 and L3 resnet shapes, a W that is not a multiple of
-    64 with Co 320 (ragged 128-column tiles), and Ci 8 with Co 40 (the
-    conv_in width, a ragged 64-column tile), with each epilogue."""
+    """With each epilogue: the UNet's L0 resnet shape at training batch (128
+    wide column tiles, the third masked at Co 320), its L2 and L3 shapes
+    (64-wide tiles), a W that is not a multiple of 64 with Co 320 and enough
+    pixels for 128-wide tiles, and Ci 8 (not a multiple of the 32-channel K
+    tile) with a ragged 64-wide tile (Co 40) and at the conv_in width on
+    128-wide tiles."""
     x, weight, bias, kw = _conv_args(rn, *shape, *_EPILOGUES[epi])
     n = cv.conv3x3.launches
     got = cv.conv3x3(x, weight, bias, **kw)
