@@ -28,6 +28,15 @@ Phases, each of which raises on failure (non-zero exit):
      with bias) and bound, and the sum over each path's sites of
      (kernel - F.conv2d) x launches. The BSHD flash entry point at the L0
      CFG shape.
+  3c. probe kernels: the kernels of the TPU probe scripts against their plain
+     versions: the four softmax organisations of the flash forward
+     (flash_variants) at the variants probe's shapes, (140, 2560) whole and
+     (280, 2304), (250, 9216) on their first 8 heads (the plain version of
+     those would hold ~85 GB of f32 scores), nosoftmax on positive inputs;
+     the head-sliced forward with its LSE at the head-slice probe's shapes;
+     the bf16 and int8 chains at the int8 probe's tiles for 1, 2 and 4 steps
+     (int8 bit for bit), timed at 60. Each timed beside its bound, plain
+     version and library call (SDPA; none for the chains).
   4. whole UNet: full SVD widths on a 2-frame 16x16 latent (all kernels
      engage), bf16 with the kernels on the card against f32 with the plain
      versions on the host CPU, from the same seeded weights: the forward
@@ -52,8 +61,21 @@ Phases, each of which raises on failure (non-zero exit):
      (2x14, 2560, 320) in 5 heads of 64, through the BSHD flash kernel: its
      launch count must be > 0, and the output within 4 bf16 ulps of
      impl="plain".
-  8. the kernels JSON line (launches: the sum over the three paths' timed
-     runs, launches_by_path: each path's), then the device JSON line last.
+  8. probes (the path of the three probe scripts): their main()s through the
+     entry points of svd_xtend_tpu_torch/scripts at the scripts' shapes; each
+     probe kernel's launch count must be > 0.
+  9. the kernels JSON line (launches: the sum over the paths' timed runs,
+     launches_by_path: each path's), then the device JSON line last.
+
+The generate phase also runs the cache modes, PipelineConfig(
+uncond_reuse_interval=3) and PipelineConfig(deep_cache_interval=3,
+uncond_reuse_interval=3), one warm-up and one timed run each, on the exact
+run's image and noise: s/video, peak memory, the distance of the video to
+the exact one (reported, not held: the weights are random), the UNet passes
+the schedule ran (batch, full or shallow) against the schedule's rules, and
+the conv3x3 launch count against the site tables. The whole-UNet phase
+checks the DeepCache split at full widths: shallow(x, full(x).deep) equals
+full(x) bit for bit at cache depths 1-3.
 
 --profile DIR additionally writes a torch.profiler table of one train step
 (and its Chrome trace) into DIR.
@@ -65,12 +87,13 @@ import argparse
 import json
 import os
 import re
-import subprocess
 import sys
 import time
 
 import torch
 import torch.nn.functional as F
+
+from svd_xtend_tpu_torch.scripts import card, cuda_ms
 
 SEED = 0
 # rel-L2 bound of the bf16 card UNet against the f32 host UNet: bf16 rounds
@@ -88,6 +111,7 @@ FLASH_BWD_RATIO = 1.5
 # sheet): the bound of a kernel is the larger of its products over the first
 # and its bytes over the second
 PEAK_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
 # LSE: f32 log-sum-exp of the same f32 scores summed in another order
 LSE_ATOL = 1e-4
@@ -104,26 +128,15 @@ def bf16_bound(ref: torch.Tensor) -> float:
     return 4.0 * 2.0 ** (exp - 7)
 
 
-def bound_ms(flops: float, nbytes: float):
-    """(least time in ms, "operations" or "bytes")."""
-    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound_ms(flops: float, nbytes: float, peak: float = PEAK_FLOPS):
+    """(least time in ms, "operations" or "bytes"); `peak` the operations'
+    rate (bf16 by default)."""
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
-
-
-def cuda_ms(fn, iters: int = 10) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 class KernelPhase:
@@ -158,12 +171,12 @@ class KernelPhase:
         self.err[name] = max(self.err.get(name, 0.0), err)
 
     def time(self, name, kernel_fn, plain_fn, flops, moved, library_fn=None,
-             library="none", label="L0"):
+             library="none", label="L0", peak=PEAK_FLOPS):
         """Kernel, plain and library ms at one shape, beside the bound of
-        `flops` products and `moved` bytes."""
+        `flops` products (at `peak`) and `moved` bytes."""
         k_ms, p_ms = cuda_ms(kernel_fn), cuda_ms(plain_fn, 3)
         lib_ms = cuda_ms(library_fn) if library_fn is not None else None
-        b_ms, b_by = bound_ms(flops, moved)
+        b_ms, b_by = bound_ms(flops, moved, peak)
         self.times[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
                                 library_ms=lib_ms)
         lib = f"{lib_ms:.4f} ms ({library})" if lib_ms is not None else "none"
@@ -488,6 +501,102 @@ def flash_bshd_phase(dev, ph: KernelPhase):
                                                    v.transpose(1, 2), scale=0.125), "SDPA")
 
 
+def probe_kernel_phase(dev, ph: KernelPhase):
+    """The probe scripts' kernels against their plain versions, timed at
+    the probes' first shapes."""
+    from svd_xtend_tpu_torch.ops.kernels import flash_attention as fa
+    from svd_xtend_tpu_torch.ops.kernels import flash_chain as fc
+    from svd_xtend_tpu_torch.ops.kernels import flash_variants as fv
+    from svd_xtend_tpu_torch.scripts import probe_int8_flash as pi8
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    rn = lambda *s: torch.randn(*s, device=dev, generator=g).to(torch.bfloat16)
+    rp = lambda *s: torch.rand(*s, device=dev, generator=g).to(torch.bfloat16)
+    log("kernels: flash forward softmax organisations (head-major (B*H, S, 64))")
+    for bh, s_len, check_heads in [(140, 2560, 140), (280, 2304, 8), (250, 9216, 8)]:
+        q, k, v = rn(bh, s_len, 64), rn(bh, s_len, 64), rn(bh, s_len, 64)
+        qp, kp = rp(bh, s_len, 64), rp(bh, s_len, 64)
+        by_mode = {}
+        for mode in fv.MODES:
+            a, b = (qp, kp) if mode == "nosoftmax" else (q, k)
+            run = lambda: fv.flash_variants(a, b, v, scale=0.125, mode=mode)
+            sl = slice(0, check_heads)
+            ph.check("flash_variants", run()[sl],
+                     fv.flash_variants_reference(a[sl], b[sl], v[sl], 0.125, mode),
+                     f"{mode} {(bh, s_len, 64)} heads checked {check_heads}")
+            if s_len == 2560:
+                plain = lambda: fv.flash_variants_reference(a, b, v, 0.125, mode)
+                # 4-D (1, B*H, S, 64): SDPA takes its flash backend only for 4-D inputs
+                sdpa = lambda: F.scaled_dot_product_attention(a[None], b[None], v[None],
+                                                              scale=0.125)
+                ph.time("flash_variants", run, plain, 4 * bh * s_len * s_len * 64,
+                        nbytes(a, b, v, a), sdpa, "SDPA", f"{mode} {(bh, s_len)}")
+                by_mode[mode] = ph.times["flash_variants"]
+        if by_mode:     # the entry holds base's times, and every mode's ms
+            ph.times["flash_variants"] = dict(
+                by_mode["base"], ms_by_mode={m: t["ms"] for m, t in by_mode.items()})
+        del q, k, v, qp, kp
+        torch.cuda.empty_cache()
+
+    log("kernels: head-sliced flash forward with LSE (packed (B, S, H*64))")
+    for b, s_len, h in [(28, 2560, 5), (28, 640, 10)]:
+        q, k, v = rn(b, s_len, h * 64), rn(b, s_len, h * 64), rn(b, s_len, h * 64)
+        run = lambda: fa.flash_attention_headsliced(q, k, v, scale=0.125, num_heads=h)
+        (o, lse), (ref_o, ref_lse) = run(), fa.flash_attention_fwd_reference(q, k, v, h, 0.125)
+        ph.check("flash_attention_headsliced", o, ref_o, f"{(b, s_len, h * 64)} heads {h}")
+        lerr = (lse - ref_lse).abs().max().item()
+        log(f"  headsliced LSE {(b, s_len, h)}: max_abs_err {lerr:.3g} (bound {LSE_ATOL})")
+        if not bool(torch.isfinite(lse).all()) or lerr > LSE_ATOL:
+            raise RuntimeError(f"headsliced LSE error {lerr}")
+        if s_len == 2560:
+            heads = lambda a: a.view(b, s_len, h, 64).transpose(1, 2)
+            ph.time("flash_attention_headsliced", run,
+                    lambda: fa.flash_attention_fwd_reference(q, k, v, h, 0.125),
+                    4 * b * h * s_len * s_len * 64, nbytes(q, k, v, q, lse),
+                    lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v),
+                                                           scale=0.125), "SDPA")
+        del q, k, v, o, ref_o
+
+    log("kernels: QK.PV chains, bf16 and int8 with dynamic quantisation (int8: bit for bit)")
+    ph.err["chain_int8_qd"] = 0.0
+    for bq, bkm in pi8.TILES:
+        q, kT, v, kTi, vi = pi8.inputs(bq, bkm, SEED)
+        for n in (1, 2, 4):
+            label = f"bq {bq} bkm {bkm} steps {n}"
+            ph.check("chain_bf16", fc.chain_bf16(q, kT, v, n),
+                     fc.chain_bf16_reference(q, kT, v, n), label)
+            got, ref = fc.chain_int8_qd(q, kTi, vi, n), fc.chain_int8_qd_reference(q, kTi, vi, n)
+            torch.cuda.synchronize()
+            log(f"  chain_int8_qd {label}: bit-identical {torch.equal(got, ref)}, "
+                f"max |out| {ref.abs().max().item():.4g}")
+            if not torch.equal(got, ref):
+                raise RuntimeError(f"chain_int8_qd {label}: differs from its plain version by "
+                                   f"{(got - ref).abs().max().item()}")
+        if (bq, bkm) == (1280, 1280):
+            n = pi8.N_INNER
+            ops = n * 4 * bq * 64 * bkm     # dependent steps: a latency chain
+            ph.time("chain_bf16", lambda: fc.chain_bf16(q, kT, v, n),
+                    lambda: fc.chain_bf16_reference(q, kT, v, n), ops,
+                    nbytes(q, kT, v) + bq * 64 * 4, label=f"bq {bq} bkm {bkm} steps {n}")
+            ph.time("chain_int8_qd", lambda: fc.chain_int8_qd(q, kTi, vi, n),
+                    lambda: fc.chain_int8_qd_reference(q, kTi, vi, n), ops,
+                    nbytes(q, kTi, vi) + bq * 64 * 4, label=f"bq {bq} bkm {bkm} steps {n}",
+                    peak=PEAK_INT8_OPS)
+
+
+def probes_phase(counters):
+    """The three probe scripts' main()s: the entry points at their shapes."""
+    from svd_xtend_tpu_torch.scripts import (microbench_flash_headslice,
+                                             microbench_flash_variants, probe_int8_flash)
+
+    reset(counters)
+    microbench_flash_headslice.main()
+    microbench_flash_variants.main(["--sass"])
+    probe_int8_flash.main()
+    torch.cuda.synchronize()
+    return read(counters, sorted(PROBE_ONLY | MHA_ONLY | {"flash_attention_fwd"}))
+
+
 def whole_unet_phase(dev):
     from svd_xtend_tpu_torch.core.config import UNetConfig
     from svd_xtend_tpu_torch.diffusion.pipeline import init_random_
@@ -519,6 +628,18 @@ def whole_unet_phase(dev):
         f"max_abs {(got - ref).abs().max().item():.4g} ref_std {ref.std().item():.4g}")
     if not bool(torch.isfinite(got).all()) or rel > UNET_REL_L2_BOUND:
         raise RuntimeError(f"whole-UNet phase: rel_l2 {rel} above {UNET_REL_L2_BOUND}")
+    args = (sample.to(dev), t, ehs.to(dev), ids.to(dev))
+    with torch.no_grad():
+        full = gpu(*args)
+        for depth in (1, 2, 3):
+            out, deep = gpu(*args, return_deep=True, cache_depth=depth)
+            shallow = gpu(*args, cached_deep=deep, cache_depth=depth)
+            same = torch.equal(out, full) and torch.equal(shallow, full)
+            log(f"  DeepCache split, depth {depth}: deep {tuple(deep.shape)}, "
+                f"shallow(x, full(x).deep) == full(x) bit for bit: {same}")
+            if not same:
+                raise RuntimeError(f"DeepCache split at depth {depth}: max diff "
+                                   f"{(shallow - full).abs().max().item()}")
 
     from svd_xtend_tpu_torch.core.config import TrainConfig
     from svd_xtend_tpu_torch.diffusion.pipeline import SVDModels
@@ -569,9 +690,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
         return 1
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip().splitlines()[0]
+    smi = card()
     log(smi)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -589,13 +708,16 @@ def main() -> int:
     conv_phase(dev, ph)
     flash_bshd_phase(dev, ph)
     torch.cuda.empty_cache()
+    probe_kernel_phase(dev, ph)
+    torch.cuda.empty_cache()
 
     log("whole UNet: full widths, card bf16 kernels vs host f32 plain (output, gradient)")
     whole_unet_phase(dev)
     torch.cuda.empty_cache()
 
     counters = kernel_counters()
-    log("generate: PipelineConfig() with full UNet/VAE/CLIP, bf16, all kernels on")
+    log("generate: PipelineConfig() with full UNet/VAE/CLIP, bf16, all kernels on; then "
+        "the CFG cache (k3) and DeepCache + CFG cache (n3 k3)")
     gen_launches = generate_phase(dev, smi, counters)
     torch.cuda.empty_cache()
 
@@ -605,7 +727,12 @@ def main() -> int:
 
     log("mha: the head-major attention entry point at the UNet's L0 shape")
     mha_launches = mha_phase(dev, counters)
-    by_path = {"generate": gen_launches, "train": train_launches, "mha": mha_launches}
+    torch.cuda.empty_cache()
+
+    log("probes: the three probe scripts at their shapes")
+    probe_launches = probes_phase(counters)
+    by_path = {**gen_launches, "train": train_launches, "mha": mha_launches,
+               "probes": probe_launches}
 
     sources = {
         "flash_attention_fwd": ("cuda", "svd_xtend_tpu_torch/csrc/flash_attention.cu",
@@ -630,6 +757,14 @@ def main() -> int:
                                "svd_xtend_tpu/ops/pallas/conv3x3.py:46"),
         "flash_attention": ("cuda", "svd_xtend_tpu_torch/csrc/flash_attention.cu",
                             "svd_xtend_tpu/ops/pallas/flash_attention.py:103"),
+        "flash_attention_headsliced": ("cuda", "svd_xtend_tpu_torch/csrc/flash_attention.cu",
+                                       "scripts/microbench_flash_headslice.py:37"),
+        "flash_variants": ("cuda", "svd_xtend_tpu_torch/csrc/flash_variants.cu",
+                           "scripts/microbench_flash_variants.py:44"),
+        "chain_bf16": ("cuda", "svd_xtend_tpu_torch/csrc/flash_chain.cu",
+                       "scripts/probe_int8_flash.py:48"),
+        "chain_int8_qd": ("cuda", "svd_xtend_tpu_torch/csrc/flash_chain.cu",
+                          "scripts/probe_int8_flash.py:64"),
     }
     kernels = []
     for name, (route, src, replaces) in sources.items():
@@ -648,6 +783,8 @@ def kernel_counters():
     """name -> the wrapper whose `launches` counts that kernel."""
     from svd_xtend_tpu_torch.ops.kernels import conv3x3 as cv
     from svd_xtend_tpu_torch.ops.kernels import flash_attention as fa
+    from svd_xtend_tpu_torch.ops.kernels import flash_chain as fc
+    from svd_xtend_tpu_torch.ops.kernels import flash_variants as fv
     from svd_xtend_tpu_torch.ops.kernels import geglu as gg
     from svd_xtend_tpu_torch.ops.kernels import groupnorm as gn
     from svd_xtend_tpu_torch.ops.kernels import temporal_attention as ta
@@ -664,14 +801,21 @@ def kernel_counters():
         "conv3x3": cv.conv3x3,
         "conv3x3_input_grad": cv.conv3x3_input_grad,
         "flash_attention": fa.flash_attention,
+        "flash_attention_headsliced": fa.flash_attention_headsliced,
+        "flash_variants": fv.flash_variants,
+        "chain_bf16": fc.chain_bf16,
+        "chain_int8_qd": fc.chain_int8_qd,
     }
 
 
-# kernels that only the train step's backward launches, and the entry point
-# that only the mha path calls
+# kernels that only the train step's backward launches, the entry point
+# that only the mha path calls (and the probes' arm T), and the kernels that
+# only the probe scripts launch
 BACKWARD_ONLY = frozenset({"flash_attention_bwd_dq", "flash_attention_bwd_dkv",
                            "conv3x3_input_grad"})
 MHA_ONLY = frozenset({"flash_attention"})
+PROBE_ONLY = frozenset({"flash_attention_headsliced", "flash_variants", "chain_bf16",
+                        "chain_int8_qd"})
 
 
 def reset(counters):
@@ -688,7 +832,43 @@ def read(counters, names):
     return launches
 
 
+def unet_schedule(cfg):
+    """The UNet passes of generate's steps under the JAX package's rules
+    (diffusion/pipeline.py:318-450): (2 = the stacked CFG pair | 1 = the
+    cond half, "full" | "shallow") per step."""
+    k, n = max(1, cfg.uncond_reuse_interval), max(1, cfg.deep_cache_interval)
+    passes = []
+    for i in range(cfg.num_inference_steps):
+        fresh_u, fresh_d = i % k == 0, i % n == 0
+        if n == 1:
+            passes.append((2 if fresh_u else 1, "full"))
+        elif k == 1:
+            passes.append((2, "full" if fresh_d else "shallow"))
+        elif fresh_u:       # an uncond refresh runs the full pair even off n
+            passes.append((2, "full"))
+        else:
+            passes.append((1, "full" if fresh_d else "shallow"))
+    return passes
+
+
+def conv3x3_launches(cfg):
+    """conv3x3 launches of one video from the site tables: 45 per full UNet
+    pass, the levels [0, depth) of it per shallow one, and the VAE's."""
+    level = {40: 0, 20: 1, 10: 2, 5: 3}
+    full = sum(st[5] for st in UNET_CONV_SITES)
+    shallow = sum(st[5] for st in UNET_CONV_SITES if level[st[0]] < cfg.deep_cache_depth)
+    unet = sum(full if kind == "full" else shallow for _, kind in unet_schedule(cfg))
+    vae = (sum(st[5] for st in VAE_ENCODE_SITES)
+           + -(-cfg.num_frames // cfg.decode_chunk_size) * sum(st[5] for st in VAE_DECODE_SITES))
+    return unet + vae
+
+
 def generate_phase(dev, smi, counters):
+    """The exact generate, then the two cache modes on the same image and
+    noise; {path: launches} of the three timed runs."""
+    import collections
+    import dataclasses
+
     from svd_xtend_tpu_torch.core.config import PipelineConfig
     from svd_xtend_tpu_torch.diffusion.pipeline import SVDModels, generate
 
@@ -697,38 +877,66 @@ def generate_phase(dev, smi, counters):
     models = SVDModels.create(device=dev, dtype=torch.bfloat16, generator=gen)
     torch.cuda.synchronize()
     log(f"  models built and initialised: {time.time() - t0:.1f} s")
-    cfg = PipelineConfig()
-    image = torch.rand(1, cfg.height, cfg.width, 3, device=dev, generator=gen) * 2 - 1
-    t0 = time.time()
-    generate(models, image, cfg, generator=torch.Generator(device=dev).manual_seed(SEED))
-    torch.cuda.synchronize()
-    log(f"  warm-up video: {time.time() - t0:.2f} s")
+    exact_cfg = PipelineConfig()
+    image = torch.rand(1, exact_cfg.height, exact_cfg.width, 3, device=dev, generator=gen) * 2 - 1
+    passes = []
+    models.unet.register_forward_pre_hook(
+        lambda _, args, kw: passes.append(
+            (args[0].shape[0], "shallow" if kw.get("cached_deep") is not None else "full")),
+        with_kwargs=True)
+    runs = {"generate": exact_cfg,
+            "generate_k3": dataclasses.replace(exact_cfg, uncond_reuse_interval=3),
+            "generate_n3k3": dataclasses.replace(exact_cfg, deep_cache_interval=3,
+                                                 uncond_reuse_interval=3)}
+    launches, exact = {}, None
+    for path, cfg in runs.items():
+        t0 = time.time()
+        generate(models, image, cfg, generator=torch.Generator(device=dev).manual_seed(SEED))
+        torch.cuda.synchronize()
+        log(f"  {path}: warm-up video {time.time() - t0:.2f} s")
 
-    reset(counters)
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.time()
-    video = generate(models, image, cfg, generator=torch.Generator(device=dev).manual_seed(SEED))
-    torch.cuda.synchronize()
-    secs = time.time() - t0
-    launches = read(counters, [n for n in counters if n not in BACKWARD_ONLY | MHA_ONLY])
-    peak = torch.cuda.max_memory_allocated()
-    unet = sum(st[5] for st in UNET_CONV_SITES)
-    vae = (sum(st[5] for st in VAE_ENCODE_SITES)
-           + -(-cfg.num_frames // cfg.decode_chunk_size) * sum(st[5] for st in VAE_DECODE_SITES))
-    log(f"  conv3x3 launches {launches['conv3x3']}; the site tables give "
-        f"{cfg.num_inference_steps} x {unet} (UNet) + {vae} (VAE) = "
-        f"{cfg.num_inference_steps * unet + vae}")
+        reset(counters)
+        passes.clear()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        video = generate(models, image, cfg,
+                         generator=torch.Generator(device=dev).manual_seed(SEED))
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        launches[path] = read(counters, [n for n in counters
+                                         if n not in BACKWARD_ONLY | MHA_ONLY | PROBE_ONLY])
+        peak = torch.cuda.max_memory_allocated()
+        expect = unet_schedule(cfg)
+        ran = collections.Counter(passes)
+        log(f"  UNet passes (batch x {cfg.num_frames} frames, kind): "
+            f"{dict(sorted(ran.items()))}; the schedule's rules give "
+            f"{dict(sorted(collections.Counter(expect).items()))}")
+        if passes != expect:
+            raise RuntimeError(f"{path}: UNet passes {passes} differ from the schedule {expect}")
+        want = conv3x3_launches(cfg)
+        log(f"  conv3x3 launches {launches[path]['conv3x3']}; the site tables give {want}")
+        if launches[path]["conv3x3"] != want:
+            raise RuntimeError(f"{path}: conv3x3 launched {launches[path]['conv3x3']} times, "
+                               f"the site tables give {want}")
 
-    expect = (1, cfg.num_frames, cfg.height, cfg.width, 3)
-    if tuple(video.shape) != expect:
-        raise RuntimeError(f"video shape {tuple(video.shape)} != {expect}")
-    if not bool(torch.isfinite(video).all()):
-        raise RuntimeError("video has non-finite values")
-    if video.min().item() < -1.0 or video.max().item() > 1.0:
-        raise RuntimeError("video outside [-1, 1]")
-    log(f"  video {tuple(video.shape)} finite, in [-1, 1], std {video.std().item():.4f}")
-    log(f"  [{smi}] seconds/video {secs:.3f}; frames/s {cfg.num_frames / secs:.3f}; "
-        f"peak allocated {peak / 2**30:.2f} GiB")
+        shape = (1, cfg.num_frames, cfg.height, cfg.width, 3)
+        if tuple(video.shape) != shape:
+            raise RuntimeError(f"video shape {tuple(video.shape)} != {shape}")
+        if not bool(torch.isfinite(video).all()):
+            raise RuntimeError("video has non-finite values")
+        if video.min().item() < -1.0 or video.max().item() > 1.0:
+            raise RuntimeError("video outside [-1, 1]")
+        dist = ""
+        if exact is None:
+            exact = video
+        else:
+            d = (video - exact).abs()
+            dist = (f"; distance to the exact video max {d.max().item():.4f} mean "
+                    f"{d.mean().item():.5f} (random weights: reported, not held)")
+        log(f"  video {tuple(video.shape)} finite, in [-1, 1], std {video.std().item():.4f}"
+            f"{dist}")
+        log(f"  [{smi}] {path}: seconds/video {secs:.3f}; frames/s "
+            f"{cfg.num_frames / secs:.3f}; peak allocated {peak / 2**30:.2f} GiB")
     return launches
 
 
@@ -796,7 +1004,7 @@ def train_phase(dev, smi, counters, profile_dir):
         metrics.append(m)
     torch.cuda.synchronize()
     secs = (time.time() - t0) / TRAIN_STEPS
-    launches = read(counters, [n for n in counters if n not in MHA_ONLY])
+    launches = read(counters, [n for n in counters if n not in MHA_ONLY | PROBE_ONLY])
     peak = torch.cuda.max_memory_allocated()
     for m in metrics:
         log(f"  step: loss {m['loss']:.5g} grad_norm {m['grad_norm']:.5g} lr {m['lr']:.3g}")

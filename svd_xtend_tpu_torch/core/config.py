@@ -141,9 +141,10 @@ class SchedulerConfig:
 class PipelineConfig:
     """Operating point of the img2vid pipeline.
 
-    The port runs the exact path only: ``uncond_reuse_interval``,
-    ``deep_cache_interval`` > 1 and the int8 modes are not ported yet and
-    are refused by ``diffusion/pipeline.py::generate``."""
+    ``uncond_reuse_interval`` (the CFG cache) and ``deep_cache_interval`` /
+    ``deep_cache_depth`` (DeepCache) run as in the JAX package
+    (``diffusion/pipeline.py::generate``); the int8 modes (``unet_quant``,
+    ``vae_quant``) are not ported yet and ``generate`` refuses them."""
 
     height: int = 320
     width: int = 512

@@ -8,9 +8,19 @@ at sigma_max, run the Euler loop with the CFG pair stacked as one batch
 interleaved [u0, c0, u1, c1, ...] and a per-frame linear guidance scale,
 decode in chunks of frames (the last one may be ragged) and clip to [-1, 1].
 
-Only the exact path is ported: the CFG cache (uncond_reuse_interval > 1),
-DeepCache (deep_cache_interval > 1), int8 and Tracklet2Video boxes are
-refused.
+The cache modes are ported with JAX's schedules (pipeline.py:318-450):
+- the CFG cache (``uncond_reuse_interval`` k > 1): the stacked pair every
+  k-th step, the cond half alone (batch b) in between, carrying the last
+  uncond output;
+- DeepCache (``deep_cache_interval`` n > 1, ``deep_cache_depth`` d): every
+  n-th step the full pair, which also returns the deep feature
+  (``models/unet.py``), the shallow pair around it in between;
+- both: per-branch deep caches in the interleaved [u0, c0, ...] layout; an
+  uncond-refresh step (i % k == 0) runs the full pair even off the
+  DeepCache interval, a DeepCache step alone refreshes the cond trunk with a
+  full cond-only pass, any other step is a shallow cond-only pass.
+int8 (``unet_quant``/``vae_quant``) is refused; Tracklet2Video boxes are
+not taken.
 
 Randomness: ``generate`` takes a ``torch.Generator``; ``image_noise`` and
 ``latent_noise`` may be given explicitly instead (the tests feed the JAX
@@ -169,10 +179,8 @@ def generate(models: SVDModels, image: torch.Tensor,
     (B, F, H/8, W/8, latent) are unit normals; those not given are drawn
     from `generator`."""
     cfg = config
-    if (cfg.uncond_reuse_interval != 1 or cfg.deep_cache_interval != 1
-            or cfg.unet_quant is not None or cfg.vae_quant is not None):
-        raise ValueError("only the exact path is ported: uncond_reuse_interval=1, "
-                         "deep_cache_interval=1, no int8 quantisation")
+    if cfg.unet_quant is not None or cfg.vae_quant is not None:
+        raise ValueError("int8 quantisation (unet_quant, vae_quant) is not ported")
     models.check_resolution(cfg.height, cfg.width)
     b, f = image.shape[0], cfg.num_frames
     device = image.device
@@ -199,12 +207,52 @@ def generate(models: SVDModels, image: torch.Tensor,
     latents = latent_noise.float() * scheduler.init_noise_sigma()
     guidance = torch.linspace(cfg.min_guidance_scale, cfg.max_guidance_scale, f,
                               dtype=torch.float32, device=device).reshape(1, f, 1, 1, 1)
-    for sigma, sigma_next in zip(sigmas[:-1], sigmas[1:]):
+    k_reuse = max(1, cfg.uncond_reuse_interval)
+    n_deep = max(1, cfg.deep_cache_interval)
+    deep_kw = dict(cache_depth=cfg.deep_cache_depth)
+
+    def unet_out(x_in, t, ehs_, ids_, **kw):
+        out = models.unet(x_in.to(models.dtype), t, ehs_, ids_, **kw)
+        if isinstance(out, tuple):               # return_deep: (out, deep)
+            return out[0].float(), out[1]
+        return out.float()
+
+    def pair(latents, sigma, **kw):
+        """The stacked (uncond, cond) batch of 2b: (uncond, cond[, deep2])."""
         x_in = scheduler.scale_model_input(_cfg_stack(latents, latents), sigma)
         x_in = torch.cat([x_in, cond_lat2], dim=-1)
         t = scheduler.timestep(sigma).to(device).expand(2 * b)
-        out = models.unet(x_in.to(models.dtype), t, ehs, add_ids2).float()
-        uncond, cond = _cfg_unstack(out)
+        out = unet_out(x_in, t, ehs, add_ids2, **kw)
+        if isinstance(out, tuple):
+            return (*_cfg_unstack(out[0]), out[1])
+        return _cfg_unstack(out)
+
+    def cond_half(latents, sigma, **kw):
+        """The cond branch alone, batch b: cond[, deep]."""
+        x_in = torch.cat([scheduler.scale_model_input(latents, sigma), cond_lat], dim=-1)
+        t = scheduler.timestep(sigma).to(device).expand(b)
+        return unet_out(x_in, t, image_embeds, add_ids, **kw)
+
+    deep2 = uncond = None
+    for i, (sigma, sigma_next) in enumerate(zip(sigmas[:-1], sigmas[1:])):
+        fresh_u, fresh_d = i % k_reuse == 0, i % n_deep == 0
+        if n_deep == 1:                          # exact path, or the CFG cache
+            if fresh_u:
+                uncond, cond = pair(latents, sigma)
+            else:
+                cond = cond_half(latents, sigma)
+        elif k_reuse == 1:                       # DeepCache alone
+            if fresh_d:
+                uncond, cond, deep2 = pair(latents, sigma, return_deep=True, **deep_kw)
+            else:
+                uncond, cond = pair(latents, sigma, cached_deep=deep2, **deep_kw)
+        elif fresh_u:     # both: an uncond refresh runs the full pair, on the interval or not
+            uncond, cond, deep2 = pair(latents, sigma, return_deep=True, **deep_kw)
+        elif fresh_d:
+            cond, deep_c = cond_half(latents, sigma, return_deep=True, **deep_kw)
+            deep2 = _cfg_stack(_cfg_unstack(deep2)[0], deep_c)
+        else:
+            cond = cond_half(latents, sigma, cached_deep=_cfg_unstack(deep2)[1], **deep_kw)
         model_out = uncond + guidance * (cond - uncond)
         denoised = scheduler.denoised(model_out, latents, sigma)
         latents = scheduler.step(latents, denoised, sigma, sigma_next)

@@ -1,7 +1,7 @@
 """UNetSpatioTemporalConditionModel — the SVD denoiser.
 
-Port of ``svd_xtend_tpu/models/unet.py`` (the full forward and its remat
-policy; the DeepCache split and the Tracklet2Video branch are not ported).
+Port of ``svd_xtend_tpu/models/unet.py`` (the full forward, its remat
+policy and the DeepCache split; the Tracklet2Video branch is not ported).
 Inputs are channels-last: sample (B, F, H, W, 8), a scalar or (B,)
 timestep, encoder states (B, N, D), added_time_ids (B, 3); output
 (B, F, H, W, 4). The module computes in the dtype of its parameters; the
@@ -16,6 +16,15 @@ which hold most of the activation bytes. It uses
 mode is on; the kernels launch again in the recompute. Each checkpointed
 block runs under the profiler label ``unet.checkpointed_block``, so a trace
 tells its recompute (inside the backward) from the rest of the backward.
+
+DeepCache (``cache_depth=d``, unet.py:217-392 in the JAX package):
+``return_deep=True`` runs the full forward and also returns the deep
+feature, the input of up block ``n_up - d``, as (b, f, h, w, c);
+``cached_deep=deep`` runs the shallow forward: down blocks [0, d) (the last
+one without its downsampler, whose output only fed the skipped levels),
+``deep`` in place of the skipped trunk, then up blocks [n_up - d, n_up) and
+the head. ``shallow(x, full(x).deep) == full(x)``: the same operations on
+the same tensors.
 """
 
 from __future__ import annotations
@@ -56,14 +65,14 @@ class DownBlock(nn.Module):
         self.downsamplers = (nn.ModuleList([Downsample2D(out_channels, out_channels)])
                              if add_downsample else None)
 
-    def forward(self, x, temb, ehs, num_frames):
+    def forward(self, x, temb, ehs, num_frames, downsample: bool = True):
         skips = []
         for i, resnet in enumerate(self.resnets):
             x = resnet(x, temb, num_frames)
             if self.attentions is not None:
                 x = self.attentions[i](x, ehs, num_frames)
             skips.append(x)
-        if self.downsamplers is not None:
+        if self.downsamplers is not None and downsample:
             x = self.downsamplers[0](x)
             skips.append(x)
         return x, skips
@@ -167,11 +176,20 @@ class UNetSpatioTemporalConditionModel(nn.Module):
         self.conv_out = Conv3x3(chs[0], cfg.out_channels)
 
     def forward(self, sample: torch.Tensor, timestep, encoder_hidden_states: torch.Tensor,
-                added_time_ids: torch.Tensor, remat: str = "none") -> torch.Tensor:
+                added_time_ids: torch.Tensor, remat: str = "none",
+                cached_deep: Optional[torch.Tensor] = None, return_deep: bool = False,
+                cache_depth: int = 1):
+        """(B, F, H, W, out) — with ``return_deep``, (out, deep feature)."""
         cfg = self.config
         if remat not in ("none", "block", "outer"):
             raise ValueError(f"unknown remat policy {remat!r}")
         n_levels = len(cfg.block_out_channels)
+        n_up = len(self.up_blocks)
+        shallow = cached_deep is not None
+        if (shallow or return_deep) and not 1 <= cache_depth < n_up:
+            raise ValueError(f"cache_depth must be in [1, {n_up - 1}], got {cache_depth}")
+        if shallow and return_deep:
+            raise ValueError("cached_deep and return_deep are exclusive")
 
         def run(block, level, *args):
             # level: resolution index (0 = highest); None = the mid block
@@ -198,15 +216,29 @@ class UNetSpatioTemporalConditionModel(nn.Module):
         x = self.conv_in(x)
         skips = [x]
         for i, block in enumerate(self.down_blocks):
-            x, res = run(block, i, x, emb_f, ehs_f, f)
+            if shallow and i >= cache_depth:
+                break
+            downsample = not (shallow and i == cache_depth - 1)
+            x, res = run(block, i, x, emb_f, ehs_f, f, downsample)
             skips.extend(res)
-        x = run(self.mid_block, None, x, emb_f, ehs_f, f)
+        if not shallow:
+            x = run(self.mid_block, None, x, emb_f, ehs_f, f)
+        deep = None
         for i, block in enumerate(self.up_blocks):
+            if shallow and i < n_up - cache_depth:
+                continue
+            if shallow and i == n_up - cache_depth:
+                x = cached_deep.to(dtype).reshape((b * f,) + cached_deep.shape[2:])
             n_res = len(block.resnets)
             x = run(block, n_levels - 1 - i, x, skips[-n_res:], emb_f, ehs_f, f)
             skips = skips[:-n_res]
+            if return_deep and i == n_up - cache_depth - 1:
+                deep = x
         x = self.conv_out(self.conv_norm_out(x))
-        return x.reshape(b, f, h, w, cfg.out_channels)
+        out = x.reshape(b, f, h, w, cfg.out_channels)
+        if return_deep:
+            return out, deep.reshape((b, f) + deep.shape[1:])
+        return out
 
 
 def _labelled(block):

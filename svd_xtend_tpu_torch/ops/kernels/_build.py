@@ -39,6 +39,9 @@ _SIGNATURES = {
                                   _I, _I, _I, _I, _I, _P],
     "svdx_temporal_resnet_tile_rows": [],
     "svdx_conv3x3": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "svdx_flash_variant_fwd": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+    "svdx_chain_bf16": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "svdx_chain_int8_qd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
 }
 
 

@@ -22,6 +22,15 @@ backward formulas in f32).
 layout of the packed (B, S, H*64) one, so the same forward kernel computes it
 on the same memory, with no transposes, and its backward goes through the
 same dQ and dK/dV kernels. It counts its forward launches apart.
+
+``flash_attention_headsliced`` is the port of the TPU probe's
+``scripts/microbench_flash_headslice.py::_fwd_headsliced``: the packed
+forward with the grid over (batch, head, query tile), out and LSE. That is
+the organisation of the forward kernel here (one block per 64-row tile,
+head and batch, each head's 64 columns read in place), so it launches the
+same kernel with the LSE on, and counts its launches apart. The LSE is
+(B, H, S) f32; the TPU's (B, H·8, S) with 8 replicated sublanes is a TPU
+layout and is not kept.
 """
 
 from __future__ import annotations
@@ -259,3 +268,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0  # forward-kernel launches
+
+
+def flash_attention_headsliced(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                               scale: float, num_heads: int):
+    """(B, S, H*64) x (B, T, H*64) -> (out (B, S, H*64), f32 LSE (B, H, S)):
+    the forward kernel with its log-sum-exp, no autograd."""
+    if q.device.type == "cpu":
+        return flash_attention_fwd_reference(q, k, v, num_heads, scale)
+    out = _fwd_launch(q, k, v, num_heads, scale, with_lse=True)
+    flash_attention_headsliced.launches += 1
+    return out
+
+
+flash_attention_headsliced.launches = 0

@@ -1,0 +1,41 @@
+"""The port's counterparts of the JAX package's TPU probe scripts, run on the
+card as ``python -m svd_xtend_tpu_torch.scripts.<name>``.
+
+- ``microbench_flash_headslice``: the flash forward on the packed layout
+  against the head-major entry point and the head-sliced one;
+- ``microbench_flash_variants``: the four softmax organisations of the
+  flash forward on the head-major (B·H, S, 64) layout;
+- ``probe_int8_flash``: the dependent QKᵀ→PV chain in bf16 and in int8
+  with dynamic quantisation.
+"""
+
+import subprocess
+
+import torch
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    require_card()
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters: int = 10) -> float:
+    """Mean ms of `fn` over `iters` launches after one warm-up (CUDA events)."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def require_card() -> torch.device:
+    if not torch.cuda.is_available():
+        raise SystemExit("this probe runs on a CUDA card only")
+    return torch.device("cuda")

@@ -11,17 +11,25 @@ repository conftest (which sets up jax for the JAX package's tests):
     python -m pytest --noconftest tests/test_torch_port_cuda.py
 """
 
+import copy
+import dataclasses
 import math
 
 import pytest
 import torch
 
+from svd_xtend_tpu_torch.core import config as tcfg
+from svd_xtend_tpu_torch.diffusion import pipeline as tpipe
+
 from svd_xtend_tpu_torch.ops.kernels import conv3x3 as cv
 from svd_xtend_tpu_torch.ops.kernels import flash_attention as fa
+from svd_xtend_tpu_torch.ops.kernels import flash_chain as fc
+from svd_xtend_tpu_torch.ops.kernels import flash_variants as fv
 from svd_xtend_tpu_torch.ops.kernels import geglu as gg
 from svd_xtend_tpu_torch.ops.kernels import groupnorm as gn
 from svd_xtend_tpu_torch.ops.kernels import temporal_attention as ta
 from svd_xtend_tpu_torch.ops.kernels import temporal_resnet as tr
+from svd_xtend_tpu_torch.ops.kernels.dispatch import plain_versions
 
 pytestmark = pytest.mark.cuda
 
@@ -305,3 +313,120 @@ def test_flash_attention_bshd_kernel(rn, s):
     for a, p, r in zip(g, bf, f32):
         err, perr = ((x.float() - r).abs().max().item() for x in (a, p))
         assert err <= 1.5 * perr, (err, perr)
+
+
+# ------------------------------------------------------ the probes' kernels --
+
+
+@pytest.mark.parametrize("mode", fv.MODES)
+@pytest.mark.parametrize("bh,s,t", [(3, 256, 256), (2, 128, 384)])
+def test_flash_variants_kernel(rn, mode, bh, s, t):
+    """Each softmax organisation against the plain version, within 4 bf16
+    ulps of the output's scale. nosoftmax divides by the row sum of the raw
+    scores, which normal inputs can bring near 0: it gets positive inputs."""
+    q, k, v = rn(bh, s, 64), rn(bh, t, 64), rn(bh, t, 64)
+    if mode == "nosoftmax":
+        q, k = ((torch.rand(a.shape, device="cuda", generator=torch.Generator(
+            device="cuda").manual_seed(i))).to(torch.bfloat16) for i, a in enumerate((q, k)))
+    n = fv.flash_variants.launches
+    got = fv.flash_variants(q, k, v, scale=0.125, mode=mode)
+    assert fv.flash_variants.launches == n + 1
+    _assert_close_bf16(got, fv.flash_variants_reference(q, k, v, 0.125, mode))
+
+
+def test_flash_variants_wrapper_raises_on_untaken_calls(rn):
+    with pytest.raises(ValueError):                 # S not a multiple of 128
+        fv.flash_variants(rn(2, 200, 64), rn(2, 200, 64), rn(2, 200, 64), scale=0.1,
+                          mode="base")
+    with pytest.raises(ValueError):
+        fv.flash_variants(rn(2, 128, 64), rn(2, 128, 64), rn(2, 128, 64), scale=0.1,
+                          mode="exp3")
+
+
+@pytest.mark.parametrize("s", [256, 640])
+def test_flash_attention_headsliced(rn, s):
+    """The probe's head-sliced entry point: out within 4 bf16 ulps, the f32
+    (B, H, S) LSE within 1e-4 of logsumexp of the f32 scores."""
+    q, k, v = rn(2, s, 128), rn(2, s, 128), rn(2, s, 128)
+    n = fa.flash_attention_headsliced.launches
+    o, lse = fa.flash_attention_headsliced(q, k, v, scale=0.125, num_heads=2)
+    assert fa.flash_attention_headsliced.launches == n + 1
+    ref_o, ref_lse = fa.flash_attention_fwd_reference(q, k, v, 2, 0.125)
+    _assert_close_bf16(o, ref_o)
+    assert lse.shape == (2, 2, s) and lse.dtype == torch.float32
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-5)
+
+
+def _chain_inputs(rn, bq, bkm):
+    """The probe's recipe: normal bf16 q, kᵀ, v; int8 kᵀ and v = clip(round(20x))."""
+    q, kT, v = rn(bq, 64), rn(64, bkm), rn(bkm, 64)
+    to8 = lambda a: torch.clamp(torch.round(a.float() * 20), -127, 127).to(torch.int8)
+    return q, kT, v, to8(kT), to8(v)
+
+
+@pytest.mark.parametrize("n_inner", [1, 2, 4])
+@pytest.mark.parametrize("bq,bkm", [(128, 128), (640, 640), (1024, 1536)])
+def test_flash_chain_kernels(rn, n_inner, bq, bkm):
+    """chain_bf16 within 4 bf16 ulps of the output's scale (the kernel and the
+    plain version sum in another order, so a rounding of p or q may differ by
+    one ulp); chain_int8_qd equal bit for bit (int32 sums, the same f32
+    roundings in the same order)."""
+    q, kT, v, kTi, vi = _chain_inputs(rn, bq, bkm)
+    n8 = fc.chain_int8_qd.launches
+    got = fc.chain_int8_qd(q, kTi, vi, n_inner)
+    assert fc.chain_int8_qd.launches == n8 + 1
+    ref = fc.chain_int8_qd_reference(q, kTi, vi, n_inner)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref), (got - ref).abs().max().item()
+    _assert_close_bf16(fc.chain_bf16(q, kT, v, n_inner),
+                       fc.chain_bf16_reference(q, kT, v, n_inner))
+
+
+def test_flash_chain_wrappers_raise_on_untaken_calls(rn):
+    q, kT, v, kTi, vi = _chain_inputs(rn, 128, 128)
+    with pytest.raises(ValueError):                 # bq not a multiple of 64
+        fc.chain_bf16(rn(100, 64), kT, v)
+    with pytest.raises(ValueError):                 # bf16 kᵀ for the int8 chain
+        fc.chain_int8_qd(q, kT, vi)
+
+
+# ------------------------------------------------------- cache-mode generate --
+
+# a two-level UNet with 64-wide heads, so the flash, frame-attention and
+# GEGLU kernels take its sites as well as conv3x3, GroupNorm and the
+# temporal resnet
+_CARD_UNET = dataclasses.replace(tcfg.TINY_UNET, block_out_channels=(64, 128),
+                                 num_attention_heads=(1, 2), cross_attention_dim=64)
+_CARD_CLIP = dataclasses.replace(tcfg.TINY_CLIP, projection_dim=64)
+
+
+def test_cache_mode_generate_on_the_card(rn):
+    """DeepCache + CFG cache (n2 k2, 4 steps: full pair, shallow cond-only,
+    full pair, shallow cond-only) in bf16 with the kernels on, against the
+    port's f32 generate on the host, same weights and noise. bf16 rounds
+    every activation to 8 bits, so the bound is relative to the card's own
+    bf16 plain path (the kernels off): the kernels' rel-L2 distance to the
+    f32 video is at most 1.5x the plain path's, plus 1e-3."""
+    g = torch.Generator().manual_seed(0)
+    host = tpipe.SVDModels.create(_CARD_UNET, tcfg.TINY_VAE, _CARD_CLIP, device="cpu",
+                                  generator=g)
+    card = tpipe.SVDModels(*(copy.deepcopy(n).to("cuda", torch.bfloat16)
+                             for n in (host.unet, host.vae, host.clip)), host.scheduler)
+    cfg = tcfg.PipelineConfig(height=32, width=32, num_frames=3, num_inference_steps=4,
+                              decode_chunk_size=2, deep_cache_interval=2,
+                              uncond_reuse_interval=2)
+    image = torch.rand(1, 32, 32, 3, generator=g) * 2 - 1
+    noise = dict(image_noise=torch.randn(1, 32, 32, 3, generator=g),
+                 latent_noise=torch.randn(1, 3, 16, 16, 4, generator=g))
+    ref = tpipe.generate(host, image, cfg, **noise)
+    on_card = lambda: tpipe.generate(card, image.cuda(), cfg,
+                                     **{k: v.cuda() for k, v in noise.items()}).cpu()
+    counts = (cv.conv3x3, fa.flash_attention_packed, ta.frame_attention)
+    before = [f.launches for f in counts]
+    got = on_card()
+    assert all(f.launches > n for f, n in zip(counts, before))
+    with plain_versions():
+        plain = on_card()
+    rel = lambda a: ((a - ref).norm() / ref.norm()).item()
+    assert got.shape == ref.shape and bool(torch.isfinite(got).all())
+    assert rel(got) <= 1.5 * rel(plain) + 1e-3, (rel(got), rel(plain))

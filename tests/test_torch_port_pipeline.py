@@ -4,6 +4,8 @@ random draws fed to the port as explicit noise tensors, and the weights
 carried by ``state_dict_from_jax``. 3 frames with decode chunks of 2
 exercise the ragged last decode chunk."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -93,12 +95,16 @@ def test_decode_latents_chunked_matches_jax(pair, frames, chunk):
 
 
 def test_generate_refuses_unported_modes(pair):
+    """int8 (UNet or VAE) is refused by generate, the Tracklet2Video branch
+    by the UNet; the cache modes are ported (test_torch_port_cache.py)."""
     _, _, tm = pair
     image = torch.zeros(1, 32, 32, 3)
-    for kw in (dict(uncond_reuse_interval=2), dict(deep_cache_interval=2),
-               dict(unet_quant="int8")):
-        with pytest.raises(ValueError):
+    for kw in (dict(unet_quant="int8"), dict(vae_quant="int8")):
+        with pytest.raises(ValueError, match="int8"):
             tpipe.generate(tm, image, tcfg.PipelineConfig(**CFG_KW, **kw))
+    with pytest.raises(ValueError, match="Tracklet2Video"):
+        tpipe.SVDModels.create(dataclasses.replace(tcfg.TINY_UNET, tracklet_dim=8),
+                               tcfg.TINY_VAE, tcfg.TINY_CLIP, device="cpu")
 
 
 def test_generate_is_seeded_by_generator(pair):
