@@ -19,7 +19,9 @@ Phases, each of which raises on failure (non-zero exit):
      function where there is one (SDPA, F.group_norm, F.conv2d), and the
      bound (the larger of its products over 989 TFLOP/s and its bytes, each
      input read once and each output written once, over 3.35 TB/s: the H100
-     SXM's dense bf16 and HBM peaks).
+     SXM's dense bf16 and HBM peaks). The flash backward pair is also timed
+     at the other three training shapes, each with its executed TFLOP/s
+     beside the bound.
   3b. conv3x3: the kernel against its plain version at every site of the
      UNet (CFG batch 28 for generate, batch 14 for the train step, each with
      the epilogue that site uses), at every dU shape of the train step's
@@ -54,7 +56,9 @@ Phases, each of which raises on failure (non-zero exit):
      on a seeded synthetic batch in [-1, 1]: one warm-up step, then 3 timed
      steps whose launch counts of every kernel (forward and flash backward)
      must all be > 0; finite loss and grad_norm, trainable weights changed,
-     frozen ones bit-identical; s/step and peak memory. Then one full-scope
+     frozen ones bit-identical; s/step and peak memory; the flash backward
+     pair's launches per step by level (tokens S), and their sum of
+     launches x the kernel phase's ms at that level. Then one full-scope
      step at the same size: finite loss, peak memory.
   7. mha (the head-major attention entry point, ops/attention.py::mha, as a
      caller outside the UNet uses it): the UNet's L0 self-attention shape,
@@ -84,6 +88,8 @@ full(x) bit for bit at cache depths 1-3.
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
 import json
 import os
 import re
@@ -145,6 +151,7 @@ class KernelPhase:
     def __init__(self):
         self.err = {}
         self.times = {}
+        self.bwd_ms = {}    # tokens S -> (dQ ms, dK/dV ms) at the train step's shape
 
     def check(self, name, got, ref, label):
         torch.cuda.synchronize()
@@ -327,6 +334,12 @@ def kernel_phases(dev) -> KernelPhase:
         ph.check_grad("flash_attention_bwd_dkv", dk, pk, rk, label + " dK")
         ph.check_grad("flash_attention_bwd_dkv", dv, pv, rv, label + " dV")
         del grads, pq, pk, pv, rq, rk, rv
+        run_dq = lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, h, 0.125)
+        run_dkv = lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, h, 0.125)
+        mm = 2 * b * h * s_len * s_len * 64     # one product's FLOPs
+        stats = 2 * b * h * s_len * 4           # LSE and delta, f32
+        work = {"dQ": (3, nbytes(q, k, v, do, q) + stats),
+                "dK/dV": (4, nbytes(q, k, v, do, k, v) + stats)}
         if s_len == 2560:
             plain_bwd = lambda: fa.flash_attention_bwd_reference(q, k, v, o, lse, do, h, 0.125)
             heads = lambda a: a.view(b, s_len, h, 64).transpose(1, 2)
@@ -334,19 +347,23 @@ def kernel_phases(dev) -> KernelPhase:
             sdpa_out = F.scaled_dot_product_attention(sq, sk, sv, scale=0.125)
             sdpa_bwd = lambda: torch.autograd.grad(sdpa_out, (sq, sk, sv), heads(do),
                                                    retain_graph=True)
-            mm = 2 * b * h * s_len * s_len * 64     # one product's FLOPs
-            stats = 2 * b * h * s_len * 4           # LSE and delta, f32
-            ph.time("flash_attention_bwd_dq",
-                    lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, h, 0.125),
-                    plain_bwd, 3 * mm, nbytes(q, k, v, do, q) + stats, sdpa_bwd,
-                    "SDPA backward")
-            ph.time("flash_attention_bwd_dkv",
-                    lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, h, 0.125),
-                    plain_bwd, 4 * mm, nbytes(q, k, v, do, k, v) + stats, sdpa_bwd,
-                    "SDPA backward")
+            for name, run, (n_mm, moved) in (("flash_attention_bwd_dq", run_dq, work["dQ"]),
+                                             ("flash_attention_bwd_dkv", run_dkv,
+                                              work["dK/dV"])):
+                ph.time(name, run, plain_bwd, n_mm * mm, moved, sdpa_bwd, "SDPA backward")
             log("    (plain and library ms of both backward kernels compute dQ, dK and "
                 "dV together)")
+            ms = (ph.times["flash_attention_bwd_dq"]["ms"],
+                  ph.times["flash_attention_bwd_dkv"]["ms"])
             del sq, sk, sv, sdpa_out
+        else:
+            ms = (cuda_ms(run_dq), cuda_ms(run_dkv))
+        ph.bwd_ms[s_len] = ms
+        for (name, (n_mm, moved)), k_ms in zip(work.items(), ms):
+            b_ms, b_by = bound_ms(n_mm * mm, moved)
+            log(f"  flash backward {name} {label}: {k_ms:.4f} ms, "
+                f"{n_mm * mm / k_ms / 1e9:.1f} TFLOP/s executed on its {n_mm} products; "
+                f"bound {b_ms:.4f} ms ({b_by}), {100 * b_ms / k_ms:.1f} % of it")
         del q, k, v, do, o, ref_o, dq, dk, dv
     return ph
 
@@ -722,7 +739,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     log("train: default TrainConfig (temporal scope, 512x320x14f, batch 1, remat block)")
-    train_launches = train_phase(dev, smi, counters, args.profile)
+    train_launches = train_phase(dev, smi, counters, args.profile, ph.bwd_ms)
     torch.cuda.empty_cache()
 
     log("mha: the head-major attention entry point at the UNet's L0 shape")
@@ -747,9 +764,9 @@ def main() -> int:
                             "svd_xtend_tpu/ops/pallas/groupnorm.py:51"),
         "geglu_fwd": ("cuda", "svd_xtend_tpu_torch/csrc/geglu.cu",
                       "svd_xtend_tpu/ops/pallas/geglu.py:119"),
-        "flash_attention_bwd_dq": ("cuda", "svd_xtend_tpu_torch/csrc/flash_attention.cu",
+        "flash_attention_bwd_dq": ("cuda", "svd_xtend_tpu_torch/csrc/flash_backward.cu",
                                    "svd_xtend_tpu/ops/pallas/flash_attention.py:345"),
-        "flash_attention_bwd_dkv": ("cuda", "svd_xtend_tpu_torch/csrc/flash_attention.cu",
+        "flash_attention_bwd_dkv": ("cuda", "svd_xtend_tpu_torch/csrc/flash_backward.cu",
                                     "svd_xtend_tpu/ops/pallas/flash_attention.py:395"),
         "conv3x3": ("cuda", "svd_xtend_tpu_torch/csrc/conv3x3.cu",
                     "svd_xtend_tpu/ops/pallas/conv3x3.py:46"),
@@ -866,7 +883,6 @@ def conv3x3_launches(cfg):
 def generate_phase(dev, smi, counters):
     """The exact generate, then the two cache modes on the same image and
     noise; {path: launches} of the three timed runs."""
-    import collections
     import dataclasses
 
     from svd_xtend_tpu_torch.core.config import PipelineConfig
@@ -961,8 +977,34 @@ def mha_phase(dev, counters):
     return launches
 
 
-def train_phase(dev, smi, counters, profile_dir):
+@contextlib.contextmanager
+def calls_by_length(module, names):
+    """While active, tallies each named wrapper of `module` by the length of
+    its first argument's dimension 1 (the tokens S of a flash call)."""
+    tallies = {n: collections.Counter() for n in names}
+    originals = {n: getattr(module, n) for n in names}
+
+    def counted(name, fn):
+        def call(q, *args, **kwargs):
+            tallies[name][q.shape[1]] += 1
+            return fn(q, *args, **kwargs)
+        return call
+
+    for n in names:
+        setattr(module, n, counted(n, originals[n]))
+    try:
+        yield tallies
+    finally:
+        for n, fn in originals.items():
+            setattr(module, n, fn)
+
+
+def train_phase(dev, smi, counters, profile_dir, bwd_ms):
+    """The train step; `bwd_ms` {S: (dQ ms, dK/dV ms)} from the kernel phase
+    prices the step's flash backward launches per level."""
     import dataclasses
+
+    from svd_xtend_tpu_torch.ops.kernels import flash_attention as fa
 
     from svd_xtend_tpu_torch.core.config import TrainConfig
     from svd_xtend_tpu_torch.diffusion.pipeline import SVDModels
@@ -999,12 +1041,24 @@ def train_phase(dev, smi, counters, profile_dir):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     metrics = []
-    for _ in range(TRAIN_STEPS):
-        state, m = step(state, batch, generator=draws)
-        metrics.append(m)
-    torch.cuda.synchronize()
+    with calls_by_length(fa, ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")) as by_len:
+        for _ in range(TRAIN_STEPS):
+            state, m = step(state, batch, generator=draws)
+            metrics.append(m)
+        torch.cuda.synchronize()
     secs = (time.time() - t0) / TRAIN_STEPS
     launches = read(counters, [n for n in counters if n not in MHA_ONLY | PROBE_ONLY])
+    total = 0.0
+    for i, (name, tally) in enumerate(by_len.items()):
+        per_step = {s_len: n / TRAIN_STEPS for s_len, n in sorted(tally.items(), reverse=True)}
+        ms = sum(n * bwd_ms[s_len][i] for s_len, n in per_step.items())
+        total += ms
+        log(f"  {name} launches per step by tokens S: {per_step}; x the kernel phase's ms "
+            f"= {ms:.3f} ms per step")
+        if sum(tally.values()) != launches[name]:
+            raise RuntimeError(f"{name}: {sum(tally.values())} calls by length, "
+                               f"{launches[name]} launches")
+    log(f"  [{smi}] flash backward pair, kernel time per step: {total:.3f} ms")
     peak = torch.cuda.max_memory_allocated()
     for m in metrics:
         log(f"  step: loss {m['loss']:.5g} grad_norm {m['grad_norm']:.5g} lr {m['lr']:.3g}")

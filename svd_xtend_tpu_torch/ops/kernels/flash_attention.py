@@ -2,12 +2,14 @@
 
 Port of ``svd_xtend_tpu/ops/pallas/flash_attention.py::flash_attention_packed``:
 its forward kernel ``_fwd_packed_kernel`` and its backward kernels
-``_dq_kernel`` and ``_dkv_kernel``. The CUDA kernels are
-``csrc/flash_attention.cu``: one block per (64-row tile, head, batch), heads
-read in place with a row stride of H*64, f32 softmax statistics, every
+``_dq_kernel`` and ``_dkv_kernel``. The forward is ``csrc/flash_attention.cu``
+(one block per (64-row tile, head, batch), mma.sync); the backward pair is
+``csrc/flash_backward.cu`` (one block per 128 query rows or 128 keys of a
+head, TMA into a ring of shared-memory stages, wgmma). All read the heads in
+place with a row stride of H*64, with f32 softmax statistics and every
 product on the tensor cores. The forward writes the f32 log-sum-exp (B, H, S)
-when a gradient will be needed; the backward reads it. See the source for
-the design.
+when a gradient will be needed; the backward reads it. See the sources for
+the designs.
 
 On a CPU tensor the wrapper runs ``flash_attention_packed_reference`` (the
 plain einsum form of ``ops/attention.py::_xla_attention``), differentiated
@@ -155,7 +157,7 @@ def _validate_bwd(q, k, v, do, lse, delta, num_heads):
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, num_heads: int, scale: float):
-    """The dQ kernel: one block per (query tile, head, batch)."""
+    """The dQ kernel: one block per (128-query tile, head, batch)."""
     _validate_bwd(q, k, v, do, lse, delta, num_heads)
     dq = torch.empty_like(q)
     b, s, _ = q.shape
@@ -169,7 +171,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, num_heads: int, scale: float
 
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, num_heads: int, scale: float):
-    """The dK/dV kernel: one block per (key tile, head, batch)."""
+    """The dK/dV kernel: one block per (128-key tile, head, batch)."""
     _validate_bwd(q, k, v, do, lse, delta, num_heads)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     b, s, _ = q.shape
