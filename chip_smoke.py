@@ -978,25 +978,23 @@ def mha_phase(dev, counters):
 
 
 @contextlib.contextmanager
-def calls_by_length(module, names):
-    """While active, tallies each named wrapper of `module` by the length of
-    its first argument's dimension 1 (the tokens S of a flash call)."""
-    tallies = {n: collections.Counter() for n in names}
-    originals = {n: getattr(module, n) for n in names}
+def calls_by_length(module, name):
+    """While active, tallies the calls of `module.name` by the length of its
+    first argument's dimension 1 (the tokens S of a flash call). The
+    wrapper stands in for the module's global, which its callers look up at
+    each call."""
+    tally = collections.Counter()
+    original = getattr(module, name)
 
-    def counted(name, fn):
-        def call(q, *args, **kwargs):
-            tallies[name][q.shape[1]] += 1
-            return fn(q, *args, **kwargs)
-        return call
+    def call(q, *args, **kwargs):
+        tally[q.shape[1]] += 1
+        return original(q, *args, **kwargs)
 
-    for n in names:
-        setattr(module, n, counted(n, originals[n]))
+    setattr(module, name, call)
     try:
-        yield tallies
+        yield tally
     finally:
-        for n, fn in originals.items():
-            setattr(module, n, fn)
+        setattr(module, name, original)
 
 
 def train_phase(dev, smi, counters, profile_dir, bwd_ms):
@@ -1041,23 +1039,23 @@ def train_phase(dev, smi, counters, profile_dir, bwd_ms):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     metrics = []
-    with calls_by_length(fa, ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")) as by_len:
+    # every flash_attention_bwd call launches the dQ and the dK/dV kernel once
+    with calls_by_length(fa, "flash_attention_bwd") as by_len:
         for _ in range(TRAIN_STEPS):
             state, m = step(state, batch, generator=draws)
             metrics.append(m)
         torch.cuda.synchronize()
     secs = (time.time() - t0) / TRAIN_STEPS
     launches = read(counters, [n for n in counters if n not in MHA_ONLY | PROBE_ONLY])
-    total = 0.0
-    for i, (name, tally) in enumerate(by_len.items()):
-        per_step = {s_len: n / TRAIN_STEPS for s_len, n in sorted(tally.items(), reverse=True)}
+    per_step = {s_len: n / TRAIN_STEPS for s_len, n in sorted(by_len.items(), reverse=True)}
+    for i, name in enumerate(("flash_attention_bwd_dq", "flash_attention_bwd_dkv")):
+        if sum(by_len.values()) != launches[name]:
+            raise RuntimeError(f"{name}: {launches[name]} launches, {sum(by_len.values())} "
+                               "backward calls")
         ms = sum(n * bwd_ms[s_len][i] for s_len, n in per_step.items())
-        total += ms
         log(f"  {name} launches per step by tokens S: {per_step}; x the kernel phase's ms "
-            f"= {ms:.3f} ms per step")
-        if sum(tally.values()) != launches[name]:
-            raise RuntimeError(f"{name}: {sum(tally.values())} calls by length, "
-                               f"{launches[name]} launches")
+            f"at each S = {ms:.3f} ms per step")
+    total = sum(n * sum(bwd_ms[s_len]) for s_len, n in per_step.items())
     log(f"  [{smi}] flash backward pair, kernel time per step: {total:.3f} ms")
     peak = torch.cuda.max_memory_allocated()
     for m in metrics:

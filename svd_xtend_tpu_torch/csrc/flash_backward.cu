@@ -50,6 +50,8 @@
 //   - Ragged ends: masked keys (dQ) or queries (dK/dV) get P = 0; rows of a
 //     block past S are computed on zeros and not stored.
 
+#include <math.h>
+
 #include "sm90.cuh"
 
 namespace {
@@ -86,7 +88,7 @@ struct DkvSmem {
   __nv_bfloat16 q[kStages][kTile * kD];
   __nv_bfloat16 dout[kStages][kTile * kD];
   float l2[kStages][kTile];  // LSE * log2(e) of the tile's queries
-  float dl[kStages][kTile];  // delta of the tile's queries
+  float dls[kStages][kTile];  // delta * scale of the tile's queries
   uint64_t full[kStages];
   uint64_t empty[kStages];
   uint64_t kv_full;
@@ -108,6 +110,52 @@ constexpr int smem_bytes() {
 __device__ __forceinline__ void zero(float (&d)[32]) {
 #pragma unroll
   for (int i = 0; i < 32; ++i) d[i] = 0.f;
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// dQ kernel: dS in place of S, rows fixed per thread (l2 = base-2 LSE, dls =
+// delta * scale of rows g and g + 8), columns = keys kv0..; kMasked zeroes
+// P at keys >= s_kv (the last, partial tile only)
+template <bool kMasked>
+__device__ __forceinline__ void ds_rows(float (&s)[32], const float (&dp)[32],
+                                        const float (&l2)[2], const float (&dls)[2],
+                                        float scale_log2, float scale, int kv0, int s_kv,
+                                        int t) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int j = (i >> 1) & 1;
+    float x = s[i] * scale_log2 - l2[j];
+    if (kMasked && kv0 + 8 * (i / 4) + 2 * t + (i & 1) >= s_kv) x = -INFINITY;
+    s[i] = ex2(x) * fmaf(dp[i], scale, -dls[j]);
+  }
+}
+
+// dK/dV kernel: P^T in place of S^T and dS^T in place of dP^T, columns =
+// queries q0.. with their base-2 LSE (l2s) and delta * scale (dls) from the
+// stage; kMasked zeroes P at queries >= s_q
+template <bool kMasked>
+__device__ __forceinline__ void ds_cols(float (&s)[32], float (&dp)[32], const float* l2s,
+                                        const float* dls, float scale_log2, float scale,
+                                        int q0, int s_q, int t) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const int col = 8 * n + 2 * t;
+    const float2 l2 = *reinterpret_cast<const float2*>(l2s + col);
+    const float2 dl = *reinterpret_cast<const float2*>(dls + col);
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int i = 4 * n + jj;
+      float x = s[i] * scale_log2 - ((jj & 1) ? l2.y : l2.x);
+      if (kMasked && q0 + col + (jj & 1) >= s_q) x = -INFINITY;
+      s[i] = ex2(x);
+      dp[i] = s[i] * fmaf(dp[i], scale, -((jj & 1) ? dl.y : dl.x));
+    }
+  }
 }
 
 // rows row0 and row0 + 8 of a 64 x 64 accumulator (this thread's), as bf16
@@ -174,10 +222,11 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap k_map,
     sm90::load_a_frags(qa, q + qoff, row0, s_q, n_cols, warp, lane);
     sm90::load_a_frags(da, dout + qoff, row0, s_q, n_cols, warp, lane);
     const int r0 = row0 + 16 * warp + (lane >> 2), r1 = r0 + 8;
-    // base-2 LSE and delta of this thread's two rows
+    // base-2 LSE and delta * scale of this thread's two rows
     const float l2[2] = {r0 < s_q ? lse_b[r0] * kLog2e : 0.f,
                          r1 < s_q ? lse_b[r1] * kLog2e : 0.f};
-    const float dl[2] = {r0 < s_q ? delta_b[r0] : 0.f, r1 < s_q ? delta_b[r1] : 0.f};
+    const float dls[2] = {r0 < s_q ? delta_b[r0] * scale : 0.f,
+                          r1 < s_q ? delta_b[r1] * scale : 0.f};
 
     float acc[32], s[32], dp[32];
     zero(acc);
@@ -205,13 +254,10 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap k_map,
 
       // dS, in place of S
       const int kv0 = it * kTile;
-#pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        const int key = kv0 + 8 * (i / 4) + 2 * t + (i & 1);
-        const int j = (i >> 1) & 1;
-        const float p = key < s_kv ? exp2f(s[i] * scale_log2 - l2[j]) : 0.f;
-        s[i] = p * (dp[i] - dl[j]) * scale;
-      }
+      if (kv0 + kTile <= s_kv)
+        ds_rows<false>(s, dp, l2, dls, scale_log2, scale, kv0, s_kv, t);
+      else
+        ds_rows<true>(s, dp, l2, dls, scale_log2, scale, kv0, s_kv, t);
       uint32_t hi[4][4], lo[4][4];
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
@@ -289,7 +335,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
         for (int half = 0; half < 2; ++half) {
           const int col = half * 32 + lane, row = it * kTile + col;
           sm.l2[st][col] = row < s_q ? lse_b[row] * kLog2e : 0.f;
-          sm.dl[st][col] = row < s_q ? delta_b[row] : 0.f;
+          sm.dls[st][col] = row < s_q ? delta_b[row] * scale : 0.f;
         }
         if (lane == 0) {
           sm90::mbar_arrive_expect_tx(&sm.full[st], 2 * kTileBytes);
@@ -338,22 +384,10 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
 
       // P^T in place of S^T, dS^T in place of dP^T; columns are queries
       const int q0 = it * kTile;
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const int col = 8 * n + 2 * t;
-        const float2 l2 = *reinterpret_cast<const float2*>(&sm.l2[st][col]);
-        const float2 dl = *reinterpret_cast<const float2*>(&sm.dl[st][col]);
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          const int i = 4 * n + jj;
-          const bool odd = jj & 1;
-          const float p = q0 + col + odd < s_q
-                              ? exp2f(s[i] * scale_log2 - (odd ? l2.y : l2.x))
-                              : 0.f;
-          s[i] = p;
-          dp[i] = p * (dp[i] - (odd ? dl.y : dl.x)) * scale;
-        }
-      }
+      if (q0 + kTile <= s_q)
+        ds_cols<false>(s, dp, sm.l2[st], sm.dls[st], scale_log2, scale, q0, s_q, t);
+      else
+        ds_cols<true>(s, dp, sm.l2[st], sm.dls[st], scale_log2, scale, q0, s_q, t);
       // dV += P^T dO, then dK += dS^T Q: the dO and Q tiles read MN-major;
       // each operand is packed just before its products are issued
       uint32_t pa[4][4], hi[4][4], lo[4][4];
