@@ -18,37 +18,62 @@
 // ~S*64*2 bytes of each of q, k, v, dO and the three gradients: ~S/2 FLOP per
 // byte at head_dim 64, far above the card's ~295 FLOP/byte ridge, so the
 // tensor cores bound it. Second come the exp2 (16 per clock per SM: 1 per
-// 512 FLOP of the dQ kernel's products) and the f32 elementwise work of dS.
+// 512 FLOP of the dQ kernel's products) and the f32 work of dS, which sit
+// between a warpgroup's products.
 //
 // Design:
 //   - One block = 3 warpgroups: two consumer warpgroups of 64 rows each, so
 //     128 query rows (dQ) or 128 keys (dK/dV) per block, and one producer
 //     warpgroup whose first warp keeps a ring of kStages shared-memory
-//     stages filled. setmaxnreg moves registers from the producer (24) to
-//     the consumers (240).
+//     stages filled. It hands its registers over with setmaxnreg (24 / 240);
+//     ptxas still keeps the consumers within the 168 of the 384-thread
+//     launch bound (cuobjdump: no register above R165), which is what
+//     decides the designs below.
 //   - TMA brings each 64-row tile (K and V for dQ; Q and dO for dK/dV) with
 //     one 3-D tensor map per operand over (H*64 columns, S rows, B): a box
 //     is one head's 64 columns = 128 bytes = one 128-byte swizzle atom, and
 //     rows past S read as zero within each sample. Full/empty mbarriers per
 //     stage; the dK/dV producer warp also copies the tile's 64 LSE (as
-//     base-2) and delta values into the stage with plain loads (a 1-D bulk
-//     copy would need 16-byte-aligned rows of S floats, which S = 1 or 40 do
-//     not all give).
-//   - Every product is a wgmma m64n64k16, bf16 in, f32 accumulate, with A
-//     in registers: Q and dO (dQ kernel) or K and V (dK/dV kernel) are
-//     loaded once per block as A fragments; P, P^T, dS and dS^T go from
-//     the accumulator registers straight into the A fragments of the next
-//     wgmma. B is always the swizzled tile as TMA wrote it: K-major for
-//     S = Q K^T, dP = dO V^T, S^T = K Q^T, dP^T = V dO^T, and MN-major (the
-//     transpose bit) for dQ += dS K, dV += P^T dO, dK += dS^T Q. No thread
-//     writes a transposed copy; shared memory holds only the ring.
+//     base-2) and delta * scale values into the stage with plain loads (a
+//     1-D bulk copy would need 16-byte-aligned rows of S floats, which S = 1
+//     or 40 do not all give).
+//   - Every product is a wgmma m64n64k16, bf16 in, f32 accumulate. The
+//     operands that stay for the whole loop are A: Q and dO as register
+//     fragments in the dQ kernel; K and V as TMA tiles in shared memory in
+//     the dK/dV kernel, whose accumulators (dK, dV) leave no room for them
+//     in registers (as fragments they spilled 112 bytes: 1.010-1.017 ms at
+//     L0; from shared memory 0.731-0.745 in later calls). P, P^T, dS and
+//     dS^T go from the accumulator registers straight into the A fragments
+//     of the next wgmma. B is always
+//     the swizzled tile as TMA wrote it: K-major for S = Q K^T, dP = dO V^T,
+//     S^T = K Q^T, dP^T = V dO^T, and MN-major (the transpose bit) for
+//     dQ += dS K, dV += P^T dO, dK += dS^T Q. No thread writes a transposed
+//     copy.
 //   - dS enters dQ and dK as two bf16 terms, hi = bf16(dS) and lo =
-//     bf16(dS - hi) (one more wgmma each): one bf16 rounding of dS, as the
-//     TPU kernel does, gave 1.7x the plain bf16 gradient's error at S = 40
-//     on the H100, above the 1.5x the card tests and chip_smoke hold the
-//     kernels to. P enters dV rounded once.
-//   - Ragged ends: masked keys (dQ) or queries (dK/dV) get P = 0; rows of a
-//     block past S are computed on zeros and not stored.
+//     bf16(dS - hi) (one more wgmma each). One bf16 rounding of dS, as the
+//     TPU kernel does, makes the pair 0.23 ms faster at L0 but puts the
+//     error up to 2.04x the plain bf16 gradient's (seeds 1-4 at the card
+//     tests' and the train step's shapes), above the 1.5x the card tests and
+//     chip_smoke hold the kernels to; with the split it is at most 1.0x
+//     (seed 1).
+//     P enters dV rounded once.
+//   - dS costs ~7 instructions per score: exp2 is one ex2.approx.ftz,
+//     delta comes pre-scaled, and only the last, partial tile is masked
+//     (P = 0 past S). Against libm exp2f, unscaled delta and a mask on every
+//     tile this took 0.13 ms off dQ's 0.60 and 0.16 off dK/dV's 0.74 at L0:
+//     the f32 work between a warpgroup's products is what the tensor cores
+//     wait on. Rows of a block past S are computed on zeros, not stored.
+//
+// Tried and refuted (NVIDIA H100 80GB HBM3, 700.00 W, L0 = (14, 2560, 5),
+// svd_xtend_tpu_torch/scripts/bench_flash_backward.py; before the leaner
+// dS): pipelining dQ two tiles deep (S and dP of tile i + 1 issued before
+// dS of tile i) needs ~200 registers, spilled 540 bytes under the 168 and
+// ran 0.807-0.827 ms against 0.598-0.603; splitting a tile's wait so P is
+// computed while dP runs made ptxas serialise the wgmmas (C7515) and ran
+// dQ 0.619 / dK/dV 0.744-0.747 against 0.598-0.600 / 0.731-0.739; 2 or 4
+// stages instead of 3: dQ -1 %, dK/dV +2 to +4 %; a 288-thread block (one
+// producer warp, no setmaxnreg) compiled to the same 168 registers and ran
+// within 2 %.
 
 #include <math.h>
 
@@ -472,7 +497,8 @@ extern "C" int svdx_flash_attention_bwd_dkv(const void* q, const void* k, const 
   const dim3 grid((s_kv + kBlockRows - 1) / kBlockRows, heads, b);
   flash_bwd_dkv_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       q_map, do_map, k_map, v_map, static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), s_q, s_kv, n_cols,
+      static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), s_q, s_kv, n_cols,
       scale, scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }

@@ -61,7 +61,8 @@ def time_shape(b: int, s: int, h: int, iters: int, seed: int = 0) -> dict:
     mm = 2 * b * h * s * s * 64
     tensor = b * s * h * 64 * 2
     stats = 2 * b * h * s * 4
-    dq_bound, dkv_bound = bound_ms(3 * mm, 5 * tensor + stats), bound_ms(4 * mm, 6 * tensor + stats)
+    dq_bound = bound_ms(3 * mm, 5 * tensor + stats)
+    dkv_bound = bound_ms(4 * mm, 6 * tensor + stats)
     return dict(shape=[b, s, h], dq_ms=dq_ms, dkv_ms=dkv_ms, pair_ms=dq_ms + dkv_ms,
                 dq_tflops=3 * mm / dq_ms / 1e9, dkv_tflops=4 * mm / dkv_ms / 1e9,
                 dq_bound_ms=dq_bound, dkv_bound_ms=dkv_bound, sdpa_bwd_ms=sdpa_ms)
@@ -104,9 +105,9 @@ def main(argv=None) -> None:
     for seed in range(1, args.seeds + 1) if args.check else ():
         for b, s, h in SHAPES + CHECK_SHAPES:
             r = dict(check_shape(b, s, h, seed), seed=seed)
-            print(f"seed {seed} ({b}, {s}, {h}) max-abs error vs f32, kernel / bf16 plain: " + ", ".join(
-                f"{n} {r[n][0]:.4g} / {r[n][1]:.4g}" for n in ("dq", "dk", "dv"))
-                + f"; worst ratio {r['ratio_max']:.3f} (rule {RATIO})")
+            errs = ", ".join(f"{n} {r[n][0]:.4g} / {r[n][1]:.4g}" for n in ("dq", "dk", "dv"))
+            print(f"seed {seed} ({b}, {s}, {h}) max-abs error vs f32, kernel / bf16 plain: "
+                  f"{errs}; worst ratio {r['ratio_max']:.3f} (rule {RATIO})")
             print(json.dumps(r))
             torch.cuda.empty_cache()
     for b, s, h in SHAPES:

@@ -237,9 +237,9 @@ def test_sm90_wgmma_forms(rn, batch, rows, heads, sample, row0, head):
         t[:part.shape[0]] = part
         return t
 
-    ta_, tb = tile(a), tile(b)
-    abt = ta_ @ tb.T
-    want = [abt, ta_ @ tb, abt, abt.to(torch.bfloat16).float() @ tb]
+    a_tile, b_tile = tile(a), tile(b)
+    abt = a_tile @ b_tile.T
+    want = [abt, a_tile @ b_tile, abt, abt.to(torch.bfloat16).float() @ b_tile]
     for got, ref in zip(out, want):
         # f32 sums of the same exact bf16 products, in another order
         torch.testing.assert_close(got, ref, atol=1e-3, rtol=1e-4)
