@@ -54,8 +54,9 @@
 //     TPU kernel does, makes the pair 0.23 ms faster at L0 but puts the
 //     error up to 2.04x the plain bf16 gradient's (seeds 1-4 at the card
 //     tests' and the train step's shapes), above the 1.5x the card tests and
-//     chip_smoke hold the kernels to; with the split it is at most 1.0x
-//     (seed 1).
+//     chip_smoke hold the kernels to; with the split it is at most 1.15x
+//     (the same seeds and shapes; 1.0x at 34 of 40, and within 4.4e-7 of
+//     the exact zero at S = 1).
 //     P enters dV rounded once.
 //   - dS costs ~7 instructions per score: exp2 is one ex2.approx.ftz,
 //     delta comes pre-scaled, and only the last, partial tile is masked
@@ -73,7 +74,11 @@
 // dQ 0.619 / dK/dV 0.744-0.747 against 0.598-0.600 / 0.731-0.739; 2 or 4
 // stages instead of 3: dQ -1 %, dK/dV +2 to +4 %; a 288-thread block (one
 // producer warp, no setmaxnreg) compiled to the same 168 registers and ran
-// within 2 %.
+// within 2 %. After it: deferring each tile's last wait to the next tile
+// (tile i's dQ, or dV and dK, products running on behind tile i + 1's first
+// products) made ptxas serialise the wgmmas (C7512, C7515): dQ 0.560 /
+// dK/dV 0.712-0.715 ms against 0.455-0.456 / 0.565-0.571 (device time in a
+// CUDA graph).
 
 #include <math.h>
 

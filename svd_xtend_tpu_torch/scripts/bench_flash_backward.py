@@ -6,7 +6,9 @@ spatial self-attention shapes, beside their bound and SDPA's backward.
 Needs a card. Seeded normal bf16 q, k, v, dO in the packed (B, S, H·64)
 layout at training batch 14 (frames); LSE from the forward kernel, δ from
 ``attention_delta``. Each shape prints one line and one JSON object: the
-kernels' ms (CUDA events, mean over --iters launches after a warm-up), the
+kernels' ms (CUDA events, mean over --iters launches after a warm-up; and
+per launch of a CUDA graph of --iters launches, the device time where the
+host loop reads the wrapper's host time, at the small shapes), the
 executed TFLOP/s of the products each kernel's bound counts (dQ 3, dK/dV 4
 of 2·B·H·S²·64 FLOP), the bound (those products at 989 TFLOP/s, or its
 bytes at 3.35 TB/s), and SDPA's backward (dQ, dK, dV together) on the same
@@ -44,15 +46,37 @@ def bound_ms(flops: float, nbytes: float) -> float:
     return max(flops / PEAK_FLOPS, nbytes / PEAK_BYTES) * 1e3
 
 
+def graph_ms(fn, iters: int, replays: int = 5) -> float:
+    """Device ms per call of `fn`: `iters` calls captured in one CUDA graph,
+    replayed `replays` times between CUDA events. Unlike a host loop, this
+    does not read the wrapper's host time where a launch is shorter."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * iters)
+
+
 def time_shape(b: int, s: int, h: int, iters: int, seed: int = 0) -> dict:
     g = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v, do = (torch.randn(b, s, h * 64, device="cuda", generator=g).to(torch.bfloat16)
                    for _ in range(4))
     o, lse = fa.flash_attention_fwd(q, k, v, h, 0.125)
     delta = fa.attention_delta(o, do, h)
-    dq_ms = cuda_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, h, 0.125), iters)
-    dkv_ms = cuda_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, h, 0.125),
-                     iters)
+    run_dq = lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, h, 0.125)
+    run_dkv = lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, h, 0.125)
+    dq_ms, dkv_ms = cuda_ms(run_dq, iters), cuda_ms(run_dkv, iters)
+    dq_graph_ms, dkv_graph_ms = graph_ms(run_dq, iters), graph_ms(run_dkv, iters)
     heads = lambda a: a.view(b, s, h, 64).transpose(1, 2)
     sq, sk, sv = (heads(a).detach().requires_grad_(True) for a in (q, k, v))
     out = F.scaled_dot_product_attention(sq, sk, sv, scale=0.125)
@@ -64,6 +88,7 @@ def time_shape(b: int, s: int, h: int, iters: int, seed: int = 0) -> dict:
     dq_bound = bound_ms(3 * mm, 5 * tensor + stats)
     dkv_bound = bound_ms(4 * mm, 6 * tensor + stats)
     return dict(shape=[b, s, h], dq_ms=dq_ms, dkv_ms=dkv_ms, pair_ms=dq_ms + dkv_ms,
+                dq_graph_ms=dq_graph_ms, dkv_graph_ms=dkv_graph_ms,
                 dq_tflops=3 * mm / dq_ms / 1e9, dkv_tflops=4 * mm / dkv_ms / 1e9,
                 dq_bound_ms=dq_bound, dkv_bound_ms=dkv_bound, sdpa_bwd_ms=sdpa_ms)
 
@@ -114,7 +139,8 @@ def main(argv=None) -> None:
         r = time_shape(b, s, h, args.iters)
         print(f"({b}, {s}, {h}): dQ {r['dq_ms']:.4f} ms ({r['dq_tflops']:.1f} TFLOP/s, bound "
               f"{r['dq_bound_ms']:.4f}), dK/dV {r['dkv_ms']:.4f} ms ({r['dkv_tflops']:.1f} "
-              f"TFLOP/s, bound {r['dkv_bound_ms']:.4f}), pair {r['pair_ms']:.4f}; SDPA "
+              f"TFLOP/s, bound {r['dkv_bound_ms']:.4f}), pair {r['pair_ms']:.4f}; in a CUDA "
+              f"graph dQ {r['dq_graph_ms']:.4f}, dK/dV {r['dkv_graph_ms']:.4f}; SDPA "
               f"backward {r['sdpa_bwd_ms']:.4f} ms")
         print(json.dumps(r))
 
