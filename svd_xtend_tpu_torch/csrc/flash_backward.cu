@@ -44,11 +44,10 @@
 //     in registers (as fragments they spilled 112 bytes: 1.010-1.017 ms at
 //     L0; from shared memory 0.731-0.745 in later calls). P, P^T, dS and
 //     dS^T go from the accumulator registers straight into the A fragments
-//     of the next wgmma. B is always
-//     the swizzled tile as TMA wrote it: K-major for S = Q K^T, dP = dO V^T,
-//     S^T = K Q^T, dP^T = V dO^T, and MN-major (the transpose bit) for
-//     dQ += dS K, dV += P^T dO, dK += dS^T Q. No thread writes a transposed
-//     copy.
+//     of the next wgmma. B is always the swizzled tile as TMA wrote it:
+//     K-major for S = Q K^T, dP = dO V^T, S^T = K Q^T, dP^T = V dO^T, and
+//     MN-major (the transpose bit) for dQ += dS K, dV += P^T dO,
+//     dK += dS^T Q. No thread writes a transposed copy.
 //   - dS enters dQ and dK as two bf16 terms, hi = bf16(dS) and lo =
 //     bf16(dS - hi) (one more wgmma each). One bf16 rounding of dS, as the
 //     TPU kernel does, makes the pair 0.23 ms faster at L0 but puts the
@@ -56,8 +55,7 @@
 //     tests' and the train step's shapes), above the 1.5x the card tests and
 //     chip_smoke hold the kernels to; with the split it is at most 1.15x
 //     (the same seeds and shapes; 1.0x at 34 of 40, and within 4.4e-7 of
-//     the exact zero at S = 1).
-//     P enters dV rounded once.
+//     the exact zero at S = 1). P enters dV rounded once.
 //   - dS costs ~7 instructions per score: exp2 is one ex2.approx.ftz,
 //     delta comes pre-scaled, and only the last, partial tile is masked
 //     (P = 0 past S). Against libm exp2f, unscaled delta and a mask on every
