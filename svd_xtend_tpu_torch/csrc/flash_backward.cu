@@ -122,19 +122,6 @@ struct DkvSmem {
   uint64_t kv_full;
 };
 
-// the tiles need the 1024-byte alignment of the 128-byte swizzle pattern;
-// the launch asks for 1 KB more than the struct
-template <typename T>
-__device__ __forceinline__ T& aligned_smem(char* raw) {
-  const uint32_t pad = (1024u - (sm90::smem_u32(raw) & 1023u)) & 1023u;
-  return *reinterpret_cast<T*>(raw + pad);
-}
-
-template <typename T>
-constexpr int smem_bytes() {
-  return static_cast<int>(sizeof(T)) + 1024;
-}
-
 __device__ __forceinline__ void zero(float (&d)[32]) {
 #pragma unroll
   for (int i = 0; i < 32; ++i) d[i] = 0.f;
@@ -212,7 +199,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap k_map,
                     __nv_bfloat16* __restrict__ dq, int s_q, int s_kv, int n_cols,
                     float scale, float scale_log2) {
   extern __shared__ char smem_raw[];
-  DqSmem& sm = aligned_smem<DqSmem>(smem_raw);
+  DqSmem& sm = sm90::aligned_smem<DqSmem>(smem_raw);
   const int b = blockIdx.z, h = blockIdx.y;
   const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
   const int n_tiles = (s_kv + kTile - 1) / kTile;
@@ -325,7 +312,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
                      __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
                      int s_q, int s_kv, int n_cols, float scale, float scale_log2) {
   extern __shared__ char smem_raw[];
-  DkvSmem& sm = aligned_smem<DkvSmem>(smem_raw);
+  DkvSmem& sm = sm90::aligned_smem<DkvSmem>(smem_raw);
   const int b = blockIdx.z, h = blockIdx.y;
   const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
   const int n_tiles = (s_q + kTile - 1) / kTile;
@@ -467,7 +454,7 @@ extern "C" int svdx_flash_attention_bwd_dq(const void* q, const void* k, const v
   int err = sm90::encode_rows_map(&k_map, k, n_cols, s_kv, b, kTile);
   if (err == 0) err = sm90::encode_rows_map(&v_map, v, n_cols, s_kv, b, kTile);
   if (err != 0) return err;
-  constexpr int smem = smem_bytes<DqSmem>();
+  constexpr int smem = sm90::smem_bytes<DqSmem>();
   static const int attr = static_cast<int>(cudaFuncSetAttribute(
       flash_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
   if (attr != 0) return attr;
@@ -476,7 +463,7 @@ extern "C" int svdx_flash_attention_bwd_dq(const void* q, const void* k, const v
       k_map, v_map, static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dq), s_q, s_kv, n_cols,
-      scale, scale * 1.4426950408889634f);
+      scale, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -493,7 +480,7 @@ extern "C" int svdx_flash_attention_bwd_dkv(const void* q, const void* k, const 
   if (err == 0) err = sm90::encode_rows_map(&k_map, k, n_cols, s_kv, b, 64);
   if (err == 0) err = sm90::encode_rows_map(&v_map, v, n_cols, s_kv, b, 64);
   if (err != 0) return err;
-  constexpr int smem = smem_bytes<DkvSmem>();
+  constexpr int smem = sm90::smem_bytes<DkvSmem>();
   static const int attr = static_cast<int>(cudaFuncSetAttribute(
       flash_bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
   if (attr != 0) return attr;
@@ -501,7 +488,6 @@ extern "C" int svdx_flash_attention_bwd_dkv(const void* q, const void* k, const 
   flash_bwd_dkv_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       q_map, do_map, k_map, v_map, static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), s_q, s_kv, n_cols,
-      scale, scale * 1.4426950408889634f);
+      static_cast<__nv_bfloat16*>(dv), s_q, s_kv, n_cols, scale, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }

@@ -90,6 +90,20 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+// The kernel's shared-memory struct at the first 1024-byte boundary of the
+// dynamic shared memory `raw`, as the 128-byte swizzle pattern needs; the
+// launch asks for smem_bytes<T>(), 1 KB more than the struct.
+template <typename T>
+__device__ __forceinline__ T& aligned_smem(char* raw) {
+  const uint32_t pad = (1024u - (smem_u32(raw) & 1023u)) & 1023u;
+  return *reinterpret_cast<T*>(raw + pad);
+}
+
+template <typename T>
+constexpr int smem_bytes() {
+  return static_cast<int>(sizeof(T)) + 1024;
+}
+
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
                : "memory");

@@ -40,8 +40,7 @@ sm90_selftest_kernel(const __grid_constant__ CUtensorMap a_map,
                      const __nv_bfloat16* __restrict__ a, float* __restrict__ out, int rows,
                      int n_cols, int sample, int row0, int head) {
   extern __shared__ char smem_raw[];
-  const uint32_t pad = (1024u - (sm90::smem_u32(smem_raw) & 1023u)) & 1023u;
-  SelftestSmem& sm = *reinterpret_cast<SelftestSmem*>(smem_raw + pad);
+  SelftestSmem& sm = sm90::aligned_smem<SelftestSmem>(smem_raw);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   if (threadIdx.x == 0) {
     sm90::mbar_init(&sm.full, 1);
@@ -103,7 +102,7 @@ extern "C" int svdx_sm90_selftest(const void* a, const void* b, void* out, int b
   int err = sm90::encode_rows_map(&a_map, a, n_cols, rows, batch, 64);
   if (err == 0) err = sm90::encode_rows_map(&b_map, b, n_cols, rows, batch, 64);
   if (err != 0) return err;
-  constexpr int smem = static_cast<int>(sizeof(SelftestSmem)) + 1024;
+  constexpr int smem = sm90::smem_bytes<SelftestSmem>();
   err = static_cast<int>(cudaFuncSetAttribute(
       sm90_selftest_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
   if (err != 0) return err;
