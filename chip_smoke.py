@@ -19,9 +19,10 @@ Phases, each of which raises on failure (non-zero exit):
      function where there is one (SDPA, F.group_norm, F.conv2d), and the
      bound (the larger of its products over 989 TFLOP/s and its bytes, each
      input read once and each output written once, over 3.35 TB/s: the H100
-     SXM's dense bf16 and HBM peaks). The flash backward pair is also timed
-     at the other three training shapes, each with its executed TFLOP/s
-     beside the bound.
+     SXM's dense bf16 and HBM peaks). The flash backward pair is timed at
+     all four training shapes, in the host loop and as device time per
+     launch of a CUDA graph, each with its executed TFLOP/s beside the
+     bound.
   3b. conv3x3: the kernel against its plain version at every site of the
      UNet (CFG batch 28 for generate, batch 14 for the train step, each with
      the epilogue that site uses), at every dU shape of the train step's
@@ -48,8 +49,10 @@ Phases, each of which raises on failure (non-zero exit):
   5. generate (the serving path): ``generate`` at the default PipelineConfig
      (512x320, 14 frames, 25 Euler steps, stacked CFG, decode chunks of 8)
      with the full UNet, VAE and CLIP in bf16 from seeded random weights,
-     batch 1, GEGLU kernel on: one warm-up run, then a timed run whose
-     forward-kernel launch counts must all be > 0.
+     batch 1, GEGLU kernel on: one warm-up run, then 3 timed runs (the
+     median s/video is reported, beside each run's and the device memory
+     segments the allocator added during it); the last run's forward-kernel
+     launch counts must all be > 0.
   6. train (this slice's main path): the default TrainConfig (temporal
      scope, 512x320x14f, batch 1, remat "block", AdamW with f32 masters,
      bf16 compute) through make_optimizer/create_train_state/make_train_step
@@ -58,8 +61,8 @@ Phases, each of which raises on failure (non-zero exit):
      must all be > 0; finite loss and grad_norm, trainable weights changed,
      frozen ones bit-identical; s/step and peak memory; the flash backward
      pair's launches per step by level (tokens S), and their sum of
-     launches x the kernel phase's ms at that level. Then one full-scope
-     step at the same size: finite loss, peak memory.
+     launches x the kernel phase's device ms at that level. Then one
+     full-scope step at the same size: finite loss, peak memory.
   7. mha (the head-major attention entry point, ops/attention.py::mha, as a
      caller outside the UNet uses it): the UNet's L0 self-attention shape,
      (2x14, 2560, 320) in 5 heads of 64, through the BSHD flash kernel: its
@@ -122,6 +125,8 @@ PEAK_BYTES = 3.35e12
 # LSE: f32 log-sum-exp of the same f32 scores summed in another order
 LSE_ATOL = 1e-4
 TRAIN_STEPS = 3
+# timed videos per generate mode, after its warm-up; the median is reported
+GENERATE_TIMED = 3
 
 
 def log(*a):
@@ -151,7 +156,7 @@ class KernelPhase:
     def __init__(self):
         self.err = {}
         self.times = {}
-        self.bwd_ms = {}    # tokens S -> (dQ ms, dK/dV ms) at the train step's shape
+        self.bwd_ms = {}    # tokens S -> device (dQ ms, dK/dV ms) at the train step's shape
 
     def check(self, name, got, ref, label):
         torch.cuda.synchronize()
@@ -190,6 +195,28 @@ class KernelPhase:
         log(f"  {name} {label}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library {lib}, "
             f"bound {b_ms:.4f} ms ({b_by}; {flops / 1e9:.1f} GFLOP, {moved / 1e6:.1f} MB)")
         return k_ms, p_ms
+
+
+def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
+    """Device ms per call of `fn`: `iters` calls captured in one CUDA graph,
+    replayed `replays` times between CUDA events. Unlike cuda_ms's host
+    loop, this does not read the wrapper's host time where a launch is
+    shorter."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * iters)
 
 
 def kernel_phases(dev) -> KernelPhase:
@@ -358,12 +385,12 @@ def kernel_phases(dev) -> KernelPhase:
             del sq, sk, sv, sdpa_out
         else:
             ms = (cuda_ms(run_dq), cuda_ms(run_dkv))
-        ph.bwd_ms[s_len] = ms
-        for (name, (n_mm, moved)), k_ms in zip(work.items(), ms):
+        ph.bwd_ms[s_len] = (graph_ms(run_dq), graph_ms(run_dkv))
+        for (name, (n_mm, moved)), k_ms, d_ms in zip(work.items(), ms, ph.bwd_ms[s_len]):
             b_ms, b_by = bound_ms(n_mm * mm, moved)
-            log(f"  flash backward {name} {label}: {k_ms:.4f} ms, "
-                f"{n_mm * mm / k_ms / 1e9:.1f} TFLOP/s executed on its {n_mm} products; "
-                f"bound {b_ms:.4f} ms ({b_by}), {100 * b_ms / k_ms:.1f} % of it")
+            log(f"  flash backward {name} {label}: {k_ms:.4f} ms, device {d_ms:.4f} ms; "
+                f"{n_mm * mm / d_ms / 1e9:.1f} TFLOP/s executed on its {n_mm} products "
+                f"(device); bound {b_ms:.4f} ms ({b_by}), {100 * b_ms / d_ms:.1f} % of it")
         del q, k, v, do, o, ref_o, dq, dk, dv
     return ph
 
@@ -882,7 +909,7 @@ def conv3x3_launches(cfg):
 
 def generate_phase(dev, smi, counters):
     """The exact generate, then the two cache modes on the same image and
-    noise; {path: launches} of the three timed runs."""
+    noise; {path: launches} of each mode's last timed run."""
     import dataclasses
 
     from svd_xtend_tpu_torch.core.config import PipelineConfig
@@ -911,14 +938,23 @@ def generate_phase(dev, smi, counters):
         torch.cuda.synchronize()
         log(f"  {path}: warm-up video {time.time() - t0:.2f} s")
 
-        reset(counters)
-        passes.clear()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.time()
-        video = generate(models, image, cfg,
-                         generator=torch.Generator(device=dev).manual_seed(SEED))
-        torch.cuda.synchronize()
-        secs = time.time() - t0
+        timed, new_segments = [], []
+        for _ in range(GENERATE_TIMED):
+            video = None        # the last run's video is not held through the next
+            reset(counters)
+            passes.clear()
+            torch.cuda.reset_peak_memory_stats()
+            segments = torch.cuda.memory_stats().get("segment.all.allocated", 0)
+            t0 = time.time()
+            video = generate(models, image, cfg,
+                             generator=torch.Generator(device=dev).manual_seed(SEED))
+            torch.cuda.synchronize()
+            timed.append(time.time() - t0)
+            new_segments.append(torch.cuda.memory_stats().get("segment.all.allocated", 0)
+                                - segments)
+        secs = sorted(timed)[len(timed) // 2]
+        log(f"  {path}: timed videos {', '.join(f'{t:.3f}' for t in timed)} s; device memory "
+            f"segments added during each {new_segments}")
         launches[path] = read(counters, [n for n in counters
                                          if n not in BACKWARD_ONLY | MHA_ONLY | PROBE_ONLY])
         peak = torch.cuda.max_memory_allocated()
@@ -951,8 +987,8 @@ def generate_phase(dev, smi, counters):
                     f"{d.mean().item():.5f} (random weights: reported, not held)")
         log(f"  video {tuple(video.shape)} finite, in [-1, 1], std {video.std().item():.4f}"
             f"{dist}")
-        log(f"  [{smi}] {path}: seconds/video {secs:.3f}; frames/s "
-            f"{cfg.num_frames / secs:.3f}; peak allocated {peak / 2**30:.2f} GiB")
+        log(f"  [{smi}] {path}: seconds/video {secs:.3f} (median of {GENERATE_TIMED}); "
+            f"frames/s {cfg.num_frames / secs:.3f}; peak allocated {peak / 2**30:.2f} GiB")
     return launches
 
 
@@ -998,8 +1034,8 @@ def calls_by_length(module, name):
 
 
 def train_phase(dev, smi, counters, profile_dir, bwd_ms):
-    """The train step; `bwd_ms` {S: (dQ ms, dK/dV ms)} from the kernel phase
-    prices the step's flash backward launches per level."""
+    """The train step; `bwd_ms` {S: device (dQ ms, dK/dV ms)} from the
+    kernel phase prices the step's flash backward launches per level."""
     import dataclasses
 
     from svd_xtend_tpu_torch.ops.kernels import flash_attention as fa
@@ -1053,8 +1089,8 @@ def train_phase(dev, smi, counters, profile_dir, bwd_ms):
             raise RuntimeError(f"{name}: {launches[name]} launches, {sum(by_len.values())} "
                                "backward calls")
         ms = sum(n * bwd_ms[s_len][i] for s_len, n in per_step.items())
-        log(f"  {name} launches per step by tokens S: {per_step}; x the kernel phase's ms "
-            f"at each S = {ms:.3f} ms per step")
+        log(f"  {name} launches per step by tokens S: {per_step}; x the kernel phase's "
+            f"device ms at each S = {ms:.3f} ms per step")
     total = sum(n * sum(bwd_ms[s_len]) for s_len, n in per_step.items())
     log(f"  [{smi}] flash backward pair, kernel time per step: {total:.3f} ms")
     peak = torch.cuda.max_memory_allocated()

@@ -64,10 +64,11 @@
 //     wait on. Rows of a block past S are computed on zeros, not stored.
 //
 // Tried and refuted (NVIDIA H100 80GB HBM3, 700.00 W, L0 = (14, 2560, 5),
-// svd_xtend_tpu_torch/scripts/bench_flash_backward.py; before the leaner
-// dS): pipelining dQ two tiles deep (S and dP of tile i + 1 issued before
-// dS of tile i) needs ~200 registers, spilled 540 bytes under the 168 and
-// ran 0.807-0.827 ms against 0.598-0.603; splitting a tile's wait so P is
+// CUDA events over the wrappers, each variant built from a copy of this
+// file with the change made; before the leaner dS): pipelining dQ two tiles
+// deep (S and dP of tile i + 1 issued before dS of tile i) needs ~200
+// registers, spilled 540 bytes under the 168 and ran 0.807-0.827 ms
+// against 0.598-0.603; splitting a tile's wait so P is
 // computed while dP runs made ptxas serialise the wgmmas (C7515) and ran
 // dQ 0.619 / dK/dV 0.744-0.747 against 0.598-0.600 / 0.731-0.739; 2 or 4
 // stages instead of 3: dQ -1 %, dK/dV +2 to +4 %; a 288-thread block (one
@@ -76,7 +77,12 @@
 // (tile i's dQ, or dV and dK, products running on behind tile i + 1's first
 // products) made ptxas serialise the wgmmas (C7512, C7515): dQ 0.560 /
 // dK/dV 0.712-0.715 ms against 0.455-0.456 / 0.565-0.571 (device time in a
-// CUDA graph).
+// CUDA graph). Last (chip_smoke.py, device time): a consumer warpgroup with
+// no row below S skipping its products and only releasing the stages (the
+// second warpgroup of every block at S = 40) took dK/dV at 40 tokens from
+// 0.0119-0.0120 to 0.0103-0.0104 ms, but the early exit cost the steady
+// state: at L0 0.652-0.665 against 0.578-0.580, dQ unchanged; issuing the
+// dK/dV tile's TMA before its LSE/delta copy as well read the same.
 
 #include <math.h>
 
@@ -87,18 +93,8 @@ namespace {
 constexpr int kD = 64;                           // head dim = one 128-byte TMA box row
 constexpr int kConsumers = 2;                    // consumer warpgroups
 constexpr int kBlockRows = 64 * kConsumers;      // queries (dQ) or keys (dK/dV) per block
-// Tuning switches, defaults as shipped; a build may override them with -D
-// (ops/kernels/_build.py: SVDX_NVCC_DEFINES) to measure the alternatives.
-#ifndef SVDX_BWD_STAGES
-#define SVDX_BWD_STAGES 3
-#endif
-#ifndef SVDX_BWD_SPLIT
-#define SVDX_BWD_SPLIT 1
-#endif
-
 constexpr int kTile = 64;                        // keys (dQ) or queries (dK/dV) per stage
-constexpr int kStages = SVDX_BWD_STAGES;         // ring depth
-constexpr bool kSplitDs = SVDX_BWD_SPLIT != 0;   // dS as bf16 hi + lo
+constexpr int kStages = 3;                       // ring depth
 constexpr int kThreads = 128 * (kConsumers + 1);
 constexpr uint32_t kTileBytes = kTile * kD * 2;  // one bf16 tile, 8 KB
 constexpr float kLog2e = 1.4426950408889634f;
@@ -275,12 +271,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap k_map,
         ds_rows<true>(s, dp, l2, dls, scale_log2, scale, kv0, s_kv, t);
       uint32_t hi[4][4], lo[4][4];
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        if (kSplitDs)
-          sm90::acc_to_a_split(hi[kk], lo[kk], s, kk);
-        else
-          sm90::acc_to_a(hi[kk], s, kk);
-      }
+      for (int kk = 0; kk < 4; ++kk) sm90::acc_to_a_split(hi[kk], lo[kk], s, kk);
 
       // dQ += dS K: the same K tile, read MN-major
       sm90::wgmma_fence();
@@ -288,7 +279,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap k_map,
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
         sm90::wgmma_rs<1>(acc, hi[kk], sm90::mnmajor_slice(kd, kk), 1);
-        if (kSplitDs) sm90::wgmma_rs<1>(acc, lo[kk], sm90::mnmajor_slice(kd, kk), 1);
+        sm90::wgmma_rs<1>(acc, lo[kk], sm90::mnmajor_slice(kd, kk), 1);
       }
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
@@ -415,17 +406,12 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
       for (int kk = 0; kk < 4; ++kk)
         sm90::wgmma_rs<1>(dva, pa[kk], sm90::mnmajor_slice(od, kk), 1);
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        if (kSplitDs)
-          sm90::acc_to_a_split(hi[kk], lo[kk], dp, kk);
-        else
-          sm90::acc_to_a(hi[kk], dp, kk);
-      }
+      for (int kk = 0; kk < 4; ++kk) sm90::acc_to_a_split(hi[kk], lo[kk], dp, kk);
       sm90::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
         sm90::wgmma_rs<1>(dka, hi[kk], sm90::mnmajor_slice(qd, kk), 1);
-        if (kSplitDs) sm90::wgmma_rs<1>(dka, lo[kk], sm90::mnmajor_slice(qd, kk), 1);
+        sm90::wgmma_rs<1>(dka, lo[kk], sm90::mnmajor_slice(qd, kk), 1);
       }
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();

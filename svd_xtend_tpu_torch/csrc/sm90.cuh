@@ -128,7 +128,17 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t by
 
 // spin until the phase of parity `parity` has completed; a wait that never
 // completes (a fault in a kernel's barrier protocol) traps after 2^26 polls,
-// seconds, so the launch fails instead of hanging the card
+// so the launch fails instead of hanging the card.
+// Why a count of polls and not of time: polls advance only while the
+// waiting warp runs; when the card time-slices or preempts the context,
+// every warp of the block stops with it. What a wait waits for is in the
+// same block (its producer or consumer warps) or is the TMA unit serving
+// it, so a wait that is only slow lasts one tile's work or load:
+// microseconds. 2^26 polls, each at least a shared-memory round trip
+// (~30 cycles), take about a second of the warp's own running time. A bound
+// on %globaltimer instead cost the dK/dV kernel 3-6 % (NVIDIA H100 80GB
+// HBM3, 700.00 W; chip_smoke.py from copies of the tree that differed only
+// here), with the same registers and no spills.
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   const uint32_t addr = smem_u32(bar);
   uint32_t done;

@@ -3,12 +3,13 @@
 Each source compiles in its own ``nvcc`` process, all started together, and
 one more ``nvcc`` links the objects into one shared library with a plain C
 interface, loaded with ctypes. The build runs at first use, into
-``svd_xtend_tpu_torch/_build/``, and is keyed by a hash of the sources and
-the headers they include (csrc/*.cuh), so a fresh checkout builds everything
-on its first kernel launch, an edit to any of them rebuilds, and an
-unchanged tree reuses the library. A failed build raises. The library needs
-no -lcuda: the TMA kernels take the driver's ``cuTensorMapEncodeTiled``
-through the runtime's entry-point query (csrc/sm90.cuh).
+``svd_xtend_tpu_torch/_build/``, and is keyed by a hash of the nvcc flags,
+the sources and the headers they include (csrc/*.cuh), so a fresh checkout
+builds everything on its first kernel launch, an edit to any of them
+rebuilds, and an unchanged tree reuses the library. A failed build raises.
+The library needs no -lcuda: the TMA kernels take the driver's
+``cuTensorMapEncodeTiled`` through the runtime's entry-point query
+(csrc/sm90.cuh).
 """
 
 from __future__ import annotations
@@ -26,9 +27,6 @@ CSRC = PACKAGE_ROOT / "csrc"
 BUILD_DIR = PACKAGE_ROOT / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
-# extra nvcc flags from the environment, for measuring a kernel's tuning
-# switches (e.g. SVDX_NVCC_DEFINES="-DSVDX_BWD_SPLIT=0"); part of the hash
-DEFINES_ENV = "SVDX_NVCC_DEFINES"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -64,12 +62,8 @@ def _sources():
     return sorted(CSRC.glob("*.cu"))
 
 
-def _flags() -> tuple:
-    return NVCC_FLAGS + tuple(os.environ.get(DEFINES_ENV, "").split())
-
-
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(_flags()).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in sorted([*_sources(), *CSRC.glob("*.cuh")]):
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -99,12 +93,12 @@ def build() -> None:
         obj = work / f"{src.stem}.o"
         objs.append(str(obj))
         procs.append((src.name, subprocess.Popen(
-            [_nvcc(), *_flags(), "-c", "-o", str(obj), str(src)],
+            [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     _run(procs)
     tmp = work / so.name
     _run([("link", subprocess.Popen(
-        [_nvcc(), *_flags(), "-shared", "-o", str(tmp), *objs],
+        [_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp), *objs],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))])
     os.replace(tmp, so)
     shutil.rmtree(work, ignore_errors=True)

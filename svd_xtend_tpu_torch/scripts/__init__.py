@@ -7,10 +7,6 @@ card as ``python -m svd_xtend_tpu_torch.scripts.<name>``.
   flash forward on the head-major (B·H, S, 64) layout;
 - ``probe_int8_flash``: the dependent QKᵀ→PV chain in bf16 and in int8
   with dynamic quantisation.
-
-Two more time the port itself: ``bench_flash_backward`` (the flash backward
-pair at the train step's four shapes) and ``bench_generate`` (``generate``
-in its three modes, each video repeated in one process).
 """
 
 import subprocess

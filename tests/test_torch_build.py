@@ -1,7 +1,8 @@
 """The kernel build's cache key (svd_xtend_tpu_torch/ops/kernels/_build.py):
-the shared library's name is a hash of the CUDA sources and of the headers
-they include, so an edit to either rebuilds instead of reusing a stale
-library. Runs on the CPU: it hashes files and compiles nothing."""
+the shared library's name is a hash of the nvcc flags, the CUDA sources and
+the headers they include, so an edit to any of them rebuilds instead of
+reusing a stale library. Runs on the CPU: it hashes files and compiles
+nothing."""
 
 import shutil
 
@@ -16,10 +17,6 @@ def csrc_copy(tmp_path, monkeypatch):
     shutil.copytree(_build.CSRC, copy)
     monkeypatch.setattr(_build, "CSRC", copy)
     return copy
-
-
-def test_the_sources_include_a_header():
-    assert sorted(p.name for p in _build.CSRC.glob("*.cuh")) == ["sm90.cuh"]
 
 
 @pytest.mark.parametrize("pattern", ["*.cu", "*.cuh"])
@@ -37,8 +34,13 @@ def test_a_new_header_changes_the_library(csrc_copy):
     assert _build.library_path() != before
 
 
-def test_extra_defines_change_the_library(monkeypatch):
+def test_other_files_leave_the_library(csrc_copy):
     before = _build.library_path()
-    monkeypatch.setenv(_build.DEFINES_ENV, "-DSVDX_BWD_SPLIT=0")
+    (csrc_copy / "notes.txt").write_text("not a source\n")
+    assert _build.library_path() == before
+
+
+def test_other_flags_change_the_library(monkeypatch):
+    before = _build.library_path()
+    monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-lineinfo",))
     assert _build.library_path() != before
-    assert "-DSVDX_BWD_SPLIT=0" in _build._flags()
