@@ -19,10 +19,12 @@ Phases, each of which raises on failure (non-zero exit):
      function where there is one (SDPA, F.group_norm, F.conv2d), and the
      bound (the larger of its products over 989 TFLOP/s and its bytes, each
      input read once and each output written once, over 3.35 TB/s: the H100
-     SXM's dense bf16 and HBM peaks). The flash backward pair is timed at
-     all four training shapes, in the host loop and as device time per
-     launch of a CUDA graph, each with its executed TFLOP/s beside the
-     bound.
+     SXM's dense bf16 and HBM peaks). The flash forward is timed at all four
+     UNet levels at batch 28 and 14 without the LSE (generate's CFG pair and
+     cond-only passes) and at batch 14 with it (the train step), the flash
+     backward pair at the four training shapes, each in the host loop and as
+     device time per launch of a CUDA graph, with its executed TFLOP/s beside
+     the bound (and SDPA's device time beside the forward).
   3b. conv3x3: the kernel against its plain version at every site of the
      UNet (CFG batch 28 for generate, batch 14 for the train step, each with
      the epilogue that site uses), at every dU shape of the train step's
@@ -33,7 +35,8 @@ Phases, each of which raises on failure (non-zero exit):
      CFG shape.
   3c. probe kernels: the kernels of the TPU probe scripts against their plain
      versions: the four softmax organisations of the flash forward
-     (flash_variants) at the variants probe's shapes, (140, 2560) whole and
+     (flash_variants) at the variants probe's shapes, (140, 2560) whole (also
+     each mode's device time in a CUDA graph beside SDPA's) and
      (280, 2304), (250, 9216) on their first 8 heads (the plain version of
      those would hold ~85 GB of f32 scores), nosoftmax on positive inputs;
      the head-sliced forward with its LSE at the head-slice probe's shapes;
@@ -52,7 +55,9 @@ Phases, each of which raises on failure (non-zero exit):
      batch 1, GEGLU kernel on: one warm-up run, then 3 timed runs (the
      median s/video is reported, beside each run's and the device memory
      segments the allocator added during it); the last run's forward-kernel
-     launch counts must all be > 0.
+     launch counts must all be > 0; the flash forward's launches per video
+     by (batch, tokens S), and their sum of launches x the kernel phase's
+     device ms at that shape.
   6. train (this slice's main path): the default TrainConfig (temporal
      scope, 512x320x14f, batch 1, remat "block", AdamW with f32 masters,
      bf16 compute) through make_optimizer/create_train_state/make_train_step
@@ -60,8 +65,9 @@ Phases, each of which raises on failure (non-zero exit):
      steps whose launch counts of every kernel (forward and flash backward)
      must all be > 0; finite loss and grad_norm, trainable weights changed,
      frozen ones bit-identical; s/step and peak memory; the flash backward
-     pair's launches per step by level (tokens S), and their sum of
-     launches x the kernel phase's device ms at that level. Then one
+     pair's and the flash forward's launches per step by level (tokens S),
+     and their sums of launches x the kernel phase's device ms at that
+     level. Then one
      full-scope step at the same size: finite loss, peak memory.
   7. mha (the head-major attention entry point, ops/attention.py::mha, as a
      caller outside the UNet uses it): the UNet's L0 self-attention shape,
@@ -102,7 +108,7 @@ import time
 import torch
 import torch.nn.functional as F
 
-from svd_xtend_tpu_torch.scripts import card, cuda_ms
+from svd_xtend_tpu_torch.scripts import card, cuda_ms, graph_ms
 
 SEED = 0
 # rel-L2 bound of the bf16 card UNet against the f32 host UNet: bf16 rounds
@@ -157,6 +163,22 @@ class KernelPhase:
         self.err = {}
         self.times = {}
         self.bwd_ms = {}    # tokens S -> device (dQ ms, dK/dV ms) at the train step's shape
+        # path ("generate": no LSE, "train": with it) -> {(batch, tokens S): forward device ms}
+        self.fwd_ms = {"generate": {}, "train": {}}
+
+    def forward_level(self, path, b, s, h, run, sdpa, moved):
+        """The flash forward at one (batch, tokens, heads): host loop and
+        device time in a CUDA graph beside SDPA's device time and the bound;
+        the device time prices the path's launches at that shape."""
+        flops = 4 * b * h * s * s * 64
+        host, dev_ms, sdpa_ms = cuda_ms(run), graph_ms(run), graph_ms(sdpa)
+        b_ms, b_by = bound_ms(flops, moved)
+        self.fwd_ms[path][(b, s)] = dev_ms
+        if (path, b, s) == ("generate", 28, 2560):     # the kernels line's shape
+            self.times["flash_attention_fwd"]["device_ms"] = dev_ms
+        log(f"  flash forward {path} {(b, s, h * 64)} heads {h}: {host:.4f} ms, device "
+            f"{dev_ms:.4f} ms ({flops / dev_ms / 1e9:.1f} TFLOP/s), SDPA device {sdpa_ms:.4f} "
+            f"ms; bound {b_ms:.4f} ms ({b_by}), {100 * b_ms / dev_ms:.1f} % of it")
 
     def check(self, name, got, ref, label):
         torch.cuda.synchronize()
@@ -197,28 +219,6 @@ class KernelPhase:
         return k_ms, p_ms
 
 
-def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
-    """Device ms per call of `fn`: `iters` calls captured in one CUDA graph,
-    replayed `replays` times between CUDA events. Unlike cuda_ms's host
-    loop, this does not read the wrapper's host time where a launch is
-    shorter."""
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (replays * iters)
-
-
 def kernel_phases(dev) -> KernelPhase:
     from svd_xtend_tpu_torch.ops.kernels import flash_attention as fa
     from svd_xtend_tpu_torch.ops.kernels import geglu as gg
@@ -230,18 +230,20 @@ def kernel_phases(dev) -> KernelPhase:
     rn = lambda *s, sc=1.0: (torch.randn(*s, device=dev, generator=g) * sc).to(torch.bfloat16)
     ph = KernelPhase()
 
-    log("kernels: flash attention (CFG batch 2x14 frames; batch 14 in the backward below)")
-    for b, s, h in [(28, 2560, 5), (28, 640, 10), (28, 160, 20), (28, 40, 20)]:
+    log("kernels: flash attention (CFG batch 2x14 frames, and 14: a cond-only pass; batch "
+        "14 with the LSE in the backward below)")
+    for b, s, h in [(28, 2560, 5), (28, 640, 10), (28, 160, 20), (28, 40, 20),
+                    (14, 2560, 5), (14, 640, 10), (14, 160, 20), (14, 40, 20)]:
         q, k, v = rn(b, s, h * 64), rn(b, s, h * 64), rn(b, s, h * 64)
         run = lambda: fa.flash_attention_packed(q, k, v, num_heads=h, scale=0.125)
         plain = lambda: fa.flash_attention_packed_reference(q, k, v, num_heads=h, scale=0.125)
         ph.check("flash_attention_fwd", run(), plain(), f"{(b, s, h * 64)} heads {h}")
-        if s == 2560:
-            heads = lambda a: a.view(b, s, h, 64).transpose(1, 2)
+        heads = lambda a: a.view(b, s, h, 64).transpose(1, 2)
+        sdpa = lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v), scale=0.125)
+        if (b, s) == (28, 2560):
             ph.time("flash_attention_fwd", run, plain, 4 * b * h * s * s * 64,
-                    nbytes(q, k, v, q),
-                    lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v),
-                                                           scale=0.125), "SDPA")
+                    nbytes(q, k, v, q), sdpa, "SDPA")
+        ph.forward_level("generate", b, s, h, run, sdpa, nbytes(q, k, v, q))
         del q, k, v
 
     log("kernels: temporal attention")
@@ -345,6 +347,11 @@ def kernel_phases(dev) -> KernelPhase:
         log(f"  flash LSE {(b, s_len, h)}: max_abs_err {lerr:.3g} (bound {LSE_ATOL})")
         if not bool(torch.isfinite(lse).all()) or lerr > LSE_ATOL:
             raise RuntimeError(f"flash LSE error {lerr}")
+        heads = lambda a: a.view(b, s_len, h, 64).transpose(1, 2)
+        ph.forward_level("train", b, s_len, h, lambda: fa.flash_attention_fwd(q, k, v, h, 0.125),
+                         lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v),
+                                                                scale=0.125),
+                         nbytes(q, k, v, q, lse))
         delta = fa.attention_delta(o, do, h)
         dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, h, 0.125)
         dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, h, 0.125)
@@ -369,7 +376,6 @@ def kernel_phases(dev) -> KernelPhase:
                 "dK/dV": (4, nbytes(q, k, v, do, k, v) + stats)}
         if s_len == 2560:
             plain_bwd = lambda: fa.flash_attention_bwd_reference(q, k, v, o, lse, do, h, 0.125)
-            heads = lambda a: a.view(b, s_len, h, 64).transpose(1, 2)
             sq, sk, sv = (heads(a).detach().requires_grad_(True) for a in (q, k, v))
             sdpa_out = F.scaled_dot_product_attention(sq, sk, sv, scale=0.125)
             sdpa_bwd = lambda: torch.autograd.grad(sdpa_out, (sq, sk, sv), heads(do),
@@ -573,12 +579,18 @@ def probe_kernel_phase(dev, ph: KernelPhase):
                 # 4-D (1, B*H, S, 64): SDPA takes its flash backend only for 4-D inputs
                 sdpa = lambda: F.scaled_dot_product_attention(a[None], b[None], v[None],
                                                               scale=0.125)
-                ph.time("flash_variants", run, plain, 4 * bh * s_len * s_len * 64,
-                        nbytes(a, b, v, a), sdpa, "SDPA", f"{mode} {(bh, s_len)}")
-                by_mode[mode] = ph.times["flash_variants"]
+                flops = 4 * bh * s_len * s_len * 64
+                ph.time("flash_variants", run, plain, flops, nbytes(a, b, v, a), sdpa, "SDPA",
+                        f"{mode} {(bh, s_len)}")
+                by_mode[mode] = dict(ph.times["flash_variants"], device_ms=graph_ms(run),
+                                     sdpa_device_ms=graph_ms(sdpa))
+                log(f"    device {by_mode[mode]['device_ms']:.4f} ms "
+                    f"({flops / by_mode[mode]['device_ms'] / 1e9:.1f} TFLOP/s), SDPA device "
+                    f"{by_mode[mode]['sdpa_device_ms']:.4f} ms")
         if by_mode:     # the entry holds base's times, and every mode's ms
             ph.times["flash_variants"] = dict(
-                by_mode["base"], ms_by_mode={m: t["ms"] for m, t in by_mode.items()})
+                by_mode["base"], ms_by_mode={m: t["ms"] for m, t in by_mode.items()},
+                device_ms_by_mode={m: t["device_ms"] for m, t in by_mode.items()})
         del q, k, v, qp, kp
         torch.cuda.empty_cache()
 
@@ -762,11 +774,11 @@ def main() -> int:
     counters = kernel_counters()
     log("generate: PipelineConfig() with full UNet/VAE/CLIP, bf16, all kernels on; then "
         "the CFG cache (k3) and DeepCache + CFG cache (n3 k3)")
-    gen_launches = generate_phase(dev, smi, counters)
+    gen_launches = generate_phase(dev, smi, counters, ph.fwd_ms)
     torch.cuda.empty_cache()
 
     log("train: default TrainConfig (temporal scope, 512x320x14f, batch 1, remat block)")
-    train_launches = train_phase(dev, smi, counters, args.profile, ph.bwd_ms)
+    train_launches = train_phase(dev, smi, counters, args.profile, ph.bwd_ms, ph.fwd_ms)
     torch.cuda.empty_cache()
 
     log("mha: the head-major attention entry point at the UNet's L0 shape")
@@ -907,13 +919,33 @@ def conv3x3_launches(cfg):
     return unet + vae
 
 
-def generate_phase(dev, smi, counters):
+def forward_per_run(path, by_shape, runs, launches, fwd_ms, smi, unit):
+    """The flash forward's launches per run by (batch, tokens S), from a
+    tally over `runs` runs, held against the last run's launch count, and
+    their sum of launches x the kernel phase's device ms at each shape."""
+    per_run = {shape: n / runs for shape, n in sorted(by_shape.items(), reverse=True)}
+    if sum(per_run.values()) != launches:
+        raise RuntimeError(f"{path}: {launches} forward launches, {per_run} forward calls")
+    missing = [shape for shape in per_run if shape not in fwd_ms]
+    if missing:
+        raise RuntimeError(f"{path}: no device time for the forward at {missing}")
+    ms = sum(n * fwd_ms[shape] for shape, n in per_run.items())
+    log(f"  {path}: flash_attention_fwd launches per {unit} by (batch, tokens S): {per_run}")
+    log(f"  [{smi}] {path}: flash forward, launches x the kernel phase's device ms: "
+        f"{ms:.3f} ms per {unit}")
+    return ms
+
+
+def generate_phase(dev, smi, counters, fwd_ms):
     """The exact generate, then the two cache modes on the same image and
-    noise; {path: launches} of each mode's last timed run."""
+    noise; {path: launches} of each mode's last timed run. `fwd_ms` {path:
+    {(batch, S): device ms}} from the kernel phase prices the flash forward's
+    launches per video."""
     import dataclasses
 
     from svd_xtend_tpu_torch.core.config import PipelineConfig
     from svd_xtend_tpu_torch.diffusion.pipeline import SVDModels, generate
+    from svd_xtend_tpu_torch.ops.kernels import flash_attention as fa
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     t0 = time.time()
@@ -939,24 +971,27 @@ def generate_phase(dev, smi, counters):
         log(f"  {path}: warm-up video {time.time() - t0:.2f} s")
 
         timed, new_segments = [], []
-        for _ in range(GENERATE_TIMED):
-            video = None        # the last run's video is not held through the next
-            reset(counters)
-            passes.clear()
-            torch.cuda.reset_peak_memory_stats()
-            segments = torch.cuda.memory_stats().get("segment.all.allocated", 0)
-            t0 = time.time()
-            video = generate(models, image, cfg,
-                             generator=torch.Generator(device=dev).manual_seed(SEED))
-            torch.cuda.synchronize()
-            timed.append(time.time() - t0)
-            new_segments.append(torch.cuda.memory_stats().get("segment.all.allocated", 0)
-                                - segments)
+        with calls_by_length(fa, "flash_attention_fwd", with_batch=True) as by_shape:
+            for _ in range(GENERATE_TIMED):
+                video = None        # the last run's video is not held through the next
+                reset(counters)
+                passes.clear()
+                torch.cuda.reset_peak_memory_stats()
+                segments = torch.cuda.memory_stats().get("segment.all.allocated", 0)
+                t0 = time.time()
+                video = generate(models, image, cfg,
+                                 generator=torch.Generator(device=dev).manual_seed(SEED))
+                torch.cuda.synchronize()
+                timed.append(time.time() - t0)
+                new_segments.append(torch.cuda.memory_stats().get("segment.all.allocated", 0)
+                                    - segments)
         secs = sorted(timed)[len(timed) // 2]
         log(f"  {path}: timed videos {', '.join(f'{t:.3f}' for t in timed)} s; device memory "
             f"segments added during each {new_segments}")
         launches[path] = read(counters, [n for n in counters
                                          if n not in BACKWARD_ONLY | MHA_ONLY | PROBE_ONLY])
+        forward_per_run(path, by_shape, GENERATE_TIMED, launches[path]["flash_attention_fwd"],
+                        fwd_ms["generate"], smi, "video")
         peak = torch.cuda.max_memory_allocated()
         expect = unet_schedule(cfg)
         ran = collections.Counter(passes)
@@ -1014,16 +1049,16 @@ def mha_phase(dev, counters):
 
 
 @contextlib.contextmanager
-def calls_by_length(module, name):
+def calls_by_length(module, name, with_batch=False):
     """While active, tallies the calls of `module.name` by the length of its
-    first argument's dimension 1 (the tokens S of a flash call). The
-    wrapper stands in for the module's global, which its callers look up at
-    each call."""
+    first argument's dimension 1 (the tokens S of a flash call), or by
+    (dimension 0, dimension 1) with `with_batch`. The wrapper stands in for
+    the module's global, which its callers look up at each call."""
     tally = collections.Counter()
     original = getattr(module, name)
 
     def call(q, *args, **kwargs):
-        tally[q.shape[1]] += 1
+        tally[tuple(q.shape[:2]) if with_batch else q.shape[1]] += 1
         return original(q, *args, **kwargs)
 
     setattr(module, name, call)
@@ -1033,9 +1068,10 @@ def calls_by_length(module, name):
         setattr(module, name, original)
 
 
-def train_phase(dev, smi, counters, profile_dir, bwd_ms):
-    """The train step; `bwd_ms` {S: device (dQ ms, dK/dV ms)} from the
-    kernel phase prices the step's flash backward launches per level."""
+def train_phase(dev, smi, counters, profile_dir, bwd_ms, fwd_ms):
+    """The train step; `bwd_ms` {S: device (dQ ms, dK/dV ms)} and `fwd_ms`
+    from the kernel phase price the step's flash backward and forward
+    launches per level."""
     import dataclasses
 
     from svd_xtend_tpu_torch.ops.kernels import flash_attention as fa
@@ -1076,13 +1112,16 @@ def train_phase(dev, smi, counters, profile_dir, bwd_ms):
     t0 = time.time()
     metrics = []
     # every flash_attention_bwd call launches the dQ and the dK/dV kernel once
-    with calls_by_length(fa, "flash_attention_bwd") as by_len:
+    with calls_by_length(fa, "flash_attention_bwd") as by_len, \
+            calls_by_length(fa, "flash_attention_fwd", with_batch=True) as fwd_by_shape:
         for _ in range(TRAIN_STEPS):
             state, m = step(state, batch, generator=draws)
             metrics.append(m)
         torch.cuda.synchronize()
     secs = (time.time() - t0) / TRAIN_STEPS
     launches = read(counters, [n for n in counters if n not in MHA_ONLY | PROBE_ONLY])
+    forward_per_run("train", fwd_by_shape, TRAIN_STEPS,
+                    launches["flash_attention_fwd"] / TRAIN_STEPS, fwd_ms["train"], smi, "step")
     per_step = {s_len: n / TRAIN_STEPS for s_len, n in sorted(by_len.items(), reverse=True)}
     for i, name in enumerate(("flash_attention_bwd_dq", "flash_attention_bwd_dkv")):
         if sum(by_len.values()) != launches[name]:

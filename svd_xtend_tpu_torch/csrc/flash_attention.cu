@@ -1,220 +1,217 @@
 // Non-causal flash attention on the packed (B, S, H*64) layout: the forward
-// kernel (the backward pair is csrc/flash_backward.cu).
+// kernel (the backward pair is csrc/flash_backward.cu), for Hopper (sm_90a).
 //
 // Replaces svd_xtend_tpu/ops/pallas/flash_attention.py::_fwd_packed_kernel
-// (the spatial self-attention of every BasicTransformerBlock), read in place
-// on the packed layout.
+// (the spatial self-attention of every BasicTransformerBlock), ::_fwd_kernel
+// (the head-major entry point: a contiguous (B, S, H, 64) tensor has this
+// memory layout) and scripts/microbench_flash_headslice.py::_fwd_headsliced
+// (this kernel with its LSE), all read in place on the packed layout. When
+// asked (training, the probe) it also writes the f32 log-sum-exp of each
+// query row, (B, H, S) in nats, for the backward.
 //
-// What bounds it on an H100: at the slice's shapes (S = 2560 and 640 tokens,
-// head_dim 64) attention does 4*S*S*64 FLOPs per (batch, head) against
-// 4*S*64*2 bytes of q/k/v/o, i.e. ~S/2 FLOPs per byte -- far above the
-// card's ~295 FLOP/byte ridge, so the tensor cores bound it. The design
-// therefore keeps the S x S scores out of device memory entirely (online
-// softmax, as the TPU kernel does) and runs both products on the tensor
-// cores with mma.sync m16n8k16 bf16 -> f32.
+// What bounds it on an H100: 4*S*S*64 FLOPs per (batch, head) against
+// 4*S*64*2 bytes of q/k/v/o, ~S/2 FLOPs per byte at head_dim 64, far above
+// the card's ~295 FLOP/byte ridge: the tensor cores, and right behind them
+// the softmax. Per consumer warpgroup and 64 x 64 tile of scores:
+//   - Q K^T and P V: 2 x 2*64*64*64 = 1.05 MFLOP, ~256 clocks at the SM's
+//     ~4,100 dense bf16 FLOP per clock;
+//   - 4,096 exponentials at 16 MUFU.EX2 per clock per SM: ~256 clocks;
+//   - ~6 f32 operations per score (max, FFMA, sum, rescale, pack) at 128 per
+//     clock: ~190 clocks.
+// A warpgroup that runs its softmax between its own products therefore
+// waits on it as long as on the tensor cores; the design overlaps them.
 //
-// Layout: one block = 4 warps = 64 query rows of one (batch, head). Each
-// warp owns 16 query rows; its Q fragments stay in registers for the whole
-// KV loop. K and V tiles of 64 keys are staged in shared memory (V stored
-// transposed so its B-operand fragments are 32-bit loads). The score
-// accumulators are re-packed in registers as the A operand of P.V (the
-// C-fragment of two n8 tiles is exactly the A-fragment of one k16 step), so
-// P never leaves registers. Softmax statistics are f32, exp2 with
-// scale*log2(e) folded into the scores. Ragged sequence ends are masked.
-// When asked (training), the forward also writes the f32 log-sum-exp of
-// each query row, (B, H, S) in natural-log units, for the backward.
+// Design (the mainloop is csrc/flash_fwd.cuh, shared with the probe's
+// softmax organisations in flash_variants.cu):
+//   - A block is kC consumer warpgroups of 64 query rows and one producer
+//     warpgroup that hands its registers over (setmaxnreg 24 / 240 with two
+//     consumers; 232 with one, 160 with three), as the backward pair does.
+//     It is persistent: one block per SM (two with kC = 1) walks the
+//     (64 * kC-query item, head, sample) items, so the ring runs on from one
+//     item into the next. kC is 2, 3 where three warpgroups' 10 % faster
+//     rate saves whole rounds of items (generate's 2560 tokens), 1 where the
+//     last item would be mostly empty (160 and 40 tokens):
+//     consumer_warpgroups below.
+//   - K and V come by TMA into a ring of 3 stages (2 with kC = 1) of 128
+//     keys each, one 3-D tensor map per operand over (H*64 columns, S rows,
+//     B): a box is one head's 64 columns = one 128-byte swizzle atom, and
+//     rows past S read as zero within each sample. Full/empty mbarriers per
+//     stage. Q comes by TMA too, an item's rows into one of two slots, so
+//     the next item's Q is there before the consumers finish this one.
+//   - S = Q K^T is a wgmma m64n64k16 per 16 columns with both Q (the
+//     warpgroup's 64 rows of the slot) and K read K-major from shared
+//     memory; O += P V takes P from the score accumulators as A fragments
+//     (bf16, as the JAX kernel rounds it) and V MN-major through the
+//     transpose bit, so no thread writes a transposed copy.
+//   - Softmax: f32 statistics per 64-key sub-tile in base 2, the row maximum
+//     taken on the raw scores and scale * log2(e) folded into one FFMA per
+//     score, so the wrapper requires scale > 0; exp2 is one ex2.approx.ftz;
+//     each thread keeps a partial row sum, added over its quad at the end.
+//     Only the last, partial sub-tile is masked (its keys past S are zero,
+//     their scores become -inf). Query rows past S are computed on zeros
+//     and not stored.
+//   - Overlap: each warpgroup issues S of sub-tile u and P V of sub-tile
+//     u - 1 together, runs the softmax of u while the second product is on
+//     the tensor cores, and only then waits for it and rescales O
+//     (flash_fwd.cuh). Registers: O 32, S 32, P 16 a thread; ptxas: 168
+//     (kC = 2) or 128 (kC = 1, 3: the launch bound's share), no spills.
+//   - LSE = ln 2 * (m * scale * log2 e + log2 l), written by the thread of
+//     each quad that owns the row.
 //
-// Not yet done (later work): TMA double buffering and wgmma, as the
-// backward pair has them (csrc/sm90.cuh).
+// Measured (NVIDIA H100 80GB HBM3, 700.00 W, device time per launch in a
+// CUDA graph, the forward timer that became scripts/bench_flash_forward.py,
+// each variant built from a copy of these files in the same call as the
+// kept form; ms at (28, 2560, 5 heads) unless named): the kept form 0.564-
+// 0.571, the earlier mma.sync kernel 1.89-1.90, SDPA 0.53-0.54. What holds it:
+// at the peak rate's 1.83 GHz the 9.2e8 exponentials take 0.237 ms (16
+// MUFU.EX2 per clock per SM), the products 0.238 and the ~5 f32 operations
+// a score 0.15; the kernel's time is near their sum (0.62), not their
+// maximum: the exponentials of one warpgroup run under the other's products
+// only in part. Tried and refuted, in order:
+//   - the plain pipeline (each warpgroup waits for S, softmax, then P V):
+//     0.703 against 0.613 with the overlap;
+//   - ping-pong (named barriers alternating the two warpgroups' issue of
+//     their products): 0.636-0.639 against 0.605-0.606;
+//   - one block per item instead of persistent blocks: at 40 tokens 0.0144
+//     against 0.0116-0.0118, at 160 0.0457 against 0.0399-0.0401;
+//   - ring depth 2 or 4: 0.647 / 0.598 against 0.590-0.592;
+//   - Q as register A fragments read from its swizzled slot: 0.590-0.592
+//     (against 0.604-0.610 for Q from shared memory in later calls), but
+//     ptxas gave the fragments' registers to other values inside the key
+//     loop of the probe's plain-pipelined base mode (its every row wrong),
+//     so Q stays a shared-memory operand;
+//   - row max and sum as trees of depth 4 instead of chains: 0.642 against
+//     0.608; 4 Q slots instead of 2: no change;
+//   - keeping a row's maximum until a new one is 2^8 above it, and skipping
+//     the rescale of O where no row of the warp moved: 0.612-0.614 against
+//     0.604-0.610;
+//   - 64-row items everywhere: 0.626 (and 0.0999 against 0.0947 at 640),
+//     but 0.0294 against 0.0351 at 160 and 0.0077 against 0.0104 at 40.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_fwd.cuh"
 
 namespace {
 
-constexpr int kD = 64;         // head dim
-constexpr int kBQ = 64;        // query rows per block
-constexpr int kBK = 64;        // keys per KV tile
-constexpr int kLds = kD + 8;   // smem row stride in bf16 (bank-conflict-free fragment loads)
-constexpr int kThreads = 128;
-constexpr float kMaskedScore = -1e30f;
+using namespace flash_fwd;
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// A persistent block of kC consumer warpgroups over the (64 * kC-query
+// tile, head, batch) items.
+template <int kC>
+__global__ void __launch_bounds__(Smem<kC>::kThreads, Smem<kC>::kBlocksPerSm)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
+                 const __grid_constant__ CUtensorMap k_map,
+                 const __grid_constant__ CUtensorMap v_map,
+                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int s_q, int s_kv,
+                 int n_cols, int batch, float scale_log2) {
+  extern __shared__ char smem_raw[];
+  Smem<kC>& sm = sm90::aligned_smem<Smem<kC>>(smem_raw);
+  constexpr int kRows = Smem<kC>::kRows;
+  const int heads = n_cols / kD, n_qt = (s_q + kRows - 1) / kRows;
+  const int n_items = n_qt * heads * batch, n_stages = (s_kv + kStageKeys - 1) / kStageKeys;
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  init_barriers(sm);
+
+  if (wg == kC) {  // producer
+    sm90::setmaxnreg_dec<24>();
+    if (threadIdx.x % 128 == 0)
+      produce(sm, &q_map, &k_map, &v_map, n_items, n_qt, heads, n_stages);
+  } else {  // consumers
+    sm90::setmaxnreg_inc<Smem<kC>::kConsumerRegs>();
+    const int t = lane & 3;
+    int it0 = 0;
+    for (int w = blockIdx.x, ii = 0; w < n_items; w += gridDim.x, ++ii, it0 += n_stages) {
+      const Item item = item_of(w, n_qt, heads);
+      const int row0 = item.qt * kRows + wg * 64;
+      const size_t qoff = (size_t)item.b * s_q * n_cols + (size_t)item.h * kD;
+      const uint64_t qd = wait_q(sm, ii, wg);
+      OnlineExp2 pol(scale_log2);
+      float acc[32];
+      consume<true>(sm, qd, acc, pol, s_kv, lane, it0);
+      free_q(sm, ii, lane);
+
+      const int r0 = row0 + 16 * warp + (lane >> 2);
+      float inv[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        pol.l[j] = quad_sum(pol.l[j]);
+        inv[j] = pol.l[j] > 0.f ? 1.f / pol.l[j] : 0.f;
+      }
+      if (lse != nullptr && t == 0) {
+        // natural-log LSE of the scaled scores: ln 2 * (m * scale * log2 e + log2 l)
+        float* lb = lse + ((size_t)item.b * heads + item.h) * s_q;
+        if (r0 < s_q)
+          lb[r0] = fmaf(pol.m[0], scale_log2, log2f(pol.l[0])) * 0.6931471805599453f;
+        if (r0 + 8 < s_q)
+          lb[r0 + 8] = fmaf(pol.m[1], scale_log2, log2f(pol.l[1])) * 0.6931471805599453f;
+      }
+      store_rows(o + qoff, acc, inv, r0, s_q, n_cols, t);
+    }
+  }
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+template <int kC>
+int launch(const void* q, const void* k, const void* v, void* o, void* lse, int b, int s_q,
+           int s_kv, int heads, float scale, cudaStream_t stream) {
+  const int n_cols = heads * kD;
+  CUtensorMap q_map, k_map, v_map;
+  int err = sm90::encode_rows_map(&q_map, q, n_cols, s_q, b, Smem<kC>::kRows);
+  if (err == 0) err = sm90::encode_rows_map(&k_map, k, n_cols, s_kv, b, kStageKeys);
+  if (err == 0) err = sm90::encode_rows_map(&v_map, v, n_cols, s_kv, b, kStageKeys);
+  if (err != 0) return err;
+  constexpr int smem = sm90::smem_bytes<Smem<kC>>();
+  static const int attr = static_cast<int>(cudaFuncSetAttribute(
+      flash_fwd_kernel<kC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
+  if (attr != 0) return attr;
+  const int n_items = (s_q + Smem<kC>::kRows - 1) / Smem<kC>::kRows * heads * b;
+  flash_fwd_kernel<kC><<<persistent_blocks(n_items, Smem<kC>::kBlocksPerSm),
+                         Smem<kC>::kThreads, smem, stream>>>(
+      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), s_q,
+      s_kv, n_cols, b, scale * kLog2e);
+  return static_cast<int>(cudaGetLastError());
 }
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
-                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                 int s_q, int s_kv, int n_cols, float scale_log2) {
-  __shared__ __align__(16) __nv_bfloat16 ks[kBK * kLds];
-  __shared__ __align__(16) __nv_bfloat16 vts[kD * kLds];
-
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kBQ;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const size_t head = (size_t)h * kD;
-  const __nv_bfloat16* qb = q + (size_t)b * s_q * n_cols + head;
-  const __nv_bfloat16* kb = k + (size_t)b * s_kv * n_cols + head;
-  const __nv_bfloat16* vb = v + (size_t)b * s_kv * n_cols + head;
-  __nv_bfloat16* ob = o + (size_t)b * s_q * n_cols + head;
-
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
-  uint32_t qa[4][4];
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    qa[kk][0] = r0 < s_q ? ld32(qb + (size_t)r0 * n_cols + c) : 0u;
-    qa[kk][1] = r1 < s_q ? ld32(qb + (size_t)r1 * n_cols + c) : 0u;
-    qa[kk][2] = r0 < s_q ? ld32(qb + (size_t)r0 * n_cols + c + 8) : 0u;
-    qa[kk][3] = r1 < s_q ? ld32(qb + (size_t)r1 * n_cols + c + 8) : 0u;
-  }
-
-  float m[2] = {kMaskedScore, kMaskedScore};
-  float l[2] = {0.f, 0.f};
-  float acc[8][4];
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[n][j] = 0.f;
-
-  for (int kv0 = 0; kv0 < s_kv; kv0 += kBK) {
-    __syncthreads();  // the previous tile has been consumed by every warp
-    for (int i = tid; i < kBK * (kD / 8); i += kThreads) {
-      const int row = i >> 3, ch = (i & 7) * 8;
-      const int key = kv0 + row;
-      uint4 kv4 = make_uint4(0u, 0u, 0u, 0u), vv4 = make_uint4(0u, 0u, 0u, 0u);
-      if (key < s_kv) {
-        kv4 = *reinterpret_cast<const uint4*>(kb + (size_t)key * n_cols + ch);
-        vv4 = *reinterpret_cast<const uint4*>(vb + (size_t)key * n_cols + ch);
-      }
-      *reinterpret_cast<uint4*>(ks + row * kLds + ch) = kv4;
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv4);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) vts[(ch + j) * kLds + row] = ve[j];
-    }
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows x 64 keys
-    float s[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[n][j] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const __nv_bfloat16* kp = ks + (n * 8 + g) * kLds + kk * 16 + 2 * t;
-        mma_bf16(s[n], qa[kk], ld32(kp), ld32(kp + 8));
-      }
-    }
-
-    // online softmax (base 2); rows g (j = 0, 1) and g + 8 (j = 2, 3)
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int key = kv0 + n * 8 + 2 * t + (j & 1);
-        const float val = key < s_kv ? s[n][j] * scale_log2 : kMaskedScore;
-        s[n][j] = val;
-        mx[j >> 1] = fmaxf(mx[j >> 1], val);
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-    }
-    const float alpha[2] = {exp2f(m[0] - mx[0]), exp2f(m[1] - mx[1])};
-    m[0] = mx[0];
-    m[1] = mx[1];
-    float rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = exp2f(s[n][j] - mx[j >> 1]);
-        s[n][j] = p;
-        rs[j >> 1] += p;
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
-      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
-      l[r] = l[r] * alpha[r] + rs[r];
-    }
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      acc[n][0] *= alpha[0];
-      acc[n][1] *= alpha[0];
-      acc[n][2] *= alpha[1];
-      acc[n][3] *= alpha[1];
-    }
-
-    // O += P V: P (16 x 64 keys, bf16) straight from the score registers
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const __nv_bfloat16* vp = vts + (n * 8 + g) * kLds + kk * 16 + 2 * t;
-        mma_bf16(acc[n], pa, ld32(vp), ld32(vp + 8));
-      }
-    }
-  }
-
-  if (lse != nullptr && t == 0) {
-    // natural-log LSE of the scaled scores: ln 2 * (m + log2 l)
-    float* lb = lse + ((size_t)b * gridDim.y + h) * s_q;
-    if (r0 < s_q) lb[r0] = (m[0] + log2f(l[0])) * 0.6931471805599453f;
-    if (r1 < s_q) lb[r1] = (m[1] + log2f(l[1])) * 0.6931471805599453f;
-  }
-  const float inv0 = l[0] > 0.f ? 1.f / l[0] : 0.f;
-  const float inv1 = l[1] > 0.f ? 1.f / l[1] : 0.f;
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    const int c = n * 8 + 2 * t;
-    if (r0 < s_q)
-      *reinterpret_cast<uint32_t*>(ob + (size_t)r0 * n_cols + c) =
-          pack_bf16(acc[n][0] * inv0, acc[n][1] * inv0);
-    if (r1 < s_q)
-      *reinterpret_cast<uint32_t*>(ob + (size_t)r1 * n_cols + c) =
-          pack_bf16(acc[n][2] * inv1, acc[n][3] * inv1);
-  }
+// The block shape (consumer warpgroups kC = 1, 2 or 3) with the least
+// estimated time for n_seq = heads * batch sequences of s_q queries: the
+// rounds in which the resident blocks take the 64 * kC-row items, times the
+// 64-row units an SM runs a round (two with kC = 1, two blocks, or 2; three
+// with 3), over their rate, which three warpgroups on an SM raise by 10 %
+// (NVIDIA H100 80GB HBM3, 700.00 W: 0.564-0.571 against 0.607-0.613 ms at
+// (28, 2560, 5 heads), scripts/bench_flash_forward.py on a copy of this
+// file that took kC = 3). Another shape replaces the two-warpgroup block
+// only where its estimate is 5 % lower: 3 at the UNet's 2560 tokens in
+// generate, 1 at 160 and 40, 2 elsewhere.
+int consumer_warpgroups(int s_q, int n_seq) {
+  const long long slots = sm_count();
+  auto cost = [&](int kc) {
+    const int per_sm = kc == 1 ? 2 : 1;
+    const long long items = (long long)((s_q + 64 * kc - 1) / (64 * kc)) * n_seq;
+    const long long rounds = (items + slots * per_sm - 1) / (slots * per_sm);
+    return rounds * kc * per_sm * (kc == 3 ? 100 : 110);  // x 110 / rate
+  };
+  int best = 2;
+  for (int kc : {1, 3})
+    if (cost(kc) * 100 < cost(best) * 95) best = kc;
+  return best;
 }
 
 }  // namespace
 
 // q: (b, s_q, heads*64), k/v: (b, s_kv, heads*64), o like q; all bf16,
-// contiguous, 16-byte aligned; lse: f32 (b, heads, s_q) or null. Returns
-// cudaGetLastError() after the launch.
+// contiguous, 16-byte aligned; lse: f32 (b, heads, s_q) or null; scale > 0.
+// Returns cudaErrorInvalidValue without launching for a scale <= 0 or a
+// geometry the tensor-map encoder refuses, else cudaGetLastError() after
+// the launch.
 extern "C" int svdx_flash_attention_fwd(const void* q, const void* k, const void* v,
                                         void* o, void* lse, int b, int s_q, int s_kv,
                                         int heads, float scale, void* stream) {
-  const dim3 grid((s_q + kBQ - 1) / kBQ, heads, b);
-  flash_fwd_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      static_cast<float*>(lse), s_q, s_kv, heads * kD, scale * 1.4426950408889634f);
-  return static_cast<int>(cudaGetLastError());
+  if (!(scale > 0.f)) return static_cast<int>(cudaErrorInvalidValue);
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (consumer_warpgroups(s_q, heads * b)) {
+    case 1:
+      return launch<1>(q, k, v, o, lse, b, s_q, s_kv, heads, scale, st);
+    case 3:
+      return launch<3>(q, k, v, o, lse, b, s_q, s_kv, heads, scale, st);
+    default:
+      return launch<2>(q, k, v, o, lse, b, s_q, s_kv, heads, scale, st);
+  }
 }

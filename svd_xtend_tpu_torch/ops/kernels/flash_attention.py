@@ -3,13 +3,17 @@
 Port of ``svd_xtend_tpu/ops/pallas/flash_attention.py::flash_attention_packed``:
 its forward kernel ``_fwd_packed_kernel`` and its backward kernels
 ``_dq_kernel`` and ``_dkv_kernel``. The forward is ``csrc/flash_attention.cu``
-(one block per (64-row tile, head, batch), mma.sync); the backward pair is
+on the mainloop of ``csrc/flash_fwd.cuh`` (one block per 128 query rows of a
+head, TMA into a ring of 128-key shared-memory stages, wgmma, the softmax of
+one 64-key sub-tile under the P·V product of the last); the backward pair is
 ``csrc/flash_backward.cu`` (one block per 128 query rows or 128 keys of a
-head, TMA into a ring of shared-memory stages, wgmma). All read the heads in
-place with a row stride of H*64, with f32 softmax statistics and every
-product on the tensor cores. The forward writes the f32 log-sum-exp (B, H, S)
-when a gradient will be needed; the backward reads it. See the sources for
-the designs.
+head, the same TMA ring and wgmma). All read the heads in place with a row
+stride of H*64, with f32 softmax statistics and every product on the tensor
+cores. The forward writes the f32 log-sum-exp (B, H, S) when a gradient will
+be needed; the backward reads it. The forward kernel folds the scale into
+its exponent after taking the row maximum of the raw scores, so it takes
+only ``scale > 0`` (every caller passes head_dim ** -0.5). See the sources
+for the designs.
 
 On a CPU tensor the wrapper runs ``flash_attention_packed_reference`` (the
 plain einsum form of ``ops/attention.py::_xla_attention``), differentiated
@@ -28,7 +32,7 @@ same dQ and dK/dV kernels. It counts its forward launches apart.
 ``flash_attention_headsliced`` is the port of the TPU probe's
 ``scripts/microbench_flash_headslice.py::_fwd_headsliced``: the packed
 forward with the grid over (batch, head, query tile), out and LSE. That is
-the organisation of the forward kernel here (one block per 64-row tile,
+the organisation of the forward kernel here (one block per 128-row tile,
 head and batch, each head's 64 columns read in place), so it launches the
 same kernel with the LSE on, and counts its launches apart. The LSE is
 (B, H, S) f32; the TPU's (B, H·8, S) with 8 replicated sublanes is a TPU
@@ -132,6 +136,8 @@ def flash_attention_fwd(q, k, v, num_heads: int, scale: float, with_lse: bool = 
 
 def _fwd_launch(q, k, v, num_heads: int, scale: float, with_lse: bool):
     _validate(q, k, v, num_heads)
+    if not scale > 0:
+        raise ValueError(f"flash attention forward kernel needs scale > 0; got {scale}")
     o = torch.empty_like(q)
     b, s, _ = q.shape
     lse = (torch.empty((b, num_heads, s), device=q.device, dtype=torch.float32)

@@ -10,9 +10,12 @@ output only, in the modes
 - ``nosoftmax``: p = s·scale, l = Σp, out = (Σ bf16(p)·v) / (l, or 1 where
   l == 0): the products and data movement without the softmax.
 
-The CUDA kernel is ``csrc/flash_variants.cu`` (one template over the mode;
-the card's major tile is 128 keys as two 64-key sub-tiles, the source says
-why). Like the TPU probe it takes only sequences that are multiples of 128.
+The CUDA kernel is ``csrc/flash_variants.cu``: the packed forward's TMA +
+wgmma mainloop (``csrc/flash_fwd.cuh``) with one softmax policy per mode.
+The card's sub-tile is one wgmma's N, 64 keys, and its major tile one ring
+stage, 128 keys: ``base`` takes its statistics per sub-tile, the other modes
+per major tile (the source says why). Like the TPU probe it takes only
+sequences that are multiples of 128.
 
 On a CPU tensor ``flash_variants`` runs ``flash_variants_reference``; on a
 CUDA tensor it launches the kernel or raises.

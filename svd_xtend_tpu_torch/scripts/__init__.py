@@ -6,7 +6,10 @@ card as ``python -m svd_xtend_tpu_torch.scripts.<name>``.
 - ``microbench_flash_variants``: the four softmax organisations of the
   flash forward on the head-major (B·H, S, 64) layout;
 - ``probe_int8_flash``: the dependent QKᵀ→PV chain in bf16 and in int8
-  with dynamic quantisation.
+  with dynamic quantisation;
+
+and ``bench_flash_forward``, the flash forward's device time at the UNet's
+shapes and the variants' per mode, for comparing builds of the kernels.
 """
 
 import subprocess
@@ -33,6 +36,28 @@ def cuda_ms(fn, iters: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
+    """Device ms per call of `fn`: `iters` calls captured in one CUDA graph,
+    replayed `replays` times between CUDA events. Unlike cuda_ms's host
+    loop, this does not read the wrapper's host time where a launch is
+    shorter."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * iters)
 
 
 def require_card() -> torch.device:

@@ -277,6 +277,90 @@ def test_flash_forward_lse(rn, s):
     torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-5)
 
 
+def _check_forward(o, lse, ref_o, ref_lse):
+    """Output within 4 bf16 ulps of its scale; the LSE within 1e-4 (f32
+    log-sum-exp of the same f32 scores, summed in another order)."""
+    _assert_close_bf16(o, ref_o)
+    assert bool(torch.isfinite(lse).all())
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("s,heads", [(2560, 5), (640, 10), (160, 20), (40, 20)])
+def test_flash_forward_unet_levels(rn, s, heads):
+    """The forward with its LSE at the four UNet levels' (tokens, heads), at
+    batch 2: at 160 and 40 tokens one 128-row block holds the last rows and
+    one 128-key stage the last keys."""
+    q, k, v = (rn(2, s, heads * 64) for _ in range(3))
+    _check_forward(*fa.flash_attention_fwd(q, k, v, heads, 0.125),
+                   *fa.flash_attention_fwd_reference(q, k, v, heads, 0.125))
+
+
+@pytest.mark.parametrize("s,t", [(200, 136), (130, 40), (40, 17), (257, 64), (100, 300),
+                                 (1, 129), (129, 1), (64, 300), (65, 200)])
+def test_flash_forward_ragged_lengths(rn, s, t):
+    """s_q != s_kv: keys shorter than one 64-key sub-tile (40, 17, 1), not a
+    multiple of it (136, 129, 300) or exactly one (64); queries past S in the
+    last 128-row block (200, 130, 257, 1, 129, 65); at most 64 queries (40, 1,
+    64: the one-warpgroup block, 300 keys turning its 2-stage ring)."""
+    q, k, v = rn(2, s, 128), rn(2, t, 128), rn(2, t, 128)
+    _check_forward(*fa.flash_attention_fwd(q, k, v, 2, 0.125),
+                   *fa.flash_attention_fwd_reference(q, k, v, 2, 0.125))
+
+
+@pytest.mark.parametrize("b,s,heads", [(20, 40, 20), (2, 640, 10), (8, 1152, 5),
+                                       (16, 1100, 5)])
+def test_flash_forward_block_shapes(rn, b, s, heads):
+    """Shapes at which the launcher's estimate picks each block shape on a
+    132-SM H100: one consumer warpgroup (two blocks an SM), two, and three
+    (192-row items: the last of 1152 queries full, of 1100 with 140 rows)."""
+    q, k, v = (rn(b, s, heads * 64) for _ in range(3))
+    _check_forward(*fa.flash_attention_fwd(q, k, v, heads, 0.125),
+                   *fa.flash_attention_fwd_reference(q, k, v, heads, 0.125))
+
+
+@pytest.mark.parametrize("b,s,t", [(3, 200, 136), (5, 40, 40), (3, 640, 640)])
+def test_flash_forward_sample_boundaries(rn, b, s, t):
+    """B >= 3 with ragged ends: each sample's output and LSE are the bits of
+    that sample alone (no tile reads keys of, or writes rows into, a
+    neighbouring sample), and match the plain version."""
+    q, k, v = rn(b, s, 192), rn(b, t, 192), rn(b, t, 192)
+    o, lse = fa.flash_attention_fwd(q, k, v, 3, 0.125)
+    _check_forward(o, lse, *fa.flash_attention_fwd_reference(q, k, v, 3, 0.125))
+    for i in range(b):
+        oi, li = fa.flash_attention_fwd(q[i:i + 1].contiguous(), k[i:i + 1].contiguous(),
+                                        v[i:i + 1].contiguous(), 3, 0.125)
+        torch.cuda.synchronize()
+        assert torch.equal(oi[0], o[i]) and torch.equal(li[0], lse[i])
+
+
+@pytest.mark.parametrize("b,s,heads", [(2, 200, 5), (2, 2560, 5)])
+def test_flash_forward_is_deterministic(rn, b, s, heads):
+    """Two calls of the forward on the same inputs give the same bits."""
+    q, k, v = (rn(b, s, heads * 64) for _ in range(3))
+    runs = [fa.flash_attention_fwd(q, k, v, heads, 0.125) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+
+
+def test_flash_forward_refuses_non_positive_scale(rn):
+    """The kernel takes the row maximum on the raw scores and folds the
+    scale into the exponent, so it takes only scale > 0: the wrapper raises,
+    and the C entry point returns an error without launching."""
+    from svd_xtend_tpu_torch.ops.kernels._build import library
+
+    q = rn(1, 64, 128)
+    n = fa.flash_attention_packed.launches
+    for scale in (0.0, -0.125):
+        with pytest.raises(ValueError):
+            fa.flash_attention_packed(q, q, q, num_heads=2, scale=scale)
+    o = torch.zeros_like(q)
+    assert library().svdx_flash_attention_fwd(
+        q.data_ptr(), q.data_ptr(), q.data_ptr(), o.data_ptr(), None, 1, 64, 64, 2, -0.125,
+        torch.cuda.current_stream().cuda_stream) != 0
+    torch.cuda.synchronize()
+    assert bool((o == 0).all()) and fa.flash_attention_packed.launches == n
+
+
 @pytest.mark.parametrize("t,c", [(35840, 320), (8960, 640), (2240, 1280), (560, 1280),
                                  (100, 320), (37, 64)])
 def test_geglu_kernel(rn, t, c):
@@ -410,6 +494,23 @@ def test_flash_variants_kernel(rn, mode, bh, s, t):
     got = fv.flash_variants(q, k, v, scale=0.125, mode=mode)
     assert fv.flash_variants.launches == n + 1
     _assert_close_bf16(got, fv.flash_variants_reference(q, k, v, 0.125, mode))
+
+
+@pytest.mark.parametrize("mode", fv.MODES)
+@pytest.mark.parametrize("s", [128, 384, 2560])
+def test_flash_variants_ring_lengths(rn, mode, s):
+    """An odd B·H at one 128-key stage (128), a ring not filled twice (384:
+    three stages) and one turned many times (2560: 20 stages of 3 slots)."""
+    bh = 3
+    if mode == "nosoftmax":
+        g = torch.Generator(device="cuda").manual_seed(s)
+        q, k = (torch.rand(bh, s, 64, device="cuda", generator=g).to(torch.bfloat16)
+                for _ in range(2))
+    else:
+        q, k = rn(bh, s, 64), rn(bh, s, 64)
+    v = rn(bh, s, 64)
+    _assert_close_bf16(fv.flash_variants(q, k, v, scale=0.125, mode=mode),
+                       fv.flash_variants_reference(q, k, v, 0.125, mode))
 
 
 def test_flash_variants_wrapper_raises_on_untaken_calls(rn):
