@@ -25,14 +25,21 @@ Phases, each of which raises on failure (non-zero exit):
      backward pair at the four training shapes, each in the host loop and as
      device time per launch of a CUDA graph, with its executed TFLOP/s beside
      the bound (and SDPA's device time beside the forward).
+     GEGLU at its eight (T, C) shapes and the temporal resnet's conv_a /
+     conv_b at its five checked shapes: device time per launch in a CUDA
+     graph beside the bound (GEGLU also beside the unfused bf16 module
+     path's device time; two runs must give the same bits).
   3b. conv3x3: the kernel against its plain version at every site of the
      UNet (CFG batch 28 for generate, batch 14 for the train step, each with
      the epilogue that site uses), at every dU shape of the train step's
      backward, and at every VAE site (decode and train-encode chunks of 8
-     frames); per site kernel, plain, F.conv2d alone (bf16, channels-last,
-     with bias) and bound, and the sum over each path's sites of
-     (kernel - F.conv2d) x launches. The BSHD flash entry point at the L0
-     CFG shape.
+     frames, the image encode at batch 1); two runs must give the same
+     bits; per site device ms per launch in a CUDA graph of the kernel and
+     of F.conv2d alone (bf16, channels-last, with bias), the bound, the
+     plain version's ms and the launch plan; per path the sums of launches
+     x device ms of both, per UNet step, train step and exact video (the
+     site tables, svd_xtend_tpu_torch/scripts/sites.py, give the
+     launches). The BSHD flash entry point at the L0 CFG shape.
   3c. probe kernels: the kernels of the TPU probe scripts against their plain
      versions: the four softmax organisations of the flash forward
      (flash_variants) at the variants probe's shapes, (140, 2560) whole (also
@@ -55,9 +62,10 @@ Phases, each of which raises on failure (non-zero exit):
      batch 1, GEGLU kernel on: one warm-up run, then 3 timed runs (the
      median s/video is reported, beside each run's and the device memory
      segments the allocator added during it); the last run's forward-kernel
-     launch counts must all be > 0; the flash forward's launches per video
-     by (batch, tokens S), and their sum of launches x the kernel phase's
-     device ms at that shape.
+     launch counts must all be > 0; the flash forward's, GEGLU's and the
+     temporal resnet's launches per video by shape, and their sums of
+     launches x the kernel phase's device ms at each shape (the temporal
+     resnet's shapes the kernel phase did not time are timed here).
   6. train (this slice's main path): the default TrainConfig (temporal
      scope, 512x320x14f, batch 1, remat "block", AdamW with f32 masters,
      bf16 compute) through make_optimizer/create_train_state/make_train_step
@@ -65,7 +73,7 @@ Phases, each of which raises on failure (non-zero exit):
      steps whose launch counts of every kernel (forward and flash backward)
      must all be > 0; finite loss and grad_norm, trainable weights changed,
      frozen ones bit-identical; s/step and peak memory; the flash backward
-     pair's and the flash forward's launches per step by level (tokens S),
+     pair's, the flash forward's and GEGLU's launches per step by level,
      and their sums of launches x the kernel phase's device ms at that
      level. Then one
      full-scope step at the same size: finite loss, peak memory.
@@ -109,6 +117,8 @@ import torch
 import torch.nn.functional as F
 
 from svd_xtend_tpu_torch.scripts import card, cuda_ms, graph_ms
+from svd_xtend_tpu_torch.scripts.sites import (GEGLU_SHAPES, UNET_CONV_SITES, UNET_DGRAD_SITES,
+                                               VAE_DECODE_SITES, VAE_ENCODE_SITES)
 
 SEED = 0
 # rel-L2 bound of the bf16 card UNet against the f32 host UNet: bf16 rounds
@@ -165,6 +175,8 @@ class KernelPhase:
         self.bwd_ms = {}    # tokens S -> device (dQ ms, dK/dV ms) at the train step's shape
         # path ("generate": no LSE, "train": with it) -> {(batch, tokens S): forward device ms}
         self.fwd_ms = {"generate": {}, "train": {}}
+        self.geglu_ms = {}      # (T, C) -> device ms per launch
+        self.tresnet_ms = {}    # x's shape (B, F, S, C) -> device (conv_a ms, conv_b ms)
 
     def forward_level(self, path, b, s, h, run, sdpa, moved):
         """The flash forward at one (batch, tokens, heads): host loop and
@@ -217,6 +229,35 @@ class KernelPhase:
         log(f"  {name} {label}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library {lib}, "
             f"bound {b_ms:.4f} ms ({b_by}; {flops / 1e9:.1f} GFLOP, {moved / 1e6:.1f} MB)")
         return k_ms, p_ms
+
+
+def tresnet_level(ph: KernelPhase, shape, run_a, run_b, flops, moved_a, moved_b):
+    """Device ms per launch of the temporal resnet's conv_a and conv_b at one
+    x shape (B, F, S, C), in a CUDA graph, beside the bound."""
+    ph.tresnet_ms[shape] = a_ms, b_ms = graph_ms(run_a), graph_ms(run_b)
+    (ba, by), (bb, _) = bound_ms(flops, moved_a), bound_ms(flops, moved_b)
+    log(f"  temporal resnet {shape}: device conv_a {a_ms:.4f} ms, conv_b {b_ms:.4f} ms "
+        f"({flops / a_ms / 1e9:.1f} / {flops / b_ms / 1e9:.1f} TFLOP/s); bound {ba:.4f} / "
+        f"{bb:.4f} ms ({by})")
+
+
+def tresnet_device_ms(ph: KernelPhase, dev, shape):
+    """tresnet_level at a shape the kernel phase did not time (seeded random
+    inputs, the UNet's time embedding or the VAE's zeros alike)."""
+    from svd_xtend_tpu_torch.ops.kernels import temporal_resnet as tr
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 10)
+    rn = lambda *s, sc=1.0: (torch.randn(*s, device=dev, generator=g) * sc).to(torch.bfloat16)
+    b, f, s, c = shape
+    x, t = rn(b, f, s, c), rn(b, f, c, sc=0.5)
+    wt1 = tr.pack_taps(rn(3, c, c, sc=(3 * c) ** -0.5))
+    wt2 = tr.pack_taps(rn(3, c, c, sc=(3 * c) ** -0.5))
+    b1, b2 = rn(c, sc=0.1).float(), rn(c, sc=0.1).float()
+    sc1, sh1 = (1 + 0.1 * rn(b, c).float()) / 2, 0.1 * rn(b, c).float()
+    h = tr.conv_a(x, wt1, b1, sc1, sh1, t)[0]
+    tresnet_level(ph, shape, lambda: tr.conv_a(x, wt1, b1, sc1, sh1, t),
+                  lambda: tr.conv_b(h, wt2, b2, sc1, sh1, x), 2 * b * f * s * 3 * c * c,
+                  nbytes(x, x, wt1, t), nbytes(x, x, x, wt2))
 
 
 def kernel_phases(dev) -> KernelPhase:
@@ -295,6 +336,8 @@ def kernel_phases(dev) -> KernelPhase:
             flops = 2 * b * f * s * 3 * c * c
             ph.time("temporal_resnet_conv_a", run_a, plain_a, flops, nbytes(x, x, wt1, t))
             ph.time("temporal_resnet_conv_b", run_b, plain_b, flops, nbytes(x, x, x, wt2))
+        tresnet_level(ph, (b, f, s, c), run_a, run_b, 2 * b * f * s * 3 * c * c,
+                      nbytes(x, x, wt1, t), nbytes(x, x, x, wt2))
         del x, h, rh
 
     log("kernels: GroupNorm (transformer norm, UNet conv_norm_out, VAE decoder)")
@@ -312,14 +355,16 @@ def kernel_phases(dev) -> KernelPhase:
                                          bi.to(x.dtype), eps), "F.group_norm")
 
     log("kernels: fused residual GEGLU (T x C at the four UNet levels: training, then "
-        "serving with CFG, 2T)")
-    for t, c in [(35840, 320), (8960, 640), (2240, 1280), (560, 1280),
-                 (71680, 320), (17920, 640), (4480, 1280), (1120, 1280)]:
+        "serving with CFG, 2T); device ms per launch in a CUDA graph")
+    for t, c in GEGLU_SHAPES:
         args = [rn(t, c), 1 + 0.1 * rn(c), 0.1 * rn(c), rn(8 * c, c, sc=c ** -0.5),
                 0.1 * rn(8 * c), rn(c, 4 * c, sc=(4 * c) ** -0.5), 0.1 * rn(c)]
         run = lambda: gg.ln_geglu_residual(*args)
         plain = lambda: gg.ln_geglu_residual_reference(*args)
-        ph.check("geglu_fwd", run(), plain(), f"T {t} C {c}")
+        got = run()
+        ph.check("geglu_fwd", got, plain(), f"T {t} C {c}")
+        if not torch.equal(got, run()):
+            raise RuntimeError(f"geglu_fwd T {t} C {c}: two runs differ")
         x, ls, lb, w1, b1, w2, b2 = args
         ln = torch.nn.LayerNorm(c, device=dev, dtype=torch.bfloat16)
         ln.weight.data.copy_(ls)
@@ -330,11 +375,20 @@ def kernel_phases(dev) -> KernelPhase:
             h, g = torch.nn.functional.linear(ln(x), w1, b1b).chunk(2, dim=-1)
             return x + torch.nn.functional.linear(
                 h * torch.nn.functional.gelu(g, approximate="tanh"), w2, b2b)
+        flops, moved = 24 * t * c * c, nbytes(x, x, w1, w2)
         if t == 35840:
-            ph.time("geglu_fwd", run, plain, 2 * t * c * 12 * c, nbytes(x, x, w1, w2))
-        else:
-            log(f"  geglu_fwd T {t} C {c}: kernel {cuda_ms(run):.4f} ms")
-        log(f"    unfused bf16 module path (LayerNorm + cuBLAS GEMMs + gate): {cuda_ms(module_path):.4f} ms")
+            ph.time("geglu_fwd", run, plain, flops, moved)
+        ph.geglu_ms[(t, c)] = dev_ms = graph_ms(run)
+        if t == 35840:
+            ph.times["geglu_fwd"]["device_ms"] = dev_ms
+        mod_ms = graph_ms(module_path)
+        b_ms, b_by = bound_ms(flops, moved)
+        plan = getattr(gg, "geglu_plan", None)  # absent in trees before the plans
+        plan = "" if plan is None else "; ".join(
+            f"bn {p.bn} wg {p.consumers} ks {p.k_slices} grid {p.grid}" for p in plan(t, c))
+        log(f"  geglu_fwd T {t} C {c}: device {dev_ms:.4f} ms ({flops / dev_ms / 1e9:.1f} "
+            f"TFLOP/s), unfused bf16 module path (LayerNorm + cuBLAS GEMMs + gate) device "
+            f"{mod_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); plan {plan}")
         del args
 
     log("kernels: flash attention forward with LSE and backward (training batch 14 frames)")
@@ -401,70 +455,21 @@ def kernel_phases(dev) -> KernelPhase:
     return ph
 
 
-# conv3x3 sites of one UNet pass at the default 512x320 (latent 40x64),
-# UNetConfig() widths: (H, W, Ci, Co, epilogue, launches per pass). conv1 of
-# every resnet adds the time embedding ("preS+post"), conv2 the skip
-# ("preS+res"); the up blocks' conv1 reads the concat of the running
-# features and a skip. conv_out (Co 4) is declined by supports: 46 convs,
-# 45 on the kernel.
-UNET_CONV_SITES = [
-    (40, 64, 8, 320, "none", 1), (40, 64, 320, 320, "preS+post", 2),
-    (40, 64, 320, 320, "preS+res", 5), (40, 64, 960, 320, "preS+post", 1),
-    (40, 64, 640, 320, "preS+post", 2),
-    (20, 32, 320, 640, "preS+post", 1), (20, 32, 640, 640, "preS+post", 1),
-    (20, 32, 640, 640, "preS+res", 5), (20, 32, 1920, 640, "preS+post", 1),
-    (20, 32, 1280, 640, "preS+post", 1), (20, 32, 960, 640, "preS+post", 1),
-    (10, 16, 640, 1280, "preS+post", 1), (10, 16, 1280, 1280, "preS+post", 1),
-    (10, 16, 1280, 1280, "preS+res", 5), (10, 16, 2560, 1280, "preS+post", 2),
-    (10, 16, 1920, 1280, "preS+post", 1),
-    (5, 8, 1280, 1280, "preS+post", 4), (5, 8, 1280, 1280, "preS+res", 7),
-    (5, 8, 2560, 1280, "preS+post", 3),
-]
-# the train step's dU launches: dy (H, W, Co) -> Ci for every conv whose
-# input needs a gradient (not conv_in, not the first L0 resnet, which sit
-# before the first trainable temporal layer): (H, W, Co, Ci, launches per step)
-UNET_DGRAD_SITES = [
-    (40, 64, 320, 320, 5), (40, 64, 320, 960, 1), (40, 64, 320, 640, 2),
-    (20, 32, 640, 320, 1), (20, 32, 640, 640, 6), (20, 32, 640, 1920, 1),
-    (20, 32, 640, 1280, 1), (20, 32, 640, 960, 1),
-    (10, 16, 1280, 640, 1), (10, 16, 1280, 1280, 6), (10, 16, 1280, 2560, 2),
-    (10, 16, 1280, 1920, 1),
-    (5, 8, 1280, 1280, 11), (5, 8, 1280, 2560, 3),
-]
-# VAE sites at 512x320 (VAEConfig() widths), per chunk of 8 frames:
-# the temporal decoder's spatial resnets (28 launches) and the encoder's
-# resnets + conv_out (21 launches; conv_in Ci 3, the decoder's conv_in Ci 4
-# and conv_out Co 3 are declined)
-VAE_DECODE_SITES = [
-    (40, 64, 512, 512, "preS", 5), (40, 64, 512, 512, "preS+res", 5),
-    (80, 128, 512, 512, "preS", 3), (80, 128, 512, 512, "preS+res", 3),
-    (160, 256, 512, 256, "preS", 1), (160, 256, 256, 256, "preS", 2),
-    (160, 256, 256, 256, "preS+res", 3), (320, 512, 256, 128, "preS", 1),
-    (320, 512, 128, 128, "preS", 2), (320, 512, 128, 128, "preS+res", 3),
-]
-VAE_ENCODE_SITES = [
-    (320, 512, 128, 128, "preS", 2), (320, 512, 128, 128, "preS+res", 2),
-    (160, 256, 128, 256, "preS", 1), (160, 256, 256, 256, "preS", 1),
-    (160, 256, 256, 256, "preS+res", 2), (80, 128, 256, 512, "preS", 1),
-    (80, 128, 512, 512, "preS", 1), (80, 128, 512, 512, "preS+res", 2),
-    (40, 64, 512, 512, "preS", 4), (40, 64, 512, 512, "preS+res", 4),
-    (40, 64, 512, 8, "none", 1),
-]
-
-
-def conv_phase(dev, ph: KernelPhase):
+def conv_phase(dev, ph: KernelPhase, smi: str):
     """conv3x3 and its dU launch at every site of the paths: checked against
-    the plain version, timed beside F.conv2d alone and the bound. Returns
-    {path: sum over its sites of (kernel - F.conv2d) ms x launches}."""
+    the plain version, timed beside F.conv2d alone (both as device time per
+    launch in a CUDA graph) and the bound. Prints, per path, the sums over
+    its sites of launches x device ms of the kernel and of F.conv2d."""
     from svd_xtend_tpu_torch.ops import video
     from svd_xtend_tpu_torch.ops.kernels import conv3x3 as cv
 
     g = torch.Generator(device=dev).manual_seed(SEED + 6)
     rn = lambda *s, sc=1.0: (torch.randn(*s, device=dev, generator=g) * sc).to(torch.bfloat16)
-    log("  site (N, H, W, Ci -> Co, epilogue) x launches: kernel / plain / F.conv2d alone "
-        "/ bound ms, kernel TFLOP/s")
+    log("  site (N, H, W, Ci -> Co, epilogue) x launches: device ms kernel / F.conv2d alone "
+        "/ bound, kernel TFLOP/s, plain ms; the plan")
 
     def site(name, n, h, w, ci, co, epi, per, first=False):
+        """(kernel, F.conv2d) device ms x per"""
         # x is dy (N, H, W, Ci) for dU, and the weight the forward's (Ci, Co, 3, 3)
         x = rn(n, h, w, ci) * 2 + 0.5
         shape = (co, ci) if name == "conv3x3" else (ci, co)
@@ -491,46 +496,66 @@ def conv_phase(dev, ph: KernelPhase):
             lib_w = cv.flipped_weight(weight).contiguous(memory_format=torch.channels_last)
             bias = None
         label = f"{(n, h, w, ci)} -> {co} {epi}"
-        ph.check(name, run(), plain(), label)
+        got = run()
+        ph.check(name, got, plain(), label)
+        if not torch.equal(got, run()):
+            raise RuntimeError(f"{name} {label}: two runs differ")
         cout = lib_w.shape[0]
         flops = 2 * n * h * w * 9 * ci * cout
         moved = nbytes(x, lib_w, kw.get("residual")) + n * h * w * cout * 2
         library = lambda: F.conv2d(video.nchw(x), lib_w, bias, padding=1)
         if first:
             ph.time(name, run, plain, flops, moved, library, "F.conv2d alone", label)
-            k_ms, lib_ms = ph.times[name]["ms"], ph.times[name]["library_ms"]
-        else:
-            k_ms, p_ms, lib_ms = cuda_ms(run), cuda_ms(plain, 3), cuda_ms(library)
-            b_ms, b_by = bound_ms(flops, moved)
-            log(f"  {name} {label} x{per}: {k_ms:.4f} / {p_ms:.4f} / {lib_ms:.4f} / "
-                f"{b_ms:.4f} ms ({b_by}), {flops / k_ms / 1e9:.1f} TFLOP/s")
-        return (k_ms - lib_ms) * per
+        dev_ms, lib_ms = graph_ms(run), graph_ms(library)
+        if first:
+            ph.times[name]["device_ms"] = dev_ms
+        b_ms, b_by = bound_ms(flops, moved)
+        plan = getattr(cv, "conv3x3_plan", None)  # absent in trees before the plans
+        plan = "" if plan is None else plan(n, h, w, ci, cout)
+        plan = plan and (f"{plan.mainloop} bn {plan.bn} wg {plan.consumers} ks "
+                         f"{plan.k_slices} grid {plan.grid}")
+        p_ms = ph.times[name]["plain_ms"] if first else cuda_ms(plain, 3)
+        log(f"  {name} {label} x{per}: {dev_ms:.4f} / {lib_ms:.4f} / {b_ms:.4f} ms ({b_by}), "
+            f"{flops / dev_ms / 1e9:.1f} TFLOP/s, plain {p_ms:.4f}; {plan}")
+        return dev_ms * per, lib_ms * per
 
-    cost = {}
+    def total(path, pairs):
+        k, lib = (sum(v) for v in zip(*pairs))
+        sums[path] = (k, lib)
+        log(f"  [{smi}] conv3x3 {path}: launches x device ms, kernel {k:.3f}, F.conv2d alone "
+            f"{lib:.3f}, difference {k - lib:+.3f} ms")
+
+    sums = {}
     log("kernels: conv3x3, UNet sites at CFG batch 28 (generate, per UNet step)")
-    cost["generate UNet step"] = sum(
-        site("conv3x3", 28, *st, first=st[:5] == (40, 64, 320, 320, "preS+post"))
-        for st in UNET_CONV_SITES)
+    total("generate UNet step", [site("conv3x3", 28, *st, first=st[:5] == (40, 64, 320, 320,
+                                                                         "preS+post"))
+                                 for st in UNET_CONV_SITES])
     log("kernels: conv3x3, UNet sites at batch 14 (train step: forward and remat recompute)")
-    cost["train forward + recompute"] = sum(
-        site("conv3x3", 14, *st[:5], st[5] * (1 if st[4] == "none" else 2))
-        for st in UNET_CONV_SITES)
+    total("train forward + recompute", [site("conv3x3", 14, *st[:5],
+                                             st[5] * (1 if st[4] == "none" else 2))
+                                        for st in UNET_CONV_SITES])
     log("kernels: conv3x3 dU in the train step's backward (batch 14)")
-    cost["train backward dU"] = sum(
-        site("conv3x3_input_grad", 14, h, w, co, ci, "dU", per, first=i == 0)
-        for i, (h, w, co, ci, per) in enumerate(UNET_DGRAD_SITES))
+    total("train backward dU", [site("conv3x3_input_grad", 14, h, w, co, ci, "dU", per,
+                                     first=i == 0)
+                                for i, (h, w, co, ci, per) in enumerate(UNET_DGRAD_SITES)])
     log("kernels: conv3x3, VAE decoder sites (chunks of 8 frames)")
-    cost["VAE decode chunk"] = sum(site("conv3x3", 8, *st) for st in VAE_DECODE_SITES)
+    total("VAE decode chunk", [site("conv3x3", 8, *st) for st in VAE_DECODE_SITES])
     log("kernels: conv3x3, VAE encoder sites (train encode, chunks of 8 frames)")
-    cost["VAE encode chunk"] = sum(site("conv3x3", 8, *st) for st in VAE_ENCODE_SITES)
-    for path, ms in cost.items():
-        log(f"  conv3x3 kernel - F.conv2d alone, summed over sites x launches: {path} "
-            f"{ms:+.3f} ms")
-    log(f"  => generate (25 CFG UNet steps + 2 decode chunks): "
-        f"{25 * cost['generate UNet step'] + 2 * cost['VAE decode chunk']:+.1f} ms/video; "
-        f"train step (forward, recompute, dU, 2 encode chunks): "
-        f"{cost['train forward + recompute'] + cost['train backward dU'] + 2 * cost['VAE encode chunk']:+.1f} ms")
-    return cost
+    total("VAE encode chunk", [site("conv3x3", 8, *st) for st in VAE_ENCODE_SITES])
+    log("kernels: conv3x3, VAE encoder sites at batch 1 (generate's image encode)")
+    total("VAE image encode", [site("conv3x3", 1, *st) for st in VAE_ENCODE_SITES])
+    # generate: 25 CFG UNet steps, the image encode, 2 decode chunks (the
+    # second has 6 frames, priced at 8); the step: forward + recompute, dU,
+    # 2 encode chunks (8 and 6 frames, priced at 8)
+    for path, parts in (("exact video", [(25, "generate UNet step"), (1, "VAE image encode"),
+                                         (2, "VAE decode chunk")]),
+                        ("train step", [(1, "train forward + recompute"),
+                                        (1, "train backward dU"), (2, "VAE encode chunk")])):
+        k = sum(c * sums[p][0] for c, p in parts)
+        lib = sum(c * sums[p][1] for c, p in parts)
+        log(f"  [{smi}] conv3x3 per {path}: launches x device ms, kernel {k:.1f} ms, F.conv2d "
+            f"alone {lib:.1f} ms, difference {k - lib:+.1f} ms")
+    return sums
 
 
 def flash_bshd_phase(dev, ph: KernelPhase):
@@ -761,7 +786,7 @@ def main() -> int:
 
     ph = kernel_phases(dev)
     torch.cuda.empty_cache()
-    conv_phase(dev, ph)
+    conv_phase(dev, ph, smi)
     flash_bshd_phase(dev, ph)
     torch.cuda.empty_cache()
     probe_kernel_phase(dev, ph)
@@ -774,11 +799,12 @@ def main() -> int:
     counters = kernel_counters()
     log("generate: PipelineConfig() with full UNet/VAE/CLIP, bf16, all kernels on; then "
         "the CFG cache (k3) and DeepCache + CFG cache (n3 k3)")
-    gen_launches = generate_phase(dev, smi, counters, ph.fwd_ms)
+    gen_launches = generate_phase(dev, smi, counters, ph)
     torch.cuda.empty_cache()
 
     log("train: default TrainConfig (temporal scope, 512x320x14f, batch 1, remat block)")
-    train_launches = train_phase(dev, smi, counters, args.profile, ph.bwd_ms, ph.fwd_ms)
+    train_launches = train_phase(dev, smi, counters, args.profile, ph.bwd_ms, ph.fwd_ms,
+                                 ph.geglu_ms)
     torch.cuda.empty_cache()
 
     log("mha: the head-major attention entry point at the UNet's L0 shape")
@@ -936,16 +962,19 @@ def forward_per_run(path, by_shape, runs, launches, fwd_ms, smi, unit):
     return ms
 
 
-def generate_phase(dev, smi, counters, fwd_ms):
+def generate_phase(dev, smi, counters, ph: KernelPhase):
     """The exact generate, then the two cache modes on the same image and
-    noise; {path: launches} of each mode's last timed run. `fwd_ms` {path:
-    {(batch, S): device ms}} from the kernel phase prices the flash forward's
-    launches per video."""
+    noise; {path: launches} of each mode's last timed run. The kernel
+    phase's device times per launch price the launches per video of the
+    flash forward and GEGLU by shape, and the temporal resnet's (timed here
+    at the shapes the kernel phase did not time)."""
     import dataclasses
 
     from svd_xtend_tpu_torch.core.config import PipelineConfig
     from svd_xtend_tpu_torch.diffusion.pipeline import SVDModels, generate
     from svd_xtend_tpu_torch.ops.kernels import flash_attention as fa
+    from svd_xtend_tpu_torch.ops.kernels import geglu as gg
+    from svd_xtend_tpu_torch.ops.kernels import temporal_resnet as tr
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     t0 = time.time()
@@ -971,7 +1000,10 @@ def generate_phase(dev, smi, counters, fwd_ms):
         log(f"  {path}: warm-up video {time.time() - t0:.2f} s")
 
         timed, new_segments = [], []
-        with calls_by_length(fa, "flash_attention_fwd", with_batch=True) as by_shape:
+        with calls_by(fa, "flash_attention_fwd", BATCH_AND_TOKENS) as by_shape, \
+                calls_by(gg, "ln_geglu_residual", GEGLU_KEY) as geglu_by_shape, \
+                calls_by(tr, "conv_a", SHAPE) as conv_a_by_shape, \
+                calls_by(tr, "conv_b", SHAPE) as conv_b_by_shape:
             for _ in range(GENERATE_TIMED):
                 video = None        # the last run's video is not held through the next
                 reset(counters)
@@ -991,7 +1023,14 @@ def generate_phase(dev, smi, counters, fwd_ms):
         launches[path] = read(counters, [n for n in counters
                                          if n not in BACKWARD_ONLY | MHA_ONLY | PROBE_ONLY])
         forward_per_run(path, by_shape, GENERATE_TIMED, launches[path]["flash_attention_fwd"],
-                        fwd_ms["generate"], smi, "video")
+                        ph.fwd_ms["generate"], smi, "video")
+        price(f"{path}: geglu_fwd", geglu_by_shape, GENERATE_TIMED, ph.geglu_ms, smi, "video")
+        for shape in set(conv_a_by_shape) - set(ph.tresnet_ms):
+            tresnet_device_ms(ph, dev, shape)
+        for i, (name, tally) in enumerate((("temporal_resnet_conv_a", conv_a_by_shape),
+                                           ("temporal_resnet_conv_b", conv_b_by_shape))):
+            price(f"{path}: {name}", tally, GENERATE_TIMED,
+                  {k: v[i] for k, v in ph.tresnet_ms.items()}, smi, "video")
         peak = torch.cuda.max_memory_allocated()
         expect = unet_schedule(cfg)
         ran = collections.Counter(passes)
@@ -1048,33 +1087,64 @@ def mha_phase(dev, counters):
     return launches
 
 
+class _Tally:
+    """Stands in for a module's function while counting its calls by a key
+    of their first argument; reads and writes of its attributes (the launch
+    counter the function keeps on itself) go to the function."""
+
+    def __init__(self, fn, key, tally):
+        object.__setattr__(self, "_fn", fn)
+        object.__setattr__(self, "_key", key)
+        object.__setattr__(self, "_tally", tally)
+
+    def __call__(self, first, *args, **kwargs):
+        self._tally[self._key(first)] += 1
+        return self._fn(first, *args, **kwargs)
+
+    def __getattr__(self, name):
+        return getattr(self._fn, name)
+
+    def __setattr__(self, name, value):
+        setattr(self._fn, name, value)
+
+
 @contextlib.contextmanager
-def calls_by_length(module, name, with_batch=False):
-    """While active, tallies the calls of `module.name` by the length of its
-    first argument's dimension 1 (the tokens S of a flash call), or by
-    (dimension 0, dimension 1) with `with_batch`. The wrapper stands in for
-    the module's global, which its callers look up at each call."""
+def calls_by(module, name, key):
+    """While active, tallies the calls of `module.name` by key(first
+    argument). The tally stands in for the module's global, which its
+    callers (and the function itself) look up at each call."""
     tally = collections.Counter()
     original = getattr(module, name)
-
-    def call(q, *args, **kwargs):
-        tally[tuple(q.shape[:2]) if with_batch else q.shape[1]] += 1
-        return original(q, *args, **kwargs)
-
-    setattr(module, name, call)
+    setattr(module, name, _Tally(original, key, tally))
     try:
         yield tally
     finally:
         setattr(module, name, original)
 
 
-def train_phase(dev, smi, counters, profile_dir, bwd_ms, fwd_ms):
-    """The train step; `bwd_ms` {S: device (dQ ms, dK/dV ms)} and `fwd_ms`
-    from the kernel phase price the step's flash backward and forward
-    launches per level."""
+BATCH_AND_TOKENS = lambda q: tuple(q.shape[:2])     # a flash call's (batch, tokens S)
+TOKENS = lambda q: q.shape[1]                       # its tokens S
+GEGLU_KEY = lambda x: (x.numel() // x.shape[-1], x.shape[-1])   # GEGLU's (T, C)
+SHAPE = lambda x: tuple(x.shape)
+
+
+def price(what, tally, runs, ms, smi, unit):
+    """Σ launches x device ms per run from a tally over `runs` runs, by key."""
+    per_run = {k: n / runs for k, n in sorted(tally.items(), reverse=True)}
+    total = sum(n * ms[k] for k, n in per_run.items())
+    log(f"  {what} launches per {unit} by shape: {per_run}")
+    log(f"  [{smi}] {what}: launches x device ms {total:.3f} ms per {unit}")
+    return total
+
+
+def train_phase(dev, smi, counters, profile_dir, bwd_ms, fwd_ms, geglu_ms):
+    """The train step; `bwd_ms` {S: device (dQ ms, dK/dV ms)}, `fwd_ms` and
+    `geglu_ms` from the kernel phase price the step's flash backward,
+    forward and GEGLU launches per level."""
     import dataclasses
 
     from svd_xtend_tpu_torch.ops.kernels import flash_attention as fa
+    from svd_xtend_tpu_torch.ops.kernels import geglu as gg
 
     from svd_xtend_tpu_torch.core.config import TrainConfig
     from svd_xtend_tpu_torch.diffusion.pipeline import SVDModels
@@ -1112,8 +1182,9 @@ def train_phase(dev, smi, counters, profile_dir, bwd_ms, fwd_ms):
     t0 = time.time()
     metrics = []
     # every flash_attention_bwd call launches the dQ and the dK/dV kernel once
-    with calls_by_length(fa, "flash_attention_bwd") as by_len, \
-            calls_by_length(fa, "flash_attention_fwd", with_batch=True) as fwd_by_shape:
+    with calls_by(fa, "flash_attention_bwd", TOKENS) as by_len, \
+            calls_by(fa, "flash_attention_fwd", BATCH_AND_TOKENS) as fwd_by_shape, \
+            calls_by(gg, "ln_geglu_residual", GEGLU_KEY) as geglu_by_shape:
         for _ in range(TRAIN_STEPS):
             state, m = step(state, batch, generator=draws)
             metrics.append(m)
@@ -1122,6 +1193,7 @@ def train_phase(dev, smi, counters, profile_dir, bwd_ms, fwd_ms):
     launches = read(counters, [n for n in counters if n not in MHA_ONLY | PROBE_ONLY])
     forward_per_run("train", fwd_by_shape, TRAIN_STEPS,
                     launches["flash_attention_fwd"] / TRAIN_STEPS, fwd_ms["train"], smi, "step")
+    price("train: geglu_fwd", geglu_by_shape, TRAIN_STEPS, geglu_ms, smi, "step")
     per_step = {s_len: n / TRAIN_STEPS for s_len, n in sorted(by_len.items(), reverse=True)}
     for i, name in enumerate(("flash_attention_bwd_dq", "flash_attention_bwd_dkv")):
         if sum(by_len.values()) != launches[name]:
@@ -1177,8 +1249,9 @@ def train_phase(dev, smi, counters, profile_dir, bwd_ms, fwd_ms):
 # the port's own kernels: the __global__ functions of csrc/*.cu and the
 # Triton kernels of ops/kernels/groupnorm.py, by their unqualified names
 HAND_KERNELS = frozenset({"flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
-                          "tconv_kernel", "frame_attention_kernel", "ln_kernel", "gemm1_kernel",
-                          "gemm2_kernel", "stats_kernel", "norm_kernel", "conv3x3_kernel"})
+                          "tconv_kernel", "frame_attention_kernel", "ln_kernel",
+                          "sm90_gemm::gemm_kernel", "sm90_gemm::reduce_kernel", "prologue_kernel",
+                          "stats_kernel", "norm_kernel", "conv3x3_kernel"})
 
 
 def kernel_base_name(name: str) -> str:

@@ -16,59 +16,73 @@
 // against about 2*M*(Ci + Co) bytes, i.e. 9*Ci*Co/(Ci + Co) FLOP/byte:
 // 1440 at Ci = Co = 320, 5760 at 1280. Tensor-core bound at every UNet and
 // VAE site: about 5.8 ms of tensor time per CFG UNet step against about
-// 1.0 ms of device-memory bytes. So the products run on the tensor cores
-// (mma.sync m16n8k16 bf16 -> f32, fragments by ldmatrix) fed by a 4-stage
-// cp.async ring, as the GEMMs of geglu.cu.
+// 1.0 ms of device-memory bytes.
 //
-// Design: an implicit GEMM with a per-tap K loop (M = N*H*W, N = Co,
-// K = 9*Ci, k = tap*Ci + ci). The TPU kernel's blocking (row bands of the
-// pre-padded input in VMEM, a column im2col, three deep dots) does not carry
-// over: it needs the padded copy of x in device memory and whole-width bands.
-// Here a 128-pixel block tile is any run of output pixels (it may span rows
-// and samples, which the 5x8 latent level needs to fill a tile), and each
-// 16-byte chunk of the A tile (8 channels of one tap) is fetched from the
-// shifted source pixel, zero-filled by cp.async where the tap falls outside
-// the image (the padding), so it needs no per-width tiling and no halo
-// bookkeeping, and reads its input in place. Where Ci % 32 == 0 (every site
-// but the UNet's conv_in) a K tile is 32 channels of one tap, and each
-// thread computes its source rows and padding flags once per tap; address
-// arithmetic per chunk (a division by Ci, the tap's bounds) had left the
-// mainloop issue-bound rather than tensor-bound.
+// Design: an implicit GEMM (M = N*H*W, N = Co, K = 9*Ci, k = tap*Ci + ci,
+// tap = 3 dy + dx) on the shared Hopper mainloop of csrc/sm90_gemm.cuh:
+// persistent blocks, a producer warpgroup filling a ring of A/B stages by
+// TMA, consumer warpgroups running wgmma m64nBNk16 with both operands
+// K-major in shared memory. A K tile is 64 channels of one tap. The A tile
+// (BM output pixels x 64 channels) comes by TMA's im2col mode over the NHWC
+// input (sm90_gemm::Im2colA): one load per tap at its (dx, dy) offsets, the
+// box running across rows and samples in pixel order, the SAME padding and
+// the pixels past the last sample read as zeros by the hardware. No thread
+// computes an address or a padding flag. The B tile is BN rows of the
+// (Co, 9*Ci) weight by a 2-D map. The epilogue (ConvEpi) adds the bias, the
+// per-(sample, channel) shift at each row's own sample (a 128-row tile spans
+// samples at the 5x8 and 10x16 levels) and the residual in f32, one cast.
+// Where few tiles would leave SMs idle (the 5x8 level), the K tiles are
+// split into slices whose f32 partials sm90_gemm::reduce_kernel adds in a
+// fixed order. The tile width BN, the consumer warpgroups (1: 64-row tiles,
+// two blocks an SM; 2: 128-row tiles, one block), the K slices and the grid
+// are the plan's (ops/kernels/conv3x3.py::conv3x3_plan, a pure function of
+// the shape); this file takes them and refuses what it does not instantiate.
+//
+// Measured (NVIDIA H100 80GB HBM3, 700.00 W, device time per launch in a
+// CUDA graph; scripts/bench_gemm_plans.py): the L0 CFG forward (28x40x64,
+// 320 -> 320) with its prologue and shift 0.284 ms, with its prologue and
+// residual 0.264, against the mma.sync kernel's 0.636 and F.conv2d's
+// 0.267-0.270 alone; the 10x16 level 0.145-0.434 (F.conv2d 0.136-0.385);
+// the 5x8 level 0.079-0.139 against the mma.sync kernel's 0.231-0.447 and
+// F.conv2d's 0.075-0.137; the L0 dU 0.125 against F.conv2d's 0.139. Of the
+// L0 forward's time the prologue pass is 0.04 ms, the shift's epilogue 0.03
+// (source note of sm90_gemm.cuh). TMA im2col needed no care beyond its map
+// (the corners below); its boxes run across rows and samples as the
+// 128-pixel tiles do.
 //
 // The affine + SiLU prologue runs as its own pass, u = bf16([silu](x*sc +
-// sh)) through device memory, which the conv then reads with its zero-filled
+// sh)) through device memory, which the conv then reads with its zero
 // padding (so the padding stays zero). Why not in the conv's loads, as the
 // TPU kernel does: with a per-tap K loop every input element is loaded, and
-// would be transformed, 9 times per column block. The first version of this
-// kernel did that, in shared memory after each stage landed: 2.04 ms at the
-// L0 CFG site (28x40x64, 320 -> 320, 65 TFLOP/s) against 0.44 ms for the
-// same conv at batch 14 without a prologue (H100 80GB HBM3, 700 W). The
+// would be transformed, 9 times per column block. The first version of PR
+// 3's kernel did that, in shared memory after each stage landed: 2.04 ms at
+// the L0 CFG site (28x40x64, 320 -> 320, 65 TFLOP/s) against 0.44 ms for
+// the same conv at batch 14 without a prologue (H100 80GB HBM3, 700 W). The
 // separate pass moves 2*|x| bytes once (92 MB, about 30 us at L0 CFG).
 //
-// Tiles: 128 x BN x 32, 8 warps. BN = 128 in warps of 64 x 32 where the
-// grid has at least two waves of blocks (the last column tile masked when
-// Co % 128 != 0, e.g. 320); else BN = 64 in warps of 32 x 32 (the small-M
-// 5x8 level, which fills the 132 SMs through column tiles, not split-K).
-// The 32 x 32 warp tile reads shared memory at 4/3 the rate per product of
-// the 64 x 32 one and measured 125-166 TFLOP/s at the L0 site against
-// 198-204 for 64 x 32; 4 warps of 64 x 64, which read a third less again,
-// measured slower still (178 at L0, the 10x16 level 211-223 against
-// 237-248; H100 80GB HBM3, 700 W). Rows past M, columns past Co and k past
-// 9*Ci are zero-filled; the epilogue masks rows and columns. Needs
-// Ci % 8 == 0 and Co % 8 == 0 (one 16-byte chunk is 8 channels of one
-// tap).
+// Where Ci % 64 != 0 (the UNet's conv_in, Ci 8) a K tile of 64 channels of
+// one tap does not exist; the plan sends those calls to the first mainloop,
+// kept below (conv3x3_kernel): mma.sync m16n8k16 fed by ldmatrix from a
+// 4-stage cp.async ring, 128 x BN x 32 tiles in 8 warps, each 16-byte chunk
+// of A fetched from its shifted source pixel and zero-filled where the tap
+// falls outside the image. That design measured 198-204 TFLOP/s at the L0
+// site (0.643 ms against F.conv2d's 0.295): its 32 x 32 and 64 x 32 warp
+// tiles were bound by shared-memory reads (4 warps of 64 x 64 measured
+// slower still), its blocks were not persistent, and at the 5x8 level 90 or
+// fewer blocks sat on 132 SMs (H100 80GB HBM3, 700 W).
 //
 // Weights: (Co, 3, 3, Ci) contiguous, i.e. (Co, 9*Ci) row-major, K-contiguous
-// per output channel as mma.sync's B operand wants; the module stores its
-// OIHW parameter in channels_last, whose permute is exactly this layout.
-//
-// Not yet done (later work): wgmma/TMA, a persistent scheduler, split-K or
-// 64-row tiles for the 5x8 level, the prologue back inside the loads with a
-// halo'd input tile transformed once per channel chunk.
+// per output channel; the module stores its OIHW parameter in channels_last,
+// whose permute is exactly this layout.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "sm90_gemm.cuh"
+
+// the tile widths BN the TMA mainloop instantiates (the plan picks one)
+#define SVDX_CONV_TILE_N 8, 64, 128, 160, 256
 
 namespace {
 
@@ -373,36 +387,107 @@ int launch_tile(const Params& p, cudaStream_t s) {
                          : launch<BN, kWarpsM, kWarpsN, false>(p, s);
 }
 
+// The epilogue of the TMA mainloop: + bias [+ post[sample(row), co]] [+ res]
+// in f32, one cast.
+struct ConvEpi {
+  static constexpr bool kPairs = true;
+  template <int BN>
+  static constexpr int kOutCols = BN;
+  __device__ static int out_col(int n0) { return n0; }
+  const float* bias;         // (Co) or null
+  const float* post;         // (N, Co) or null
+  const __nv_bfloat16* res;  // (N, H, W, Co) or null
+  __nv_bfloat16* out;        // (N, H, W, Co)
+  int co, hw;
+  struct Row {
+    const float* post;  // the row's sample's shift, or null
+  };
+  __device__ __forceinline__ Row row(int r) const {
+    return {post ? post + (size_t)(r / hw) * co : nullptr};
+  }
+  __device__ __forceinline__ float2 residual(int r, int col) const {
+    return res ? __bfloat1622float2(
+                     __ldg(reinterpret_cast<const __nv_bfloat162*>(res + (size_t)r * co + col)))
+               : make_float2(0.f, 0.f);
+  }
+  __device__ __forceinline__ void finish(const Row& rw, int col, float2 r, float& v0,
+                                         float& v1) const {
+    if (bias) {
+      const float2 b = __ldg(reinterpret_cast<const float2*>(bias + col));
+      v0 += b.x;
+      v1 += b.y;
+    }
+    if (rw.post) {
+      const float2 pp = __ldg(reinterpret_cast<const float2*>(rw.post + col));
+      v0 += pp.x;
+      v1 += pp.y;
+    }
+    v0 += r.x;
+    v1 += r.y;
+  }
+  __device__ __forceinline__ void store(int row, int col, float v0, float v1) const {
+    *reinterpret_cast<uint32_t*>(out + (size_t)row * co + col) = pack_bf16(v0, v1);
+  }
+};
+
 }  // namespace
 
 // x: (n, h, w, ci) bf16; wt: (co, 3, 3, ci) bf16; bias: (co,) f32 or null;
 // sc, sh: (n, ci) f32, both or neither (null: no prologue); silu applies
 // only with them; u: (n, h, w, ci) bf16 scratch for the prologue's output
 // (null without sc); post: (n, co) f32 or null; res, out: (n, h, w, co)
-// bf16, res may be null. All contiguous; ci % 8 == 0 and co % 8 == 0 (the
-// wrapper checks). Returns the first CUDA error of the launches (0 on
-// success).
+// bf16, res may be null; workspace: (k_slices, n*h*w, co) f32 when
+// k_slices > 1, else null. All contiguous; ci % 8 == 0 and co % 8 == 0 (the
+// wrapper checks). The plan (conv3x3_plan): mainloop 1 = the TMA + wgmma
+// mainloop (ci % 64 == 0) with tile width bn, `consumers` warpgroups, the
+// K split and `grid` persistent blocks; mainloop 0 = the mma.sync
+// kernel with bn 64 or 128. Returns the first CUDA error of the launches (0
+// on success), or cudaErrorInvalidValue for a plan this file does not take
+// (a tensor map TMA refuses is found before anything launches).
 extern "C" int svdx_conv3x3(const void* x, const void* wt, const void* bias, const void* sc,
                             const void* sh, void* u, const void* post, const void* res,
-                            void* out, int n, int h, int w, int ci, int co, int silu,
-                            void* stream) {
+                            void* out, void* workspace, int n, int h, int w, int ci, int co,
+                            int silu, int mainloop, int bn, int consumers, int k_slices,
+                            int grid, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  Params p;
-  p.x = static_cast<const __nv_bfloat16*>(x);
+  const int m = n * h * w;
+  CUtensorMap a_map, b_map, c_map, r_map;
+  if (mainloop == 1) {
+    int err = sm90_gemm::encode_im2col_map(&a_map, sc ? u : x, n, h, w, ci, 64 * consumers);
+    if (err == 0) err = sm90_gemm::encode_matrix_map(&b_map, wt, 9 * ci, co, bn);
+    if (err == 0) err = sm90_gemm::encode_tile_map(&c_map, out, co, m, bn, 64);
+    if (err == 0) err = sm90_gemm::encode_tile_map(&r_map, res ? res : out, co, m, bn, 64);
+    if (err != 0) return err;
+  } else if (mainloop != 0 || (bn != 64 && bn != 128)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const __nv_bfloat16* xin = static_cast<const __nv_bfloat16*>(x);
   if (sc) {
-    const long long chunks = (long long)n * h * w * ci / 8;
+    const long long chunks = (long long)m * ci / 8;
     const int blocks = static_cast<int>((chunks + kPrologueThreads - 1) / kPrologueThreads);
     auto* up = static_cast<__nv_bfloat16*>(u);
     const auto* scp = static_cast<const float*>(sc);
     const auto* shp = static_cast<const float*>(sh);
     if (silu)
-      prologue_kernel<true><<<blocks, kPrologueThreads, 0, s>>>(p.x, scp, shp, up, chunks, ci, h * w);
+      prologue_kernel<true><<<blocks, kPrologueThreads, 0, s>>>(xin, scp, shp, up, chunks, ci, h * w);
     else
-      prologue_kernel<false><<<blocks, kPrologueThreads, 0, s>>>(p.x, scp, shp, up, chunks, ci, h * w);
+      prologue_kernel<false><<<blocks, kPrologueThreads, 0, s>>>(xin, scp, shp, up, chunks, ci, h * w);
     const int err = static_cast<int>(cudaGetLastError());
     if (err) return err;
-    p.x = up;
+    xin = up;
   }
+  if (mainloop == 1) {
+    const sm90_gemm::Shape shape{m, co, 9 * ci / sm90_gemm::kBK, k_slices,
+                                 static_cast<float*>(workspace), res != nullptr};
+    const sm90_gemm::Im2colA aload{ci / sm90_gemm::kBK, h, w};
+    const ConvEpi epi{static_cast<const float*>(bias), static_cast<const float*>(post),
+                      static_cast<const __nv_bfloat16*>(res), static_cast<__nv_bfloat16*>(out),
+                      co, h * w};
+    return sm90_gemm::launch_tile<sm90_gemm::Im2colA, ConvEpi, SVDX_CONV_TILE_N>(
+        bn, consumers, a_map, b_map, c_map, r_map, shape, aload, epi, grid, s);
+  }
+  Params p;
+  p.x = xin;
   p.wt = static_cast<const __nv_bfloat16*>(wt);
   p.bias = static_cast<const float*>(bias);
   p.post = static_cast<const float*>(post);
@@ -412,11 +497,6 @@ extern "C" int svdx_conv3x3(const void* x, const void* wt, const void* bias, con
   p.wd = w;
   p.ci = ci;
   p.co = co;
-  p.m = n * h * w;
-  const int m_tiles = (p.m + kBM - 1) / kBM;
-  // 128-wide column tiles (masked past Co) in 2 x 4 warps of 64 x 32 where
-  // they make two waves on 132 SMs, else 64-wide tiles in 4 x 2 warps of
-  // 32 x 32
-  if (co > 64 && m_tiles * ((co + 127) / 128) >= 2 * 132) return launch_tile<128, 2, 4>(p, s);
-  return launch_tile<64, 4, 2>(p, s);
+  p.m = m;
+  return bn == 128 ? launch_tile<128, 2, 4>(p, s) : launch_tile<64, 4, 2>(p, s);
 }

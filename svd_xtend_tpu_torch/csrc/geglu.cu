@@ -11,11 +11,21 @@
 //
 // Three launches, the LayerNorm'd tokens and u through device memory:
 //   ln:    one warp per token row, two-pass f32 statistics -> xn (T, C) bf16;
-//   gemm1: xn @ W1^T with the value/gate pairing in the epilogue: a block's
-//          128 B-tile rows interleave 8 value rows and the matching 8 gate
-//          rows of W1, so each thread holds h and g of the same column and
-//          writes u = (h + b1) * gelu(g + b1) (T, 4C) bf16;
-//   gemm2: u @ W2^T, epilogue + b2 and the bf16 residual x.
+//   gemm1: xn @ W1p^T on the shared TMA + wgmma mainloop (csrc/sm90_gemm.cuh)
+//          with the value/gate pairing in its epilogue (GegluEpi). W1p is W1
+//          packed by ops/kernels/geglu.py::pack_w1: its 128-row blocks hold 64
+//          value rows followed by the matching 64 gate rows, so in an
+//          m64nBN accumulator (BN = 128 or 256) column j and j + 64 of a
+//          block sit in the same thread, entries i and i + 32, and the
+//          epilogue writes u = (h + b1v) * gelu(g + b1g) (T, 4C) bf16 with no
+//          exchange between threads;
+//   gemm2: u @ W2^T on the same mainloop, epilogue + b2 then + the bf16
+//          residual x (ResidualEpi); where few tiles would leave SMs idle
+//          (the 5x8 level's T), split over K with a fixed-order reduction.
+// Tiles, consumer warpgroups, K slices and grids are the plan's
+// (ops/kernels/geglu.py::geglu_plan). Rows past T are zero-filled by TMA and
+// not stored.
+//
 // Why through device memory, against the TPU kernel's design: keeping u on
 // chip needs the (rows, C) f32 output accumulator of a token tile on chip
 // for the whole inner loop; at C = 1280 a 64-row tile is 320 KB, so the
@@ -24,79 +34,52 @@
 // 0.877 ms at the L0 training site against 0.576 ms for the unfused bf16
 // cuBLAS path, 3.27 ms per call at C >= 640 in a train step, and generate
 // 6.95 s/video against 2.96 (H100 80GB HBM3, 700 W). Through memory, u
-// costs 2*T*4C*2 bytes (184 MB at L0 training, ~55 us at 3.35 TB/s), and
-// both products become GEMMs with 128-row tiles that read each weight once
-// per 128 tokens.
+// costs 2*T*4C*2 bytes (184 MB at L0 training, ~55 us at 3.35 TB/s). The first
+// GEMMs on that layout (mma.sync m16n8k16 from a 3-stage cp.async ring,
+// 128 x BN x 32 tiles in 8 warps of 32-column warp tiles, one block per
+// tile) took 0.606 ms at T 35840, C 320, about the unfused path's time; the
+// 32-column warp tiles read shared memory at the rate that bounds them (see
+// sm90_gemm.cuh), and gemm1's K = C = 320 gave each block 10 K tiles.
 //
-// GEMM design (both): 128 x BN x 32 block tiles, 8 warps, a 3-stage cp.async
-// ring in shared memory (rows past T are zero-filled), fragments by
-// ldmatrix, mma.sync m16n8k16 bf16 -> f32. Both operands are K-contiguous:
-// activations (T, K) row-major and nn.Linear weights (N, K) row-major.
+// Measured (NVIDIA H100 80GB HBM3, 700.00 W, device time per launch in a
+// CUDA graph; scripts/bench_gemm_plans.py): T 71680, C 320 0.445 ms
+// against the mma.sync GEMMs' 1.240 and the unfused bf16 module path's 0.995; T
+// 4480, C 1280 0.334 against 0.781 and 0.423. At the 5x8 level's T (560,
+// 1120) the module path is as fast or faster (0.067 / 0.116 against 0.085 /
+// 0.116): there the two GEMMs' products are too few to fill the card.
 //
-// Not yet done (later work): wgmma/TMA, a persistent tile scheduler, fusing
-// the LayerNorm into gemm1's loads.
+// Not done: the LayerNorm inside gemm1's loads (it is a pass of 2*|x|
+// bytes, about 14 us at T 35840); gemm1's GELU epilogue still runs while
+// its block's tensor cores idle.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sm90_gemm.cuh"
+
+// the tile widths the two GEMMs instantiate (the plan picks one each)
+#define SVDX_GEGLU1_TILE_N 128, 256
+#define SVDX_GEGLU2_TILE_N 64, 128, 160, 256
+
 namespace {
 
-constexpr int kThreads = 256;  // 8 warps
-constexpr int kBM = 128;
-constexpr int kBK = 32;
-constexpr int kStages = 3;
-constexpr int kLds = kBK + 8;  // 80-byte rows: conflict-free ldmatrix
+constexpr int kLnThreads = 256;  // 8 warps, one token row each
 constexpr float kLnEps = 1e-5f;
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-// 16-byte async copy global -> shared; zero-fills when !valid.
-__device__ __forceinline__ void cp_async16(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                           bool valid) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(d), "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
+// gelu with the tanh approximation; tanh(z) = 1 - 2 / (1 + e^(2z)) with z
+// clamped to +-15 (where tanh is +-1 in f32), so e^(2z) stays finite
 __device__ __forceinline__ float gelu_tanh(float g) {
-  const float inner = 0.7978845608028654f * (g + 0.044715f * g * g * g);
-  return 0.5f * g * (1.f + tanhf(inner));
+  const float z = 0.7978845608028654f * (g + 0.044715f * g * g * g);
+  const float e = __expf(2.f * fminf(fmaxf(z, -15.f), 15.f));
+  return 0.5f * g * (2.f - __fdividef(2.f, 1.f + e));
 }
 
 // ---------------------------------------------------------------- LayerNorm
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kLnThreads)
 ln_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ ls,
           const float* __restrict__ lb, __nv_bfloat16* __restrict__ xn, int n_tok, int c) {
-  const int row = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
+  const int row = blockIdx.x * (kLnThreads / 32) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= n_tok) return;
   const __nv_bfloat16* xr = x + (size_t)row * c;
@@ -118,213 +101,116 @@ ln_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ ls,
   const float rstd = rsqrtf(sq / c + kLnEps);
   for (int i = 2 * lane; i < c; i += 64) {
     const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(xr + i));
-    *reinterpret_cast<uint32_t*>(xn + (size_t)row * c + i) =
-        pack_bf16((v.x - mu) * rstd * ls[i] + lb[i], (v.y - mu) * rstd * ls[i + 1] + lb[i + 1]);
+    *reinterpret_cast<uint32_t*>(xn + (size_t)row * c + i) = sm90::pack_bf16(
+        (v.x - mu) * rstd * ls[i] + lb[i], (v.y - mu) * rstd * ls[i + 1] + lb[i + 1]);
   }
 }
 
-// --------------------------------------------------------------------- GEMM
-// acc[MI][4][4] of a 128 x BN tile of A (M, K) @ B^T; B rows of the tile are
-// given by b_row(r) (r in [0, BN)), A rows past m are zero.
-template <int BN>
-struct Tile {
-  static constexpr int kWarpsN = BN / 32;           // warp tile: (128 / kWarpsM) x 32
-  static constexpr int kWarpsM = 8 / kWarpsN;
-  static constexpr int kMI = 128 / kWarpsM / 16;
-  static constexpr int kStageElems = (kBM + BN) * kLds;
+// gemm1's epilogue on a tile of packed columns n0.. (n0 % 128 == 0): block q
+// of the tile is value columns j = n0 / 2 + 64 q + c and gate columns
+// inner + j for c < 64; its n8 blocks 16q + jb (value) and 16q + jb + 8
+// (gate) hold the same j in this thread. Its output tile is the BN / 2 u
+// columns n0 / 2.. of the tile's rows.
+struct GegluEpi {
+  static constexpr bool kPairs = false;
+  template <int BN>
+  static constexpr int kOutCols = BN / 2;
+  __device__ static int out_col(int n0) { return n0 / 2; }
+  const float* b1;     // (2 * inner) f32, the unpacked order
+  int inner;
+  template <int BN>
+  __device__ __forceinline__ void tile(float (&d)[BN / 2], int, int n0, int, int t,
+                                       __nv_bfloat16* out, int tr0) const {
+#pragma unroll
+    for (int q = 0; q < BN / 128; ++q)
+#pragma unroll
+      for (int jb = 0; jb < 8; ++jb) {
+        const int c = 64 * q + 8 * jb + 2 * t;  // u column within the tile
+        const float2 bh = __ldg(reinterpret_cast<const float2*>(b1 + n0 / 2 + c));
+        const float2 bg = __ldg(reinterpret_cast<const float2*>(b1 + inner + n0 / 2 + c));
+        const float* hv = d + 4 * (16 * q + jb);
+        const float* gv = d + 4 * (16 * q + jb + 8);
+        uint32_t* o = reinterpret_cast<uint32_t*>(out + tr0 * (BN / 2) + c);
+        o[0] = sm90::pack_bf16((hv[0] + bh.x) * gelu_tanh(gv[0] + bg.x),
+                               (hv[1] + bh.y) * gelu_tanh(gv[1] + bg.y));
+        o[2 * BN] = sm90::pack_bf16((hv[2] + bh.x) * gelu_tanh(gv[2] + bg.x),  // 8 rows on
+                                    (hv[3] + bh.y) * gelu_tanh(gv[3] + bg.y));
+      }
+  }
 };
 
-template <int BN, typename BRow>
-__device__ __forceinline__ void gemm_mainloop(float (&acc)[Tile<BN>::kMI][4][4],
-                                              __nv_bfloat16* smem,
-                                              const __nv_bfloat16* __restrict__ a, int m0,
-                                              int m, const __nv_bfloat16* __restrict__ b,
-                                              BRow b_row, int k) {
-  using T = Tile<BN>;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp / T::kWarpsN, wn = warp % T::kWarpsN;
-#pragma unroll
-  for (int i = 0; i < T::kMI; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  auto load = [&](int stage, int k0) {
-    __nv_bfloat16* as = smem + stage * T::kStageElems;
-    __nv_bfloat16* bs = as + kBM * kLds;
-#pragma unroll
-    for (int i = tid; i < kBM * (kBK / 8); i += kThreads) {
-      const int r = i >> 2, ch = (i & 3) * 8;
-      const bool ok = m0 + r < m;
-      cp_async16(as + r * kLds + ch, a + (size_t)(ok ? m0 + r : 0) * k + k0 + ch, ok);
-    }
-#pragma unroll
-    for (int i = tid; i < BN * (kBK / 8); i += kThreads) {
-      const int r = i >> 2, ch = (i & 3) * 8;
-      cp_async16(bs + r * kLds + ch, b + (size_t)b_row(r) * k + k0 + ch, true);
-    }
-  };
-
-  const int kt_n = k / kBK;
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < kt_n) load(s, s * kBK);
-    cp_async_commit();
+// gemm2's epilogue: out = x + bf16(acc + b2), the sum rounded once more
+struct ResidualEpi {
+  static constexpr bool kPairs = true;
+  template <int BN>
+  static constexpr int kOutCols = BN;
+  __device__ static int out_col(int n0) { return n0; }
+  const float* b2;          // (C) f32
+  const __nv_bfloat16* x;   // (T, C)
+  __nv_bfloat16* out;       // (T, C)
+  int c;
+  struct Row {};
+  __device__ __forceinline__ Row row(int) const { return {}; }
+  __device__ __forceinline__ float2 residual(int r, int col) const {
+    return __bfloat1622float2(
+        __ldg(reinterpret_cast<const __nv_bfloat162*>(x + (size_t)r * c + col)));
   }
-  for (int kt = 0; kt < kt_n; ++kt) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();
-    const int next = kt + kStages - 1;
-    if (next < kt_n) load(next % kStages, next * kBK);
-    cp_async_commit();
-
-    const __nv_bfloat16* as = smem + (kt % kStages) * T::kStageElems;
-    const __nv_bfloat16* bs = as + kBM * kLds;
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      uint32_t af[T::kMI][4];
-#pragma unroll
-      for (int mi = 0; mi < T::kMI; ++mi)
-        ldmatrix_x4(af[mi], as + (wm * T::kMI * 16 + mi * 16 + (lane & 15)) * kLds + kk +
-                                (lane >> 4) * 8);
-      uint32_t bf[2][4];
-#pragma unroll
-      for (int nj = 0; nj < 2; ++nj)
-        ldmatrix_x4(bf[nj], bs + (wn * 32 + nj * 16 + (lane >> 4) * 8 + (lane & 7)) * kLds +
-                                kk + ((lane >> 3) & 1) * 8);
-#pragma unroll
-      for (int mi = 0; mi < T::kMI; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-          mma_bf16(acc[mi][ni], af[mi], bf[ni >> 1][(ni & 1) * 2], bf[ni >> 1][(ni & 1) * 2 + 1]);
-    }
+  __device__ __forceinline__ void finish(const Row&, int col, float2 xf, float& v0,
+                                         float& v1) const {
+    const float2 b = __ldg(reinterpret_cast<const float2*>(b2 + col));
+    const float2 y = __bfloat1622float2(__floats2bfloat162_rn(v0 + b.x, v1 + b.y));
+    v0 = xf.x + y.x;
+    v1 = xf.y + y.y;
   }
-  cp_async_wait<0>();
-}
-
-// xn (T, C) @ W1^T -> u (T, inner): the block's 64 u columns j0.. read W1
-// rows interleaved in groups of 8: tile rows 16p..16p+7 are value rows
-// j0+8p.., tile rows 16p+8..16p+15 the matching gate rows inner+j0+8p..
-__global__ void __launch_bounds__(kThreads)
-gemm1_kernel(const __nv_bfloat16* __restrict__ xn, const __nv_bfloat16* __restrict__ w1,
-             const float* __restrict__ b1, __nv_bfloat16* __restrict__ u, int n_tok, int c) {
-  constexpr int BN = 128;
-  using T = Tile<BN>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  const int inner = 4 * c;
-  const int m0 = blockIdx.x * kBM, j0 = blockIdx.y * 64;
-  auto b_row = [&](int r) {
-    const int p = r >> 4, w = r & 15;
-    return w < 8 ? j0 + 8 * p + w : inner + j0 + 8 * p + (w - 8);
-  };
-  float acc[T::kMI][4][4];
-  gemm_mainloop<BN>(acc, smem, xn, m0, n_tok, w1, b_row, c);
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int wm = warp / T::kWarpsN, wn = warp % T::kWarpsN;
-#pragma unroll
-  for (int q = 0; q < 2; ++q) {
-    // n-tiles 2q (value) and 2q+1 (gate) of this warp cover u columns col, col+1
-    const int col = j0 + (wn * 2 + q) * 8 + 2 * t;
-    const float bh0 = b1[col], bh1 = b1[col + 1];
-    const float bg0 = b1[inner + col], bg1 = b1[inner + col + 1];
-#pragma unroll
-    for (int mi = 0; mi < T::kMI; ++mi)
-#pragma unroll
-      for (int hlf = 0; hlf < 2; ++hlf) {
-        const int row = m0 + wm * T::kMI * 16 + mi * 16 + g + 8 * hlf;
-        if (row >= n_tok) continue;
-        const float* hv = acc[mi][2 * q];
-        const float* gv = acc[mi][2 * q + 1];
-        *reinterpret_cast<uint32_t*>(u + (size_t)row * inner + col) =
-            pack_bf16((hv[2 * hlf] + bh0) * gelu_tanh(gv[2 * hlf] + bg0),
-                      (hv[2 * hlf + 1] + bh1) * gelu_tanh(gv[2 * hlf + 1] + bg1));
-      }
+  __device__ __forceinline__ void store(int row, int col, float v0, float v1) const {
+    *reinterpret_cast<uint32_t*>(out + (size_t)row * c + col) = sm90::pack_bf16(v0, v1);
   }
-}
-
-// u (T, inner) @ W2^T + b2 + x -> out (T, C).
-template <int BN>
-__global__ void __launch_bounds__(kThreads)
-gemm2_kernel(const __nv_bfloat16* __restrict__ u, const __nv_bfloat16* __restrict__ w2,
-             const float* __restrict__ b2, const __nv_bfloat16* __restrict__ x,
-             __nv_bfloat16* __restrict__ out, int n_tok, int c) {
-  using T = Tile<BN>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * BN;
-  float acc[T::kMI][4][4];
-  gemm_mainloop<BN>(acc, smem, u, m0, n_tok, w2, [&](int r) { return n0 + r; }, 4 * c);
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int wm = warp / T::kWarpsN, wn = warp % T::kWarpsN;
-#pragma unroll
-  for (int ni = 0; ni < 4; ++ni) {
-    const int col = n0 + wn * 32 + ni * 8 + 2 * t;
-    const float c0 = b2[col], c1 = b2[col + 1];
-#pragma unroll
-    for (int mi = 0; mi < T::kMI; ++mi)
-#pragma unroll
-      for (int hlf = 0; hlf < 2; ++hlf) {
-        const int row = m0 + wm * T::kMI * 16 + mi * 16 + g + 8 * hlf;
-        if (row >= n_tok) continue;
-        const size_t off = (size_t)row * c + col;
-        const float2 y = __bfloat1622float2(__floats2bfloat162_rn(
-            acc[mi][ni][2 * hlf] + c0, acc[mi][ni][2 * hlf + 1] + c1));
-        const float2 xf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(x + off));
-        *reinterpret_cast<uint32_t*>(out + off) = pack_bf16(xf.x + y.x, xf.y + y.y);
-      }
-  }
-}
-
-template <typename K>
-int set_smem(K kernel, int bytes) {
-  return static_cast<int>(
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
-}
+};
 
 }  // namespace
 
 // x, out: (n_tok, c) bf16; xn: (n_tok, c) bf16 and u: (n_tok, 4c) bf16
-// scratch; w1: (8c, c) bf16; w2: (c, 4c) bf16; ls, lb, b2: (c,) f32; b1:
-// (8c,) f32; all contiguous, c % 64 == 0 (the wrapper checks). Returns the
-// first CUDA error of the three launches (0 on success).
+// scratch; w1p: (8c, c) bf16 in pack_w1's order; w2: (c, 4c) bf16; ls, lb,
+// b2: (c,) f32; b1: (8c,) f32 in W1's own order; workspace: (ks2, n_tok, c)
+// f32 when ks2 > 1, else null; all contiguous, c % 64 == 0 (the wrapper
+// checks). The plan (geglu_plan): gemm1 tile width bn1, kc1 consumer
+// warpgroups on grid1 blocks; gemm2 bn2, kc2, ks2 K slices on grid2 blocks.
+// Returns the first CUDA error of the launches (0 on success), or
+// cudaErrorInvalidValue for a plan this file does not take (a tensor map TMA
+// refuses is found before anything launches).
 extern "C" int svdx_ln_geglu_residual(const void* x, const void* ls, const void* lb,
-                                      const void* w1, const void* b1, const void* w2,
-                                      const void* b2, void* xn, void* u, void* out, int n_tok,
-                                      int c, void* stream) {
+                                      const void* w1p, const void* b1, const void* w2,
+                                      const void* b2, void* xn, void* u, void* out,
+                                      void* workspace, int n_tok, int c, int bn1, int kc1,
+                                      int grid1, int bn2, int kc2, int ks2, int grid2,
+                                      void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int inner = 4 * c;
+  CUtensorMap a1, b1m, c1, a2, b2m, c2, r2;
+  int err = sm90_gemm::encode_matrix_map(&a1, xn, c, n_tok, 64 * kc1);
+  if (err == 0) err = sm90_gemm::encode_matrix_map(&b1m, w1p, c, 2 * inner, bn1);
+  if (err == 0) err = sm90_gemm::encode_tile_map(&c1, u, inner, n_tok, bn1 / 2, 64);
+  if (err == 0) err = sm90_gemm::encode_matrix_map(&a2, u, inner, n_tok, 64 * kc2);
+  if (err == 0) err = sm90_gemm::encode_matrix_map(&b2m, w2, inner, c, bn2);
+  if (err == 0) err = sm90_gemm::encode_tile_map(&c2, out, c, n_tok, bn2, 64);
+  if (err == 0) err = sm90_gemm::encode_tile_map(&r2, x, c, n_tok, bn2, 64);
+  if (err != 0) return err;
+
   const auto* xp = static_cast<const __nv_bfloat16*>(x);
-  auto* xnp = static_cast<__nv_bfloat16*>(xn);
-  auto* up = static_cast<__nv_bfloat16*>(u);
-  const int m_tiles = (n_tok + kBM - 1) / kBM;
-
-  ln_kernel<<<(n_tok + 7) / 8, kThreads, 0, s>>>(xp, static_cast<const float*>(ls),
-                                                static_cast<const float*>(lb), xnp, n_tok, c);
-  int err = static_cast<int>(cudaGetLastError());
-  if (err) return err;
-
-  const int smem1 = kStages * Tile<128>::kStageElems * 2;
-  if ((err = set_smem(gemm1_kernel, smem1))) return err;
-  gemm1_kernel<<<dim3(m_tiles, (4 * c) / 64), kThreads, smem1, s>>>(
-      xnp, static_cast<const __nv_bfloat16*>(w1), static_cast<const float*>(b1), up, n_tok, c);
+  ln_kernel<<<(n_tok + 7) / 8, kLnThreads, 0, s>>>(xp, static_cast<const float*>(ls),
+                                                  static_cast<const float*>(lb),
+                                                  static_cast<__nv_bfloat16*>(xn), n_tok, c);
   if ((err = static_cast<int>(cudaGetLastError()))) return err;
 
-  const auto* w2p = static_cast<const __nv_bfloat16*>(w2);
-  const auto* b2p = static_cast<const float*>(b2);
-  auto* op = static_cast<__nv_bfloat16*>(out);
-  if (c % 128 == 0) {
-    const int smem2 = kStages * Tile<128>::kStageElems * 2;
-    if ((err = set_smem(gemm2_kernel<128>, smem2))) return err;
-    gemm2_kernel<128><<<dim3(m_tiles, c / 128), kThreads, smem2, s>>>(up, w2p, b2p, xp, op,
-                                                                      n_tok, c);
-  } else {
-    const int smem2 = kStages * Tile<64>::kStageElems * 2;
-    if ((err = set_smem(gemm2_kernel<64>, smem2))) return err;
-    gemm2_kernel<64><<<dim3(m_tiles, c / 64), kThreads, smem2, s>>>(up, w2p, b2p, xp, op,
-                                                                    n_tok, c);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const sm90_gemm::Shape shape1{n_tok, 2 * inner, c / sm90_gemm::kBK, 1, nullptr, 0};
+  const GegluEpi epi1{static_cast<const float*>(b1), inner};
+  err = sm90_gemm::launch_tile<sm90_gemm::RowsA, GegluEpi, SVDX_GEGLU1_TILE_N>(
+      bn1, kc1, a1, b1m, c1, c1, shape1, sm90_gemm::RowsA{}, epi1, grid1, s);
+  if (err) return err;
+
+  const sm90_gemm::Shape shape2{n_tok, c, inner / sm90_gemm::kBK, ks2,
+                                static_cast<float*>(workspace), 1};
+  const ResidualEpi epi2{static_cast<const float*>(b2), xp, static_cast<__nv_bfloat16*>(out), c};
+  return sm90_gemm::launch_tile<sm90_gemm::RowsA, ResidualEpi, SVDX_GEGLU2_TILE_N>(
+      bn2, kc2, a2, b2m, c2, r2, shape2, sm90_gemm::RowsA{}, epi2, grid2, s);
 }

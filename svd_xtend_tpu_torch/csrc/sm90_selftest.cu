@@ -1,7 +1,8 @@
-// A card check of the sm90.cuh building blocks the flash backward kernels
-// rest on, one 64 x 64 x 64 product per form, so that a wrong descriptor,
-// swizzle or fragment layout shows as a wrong matrix, not as a wrong
-// gradient somewhere in a train step. Not on any model path.
+// A card check of the sm90.cuh building blocks the flash kernels rest on,
+// one 64 x 64 x 64 product per form, and of the wide wgmma forms of
+// sm90_gemm.cuh (svdx_sm90_gemm_selftest below), so that a wrong
+// descriptor, swizzle or fragment layout shows as a wrong matrix, not as a
+// wrong gradient somewhere in a train step. Not on any model path.
 //
 // One block of one warpgroup: TMA brings the 64-row tiles at rows row0..
 // of sample `sample`, head `head` of two packed bf16 (batch, rows, n_cols)
@@ -13,7 +14,7 @@
 //                          A fragments (acc_to_a), B MN-major
 // each a 64 x 64 row-major matrix.
 
-#include "sm90.cuh"
+#include "sm90_gemm.cuh"
 
 namespace {
 
@@ -91,6 +92,63 @@ sm90_selftest_kernel(const __grid_constant__ CUtensorMap a_map,
   store_acc(out + 3 * 4096, d3, warp, lane);
 }
 
+// the wide forms: out (64 x kN f32) = A (64 x 64) . B (kN x 64)^T with
+// wgmma_ss_n<kN>, both tiles by TMA (2-D maps, sm90_gemm::encode_matrix_map)
+template <int kN>
+struct GemmFormSmem {
+  __nv_bfloat16 a[64 * 64];
+  __nv_bfloat16 b[kN * 64];
+  uint64_t full;
+};
+
+template <int kN>
+__global__ void __launch_bounds__(128)
+gemm_form_kernel(const __grid_constant__ CUtensorMap a_map,
+                 const __grid_constant__ CUtensorMap b_map, float* __restrict__ out) {
+  extern __shared__ char smem_raw[];
+  GemmFormSmem<kN>& sm = sm90::aligned_smem<GemmFormSmem<kN>>(smem_raw);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(&sm.full, 1);
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    sm90::mbar_arrive_expect_tx(&sm.full, (64 + kN) * 64 * 2);
+    sm90::tma_load_3d(sm.a, &a_map, &sm.full, 0, 0, 0);
+    sm90::tma_load_3d(sm.b, &b_map, &sm.full, 0, 0, 0);
+  }
+  sm90::mbar_wait(&sm.full, 0);
+  const uint64_t ad = sm90::sw128_desc(sm.a), bd = sm90::sw128_desc(sm.b);
+  float d[kN / 2];
+  sm90::wgmma_fence();
+  sm90::fence_regs(d);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    sm90_gemm::wgmma_ss_n<kN>(d, sm90::kmajor_slice(ad, kk), sm90::kmajor_slice(bd, kk), kk > 0);
+  sm90::wgmma_commit();
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(d);
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < kN / 2; ++i)
+    out[(16 * warp + g + 8 * ((i / 2) % 2)) * kN + 8 * (i / 4) + 2 * t + (i % 2)] = d[i];
+}
+
+template <int kN>
+int launch_gemm_form(const void* a, const void* b, void* out, cudaStream_t stream) {
+  CUtensorMap a_map, b_map;
+  int err = sm90_gemm::encode_matrix_map(&a_map, a, 64, 64, 64);
+  if (err == 0) err = sm90_gemm::encode_matrix_map(&b_map, b, 64, kN, kN);
+  if (err != 0) return err;
+  constexpr int smem = sm90::smem_bytes<GemmFormSmem<kN>>();
+  err = static_cast<int>(cudaFuncSetAttribute(
+      gemm_form_kernel<kN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
+  if (err != 0) return err;
+  gemm_form_kernel<kN><<<1, 128, smem, stream>>>(a_map, b_map, static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // a, b: bf16 (batch, rows, n_cols) contiguous; out: f32 (4, 64, 64). Returns
@@ -110,4 +168,21 @@ extern "C" int svdx_sm90_selftest(const void* a, const void* b, void* out, int b
       a_map, b_map, static_cast<const __nv_bfloat16*>(a), static_cast<float*>(out), rows,
       n_cols, sample, row0, head);
   return static_cast<int>(cudaGetLastError());
+}
+
+// a: bf16 (64, 64), b: bf16 (n, 64), out: f32 (64, n), all contiguous; n one
+// of the wgmma widths sm90_gemm.cuh has (8, 64, 128, 160, 256). out = a b^T
+// through one wgmma_ss_n<n> per k16 slice. Returns cudaErrorInvalidValue for
+// another n, else the encoder's refusal or cudaGetLastError().
+extern "C" int svdx_sm90_gemm_selftest(const void* a, const void* b, void* out, int n,
+                                       void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (n) {
+    case 8: return launch_gemm_form<8>(a, b, out, s);
+    case 64: return launch_gemm_form<64>(a, b, out, s);
+    case 128: return launch_gemm_form<128>(a, b, out, s);
+    case 160: return launch_gemm_form<160>(a, b, out, s);
+    case 256: return launch_gemm_form<256>(a, b, out, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -8,8 +8,8 @@ the sources and the headers they include (csrc/*.cuh), so a fresh checkout
 builds everything on its first kernel launch, an edit to any of them
 rebuilds, and an unchanged tree reuses the library. A failed build raises.
 The library needs no -lcuda: the TMA kernels take the driver's
-``cuTensorMapEncodeTiled`` through the runtime's entry-point query
-(csrc/sm90.cuh).
+``cuTensorMapEncodeTiled`` and ``cuTensorMapEncodeIm2col`` through the
+runtime's entry-point query (csrc/sm90.cuh, csrc/sm90_gemm.cuh).
 """
 
 from __future__ import annotations
@@ -37,16 +37,17 @@ _SIGNATURES = {
     "svdx_flash_attention_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "svdx_flash_attention_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                                      _P],
-    "svdx_ln_geglu_residual": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "svdx_ln_geglu_residual": [_P] * 11 + [_I] * 9 + [_P],
     "svdx_frame_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "svdx_temporal_resnet_conv": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _I, _I, _I, _I, _I, _P],
     "svdx_temporal_resnet_tile_rows": [],
-    "svdx_conv3x3": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "svdx_conv3x3": [_P] * 10 + [_I] * 11 + [_P],
     "svdx_flash_variant_fwd": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     "svdx_chain_bf16": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
     "svdx_chain_int8_qd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "svdx_sm90_selftest": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "svdx_sm90_gemm_selftest": [_P, _P, _P, _I, _P],
 }
 
 

@@ -12,9 +12,14 @@ SiLU rounded to x's dtype before the conv, f32 accumulation, the bias, the
 (N, Co) f32 shift and the residual added in f32, one cast. The CUDA kernels
 are ``csrc/conv3x3.cu``: an elementwise prologue pass writing the
 transformed input u (bf16, the wrapper allocates it), then an implicit GEMM
-with a per-tap K loop whose zero-filled loads keep the SAME padding zero and
-whose epilogue adds the bias, shift and residual. The source says why the
-prologue is a pass of its own and not part of the conv's loads.
+on the shared TMA + wgmma mainloop of ``csrc/sm90_gemm.cuh``, whose A tiles
+come by TMA's im2col mode (the SAME padding read as zeros) and whose
+epilogue adds the bias, shift and residual. ``conv3x3_plan``, a pure
+function of the shape, picks the mainloop (the first, mma.sync kernel where
+Ci % 64 != 0: the UNet's conv_in), the tile width, the consumer
+warpgroups, the K slices and the grid; the wrapper passes it to the
+launcher. The source says why the prologue is a pass of its own and not
+part of the conv's loads.
 
 Weights are the ``nn.Conv2d`` OIHW parameter. The kernel reads them as
 (Co, 3, 3, Ci), which is the OIHW tensor's permute when it is stored in
@@ -38,6 +43,7 @@ the call (``models/blocks.py::Conv3x3``).
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -45,8 +51,11 @@ import torch.nn.functional as F
 
 from .. import video
 from ._build import check, library
+from .gemm_plan import K_TILE, SM_COUNT, GemmPlan, mma_plan, plan_gemm, sm_count
 
 CHANNEL_MULTIPLE = 8     # one 16-byte load is 8 channels of one tap
+# the tile widths csrc/conv3x3.cu instantiates (SVDX_CONV_TILE_N)
+CONV_TILE_N = (8, 64, 128, 160, 256)
 
 
 def apply_pre_affine(x: torch.Tensor, sc: torch.Tensor, sh: torch.Tensor,
@@ -105,11 +114,26 @@ def supports(x: torch.Tensor, weight: torch.Tensor) -> bool:
             and weight.shape[0] % CHANNEL_MULTIPLE == 0)
 
 
+@functools.cache
+def conv3x3_plan(n: int, h: int, w: int, ci: int, co: int, sms: int = SM_COUNT) -> GemmPlan:
+    """The launch plan of an (n, h, w, ci) -> co conv on a card of `sms` SMs:
+    the implicit GEMM M = n·h·w, N = co, K = 9·ci. Where ci % 64 == 0 the TMA
+    mainloop (a K tile is 64 channels of one tap; 8-wide tiles only for
+    co <= 8), else the mma.sync mainloop. Memoized: a launch's host time
+    is on the path, and choosing a plan costs ~0.2 ms."""
+    m = n * h * w
+    if ci % K_TILE:
+        return mma_plan(m, co, -(-9 * ci // 32), sms)
+    widths = tuple(b for b in CONV_TILE_N if (b == 8) == (co <= 8))
+    return plan_gemm(m, co, 9 * ci // K_TILE, widths, sms)
+
+
 def _ptr(a: Optional[torch.Tensor]):
     return None if a is None else a.data_ptr()
 
 
-def _run(x, weight, bias, pre_scale, pre_shift, post_shift, residual, pre_silu):
+def _run(x, weight, bias, pre_scale, pre_shift, post_shift, residual, pre_silu,
+         plan=None):
     if not supports(x, weight):
         raise ValueError(
             f"conv3x3 kernel needs a CUDA bf16 contiguous (N, H, W, Ci) and a "
@@ -136,9 +160,14 @@ def _run(x, weight, bias, pre_scale, pre_shift, post_shift, residual, pre_silu):
     for a in (x, wk, bias, sc, sh, post, residual):
         if a is not None and a.data_ptr() % 16:
             raise ValueError("conv3x3: every operand must be 16-byte aligned")
+    if plan is None:
+        plan = conv3x3_plan(n, h, w, ci, co, sm_count(x.device))
+    ws = (torch.empty(plan.workspace_elems, device=x.device, dtype=torch.float32)
+          if plan.workspace_elems else None)
     err = library().svdx_conv3x3(
         x.data_ptr(), wk.data_ptr(), _ptr(bias), _ptr(sc), _ptr(sh), _ptr(u), _ptr(post),
-        _ptr(residual), out.data_ptr(), n, h, w, ci, co, int(bool(pre_silu)),
+        _ptr(residual), out.data_ptr(), _ptr(ws), n, h, w, ci, co, int(bool(pre_silu)),
+        int(plan.mainloop == "tma"), plan.bn, plan.consumers, plan.k_slices, plan.grid,
         torch.cuda.current_stream(x.device).cuda_stream)
     check(err, "conv3x3")
     return out

@@ -3,11 +3,15 @@
 Port of ``svd_xtend_tpu/ops/pallas/geglu.py``: ``ln_geglu_residual`` (its
 kernel ``_kernel``) and the plain ``_reference`` as
 ``ln_geglu_residual_reference``. The CUDA kernels are ``csrc/geglu.cu``: a
-LayerNorm pass, then two tensor-core GEMMs, the first with the value/gate
-pairing and the tanh-GELU product in its epilogue, the second with the bias
-and the residual in its epilogue. Unlike the TPU kernel, the LayerNorm'd
-tokens and the 4C-wide gate activation go through device memory (the
-wrapper allocates them): the source says why.
+LayerNorm pass, then two GEMMs on the shared TMA + wgmma mainloop of
+``csrc/sm90_gemm.cuh``, the first with the value/gate pairing and the
+tanh-GELU product in its epilogue, the second with the bias and the
+residual in its epilogue. Unlike the TPU kernel, the LayerNorm'd tokens and
+the 4C-wide gate activation go through device memory (the wrapper
+allocates them): the source says why. The first GEMM reads W1 in
+``pack_w1``'s order, packed once per weight version (``packed_w1``);
+``geglu_plan``, a pure function of (T, C), picks both GEMMs' tiles,
+consumer warpgroups, K slices and grids.
 
 Weights are in their ``nn.Linear`` layouts: ``w1`` (2·inner, C) with the
 value half in rows [:inner] and the gate half in [inner:] (the diffusers
@@ -23,14 +27,22 @@ geglu.py:116) is a v5e measurement; on CUDA the kernel takes every site
 
 from __future__ import annotations
 
+import functools
+import weakref
+
 import torch
 import torch.nn.functional as F
 
 from ._autograd import differentiable
 from ._build import check, library
+from .gemm_plan import K_TILE, SM_COUNT, plan_gemm, sm_count
 
 LN_EPS = 1e-5
-CHANNEL_MULTIPLE = 64    # the GEMMs' column tiles
+CHANNEL_MULTIPLE = 64    # K tiles of 64 in both GEMMs
+PAIR_ROWS = 64           # W1's value rows per packed block, then as many gate rows
+# the tile widths csrc/geglu.cu instantiates (SVDX_GEGLU1_TILE_N, SVDX_GEGLU2_TILE_N)
+GEGLU1_TILE_N = (128, 256)
+GEGLU2_TILE_N = (64, 128, 160, 256)
 
 
 def ln_geglu_residual_reference(x: torch.Tensor, ls: torch.Tensor, lb: torch.Tensor,
@@ -52,6 +64,52 @@ def ln_geglu_residual_reference(x: torch.Tensor, ls: torch.Tensor, lb: torch.Ten
     return x + y.to(dt)
 
 
+def pack_w1(w1: torch.Tensor) -> torch.Tensor:
+    """W1 (2·inner, C) -> the first GEMM's order: block b of 128 rows is value
+    rows [64b, 64b + 64) then gate rows inner + [64b, 64b + 64)."""
+    two_inner, c = w1.shape
+    blocks = two_inner // (2 * PAIR_ROWS)
+    return w1.reshape(2, blocks, PAIR_ROWS, c).transpose(0, 1).reshape(two_inner, c)
+
+
+def unpack_w1(w1p: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``pack_w1``."""
+    two_inner, c = w1p.shape
+    blocks = two_inner // (2 * PAIR_ROWS)
+    return w1p.reshape(blocks, 2, PAIR_ROWS, c).transpose(0, 1).reshape(two_inner, c)
+
+
+# id(w1) -> (weak reference to w1, its data_ptr and _version, the packed bf16 copy)
+_PACKED: dict = {}
+
+
+def packed_w1(w1: torch.Tensor) -> torch.Tensor:
+    """``pack_w1`` of w1 in bf16, made once per weight version: reused while
+    the same tensor keeps its storage and its in-place version counter (an
+    optimizer step bumps it), so a call does not copy W1."""
+    key = id(w1)
+    hit = _PACKED.get(key)
+    if (hit is not None and hit[0]() is w1 and hit[1] == w1.data_ptr()
+            and hit[2] == w1._version):
+        return hit[3]
+    for k in [k for k, v in _PACKED.items() if v[0]() is None]:
+        del _PACKED[k]
+    packed = pack_w1(w1.detach().to(torch.bfloat16)).contiguous()
+    _PACKED[key] = (weakref.ref(w1), w1.data_ptr(), w1._version, packed)
+    return packed
+
+
+@functools.cache
+def geglu_plan(t: int, c: int, sms: int = SM_COUNT) -> tuple:
+    """(first GEMM's plan, second's) for T tokens of width C on a card of
+    `sms` SMs: xn (T, C) · W1pᵀ (N = 8C, K = C, no split: its K is short)
+    and u (T, 4C) · W2ᵀ (N = C, K = 4C). Memoized: a launch's host time is
+    on the path (the two plans cost ~0.25 ms to choose)."""
+    first = plan_gemm(t, 8 * c, c // K_TILE, GEGLU1_TILE_N, sms, max_slices=1)
+    second = plan_gemm(t, c, 4 * c // K_TILE, GEGLU2_TILE_N, sms)
+    return first, second
+
+
 def supports(x: torch.Tensor, inner: int) -> bool:
     """Structural dispatch predicate: a CUDA bf16 (..., C) with C a multiple
     of 64 and inner = 4C."""
@@ -60,7 +118,7 @@ def supports(x: torch.Tensor, inner: int) -> bool:
             and inner == 4 * c)
 
 
-def _launch(x, ls, lb, w1, b1, w2, b2) -> torch.Tensor:
+def _launch(x, ls, lb, w1, b1, w2, b2, plans=None) -> torch.Tensor:
     c = x.shape[-1]
     inner = w2.shape[1]
     if not supports(x, inner):
@@ -76,16 +134,20 @@ def _launch(x, ls, lb, w1, b1, w2, b2) -> torch.Tensor:
     x2 = x.reshape(-1, c)
     if not x2.is_contiguous():
         raise ValueError("ln_geglu_residual: x must be contiguous")
+    t = x2.shape[0]
     out, xn = torch.empty_like(x2), torch.empty_like(x2)
-    u = torch.empty((x2.shape[0], inner), device=x.device, dtype=torch.bfloat16)
-    bf = lambda a: a.to(torch.bfloat16).contiguous()
+    u = torch.empty((t, inner), device=x.device, dtype=torch.bfloat16)
     f32 = lambda a: a.float().contiguous()
-    w1b, w2b = bf(w1), bf(w2)
+    w1p, w2b = packed_w1(w1), w2.to(torch.bfloat16).contiguous()
     lsf, lbf, b1f, b2f = f32(ls), f32(lb), f32(b1), f32(b2)
+    first, second = plans if plans is not None else geglu_plan(t, c, sm_count(x.device))
+    ws = (torch.empty(second.workspace_elems, device=x.device, dtype=torch.float32)
+          if second.workspace_elems else None)
     err = library().svdx_ln_geglu_residual(
-        x2.data_ptr(), lsf.data_ptr(), lbf.data_ptr(), w1b.data_ptr(), b1f.data_ptr(),
+        x2.data_ptr(), lsf.data_ptr(), lbf.data_ptr(), w1p.data_ptr(), b1f.data_ptr(),
         w2b.data_ptr(), b2f.data_ptr(), xn.data_ptr(), u.data_ptr(), out.data_ptr(),
-        x2.shape[0], c,
+        None if ws is None else ws.data_ptr(), t, c, first.bn, first.consumers, first.grid,
+        second.bn, second.consumers, second.k_slices, second.grid,
         torch.cuda.current_stream(x.device).cuda_stream)
     check(err, "ln_geglu_residual")
     ln_geglu_residual.launches += 1

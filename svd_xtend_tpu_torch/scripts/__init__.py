@@ -8,8 +8,12 @@ card as ``python -m svd_xtend_tpu_torch.scripts.<name>``.
 - ``probe_int8_flash``: the dependent QKᵀ→PV chain in bf16 and in int8
   with dynamic quantisation;
 
-and ``bench_flash_forward``, the flash forward's device time at the UNet's
-shapes and the variants' per mode, for comparing builds of the kernels.
+``bench_flash_forward``, the flash forward's device time at the UNet's
+shapes and the variants' per mode, for comparing builds of the kernels;
+``bench_gemm_plans``, conv3x3's and GEGLU's device time under each launch
+plan of the shared GEMM mainloop; and ``sites``, the conv3x3 sites and GEGLU
+shapes of the main paths (chip_smoke.py, the card tests and the plan tests
+share them).
 """
 
 import subprocess

@@ -30,6 +30,8 @@ from svd_xtend_tpu_torch.ops.kernels import groupnorm as gn
 from svd_xtend_tpu_torch.ops.kernels import temporal_attention as ta
 from svd_xtend_tpu_torch.ops.kernels import temporal_resnet as tr
 from svd_xtend_tpu_torch.ops.kernels.dispatch import plain_versions
+from svd_xtend_tpu_torch.ops.kernels.gemm_plan import GemmPlan
+from svd_xtend_tpu_torch.scripts import sites
 
 pytestmark = pytest.mark.cuda
 
@@ -373,6 +375,51 @@ def test_geglu_kernel(rn, t, c):
     _assert_close_bf16(got, gg.ln_geglu_residual_reference(*args))
 
 
+@pytest.mark.parametrize("t,c", sites.GEGLU_SHAPES[4:] + [(130, 320), (1000, 640),
+                                                           (130, 64), (1000, 64)])
+def test_geglu_kernel_serving_and_ragged(rn, t, c):
+    """generate's CFG shapes (2T), ragged T and C = 64, on their plans."""
+    args = _geglu_args(rn, t, c)
+    got = gg.ln_geglu_residual(*args)
+    _assert_close_bf16(got - args[0], gg.ln_geglu_residual_reference(*args) - args[0])
+    _assert_close_bf16(got, gg.ln_geglu_residual_reference(*args))
+
+
+# (first GEMM's bn, consumers; second's bn, consumers, k_slices)
+_GEGLU_TILES = [(128, 1, 64, 1, 1), (128, 2, 128, 2, 3), (256, 2, 160, 1, 1),
+                (256, 2, 256, 2, 4), (128, 1, 160, 2, 2)]
+
+
+@pytest.mark.parametrize("tiles", _GEGLU_TILES, ids=lambda t: "-".join(map(str, t)))
+def test_geglu_every_tile(rn, tiles):
+    """Both GEMMs at each tile width, consumer count and split a plan may
+    pick, at a ragged T; on fewer persistent blocks, the same bits."""
+    bn1, kc1, bn2, kc2, ks2 = tiles
+    t, c = 300, 320
+    args = _geglu_args(rn, t, c)
+    first = GemmPlan(t, 8 * c, c // 64, bn1, kc1, 1, 7)
+    second = GemmPlan(t, c, 4 * c // 64, bn2, kc2, ks2, 3)
+    got = gg._launch(*args, plans=(first, second))
+    again = gg._launch(*args, plans=(first, dataclasses.replace(second, grid=1)))
+    _assert_close_bf16(got - args[0], gg.ln_geglu_residual_reference(*args) - args[0])
+    assert torch.equal(got, again)
+
+
+def test_geglu_packs_w1_once_per_version(rn):
+    """The packed W1 is reused while the weight is unchanged and made again
+    after an in-place update."""
+    args = _geglu_args(rn, 200, 64)
+    w1 = args[3]
+    first = gg.packed_w1(w1)
+    assert gg.packed_w1(w1) is first
+    got = gg.ln_geglu_residual(*args)
+    w1.mul_(0.5)
+    assert gg.packed_w1(w1) is not first
+    halved = gg.ln_geglu_residual(*args)
+    _assert_close_bf16(halved - args[0], gg.ln_geglu_residual_reference(*args) - args[0])
+    assert not torch.equal(got, halved)
+
+
 def test_geglu_wrapper_raises_on_untaken_shapes(rn):
     with pytest.raises(ValueError):
         gg.ln_geglu_residual(*_geglu_args(rn, 10, 96))
@@ -455,6 +502,99 @@ def test_conv3x3_wrapper_raises_on_untaken_calls(rn):
         cv.conv3x3(rn(1, 4, 4, 16).float(), rn(16, 16, 3, 3), rn(16))
     with pytest.raises(ValueError):                 # residual of the wrong width
         cv.conv3x3(rn(1, 4, 4, 16), rn(16, 16, 3, 3), rn(16), residual=rn(1, 4, 4, 8))
+
+
+# every distinct (H, W, Ci, Co, epilogue) of the site tables; batch 3 at
+# the 5x8 and 10x16 levels, where a 128-row tile spans samples, else 1
+_CONV_SITES = sorted({st[:5] for st in sites.UNET_CONV_SITES + sites.VAE_DECODE_SITES
+                      + sites.VAE_ENCODE_SITES})
+_EPI_FLAGS = {"none": (False, False, False, False), "preS": (True, True, False, False),
+              "preS+post": (True, True, True, False), "preS+res": (True, True, False, True)}
+
+
+def _site_batch(h):
+    return 3 if h <= 10 else 1
+
+
+@pytest.mark.parametrize("site", _CONV_SITES, ids=lambda st: "-".join(map(str, st)))
+def test_conv3x3_sites(rn, no_tf32, site):
+    """The kernel on its plan at every forward site of the UNet and VAE."""
+    h, w, ci, co, epi = site
+    x, weight, bias, kw = _conv_args(rn, _site_batch(h), h, w, ci, co, *_EPI_FLAGS[epi])
+    got = cv.conv3x3(x, weight, bias, **kw)
+    ref = cv.conv3x3_fused_reference(x, weight, bias, kw.get("pre_scale"), kw.get("pre_shift"),
+                                     kw.get("post_shift"), kw.get("residual"), kw["pre_silu"])
+    _assert_close_bf16(got, ref)
+
+
+@pytest.mark.parametrize("site", sorted({st[:4] for st in sites.UNET_DGRAD_SITES})
+                         + [(40, 64, 320, 8), (40, 64, 8, 512)],
+                         ids=lambda st: "-".join(map(str, st)))
+def test_conv3x3_input_grad_sites(rn, no_tf32, site):
+    """dU at every shape of the train step's backward (dy (H, W, Co) -> Ci),
+    and the dU of the Ci 8 (conv_in) and Co 8 (VAE conv_out) convs."""
+    h, w, co, ci = site
+    dy = rn(_site_batch(h), h, w, co)
+    weight = rn(co, ci, 3, 3, sc=(9 * ci) ** -0.5)
+    n = cv.conv3x3_input_grad.launches
+    got = cv.conv3x3_input_grad(dy, weight)
+    assert cv.conv3x3_input_grad.launches == n + 1
+    _assert_close_bf16(got, cv.conv3x3_input_grad_reference(dy, weight))
+
+
+# (bn, consumers, k_slices): every tile the TMA mainloop instantiates, and splits
+_CONV_TILES = [(8, 1, 1), (8, 2, 3), (64, 1, 1), (64, 2, 2), (128, 1, 4), (128, 2, 1),
+               (160, 1, 3), (160, 2, 5), (256, 2, 1), (256, 2, 2)]
+
+
+@pytest.mark.parametrize("tile", _CONV_TILES, ids=lambda t: "bn%d-wg%d-ks%d" % t)
+def test_conv3x3_every_tile(rn, no_tf32, tile):
+    """The TMA mainloop at each tile width, consumer count and K split a plan
+    may pick, on a ragged shape (M and Co not multiples of the tile; tiles
+    spanning samples), against the plain version; on fewer persistent
+    blocks, the same bits."""
+    bn, consumers, k_slices = tile
+    co = 8 if bn == 8 else 200
+    x, weight, bias, kw = _conv_args(rn, 3, 7, 9, 128, co, True, True, True, True)
+    plan = GemmPlan(3 * 7 * 9, co, 18, bn, consumers, k_slices, 1)
+    args = (x, weight, bias, kw["pre_scale"], kw["pre_shift"], kw["post_shift"],
+            kw["residual"], True)
+    got = cv._run(*args, plan=plan)
+    again = cv._run(*args, plan=dataclasses.replace(plan, grid=min(plan.n_items, 5)))
+    _assert_close_bf16(got, cv.conv3x3_fused_reference(*args))
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("shape", [(14, 5, 8, 2560, 1280), (28, 40, 64, 320, 320)])
+def test_conv3x3_is_deterministic(rn, no_tf32, shape):
+    """Two runs of the plan give the same bits (the 5x8 dU's split included)."""
+    x, weight, bias, kw = _conv_args(rn, *shape, True, True, True, True)
+    runs = [cv.conv3x3(x, weight, bias, **kw) for _ in range(2)]
+    dys = [cv.conv3x3_input_grad(runs[0], weight) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(*runs) and torch.equal(*dys)
+
+
+def test_conv3x3_refuses_plans_it_does_not_take(rn):
+    x, weight, bias, _ = _conv_args(rn, 1, 4, 4, 64, 64, False, False, False, False)
+    for plan in (GemmPlan(16, 64, 9, 96, 2, 1, 1), GemmPlan(16, 64, 9, 256, 1, 1, 1),
+                 GemmPlan(16, 64, 9, 64, 2, 10, 1), GemmPlan(16, 64, 9, 64, 2, 1, 0)):
+        with pytest.raises(RuntimeError):
+            cv._run(x, weight, bias, None, None, None, None, False, plan=plan)
+
+
+@pytest.mark.parametrize("n", [8, 64, 128, 160, 256])
+def test_sm90_gemm_wide_forms(rn, n):
+    """sm90_gemm.cuh's wgmma m64nNk16 forms on TMA tiles of a 2-D map against
+    the same f32 products."""
+    from svd_xtend_tpu_torch.ops.kernels._build import library
+
+    a, b = rn(64, 64), rn(n, 64)
+    out = torch.empty(64, n, device="cuda")
+    assert library().svdx_sm90_gemm_selftest(a.data_ptr(), b.data_ptr(), out.data_ptr(), n,
+                                             torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, a.float() @ b.float().T, atol=1e-3, rtol=1e-4)
 
 
 @pytest.mark.parametrize("s", [40, 2560])
