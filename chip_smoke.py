@@ -385,7 +385,7 @@ def kernel_phases(dev) -> KernelPhase:
         b_ms, b_by = bound_ms(flops, moved)
         plan = getattr(gg, "geglu_plan", None)  # absent in trees before the plans
         plan = "" if plan is None else "; ".join(
-            f"bn {p.bn} wg {p.consumers} ks {p.k_slices} grid {p.grid}" for p in plan(t, c))
+            f"bn {p.bn} ks {p.k_slices} grid {p.grid}" for p in plan(t, c))
         log(f"  geglu_fwd T {t} C {c}: device {dev_ms:.4f} ms ({flops / dev_ms / 1e9:.1f} "
             f"TFLOP/s), unfused bf16 module path (LayerNorm + cuBLAS GEMMs + gate) device "
             f"{mod_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); plan {plan}")
@@ -512,8 +512,8 @@ def conv_phase(dev, ph: KernelPhase, smi: str):
         b_ms, b_by = bound_ms(flops, moved)
         plan = getattr(cv, "conv3x3_plan", None)  # absent in trees before the plans
         plan = "" if plan is None else plan(n, h, w, ci, cout)
-        plan = plan and (f"{plan.mainloop} bn {plan.bn} wg {plan.consumers} ks "
-                         f"{plan.k_slices} grid {plan.grid}")
+        plan = plan and (f"{plan.mainloop} bn {plan.bn} ks {plan.k_slices} "
+                         f"grid {plan.grid}")
         p_ms = ph.times[name]["plain_ms"] if first else cuda_ms(plain, 3)
         log(f"  {name} {label} x{per}: {dev_ms:.4f} / {lib_ms:.4f} / {b_ms:.4f} ms ({b_by}), "
             f"{flops / dev_ms / 1e9:.1f} TFLOP/s, plain {p_ms:.4f}; {plan}")

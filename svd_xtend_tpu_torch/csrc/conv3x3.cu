@@ -33,8 +33,7 @@
 // samples at the 5x8 and 10x16 levels) and the residual in f32, one cast.
 // Where few tiles would leave SMs idle (the 5x8 level), the K tiles are
 // split into slices whose f32 partials sm90_gemm::reduce_kernel adds in a
-// fixed order. The tile width BN, the consumer warpgroups (1: 64-row tiles,
-// two blocks an SM; 2: 128-row tiles, one block), the K slices and the grid
+// fixed order. The tile width BN (128-row tiles), the K slices and the grid
 // are the plan's (ops/kernels/conv3x3.py::conv3x3_plan, a pure function of
 // the shape); this file takes them and refuses what it does not instantiate.
 //
@@ -82,7 +81,7 @@
 #include "sm90_gemm.cuh"
 
 // the tile widths BN the TMA mainloop instantiates (the plan picks one)
-#define SVDX_CONV_TILE_N 8, 64, 128, 160, 256
+#define SVDX_CONV_TILE_N 8, 128, 160, 256
 
 namespace {
 
@@ -439,26 +438,25 @@ struct ConvEpi {
 // bf16, res may be null; workspace: (k_slices, n*h*w, co) f32 when
 // k_slices > 1, else null. All contiguous; ci % 8 == 0 and co % 8 == 0 (the
 // wrapper checks). The plan (conv3x3_plan): mainloop 1 = the TMA + wgmma
-// mainloop (ci % 64 == 0) with tile width bn, `consumers` warpgroups, the
-// K split and `grid` persistent blocks; mainloop 0 = the mma.sync
-// kernel with bn 64 or 128. Returns the first CUDA error of the launches (0
+// mainloop (ci % 64 == 0) with tile width bn, the K split and `grid`
+// persistent blocks; mainloop 0 = the mma.sync kernel, bn 128. Returns the first CUDA error of the launches (0
 // on success), or cudaErrorInvalidValue for a plan this file does not take
 // (a tensor map TMA refuses is found before anything launches).
 extern "C" int svdx_conv3x3(const void* x, const void* wt, const void* bias, const void* sc,
                             const void* sh, void* u, const void* post, const void* res,
                             void* out, void* workspace, int n, int h, int w, int ci, int co,
-                            int silu, int mainloop, int bn, int consumers, int k_slices,
+                            int silu, int mainloop, int bn, int k_slices,
                             int grid, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int m = n * h * w;
   CUtensorMap a_map, b_map, c_map, r_map;
   if (mainloop == 1) {
-    int err = sm90_gemm::encode_im2col_map(&a_map, sc ? u : x, n, h, w, ci, 64 * consumers);
+    int err = sm90_gemm::encode_im2col_map(&a_map, sc ? u : x, n, h, w, ci, sm90_gemm::kBM);
     if (err == 0) err = sm90_gemm::encode_matrix_map(&b_map, wt, 9 * ci, co, bn);
     if (err == 0) err = sm90_gemm::encode_tile_map(&c_map, out, co, m, bn, 64);
     if (err == 0) err = sm90_gemm::encode_tile_map(&r_map, res ? res : out, co, m, bn, 64);
     if (err != 0) return err;
-  } else if (mainloop != 0 || (bn != 64 && bn != 128)) {
+  } else if (mainloop != 0 || bn != 128) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const __nv_bfloat16* xin = static_cast<const __nv_bfloat16*>(x);
@@ -484,7 +482,7 @@ extern "C" int svdx_conv3x3(const void* x, const void* wt, const void* bias, con
                       static_cast<const __nv_bfloat16*>(res), static_cast<__nv_bfloat16*>(out),
                       co, h * w};
     return sm90_gemm::launch_tile<sm90_gemm::Im2colA, ConvEpi, SVDX_CONV_TILE_N>(
-        bn, consumers, a_map, b_map, c_map, r_map, shape, aload, epi, grid, s);
+        bn, a_map, b_map, c_map, r_map, shape, aload, epi, grid, s);
   }
   Params p;
   p.x = xin;
@@ -498,5 +496,5 @@ extern "C" int svdx_conv3x3(const void* x, const void* wt, const void* bias, con
   p.ci = ci;
   p.co = co;
   p.m = m;
-  return bn == 128 ? launch_tile<128, 2, 4>(p, s) : launch_tile<64, 4, 2>(p, s);
+  return launch_tile<128, 2, 4>(p, s);
 }

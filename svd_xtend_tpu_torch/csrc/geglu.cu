@@ -15,14 +15,14 @@
 //          with the value/gate pairing in its epilogue (GegluEpi). W1p is W1
 //          packed by ops/kernels/geglu.py::pack_w1: its 128-row blocks hold 64
 //          value rows followed by the matching 64 gate rows, so in an
-//          m64nBN accumulator (BN = 128 or 256) column j and j + 64 of a
+//          m64n256 accumulator column j and j + 64 of a
 //          block sit in the same thread, entries i and i + 32, and the
 //          epilogue writes u = (h + b1v) * gelu(g + b1g) (T, 4C) bf16 with no
 //          exchange between threads;
 //   gemm2: u @ W2^T on the same mainloop, epilogue + b2 then + the bf16
 //          residual x (ResidualEpi); where few tiles would leave SMs idle
 //          (the 5x8 level's T), split over K with a fixed-order reduction.
-// Tiles, consumer warpgroups, K slices and grids are the plan's
+// Tiles, K slices and grids are the plan's
 // (ops/kernels/geglu.py::geglu_plan). Rows past T are zero-filled by TMA and
 // not stored.
 //
@@ -59,8 +59,8 @@
 #include "sm90_gemm.cuh"
 
 // the tile widths the two GEMMs instantiate (the plan picks one each)
-#define SVDX_GEGLU1_TILE_N 128, 256
-#define SVDX_GEGLU2_TILE_N 64, 128, 160, 256
+#define SVDX_GEGLU1_TILE_N 256
+#define SVDX_GEGLU2_TILE_N 128, 160
 
 namespace {
 
@@ -173,24 +173,23 @@ struct ResidualEpi {
 // scratch; w1p: (8c, c) bf16 in pack_w1's order; w2: (c, 4c) bf16; ls, lb,
 // b2: (c,) f32; b1: (8c,) f32 in W1's own order; workspace: (ks2, n_tok, c)
 // f32 when ks2 > 1, else null; all contiguous, c % 64 == 0 (the wrapper
-// checks). The plan (geglu_plan): gemm1 tile width bn1, kc1 consumer
-// warpgroups on grid1 blocks; gemm2 bn2, kc2, ks2 K slices on grid2 blocks.
+// checks). The plan (geglu_plan): gemm1 tile width bn1 on grid1 blocks;
+// gemm2 tile width bn2, ks2 K slices on grid2 blocks.
 // Returns the first CUDA error of the launches (0 on success), or
 // cudaErrorInvalidValue for a plan this file does not take (a tensor map TMA
 // refuses is found before anything launches).
 extern "C" int svdx_ln_geglu_residual(const void* x, const void* ls, const void* lb,
                                       const void* w1p, const void* b1, const void* w2,
                                       const void* b2, void* xn, void* u, void* out,
-                                      void* workspace, int n_tok, int c, int bn1, int kc1,
-                                      int grid1, int bn2, int kc2, int ks2, int grid2,
-                                      void* stream) {
+                                      void* workspace, int n_tok, int c, int bn1, int grid1,
+                                      int bn2, int ks2, int grid2, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int inner = 4 * c;
   CUtensorMap a1, b1m, c1, a2, b2m, c2, r2;
-  int err = sm90_gemm::encode_matrix_map(&a1, xn, c, n_tok, 64 * kc1);
+  int err = sm90_gemm::encode_matrix_map(&a1, xn, c, n_tok, sm90_gemm::kBM);
   if (err == 0) err = sm90_gemm::encode_matrix_map(&b1m, w1p, c, 2 * inner, bn1);
   if (err == 0) err = sm90_gemm::encode_tile_map(&c1, u, inner, n_tok, bn1 / 2, 64);
-  if (err == 0) err = sm90_gemm::encode_matrix_map(&a2, u, inner, n_tok, 64 * kc2);
+  if (err == 0) err = sm90_gemm::encode_matrix_map(&a2, u, inner, n_tok, sm90_gemm::kBM);
   if (err == 0) err = sm90_gemm::encode_matrix_map(&b2m, w2, inner, c, bn2);
   if (err == 0) err = sm90_gemm::encode_tile_map(&c2, out, c, n_tok, bn2, 64);
   if (err == 0) err = sm90_gemm::encode_tile_map(&r2, x, c, n_tok, bn2, 64);
@@ -205,12 +204,12 @@ extern "C" int svdx_ln_geglu_residual(const void* x, const void* ls, const void*
   const sm90_gemm::Shape shape1{n_tok, 2 * inner, c / sm90_gemm::kBK, 1, nullptr, 0};
   const GegluEpi epi1{static_cast<const float*>(b1), inner};
   err = sm90_gemm::launch_tile<sm90_gemm::RowsA, GegluEpi, SVDX_GEGLU1_TILE_N>(
-      bn1, kc1, a1, b1m, c1, c1, shape1, sm90_gemm::RowsA{}, epi1, grid1, s);
+      bn1, a1, b1m, c1, c1, shape1, sm90_gemm::RowsA{}, epi1, grid1, s);
   if (err) return err;
 
   const sm90_gemm::Shape shape2{n_tok, c, inner / sm90_gemm::kBK, ks2,
                                 static_cast<float*>(workspace), 1};
   const ResidualEpi epi2{static_cast<const float*>(b2), xp, static_cast<__nv_bfloat16*>(out), c};
   return sm90_gemm::launch_tile<sm90_gemm::RowsA, ResidualEpi, SVDX_GEGLU2_TILE_N>(
-      bn2, kc2, a2, b2m, c2, r2, shape2, sm90_gemm::RowsA{}, epi2, grid2, s);
+      bn2, a2, b2m, c2, r2, shape2, sm90_gemm::RowsA{}, epi2, grid2, s);
 }

@@ -16,8 +16,8 @@
 //   - epilogue: a functor that turns this thread's accumulators of a tile
 //     into bf16 (bias, shift, residual; GEGLU's value/gate product).
 //
-// A block is kC consumer warpgroups (BM = 64 * kC rows) and one producer
-// warpgroup. It is persistent: the blocks walk the items (N tile fastest,
+// A block is two consumer warpgroups (BM = 128 rows, 64 each) and one
+// producer warpgroup, one block an SM. It is persistent: the blocks walk the items (N tile fastest,
 // then M tile, then K slice) w = blockIdx.x, blockIdx.x + gridDim.x, ...,
 // and the ring's stage counter runs on from one item into the next, so the
 // producer fills the next item's stages while the consumers finish this
@@ -26,9 +26,8 @@
 // Each consumer warpgroup runs, per stage, four wgmma m64nBNk16 with both
 // operands K-major in shared memory (its 64 rows of A, all BN rows of B),
 // keeps one group in flight and releases the previous stage when it ends.
-// With kC = 2 one block fills an SM and the warpgroups hand registers over
-// (setmaxnreg: producer 40, consumers 232); with kC = 1 two blocks share an
-// SM, each with half the shared memory.
+// The warpgroups hand registers over (setmaxnreg: producer 40, consumers
+// 232).
 //
 // The epilogue goes through shared memory: each consumer warpgroup finishes
 // its 64 rows of the tile in a row-major bf16 tile there and one of its
@@ -63,8 +62,9 @@
 //   - GEGLU at T 71680, C 320: 0.726 ms with the global stores, 0.445 now;
 //   - reading everything before writing anything in the epilogue lost 3 %
 //     (conv3x3) and 13 % (GEGLU) against one pass;
-//   - two consumer warpgroups beat one (two blocks an SM) at every site:
-//     the L0 forward 0.365 against 0.42-0.49 (global stores);
+//   - two consumer warpgroups beat one (64-row tiles, two blocks an SM) at
+//     every measured shape: the L0 forward 0.365 against 0.42-0.49 (global
+//     stores), so one warpgroup was taken out again;
 //   - clusters of two CTAs multicasting the B tile (half B's traffic from
 //     L2) were within +-4 % of the same plan without them at every site (L0
 //     0.372 against 0.365), and were taken out again; so was a tiled 4-D
@@ -79,6 +79,8 @@
 namespace sm90_gemm {
 
 constexpr int kBK = 64;                 // K per stage: one 128-byte swizzle atom of bf16
+constexpr int kC = 2;                   // consumer warpgroups, 64 rows each
+constexpr int kBM = 64 * kC;            // rows per tile
 constexpr int kSmemCap = 232448;        // the dynamic shared memory a block may use
 constexpr int kMaxStages = 8;
 constexpr int kProducerRegs = 40;
@@ -239,17 +241,12 @@ __device__ __forceinline__ void tma_load_im2col(void* dst, const CUtensorMap* ma
 template <int kN>
 __device__ __forceinline__ void wgmma_ss_n(float (&d)[kN / 2], uint64_t desc_a, uint64_t desc_b,
                                            int scale_d) {
-  static_assert(kN == 8 || kN == 64 || kN == 128 || kN == 160 || kN == 256,
+  static_assert(kN == 8 || kN == 128 || kN == 160 || kN == 256,
                 "no wgmma form for this tile width");
   if constexpr (kN == 8) {
     SVDX_WGMMA_SS(8, 4, 5, 6,
                   "%0,%1,%2,%3",
                   SVDX_G4(0));
-  } else if constexpr (kN == 64) {
-    SVDX_WGMMA_SS(64, 32, 33, 34,
-                  "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,"
-                  "%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31",
-                  SVDX_G32(0));
   } else if constexpr (kN == 128) {
     SVDX_WGMMA_SS(128, 64, 65, 66,
                   "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,"
@@ -323,24 +320,20 @@ struct Im2colA {
 
 // ------------------------------------------------------------ the kernel --
 
-template <int BN, int kC, int kOutCols>
+template <int BN, int kOutCols>
 struct Smem {
-  static constexpr int kBM = 64 * kC;
   static constexpr int kThreads = 128 * (kC + 1);
-  static constexpr int kBlocksPerSm = kC == 1 ? 2 : 1;
   static constexpr uint32_t kABytes = kBM * kBK * 2, kBBytes = BN * kBK * 2;
-  // an SM's 233,472 bytes hold kBlocksPerSm blocks, each with 1 KB the
-  // system keeps, 1 KB of alignment slack and the barriers
+  // the budget less 1 KB of alignment slack and the barriers
   static constexpr int kOutBytes = kBM * kOutCols * 2;
-  static constexpr int kBudget =
-      (kBlocksPerSm == 1 ? kSmemCap : 233472 / 2 - 1024) - 1024 - 256 - kOutBytes;
+  static constexpr int kBudget = kSmemCap - 1024 - 256 - kOutBytes;
   static constexpr int kFit = kBudget / static_cast<int>(kABytes + kBBytes);
   static constexpr int kStages = kFit < kMaxStages ? kFit : kMaxStages;
-  static constexpr int kLaunchRegs = 65536 / (kBlocksPerSm * kThreads) / 8 * 8;
+  static constexpr int kLaunchRegs = 65536 / kThreads / 8 * 8;
   static constexpr uint32_t kConsumerRegs =
       (kThreads * kLaunchRegs - 128 * kProducerRegs) / (128 * kC) / 8 * 8;
   static_assert(kStages >= 2, "tile too large for a ring of two stages");
-  __nv_bfloat16 a[kStages][kBM * kBK];  // each 8 KB * kC: 1024-byte aligned
+  __nv_bfloat16 a[kStages][kBM * kBK];  // each 16 KB: 1024-byte aligned
   __nv_bfloat16 b[kStages][BN * kBK];   // BN * 128 bytes, BN % 8 == 0
   __nv_bfloat16 out[kBM * kOutCols];     // the finished tile, row-major, for the TMA store
   uint64_t full[kStages];
@@ -362,17 +355,16 @@ struct Item {
   int m0, n0, k0, k1, slice;
 };
 
-template <int BN, int kC>
+template <int BN>
 __device__ __forceinline__ Item item_of(const Shape& s, int w) {
-  const int n_tiles = (s.n + BN - 1) / BN, m_tiles = (s.m + 64 * kC - 1) / (64 * kC);
+  const int n_tiles = (s.n + BN - 1) / BN, m_tiles = (s.m + kBM - 1) / kBM;
   const int nt = w % n_tiles, rest = w / n_tiles, mt = rest % m_tiles, ks = rest / m_tiles;
-  return {mt * 64 * kC, nt * BN, ks * s.k_tiles / s.k_slices, (ks + 1) * s.k_tiles / s.k_slices,
-          ks};
+  return {mt * kBM, nt * BN, ks * s.k_tiles / s.k_slices, (ks + 1) * s.k_tiles / s.k_slices, ks};
 }
 
-template <int BN, int kC>
+template <int BN>
 __host__ __device__ __forceinline__ int n_items(const Shape& s) {
-  return ((s.n + BN - 1) / BN) * ((s.m + 64 * kC - 1) / (64 * kC)) * s.k_slices;
+  return ((s.n + BN - 1) / BN) * ((s.m + kBM - 1) / kBM) * s.k_slices;
 }
 
 // This thread's accumulator entries of an m64nBN tile as (row, column pair)
@@ -432,18 +424,17 @@ __device__ __forceinline__ void epilogue(const Epi& epi, float (&d)[BN / 2], int
   }
 }
 
-template <int BN, int kC, class ALoad, class Epi>
-__global__ void __launch_bounds__(Smem<BN, kC, Epi::template kOutCols<BN>>::kThreads,
-                                  Smem<BN, kC, Epi::template kOutCols<BN>>::kBlocksPerSm)
+template <int BN, class ALoad, class Epi>
+__global__ void __launch_bounds__(Smem<BN, Epi::template kOutCols<BN>>::kThreads, 1)
 gemm_kernel(const __grid_constant__ CUtensorMap a_map, const __grid_constant__ CUtensorMap b_map,
             const __grid_constant__ CUtensorMap c_map, const __grid_constant__ CUtensorMap r_map,
             const Shape shape, const ALoad aload, const Epi epi) {
-  using Sm = Smem<BN, kC, Epi::template kOutCols<BN>>;
+  using Sm = Smem<BN, Epi::template kOutCols<BN>>;
   constexpr int kStages = Sm::kStages;
   extern __shared__ char smem_raw[];
   Sm& sm = sm90::aligned_smem<Sm>(smem_raw);
   const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
-  const int items = n_items<BN, kC>(shape);
+  const int items = n_items<BN>(shape);
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
       sm90::mbar_init(&sm.full[s], 1);
@@ -466,7 +457,7 @@ gemm_kernel(const __grid_constant__ CUtensorMap a_map, const __grid_constant__ C
       constexpr int kRows = 64 * Epi::template kOutCols<BN>;  // a warpgroup's tile rows
       int it = 0;
       for (int w = blockIdx.x, ii = 0; w < items; w += gridDim.x, ++ii) {
-        const Item item = item_of<BN, kC>(shape, w);
+        const Item item = item_of<BN>(shape, w);
         const typename ALoad::Pos pos = aload.at(item.m0);
         // the residual tile once the item's first stages are on their way
         // and the consumers are into its products
@@ -501,7 +492,7 @@ gemm_kernel(const __grid_constant__ CUtensorMap a_map, const __grid_constant__ C
     float acc[BN / 2];
     int it = 0;
     for (int w = blockIdx.x, ii = 0; w < items; w += gridDim.x, ++ii) {
-      const Item item = item_of<BN, kC>(shape, w);
+      const Item item = item_of<BN>(shape, w);
       for (int kt = item.k0; kt < item.k1; ++kt, ++it) {
         const int st = it % kStages;
         sm90::mbar_wait(&sm.full[st], (it / kStages) & 1);
@@ -589,20 +580,20 @@ static inline int sm_count() {
   return n_sms;
 }
 
-// One launch of the (BN, kC) kernel on `grid` persistent blocks (the plan's:
-// at most the items, and at most what the SMs hold at once), then the
-// split-K reduction when shape.k_slices > 1. Returns the first CUDA error.
-template <int BN, int kC, class ALoad, class Epi>
+// One launch of the BN-wide kernel on `grid` persistent blocks (the plan's:
+// at most the items, and at most one an SM), then the split-K reduction
+// when shape.k_slices > 1. Returns the first CUDA error.
+template <int BN, class ALoad, class Epi>
 int launch(const CUtensorMap& a_map, const CUtensorMap& b_map, const CUtensorMap& c_map,
            const CUtensorMap& r_map, const Shape& shape, const ALoad& aload, const Epi& epi,
            int grid, cudaStream_t stream) {
-  using Sm = Smem<BN, kC, Epi::template kOutCols<BN>>;
-  if (grid < 1 || grid > n_items<BN, kC>(shape) || grid > sm_count() * Sm::kBlocksPerSm ||
+  using Sm = Smem<BN, Epi::template kOutCols<BN>>;
+  if (grid < 1 || grid > n_items<BN>(shape) || grid > sm_count() ||
       shape.k_slices < 1 || shape.k_slices > shape.k_tiles ||
       (shape.k_slices > 1 && shape.partial == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr int smem = sm90::smem_bytes<Sm>();
-  const auto kernel = gemm_kernel<BN, kC, ALoad, Epi>;
+  const auto kernel = gemm_kernel<BN, ALoad, Epi>;
   int err = static_cast<int>(
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
   if (err) return err;
@@ -621,26 +612,16 @@ int launch(const CUtensorMap& a_map, const CUtensorMap& b_map, const CUtensorMap
   return err;
 }
 
-// launch<BN, kC> for the (bn, consumers) of a plan, BN one of kBNs: two
-// consumer warpgroups take every listed width, one (two blocks an SM) those
-// up to 160 (an m64n256 accumulator is 128 registers, over the launch
-// bound's share with two blocks an SM)
+// launch<BN> for the tile width bn of a plan, BN one of kBNs
 template <class ALoad, class Epi, int BN0, int... kBNs>
-int launch_tile(int bn, int kc, const CUtensorMap& a_map, const CUtensorMap& b_map,
+int launch_tile(int bn, const CUtensorMap& a_map, const CUtensorMap& b_map,
                 const CUtensorMap& c_map, const CUtensorMap& r_map, const Shape& shape,
                 const ALoad& aload, const Epi& epi, int grid, cudaStream_t stream) {
-  if (bn == BN0) {
-    if (kc == 2)
-      return launch<BN0, 2>(a_map, b_map, c_map, r_map, shape, aload, epi, grid, stream);
-    if constexpr (BN0 <= 160) {
-      if (kc == 1)
-        return launch<BN0, 1>(a_map, b_map, c_map, r_map, shape, aload, epi, grid, stream);
-    }
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (bn == BN0)
+    return launch<BN0>(a_map, b_map, c_map, r_map, shape, aload, epi, grid, stream);
   if constexpr (sizeof...(kBNs) > 0)
-    return launch_tile<ALoad, Epi, kBNs...>(bn, kc, a_map, b_map, c_map, r_map, shape, aload,
-                                            epi, grid, stream);
+    return launch_tile<ALoad, Epi, kBNs...>(bn, a_map, b_map, c_map, r_map, shape, aload, epi,
+                                            grid, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

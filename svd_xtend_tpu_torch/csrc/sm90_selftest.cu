@@ -171,7 +171,7 @@ extern "C" int svdx_sm90_selftest(const void* a, const void* b, void* out, int b
 }
 
 // a: bf16 (64, 64), b: bf16 (n, 64), out: f32 (64, n), all contiguous; n one
-// of the wgmma widths sm90_gemm.cuh has (8, 64, 128, 160, 256). out = a b^T
+// of the wgmma widths sm90_gemm.cuh has (8, 128, 160, 256). out = a b^T
 // through one wgmma_ss_n<n> per k16 slice. Returns cudaErrorInvalidValue for
 // another n, else the encoder's refusal or cudaGetLastError().
 extern "C" int svdx_sm90_gemm_selftest(const void* a, const void* b, void* out, int n,
@@ -179,7 +179,6 @@ extern "C" int svdx_sm90_gemm_selftest(const void* a, const void* b, void* out, 
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (n) {
     case 8: return launch_gemm_form<8>(a, b, out, s);
-    case 64: return launch_gemm_form<64>(a, b, out, s);
     case 128: return launch_gemm_form<128>(a, b, out, s);
     case 160: return launch_gemm_form<160>(a, b, out, s);
     case 256: return launch_gemm_form<256>(a, b, out, s);

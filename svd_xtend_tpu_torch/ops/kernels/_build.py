@@ -37,12 +37,12 @@ _SIGNATURES = {
     "svdx_flash_attention_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "svdx_flash_attention_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                                      _P],
-    "svdx_ln_geglu_residual": [_P] * 11 + [_I] * 9 + [_P],
+    "svdx_ln_geglu_residual": [_P] * 11 + [_I] * 7 + [_P],
     "svdx_frame_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "svdx_temporal_resnet_conv": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _I, _I, _I, _I, _I, _P],
     "svdx_temporal_resnet_tile_rows": [],
-    "svdx_conv3x3": [_P] * 10 + [_I] * 11 + [_P],
+    "svdx_conv3x3": [_P] * 10 + [_I] * 10 + [_P],
     "svdx_flash_variant_fwd": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     "svdx_chain_bf16": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
     "svdx_chain_int8_qd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],

@@ -16,10 +16,9 @@ on the shared TMA + wgmma mainloop of ``csrc/sm90_gemm.cuh``, whose A tiles
 come by TMA's im2col mode (the SAME padding read as zeros) and whose
 epilogue adds the bias, shift and residual. ``conv3x3_plan``, a pure
 function of the shape, picks the mainloop (the first, mma.sync kernel where
-Ci % 64 != 0: the UNet's conv_in), the tile width, the consumer
-warpgroups, the K slices and the grid; the wrapper passes it to the
-launcher. The source says why the prologue is a pass of its own and not
-part of the conv's loads.
+Ci % 64 != 0: the UNet's conv_in), the tile width, the K slices and the
+grid; the wrapper passes it to the launcher. The source says why the
+prologue is a pass of its own and not part of the conv's loads.
 
 Weights are the ``nn.Conv2d`` OIHW parameter. The kernel reads them as
 (Co, 3, 3, Ci), which is the OIHW tensor's permute when it is stored in
@@ -55,7 +54,7 @@ from .gemm_plan import K_TILE, SM_COUNT, GemmPlan, mma_plan, plan_gemm, sm_count
 
 CHANNEL_MULTIPLE = 8     # one 16-byte load is 8 channels of one tap
 # the tile widths csrc/conv3x3.cu instantiates (SVDX_CONV_TILE_N)
-CONV_TILE_N = (8, 64, 128, 160, 256)
+CONV_TILE_N = (8, 128, 160, 256)
 
 
 def apply_pre_affine(x: torch.Tensor, sc: torch.Tensor, sh: torch.Tensor,
@@ -123,7 +122,7 @@ def conv3x3_plan(n: int, h: int, w: int, ci: int, co: int, sms: int = SM_COUNT) 
     is on the path, and choosing a plan costs ~0.2 ms."""
     m = n * h * w
     if ci % K_TILE:
-        return mma_plan(m, co, -(-9 * ci // 32), sms)
+        return mma_plan(m, co, -(-9 * ci // 32))
     widths = tuple(b for b in CONV_TILE_N if (b == 8) == (co <= 8))
     return plan_gemm(m, co, 9 * ci // K_TILE, widths, sms)
 
@@ -167,7 +166,7 @@ def _run(x, weight, bias, pre_scale, pre_shift, post_shift, residual, pre_silu,
     err = library().svdx_conv3x3(
         x.data_ptr(), wk.data_ptr(), _ptr(bias), _ptr(sc), _ptr(sh), _ptr(u), _ptr(post),
         _ptr(residual), out.data_ptr(), _ptr(ws), n, h, w, ci, co, int(bool(pre_silu)),
-        int(plan.mainloop == "tma"), plan.bn, plan.consumers, plan.k_slices, plan.grid,
+        int(plan.mainloop == "tma"), plan.bn, plan.k_slices, plan.grid,
         torch.cuda.current_stream(x.device).cuda_stream)
     check(err, "conv3x3")
     return out

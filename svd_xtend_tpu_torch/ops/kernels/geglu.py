@@ -10,8 +10,8 @@ residual in its epilogue. Unlike the TPU kernel, the LayerNorm'd tokens and
 the 4C-wide gate activation go through device memory (the wrapper
 allocates them): the source says why. The first GEMM reads W1 in
 ``pack_w1``'s order, packed once per weight version (``packed_w1``);
-``geglu_plan``, a pure function of (T, C), picks both GEMMs' tiles,
-consumer warpgroups, K slices and grids.
+``geglu_plan``, a pure function of (T, C), picks both GEMMs' tiles, K
+slices and grids.
 
 Weights are in their ``nn.Linear`` layouts: ``w1`` (2·inner, C) with the
 value half in rows [:inner] and the gate half in [inner:] (the diffusers
@@ -41,8 +41,8 @@ LN_EPS = 1e-5
 CHANNEL_MULTIPLE = 64    # K tiles of 64 in both GEMMs
 PAIR_ROWS = 64           # W1's value rows per packed block, then as many gate rows
 # the tile widths csrc/geglu.cu instantiates (SVDX_GEGLU1_TILE_N, SVDX_GEGLU2_TILE_N)
-GEGLU1_TILE_N = (128, 256)
-GEGLU2_TILE_N = (64, 128, 160, 256)
+GEGLU1_TILE_N = (256,)
+GEGLU2_TILE_N = (128, 160)
 
 
 def ln_geglu_residual_reference(x: torch.Tensor, ls: torch.Tensor, lb: torch.Tensor,
@@ -146,8 +146,8 @@ def _launch(x, ls, lb, w1, b1, w2, b2, plans=None) -> torch.Tensor:
     err = library().svdx_ln_geglu_residual(
         x2.data_ptr(), lsf.data_ptr(), lbf.data_ptr(), w1p.data_ptr(), b1f.data_ptr(),
         w2b.data_ptr(), b2f.data_ptr(), xn.data_ptr(), u.data_ptr(), out.data_ptr(),
-        None if ws is None else ws.data_ptr(), t, c, first.bn, first.consumers, first.grid,
-        second.bn, second.consumers, second.k_slices, second.grid,
+        None if ws is None else ws.data_ptr(), t, c, first.bn, first.grid,
+        second.bn, second.k_slices, second.grid,
         torch.cuda.current_stream(x.device).cuda_stream)
     check(err, "ln_geglu_residual")
     ln_geglu_residual.launches += 1

@@ -1,9 +1,9 @@
 """The plan of one launch on the shared Hopper GEMM mainloop
-(``csrc/sm90_gemm.cuh``): tile width, consumer warpgroups, K slices and grid,
-chosen on the host from the shape alone.
+(``csrc/sm90_gemm.cuh``): tile width, K slices and grid, chosen on the host
+from the shape alone.
 
-C (M x N) = A (M x K) · Bᵀ with K in tiles of 64. A block of ``consumers``
-warpgroups computes BM = 64·consumers rows by ``bn`` columns; its items are
+C (M x N) = A (M x K) · Bᵀ with K in tiles of 64. A block (two consumer
+warpgroups) computes BM = 128 rows by ``bn`` columns; its items are
 (N tile, M tile, K slice) with the N tile fastest (``GemmPlan.items`` walks
 them in the kernel's order), and ``grid`` persistent blocks take items
 w = block, block + grid, ... A K slice s of S covers the K tiles
@@ -12,17 +12,19 @@ fixed order 0..S-1 by a second kernel, which also runs the epilogue.
 
 The choice is the cheapest under a model of the card fitted to the device
 times of every candidate at the UNet's conv3x3 sites and dU shapes on an
-H100 (``scripts/bench_gemm_plans.py``; PERF.md), in µs: a K tile of an item
-costs c1·BM·bn/8192 + c0 (× k1 with one consumer warpgroup, two blocks an
-SM); an item adds o1 for its epilogue where it finishes its own outputs; a
-split adds its partials' traffic at rho µs a GB; items are spread over the
-SMs in whole rounds. Where some candidate gives every SM an item (64-row
-tiles or K slices), one that does not is not taken. One consumer
-warpgroup was slower than two at every measured shape, so it is a candidate
-only where M fits one 64-row tile. Over the 40 measured shapes (33 conv3x3,
-GEGLU's second GEMM at 8) the model's pick was 2.8 % slower than the fastest
-candidate on average, 39 % at worst (the 5x8 level's 1280 -> 1280 dU, where
-the fastest plan leaves SMs without an item).
+H100 80GB HBM3 at 700 W (``scripts/bench_gemm_plans.py``; PERF.md), in µs: a K tile of an item
+costs c1·bn/64 + c0; an item adds o1 for its epilogue where it finishes
+its own outputs; a split adds its partials' traffic at rho µs a GB; items
+are spread over the SMs in whole rounds. Where some candidate gives every
+SM an item (K slices), one that does not is not taken. Over the 40
+measured shapes (32 conv3x3, GEGLU's second GEMM at 8) the model's pick was
+2.7 % slower than the fastest candidate on average, 39 % at worst (the 5x8
+level's 1280 -> 1280 dU, where the fastest plan leaves SMs without an
+item). The plain rule "the widest tile with the least N waste, then the
+fewest K slices that give every SM an item" was 9.7 % slower on average:
+at the UNet's sites it costs the CFG pass's conv3x3 forwards 1.1 ms more
+(12.3 ms against 11.2), mostly at the 10x16 and 5x8 levels, where the
+model splits K or narrows the tile to even out the rounds.
 """
 
 from __future__ import annotations
@@ -34,13 +36,13 @@ from typing import Iterator, Sequence
 K_TILE = 64              # K per stage: one 128-byte swizzle atom of bf16
 SM_COUNT = 132           # an H100 SXM; the wrappers pass the card's own count
 MAX_BOX = 256            # TMA's largest box dimension
-ONE_CONSUMER_MAX_BN = 160   # one-warpgroup blocks exist up to this width
 MAX_SLICES = 4          # the most the plan bench measured
 MIN_SLICE_TILES = 4      # K tiles per slice at least
 
+BM = 128                 # rows per tile (both mainloops)
+
 # the model's constants, µs (fitted; see the module docstring)
 _C1, _C0 = 0.1691, 0.25          # a K tile: c1 per 128 x 64 outputs, c0 fixed
-_K1 = 0.914                      # one consumer warpgroup, two blocks an SM
 _O1 = 1.0                        # an item's epilogue
 _RHO = 600.0                     # a split's partials, µs a GB
 
@@ -48,21 +50,17 @@ _RHO = 600.0                     # a split's partials, µs a GB
 @dataclasses.dataclass(frozen=True)
 class GemmPlan:
     """One launch: ``mainloop`` "tma" (csrc/sm90_gemm.cuh) or "mma" (conv3x3's
-    mma.sync mainloop, for Ci % 64 != 0: 128-row tiles of ``bn`` columns, one
-    block each, K in tiles of 32)."""
+    mma.sync mainloop, for Ci % 64 != 0: 128 x 128 tiles, one block each, K
+    in tiles of 32)."""
 
     m: int
     n: int
     k_tiles: int
     bn: int
-    consumers: int
     k_slices: int
     grid: int
     mainloop: str = "tma"
-
-    @property
-    def bm(self) -> int:
-        return 128 if self.mainloop == "mma" else 64 * self.consumers
+    bm = BM
 
     @property
     def m_tiles(self) -> int:
@@ -75,10 +73,6 @@ class GemmPlan:
     @property
     def n_items(self) -> int:
         return self.m_tiles * self.n_tiles * self.k_slices
-
-    @property
-    def blocks_per_sm(self) -> int:
-        return 2 if self.consumers == 1 else 1
 
     @property
     def a_box(self) -> tuple:
@@ -111,12 +105,8 @@ def slice_bounds(k_tiles: int, k_slices: int) -> list:
 def cost(plan: GemmPlan, sm_count: int = SM_COUNT) -> float:
     """The model's µs for one launch (see the module docstring)."""
     k_per_item = -(-plan.k_tiles // plan.k_slices)
-    tile = _C1 * plan.bm * plan.bn / 8192 + _C0
-    if plan.consumers == 1:      # two blocks share an SM: rounds of two items
-        rounds = 2 * -(-plan.n_items // (2 * sm_count))
-        tile *= _K1
-    else:
-        rounds = -(-plan.n_items // sm_count)
+    tile = _C1 * plan.bn / 64 + _C0
+    rounds = -(-plan.n_items // sm_count)
     if plan.k_slices == 1:
         return rounds * (k_per_item * tile + _O1)
     partials = (plan.k_slices * 8 + 4) * plan.m * plan.n * 1e-9
@@ -128,17 +118,11 @@ def candidates(m: int, n: int, k_tiles: int, widths: Sequence[int],
     """Every plan the kernels take for the shape, each with its grid."""
     out = []
     for bn in widths:
-        for consumers in (2, 1):
-            # one warpgroup (64-row tiles, two blocks an SM) was slower than
-            # two at every measured shape: it serves only an M of one tile
-            if consumers == 1 and (bn > ONE_CONSUMER_MAX_BN or m > 64):
-                continue
-            for k_slices in range(1, max_slices + 1):
-                if k_slices > 1 and k_tiles // k_slices < MIN_SLICE_TILES:
-                    break
-                plan = GemmPlan(m, n, k_tiles, bn, consumers, k_slices, 1)
-                out.append(dataclasses.replace(
-                    plan, grid=min(plan.n_items, sm_count * plan.blocks_per_sm)))
+        for k_slices in range(1, max_slices + 1):
+            if k_slices > 1 and k_tiles // k_slices < MIN_SLICE_TILES:
+                break
+            plan = GemmPlan(m, n, k_tiles, bn, k_slices, 1)
+            out.append(dataclasses.replace(plan, grid=min(plan.n_items, sm_count)))
     return out
 
 
@@ -148,18 +132,14 @@ def plan_gemm(m: int, n: int, k_tiles: int, widths: Sequence[int], sm_count: int
     with an item for every SM first)."""
     if m < 1 or n < 1 or k_tiles < 1 or n % 2:
         raise ValueError(f"gemm plan: no plan for M {m}, N {n}, {k_tiles} K tiles")
-    # ties: fewer slices, then wider tiles, then more consumers
+    # ties: fewer slices, then wider tiles
     return min(candidates(m, n, k_tiles, widths, sm_count, max_slices),
-               key=lambda p: (p.n_items < sm_count, cost(p, sm_count),
-                              p.k_slices, -p.bn, -p.consumers))
+               key=lambda p: (p.n_items < sm_count, cost(p, sm_count), p.k_slices, -p.bn))
 
 
-def mma_plan(m: int, n: int, k_tiles: int, sm_count: int = SM_COUNT) -> GemmPlan:
-    """conv3x3's mma.sync mainloop: 128-wide column tiles where they make two
-    waves of 128-row blocks on the SMs, else 64-wide; one block per tile."""
-    m_tiles = -(-m // 128)
-    bn = 128 if n > 64 and m_tiles * -(-n // 128) >= 2 * sm_count else 64
-    plan = GemmPlan(m, n, k_tiles, bn, 0, 1, 1, mainloop="mma")
+def mma_plan(m: int, n: int, k_tiles: int) -> GemmPlan:
+    """conv3x3's mma.sync mainloop: 128 x 128 tiles, one block per tile."""
+    plan = GemmPlan(m, n, k_tiles, 128, 1, 1, mainloop="mma")
     return dataclasses.replace(plan, grid=plan.n_items)
 
 

@@ -2,9 +2,9 @@
 the card: device time per launch (a CUDA graph) of conv3x3 at the UNet's
 sites (CFG batch 28), its dU at the train step's shapes (batch 14), and
 GEGLU at its eight (T, C) shapes, each under the plan the wrapper picks
-and under every other (tile width, consumer warpgroups, K slices up to 4)
-the kernels take, beside F.conv2d alone or the unfused module path. The
-model constants of ops/kernels/gemm_plan.py were fitted to its JSON.
+and under every other (tile width, K slices up to 4) the kernels take,
+beside F.conv2d alone or the unfused module path. The model constants of
+ops/kernels/gemm_plan.py were fitted to its JSON.
 
     python -m svd_xtend_tpu_torch.scripts.bench_gemm_plans [--quick] [--json PATH]
 
@@ -37,7 +37,7 @@ def _rank(alts, best):
 
 
 def _tag(p):
-    return f"bn {p.bn} wg {p.consumers} ks {p.k_slices}"
+    return f"bn {p.bn} ks {p.k_slices}"
 
 
 def conv_sites(quick, rows):

@@ -385,20 +385,19 @@ def test_geglu_kernel_serving_and_ragged(rn, t, c):
     _assert_close_bf16(got, gg.ln_geglu_residual_reference(*args))
 
 
-# (first GEMM's bn, consumers; second's bn, consumers, k_slices)
-_GEGLU_TILES = [(128, 1, 64, 1, 1), (128, 2, 128, 2, 3), (256, 2, 160, 1, 1),
-                (256, 2, 256, 2, 4), (128, 1, 160, 2, 2)]
+# (first GEMM's bn; second's bn, k_slices)
+_GEGLU_TILES = [(256, 128, 1), (256, 128, 3), (256, 160, 1), (256, 160, 2), (256, 160, 4)]
 
 
 @pytest.mark.parametrize("tiles", _GEGLU_TILES, ids=lambda t: "-".join(map(str, t)))
 def test_geglu_every_tile(rn, tiles):
-    """Both GEMMs at each tile width, consumer count and split a plan may
-    pick, at a ragged T; on fewer persistent blocks, the same bits."""
-    bn1, kc1, bn2, kc2, ks2 = tiles
+    """Both GEMMs at each tile width and split a plan may pick, at a ragged
+    T; on fewer persistent blocks, the same bits."""
+    bn1, bn2, ks2 = tiles
     t, c = 300, 320
     args = _geglu_args(rn, t, c)
-    first = GemmPlan(t, 8 * c, c // 64, bn1, kc1, 1, 7)
-    second = GemmPlan(t, c, 4 * c // 64, bn2, kc2, ks2, 3)
+    first = GemmPlan(t, 8 * c, c // 64, bn1, 1, 7)
+    second = GemmPlan(t, c, 4 * c // 64, bn2, ks2, 3)
     got = gg._launch(*args, plans=(first, second))
     again = gg._launch(*args, plans=(first, dataclasses.replace(second, grid=1)))
     _assert_close_bf16(got - args[0], gg.ln_geglu_residual_reference(*args) - args[0])
@@ -457,12 +456,10 @@ _EPILOGUES = [(False, False, False, False), (True, False, False, False),
                                    (4, 5, 8, 2560, 1280), (100, 9, 13, 64, 320),
                                    (2, 9, 5, 8, 40), (14, 40, 64, 8, 320)])
 def test_conv3x3_kernel(rn, no_tf32, shape, epi):
-    """With each epilogue: the UNet's L0 resnet shape at training batch (128
-    wide column tiles, the third masked at Co 320), its L2 and L3 shapes
-    (64-wide tiles), a W that is not a multiple of 64 with Co 320 and enough
-    pixels for 128-wide tiles, and Ci 8 (not a multiple of the 32-channel K
-    tile) with a ragged 64-wide tile (Co 40) and at the conv_in width on
-    128-wide tiles."""
+    """With each epilogue, on its plan: the UNet's L0 resnet shape at
+    training batch, its L2 and L3 shapes at small batch (K split), a W that
+    is not a multiple of 64 with Co 320, and Ci 8 (the mma.sync mainloop)
+    with a ragged tile (Co 40) and at the conv_in width."""
     x, weight, bias, kw = _conv_args(rn, *shape, *_EPILOGUES[epi])
     n = cv.conv3x3.launches
     got = cv.conv3x3(x, weight, bias, **kw)
@@ -542,21 +539,20 @@ def test_conv3x3_input_grad_sites(rn, no_tf32, site):
     _assert_close_bf16(got, cv.conv3x3_input_grad_reference(dy, weight))
 
 
-# (bn, consumers, k_slices): every tile the TMA mainloop instantiates, and splits
-_CONV_TILES = [(8, 1, 1), (8, 2, 3), (64, 1, 1), (64, 2, 2), (128, 1, 4), (128, 2, 1),
-               (160, 1, 3), (160, 2, 5), (256, 2, 1), (256, 2, 2)]
+# (bn, k_slices): every tile the TMA mainloop instantiates, and splits
+_CONV_TILES = [(8, 1), (8, 3), (128, 1), (128, 4), (160, 3), (160, 5), (256, 1), (256, 2)]
 
 
-@pytest.mark.parametrize("tile", _CONV_TILES, ids=lambda t: "bn%d-wg%d-ks%d" % t)
+@pytest.mark.parametrize("tile", _CONV_TILES, ids=lambda t: "bn%d-ks%d" % t)
 def test_conv3x3_every_tile(rn, no_tf32, tile):
-    """The TMA mainloop at each tile width, consumer count and K split a plan
-    may pick, on a ragged shape (M and Co not multiples of the tile; tiles
-    spanning samples), against the plain version; on fewer persistent
-    blocks, the same bits."""
-    bn, consumers, k_slices = tile
+    """The TMA mainloop at each tile width and K split a plan may pick, on a
+    ragged shape (M and Co not multiples of the tile; tiles spanning
+    samples), against the plain version; on fewer persistent blocks, the
+    same bits."""
+    bn, k_slices = tile
     co = 8 if bn == 8 else 200
     x, weight, bias, kw = _conv_args(rn, 3, 7, 9, 128, co, True, True, True, True)
-    plan = GemmPlan(3 * 7 * 9, co, 18, bn, consumers, k_slices, 1)
+    plan = GemmPlan(3 * 7 * 9, co, 18, bn, k_slices, 1)
     args = (x, weight, bias, kw["pre_scale"], kw["pre_shift"], kw["post_shift"],
             kw["residual"], True)
     got = cv._run(*args, plan=plan)
@@ -577,13 +573,13 @@ def test_conv3x3_is_deterministic(rn, no_tf32, shape):
 
 def test_conv3x3_refuses_plans_it_does_not_take(rn):
     x, weight, bias, _ = _conv_args(rn, 1, 4, 4, 64, 64, False, False, False, False)
-    for plan in (GemmPlan(16, 64, 9, 96, 2, 1, 1), GemmPlan(16, 64, 9, 256, 1, 1, 1),
-                 GemmPlan(16, 64, 9, 64, 2, 10, 1), GemmPlan(16, 64, 9, 64, 2, 1, 0)):
+    for plan in (GemmPlan(16, 64, 9, 96, 1, 1), GemmPlan(16, 64, 9, 64, 1, 1),
+                 GemmPlan(16, 64, 9, 128, 10, 1), GemmPlan(16, 64, 9, 128, 1, 0)):
         with pytest.raises(RuntimeError):
             cv._run(x, weight, bias, None, None, None, None, False, plan=plan)
 
 
-@pytest.mark.parametrize("n", [8, 64, 128, 160, 256])
+@pytest.mark.parametrize("n", [8, 128, 160, 256])
 def test_sm90_gemm_wide_forms(rn, n):
     """sm90_gemm.cuh's wgmma m64nNk16 forms on TMA tiles of a 2-D map against
     the same f32 products."""

@@ -16,8 +16,7 @@ import torch.nn.functional as F
 
 from svd_xtend_tpu_torch.ops.kernels import conv3x3 as cv
 from svd_xtend_tpu_torch.ops.kernels import geglu as gg
-from svd_xtend_tpu_torch.ops.kernels.gemm_plan import (K_TILE, MAX_BOX, ONE_CONSUMER_MAX_BN,
-                                                       SM_COUNT, slice_bounds)
+from svd_xtend_tpu_torch.ops.kernels.gemm_plan import K_TILE, MAX_BOX, SM_COUNT, slice_bounds
 from svd_xtend_tpu_torch.scripts import sites
 
 CSRC = Path(cv.__file__).resolve().parents[2] / "csrc"
@@ -63,15 +62,14 @@ def _check_cover(plan):
     per_tile = collections.Counter((m0, n0) for m0, n0, _, _ in seen)
     assert set(per_tile.values()) == {plan.k_slices}
     if plan.mainloop == "tma":       # persistent blocks
-        assert 1 <= plan.grid <= min(plan.n_items, SM_COUNT * plan.blocks_per_sm)
+        assert 1 <= plan.grid <= min(plan.n_items, SM_COUNT)
     else:                            # one block per tile
         assert plan.grid == plan.n_items
 
 
 def _check_tma(plan, widths):
     assert plan.mainloop == "tma"
-    assert plan.bn in widths and plan.consumers in (1, 2)
-    assert plan.consumers == 2 or plan.bn <= ONE_CONSUMER_MAX_BN
+    assert plan.bn in widths and plan.bm == 128
     for box in (plan.a_box, plan.b_box):
         assert box[0] * 2 == 128 and all(1 <= d <= MAX_BOX for d in box)
     assert plan.workspace_elems == (plan.k_slices * plan.m * plan.n if plan.k_slices > 1 else 0)
@@ -85,7 +83,7 @@ def test_conv3x3_plan_at_site(site):
     if ci % K_TILE:
         # only the UNet's conv_in (Ci 8) keeps the mma.sync mainloop
         assert (ci, label) == (8, "none") and plan.mainloop == "mma"
-        assert plan.bn in (64, 128)
+        assert plan.bn == 128
     else:
         _check_tma(plan, _source_widths("SVDX_CONV_TILE_N"))
         assert plan.k_tiles == 9 * ci // K_TILE
@@ -95,7 +93,7 @@ def test_conv3x3_plan_at_site(site):
 
 def test_conv3x3_plan_fills_the_5x8_level():
     """At the 5x8 level (M = 1120 or 560) the plans give the SMs work: at
-    least 132 items by 64-row tiles or K slices."""
+    least 132 items by K slices."""
     for batch, ci, co in [(28, 1280, 1280), (28, 2560, 1280), (14, 1280, 1280),
                           (14, 1280, 2560)]:
         plan = cv.conv3x3_plan(batch, 5, 8, ci, co)
@@ -105,7 +103,7 @@ def test_conv3x3_plan_fills_the_5x8_level():
 def test_conv3x3_plan_takes_the_card_sm_count():
     plan = cv.conv3x3_plan(28, 40, 64, 320, 320, sms=114)
     _check_tma(plan, _source_widths("SVDX_CONV_TILE_N"))
-    assert plan.grid <= 114 * plan.blocks_per_sm
+    assert plan.grid <= 114
     assert cv.conv3x3_plan(28, 40, 64, 320, 320) == cv.conv3x3_plan(28, 40, 64, 320, 320)
 
 
