@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port (svd_xtend_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile DIR]
+    python3 chip_smoke.py [--profile DIR] [--tresnet-only]
 
 Phases, each of which raises on failure (non-zero exit):
   1. device: needs CUDA; prints the card's name and power limit and the TF32
@@ -25,10 +25,27 @@ Phases, each of which raises on failure (non-zero exit):
      backward pair at the four training shapes, each in the host loop and as
      device time per launch of a CUDA graph, with its executed TFLOP/s beside
      the bound (and SDPA's device time beside the forward).
-     GEGLU at its eight (T, C) shapes and the temporal resnet's conv_a /
-     conv_b at its five checked shapes: device time per launch in a CUDA
-     graph beside the bound (GEGLU also beside the unfused bf16 module
-     path's device time; two runs must give the same bits).
+     The frame attention at the four UNet levels (CFG batch 2 x 14 frames)
+     as device time per launch in a CUDA graph beside SDPA over frames.
+     GEGLU at its eight (T, C) shapes: device time per launch in a CUDA
+     graph beside the bound and the unfused bf16 module path's device time
+     (two runs must give the same bits).
+  3a. temporal resnet: kernels A and B at every shape of the exact video
+     and the train step (TRESNET_SITES), each against its plain version
+     (kernel A's statistics, slot by slot, within 1e-5 relative of the plain
+     statistics of its stored h; their channel sums against
+     conv_a_reference's reported), the block against
+     temporal_resnet_reference, two runs the same bits; device ms per
+     launch in a CUDA graph beside F.conv2d of the frame conv alone and the
+     bound, the plan, and Σ launches x device ms per exact video and per
+     train step; at the UNet levels (and the VAE decoder's top) the block's
+     device time split into norm1's fold, the kernels (with their prologue
+     passes), norm2's fold and the weight preparation, and its host ms; the
+     GroupNorm fold's kernels (group_norm_fold, fold_from_partials) against
+     their plain versions.
+     ``--tresnet-only`` runs this phase alone (with this script's
+     svd_xtend_tpu_torch/scripts/sites.py it also times the mma.sync kernels
+     of commit 0b86170 in that tree).
   3b. conv3x3: the kernel against its plain version at every site of the
      UNet (CFG batch 28 for generate, batch 14 for the train step, each with
      the epilogue that site uses), at every dU shape of the train step's
@@ -63,9 +80,9 @@ Phases, each of which raises on failure (non-zero exit):
      median s/video is reported, beside each run's and the device memory
      segments the allocator added during it); the last run's forward-kernel
      launch counts must all be > 0; the flash forward's, GEGLU's and the
-     temporal resnet's launches per video by shape, and their sums of
-     launches x the kernel phase's device ms at each shape (the temporal
-     resnet's shapes the kernel phase did not time are timed here).
+     temporal resnet's launches per video by shape (the exact video's held
+     against the site table), and their sums of launches x the kernel
+     phases' device ms at each shape.
   6. train (this slice's main path): the default TrainConfig (temporal
      scope, 512x320x14f, batch 1, remat "block", AdamW with f32 masters,
      bf16 compute) through make_optimizer/create_train_state/make_train_step
@@ -73,10 +90,11 @@ Phases, each of which raises on failure (non-zero exit):
      steps whose launch counts of every kernel (forward and flash backward)
      must all be > 0; finite loss and grad_norm, trainable weights changed,
      frozen ones bit-identical; s/step and peak memory; the flash backward
-     pair's, the flash forward's and GEGLU's launches per step by level,
-     and their sums of launches x the kernel phase's device ms at that
-     level. Then one
-     full-scope step at the same size: finite loss, peak memory.
+     pair's, the flash forward's, GEGLU's and the temporal resnet's
+     launches per step by level (the temporal resnet's held against the
+     site table), and their sums of launches x the kernel phases' device ms
+     at that level. Then one full-scope step at the same size: finite loss,
+     peak memory.
   7. mha (the head-major attention entry point, ops/attention.py::mha, as a
      caller outside the UNet uses it): the UNet's L0 self-attention shape,
      (2x14, 2560, 320) in 5 heads of 64, through the BSHD flash kernel: its
@@ -117,8 +135,9 @@ import torch
 import torch.nn.functional as F
 
 from svd_xtend_tpu_torch.scripts import card, cuda_ms, graph_ms
-from svd_xtend_tpu_torch.scripts.sites import (GEGLU_SHAPES, UNET_CONV_SITES, UNET_DGRAD_SITES,
-                                               VAE_DECODE_SITES, VAE_ENCODE_SITES)
+from svd_xtend_tpu_torch.scripts.sites import (GEGLU_SHAPES, TRESNET_SITES, UNET_CONV_SITES,
+                                               UNET_DGRAD_SITES, VAE_DECODE_SITES,
+                                               VAE_ENCODE_SITES)
 
 SEED = 0
 # rel-L2 bound of the bf16 card UNet against the f32 host UNet: bf16 rounds
@@ -231,33 +250,208 @@ class KernelPhase:
         return k_ms, p_ms
 
 
-def tresnet_level(ph: KernelPhase, shape, run_a, run_b, flops, moved_a, moved_b):
-    """Device ms per launch of the temporal resnet's conv_a and conv_b at one
-    x shape (B, F, S, C), in a CUDA graph, beside the bound."""
-    ph.tresnet_ms[shape] = a_ms, b_ms = graph_ms(run_a), graph_ms(run_b)
-    (ba, by), (bb, _) = bound_ms(flops, moved_a), bound_ms(flops, moved_b)
-    log(f"  temporal resnet {shape}: device conv_a {a_ms:.4f} ms, conv_b {b_ms:.4f} ms "
-        f"({flops / a_ms / 1e9:.1f} / {flops / b_ms / 1e9:.1f} TFLOP/s); bound {ba:.4f} / "
-        f"{bb:.4f} ms ({by})")
+def tresnet_phase(dev, ph: KernelPhase, smi: str):
+    """The temporal resnet's kernels A and B at every shape of the paths
+    (svd_xtend_tpu_torch/scripts/sites.py TRESNET_SITES): each against its
+    plain version (kernel A's statistics within 1e-5 of the plain statistics
+    of its stored h), the block against temporal_resnet_reference, two runs
+    the same bits; device ms per
+    launch in a CUDA graph beside F.conv2d of the frame conv alone (a (3, 1)
+    filter, channels-last, on the pre-activated input) and the bound, the
+    plan; Σ launches x device ms per exact video and per train step. At the
+    UNet levels the block's device time split into its parts, and its host
+    ms. Also the GroupNorm fold's kernels at the L0 fold. Runs on
+    the tree of commit 0b86170 too (the mma.sync kernels, for an A/B against
+    them), which folds the blend weight
+    into conv2's weights and packs them on every call."""
+    from svd_xtend_tpu_torch.ops import video
+    from svd_xtend_tpu_torch.ops.kernels import gemm_plan
+    from svd_xtend_tpu_torch.ops.kernels import groupnorm as gn
+    from svd_xtend_tpu_torch.ops.kernels import temporal_resnet as tr
+    folded_w = not hasattr(tr, "packed")        # the API of commit 0b86170
+    log("  x (B, F, S, C) x launches per video / per step: device ms conv_a / conv_b / "
+        "F.conv2d alone / bound, TFLOP/s of conv_a, conv_b; the plan")
+    totals = collections.defaultdict(float)
+    for b, f, s, c, per_video, per_step in TRESNET_SITES:
+        g = torch.Generator(device=dev).manual_seed(SEED + 10)
+        rn = lambda *sh, sc=1.0: (torch.randn(*sh, device=dev, generator=g) * sc).to(
+            torch.bfloat16)
+        x, t = rn(b, f, s, c), rn(b, f, c, sc=0.5)
+        k1, k2 = rn(3, c, c, sc=(3 * c) ** -0.5), rn(3, c, c, sc=(3 * c) ** -0.5)
+        b1, b2 = rn(c, sc=0.1), rn(c, sc=0.1)
+        sc1, sh1 = (1 + 0.1 * rn(b, c).float()) / 2, 0.1 * rn(b, c).float()
+        w = torch.tensor([0.37], device=dev)
+        if folded_w:
+            wt1, b1f = tr.pack_taps(k1), b1.float()
+            k2w, b2w = (k2.float() * w).to(k2.dtype), (b2.float() * w).to(b2.dtype)
+            wt2, b2f, wb = tr.pack_taps(k2w), b2w.float(), ()
+        else:
+            (wt1, b1f), (wt2, b2f) = tr.packed(k1, b1), tr.packed(k2, b2)
+            k2w, b2w, wb = k2, b2, (w,)
+        label = f"{(b, f, s, c)}"
+        run_a = lambda: tr.conv_a(x, wt1, b1f, sc1, sh1, t)
+        plain_a = lambda: tr.conv_a_reference(x, k1, b1, sc1, sh1, t)
+        h, psum, psq = run_a()
+        rh, rsum, rsq = plain_a()
+        ph.check("temporal_resnet_conv_a", h, rh, label)
+        # statistics: slot by slot, the plain statistics of the kernel's own
+        # stored h (f32 sums of the same values in another order); the
+        # channel sums against conv_a_reference's, whose h rounds otherwise
+        # in places (1-ulp differences of h, held above, move a sum of
+        # squares over 560 rows by up to ~1.4e-4), reported
+        own = (gn.channel_stats_reference(h.reshape(-1, c), f * s) if not folded_w
+               else (psum, psq))
+        for name, got, ref, mine in (("sum", psum, rsum, own[0]), ("sumsq", psq, rsq, own[1])):
+            rel = ((got.sum(1) - ref).abs().max() / ref.abs().max()).item()
+            slot = ((got - mine).abs().max() / mine.abs().max()).item()
+            log(f"    channel {name}: slots against the stored h's {slot:.3g} (bound 1e-5); "
+                f"sums against conv_a_reference's {rel:.3g}")
+            if not slot <= 1e-5:
+                raise RuntimeError(f"temporal_resnet_conv_a {label}: channel {name} off")
+        run_b = lambda: tr.conv_b(rh, wt2, b2f, sc1, sh1, x, *wb)
+        plain_b = lambda: tr.conv_b_reference(rh, k2w, b2w, sc1, sh1, x, *wb)
+        out = run_b()
+        ph.check("temporal_resnet_conv_b", out, plain_b(), label)
+        again = (*run_a(), run_b())
+        if not all(torch.equal(u, v) for u, v in zip((h, psum, psq, out), again)):
+            raise RuntimeError(f"temporal resnet {label}: two runs differ")
+        sc, bi = 1 + 0.1 * rn(c).float(), 0.1 * rn(c).float()
+        args = (x, t, k1, b1, k2, b2, sc, bi, sc, bi, w)
+        block = lambda: tr.temporal_resnet_block(*args, groups=32, eps=1e-5)
+        ph.check("temporal_resnet_block", block(), tr.temporal_resnet_reference(*args, 32, 1e-5),
+                 label)
+        flops = 2 * b * f * s * 3 * c * c
+        moved_a, moved_b = nbytes(x, x, wt1, t), nbytes(x, x, x, wt2)
+        if (b, f, s, c) == (2, 14, 2560, 320):   # the kernels line's shape
+            ph.time("temporal_resnet_conv_a", run_a, plain_a, flops, moved_a)
+            ph.time("temporal_resnet_conv_b", run_b, plain_b, flops, moved_b)
+        a_ms, b_ms = graph_ms(run_a), graph_ms(run_b)
+        ph.tresnet_ms[(b, f, s, c)] = a_ms, b_ms
+        u = video.nchw(tr._activate(x, sc1, sh1))       # (B, C, F, S), channels-last
+        w31 = k1.permute(2, 1, 0)[..., None].contiguous(memory_format=torch.channels_last)
+        lib_ms = graph_ms(lambda: F.conv2d(u, w31, b1, padding=(1, 0)))
+        bound, by = bound_ms(flops, moved_a)
+        if (b, f, s, c) == (2, 14, 2560, 320):
+            ph.times["temporal_resnet_conv_a"]["device_ms"] = a_ms
+            ph.times["temporal_resnet_conv_b"]["device_ms"] = b_ms
+        plan = getattr(gemm_plan, "tresnet_plan", None)
+        plan = "" if plan is None else plan(b, f, s, c)
+        plan = plan and f"bn {plan.bn} ks {plan.k_slices} grid {plan.grid}"
+        log(f"  temporal resnet {label} x {per_video} / {per_step}: {a_ms:.4f} / {b_ms:.4f} / "
+            f"{lib_ms:.4f} / {bound:.4f} ms ({by}), {flops / a_ms / 1e9:.1f} / "
+            f"{flops / b_ms / 1e9:.1f} TFLOP/s; {plan}")
+        for path, n in (("exact video", per_video), ("train step", per_step)):
+            for key, v in (("a", a_ms), ("b", b_ms), ("conv2d", 2 * lib_ms), ("bound", 2 * bound)):
+                totals[path, key] += n * v
+        if b == 2 or (b, f, s) == (1, 8, 163840):
+            tresnet_block_parts(label, x, t, k1, b1, k2, b2, sc, bi, w, sc1, sh1, psum, psq,
+                                a_ms, b_ms, block, folded_w)
+        del x, h, rh, out, again, u
+    for path in ("exact video", "train step"):
+        a, b_, lib, bound = (totals[path, k] for k in ("a", "b", "conv2d", "bound"))
+        log(f"  [{smi}] temporal resnet per {path}: launches x device ms, conv_a {a:.1f} + "
+            f"conv_b {b_:.1f} = {a + b_:.1f} ms; F.conv2d alone (both convs) {lib:.1f}; "
+            f"bound {bound:.1f}")
+    if not folded_w:
+        fold_phase(dev, ph)
 
 
-def tresnet_device_ms(ph: KernelPhase, dev, shape):
-    """tresnet_level at a shape the kernel phase did not time (seeded random
-    inputs, the UNet's time embedding or the VAE's zeros alike)."""
+def tresnet_block_parts(label, x, t, k1, b1, k2, b2, sc, bi, w, sc1, sh1, psum, psq, a_ms,
+                        b_ms, block, folded_w):
+    """The block's device ms in a CUDA graph and its parts: norm1's fold, the
+    prologue pass (twice in the block, inside each kernel's time), kernels A
+    and B, norm2's fold from A's statistics, the weight preparation (0b86170's
+    per call: both taps packed, w folded into conv2, the biases cast); and
+    the block's host ms per call (enqueue, no synchronise)."""
+    from svd_xtend_tpu_torch.ops.kernels import groupnorm as gn
     from svd_xtend_tpu_torch.ops.kernels import temporal_resnet as tr
 
-    g = torch.Generator(device=dev).manual_seed(SEED + 10)
-    rn = lambda *s, sc=1.0: (torch.randn(*s, device=dev, generator=g) * sc).to(torch.bfloat16)
-    b, f, s, c = shape
-    x, t = rn(b, f, s, c), rn(b, f, c, sc=0.5)
-    wt1 = tr.pack_taps(rn(3, c, c, sc=(3 * c) ** -0.5))
-    wt2 = tr.pack_taps(rn(3, c, c, sc=(3 * c) ** -0.5))
-    b1, b2 = rn(c, sc=0.1).float(), rn(c, sc=0.1).float()
-    sc1, sh1 = (1 + 0.1 * rn(b, c).float()) / 2, 0.1 * rn(b, c).float()
-    h = tr.conv_a(x, wt1, b1, sc1, sh1, t)[0]
-    tresnet_level(ph, shape, lambda: tr.conv_a(x, wt1, b1, sc1, sh1, t),
-                  lambda: tr.conv_b(h, wt2, b2, sc1, sh1, x), 2 * b * f * s * 3 * c * c,
-                  nbytes(x, x, wt1, t), nbytes(x, x, x, wt2))
+    f, s = x.shape[1], x.shape[2]
+    fold1 = graph_ms(lambda: gn.group_norm_fold(x, sc, bi, groups=32, eps=1e-5))
+    if folded_w:        # 0b86170's API: the plain fold of the slot sums
+        fold2 = graph_ms(lambda: gn.fold_from_channel_sums(psum.sum(1), psq.sum(1), f * s, sc,
+                                                           bi, 32, 1e-5))
+    else:
+        fold2 = graph_ms(lambda: gn.fold_from_partials(psum, psq, f * s, sc, bi, 32, 1e-5))
+
+    def per_call_prep():
+        k2w = (k2.float() * w).to(k2.dtype)
+        return (tr.pack_taps(k1), tr.pack_taps(k2w), b1.float(),
+                (b2.float() * w).to(b2.dtype).float())
+    prep = graph_ms(per_call_prep)
+    prologue = "n/a" if folded_w else f"{graph_ms(lambda: tr.affine_silu(x, sc1, sh1)):.4f}"
+    dev_ms = graph_ms(block)
+    block()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        block()
+    host = (time.perf_counter() - t0) / 20 * 1e3
+    torch.cuda.synchronize()
+    log(f"    block {label}: device {dev_ms:.4f} ms = fold1 {fold1:.4f} + conv_a {a_ms:.4f} "
+        f"(prologue {prologue} of it) + fold2 {fold2:.4f} + conv_b {b_ms:.4f} (+ prologue) "
+        f"+ weights {'%.4f' % prep if folded_w else '0 (packed once per version)'}; host "
+        f"{host:.4f} ms a call (enqueue); the per-call weight preparation of 0b86170 "
+        f"{prep:.4f} ms")
+
+
+def fold_phase(dev, ph: KernelPhase):
+    """The GroupNorm fold's kernels (csrc/gn_fold.cu) at the L0 temporal
+    block's x (2, 14, 2560, 320): group_norm_fold (statistics pass and fold)
+    against its plain version, its partials slot by slot against
+    channel_stats_reference (1e-5 relative), and fold_from_partials from
+    them against the plain fold of their slot sums; sc, sh within 1e-4
+    (f32 sums in another order, E[x^2] - mean^2 as the JAX formula). Each
+    timed beside its plain version and the bound (inputs read once, outputs
+    written once; the partials between the two passes are scratch)."""
+    from svd_xtend_tpu_torch.ops.kernels import groupnorm as gn
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    x = (torch.randn(2, 14, 2560, 320, device=dev, generator=g) * 2 + 0.5).to(torch.bfloat16)
+    scale = 1 + 0.1 * torch.randn(320, device=dev, generator=g)
+    bias = 0.1 * torch.randn(320, device=dev, generator=g)
+    rows = 14 * 2560
+    psum = torch.empty(2, gn.stats_slots(rows), 320, device=dev)
+    psq = torch.empty_like(psum)
+    gn._fold_launch(x, psum, psq, rows, scale, bias, 32, 1e-5)
+    for got, ref in zip((psum, psq), gn.channel_stats_reference(x.reshape(-1, 320), rows)):
+        rel = ((got - ref).abs().max() / ref.abs().max()).item()
+        log(f"  fold statistics partials: max rel err {rel:.3g} (bound 1e-5)")
+        if not bool(torch.isfinite(got).all()) or rel > 1e-5:
+            raise RuntimeError(f"group_norm_fold: partials off by {rel}")
+    cases = (("group_norm_fold", lambda: gn.group_norm_fold(x, scale, bias, groups=32, eps=1e-5),
+              lambda: gn.group_norm_fold_reference(x, scale, bias, groups=32, eps=1e-5),
+              nbytes(x)),
+             ("fold_from_partials",
+              lambda: gn.fold_from_partials(psum, psq, rows, scale, bias, 32, 1e-5),
+              lambda: gn.fold_from_channel_sums(psum.sum(1), psq.sum(1), rows, scale, bias, 32,
+                                                1e-5),
+              nbytes(psum, psq)))
+    for name, run, plain, moved in cases:
+        err = 0.0
+        for got, ref in zip(run(), plain()):
+            err = max(err, (got - ref).abs().max().item())
+            if not bool(torch.isfinite(got).all()) or not torch.allclose(got, ref, 1e-4, 1e-4):
+                raise RuntimeError(f"{name}: error {err}")
+        ph.err[name] = err
+        ph.time(name, run, plain, 0, moved + 2 * 2 * 320 * 4)      # + sc, sh
+        ph.times[name]["device_ms"] = graph_ms(run)
+        log(f"    {name}: max_abs_err {err:.4g} (allclose 1e-4), device "
+            f"{ph.times[name]['device_ms']:.4f} ms")
+    # the folds of ResnetBlock2D (conv3x3's pre-affine): the UNet's L0 norm1
+    # at CFG batch and the VAE decoder's top resnet
+    for shape in ((28, 40, 64, 320), (8, 320, 512, 128)):
+        x = (torch.randn(*shape, device=dev, generator=g) * 2 + 0.5).to(torch.bfloat16)
+        c = shape[-1]
+        scale, bias = scale[:c], bias[:c]
+        run = lambda: gn.group_norm_fold(x, scale, bias, groups=32, eps=1e-5)
+        plain = lambda: gn.group_norm_fold_reference(x, scale, bias, groups=32, eps=1e-5)
+        for got, ref in zip(run(), plain()):
+            if not torch.allclose(got, ref, 1e-4, 1e-4):
+                raise RuntimeError(f"group_norm_fold {shape}: off")
+        log(f"    group_norm_fold {shape}: device {graph_ms(run):.4f} ms, plain "
+            f"{graph_ms(plain):.4f} ms, bound {bound_ms(0, nbytes(x))[0]:.4f} ms (bytes)")
+        del x
 
 
 def kernel_phases(dev) -> KernelPhase:
@@ -265,7 +459,6 @@ def kernel_phases(dev) -> KernelPhase:
     from svd_xtend_tpu_torch.ops.kernels import geglu as gg
     from svd_xtend_tpu_torch.ops.kernels import groupnorm as gn
     from svd_xtend_tpu_torch.ops.kernels import temporal_attention as ta
-    from svd_xtend_tpu_torch.ops.kernels import temporal_resnet as tr
 
     g = torch.Generator(device=dev).manual_seed(SEED)
     rn = lambda *s, sc=1.0: (torch.randn(*s, device=dev, generator=g) * sc).to(torch.bfloat16)
@@ -287,58 +480,25 @@ def kernel_phases(dev) -> KernelPhase:
         ph.forward_level("generate", b, s, h, run, sdpa, nbytes(q, k, v, q))
         del q, k, v
 
-    log("kernels: temporal attention")
+    log("kernels: temporal attention (device ms per launch in a CUDA graph at the four "
+        "UNet levels, CFG batch 2 x 14 frames)")
     for b, f, s, h in [(2, 14, 2560, 5), (2, 14, 640, 10), (2, 14, 160, 20), (2, 14, 40, 20)]:
         q, k, v = rn(b, f, s, h * 64), rn(b, f, s, h * 64), rn(b, f, s, h * 64)
         run = lambda: ta.frame_attention(q, k, v, num_heads=h, scale=0.125)
         plain = lambda: ta.frame_attention_reference(q, k, v, num_heads=h, scale=0.125)
         ph.check("frame_attention_fwd", run(), plain(), f"{(b, f, s, h * 64)}")
+        frames = lambda a: a.view(b, f, s, h, 64).permute(0, 2, 3, 1, 4)
+        sdpa = lambda: F.scaled_dot_product_attention(frames(q), frames(k), frames(v),
+                                                      scale=0.125)
+        flops, moved = 4 * b * s * h * f * f * 64, nbytes(q, k, v, q)
         if s == 2560:
-            frames = lambda a: a.view(b, f, s, h, 64).permute(0, 2, 3, 1, 4)
-            ph.time("frame_attention_fwd", run, plain, 4 * b * s * h * f * f * 64,
-                    nbytes(q, k, v, q),
-                    lambda: F.scaled_dot_product_attention(frames(q), frames(k), frames(v),
-                                                           scale=0.125), "SDPA over frames")
-
-    log("kernels: temporal resnet A and B (UNet levels, VAE decoder top)")
-    for b, f, s, c, temb in [(2, 14, 2560, 320, True), (2, 14, 640, 640, True),
-                             (2, 14, 160, 1280, True), (2, 14, 40, 1280, True),
-                             (1, 8, 163840, 128, False)]:
-        x = rn(b, f, s, c)
-        t = rn(b, f, c, sc=0.5) if temb else torch.zeros(b, f, c, device=dev,
-                                                         dtype=torch.bfloat16)
-        k1, k2 = rn(3, c, c, sc=(3 * c) ** -0.5), rn(3, c, c, sc=(3 * c) ** -0.5)
-        b1, b2 = rn(c, sc=0.1), rn(c, sc=0.1)
-        sc1 = (1 + 0.1 * rn(b, c).float()) / 2
-        sh1 = 0.1 * rn(b, c).float()
-        wt1, wt2 = tr.pack_taps(k1), tr.pack_taps(k2)
-        label = f"{(b, f, s, c)}"
-        run_a = lambda: tr.conv_a(x, wt1, b1.float(), sc1, sh1, t)
-        plain_a = lambda: tr.conv_a_reference(x, k1, b1, sc1, sh1, t)
-        h, psum, psq = run_a()
-        rh, rsum, rsq = plain_a()
-        ph.check("temporal_resnet_conv_a", h, rh, label)
-        # statistics: f32 sums of the same bf16 values in another order
-        for name, got, ref in (("sum", psum.sum(1), rsum), ("sumsq", psq.sum(1), rsq)):
-            rel = ((got - ref).abs().max() / ref.abs().max()).item()
-            log(f"    channel {name}: max rel err {rel:.3g} (bound 1e-4)")
-            if rel > 1e-4:
-                raise RuntimeError(f"temporal_resnet_conv_a {label}: channel {name} off")
-        run_b = lambda: tr.conv_b(rh, wt2, b2.float(), sc1, sh1, x)
-        plain_b = lambda: tr.conv_b_reference(rh, k2, b2, sc1, sh1, x)
-        ph.check("temporal_resnet_conv_b", run_b(), plain_b(), label)
-        w = torch.tensor(0.37, device=dev)
-        sc, bi = 1 + 0.1 * rn(c).float(), 0.1 * rn(c).float()
-        args = (x, t, k1, b1, k2, b2, sc, bi, sc, bi, w)
-        ph.check("temporal_resnet_block", tr.temporal_resnet_block(*args, groups=32, eps=1e-5),
-                 tr.temporal_resnet_reference(*args, 32, 1e-5), label)
+            ph.time("frame_attention_fwd", run, plain, flops, moved, sdpa, "SDPA over frames")
+        dev_ms, sdpa_ms = graph_ms(run), graph_ms(sdpa)
         if s == 2560:
-            flops = 2 * b * f * s * 3 * c * c
-            ph.time("temporal_resnet_conv_a", run_a, plain_a, flops, nbytes(x, x, wt1, t))
-            ph.time("temporal_resnet_conv_b", run_b, plain_b, flops, nbytes(x, x, x, wt2))
-        tresnet_level(ph, (b, f, s, c), run_a, run_b, 2 * b * f * s * 3 * c * c,
-                      nbytes(x, x, wt1, t), nbytes(x, x, x, wt2))
-        del x, h, rh
+            ph.times["frame_attention_fwd"]["device_ms"] = dev_ms
+        b_ms, b_by = bound_ms(flops, moved)
+        log(f"  frame attention {(b, f, s, h * 64)} heads {h}: device {dev_ms:.4f} ms, SDPA over "
+            f"frames device {sdpa_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
 
     log("kernels: GroupNorm (transformer norm, UNet conv_norm_out, VAE decoder)")
     for shape, silu, eps in [((28, 2560, 320), False, 1e-6), ((28, 40, 64, 320), True, 1e-5),
@@ -767,6 +927,9 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", default="",
                         help="directory for a torch.profiler table of one train step")
+    parser.add_argument("--tresnet-only", action="store_true",
+                        help="only the temporal resnet phase (for timing another tree's "
+                             "kernels under this script)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -784,7 +947,14 @@ def main() -> int:
     _build.library()
     log(f"build: {time.time() - t0:.1f} s -> {_build.library_path().name}")
 
+    if args.tresnet_only:
+        log("kernels: temporal resnet A and B at every site (only)")
+        tresnet_phase(dev, KernelPhase(), smi)
+        return 0
     ph = kernel_phases(dev)
+    torch.cuda.empty_cache()
+    log("kernels: temporal resnet A and B at every site of the exact video and the train step")
+    tresnet_phase(dev, ph, smi)
     torch.cuda.empty_cache()
     conv_phase(dev, ph, smi)
     flash_bshd_phase(dev, ph)
@@ -804,7 +974,7 @@ def main() -> int:
 
     log("train: default TrainConfig (temporal scope, 512x320x14f, batch 1, remat block)")
     train_launches = train_phase(dev, smi, counters, args.profile, ph.bwd_ms, ph.fwd_ms,
-                                 ph.geglu_ms)
+                                 ph.geglu_ms, ph.tresnet_ms)
     torch.cuda.empty_cache()
 
     log("mha: the head-major attention entry point at the UNet's L0 shape")
@@ -827,6 +997,11 @@ def main() -> int:
                                    "svd_xtend_tpu/ops/pallas/temporal_resnet.py:140"),
         "group_norm_silu": ("triton", "svd_xtend_tpu_torch/ops/kernels/groupnorm.py",
                             "svd_xtend_tpu/ops/pallas/groupnorm.py:51"),
+        # the GroupNorm folds: XLA code in the JAX package, no Pallas kernel
+        "group_norm_fold": ("cuda", "svd_xtend_tpu_torch/csrc/gn_fold.cu",
+                            "svd_xtend_tpu/ops/pallas/groupnorm.py:274"),
+        "fold_from_partials": ("cuda", "svd_xtend_tpu_torch/csrc/gn_fold.cu",
+                               "svd_xtend_tpu/ops/pallas/temporal_resnet.py:240"),
         "geglu_fwd": ("cuda", "svd_xtend_tpu_torch/csrc/geglu.cu",
                       "svd_xtend_tpu/ops/pallas/geglu.py:119"),
         "flash_attention_bwd_dq": ("cuda", "svd_xtend_tpu_torch/csrc/flash_backward.cu",
@@ -877,6 +1052,8 @@ def kernel_counters():
         "temporal_resnet_conv_a": tr.conv_a,
         "temporal_resnet_conv_b": tr.conv_b,
         "group_norm_silu": gn.group_norm_silu,
+        "group_norm_fold": gn.group_norm_fold,
+        "fold_from_partials": gn.fold_from_partials,
         "geglu_fwd": gg.ln_geglu_residual,
         "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
         "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
@@ -966,8 +1143,7 @@ def generate_phase(dev, smi, counters, ph: KernelPhase):
     """The exact generate, then the two cache modes on the same image and
     noise; {path: launches} of each mode's last timed run. The kernel
     phase's device times per launch price the launches per video of the
-    flash forward and GEGLU by shape, and the temporal resnet's (timed here
-    at the shapes the kernel phase did not time)."""
+    flash forward, GEGLU and the temporal resnet by shape."""
     import dataclasses
 
     from svd_xtend_tpu_torch.core.config import PipelineConfig
@@ -1025,8 +1201,12 @@ def generate_phase(dev, smi, counters, ph: KernelPhase):
         forward_per_run(path, by_shape, GENERATE_TIMED, launches[path]["flash_attention_fwd"],
                         ph.fwd_ms["generate"], smi, "video")
         price(f"{path}: geglu_fwd", geglu_by_shape, GENERATE_TIMED, ph.geglu_ms, smi, "video")
-        for shape in set(conv_a_by_shape) - set(ph.tresnet_ms):
-            tresnet_device_ms(ph, dev, shape)
+        if path == "generate":      # the exact video: the site table's launches by shape
+            want = {st[:4]: st[4] for st in TRESNET_SITES if st[4]}
+            for tally in (conv_a_by_shape, conv_b_by_shape):
+                if {k: n / GENERATE_TIMED for k, n in tally.items()} != want:
+                    raise RuntimeError(f"temporal resnet launches by shape {dict(tally)} per "
+                                       f"{GENERATE_TIMED} videos, the site table gives {want}")
         for i, (name, tally) in enumerate((("temporal_resnet_conv_a", conv_a_by_shape),
                                            ("temporal_resnet_conv_b", conv_b_by_shape))):
             price(f"{path}: {name}", tally, GENERATE_TIMED,
@@ -1137,14 +1317,15 @@ def price(what, tally, runs, ms, smi, unit):
     return total
 
 
-def train_phase(dev, smi, counters, profile_dir, bwd_ms, fwd_ms, geglu_ms):
-    """The train step; `bwd_ms` {S: device (dQ ms, dK/dV ms)}, `fwd_ms` and
-    `geglu_ms` from the kernel phase price the step's flash backward,
-    forward and GEGLU launches per level."""
+def train_phase(dev, smi, counters, profile_dir, bwd_ms, fwd_ms, geglu_ms, tresnet_ms):
+    """The train step; `bwd_ms` {S: device (dQ ms, dK/dV ms)}, `fwd_ms`,
+    `geglu_ms` and `tresnet_ms` from the kernel phases price the step's
+    flash backward, forward, GEGLU and temporal resnet launches per level."""
     import dataclasses
 
     from svd_xtend_tpu_torch.ops.kernels import flash_attention as fa
     from svd_xtend_tpu_torch.ops.kernels import geglu as gg
+    from svd_xtend_tpu_torch.ops.kernels import temporal_resnet as tr
 
     from svd_xtend_tpu_torch.core.config import TrainConfig
     from svd_xtend_tpu_torch.diffusion.pipeline import SVDModels
@@ -1184,7 +1365,8 @@ def train_phase(dev, smi, counters, profile_dir, bwd_ms, fwd_ms, geglu_ms):
     # every flash_attention_bwd call launches the dQ and the dK/dV kernel once
     with calls_by(fa, "flash_attention_bwd", TOKENS) as by_len, \
             calls_by(fa, "flash_attention_fwd", BATCH_AND_TOKENS) as fwd_by_shape, \
-            calls_by(gg, "ln_geglu_residual", GEGLU_KEY) as geglu_by_shape:
+            calls_by(gg, "ln_geglu_residual", GEGLU_KEY) as geglu_by_shape, \
+            calls_by(tr, "conv_a", SHAPE) as conv_a_by_shape:
         for _ in range(TRAIN_STEPS):
             state, m = step(state, batch, generator=draws)
             metrics.append(m)
@@ -1194,6 +1376,12 @@ def train_phase(dev, smi, counters, profile_dir, bwd_ms, fwd_ms, geglu_ms):
     forward_per_run("train", fwd_by_shape, TRAIN_STEPS,
                     launches["flash_attention_fwd"] / TRAIN_STEPS, fwd_ms["train"], smi, "step")
     price("train: geglu_fwd", geglu_by_shape, TRAIN_STEPS, geglu_ms, smi, "step")
+    want = {st[:4]: st[5] for st in TRESNET_SITES if st[5]}
+    if {k: n / TRAIN_STEPS for k, n in conv_a_by_shape.items()} != want:
+        raise RuntimeError(f"temporal resnet launches by shape {dict(conv_a_by_shape)} per "
+                           f"{TRAIN_STEPS} steps, the site table gives {want}")
+    price("train: temporal_resnet_conv_a + conv_b", conv_a_by_shape, TRAIN_STEPS,
+          {k: sum(v) for k, v in tresnet_ms.items()}, smi, "step")
     per_step = {s_len: n / TRAIN_STEPS for s_len, n in sorted(by_len.items(), reverse=True)}
     for i, name in enumerate(("flash_attention_bwd_dq", "flash_attention_bwd_dkv")):
         if sum(by_len.values()) != launches[name]:
@@ -1249,14 +1437,15 @@ def train_phase(dev, smi, counters, profile_dir, bwd_ms, fwd_ms, geglu_ms):
 # the port's own kernels: the __global__ functions of csrc/*.cu and the
 # Triton kernels of ops/kernels/groupnorm.py, by their unqualified names
 HAND_KERNELS = frozenset({"flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
-                          "tconv_kernel", "frame_attention_kernel", "ln_kernel",
-                          "sm90_gemm::gemm_kernel", "sm90_gemm::reduce_kernel", "prologue_kernel",
-                          "stats_kernel", "norm_kernel", "conv3x3_kernel"})
+                          "frame_attention_kernel", "ln_kernel", "sm90_gemm::gemm_kernel",
+                          "sm90_gemm::reduce_kernel", "affine_silu::kernel", "stats_kernel",
+                          "gn_stats::stats_kernel", "fold_kernel", "norm_kernel",
+                          "conv3x3_kernel"})
 
 
 def kernel_base_name(name: str) -> str:
-    """'void (anonymous namespace)::tconv_kernel<true, 128>(...)' ->
-    'tconv_kernel'; names in a named namespace keep it ('at::native::...')."""
+    """'void (anonymous namespace)::affine_silu::kernel<true>(...)' ->
+    'affine_silu::kernel'; names in a named namespace keep it ('at::native::...')."""
     name = name.removeprefix("void ").replace("(anonymous namespace)::", "")
     return re.match(r"[\w:]*", name).group(0)
 

@@ -24,7 +24,7 @@
 // TMA, consumer warpgroups running wgmma m64nBNk16 with both operands
 // K-major in shared memory. A K tile is 64 channels of one tap. The A tile
 // (BM output pixels x 64 channels) comes by TMA's im2col mode over the NHWC
-// input (sm90_gemm::Im2colA): one load per tap at its (dx, dy) offsets, the
+// input (sm90_gemm::Im2colA<3>): one load per tap at its (dx, dy) offsets, the
 // box running across rows and samples in pixel order, the SAME padding and
 // the pixels past the last sample read as zeros by the hardware. No thread
 // computes an address or a padding flag. The B tile is BN rows of the
@@ -49,8 +49,9 @@
 // (the corners below); its boxes run across rows and samples as the
 // 128-pixel tiles do.
 //
-// The affine + SiLU prologue runs as its own pass, u = bf16([silu](x*sc +
-// sh)) through device memory, which the conv then reads with its zero
+// The affine + SiLU prologue runs as its own pass (csrc/affine_silu.cuh,
+// shared with the temporal resnet), u = bf16([silu](x*sc + sh)) through
+// device memory, which the conv then reads with its zero
 // padding (so the padding stays zero). Why not in the conv's loads, as the
 // TPU kernel does: with a per-tap K loop every input element is loaded, and
 // would be transformed, 9 times per column block. The first version of PR
@@ -78,6 +79,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "affine_silu.cuh"
 #include "sm90_gemm.cuh"
 
 // the tile widths BN the TMA mainloop instantiates (the plan picks one)
@@ -85,7 +87,6 @@
 
 namespace {
 
-constexpr int kPrologueThreads = 256;
 constexpr int kBM = 128;
 constexpr int kBK = 32;
 constexpr int kStages = 4;
@@ -170,41 +171,6 @@ __device__ __forceinline__ bool a_source(const Params& p, int k, bool row_ok, in
   if (ys < 0 || ys >= p.h || xs < 0 || xs >= p.wd) return false;
   off = (size_t)(m + dy * p.wd + dx) * p.ci + ci;
   return true;
-}
-
-// u = bf16([silu](x*sc + sh)), 8 channels (16 bytes) per thread; sc, sh
-// are per (sample, channel) f32.
-template <bool kSilu>
-__global__ void __launch_bounds__(kPrologueThreads)
-prologue_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ sc,
-                const float* __restrict__ sh, __nv_bfloat16* __restrict__ u, long long chunks,
-                int ci, int hw) {
-  const long long i = (long long)blockIdx.x * kPrologueThreads + threadIdx.x;
-  if (i >= chunks) return;
-  const long long e0 = i * 8;                  // first element of the chunk
-  const long long m = e0 / ci;
-  const size_t pc = (size_t)(m / hw) * ci + (e0 - m * ci);
-  const uint4 raw = *reinterpret_cast<const uint4*>(x + e0);
-  const __nv_bfloat162* e = reinterpret_cast<const __nv_bfloat162*>(&raw);
-  const float4* sc4 = reinterpret_cast<const float4*>(sc + pc);
-  const float4* sh4 = reinterpret_cast<const float4*>(sh + pc);
-  const float4 s_lo = __ldg(sc4), s_hi = __ldg(sc4 + 1);
-  const float4 h_lo = __ldg(sh4), h_hi = __ldg(sh4 + 1);
-  const float sv[8] = {s_lo.x, s_lo.y, s_lo.z, s_lo.w, s_hi.x, s_hi.y, s_hi.z, s_hi.w};
-  const float hv[8] = {h_lo.x, h_lo.y, h_lo.z, h_lo.w, h_hi.x, h_hi.y, h_hi.z, h_hi.w};
-  uint32_t o[4];
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const float2 xv = __bfloat1622float2(e[q]);
-    float v0 = fmaf(xv.x, sv[2 * q], hv[2 * q]);
-    float v1 = fmaf(xv.y, sv[2 * q + 1], hv[2 * q + 1]);
-    if (kSilu) {
-      v0 = v0 / (1.f + expf(-v0));
-      v1 = v1 / (1.f + expf(-v1));
-    }
-    o[q] = pack_bf16(v0, v1);
-  }
-  *reinterpret_cast<uint4*>(u + e0) = make_uint4(o[0], o[1], o[2], o[3]);
 }
 
 // kTapAligned (Ci % 32 == 0): a K tile is 32 channels of one tap, and the
@@ -390,6 +356,7 @@ int launch_tile(const Params& p, cudaStream_t s) {
 // in f32, one cast.
 struct ConvEpi {
   static constexpr bool kPairs = true;
+  static constexpr bool kStats = false;
   template <int BN>
   static constexpr int kOutCols = BN;
   __device__ static int out_col(int n0) { return n0; }
@@ -451,7 +418,7 @@ extern "C" int svdx_conv3x3(const void* x, const void* wt, const void* bias, con
   const int m = n * h * w;
   CUtensorMap a_map, b_map, c_map, r_map;
   if (mainloop == 1) {
-    int err = sm90_gemm::encode_im2col_map(&a_map, sc ? u : x, n, h, w, ci, sm90_gemm::kBM);
+    int err = sm90_gemm::encode_im2col_map(&a_map, sc ? u : x, n, h, w, ci, 3, sm90_gemm::kBM);
     if (err == 0) err = sm90_gemm::encode_matrix_map(&b_map, wt, 9 * ci, co, bn);
     if (err == 0) err = sm90_gemm::encode_tile_map(&c_map, out, co, m, bn, 64);
     if (err == 0) err = sm90_gemm::encode_tile_map(&r_map, res ? res : out, co, m, bn, 64);
@@ -461,27 +428,18 @@ extern "C" int svdx_conv3x3(const void* x, const void* wt, const void* bias, con
   }
   const __nv_bfloat16* xin = static_cast<const __nv_bfloat16*>(x);
   if (sc) {
-    const long long chunks = (long long)m * ci / 8;
-    const int blocks = static_cast<int>((chunks + kPrologueThreads - 1) / kPrologueThreads);
-    auto* up = static_cast<__nv_bfloat16*>(u);
-    const auto* scp = static_cast<const float*>(sc);
-    const auto* shp = static_cast<const float*>(sh);
-    if (silu)
-      prologue_kernel<true><<<blocks, kPrologueThreads, 0, s>>>(xin, scp, shp, up, chunks, ci, h * w);
-    else
-      prologue_kernel<false><<<blocks, kPrologueThreads, 0, s>>>(xin, scp, shp, up, chunks, ci, h * w);
-    const int err = static_cast<int>(cudaGetLastError());
+    const int err = affine_silu::launch(x, sc, sh, u, m, ci, h * w, silu != 0, s);
     if (err) return err;
-    xin = up;
+    xin = static_cast<const __nv_bfloat16*>(u);
   }
   if (mainloop == 1) {
     const sm90_gemm::Shape shape{m, co, 9 * ci / sm90_gemm::kBK, k_slices,
                                  static_cast<float*>(workspace), res != nullptr};
-    const sm90_gemm::Im2colA aload{ci / sm90_gemm::kBK, h, w};
+    const sm90_gemm::Im2colA<3> aload{ci / sm90_gemm::kBK, h, w};
     const ConvEpi epi{static_cast<const float*>(bias), static_cast<const float*>(post),
                       static_cast<const __nv_bfloat16*>(res), static_cast<__nv_bfloat16*>(out),
                       co, h * w};
-    return sm90_gemm::launch_tile<sm90_gemm::Im2colA, ConvEpi, SVDX_CONV_TILE_N>(
+    return sm90_gemm::launch_tile<sm90_gemm::Im2colA<3>, ConvEpi, SVDX_CONV_TILE_N>(
         bn, a_map, b_map, c_map, r_map, shape, aload, epi, grid, s);
   }
   Params p;

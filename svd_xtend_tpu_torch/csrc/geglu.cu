@@ -113,6 +113,7 @@ ln_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ ls,
 // columns n0 / 2.. of the tile's rows.
 struct GegluEpi {
   static constexpr bool kPairs = false;
+  static constexpr bool kStats = false;
   template <int BN>
   static constexpr int kOutCols = BN / 2;
   __device__ static int out_col(int n0) { return n0 / 2; }
@@ -142,6 +143,7 @@ struct GegluEpi {
 // gemm2's epilogue: out = x + bf16(acc + b2), the sum rounded once more
 struct ResidualEpi {
   static constexpr bool kPairs = true;
+  static constexpr bool kStats = false;
   template <int BN>
   static constexpr int kOutCols = BN;
   __device__ static int out_col(int n0) { return n0; }

@@ -1,6 +1,6 @@
 // The GEMM mainloop for Hopper (sm_90a) shared by the conv3x3 implicit GEMM
-// (csrc/conv3x3.cu: forward and dU) and the two GEMMs of the residual GEGLU
-// (csrc/geglu.cu):
+// (csrc/conv3x3.cu: forward and dU), the two GEMMs of the residual GEGLU
+// (csrc/geglu.cu) and the temporal resnet's frame convs (csrc/temporal_resnet.cu):
 //
 //   C (M x N, f32 accumulators) = A (M x K) . B (N x K)^T,   bf16 operands
 //
@@ -10,9 +10,10 @@
 // epilogue for what becomes of C:
 //   - A loader: RowsA, a box of (64 columns, BM rows) of a (rows, K) matrix
 //     through a 2-D tensor map (GEGLU); Im2colA, the implicit GEMM's tile of
-//     BM output pixels x 64 input channels of one 3x3 tap, by TMA's im2col
-//     mode over the NHWC input, so the SAME padding arrives as zeros
-//     (conv3x3.cu).
+//     BM output pixels x 64 input channels of one tap, by TMA's im2col mode
+//     over the NHWC input, so the "same" padding arrives as zeros: 3x3 taps
+//     (conv3x3.cu) or, as FrameIm2colA, the 3 frame taps of the temporal
+//     resnet's (3, 1) conv over (B, F, S, C) (temporal_resnet.cu).
 //   - epilogue: a functor that turns this thread's accumulators of a tile
 //     into bf16 (bias, shift, residual; GEGLU's value/gate product).
 //
@@ -113,26 +114,30 @@ static inline EncodeIm2colFn encode_im2col_fn() {
   return fn;
 }
 
-// The im2col map of a 3x3 stride-1 SAME conv over a contiguous bf16 NHWC
-// tensor (n, h, w, c): a load at coordinates (c0, x - 1, y - 1, n) with
-// offsets (dx, dy) in {0, 1, 2} brings `pixels` output pixels, from (n, y, x)
+// The im2col map of a stride-1 conv with 3 taps down and `taps_w` (3 or 1)
+// across, "same" zero padding, over a contiguous bf16 NHWC tensor (n, h, w,
+// c): a load at coordinates (c0, x - taps_w / 2, y - 1, n) with offsets
+// (dx, dy), dx < taps_w, dy < 3, brings `pixels` output pixels, from (n, y, x)
 // on in row-major pixel order (across rows and samples), each the 64
-// channels c0.. of its source pixel (y + dy - 1, x + dx - 1), zero where
-// that falls outside the image or past the last sample. The bounding box's
-// corners (-1, -1) and (-1, -1) make the walk cover exactly the h x w output
-// pixels of each sample. Returns 0, or cudaErrorInvalidValue where TMA does
-// not take the geometry (c % 64, alignment) or the encoder refuses it.
+// channels c0.. of its source pixel (y + dy - 1, x + dx - taps_w / 2), zero
+// where that falls outside the image or past the last sample. The bounding
+// box's corners, (-taps_w / 2, -1) and (-taps_w / 2, -1) in (w, h) order,
+// make the walk cover exactly the h x w output pixels of each sample. The
+// 3x3 conv (conv3x3.cu) takes taps_w 3; the (3, 1) frame conv of the
+// temporal resnet (temporal_resnet.cu), over (B, F, S, C) as n = B, h = F,
+// w = S, takes 1. Returns 0, or cudaErrorInvalidValue where TMA does not take
+// the geometry (c % 64, alignment) or the encoder refuses it.
 static inline int encode_im2col_map(CUtensorMap* map, const void* base, int n, int h, int w,
-                                    int c, int pixels) {
+                                    int c, int taps_w, int pixels) {
   if (reinterpret_cast<uintptr_t>(base) % 16 != 0 || c % kBK != 0 || n < 1 || h < 1 ||
-      w < 1 || pixels < 1 || pixels > 256)
+      w < 1 || pixels < 1 || pixels > 256 || (taps_w != 1 && taps_w != 3))
     return static_cast<int>(cudaErrorInvalidValue);
   const EncodeIm2colFn fn = encode_im2col_fn();
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const cuuint64_t dims[4] = {(cuuint64_t)c, (cuuint64_t)w, (cuuint64_t)h, (cuuint64_t)n};
   const uint64_t pix = (uint64_t)c * 2;
   const cuuint64_t strides[3] = {pix, pix * (uint64_t)w, pix * (uint64_t)w * (uint64_t)h};
-  const int lower[2] = {-1, -1}, upper[2] = {-1, -1};
+  const int lower[2] = {-(taps_w / 2), -1}, upper[2] = {-(taps_w / 2), -1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
                         strides, lower, upper, kBK, (cuuint32_t)pixels, elem,
@@ -296,10 +301,15 @@ struct RowsA {
   }
 };
 
-// A is the implicit GEMM's im2col matrix of a 3x3 SAME conv over NHWC
-// (M = n*h*w output pixels, K = 9 * c, k = tap * c + channel, tap = 3 dy +
-// dx): K tile kt is the 64 channels (kt % cblocks) * 64.. of tap kt /
-// cblocks, one TMA im2col load (encode_im2col_map) at the tap's offsets.
+// A is the implicit GEMM's im2col matrix of a stride-1 "same" conv with 3
+// taps down and kTapsW across over NHWC (M = n*h*w output pixels, K =
+// 3 * kTapsW * c, k = tap * c + channel, tap = kTapsW dy + dx): K tile kt is
+// the 64 channels (kt % cblocks) * 64.. of tap kt / cblocks, one TMA im2col
+// load (encode_im2col_map with taps_w = kTapsW) at the tap's offsets.
+// Im2colA<3> is conv3x3's; Im2colA<1> (FrameIm2colA) the temporal resnet's
+// (3, 1) frame conv over (B, F, S, C), whose frames outside [0, F) read as
+// zeros.
+template <int kTapsW>
 struct Im2colA {
   int cblocks;  // c / 64
   int h, w;
@@ -308,15 +318,16 @@ struct Im2colA {
   };
   __device__ __forceinline__ Pos at(int m0) const {
     const int hw = h * w, n = m0 / hw, r = m0 - n * hw, y = r / w;
-    return {r - y * w - 1, y - 1, n};
+    return {r - y * w - kTapsW / 2, y - 1, n};
   }
   __device__ __forceinline__ void load(void* dst, const CUtensorMap* map, uint64_t* bar,
                                        Pos p, int kt) const {
-    const int tap = kt / cblocks, cb = kt - tap * cblocks, dy = tap / 3;
-    tma_load_im2col(dst, map, bar, cb * kBK, p.x, p.y, p.n, (uint16_t)(tap - 3 * dy),
+    const int tap = kt / cblocks, cb = kt - tap * cblocks, dy = tap / kTapsW;
+    tma_load_im2col(dst, map, bar, cb * kBK, p.x, p.y, p.n, (uint16_t)(tap - kTapsW * dy),
                     (uint16_t)dy);
   }
 };
+using FrameIm2colA = Im2colA<1>;
 
 // ------------------------------------------------------------ the kernel --
 
@@ -395,7 +406,10 @@ __device__ __forceinline__ void for_pairs(float (&d)[BN / 2], int r0, int n0, in
 // (clipped at the matrix's edges), so no consumer waits on device memory.
 // Others (GEGLU's value/gate product) write their tile by tile<BN>(...).
 // kOutCols<BN> is the tile's width in output columns and out_col(n0) its
-// first.
+// first. An epilogue with kStats = true also reads its warpgroup's finished
+// 64 rows back, stats<kOutCols>(rows, first row, n0, m, thread), once they
+// are in shared memory (temporal_resnet.cu's kernel A: norm2's statistics of
+// the stored bf16 values); the split-K path leaves that to its caller.
 template <int BN, class Epi>
 __device__ __forceinline__ void epilogue(const Epi& epi, float (&d)[BN / 2], int r0, int n0,
                                          int m, int n, int t, __nv_bfloat16* tile, int tr0,
@@ -543,6 +557,12 @@ gemm_kernel(const __grid_constant__ CUtensorMap a_map, const __grid_constant__ C
         sm90::fence_proxy_async();  // the tile's writes, visible to the TMA store
         warpgroup_sync(wg);
         if (storer) tma_store_2d(&c_map, rows, Epi::out_col(item.n0), item.m0 + wg * 64);
+        // statistics of the stored values, read back from the finished rows
+        // (the next item's epilogue writes them only after its
+        // warpgroup_sync, so after every thread is done here)
+        if constexpr (Epi::kStats)
+          epi.template stats<Epi::template kOutCols<BN>>(rows, item.m0 + wg * 64, item.n0,
+                                                         shape.m, threadIdx.x % 128);
       }
     }
     if (storer) tma_store_wait<false>();
@@ -588,9 +608,11 @@ int launch(const CUtensorMap& a_map, const CUtensorMap& b_map, const CUtensorMap
            const CUtensorMap& r_map, const Shape& shape, const ALoad& aload, const Epi& epi,
            int grid, cudaStream_t stream) {
   using Sm = Smem<BN, Epi::template kOutCols<BN>>;
+  // an epilogue that reads its finished rows back (kStats) cannot share them
+  // with a residual the producer brings in
   if (grid < 1 || grid > n_items<BN>(shape) || grid > sm_count() ||
       shape.k_slices < 1 || shape.k_slices > shape.k_tiles ||
-      (shape.k_slices > 1 && shape.partial == nullptr))
+      (shape.k_slices > 1 && shape.partial == nullptr) || (Epi::kStats && shape.residual))
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr int smem = sm90::smem_bytes<Sm>();
   const auto kernel = gemm_kernel<BN, ALoad, Epi>;

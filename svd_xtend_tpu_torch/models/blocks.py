@@ -19,7 +19,8 @@ Kernel sites on CUDA:
     (Co 4), the VAE encoder's ``conv_in`` (Ci 3), the decoder's ``conv_in``
     (Ci 4) and ``conv_out`` (Co 3); those take ``F.conv2d``;
   - every other GroupNorm(+SiLU) goes to the GroupNorm kernel
-    (ops/kernels/groupnorm.py), and every TemporalResnetBlock with its
+    (ops/kernels/groupnorm.py), the GN folds to the fold's kernels
+    (``groupnorm.group_norm_fold``), and every TemporalResnetBlock with its
     collapsed AlphaBlender to the fused temporal-resnet kernels
     (ops/kernels/temporal_resnet.py).
 State-dict keys are the diffusers names.
@@ -62,9 +63,11 @@ class GroupNormSiLU(nn.Module):
         GN(x)·weight + bias == x·sc + sh, for a consumer that applies the
         normalise (+ SiLU) as it reads x (the JAX module's ``fold_only``).
         Over an up-block's concatenated input it equals JAX's
-        ``group_norm_fold_cat``, groups straddling the two parts included."""
-        return gnk.group_norm_fold(x, self.weight, self.bias, groups=self.groups,
-                                   eps=self.eps)
+        ``group_norm_fold_cat``, groups straddling the two parts included.
+        On the card the fold's kernels compute it (``group_norm_fold``)."""
+        fold = (gnk.group_norm_fold if kernels_enabled() and gnk.stats_supports(x)
+                else gnk.group_norm_fold_reference)
+        return fold(x, self.weight, self.bias, groups=self.groups, eps=self.eps)
 
 
 class AlphaBlender(nn.Module):

@@ -11,7 +11,8 @@ XLA reference in each kernel's ``custom_vjp``). Otherwise the kernel runs
 alone and nothing is saved. Only flash attention has backward kernels of
 its own (``flash_attention.py``).
 
-``kernel`` is any callable with the reference's signature: the wrappers pass
+The output may be one tensor or a tuple of them (the GroupNorm fold's (sc,
+sh)). ``kernel`` is any callable with the reference's signature: the wrappers pass
 their CUDA launch, and the CPU tests pass the plain version itself, which
 exercises this wiring without a card.
 """
@@ -31,13 +32,14 @@ class _ReferenceGrad(torch.autograd.Function):
         return kernel(*inputs, **options)
 
     @staticmethod
-    def backward(ctx, grad):
+    def backward(ctx, *grad):
         needs = ctx.needs_input_grad[3:]
         with torch.enable_grad():
             leaves = [x.detach().requires_grad_(n) for x, n in zip(ctx.saved_tensors, needs)]
             out = ctx.reference(*leaves, **ctx.options)
+        outs = out if isinstance(out, tuple) else (out,)
         wrt = [x for x, n in zip(leaves, needs) if n]
-        grads = iter(torch.autograd.grad(out, wrt, grad, allow_unused=True))
+        grads = iter(torch.autograd.grad(outs, wrt, grad, allow_unused=True))
         return (None, None, None, *(next(grads) if n else None for n in needs))
 
 

@@ -39,9 +39,9 @@ _SIGNATURES = {
                                      _P],
     "svdx_ln_geglu_residual": [_P] * 11 + [_I] * 7 + [_P],
     "svdx_frame_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
-    "svdx_temporal_resnet_conv": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                  _I, _I, _I, _I, _I, _P],
-    "svdx_temporal_resnet_tile_rows": [],
+    "svdx_temporal_resnet_conv": [_P] * 12 + [_I] * 8 + [_P],
+    "svdx_group_norm_fold": [_P] * 7 + [_I] * 4 + [_F, _P],
+    "svdx_affine_silu": [_P] * 4 + [_I] * 3 + [_P],
     "svdx_conv3x3": [_P] * 10 + [_I] * 10 + [_P],
     "svdx_flash_variant_fwd": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     "svdx_chain_bf16": [_P, _P, _P, _P, _I, _I, _I, _F, _P],

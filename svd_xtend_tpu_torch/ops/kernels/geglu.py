@@ -28,13 +28,13 @@ geglu.py:116) is a v5e measurement; on CUDA the kernel takes every site
 from __future__ import annotations
 
 import functools
-import weakref
 
 import torch
 import torch.nn.functional as F
 
 from ._autograd import differentiable
 from ._build import check, library
+from ._weights import per_version
 from .gemm_plan import K_TILE, SM_COUNT, plan_gemm, sm_count
 
 LN_EPS = 1e-5
@@ -79,24 +79,9 @@ def unpack_w1(w1p: torch.Tensor) -> torch.Tensor:
     return w1p.reshape(blocks, 2, PAIR_ROWS, c).transpose(0, 1).reshape(two_inner, c)
 
 
-# id(w1) -> (weak reference to w1, its data_ptr and _version, the packed bf16 copy)
-_PACKED: dict = {}
-
-
-def packed_w1(w1: torch.Tensor) -> torch.Tensor:
-    """``pack_w1`` of w1 in bf16, made once per weight version: reused while
-    the same tensor keeps its storage and its in-place version counter (an
-    optimizer step bumps it), so a call does not copy W1."""
-    key = id(w1)
-    hit = _PACKED.get(key)
-    if (hit is not None and hit[0]() is w1 and hit[1] == w1.data_ptr()
-            and hit[2] == w1._version):
-        return hit[3]
-    for k in [k for k, v in _PACKED.items() if v[0]() is None]:
-        del _PACKED[k]
-    packed = pack_w1(w1.detach().to(torch.bfloat16)).contiguous()
-    _PACKED[key] = (weakref.ref(w1), w1.data_ptr(), w1._version, packed)
-    return packed
+# pack_w1 of W1 in bf16, made once per weight version (an optimizer step
+# bumps it), so a call does not copy W1
+packed_w1 = per_version(lambda w1: pack_w1(w1.to(torch.bfloat16)).contiguous())
 
 
 @functools.cache

@@ -137,6 +137,19 @@ def plan_gemm(m: int, n: int, k_tiles: int, widths: Sequence[int], sm_count: int
                key=lambda p: (p.n_items < sm_count, cost(p, sm_count), p.k_slices, -p.bn))
 
 
+# the tile widths csrc/temporal_resnet.cu instantiates (SVDX_TRESNET_TILE_N)
+TRESNET_TILE_N = (128, 160, 256)
+
+
+@functools.cache
+def tresnet_plan(b: int, f: int, s: int, c: int, sms: int = SM_COUNT) -> GemmPlan:
+    """The plan of one temporal-resnet frame conv over (b, f, s, c) on a card
+    of `sms` SMs: the implicit GEMM M = b·f·s, N = c, K = 3c (a K tile is 64
+    channels of one frame tap), the K split only where it gives every SM an
+    item. Memoized, as conv3x3_plan: no plan is computed per launch."""
+    return plan_gemm(b * f * s, c, 3 * c // K_TILE, TRESNET_TILE_N, sms)
+
+
 def mma_plan(m: int, n: int, k_tiles: int) -> GemmPlan:
     """conv3x3's mma.sync mainloop: 128 x 128 tiles, one block per tile."""
     plan = GemmPlan(m, n, k_tiles, 128, 1, 1, mainloop="mma")

@@ -2,8 +2,15 @@
 
 Port of ``svd_xtend_tpu/ops/pallas/groupnorm.py``: ``group_norm_silu`` (its
 kernels ``_gn_silu_kernel``, ``_stats_kernel`` and ``_norm_kernel``), the plain
-``group_norm_silu_reference``, and the plain-torch ``group_norm_fold`` (XLA
-code in the JAX package, so plain torch here too).
+``group_norm_silu_reference``, and ``group_norm_fold`` (XLA code in the JAX
+package: per-channel sums in one pass, then the fold on the (N, C) sums).
+On the card ``group_norm_fold`` and ``fold_from_partials`` (JAX's
+``_fold_from_channel_sums``) are the kernels of ``csrc/gn_fold.cu``: a
+statistics pass that reads x once into per-(sample, 64-row chunk) f32
+partials (no f32 copy of x; the plain version makes two), and a fold of the
+partials into (sc, sh) in one launch. Kernel A of the temporal resnet writes
+the same partials for norm2; their plain version is
+``channel_stats_reference``.
 
 The kernels are Triton, written in two passes:
   stats - grid (group, split, sample): each program sums x and x² in f32 over
@@ -32,7 +39,8 @@ import os
 import torch
 
 from ._autograd import differentiable
-from ._build import BUILD_DIR
+from ._build import BUILD_DIR, check, library
+from ._weights import per_version
 
 _FLOAT_TYPES = (torch.bfloat16, torch.float16, torch.float32)
 
@@ -70,14 +78,115 @@ def fold_from_channel_sums(sum_c: torch.Tensor, sq_c: torch.Tensor,
     return sc, sh
 
 
-def group_norm_fold(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                    *, groups: int = 32, eps: float = 1e-5):
+def group_norm_fold_reference(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                              *, groups: int = 32, eps: float = 1e-5):
     """GroupNorm stats + affine folded into a per-(sample, channel) f32
-    affine (sc, sh): GN(x)·scale + bias == x·sc + sh (before any SiLU)."""
+    affine (sc, sh): GN(x)·scale + bias == x·sc + sh (before any SiLU).
+    JAX's ``group_norm_fold`` formula, on an f32 copy of x."""
     n, c = x.shape[0], x.shape[-1]
     xf = x.reshape(n, -1, c).float()
     return fold_from_channel_sums(xf.sum(1), (xf * xf).sum(1), xf.shape[1],
                                   scale, bias, groups, eps)
+
+
+# The per-channel statistics of a (samples of rows_per_sample rows, C)
+# matrix, as csrc/gn_stats.cuh writes them (kernel A of the temporal resnet,
+# the fold's statistics kernel): f32 partial sums and sums of squares (B,
+# slots, C), slot j of sample b holding its rows of the 64-row chunk
+# b·rows_per_sample // 64 + j (a chunk straddles samples wherever
+# rows_per_sample % 64 != 0), zero past the sample's last chunk. Summing the
+# slots gives the (B, C) channel sums.
+STATS_ROWS = 64
+
+
+def stats_slots(rows_per_sample: int) -> int:
+    return -(-rows_per_sample // STATS_ROWS) + 1
+
+
+def channel_stats_reference(x: torch.Tensor, rows_per_sample: int):
+    """Plain version of the statistics kernel on x (M, C): (psum, psq)."""
+    m, c = x.shape
+    b, slots = m // rows_per_sample, stats_slots(rows_per_sample)
+    rows = torch.arange(m, device=x.device)
+    sample = rows // rows_per_sample
+    slot = sample * slots + rows // STATS_ROWS - sample * rows_per_sample // STATS_ROWS
+    xf = x.float()
+    out = [torch.zeros(b * slots, c, device=x.device).index_add_(0, slot, v).view(b, slots, c)
+           for v in (xf, xf * xf)]
+    return out[0], out[1]
+
+
+def stats_supports(x: torch.Tensor) -> bool:
+    """Structural dispatch predicate of the fold's statistics kernel: a CUDA
+    bf16 contiguous (N, ..., C), C even, 16-byte aligned."""
+    return (x.is_cuda and x.dtype == torch.bfloat16 and x.dim() >= 2 and x.is_contiguous()
+            and x.shape[-1] % 2 == 0 and x.data_ptr() % 16 == 0)
+
+
+# the GroupNorm affine as the fold kernel reads it, made once per version
+_affine_f32 = per_version(lambda s, b: (s.float().contiguous(), b.float().contiguous()))
+
+
+def _fold_launch(x, psum, psq, rows: int, scale, bias, groups: int, eps: float):
+    """csrc/gn_fold.cu: (sc, sh) (B, C) f32 from the partials psum / psq (B,
+    stats_slots(rows), C) f32, which it first fills from x where x is given."""
+    b, slots, c = psum.shape
+    if slots != stats_slots(rows) or c % groups or psq.shape != psum.shape:
+        raise ValueError(f"group_norm_fold: partials {tuple(psum.shape)} do not fit {rows} "
+                         f"rows a sample and {groups} groups")
+    scf, bif = _affine_f32(scale, bias)
+    sc = torch.empty((b, c), device=psum.device, dtype=torch.float32)
+    sh = torch.empty_like(sc)
+    check(library().svdx_group_norm_fold(
+        None if x is None else x.data_ptr(), psum.data_ptr(), psq.data_ptr(), scf.data_ptr(),
+        bif.data_ptr(), sc.data_ptr(), sh.data_ptr(), b, rows, c, groups, float(eps),
+        torch.cuda.current_stream(psum.device).cuda_stream), "group_norm_fold")
+    return sc, sh
+
+
+def group_norm_fold(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                    *, groups: int = 32, eps: float = 1e-5, kernel=None):
+    """``group_norm_fold_reference`` by the kernels of csrc/gn_fold.cu on a
+    CUDA tensor, which they take or it raises (x read once, no f32 copy); on
+    a CPU tensor the reference. The backward recomputes the reference and
+    differentiates it. ``kernel`` replaces the CUDA launch (the CPU tests
+    pass the reference to run the autograd wiring without a card)."""
+    if kernel is None:
+        if x.device.type == "cpu":
+            return group_norm_fold_reference(x, scale, bias, groups=groups, eps=eps)
+        kernel = _fold
+    return differentiable(kernel, group_norm_fold_reference, x, scale, bias,
+                          groups=groups, eps=eps)
+
+
+def _fold(x, scale, bias, *, groups: int, eps: float):
+    if not stats_supports(x):
+        raise ValueError("group_norm_fold kernel needs a CUDA bf16 contiguous 16-byte aligned "
+                         f"(N, ..., C) with C even; got {tuple(x.shape)} {x.dtype}")
+    n, c = x.shape[0], x.shape[-1]
+    rows = x.numel() // (n * c)
+    psum = torch.empty((n, stats_slots(rows), c), device=x.device, dtype=torch.float32)
+    psq = torch.empty_like(psum)
+    out = _fold_launch(x, psum, psq, rows, scale, bias, groups, eps)
+    group_norm_fold.launches += 1
+    return out
+
+
+def fold_from_partials(psum: torch.Tensor, psq: torch.Tensor, count: int,
+                       scale: torch.Tensor, bias: torch.Tensor, groups: int, eps: float):
+    """JAX's ``_fold_from_channel_sums``: (sc, sh) from the statistics
+    partials (B, stats_slots(count), C) over `count` rows a sample. On a CUDA
+    tensor the fold kernel, on a CPU tensor ``fold_from_channel_sums`` of
+    their slot sums."""
+    if psum.device.type == "cpu":
+        return fold_from_channel_sums(psum.sum(1), psq.sum(1), count, scale, bias, groups, eps)
+    out = _fold_launch(None, psum, psq, count, scale, bias, groups, eps)
+    fold_from_partials.launches += 1
+    return out
+
+
+group_norm_fold.launches = 0
+fold_from_partials.launches = 0
 
 
 @functools.cache

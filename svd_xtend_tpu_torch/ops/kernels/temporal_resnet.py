@@ -8,12 +8,18 @@ the plain versions ``conv_a_reference`` and ``conv_b_reference``), the plain
     out = x + w·conv2(gn2silu(conv1(gn1silu(x)) + b1 + temb))
 
 The CUDA kernels are ``csrc/temporal_resnet.cu``: each (3, 1) frame conv is
-one implicit GEMM with K = 3·C on the tensor cores, the GroupNorm normalise
-+ SiLU applied to its input as it is loaded. Kernel A adds b1 and the
-per-frame temb and writes norm2's per-tile channel sums of its stored bf16
-output; kernel B adds the residual, with w = 1 - α folded into conv2's
-weights and bias. The GN folds around them are plain torch, as they are XLA
-code in the JAX package.
+the GroupNorm normalise + SiLU of its input as a pass of its own, then an
+implicit GEMM with K = 3·C on the shared Hopper mainloop of
+``csrc/sm90_gemm.cuh``, its A tiles by TMA's im2col mode over (B, F, S, C)
+(the out-of-frame taps read as zeros). Kernel A adds b1 and the per-frame
+temb and writes norm2's statistics of its stored bf16 output as
+per-(sample, 64-row chunk) partials (``groupnorm.stats_slots``); kernel B
+adds the residual, out = x + w·(conv2 + b2), with the blend weight w an f32
+scalar on the device (the JAX package folds w into conv2's weights; here
+the weights are packed once per parameter version, ``packed``). The launch
+plan is ``gemm_plan.tresnet_plan``, a pure function of the shape. norm1's
+fold reads x once through the fold's kernels (``group_norm_fold``); norm2's
+folds kernel A's partials (``fold_from_partials``).
 
 On a CPU tensor ``temporal_resnet_block`` runs the reference; on a CUDA
 tensor it launches the kernels or raises. The backward recomputes the
@@ -28,10 +34,12 @@ import torch
 
 from ._autograd import differentiable
 from ._build import check, library
-from .groupnorm import (fold_from_channel_sums, group_norm_fold,
-                        group_norm_silu_reference)
+from ._weights import per_version
+from .gemm_plan import sm_count, tresnet_plan
+from .groupnorm import (fold_from_partials, group_norm_fold, group_norm_silu_reference,
+                        stats_slots)
 
-CHANNEL_MULTIPLE = 64
+CHANNEL_MULTIPLE = 64    # K tiles of 64 channels of one frame tap
 
 
 def temporal_conv_reference(x: torch.Tensor, k: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -55,7 +63,7 @@ def temporal_resnet_reference(x, t, k1, b1, k2, b2, scale1, bias1, scale2,
 
 def supports(x: torch.Tensor) -> bool:
     """Structural dispatch predicate: a CUDA bf16 (B, F, S, C) the kernels
-    take (C a multiple of the 64-column output tile)."""
+    take (C a multiple of the 64-channel K tile)."""
     return (x.is_cuda and x.dtype == torch.bfloat16 and x.dim() == 4
             and x.shape[-1] % CHANNEL_MULTIPLE == 0)
 
@@ -63,6 +71,10 @@ def supports(x: torch.Tensor) -> bool:
 def pack_taps(k: torch.Tensor) -> torch.Tensor:
     """Taps (3, C, Co) -> the kernel's (Co, 3C) bf16 with k = tap·C + ci."""
     return k.permute(2, 0, 1).reshape(k.shape[2], -1).to(torch.bfloat16).contiguous()
+
+
+# (packed taps, f32 bias) of a conv, made once per parameter version
+packed = per_version(lambda k, b: (pack_taps(k), b.float().contiguous()))
 
 
 def _activate(x, sc, sh):
@@ -81,47 +93,70 @@ def conv_a_reference(x, k, bias, sc, sh, t):
     return h, hf.sum(1), (hf * hf).sum(1)
 
 
-def conv_b_reference(h, k, bias, sc, sh, res):
-    """Plain kernel B on taps k (3, C, C): res + conv(silu(h·sc + sh)) + bias."""
+def conv_b_reference(h, k, bias, sc, sh, res, w):
+    """Plain kernel B on taps k (3, C, C): res + w·(conv(silu(h·sc + sh)) +
+    bias), w the blend weight."""
     acc = temporal_conv_reference(_activate(h, sc, sh).float(), k.float(), bias.float())
-    return (res.float() + acc).to(h.dtype)
+    return (res.float() + w.float() * acc).to(h.dtype)
 
 
-def _launch(x, wt, bias, sc, sh, extra, out, psum, psq, first: bool) -> None:
+def _launch(x, wt, bias, sc, sh, extra, w, out, psum, psq, first: bool, plan=None) -> None:
+    """One kernel on the shape's plan (tests pass others)."""
     b, f, s, c = x.shape
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if plan is None:
+        plan = tresnet_plan(b, f, s, c, sm_count(x.device))
+    for a in (x, wt, bias, sc, sh, extra, w, out, psum, psq):
+        if a is not None and (not a.is_contiguous() or a.data_ptr() % 16 or a.device != x.device):
+            raise ValueError("temporal_resnet: every operand must be contiguous, 16-byte "
+                             "aligned and on x's device")
+    u = torch.empty_like(x)     # the prologue's output
+    ws = (torch.empty(plan.workspace_elems, device=x.device, dtype=torch.float32)
+          if plan.workspace_elems else None)
+    ptr = lambda a: None if a is None else a.data_ptr()
     err = library().svdx_temporal_resnet_conv(
-        x.data_ptr(), wt.data_ptr(), bias.data_ptr(), sc.data_ptr(),
-        sh.data_ptr(), extra.data_ptr(), out.data_ptr(),
-        None if psum is None else psum.data_ptr(),
-        None if psq is None else psq.data_ptr(),
-        b, f, s, c, int(first), stream)
+        x.data_ptr(), wt.data_ptr(), bias.data_ptr(), sc.data_ptr(), sh.data_ptr(),
+        u.data_ptr(), extra.data_ptr(), ptr(w), out.data_ptr(), ptr(psum), ptr(psq), ptr(ws),
+        b, f, s, c, int(first), plan.bn, plan.k_slices, plan.grid,
+        torch.cuda.current_stream(x.device).cuda_stream)
     check(err, "temporal_resnet_conv_a" if first else "temporal_resnet_conv_b")
 
 
 def conv_a(x, wt, bias, sc, sh, t):
-    """Kernel A: h = conv(silu(x·sc + sh)) + bias + t[b, f], plus per-tile
-    channel (sum, sum of squares) of the stored h: (B, nTiles, C) each."""
+    """Kernel A: h = conv(silu(x·sc + sh)) + bias + t[b, f] on the packed
+    taps wt (C, 3C) and the f32 bias, plus norm2's statistics of the stored
+    h: (h, psum, psq), the partials (B, stats_slots(F·S), C) f32."""
     b, f, s, c = x.shape
-    tiles = -(-f * s // library().svdx_temporal_resnet_tile_rows())
     h = torch.empty_like(x)
-    psum = torch.empty((b, tiles, c), device=x.device, dtype=torch.float32)
+    psum = torch.empty((b, stats_slots(f * s), c), device=x.device, dtype=torch.float32)
     psq = torch.empty_like(psum)
-    _launch(x, wt, bias, sc, sh, t, h, psum, psq, True)
+    _launch(x, wt, bias, sc, sh, t, None, h, psum, psq, True)
     conv_a.launches += 1
     return h, psum, psq
 
 
-def conv_b(h, wt, bias, sc, sh, res):
-    """Kernel B: res + conv(silu(h·sc + sh)) + bias."""
+def conv_b(h, wt, bias, sc, sh, res, w):
+    """Kernel B: res + w·(conv(silu(h·sc + sh)) + bias), w one f32 on the
+    device."""
     out = torch.empty_like(h)
-    _launch(h, wt, bias, sc, sh, res, out, None, None, False)
+    _launch(h, wt, bias, sc, sh, res, w, out, None, None, False)
     conv_b.launches += 1
     return out
 
 
 conv_a.launches = 0
 conv_b.launches = 0
+
+
+def affine_silu(x, sc, sh):
+    """The kernels' prologue pass alone, u = bf16(silu(x·sc + sh)) on (B, F,
+    S, C), as ``_activate``: for timing it apart from the GEMM."""
+    b, f, s, c = x.shape
+    u = torch.empty_like(x)
+    check(library().svdx_affine_silu(x.data_ptr(), sc.data_ptr(), sh.data_ptr(), u.data_ptr(),
+                                     b * f * s, c, f * s,
+                                     torch.cuda.current_stream(x.device).cuda_stream),
+          "affine_silu")
+    return u
 
 
 def _validate(x, t, k1, k2):
@@ -158,12 +193,8 @@ def _launch_block(x, t, k1, b1, k2, b2, scale1, bias1, scale2, bias2, w, *,
     _validate(x, t, k1, k2)
     _, f, s, _ = x.shape
     sc1, sh1 = group_norm_fold(x, scale1, bias1, groups=groups, eps=eps)
-    h, psum, psq = conv_a(x, pack_taps(k1), b1.float().contiguous(), sc1, sh1,
-                          t.to(x.dtype).contiguous())
-    sc2, sh2 = fold_from_channel_sums(psum.sum(1), psq.sum(1), f * s, scale2,
-                                      bias2, groups, eps)
-    # fold the blend weight into conv2 (linear in weights and bias)
-    wf = w.float()
-    k2w = (k2.float() * wf).to(k2.dtype)
-    b2w = (b2.float() * wf).to(b2.dtype).float().contiguous()
-    return conv_b(h, pack_taps(k2w), b2w, sc2, sh2, x)
+    wt1, b1f = packed(k1, b1)
+    wt2, b2f = packed(k2, b2)
+    h, psum, psq = conv_a(x, wt1, b1f, sc1, sh1, t.to(x.dtype).contiguous())
+    sc2, sh2 = fold_from_partials(psum, psq, f * s, scale2, bias2, groups, eps)
+    return conv_b(h, wt2, b2f, sc2, sh2, x, w.float().reshape(1))

@@ -4,8 +4,12 @@ and checks the kernel at each, the card tests hold it against its plain
 version at each, and the tier-1 plan tests check each site's launch plan.
 
 Also the GEGLU (T, C) shapes of the UNet's four levels: training (batch 14
-frames) and generate's CFG pair (28).
+frames) and generate's CFG pair (28); and the temporal resnet's shapes with
+their launches per exact video and per train step (TRESNET_SITES), derived
+from the configs.
 """
+
+from ..core.config import PipelineConfig, TrainConfig, UNetConfig, VAEConfig
 
 # conv3x3 sites of one UNet pass at the default 512x320 (latent 40x64),
 # UNetConfig() widths: (H, W, Ci, Co, epilogue, launches per pass). conv1 of
@@ -61,3 +65,39 @@ VAE_ENCODE_SITES = [
 # generate's CFG pair, 2T
 GEGLU_SHAPES = [(35840, 320), (8960, 640), (2240, 1280), (560, 1280),
                 (71680, 320), (17920, 640), (4480, 1280), (1120, 1280)]
+
+
+def _tresnet_sites():
+    """(B, F, S, C, launches per exact video, launches per train step) of
+    each of conv_a and conv_b (one each per TemporalResnetBlock call), from
+    the default configs: every SpatioTemporalResBlock of the UNet (level i
+    of UNetConfig().block_out_channels at the latent's (h / 2^i, w / 2^i):
+    layers_per_block down, layers_per_block + 1 up, the mid block's 2 at the
+    last level) for generate's 25 CFG passes at batch 2 and the train step's
+    forward + "block" remat recompute at batch 1; and the VAE decoder's (2
+    in its mid block and layers_per_block + 1 per up block, channels
+    reversed, doubling the resolution after each up block but the last) per
+    decode chunk of decode_chunk_size frames, the last chunk ragged."""
+    unet, vae, pipe, train = UNetConfig(), VAEConfig(), PipelineConfig(), TrainConfig()
+    h, w = pipe.height // vae.downsample_factor, pipe.width // vae.downsample_factor
+    chs, n = unet.block_out_channels, len(unet.block_out_channels)
+    sites = {}
+    for i, c in enumerate(chs):
+        blocks = unet.layers_per_block + unet.layers_per_block + 1 + (2 if i == n - 1 else 0)
+        s = (h >> i) * (w >> i)
+        sites[(2, pipe.num_frames, s, c)] = [pipe.num_inference_steps * blocks, 0]
+        tb, tf = train.per_device_batch_size, train.num_frames
+        sites.setdefault((tb, tf, s, c), [0, 0])[1] += 2 * blocks
+    rev = list(reversed(vae.block_out_channels))
+    levels = [(0, rev[0], 2)] + [(i, c, vae.layers_per_block + 1) for i, c in enumerate(rev)]
+    chunks = [min(pipe.decode_chunk_size, pipe.num_frames - f0)
+              for f0 in range(0, pipe.num_frames, pipe.decode_chunk_size)]
+    for f in chunks:
+        for i, c, blocks in levels:
+            sites.setdefault((1, f, (h << i) * (w << i), c), [0, 0])[0] += blocks
+    return [(*k, *v) for k, v in sites.items()]
+
+
+# the temporal resnet's shapes x (B, F, S, C) on the main paths at the
+# defaults (512x320, 14 frames): (B, F, S, C, per exact video, per step)
+TRESNET_SITES = _tresnet_sites()

@@ -82,6 +82,128 @@ def test_temporal_resnet_kernels(rn, f, s, c):
     _assert_close_bf16(got, tr.temporal_resnet_reference(*args, 32, 1e-5))
 
 
+def _tresnet_inputs(b, f, s, c, seed=0):
+    """Seeded (x, t, k1, b1, k2, b2, sc1, sh1, w) at (b, f, s, c)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rn = lambda *sh, sc=1.0: (torch.randn(*sh, device="cuda", generator=g) * sc
+                              ).to(torch.bfloat16)
+    return (rn(b, f, s, c), rn(b, f, c, sc=0.5), rn(3, c, c, sc=(3 * c) ** -0.5),
+            rn(c, sc=0.1), rn(3, c, c, sc=(3 * c) ** -0.5), rn(c, sc=0.1),
+            (1 + 0.1 * rn(b, c).float()) / 2, 0.1 * rn(b, c).float(),
+            torch.tensor([0.37], device="cuda"))
+
+
+def _tresnet_ab(inputs, plans=(None, None)):
+    """Kernels A and B (on `plans` where given; B on the plain h) against
+    their plain versions: h within 4 bf16 ulps; the statistics within 1e-4
+    relative of conv_a_reference's channel sums and, slot by slot, 1e-5 of
+    the plain statistics of the kernel's own h; kernel B within 4 ulps.
+    Returns (h, psum, psq, out)."""
+    x, t, k1, b1, k2, b2, sc1, sh1, w = inputs
+    b, f, s, c = x.shape
+    (wt1, b1f), (wt2, b2f) = tr.packed(k1, b1), tr.packed(k2, b2)
+    h = torch.empty_like(x)
+    psum = torch.empty((b, gn.stats_slots(f * s), c), device="cuda")
+    psq = torch.empty_like(psum)
+    tr._launch(x, wt1, b1f, sc1, sh1, t, None, h, psum, psq, True, plans[0])
+    rh, rsum, rsq = tr.conv_a_reference(x, k1, b1, sc1, sh1, t)
+    _assert_close_bf16(h, rh)
+    own = gn.channel_stats_reference(h.reshape(-1, c), f * s)
+    for got, ref, mine in ((psum, rsum, own[0]), (psq, rsq, own[1])):
+        assert ((got.sum(1) - ref).abs().max() / ref.abs().max()).item() <= 1e-4
+        assert ((got - mine).abs().max() / mine.abs().max()).item() <= 1e-5
+    out = torch.empty_like(x)
+    tr._launch(rh, wt2, b2f, sc1, sh1, x, w, out, None, None, False, plans[1])
+    _assert_close_bf16(out, tr.conv_b_reference(rh, k2, b2, sc1, sh1, x, w))
+    return h, psum, psq, out
+
+
+@pytest.mark.parametrize("site", sites.TRESNET_SITES, ids=lambda st: "-".join(map(str, st)))
+def test_tresnet_sites(rn, site):
+    """Kernels A and B on their plans at every temporal resnet shape of the
+    exact video and the train step, at full width (the 5x8 level's K split
+    included); two runs give the same bits, the statistics included."""
+    inputs = _tresnet_inputs(*site[:4])
+    first, again = _tresnet_ab(inputs), _tresnet_ab(inputs)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("shape", [(2, 1, 7, 64), (3, 1, 50, 128), (2, 3, 7, 64), (2, 3, 50, 128),
+                                   (3, 14, 40, 320), (1, 5, 30, 192), (4, 2, 9, 256)])
+def test_tresnet_small_and_ragged(rn, shape):
+    """F = 1, ragged S (7, 50), tiles and 64-row chunks that straddle
+    samples, C = 64 and 192 (tiles wider than the matrix)."""
+    _tresnet_ab(_tresnet_inputs(*shape))
+
+
+# (bn, k_slices): every tile width csrc/temporal_resnet.cu instantiates, split and not
+_TRESNET_TILES = [(128, 1), (128, 4), (160, 1), (160, 3), (256, 1), (256, 2)]
+
+
+@pytest.mark.parametrize("tile", _TRESNET_TILES, ids=lambda t: "bn%d-ks%d" % t)
+def test_tresnet_every_tile(rn, tile):
+    """Both kernels at each tile width and K split, on a ragged shape whose
+    tiles straddle samples: against the plain versions, and on fewer
+    persistent blocks the same bits."""
+    bn, ks = tile
+    b, f, s, c = 3, 5, 19, 320
+    plan = GemmPlan(b * f * s, c, 3 * c // 64, bn, ks, 1)
+    wide, few = (dataclasses.replace(plan, grid=min(plan.n_items, g)) for g in (132, 5))
+    inputs = _tresnet_inputs(b, f, s, c)
+    got = _tresnet_ab(inputs, (wide, wide))
+    assert all(torch.equal(a, b) for a, b in zip(got, _tresnet_ab(inputs, (few, few))))
+
+
+def test_tresnet_refuses_plans_it_does_not_take(rn):
+    x, t = rn(1, 2, 8, 64), rn(1, 2, 64)
+    wt, bias = tr.pack_taps(rn(3, 64, 64)), rn(64).float()
+    sc, sh = rn(1, 64).float(), rn(1, 64).float()
+    h, psum = torch.empty_like(x), torch.empty(1, gn.stats_slots(16), 64, device="cuda")
+    for plan in (GemmPlan(16, 64, 3, 64, 1, 1), GemmPlan(16, 64, 3, 96, 1, 1),
+                 GemmPlan(16, 64, 3, 128, 4, 1), GemmPlan(16, 64, 3, 128, 1, 0)):
+        with pytest.raises(RuntimeError):
+            tr._launch(x, wt, bias, sc, sh, t, None, h, psum, psum.clone(), True, plan)
+
+
+@pytest.mark.parametrize("shape", [(2, 14, 40, 1280), (3, 7, 9, 64), (28, 40, 64, 320),
+                                   (8, 5, 8, 2560)])
+def test_group_norm_fold_kernel(rn, shape):
+    """The fold's kernels: the statistics partials against their plain
+    version slot by slot (1e-5 relative, f32 sums in another order), the
+    fold against the plain fold and fold_from_partials against the plain
+    fold of the slot sums (1e-4); two runs give the same bits."""
+    x = rn(*shape) * 2 + 0.5
+    c = shape[-1]
+    rows = x.numel() // (shape[0] * c)
+    scale, bias = 1 + 0.1 * rn(c).float(), 0.1 * rn(c).float()
+    psum = torch.empty(shape[0], gn.stats_slots(rows), c, device="cuda")
+    psq = torch.empty_like(psum)
+    gn._fold_launch(x, psum, psq, rows, scale, bias, 32, 1e-5)
+    for got, r in zip((psum, psq), gn.channel_stats_reference(x.reshape(-1, c), rows)):
+        assert ((got - r).abs().max() / r.abs().max()).item() <= 1e-5
+    n = gn.group_norm_fold.launches
+    got = gn.group_norm_fold(x, scale, bias, groups=32, eps=1e-5)
+    assert gn.group_norm_fold.launches == n + 1
+    again = gn.group_norm_fold(x, scale, bias, groups=32, eps=1e-5)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = gn.group_norm_fold_reference(x, scale, bias, groups=32, eps=1e-5)
+    for g_, w_ in zip(got, want):
+        torch.testing.assert_close(g_, w_, atol=1e-4, rtol=1e-4)
+    n = gn.fold_from_partials.launches
+    got = gn.fold_from_partials(psum, psq, rows, scale, bias, 32, 1e-5)
+    assert gn.fold_from_partials.launches == n + 1
+    want = gn.fold_from_channel_sums(psum.sum(1), psq.sum(1), rows, scale, bias, 32, 1e-5)
+    for g_, w_ in zip(got, want):
+        torch.testing.assert_close(g_, w_, atol=1e-4, rtol=1e-4)
+
+
+def test_affine_silu_prologue(rn):
+    """The prologue pass alone against the plain activation."""
+    x = rn(2, 3, 50, 128) * 2
+    sc, sh = (1 + 0.1 * rn(2, 128).float()) / 2, 0.1 * rn(2, 128).float()
+    _assert_close_bf16(tr.affine_silu(x, sc, sh), tr._activate(x, sc, sh))
+
+
 @pytest.mark.parametrize("shape,silu", [((3, 7, 9, 64), True), ((2, 100, 320), False)])
 def test_group_norm_kernel(rn, shape, silu):
     x = rn(*shape) * 3 + 1

@@ -118,6 +118,19 @@ def test_temporal_resnet_plain_matches_jax(monkeypatch, b, f, s, c, groups):
     np.testing.assert_allclose(got.numpy(), forced, atol=ATOL, rtol=RTOL)
 
 
+def test_fold_from_partials_matches_jax():
+    """The statistics partials' fold (on the card one kernel) against JAX's
+    _fold_from_channel_sums on the same (B, slots, C) partials."""
+    rs = np.random.RandomState(4)
+    ps, pq = rs.rand(2, 3, 64).astype(np.float32), 2 + rs.rand(2, 3, 64).astype(np.float32)
+    scale, bias = 1 + _rand(rs, 64, scale=0.1), _rand(rs, 64, scale=0.1)
+    ref = jtr._fold_from_channel_sums(jnp.asarray(ps), jnp.asarray(pq), 100,
+                                      jnp.asarray(scale), jnp.asarray(bias), 8, 1e-5)
+    got = tgn.fold_from_partials(_t(ps), _t(pq), 100, _t(scale), _t(bias), 8, 1e-5)
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=ATOL, rtol=RTOL)
+
+
 def test_fold_from_channel_sums_matches_jax():
     rs = np.random.RandomState(3)
     ps, pq = rs.rand(2, 4, 64).astype(np.float32), 2 + rs.rand(2, 4, 64).astype(np.float32)
@@ -162,6 +175,53 @@ def test_group_norm_fold_matches_jax():
         np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=ATOL, rtol=RTOL)
 
 
+@pytest.mark.parametrize("shape", [(2, 3, 10, 64), (3, 7, 9, 64), (2, 130, 96), (1, 200, 64),
+                                   (4, 5, 7, 64)])
+def test_group_norm_fold_from_stats_partials_matches_jax(shape):
+    """The fold from the statistics kernel's per-(sample, 64-row chunk)
+    partials (their plain version) against JAX's group_norm_fold, at rows
+    per sample (30, 63, 130, 200, 35) whose chunks straddle samples. f32 sums
+    of the same values in another order: ATOL / RTOL. Slots past a sample's
+    last chunk are zero."""
+    rs = np.random.RandomState(len(shape) + shape[1])
+    x = _rand(rs, *shape, scale=2.0) + 0.5
+    c = shape[-1]
+    scale, bias = 1 + _rand(rs, c, scale=0.1), _rand(rs, c, scale=0.1)
+    ref = jgn.group_norm_fold(jnp.asarray(x), jnp.asarray(scale), jnp.asarray(bias),
+                              groups=32, eps=1e-5)
+    rows = x.size // (shape[0] * c)
+    psum, psq = tgn.channel_stats_reference(_t(x).reshape(-1, c), rows)
+    assert psum.shape == (shape[0], tgn.stats_slots(rows), c)
+    got = tgn.fold_from_channel_sums(psum.sum(1), psq.sum(1), rows, _t(scale), _t(bias),
+                                     32, 1e-5)
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=ATOL, rtol=RTOL)
+    for b in range(shape[0]):
+        used = (b * rows + rows - 1) // tgn.STATS_ROWS - b * rows // tgn.STATS_ROWS + 1
+        assert not psum[b, used:].any() and not psq[b, used:].any()
+        assert psq[b, :used].gt(0).all()
+
+
+def test_group_norm_fold_differentiates_like_its_plain_version():
+    """The fold through its Function (the plain forward injected in place of
+    the statistics kernel), both outputs (sc, sh) differentiated: the
+    gradients of x, scale and bias equal autograd's of the plain fold."""
+    rs = np.random.RandomState(5)
+    inputs = [_t(_rand(rs, 2, 5, 6, 64) + 1.0), _t(1 + _rand(rs, 64, scale=0.1)),
+              _t(_rand(rs, 64, scale=0.1))]
+    douts = [_t(_rand(rs, 2, 64)) for _ in range(2)]
+    grads, outs = [], []
+    for fold in (lambda *a: tgn.group_norm_fold(*a, groups=8, eps=1e-5,
+                                                kernel=tgn.group_norm_fold_reference),
+                 lambda *a: tgn.group_norm_fold_reference(*a, groups=8, eps=1e-5)):
+        leaves = [a.clone().requires_grad_(True) for a in inputs]
+        outs.append(fold(*leaves))
+        grads.append(torch.autograd.grad(outs[-1], leaves, douts))
+    assert all(type(o.grad_fn).__name__ == "_ReferenceGradBackward" for o in outs[0])
+    for g, r in zip(*grads):
+        np.testing.assert_allclose(g.numpy(), r.numpy(), atol=1e-5, rtol=1e-5)
+
+
 def test_wrappers_raise_on_untaken_cuda_shapes():
     """The structural predicates refuse what the kernels do not take."""
     q = torch.zeros(1, 8, 96)
@@ -175,14 +235,15 @@ def test_wrappers_raise_on_untaken_cuda_shapes():
 
 def test_kernel_a_b_plain_versions_compose_to_the_block():
     """fold -> conv_a_reference -> fold of its sums -> conv_b_reference with
-    the blend weight folded into conv2 == temporal_resnet_reference: the
-    plain versions the card's kernels A and B are held against."""
+    the blend weight applied in its epilogue, out = x + w·(conv2 + b2) ==
+    temporal_resnet_reference: the plain versions the card's kernels A and B
+    are held against."""
     args = [_t(a) for a in _tresnet_args(np.random.RandomState(11), 2, 3, 10, 64)]
     x, t, k1, b1, k2, b2, s1, bi1, s2, bi2, w = args
     sc1, sh1 = tgn.group_norm_fold(x, s1, bi1, groups=8, eps=1e-5)
     h, sum_c, sq_c = ttr.conv_a_reference(x, k1, b1, sc1, sh1, t)
     sc2, sh2 = tgn.fold_from_channel_sums(sum_c, sq_c, 30, s2, bi2, 8, 1e-5)
-    got = ttr.conv_b_reference(h, k2 * w, b2 * w, sc2, sh2, x)
+    got = ttr.conv_b_reference(h, k2, b2, sc2, sh2, x, w)
     ref = ttr.temporal_resnet_reference(*args, 8, 1e-5)
     np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=ATOL, rtol=RTOL)
 

@@ -1,6 +1,7 @@
 """The launch plans of the shared Hopper GEMM mainloop (csrc/sm90_gemm.cuh)
 and GEGLU's W1 packing, on the CPU: plans are pure functions of the shape,
-so every conv3x3 site and GEGLU shape of the main paths is checked here for
+so every conv3x3 site, GEGLU shape and temporal resnet site of the main
+paths is checked here for
 what the kernels rely on (the mainloop, tiles and K slices that cover the
 problem once, TMA-legal boxes, tile widths the sources instantiate); the
 packed W1 against the plain GEGLU."""
@@ -16,6 +17,7 @@ import torch.nn.functional as F
 
 from svd_xtend_tpu_torch.ops.kernels import conv3x3 as cv
 from svd_xtend_tpu_torch.ops.kernels import geglu as gg
+from svd_xtend_tpu_torch.ops.kernels import gemm_plan
 from svd_xtend_tpu_torch.ops.kernels.gemm_plan import K_TILE, MAX_BOX, SM_COUNT, slice_bounds
 from svd_xtend_tpu_torch.scripts import sites
 
@@ -105,6 +107,47 @@ def test_conv3x3_plan_takes_the_card_sm_count():
     _check_tma(plan, _source_widths("SVDX_CONV_TILE_N"))
     assert plan.grid <= 114
     assert cv.conv3x3_plan(28, 40, 64, 320, 320) == cv.conv3x3_plan(28, 40, 64, 320, 320)
+
+
+@pytest.mark.parametrize("site", sites.TRESNET_SITES, ids=lambda st: "-".join(map(str, st)))
+def test_tresnet_plan_at_site(site):
+    """Every temporal resnet shape of the exact video and the train step: a
+    TMA plan at a width csrc/temporal_resnet.cu instantiates, K = 3C in
+    tiles of 64, covering the M x N items once, memoized."""
+    b, f, s, c, per_video, per_step = site
+    assert per_video + per_step > 0
+    plan = gemm_plan.tresnet_plan(b, f, s, c)
+    assert gemm_plan.TRESNET_TILE_N == _source_widths("SVDX_TRESNET_TILE_N")
+    _check_tma(plan, gemm_plan.TRESNET_TILE_N)
+    assert (plan.m, plan.n, plan.k_tiles) == (b * f * s, c, 3 * c // K_TILE)
+    _check_cover(plan)
+    assert gemm_plan.tresnet_plan(b, f, s, c) is plan
+
+
+def test_tresnet_sites_count_the_blocks():
+    """578 launches of each kernel per exact video (22 blocks a CFG UNet pass
+    for 25 steps, 14 a decode chunk for 2 chunks), 44 per train step (22
+    blocks, forward and recompute); the 5x8 level splits K at both batches,
+    and every split gives each SM an item."""
+    assert sum(st[4] for st in sites.TRESNET_SITES) == 25 * 22 + 2 * 14
+    assert sum(st[5] for st in sites.TRESNET_SITES) == 2 * 22
+    for b in (2, 1):
+        assert gemm_plan.tresnet_plan(b, 14, 40, 1280).k_slices > 1
+    for b, f, s, c, _, _ in sites.TRESNET_SITES:
+        plan = gemm_plan.tresnet_plan(b, f, s, c)
+        assert plan.k_slices == 1 or plan.n_items >= SM_COUNT
+
+
+@pytest.mark.parametrize("shape", [(2, 1, 7, 64), (2, 3, 50, 128), (1, 1, 1, 64),
+                                   (3, 14, 40, 320)])
+def test_tresnet_plan_small_and_ragged(shape):
+    """F = 1, ragged S, C = 64 (one tile wider than the matrix): still an
+    instantiated width, covering every item; on a card of fewer SMs the grid
+    follows."""
+    plan = gemm_plan.tresnet_plan(*shape)
+    _check_tma(plan, gemm_plan.TRESNET_TILE_N)
+    _check_cover(plan)
+    assert gemm_plan.tresnet_plan(*shape, sms=16).grid <= 16
 
 
 @pytest.mark.parametrize("t,c", sites.GEGLU_SHAPES + [(130, 320), (1000, 320), (130, 1280),
