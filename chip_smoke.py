@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port (svd_xtend_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile DIR] [--tresnet-only]
+    python3 chip_smoke.py [--profile DIR]
 
 Phases, each of which raises on failure (non-zero exit):
   1. device: needs CUDA; prints the card's name and power limit and the TF32
@@ -31,21 +31,21 @@ Phases, each of which raises on failure (non-zero exit):
      graph beside the bound and the unfused bf16 module path's device time
      (two runs must give the same bits).
   3a. temporal resnet: kernels A and B at every shape of the exact video
-     and the train step (TRESNET_SITES), each against its plain version
-     (kernel A's statistics, slot by slot, within 1e-5 relative of the plain
-     statistics of its stored h; their channel sums against
-     conv_a_reference's reported), the block against
-     temporal_resnet_reference, two runs the same bits; device ms per
+     and the train step (TRESNET_SITES), each against its plain version, the
+     block against temporal_resnet_reference, two runs the same bits. Kernel
+     A's statistics partials pass two gates, each beside a control it must
+     catch: their channel sums against conv_a_reference's within
+     temporal_resnet.sums_tolerance (8e-3 / sqrt(rows a sample); the control
+     truncates the plain f32 h to bf16 instead of rounding it), and slot by
+     slot within 1e-5 of the plain statistics of the kernel's own stored h
+     (the control takes the plain statistics before h's rounding); the
+     sums' gate again over 16 more seeds at the 560-row sites. Device ms per
      launch in a CUDA graph beside F.conv2d of the frame conv alone and the
      bound, the plan, and Σ launches x device ms per exact video and per
      train step; at the UNet levels (and the VAE decoder's top) the block's
      device time split into norm1's fold, the kernels (with their prologue
-     passes), norm2's fold and the weight preparation, and its host ms; the
-     GroupNorm fold's kernels (group_norm_fold, fold_from_partials) against
-     their plain versions.
-     ``--tresnet-only`` runs this phase alone (with this script's
-     svd_xtend_tpu_torch/scripts/sites.py it also times the mma.sync kernels
-     of commit 0b86170 in that tree).
+     passes) and norm2's fold, and its host ms; the GroupNorm fold's kernels
+     (group_norm_fold, fold_from_partials) against their plain versions.
   3b. conv3x3: the kernel against its plain version at every site of the
      UNet (CFG batch 28 for generate, batch 14 for the train step, each with
      the epilogue that site uses), at every dU shape of the train step's
@@ -253,69 +253,44 @@ class KernelPhase:
 def tresnet_phase(dev, ph: KernelPhase, smi: str):
     """The temporal resnet's kernels A and B at every shape of the paths
     (svd_xtend_tpu_torch/scripts/sites.py TRESNET_SITES): each against its
-    plain version (kernel A's statistics within 1e-5 of the plain statistics
-    of its stored h), the block against temporal_resnet_reference, two runs
-    the same bits; device ms per
-    launch in a CUDA graph beside F.conv2d of the frame conv alone (a (3, 1)
-    filter, channels-last, on the pre-activated input) and the bound, the
-    plan; Σ launches x device ms per exact video and per train step. At the
-    UNet levels the block's device time split into its parts, and its host
-    ms. Also the GroupNorm fold's kernels at the L0 fold. Runs on
-    the tree of commit 0b86170 too (the mma.sync kernels, for an A/B against
-    them), which folds the blend weight
-    into conv2's weights and packs them on every call."""
+    plain version (kernel A's statistics as in check_tresnet_stats), the
+    block against temporal_resnet_reference, two runs the same bits; device
+    ms per launch in a CUDA graph beside F.conv2d of the frame conv alone (a
+    (3, 1) filter, channels-last, on the pre-activated input) and the bound,
+    the plan; Σ launches x device ms per exact video and per train step. At
+    the UNet levels (and the VAE decoder's top) the block's device time split
+    into its parts, and its host ms. Then the channel sums' bound over more
+    seeds at the 560-row level, and the GroupNorm fold's kernels."""
     from svd_xtend_tpu_torch.ops import video
     from svd_xtend_tpu_torch.ops.kernels import gemm_plan
-    from svd_xtend_tpu_torch.ops.kernels import groupnorm as gn
     from svd_xtend_tpu_torch.ops.kernels import temporal_resnet as tr
-    folded_w = not hasattr(tr, "packed")        # the API of commit 0b86170
     log("  x (B, F, S, C) x launches per video / per step: device ms conv_a / conv_b / "
         "F.conv2d alone / bound, TFLOP/s of conv_a, conv_b; the plan")
     totals = collections.defaultdict(float)
     for b, f, s, c, per_video, per_step in TRESNET_SITES:
-        g = torch.Generator(device=dev).manual_seed(SEED + 10)
-        rn = lambda *sh, sc=1.0: (torch.randn(*sh, device=dev, generator=g) * sc).to(
-            torch.bfloat16)
-        x, t = rn(b, f, s, c), rn(b, f, c, sc=0.5)
-        k1, k2 = rn(3, c, c, sc=(3 * c) ** -0.5), rn(3, c, c, sc=(3 * c) ** -0.5)
-        b1, b2 = rn(c, sc=0.1), rn(c, sc=0.1)
-        sc1, sh1 = (1 + 0.1 * rn(b, c).float()) / 2, 0.1 * rn(b, c).float()
-        w = torch.tensor([0.37], device=dev)
-        if folded_w:
-            wt1, b1f = tr.pack_taps(k1), b1.float()
-            k2w, b2w = (k2.float() * w).to(k2.dtype), (b2.float() * w).to(b2.dtype)
-            wt2, b2f, wb = tr.pack_taps(k2w), b2w.float(), ()
-        else:
-            (wt1, b1f), (wt2, b2f) = tr.packed(k1, b1), tr.packed(k2, b2)
-            k2w, b2w, wb = k2, b2, (w,)
+        x, t, k1, b1, k2, b2, sc1, sh1, w = tresnet_inputs(dev, b, f, s, c, SEED + 10)
+        (wt1, b1f), (wt2, b2f) = tr.packed(k1, b1), tr.packed(k2, b2)
         label = f"{(b, f, s, c)}"
         run_a = lambda: tr.conv_a(x, wt1, b1f, sc1, sh1, t)
         plain_a = lambda: tr.conv_a_reference(x, k1, b1, sc1, sh1, t)
         h, psum, psq = run_a()
         rh, rsum, rsq = plain_a()
         ph.check("temporal_resnet_conv_a", h, rh, label)
-        # statistics: slot by slot, the plain statistics of the kernel's own
-        # stored h (f32 sums of the same values in another order); the
-        # channel sums against conv_a_reference's, whose h rounds otherwise
-        # in places (1-ulp differences of h, held above, move a sum of
-        # squares over 560 rows by up to ~1.4e-4), reported
-        own = (gn.channel_stats_reference(h.reshape(-1, c), f * s) if not folded_w
-               else (psum, psq))
-        for name, got, ref, mine in (("sum", psum, rsum, own[0]), ("sumsq", psq, rsq, own[1])):
-            rel = ((got.sum(1) - ref).abs().max() / ref.abs().max()).item()
-            slot = ((got - mine).abs().max() / mine.abs().max()).item()
-            log(f"    channel {name}: slots against the stored h's {slot:.3g} (bound 1e-5); "
-                f"sums against conv_a_reference's {rel:.3g}")
-            if not slot <= 1e-5:
-                raise RuntimeError(f"temporal_resnet_conv_a {label}: channel {name} off")
-        run_b = lambda: tr.conv_b(rh, wt2, b2f, sc1, sh1, x, *wb)
-        plain_b = lambda: tr.conv_b_reference(rh, k2w, b2w, sc1, sh1, x, *wb)
+        readings = check_tresnet_stats(label, (x, k1, b1, sc1, sh1, t), h, psum, psq, rh, rsum, rsq)
+        log(f"    channel sums against conv_a_reference's {readings[0]:.3g}, truncated-h "
+            f"control {readings[1]:.3g} (bound {tr.sums_tolerance(f * s):.3g}); slots against "
+            f"the stored h's {readings[2]:.3g}, pre-rounding control {readings[3]:.3g} "
+            f"(bound {SLOT_BOUND})")
+        run_b = lambda: tr.conv_b(rh, wt2, b2f, sc1, sh1, x, w)
+        plain_b = lambda: tr.conv_b_reference(rh, k2, b2, sc1, sh1, x, w)
         out = run_b()
         ph.check("temporal_resnet_conv_b", out, plain_b(), label)
         again = (*run_a(), run_b())
         if not all(torch.equal(u, v) for u, v in zip((h, psum, psq, out), again)):
             raise RuntimeError(f"temporal resnet {label}: two runs differ")
-        sc, bi = 1 + 0.1 * rn(c).float(), 0.1 * rn(c).float()
+        g = torch.Generator(device=dev).manual_seed(SEED + 12)
+        sc, bi = 1 + 0.1 * torch.randn(c, device=dev, generator=g), 0.1 * torch.randn(
+            c, device=dev, generator=g)
         args = (x, t, k1, b1, k2, b2, sc, bi, sc, bi, w)
         block = lambda: tr.temporal_resnet_block(*args, groups=32, eps=1e-5)
         ph.check("temporal_resnet_block", block(), tr.temporal_resnet_reference(*args, 32, 1e-5),
@@ -334,52 +309,116 @@ def tresnet_phase(dev, ph: KernelPhase, smi: str):
         if (b, f, s, c) == (2, 14, 2560, 320):
             ph.times["temporal_resnet_conv_a"]["device_ms"] = a_ms
             ph.times["temporal_resnet_conv_b"]["device_ms"] = b_ms
-        plan = getattr(gemm_plan, "tresnet_plan", None)
-        plan = "" if plan is None else plan(b, f, s, c)
-        plan = plan and f"bn {plan.bn} ks {plan.k_slices} grid {plan.grid}"
+        plan = gemm_plan.tresnet_plan(b, f, s, c)
         log(f"  temporal resnet {label} x {per_video} / {per_step}: {a_ms:.4f} / {b_ms:.4f} / "
             f"{lib_ms:.4f} / {bound:.4f} ms ({by}), {flops / a_ms / 1e9:.1f} / "
-            f"{flops / b_ms / 1e9:.1f} TFLOP/s; {plan}")
+            f"{flops / b_ms / 1e9:.1f} TFLOP/s; bn {plan.bn} ks {plan.k_slices} grid {plan.grid}")
         for path, n in (("exact video", per_video), ("train step", per_step)):
             for key, v in (("a", a_ms), ("b", b_ms), ("conv2d", 2 * lib_ms), ("bound", 2 * bound)):
                 totals[path, key] += n * v
         if b == 2 or (b, f, s) == (1, 8, 163840):
-            tresnet_block_parts(label, x, t, k1, b1, k2, b2, sc, bi, w, sc1, sh1, psum, psq,
-                                a_ms, b_ms, block, folded_w)
+            tresnet_block_parts(label, x, sc, bi, sc1, sh1, psum, psq, a_ms, b_ms, block)
         del x, h, rh, out, again, u
     for path in ("exact video", "train step"):
         a, b_, lib, bound = (totals[path, k] for k in ("a", "b", "conv2d", "bound"))
         log(f"  [{smi}] temporal resnet per {path}: launches x device ms, conv_a {a:.1f} + "
             f"conv_b {b_:.1f} = {a + b_:.1f} ms; F.conv2d alone (both convs) {lib:.1f}; "
             f"bound {bound:.1f}")
-    if not folded_w:
-        fold_phase(dev, ph)
+    tresnet_sums_seeds(dev)
+    fold_phase(dev, ph)
 
 
-def tresnet_block_parts(label, x, t, k1, b1, k2, b2, sc, bi, w, sc1, sh1, psum, psq, a_ms,
-                        b_ms, block, folded_w):
+SLOT_BOUND = 1e-5   # kernel A's partials against the plain statistics of its own h
+
+
+def tresnet_inputs(dev, b, f, s, c, seed):
+    """Seeded (x, t, k1, b1, k2, b2, sc1, sh1, w) of a temporal resnet at
+    (b, f, s, c): bf16 tensors, f32 (sc1, sh1) and blend weight w."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rn = lambda *sh, sc=1.0: (torch.randn(*sh, device=dev, generator=g) * sc).to(
+        torch.bfloat16)
+    x, t = rn(b, f, s, c), rn(b, f, c, sc=0.5)
+    k1, k2 = rn(3, c, c, sc=(3 * c) ** -0.5), rn(3, c, c, sc=(3 * c) ** -0.5)
+    b1, b2 = rn(c, sc=0.1), rn(c, sc=0.1)
+    sc1, sh1 = (1 + 0.1 * rn(b, c).float()) / 2, 0.1 * rn(b, c).float()
+    return x, t, k1, b1, k2, b2, sc1, sh1, torch.tensor([0.37], device=dev)
+
+
+def check_tresnet_stats(label, a_args, h, psum, psq, rh, rsum, rsq):
+    """Kernel A's statistics partials (its inputs `a_args` in
+    conv_a_reference's order), two gates each beside a control that
+    it must catch:
+      - their channel sums against conv_a_reference's within
+        temporal_resnet.sums_tolerance(rows a sample); the control is the
+        sums of the plain f32 h truncated (not rounded) to bf16;
+      - slot by slot against the plain statistics of the kernel's own stored
+        h within SLOT_BOUND; the control is the plain statistics of the f32
+        h before its rounding, against those of the plain h.
+    Returns the readings (sums, sums' control, slots, slots' control): of
+    the sums and the sums of squares, the larger reading of a gate and the
+    smaller of a control."""
+    from svd_xtend_tpu_torch.ops.kernels import groupnorm as gn
+    from svd_xtend_tpu_torch.ops.kernels import temporal_resnet as tr
+
+    b, f, s, c = h.shape
+    rel = lambda got, ref: ((got - ref).abs().max() / ref.abs().max()).item()
+
+    def sums(v):
+        v = v.float().flatten(1, 2)
+        return v.sum(1), (v * v).sum(1)
+
+    acc = tr.conv_a_f32_reference(*a_args)
+    trunc = (acc.view(torch.int32) & -65536).view(torch.float32)
+    own = gn.channel_stats_reference(h.reshape(-1, c), f * s)
+    pre, plain = (gn.channel_stats_reference(v.reshape(-1, c), f * s) for v in (acc, rh))
+    readings = [max(rel(p.sum(1), r) for p, r in zip((psum, psq), (rsum, rsq))),
+                min(rel(v, r) for v, r in zip(sums(trunc), (rsum, rsq))),
+                max(rel(p, o) for p, o in zip((psum, psq), own)),
+                min(rel(v, p) for v, p in zip(pre, plain))]
+    bound = tr.sums_tolerance(f * s)
+    if not (bool(torch.isfinite(psum).all() and torch.isfinite(psq).all())
+            and readings[0] <= bound < readings[1] and readings[2] <= SLOT_BOUND < readings[3]):
+        raise RuntimeError(f"temporal_resnet_conv_a {label}: statistics readings {readings} "
+                           f"against the bounds {bound}, {SLOT_BOUND}")
+    return readings
+
+
+def tresnet_sums_seeds(dev, seeds=16):
+    """The channel sums' gate over `seeds` more seeds at the sites of 560
+    rows a sample (the fewest, where its bound is widest): the largest
+    reading and the smallest truncated-h control."""
+    from svd_xtend_tpu_torch.ops.kernels import temporal_resnet as tr
+
+    for b, f, s, c, *_ in TRESNET_SITES:
+        if f * s != 560:
+            continue
+        readings = []
+        for i in range(seeds):
+            x, t, k1, b1, *_, sc1, sh1, _ = tresnet_inputs(dev, b, f, s, c, SEED + 100 + i)
+            wt1, b1f = tr.packed(k1, b1)
+            a_args = (x, k1, b1, sc1, sh1, t)
+            got, ref = tr.conv_a(x, wt1, b1f, sc1, sh1, t), tr.conv_a_reference(*a_args)
+            readings.append(check_tresnet_stats(f"{(b, f, s, c)} seed {i}", a_args, *got, *ref))
+        log(f"    {(b, f, s, c)} over {seeds} seeds: channel sums against conv_a_reference's "
+            f"at most {max(r[0] for r in readings):.3g}, truncated-h control at least "
+            f"{min(r[1] for r in readings):.3g} (bound {tr.sums_tolerance(f * s):.3g}); slots "
+            f"at most {max(r[2] for r in readings):.3g}, pre-rounding control at least "
+            f"{min(r[3] for r in readings):.3g} (bound {SLOT_BOUND})")
+
+
+def tresnet_block_parts(label, x, sc, bi, sc1, sh1, psum, psq, a_ms, b_ms, block):
     """The block's device ms in a CUDA graph and its parts: norm1's fold, the
     prologue pass (twice in the block, inside each kernel's time), kernels A
-    and B, norm2's fold from A's statistics, the weight preparation (0b86170's
-    per call: both taps packed, w folded into conv2, the biases cast); and
-    the block's host ms per call (enqueue, no synchronise)."""
+    and B, norm2's fold from A's statistics (the weights are packed once per
+    parameter version, nothing per call); and the block's host ms per call
+    (enqueue, no synchronise)."""
     from svd_xtend_tpu_torch.ops.kernels import groupnorm as gn
     from svd_xtend_tpu_torch.ops.kernels import temporal_resnet as tr
 
     f, s = x.shape[1], x.shape[2]
     fold1 = graph_ms(lambda: gn.group_norm_fold(x, sc, bi, groups=32, eps=1e-5))
-    if folded_w:        # 0b86170's API: the plain fold of the slot sums
-        fold2 = graph_ms(lambda: gn.fold_from_channel_sums(psum.sum(1), psq.sum(1), f * s, sc,
-                                                           bi, 32, 1e-5))
-    else:
-        fold2 = graph_ms(lambda: gn.fold_from_partials(psum, psq, f * s, sc, bi, 32, 1e-5))
-
-    def per_call_prep():
-        k2w = (k2.float() * w).to(k2.dtype)
-        return (tr.pack_taps(k1), tr.pack_taps(k2w), b1.float(),
-                (b2.float() * w).to(b2.dtype).float())
-    prep = graph_ms(per_call_prep)
-    prologue = "n/a" if folded_w else f"{graph_ms(lambda: tr.affine_silu(x, sc1, sh1)):.4f}"
+    fold2 = graph_ms(lambda: gn.fold_from_partials(psum, psq, f * s, sc, bi, 32, 1e-5))
+    prologue = graph_ms(lambda: tr.affine_silu(x, sc1, sh1))
     dev_ms = graph_ms(block)
     block()
     torch.cuda.synchronize()
@@ -389,10 +428,8 @@ def tresnet_block_parts(label, x, t, k1, b1, k2, b2, sc, bi, w, sc1, sh1, psum, 
     host = (time.perf_counter() - t0) / 20 * 1e3
     torch.cuda.synchronize()
     log(f"    block {label}: device {dev_ms:.4f} ms = fold1 {fold1:.4f} + conv_a {a_ms:.4f} "
-        f"(prologue {prologue} of it) + fold2 {fold2:.4f} + conv_b {b_ms:.4f} (+ prologue) "
-        f"+ weights {'%.4f' % prep if folded_w else '0 (packed once per version)'}; host "
-        f"{host:.4f} ms a call (enqueue); the per-call weight preparation of 0b86170 "
-        f"{prep:.4f} ms")
+        f"(prologue {prologue:.4f} of it) + fold2 {fold2:.4f} + conv_b {b_ms:.4f} (+ prologue) "
+        f"+ weights 0 (packed once per version); host {host:.4f} ms a call (enqueue)")
 
 
 def fold_phase(dev, ph: KernelPhase):
@@ -927,9 +964,6 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", default="",
                         help="directory for a torch.profiler table of one train step")
-    parser.add_argument("--tresnet-only", action="store_true",
-                        help="only the temporal resnet phase (for timing another tree's "
-                             "kernels under this script)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -947,10 +981,6 @@ def main() -> int:
     _build.library()
     log(f"build: {time.time() - t0:.1f} s -> {_build.library_path().name}")
 
-    if args.tresnet_only:
-        log("kernels: temporal resnet A and B at every site (only)")
-        tresnet_phase(dev, KernelPhase(), smi)
-        return 0
     ph = kernel_phases(dev)
     torch.cuda.empty_cache()
     log("kernels: temporal resnet A and B at every site of the exact video and the train step")
@@ -1122,6 +1152,28 @@ def conv3x3_launches(cfg):
     return unet + vae
 
 
+def fold_launches(unet_passes, encodes, decode_chunks, col):
+    """The GroupNorm folds the configs imply, from the site tables: one
+    group_norm_fold per GN-fold conv3x3 (every site whose epilogue starts
+    with "preS") of `unet_passes` UNet passes, `encodes` VAE encodes and
+    `decode_chunks` decode chunks; and per temporal resnet (column `col` of
+    TRESNET_SITES: 4 per exact video, 5 per train step) one group_norm_fold
+    (norm1) and one fold_from_partials (norm2, from kernel A's partials)."""
+    pre = lambda sites: sum(st[5] for st in sites if st[4].startswith("preS"))
+    spatial = (unet_passes * pre(UNET_CONV_SITES) + encodes * pre(VAE_ENCODE_SITES)
+               + decode_chunks * pre(VAE_DECODE_SITES))
+    temporal = sum(st[col] for st in TRESNET_SITES)
+    return {"group_norm_fold": spatial + temporal, "fold_from_partials": temporal}
+
+
+def check_folds(path, launches, want, runs=1):
+    """The fold kernels' launches per run against the site tables'."""
+    got = {k: launches[k] / runs for k in want}
+    log(f"  {path}: GroupNorm fold launches per run {got}; the site tables give {want}")
+    if got != want:
+        raise RuntimeError(f"{path}: fold launches {got}, the site tables give {want}")
+
+
 def forward_per_run(path, by_shape, runs, launches, fwd_ms, smi, unit):
     """The flash forward's launches per run by (batch, tokens S), from a
     tally over `runs` runs, held against the last run's launch count, and
@@ -1219,6 +1271,9 @@ def generate_phase(dev, smi, counters, ph: KernelPhase):
             f"{dict(sorted(collections.Counter(expect).items()))}")
         if passes != expect:
             raise RuntimeError(f"{path}: UNet passes {passes} differ from the schedule {expect}")
+        if path == "generate":      # 25 CFG passes, the image's encode, the decode chunks
+            check_folds(path, launches[path], fold_launches(
+                len(expect), 1, -(-cfg.num_frames // cfg.decode_chunk_size), 4))
         want = conv3x3_launches(cfg)
         log(f"  conv3x3 launches {launches[path]['conv3x3']}; the site tables give {want}")
         if launches[path]["conv3x3"] != want:
@@ -1380,6 +1435,11 @@ def train_phase(dev, smi, counters, profile_dir, bwd_ms, fwd_ms, geglu_ms, tresn
     if {k: n / TRAIN_STEPS for k, n in conv_a_by_shape.items()} != want:
         raise RuntimeError(f"temporal resnet launches by shape {dict(conv_a_by_shape)} per "
                            f"{TRAIN_STEPS} steps, the site table gives {want}")
+    # the UNet's forward and its "block" remat recompute; the video's encode
+    # chunks and the conditioning image's encode
+    frames = cfg.per_device_batch_size * cfg.num_frames
+    check_folds("train", launches, fold_launches(
+        2, -(-frames // cfg.encode_chunk_size) + 1, 0, 5), TRAIN_STEPS)
     price("train: temporal_resnet_conv_a + conv_b", conv_a_by_shape, TRAIN_STEPS,
           {k: sum(v) for k, v in tresnet_ms.items()}, smi, "step")
     per_step = {s_len: n / TRAIN_STEPS for s_len, n in sorted(by_len.items(), reverse=True)}

@@ -10,6 +10,16 @@
 // row order, so the partials are the same bits whoever computes them (kernel
 // A's epilogue from its tile in shared memory, stats_kernel from device
 // memory). No atomics: a fold reduces the slots in a fixed order.
+//
+// Why per channel, beside the per-group partials of the Triton stats_kernel
+// in ops/kernels/groupnorm.py (group_norm_silu): kernel A's epilogue holds
+// the channel columns of one N tile, and tiles of 128 or 160 columns split
+// the 40-channel groups of C = 1280, so kernel A can only write partials per
+// channel; the fold reads the same layout, so one fold kernel serves it and
+// group_norm_fold. group_norm_silu keeps its own pair: its norm kernel reads
+// a sample's group partials (groups x splits, a few hundred floats) in every
+// program, where this layout would give it slots x C. Moving it onto these
+// partials is open work.
 
 #pragma once
 

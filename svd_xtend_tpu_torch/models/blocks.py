@@ -64,9 +64,9 @@ class GroupNormSiLU(nn.Module):
         normalise (+ SiLU) as it reads x (the JAX module's ``fold_only``).
         Over an up-block's concatenated input it equals JAX's
         ``group_norm_fold_cat``, groups straddling the two parts included.
-        On the card the fold's kernels compute it (``group_norm_fold``)."""
-        fold = (gnk.group_norm_fold if kernels_enabled() and gnk.stats_supports(x)
-                else gnk.group_norm_fold_reference)
+        On the card the fold's kernels compute it (``group_norm_fold``, which
+        raises on an x they do not take)."""
+        fold = gnk.group_norm_fold if kernels_enabled() else gnk.group_norm_fold_reference
         return fold(x, self.weight, self.bias, groups=self.groups, eps=self.eps)
 
 

@@ -83,14 +83,32 @@ def _activate(x, sc, sh):
     return (a * torch.sigmoid(a)).to(x.dtype)
 
 
+def conv_a_f32_reference(x, k, bias, sc, sh, t):
+    """Plain kernel A's h in f32, before its rounding to x's dtype."""
+    return (temporal_conv_reference(_activate(x, sc, sh).float(), k.float(), bias.float())
+            + t.float()[:, :, None, :])
+
+
 def conv_a_reference(x, k, bias, sc, sh, t):
     """Plain kernel A on taps k (3, C, C): (h, per-sample channel sum, sum of
     squares of the stored h), the sums (B, C) over all F·S positions."""
-    acc = (temporal_conv_reference(_activate(x, sc, sh).float(), k.float(), bias.float())
-           + t.float()[:, :, None, :])
-    h = acc.to(x.dtype)
+    h = conv_a_f32_reference(x, k, bias, sc, sh, t).to(x.dtype)
     hf = h.float().flatten(1, 2)
     return h, hf.sum(1), (hf * hf).sum(1)
+
+
+# Kernel A's channel sums against conv_a_reference's, as the largest
+# difference over the largest sum. The two h round f32 sums of the same
+# products taken in another order, so they differ by 1 bf16 ulp here and
+# there, with either sign: over a sample of n rows that moves a sum by about
+# sqrt(n) such ulps, a relative ~1/sqrt(n). A biased rounding of h (truncation)
+# moves every row the same way, ~2^-8 of the sums at any n.
+SUMS_TOLERANCE_SCALE = 8e-3
+
+
+def sums_tolerance(rows_per_sample: int) -> float:
+    """The bound on kernel A's channel sums against conv_a_reference's."""
+    return SUMS_TOLERANCE_SCALE / rows_per_sample ** 0.5
 
 
 def conv_b_reference(h, k, bias, sc, sh, res, w):
