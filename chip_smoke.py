@@ -25,8 +25,14 @@ Phases, each of which raises on failure (non-zero exit):
      backward pair at the four training shapes, each in the host loop and as
      device time per launch of a CUDA graph, with its executed TFLOP/s beside
      the bound (and SDPA's device time beside the forward).
-     The frame attention at the four UNet levels (CFG batch 2 x 14 frames)
-     as device time per launch in a CUDA graph beside SDPA over frames.
+     The frame attention at the four UNet levels (CFG batch 2 x 14 frames,
+     and the train step's 1 x 14) as device time per launch in a CUDA graph
+     beside SDPA over frames and the bound, two runs the same bits.
+     GroupNorm(+SiLU) at every site of the exact video and the train step
+     (GN_SITES: the UNet's on the cluster kernel, the VAE's on the two
+     passes), against its plain version, two runs the same bits; device time
+     per launch in a CUDA graph beside F.group_norm's (on the same values
+     laid out channels-first, no SiLU) and the bound.
      GEGLU at its eight (T, C) shapes: device time per launch in a CUDA
      graph beside the bound and the unfused bf16 module path's device time
      (two runs must give the same bits).
@@ -79,10 +85,11 @@ Phases, each of which raises on failure (non-zero exit):
      batch 1, GEGLU kernel on: one warm-up run, then 3 timed runs (the
      median s/video is reported, beside each run's and the device memory
      segments the allocator added during it); the last run's forward-kernel
-     launch counts must all be > 0; the flash forward's, GEGLU's and the
-     temporal resnet's launches per video by shape (the exact video's held
-     against the site table), and their sums of launches x the kernel
-     phases' device ms at each shape.
+     launch counts must all be > 0; the flash forward's, GEGLU's, the
+     temporal resnet's, the frame attention's and GroupNorm's launches per
+     video by shape (the exact video's temporal resnet and GroupNorm
+     launches held against TRESNET_SITES and GN_SITES), and their sums of
+     launches x the kernel phases' device ms at each shape.
   6. train (this slice's main path): the default TrainConfig (temporal
      scope, 512x320x14f, batch 1, remat "block", AdamW with f32 masters,
      bf16 compute) through make_optimizer/create_train_state/make_train_step
@@ -90,10 +97,11 @@ Phases, each of which raises on failure (non-zero exit):
      steps whose launch counts of every kernel (forward and flash backward)
      must all be > 0; finite loss and grad_norm, trainable weights changed,
      frozen ones bit-identical; s/step and peak memory; the flash backward
-     pair's, the flash forward's, GEGLU's and the temporal resnet's
-     launches per step by level (the temporal resnet's held against the
-     site table), and their sums of launches x the kernel phases' device ms
-     at that level. Then one full-scope step at the same size: finite loss,
+     pair's, the flash forward's, GEGLU's, the temporal resnet's, the frame
+     attention's and GroupNorm's launches per step by level (the temporal
+     resnet's and GroupNorm's held against TRESNET_SITES and GN_SITES), and
+     their sums of launches x the kernel phases' device ms at that level.
+     Then one full-scope step at the same size: finite loss,
      peak memory.
   7. mha (the head-major attention entry point, ops/attention.py::mha, as a
      caller outside the UNet uses it): the UNet's L0 self-attention shape,
@@ -135,9 +143,9 @@ import torch
 import torch.nn.functional as F
 
 from svd_xtend_tpu_torch.scripts import card, cuda_ms, graph_ms
-from svd_xtend_tpu_torch.scripts.sites import (GEGLU_SHAPES, TRESNET_SITES, UNET_CONV_SITES,
-                                               UNET_DGRAD_SITES, VAE_DECODE_SITES,
-                                               VAE_ENCODE_SITES)
+from svd_xtend_tpu_torch.scripts.sites import (GEGLU_SHAPES, GN_SITES, TRESNET_SITES,
+                                               UNET_CONV_SITES, UNET_DGRAD_SITES,
+                                               VAE_DECODE_SITES, VAE_ENCODE_SITES)
 
 SEED = 0
 # rel-L2 bound of the bf16 card UNet against the f32 host UNet: bf16 rounds
@@ -196,6 +204,8 @@ class KernelPhase:
         self.fwd_ms = {"generate": {}, "train": {}}
         self.geglu_ms = {}      # (T, C) -> device ms per launch
         self.tresnet_ms = {}    # x's shape (B, F, S, C) -> device (conv_a ms, conv_b ms)
+        self.frame_ms = {}      # q's shape (B, F, S, H*64) -> frame attention device ms
+        self.gn_ms = {}         # (x's shape, silu) -> group_norm_silu device ms
 
     def forward_level(self, path, b, s, h, run, sdpa, moved):
         """The flash forward at one (batch, tokens, heads): host loop and
@@ -517,39 +527,63 @@ def kernel_phases(dev) -> KernelPhase:
         ph.forward_level("generate", b, s, h, run, sdpa, nbytes(q, k, v, q))
         del q, k, v
 
-    log("kernels: temporal attention (device ms per launch in a CUDA graph at the four "
-        "UNet levels, CFG batch 2 x 14 frames)")
-    for b, f, s, h in [(2, 14, 2560, 5), (2, 14, 640, 10), (2, 14, 160, 20), (2, 14, 40, 20)]:
+    log("kernels: frame attention (device ms per launch in a CUDA graph at the four UNet "
+        "levels, CFG batch 2 x 14 frames and the train step's 1 x 14)")
+    for b, f, s, h in [(2, 14, 2560, 5), (2, 14, 640, 10), (2, 14, 160, 20), (2, 14, 40, 20),
+                       (1, 14, 2560, 5), (1, 14, 640, 10), (1, 14, 160, 20), (1, 14, 40, 20)]:
         q, k, v = rn(b, f, s, h * 64), rn(b, f, s, h * 64), rn(b, f, s, h * 64)
         run = lambda: ta.frame_attention(q, k, v, num_heads=h, scale=0.125)
         plain = lambda: ta.frame_attention_reference(q, k, v, num_heads=h, scale=0.125)
-        ph.check("frame_attention_fwd", run(), plain(), f"{(b, f, s, h * 64)}")
+        got = run()
+        ph.check("frame_attention_fwd", got, plain(), f"{(b, f, s, h * 64)}")
+        if not torch.equal(got, run()):
+            raise RuntimeError(f"frame_attention_fwd {(b, f, s, h * 64)}: two runs differ")
         frames = lambda a: a.view(b, f, s, h, 64).permute(0, 2, 3, 1, 4)
         sdpa = lambda: F.scaled_dot_product_attention(frames(q), frames(k), frames(v),
                                                       scale=0.125)
         flops, moved = 4 * b * s * h * f * f * 64, nbytes(q, k, v, q)
-        if s == 2560:
+        if (b, s) == (2, 2560):
             ph.time("frame_attention_fwd", run, plain, flops, moved, sdpa, "SDPA over frames")
         dev_ms, sdpa_ms = graph_ms(run), graph_ms(sdpa)
-        if s == 2560:
+        ph.frame_ms[tuple(q.shape)] = dev_ms
+        if (b, s) == (2, 2560):
             ph.times["frame_attention_fwd"]["device_ms"] = dev_ms
         b_ms, b_by = bound_ms(flops, moved)
         log(f"  frame attention {(b, f, s, h * 64)} heads {h}: device {dev_ms:.4f} ms, SDPA over "
-            f"frames device {sdpa_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+            f"frames device {sdpa_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+            f"{100 * b_ms / dev_ms:.1f} % of it; plan {ta.frame_plan(f)}")
+        del q, k, v
 
-    log("kernels: GroupNorm (transformer norm, UNet conv_norm_out, VAE decoder)")
-    for shape, silu, eps in [((28, 2560, 320), False, 1e-6), ((28, 40, 64, 320), True, 1e-5),
-                             ((8, 320, 512, 128), True, 1e-6)]:
+    log("kernels: GroupNorm(+SiLU) at every site of the exact video and the train step "
+        "(GN_SITES; x*3 + 1): device ms per launch in a CUDA graph beside F.group_norm's on "
+        "the same values channels-first and the bound; two runs the same bits")
+    for shape, silu, eps in sorted({st[:3] for st in GN_SITES}):
         x = rn(*shape) * 3 + 1
         c = shape[-1]
         sc, bi = 1 + 0.1 * rn(c).float(), 0.1 * rn(c).float()
         run = lambda: gn.group_norm_silu(x, sc, bi, groups=32, eps=eps, silu=silu)
         plain = lambda: gn.group_norm_silu_reference(x, sc, bi, 32, eps, silu)
-        ph.check("group_norm_silu", run(), plain(), f"{shape} silu={silu}")
-        if shape == (28, 2560, 320):
-            ph.time("group_norm_silu", run, plain, 0, nbytes(x, x),
-                    lambda: F.group_norm(x.transpose(1, 2), 32, sc.to(x.dtype),
-                                         bi.to(x.dtype), eps), "F.group_norm")
+        got = run()
+        ph.check("group_norm_silu", got, plain(), f"{shape} silu={silu}")
+        if not torch.equal(got, run()):
+            raise RuntimeError(f"group_norm_silu {shape}: two runs differ")
+        del got
+        xcf = x.reshape(shape[0], -1, c).transpose(1, 2).contiguous()
+        library = lambda: F.group_norm(xcf, 32, sc.to(x.dtype), bi.to(x.dtype), eps)
+        if (shape, silu) == ((28, 40, 64, 320), False):
+            ph.time("group_norm_silu", run, plain, 0, nbytes(x, x), library,
+                    "F.group_norm, channels-first")
+        dev_ms, lib_ms = graph_ms(run), graph_ms(library)
+        ph.gn_ms[(shape, silu)] = dev_ms
+        if (shape, silu) == ((28, 40, 64, 320), False):
+            ph.times["group_norm_silu"]["device_ms"] = dev_ms
+        b_ms, _ = bound_ms(0, nbytes(x, x))
+        plan = gn.group_norm_plan(shape, x.dtype, 32)
+        log(f"  group_norm_silu {shape} silu={silu}: device {dev_ms:.4f} ms, F.group_norm "
+            f"(channels-first, no SiLU) device {lib_ms:.4f} ms, bound {b_ms:.4f} ms (bytes), "
+            f"{100 * b_ms / dev_ms:.1f} % of it; {plan.path}"
+            + (f", {plan.rows_per_cta} rows a CTA" if plan.rows_per_cta else ""))
+        del x, xcf
 
     log("kernels: fused residual GEGLU (T x C at the four UNet levels: training, then "
         "serving with CFG, 2T); device ms per launch in a CUDA graph")
@@ -1004,7 +1038,7 @@ def main() -> int:
 
     log("train: default TrainConfig (temporal scope, 512x320x14f, batch 1, remat block)")
     train_launches = train_phase(dev, smi, counters, args.profile, ph.bwd_ms, ph.fwd_ms,
-                                 ph.geglu_ms, ph.tresnet_ms)
+                                 ph.geglu_ms, ph.tresnet_ms, ph.frame_ms, ph.gn_ms)
     torch.cuda.empty_cache()
 
     log("mha: the head-major attention entry point at the UNet's L0 shape")
@@ -1025,7 +1059,7 @@ def main() -> int:
                                    "svd_xtend_tpu/ops/pallas/temporal_resnet.py:126"),
         "temporal_resnet_conv_b": ("cuda", "svd_xtend_tpu_torch/csrc/temporal_resnet.cu",
                                    "svd_xtend_tpu/ops/pallas/temporal_resnet.py:140"),
-        "group_norm_silu": ("triton", "svd_xtend_tpu_torch/ops/kernels/groupnorm.py",
+        "group_norm_silu": ("cuda", "svd_xtend_tpu_torch/csrc/group_norm.cu",
                             "svd_xtend_tpu/ops/pallas/groupnorm.py:51"),
         # the GroupNorm folds: XLA code in the JAX package, no Pallas kernel
         "group_norm_fold": ("cuda", "svd_xtend_tpu_torch/csrc/gn_fold.cu",
@@ -1174,6 +1208,17 @@ def check_folds(path, launches, want, runs=1):
         raise RuntimeError(f"{path}: fold launches {got}, the site tables give {want}")
 
 
+def check_sites(path, tally, runs, col):
+    """group_norm_silu's launches per run by (shape, silu), from a tally over
+    `runs` runs, against column `col` of GN_SITES (3: per exact video, 4:
+    per train step)."""
+    got = {k: n / runs for k, n in tally.items()}
+    want = {(st[0], st[1]): st[col] for st in GN_SITES if st[col]}
+    if got != want:
+        raise RuntimeError(f"{path}: group_norm_silu launches by site {got}, GN_SITES give "
+                           f"{want}")
+
+
 def forward_per_run(path, by_shape, runs, launches, fwd_ms, smi, unit):
     """The flash forward's launches per run by (batch, tokens S), from a
     tally over `runs` runs, held against the last run's launch count, and
@@ -1202,6 +1247,8 @@ def generate_phase(dev, smi, counters, ph: KernelPhase):
     from svd_xtend_tpu_torch.diffusion.pipeline import SVDModels, generate
     from svd_xtend_tpu_torch.ops.kernels import flash_attention as fa
     from svd_xtend_tpu_torch.ops.kernels import geglu as gg
+    from svd_xtend_tpu_torch.ops.kernels import groupnorm as gn
+    from svd_xtend_tpu_torch.ops.kernels import temporal_attention as ta
     from svd_xtend_tpu_torch.ops.kernels import temporal_resnet as tr
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
@@ -1231,7 +1278,9 @@ def generate_phase(dev, smi, counters, ph: KernelPhase):
         with calls_by(fa, "flash_attention_fwd", BATCH_AND_TOKENS) as by_shape, \
                 calls_by(gg, "ln_geglu_residual", GEGLU_KEY) as geglu_by_shape, \
                 calls_by(tr, "conv_a", SHAPE) as conv_a_by_shape, \
-                calls_by(tr, "conv_b", SHAPE) as conv_b_by_shape:
+                calls_by(tr, "conv_b", SHAPE) as conv_b_by_shape, \
+                calls_by(ta, "frame_attention", SHAPE) as frame_by_shape, \
+                calls_by(gn, "group_norm_silu", GN_KEY) as gn_by_site:
             for _ in range(GENERATE_TIMED):
                 video = None        # the last run's video is not held through the next
                 reset(counters)
@@ -1263,6 +1312,11 @@ def generate_phase(dev, smi, counters, ph: KernelPhase):
                                            ("temporal_resnet_conv_b", conv_b_by_shape))):
             price(f"{path}: {name}", tally, GENERATE_TIMED,
                   {k: v[i] for k, v in ph.tresnet_ms.items()}, smi, "video")
+        price(f"{path}: frame_attention_fwd", frame_by_shape, GENERATE_TIMED, ph.frame_ms, smi,
+              "video")
+        if path == "generate":
+            check_sites(path, gn_by_site, GENERATE_TIMED, 3)
+        price(f"{path}: group_norm_silu", gn_by_site, GENERATE_TIMED, ph.gn_ms, smi, "video")
         peak = torch.cuda.max_memory_allocated()
         expect = unet_schedule(cfg)
         ran = collections.Counter(passes)
@@ -1324,7 +1378,7 @@ def mha_phase(dev, counters):
 
 class _Tally:
     """Stands in for a module's function while counting its calls by a key
-    of their first argument; reads and writes of its attributes (the launch
+    of their first argument (and keyword arguments); reads and writes of its attributes (the launch
     counter the function keeps on itself) go to the function."""
 
     def __init__(self, fn, key, tally):
@@ -1333,7 +1387,7 @@ class _Tally:
         object.__setattr__(self, "_tally", tally)
 
     def __call__(self, first, *args, **kwargs):
-        self._tally[self._key(first)] += 1
+        self._tally[self._key(first, **kwargs)] += 1
         return self._fn(first, *args, **kwargs)
 
     def __getattr__(self, name):
@@ -1346,7 +1400,7 @@ class _Tally:
 @contextlib.contextmanager
 def calls_by(module, name, key):
     """While active, tallies the calls of `module.name` by key(first
-    argument). The tally stands in for the module's global, which its
+    argument, **keyword arguments). The tally stands in for the module's global, which its
     callers (and the function itself) look up at each call."""
     tally = collections.Counter()
     original = getattr(module, name)
@@ -1357,10 +1411,11 @@ def calls_by(module, name, key):
         setattr(module, name, original)
 
 
-BATCH_AND_TOKENS = lambda q: tuple(q.shape[:2])     # a flash call's (batch, tokens S)
-TOKENS = lambda q: q.shape[1]                       # its tokens S
-GEGLU_KEY = lambda x: (x.numel() // x.shape[-1], x.shape[-1])   # GEGLU's (T, C)
-SHAPE = lambda x: tuple(x.shape)
+BATCH_AND_TOKENS = lambda q, **_: tuple(q.shape[:2])     # a flash call's (batch, tokens S)
+TOKENS = lambda q, **_: q.shape[1]                       # its tokens S
+GEGLU_KEY = lambda x, **_: (x.numel() // x.shape[-1], x.shape[-1])   # GEGLU's (T, C)
+SHAPE = lambda x, **_: tuple(x.shape)
+GN_KEY = lambda x, silu=True, **_: (tuple(x.shape), silu)      # a GroupNorm site
 
 
 def price(what, tally, runs, ms, smi, unit):
@@ -1372,14 +1427,18 @@ def price(what, tally, runs, ms, smi, unit):
     return total
 
 
-def train_phase(dev, smi, counters, profile_dir, bwd_ms, fwd_ms, geglu_ms, tresnet_ms):
+def train_phase(dev, smi, counters, profile_dir, bwd_ms, fwd_ms, geglu_ms, tresnet_ms,
+                frame_ms, gn_ms):
     """The train step; `bwd_ms` {S: device (dQ ms, dK/dV ms)}, `fwd_ms`,
-    `geglu_ms` and `tresnet_ms` from the kernel phases price the step's
-    flash backward, forward, GEGLU and temporal resnet launches per level."""
+    `geglu_ms`, `tresnet_ms`, `frame_ms` and `gn_ms` from the kernel phases
+    price the step's flash backward, forward, GEGLU, temporal resnet, frame
+    attention and GroupNorm launches per level or site."""
     import dataclasses
 
     from svd_xtend_tpu_torch.ops.kernels import flash_attention as fa
     from svd_xtend_tpu_torch.ops.kernels import geglu as gg
+    from svd_xtend_tpu_torch.ops.kernels import groupnorm as gn
+    from svd_xtend_tpu_torch.ops.kernels import temporal_attention as ta
     from svd_xtend_tpu_torch.ops.kernels import temporal_resnet as tr
 
     from svd_xtend_tpu_torch.core.config import TrainConfig
@@ -1421,7 +1480,9 @@ def train_phase(dev, smi, counters, profile_dir, bwd_ms, fwd_ms, geglu_ms, tresn
     with calls_by(fa, "flash_attention_bwd", TOKENS) as by_len, \
             calls_by(fa, "flash_attention_fwd", BATCH_AND_TOKENS) as fwd_by_shape, \
             calls_by(gg, "ln_geglu_residual", GEGLU_KEY) as geglu_by_shape, \
-            calls_by(tr, "conv_a", SHAPE) as conv_a_by_shape:
+            calls_by(tr, "conv_a", SHAPE) as conv_a_by_shape, \
+            calls_by(ta, "frame_attention", SHAPE) as frame_by_shape, \
+            calls_by(gn, "group_norm_silu", GN_KEY) as gn_by_site:
         for _ in range(TRAIN_STEPS):
             state, m = step(state, batch, generator=draws)
             metrics.append(m)
@@ -1442,6 +1503,9 @@ def train_phase(dev, smi, counters, profile_dir, bwd_ms, fwd_ms, geglu_ms, tresn
         2, -(-frames // cfg.encode_chunk_size) + 1, 0, 5), TRAIN_STEPS)
     price("train: temporal_resnet_conv_a + conv_b", conv_a_by_shape, TRAIN_STEPS,
           {k: sum(v) for k, v in tresnet_ms.items()}, smi, "step")
+    price("train: frame_attention_fwd", frame_by_shape, TRAIN_STEPS, frame_ms, smi, "step")
+    check_sites("train", gn_by_site, TRAIN_STEPS, 4)
+    price("train: group_norm_silu", gn_by_site, TRAIN_STEPS, gn_ms, smi, "step")
     per_step = {s_len: n / TRAIN_STEPS for s_len, n in sorted(by_len.items(), reverse=True)}
     for i, name in enumerate(("flash_attention_bwd_dq", "flash_attention_bwd_dkv")):
         if sum(by_len.values()) != launches[name]:
@@ -1494,13 +1558,13 @@ def train_phase(dev, smi, counters, profile_dir, bwd_ms, fwd_ms, geglu_ms, tresn
     return launches
 
 
-# the port's own kernels: the __global__ functions of csrc/*.cu and the
-# Triton kernels of ops/kernels/groupnorm.py, by their unqualified names
+# the port's own kernels: the __global__ functions of csrc/*.cu, by their
+# unqualified names
 HAND_KERNELS = frozenset({"flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
                           "frame_attention_kernel", "ln_kernel", "sm90_gemm::gemm_kernel",
-                          "sm90_gemm::reduce_kernel", "affine_silu::kernel", "stats_kernel",
-                          "gn_stats::stats_kernel", "fold_kernel", "norm_kernel",
-                          "conv3x3_kernel"})
+                          "sm90_gemm::reduce_kernel", "affine_silu::kernel",
+                          "gn_stats::stats_kernel", "gn_stats::fold_kernel",
+                          "gn_cluster::cluster_kernel", "conv3x3_kernel"})
 
 
 def kernel_base_name(name: str) -> str:

@@ -12,19 +12,17 @@ partials into (sc, sh) in one launch. Kernel A of the temporal resnet writes
 the same partials for norm2; their plain version is
 ``channel_stats_reference``.
 
-The kernels are Triton, written in two passes:
-  stats - grid (group, split, sample): each program sums x and x² in f32 over
-          a slice of the sequence for one (sample, group), into a
-          (N, G, splits) buffer (deterministic: no atomics);
-  norm  - grid (sequence block, channel block, sample): each program sums its
-          channels' group partials, forms mean and 1/sqrt(var + eps) with the
-          variance clamped at 0 (groupnorm.py:63-64), and writes
-          (x - mean)·inv·scale + bias (+ SiLU) in the input dtype.
-GroupNorm has no matrix product: it reads x twice and writes it once, so it
-is bound by device-memory bytes. The split over the sequence puts enough
-programs in flight to fill the card when N·G is small, and consecutive
-programs of the stats grid read neighbouring groups of the same rows, so
-their narrow column slices share L2 lines.
+``group_norm_silu``'s kernels are ``csrc/group_norm.cu``, two paths that
+``group_norm_plan`` chooses from the shape alone:
+  cluster  - the counterpart of ``_gn_silu_kernel``: a cluster of 8 CTAs per
+             sample holds the sample in shared memory, reads x once, reduces
+             the group statistics through distributed shared memory and
+             writes y once (every UNet site);
+  two_pass - for samples the cluster does not hold (the VAE decoder's): the
+             per-channel statistics partials above, their fold into (sc,
+             sh), and one elementwise pass x·sc + sh (+ SiLU).
+Both take the variance as max(E[x²] − mean², 0) (groupnorm.py:63-64).
+GroupNorm has no matrix product, so it is bound by device-memory bytes.
 
 On a CPU tensor ``group_norm_silu`` runs the reference; on a CUDA tensor it
 launches the kernels or raises. The backward recomputes the reference and
@@ -33,13 +31,13 @@ differentiates it (groupnorm.py:265 in the JAX package).
 
 from __future__ import annotations
 
-import functools
-import os
+import math
+from typing import NamedTuple
 
 import torch
 
 from ._autograd import differentiable
-from ._build import BUILD_DIR, check, library
+from ._build import check, library
 from ._weights import per_version
 
 _FLOAT_TYPES = (torch.bfloat16, torch.float16, torch.float32)
@@ -189,85 +187,66 @@ group_norm_fold.launches = 0
 fold_from_partials.launches = 0
 
 
-@functools.cache
-def _triton_kernels():
-    os.environ.setdefault("TRITON_CACHE_DIR", str(BUILD_DIR / "triton"))
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def stats_kernel(x_ptr, psum_ptr, psq_ptr, S, C, GS, ROWS,
-                     BLOCK_S: tl.constexpr, BLOCK_G: tl.constexpr):
-        g = tl.program_id(0)
-        split = tl.program_id(1)
-        n = tl.program_id(2)
-        n_split = tl.num_programs(1)
-        offs_g = tl.arange(0, BLOCK_G)
-        cols = g * GS + offs_g
-        cmask = offs_g < GS
-        base = x_ptr + n.to(tl.int64) * S * C
-        start = split * ROWS
-        end = tl.minimum(start + ROWS, S)
-        acc = tl.zeros((BLOCK_S, BLOCK_G), tl.float32)
-        acc2 = tl.zeros((BLOCK_S, BLOCK_G), tl.float32)
-        for r0 in range(start, end, BLOCK_S):
-            rows = r0 + tl.arange(0, BLOCK_S)
-            m = (rows < end)[:, None] & cmask[None, :]
-            xv = tl.load(base + rows[:, None].to(tl.int64) * C + cols[None, :],
-                         mask=m, other=0.0).to(tl.float32)
-            acc += xv
-            acc2 += xv * xv
-        out = (n * tl.num_programs(0) + g) * n_split + split
-        tl.store(psum_ptr + out, tl.sum(tl.sum(acc, axis=1), axis=0))
-        tl.store(psq_ptr + out, tl.sum(tl.sum(acc2, axis=1), axis=0))
-
-    @triton.jit
-    def norm_kernel(x_ptr, y_ptr, w_ptr, b_ptr, psum_ptr, psq_ptr, S, C, GS,
-                    G, n_split, inv_count, eps, SILU: tl.constexpr,
-                    BLOCK_S: tl.constexpr, BLOCK_C: tl.constexpr,
-                    BLOCK_SPLIT: tl.constexpr):
-        sb = tl.program_id(0)
-        cb = tl.program_id(1)
-        n = tl.program_id(2)
-        cols = cb * BLOCK_C + tl.arange(0, BLOCK_C)
-        cm = cols < C
-        grp = cols // GS
-        sp = tl.arange(0, BLOCK_SPLIT)
-        pidx = (n * G + grp)[:, None] * n_split + sp[None, :]
-        pm = cm[:, None] & (sp < n_split)[None, :]
-        tot = tl.sum(tl.load(psum_ptr + pidx, mask=pm, other=0.0), axis=1)
-        tot2 = tl.sum(tl.load(psq_ptr + pidx, mask=pm, other=0.0), axis=1)
-        mean = tot * inv_count
-        var = tl.maximum(tot2 * inv_count - mean * mean, 0.0)
-        a = tl.rsqrt(var + eps) * tl.load(w_ptr + cols, mask=cm, other=0.0).to(tl.float32)
-        bb = tl.load(b_ptr + cols, mask=cm, other=0.0).to(tl.float32)
-        rows = sb * BLOCK_S + tl.arange(0, BLOCK_S)
-        m = (rows < S)[:, None] & cm[None, :]
-        off = n.to(tl.int64) * S * C + rows[:, None].to(tl.int64) * C + cols[None, :]
-        xv = tl.load(x_ptr + off, mask=m, other=0.0).to(tl.float32)
-        y = (xv - mean[None, :]) * a[None, :] + bb[None, :]
-        if SILU:
-            y = y * tl.sigmoid(y)
-        tl.store(y_ptr + off, y.to(y_ptr.dtype.element_ty), mask=m)
-
-    return triton, stats_kernel, norm_kernel
+# group_norm_silu's launch geometry (csrc/group_norm.cu; the constants are
+# its gn_cluster namespace's): a cluster of CLUSTER_CTAS CTAs of GN_THREADS
+# threads per sample holds the sample in shared memory where it fits
+CLUSTER_CTAS = 8
+GN_THREADS = 256
+GN_PIECES = 4
+GN_MAX_GROUPS = 64
+SMEM_LIMIT = 232_448
+_DTYPE_CODE = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 
 
-def _pow2(v: int) -> int:
-    return 1 << max(0, (int(v) - 1).bit_length())
+class GroupNormPlan(NamedTuple):
+    """The path group_norm_silu takes: "cluster" (the sample-resident
+    kernel, ``rows_per_cta`` rows of a sample in each CTA's ``smem`` bytes
+    of shared memory) or "two_pass" (statistics, fold, elementwise pass)."""
+    path: str
+    rows_per_cta: int
+    smem: int
+
+
+def cluster_smem(rows_per_cta: int, c: int, elem: int) -> int:
+    """A cluster CTA's shared memory (csrc/group_norm.cu's Layout): its rows
+    (to 16 bytes), f32 sums and sums of squares per (row phase, channel),
+    two f32 arrays of GN_MAX_GROUPS for its group partials and two for the
+    sample's statistics, and GN_PIECES mbarriers."""
+    phases = GN_THREADS // (c // (16 // elem))
+    data = -(-rows_per_cta * c * elem // 16) * 16
+    return data + 8 * phases * c + 16 * GN_MAX_GROUPS + 8 * GN_PIECES
+
+
+def group_norm_plan(shape, dtype: torch.dtype, groups: int) -> GroupNormPlan:
+    """The structural path choice of group_norm_silu for x of `shape` (N,
+    ..., C): the cluster kernel where a sample's rows, cut into CLUSTER_CTAS
+    CTAs, fit a CTA's shared memory (and C, in 16-byte vectors, one CTA's
+    threads), else the two-pass path. A shape the kernels take at all is
+    ``supports``'s."""
+    n, c = shape[0], shape[-1]
+    rows = math.prod(shape[1:-1])
+    elem = dtype.itemsize
+    rows_per_cta = -(-rows // CLUSTER_CTAS)
+    vectors = c // (16 // elem)
+    if vectors <= GN_THREADS and groups <= GN_MAX_GROUPS:
+        smem = cluster_smem(rows_per_cta, c, elem)
+        if smem <= SMEM_LIMIT:
+            return GroupNormPlan("cluster", rows_per_cta, smem)
+    return GroupNormPlan("two_pass", 0, 0)
 
 
 def supports(x: torch.Tensor, groups: int) -> bool:
-    """Structural dispatch predicate: a CUDA call the kernels take."""
+    """Structural dispatch predicate: a CUDA call the kernels take (a float
+    type, C a whole number of groups and of 16-byte vectors)."""
     return (x.is_cuda and x.dtype in _FLOAT_TYPES and x.dim() >= 2
-            and x.shape[-1] % groups == 0)
+            and x.shape[-1] % groups == 0 and x.shape[-1] % (16 // x.element_size()) == 0)
 
 
 def group_norm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                     *, groups: int = 32, eps: float = 1e-5,
                     silu: bool = True, kernel=None) -> torch.Tensor:
     """GroupNorm (stats over all non-batch dims) + affine (+ SiLU).
-    ``kernel`` replaces the Triton launch (the CPU tests pass the reference
+    ``kernel`` replaces the CUDA launch (the CPU tests pass the reference
     to run the autograd wiring without a card)."""
     if kernel is None:
         if x.device.type == "cpu":
@@ -279,35 +258,28 @@ def group_norm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 def _launch(x, scale, bias, *, groups: int, eps: float, silu: bool) -> torch.Tensor:
     if not supports(x, groups):
-        raise ValueError(f"group_norm_silu kernel needs a CUDA float tensor "
-                         f"with C % {groups} == 0; got {tuple(x.shape)} {x.dtype}")
+        raise ValueError(f"group_norm_silu kernel needs a CUDA float tensor with C % {groups} "
+                         f"== 0 and 16-byte channel vectors; got {tuple(x.shape)} {x.dtype}")
     c = x.shape[-1]
-    if scale.shape != (c,) or bias.shape != (c,) or not x.is_contiguous():
-        raise ValueError("group_norm_silu: x must be contiguous and scale/bias "
-                         f"of shape ({c},)")
-    triton, stats_kernel, norm_kernel = _triton_kernels()
+    if (scale.shape != (c,) or bias.shape != (c,) or not x.is_contiguous()
+            or x.data_ptr() % 16):
+        raise ValueError("group_norm_silu: x must be contiguous and 16-byte aligned, "
+                         f"scale/bias of shape ({c},)")
     n = x.shape[0]
-    s = x.numel() // (n * c)
-    gs = c // groups
-    block_g = _pow2(gs)
-    block_s = max(16, 4096 // block_g)
-    # enough (sample, group, split) programs to fill the card
-    n_split = max(1, min(triton.cdiv(s, block_s), triton.cdiv(2048, n * groups), 64))
-    rows = triton.cdiv(s, n_split)
-    n_split = triton.cdiv(s, rows)
-    psum = torch.empty((n, groups, n_split), device=x.device, dtype=torch.float32)
-    psq = torch.empty_like(psum)
-    stats_kernel[(groups, n_split, n)](x, psum, psq, s, c, gs, rows,
-                                       BLOCK_S=block_s, BLOCK_G=block_g,
-                                       num_warps=4)
+    rows = x.numel() // (n * c)
+    plan = group_norm_plan(x.shape, x.dtype, groups)
+    scf, bif = _affine_f32(scale, bias)
     y = torch.empty_like(x)
-    block_c = min(128, _pow2(c))
-    norm_block_s = 32
-    grid = (triton.cdiv(s, norm_block_s), triton.cdiv(c, block_c), n)
-    norm_kernel[grid](x, y, scale, bias, psum, psq, s, c, gs, groups, n_split,
-                      1.0 / float(s * gs), float(eps), SILU=bool(silu),
-                      BLOCK_S=norm_block_s, BLOCK_C=block_c,
-                      BLOCK_SPLIT=_pow2(n_split), num_warps=4)
+    scratch = [None] * 4
+    if plan.path == "two_pass":
+        psum = torch.empty((n, stats_slots(rows), c), device=x.device, dtype=torch.float32)
+        sc = torch.empty((n, c), device=x.device, dtype=torch.float32)
+        scratch = [psum, torch.empty_like(psum), sc, torch.empty_like(sc)]
+    check(library().svdx_group_norm_silu(
+        x.data_ptr(), y.data_ptr(), scf.data_ptr(), bif.data_ptr(),
+        *(None if t is None else t.data_ptr() for t in scratch), n, rows, c, groups,
+        plan.rows_per_cta, _DTYPE_CODE[x.dtype], int(silu), float(eps),
+        torch.cuda.current_stream(x.device).cuda_stream), f"group_norm_silu ({plan.path})")
     group_norm_silu.launches += 1
     return y
 

@@ -2,9 +2,11 @@
 
 Port of ``svd_xtend_tpu/ops/pallas/temporal_attention.py::frame_attention``
 (its kernel ``_kernel``). The CUDA kernel is ``csrc/temporal_attention.cu``:
-one warp per (b, s, head), lanes on channels, so q/k/v are read once and o
-written once in their native layout. It is bound by device-memory bytes;
-see the source for the design.
+persistent blocks whose producer warp brings an item's q, k and v (one head
+of ``tokens`` tokens, all frames) by TMA into a ring of stages, and consumer
+warps that run each token's two products on tensor cores (mma.sync) with the
+softmax in registers. It is bound by device-memory bytes; see the source for
+the design. ``frame_plan`` gives the launch geometry the kernel instantiates.
 
 On a CPU tensor the wrapper runs ``frame_attention_reference`` (the einsum
 form of ``_xla_reference``); on a CUDA tensor it launches the kernel or
@@ -14,6 +16,8 @@ JAX package does (``jax.vjp(_xla_reference)``, temporal_attention.py:182).
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from ._autograd import differentiable
@@ -21,6 +25,31 @@ from ._build import check, library
 
 HEAD_DIM = 64
 MAX_FRAMES = 32
+# shared memory a block may take (227 KB) on an H100
+SMEM_LIMIT = 232_448
+
+
+class FramePlan(NamedTuple):
+    """The kernel's launch geometry for F frames: token tiles of ``f_pad``
+    frames (the m16n8k16 row tiles: 16, or 32 past 16 frames), ``tokens``
+    tokens a stage (one consumer warp each), ``stages`` stages in the ring,
+    and the block's shared memory in bytes."""
+    f_pad: int
+    tokens: int
+    stages: int
+    smem: int
+
+
+def frame_plan(f: int) -> FramePlan:
+    """The plan csrc/temporal_attention.cu instantiates for 1 <= f <= 32:
+    its shared memory is the ring (q, k and v tiles of tokens x f_pad rows
+    of 128 bytes a stage), its 2 mbarriers a stage, and 1 KB of alignment."""
+    if not 1 <= f <= MAX_FRAMES:
+        raise ValueError(f"frame attention takes 1..{MAX_FRAMES} frames, got {f}")
+    f_pad, tokens = (16 if f <= 16 else 32), 8
+    stages = 3 if f_pad == 16 else 2
+    smem = stages * (3 * tokens * f_pad * HEAD_DIM * 2 + 16) + 1024
+    return FramePlan(f_pad, tokens, stages, smem)
 
 
 def frame_attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -66,14 +95,16 @@ def _launch(q, k, v, *, num_heads: int, scale: float) -> torch.Tensor:
             f"H*{HEAD_DIM}); got {tuple(q.shape)} {q.dtype}, heads {num_heads}")
     for name, a in (("q", q), ("k", k), ("v", v)):
         if (a.shape != q.shape or a.dtype != q.dtype or a.device != q.device
-                or not a.is_contiguous() or a.data_ptr() % 4):
-            raise ValueError(f"frame_attention: {name} must be a contiguous "
-                             "tensor like q")
+                or not a.is_contiguous() or a.data_ptr() % 16):
+            raise ValueError(f"frame_attention: {name} must be a contiguous, "
+                             "16-byte aligned tensor like q")
     o = torch.empty_like(q)
     b, f, s, _ = q.shape
+    plan = frame_plan(f)
     err = library().svdx_frame_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, f, s,
-        num_heads, float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+        num_heads, plan.f_pad, plan.tokens, plan.stages, float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
     check(err, "frame_attention_fwd")
     frame_attention.launches += 1
     return o

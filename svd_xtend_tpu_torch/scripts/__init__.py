@@ -11,7 +11,9 @@ card as ``python -m svd_xtend_tpu_torch.scripts.<name>``.
 ``bench_flash_forward``, the flash forward's device time at the UNet's
 shapes and the variants' per mode, for comparing builds of the kernels;
 ``bench_gemm_plans``, conv3x3's and GEGLU's device time under each launch
-plan of the shared GEMM mainloop; and ``sites``, the conv3x3 sites and GEGLU
+plan of the shared GEMM mainloop; ``bench_frame_gn``, the frame attention's
+and GroupNorm's device time at every shape of the main paths, beside
+another tree's; and ``sites``, the conv3x3 sites and GEGLU
 shapes of the main paths (chip_smoke.py, the card tests and the plan tests
 share them).
 """

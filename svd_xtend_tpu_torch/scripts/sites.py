@@ -4,9 +4,9 @@ and checks the kernel at each, the card tests hold it against its plain
 version at each, and the tier-1 plan tests check each site's launch plan.
 
 Also the GEGLU (T, C) shapes of the UNet's four levels: training (batch 14
-frames) and generate's CFG pair (28); and the temporal resnet's shapes with
-their launches per exact video and per train step (TRESNET_SITES), derived
-from the configs.
+frames) and generate's CFG pair (28); and the temporal resnet's and
+group_norm_silu's shapes with their launches per exact video and per train
+step (TRESNET_SITES, GN_SITES), derived from the configs.
 """
 
 from ..core.config import PipelineConfig, TrainConfig, UNetConfig, VAEConfig
@@ -101,3 +101,61 @@ def _tresnet_sites():
 # the temporal resnet's shapes x (B, F, S, C) on the main paths at the
 # defaults (512x320, 14 frames): (B, F, S, C, per exact video, per step)
 TRESNET_SITES = _tresnet_sites()
+
+
+def _gn_sites():
+    """(x's shape, silu, eps, launches per exact video, launches per train
+    step) of group_norm_silu (x channels-last: (N, H, W, C)), from the
+    default configs: the norm of every
+    spatial and temporal transformer model of the UNet (the levels of the
+    CrossAttn blocks, transformer_layers_per_block each: layers_per_block
+    down, layers_per_block + 1 up, one in the mid block at the last level;
+    no SiLU, eps norm_eps) and its conv_norm_out (SiLU, resnet_eps), for
+    generate's 25 CFG passes at batch 2 x frames and the train step's
+    forward + "block" remat recompute (the transformer norms, inside the
+    remat blocks, run twice; conv_norm_out once); and the VAE's mid-block
+    attention norm and conv_norm_out (SiLU), both eps norm_eps: the encoder's
+    at the latent's resolution for generate's conditioning image and the
+    train step's (batch 1) and for the train step's video in chunks of
+    encode_chunk_size frames, the decoder's (its conv_norm_out at full
+    resolution, the first block's channels) per decode chunk of
+    decode_chunk_size frames, the last chunk ragged."""
+    unet, vae, pipe, train = UNetConfig(), VAEConfig(), PipelineConfig(), TrainConfig()
+    h, w = pipe.height // vae.downsample_factor, pipe.width // vae.downsample_factor
+    chs, n = unet.block_out_channels, len(unet.block_out_channels)
+    sites = {}
+
+    def add(shape, silu, eps, video=0, step=0):
+        key = (tuple(shape), silu, eps)
+        sites.setdefault(key, [0, 0])
+        sites[key][0] += video
+        sites[key][1] += step
+
+    gen_b = 2 * pipe.num_frames
+    train_b = train.per_device_batch_size * train.num_frames
+    ups = list(reversed(unet.up_block_types))       # up block of level i
+    for i, c in enumerate(chs):
+        per_pass = unet.transformer_layers_per_block[i] * (
+            unet.layers_per_block * ("CrossAttn" in unet.down_block_types[i])
+            + (unet.layers_per_block + 1) * ("CrossAttn" in ups[i]) + (i == n - 1))
+        add((gen_b, h >> i, w >> i, c), False, unet.norm_eps,
+            video=pipe.num_inference_steps * per_pass)
+        add((train_b, h >> i, w >> i, c), False, unet.norm_eps, step=2 * per_pass)
+    add((gen_b, h, w, chs[0]), True, unet.resnet_eps, video=pipe.num_inference_steps)
+    add((train_b, h, w, chs[0]), True, unet.resnet_eps, step=1)
+    top = vae.block_out_channels[-1]
+    chunks = lambda frames, size: [min(size, frames - f0) for f0 in range(0, frames, size)]
+    for f, video, step in ([(1, 1, 1)] + [(f, 0, 1) for f in chunks(train_b,
+                                                                    train.encode_chunk_size)]):
+        for silu in (False, True):
+            add((f, h, w, top), silu, vae.norm_eps, video=video, step=step)
+    for f in chunks(pipe.num_frames, pipe.decode_chunk_size):
+        add((f, h, w, top), False, vae.norm_eps, video=1)
+        add((f, pipe.height, pipe.width, vae.block_out_channels[0]), True, vae.norm_eps,
+            video=1)
+    return [(*k, *v) for k, v in sites.items()]
+
+
+# group_norm_silu's shapes on the main paths at the defaults (512x320, 14
+# frames): (shape, silu, eps, per exact video, per step)
+GN_SITES = _gn_sites()

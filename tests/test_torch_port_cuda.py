@@ -224,6 +224,105 @@ def test_group_norm_kernel(rn, shape, silu):
     _assert_close_bf16(got, gn.group_norm_silu_reference(x, w, b, 32, 1e-6, silu))
 
 
+FRAME_COUNTS = [1, 2, 8, 14, 16, 17, 25, 32]
+
+
+@pytest.mark.parametrize("heads", [1, 5, 20])
+@pytest.mark.parametrize("s", [7, 40, 50, 160])
+@pytest.mark.parametrize("f", FRAME_COUNTS)
+def test_frame_attention_geometry(rn, f, s, heads):
+    """Both token-tile heights (16 and 32 frames), token tails (S not a
+    multiple of the 8 tokens a stage) and one to 20 heads: within 4 bf16
+    ulps of the plain version, one launch, two runs the same bits."""
+    q, k, v = (rn(2, f, s, heads * 64) for _ in range(3))
+    n = ta.frame_attention.launches
+    got = ta.frame_attention(q, k, v, num_heads=heads, scale=0.125)
+    assert ta.frame_attention.launches == n + 1
+    _assert_close_bf16(got, ta.frame_attention_reference(q, k, v, num_heads=heads,
+                                                         scale=0.125))
+    assert torch.equal(got, ta.frame_attention(q, k, v, num_heads=heads, scale=0.125))
+
+
+@pytest.mark.parametrize("f", [2, 14, 17, 32])
+def test_frame_attention_large_logits(rn, f):
+    """Logits out to about ±30 (q and k scaled by 3): the softmax's max and
+    exp2 in f32 keep the kernel within 4 bf16 ulps."""
+    q, k, v = rn(2, f, 40, 320, sc=3.0), rn(2, f, 40, 320, sc=3.0), rn(2, f, 40, 320)
+    logits = torch.einsum("bfshd,bgshd->bshfg", *(a.float().view(2, f, 40, 5, 64)
+                                                  for a in (q, k))) * 0.125
+    assert logits.abs().max().item() >= 25
+    got = ta.frame_attention(q, k, v, num_heads=5, scale=0.125)
+    _assert_close_bf16(got, ta.frame_attention_reference(q, k, v, num_heads=5, scale=0.125))
+
+
+def _gn_check(rn, shape, silu, dtype=torch.bfloat16, path=None):
+    """group_norm_silu on x*3 + 1 against its plain version (4 bf16 ulps of
+    the output's scale), on the path `path` where given; one launch, two
+    runs the same bits."""
+    x = (rn(*shape).float() * 3 + 1).to(dtype)
+    c = shape[-1]
+    w, b = 1 + 0.1 * rn(c).float(), 0.1 * rn(c).float()
+    if path is not None:
+        assert gn.group_norm_plan(shape, dtype, 32).path == path
+    n = gn.group_norm_silu.launches
+    got = gn.group_norm_silu(x, w, b, groups=32, eps=1e-6, silu=silu)
+    assert gn.group_norm_silu.launches == n + 1
+    assert got.dtype == dtype
+    _assert_close_bf16(got, gn.group_norm_silu_reference(x, w, b, 32, 1e-6, silu))
+    assert torch.equal(got, gn.group_norm_silu(x, w, b, groups=32, eps=1e-6, silu=silu))
+
+
+@pytest.mark.parametrize("shape,silu", [((2, 2560, 320), False), ((2, 640, 640), False),
+                                        ((2, 160, 1280), False), ((2, 40, 1280), False),
+                                        ((2, 40, 64, 320), True)])
+def test_group_norm_unet_sites(rn, shape, silu):
+    """Every UNet site's sample (two samples of it) on the cluster kernel."""
+    _gn_check(rn, shape, silu, path="cluster")
+
+
+def test_group_norm_cluster_limit(rn):
+    """The largest sample the cluster path takes at C = 320, and the next
+    row, which the two passes take: both right."""
+    rows = 8
+    while gn.cluster_smem(rows // 8 + 1, 320, 2) <= gn.SMEM_LIMIT:
+        rows += 8
+    _gn_check(rn, (2, rows, 320), True, path="cluster")
+    _gn_check(rn, (2, rows + 1, 320), True, path="two_pass")
+
+
+@pytest.mark.parametrize("shape,silu", [((2, 20480, 128), True), ((1, 40, 64, 512), False),
+                                        ((2, 2560, 512), True)])
+def test_group_norm_two_pass(rn, shape, silu):
+    """The VAE's samples (its decoder's full-resolution rows cut to 20480)
+    on the two-pass path."""
+    _gn_check(rn, shape, silu, path="two_pass")
+
+
+@pytest.mark.parametrize("silu", [False, True])
+@pytest.mark.parametrize("c", [64, 128, 320, 512, 640, 1280])
+def test_group_norm_channels(rn, c, silu):
+    _gn_check(rn, (3, 300, c), silu)
+
+
+@pytest.mark.parametrize("rows", [300, 30000])
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float32])
+def test_group_norm_dtypes(rn, dtype, rows):
+    """fp16 and f32 on both paths (30000 rows of 320 do not fit the cluster)."""
+    path = "cluster" if rows == 300 else "two_pass"
+    _gn_check(rn, (2, rows, 320), True, dtype, path=path)
+
+
+def test_group_norm_refused_cluster_launch_raises(rn, monkeypatch):
+    """A cluster launch the kernel refuses (here a plan whose rows overflow
+    a CTA's shared memory) raises; it does not fall back to the two passes."""
+    x = rn(2, 4096, 320)
+    monkeypatch.setattr(gn, "group_norm_plan",
+                        lambda *a: gn.GroupNormPlan("cluster", 512, gn.SMEM_LIMIT + 1))
+    with pytest.raises(RuntimeError, match="cluster"):
+        gn.group_norm_silu(x, torch.ones(320, device="cuda"), torch.zeros(320, device="cuda"),
+                           groups=32, eps=1e-6, silu=False)
+
+
 def test_wrappers_raise_on_untaken_shapes(rn):
     with pytest.raises(ValueError):
         tr.temporal_resnet_block(rn(1, 2, 5, 96), rn(1, 2, 96), rn(3, 96, 96), rn(96),

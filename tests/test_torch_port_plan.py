@@ -4,9 +4,13 @@ so every conv3x3 site, GEGLU shape and temporal resnet site of the main
 paths is checked here for
 what the kernels rely on (the mainloop, tiles and K slices that cover the
 problem once, TMA-legal boxes, tile widths the sources instantiate); the
-packed W1 against the plain GEGLU."""
+packed W1 against the plain GEGLU. Also the frame attention's launch
+geometry (csrc/temporal_attention.cu) for every frame count it takes, and
+group_norm_silu's path choice (csrc/group_norm.cu) at every site of the
+main paths."""
 
 import collections
+import math
 import re
 from pathlib import Path
 
@@ -18,6 +22,8 @@ import torch.nn.functional as F
 from svd_xtend_tpu_torch.ops.kernels import conv3x3 as cv
 from svd_xtend_tpu_torch.ops.kernels import geglu as gg
 from svd_xtend_tpu_torch.ops.kernels import gemm_plan
+from svd_xtend_tpu_torch.ops.kernels import groupnorm as gn
+from svd_xtend_tpu_torch.ops.kernels import temporal_attention as ta
 from svd_xtend_tpu_torch.ops.kernels.gemm_plan import K_TILE, MAX_BOX, SM_COUNT, slice_bounds
 from svd_xtend_tpu_torch.scripts import sites
 
@@ -205,3 +211,108 @@ def test_packed_pairing_matches_reference(t, c, dtype):
     packed = list(args)
     packed[3] = gg.pack_w1(args[3])
     assert torch.equal(_geglu_from_packed(*packed), ref)
+
+
+# ------------------------------------------- frame attention, group norm --
+
+def _instantiated_frame_plans() -> set:
+    """The (f_pad, tokens, stages) plans csrc/temporal_attention.cu's entry
+    point dispatches to."""
+    src = (CSRC / "temporal_attention.cu").read_text()
+    found = re.findall(r"if \(f_pad == (\d+) && tokens == (\d+) && stages == (\d+)\)\n"
+                       r"\s+return launch<(\d+), (\d+), (\d+)>", src)
+    assert found, "no plan dispatch found in temporal_attention.cu"
+    for plan in found:
+        assert plan[:3] == plan[3:]
+    return {tuple(int(v) for v in plan[:3]) for plan in found}
+
+
+@pytest.mark.parametrize("f", range(1, ta.MAX_FRAMES + 1))
+def test_frame_plan(f):
+    """A plan the source instantiates; a token's frames fill one or two
+    m16 row tiles (16 when F <= 16); the ring of 2-3 stages, one consumer
+    warp a token, within a block's shared memory."""
+    plan = ta.frame_plan(f)
+    assert (plan.f_pad, plan.tokens, plan.stages) in _instantiated_frame_plans()
+    assert plan.f_pad == (16 if f <= 16 else 32)
+    assert 2 <= plan.stages <= 3 and plan.tokens * 32 + 32 <= 1024
+    tile = plan.tokens * plan.f_pad * 128         # one of q, k, v: 1024-byte multiples
+    assert tile % 1024 == 0
+    assert plan.smem == plan.stages * (3 * tile + 16) + 1024 <= ta.SMEM_LIMIT == 232_448
+
+
+@pytest.mark.parametrize("f", [0, ta.MAX_FRAMES + 1])
+def test_frame_plan_refuses_frame_counts_outside_the_kernel(f):
+    with pytest.raises(ValueError):
+        ta.frame_plan(f)
+
+
+def _gn_constants() -> dict:
+    src = (CSRC / "group_norm.cu").read_text()
+    return {name: int(v) for name, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+
+
+def test_group_norm_plan_mirrors_the_kernel():
+    """The Python plan's constants and shared-memory layout are the
+    kernel's (csrc/group_norm.cu's gn_cluster namespace)."""
+    k = _gn_constants()
+    assert (k["kCtas"], k["kThreads"], k["kPieces"], k["kMaxGroups"], k["kSmemLimit"]) == (
+        gn.CLUSTER_CTAS, gn.GN_THREADS, gn.GN_PIECES, gn.GN_MAX_GROUPS, gn.SMEM_LIMIT)
+
+
+def _gn_sites():
+    """(shape, silu) of every group_norm_silu site of the paths."""
+    return sorted({(shape, silu) for shape, silu, *_ in sites.GN_SITES})
+
+
+@pytest.mark.parametrize("shape,silu", _gn_sites())
+def test_group_norm_plan_at_the_sites(shape, silu):
+    """Every UNet site (generate's batch 28, the train step's 14) runs the
+    cluster kernel, its rows cut into 8 CTAs once, within a CTA's shared
+    memory; the VAE's samples of more than the cluster holds run the two
+    passes."""
+    plan = gn.group_norm_plan(shape, torch.bfloat16, 32)
+    rows, c = math.prod(shape[1:-1]), shape[-1]
+    if plan.path == "cluster":
+        assert plan.rows_per_cta * gn.CLUSTER_CTAS >= rows > (plan.rows_per_cta - 1) * 8
+        assert plan.smem == gn.cluster_smem(plan.rows_per_cta, c, 2) <= gn.SMEM_LIMIT
+        assert plan.rows_per_cta * c * 2 <= plan.smem
+    else:
+        assert plan == gn.GroupNormPlan("two_pass", 0, 0)
+        assert gn.cluster_smem(-(-rows // 8), c, 2) > gn.SMEM_LIMIT
+    unet = shape[0] in (28, 14)
+    assert (plan.path == "cluster") == unet
+
+
+def test_group_norm_launches_by_path():
+    """431 launches an exact video (425 of them the UNet's, on the cluster
+    kernel), 39 a train step, and the two-pass path 6 times a video."""
+    paths = collections.Counter()
+    for shape, silu, eps, video, step in sites.GN_SITES:
+        paths[gn.group_norm_plan(shape, torch.bfloat16, 32).path] += video
+    assert sum(st[3] for st in sites.GN_SITES) == 431
+    assert sum(st[4] for st in sites.GN_SITES) == 39
+    assert paths == {"cluster": 425, "two_pass": 6}
+
+
+@pytest.mark.parametrize("c", [64, 128, 320, 512, 640, 1280])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+def test_group_norm_plan_largest_cluster_sample(c, dtype):
+    """The cluster path takes a sample up to the largest rows whose cut fits
+    a CTA, and refuses the next 8 rows; a channel count of more 16-byte
+    vectors than a CTA has threads always takes the two passes."""
+    elem = dtype.itemsize
+    if c // (16 // elem) > gn.GN_THREADS:
+        assert gn.group_norm_plan((2, 8, c), dtype, 32).path == "two_pass"
+        return
+    rows = 8
+    while gn.cluster_smem(rows // 8 + 1, c, elem) <= gn.SMEM_LIMIT:
+        rows += 8
+    assert gn.group_norm_plan((2, rows, c), dtype, 32).path == "cluster"
+    assert gn.group_norm_plan((2, rows + 1, c), dtype, 32).path == "two_pass"
+    assert gn.group_norm_plan((2, 1, c), dtype, 32).path == "cluster"
+
+
+def test_group_norm_plan_refuses_more_groups_than_the_kernel_holds():
+    assert gn.group_norm_plan((2, 64, 1280), torch.bfloat16, gn.GN_MAX_GROUPS).path == "cluster"
+    assert gn.group_norm_plan((2, 64, 1280), torch.bfloat16, 128).path == "two_pass"
