@@ -78,7 +78,9 @@ Phases, each of which raises on failure (non-zero exit):
      versions on the host CPU, from the same seeded weights: the forward
      output, then the gradient of edm_denoising_loss (fixed draws) with
      respect to the temporal-scope parameters, also against the card's bf16
-     plain path (ops/kernels/dispatch.plain_versions).
+     plain path (ops/kernels/dispatch.plain_versions); then the same for
+     the gradient with respect to a LoRA adapter on every attention
+     projection (seeded nonzero B, remat "block").
   5. generate (the serving path): ``generate`` at the default PipelineConfig
      (512x320, 14 frames, 25 Euler steps, stacked CFG, decode chunks of 8)
      with the full UNet, VAE and CLIP in bf16 from seeded random weights,
@@ -98,11 +100,26 @@ Phases, each of which raises on failure (non-zero exit):
      must all be > 0; finite loss and grad_norm, trainable weights changed,
      frozen ones bit-identical; s/step and peak memory; the flash backward
      pair's, the flash forward's, GEGLU's, the temporal resnet's, the frame
-     attention's and GroupNorm's launches per step by level (the temporal
-     resnet's and GroupNorm's held against TRESNET_SITES and GN_SITES), and
-     their sums of launches x the kernel phases' device ms at that level.
-     Then one full-scope step at the same size: finite loss,
-     peak memory.
+     attention's and GroupNorm's launches per step by level (the flash
+     backward's held against FLASH_BWD_SITES, the temporal resnet's and
+     GroupNorm's against TRESNET_SITES and GN_SITES, conv3x3's and dU's
+     against the conv site tables), and their sums of launches x the kernel
+     phases' device ms at that level. Then one full-scope step at the same
+     size: finite loss, peak memory.
+  6b. lora: TrainConfig(train_mode="lora") (rank 4, alpha 4, the same size
+     and batch) through the same entry points: a warm-up and 3 timed steps
+     held to the same tables (FLASH_BWD_SITES' 'lora' column: every spatial
+     self-attention), every base UNet, VAE and CLIP weight bit-identical
+     after them, B exactly zero at the 64 one-token cross-attention q/k
+     targets and nonzero at every other; s/step (median), peak memory, the
+     priced kernel sums. Then serving: the adapter exported with
+     export_lora_diffusers and read back bit for bit with the port's own
+     safetensors reader, merge_d into the UNet (one target checked bit for
+     bit against merge), and one exact video at PipelineConfig() after a
+     warm-up one, whose launches must equal the exact path's. Then files:
+     the VAE written as a diffusers component in two shards and an index,
+     loaded with load_diffusers_checkpoint into a fresh VAE on the card,
+     every tensor bit for bit.
   7. mha (the head-major attention entry point, ops/attention.py::mha, as a
      caller outside the UNet uses it): the UNet's L0 self-attention shape,
      (2x14, 2560, 320) in 5 heads of 64, through the BSHD flash kernel: its
@@ -143,9 +160,10 @@ import torch
 import torch.nn.functional as F
 
 from svd_xtend_tpu_torch.scripts import card, cuda_ms, graph_ms
-from svd_xtend_tpu_torch.scripts.sites import (GEGLU_SHAPES, GN_SITES, TRESNET_SITES,
-                                               UNET_CONV_SITES, UNET_DGRAD_SITES,
-                                               VAE_DECODE_SITES, VAE_ENCODE_SITES)
+from svd_xtend_tpu_torch.scripts.sites import (FLASH_BWD_SITES, GEGLU_SHAPES, GN_SITES,
+                                               TRESNET_SITES, UNET_CONV_SITES,
+                                               UNET_DGRAD_SITES, VAE_DECODE_SITES,
+                                               VAE_ENCODE_SITES)
 
 SEED = 0
 # rel-L2 bound of the bf16 card UNet against the f32 host UNet: bf16 rounds
@@ -156,6 +174,10 @@ UNET_REL_L2_BOUND = 5e-2
 # 1.25x the rel-L2 of the card's bf16 plain path (kernels off)
 GRAD_REL_L2_BOUND = 0.1
 GRAD_PLAIN_RATIO = 1.25
+# the LoRA gradient of the same comparison starts from B ~ N(0, std²): its
+# delta (alpha/r)·B·A has a std of 0.005, 9-18 % of the projections' weight
+# std (1/sqrt(fan-in), fan-in 320-1280)
+LORA_B_STD = 1e-2
 # flash backward: the kernels' max-abs error against the f32 plain gradient,
 # at most this multiple of the bf16 plain gradient's
 FLASH_BWD_RATIO = 1.5
@@ -993,6 +1015,46 @@ def whole_unet_phase(dev):
             or rel_k > GRAD_PLAIN_RATIO * rel_p):
         raise RuntimeError(f"whole-UNet gradient: rel_l2 {rel_k} (plain {rel_p})")
 
+    # the 'lora' scope: the gradient with respect to an adapter on every
+    # attention projection, from a seeded nonzero B (while B is zero, A's
+    # gradient is exactly zero), under remat "block" (the recompute must see
+    # the merged weights)
+    from svd_xtend_tpu_torch.models import lora as lora_lib
+
+    g_lora = torch.Generator().manual_seed(SEED + 11)
+    adapter = lora_lib.init(cpu, generator=g_lora)
+    for ab in adapter.values():
+        ab["b"].normal_(0.0, LORA_B_STD, generator=g_lora)
+    lcfg = TrainConfig(remat_policy="block")
+
+    def lora_grad(unet, device):
+        ad = {n: {k: t.to(device).requires_grad_(True) for k, t in ab.items()}
+              for n, ab in adapter.items()}
+        params = [t for ab in ad.values() for t in (ab["a"], ab["b"])]
+        unet.requires_grad_(False)
+        e = TrainBatchEncodings(*(x.to(device) for x in enc))
+        with lora_lib.merged(unet, ad):
+            loss = edm_denoising_loss(SVDModels(unet, None, None), e, lcfg, sigma.to(device),
+                                      noise.to(device))
+            grads = torch.autograd.grad(loss, params, materialize_grads=True)
+        return loss.item(), torch.cat([g.float().flatten().cpu() for g in grads])
+
+    t0 = time.time()
+    loss_ref, g_ref = lora_grad(cpu, "cpu")
+    log(f"  host f32 loss + LoRA gradient {time.time() - t0:.1f} s")
+    loss_k, g_k = lora_grad(gpu, dev)
+    with plain_versions():
+        loss_p, g_p = lora_grad(gpu, dev)
+    rel_k = ((g_k - g_ref).norm() / g_ref.norm()).item()
+    rel_p = ((g_p - g_ref).norm() / g_ref.norm()).item()
+    log(f"  LoRA gradient ({len(adapter)} targets, {g_ref.numel()} values, B ~ N(0, "
+        f"{LORA_B_STD}²), remat block), loss {loss_ref:.5g} host, {loss_k:.5g} kernels, "
+        f"{loss_p:.5g} plain: rel_l2 kernels {rel_k:.4g}, bf16 plain {rel_p:.4g} (bounds "
+        f"{GRAD_REL_L2_BOUND}, {GRAD_PLAIN_RATIO}x plain)")
+    if (not bool(torch.isfinite(g_k).all()) or rel_k >= GRAD_REL_L2_BOUND
+            or rel_k > GRAD_PLAIN_RATIO * rel_p):
+        raise RuntimeError(f"whole-UNet LoRA gradient: rel_l2 {rel_k} (plain {rel_p})")
+
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1020,7 +1082,7 @@ def main() -> int:
     log("kernels: temporal resnet A and B at every site of the exact video and the train step")
     tresnet_phase(dev, ph, smi)
     torch.cuda.empty_cache()
-    conv_phase(dev, ph, smi)
+    conv_sums = conv_phase(dev, ph, smi)
     flash_bshd_phase(dev, ph)
     torch.cuda.empty_cache()
     probe_kernel_phase(dev, ph)
@@ -1037,8 +1099,12 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     log("train: default TrainConfig (temporal scope, 512x320x14f, batch 1, remat block)")
-    train_launches = train_phase(dev, smi, counters, args.profile, ph.bwd_ms, ph.fwd_ms,
-                                 ph.geglu_ms, ph.tresnet_ms, ph.frame_ms, ph.gn_ms)
+    train_launches = train_phase(dev, smi, counters, args.profile, ph, conv_sums)
+    torch.cuda.empty_cache()
+
+    log("lora: TrainConfig(train_mode='lora') (rank 4, alpha 4, 512x320x14f, batch 1, remat "
+        "block); export, read back, merge, an exact video; the VAE as a sharded component")
+    lora_launches = lora_phase(dev, smi, counters, ph, conv_sums, gen_launches["generate"])
     torch.cuda.empty_cache()
 
     log("mha: the head-major attention entry point at the UNet's L0 shape")
@@ -1047,8 +1113,8 @@ def main() -> int:
 
     log("probes: the three probe scripts at their shapes")
     probe_launches = probes_phase(counters)
-    by_path = {**gen_launches, "train": train_launches, "mha": mha_launches,
-               "probes": probe_launches}
+    by_path = {**gen_launches, "train": train_launches, "lora": lora_launches,
+               "mha": mha_launches, "probes": probe_launches}
 
     sources = {
         "flash_attention_fwd": ("cuda", "svd_xtend_tpu_torch/csrc/flash_attention.cu",
@@ -1427,19 +1493,118 @@ def price(what, tally, runs, ms, smi, unit):
     return total
 
 
-def train_phase(dev, smi, counters, profile_dir, bwd_ms, fwd_ms, geglu_ms, tresnet_ms,
-                frame_ms, gn_ms):
-    """The train step; `bwd_ms` {S: device (dQ ms, dK/dV ms)}, `fwd_ms`,
-    `geglu_ms`, `tresnet_ms`, `frame_ms` and `gn_ms` from the kernel phases
-    price the step's flash backward, forward, GEGLU, temporal resnet, frame
-    attention and GroupNorm launches per level or site."""
-    import dataclasses
+def train_conv_launches(cfg):
+    """conv3x3 and dU launches of one train step from the site tables: the
+    UNet's forward and its "block" remat recompute (conv_in outside the
+    blocks runs once), the VAE encode of the video's chunks and of the
+    conditioning image; dU at every UNET_DGRAD_SITES shape."""
+    frames = cfg.per_device_batch_size * cfg.num_frames
+    encodes = -(-frames // cfg.encode_chunk_size) + 1
+    unet = sum(st[5] * (1 if st[4] == "none" else 2) for st in UNET_CONV_SITES)
+    return {"conv3x3": unet + encodes * sum(st[5] for st in VAE_ENCODE_SITES),
+            "conv3x3_input_grad": sum(st[4] for st in UNET_DGRAD_SITES)}
 
+
+def timed_steps(path, scope, step, state, batch, draws, counters, ph: KernelPhase, smi, cfg,
+                conv_sums):
+    """TRAIN_STEPS steps of a built train step after its warm-up, each timed
+    on the host clock: every kernel of the path launched; the flash
+    backward's calls by tokens S held to FLASH_BWD_SITES[scope], the
+    temporal resnet's by shape to TRESNET_SITES, GroupNorm's by site to
+    GN_SITES, the folds to fold_launches and conv3x3's and dU's to the site
+    tables; each kernel's launches priced at the kernel phases' device ms,
+    and their sum. Returns (state, launches, metrics, seconds of each step,
+    peak allocated bytes)."""
     from svd_xtend_tpu_torch.ops.kernels import flash_attention as fa
     from svd_xtend_tpu_torch.ops.kernels import geglu as gg
     from svd_xtend_tpu_torch.ops.kernels import groupnorm as gn
     from svd_xtend_tpu_torch.ops.kernels import temporal_attention as ta
     from svd_xtend_tpu_torch.ops.kernels import temporal_resnet as tr
+
+    reset(counters)
+    torch.cuda.reset_peak_memory_stats()
+    metrics, secs = [], []
+    # every flash_attention_bwd call launches the dQ and the dK/dV kernel once
+    with calls_by(fa, "flash_attention_bwd", TOKENS) as by_len, \
+            calls_by(fa, "flash_attention_fwd", BATCH_AND_TOKENS) as fwd_by_shape, \
+            calls_by(gg, "ln_geglu_residual", GEGLU_KEY) as geglu_by_shape, \
+            calls_by(tr, "conv_a", SHAPE) as conv_a_by_shape, \
+            calls_by(ta, "frame_attention", SHAPE) as frame_by_shape, \
+            calls_by(gn, "group_norm_silu", GN_KEY) as gn_by_site:
+        for _ in range(TRAIN_STEPS):
+            t0 = time.time()
+            state, m = step(state, batch, generator=draws)
+            torch.cuda.synchronize()
+            secs.append(time.time() - t0)
+            metrics.append(m)
+    peak = torch.cuda.max_memory_allocated()
+    launches = read(counters, [n for n in counters if n not in MHA_ONLY | PROBE_ONLY])
+    priced = {"flash_attention_fwd": forward_per_run(
+        path, fwd_by_shape, TRAIN_STEPS, launches["flash_attention_fwd"] / TRAIN_STEPS,
+        ph.fwd_ms["train"], smi, "step")}
+    priced["geglu_fwd"] = price(f"{path}: geglu_fwd", geglu_by_shape, TRAIN_STEPS,
+                                ph.geglu_ms, smi, "step")
+    want = {st[:4]: st[5] for st in TRESNET_SITES if st[5]}
+    if {k: n / TRAIN_STEPS for k, n in conv_a_by_shape.items()} != want:
+        raise RuntimeError(f"{path}: temporal resnet launches by shape {dict(conv_a_by_shape)} "
+                           f"per {TRAIN_STEPS} steps, the site table gives {want}")
+    # the UNet's forward and its "block" remat recompute; the video's encode
+    # chunks and the conditioning image's encode
+    frames = cfg.per_device_batch_size * cfg.num_frames
+    check_folds(path, launches, fold_launches(
+        2, -(-frames // cfg.encode_chunk_size) + 1, 0, 5), TRAIN_STEPS)
+    priced["temporal_resnet_conv_a + conv_b"] = price(
+        f"{path}: temporal_resnet_conv_a + conv_b", conv_a_by_shape, TRAIN_STEPS,
+        {k: sum(v) for k, v in ph.tresnet_ms.items()}, smi, "step")
+    priced["frame_attention_fwd"] = price(f"{path}: frame_attention_fwd", frame_by_shape,
+                                          TRAIN_STEPS, ph.frame_ms, smi, "step")
+    check_sites(path, gn_by_site, TRAIN_STEPS, 4)
+    priced["group_norm_silu"] = price(f"{path}: group_norm_silu", gn_by_site, TRAIN_STEPS,
+                                      ph.gn_ms, smi, "step")
+    per_step = {s_len: n / TRAIN_STEPS for s_len, n in sorted(by_len.items(), reverse=True)}
+    want = FLASH_BWD_SITES[scope]
+    log(f"  {path}: flash_attention_bwd calls per step by tokens S {per_step}; the UNet's "
+        f"structure gives {want} ({sum(want.values())} a step)")
+    if per_step != want:
+        raise RuntimeError(f"{path}: flash backward calls per step {per_step}, the UNet's "
+                           f"structure gives {want}")
+    for i, name in enumerate(("flash_attention_bwd_dq", "flash_attention_bwd_dkv")):
+        if sum(by_len.values()) != launches[name]:
+            raise RuntimeError(f"{name}: {launches[name]} launches, {sum(by_len.values())} "
+                               "backward calls")
+        ms = sum(n * ph.bwd_ms[s_len][i] for s_len, n in per_step.items())
+        log(f"  {path}: {name} launches per step by tokens S: {per_step}; x the kernel "
+            f"phase's device ms at each S = {ms:.3f} ms per step")
+    priced["flash backward pair"] = sum(n * sum(ph.bwd_ms[s_len])
+                                        for s_len, n in per_step.items())
+    log(f"  [{smi}] {path}: flash backward pair, kernel time per step: "
+        f"{priced['flash backward pair']:.3f} ms")
+    want = train_conv_launches(cfg)
+    got = {k: launches[k] / TRAIN_STEPS for k in want}
+    log(f"  {path}: conv3x3 and dU launches per step {got}; the site tables give {want}")
+    if got != want:
+        raise RuntimeError(f"{path}: conv3x3 launches per step {got}, the site tables give "
+                           f"{want}")
+    priced["conv3x3 + dU"] = (conv_sums["train forward + recompute"][0]
+                              + conv_sums["train backward dU"][0]
+                              + -(-frames // cfg.encode_chunk_size)
+                              * conv_sums["VAE encode chunk"][0]
+                              + conv_sums["VAE image encode"][0])
+    log(f"  [{smi}] {path}: Σ launches x device ms of the hand kernels per step "
+        f"{sum(priced.values()):.1f} ms ({', '.join(f'{k} {v:.1f}' for k, v in priced.items())}; "
+        "conv3x3 from the conv phase's site sums, the VAE's last chunk priced at 8 frames; "
+        "the folds not priced)")
+    for m in metrics:
+        log(f"  step: loss {m['loss']:.5g} grad_norm {m['grad_norm']:.5g} lr {m['lr']:.3g}")
+        if not (torch.isfinite(torch.tensor(m["loss"])) and torch.isfinite(
+                torch.tensor(m["grad_norm"]))):
+            raise RuntimeError(f"{path}: non-finite train metrics {m}")
+    return state, launches, metrics, secs, peak
+
+
+def train_phase(dev, smi, counters, profile_dir, ph: KernelPhase, conv_sums):
+    """The default train step (temporal scope), then one full-scope step."""
+    import dataclasses
 
     from svd_xtend_tpu_torch.core.config import TrainConfig
     from svd_xtend_tpu_torch.diffusion.pipeline import SVDModels
@@ -1472,56 +1637,8 @@ def train_phase(dev, smi, counters, profile_dir, bwd_ms, fwd_ms, geglu_ms, tresn
     # the copies to compare against stay on the host, out of the peak below
     before_train = [m.cpu() for m in state.params]
     before_frozen = {n: p.detach().cpu() for n, p in named.items() if n not in trained}
-    reset(counters)
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.time()
-    metrics = []
-    # every flash_attention_bwd call launches the dQ and the dK/dV kernel once
-    with calls_by(fa, "flash_attention_bwd", TOKENS) as by_len, \
-            calls_by(fa, "flash_attention_fwd", BATCH_AND_TOKENS) as fwd_by_shape, \
-            calls_by(gg, "ln_geglu_residual", GEGLU_KEY) as geglu_by_shape, \
-            calls_by(tr, "conv_a", SHAPE) as conv_a_by_shape, \
-            calls_by(ta, "frame_attention", SHAPE) as frame_by_shape, \
-            calls_by(gn, "group_norm_silu", GN_KEY) as gn_by_site:
-        for _ in range(TRAIN_STEPS):
-            state, m = step(state, batch, generator=draws)
-            metrics.append(m)
-        torch.cuda.synchronize()
-    secs = (time.time() - t0) / TRAIN_STEPS
-    launches = read(counters, [n for n in counters if n not in MHA_ONLY | PROBE_ONLY])
-    forward_per_run("train", fwd_by_shape, TRAIN_STEPS,
-                    launches["flash_attention_fwd"] / TRAIN_STEPS, fwd_ms["train"], smi, "step")
-    price("train: geglu_fwd", geglu_by_shape, TRAIN_STEPS, geglu_ms, smi, "step")
-    want = {st[:4]: st[5] for st in TRESNET_SITES if st[5]}
-    if {k: n / TRAIN_STEPS for k, n in conv_a_by_shape.items()} != want:
-        raise RuntimeError(f"temporal resnet launches by shape {dict(conv_a_by_shape)} per "
-                           f"{TRAIN_STEPS} steps, the site table gives {want}")
-    # the UNet's forward and its "block" remat recompute; the video's encode
-    # chunks and the conditioning image's encode
-    frames = cfg.per_device_batch_size * cfg.num_frames
-    check_folds("train", launches, fold_launches(
-        2, -(-frames // cfg.encode_chunk_size) + 1, 0, 5), TRAIN_STEPS)
-    price("train: temporal_resnet_conv_a + conv_b", conv_a_by_shape, TRAIN_STEPS,
-          {k: sum(v) for k, v in tresnet_ms.items()}, smi, "step")
-    price("train: frame_attention_fwd", frame_by_shape, TRAIN_STEPS, frame_ms, smi, "step")
-    check_sites("train", gn_by_site, TRAIN_STEPS, 4)
-    price("train: group_norm_silu", gn_by_site, TRAIN_STEPS, gn_ms, smi, "step")
-    per_step = {s_len: n / TRAIN_STEPS for s_len, n in sorted(by_len.items(), reverse=True)}
-    for i, name in enumerate(("flash_attention_bwd_dq", "flash_attention_bwd_dkv")):
-        if sum(by_len.values()) != launches[name]:
-            raise RuntimeError(f"{name}: {launches[name]} launches, {sum(by_len.values())} "
-                               "backward calls")
-        ms = sum(n * bwd_ms[s_len][i] for s_len, n in per_step.items())
-        log(f"  {name} launches per step by tokens S: {per_step}; x the kernel phase's "
-            f"device ms at each S = {ms:.3f} ms per step")
-    total = sum(n * sum(bwd_ms[s_len]) for s_len, n in per_step.items())
-    log(f"  [{smi}] flash backward pair, kernel time per step: {total:.3f} ms")
-    peak = torch.cuda.max_memory_allocated()
-    for m in metrics:
-        log(f"  step: loss {m['loss']:.5g} grad_norm {m['grad_norm']:.5g} lr {m['lr']:.3g}")
-        if not (torch.isfinite(torch.tensor(m["loss"])) and torch.isfinite(
-                torch.tensor(m["grad_norm"]))):
-            raise RuntimeError(f"non-finite train metrics {m}")
+    state, launches, _, secs, peak = timed_steps("train", "temporal", step, state, batch, draws,
+                                                 counters, ph, smi, cfg, conv_sums)
     changed = sum(not torch.equal(m.cpu(), b) for m, b in zip(state.params, before_train))
     if changed == 0:
         raise RuntimeError("no trainable weight changed")
@@ -1533,8 +1650,8 @@ def train_phase(dev, smi, counters, profile_dir, bwd_ms, fwd_ms, geglu_ms, tresn
         raise RuntimeError(f"frozen weights changed: {moved[:5]}")
     log(f"  {changed}/{len(state.names)} trainable f32 masters changed, "
         f"{len(before_frozen)} frozen bit-identical")
-    log(f"  [{smi}] temporal scope: seconds/step {secs:.3f}; "
-        f"peak allocated {peak / 2**30:.2f} GiB")
+    log(f"  [{smi}] temporal scope: seconds/step {sum(secs) / len(secs):.3f} (steps "
+        f"{', '.join(f'{t:.3f}' for t in secs)}); peak allocated {peak / 2**30:.2f} GiB")
     del before_train, before_frozen
 
     if profile_dir:
@@ -1556,6 +1673,154 @@ def train_phase(dev, smi, counters, profile_dir, bwd_ms, fwd_ms, geglu_ms, tresn
         f"{time.time() - t0:.2f} s (first of its scope), loss {m['loss']:.5g}, grad_norm "
         f"{m['grad_norm']:.5g}; peak allocated {peak / 2**30:.2f} GiB")
     return launches
+
+
+def lora_phase(dev, smi, counters, ph: KernelPhase, conv_sums, exact_launches):
+    """The 'lora' path: train an adapter (TrainConfig(train_mode="lora"),
+    rank 4, alpha 4, 512x320x14f, batch 1, remat "block") for a warm-up and
+    TRAIN_STEPS timed steps; export it, read it back and merge it into the
+    UNet; one exact video from the merged UNet after a warm-up one; the VAE
+    written as a sharded pipeline component and loaded into a fresh VAE.
+    Returns the launches of the timed steps plus those of the timed video."""
+    import tempfile
+
+    from svd_xtend_tpu_torch.core.config import PipelineConfig, TrainConfig, VAEConfig
+    from svd_xtend_tpu_torch.diffusion.pipeline import SVDModels, generate
+    from svd_xtend_tpu_torch.io.convert import (load_diffusers_checkpoint, lora_from_state_dict,
+                                                lora_state_dict)
+    from svd_xtend_tpu_torch.io.safetensors_io import load_file, load_metadata, save_file
+    from svd_xtend_tpu_torch.models import lora as lora_lib
+    from svd_xtend_tpu_torch.models.vae import AutoencoderKLTemporalDecoder
+    from svd_xtend_tpu_torch.train.checkpoint import export_lora_diffusers
+    from svd_xtend_tpu_torch.train.state import (cast_frozen_to_compute, create_train_state,
+                                                 make_train_step)
+
+    cfg = TrainConfig(train_mode="lora")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    t0 = time.time()
+    models = SVDModels.create(device=dev, dtype=torch.float32, generator=gen)
+    state = create_train_state(cfg, models, generator=gen)
+    cast_frozen_to_compute(models, torch.bfloat16)
+    step = make_train_step(models, cfg)
+    torch.cuda.synchronize()
+    log(f"  models (f32 init, then bf16) and adapter: {time.time() - t0:.1f} s; "
+        f"{len(state.lora)} targets, {len(state.names)} tensors, "
+        f"{lora_lib.num_params(state.lora)} f32 values (rank {cfg.lora_rank}, alpha "
+        f"{cfg.lora_alpha})")
+    batch = torch.rand(cfg.per_device_batch_size, cfg.num_frames, cfg.height, cfg.width, 3,
+                       device=dev, generator=gen) * 2 - 1
+    draws = torch.Generator(device=dev).manual_seed(SEED + 10)
+    t0 = time.time()
+    state, m = step(state, batch, generator=draws)
+    torch.cuda.synchronize()
+    log(f"  warm-up step: {time.time() - t0:.2f} s, loss {m['loss']:.5g}, "
+        f"grad_norm {m['grad_norm']:.5g}")
+    nets = {"unet": models.unet, "vae": models.vae, "clip": models.clip}
+    # host copies, out of the peak below
+    frozen = {(n, k): v.cpu() for n, net in nets.items() for k, v in net.state_dict().items()}
+    state, launches, _, secs, peak = timed_steps("lora", "lora", step, state, batch, draws,
+                                                 counters, ph, smi, cfg, conv_sums)
+    now = {n: net.state_dict() for n, net in nets.items()}
+    moved = [k for k, v in frozen.items() if not torch.equal(now[k[0]][k[1]].cpu(), v)]
+    if moved:
+        raise RuntimeError(f"lora: base weights changed: {moved[:5]}")
+    del frozen
+    one_token = [n for n in state.lora if n.rsplit(".", 2)[-2:] in (["attn2", "to_q"],
+                                                                    ["attn2", "to_k"])]
+    zero = [n for n, ab in state.lora.items() if not ab["b"].any()]
+    if not one_token or sorted(zero) != sorted(one_token):
+        raise RuntimeError(f"lora: B is zero at {len(zero)} targets, the one-token "
+                           f"cross-attentions' q/k are {len(one_token)}: "
+                           f"{sorted(set(zero) ^ set(one_token))[:5]}")
+    log(f"  every UNet, VAE and CLIP weight bit-identical; B exactly zero at the "
+        f"{len(one_token)} attn2 to_q/to_k targets and nonzero at the other "
+        f"{len(state.lora) - len(one_token)}")
+    log(f"  [{smi}] lora scope: seconds/step median {sorted(secs)[len(secs) // 2]:.3f} (steps "
+        f"{', '.join(f'{t:.3f}' for t in secs)}); peak allocated {peak / 2**30:.2f} GiB")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        path = export_lora_diffusers(state.lora, os.path.join(tmp, "lora"))
+        sd, meta = load_file(path), load_metadata(path)
+        secs_file = time.time() - t0
+        want = {k: v.detach().cpu() for k, v in lora_state_dict(state.lora).items()}
+        same = (list(sorted(sd)) == list(sorted(want)) and meta == {"format": "pt"}
+                and all(sd[k].dtype == v.dtype and torch.equal(sd[k], v)
+                        for k, v in want.items()))
+        log(f"  {os.path.basename(path)}: {os.path.getsize(path)} bytes, {len(sd)} tensors, "
+            f"written and read back in {secs_file:.2f} s, bit for bit: {same}")
+        if not same:
+            raise RuntimeError("lora: the exported adapter does not read back bit for bit")
+    adapter = lora_from_state_dict(sd, state.lora)
+    name = next(n for n in adapter if adapter[n]["b"].any())
+    expect = lora_lib.merge(models.unet, {name: adapter[name]}, cfg.lora_alpha)[name]
+    lora_lib.merge_(models.unet, adapter, cfg.lora_alpha)
+    got = dict(models.unet.named_modules())[name].weight
+    if not torch.equal(got, expect):
+        raise RuntimeError(f"lora: merge_ at {name} differs from merge")
+    log(f"  merge_ of the read-back adapter: {name} equals merge's weight bit for bit")
+    del state, step, adapter, sd
+    torch.cuda.empty_cache()
+
+    exact = PipelineConfig()
+    image = torch.rand(1, exact.height, exact.width, 3, device=dev, generator=gen) * 2 - 1
+    t0 = time.time()
+    generate(models, image, exact, generator=torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    log(f"  merged UNet: warm-up video {time.time() - t0:.2f} s")
+    reset(counters)
+    t0 = time.time()
+    video = generate(models, image, exact, generator=torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    secs_video = time.time() - t0
+    serve = read(counters, [n for n in counters if n not in BACKWARD_ONLY | MHA_ONLY | PROBE_ONLY])
+    if serve != exact_launches:
+        raise RuntimeError(f"lora: the merged UNet's video launched {serve}, the exact path "
+                           f"{exact_launches}")
+    shape = (1, exact.num_frames, exact.height, exact.width, 3)
+    if (tuple(video.shape) != shape or not bool(torch.isfinite(video).all())
+            or video.min().item() < -1.0 or video.max().item() > 1.0):
+        raise RuntimeError(f"lora: video {tuple(video.shape)} not finite in [-1, 1]")
+    log(f"  video {tuple(video.shape)} finite, in [-1, 1], std {video.std().item():.4f}; "
+        f"launches equal the exact path's")
+    log(f"  [{smi}] lora: merged UNet, PipelineConfig(): seconds/video {secs_video:.3f} "
+        f"(one timed video after a warm-up)")
+
+    vae_sd = {k: v.detach() for k, v in models.vae.state_dict().items()}
+    del models, video
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        comp = os.path.join(root, "vae")
+        os.makedirs(comp)
+        t0 = time.time()
+        keys, weight_map = sorted(vae_sd), {}
+        for i, part in enumerate((keys[: len(keys) // 2], keys[len(keys) // 2:])):
+            shard = f"diffusion_pytorch_model-0000{i + 1}-of-00002.safetensors"
+            save_file({k: vae_sd[k] for k in part}, os.path.join(comp, shard),
+                      metadata={"format": "pt"})
+            weight_map.update({k: shard for k in part})
+        total = sum(v.numel() * v.element_size() for v in vae_sd.values())
+        with open(os.path.join(comp, "diffusion_pytorch_model.safetensors.index.json"),
+                  "w") as f:
+            json.dump({"metadata": {"total_size": total}, "weight_map": weight_map}, f)
+        t_write = time.time() - t0
+        size = sum(os.path.getsize(os.path.join(comp, f)) for f in os.listdir(comp))
+        with torch.device(dev):
+            fresh = AutoencoderKLTemporalDecoder(VAEConfig()).to(torch.bfloat16).eval()
+        t0 = time.time()
+        load_diffusers_checkpoint(root, SVDModels(None, fresh, None), components=("vae",))
+        torch.cuda.synchronize()
+        t_read = time.time() - t0
+    loaded = fresh.state_dict()
+    bad = [k for k, v in vae_sd.items()
+           if loaded[k].dtype != v.dtype or not torch.equal(loaded[k], v)]
+    if bad or set(loaded) != set(vae_sd):
+        raise RuntimeError(f"lora: the sharded VAE did not load bit for bit: {bad[:5]}")
+    log(f"  [{smi}] files: the VAE ({len(vae_sd)} tensors, {total} bytes of bf16) as a diffusers "
+        f"component in 2 shards + index ({size} bytes on disk): written in {t_write:.2f} s, "
+        f"loaded into a fresh VAE on the card in {t_read:.2f} s, every tensor bit for bit; "
+        "directory removed")
+    return {k: launches.get(k, 0) + serve.get(k, 0) for k in launches}
 
 
 # the port's own kernels: the __global__ functions of csrc/*.cu, by their

@@ -178,13 +178,13 @@ class MeshConfig:
 class TrainConfig:
     """Training hyperparameters (the reference's flag surface).
 
-    The port runs the default train step: the 'temporal' and 'full' scopes,
-    AdamW with f32 masters, gradient accumulation, EMA, remat. The options
-    outside that slice are refused at use (``check_ported``): 8-bit Adam,
-    ZeRO-1, host offload, bf16 gradient storage, the 'lora' and 'tracklet'
-    scopes and the Tracklet2Video branch. ``encode_chunk_size`` chunks the
-    frozen VAE encode (0 = unchunked); the posterior noise is drawn per
-    chunk, as in the JAX package."""
+    The port runs the default train step: the 'temporal', 'full' and
+    'lora' scopes, AdamW with f32 masters, gradient accumulation, EMA,
+    remat. The options outside that slice are refused at use
+    (``check_ported``): 8-bit Adam, ZeRO-1, host offload, bf16 gradient
+    storage, the 'tracklet' scope and the Tracklet2Video branch.
+    ``encode_chunk_size`` chunks the frozen VAE encode (0 = unchunked); the
+    posterior noise is drawn per chunk, as in the JAX package."""
 
     # data
     base_folder: str = ""
@@ -250,13 +250,14 @@ class TrainConfig:
             "zero1": self.zero1,
             "host_offload": self.host_offload != "none",
             "grad_dtype": self.grad_dtype != "fp32",
-            "train_mode": self.train_mode not in ("temporal", "full"),
+            "train_mode": self.train_mode not in ("temporal", "full", "lora"),
             "tracklet_dim": self.tracklet_dim > 0,
             "vae_encode_in_loop": not self.vae_encode_in_loop,
         }
         bad = [k for k, v in unported.items() if v]
         if bad:
             raise ValueError(f"not ported yet: {', '.join(bad)} (the port trains the "
-                             "temporal and full scopes with fp32 AdamW masters on one card)")
+                             "temporal, full and lora scopes with fp32 AdamW masters on one "
+                             "card)")
         if self.remat_policy not in ("none", "block", "outer"):
             raise ValueError(f"unknown remat policy {self.remat_policy!r}")

@@ -1,4 +1,5 @@
-"""JAX-package parameters -> the port's state dicts.
+"""JAX-package parameters -> the port's state dicts; the reference's
+checkpoint files (diffusers pipeline directories, peft LoRA files).
 
 The port's modules carry the diffusers (UNet, VAE) and transformers (CLIP)
 state-dict names and layouts, so this applies the same name and layout rules
@@ -13,16 +14,26 @@ as ``svd_xtend_tpu/io/convert.py::flax_to_diffusers`` and
 
 Input is the flat ``{"a/b/kernel": array}`` form of
 ``svd_xtend_tpu.io.convert.flatten``; load the results with
-``load_state_dict(strict=True)``.
+``load_state_dict(strict=True)``. Since the modules carry the files' names
+and layouts, a diffusers pipeline directory loads the same way
+(``load_diffusers_checkpoint``, the reference's ``from_pretrained``,
+train_svd.py:643-656), and a LoRA adapter maps to peft's keys one to one
+(``lora_state_dict``; save_lora_weights, train_svd_lora.py:1070-1074).
+Files are read with the port's own safetensors reader (io/safetensors_io.py).
 """
 
 from __future__ import annotations
 
+import json
+import os
 import re
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Sequence
 
 import numpy as np
 import torch
+
+from ..models.lora import Adapter
+from .safetensors_io import load_file
 
 _INDEXED = ("down_blocks|up_blocks|resnets|attentions|transformer_blocks|"
             "temporal_transformer_blocks|downsamplers|upsamplers|layers")
@@ -142,3 +153,80 @@ def state_dict_from_jax(flat: Mapping[str, np.ndarray], clip_patch_size: int = 1
     if "clip" in parts:
         out["clip"] = clip_state_dict(parts["clip"], clip_patch_size)
     return out
+
+
+# ------------------------------------------------------------------ LoRA --
+
+def lora_state_dict(lora: Adapter) -> Dict[str, torch.Tensor]:
+    """Adapter -> peft/diffusers keys: unet.<module>.lora_A.weight (r, in)
+    and unet.<module>.lora_B.weight (out, r)."""
+    out: Dict[str, torch.Tensor] = {}
+    for name, ab in lora.items():
+        out[f"unet.{name}.lora_A.weight"] = ab["a"]
+        out[f"unet.{name}.lora_B.weight"] = ab["b"]
+    return out
+
+
+def lora_from_state_dict(sd: Mapping[str, torch.Tensor], template: Adapter) -> Adapter:
+    """peft/diffusers keys -> an adapter with `template`'s targets, dtypes
+    and devices; raises on a shape that differs from the template's."""
+    out: Adapter = {}
+    for name, ab in template.items():
+        a, b = sd[f"unet.{name}.lora_A.weight"], sd[f"unet.{name}.lora_B.weight"]
+        if a.shape != ab["a"].shape or b.shape != ab["b"].shape:
+            raise ValueError(f"LoRA shape mismatch at {name}: A {tuple(a.shape)}, "
+                             f"B {tuple(b.shape)}")
+        out[name] = {"a": a.to(ab["a"]), "b": b.to(ab["b"])}
+    return out
+
+
+def lora_from_jax(tree: Mapping[str, Mapping[str, np.ndarray]]) -> Adapter:
+    """The JAX package's adapter {"<path>/kernel": {"a": (in, r), "b": (r,
+    out)}} -> the port's {module: {"a": (r, in), "b": (out, r)}}."""
+    return {_module_key(path[: -len("/kernel")]):
+            {"a": _tensor(np.asarray(ab["a"]).T), "b": _tensor(np.asarray(ab["b"]).T)}
+            for path, ab in tree.items()}
+
+
+# ------------------------------------------------- pipeline directories --
+
+# component -> (subdirectory, weights file) of a diffusers pipeline directory
+_COMPONENT_FILES = {"unet": ("unet", "diffusion_pytorch_model.safetensors"),
+                   "vae": ("vae", "diffusion_pytorch_model.safetensors"),
+                   "clip": ("image_encoder", "model.safetensors")}
+
+
+def load_component_state(component_dir: str, filename: str) -> Dict[str, torch.Tensor]:
+    """One component's state dict, following a ``<filename>.index.json``
+    shard map where there is one (the format of checkpoints split in
+    shards)."""
+    path = os.path.join(component_dir, filename)
+    index = path + ".index.json"
+    if not os.path.exists(index):
+        return load_file(path)
+    with open(index) as f:
+        weight_map = json.load(f)["weight_map"]
+    sd: Dict[str, torch.Tensor] = {}
+    for shard in sorted(set(weight_map.values())):
+        sd.update(load_file(os.path.join(component_dir, shard)))
+    if set(sd) != set(weight_map):
+        raise ValueError(f"{index}: the shards hold {len(sd)} tensors, the index names "
+                         f"{len(weight_map)}")
+    return sd
+
+
+def load_diffusers_checkpoint(root: str, models, components: Sequence[str] = ("unet", "vae",
+                                                                              "clip")):
+    """Load a diffusers pipeline directory (``unet/``, ``vae/``,
+    ``image_encoder/``; plain or shard-indexed safetensors) into `models`'
+    networks in place, each with ``load_state_dict(strict=True)``, which
+    casts to the network's dtype and device. Returns `models`."""
+    unknown = set(components) - set(_COMPONENT_FILES)
+    if unknown:
+        raise ValueError(f"unknown components {sorted(unknown)}")
+    for name in components:
+        sub, filename = _COMPONENT_FILES[name]
+        sd = load_component_state(os.path.join(root, sub), filename)
+        getattr(models, name).load_state_dict(sd, strict=True)
+        del sd
+    return models

@@ -8,11 +8,12 @@ sigmoid weights the temporal branch.
 
 Kernel sites: the spatial self-attention ``attn1`` goes to the flash kernel
 (ops/attention.py), the frame self-attention to the temporal-attention
-kernel, the transformer ``norm`` to the GroupNorm kernel (blocks.py), and
-every pre-LN feed-forward (norm3/ff, norm_in/ff_in) to the fused residual
-GEGLU kernel (ops/kernels/geglu.py), as the JAX package runs it by default
-(``SVDX_PALLAS_GEGLU`` on). The GELU is the tanh form, as JAX's ``nn.gelu``.
-State-dict keys are the diffusers names.
+kernel (both unless an attention processor is installed at the site,
+models/attn_processor.py), the transformer ``norm`` to the GroupNorm kernel
+(blocks.py), and every pre-LN feed-forward (norm3/ff, norm_in/ff_in) to the
+fused residual GEGLU kernel (ops/kernels/geglu.py), as the JAX package
+runs it by default (``SVDX_PALLAS_GEGLU`` on). The GELU is the tanh form, as
+JAX's ``nn.gelu``. State-dict keys are the diffusers names.
 """
 
 from __future__ import annotations
@@ -28,13 +29,15 @@ from ..ops.kernels import geglu as gk
 from ..ops.kernels import temporal_attention as tak
 from ..ops.kernels.dispatch import kernels_enabled
 from ..ops.video import spatial_tokens
+from . import attn_processor
 from .blocks import AlphaBlender, GroupNormSiLU
 from .embeddings import TimestepEmbedding, sinusoidal_embedding
 
 
 class Attention(nn.Module):
     """Multi-head attention, diffusers names: to_q/to_k/to_v bias-free,
-    to_out.0 biased."""
+    to_out.0 biased. ``site`` is its key in the processor registry (the
+    UNet sets it to the module's name)."""
 
     def __init__(self, query_dim: int, num_heads: int, head_dim: int,
                  context_dim: Optional[int] = None, out_dim: Optional[int] = None):
@@ -46,8 +49,17 @@ class Attention(nn.Module):
         self.to_k = nn.Linear(ctx, inner, bias=False)
         self.to_v = nn.Linear(ctx, inner, bias=False)
         self.to_out = nn.ModuleList([nn.Linear(inner, out_dim or query_dim)])
+        self.site = ""
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None):
+        proc = attn_processor.get_processor(self.site)
+        if proc is not None:
+            # full projections, no one-token shortcut (the processor may do
+            # other math at this site)
+            ctx = x if context is None else context
+            o = proc(self.to_q(x), self.to_k(ctx), self.to_v(ctx), num_heads=self.num_heads,
+                     scale=self.head_dim ** -0.5, site=self.site)
+            return self.to_out[0](o)
         if context is not None and context.shape[-2] == 1:
             # Single-key cross-attention (the one CLIP token): softmax over
             # one key is 1, so every query's output is to_out(to_v(ctx)).
@@ -117,6 +129,22 @@ class FrameAxisAttention(Attention):
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None):
         b, f, s, _ = x.shape
+        proc = attn_processor.get_processor(self.site)
+        if proc is not None:
+            # the reference's temporal-token view (B·S, F, C), so one
+            # processor signature covers spatial and frame sites
+            inner = self.num_heads * self.head_dim
+            tokens = lambda a: a.transpose(1, 2).reshape(b * s, f, inner)
+            q = tokens(self.to_q(x))
+            if context is None:
+                k, v = tokens(self.to_k(x)), tokens(self.to_v(x))
+            else:
+                n = context.shape[-2]
+                rows = lambda a: a[:, None].expand(b, s, n, inner).reshape(b * s, n, inner)
+                k, v = rows(self.to_k(context)), rows(self.to_v(context))
+            o = proc(q, k, v, num_heads=self.num_heads, scale=self.head_dim ** -0.5,
+                     site=self.site)
+            return self.to_out[0](o.reshape(b, s, f, inner).transpose(1, 2))
         if context is not None:
             if context.shape[-2] != 1:
                 raise ValueError("FrameAxisAttention takes a single-token context")

@@ -36,10 +36,12 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..core.config import UNetConfig
+from ..ops.kernels.dispatch import kernels_enabled, plain_versions
+from . import attn_processor
 from .blocks import (Conv3x3, Downsample2D, GroupNormSiLU, SpatioTemporalResBlock,
                      Upsample2D)
 from .embeddings import TimestepEmbedding, sinusoidal_embedding
-from .transformer import TransformerSpatioTemporalModel
+from .transformer import Attention, TransformerSpatioTemporalModel
 
 
 class DownBlock(nn.Module):
@@ -174,6 +176,9 @@ class UNetSpatioTemporalConditionModel(nn.Module):
             prev = rev[i]
         self.conv_norm_out = GroupNormSiLU(chs[0], 32, eps)
         self.conv_out = Conv3x3(chs[0], cfg.out_channels)
+        for name, m in self.named_modules():
+            if isinstance(m, Attention):        # the attention-processor sites
+                m.site = name
 
     def forward(self, sample: torch.Tensor, timestep, encoder_hidden_states: torch.Tensor,
                 added_time_ids: torch.Tensor, remat: str = "none",
@@ -242,8 +247,16 @@ class UNetSpatioTemporalConditionModel(nn.Module):
 
 
 def _labelled(block):
+    """`block` under its profiler label, with the kernel dispatch and the
+    attention processors in force when it is wrapped (the forward) also in
+    its recompute: that runs in the backward, on a CUDA tensor on the
+    autograd engine's own thread, which does not see the thread-local
+    settings of the forward's thread."""
+    plain, proc = not kernels_enabled(), attn_processor.current()
+
     def run(*args):
-        with torch.profiler.record_function("unet.checkpointed_block"):
+        with torch.profiler.record_function("unet.checkpointed_block"), \
+                plain_versions(plain), attn_processor.processors(proc):
             return block(*args)
     return run
 

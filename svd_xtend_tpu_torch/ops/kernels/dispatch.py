@@ -20,9 +20,11 @@ def kernels_enabled() -> bool:
 
 
 @contextlib.contextmanager
-def plain_versions():
+def plain_versions(on: bool = True):
+    """Inside the block the sites run their plain versions (with on=False,
+    the kernels again)."""
     prev = getattr(_local, "plain", False)
-    _local.plain = True
+    _local.plain = on
     try:
         yield
     finally:

@@ -159,3 +159,32 @@ def _gn_sites():
 # group_norm_silu's shapes on the main paths at the defaults (512x320, 14
 # frames): (shape, silu, eps, per exact video, per step)
 GN_SITES = _gn_sites()
+
+
+def _flash_bwd_sites():
+    """flash_attention_bwd calls per train step by tokens S, per scope, from
+    the default configs: one per spatial self-attention whose inputs need a
+    gradient (the transformer models of each level, as in _gn_sites, at the
+    train latent's h / 2^i x w / 2^i tokens). The 'lora' scope trains
+    adapters on every attention, so every site; the 'temporal' scope none
+    before the first temporal block, so not the first transformer model's
+    spatial self-attention."""
+    unet, vae, train = UNetConfig(), VAEConfig(), TrainConfig()
+    h, w = train.height // vae.downsample_factor, train.width // vae.downsample_factor
+    n = len(unet.block_out_channels)
+    ups = list(reversed(unet.up_block_types))
+    lora = {}
+    for i in range(n):
+        models = unet.transformer_layers_per_block[i] * (
+            unet.layers_per_block * ("CrossAttn" in unet.down_block_types[i])
+            + (unet.layers_per_block + 1) * ("CrossAttn" in ups[i]) + (i == n - 1))
+        if models:
+            lora[(h >> i) * (w >> i)] = models
+    temporal = dict(lora)
+    temporal[next(iter(lora))] -= 1
+    return {"lora": lora, "temporal": {s: c for s, c in temporal.items() if c}}
+
+
+# flash_attention_bwd calls per train step by tokens S at the defaults, per
+# scope ('lora', 'temporal')
+FLASH_BWD_SITES = _flash_bwd_sites()

@@ -1,11 +1,13 @@
 """Train state, trainable scopes, EMA, and the train step.
 
-Port of ``svd_xtend_tpu/train/state.py`` for the 'temporal' and 'full'
-scopes:
-  - trainable scopes: 'full' (every UNet parameter) and 'temporal' (the
+Port of ``svd_xtend_tpu/train/state.py`` for the 'temporal', 'full' and
+'lora' scopes:
+  - trainable scopes: 'full' (every UNet parameter), 'temporal' (the
     parameters whose name contains ``temporal_transformer_block``, the JAX
     package's rule on its flax paths; not the temporal resnets, not
-    ``time_pos_embed`` / ``time_mixer``);
+    ``time_pos_embed`` / ``time_mixer``) and 'lora' (an adapter on every
+    attention projection over the frozen UNet, models/lora.py;
+    train_svd_lora.py:744-751);
   - EMA with the (1+step)/(10+step) warmup clamped at the max decay, stepped
     after each update (full scope, ``use_ema``);
   - gradient accumulation: the batch gets a leading (accum,) axis, the
@@ -19,10 +21,17 @@ is taken with respect to the compute copies and accumulated in f32, as JAX
 differentiates f32 masters that are cast to bf16 at use. Frozen weights
 (the other UNet leaves, VAE, CLIP) exist only in the compute dtype
 (``cast_frozen_to_compute``, state.py:149-171 in the JAX package).
+
+The 'lora' scope differentiates the loss with respect to the f32 adapter
+itself: its merge into the compute-dtype base weights is part of the
+forward, so there is no compute copy to write back. The merged weights stay
+in place across the backward, where remat recomputes the checkpointed
+blocks (``lora.merged``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -32,6 +41,8 @@ from torch import nn
 from ..core.config import TrainConfig
 from ..diffusion.pipeline import SVDModels
 from ..diffusion.training import TrainDraws, sample_train_draws, training_loss
+from ..io.convert import lora_state_dict
+from ..models import lora as lora_lib
 from .optim import ClippedAdamW, make_optimizer
 
 TEMPORAL_SCOPE = "temporal_transformer_block"
@@ -74,12 +85,26 @@ class TrainState:
     params: List[torch.Tensor]        # their f32 masters
     optimizer: ClippedAdamW
     ema_params: Optional[List[torch.Tensor]] = None   # full scope with use_ema
+    lora: Optional[lora_lib.Adapter] = None           # 'lora' scope: `params`, by target
 
 
-def create_train_state(cfg: TrainConfig, models: SVDModels) -> TrainState:
+def create_train_state(cfg: TrainConfig, models: SVDModels,
+                       generator: Optional[torch.Generator] = None) -> TrainState:
     """f32 masters of the scope's UNet parameters (from the networks' current
     weights), the optimizer over them, the EMA copies; the networks' own
-    parameters require grad exactly where the scope trains."""
+    parameters require grad exactly where the scope trains. The 'lora'
+    scope instead draws an adapter from `generator` (seed 0 by default, as
+    the JAX package's key): `params` are its f32 A and B, `names` their peft
+    keys, and no network parameter requires grad."""
+    if cfg.train_mode == "lora":
+        for net in (models.unet, models.vae, models.clip):
+            net.requires_grad_(False)
+        if generator is None:
+            generator = torch.Generator(models.unet.conv_in.weight.device).manual_seed(0)
+        adapter = lora_lib.init(models.unet, cfg.lora_rank, generator)
+        sd = lora_state_dict(adapter)
+        params = [p.requires_grad_(True) for p in sd.values()]
+        return TrainState(0, list(sd), params, make_optimizer(cfg, params), lora=adapter)
     mask = trainable_mask(models.unet, cfg.train_mode)
     named = dict(models.unet.named_parameters())
     names = [n for n, m in mask.items() if m]
@@ -104,6 +129,25 @@ def cast_frozen_to_compute(models: SVDModels, dtype: torch.dtype) -> SVDModels:
     return models
 
 
+def loss_and_grads(models: SVDModels, cfg: TrainConfig, state: TrainState,
+                   pixels: torch.Tensor, draws: TrainDraws):
+    """One micro-batch's loss and its gradients with respect to the tensors
+    the scope trains: the UNet's compute copies of the masters, or the
+    adapter itself. Unused tensors (the q/k projections of the single-token
+    cross-attentions and their adapters) get zero gradients, as under
+    jax.grad. The backward runs under the profiler label ``train.backward``."""
+    if state.lora is None:
+        named = dict(models.unet.named_parameters())
+        wrt, scope = [named[n] for n in state.names], contextlib.nullcontext()
+    else:
+        wrt, scope = state.params, lora_lib.merged(models.unet, state.lora, cfg.lora_alpha)
+    with scope:
+        loss = training_loss(models, pixels, cfg, draws)
+        with torch.profiler.record_function("train.backward"):
+            grads = torch.autograd.grad(loss, wrt, materialize_grads=True)
+    return loss, grads
+
+
 def make_train_step(models: SVDModels, cfg: TrainConfig):
     """Build ``step(state, batch, *, generator=None, draws=None) -> (state,
     metrics)``. `batch` is (accum, B, F, H, W, 3) pixels in [-1, 1] when
@@ -123,15 +167,9 @@ def make_train_step(models: SVDModels, cfg: TrainConfig):
                                         batch.device) for _ in range(accum)]
         elif isinstance(draws, TrainDraws):
             draws = [draws]
-        named = dict(models.unet.named_parameters())
-        compute = [named[n] for n in state.names]
         grads, loss_sum = None, 0.0
         for pixels, d in zip(micro, draws):
-            loss = training_loss(models, pixels, cfg, d)
-            # unused leaves (the q/k projections of the single-token
-            # cross-attentions) get zero gradients, as under jax.grad
-            with torch.profiler.record_function("train.backward"):
-                g = torch.autograd.grad(loss, compute, materialize_grads=True)
+            loss, g = loss_and_grads(models, cfg, state, pixels, d)
             if grads is None:
                 grads = [x.float() for x in g]
             else:
@@ -145,9 +183,11 @@ def make_train_step(models: SVDModels, cfg: TrainConfig):
                     acc.div_(accum)
             lr, grad_norm = state.optimizer.step(grads)
             del grads
-            with torch.no_grad():
-                for p, m in zip(compute, state.params):
-                    p.copy_(m)
+            if state.lora is None:
+                named = dict(models.unet.named_parameters())
+                with torch.no_grad():
+                    for n, m in zip(state.names, state.params):
+                        named[n].copy_(m)
             state.step += 1
             if state.ema_params is not None:
                 ema_update_(state.ema_params, state.params, state.step, cfg.ema_decay)

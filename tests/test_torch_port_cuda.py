@@ -977,3 +977,104 @@ def test_cache_mode_generate_on_the_card(rn):
     rel = lambda a: ((a - ref).norm() / ref.norm()).item()
     assert got.shape == ref.shape and bool(torch.isfinite(got).all())
     assert rel(got) <= 1.5 * rel(plain) + 1e-3, (rel(got), rel(plain))
+
+
+# ------------------------------------------------------------------- LoRA --
+
+def _lora_pair(g):
+    """Host f32 models and their bf16 copy on the card, and an adapter on
+    the host UNet with a seeded nonzero B (while B is zero, A's gradient is
+    exactly zero)."""
+    from svd_xtend_tpu_torch.models import lora
+
+    host = tpipe.SVDModels.create(_CARD_UNET, tcfg.TINY_VAE, _CARD_CLIP, device="cpu",
+                                  generator=g)
+    card = tpipe.SVDModels(*(copy.deepcopy(n).to("cuda", torch.bfloat16)
+                             for n in (host.unet, host.vae, host.clip)), host.scheduler)
+    adapter = lora.init(host.unet, generator=g)
+    for ab in adapter.values():
+        ab["b"].normal_(0.0, 0.1, generator=g)
+    return host, card, adapter
+
+
+def test_lora_step_on_the_card(rn):
+    """The LoRA gradient (remat "block") of the bf16 kernels and of the
+    card's bf16 plain path against the host's f32: the kernels' rel-L2 at
+    most 1.5x the plain path's, plus 1e-3; the flash backward launched; then
+    one make_train_step on the card: finite metrics, B changed, every base
+    weight bit-identical."""
+    from svd_xtend_tpu_torch.diffusion import training as ttrain
+    from svd_xtend_tpu_torch.train import state as tstate
+
+    g = torch.Generator().manual_seed(0)
+    host, card, adapter = _lora_pair(g)
+    cfg = tcfg.TrainConfig(train_mode="lora", height=32, width=32, num_frames=3,
+                           encode_chunk_size=2, learning_rate=1e-3)
+    pixels = torch.rand(1, 3, 32, 32, 3, generator=g) * 2 - 1
+    draws = ttrain.sample_train_draws(host, pixels.shape, cfg, g)
+
+    def grads(models, device):
+        st = tstate.create_train_state(cfg, models)
+        with torch.no_grad():
+            for name, ab in st.lora.items():
+                ab["a"].copy_(adapter[name]["a"])
+                ab["b"].copy_(adapter[name]["b"])
+        _, g_ = tstate.loss_and_grads(models, cfg, st, pixels.to(device),
+                                      ttrain.TrainDraws(*(d.to(device) for d in draws)))
+        return torch.cat([x.float().flatten().cpu() for x in g_]), st
+
+    ref, _ = grads(host, "cpu")
+    n = fa.flash_attention_bwd_dq.launches
+    got, st = grads(card, "cuda")
+    assert fa.flash_attention_bwd_dq.launches > n
+    with plain_versions():
+        plain, _ = grads(card, "cuda")
+    rel = lambda a: ((a - ref).norm() / ref.norm()).item()
+    assert bool(torch.isfinite(got).all())
+    assert rel(got) <= 1.5 * rel(plain) + 1e-3, (rel(got), rel(plain))
+
+    base = {k: v.clone() for net in (card.unet, card.vae, card.clip)
+            for k, v in net.state_dict().items()}
+    b0 = [ab["b"].clone() for ab in st.lora.values()]
+    step = tstate.make_train_step(card, cfg)
+    st, m = step(st, pixels.cuda(), generator=torch.Generator("cuda").manual_seed(2))
+    assert math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+    assert any(not torch.equal(ab["b"], b) for ab, b in zip(st.lora.values(), b0))
+    after = {k: v for net in (card.unet, card.vae, card.clip) for k, v in net.state_dict().items()}
+    assert all(torch.equal(after[k], v) for k, v in base.items())
+
+
+def test_lora_export_merge_and_generate_on_the_card(rn, tmp_path):
+    """The adapter exported, read back bit for bit and merged into the card's
+    bf16 UNet; its video against the host's f32 merged video, as the cache
+    modes' test holds it (the kernels' rel-L2 at most 1.5x the plain path's,
+    plus 1e-3)."""
+    from svd_xtend_tpu_torch.io.convert import lora_from_state_dict
+    from svd_xtend_tpu_torch.io.safetensors_io import load_file
+    from svd_xtend_tpu_torch.models import lora
+    from svd_xtend_tpu_torch.train.checkpoint import export_lora_diffusers
+
+    g = torch.Generator().manual_seed(1)
+    host, card, adapter = _lora_pair(g)
+    on_card = {n: {k: t.cuda() for k, t in ab.items()} for n, ab in adapter.items()}
+    path = export_lora_diffusers(on_card, str(tmp_path / "lora"))
+    back = lora_from_state_dict(load_file(path), on_card)
+    assert all(torch.equal(back[n][k], on_card[n][k]) for n in on_card for k in ("a", "b"))
+    lora.merge_(card.unet, back)
+    lora.merge_(host.unet, adapter)
+    cfg = tcfg.PipelineConfig(height=32, width=32, num_frames=3, num_inference_steps=3,
+                              decode_chunk_size=2)
+    image = torch.rand(1, 32, 32, 3, generator=g) * 2 - 1
+    noise = dict(image_noise=torch.randn(1, 32, 32, 3, generator=g),
+                 latent_noise=torch.randn(1, 3, 16, 16, 4, generator=g))
+    ref = tpipe.generate(host, image, cfg, **noise)
+    run = lambda: tpipe.generate(card, image.cuda(), cfg,
+                                 **{k: v.cuda() for k, v in noise.items()}).cpu()
+    n = fa.flash_attention_packed.launches
+    got = run()
+    assert fa.flash_attention_packed.launches > n
+    with plain_versions():
+        plain = run()
+    rel = lambda a: ((a - ref).norm() / ref.norm()).item()
+    assert got.shape == ref.shape and bool(torch.isfinite(got).all())
+    assert rel(got) <= 1.5 * rel(plain) + 1e-3, (rel(got), rel(plain))

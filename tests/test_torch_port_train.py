@@ -3,7 +3,8 @@ the configs, the EDM loss math, the frozen-encoder stage with the JAX
 package's draws (chunked VAE encode with a ragged remainder), conditioning
 dropout, the schedules, the f32 clip and AdamW against optax, the trainable
 scopes and EMA, and whole train steps at the TINY configs for the
-'temporal' and 'full' scopes, with and without gradient accumulation.
+'temporal', 'full' and 'lora' scopes, with and without gradient
+accumulation.
 
 Weights go from the JAX package to the port through ``state_dict_from_jax``;
 random draws are made with the JAX package's key splits and handed to the
@@ -29,7 +30,8 @@ from svd_xtend_tpu_torch.core import config as tcfg
 from svd_xtend_tpu_torch.core import edm as tedm
 from svd_xtend_tpu_torch.diffusion import pipeline as tpipe
 from svd_xtend_tpu_torch.diffusion import training as ttrain
-from svd_xtend_tpu_torch.io.convert import diffusers_state_dict, state_dict_from_jax
+from svd_xtend_tpu_torch.io.convert import (diffusers_state_dict, lora_from_jax,
+                                            lora_state_dict, state_dict_from_jax)
 from svd_xtend_tpu_torch.train import optim as toptim
 from svd_xtend_tpu_torch.train import state as tstate
 
@@ -57,11 +59,17 @@ def test_train_config_copy_matches_jax_fields(name):
 
 @pytest.mark.parametrize("kw", [dict(use_8bit_adam=True), dict(zero1=True),
                                 dict(host_offload="masters"), dict(grad_dtype="bf16"),
-                                dict(train_mode="lora"), dict(train_mode="tracklet"),
-                                dict(tracklet_dim=8), dict(remat_policy="full")])
+                                dict(train_mode="tracklet"), dict(tracklet_dim=8),
+                                dict(remat_policy="full")])
 def test_unported_train_options_are_refused(kw):
     with pytest.raises(ValueError):
         toptim.make_optimizer(tcfg.TrainConfig(**kw), [torch.zeros(2)])
+
+
+def test_lora_scope_passes_check_ported():
+    cfg = tcfg.TrainConfig(train_mode="lora")
+    cfg.check_ported()
+    assert toptim.make_optimizer(cfg, [torch.zeros(2)]).params
 
 
 # ---------------------------------------------------------------- EDM loss --
@@ -298,13 +306,30 @@ def _jax_names_to_port_values(flat):
     return {k: v.numpy() for k, v in sd.items()}
 
 
-@pytest.mark.parametrize("mode,accum", [("temporal", 1), ("temporal", 2), ("full", 1),
-                                        ("full", 2)])
-def test_train_step_matches_jax(pair, mode, accum):
-    """Two TINY f32 train steps (remat 'block', EMA on in the full scope):
-    loss, grad_norm and the updated trainable parameters against JAX
-    make_train_step with the JAX draws fed in. f32 through encoders, UNet
-    forward and backward: summation order only, 1e-4.
+def _seed_lora(jst, opt, seed=13):
+    """JAX's adapter with B replaced by a seeded nonzero draw (while B is
+    zero, A's gradient is exactly zero and the merged weights are the base
+    ones, which would hide a wrong A gradient or a stale recompute)."""
+    rs = np.random.RandomState(seed)
+    tree = {p: {"a": ab["a"], "b": jnp.asarray(rs.randn(*ab["b"].shape) * 0.1, jnp.float32)}
+            for p, ab in jst.params.items()}
+    return jst.replace(params=tree, opt_state=opt.init(tree))
+
+
+@pytest.mark.parametrize("mode,accum,remat", [
+    pytest.param("temporal", 1, "block", id="temporal-1"),
+    pytest.param("temporal", 2, "block", id="temporal-2"),
+    pytest.param("full", 1, "block", id="full-1"), pytest.param("full", 2, "block", id="full-2"),
+    pytest.param("lora", 1, "block", id="lora-1"), pytest.param("lora", 2, "block", id="lora-2"),
+    pytest.param("lora", 1, "none", id="lora-1-none"),
+    pytest.param("lora", 2, "none", id="lora-2-none")])
+def test_train_step_matches_jax(pair, mode, accum, remat):
+    """Two TINY f32 train steps (remat 'block' unless given, EMA on in the
+    full scope): loss, grad_norm and the updated trainable parameters
+    against JAX make_train_step with the JAX draws fed in. f32 through
+    encoders, UNet forward and backward: summation order only, 1e-4. The
+    'lora' scope starts from JAX's A and a seeded nonzero B, and its base
+    UNet, VAE and CLIP must come out bit-identical.
 
     adam_epsilon is 1e-6 here: a bias whose exact gradient is zero (the last
     feed-forward bias of the top temporal block, whose per-channel constant
@@ -315,10 +340,12 @@ def test_train_step_matches_jax(pair, mode, accum):
     jm, params, sds = pair
     kw = dict(train_mode=mode, gradient_accumulation_steps=accum, learning_rate=1e-3,
               lr_scheduler="constant", use_ema=mode == "full", encode_chunk_size=2,
-              remat_policy="block", adam_epsilon=1e-6)
+              remat_policy=remat, adam_epsilon=1e-6)
     jc = jcfg.TrainConfig(**kw)
     opt = joptim.make_optimizer(jc)
     jst = jstate.create_train_state(jc, params["unet"], opt)
+    if mode == "lora":
+        jst = _seed_lora(jst, opt)
     jstep = jax.jit(jstate.make_train_step(jm, jc, opt, {"vae": params["vae"],
                                                          "clip": params["clip"]}))
 
@@ -327,6 +354,12 @@ def test_train_step_matches_jax(pair, mode, accum):
     tst = tstate.create_train_state(tc, tm)
     tstate.cast_frozen_to_compute(tm, torch.float32)
     tstep = tstate.make_train_step(tm, tc)
+    if mode == "lora":
+        with torch.no_grad():
+            start = lora_from_jax(jax.tree.map(np.asarray, jst.params))
+            for name, ab in tst.lora.items():
+                ab["a"].copy_(start[name]["a"])
+                ab["b"].copy_(start[name]["b"])
 
     shape = (accum, 1, F, H, W, 3) if accum > 1 else (1, F, H, W, 3)
     rng = jax.random.PRNGKey(21)
@@ -341,8 +374,18 @@ def test_train_step_matches_jax(pair, mode, accum):
         np.testing.assert_allclose(tmet["grad_norm"], float(jmet["grad_norm"]), rtol=1e-4,
                                    atol=1e-5)
         assert tmet["lr"] == pytest.approx(1e-3)
-    want = _flat_unet(jstate.unet_params_of(jst, jc))
     got = dict(zip(tst.names, tst.params))
+    if mode == "lora":
+        want = lora_state_dict(lora_from_jax(jax.tree.map(np.asarray, jst.params)))
+        assert list(got) == list(want)
+        for name, value in want.items():
+            np.testing.assert_allclose(got[name].detach().numpy(), value.numpy(), atol=1e-4,
+                                       rtol=1e-4, err_msg=name)
+        for net in ("unet", "vae", "clip"):
+            for k, v in getattr(tm, net).state_dict().items():
+                torch.testing.assert_close(v, sds[net][k], rtol=0, atol=0, msg=k)
+        return
+    want = _flat_unet(jstate.unet_params_of(jst, jc))
     assert set(got) == {n for n, m in tstate.trainable_mask(tm.unet, mode).items() if m}
     for name, master in got.items():
         np.testing.assert_allclose(master.numpy(), want[name], atol=1e-4, rtol=1e-4,
@@ -356,15 +399,35 @@ def test_train_step_matches_jax(pair, mode, accum):
             np.testing.assert_allclose(e.numpy(), want_ema[name], atol=1e-4, rtol=1e-4)
 
 
-@pytest.mark.parametrize("remat", ["block", "outer"])
-def test_remat_policies_keep_loss_and_gradients(pair, remat):
+@pytest.mark.parametrize("scope,remat", [
+    pytest.param("temporal", "block", id="block"), pytest.param("temporal", "outer", id="outer"),
+    pytest.param("lora", "block", id="lora-block"),
+    pytest.param("lora", "outer", id="lora-outer")])
+def test_remat_policies_keep_loss_and_gradients(pair, scope, remat):
     """Recomputing blocks in the backward changes neither the loss nor the
-    gradients (same f32 ops again: bit-identical on the CPU up to 1e-6)."""
+    gradients (same f32 ops again: bit-identical on the CPU up to 1e-6).
+    The 'lora' scope goes through the step's own loss_and_grads, from a
+    seeded nonzero B: a recompute that saw the base weights instead of the
+    merged ones would change the adapter's gradients."""
     _, _, sds = pair
     tm = _port_models(sds)
     cfg = tcfg.TrainConfig(encode_chunk_size=2)
     pixels = _t(np.random.RandomState(7).uniform(-1, 1, (1, F, H, W, 3)))
     draws = ttrain.sample_train_draws(tm, pixels.shape, cfg, torch.Generator().manual_seed(0))
+    if scope == "lora":
+        cfg = dataclasses.replace(cfg, train_mode="lora")
+        st = tstate.create_train_state(cfg, tm, generator=torch.Generator().manual_seed(1))
+        rs = np.random.RandomState(8)
+        with torch.no_grad():
+            for ab in st.lora.values():
+                ab["b"].copy_(_t(rs.randn(*ab["b"].shape) * 0.1))
+        out = [tstate.loss_and_grads(tm, dataclasses.replace(cfg, remat_policy=policy), st,
+                                     pixels, draws) for policy in ("none", remat)]
+        assert out[0][0].item() == pytest.approx(out[1][0].item(), rel=1e-6)
+        for a, b in zip(out[0][1], out[1][1]):
+            torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+        assert sum(g.abs().sum().item() for g in out[0][1][::2]) > 0       # A's gradients
+        return
     enc = ttrain.encode_batch(tm, pixels, cfg, draws)
     params = [p for n, p in tm.unet.named_parameters() if "temporal_transformer" in n]
     out = []
