@@ -120,6 +120,26 @@ Phases, each of which raises on failure (non-zero exit):
      the VAE written as a diffusers component in two shards and an index,
      loaded with load_diffusers_checkpoint into a fresh VAE on the card,
      every tensor bit for bit.
+  6c. cli (the training harness, train/cli.py, through main() in process,
+     as ``python -m svd_xtend_tpu_torch.train.cli`` runs it): the machine's
+     decoding tools (g++, libjpeg, nvJPEG, PIL, cv2, imageio); the native
+     frame loader built from native/frame_loader.cpp into _build/native/
+     (libjpeg, else the built-in baseline decoder), its decode of the
+     committed window (data/fixtures) against the JAX package's committed
+     output, bit for bit; run A over the committed frame
+     folder at 512x320x14f (temporal scope, bf16, remat block, lr 1e-5
+     constant, seed 123): 4 steps, checkpoints at 2 and 4 (limit 2),
+     validation at 1 and 4 (25 Euler steps); run B: checkpoint-2 copied into
+     a fresh directory, resumed from 'latest' to 4. Run B's checkpoint-4
+     against run A's: masters, both moments, counts, step and data step bit
+     for bit, else a second straight run A2 and the resumed difference at
+     most the straight one. Each run's launches per train step equal the
+     train phase's per step, each validation video's the exact video's; the
+     files (params lists, metrics.jsonl, val_img_4.gif read by PIL as
+     GIF89a of 14 frames, the f32 UNet export loading with strict=True); s/step from
+     metrics.jsonl, the loader's host s per batch and the time next()
+     blocked, checkpoint bytes and save/restore s, validation s, peak
+     memory and the val/* metrics, beside the card's name and power limit.
   7. mha (the head-major attention entry point, ops/attention.py::mha, as a
      caller outside the UNet uses it): the UNet's L0 self-attention shape,
      (2x14, 2560, 320) in 5 heads of 64, through the BSHD flash kernel: its
@@ -151,6 +171,7 @@ import argparse
 import collections
 import contextlib
 import json
+import math
 import os
 import re
 import sys
@@ -1107,6 +1128,11 @@ def main() -> int:
     lora_launches = lora_phase(dev, smi, counters, ph, conv_sums, gen_launches["generate"])
     torch.cuda.empty_cache()
 
+    log("cli: the training CLI (train/cli.py) at 512x320x14f, temporal scope, bf16, remat "
+        "block, over the committed frame folder: straight, then resumed from checkpoint-2")
+    cli_launches = cli_phase(dev, smi, counters, gen_launches["generate"], train_launches)
+    torch.cuda.empty_cache()
+
     log("mha: the head-major attention entry point at the UNet's L0 shape")
     mha_launches = mha_phase(dev, counters)
     torch.cuda.empty_cache()
@@ -1114,6 +1140,7 @@ def main() -> int:
     log("probes: the three probe scripts at their shapes")
     probe_launches = probes_phase(counters)
     by_path = {**gen_launches, "train": train_launches, "lora": lora_launches,
+               "cli": cli_launches,
                "mha": mha_launches, "probes": probe_launches}
 
     sources = {
@@ -1821,6 +1848,241 @@ def lora_phase(dev, smi, counters, ph: KernelPhase, conv_sums, exact_launches):
         f"loaded into a fresh VAE on the card in {t_read:.2f} s, every tensor bit for bit; "
         "directory removed")
     return {k: launches.get(k, 0) + serve.get(k, 0) for k in launches}
+
+
+# ------------------------------------------------------------- the cli path --
+
+CLI_STEPS = 4
+# the reference's BDD100K run (README.md:42-54) against this phase's
+CLI_REDUCED = ("max_train_steps 50000 -> 4, checkpointing_steps 1000 -> 2, "
+               "validation_steps 200 -> 4; widths, frames, scope, precision, lr unchanged")
+
+
+def toolchain() -> dict:
+    """What the machine has for decoding and reading images: g++, libjpeg
+    (header, library), nvJPEG (header, library), PIL, cv2, imageio."""
+    import importlib.util
+    import shutil
+    import subprocess
+
+    def run(cmd, stdin=""):
+        try:
+            p = subprocess.run(cmd, input=stdin, capture_output=True, text=True, timeout=60)
+            return p.returncode, p.stdout
+        except OSError:
+            return -1, ""
+
+    cuda = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    gxx = shutil.which("g++")
+    libs = run(["ldconfig", "-p"])[1]
+    have = {
+        "g++": run(["g++", "--version"])[1].splitlines()[0] if gxx else None,
+        "jpeglib.h": gxx is not None and run(["g++", "-E", "-x", "c++", "-"],
+                                             "#include <jpeglib.h>\n")[0] == 0,
+        "libjpeg.so": "libjpeg.so" in libs,
+        "nvjpeg.h": os.path.exists(os.path.join(cuda, "include", "nvjpeg.h")),
+        "libnvjpeg.so": os.path.exists(os.path.join(cuda, "lib64", "libnvjpeg.so")),
+    }
+    for mod in ("PIL", "cv2", "imageio"):
+        have[mod] = importlib.util.find_spec(mod) is not None
+    return have
+
+
+def compare_states(a: dict, b: dict) -> dict:
+    """Max abs difference of two checkpoints' state files by part: the f32
+    masters, both AdamW moments, and whether the counts agree."""
+    def maxdiff(xs, ys):
+        return max(((x.float() - y.float()).abs().max().item() for x, y in zip(xs, ys)),
+                   default=0.0)
+    sa, sb = a["optimizer"]["adamw"]["state"], b["optimizer"]["adamw"]["state"]
+    return {"masters": maxdiff(a["params"].values(), b["params"].values()),
+            "exp_avg": maxdiff([s["exp_avg"] for s in sa.values()],
+                               [sb[i]["exp_avg"] for i in sa]),
+            "exp_avg_sq": maxdiff([s["exp_avg_sq"] for s in sa.values()],
+                                  [sb[i]["exp_avg_sq"] for i in sa]),
+            "adamw_step": maxdiff([s["step"] for s in sa.values()], [sb[i]["step"] for i in sa]),
+            "same_names": list(a["params"]) == list(b["params"]),
+            "count": (a["optimizer"]["count"], b["optimizer"]["count"]),
+            "step": (a["step"], b["step"])}
+
+
+def cli_phase(dev, smi, counters, exact_launches, train_launches):
+    """The training CLI (train/cli.py) at full width through main(), in
+    process: the native frame loader built from the checkout, its decode of
+    the committed window against the JAX package's committed output; run A
+    (4 straight steps, checkpoints at 2 and 4, validation at 1 and 4), run B
+    (checkpoint-2 copied into a fresh directory, resumed to 4): the states at
+    step 4 bit for bit (else a second straight run bounds the difference);
+    the launches per train step held to the train phase's, each validation
+    video's to the exact video's; the files; the loader's, checkpoints' and
+    validation's times. Returns run A's launches."""
+    import shutil
+
+    import numpy as np
+
+    from svd_xtend_tpu_torch import native
+    from svd_xtend_tpu_torch.data import make_fixtures as fx
+    from svd_xtend_tpu_torch.core.config import UNetConfig
+    from svd_xtend_tpu_torch.io.safetensors_io import load_file
+    from svd_xtend_tpu_torch.models.unet import UNetSpatioTemporalConditionModel
+    from svd_xtend_tpu_torch.train import cli
+    from svd_xtend_tpu_torch.train.checkpoint import STATE_FILE
+
+    t_phase = time.time()
+    have = toolchain()
+    log(f"  toolchain: {have}")
+    t0 = time.time()
+    lib = native.library()
+    if not lib._name.startswith(str(native.BUILD_DIR) + os.sep):
+        raise RuntimeError(f"native loader built at {lib._name}, not under {native.BUILD_DIR}")
+    decoder = native.decoder()
+    log(f"  native frame loader: {native.version()}, built in {time.time() - t0:.1f} s -> "
+        f"{lib._name}")
+    ref = np.load(fx.REFERENCE)
+    t0 = time.time()
+    got = native.load_clip(fx.reference_paths(), fx.REF_WIDTH, fx.REF_HEIGHT)
+    secs = time.time() - t0
+    if got is None or got.shape != ref.shape:
+        raise RuntimeError(f"native decode of the committed window failed ({decoder})")
+    err = float(np.abs(got - ref).max())
+    log(f"  decode: decoder {decoder}; the committed window ({fx.REF_FRAMES} frames of "
+        f"1280x720 -> {fx.REF_WIDTH}x{fx.REF_HEIGHT}) in {secs:.3f} s; max abs error against "
+        f"the JAX package's native output {err:.6g} (bound 0)")
+    if err != 0.0:
+        raise RuntimeError(f"decode: max abs error {err}, the JAX package's output is the bits")
+
+    root = native.BUILD_DIR.parent / "cli_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    val_launches = []
+    original = cli.run_validation
+
+    def counted_validation(*args, **kwargs):
+        before = {n: fn.launches for n, fn in counters.items()}
+        t0 = time.time()
+        original(*args, **kwargs)
+        torch.cuda.synchronize()
+        val_launches.append({n: fn.launches - before[n] for n, fn in counters.items()})
+        log(f"  validation at step {args[4]}: {time.time() - t0:.2f} s")
+
+    def argv(out, *extra):
+        return ["--base_folder", fx.FRAMES, "--train_mode", "temporal",
+                "--mixed_precision", "bf16", "--learning_rate", "1e-5",
+                "--lr_scheduler", "constant", "--max_train_steps", str(CLI_STEPS),
+                "--checkpointing_steps", "2", "--checkpoints_total_limit", "2",
+                "--validation_steps", "4", "--num_validation_images", "1", "--seed", "123",
+                "--output_dir", out, *extra]
+
+    def run(name, out, *extra):
+        val_launches.clear()
+        reset(counters)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        stats = cli.main(argv(out, *extra))
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = read(counters, [n for n in counters if n not in MHA_ONLY | PROBE_ONLY])
+        steps = len(stats["step_seconds"])
+        per_step = {n: (c - sum(v[n] for v in val_launches)) / steps for n, c in launches.items()}
+        want_step = {n: c / TRAIN_STEPS for n, c in train_launches.items()}
+        if per_step != want_step:
+            raise RuntimeError(f"cli {name}: launches per train step {per_step}, the train "
+                               f"phase's {want_step}")
+        for v in val_launches:
+            got = {n: v[n] for n in exact_launches}
+            if got != exact_launches or any(v[n] for n in v if n not in exact_launches):
+                raise RuntimeError(f"cli {name}: validation video launches {v}, the exact "
+                                   f"video's {exact_launches}")
+        log(f"  cli {name}: {wall:.1f} s in main(); launches per train step equal the train "
+            f"phase's ({sum(want_step.values()):.0f} a step), each of {len(val_launches)} "
+            "validation videos' equal the exact video's")
+        with open(os.path.join(out, "logs", "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        train = [r for r in records if "train_loss" in r]
+        val = [r for r in records if "val/clip_frame_score" in r]
+        for r in train:
+            if not all(math.isfinite(r[k]) for k in ("train_loss", "grad_norm", "lr")):
+                raise RuntimeError(f"cli {name}: non-finite metrics {r}")
+        wait, batch = stats["loader_wait_seconds"], stats["loader_batch_seconds"]
+        log(f"  [{smi}] cli {name}: s/step from metrics.jsonl's steps_per_sec "
+            f"{', '.join(f'step {r['step']}: {1 / r['steps_per_sec']:.3f}' for r in train)} (the "
+            f"first step of the process, warm-up included); host s of each step (next() to "
+            f"the metrics) {', '.join(f'{s:.3f}' for s in stats['step_seconds'])}")
+        log(f"  [{smi}] cli {name}: loader host s per batch {', '.join(f'{s:.3f}' for s in batch)}"
+            f" ({stats['decoder']}); next() blocked the loop {', '.join(f'{s:.4f}' for s in wait)}"
+            " s")
+        for c in stats["checkpoints"]:
+            log(f"  [{smi}] cli {name}: checkpoint-{c['step']} {c['bytes']} bytes saved in "
+                f"{c['seconds']:.2f} s")
+        if stats["restore_seconds"] is not None:
+            log(f"  [{smi}] cli {name}: restore (load + copy onto the card) "
+                f"{stats['restore_seconds']:.2f} s")
+        log(f"  [{smi}] cli {name}: validation s {', '.join(f'{s:.2f}' for s in stats['validation_seconds'])};"
+            f" export {stats['export_seconds']:.2f} s; peak allocated {peak / 2**30:.2f} GiB")
+        for r in val:
+            log(f"  [{smi}] cli {name}: step {r['step']} "
+                + ", ".join(f"{k} {r[k]:.6g}" for k in sorted(r) if k.startswith("val/")))
+        return stats, launches
+
+    cli.run_validation = counted_validation
+    try:
+        log(f"  reduced: {CLI_REDUCED}")
+        a, b = str(root / "a"), str(root / "b")
+        _, launches = run("A (straight, steps 0-4)", a)
+        for f in ("params_freeze.txt", "params_train.txt", "logs/metrics.jsonl",
+                  "validation_images/val_img_4.gif", "unet/diffusion_pytorch_model.safetensors"):
+            if not os.path.isfile(os.path.join(a, f)):
+                raise RuntimeError(f"cli: run A wrote no {f}")
+        from PIL import Image
+        with Image.open(os.path.join(a, "validation_images", "val_img_4.gif")) as gif:
+            version, (w, h), n = gif.info.get("version", b"").decode(), gif.size, gif.n_frames
+        if (version, w, h, n) != ("GIF89a", 512, 320, 14):
+            raise RuntimeError(f"cli: val_img_4.gif is {version} {w}x{h} with {n} frames")
+        t0 = time.time()
+        sd = load_file(os.path.join(a, "unet", "diffusion_pytorch_model.safetensors"))
+        with torch.device("meta"):
+            unet = UNetSpatioTemporalConditionModel(UNetConfig())
+        unet.load_state_dict(sd, strict=True, assign=True)
+        dtypes = {str(t.dtype) for t in sd.values()}
+        log(f"  cli: files present; val_img_4.gif {version} {w}x{h}, {n} frames; the exported "
+            f"UNet ({len(sd)} tensors, {dtypes}) loads into UNetSpatioTemporalConditionModel "
+            f"with strict=True ({time.time() - t0:.1f} s)")
+        if dtypes != {"torch.float32"}:
+            raise RuntimeError(f"cli: exported UNet dtypes {dtypes}")
+        del sd, unet
+        shutil.rmtree(os.path.join(a, "unet"))
+
+        os.makedirs(b)
+        shutil.copytree(os.path.join(a, "checkpoint-2"), os.path.join(b, "checkpoint-2"))
+        run("B (checkpoint-2 resumed, steps 2-4)", b, "--resume_from_checkpoint", "latest")
+        shutil.rmtree(os.path.join(b, "unet"))
+        load = lambda d: torch.load(os.path.join(d, "checkpoint-4", "state", STATE_FILE),
+                                    map_location="cpu", weights_only=True)
+        data = [json.load(open(os.path.join(d, "checkpoint-4", "data_state.json")))
+                for d in (a, b)]
+        state_a = load(a)
+        diff = compare_states(state_a, load(b))
+        log(f"  cli resume: run B's checkpoint-4 against run A's: {diff}; data states {data}")
+        if (not diff["same_names"] or diff["count"] != (4, 4) or diff["step"] != (4, 4)
+                or data[0] != data[1] or data[0]["step"] != 4):
+            raise RuntimeError(f"cli resume: counts or data step differ: {diff}, {data}")
+        parts = ("masters", "exp_avg", "exp_avg_sq", "adamw_step")
+        if any(diff[k] for k in parts):
+            a2 = str(root / "a2")
+            run("A2 (straight again)", a2)
+            twice = compare_states(state_a, load(a2))
+            log(f"  cli resume: not bit-equal; two straight runs differ by {twice}")
+            worse = [k for k in parts if diff[k] > twice[k]]
+            if worse:
+                raise RuntimeError(f"cli resume: the resumed run differs more than two straight "
+                                   f"runs in {worse}: {diff} against {twice}")
+        else:
+            log("  cli resume: masters, both moments, counts, step and data step bit-equal")
+    finally:
+        cli.run_validation = original
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"  [{smi}] cli phase wall time {time.time() - t_phase:.1f} s")
+    return launches
 
 
 # the port's own kernels: the __global__ functions of csrc/*.cu, by their

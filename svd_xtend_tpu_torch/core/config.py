@@ -2,20 +2,44 @@
 
 A field-for-field copy of the configs of ``svd_xtend_tpu/core/config.py``
 (UNetConfig, VAEConfig, CLIPVisionConfig, SchedulerConfig, PipelineConfig,
-MeshConfig, TrainConfig and the TINY_* test configs). The port keeps
-its own copy because the JAX package's ``core/__init__.py`` imports modules
-that import jax; ``tests/test_torch_port_basics.py`` holds this copy equal
-to the JAX dataclasses. Defaults reproduce the SVD checkpoint config.
+MeshConfig, TrainConfig and the TINY_* test configs), with the JSON
+round trip of ``_JsonMixin`` (a checkpoint's ``config.json``, the exported
+UNet's). The port keeps its own copy because the JAX package's
+``core/__init__.py`` imports modules that import jax;
+``tests/test_torch_port_basics.py`` holds this copy equal to the JAX
+dataclasses. Defaults reproduce the SVD checkpoint config.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Optional, Tuple
 
 
+class _JsonMixin:
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2, sort_keys=True)
+
+    @classmethod
+    def from_dict(cls, d: dict):
+        names = {f.name for f in dataclasses.fields(cls)}
+        kwargs = {}
+        for k, v in d.items():
+            if k not in names:
+                continue
+            if isinstance(v, list):
+                v = tuple(tuple(x) if isinstance(x, list) else x for x in v)
+            kwargs[k] = v
+        return cls(**kwargs)
+
+    @classmethod
+    def from_json(cls, s: str):
+        return cls.from_dict(json.loads(s))
+
+
 @dataclasses.dataclass(frozen=True)
-class UNetConfig:
+class UNetConfig(_JsonMixin):
     """Spatio-temporal conditional UNet (SVD architecture)."""
 
     sample_size: int = 96
@@ -83,7 +107,7 @@ TINY_UNET = UNetConfig(
 
 
 @dataclasses.dataclass(frozen=True)
-class VAEConfig:
+class VAEConfig(_JsonMixin):
     """KL autoencoder: per-frame 2D encoder, temporal decoder."""
 
     in_channels: int = 3
@@ -105,7 +129,7 @@ TINY_VAE = VAEConfig(block_out_channels=(32, 64), layers_per_block=1)
 
 
 @dataclasses.dataclass(frozen=True)
-class CLIPVisionConfig:
+class CLIPVisionConfig(_JsonMixin):
     """CLIP ViT vision tower with projection (CLIP-ViT-H/14 defaults)."""
 
     image_size: int = 224
@@ -128,7 +152,7 @@ TINY_CLIP = CLIPVisionConfig(
 
 
 @dataclasses.dataclass(frozen=True)
-class SchedulerConfig:
+class SchedulerConfig(_JsonMixin):
     """EulerDiscreteScheduler in EDM/Karras mode."""
 
     num_train_timesteps: int = 1000
@@ -138,7 +162,7 @@ class SchedulerConfig:
 
 
 @dataclasses.dataclass(frozen=True)
-class PipelineConfig:
+class PipelineConfig(_JsonMixin):
     """Operating point of the img2vid pipeline.
 
     ``uncond_reuse_interval`` (the CFG cache) and ``deep_cache_interval`` /
@@ -165,7 +189,7 @@ class PipelineConfig:
 
 
 @dataclasses.dataclass(frozen=True)
-class MeshConfig:
+class MeshConfig(_JsonMixin):
     """Device-mesh layout. axis sizes of -1 mean "fill with what's left".
     Not used by the port yet (one card); kept so TrainConfig matches."""
 
@@ -175,7 +199,7 @@ class MeshConfig:
 
 
 @dataclasses.dataclass(frozen=True)
-class TrainConfig:
+class TrainConfig(_JsonMixin):
     """Training hyperparameters (the reference's flag surface).
 
     The port runs the default train step: the 'temporal', 'full' and
@@ -242,6 +266,13 @@ class TrainConfig:
     # performance
     remat_policy: str = "block"         # none|block|outer (models/unet.py)
     vae_encode_in_loop: bool = True
+
+    @classmethod
+    def from_dict(cls, d: dict):
+        d = dict(d)
+        if isinstance(d.get("mesh"), dict):
+            d["mesh"] = MeshConfig.from_dict(d["mesh"])
+        return super().from_dict(d)
 
     def check_ported(self) -> None:
         """Raise ValueError for an option the port does not run yet."""

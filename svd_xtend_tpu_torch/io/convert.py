@@ -220,13 +220,22 @@ def load_diffusers_checkpoint(root: str, models, components: Sequence[str] = ("u
     """Load a diffusers pipeline directory (``unet/``, ``vae/``,
     ``image_encoder/``; plain or shard-indexed safetensors) into `models`'
     networks in place, each with ``load_state_dict(strict=True)``, which
-    casts to the network's dtype and device. Returns `models`."""
+    casts to the network's dtype and device. The CLIP file may hold tensors
+    the tower does not (transformers before 4.31 saved the
+    ``position_ids`` buffer): they are dropped first, as the JAX package's
+    ``clip_transformers_to_flax`` reads only its template's keys; a missing
+    key still raises. The UNet and the VAE raise on an unused key, as
+    ``diffusers_to_flax`` does. Returns `models`."""
     unknown = set(components) - set(_COMPONENT_FILES)
     if unknown:
         raise ValueError(f"unknown components {sorted(unknown)}")
     for name in components:
         sub, filename = _COMPONENT_FILES[name]
         sd = load_component_state(os.path.join(root, sub), filename)
-        getattr(models, name).load_state_dict(sd, strict=True)
+        net = getattr(models, name)
+        if name == "clip":
+            held = net.state_dict().keys()
+            sd = {k: v for k, v in sd.items() if k in held}
+        net.load_state_dict(sd, strict=True)
         del sd
     return models

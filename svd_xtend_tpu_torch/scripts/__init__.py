@@ -8,6 +8,10 @@ card as ``python -m svd_xtend_tpu_torch.scripts.<name>``.
 - ``probe_int8_flash``: the dependent QKᵀ→PV chain in bf16 and in int8
   with dynamic quantisation;
 
+``probe_nvjpeg``, nvJPEG's decode of the frame fixture against libjpeg's
+(why the frame loader carries its own decoder for machines without
+libjpeg);
+
 ``bench_flash_forward``, the flash forward's device time at the UNet's
 shapes and the variants' per mode, for comparing builds of the kernels;
 ``bench_gemm_plans``, conv3x3's and GEGLU's device time under each launch

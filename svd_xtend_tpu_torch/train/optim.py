@@ -116,6 +116,17 @@ class ClippedAdamW:
         self.count += 1
         return lr, norm
 
+    def state_dict(self) -> dict:
+        """The update count and AdamW's state (its step and both moments
+        per parameter, by position in `params`)."""
+        return {"count": self.count, "adamw": self.adamw.state_dict()}
+
+    def load_state_dict(self, sd: dict) -> None:
+        """Restore what state_dict gave; AdamW moves the moments to the
+        parameters' devices."""
+        self.count = int(sd["count"])
+        self.adamw.load_state_dict(sd["adamw"])
+
 
 def make_optimizer(cfg: TrainConfig, params: List[torch.Tensor],
                    num_processes: int = 1) -> ClippedAdamW:

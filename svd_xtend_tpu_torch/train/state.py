@@ -87,6 +87,41 @@ class TrainState:
     ema_params: Optional[List[torch.Tensor]] = None   # full scope with use_ema
     lora: Optional[lora_lib.Adapter] = None           # 'lora' scope: `params`, by target
 
+    def state_dict(self) -> dict:
+        """Everything a resume needs, as a snapshot in CPU tensors (copies,
+        also of CPU tensors): the step, the f32 masters (in the 'lora' scope
+        the adapter's A and B, by peft key), the EMA copies and the
+        optimizer's state."""
+        snap = lambda t: t.detach().to("cpu", copy=True)
+        cpu = lambda ts: {n: snap(t) for n, t in zip(self.names, ts)}
+        opt = self.optimizer.state_dict()
+        adamw = {"param_groups": opt["adamw"]["param_groups"],
+                 "state": {i: {k: snap(v) for k, v in s.items()}
+                           for i, s in opt["adamw"]["state"].items()}}
+        return {"step": self.step, "params": cpu(self.params),
+                "ema_params": None if self.ema_params is None else cpu(self.ema_params),
+                "optimizer": {"count": opt["count"], "adamw": adamw}}
+
+    @torch.no_grad()
+    def load_state_dict(self, sd: dict) -> None:
+        """In place, onto this state's tensors and devices; raises where the
+        names, shapes or the EMA's presence differ. The networks' compute
+        copies are the caller's to refresh."""
+        if list(sd["params"]) != self.names:
+            raise ValueError("checkpoint holds other trainable tensors than this state")
+        if (sd["ema_params"] is None) != (self.ema_params is None):
+            raise ValueError("checkpoint and state differ in holding an EMA")
+        pairs = list(zip(self.params, sd["params"].values()))
+        if self.ema_params is not None:
+            pairs += zip(self.ema_params, sd["ema_params"].values())
+        for dst, src in pairs:
+            if dst.shape != src.shape:
+                raise ValueError(f"shape {tuple(src.shape)} in the checkpoint, "
+                                 f"{tuple(dst.shape)} in the state")
+            dst.copy_(src)
+        self.optimizer.load_state_dict(sd["optimizer"])
+        self.step = int(sd["step"])
+
 
 def create_train_state(cfg: TrainConfig, models: SVDModels,
                        generator: Optional[torch.Generator] = None) -> TrainState:

@@ -1078,3 +1078,72 @@ def test_lora_export_merge_and_generate_on_the_card(rn, tmp_path):
     rel = lambda a: ((a - ref).norm() / ref.norm()).item()
     assert got.shape == ref.shape and bool(torch.isfinite(got).all())
     assert rel(got) <= 1.5 * rel(plain) + 1e-3, (rel(got), rel(plain))
+
+
+# ------------------------------------------------- the training harness --
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the training harness on the card")
+    return torch.device("cuda")
+
+
+def test_native_loader_builds_into_the_build_directory(card):
+    from svd_xtend_tpu_torch import native
+    lib = native.library()
+    assert lib._name.startswith(str(native.BUILD_DIR) + "/")
+    assert native.decoder() in native.DECODERS
+    print("native frame loader:", native.version())
+
+
+def test_fixture_decode_matches_the_jax_loaders_output(card):
+    """The committed window through the port's native loader against the
+    JAX package's native output committed beside it: bit for bit, with
+    either decoder (libjpeg, or the built-in one where libjpeg is absent)."""
+    import numpy as np
+
+    from svd_xtend_tpu_torch import native
+    from svd_xtend_tpu_torch.data import make_fixtures as fx
+    ref = np.load(fx.REFERENCE)
+    got = native.load_clip(fx.reference_paths(), fx.REF_WIDTH, fx.REF_HEIGHT)
+    assert got is not None and got.shape == ref.shape
+    err = float(np.abs(got - ref).max())
+    print(f"decoder {native.decoder()}: max abs error {err:.3g}")
+    assert err == 0.0
+
+
+def test_tiny_cli_resume_on_the_card_is_bit_equal(card, tmp_path):
+    """The CLI on the card at the TINY configs over the committed frames: 4
+    straight steps against checkpoint-2 resumed to 4, the state file's
+    tensors and the data state bit for bit."""
+    import json
+    import os
+    import shutil
+
+    from svd_xtend_tpu_torch.data import make_fixtures as fx
+    from svd_xtend_tpu_torch.train import cli
+    from svd_xtend_tpu_torch.train.checkpoint import STATE_FILE
+
+    def argv(out, *extra):
+        return ["--base_folder", fx.FRAMES, "--tiny_model", "--width", "64", "--height", "32",
+                "--num_frames", "3", "--learning_rate", "1e-3", "--lr_warmup_steps", "0",
+                "--output_dir", out, "--checkpointing_steps", "2", "--validation_steps", "4",
+                "--num_inference_steps", "2", "--max_train_steps", "4", *extra]
+
+    a, b = str(tmp_path / "a"), str(tmp_path / "b")
+    cli.main(argv(a))
+    os.makedirs(b)
+    shutil.copytree(os.path.join(a, "checkpoint-2"), os.path.join(b, "checkpoint-2"))
+    cli.main(argv(b, "--resume_from_checkpoint", "latest"))
+    sa, sb = (torch.load(os.path.join(d, "checkpoint-4", "state", STATE_FILE),
+                         weights_only=True) for d in (a, b))
+    assert sa["step"] == sb["step"] == 4 and sa["optimizer"]["count"] == 4
+    for n, t in sa["params"].items():
+        assert torch.equal(t, sb["params"][n]), n
+    for i, s in sa["optimizer"]["adamw"]["state"].items():
+        for k, v in s.items():
+            assert torch.equal(v, sb["optimizer"]["adamw"]["state"][i][k]), (i, k)
+    for d in (a, b):
+        with open(os.path.join(d, "checkpoint-4", "data_state.json")) as f:
+            assert json.load(f)["step"] == 4

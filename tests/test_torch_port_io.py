@@ -183,6 +183,43 @@ def test_load_diffusers_checkpoint_raises_on_a_missing_tensor(pipeline, tmp_path
         tconv.load_component_state(str(root / "vae"), UNET_FILE)
 
 
+def _clip_file_edited(pipeline, root, edit):
+    """A copy of the plain pipeline directory whose CLIP file `edit` changed."""
+    shutil.copytree(pipeline["plain"], root)
+    path = str(root / "image_encoder" / "model.safetensors")
+    sd = st.load_file(path)
+    edit(sd)
+    st.save_file(sd, path)
+    return str(root)
+
+
+def test_clip_file_with_a_key_the_tower_lacks_loads_in_both(pipeline, tmp_path):
+    """A CLIP file that also holds ``vision_model.embeddings.position_ids``
+    (transformers before 4.31 saved the buffer): the JAX loader reads only
+    its template's keys and the port drops the extra one; both load the
+    tower's weights, equal to each other."""
+    extra = lambda sd: sd.update({"vision_model.embeddings.position_ids":
+                                  torch.arange(5, dtype=torch.int64)[None]})
+    root = _clip_file_edited(pipeline, tmp_path / "pipe", extra)
+    models = tconv.load_diffusers_checkpoint(root, _port_models(), components=("clip",))
+    jparams = jconv.load_diffusers_checkpoint(root, pipeline["params"], components=("clip",),
+                                              clip_patch_size=jcfg.TINY_CLIP.patch_size)
+    want = tconv.clip_state_dict(jconv.flatten(jax.device_get(jparams["clip"])),
+                                 jcfg.TINY_CLIP.patch_size)
+    _equal(models.clip.state_dict(), want)
+    _equal(models.clip.state_dict(), pipeline["want"]["clip"])
+
+
+def test_clip_file_missing_a_tower_key_raises_in_both(pipeline, tmp_path):
+    drop = lambda sd: sd.pop("vision_model.post_layernorm.weight")
+    root = _clip_file_edited(pipeline, tmp_path / "pipe", drop)
+    with pytest.raises(RuntimeError, match="Missing key"):
+        tconv.load_diffusers_checkpoint(root, _port_models(), components=("clip",))
+    with pytest.raises(ValueError, match="missing CLIP key"):
+        jconv.load_diffusers_checkpoint(root, pipeline["params"], components=("clip",),
+                                        clip_patch_size=jcfg.TINY_CLIP.patch_size)
+
+
 # ------------------------------------------------------------------ LoRA --
 
 def _jax_lora(params, seed=5):
