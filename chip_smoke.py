@@ -140,6 +140,39 @@ Phases, each of which raises on failure (non-zero exit):
      metrics.jsonl, the loader's host s per batch and the time next()
      blocked, checkpoint bytes and save/restore s, validation s, peak
      memory and the val/* metrics, beside the card's name and power limit.
+  6d. tracklet (Tracklet2Video, models/tracklet.py): the flash forward at
+     the gated attention's (S_q, S_kv) = (S, S + 16 box tokens) of the four
+     UNet levels at batches 28 and 14, then with its LSE and the backward
+     pair at the 'tracklet' step's batch 14, each against its plain version
+     with device ms beside SDPA's; the full-width UNet with the branch at
+     gate 0.5 and 16 boxes against the host f32 UNet (output rel-L2 <= 5e-2;
+     the branch gradient < 0.1 and <= 1.25x the bf16 plain path's); at
+     gate 0 the exact video with 16 boxes equal to the branch-free video bit
+     for bit; at gate 0.5 the exact, k3 and n3+k3 videos with boxes (warm-up
+     + 3 timed each): the flash forward's calls by (batch, S_q, S_kv) held to
+     the schedule x sites.flash_calls_per_pass, every other kernel's
+     launches equal to the same mode's without boxes, s/video and peak; the
+     'tracklet' step (warm-up + 3 timed) held to the site tables like the
+     temporal step (the backward pair to FLASH_BWD_SITES['tracklet']), the
+     flash forward twice the temporal step's, every other launch equal,
+     the branch's masters changed and every other weight bit-identical;
+     then ``train.cli --train_mode tracklet`` for 2 steps over the committed
+     frames with a seeded boxes.npz per video: launches per step equal the
+     tracklet step's, params_train.txt the branch, tracklet_weights.safetensors
+     in the JAX package's flat paths mapping onto a tracklet UNet's branch.
+  6e. infer: every kernel at its 1024x576 L0 shape and the VAE's against its
+     plain version with device ms; then ``python -m
+     svd_xtend_tpu_torch.scripts.infer_svd`` (through runpy, in process) at
+     its defaults (1024x576, 14 frames, 30 steps) on a committed frame with
+     16 --boxes, a random-weight pipeline directory, a LoRA file and a
+     tracklet file written by the port's exporters: the flash forward's calls
+     held to 30 CFG passes x flash_calls_per_pass(576, 1024, 16), the mp4
+     and the GIF of 14 frames, the video finite; s/video, the entry point's
+     wall time, peak.
+  6f. optim8: one warm-up and one timed full-scope step with use_8bit_adam,
+     then with grad_dtype="bf16" (s/step, peak, the moments' bytes), and
+     the 8-bit AdamW on the card against the CPU for 3 steps on a mixed tree:
+     the int8 codes apart in at most 1e-4 of the values, each by one.
   7. mha (the head-major attention entry point, ops/attention.py::mha, as a
      caller outside the UNet uses it): the UNet's L0 self-attention shape,
      (2x14, 2560, 320) in 5 heads of 64, through the BSHD flash kernel: its
@@ -184,7 +217,7 @@ from svd_xtend_tpu_torch.scripts import card, cuda_ms, graph_ms
 from svd_xtend_tpu_torch.scripts.sites import (FLASH_BWD_SITES, GEGLU_SHAPES, GN_SITES,
                                                TRESNET_SITES, UNET_CONV_SITES,
                                                UNET_DGRAD_SITES, VAE_DECODE_SITES,
-                                               VAE_ENCODE_SITES)
+                                               VAE_ENCODE_SITES, flash_calls_per_pass)
 
 SEED = 0
 # rel-L2 bound of the bf16 card UNet against the f32 host UNet: bf16 rounds
@@ -242,25 +275,27 @@ class KernelPhase:
     def __init__(self):
         self.err = {}
         self.times = {}
-        self.bwd_ms = {}    # tokens S -> device (dQ ms, dK/dV ms) at the train step's shape
-        # path ("generate": no LSE, "train": with it) -> {(batch, tokens S): forward device ms}
+        self.bwd_ms = {}    # (S_q, S_kv) -> device (dQ ms, dK/dV ms) at the train step's batch
+        # path ("generate": no LSE, "train": with it) -> {(batch, S_q, S_kv): forward device ms}
         self.fwd_ms = {"generate": {}, "train": {}}
         self.geglu_ms = {}      # (T, C) -> device ms per launch
         self.tresnet_ms = {}    # x's shape (B, F, S, C) -> device (conv_a ms, conv_b ms)
         self.frame_ms = {}      # q's shape (B, F, S, H*64) -> frame attention device ms
         self.gn_ms = {}         # (x's shape, silu) -> group_norm_silu device ms
 
-    def forward_level(self, path, b, s, h, run, sdpa, moved):
-        """The flash forward at one (batch, tokens, heads): host loop and
-        device time in a CUDA graph beside SDPA's device time and the bound;
-        the device time prices the path's launches at that shape."""
-        flops = 4 * b * h * s * s * 64
+    def forward_level(self, path, b, s, h, run, sdpa, moved, t=None):
+        """The flash forward at one (batch, queries S, keys t (S by
+        default), heads): host loop and device time in a CUDA graph beside
+        SDPA's device time and the bound; the device time prices the path's
+        launches at that shape."""
+        t = s if t is None else t
+        flops = 4 * b * h * s * t * 64
         host, dev_ms, sdpa_ms = cuda_ms(run), graph_ms(run), graph_ms(sdpa)
         b_ms, b_by = bound_ms(flops, moved)
-        self.fwd_ms[path][(b, s)] = dev_ms
-        if (path, b, s) == ("generate", 28, 2560):     # the kernels line's shape
+        self.fwd_ms[path][(b, s, t)] = dev_ms
+        if (path, b, s, t) == ("generate", 28, 2560, 2560):     # the kernels line's shape
             self.times["flash_attention_fwd"]["device_ms"] = dev_ms
-        log(f"  flash forward {path} {(b, s, h * 64)} heads {h}: {host:.4f} ms, device "
+        log(f"  flash forward {path} {(b, s, h * 64)} keys {t} heads {h}: {host:.4f} ms, device "
             f"{dev_ms:.4f} ms ({flops / dev_ms / 1e9:.1f} TFLOP/s), SDPA device {sdpa_ms:.4f} "
             f"ms; bound {b_ms:.4f} ms ({b_by}), {100 * b_ms / dev_ms:.1f} % of it")
 
@@ -667,66 +702,79 @@ def kernel_phases(dev) -> KernelPhase:
 
     log("kernels: flash attention forward with LSE and backward (training batch 14 frames)")
     for b, s_len, h in [(14, 2560, 5), (14, 640, 10), (14, 160, 20), (14, 40, 20)]:
-        q, k, v, do = (rn(b, s_len, h * 64) for _ in range(4))
-        o, lse = fa.flash_attention_fwd(q, k, v, h, 0.125)
-        ref_o, ref_lse = fa.flash_attention_fwd_reference(q, k, v, h, 0.125)
-        ph.check("flash_attention_fwd", o, ref_o, f"{(b, s_len, h * 64)} heads {h}")
-        lerr = (lse - ref_lse).abs().max().item()
-        log(f"  flash LSE {(b, s_len, h)}: max_abs_err {lerr:.3g} (bound {LSE_ATOL})")
-        if not bool(torch.isfinite(lse).all()) or lerr > LSE_ATOL:
-            raise RuntimeError(f"flash LSE error {lerr}")
-        heads = lambda a: a.view(b, s_len, h, 64).transpose(1, 2)
-        ph.forward_level("train", b, s_len, h, lambda: fa.flash_attention_fwd(q, k, v, h, 0.125),
-                         lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v),
-                                                                scale=0.125),
-                         nbytes(q, k, v, q, lse))
-        delta = fa.attention_delta(o, do, h)
-        dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, h, 0.125)
-        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, h, 0.125)
-        plain_fn = lambda q, k, v: fa.flash_attention_packed_reference(q, k, v, num_heads=h,
-                                                                       scale=0.125)
-        grads = []
-        for inputs, dout in (((q, k, v), do),
-                             ((q.float(), k.float(), v.float()), do.float())):
-            leaves = [x.detach().requires_grad_(True) for x in inputs]
-            grads.append(torch.autograd.grad(plain_fn(*leaves), leaves, dout))
-        (pq, pk, pv), (rq, rk, rv) = grads
-        label = f"{(b, s_len, h * 64)} heads {h}"
-        ph.check_grad("flash_attention_bwd_dq", dq, pq, rq, label + " dQ")
-        ph.check_grad("flash_attention_bwd_dkv", dk, pk, rk, label + " dK")
-        ph.check_grad("flash_attention_bwd_dkv", dv, pv, rv, label + " dV")
-        del grads, pq, pk, pv, rq, rk, rv
-        run_dq = lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, h, 0.125)
-        run_dkv = lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, h, 0.125)
-        mm = 2 * b * h * s_len * s_len * 64     # one product's FLOPs
-        stats = 2 * b * h * s_len * 4           # LSE and delta, f32
-        work = {"dQ": (3, nbytes(q, k, v, do, q) + stats),
-                "dK/dV": (4, nbytes(q, k, v, do, k, v) + stats)}
-        if s_len == 2560:
-            plain_bwd = lambda: fa.flash_attention_bwd_reference(q, k, v, o, lse, do, h, 0.125)
-            sq, sk, sv = (heads(a).detach().requires_grad_(True) for a in (q, k, v))
-            sdpa_out = F.scaled_dot_product_attention(sq, sk, sv, scale=0.125)
-            sdpa_bwd = lambda: torch.autograd.grad(sdpa_out, (sq, sk, sv), heads(do),
-                                                   retain_graph=True)
-            for name, run, (n_mm, moved) in (("flash_attention_bwd_dq", run_dq, work["dQ"]),
-                                             ("flash_attention_bwd_dkv", run_dkv,
-                                              work["dK/dV"])):
-                ph.time(name, run, plain_bwd, n_mm * mm, moved, sdpa_bwd, "SDPA backward")
-            log("    (plain and library ms of both backward kernels compute dQ, dK and "
-                "dV together)")
-            ms = (ph.times["flash_attention_bwd_dq"]["ms"],
-                  ph.times["flash_attention_bwd_dkv"]["ms"])
-            del sq, sk, sv, sdpa_out
-        else:
-            ms = (cuda_ms(run_dq), cuda_ms(run_dkv))
-        ph.bwd_ms[s_len] = (graph_ms(run_dq), graph_ms(run_dkv))
-        for (name, (n_mm, moved)), k_ms, d_ms in zip(work.items(), ms, ph.bwd_ms[s_len]):
-            b_ms, b_by = bound_ms(n_mm * mm, moved)
-            log(f"  flash backward {name} {label}: {k_ms:.4f} ms, device {d_ms:.4f} ms; "
-                f"{n_mm * mm / d_ms / 1e9:.1f} TFLOP/s executed on its {n_mm} products "
-                f"(device); bound {b_ms:.4f} ms ({b_by}), {100 * b_ms / d_ms:.1f} % of it")
-        del q, k, v, do, o, ref_o, dq, dk, dv
+        flash_train_level(ph, rn, b, s_len, h)
     return ph
+
+
+def flash_train_level(ph: KernelPhase, rn, b, s_len, h, t=None):
+    """The flash forward with its LSE and the backward pair at the train
+    step's (batch, queries S, keys t (S by default), heads): each against its
+    plain version, the forward's device time, the pair's host and device
+    times beside the bound; at the L0 self-attention also the JSON line's
+    kernel, plain and library (SDPA) ms."""
+    from svd_xtend_tpu_torch.ops.kernels import flash_attention as fa
+
+    t = s_len if t is None else t
+    q, do = rn(b, s_len, h * 64), rn(b, s_len, h * 64)
+    k, v = rn(b, t, h * 64), rn(b, t, h * 64)
+    o, lse = fa.flash_attention_fwd(q, k, v, h, 0.125)
+    ref_o, ref_lse = fa.flash_attention_fwd_reference(q, k, v, h, 0.125)
+    label = f"{(b, s_len, h * 64)} keys {t} heads {h}"
+    ph.check("flash_attention_fwd", o, ref_o, label)
+    lerr = (lse - ref_lse).abs().max().item()
+    log(f"  flash LSE {(b, s_len, t, h)}: max_abs_err {lerr:.3g} (bound {LSE_ATOL})")
+    if not bool(torch.isfinite(lse).all()) or lerr > LSE_ATOL:
+        raise RuntimeError(f"flash LSE error {lerr}")
+    heads = lambda a: a.view(b, a.shape[1], h, 64).transpose(1, 2)
+    ph.forward_level("train", b, s_len, h, lambda: fa.flash_attention_fwd(q, k, v, h, 0.125),
+                     lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v),
+                                                            scale=0.125),
+                     nbytes(q, k, v, q, lse), t)
+    delta = fa.attention_delta(o, do, h)
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, h, 0.125)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, h, 0.125)
+    plain_fn = lambda q, k, v: fa.flash_attention_packed_reference(q, k, v, num_heads=h,
+                                                                   scale=0.125)
+    grads = []
+    for inputs, dout in (((q, k, v), do),
+                         ((q.float(), k.float(), v.float()), do.float())):
+        leaves = [x.detach().requires_grad_(True) for x in inputs]
+        grads.append(torch.autograd.grad(plain_fn(*leaves), leaves, dout))
+    (pq, pk, pv), (rq, rk, rv) = grads
+    ph.check_grad("flash_attention_bwd_dq", dq, pq, rq, label + " dQ")
+    ph.check_grad("flash_attention_bwd_dkv", dk, pk, rk, label + " dK")
+    ph.check_grad("flash_attention_bwd_dkv", dv, pv, rv, label + " dV")
+    del grads, pq, pk, pv, rq, rk, rv
+    run_dq = lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, h, 0.125)
+    run_dkv = lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, h, 0.125)
+    mm = 2 * b * h * s_len * t * 64         # one product's FLOPs
+    stats = 2 * b * h * s_len * 4           # LSE and delta, f32
+    work = {"dQ": (3, nbytes(q, k, v, do, q) + stats),
+            "dK/dV": (4, nbytes(q, k, v, do, k, v) + stats)}
+    if (s_len, t) == (2560, 2560):
+        plain_bwd = lambda: fa.flash_attention_bwd_reference(q, k, v, o, lse, do, h, 0.125)
+        sq, sk, sv = (heads(a).detach().requires_grad_(True) for a in (q, k, v))
+        sdpa_out = F.scaled_dot_product_attention(sq, sk, sv, scale=0.125)
+        sdpa_bwd = lambda: torch.autograd.grad(sdpa_out, (sq, sk, sv), heads(do),
+                                               retain_graph=True)
+        for name, run, (n_mm, moved) in (("flash_attention_bwd_dq", run_dq, work["dQ"]),
+                                         ("flash_attention_bwd_dkv", run_dkv,
+                                          work["dK/dV"])):
+            ph.time(name, run, plain_bwd, n_mm * mm, moved, sdpa_bwd, "SDPA backward")
+        log("    (plain and library ms of both backward kernels compute dQ, dK and "
+            "dV together)")
+        ms = (ph.times["flash_attention_bwd_dq"]["ms"],
+              ph.times["flash_attention_bwd_dkv"]["ms"])
+        del sq, sk, sv, sdpa_out
+    else:
+        ms = (cuda_ms(run_dq), cuda_ms(run_dkv))
+    ph.bwd_ms[(s_len, t)] = (graph_ms(run_dq), graph_ms(run_dkv))
+    for (name, (n_mm, moved)), k_ms, d_ms in zip(work.items(), ms, ph.bwd_ms[(s_len, t)]):
+        b_ms, b_by = bound_ms(n_mm * mm, moved)
+        log(f"  flash backward {name} {label}: {k_ms:.4f} ms, device {d_ms:.4f} ms; "
+            f"{n_mm * mm / d_ms / 1e9:.1f} TFLOP/s executed on its {n_mm} products "
+            f"(device); bound {b_ms:.4f} ms ({b_by}), {100 * b_ms / d_ms:.1f} % of it")
+    del q, k, v, do, o, ref_o, dq, dk, dv
 
 
 def conv_phase(dev, ph: KernelPhase, smi: str):
@@ -1133,6 +1181,34 @@ def main() -> int:
     cli_launches = cli_phase(dev, smi, counters, gen_launches["generate"], train_launches)
     torch.cuda.empty_cache()
 
+    log("tracklet: the gated attention's flash kernels at (S, S + 16), the full-width "
+        "tracklet UNet against host f32, generate with boxes (gate 0 bit-equal; exact, k3, "
+        "n3+k3), the 'tracklet' step and the CLI's --train_mode tracklet")
+    tracklet_kernel_phase(dev, ph)
+    torch.cuda.empty_cache()
+    tracklet_unet_phase(dev)
+    torch.cuda.empty_cache()
+    tracklet_launches = tracklet_video_phase(dev, smi, counters, ph, gen_launches)
+    torch.cuda.empty_cache()
+    tracklet_launches["tracklet_step"] = tracklet_train_phase(dev, smi, counters, ph, conv_sums,
+                                                              train_launches)
+    torch.cuda.empty_cache()
+    tracklet_launches["tracklet_cli"] = tracklet_cli_phase(dev, smi, counters,
+                                                           tracklet_launches["tracklet_step"])
+    torch.cuda.empty_cache()
+
+    log("infer: the kernels at 1024x576, then python -m svd_xtend_tpu_torch.scripts.infer_svd "
+        "at its defaults with boxes, a LoRA file and a tracklet file")
+    infer_kernel_phase(dev, ph)
+    torch.cuda.empty_cache()
+    infer_launches = infer_phase(dev, smi, counters)
+    torch.cuda.empty_cache()
+
+    log("optim8: full-scope steps with 8-bit AdamW and with bf16 gradients; int8 codes on the "
+        "card against the CPU")
+    optim8_launches = optim8_phase(dev, smi, counters)
+    torch.cuda.empty_cache()
+
     log("mha: the head-major attention entry point at the UNet's L0 shape")
     mha_launches = mha_phase(dev, counters)
     torch.cuda.empty_cache()
@@ -1140,8 +1216,8 @@ def main() -> int:
     log("probes: the three probe scripts at their shapes")
     probe_launches = probes_phase(counters)
     by_path = {**gen_launches, "train": train_launches, "lora": lora_launches,
-               "cli": cli_launches,
-               "mha": mha_launches, "probes": probe_launches}
+               "cli": cli_launches, **tracklet_launches, "infer": infer_launches,
+               "optim8": optim8_launches, "mha": mha_launches, "probes": probe_launches}
 
     sources = {
         "flash_attention_fwd": ("cuda", "svd_xtend_tpu_torch/csrc/flash_attention.cu",
@@ -1313,7 +1389,7 @@ def check_sites(path, tally, runs, col):
 
 
 def forward_per_run(path, by_shape, runs, launches, fwd_ms, smi, unit):
-    """The flash forward's launches per run by (batch, tokens S), from a
+    """The flash forward's launches per run by (batch, S_q, S_kv), from a
     tally over `runs` runs, held against the last run's launch count, and
     their sum of launches x the kernel phase's device ms at each shape."""
     per_run = {shape: n / runs for shape, n in sorted(by_shape.items(), reverse=True)}
@@ -1323,7 +1399,7 @@ def forward_per_run(path, by_shape, runs, launches, fwd_ms, smi, unit):
     if missing:
         raise RuntimeError(f"{path}: no device time for the forward at {missing}")
     ms = sum(n * fwd_ms[shape] for shape, n in per_run.items())
-    log(f"  {path}: flash_attention_fwd launches per {unit} by (batch, tokens S): {per_run}")
+    log(f"  {path}: flash_attention_fwd launches per {unit} by (batch, S_q, S_kv): {per_run}")
     log(f"  [{smi}] {path}: flash forward, launches x the kernel phase's device ms: "
         f"{ms:.3f} ms per {unit}")
     return ms
@@ -1368,7 +1444,7 @@ def generate_phase(dev, smi, counters, ph: KernelPhase):
         log(f"  {path}: warm-up video {time.time() - t0:.2f} s")
 
         timed, new_segments = [], []
-        with calls_by(fa, "flash_attention_fwd", BATCH_AND_TOKENS) as by_shape, \
+        with calls_by(fa, "flash_attention_fwd", BATCH_AND_LENGTHS) as by_shape, \
                 calls_by(gg, "ln_geglu_residual", GEGLU_KEY) as geglu_by_shape, \
                 calls_by(tr, "conv_a", SHAPE) as conv_a_by_shape, \
                 calls_by(tr, "conv_b", SHAPE) as conv_b_by_shape, \
@@ -1471,7 +1547,7 @@ def mha_phase(dev, counters):
 
 class _Tally:
     """Stands in for a module's function while counting its calls by a key
-    of their first argument (and keyword arguments); reads and writes of its attributes (the launch
+    of their arguments; reads and writes of its attributes (the launch
     counter the function keeps on itself) go to the function."""
 
     def __init__(self, fn, key, tally):
@@ -1480,7 +1556,7 @@ class _Tally:
         object.__setattr__(self, "_tally", tally)
 
     def __call__(self, first, *args, **kwargs):
-        self._tally[self._key(first, **kwargs)] += 1
+        self._tally[self._key(first, *args, **kwargs)] += 1
         return self._fn(first, *args, **kwargs)
 
     def __getattr__(self, name):
@@ -1492,9 +1568,9 @@ class _Tally:
 
 @contextlib.contextmanager
 def calls_by(module, name, key):
-    """While active, tallies the calls of `module.name` by key(first
-    argument, **keyword arguments). The tally stands in for the module's global, which its
-    callers (and the function itself) look up at each call."""
+    """While active, tallies the calls of `module.name` by key(*arguments,
+    **keyword arguments). The tally stands in for the module's global, which
+    its callers (and the function itself) look up at each call."""
     tally = collections.Counter()
     original = getattr(module, name)
     setattr(module, name, _Tally(original, key, tally))
@@ -1504,11 +1580,12 @@ def calls_by(module, name, key):
         setattr(module, name, original)
 
 
-BATCH_AND_TOKENS = lambda q, **_: tuple(q.shape[:2])     # a flash call's (batch, tokens S)
-TOKENS = lambda q, **_: q.shape[1]                       # its tokens S
-GEGLU_KEY = lambda x, **_: (x.numel() // x.shape[-1], x.shape[-1])   # GEGLU's (T, C)
-SHAPE = lambda x, **_: tuple(x.shape)
-GN_KEY = lambda x, silu=True, **_: (tuple(x.shape), silu)      # a GroupNorm site
+# a flash call's (batch, queries S_q, keys S_kv), and its (S_q, S_kv)
+BATCH_AND_LENGTHS = lambda q, k, *_, **__: (q.shape[0], q.shape[1], k.shape[1])
+LENGTHS = lambda q, k, *_, **__: (q.shape[1], k.shape[1])
+GEGLU_KEY = lambda x, *_, **__: (x.numel() // x.shape[-1], x.shape[-1])   # GEGLU's (T, C)
+SHAPE = lambda x, *_, **__: tuple(x.shape)
+GN_KEY = lambda x, *_, silu=True, **__: (tuple(x.shape), silu)      # a GroupNorm site
 
 
 def price(what, tally, runs, ms, smi, unit):
@@ -1552,8 +1629,8 @@ def timed_steps(path, scope, step, state, batch, draws, counters, ph: KernelPhas
     torch.cuda.reset_peak_memory_stats()
     metrics, secs = [], []
     # every flash_attention_bwd call launches the dQ and the dK/dV kernel once
-    with calls_by(fa, "flash_attention_bwd", TOKENS) as by_len, \
-            calls_by(fa, "flash_attention_fwd", BATCH_AND_TOKENS) as fwd_by_shape, \
+    with calls_by(fa, "flash_attention_bwd", LENGTHS) as by_len, \
+            calls_by(fa, "flash_attention_fwd", BATCH_AND_LENGTHS) as fwd_by_shape, \
             calls_by(gg, "ln_geglu_residual", GEGLU_KEY) as geglu_by_shape, \
             calls_by(tr, "conv_a", SHAPE) as conv_a_by_shape, \
             calls_by(ta, "frame_attention", SHAPE) as frame_by_shape, \
@@ -1588,9 +1665,9 @@ def timed_steps(path, scope, step, state, batch, draws, counters, ph: KernelPhas
     check_sites(path, gn_by_site, TRAIN_STEPS, 4)
     priced["group_norm_silu"] = price(f"{path}: group_norm_silu", gn_by_site, TRAIN_STEPS,
                                       ph.gn_ms, smi, "step")
-    per_step = {s_len: n / TRAIN_STEPS for s_len, n in sorted(by_len.items(), reverse=True)}
+    per_step = {key: n / TRAIN_STEPS for key, n in sorted(by_len.items(), reverse=True)}
     want = FLASH_BWD_SITES[scope]
-    log(f"  {path}: flash_attention_bwd calls per step by tokens S {per_step}; the UNet's "
+    log(f"  {path}: flash_attention_bwd calls per step by (S_q, S_kv) {per_step}; the UNet's "
         f"structure gives {want} ({sum(want.values())} a step)")
     if per_step != want:
         raise RuntimeError(f"{path}: flash backward calls per step {per_step}, the UNet's "
@@ -1599,11 +1676,11 @@ def timed_steps(path, scope, step, state, batch, draws, counters, ph: KernelPhas
         if sum(by_len.values()) != launches[name]:
             raise RuntimeError(f"{name}: {launches[name]} launches, {sum(by_len.values())} "
                                "backward calls")
-        ms = sum(n * ph.bwd_ms[s_len][i] for s_len, n in per_step.items())
-        log(f"  {path}: {name} launches per step by tokens S: {per_step}; x the kernel "
-            f"phase's device ms at each S = {ms:.3f} ms per step")
-    priced["flash backward pair"] = sum(n * sum(ph.bwd_ms[s_len])
-                                        for s_len, n in per_step.items())
+        ms = sum(n * ph.bwd_ms[key][i] for key, n in per_step.items())
+        log(f"  {path}: {name} launches per step by (S_q, S_kv): {per_step}; x the kernel "
+            f"phase's device ms at each = {ms:.3f} ms per step")
+    priced["flash backward pair"] = sum(n * sum(ph.bwd_ms[key])
+                                        for key, n in per_step.items())
     log(f"  [{smi}] {path}: flash backward pair, kernel time per step: "
         f"{priced['flash backward pair']:.3f} ms")
     want = train_conv_launches(cfg)
@@ -2083,6 +2160,681 @@ def cli_phase(dev, smi, counters, exact_launches, train_launches):
         shutil.rmtree(root, ignore_errors=True)
     log(f"  [{smi}] cli phase wall time {time.time() - t_phase:.1f} s")
     return launches
+
+
+# ---------------------------------------------------- the Tracklet2Video paths --
+
+TRACKLET_DIM, TRACKLET_HEADS, TRACKLET_BOXES = 1024, 8, 16
+# the gate of the UNet, gradient, train-step and infer checks: at 0 the
+# branch is a no-op and its tokenizer's and enhancer's gradients are exactly
+# zero (docs/TRACKLET.md, "Gradient flow note")
+TRACKLET_GATE = 0.5
+TRACKLET_CLI_STEPS = 2
+
+
+def seeded_boxes(gen, b, f, n, device):
+    """(b, f, n, 4) boxes in [0, 1] with x1 < x2 and y1 < y2, and a mask with
+    about a quarter of the slots empty; f32."""
+    a = torch.rand(b, f, n, 4, generator=gen, device=gen.device).to(device)
+    boxes = torch.cat([torch.minimum(a[..., :2], a[..., 2:]),
+                       torch.maximum(a[..., :2], a[..., 2:])], dim=-1)
+    mask = (torch.rand(b, f, n, generator=gen, device=gen.device) > 0.25).float().to(device)
+    return boxes, mask
+
+
+def gated_levels(height, width):
+    """[((S_q, S_kv), heads)] of the gated attention at the UNet's four
+    levels of a (height, width) video with TRACKLET_BOXES box tokens."""
+    from svd_xtend_tpu_torch.core.config import UNetConfig
+    keys = [k for k in flash_calls_per_pass(height, width, TRACKLET_BOXES) if k[0] != k[1]]
+    return list(zip(keys, UNetConfig().num_attention_heads))
+
+
+def tracklet_kernel_phase(dev, ph: KernelPhase):
+    """The flash forward at the gated attention's (S, S + 16) at generate's
+    batches 28 and 14, then with its LSE and the backward pair at the
+    'tracklet' step's batch 14: each against its plain version, device ms
+    beside SDPA's and the bound."""
+    from svd_xtend_tpu_torch.ops.kernels import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 20)
+    rn = lambda *s, sc=1.0: (torch.randn(*s, device=dev, generator=g) * sc).to(torch.bfloat16)
+    log("  gated attention forward: queries S against S + 16 box tokens, batch 28 and 14")
+    for (s, t), h in gated_levels(320, 512):
+        for b in (28, 14):
+            q, k, v = rn(b, s, h * 64), rn(b, t, h * 64), rn(b, t, h * 64)
+            run = lambda: fa.flash_attention_packed(q, k, v, num_heads=h, scale=0.125)
+            ph.check("flash_attention_fwd", run(),
+                     fa.flash_attention_packed_reference(q, k, v, num_heads=h, scale=0.125),
+                     f"{(b, s, h * 64)} keys {t} heads {h}")
+            heads = lambda a: a.view(b, a.shape[1], h, 64).transpose(1, 2)
+            sdpa = lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v),
+                                                          scale=0.125)
+            ph.forward_level("generate", b, s, h, run, sdpa, nbytes(q, k, v, q), t)
+            del q, k, v
+    log("  gated attention forward with LSE and the backward pair, the 'tracklet' step's "
+        "batch 14")
+    for (s, t), h in gated_levels(320, 512):
+        flash_train_level(ph, rn, 14, s, h, t)
+
+
+def tracklet_unet_phase(dev):
+    """The full-width UNet with the branch at gate TRACKLET_GATE and 16
+    boxes, on a 2-frame 16x16 latent: the card's bf16 output against the
+    host f32 UNet's from the same weights, then the gradient of
+    edm_denoising_loss with respect to the branch (remat "block") against
+    the host f32 one and the card's bf16 plain path's."""
+    import dataclasses
+
+    from svd_xtend_tpu_torch.core.config import TrainConfig, UNetConfig
+    from svd_xtend_tpu_torch.diffusion.pipeline import SVDModels, init_random_
+    from svd_xtend_tpu_torch.diffusion.training import TrainBatchEncodings, edm_denoising_loss
+    from svd_xtend_tpu_torch.models.unet import UNetSpatioTemporalConditionModel
+    from svd_xtend_tpu_torch.ops.kernels.dispatch import plain_versions
+    from svd_xtend_tpu_torch.train.state import trainable_mask
+
+    cfg = dataclasses.replace(UNetConfig(), tracklet_dim=TRACKLET_DIM,
+                              tracklet_heads=TRACKLET_HEADS, tracklet_gate_init=TRACKLET_GATE)
+    with torch.device(dev):
+        gpu = UNetSpatioTemporalConditionModel(cfg)
+    init_random_(gpu, torch.Generator(device=dev).manual_seed(SEED + 21))
+    with torch.device("meta"):
+        cpu = UNetSpatioTemporalConditionModel(cfg)
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()}, strict=True,
+                        assign=True)
+    gpu, cpu = gpu.to(torch.bfloat16).eval(), cpu.eval()
+    in_branch = trainable_mask(cpu, "tracklet")
+    n_branch = sum(p.numel() for n, p in cpu.named_parameters() if in_branch[n])
+    gen = torch.Generator().manual_seed(SEED + 22)
+    sample = torch.randn(1, 2, 16, 16, cfg.in_channels, generator=gen)
+    ehs = torch.randn(1, 1, cfg.cross_attention_dim, generator=gen)
+    ids = torch.tensor([[6.0, 127.0, 0.02]])
+    t = torch.tensor(0.25 * math.log(10.0))
+    boxes, mask = seeded_boxes(gen, 1, 2, TRACKLET_BOXES, "cpu")
+    on = lambda *xs: [x.to(dev) for x in xs]
+    with torch.no_grad():
+        got = gpu(*on(sample), t, *on(ehs, ids), boxes=boxes.to(dev),
+                  box_mask=mask.to(dev)).float().cpu()
+        t0 = time.time()
+        ref = cpu(sample, t, ehs, ids, boxes=boxes, box_mask=mask)
+        log(f"  host f32 tracklet UNet forward {time.time() - t0:.1f} s")
+    rel = ((got - ref).norm() / ref.norm()).item()
+    log(f"  full-width tracklet UNet ({n_branch} branch values, gate {TRACKLET_GATE}, "
+        f"{TRACKLET_BOXES} boxes) on (1, 2, 16, 16, 8): rel_l2 {rel:.4g} (bound "
+        f"{UNET_REL_L2_BOUND}) max_abs {(got - ref).abs().max().item():.4g}")
+    if not bool(torch.isfinite(got).all()) or rel > UNET_REL_L2_BOUND:
+        raise RuntimeError(f"tracklet UNet: rel_l2 {rel} above {UNET_REL_L2_BOUND}")
+
+    enc = TrainBatchEncodings(latents=torch.randn(1, 2, 16, 16, 4, generator=gen),
+                              cond_latents=torch.randn(1, 16, 16, 4, generator=gen),
+                              image_embeds=ehs, noise_aug=torch.tensor([0.02]))
+    sigma, noise = torch.tensor([1.7]), torch.randn(1, 2, 16, 16, 4, generator=gen)
+    tcfg = TrainConfig(train_mode="tracklet", remat_policy="block")
+
+    def branch_grad(unet, device):
+        names = [n for n, m in trainable_mask(unet, "tracklet").items() if m]
+        named = dict(unet.named_parameters())
+        params = [named[n] for n in names]
+        unet.requires_grad_(False)
+        for p in params:
+            p.requires_grad_(True)
+        e = TrainBatchEncodings(*(x.to(device) for x in enc))
+        loss = edm_denoising_loss(SVDModels(unet, None, None), e, tcfg, sigma.to(device),
+                                  noise.to(device), boxes.to(device), mask.to(device))
+        grads = torch.autograd.grad(loss, params, materialize_grads=True)
+        unet.requires_grad_(False)
+        return loss.item(), torch.cat([g.float().flatten().cpu() for g in grads])
+
+    t0 = time.time()
+    loss_ref, g_ref = branch_grad(cpu, "cpu")
+    log(f"  host f32 loss + branch gradient {time.time() - t0:.1f} s")
+    loss_k, g_k = branch_grad(gpu, dev)
+    with plain_versions():
+        loss_p, g_p = branch_grad(gpu, dev)
+    rel_k = ((g_k - g_ref).norm() / g_ref.norm()).item()
+    rel_p = ((g_p - g_ref).norm() / g_ref.norm()).item()
+    log(f"  branch gradient ({g_ref.numel()} values, remat block), loss {loss_ref:.5g} host, "
+        f"{loss_k:.5g} kernels, {loss_p:.5g} plain: rel_l2 kernels {rel_k:.4g}, bf16 plain "
+        f"{rel_p:.4g} (bounds {GRAD_REL_L2_BOUND}, {GRAD_PLAIN_RATIO}x plain)")
+    if (not bool(torch.isfinite(g_k).all()) or rel_k >= GRAD_REL_L2_BOUND
+            or rel_k > GRAD_PLAIN_RATIO * rel_p):
+        raise RuntimeError(f"tracklet branch gradient: rel_l2 {rel_k} (plain {rel_p})")
+
+
+def tracklet_video_phase(dev, smi, counters, ph: KernelPhase, gen_launches):
+    """generate with 16 boxes at PipelineConfig(): at gate 0 the exact video
+    equals the no-branch video bit for bit (same image and noise); at gate
+    TRACKLET_GATE the exact, k3 and n3+k3 modes, a warm-up and
+    GENERATE_TIMED timed videos each: the flash forward's launches per video
+    by (batch, S_q, S_kv) held to the schedule's passes x
+    flash_calls_per_pass, every other kernel's to the same mode's launches
+    without boxes; s/video (median), peak memory. Returns {path: launches}
+    of each mode's last timed video."""
+    import dataclasses
+
+    from svd_xtend_tpu_torch.core.config import PipelineConfig
+    from svd_xtend_tpu_torch.diffusion.pipeline import SVDModels, generate
+    from svd_xtend_tpu_torch.ops.kernels import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 24)
+    models = SVDModels.create(device=dev, dtype=torch.bfloat16, generator=gen)
+    exact = PipelineConfig()
+    f = exact.num_frames
+    image = torch.rand(1, exact.height, exact.width, 3, device=dev, generator=gen) * 2 - 1
+    boxes, mask = seeded_boxes(gen, 1, f, TRACKLET_BOXES, dev)
+    noise = lambda: torch.Generator(device=dev).manual_seed(SEED)
+    plain = generate(models, image, exact, generator=noise())
+    branch = lambda gate: models.with_tracklet(TRACKLET_DIM, TRACKLET_HEADS, gate_init=gate,
+                                               generator=torch.Generator(dev).manual_seed(
+                                                   SEED + 25))
+    zero = branch(0.0)
+    boxed = generate(zero, image, exact, generator=noise(), boxes=boxes, box_mask=mask)
+    torch.cuda.synchronize()
+    same = torch.equal(plain, boxed)
+    log(f"  gate 0: the exact video with {TRACKLET_BOXES} boxes against the video without "
+        f"the branch, same image and noise: bit for bit {same}")
+    if not same:
+        raise RuntimeError(f"tracklet at gate 0: the video differs by "
+                           f"{(plain - boxed).abs().max().item()}")
+    del zero, boxed
+    tracklet = branch(TRACKLET_GATE)
+    del models
+    torch.cuda.empty_cache()
+    runs = {"tracklet": ("generate", exact),
+            "tracklet_k3": ("generate_k3", dataclasses.replace(exact, uncond_reuse_interval=3)),
+            "tracklet_n3k3": ("generate_n3k3", dataclasses.replace(
+                exact, deep_cache_interval=3, uncond_reuse_interval=3))}
+    launches = {}
+    for path, (base, cfg) in runs.items():
+        t0 = time.time()
+        generate(tracklet, image, cfg, generator=noise(), boxes=boxes, box_mask=mask)
+        torch.cuda.synchronize()
+        log(f"  {path}: warm-up video {time.time() - t0:.2f} s")
+        timed = []
+        with calls_by(fa, "flash_attention_fwd", BATCH_AND_LENGTHS) as by_shape:
+            for _ in range(GENERATE_TIMED):
+                video = None
+                reset(counters)
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.time()
+                video = generate(tracklet, image, cfg, generator=noise(), boxes=boxes,
+                                 box_mask=mask)
+                torch.cuda.synchronize()
+                timed.append(time.time() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        launches[path] = read(counters, [n for n in counters
+                                         if n not in BACKWARD_ONLY | MHA_ONLY | PROBE_ONLY])
+        want = collections.Counter()
+        for batch, kind in unet_schedule(cfg):
+            depth = None if kind == "full" else cfg.deep_cache_depth
+            for (s, t), n in flash_calls_per_pass(cfg.height, cfg.width, TRACKLET_BOXES,
+                                                  depth).items():
+                want[(batch * f, s, t)] += n
+        got = {k: n / GENERATE_TIMED for k, n in by_shape.items()}
+        if got != dict(want):
+            raise RuntimeError(f"{path}: flash forward calls per video {got}, the site tables "
+                               f"give {dict(want)}")
+        forward_per_run(path, by_shape, GENERATE_TIMED, launches[path]["flash_attention_fwd"],
+                        ph.fwd_ms["generate"], smi, "video")
+        other = {n: c for n, c in launches[path].items() if n != "flash_attention_fwd"}
+        if other != {n: c for n, c in gen_launches[base].items() if n != "flash_attention_fwd"}:
+            raise RuntimeError(f"{path}: launches {other}, the {base} path's "
+                               f"{gen_launches[base]}")
+        shape = (1, f, cfg.height, cfg.width, 3)
+        if (tuple(video.shape) != shape or not bool(torch.isfinite(video).all())
+                or video.min().item() < -1.0 or video.max().item() > 1.0):
+            raise RuntimeError(f"{path}: video {tuple(video.shape)} not finite in [-1, 1]")
+        log(f"  {path}: flash forward calls per video held to the site tables; every other "
+            f"kernel's launches equal the {base} path's; video finite, in [-1, 1]")
+        log(f"  [{smi}] {path}: seconds/video {sorted(timed)[len(timed) // 2]:.3f} (median of "
+            f"{GENERATE_TIMED}: {', '.join(f'{x:.3f}' for x in timed)}); peak allocated "
+            f"{peak / 2**30:.2f} GiB")
+    return launches
+
+
+def tracklet_train_phase(dev, smi, counters, ph: KernelPhase, conv_sums, train_launches):
+    """The 'tracklet' scope (TrainConfig(train_mode="tracklet"), the branch at
+    gate TRACKLET_GATE, 16 boxes, 512x320x14f, batch 1, remat block): a
+    warm-up and TRAIN_STEPS timed steps held to the site tables like the
+    temporal step (the flash backward by (S_q, S_kv) to
+    FLASH_BWD_SITES['tracklet']), the flash forward twice the temporal
+    step's and every other kernel's launches equal to it; the branch's
+    masters changed, every other weight bit-identical. Returns the launches
+    of the timed steps."""
+    import dataclasses
+
+    from svd_xtend_tpu_torch.core.config import TrainConfig, UNetConfig
+    from svd_xtend_tpu_torch.diffusion.pipeline import SVDModels
+    from svd_xtend_tpu_torch.train.state import (cast_frozen_to_compute, create_train_state,
+                                                 make_train_step)
+
+    cfg = TrainConfig(train_mode="tracklet", tracklet_dim=TRACKLET_DIM,
+                      tracklet_gate_init=TRACKLET_GATE)
+    unet_cfg = dataclasses.replace(UNetConfig(), tracklet_dim=TRACKLET_DIM,
+                                   tracklet_gate_init=TRACKLET_GATE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 26)
+    t0 = time.time()
+    models = SVDModels.create(unet_cfg, device=dev, dtype=torch.float32, generator=gen)
+    state = create_train_state(cfg, models)
+    cast_frozen_to_compute(models, torch.bfloat16)
+    step = make_train_step(models, cfg)
+    torch.cuda.synchronize()
+    log(f"  models (f32 init, then bf16) and state: {time.time() - t0:.1f} s; "
+        f"{len(state.names)} trainable tensors, {sum(p.numel() for p in state.params)} values")
+    b, f = cfg.per_device_batch_size, cfg.num_frames
+    boxes, mask = seeded_boxes(gen, b, f, cfg.max_boxes, dev)
+    batch = {"pixel_values": torch.rand(b, f, cfg.height, cfg.width, 3, device=dev,
+                                        generator=gen) * 2 - 1,
+             "boxes": boxes, "box_mask": mask}
+    draws = torch.Generator(device=dev).manual_seed(SEED + 27)
+    t0 = time.time()
+    state, m = step(state, batch, generator=draws)
+    torch.cuda.synchronize()
+    log(f"  warm-up step: {time.time() - t0:.2f} s, loss {m['loss']:.5g}, "
+        f"grad_norm {m['grad_norm']:.5g}")
+    named = dict(models.unet.named_parameters())
+    trained = set(state.names)
+    before_train = [p.cpu() for p in state.params]
+    before_frozen = {n: p.detach().cpu() for n, p in named.items() if n not in trained}
+    state, launches, _, secs, peak = timed_steps("tracklet", "tracklet", step, state, batch,
+                                                 draws, counters, ph, smi, cfg, conv_sums)
+    bwd = sum(FLASH_BWD_SITES["tracklet"].values()) * TRAIN_STEPS
+    want = {n: bwd if n in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv") else
+            c * (2 if n == "flash_attention_fwd" else 1) for n, c in train_launches.items()}
+    if launches != want:
+        raise RuntimeError(f"tracklet step: launches {launches}, the temporal step's with the "
+                           f"flash forward doubled and the backward pair's per the site "
+                           f"tables {want}")
+    changed = sum(not torch.equal(p.cpu(), q) for p, q in zip(state.params, before_train))
+    moved = [n for n, q in before_frozen.items() if not torch.equal(named[n].cpu(), q)]
+    if changed == 0 or moved:
+        raise RuntimeError(f"tracklet step: {changed} branch masters changed, frozen weights "
+                           f"moved: {moved[:5]}")
+    log(f"  {changed}/{len(state.names)} branch masters changed, {len(before_frozen)} other "
+        "UNet weights bit-identical; launches: the temporal step's, the flash forward "
+        "doubled, the backward pair per FLASH_BWD_SITES['tracklet']")
+    log(f"  [{smi}] tracklet scope: seconds/step median {sorted(secs)[len(secs) // 2]:.3f} "
+        f"(steps {', '.join(f'{x:.3f}' for x in secs)}); peak allocated {peak / 2**30:.2f} GiB")
+    return launches
+
+
+def tracklet_cli_phase(dev, smi, counters, step_launches):
+    """``train.cli --train_mode tracklet`` through main(), in process, over a
+    copy of the committed frame folder with a seeded ``boxes.npz`` per video
+    (one with a mask, one without), TRACKLET_CLI_STEPS steps at full width:
+    launches per step equal the tracklet phase's; params_train.txt names the
+    branch alone; tracklet_weights.safetensors holds the branch's flax paths
+    and loads into a tracklet UNet. Returns the run's launches."""
+    import shutil
+
+    import numpy as np
+
+    from svd_xtend_tpu_torch import native
+    from svd_xtend_tpu_torch.core.config import UNetConfig
+    from svd_xtend_tpu_torch.data import make_fixtures as fx
+    from svd_xtend_tpu_torch.io.convert import is_branch_key, tracklet_state_dict
+    from svd_xtend_tpu_torch.io.safetensors_io import load_file
+    from svd_xtend_tpu_torch.models.unet import UNetSpatioTemporalConditionModel
+    from svd_xtend_tpu_torch.train import cli
+    from svd_xtend_tpu_torch.train.checkpoint import TRACKLET_FILE
+
+    root = native.BUILD_DIR.parent / "tracklet_cli"
+    shutil.rmtree(root, ignore_errors=True)
+    frames = root / "frames"
+    shutil.copytree(fx.FRAMES, frames)
+    rs = np.random.RandomState(SEED + 28)
+    for i, video in enumerate(sorted(os.listdir(frames))):
+        n_frames = len([x for x in os.listdir(frames / video) if x.endswith(".jpg")])
+        a = rs.uniform(0, 1, (n_frames, 5, 4)).astype(np.float32)
+        boxes = np.concatenate([np.minimum(a[..., :2], a[..., 2:]),
+                                np.maximum(a[..., :2], a[..., 2:])], -1)
+        extra = {"mask": (rs.uniform(0, 1, (n_frames, 5)) > 0.3).astype(np.float32)} if i else {}
+        np.savez(frames / video / "boxes.npz", boxes=boxes, **extra)
+    val_launches, original = [], cli.run_validation
+
+    def counted_validation(*args, **kwargs):
+        before = {n: fn.launches for n, fn in counters.items()}
+        original(*args, **kwargs)
+        torch.cuda.synchronize()
+        val_launches.append({n: fn.launches - before[n] for n, fn in counters.items()})
+
+    out = str(root / "out")
+    argv = ["--base_folder", str(frames), "--train_mode", "tracklet", "--learning_rate", "1e-5",
+            "--lr_scheduler", "constant", "--max_train_steps", str(TRACKLET_CLI_STEPS),
+            "--checkpointing_steps", str(TRACKLET_CLI_STEPS), "--validation_steps", "100",
+            "--output_dir", out]
+    cli.run_validation = counted_validation
+    try:
+        reset(counters)
+        t0 = time.time()
+        stats = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = read(counters, [n for n in counters if n not in MHA_ONLY | PROBE_ONLY])
+        per_step = {n: (c - sum(v[n] for v in val_launches)) / TRACKLET_CLI_STEPS
+                    for n, c in launches.items()}
+        want = {n: c / TRAIN_STEPS for n, c in step_launches.items()}
+        if per_step != want:
+            raise RuntimeError(f"tracklet cli: launches per step {per_step}, the tracklet "
+                               f"phase's {want}")
+        with open(os.path.join(out, "params_train.txt")) as fh:
+            train_names = fh.read().split("\n")
+        sd = load_file(os.path.join(out, TRACKLET_FILE))
+        with torch.device("meta"):
+            unet = UNetSpatioTemporalConditionModel(
+                UNetConfig(tracklet_dim=TRACKLET_DIM))
+        branch = {k for k in unet.state_dict() if is_branch_key(k)}
+        got = tracklet_state_dict(sd)
+        if (not all(is_branch_key(n) for n in train_names) or set(train_names) != branch
+                or set(got) != branch or any("/" not in k for k in sd)
+                or any(got[k].shape != unet.state_dict()[k].shape for k in got)):
+            raise RuntimeError("tracklet cli: params_train.txt or the tracklet file is not the "
+                               "branch in the JAX package's flat paths")
+        size = os.path.getsize(os.path.join(out, TRACKLET_FILE))
+        log(f"  tracklet cli: {wall:.1f} s in main() ({TRACKLET_CLI_STEPS} steps, "
+            f"{len(val_launches)} validation); launches per step equal the tracklet phase's; "
+            f"params_train.txt names the {len(branch)} branch tensors; {TRACKLET_FILE} "
+            f"({size} bytes, {len(sd)} flax paths) maps onto the branch of a tracklet UNet")
+        log(f"  [{smi}] tracklet cli: host s of each step "
+            f"{', '.join(f'{x:.3f}' for x in stats['step_seconds'])}; export "
+            f"{stats['export_seconds']:.2f} s")
+    finally:
+        cli.run_validation = original
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+# ------------------------------------------------------------ the infer path --
+
+INFER_W, INFER_H = 1024, 576
+
+
+def infer_kernel_phase(dev, ph: KernelPhase):
+    """Each kernel at its 1024x576 L0 shape (generate's CFG batch) and at
+    the VAE's, against its plain version: the flash forward (self and gated;
+    the plain version on the first two sequences), the frame attention, the
+    temporal resnet block, GroupNorm(+SiLU) (UNet L0 and the VAE decoder's
+    conv_norm_out), conv3x3 (UNet L0 and the VAE decoder's top) and GEGLU;
+    device ms of each in a CUDA graph."""
+    from svd_xtend_tpu_torch.ops.kernels import conv3x3 as cv
+    from svd_xtend_tpu_torch.ops.kernels import flash_attention as fa
+    from svd_xtend_tpu_torch.ops.kernels import geglu as gg
+    from svd_xtend_tpu_torch.ops.kernels import groupnorm as gn
+    from svd_xtend_tpu_torch.ops.kernels import temporal_attention as ta
+    from svd_xtend_tpu_torch.ops.kernels import temporal_resnet as tr
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 29)
+    rn = lambda *s, sc=1.0: (torch.randn(*s, device=dev, generator=g) * sc).to(torch.bfloat16)
+    s = (INFER_H // 8) * (INFER_W // 8)
+    timed = {}
+    for t in (s, s + TRACKLET_BOXES):
+        q, k, v = rn(28, s, 320), rn(28, t, 320), rn(28, t, 320)
+        run = lambda: fa.flash_attention_packed(q, k, v, num_heads=5, scale=0.125)
+        ph.check("flash_attention_fwd", run()[:2], fa.flash_attention_packed_reference(
+            q[:2], k[:2], v[:2], num_heads=5, scale=0.125), f"(28, {s}, 320) keys {t} "
+            "(first 2 sequences)")
+        timed[f"flash forward (28, {s}, 320) keys {t}"] = graph_ms(run)
+        del q, k, v
+    q, k, v = rn(2, 14, s, 320), rn(2, 14, s, 320), rn(2, 14, s, 320)
+    run = lambda: ta.frame_attention(q, k, v, num_heads=5, scale=0.125)
+    ph.check("frame_attention_fwd", run(),
+             ta.frame_attention_reference(q, k, v, num_heads=5, scale=0.125), f"(2, 14, {s}, 320)")
+    timed[f"frame attention (2, 14, {s}, 320)"] = graph_ms(run)
+    del q, k, v
+    x, t, k1, b1, k2, b2, _, _, w = tresnet_inputs(dev, 2, 14, s, 320, SEED + 30)
+    sc, bi = 1 + 0.1 * rn(320).float(), 0.1 * rn(320).float()
+    args = (x, t, k1, b1, k2, b2, sc, bi, sc, bi, w)
+    run = lambda: tr.temporal_resnet_block(*args, groups=32, eps=1e-5)
+    ph.check("temporal_resnet_block", run(), tr.temporal_resnet_reference(*args, 32, 1e-5),
+             f"(2, 14, {s}, 320)")
+    timed[f"temporal resnet block (2, 14, {s}, 320)"] = graph_ms(run)
+    del x, t, args
+    for shape, silu, eps in (((28, INFER_H // 8, INFER_W // 8, 320), False, 1e-6),
+                             ((8, INFER_H, INFER_W, 128), True, 1e-6)):
+        x = rn(*shape) * 3 + 1
+        sc, bi = 1 + 0.1 * rn(shape[-1]).float(), 0.1 * rn(shape[-1]).float()
+        run = lambda: gn.group_norm_silu(x, sc, bi, groups=32, eps=eps, silu=silu)
+        ph.check("group_norm_silu", run(), gn.group_norm_silu_reference(x, sc, bi, 32, eps, silu),
+                 f"{shape} silu={silu} ({gn.group_norm_plan(shape, x.dtype, 32).path})")
+        timed[f"group_norm_silu {shape}"] = graph_ms(run)
+        del x
+    for n, h, w_, ci, co, res in ((28, INFER_H // 8, INFER_W // 8, 320, 320, True),
+                                  (8, INFER_H, INFER_W, 128, 128, False)):
+        x = rn(n, h, w_, ci) * 2 + 0.5
+        weight, bias = rn(co, ci, 3, 3, sc=(9 * ci) ** -0.5), 0.1 * rn(co)
+        kw = dict(pre_scale=(1 + 0.2 * rn(n, ci)).float() / 2, pre_shift=0.3 * rn(n, ci).float(),
+                  pre_silu=True, residual=rn(n, h, w_, co) if res else None)
+        run = lambda: cv.conv3x3(x, weight, bias, **kw)
+        ph.check("conv3x3", run(), cv.conv3x3_fused_reference(
+            x, weight, bias, kw["pre_scale"], kw["pre_shift"], None, kw["residual"], True),
+            f"{(n, h, w_, ci, co)} {'preS+res' if res else 'preS'}")
+        timed[f"conv3x3 {(n, h, w_, ci, co)}"] = graph_ms(run)
+        del x, kw
+    c = 320
+    gargs = [rn(28 * s, c), 1 + 0.1 * rn(c), 0.1 * rn(c), rn(8 * c, c, sc=c ** -0.5),
+             0.1 * rn(8 * c), rn(c, 4 * c, sc=(4 * c) ** -0.5), 0.1 * rn(c)]
+    run = lambda: gg.ln_geglu_residual(*gargs)
+    ph.check("geglu_fwd", run(), gg.ln_geglu_residual_reference(*gargs), f"T {28 * s} C {c}")
+    timed[f"geglu T {28 * s} C {c}"] = graph_ms(run)
+    del gargs
+    log("  device ms per launch in a CUDA graph at 1024x576: "
+        + "; ".join(f"{k} {v:.4f}" for k, v in timed.items()))
+
+
+def infer_phase(dev, smi, counters):
+    """The inference entry at its defaults (1024x576, 14 frames, 30 steps),
+    run as ``python -m svd_xtend_tpu_torch.scripts.infer_svd`` runs it (runpy,
+    in process, so the counters see its launches), on a committed frame,
+    with 16 ``--boxes``, a random-weight pipeline directory, a LoRA file and a
+    tracklet file, each written with the port's own exporters: the flash
+    forward's launches by (batch, S_q, S_kv) held to 30 CFG passes x
+    flash_calls_per_pass; the mp4 and the GIF hold 14 frames, the video is
+    finite; generate's s/video (the first at this size in the process) and
+    the entry point's wall time, peak memory. Returns the launches."""
+    import runpy
+    import shutil
+
+    import numpy as np
+
+    from svd_xtend_tpu_torch import native
+    from svd_xtend_tpu_torch.core.config import PipelineConfig
+    from svd_xtend_tpu_torch.data import make_fixtures as fx
+    from svd_xtend_tpu_torch.diffusion import pipeline
+    from svd_xtend_tpu_torch.io.safetensors_io import save_file
+    from svd_xtend_tpu_torch.models import lora as lora_lib
+    from svd_xtend_tpu_torch.ops.kernels import flash_attention as fa
+    from svd_xtend_tpu_torch.train.checkpoint import (export_lora_diffusers, export_tracklet,
+                                                      export_unet_diffusers)
+
+    root = native.BUILD_DIR.parent / "infer_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    pipe = root / "pipeline"
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    t0 = time.time()
+    models = pipeline.SVDModels.create(device=dev, dtype=torch.bfloat16, generator=gen)
+    export_unet_diffusers(models.unet, str(pipe / "unet"))
+    for comp, sub, name in (("vae", "vae", "diffusion_pytorch_model.safetensors"),
+                            ("clip", "image_encoder", "model.safetensors")):
+        os.makedirs(pipe / sub)
+        save_file(getattr(models, comp).state_dict(), str(pipe / sub / name),
+                  metadata={"format": "pt"})
+    branch = models.with_tracklet(TRACKLET_DIM, TRACKLET_HEADS, gate_init=TRACKLET_GATE,
+                                  generator=torch.Generator(dev).manual_seed(SEED + 32))
+    export_tracklet(branch.unet, str(root / "tracklet"))
+    adapter = lora_lib.init(branch.unet, generator=gen)
+    for ab in adapter.values():
+        ab["b"].normal_(0.0, LORA_B_STD, generator=gen)
+    export_lora_diffusers(adapter, str(root / "lora"))
+    del models, branch, adapter
+    torch.cuda.empty_cache()
+    size = sum(p.stat().st_size for p in root.rglob("*") if p.is_file())
+    log(f"  files written with the port's exporters ({size} bytes): a pipeline directory, "
+        f"a LoRA file, a tracklet file, in {time.time() - t0:.1f} s")
+
+    rs = np.random.RandomState(SEED + 33)
+    a = rs.uniform(0, 1, (TRACKLET_BOXES, 4))
+    boxes = np.concatenate([np.minimum(a[:, :2], a[:, 2:]), np.maximum(a[:, :2], a[:, 2:])], 1)
+    out = root / "generated.mp4"
+    argv = ["--image", fx.reference_paths()[0], "--model_path", str(pipe),
+            "--lora_path", str(root / "lora"), "--tracklet_path", str(root / "tracklet"),
+            "--boxes", json.dumps(np.round(boxes, 4).tolist()), "--out", str(out)]
+    videos, seconds, original = [], [], pipeline.generate
+
+    def timed_generate(*args, **kwargs):
+        t0 = time.time()
+        video = original(*args, **kwargs)
+        torch.cuda.synchronize()
+        seconds.append(time.time() - t0)
+        videos.append(video)
+        return video
+
+    saved_argv = sys.argv
+    pipeline.generate = timed_generate
+    try:
+        reset(counters)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        with calls_by(fa, "flash_attention_fwd", BATCH_AND_LENGTHS) as by_shape:
+            sys.argv = ["svd_xtend_tpu_torch.scripts.infer_svd", *argv]
+            runpy.run_module("svd_xtend_tpu_torch.scripts.infer_svd", run_name="__main__",
+                             alter_sys=True)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    finally:
+        sys.argv = saved_argv
+        pipeline.generate = original
+    peak = torch.cuda.max_memory_allocated()
+    launches = read(counters, [n for n in counters
+                               if n not in BACKWARD_ONLY | MHA_ONLY | PROBE_ONLY])
+    cfg = PipelineConfig(height=INFER_H, width=INFER_W, num_inference_steps=30)
+    want = collections.Counter()
+    for batch, _ in unet_schedule(cfg):
+        for (s, t), n in flash_calls_per_pass(INFER_H, INFER_W, TRACKLET_BOXES).items():
+            want[(batch * cfg.num_frames, s, t)] += n
+    if dict(by_shape) != dict(want):
+        raise RuntimeError(f"infer: flash forward calls {dict(by_shape)}, the site tables give "
+                           f"{dict(want)}")
+    video = videos[-1]
+    shape = (1, cfg.num_frames, INFER_H, INFER_W, 3)
+    if len(videos) != 1 or tuple(video.shape) != shape or not bool(torch.isfinite(video).all()):
+        raise RuntimeError(f"infer: {len(videos)} videos, {tuple(video.shape)}, finite "
+                           f"{bool(torch.isfinite(video).all())}")
+    import cv2
+    from PIL import Image
+    cap = cv2.VideoCapture(str(out))
+    n_mp4 = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+    cap.release()
+    with Image.open(str(out).replace(".mp4", ".gif")) as gif:
+        n_gif, gif_size = gif.n_frames, gif.size
+    if n_mp4 != cfg.num_frames or n_gif != cfg.num_frames or gif_size != (INFER_W, INFER_H):
+        raise RuntimeError(f"infer: the mp4 holds {n_mp4} frames, the GIF {n_gif} at {gif_size}")
+    log(f"  infer: flash forward calls by (batch, S_q, S_kv) held to the site tables "
+        f"({sum(want.values())} a video); {out.name} {n_mp4} frames, GIF {n_gif} frames "
+        f"{gif_size[0]}x{gif_size[1]}; video {tuple(video.shape)} finite, std "
+        f"{video.std().item():.4f}")
+    log(f"  [{smi}] infer (1024x576, 14 frames, 30 steps, 16 boxes, LoRA + tracklet files): "
+        f"generate {seconds[0]:.3f} s/video (the first at this size in the process); the entry "
+        f"point {wall:.1f} s with building, loading and writing; peak allocated "
+        f"{peak / 2**30:.2f} GiB")
+    shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+# ------------------------------------------------------------ the optim8 path --
+
+OPTIM8_SHAPES = [(1280, 5120), (640, 640, 3, 3), (2047, 3), (4096,), (4095,), (320,)]
+OPTIM8_STEPS = 3
+# the share of int8 codes the card's 8-bit AdamW may hold apart from the CPU
+# run's after OPTIM8_STEPS steps on the same gradients (each by one code):
+# a value that lands within an f32 ulp of a rounding boundary may round the
+# other way where the two libraries' pow or sqrt differ in the last bit
+OPTIM8_CODE_SHARE = 1e-4
+
+
+def optim8_phase(dev, smi, counters):
+    """One full-scope step (warm-up) and a timed one with ``use_8bit_adam``,
+    then with ``grad_dtype="bf16"``, at 512x320x14f: s/step, peak memory
+    (the fp32 full-scope step: the train phase's), the moments' bytes; then
+    AdamW8bit on the card and on the CPU over OPTIM8_STEPS seeded gradient
+    steps of a mixed tree (tensors over and under 4096 values): the int8
+    codes apart in at most OPTIM8_CODE_SHARE of the values, each by one,
+    the scales and f32 moments within 1e-6 relative. Returns the timed
+    steps' launches."""
+    import dataclasses
+
+    from svd_xtend_tpu_torch.core.config import TrainConfig
+    from svd_xtend_tpu_torch.diffusion.pipeline import SVDModels
+    from svd_xtend_tpu_torch.train.quant import AdamW8bit, Quantized
+    from svd_xtend_tpu_torch.train.state import (cast_frozen_to_compute, create_train_state,
+                                                 make_train_step)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 34)
+    models = SVDModels.create(device=dev, dtype=torch.float32, generator=gen)
+    base = TrainConfig(train_mode="full")
+    batch = torch.rand(1, base.num_frames, base.height, base.width, 3, device=dev,
+                       generator=gen) * 2 - 1
+    draws = torch.Generator(device=dev).manual_seed(SEED + 35)
+    launches = collections.Counter()
+    for name, cfg in (("use_8bit_adam", dataclasses.replace(base, use_8bit_adam=True)),
+                      ("grad_dtype bf16", dataclasses.replace(base, grad_dtype="bf16"))):
+        state = create_train_state(cfg, models)
+        cast_frozen_to_compute(models, torch.bfloat16)
+        step = make_train_step(models, cfg)
+        torch.cuda.reset_peak_memory_stats()
+        secs = []
+        for i in range(2):
+            if i == 1:
+                reset(counters)
+            t0 = time.time()
+            state, m = step(state, batch, generator=draws)
+            torch.cuda.synchronize()
+            secs.append(time.time() - t0)
+            if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])):
+                raise RuntimeError(f"optim8 {name}: non-finite metrics {m}")
+        launches.update(read(counters, [n for n in counters if n not in MHA_ONLY | PROBE_ONLY]))
+        peak = torch.cuda.max_memory_allocated()
+        n = sum(p.numel() for p in state.params)
+        moments = (state.optimizer.adamw8.moment_bytes() if cfg.use_8bit_adam else
+                   sum(v.numel() * v.element_size() for s in state.optimizer.adamw.state.values()
+                       for v in s.values() if v.dim()))
+        log(f"  [{smi}] optim8 {name}: full scope ({n} values), the first step {secs[0]:.2f} s "
+            f"(first of its optimizer), the second {secs[1]:.2f} s, loss {m['loss']:.5g}; "
+            f"moments {moments} bytes ({moments / (8 * n):.3f} of f32's); peak allocated "
+            f"{peak / 2**30:.2f} GiB")
+        del state, step
+        torch.cuda.empty_cache()
+    del models, batch
+    torch.cuda.empty_cache()
+
+    g = torch.Generator().manual_seed(SEED + 36)
+    params = [torch.randn(s, generator=g) * 0.05 for s in OPTIM8_SHAPES]
+    grads = [[torch.randn(s, generator=g) * 10.0 ** (-i - 2) for s in OPTIM8_SHAPES]
+             for i in range(OPTIM8_STEPS)]
+    opts = {d: AdamW8bit([p.clone().to(d) for p in params]) for d in ("cpu", dev)}
+    for i in range(OPTIM8_STEPS):
+        for d, opt in opts.items():
+            opt.step([x.to(d) for x in grads[i]], 1e-3)
+    host, card_ = opts["cpu"], opts[dev]
+    codes, apart, worst, rel = 0, 0, 0, 0.0
+    for mh, mc in zip(host.mu + host.nu, card_.mu + card_.nu):
+        if isinstance(mh, Quantized):
+            d = (mh.q.int() - mc.q.cpu().int()).abs()
+            codes += d.numel()
+            apart += int((d > 0).sum())
+            worst = max(worst, int(d.max()))
+            rel = max(rel, ((mh.scale - mc.scale.cpu()).abs() / mh.scale.abs().clamp_min(1e-30)
+                            ).max().item())
+        else:
+            rel = max(rel, ((mh - mc.cpu()).abs() / mh.abs().clamp_min(1e-30)).max().item())
+    pdiff = max((a - b.cpu()).abs().max().item() for a, b in zip(host.params, card_.params))
+    log(f"  optim8: AdamW8bit on the card against the CPU after {OPTIM8_STEPS} steps on "
+        f"{OPTIM8_SHAPES}: {apart} of {codes} int8 codes apart (at most {worst}; bound "
+        f"{OPTIM8_CODE_SHARE} of them, each by 1), scales and f32 moments within {rel:.3g} "
+        f"relative, parameters within {pdiff:.3g}")
+    if apart > OPTIM8_CODE_SHARE * codes or worst > 1 or rel > 1e-6:
+        raise RuntimeError(f"optim8: card and CPU int8 moments differ: {apart} codes, worst "
+                           f"{worst}, relative {rel}")
+    return dict(launches)
 
 
 # the port's own kernels: the __global__ functions of csrc/*.cu, by their

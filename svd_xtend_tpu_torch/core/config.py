@@ -69,7 +69,10 @@ class UNetConfig(_JsonMixin):
     norm_eps: float = 1e-6        # GroupNorm inside transformer models
     dropout: float = 0.0
     ff_chunk_size: int = 0        # not ported: the port runs unchunked
-    tracklet_dim: int = 0         # not ported: Tracklet2Video branch
+    # Tracklet2Video (bbox-conditioned) branch, models/tracklet.py: 0
+    # disables; tracklet_gate_init 0.0 makes each gated injection an exact
+    # no-op at init
+    tracklet_dim: int = 0
     tracklet_heads: int = 8
     tracklet_gate_init: float = 0.0
 
@@ -202,13 +205,14 @@ class MeshConfig(_JsonMixin):
 class TrainConfig(_JsonMixin):
     """Training hyperparameters (the reference's flag surface).
 
-    The port runs the default train step: the 'temporal', 'full' and
-    'lora' scopes, AdamW with f32 masters, gradient accumulation, EMA,
-    remat. The options outside that slice are refused at use
-    (``check_ported``): 8-bit Adam, ZeRO-1, host offload, bf16 gradient
-    storage, the 'tracklet' scope and the Tracklet2Video branch.
-    ``encode_chunk_size`` chunks the frozen VAE encode (0 = unchunked); the
-    posterior noise is drawn per chunk, as in the JAX package."""
+    The port runs the 'temporal', 'full', 'lora' and 'tracklet' scopes,
+    AdamW with f32 masters (or 8-bit moments, ``use_8bit_adam``), f32 or
+    bf16 gradients (``grad_dtype``), gradient accumulation, EMA, remat.
+    ``vae_encode_in_loop`` is accepted and not read, as in the JAX package.
+    ZeRO-1 and host offload (several cards, or a TPU's host memory) are
+    refused at use (``check_ported``). ``encode_chunk_size`` chunks the
+    frozen VAE encode (0 = unchunked); the posterior noise is drawn per
+    chunk, as in the JAX package."""
 
     # data
     base_folder: str = ""
@@ -277,18 +281,16 @@ class TrainConfig(_JsonMixin):
     def check_ported(self) -> None:
         """Raise ValueError for an option the port does not run yet."""
         unported = {
-            "use_8bit_adam": self.use_8bit_adam,
             "zero1": self.zero1,
             "host_offload": self.host_offload != "none",
-            "grad_dtype": self.grad_dtype != "fp32",
-            "train_mode": self.train_mode not in ("temporal", "full", "lora"),
-            "tracklet_dim": self.tracklet_dim > 0,
-            "vae_encode_in_loop": not self.vae_encode_in_loop,
         }
         bad = [k for k, v in unported.items() if v]
         if bad:
-            raise ValueError(f"not ported yet: {', '.join(bad)} (the port trains the "
-                             "temporal, full and lora scopes with fp32 AdamW masters on one "
-                             "card)")
+            raise ValueError(f"not ported yet: {', '.join(bad)} (the port trains on one card "
+                             "with its optimizer state on it)")
+        if self.train_mode not in ("temporal", "full", "lora", "tracklet"):
+            raise ValueError(f"unknown train_mode {self.train_mode!r}")
+        if self.grad_dtype not in ("fp32", "bf16"):
+            raise ValueError(f"unknown grad_dtype {self.grad_dtype!r}")
         if self.remat_policy not in ("none", "block", "outer"):
             raise ValueError(f"unknown remat policy {self.remat_policy!r}")

@@ -18,9 +18,14 @@ One difference: where `use_native` is set and the window is all JPEG, a
 native library that does not build or load raises (with the compiler's
 message) instead of switching to PIL. A frame the library cannot decode
 takes the PIL path, as in the JAX package, with a warning. The loader
-threads touch no torch state: batches are numpy arrays. Tracklet2Video box
-annotations (``max_boxes > 0``, ``load_boxes_window``) are not ported
-(ROADMAP A9).
+threads touch no torch state: batches are numpy arrays.
+
+Tracklet2Video annotations (``max_boxes > 0``): ``<video>/boxes.npz`` holds
+``boxes`` (T, N, 4) normalised xyxy and optionally ``mask`` (T, N);
+``load_boxes_window`` pads or truncates the window's boxes to max_boxes
+slots, a box is live where the file has no mask when it has positive area,
+and a video without the file gives zero boxes and a zero mask. Samples and
+batches are then dicts of ``pixel_values``, ``boxes`` and ``box_mask``.
 """
 
 from __future__ import annotations
@@ -31,7 +36,7 @@ import os
 import queue
 import threading
 import time
-from typing import Iterator, List, Tuple
+from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -43,15 +48,14 @@ class FrameFolderDataset:
     def __init__(self, base_folder: str, width: int = 512, height: int = 320,
                  sample_frames: int = 14, num_samples: int = 100_000,
                  use_native: bool = True, max_boxes: int = 0):
-        if max_boxes > 0:
-            raise ValueError("not ported yet: max_boxes > 0 (Tracklet2Video box "
-                             "annotations, ROADMAP A9)")
         self.base_folder = base_folder
         self.width, self.height = width, height
         self.sample_frames = sample_frames
         self.num_samples = num_samples
         self.use_native = use_native
+        self.max_boxes = max_boxes
         self.videos: List[Tuple[str, List[str]]] = []
+        self.box_files: List[Optional[str]] = []
         img_exts = (".jpg", ".jpeg", ".png", ".bmp", ".webp")
         for name in sorted(os.listdir(base_folder)):
             folder = os.path.join(base_folder, name)
@@ -64,8 +68,12 @@ class FrameFolderDataset:
                     f"video folder {name!r} has {len(frames)} < "
                     f"{sample_frames} frames")
             self.videos.append((folder, frames))
+            bf = os.path.join(folder, "boxes.npz")
+            self.box_files.append(bf if os.path.exists(bf) else None)
         if not self.videos:
             raise ValueError(f"no video folders under {base_folder!r}")
+        self._box_cache: dict = {}
+        self._box_lock = threading.Lock()
         self.decoder = "PIL bicubic"
         if use_native:
             from .. import native
@@ -105,17 +113,52 @@ class FrameFolderDataset:
                 out[i] = np.asarray(img, np.float32) / 127.5 - 1.0
         return out
 
-    def get(self, seed: int, step: int, position: int) -> np.ndarray:
+    def load_boxes_window(self, vid: int, start: int) -> Tuple[np.ndarray, np.ndarray]:
+        """((F, max_boxes, 4), (F, max_boxes)) float32: the window's boxes
+        padded or truncated to max_boxes; a zero mask for a video without
+        annotations."""
+        f, n = self.sample_frames, self.max_boxes
+        boxes = np.zeros((f, n, 4), np.float32)
+        mask = np.zeros((f, n), np.float32)
+        path = self.box_files[vid]
+        if path is None:
+            return boxes, mask
+        with self._box_lock:
+            if vid not in self._box_cache:
+                with np.load(path) as data:
+                    self._box_cache[vid] = (
+                        np.asarray(data["boxes"], np.float32),
+                        np.asarray(data["mask"], np.float32) if "mask" in data else None)
+            all_boxes, all_mask = self._box_cache[vid]
+        win = all_boxes[start:start + f]
+        k = min(n, win.shape[1])
+        boxes[:win.shape[0], :k] = win[:, :k]
+        if all_mask is not None:
+            mask[:win.shape[0], :k] = all_mask[start:start + f, :k]
+        else:
+            # no mask in the file: a box is live when it has positive area
+            area = (win[:, :k, 2] - win[:, :k, 0]) * (win[:, :k, 3] - win[:, :k, 1])
+            mask[:win.shape[0], :k] = (area > 0).astype(np.float32)
+        return boxes, mask
+
+    def get(self, seed: int, step: int, position: int):
+        """The sample's pixels, or with max_boxes > 0 its dict of
+        ``pixel_values``, ``boxes`` and ``box_mask``."""
         vid, start = self.sample_spec(seed, step, position)
-        return self.load_window(vid, start)
+        pixels = self.load_window(vid, start)
+        if self.max_boxes <= 0:
+            return pixels
+        boxes, mask = self.load_boxes_window(vid, start)
+        return {"pixel_values": pixels, "boxes": boxes, "box_mask": mask}
 
 
 class ShardedLoader:
     """Deterministic prefetching loader over a FrameFolderDataset.
 
-    Yields (B_local, F, H, W, 3) float32 batches; global batch position p of
-    step s maps to dataset.get(seed, s, p) with this process owning
-    positions [process_index * B_local, (process_index + 1) * B_local).
+    Yields (B_local, F, H, W, 3) float32 batches (dicts of such arrays for
+    a dataset with boxes); global batch position p of step s maps to
+    dataset.get(seed, s, p) with this process owning positions
+    [process_index * B_local, (process_index + 1) * B_local).
     `batch_seconds` holds the producer's host seconds per batch and
     `wait_seconds` the time each ``next()`` blocked its caller.
     """
@@ -138,10 +181,13 @@ class ShardedLoader:
         self._thread = threading.Thread(target=self._producer, daemon=True)
         self._thread.start()
 
-    def _make_batch(self, step: int, pool: cf.ThreadPoolExecutor) -> np.ndarray:
+    def _make_batch(self, step: int, pool: cf.ThreadPoolExecutor):
         futs = [pool.submit(self.ds.get, self.seed, step, self.offset + i)
                 for i in range(self.local_bs)]
-        return np.stack([f.result() for f in futs])
+        samples = [f.result() for f in futs]
+        if isinstance(samples[0], dict):    # Tracklet2Video batches
+            return {k: np.stack([s[k] for s in samples]) for k in samples[0]}
+        return np.stack(samples)
 
     def _producer(self):
         step = self.step

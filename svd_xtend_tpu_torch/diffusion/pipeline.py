@@ -19,8 +19,13 @@ The cache modes are ported with JAX's schedules (pipeline.py:318-450):
   uncond-refresh step (i % k == 0) runs the full pair even off the
   DeepCache interval, a DeepCache step alone refreshes the cond trunk with a
   full cond-only pass, any other step is a shallow cond-only pass.
-int8 (``unet_quant``/``vae_quant``) is refused; Tracklet2Video boxes are
-not taken.
+int8 (``unet_quant``/``vae_quant``) is refused.
+
+Tracklet2Video (pipeline.py:291-297, 355-356, 430-431 in the JAX package):
+with a tracklet UNet (``SVDModels.with_tracklet``), ``boxes`` (B, F, N, 4)
+and ``box_mask`` (B, F, N; all ones when not given) condition the cond
+half; the uncond half of every stacked pair gets zero boxes and a zero
+mask (the null tokens); a cond-only pass gets the boxes alone.
 
 Randomness: ``generate`` takes a ``torch.Generator``; ``image_noise`` and
 ``latent_noise`` may be given explicitly instead (the tests feed the JAX
@@ -39,6 +44,7 @@ from torch import nn
 
 from ..core.config import (CLIPVisionConfig, PipelineConfig, SchedulerConfig,
                            UNetConfig, VAEConfig)
+from ..io.convert import load_unet_state
 from ..models.clip import CLIPVisionModelWithProjection, preprocess_for_clip
 from ..models.unet import UNetSpatioTemporalConditionModel
 from ..models.vae import AutoencoderKLTemporalDecoder
@@ -59,13 +65,18 @@ def _truncated_normal_(p: torch.Tensor, std: float, generator: torch.Generator):
 def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded initialisation with the flax init laws the JAX package uses:
     lecun-normal kernels (fan-in = all but the output axis), zero biases,
-    unit norm scales, normal(0.02) CLIP class/position embeddings;
-    ``mix_factor`` keeps its constructor value. In place; returns module."""
+    unit norm scales, normal(0.02) CLIP class/position embeddings and
+    tracklet null token, the tracklet instance embedding normal with
+    variance 1/dim; ``mix_factor`` and the tracklet gates keep their
+    constructor values. In place; returns module."""
     for name, p in module.named_parameters():
-        if name.endswith("mix_factor"):
-            continue
-        if name.endswith(("class_embedding", "position_embedding.weight")):
+        if name.endswith(("mix_factor", "alpha_attn", "alpha_dense")):
+            continue                    # the constructor's value (the tracklet gates')
+        if name.endswith(("class_embedding", "position_embedding.weight", "null_token")):
             p.normal_(0.0, 0.02, generator=generator)
+        elif name.endswith("instance_embedding.weight"):
+            # flax nn.Embed: variance scaling 1.0, fan-in = features, normal
+            p.normal_(0.0, p.shape[1] ** -0.5, generator=generator)
         elif name.endswith("bias"):
             p.zero_()
         elif p.dim() == 1:
@@ -116,6 +127,30 @@ class SVDModels:
     @property
     def dtype(self) -> torch.dtype:
         return self.unet.conv_in.weight.dtype
+
+    def with_tracklet(self, dim: int, heads: Optional[int] = None,
+                      gate_init: Optional[float] = None,
+                      generator: Optional[torch.Generator] = None) -> "SVDModels":
+        """These networks with the Tracklet2Video branch in the UNet (the
+        one spelling every entry point uses, as in the JAX package): a new
+        UNet of the same device and dtype holding this UNet's weights, its
+        branch initialised from `generator` (seed 0 when not given) with the
+        flax laws; the VAE and CLIP are shared."""
+        kw = {"tracklet_dim": dim}
+        if heads is not None:
+            kw["tracklet_heads"] = heads
+        if gate_init is not None:
+            kw["tracklet_gate_init"] = gate_init
+        cfg = dataclasses.replace(self.unet.config, **kw)
+        device = self.unet.conv_in.weight.device
+        with torch.device(device):
+            unet = UNetSpatioTemporalConditionModel(cfg)
+        if generator is None:
+            generator = torch.Generator(device).manual_seed(0)
+        init_random_(unet, generator)
+        load_unet_state(unet, self.unet.state_dict())
+        unet = unet.to(self.dtype).eval().requires_grad_(False)
+        return dataclasses.replace(self, unet=unet)
 
     def check_resolution(self, height: int, width: int) -> None:
         ds = self.vae.config.downsample_factor
@@ -173,11 +208,14 @@ def generate(models: SVDModels, image: torch.Tensor,
              config: PipelineConfig = PipelineConfig(), *,
              generator: Optional[torch.Generator] = None,
              image_noise: Optional[torch.Tensor] = None,
-             latent_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+             latent_noise: Optional[torch.Tensor] = None,
+             boxes: Optional[torch.Tensor] = None,
+             box_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """img2vid: (B, H, W, 3) image in [-1, 1] -> (B, F, H, W, 3) f32 video
     in [-1, 1]. `image_noise` (B, H, W, 3) and `latent_noise`
     (B, F, H/8, W/8, latent) are unit normals; those not given are drawn
-    from `generator`."""
+    from `generator`. `boxes` (B, F, N, 4) in [0, 1] and `box_mask`
+    (B, F, N) condition a tracklet UNet."""
     cfg = config
     if cfg.unet_quant is not None or cfg.vae_quant is not None:
         raise ValueError("int8 quantisation (unet_quant, vae_quant) is not ported")
@@ -210,6 +248,13 @@ def generate(models: SVDModels, image: torch.Tensor,
     k_reuse = max(1, cfg.uncond_reuse_interval)
     n_deep = max(1, cfg.deep_cache_interval)
     deep_kw = dict(cache_depth=cfg.deep_cache_depth)
+    box_pair = box_cond = {}
+    if boxes is not None:
+        if box_mask is None:
+            box_mask = torch.ones(boxes.shape[:3], device=boxes.device)
+        box_cond = dict(boxes=boxes, box_mask=box_mask)
+        box_pair = dict(boxes=_cfg_stack(torch.zeros_like(boxes), boxes),
+                        box_mask=_cfg_stack(torch.zeros_like(box_mask), box_mask))
 
     def unet_out(x_in, t, ehs_, ids_, **kw):
         out = models.unet(x_in.to(models.dtype), t, ehs_, ids_, **kw)
@@ -222,7 +267,7 @@ def generate(models: SVDModels, image: torch.Tensor,
         x_in = scheduler.scale_model_input(_cfg_stack(latents, latents), sigma)
         x_in = torch.cat([x_in, cond_lat2], dim=-1)
         t = scheduler.timestep(sigma).to(device).expand(2 * b)
-        out = unet_out(x_in, t, ehs, add_ids2, **kw)
+        out = unet_out(x_in, t, ehs, add_ids2, **box_pair, **kw)
         if isinstance(out, tuple):
             return (*_cfg_unstack(out[0]), out[1])
         return _cfg_unstack(out)
@@ -231,7 +276,7 @@ def generate(models: SVDModels, image: torch.Tensor,
         """The cond branch alone, batch b: cond[, deep]."""
         x_in = torch.cat([scheduler.scale_model_input(latents, sigma), cond_lat], dim=-1)
         t = scheduler.timestep(sigma).to(device).expand(b)
-        return unet_out(x_in, t, image_embeds, add_ids, **kw)
+        return unet_out(x_in, t, image_embeds, add_ids, **box_cond, **kw)
 
     deep2 = uncond = None
     for i, (sigma, sigma_next) in enumerate(zip(sigmas[:-1], sigmas[1:])):

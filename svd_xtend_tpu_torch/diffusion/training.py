@@ -10,7 +10,12 @@ Port of ``svd_xtend_tpu/diffusion/training.py``:
     CLIP zeroed for r < 2p, the image latent for p <= r < 3p;
   - σ ~ LogNormal(p_mean, p_std), noisy = x0 + n·σ, the UNet on
     [noisy·c_in, cond latent] with added_time_ids [7, 127, noise_aug], EDM
-    denoise and the λ(σ)-weighted f32 MSE to the clean latents.
+    denoise and the λ(σ)-weighted f32 MSE to the clean latents;
+  - Tracklet2Video batches (``boxes`` (B, F, N, 4), ``box_mask`` (B, F, N),
+    all ones when not given): a sample's whole mask is zeroed when its own
+    uniform draw is below conditioning_dropout_prob (training.py:165-174 in
+    the JAX package), so the model also trains on the all-null tokens the
+    uncond half gets at inference.
 The VAE and CLIP run under ``torch.no_grad`` (the JAX package's
 stop_gradient).
 
@@ -42,13 +47,16 @@ class TrainDraws(NamedTuple):
     dropout_u: torch.Tensor          # (B,) uniform in [0, 1)
     sigma: torch.Tensor              # (B,) EDM σ
     noise: torch.Tensor              # (B, F, h, w, c)
+    box_dropout_u: Optional[torch.Tensor] = None   # (B,) uniform, read with boxes only
 
 
 def sample_train_draws(models: SVDModels, pixel_shape, cfg: TrainConfig,
                        generator: Optional[torch.Generator] = None,
                        device=None) -> TrainDraws:
     """Draw a micro-batch's randomness for pixels of `pixel_shape`
-    (B, F, H, W, 3), on `device` (by default the UNet's)."""
+    (B, F, H, W, 3), on `device` (by default the UNet's); the box-dropout
+    uniform last, so the draws before it are those of a batch without
+    boxes."""
     if device is None:
         device = next(models.unet.parameters()).device
     b, f, h, w, _ = pixel_shape
@@ -64,7 +72,8 @@ def sample_train_draws(models: SVDModels, pixel_shape, cfg: TrainConfig,
         dropout_u=torch.rand((b,), generator=generator, device=device),
         sigma=edm.rand_log_normal((b,), cfg.p_mean, cfg.p_std, generator=generator,
                                   device=device),
-        noise=randn(b, f, *lat))
+        noise=randn(b, f, *lat),
+        box_dropout_u=torch.rand((b,), generator=generator, device=device))
 
 
 class TrainBatchEncodings(NamedTuple):
@@ -106,8 +115,22 @@ def conditioning_dropout(enc: TrainBatchEncodings, u: torch.Tensor,
                         cond_latents=enc.cond_latents * keep_image[:, None, None, None])
 
 
+def box_dropout(boxes: torch.Tensor, box_mask: Optional[torch.Tensor], u: torch.Tensor,
+                prob: float) -> torch.Tensor:
+    """The box mask (all ones when not given) with every sample whose
+    uniform `u` is below `prob` zeroed whole."""
+    if box_mask is None:
+        box_mask = torch.ones(boxes.shape[:3], device=boxes.device)
+    if prob <= 0.0:
+        return box_mask
+    keep = (u >= prob).to(box_mask.dtype)
+    return box_mask * keep[:, None, None]
+
+
 def edm_denoising_loss(models: SVDModels, enc: TrainBatchEncodings, cfg: TrainConfig,
-                       sigma: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+                       sigma: torch.Tensor, noise: torch.Tensor,
+                       boxes: Optional[torch.Tensor] = None,
+                       box_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The differentiable tail: UNet forward at σ with `noise`, weighted MSE."""
     latents = enc.latents
     b = latents.shape[0]
@@ -120,18 +143,24 @@ def edm_denoising_loss(models: SVDModels, enc: TrainBatchEncodings, cfg: TrainCo
     add_ids[:, 2] = enc.noise_aug.float()
     dt = models.dtype
     pred = models.unet(model_in.to(dt), edm.sigma_to_t(sigma), enc.image_embeds.to(dt),
-                       add_ids, remat=cfg.remat_policy)
+                       add_ids, remat=cfg.remat_policy, boxes=boxes, box_mask=box_mask)
     denoised = edm.denoise(pred, noisy, sigmas_b)
     return edm.weighted_denoising_loss(denoised, latents, sigmas_b)
 
 
 def training_loss(models: SVDModels, pixel_values: torch.Tensor, cfg: TrainConfig,
-                  draws: TrainDraws) -> torch.Tensor:
-    """Full loss for one micro-batch of (B, F, H, W, 3) pixels in [-1, 1].
-    The two stages run under the profiler labels ``train.encode`` and
-    ``train.unet_loss``."""
+                  draws: TrainDraws, boxes: Optional[torch.Tensor] = None,
+                  box_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full loss for one micro-batch of (B, F, H, W, 3) pixels in [-1, 1],
+    with the micro-batch's boxes where it has them. The two stages run
+    under the profiler labels ``train.encode`` and ``train.unet_loss``."""
     with torch.profiler.record_function("train.encode"):
         enc = encode_batch(models, pixel_values, cfg, draws)
         enc = conditioning_dropout(enc, draws.dropout_u, cfg.conditioning_dropout_prob)
+        if boxes is not None and cfg.conditioning_dropout_prob > 0:
+            if draws.box_dropout_u is None:
+                raise ValueError("boxes with conditioning dropout need draws.box_dropout_u")
+            box_mask = box_dropout(boxes, box_mask, draws.box_dropout_u,
+                                   cfg.conditioning_dropout_prob)
     with torch.profiler.record_function("train.unet_loss"):
-        return edm_denoising_loss(models, enc, cfg, draws.sigma, draws.noise)
+        return edm_denoising_loss(models, enc, cfg, draws.sigma, draws.noise, boxes, box_mask)

@@ -20,6 +20,16 @@ and layouts, a diffusers pipeline directory loads the same way
 train_svd.py:643-656), and a LoRA adapter maps to peft's keys one to one
 (``lora_state_dict``; save_lora_weights, train_svd_lora.py:1070-1074).
 Files are read with the port's own safetensors reader (io/safetensors_io.py).
+
+The Tracklet2Video branch (``tracklet_conditioner``, ``gated_attentions``)
+has no diffusers counterpart: ``diffusers_state_dict`` skips it, as
+``flax_to_diffusers`` does, and its own exchange file (the JAX CLI's
+``tracklet_weights.safetensors``) holds the JAX package's flat flax paths
+and layouts (Dense kernels (in, out), ``embedding``, ``scale``):
+``tracklet_state_dict`` reads such a dict into the port's names,
+``tracklet_branch_to_flat`` writes one (convert.py:216-235 in the JAX
+package). A stock diffusers UNet loads into a tracklet UNet with the branch
+left as it was; every other key stays strict.
 """
 
 from __future__ import annotations
@@ -36,7 +46,7 @@ from ..models.lora import Adapter
 from .safetensors_io import load_file
 
 _INDEXED = ("down_blocks|up_blocks|resnets|attentions|transformer_blocks|"
-            "temporal_transformer_blocks|downsamplers|upsamplers|layers")
+            "temporal_transformer_blocks|downsamplers|upsamplers|layers|gated_attentions")
 _SEG_RE = re.compile(rf"^({_INDEXED})_(\d+)$")
 _VAE_RE = re.compile(r"^(down_blocks|up_blocks)_(\d+)_(resnets|downsamplers|upsamplers)_(\d+)$")
 _MID_RE = re.compile(r"^mid_(resnets|attentions)_(\d+)$")
@@ -81,24 +91,106 @@ def _tensor(arr: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, copy=True, order="C"))
 
 
-def diffusers_state_dict(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-    """UNet or VAE flat params -> diffusers-named state dict."""
+def _is_extension_path(path: str) -> bool:
+    return path.startswith(_EXTENSION_PREFIXES) or any(s in path for s in _EXTENSION_SEGMENTS)
+
+
+def is_branch_key(name: str) -> bool:
+    """A port parameter name of the Tracklet2Video branch."""
+    return name.startswith("tracklet_conditioner.") or ".gated_attentions." in name
+
+
+def _flat_to_torch(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
     for path, arr in flat.items():
-        if (path.startswith(_EXTENSION_PREFIXES)
-                or any(s in path for s in _EXTENSION_SEGMENTS)):
-            continue
         base, leaf = path.rsplit("/", 1) if "/" in path else ("", path)
         prefix = _module_key(base) + "." if base else ""
         arr = np.asarray(arr)
         if leaf == "kernel":
             out[f"{prefix}weight"] = _tensor(_kernel(path, arr))
-        elif leaf == "scale":
+        elif leaf in ("scale", "embedding"):
             out[f"{prefix}weight"] = _tensor(arr)
         elif leaf == "mix_factor":
             out[f"{prefix}mix_factor"] = _tensor(arr.reshape(-1))
         else:
             out[f"{prefix}{leaf}"] = _tensor(arr)
+    return out
+
+
+def diffusers_state_dict(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """UNet or VAE flat params -> diffusers-named state dict (without the
+    Tracklet2Video branch)."""
+    return _flat_to_torch({p: a for p, a in flat.items() if not _is_extension_path(p)})
+
+
+def tracklet_state_dict(flat: Mapping) -> Dict[str, torch.Tensor]:
+    """The Tracklet2Video branch of flat UNet params (flax paths and layouts,
+    as ``tracklet_branch_to_flat`` and the JAX package write them; numpy
+    arrays or tensors) -> the port's state-dict entries; other paths are
+    skipped."""
+    as_np = lambda a: a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else a
+    return _flat_to_torch({p: as_np(a) for p, a in flat.items() if _is_extension_path(p)})
+
+
+@torch.no_grad()
+def tracklet_branch_into_unet(flat: Mapping, unet: torch.nn.Module) -> torch.nn.Module:
+    """Copy a ``tracklet_branch_to_flat`` dict (the JAX package's format)
+    into a tracklet UNet's branch, in place, cast to its dtype and device;
+    raises where a path has no parameter or another shape (JAX's
+    ``tracklet_branch_into_tree``). Returns the UNet."""
+    other = sorted(p for p in flat if not _is_extension_path(p))
+    if other:
+        raise ValueError(f"not Tracklet2Video paths: {other[:5]}... ({len(other)})")
+    sd = tracklet_state_dict(flat)
+    params = unet.state_dict()
+    unknown = sorted(set(sd) - set(params))
+    if unknown:
+        raise ValueError(f"unknown tracklet params: {unknown[:5]}... ({len(unknown)})")
+    for name, t in sd.items():
+        if t.shape != params[name].shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(params[name].shape)}")
+        params[name].copy_(t)
+    return unet
+
+
+def _flax_path(name: str) -> str:
+    """A port branch parameter name -> its flax path (_module_key's inverse
+    on the branch: 'a.0.b.weight' -> 'a_0/b/kernel' and so on)."""
+    key = name.replace("to_out.0.", "to_out.")
+    for ff in ("ff", "ff_in"):
+        key = key.replace(f"{ff}.net.0.proj.", f"{ff}.net_0_proj.")
+        key = key.replace(f"{ff}.net.2.", f"{ff}.net_2.")
+    segs: list = []
+    for seg in key.split("."):
+        if seg.isdigit() and segs:
+            segs[-1] += "_" + seg
+        else:
+            segs.append(seg)
+    return "/".join(segs)
+
+
+def tracklet_branch_to_flat(unet_or_sd) -> Dict[str, np.ndarray]:
+    """The UNet's Tracklet2Video branch (a module or a state dict) as the
+    JAX package's flat dict: flax paths, Dense kernels (in, out), the
+    instance embedding as ``embedding``, norm weights as ``scale``; f32
+    numpy arrays. The exchange file of a box-conditioned finetune."""
+    sd = unet_or_sd.state_dict() if isinstance(unet_or_sd, torch.nn.Module) else unet_or_sd
+    out: Dict[str, np.ndarray] = {}
+    for name, t in sd.items():
+        if not is_branch_key(name):
+            continue
+        path = _flax_path(name)
+        arr = t.detach().float().cpu().numpy()
+        base, leaf = path.rsplit("/", 1)
+        if leaf == "weight" and base.endswith("instance_embedding"):
+            leaf = "embedding"
+        elif leaf == "weight" and arr.ndim == 2:
+            leaf, arr = "kernel", arr.T
+        elif leaf == "weight":
+            leaf = "scale"
+        out[f"{base}/{leaf}"] = np.ascontiguousarray(arr)
+    if not out:
+        raise ValueError("the UNet has no Tracklet2Video branch")
     return out
 
 
@@ -140,7 +232,8 @@ def clip_state_dict(flat: Mapping[str, np.ndarray], patch_size: int = 14
 def state_dict_from_jax(flat: Mapping[str, np.ndarray], clip_patch_size: int = 14
                         ) -> Dict[str, Dict[str, torch.Tensor]]:
     """Flat params of the JAX pipeline ({"unet/...", "vae/...", "clip/..."})
-    -> {"unet": sd, "vae": sd, "clip": sd} for the port's modules."""
+    -> {"unet": sd, "vae": sd, "clip": sd} for the port's modules (the
+    UNet's with its Tracklet2Video branch where it has one)."""
     parts: Dict[str, Dict[str, np.ndarray]] = {}
     for path, arr in flat.items():
         comp, rest = path.split("/", 1)
@@ -150,6 +243,8 @@ def state_dict_from_jax(flat: Mapping[str, np.ndarray], clip_patch_size: int = 1
         raise ValueError(f"unknown components {sorted(unknown)}")
     out = {name: diffusers_state_dict(parts[name])
            for name in ("unet", "vae") if name in parts}
+    if "unet" in parts:
+        out["unet"].update(tracklet_state_dict(parts["unet"]))
     if "clip" in parts:
         out["clip"] = clip_state_dict(parts["clip"], clip_patch_size)
     return out
@@ -219,8 +314,9 @@ def load_diffusers_checkpoint(root: str, models, components: Sequence[str] = ("u
                                                                               "clip")):
     """Load a diffusers pipeline directory (``unet/``, ``vae/``,
     ``image_encoder/``; plain or shard-indexed safetensors) into `models`'
-    networks in place, each with ``load_state_dict(strict=True)``, which
-    casts to the network's dtype and device. The CLIP file may hold tensors
+    networks in place, each with ``load_state_dict(strict=True)`` (the
+    UNet through ``load_unet_state``), which casts to the network's dtype
+    and device. The CLIP file may hold tensors
     the tower does not (transformers before 4.31 saved the
     ``position_ids`` buffer): they are dropped first, as the JAX package's
     ``clip_transformers_to_flax`` reads only its template's keys; a missing
@@ -236,6 +332,20 @@ def load_diffusers_checkpoint(root: str, models, components: Sequence[str] = ("u
         if name == "clip":
             held = net.state_dict().keys()
             sd = {k: v for k, v in sd.items() if k in held}
-        net.load_state_dict(sd, strict=True)
+        if name == "unet":
+            load_unet_state(net, sd)
+        else:
+            net.load_state_dict(sd, strict=True)
         del sd
     return models
+
+
+def load_unet_state(unet: torch.nn.Module, sd: Mapping[str, torch.Tensor]) -> None:
+    """A diffusers UNet state dict into `unet`: strict, except that a UNet
+    with the Tracklet2Video branch keeps its branch where the file has none
+    (the JAX package keeps it at its template values)."""
+    missing, unexpected = unet.load_state_dict(sd, strict=False)
+    missing = [k for k in missing if not is_branch_key(k)]
+    if missing or unexpected:
+        raise RuntimeError(f"UNet state dict: missing keys {missing[:5]} ({len(missing)}), "
+                           f"unexpected keys {unexpected[:5]} ({len(unexpected)})")

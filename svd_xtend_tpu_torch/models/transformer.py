@@ -14,6 +14,10 @@ models/attn_processor.py), the transformer ``norm`` to the GroupNorm kernel
 fused residual GEGLU kernel (ops/kernels/geglu.py), as the JAX package
 runs it by default (``SVDX_PALLAS_GEGLU`` on). The GELU is the tanh form, as
 JAX's ``nn.gelu``. State-dict keys are the diffusers names.
+
+With ``tracklet_dim > 0`` each spatial block is followed by a Tracklet2Video
+gated attention (``gated_attentions``, models/tracklet.py), which runs only
+when box tokens are given (JAX transformer.py:533-539).
 """
 
 from __future__ import annotations
@@ -186,7 +190,8 @@ class TransformerSpatioTemporalModel(nn.Module):
     features, with (B*F, N, D) encoder states."""
 
     def __init__(self, channels: int, num_heads: int, head_dim: int,
-                 context_dim: int, num_layers: int = 1, norm_eps: float = 1e-6):
+                 context_dim: int, num_layers: int = 1, norm_eps: float = 1e-6,
+                 tracklet_dim: int = 0, tracklet_gate_init: float = 0.0):
         super().__init__()
         inner = num_heads * head_dim
         self.norm = GroupNormSiLU(channels, 32, norm_eps, silu=False)
@@ -200,9 +205,16 @@ class TransformerSpatioTemporalModel(nn.Module):
         self.time_pos_embed = TimestepEmbedding(inner, inner, hidden_dim=inner * 4)
         self.time_mixer = AlphaBlender(0.5, switch_spatial_to_temporal_mix=True)
         self.proj_out = nn.Linear(inner, channels)
+        self.gated_attentions = None
+        if tracklet_dim > 0:
+            from .tracklet import GatedSelfAttention
+            self.gated_attentions = nn.ModuleList(
+                [GatedSelfAttention(inner, num_heads, head_dim, tracklet_dim,
+                                    tracklet_gate_init) for _ in range(num_layers)])
 
     def forward(self, x: torch.Tensor, encoder_hidden_states: torch.Tensor,
-                num_frames: int) -> torch.Tensor:
+                num_frames: int, tracklet_tokens: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
         bf, h, w, c = x.shape
         f = num_frames
         b = bf // f
@@ -216,9 +228,12 @@ class TransformerSpatioTemporalModel(nn.Module):
         frame_ids = torch.arange(f, dtype=torch.float32, device=x.device)
         emb = self.time_pos_embed(sinusoidal_embedding(frame_ids, inner).to(tokens.dtype))
         emb = emb.repeat(b, 1)[:, None, :]                 # (B*F, 1, inner)
-        for block, tblock in zip(self.transformer_blocks,
-                                 self.temporal_transformer_blocks):
+        gated = self.gated_attentions if tracklet_tokens is not None else None
+        for i, (block, tblock) in enumerate(zip(self.transformer_blocks,
+                                                self.temporal_transformer_blocks)):
             tokens = block(tokens, encoder_hidden_states)
+            if gated is not None:
+                tokens = gated[i](tokens, tracklet_tokens)
             mix = (tokens + emb).reshape(b, f, h * w, inner)
             mix = tblock(mix, time_context).reshape(bf, h * w, inner)
             tokens = self.time_mixer(tokens, mix)

@@ -1,11 +1,18 @@
 """UNetSpatioTemporalConditionModel — the SVD denoiser.
 
 Port of ``svd_xtend_tpu/models/unet.py`` (the full forward, its remat
-policy and the DeepCache split; the Tracklet2Video branch is not ported).
-Inputs are channels-last: sample (B, F, H, W, 8), a scalar or (B,)
-timestep, encoder states (B, N, D), added_time_ids (B, 3); output
-(B, F, H, W, 4). The module computes in the dtype of its parameters; the
-sinusoids are f32.
+policy, the DeepCache split and the Tracklet2Video branch). Inputs are
+channels-last: sample (B, F, H, W, 8), a scalar or (B,) timestep, encoder
+states (B, N, D), added_time_ids (B, 3); output (B, F, H, W, 4). The module
+computes in the dtype of its parameters; the sinusoids are f32.
+
+Tracklet2Video (``UNetConfig.tracklet_dim > 0``, unet.py:268-277 in the JAX
+package): ``tracklet_conditioner`` turns ``boxes`` (B, F, N, 4) and
+``box_mask`` (B, F, N; all ones when not given) into (B·F, N, dim) tokens
+once per forward, outside the remat blocks; every cross-attention down,
+mid and up block hands them to its transformers' gated attentions (and a
+checkpointed block's recompute gets them as an argument). Without boxes
+the branch does not run.
 
 Remat (``remat=``, unet.py:200-295 in the JAX package): "none" keeps every
 activation for the backward; "block" recomputes every top-level block (the
@@ -29,7 +36,7 @@ the same tensors.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -51,7 +58,7 @@ class DownBlock(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, temb_channels: int,
                  num_layers: int, eps: float, add_downsample: bool,
                  num_heads: Optional[int] = None, context_dim: int = 0,
-                 transformer_layers: int = 1):
+                 transformer_layers: int = 1, tracklet: Tuple[int, float] = (0, 0.0)):
         super().__init__()
         self.resnets = nn.ModuleList(
             [SpatioTemporalResBlock(in_channels if i == 0 else out_channels,
@@ -62,17 +69,19 @@ class DownBlock(nn.Module):
             self.attentions = nn.ModuleList(
                 [TransformerSpatioTemporalModel(out_channels, num_heads,
                                                 out_channels // num_heads,
-                                                context_dim, transformer_layers)
+                                                context_dim, transformer_layers,
+                                                tracklet_dim=tracklet[0],
+                                                tracklet_gate_init=tracklet[1])
                  for _ in range(num_layers)])
         self.downsamplers = (nn.ModuleList([Downsample2D(out_channels, out_channels)])
                              if add_downsample else None)
 
-    def forward(self, x, temb, ehs, num_frames, downsample: bool = True):
+    def forward(self, x, temb, ehs, num_frames, downsample: bool = True, tokens=None):
         skips = []
         for i, resnet in enumerate(self.resnets):
             x = resnet(x, temb, num_frames)
             if self.attentions is not None:
-                x = self.attentions[i](x, ehs, num_frames)
+                x = self.attentions[i](x, ehs, num_frames, tokens)
             skips.append(x)
         if self.downsamplers is not None and downsample:
             x = self.downsamplers[0](x)
@@ -84,18 +93,21 @@ class MidBlock(nn.Module):
     """UNetMidBlockSpatioTemporal: resnet, transformer, resnet."""
 
     def __init__(self, channels: int, temb_channels: int, eps: float,
-                 num_heads: int, context_dim: int, transformer_layers: int = 1):
+                 num_heads: int, context_dim: int, transformer_layers: int = 1,
+                 tracklet: Tuple[int, float] = (0, 0.0)):
         super().__init__()
         self.resnets = nn.ModuleList(
             [SpatioTemporalResBlock(channels, channels, temb_channels, eps)
              for _ in range(2)])
         self.attentions = nn.ModuleList(
             [TransformerSpatioTemporalModel(channels, num_heads, channels // num_heads,
-                                            context_dim, transformer_layers)])
+                                            context_dim, transformer_layers,
+                                            tracklet_dim=tracklet[0],
+                                            tracklet_gate_init=tracklet[1])])
 
-    def forward(self, x, temb, ehs, num_frames):
+    def forward(self, x, temb, ehs, num_frames, tokens=None):
         x = self.resnets[0](x, temb, num_frames)
-        x = self.attentions[0](x, ehs, num_frames)
+        x = self.attentions[0](x, ehs, num_frames, tokens)
         return self.resnets[1](x, temb, num_frames)
 
 
@@ -106,7 +118,8 @@ class UpBlock(nn.Module):
     def __init__(self, prev_channels: int, out_channels: int,
                  skip_channels: Sequence[int], temb_channels: int, eps: float,
                  add_upsample: bool, num_heads: Optional[int] = None,
-                 context_dim: int = 0, transformer_layers: int = 1):
+                 context_dim: int = 0, transformer_layers: int = 1,
+                 tracklet: Tuple[int, float] = (0, 0.0)):
         super().__init__()
         self.resnets = nn.ModuleList(
             [SpatioTemporalResBlock((prev_channels if i == 0 else out_channels) + sc,
@@ -117,16 +130,18 @@ class UpBlock(nn.Module):
             self.attentions = nn.ModuleList(
                 [TransformerSpatioTemporalModel(out_channels, num_heads,
                                                 out_channels // num_heads,
-                                                context_dim, transformer_layers)
+                                                context_dim, transformer_layers,
+                                                tracklet_dim=tracklet[0],
+                                                tracklet_gate_init=tracklet[1])
                  for _ in skip_channels])
         self.upsamplers = (nn.ModuleList([Upsample2D(out_channels)])
                            if add_upsample else None)
 
-    def forward(self, x, skips: List[torch.Tensor], temb, ehs, num_frames):
+    def forward(self, x, skips: List[torch.Tensor], temb, ehs, num_frames, tokens=None):
         for i, resnet in enumerate(self.resnets):
             x = resnet(torch.cat([x, skips[-(i + 1)]], dim=-1), temb, num_frames)
             if self.attentions is not None:
-                x = self.attentions[i](x, ehs, num_frames)
+                x = self.attentions[i](x, ehs, num_frames, tokens)
         if self.upsamplers is not None:
             x = self.upsamplers[0](x)
         return x
@@ -136,13 +151,12 @@ class UNetSpatioTemporalConditionModel(nn.Module):
     def __init__(self, config: UNetConfig):
         super().__init__()
         cfg = self.config = config
-        if cfg.tracklet_dim > 0:
-            raise ValueError("the Tracklet2Video branch is not ported")
         chs = cfg.block_out_channels
         tdim = cfg.time_embed_dim
         ctx = cfg.cross_attention_dim
         eps = cfg.resnet_eps
         n = len(chs)
+        tracklet = (cfg.tracklet_dim, cfg.tracklet_gate_init)
         self.conv_in = Conv3x3(cfg.in_channels, chs[0])
         self.time_embedding = TimestepEmbedding(chs[0], tdim)
         self.add_embedding = TimestepEmbedding(cfg.projection_class_embeddings_input_dim, tdim)
@@ -154,10 +168,10 @@ class UNetSpatioTemporalConditionModel(nn.Module):
             self.down_blocks.append(DownBlock(
                 cin, chs[i], tdim, cfg.layers_per_block, eps, i < n - 1,
                 cfg.num_attention_heads[i] if cross else None, ctx,
-                cfg.transformer_layers_per_block[i]))
+                cfg.transformer_layers_per_block[i], tracklet))
             cin = chs[i]
         self.mid_block = MidBlock(chs[-1], tdim, eps, cfg.num_attention_heads[-1],
-                                  ctx, cfg.transformer_layers_per_block[-1])
+                                  ctx, cfg.transformer_layers_per_block[-1], tracklet)
 
         rev = list(reversed(chs))
         rev_heads = list(reversed(cfg.num_attention_heads))
@@ -172,10 +186,15 @@ class UNetSpatioTemporalConditionModel(nn.Module):
             skip_ch = [rev[i]] * (n_res - 1) + [rev[min(i + 1, n - 1)]]
             self.up_blocks.append(UpBlock(
                 prev, rev[i], skip_ch, tdim, eps, i < n - 1,
-                rev_heads[i] if cross else None, ctx, rev_tl[i]))
+                rev_heads[i] if cross else None, ctx, rev_tl[i], tracklet))
             prev = rev[i]
         self.conv_norm_out = GroupNormSiLU(chs[0], 32, eps)
         self.conv_out = Conv3x3(chs[0], cfg.out_channels)
+        self.tracklet_conditioner = None
+        if cfg.tracklet_dim > 0:
+            from .tracklet import TrackletConditioner
+            self.tracklet_conditioner = TrackletConditioner(cfg.tracklet_dim,
+                                                            cfg.tracklet_heads)
         for name, m in self.named_modules():
             if isinstance(m, Attention):        # the attention-processor sites
                 m.site = name
@@ -183,7 +202,9 @@ class UNetSpatioTemporalConditionModel(nn.Module):
     def forward(self, sample: torch.Tensor, timestep, encoder_hidden_states: torch.Tensor,
                 added_time_ids: torch.Tensor, remat: str = "none",
                 cached_deep: Optional[torch.Tensor] = None, return_deep: bool = False,
-                cache_depth: int = 1):
+                cache_depth: int = 1, boxes: Optional[torch.Tensor] = None,
+                box_mask: Optional[torch.Tensor] = None,
+                instance_ids: Optional[torch.Tensor] = None):
         """(B, F, H, W, out) — with ``return_deep``, (out, deep feature)."""
         cfg = self.config
         if remat not in ("none", "block", "outer"):
@@ -218,16 +239,22 @@ class UNetSpatioTemporalConditionModel(nn.Module):
         emb_f = emb.repeat_interleave(f, dim=0)
         ehs_f = encoder_hidden_states.to(dtype).repeat_interleave(f, dim=0)
 
+        tokens = None
+        if self.tracklet_conditioner is not None and boxes is not None:
+            if box_mask is None:
+                box_mask = torch.ones(boxes.shape[:3], device=boxes.device)
+            tokens = self.tracklet_conditioner(boxes, box_mask, instance_ids)
+
         x = self.conv_in(x)
         skips = [x]
         for i, block in enumerate(self.down_blocks):
             if shallow and i >= cache_depth:
                 break
             downsample = not (shallow and i == cache_depth - 1)
-            x, res = run(block, i, x, emb_f, ehs_f, f, downsample)
+            x, res = run(block, i, x, emb_f, ehs_f, f, downsample, tokens)
             skips.extend(res)
         if not shallow:
-            x = run(self.mid_block, None, x, emb_f, ehs_f, f)
+            x = run(self.mid_block, None, x, emb_f, ehs_f, f, tokens)
         deep = None
         for i, block in enumerate(self.up_blocks):
             if shallow and i < n_up - cache_depth:
@@ -235,7 +262,7 @@ class UNetSpatioTemporalConditionModel(nn.Module):
             if shallow and i == n_up - cache_depth:
                 x = cached_deep.to(dtype).reshape((b * f,) + cached_deep.shape[2:])
             n_res = len(block.resnets)
-            x = run(block, n_levels - 1 - i, x, skips[-n_res:], emb_f, ehs_f, f)
+            x = run(block, n_levels - 1 - i, x, skips[-n_res:], emb_f, ehs_f, f, tokens)
             skips = skips[:-n_res]
             if return_deep and i == n_up - cache_depth - 1:
                 deep = x

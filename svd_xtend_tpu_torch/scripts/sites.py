@@ -4,9 +4,12 @@ and checks the kernel at each, the card tests hold it against its plain
 version at each, and the tier-1 plan tests check each site's launch plan.
 
 Also the GEGLU (T, C) shapes of the UNet's four levels: training (batch 14
-frames) and generate's CFG pair (28); and the temporal resnet's and
+frames) and generate's CFG pair (28); the temporal resnet's and
 group_norm_silu's shapes with their launches per exact video and per train
-step (TRESNET_SITES, GN_SITES), derived from the configs.
+step (TRESNET_SITES, GN_SITES), derived from the configs; and the flash
+kernels' calls by (tokens S_q, keys S_kv): per UNet pass at any size, with
+or without the Tracklet2Video gated attentions (``flash_calls_per_pass``),
+and per train step by scope (FLASH_BWD_SITES).
 """
 
 from ..core.config import PipelineConfig, TrainConfig, UNetConfig, VAEConfig
@@ -161,30 +164,58 @@ def _gn_sites():
 GN_SITES = _gn_sites()
 
 
-def _flash_bwd_sites():
-    """flash_attention_bwd calls per train step by tokens S, per scope, from
-    the default configs: one per spatial self-attention whose inputs need a
-    gradient (the transformer models of each level, as in _gn_sites, at the
-    train latent's h / 2^i x w / 2^i tokens). The 'lora' scope trains
-    adapters on every attention, so every site; the 'temporal' scope none
-    before the first temporal block, so not the first transformer model's
-    spatial self-attention."""
-    unet, vae, train = UNetConfig(), VAEConfig(), TrainConfig()
-    h, w = train.height // vae.downsample_factor, train.width // vae.downsample_factor
+def _transformer_models(level: int) -> dict:
+    """The UNet's transformer models at resolution level `level`, by where
+    they sit: {"down": n, "up": n, "mid": n} (UNetConfig() blocks)."""
+    unet = UNetConfig()
     n = len(unet.block_out_channels)
-    ups = list(reversed(unet.up_block_types))
-    lora = {}
-    for i in range(n):
-        models = unet.transformer_layers_per_block[i] * (
-            unet.layers_per_block * ("CrossAttn" in unet.down_block_types[i])
-            + (unet.layers_per_block + 1) * ("CrossAttn" in ups[i]) + (i == n - 1))
-        if models:
-            lora[(h >> i) * (w >> i)] = models
+    ups = list(reversed(unet.up_block_types))       # up block of level i
+    t = unet.transformer_layers_per_block[level]
+    return {"down": t * unet.layers_per_block * ("CrossAttn" in unet.down_block_types[level]),
+            "up": t * (unet.layers_per_block + 1) * ("CrossAttn" in ups[level]),
+            "mid": t * (level == n - 1)}
+
+
+def flash_calls_per_pass(height: int, width: int, boxes: int = 0, depth=None) -> dict:
+    """Flash forward calls of one UNet pass over a (height, width) video by
+    (S_q, S_kv): every transformer model's spatial self-attention (S, S) at
+    its level's h / 2^i x w / 2^i latent tokens and, with `boxes` box tokens
+    a frame, its Tracklet2Video gated attention (S, S + boxes). `depth`:
+    a DeepCache shallow pass, which runs the down and up blocks of levels
+    [0, depth) and not the mid block."""
+    vae = VAEConfig()
+    h, w = height // vae.downsample_factor, width // vae.downsample_factor
+    calls = {}
+    for i in range(len(UNetConfig().block_out_channels)):
+        m = _transformer_models(i)
+        models = m["down"] + m["up"] + m["mid"] if depth is None else (
+            m["down"] + m["up"] if i < depth else 0)
+        s = (h >> i) * (w >> i)
+        for key in ([(s, s)] + ([(s, s + boxes)] if boxes else [])):
+            if models:
+                calls[key] = calls.get(key, 0) + models
+    return calls
+
+
+def _flash_bwd_sites():
+    """flash_attention_bwd calls per train step by (S_q, S_kv), per scope,
+    from the default configs: one per attention whose inputs need a
+    gradient, at the train latent's h / 2^i x w / 2^i tokens. The 'lora'
+    scope trains adapters on every attention, so every spatial
+    self-attention; the 'temporal' scope none before the first temporal
+    block, so not the first transformer model's; the 'tracklet' scope the
+    same self-attentions (its first trainable layer, the first gated
+    attention, follows the first one) and every gated attention (S, S +
+    max_boxes)."""
+    train = TrainConfig()
+    lora = flash_calls_per_pass(train.height, train.width)
     temporal = dict(lora)
     temporal[next(iter(lora))] -= 1
-    return {"lora": lora, "temporal": {s: c for s, c in temporal.items() if c}}
+    temporal = {k: c for k, c in temporal.items() if c}
+    gated = {(s, s + train.max_boxes): c for (s, _), c in lora.items()}
+    return {"lora": lora, "temporal": temporal, "tracklet": {**temporal, **gated}}
 
 
-# flash_attention_bwd calls per train step by tokens S at the defaults, per
-# scope ('lora', 'temporal')
+# flash_attention_bwd calls per train step by (S_q, S_kv) at the defaults, per
+# scope ('lora', 'temporal', 'tracklet')
 FLASH_BWD_SITES = _flash_bwd_sites()

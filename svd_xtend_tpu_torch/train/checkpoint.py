@@ -14,9 +14,11 @@ Port of ``svd_xtend_tpu/train/checkpoint.py``:
     incomplete, and neither 'latest' nor the rotation counts it. Saves are
     synchronous; ``wait()`` only rotates.
   - The diffusers-format exports (:132-155): the UNet as ``save_pretrained``
-    writes it (train_svd.py:698-706) and a LoRA adapter as
-    ``save_lora_weights`` does (train_svd_lora.py:1070-1074), safetensors
-    with ``{"format": "pt"}``.
+    writes it (train_svd.py:698-706), without the Tracklet2Video branch,
+    and a LoRA adapter as ``save_lora_weights`` does
+    (train_svd_lora.py:1070-1074), safetensors with ``{"format": "pt"}``;
+    the branch alone as ``tracklet_weights.safetensors`` in the JAX
+    package's flax paths and layouts (its cli.py:406-415).
 """
 
 from __future__ import annotations
@@ -31,12 +33,13 @@ import torch
 from torch import nn
 
 from ..core.config import TrainConfig
-from ..io.convert import lora_state_dict
+from ..io.convert import is_branch_key, lora_state_dict, tracklet_branch_to_flat
 from ..io.safetensors_io import save_file
 from ..models.lora import Adapter
 
 CKPT_PREFIX = "checkpoint-"
 STATE_FILE = "train_state.pt"
+TRACKLET_FILE = "tracklet_weights.safetensors"
 
 
 def _ckpt_steps(output_dir: str, complete_only: bool = False):
@@ -131,11 +134,12 @@ class CheckpointManager:
 def export_unet_diffusers(unet: Union[nn.Module, Mapping[str, torch.Tensor]], path: str,
                           config_json: str = "") -> str:
     """Write ``<path>/diffusion_pytorch_model.safetensors`` (the UNet's state
-    dict, or the state dict given, in its own dtypes; the port's names are
-    diffusers') and, given `config_json`, ``<path>/config.json``. Returns
-    the weights file."""
+    dict, or the state dict given, in its own dtypes, without the
+    Tracklet2Video branch; the port's names are diffusers') and, given
+    `config_json`, ``<path>/config.json``. Returns the weights file."""
     os.makedirs(path, exist_ok=True)
     sd = unet.state_dict() if isinstance(unet, nn.Module) else unet
+    sd = {k: v for k, v in sd.items() if not is_branch_key(k)}
     out = save_file(sd, os.path.join(path, "diffusion_pytorch_model.safetensors"),
                     metadata={"format": "pt"})
     if config_json:
@@ -150,3 +154,12 @@ def export_lora_diffusers(lora: Adapter, path: str) -> str:
     os.makedirs(path, exist_ok=True)
     return save_file(lora_state_dict(lora), os.path.join(path, "pytorch_lora_weights.safetensors"),
                      metadata={"format": "pt"})
+
+
+def export_tracklet(unet: Union[nn.Module, Mapping[str, torch.Tensor]], path: str) -> str:
+    """Write ``<path>/tracklet_weights.safetensors``: the UNet's (or the
+    state dict's) Tracklet2Video branch as f32 in the JAX package's flat
+    flax paths and layouts, the file its CLI writes. Returns the file."""
+    os.makedirs(path, exist_ok=True)
+    flat = {k: torch.from_numpy(v) for k, v in tracklet_branch_to_flat(unet).items()}
+    return save_file(flat, os.path.join(path, TRACKLET_FILE))

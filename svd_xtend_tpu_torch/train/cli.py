@@ -14,7 +14,11 @@ Usage:
 
 One card (``--device``, ``cuda`` by default; ``cpu`` runs the kernels'
 plain versions): the mesh flags take one card only, ``--attn_impl`` only
-``auto``, and what ``TrainConfig.check_ported`` refuses stays refused.
+``auto``, and what ``TrainConfig.check_ported`` refuses (ZeRO-1, host
+offload) stays refused. ``--train_mode tracklet`` (or ``full`` with
+``--tracklet_dim_full``) builds the UNet with the Tracklet2Video branch,
+reads ``<video>/boxes.npz`` with ``--max_boxes`` slots, and writes the
+branch as ``tracklet_weights.safetensors`` beside the UNet export.
 Each step's draws come from a generator on the step's device seeded from
 (seed, step) alone (the JAX step folds the step into one key), so a resumed
 run draws what a straight run draws and the checkpoint holds no generator.
@@ -24,6 +28,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import os
 import signal
 import time
@@ -40,7 +45,7 @@ from ..models import lora as lora_lib
 from ..train import checkpoint as ckpt_lib
 from ..train.optim import training_schedule
 from ..train.state import (TrainState, cast_frozen_to_compute, create_train_state,
-                           make_train_step, param_audit, trainable_mask)
+                           make_train_step, param_audit, trainable_mask, write_back)
 from ..utils.logging import MetricWriter, get_logger
 
 UNET_FILE = "diffusion_pytorch_model.safetensors"
@@ -59,15 +64,19 @@ def parse_args(argv=None) -> argparse.Namespace:
                    choices=["full", "temporal", "lora", "tracklet"],
                    default="temporal")
     p.add_argument("--rank", type=int, default=4, help="LoRA rank (=alpha)")
-    # Tracklet2Video: parsed as in the JAX package, refused (ROADMAP A9)
+    # Tracklet2Video: 'tracklet' mode trains only the box-conditioning branch
+    # on videos with <video>/boxes.npz annotations (boxes (T,N,4) normalized
+    # xyxy [+ mask])
     p.add_argument("--tracklet_dim", type=int, default=1024,
-                   help="box-token width (--train_mode tracklet; not ported)")
+                   help="box-token width (used when --train_mode tracklet)")
     p.add_argument("--tracklet_dim_full", action="store_true",
-                   help="with --train_mode full: also train the tracklet branch (not ported)")
+                   help="with --train_mode full: also build + train the "
+                        "tracklet branch at --tracklet_dim")
     p.add_argument("--tracklet_gate_init", type=float, default=0.0,
-                   help="GLIGEN gate init (not ported)")
+                   help="GLIGEN gate init (0 = exact no-op at init; warm "
+                        ">0 for joint from-scratch training)")
     p.add_argument("--max_boxes", type=int, default=16,
-                   help="per-frame box slots (not ported)")
+                   help="per-frame box slots (padding/truncation)")
     # optimization
     p.add_argument("--per_device_batch_size", type=int, default=1)
     p.add_argument("--gradient_accumulation_steps", type=int, default=1)
@@ -82,7 +91,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--adam_epsilon", type=float, default=1e-8)
     p.add_argument("--max_grad_norm", type=float, default=1.0)
     p.add_argument("--use_8bit_adam", action="store_true",
-                   help="blockwise-int8 Adam moments (not ported: ROADMAP A12.7)")
+                   help="blockwise-int8 Adam moments (reference bitsandbytes "
+                        "AdamW8bit, train_svd.py:746-756)")
     p.add_argument("--host_offload",
                    choices=["none", "masters", "masters+moments"],
                    default="none",
@@ -97,7 +107,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--use_ema", action="store_true")
     p.add_argument("--mixed_precision", choices=["no", "bf16"], default="bf16")
     p.add_argument("--grad_dtype", choices=["fp32", "bf16"], default="fp32",
-                   help="gradient storage dtype (bf16 not ported: ROADMAP A12.7)")
+                   help="gradient storage dtype: bf16 differentiates bf16 copies of the "
+                        "trained weights and applies bf16 gradients to the f32 masters")
     p.add_argument("--seed", type=int, default=123)
     # checkpointing / validation / logging
     p.add_argument("--output_dir", default="./outputs/svd-finetune")
@@ -204,8 +215,8 @@ def load_or_init_params(models: SVDModels, args) -> SVDModels:
         convert.load_diffusers_checkpoint(args.pretrained_model_path, models)
     if args.pretrain_unet:
         from ..io import convert
-        models.unet.load_state_dict(convert.load_component_state(args.pretrain_unet, UNET_FILE),
-                                    strict=True)
+        convert.load_unet_state(models.unet,
+                                convert.load_component_state(args.pretrain_unet, UNET_FILE))
     return models
 
 
@@ -223,15 +234,6 @@ def _synthetic_validation_image(height: int, width: int) -> torch.Tensor:
     return torch.from_numpy(np.clip(img, -1.0, 1.0))[None]
 
 
-def _write_back(models: SVDModels, state: TrainState, tensors=None) -> None:
-    """Copy the state's f32 masters (or `tensors`, aligned with them) into
-    the UNet's compute copies, rounded to its dtype."""
-    named = dict(models.unet.named_parameters())
-    with torch.no_grad():
-        for n, t in zip(state.names, state.params if tensors is None else tensors):
-            named[n].copy_(t)
-
-
 @contextlib.contextmanager
 def trained_weights(models: SVDModels, state: TrainState, cfg: TrainConfig):
     """The UNet as the finetune leaves it, inside the block: the adapter
@@ -241,11 +243,11 @@ def trained_weights(models: SVDModels, state: TrainState, cfg: TrainConfig):
         with lora_lib.merged(models.unet, state.lora, cfg.lora_alpha):
             yield
     elif state.ema_params is not None:
-        _write_back(models, state, state.ema_params)
+        write_back(models, cfg, state, state.ema_params)
         try:
             yield
         finally:
-            _write_back(models, state)
+            write_back(models, cfg, state)
     else:
         yield
 
@@ -307,6 +309,18 @@ def final_unet_state(models: SVDModels, state: TrainState, cfg: TrainConfig) -> 
     return sd
 
 
+def to_device(batch, device, accum: int):
+    """A loader batch (numpy pixels, or a dict of numpy arrays with boxes) as
+    tensors on `device`, split into (accum, B / accum, ...) when
+    accumulating."""
+    def one(a):
+        t = torch.from_numpy(a).to(device)
+        return t.reshape(accum, t.shape[0] // accum, *t.shape[1:]) if accum > 1 else t
+    if isinstance(batch, dict):
+        return {k: one(v) for k, v in batch.items()}
+    return one(batch)
+
+
 def main(argv=None) -> dict:
     """Train as the flags say; returns what the run measured (host seconds
     of each step, of each checkpoint save and its bytes, of the restore, of
@@ -332,16 +346,21 @@ def _train(args, cfg: TrainConfig, logger, preempted) -> dict:
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda and no CUDA card; --device cpu trains on the CPU")
-    configs = ((TINY_UNET, TINY_VAE, TINY_CLIP) if args.tiny_model
-               else (UNetConfig(), VAEConfig(), CLIPVisionConfig()))
-    models = load_or_init_params(SVDModels.create(*configs, device=device), args)
+    unet_cfg, vae_cfg, clip_cfg = ((TINY_UNET, TINY_VAE, TINY_CLIP) if args.tiny_model
+                                   else (UNetConfig(), VAEConfig(), CLIPVisionConfig()))
+    if cfg.tracklet_dim > 0:
+        # the branch of SVDModels.with_tracklet, initialised with the rest
+        unet_cfg = dataclasses.replace(unet_cfg, tracklet_dim=cfg.tracklet_dim,
+                                       tracklet_gate_init=cfg.tracklet_gate_init)
+    models = load_or_init_params(SVDModels.create(unet_cfg, vae_cfg, clip_cfg, device=device),
+                                 args)
     lora_gen = torch.Generator(device=device).manual_seed(derived_seed(cfg.seed, spawn_key=(1,)))
     state = create_train_state(cfg, models, generator=lora_gen)
     logger.info("%s scope on %s: %d trainable tensors, %d values", cfg.train_mode, device,
                 len(state.names), sum(p.numel() for p in state.params))
 
     # param audit (reference params_freeze.txt / params_train.txt)
-    if cfg.train_mode in ("full", "temporal"):
+    if cfg.train_mode in ("full", "temporal", "tracklet"):
         frozen_names, train_names = param_audit(trainable_mask(models.unet, cfg.train_mode))
         os.makedirs(cfg.output_dir, exist_ok=True)
         with open(os.path.join(cfg.output_dir, "params_freeze.txt"), "w") as f:
@@ -361,15 +380,15 @@ def _train(args, cfg: TrainConfig, logger, preempted) -> dict:
     if cfg.resume_from_checkpoint:
         t0 = time.perf_counter()
         state, _, data_state = manager.restore(cfg.resume_from_checkpoint, state)
-        if state.lora is None:
-            _write_back(models, state)
+        write_back(models, cfg, state)
         stats["restore_seconds"] = time.perf_counter() - t0
         data_step = int(data_state.get("step", state.step))
         logger.info("resumed at step %d (data step %d)", state.step, data_step)
 
     step_fn = make_train_step(models, cfg)
     schedule = training_schedule(cfg)
-    dataset = FrameFolderDataset(cfg.base_folder, cfg.width, cfg.height, cfg.num_frames)
+    dataset = FrameFolderDataset(cfg.base_folder, cfg.width, cfg.height, cfg.num_frames,
+                                 max_boxes=cfg.max_boxes if cfg.tracklet_dim > 0 else 0)
     stats["decoder"] = dataset.decoder
     accum = cfg.gradient_accumulation_steps
     local_bs = cfg.per_device_batch_size * accum
@@ -386,9 +405,7 @@ def _train(args, cfg: TrainConfig, logger, preempted) -> dict:
                 logger.warning("preemption signal: checkpoint saved at step %d", step)
                 break
             t0 = time.perf_counter()
-            batch = torch.from_numpy(next(loader)).to(device)
-            if accum > 1:
-                batch = batch.reshape(accum, local_bs // accum, *batch.shape[1:])
+            batch = to_device(next(loader), device, accum)
             state, metrics = step_fn(state, batch,
                                      generator=step_generator(cfg.seed, step, device))
             stats["step_seconds"].append(time.perf_counter() - t0)
@@ -433,6 +450,10 @@ def _train(args, cfg: TrainConfig, logger, preempted) -> dict:
                                    config_json=models.unet.config.to_json())
     if state.lora is not None:
         ckpt_lib.export_lora_diffusers(state.lora, cfg.output_dir)
+    if cfg.tracklet_dim > 0:
+        # the branch alone (the diffusers export above leaves it out), for
+        # any scope that carries it
+        ckpt_lib.export_tracklet(final_unet_state(models, state, cfg), cfg.output_dir)
     stats["export_seconds"] = time.perf_counter() - t0
     logger.info("final model exported to %s", cfg.output_dir)
     if args.push_to_hub:

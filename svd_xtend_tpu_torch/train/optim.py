@@ -8,8 +8,12 @@ polynomial, constant, constant_with_warmup, each with linear warmup), the
 max_norm, else scale them by max_norm / norm, all in f32; unlike
 ``torch.nn.utils.clip_grad_norm_``, which adds 1e-6 and always multiplies),
 then ``torch.optim.AdamW`` (decoupled decay, eps outside the square root:
-``optax.adamw``). The schedule value applied at an update is the one at
-the count of updates before it, as in optax.
+``optax.adamw``), or with ``use_8bit_adam`` the int8-moment AdamW of
+``train/quant.py`` (the JAX package's ``adamw_8bit``). The schedule value
+applied at an update is the one at the count of updates before it, as in
+optax. Gradients may be bf16 (``grad_dtype="bf16"``): the clip scales them
+in f32 and rounds back, and AdamW reads them as f32 against the f32
+masters.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from typing import Callable, List, Sequence, Tuple
 import torch
 
 from ..core.config import TrainConfig
+from .quant import AdamW8bit
 
 Schedule = Callable[[int], float]
 
@@ -86,46 +91,75 @@ def clip_by_global_norm_f32_(grads: Sequence[torch.Tensor], max_norm: float) -> 
 
 class ClippedAdamW:
     """The optimizer chain of ``make_optimizer``: the f32 global-norm clip
-    (when max_grad_norm > 0), then AdamW at the schedule's learning rate.
+    (when max_grad_norm > 0), then AdamW at the schedule's learning rate
+    (``torch.optim.AdamW``, or ``AdamW8bit`` with ``use_8bit_adam``).
     Steps f32 `params` (the masters) with gradients given per step."""
+
+    CHUNK = 32      # parameters whose bf16 gradients are copied to f32 at once
 
     def __init__(self, params: List[torch.Tensor], schedule: Schedule, cfg: TrainConfig):
         self.params, self.schedule = params, schedule
         self.max_grad_norm = cfg.max_grad_norm
         self.count = 0
-        self.adamw = torch.optim.AdamW(
-            params, lr=schedule(0), betas=(cfg.adam_beta1, cfg.adam_beta2),
-            eps=cfg.adam_epsilon, weight_decay=cfg.adam_weight_decay)
+        self.adamw = self.adamw8 = None
+        if cfg.use_8bit_adam:
+            self.adamw8 = AdamW8bit(params, cfg.adam_beta1, cfg.adam_beta2, cfg.adam_epsilon,
+                                    cfg.adam_weight_decay)
+        else:
+            self.adamw = torch.optim.AdamW(
+                params, lr=schedule(0), betas=(cfg.adam_beta1, cfg.adam_beta2),
+                eps=cfg.adam_epsilon, weight_decay=cfg.adam_weight_decay)
 
     def step(self, grads: List[torch.Tensor]) -> Tuple[float, torch.Tensor]:
-        """One update with `grads` (f32, aligned with params; clipped in
-        place). Returns the learning rate it applied and the f32 global
-        norm of the gradients before clipping."""
+        """One update with `grads` (f32 or bf16, aligned with params;
+        clipped in place). Returns the learning rate it applied and the f32
+        global norm of the gradients before clipping."""
         if self.max_grad_norm and self.max_grad_norm > 0:
             norm = clip_by_global_norm_f32_(grads, self.max_grad_norm)
         else:
             norm = global_norm_f32(grads)
         lr = float(self.schedule(self.count))
-        for group in self.adamw.param_groups:
-            group["lr"] = lr
-        for p, g in zip(self.params, grads):
-            p.grad = g
-        self.adamw.step()
-        for p in self.params:
-            p.grad = None
+        if self.adamw8 is not None:
+            self.adamw8.step(grads, lr)
+        else:
+            for group in self.adamw.param_groups:
+                group["lr"] = lr
+            # AdamW reads gradients of the masters' dtype: bf16 ones are
+            # copied to f32 CHUNK tensors at a time (AdamW skips a parameter
+            # without a gradient), so the f32 copies never all exist at once
+            n = len(self.params)
+            same = all(g.dtype == p.dtype for p, g in zip(self.params, grads))
+            for i in range(0, n, n if same else self.CHUNK):
+                part = self.params[i:i + (n if same else self.CHUNK)]
+                for p, g in zip(part, grads[i:i + len(part)]):
+                    p.grad = g.to(p.dtype)
+                self.adamw.step()
+                for p in part:
+                    p.grad = None
         self.count += 1
         return lr, norm
 
     def state_dict(self) -> dict:
-        """The update count and AdamW's state (its step and both moments
-        per parameter, by position in `params`)."""
+        """The update count and the optimizer's state by position in
+        `params`: AdamW's (its step and both moments per parameter) under
+        "adamw", or the 8-bit one's under "adamw8". The tensors are the
+        live ones."""
+        if self.adamw8 is not None:
+            return {"count": self.count, "adamw8": self.adamw8.state_dict()}
         return {"count": self.count, "adamw": self.adamw.state_dict()}
 
     def load_state_dict(self, sd: dict) -> None:
-        """Restore what state_dict gave; AdamW moves the moments to the
-        parameters' devices."""
+        """Restore what state_dict gave onto the parameters' devices; raises
+        for the state of the other optimizer."""
+        key = "adamw8" if self.adamw8 is not None else "adamw"
+        if key not in sd:
+            raise ValueError(f"checkpoint holds {', '.join(k for k in sd if k != 'count')} "
+                             f"optimizer state, this run's optimizer is {key}")
         self.count = int(sd["count"])
-        self.adamw.load_state_dict(sd["adamw"])
+        if self.adamw8 is not None:
+            self.adamw8.load_state_dict(sd["adamw8"])
+        else:
+            self.adamw.load_state_dict(sd["adamw"])
 
 
 def make_optimizer(cfg: TrainConfig, params: List[torch.Tensor],

@@ -1,25 +1,34 @@
 """Train state, trainable scopes, EMA, and the train step.
 
-Port of ``svd_xtend_tpu/train/state.py`` for the 'temporal', 'full' and
-'lora' scopes:
+Port of ``svd_xtend_tpu/train/state.py``:
   - trainable scopes: 'full' (every UNet parameter), 'temporal' (the
     parameters whose name contains ``temporal_transformer_block``, the JAX
     package's rule on its flax paths; not the temporal resnets, not
-    ``time_pos_embed`` / ``time_mixer``) and 'lora' (an adapter on every
+    ``time_pos_embed`` / ``time_mixer``), 'tracklet' (the Tracklet2Video
+    branch alone: ``tracklet_conditioner.*`` and every ``gated_attentions``
+    parameter, over the frozen UNet) and 'lora' (an adapter on every
     attention projection over the frozen UNet, models/lora.py;
     train_svd_lora.py:744-751);
+  - a batch is (B, F, H, W, 3) pixels, or for Tracklet2Video a dict of
+    ``pixel_values``, ``boxes`` (B, F, N, 4) and ``box_mask`` (B, F, N);
   - EMA with the (1+step)/(10+step) warmup clamped at the max decay, stepped
     after each update (full scope, ``use_ema``);
   - gradient accumulation: the batch gets a leading (accum,) axis, the
-    micro-batch gradients are summed in f32 and divided by accum.
+    micro-batch gradients are summed in f32 (bf16 with ``grad_dtype="bf16"``)
+    and divided by accum.
 
 Mixed precision: the networks hold their weights in the compute dtype (bf16)
 and compute in it, without autocast; the state holds f32 master copies of
 the trainable weights, which the optimizer steps and which are copied back
 (rounded) into the networks after each update. Each micro-batch's gradient
 is taken with respect to the compute copies and accumulated in f32, as JAX
-differentiates f32 masters that are cast to bf16 at use. Frozen weights
-(the other UNet leaves, VAE, CLIP) exist only in the compute dtype
+differentiates f32 masters that are cast to bf16 at use. With
+``grad_dtype="bf16"`` (state.py:228-233 in the JAX package) the gradient is
+taken with respect to bf16 copies, stored and accumulated in bf16 and
+applied to the f32 masters: the compute copies then hold the masters
+rounded to bf16 whatever the networks' dtype, and the 'lora' scope
+differentiates a bf16 copy of the adapter. Frozen weights (the other UNet
+leaves, VAE, CLIP) exist only in the compute dtype
 (``cast_frozen_to_compute``, state.py:149-171 in the JAX package).
 
 The 'lora' scope differentiates the loss with respect to the f32 adapter
@@ -41,7 +50,7 @@ from torch import nn
 from ..core.config import TrainConfig
 from ..diffusion.pipeline import SVDModels
 from ..diffusion.training import TrainDraws, sample_train_draws, training_loss
-from ..io.convert import lora_state_dict
+from ..io.convert import is_branch_key, lora_state_dict
 from ..models import lora as lora_lib
 from .optim import ClippedAdamW, make_optimizer
 
@@ -49,12 +58,15 @@ TEMPORAL_SCOPE = "temporal_transformer_block"
 
 
 def trainable_mask(unet: nn.Module, mode: str) -> Dict[str, bool]:
-    """Parameter name -> trainable, for the 'full' or 'temporal' scope."""
+    """Parameter name -> trainable, for the 'full', 'temporal' or 'tracklet'
+    scope."""
     names = [n for n, _ in unet.named_parameters()]
     if mode == "full":
         return {n: True for n in names}
     if mode == "temporal":
         return {n: TEMPORAL_SCOPE in n for n in names}
+    if mode == "tracklet":
+        return {n: is_branch_key(n) for n in names}
     raise ValueError(f"trainable_mask undefined for mode {mode!r}")
 
 
@@ -91,16 +103,12 @@ class TrainState:
         """Everything a resume needs, as a snapshot in CPU tensors (copies,
         also of CPU tensors): the step, the f32 masters (in the 'lora' scope
         the adapter's A and B, by peft key), the EMA copies and the
-        optimizer's state."""
-        snap = lambda t: t.detach().to("cpu", copy=True)
-        cpu = lambda ts: {n: snap(t) for n, t in zip(self.names, ts)}
-        opt = self.optimizer.state_dict()
-        adamw = {"param_groups": opt["adamw"]["param_groups"],
-                 "state": {i: {k: snap(v) for k, v in s.items()}
-                           for i, s in opt["adamw"]["state"].items()}}
+        optimizer's state (the 8-bit one's int8 codes and scales as they
+        are)."""
+        cpu = lambda ts: {n: _snapshot(t) for n, t in zip(self.names, ts)}
         return {"step": self.step, "params": cpu(self.params),
                 "ema_params": None if self.ema_params is None else cpu(self.ema_params),
-                "optimizer": {"count": opt["count"], "adamw": adamw}}
+                "optimizer": _snapshot(self.optimizer.state_dict())}
 
     @torch.no_grad()
     def load_state_dict(self, sd: dict) -> None:
@@ -123,6 +131,19 @@ class TrainState:
         self.step = int(sd["step"])
 
 
+def _snapshot(obj):
+    """`obj` with every tensor in it (through dicts, lists and tuples)
+    copied to the CPU: torch's optimizer state_dict and ``.cpu()`` of a CPU
+    tensor alias the live ones."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return {k: _snapshot(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_snapshot(v) for v in obj)
+    return obj
+
+
 def create_train_state(cfg: TrainConfig, models: SVDModels,
                        generator: Optional[torch.Generator] = None) -> TrainState:
     """f32 masters of the scope's UNet parameters (from the networks' current
@@ -140,6 +161,9 @@ def create_train_state(cfg: TrainConfig, models: SVDModels,
         sd = lora_state_dict(adapter)
         params = [p.requires_grad_(True) for p in sd.values()]
         return TrainState(0, list(sd), params, make_optimizer(cfg, params), lora=adapter)
+    if cfg.train_mode == "tracklet" and models.unet.tracklet_conditioner is None:
+        raise ValueError("the 'tracklet' scope needs a UNet with the Tracklet2Video branch "
+                         "(SVDModels.with_tracklet, UNetConfig.tracklet_dim > 0)")
     mask = trainable_mask(models.unet, cfg.train_mode)
     named = dict(models.unet.named_parameters())
     names = [n for n, m in mask.items() if m]
@@ -150,7 +174,21 @@ def create_train_state(cfg: TrainConfig, models: SVDModels,
     models.clip.requires_grad_(False)
     ema = ([m.clone() for m in masters]
            if cfg.use_ema and cfg.train_mode == "full" else None)
-    return TrainState(0, names, masters, make_optimizer(cfg, masters), ema)
+    state = TrainState(0, names, masters, make_optimizer(cfg, masters), ema)
+    write_back(models, cfg, state)
+    return state
+
+
+@torch.no_grad()
+def write_back(models: SVDModels, cfg: TrainConfig, state: TrainState, tensors=None) -> None:
+    """Copy the state's f32 masters (or `tensors`, aligned with them) into
+    the UNet's compute copies, rounded to its dtype, and to bf16 first with
+    ``grad_dtype="bf16"``; nothing in the 'lora' scope."""
+    if state.lora is not None:
+        return
+    named = dict(models.unet.named_parameters())
+    for n, t in zip(state.names, state.params if tensors is None else tensors):
+        named[n].copy_(t.to(torch.bfloat16) if cfg.grad_dtype == "bf16" else t)
 
 
 def cast_frozen_to_compute(models: SVDModels, dtype: torch.dtype) -> SVDModels:
@@ -165,51 +203,75 @@ def cast_frozen_to_compute(models: SVDModels, dtype: torch.dtype) -> SVDModels:
 
 
 def loss_and_grads(models: SVDModels, cfg: TrainConfig, state: TrainState,
-                   pixels: torch.Tensor, draws: TrainDraws):
+                   batch, draws: TrainDraws):
     """One micro-batch's loss and its gradients with respect to the tensors
     the scope trains: the UNet's compute copies of the masters, or the
-    adapter itself. Unused tensors (the q/k projections of the single-token
-    cross-attentions and their adapters) get zero gradients, as under
-    jax.grad. The backward runs under the profiler label ``train.backward``."""
+    adapter itself (a bf16 copy of it with ``grad_dtype="bf16"``). Unused
+    tensors (the q/k projections of the single-token cross-attentions and
+    their adapters) get zero gradients, as under jax.grad. `batch` is the
+    micro-batch's pixels or its Tracklet2Video dict. The backward runs
+    under the profiler label ``train.backward``."""
     if state.lora is None:
         named = dict(models.unet.named_parameters())
         wrt, scope = [named[n] for n in state.names], contextlib.nullcontext()
     else:
-        wrt, scope = state.params, lora_lib.merged(models.unet, state.lora, cfg.lora_alpha)
+        adapter = state.lora
+        if cfg.grad_dtype == "bf16":
+            adapter = {n: {k: t.detach().to(torch.bfloat16).requires_grad_(True)
+                           for k, t in ab.items()} for n, ab in state.lora.items()}
+        wrt = list(lora_state_dict(adapter).values())
+        scope = lora_lib.merged(models.unet, adapter, cfg.lora_alpha)
+    if isinstance(batch, dict):
+        pixels, boxes = batch["pixel_values"], dict(boxes=batch.get("boxes"),
+                                                    box_mask=batch.get("box_mask"))
+    else:
+        pixels, boxes = batch, {}
     with scope:
-        loss = training_loss(models, pixels, cfg, draws)
+        loss = training_loss(models, pixels, cfg, draws, **boxes)
         with torch.profiler.record_function("train.backward"):
             grads = torch.autograd.grad(loss, wrt, materialize_grads=True)
+    if cfg.grad_dtype == "bf16":
+        grads = tuple(g.to(torch.bfloat16) for g in grads)
     return loss, grads
 
 
 def make_train_step(models: SVDModels, cfg: TrainConfig):
     """Build ``step(state, batch, *, generator=None, draws=None) -> (state,
     metrics)``. `batch` is (accum, B, F, H, W, 3) pixels in [-1, 1] when
-    gradient_accumulation_steps > 1, else (B, F, H, W, 3). `draws` (one
-    TrainDraws, or a list of one per micro-batch) replaces the draws from
-    `generator`. Metrics: loss, grad_norm (before clipping), lr (applied).
-    The backward and the update run under the profiler labels
-    ``train.backward`` and ``train.optimizer``."""
+    gradient_accumulation_steps > 1, else (B, F, H, W, 3); or a
+    Tracklet2Video dict of such pixels (``pixel_values``) with ``boxes`` and
+    ``box_mask`` of the same leading axes. `draws` (one TrainDraws, or a
+    list of one per micro-batch) replaces the draws from `generator`.
+    Metrics: loss, grad_norm (before clipping), lr (applied). The backward
+    and the update run under the profiler labels ``train.backward`` and
+    ``train.optimizer``."""
     cfg.check_ported()
     accum = cfg.gradient_accumulation_steps
+    gdt = torch.bfloat16 if cfg.grad_dtype == "bf16" else torch.float32
 
-    def step(state: TrainState, batch: torch.Tensor, *,
+    def step(state: TrainState, batch, *,
              generator: Optional[torch.Generator] = None, draws=None):
-        micro = batch if accum > 1 else batch[None]
+        pixels = batch["pixel_values"] if isinstance(batch, dict) else batch
+        if accum == 1:
+            micro = [batch]
+        elif isinstance(batch, dict):
+            micro = [{k: v[i] for k, v in batch.items() if v is not None} for i in range(accum)]
+        else:
+            micro = list(batch)
         if draws is None:
-            draws = [sample_train_draws(models, micro.shape[1:], cfg, generator,
-                                        batch.device) for _ in range(accum)]
+            shape = pixels.shape[1:] if accum > 1 else pixels.shape
+            draws = [sample_train_draws(models, shape, cfg, generator, pixels.device)
+                     for _ in range(accum)]
         elif isinstance(draws, TrainDraws):
             draws = [draws]
         grads, loss_sum = None, 0.0
-        for pixels, d in zip(micro, draws):
-            loss, g = loss_and_grads(models, cfg, state, pixels, d)
+        for mb, d in zip(micro, draws):
+            loss, g = loss_and_grads(models, cfg, state, mb, d)
             if grads is None:
-                grads = [x.float() for x in g]
+                grads = [x.to(gdt) for x in g]
             else:
                 for acc, x in zip(grads, g):
-                    acc.add_(x.float())
+                    acc.add_(x.to(gdt))
             loss_sum = loss_sum + loss.detach()
             del loss, g
         with torch.profiler.record_function("train.optimizer"):
@@ -218,11 +280,7 @@ def make_train_step(models: SVDModels, cfg: TrainConfig):
                     acc.div_(accum)
             lr, grad_norm = state.optimizer.step(grads)
             del grads
-            if state.lora is None:
-                named = dict(models.unet.named_parameters())
-                with torch.no_grad():
-                    for n, m in zip(state.names, state.params):
-                        named[n].copy_(m)
+            write_back(models, cfg, state)
             state.step += 1
             if state.ema_params is not None:
                 ema_update_(state.ema_params, state.params, state.step, cfg.ema_decay)

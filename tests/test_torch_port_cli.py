@@ -85,9 +85,10 @@ def test_build_train_config_matches_jax(argv):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--use_8bit_adam"], "use_8bit_adam"), (["--zero1"], "zero1"),
-    (["--host_offload", "masters"], "host_offload"), (["--grad_dtype", "bf16"], "grad_dtype"),
-    (["--train_mode", "tracklet"], "train_mode"), (["--mesh_data", "2"], "A13"),
+    (["--zero1", "--use_8bit_adam"], "zero1"), (["--zero1"], "zero1"),
+    (["--host_offload", "masters"], "host_offload"),
+    (["--host_offload", "masters+moments", "--grad_dtype", "bf16"], "host_offload"),
+    (["--train_mode", "tracklet", "--zero1"], "zero1"), (["--mesh_data", "2"], "A13"),
     (["--mesh_model", "2"], "A13"), (["--attn_impl", "flash"], "--attn_impl flash"),
     (["--attn_impl", "xla"], "--attn_impl xla")])
 def test_refused_options_raise_before_any_work(tmp_path, extra, match):

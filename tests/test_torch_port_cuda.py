@@ -393,10 +393,11 @@ def test_kernel_function_gradients_match_plain(rn, case):
         _assert_close_bf16(g, r)
 
 
-def _flash_grad_errors(rn, b, s, heads):
+def _flash_grad_errors(rn, b, s, heads, t=None):
     """Max-abs error against the f32 plain gradient of (the kernels' dq, dk,
-    dv) and (the bf16 plain version's), per input."""
-    q, k, v = (rn(b, s, heads * 64) for _ in range(3))
+    dv) and (the bf16 plain version's), per input; `t` keys (s by default)."""
+    t = s if t is None else t
+    q, k, v = rn(b, s, heads * 64), rn(b, t, heads * 64), rn(b, t, heads * 64)
     do = rn(b, s, heads * 64)
     run = lambda q, k, v: fa.flash_attention_packed(q, k, v, num_heads=heads, scale=0.125)
     plain = lambda q, k, v: fa.flash_attention_packed_reference(q, k, v, num_heads=heads,
@@ -1147,3 +1148,67 @@ def test_tiny_cli_resume_on_the_card_is_bit_equal(card, tmp_path):
     for d in (a, b):
         with open(os.path.join(d, "checkpoint-4", "data_state.json")) as f:
             assert json.load(f)["step"] == 4
+
+
+# --------------------------------------------------------- Tracklet2Video --
+
+# the gated attention's flash calls: visual tokens S against S + 16 box
+# tokens at the UNet's four levels of a 512x320 video (generate's CFG batch
+# 28, the train step's 14), and at the L0 of a 1024x576 one
+_GATED = [(s_q, s_kv, heads) for (s_q, s_kv), heads in zip(
+    [k for k in sites.flash_calls_per_pass(320, 512, 16) if k[0] != k[1]], (5, 10, 20, 20))]
+
+
+@pytest.mark.parametrize("b,s_q,s_kv,heads", [(b, *g) for g in _GATED for b in (28, 14)]
+                         + [(28, 9216, 9232, 5)])
+def test_flash_forward_gated_attention_shapes(rn, b, s_q, s_kv, heads):
+    """The forward with a key count that is not a multiple of 64 (the last
+    sub-tile holds 16 keys), at generate's batches 28 and 14 (the 1024x576
+    L0 at 28): out on the first two sequences within 4 bf16 ulps of the
+    plain version, the LSE within 1e-4 of logsumexp."""
+    q, k, v = rn(b, s_q, heads * 64), rn(b, s_kv, heads * 64), rn(b, s_kv, heads * 64)
+    o, lse = fa.flash_attention_fwd(q, k, v, heads, 0.125)
+    ro, rlse = fa.flash_attention_fwd_reference(q[:2], k[:2], v[:2], heads, 0.125)
+    _assert_close_bf16(o[:2], ro)
+    assert (lse[:2] - rlse).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("s_q,s_kv,heads", _GATED)
+def test_flash_backward_gated_attention_shapes(rn, s_q, s_kv, heads):
+    """dQ/dK/dV at the gated attention's (S, S + 16) training shapes (batch
+    14, cut to 2 sequences for the f32 plain reference): finite and at most
+    1.5x the bf16 plain version's error against f32."""
+    for kernel_err, plain_err, finite in _flash_grad_errors(rn, 2, s_q, heads, s_kv):
+        assert finite and kernel_err <= 1.5 * plain_err, (kernel_err, plain_err)
+
+
+def test_tracklet_unet_at_gate_zero_equals_the_plain_unet(card):
+    """A TINY UNet with the Tracklet2Video branch at gate 0, given boxes, on
+    the card: the output of the UNet without the branch, bit for bit."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    m = tpipe.SVDModels.create(tcfg.TINY_UNET, tcfg.TINY_VAE, tcfg.TINY_CLIP, device="cuda",
+                               dtype=torch.bfloat16, generator=g)
+    mt = m.with_tracklet(16, heads=2)
+    x = torch.randn(2, 3, 8, 8, 8, device="cuda", generator=g)
+    ehs = torch.randn(2, 1, tcfg.TINY_UNET.cross_attention_dim, device="cuda", generator=g)
+    ids = torch.ones(2, 3, device="cuda")
+    boxes = torch.rand(2, 3, 16, 4, device="cuda", generator=g)
+    with torch.no_grad():
+        plain = m.unet(x, 10.0, ehs, ids)
+        got = mt.unet(x, 10.0, ehs, ids, boxes=boxes)
+    assert torch.equal(got, plain)
+
+
+def test_group_norm_at_1024x576_l0(rn):
+    """The UNet's L0 GroupNorm sample at 1024x576 (72 x 128 x 320): the
+    two-pass path."""
+    _gn_check(rn, (2, 72, 128, 320), False, path="two_pass")
+
+
+def test_conv3x3_at_1024x576_l0(rn, no_tf32):
+    """conv3x3 at the UNet's L0 resnet site of a 1024x576 video."""
+    x, weight, bias, kw = _conv_args(rn, 2, 72, 128, 320, 320, *_EPI_FLAGS["preS+res"])
+    got = cv.conv3x3(x, weight, bias, **kw)
+    ref = cv.conv3x3_fused_reference(x, weight, bias, kw.get("pre_scale"), kw.get("pre_shift"),
+                                     kw.get("post_shift"), kw.get("residual"), kw["pre_silu"])
+    _assert_close_bf16(got, ref)

@@ -218,8 +218,10 @@ def test_dataset_errors_match_jax(folder, tmp_path):
             mod.FrameFolderDataset(folder, sample_frames=8)
         with pytest.raises(ValueError, match="no video folders under"):
             mod.FrameFolderDataset(str(tmp_path))
-    with pytest.raises(ValueError, match="A9"):
-        tdata.FrameFolderDataset(folder, sample_frames=5, max_boxes=4)
+    # box annotations (max_boxes > 0) are taken by both
+    # (test_torch_port_tracklet.py holds their windows)
+    for mod in (tdata, jdata):
+        assert mod.FrameFolderDataset(folder, sample_frames=5, max_boxes=4).max_boxes == 4
 
 
 def test_sharded_loader_matches_jax_and_resumes(folder):
@@ -330,7 +332,7 @@ def test_train_state_state_dict_round_trip():
     assert all(t.device.type == "cpu" for t in sd["params"].values())
     models2, state2, step2 = build()
     state2.load_state_dict(sd)
-    tcli._write_back(models2, state2)
+    tstate.write_back(models2, cfg, state2)
     for s in range(2, 4):
         state, _ = step(state, batch, generator=tcli.step_generator(5, s, "cpu"))
         state2, _ = step2(state2, batch, generator=tcli.step_generator(5, s, "cpu"))

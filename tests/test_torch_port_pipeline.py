@@ -95,16 +95,17 @@ def test_decode_latents_chunked_matches_jax(pair, frames, chunk):
 
 
 def test_generate_refuses_unported_modes(pair):
-    """int8 (UNet or VAE) is refused by generate, the Tracklet2Video branch
-    by the UNet; the cache modes are ported (test_torch_port_cache.py)."""
+    """int8 (UNet or VAE) is refused by generate; the cache modes
+    (test_torch_port_cache.py) and the Tracklet2Video branch
+    (test_torch_port_tracklet.py) are ported: a tracklet UNet builds."""
     _, _, tm = pair
     image = torch.zeros(1, 32, 32, 3)
     for kw in (dict(unet_quant="int8"), dict(vae_quant="int8")):
         with pytest.raises(ValueError, match="int8"):
             tpipe.generate(tm, image, tcfg.PipelineConfig(**CFG_KW, **kw))
-    with pytest.raises(ValueError, match="Tracklet2Video"):
-        tpipe.SVDModels.create(dataclasses.replace(tcfg.TINY_UNET, tracklet_dim=8),
-                               tcfg.TINY_VAE, tcfg.TINY_CLIP, device="cpu")
+    built = tpipe.SVDModels.create(dataclasses.replace(tcfg.TINY_UNET, tracklet_dim=8),
+                                   tcfg.TINY_VAE, tcfg.TINY_CLIP, device="cpu")
+    assert built.unet.tracklet_conditioner is not None
 
 
 def test_generate_is_seeded_by_generator(pair):
