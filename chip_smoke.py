@@ -63,6 +63,18 @@ Phases, each of which raises on failure (non-zero exit):
      x device ms of both, per UNet step, train step and exact video (the
      site tables, svd_xtend_tpu_torch/scripts/sites.py, give the
      launches). The BSHD flash entry point at the L0 CFG shape.
+  3d. upsample: the parity-decomposed upsample kernel (csrc/upsample_conv.cu)
+     at every UPSAMPLE_SITES site (the UNet's three at CFG batch 28 and
+     training batch 14, the VAE decoder's three per chunk of 8 and of 6
+     frames) against its plain version (the bf16 bound), two runs the same
+     bits; device ms per launch in a CUDA graph beside interpolate +
+     F.conv2d 3x3 (the materialised form, the library time), four cuDNN
+     2x2 convs and the bound; Σ launches x device ms per exact video and
+     train step.
+  3e. split concat: at every up-block conv1 site (UP_SPLIT_SITES, batch 28)
+     the two-part GroupNorm fold (1e-4) and conv3x3's two-source prologue
+     (the bf16 bound) against their plain versions; device ms of the split
+     form beside cat + fold + conv, Σ per CFG UNet pass.
   3c. probe kernels: the kernels of the TPU probe scripts against their plain
      versions: the four softmax organisations of the flash forward
      (flash_variants) at the variants probe's shapes, (140, 2560) whole (also
@@ -80,7 +92,14 @@ Phases, each of which raises on failure (non-zero exit):
      respect to the temporal-scope parameters, also against the card's bf16
      plain path (ops/kernels/dispatch.plain_versions); then the same for
      the gradient with respect to a LoRA adapter on every attention
-     projection (seeded nonzero B, remat "block").
+     projection (seeded nonzero B, remat "block"). V2: the forward with
+     the JAX package's default forms (split concat, parity upsample) held
+     as above, and printed beside the same UNet with the materialised forms
+     (torch.cat, interpolate + 3x3 conv, as plain ops here); no aten.cat in
+     the up blocks' spatial resnets or upsamplers (a dispatcher spy); the
+     full-width VAE decoder on a (1, 2, 16, 16, 4) latent, bf16 with the
+     parity upsample against f32 on the host (rel-L2 <= 5e-2), the
+     materialised upsample beside it.
   5. generate (the serving path): ``generate`` at the default PipelineConfig
      (512x320, 14 frames, 25 Euler steps, stacked CFG, decode chunks of 8)
      with the full UNet, VAE and CLIP in bf16 from seeded random weights,
@@ -88,10 +107,13 @@ Phases, each of which raises on failure (non-zero exit):
      median s/video is reported, beside each run's and the device memory
      segments the allocator added during it); the last run's forward-kernel
      launch counts must all be > 0; the flash forward's, GEGLU's, the
-     temporal resnet's, the frame attention's and GroupNorm's launches per
-     video by shape (the exact video's temporal resnet and GroupNorm
-     launches held against TRESNET_SITES and GN_SITES), and their sums of
-     launches x the kernel phases' device ms at each shape.
+     temporal resnet's, the frame attention's, GroupNorm's and the
+     upsample's launches per video by shape (the exact video's temporal
+     resnet, GroupNorm and upsample launches held against TRESNET_SITES,
+     GN_SITES and UPSAMPLE_SITES; each mode's upsample launches against the
+     UNet's structure: 81, 81 and 33), and their sums of launches x the
+     kernel phases' device ms at each shape. Then utils.metrics on the
+     card: video_report of the exact video and clip_fvd(exact, k3).
   6. train (this slice's main path): the default TrainConfig (temporal
      scope, 512x320x14f, batch 1, remat "block", AdamW with f32 masters,
      bf16 compute) through make_optimizer/create_train_state/make_train_step
@@ -100,12 +122,17 @@ Phases, each of which raises on failure (non-zero exit):
      must all be > 0; finite loss and grad_norm, trainable weights changed,
      frozen ones bit-identical; s/step and peak memory; the flash backward
      pair's, the flash forward's, GEGLU's, the temporal resnet's, the frame
-     attention's and GroupNorm's launches per step by level (the flash
-     backward's held against FLASH_BWD_SITES, the temporal resnet's and
-     GroupNorm's against TRESNET_SITES and GN_SITES, conv3x3's and dU's
+     attention's, GroupNorm's and the upsample's launches per step by level
+     (the flash backward's held against FLASH_BWD_SITES, the temporal
+     resnet's, GroupNorm's and the upsample's against TRESNET_SITES,
+     GN_SITES and UPSAMPLE_SITES, conv3x3's and dU's
      against the conv site tables), and their sums of launches x the kernel
-     phases' device ms at that level. Then one full-scope step at the same
-     size: finite loss, peak memory.
+     phases' device ms at that level. Then two asynchronous saves of the
+     state (train/checkpoint.py), each followed by a step while its writer
+     runs: the seconds each held the loop (the first allocates the pinned
+     buffers, the second reuses them) beside the writer's, the files equal
+     to the state at each save. Then one full-scope step at the same size:
+     finite loss, peak memory.
   6b. lora: TrainConfig(train_mode="lora") (rank 4, alpha 4, the same size
      and batch) through the same entry points: a warm-up and 3 timed steps
      held to the same tables (FLASH_BWD_SITES' 'lora' column: every spatial
@@ -138,7 +165,9 @@ Phases, each of which raises on failure (non-zero exit):
      files (params lists, metrics.jsonl, val_img_4.gif read by PIL as
      GIF89a of 14 frames, the f32 UNet export loading with strict=True); s/step from
      metrics.jsonl, the loader's host s per batch and the time next()
-     blocked, checkpoint bytes and save/restore s, validation s, peak
+     blocked, checkpoint bytes, the seconds each asynchronous save held the
+     loop beside its writer thread's, the snapshot's pinned bytes and the
+     process's peak resident host memory, restore s, validation s, peak
      memory and the val/* metrics, beside the card's name and power limit.
   6d. tracklet (Tracklet2Video, models/tracklet.py): the flash forward at
      the gated attention's (S_q, S_kv) = (S, S + 16 box tokens) of the four
@@ -207,6 +236,7 @@ import json
 import math
 import os
 import re
+import statistics
 import sys
 import time
 
@@ -216,7 +246,8 @@ import torch.nn.functional as F
 from svd_xtend_tpu_torch.scripts import card, cuda_ms, graph_ms
 from svd_xtend_tpu_torch.scripts.sites import (FLASH_BWD_SITES, GEGLU_SHAPES, GN_SITES,
                                                TRESNET_SITES, UNET_CONV_SITES,
-                                               UNET_DGRAD_SITES, VAE_DECODE_SITES,
+                                               PORTRAIT_UPSAMPLE_SHAPES, UNET_DGRAD_SITES,
+                                               UP_SPLIT_SITES, UPSAMPLE_SITES, VAE_DECODE_SITES,
                                                VAE_ENCODE_SITES, flash_calls_per_pass)
 
 SEED = 0
@@ -282,6 +313,7 @@ class KernelPhase:
         self.tresnet_ms = {}    # x's shape (B, F, S, C) -> device (conv_a ms, conv_b ms)
         self.frame_ms = {}      # q's shape (B, F, S, H*64) -> frame attention device ms
         self.gn_ms = {}         # (x's shape, silu) -> group_norm_silu device ms
+        self.upsample_ms = {}   # x's shape (N, H, W, C) -> upsample_conv device ms
 
     def forward_level(self, path, b, s, h, run, sdpa, moved, t=None):
         """The flash forward at one (batch, queries S, keys t (S by
@@ -880,6 +912,147 @@ def conv_phase(dev, ph: KernelPhase, smi: str):
     return sums
 
 
+def upsample_phase(dev, ph: KernelPhase, smi: str):
+    """The upsample kernel (csrc/upsample_conv.cu: nearest 2x + 3x3 conv by
+    parity) at every site of UPSAMPLE_SITES (the UNet's three at CFG batch
+    28 and training batch 14, the VAE decoder's three per chunk of 8 and of
+    6 frames) against its plain version within the bf16 bound, two runs the
+    same bits; device ms per launch in a CUDA graph beside the materialised
+    form the port ran before (nearest interpolate, then F.conv2d 3x3 at 4x
+    the pixels: the library time), the four parity convs as cuDNN 2x2
+    F.conv2d and the bound (the larger of 4 x 2·M·4Ci·Co / 989 TFLOP/s and
+    x, the tap-summed weights and the output once / 3.35 TB/s); the plan;
+    Σ launches x device ms per exact video and per train step."""
+    from svd_xtend_tpu_torch.ops import upsample as up
+    from svd_xtend_tpu_torch.ops import video
+    from svd_xtend_tpu_torch.ops.kernels import upsample_conv as uc
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 40)
+    rn = lambda *s, sc=1.0: (torch.randn(*s, device=dev, generator=g) * sc).to(torch.bfloat16)
+    log("kernels: upsample (nearest 2x + 3x3 conv, parity form) at every site; device ms "
+        "kernel / interpolate + F.conv2d 3x3 / four F.conv2d 2x2 / bound; the plan")
+    sums = collections.Counter()
+    pads = [(1 - dj, dj, 1 - di, di) for di in (0, 1) for dj in (0, 1)]
+    for n, h, w, c, per_video, per_step in UPSAMPLE_SITES:
+        x = rn(n, h, w, c)
+        weight, bias = rn(c, c, 3, 3, sc=(9 * c) ** -0.5), 0.1 * rn(c)
+        run = lambda: uc.upsample_conv(x, weight, bias)
+        plain = lambda: uc.upsample2x_conv3x3_reference(x, weight, bias)
+        label = f"{(n, h, w, c)} -> {(n, 2 * h, 2 * w, c)}"
+        got = run()
+        ph.check("upsample_conv", got, plain(), label)
+        if not torch.equal(got, run()):
+            raise RuntimeError(f"upsample_conv {label}: two runs differ")
+        del got
+        wcl = weight.contiguous(memory_format=torch.channels_last)
+        library = lambda: F.conv2d(F.interpolate(video.nchw(x), scale_factor=2.0,
+                                                 mode="nearest"), wcl, bias, padding=1)
+        kk = [k.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+              for k in up.tap_sums(weight, torch.bfloat16)]
+        parity = lambda: [F.conv2d(F.pad(video.nchw(x), p), k) for p, k in zip(pads, kk)]
+        m = n * h * w
+        flops = 4 * 2 * m * 4 * c * c
+        moved = nbytes(x) + 16 * c * c * 2 + 4 * m * c * 2
+        first = (n, h, w, c) == (28, 20, 32, 640)
+        if first:
+            ph.time("upsample_conv", run, plain, flops, moved, library,
+                    "interpolate + F.conv2d 3x3", label)
+        dev_ms, lib_ms, par_ms = graph_ms(run), graph_ms(library), graph_ms(parity)
+        ph.upsample_ms[(n, h, w, c)] = dev_ms
+        if first:
+            ph.times["upsample_conv"]["device_ms"] = dev_ms
+        b_ms, b_by = bound_ms(flops, moved)
+        plan = uc.upsample_plan(n, h, w, c, c)
+        log(f"  upsample_conv {label} x{per_video} a video, x{per_step} a step: {dev_ms:.4f} / "
+            f"{lib_ms:.4f} / {par_ms:.4f} / {b_ms:.4f} ms ({b_by}), {flops / dev_ms / 1e9:.1f} "
+            f"TFLOP/s, {100 * b_ms / dev_ms:.1f} % of the bound; plan bn {plan.bn} ks "
+            f"{plan.k_slices} grid {plan.grid}")
+        for unit, k in (("video", per_video), ("step", per_step)):
+            sums[(unit, "kernel")] += k * dev_ms
+            sums[(unit, "interpolate + F.conv2d 3x3")] += k * lib_ms
+            sums[(unit, "four F.conv2d 2x2")] += k * par_ms
+        del x, kk
+    for unit in ("video", "step"):
+        log(f"  [{smi}] upsample per {'exact video' if unit == 'video' else 'train step'}: "
+            "launches x device ms, " + ", ".join(f"{form} {ms:.3f} ms" for (u, form), ms
+                                                  in sums.items() if u == unit))
+    # generate's shapes in portrait (512x320, 1024x576): widths whose
+    # warpgroup rows the epilogue stores in several boxes
+    for n, h, w, c in PORTRAIT_UPSAMPLE_SHAPES:
+        x = rn(n, h, w, c)
+        weight, bias = rn(c, c, 3, 3, sc=(9 * c) ** -0.5), 0.1 * rn(c)
+        plan, run = uc.upsample_plan(n, h, w, c, c), uc.store_run(w)
+        label = (f"{(n, h, w, c)} portrait, W {w}: {64 // run if run < w else 1} stores a "
+                 f"warpgroup, plan bn {plan.bn} ks {plan.k_slices}")
+        ph.check("upsample_conv", uc.upsample_conv(x, weight, bias),
+                 uc.upsample2x_conv3x3_reference(x, weight, bias), label)
+        b_ms, b_by = bound_ms(4 * 2 * n * h * w * 4 * c * c,
+                              nbytes(x) + 16 * c * c * 2 + 4 * n * h * w * c * 2)
+        log(f"  upsample_conv {label}: {graph_ms(lambda: uc.upsample_conv(x, weight, bias)):.4f}"
+            f" ms device, bound {b_ms:.4f} ms ({b_by})")
+        del x
+
+
+def split_phase(dev, ph: KernelPhase, smi: str):
+    """The up blocks' conv1 over two sources at every UP_SPLIT_SITES site
+    (CFG batch 28): the two-part GroupNorm fold (gn_fold.cu: one statistics
+    launch reading each column from its part) within 1e-4 of its plain
+    version, and
+    conv3x3 with its two-source prologue against its plain version (the
+    bf16 bound), two runs the same bits; device ms per launch in a CUDA
+    graph of the split form (two-part fold + two-source conv) beside the
+    materialised form it replaces (torch.cat, the fold and the conv over the
+    concat) and the cat alone; Σ launches x device ms per UNet pass."""
+    from svd_xtend_tpu_torch.ops.kernels import conv3x3 as cv
+    from svd_xtend_tpu_torch.ops.kernels import groupnorm as gn
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 41)
+    rn = lambda *s, sc=1.0: (torch.randn(*s, device=dev, generator=g) * sc).to(torch.bfloat16)
+    log("kernels: the up blocks' conv1 over two sources (batch 28): device ms split form "
+        "(fold + conv) / materialised (cat + fold + conv) / the cat alone")
+    sums = collections.Counter()
+    for (h, w, c1, c2, co), count in collections.Counter(UP_SPLIT_SITES).items():
+        n, ci = 28, c1 + c2
+        x, x2 = rn(n, h, w, c1) * 2 + 0.5, rn(n, h, w, c2)
+        weight = rn(co, ci, 3, 3, sc=(9 * ci) ** -0.5).contiguous(
+            memory_format=torch.channels_last)
+        bias, post = 0.1 * rn(co), 0.5 * rn(n, co).float()
+        scale, gbias = 1 + 0.1 * rn(ci).float(), 0.1 * rn(ci).float()
+        label = f"{(n, h, w)} {c1} + {c2} -> {co}"
+        fold = lambda: gn.group_norm_fold(x, scale, gbias, x2, groups=32, eps=1e-5)
+        sc, sh = fold()
+        for got, ref in zip((sc, sh), gn.group_norm_fold_reference(x, scale, gbias, x2,
+                                                                    groups=32, eps=1e-5)):
+            if not bool(torch.isfinite(got).all()) or not torch.allclose(got, ref, 1e-4, 1e-4):
+                raise RuntimeError(f"group_norm_fold {label}: two parts off by "
+                                   f"{(got - ref).abs().max().item()}")
+        conv = lambda sc, sh, a, b: cv.conv3x3(a, weight, bias, pre_scale=sc, pre_shift=sh,
+                                               pre_silu=True, post_shift=post, x2=b)
+        got = conv(sc, sh, x, x2)
+        ph.check("conv3x3", got, cv.conv3x3_fused_reference(x, weight, bias, sc, sh, post, None,
+                                                            True, x2=x2), label + " two sources")
+        if not torch.equal(got, conv(sc, sh, x, x2)):
+            raise RuntimeError(f"conv3x3 {label} two sources: two runs differ")
+        del got
+        split = lambda: conv(*fold(), x, x2)
+
+        def materialised():
+            xc = torch.cat([x, x2], -1)
+            return conv(*gn.group_norm_fold(xc, scale, gbias, groups=32, eps=1e-5), xc, None)
+
+        cat = lambda: torch.cat([x, x2], -1)
+        ms = {"split": graph_ms(split), "materialised": graph_ms(materialised),
+              "cat": graph_ms(cat)}
+        log(f"  {label} x{count} a pass: {ms['split']:.4f} / {ms['materialised']:.4f} / "
+            f"{ms['cat']:.4f} ms")
+        for k, v in ms.items():
+            sums[k] += count * v
+        del x, x2
+    log(f"  [{smi}] the up blocks' norm1 fold + conv1 per CFG UNet pass: launches x device "
+        f"ms, split form {sums['split']:.3f} ms, materialised {sums['materialised']:.3f} ms "
+        f"(of which the cats {sums['cat']:.3f} ms)")
+
+
 def flash_bshd_phase(dev, ph: KernelPhase):
     """The head-major entry point on (B, S, H, 64) at the L0 CFG shape."""
     from svd_xtend_tpu_torch.ops.kernels import flash_attention as fa
@@ -1000,6 +1173,129 @@ def probes_phase(counters):
     return read(counters, sorted(PROBE_ONLY | MHA_ONLY | {"flash_attention_fwd"}))
 
 
+@contextlib.contextmanager
+def materialised_forms():
+    """The port's forms before the JAX package's defaults, as plain ops, for
+    V2 only: the up-block resnets on torch.cat of the running features and
+    the skip, and Upsample2D as nearest interpolate then its 3x3 conv."""
+    from svd_xtend_tpu_torch.models import blocks, unet
+    from svd_xtend_tpu_torch.ops import video
+
+    def upsample(self, x):
+        x = video.nhwc(F.interpolate(video.nchw(x), scale_factor=2.0, mode="nearest"))
+        return video.nhwc(F.conv2d(video.nchw(x), self.conv.weight, self.conv.bias, padding=1))
+
+    def up_block(self, x, skips, temb, ehs, num_frames, tokens=None):
+        for i, resnet in enumerate(self.resnets):
+            x = resnet(torch.cat([x, skips[-(i + 1)]], dim=-1), temb, num_frames)
+            if self.attentions is not None:
+                x = self.attentions[i](x, ehs, num_frames, tokens)
+        if self.upsamplers is not None:
+            x = self.upsamplers[0](x)
+        return x
+
+    saved = blocks.Upsample2D.forward, unet.UpBlock.forward
+    blocks.Upsample2D.forward, unet.UpBlock.forward = upsample, up_block
+    try:
+        yield
+    finally:
+        blocks.Upsample2D.forward, unet.UpBlock.forward = saved
+
+
+class CatSpy:
+    """aten.cat at the dispatcher while a UNet's up blocks' spatial resnets
+    or upsamplers run (`cats`: their first inputs' shapes), and elsewhere
+    (`outside`: a count, so that the spy is seen to be live)."""
+
+    def __init__(self, unet):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        spy = self
+        self.cats, self.outside, self.depth, self.hooks = [], 0, 0, []
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                if func.overloadpacket is torch.ops.aten.cat:
+                    if spy.depth:
+                        spy.cats.append(tuple(args[0][0].shape))
+                    else:
+                        spy.outside += 1
+                return func(*args, **(kwargs or {}))
+
+        self.mode = Mode()
+        for block in unet.up_blocks:
+            for m in [*(r.spatial_res_block for r in block.resnets),
+                      *(block.upsamplers or [])]:
+                self.hooks.append(m.register_forward_pre_hook(
+                    lambda *_: setattr(spy, "depth", spy.depth + 1)))
+                self.hooks.append(m.register_forward_hook(
+                    lambda *_: setattr(spy, "depth", spy.depth - 1)))
+
+    def __enter__(self):
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.mode.__exit__(*exc)
+        for h in self.hooks:
+            h.remove()
+
+
+def vae_v2_phase(dev):
+    """V2 for the VAE decoder: the full-width temporal decoder on a (1, 2,
+    16, 16, 4) latent, bf16 on the card with the parity upsample (the
+    kernel) against f32 on the host (rel-L2 <= UNET_REL_L2_BOUND), beside
+    the materialised upsample in bf16."""
+    from svd_xtend_tpu_torch.core.config import VAEConfig
+    from svd_xtend_tpu_torch.diffusion.pipeline import init_random_
+    from svd_xtend_tpu_torch.models.vae import AutoencoderKLTemporalDecoder
+
+    with torch.device(dev):
+        gpu = AutoencoderKLTemporalDecoder(VAEConfig())
+    init_random_(gpu, torch.Generator(device=dev).manual_seed(SEED + 42))
+    with torch.device("meta"):
+        cpu = AutoencoderKLTemporalDecoder(VAEConfig())
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()}, strict=True,
+                        assign=True)
+    gpu = gpu.to(torch.bfloat16).eval()
+    z = torch.randn(1, 2, 16, 16, 4, generator=torch.Generator().manual_seed(SEED + 43))
+    with torch.no_grad():
+        zb = z.to(dev, torch.bfloat16)
+        got = gpu.decode(zb).float().cpu()
+        with materialised_forms():
+            old = gpu.decode(zb).float().cpu()
+        t0 = time.time()
+        ref = cpu.eval().decode(z)
+        log(f"  host f32 VAE decode {time.time() - t0:.1f} s")
+    rel, rel_old = (((a - ref).norm() / ref.norm()).item() for a in (got, old))
+    log(f"  V2, the VAE decode (1, 2, 16, 16, 4) -> {tuple(got.shape)}: bf16 with the parity "
+        f"upsample rel_l2 {rel:.4g} against host f32 (bound {UNET_REL_L2_BOUND}); with the "
+        f"materialised upsample {rel_old:.4g}")
+    if not bool(torch.isfinite(got).all()) or rel > UNET_REL_L2_BOUND:
+        raise RuntimeError(f"VAE decode: rel_l2 {rel} above {UNET_REL_L2_BOUND}")
+    portrait(dev, lambda z: gpu.decode(z.to(torch.bfloat16)), cpu.decode, (1, 2, 8), 4,
+             "VAE decode", lambda lw: (lw, 2 * lw, 4 * lw))
+
+
+def portrait(dev, run, ref, lead, channels, what, levels):
+    """`run` (the card, bf16) against `ref` (the host, f32) on latents of
+    the widths of 320- and 576-wide videos (40 and 72): widths at which the
+    upsample kernel's epilogue stores a warpgroup's rows in several boxes
+    (`levels(latent width)`: the upsamplers' input widths)."""
+    gen = torch.Generator().manual_seed(SEED + 44)
+    for lw in (40, 72):
+        z = torch.randn(*lead, lw, channels, generator=gen)
+        with torch.no_grad():
+            got = run(z.to(dev)).float().cpu()
+            want = ref(z)
+        rel = ((got - want).norm() / want.norm()).item()
+        log(f"  portrait: the {what} at latent {tuple(z.shape)} (upsample input widths "
+            f"{', '.join(map(str, levels(lw)))}): bf16 on the card "
+            f"rel_l2 {rel:.4g} against host f32 (bound {UNET_REL_L2_BOUND})")
+        if not bool(torch.isfinite(got).all()) or rel > UNET_REL_L2_BOUND:
+            raise RuntimeError(f"portrait {what} at latent width {lw}: rel_l2 {rel}")
+
+
 def whole_unet_phase(dev):
     from svd_xtend_tpu_torch.core.config import UNetConfig
     from svd_xtend_tpu_torch.diffusion.pipeline import init_random_
@@ -1032,6 +1328,29 @@ def whole_unet_phase(dev):
     if not bool(torch.isfinite(got).all()) or rel > UNET_REL_L2_BOUND:
         raise RuntimeError(f"whole-UNet phase: rel_l2 {rel} above {UNET_REL_L2_BOUND}")
     args = (sample.to(dev), t, ehs.to(dev), ids.to(dev))
+    # V2: the JAX package's default forms (the split concat, the parity
+    # upsample) in bf16 on the card against the f32 host UNet, beside the
+    # materialised forms the port ran before, computed here with plain ops
+    with torch.no_grad(), materialised_forms():
+        old = gpu(*args).float().cpu()
+    rel_old = ((old - ref).norm() / ref.norm()).item()
+    log(f"  V2, the UNet: bf16 with the split concat and the parity upsample (the kernels) "
+        f"rel_l2 {rel:.4g} against host f32; with the materialised forms (torch.cat, "
+        f"interpolate + F.conv2d 3x3) {rel_old:.4g}; the two bf16 forms apart by rel_l2 "
+        f"{((got - old).norm() / ref.norm()).item():.4g}")
+    portrait(dev, lambda z: gpu(z, t, ehs.to(dev), ids.to(dev)), lambda z: cpu(z, t, ehs, ids),
+             (1, 2, 8), cfg.in_channels, "UNet", lambda lw: (lw // 8, lw // 4, lw // 2))
+    # no concat is built in the up blocks: no aten.cat inside their spatial
+    # resnets or upsamplers on the card
+    spy = CatSpy(gpu)
+    with torch.no_grad(), spy:
+        gpu(*args)
+    log(f"  aten.cat in the up blocks' spatial resnets and upsamplers: {len(spy.cats)} "
+        f"(elsewhere in the UNet: {spy.outside})")
+    if spy.cats or not spy.outside:
+        raise RuntimeError(f"up blocks built a concat {spy.cats}, or the spy saw no cat "
+                           f"elsewhere ({spy.outside})")
+    vae_v2_phase(dev)
     with torch.no_grad():
         full = gpu(*args)
         for depth in (1, 2, 3):
@@ -1152,6 +1471,11 @@ def main() -> int:
     tresnet_phase(dev, ph, smi)
     torch.cuda.empty_cache()
     conv_sums = conv_phase(dev, ph, smi)
+    torch.cuda.empty_cache()
+    upsample_phase(dev, ph, smi)
+    torch.cuda.empty_cache()
+    split_phase(dev, ph, smi)
+    torch.cuda.empty_cache()
     flash_bshd_phase(dev, ph)
     torch.cuda.empty_cache()
     probe_kernel_phase(dev, ph)
@@ -1245,6 +1569,9 @@ def main() -> int:
                     "svd_xtend_tpu/ops/pallas/conv3x3.py:46"),
         "conv3x3_input_grad": ("cuda", "svd_xtend_tpu_torch/csrc/conv3x3.cu",
                                "svd_xtend_tpu/ops/pallas/conv3x3.py:46"),
+        # the parity upsample: XLA code in the JAX package, no Pallas kernel
+        "upsample_conv": ("cuda", "svd_xtend_tpu_torch/csrc/upsample_conv.cu",
+                          "svd_xtend_tpu/ops/upsample.py:55"),
         "flash_attention": ("cuda", "svd_xtend_tpu_torch/csrc/flash_attention.cu",
                             "svd_xtend_tpu/ops/pallas/flash_attention.py:103"),
         "flash_attention_headsliced": ("cuda", "svd_xtend_tpu_torch/csrc/flash_attention.cu",
@@ -1279,6 +1606,7 @@ def kernel_counters():
     from svd_xtend_tpu_torch.ops.kernels import groupnorm as gn
     from svd_xtend_tpu_torch.ops.kernels import temporal_attention as ta
     from svd_xtend_tpu_torch.ops.kernels import temporal_resnet as tr
+    from svd_xtend_tpu_torch.ops.kernels import upsample_conv as uc
     return {
         "flash_attention_fwd": fa.flash_attention_packed,
         "frame_attention_fwd": ta.frame_attention,
@@ -1292,6 +1620,7 @@ def kernel_counters():
         "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
         "conv3x3": cv.conv3x3,
         "conv3x3_input_grad": cv.conv3x3_input_grad,
+        "upsample_conv": uc.upsample_conv,
         "flash_attention": fa.flash_attention,
         "flash_attention_headsliced": fa.flash_attention_headsliced,
         "flash_variants": fv.flash_variants,
@@ -1353,6 +1682,28 @@ def conv3x3_launches(cfg):
     vae = (sum(st[5] for st in VAE_ENCODE_SITES)
            + -(-cfg.num_frames // cfg.decode_chunk_size) * sum(st[5] for st in VAE_DECODE_SITES))
     return unet + vae
+
+
+def upsample_launches(cfg, unet_cfg=None, vae_cfg=None):
+    """upsample_conv launches of one video from the code's structure: one
+    per up block with an upsampler (all but the last) in a full UNet pass,
+    and in a shallow (DeepCache) pass those of the up blocks it runs (the
+    last deep_cache_depth); the VAE decoder's (all its up blocks but the
+    last) per decode chunk."""
+    from svd_xtend_tpu_torch.core.config import UNetConfig, VAEConfig
+    n_up = len((unet_cfg or UNetConfig()).block_out_channels)
+    full, shallow = n_up - 1, max(0, cfg.deep_cache_depth - 1)
+    unet = sum(full if kind == "full" else shallow for _, kind in unet_schedule(cfg))
+    chunks = -(-cfg.num_frames // cfg.decode_chunk_size)
+    return unet + chunks * (len((vae_cfg or VAEConfig()).block_out_channels) - 1)
+
+
+def check_upsample(path, launches, want, runs=1):
+    got = launches["upsample_conv"] / runs
+    log(f"  {path}: upsample_conv launches {got:g} per run; the code's structure gives {want}")
+    if got != want:
+        raise RuntimeError(f"{path}: upsample_conv launched {got} times a run, the structure "
+                           f"gives {want}")
 
 
 def fold_launches(unet_passes, encodes, decode_chunks, col):
@@ -1419,6 +1770,7 @@ def generate_phase(dev, smi, counters, ph: KernelPhase):
     from svd_xtend_tpu_torch.ops.kernels import groupnorm as gn
     from svd_xtend_tpu_torch.ops.kernels import temporal_attention as ta
     from svd_xtend_tpu_torch.ops.kernels import temporal_resnet as tr
+    from svd_xtend_tpu_torch.ops.kernels import upsample_conv as uc
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     t0 = time.time()
@@ -1436,7 +1788,7 @@ def generate_phase(dev, smi, counters, ph: KernelPhase):
             "generate_k3": dataclasses.replace(exact_cfg, uncond_reuse_interval=3),
             "generate_n3k3": dataclasses.replace(exact_cfg, deep_cache_interval=3,
                                                  uncond_reuse_interval=3)}
-    launches, exact = {}, None
+    launches, exact, videos = {}, None, {}
     for path, cfg in runs.items():
         t0 = time.time()
         generate(models, image, cfg, generator=torch.Generator(device=dev).manual_seed(SEED))
@@ -1449,7 +1801,8 @@ def generate_phase(dev, smi, counters, ph: KernelPhase):
                 calls_by(tr, "conv_a", SHAPE) as conv_a_by_shape, \
                 calls_by(tr, "conv_b", SHAPE) as conv_b_by_shape, \
                 calls_by(ta, "frame_attention", SHAPE) as frame_by_shape, \
-                calls_by(gn, "group_norm_silu", GN_KEY) as gn_by_site:
+                calls_by(gn, "group_norm_silu", GN_KEY) as gn_by_site, \
+                calls_by(uc, "upsample_conv", SHAPE) as upsample_by_shape:
             for _ in range(GENERATE_TIMED):
                 video = None        # the last run's video is not held through the next
                 reset(counters)
@@ -1497,6 +1850,14 @@ def generate_phase(dev, smi, counters, ph: KernelPhase):
         if path == "generate":      # 25 CFG passes, the image's encode, the decode chunks
             check_folds(path, launches[path], fold_launches(
                 len(expect), 1, -(-cfg.num_frames // cfg.decode_chunk_size), 4))
+        check_upsample(path, launches[path], upsample_launches(cfg))
+        if path == "generate":      # the site table's launches by shape, and their time
+            if upsample_by_shape != collections.Counter(
+                    {st[:4]: st[4] * GENERATE_TIMED for st in UPSAMPLE_SITES if st[4]}):
+                raise RuntimeError(f"upsample launches by shape {dict(upsample_by_shape)} per "
+                                   f"{GENERATE_TIMED} videos differ from UPSAMPLE_SITES")
+        price(f"{path}: upsample_conv", upsample_by_shape, GENERATE_TIMED, ph.upsample_ms,
+              smi, "video")
         want = conv3x3_launches(cfg)
         log(f"  conv3x3 launches {launches[path]['conv3x3']}; the site tables give {want}")
         if launches[path]["conv3x3"] != want:
@@ -1517,10 +1878,25 @@ def generate_phase(dev, smi, counters, ph: KernelPhase):
             d = (video - exact).abs()
             dist = (f"; distance to the exact video max {d.max().item():.4f} mean "
                     f"{d.mean().item():.5f} (random weights: reported, not held)")
+        videos[path] = video
         log(f"  video {tuple(video.shape)} finite, in [-1, 1], std {video.std().item():.4f}"
             f"{dist}")
         log(f"  [{smi}] {path}: seconds/video {secs:.3f} (median of {GENERATE_TIMED}); "
             f"frames/s {cfg.num_frames / secs:.3f}; peak allocated {peak / 2**30:.2f} GiB")
+    # the evaluation utilities on the card, over the exact and the k3 video
+    from svd_xtend_tpu_torch.utils.metrics import clip_fvd, video_report
+    t0 = time.time()
+    with torch.no_grad():
+        report = {k: v.item() for k, v in video_report(models.clip, image,
+                                                       videos["generate"]).items()}
+        fvd = clip_fvd(models.clip, videos["generate"], videos["generate_k3"]).item()
+    torch.cuda.synchronize()
+    log(f"  utils.metrics on the card ({time.time() - t0:.2f} s): video_report of the exact "
+        f"video {report}; clip_fvd(exact, k3) {fvd:.6g} (random weights: reported, not held; "
+        "one video a set has zero covariance, so the JAX formula gives |mean difference|^2 "
+        "- 2 x features x sqrt(eps))")
+    if not all(math.isfinite(v) for v in (*report.values(), fvd)):
+        raise RuntimeError(f"metrics: non-finite {report}, {fvd}")
     return launches
 
 
@@ -1624,6 +2000,7 @@ def timed_steps(path, scope, step, state, batch, draws, counters, ph: KernelPhas
     from svd_xtend_tpu_torch.ops.kernels import groupnorm as gn
     from svd_xtend_tpu_torch.ops.kernels import temporal_attention as ta
     from svd_xtend_tpu_torch.ops.kernels import temporal_resnet as tr
+    from svd_xtend_tpu_torch.ops.kernels import upsample_conv as uc
 
     reset(counters)
     torch.cuda.reset_peak_memory_stats()
@@ -1634,7 +2011,8 @@ def timed_steps(path, scope, step, state, batch, draws, counters, ph: KernelPhas
             calls_by(gg, "ln_geglu_residual", GEGLU_KEY) as geglu_by_shape, \
             calls_by(tr, "conv_a", SHAPE) as conv_a_by_shape, \
             calls_by(ta, "frame_attention", SHAPE) as frame_by_shape, \
-            calls_by(gn, "group_norm_silu", GN_KEY) as gn_by_site:
+            calls_by(gn, "group_norm_silu", GN_KEY) as gn_by_site, \
+            calls_by(uc, "upsample_conv", SHAPE) as upsample_by_shape:
         for _ in range(TRAIN_STEPS):
             t0 = time.time()
             state, m = step(state, batch, generator=draws)
@@ -1665,6 +2043,14 @@ def timed_steps(path, scope, step, state, batch, draws, counters, ph: KernelPhas
     check_sites(path, gn_by_site, TRAIN_STEPS, 4)
     priced["group_norm_silu"] = price(f"{path}: group_norm_silu", gn_by_site, TRAIN_STEPS,
                                       ph.gn_ms, smi, "step")
+    # the up blocks' upsamplers in the forward and the remat recompute
+    want = collections.Counter({st[:4]: st[5] * TRAIN_STEPS for st in UPSAMPLE_SITES if st[5]})
+    check_upsample(path, launches, sum(st[5] for st in UPSAMPLE_SITES), TRAIN_STEPS)
+    if upsample_by_shape != want:
+        raise RuntimeError(f"{path}: upsample launches by shape {dict(upsample_by_shape)}, "
+                           f"UPSAMPLE_SITES give {dict(want)} for {TRAIN_STEPS} steps")
+    priced["upsample_conv"] = price(f"{path}: upsample_conv", upsample_by_shape, TRAIN_STEPS,
+                                    ph.upsample_ms, smi, "step")
     per_step = {key: n / TRAIN_STEPS for key, n in sorted(by_len.items(), reverse=True)}
     want = FLASH_BWD_SITES[scope]
     log(f"  {path}: flash_attention_bwd calls per step by (S_q, S_kv) {per_step}; the UNet's "
@@ -1707,7 +2093,8 @@ def timed_steps(path, scope, step, state, batch, draws, counters, ph: KernelPhas
 
 
 def train_phase(dev, smi, counters, profile_dir, ph: KernelPhase, conv_sums):
-    """The default train step (temporal scope), then one full-scope step."""
+    """The default train step (temporal scope), two asynchronous saves of its
+    state (checkpoint_holds), then one full-scope step."""
     import dataclasses
 
     from svd_xtend_tpu_torch.core.config import TrainConfig
@@ -1760,6 +2147,7 @@ def train_phase(dev, smi, counters, profile_dir, ph: KernelPhase, conv_sums):
 
     if profile_dir:
         profile_step(step, state, batch, draws, profile_dir)
+    state = checkpoint_holds(state, cfg, step, batch, draws, smi)
 
     del state
     torch.cuda.empty_cache()
@@ -1777,6 +2165,44 @@ def train_phase(dev, smi, counters, profile_dir, ph: KernelPhase, conv_sums):
         f"{time.time() - t0:.2f} s (first of its scope), loss {m['loss']:.5g}, grad_norm "
         f"{m['grad_norm']:.5g}; peak allocated {peak / 2**30:.2f} GiB")
     return launches
+
+
+def checkpoint_holds(state, cfg, step, batch, draws, smi):
+    """Asynchronous saves of the temporal-scope state (train/checkpoint.py):
+    two saves, each followed by a train step while its writer runs, then
+    wait(); the seconds each save held the caller (the first allocates its
+    pinned buffers, the second reuses them), the step's beside the writer's,
+    and each file loaded back equal to the state at its save."""
+    import shutil
+
+    from svd_xtend_tpu_torch.ops.kernels import _build
+    from svd_xtend_tpu_torch.train.checkpoint import STATE_FILE, CheckpointManager
+
+    root = _build.BUILD_DIR / "ckpt_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    manager = CheckpointManager(str(root), total_limit=2)
+    try:
+        for i in (1, 2):
+            want = state.params[0].cpu()
+            manager.save(i, state, cfg)
+            t0 = time.time()
+            state, _ = step(state, batch, generator=draws)
+            torch.cuda.synchronize()
+            step_s = time.time() - t0
+            manager.wait()
+            rec = manager.saves[-1]
+            got = torch.load(root / f"checkpoint-{i}" / "state" / STATE_FILE, map_location="cpu",
+                             weights_only=True, mmap=True)["params"][state.names[0]]
+            if not torch.equal(got, want):
+                raise RuntimeError(f"asynchronous save {i}: the file is not the state at the save")
+            log(f"  [{smi}] asynchronous save {i} ({rec['bytes']} bytes): held the loop "
+                f"{rec['hold_seconds']:.3f} s ({'pinned buffers allocated' if i == 1 else 'buffers reused'}), "
+                f"its device-to-host copies {rec['copy_seconds']:.3f} s of device time, its "
+                f"writer {rec['write_seconds']:.2f} s; the train step after the save (which "
+                f"waits for the copies) {step_s:.3f} s; the file holds the state at the save")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return state
 
 
 def lora_phase(dev, smi, counters, ph: KernelPhase, conv_sums, exact_launches):
@@ -1983,6 +2409,32 @@ def compare_states(a: dict, b: dict) -> dict:
             "step": (a["step"], b["step"])}
 
 
+class HostPeak:
+    """The process's resident host memory sampled every 20 ms in a thread
+    while active: `start` bytes, and `peak` bytes above it."""
+
+    def _rss(self) -> int:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+    def __enter__(self):
+        import threading
+        self.start, self.peak, self._stop = self._rss(), 0, threading.Event()
+
+        def sample():
+            while not self._stop.wait(0.02):
+                self.peak = max(self.peak, self._rss() - self.start)
+
+        self._thread = threading.Thread(target=sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self._rss() - self.start)
+
+
 def cli_phase(dev, smi, counters, exact_launches, train_launches):
     """The training CLI (train/cli.py) at full width through main(), in
     process: the native frame loader built from the checkout, its decode of
@@ -2054,7 +2506,8 @@ def cli_phase(dev, smi, counters, exact_launches, train_launches):
         reset(counters)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
-        stats = cli.main(argv(out, *extra))
+        with HostPeak() as host:
+            stats = cli.main(argv(out, *extra))
         torch.cuda.synchronize()
         wall = time.time() - t0
         peak = torch.cuda.max_memory_allocated()
@@ -2088,9 +2541,25 @@ def cli_phase(dev, smi, counters, exact_launches, train_launches):
         log(f"  [{smi}] cli {name}: loader host s per batch {', '.join(f'{s:.3f}' for s in batch)}"
             f" ({stats['decoder']}); next() blocked the loop {', '.join(f'{s:.4f}' for s in wait)}"
             " s")
+        secs = stats["step_seconds"]
+        start = CLI_STEPS - len(secs)        # the step of secs[0]
         for c in stats["checkpoints"]:
-            log(f"  [{smi}] cli {name}: checkpoint-{c['step']} {c['bytes']} bytes saved in "
-                f"{c['seconds']:.2f} s")
+            # the step after an asynchronous save waits on the device for
+            # its copies: its host time beside the median of the run's
+            # other steps but the first (warm-up included)
+            after = c["step"] - start
+            others = [t for i, t in enumerate(secs) if i not in (0, after)]
+            delta = (f"the step after it {secs[after]:.3f} s against a median "
+                     f"{statistics.median(others):.3f} s of the others but the first"
+                     if after < len(secs) and others else "no step after it")
+            log(f"  [{smi}] cli {name}: checkpoint-{c['step']} {c['bytes']} bytes: the save held "
+                f"the loop {c['hold_seconds']:.3f} s, the snapshot's device-to-host copies "
+                f"took {c['copy_seconds']:.3f} s of device time ({delta}), its writer thread "
+                f"wrote for {c['write_seconds']:.2f} s; the snapshot in pinned host memory "
+                f"{c['snapshot_bytes']} bytes")
+        log(f"  [{smi}] cli {name}: the process's resident host memory peaked "
+            f"{host.peak / 2**30:.2f} GiB above its start ({host.start / 2**30:.2f} GiB), "
+            "snapshot buffers and writer included")
         if stats["restore_seconds"] is not None:
             log(f"  [{smi}] cli {name}: restore (load + copy onto the card) "
                 f"{stats['restore_seconds']:.2f} s")
@@ -2554,14 +3023,16 @@ def infer_kernel_phase(dev, ph: KernelPhase):
     the VAE's, against its plain version: the flash forward (self and gated;
     the plain version on the first two sequences), the frame attention, the
     temporal resnet block, GroupNorm(+SiLU) (UNet L0 and the VAE decoder's
-    conv_norm_out), conv3x3 (UNet L0 and the VAE decoder's top) and GEGLU;
-    device ms of each in a CUDA graph."""
+    conv_norm_out), conv3x3 (UNet L0 and the VAE decoder's top), the
+    upsample (the UNet's last and the VAE decoder's last) and GEGLU; device
+    ms of each in a CUDA graph."""
     from svd_xtend_tpu_torch.ops.kernels import conv3x3 as cv
     from svd_xtend_tpu_torch.ops.kernels import flash_attention as fa
     from svd_xtend_tpu_torch.ops.kernels import geglu as gg
     from svd_xtend_tpu_torch.ops.kernels import groupnorm as gn
     from svd_xtend_tpu_torch.ops.kernels import temporal_attention as ta
     from svd_xtend_tpu_torch.ops.kernels import temporal_resnet as tr
+    from svd_xtend_tpu_torch.ops.kernels import upsample_conv as uc
 
     g = torch.Generator(device=dev).manual_seed(SEED + 29)
     rn = lambda *s, sc=1.0: (torch.randn(*s, device=dev, generator=g) * sc).to(torch.bfloat16)
@@ -2610,6 +3081,14 @@ def infer_kernel_phase(dev, ph: KernelPhase):
             f"{(n, h, w_, ci, co)} {'preS+res' if res else 'preS'}")
         timed[f"conv3x3 {(n, h, w_, ci, co)}"] = graph_ms(run)
         del x, kw
+    for n, h, w_, c in ((28, INFER_H // 16, INFER_W // 16, 640),
+                        (8, INFER_H // 2, INFER_W // 2, 256)):
+        x, weight, bias = rn(n, h, w_, c), rn(c, c, 3, 3, sc=(9 * c) ** -0.5), 0.1 * rn(c)
+        run = lambda: uc.upsample_conv(x, weight, bias)
+        ph.check("upsample_conv", run(), uc.upsample2x_conv3x3_reference(x, weight, bias),
+                 f"{(n, h, w_, c)}")
+        timed[f"upsample_conv {(n, h, w_, c)}"] = graph_ms(run)
+        del x
     c = 320
     gargs = [rn(28 * s, c), 1 + 0.1 * rn(c), 0.1 * rn(c), rn(8 * c, c, sc=c ** -0.5),
              0.1 * rn(8 * c), rn(c, 4 * c, sc=(4 * c) ** -0.5), 0.1 * rn(c)]
@@ -2714,6 +3193,7 @@ def infer_phase(dev, smi, counters):
     if dict(by_shape) != dict(want):
         raise RuntimeError(f"infer: flash forward calls {dict(by_shape)}, the site tables give "
                            f"{dict(want)}")
+    check_upsample("infer", launches, upsample_launches(cfg))
     video = videos[-1]
     shape = (1, cfg.num_frames, INFER_H, INFER_W, 3)
     if len(videos) != 1 or tuple(video.shape) != shape or not bool(torch.isfinite(video).all()):

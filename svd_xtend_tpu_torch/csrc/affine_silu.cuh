@@ -5,7 +5,10 @@
 //   u = bf16([silu](x*sc + sh)),   sc, sh per (sample, channel) f32,
 //
 // over m rows of c bf16 channels, a sample being `rows_per_sample`
-// consecutive rows. The conv then reads u through TMA, whose out-of-bounds
+// consecutive rows. With a second source x2, u is the transform of the
+// channel concat [x, x2] (x holding the first c1 channels of a row, x2 the
+// other c - c1): the up-block resnets' conv1 (conv3x3.cu) reads its two
+// inputs here, so the concat is never written and read again. The conv then reads u through TMA, whose out-of-bounds
 // fill keeps the padding zero after the transform, as the TPU kernels pad
 // after it. 8 channels (16 bytes) a thread: bound by device-memory bytes,
 // 2 * |x| once. conv3x3.cu says why this is a pass and not part of the
@@ -51,15 +54,19 @@ __device__ __forceinline__ float from_f32<float>(float v) {
 // 16 bytes of x (kVec elements) a thread
 template <typename T, bool kSilu>
 __global__ void __launch_bounds__(kThreads)
-kernel(const T* __restrict__ x, const float* __restrict__ sc, const float* __restrict__ sh,
-       T* __restrict__ u, long long chunks, int c, int rows_per_sample) {
+kernel(const T* __restrict__ x, const T* __restrict__ x2, const float* __restrict__ sc,
+       const float* __restrict__ sh, T* __restrict__ u, long long chunks, int c, int c1,
+       int rows_per_sample) {
   constexpr int kVec = 16 / sizeof(T);
   const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (i >= chunks) return;
   const long long e0 = i * kVec;  // first element of the chunk
   const long long m = e0 / c;
-  const size_t pc = (size_t)(m / rows_per_sample) * c + (e0 - m * c);
-  const uint4 raw = *reinterpret_cast<const uint4*>(x + e0);
+  const int ch = static_cast<int>(e0 - m * c);
+  const size_t pc = (size_t)(m / rows_per_sample) * c + ch;
+  // a chunk lies in one source (c1 is a whole number of chunks)
+  const T* src = ch < c1 ? x + m * c1 + ch : x2 + m * (c - c1) + (ch - c1);
+  const uint4 raw = *reinterpret_cast<const uint4*>(src);
   const T* e = reinterpret_cast<const T*>(&raw);
   __align__(16) T o[kVec];
 #pragma unroll
@@ -80,21 +87,27 @@ kernel(const T* __restrict__ x, const float* __restrict__ sc, const float* __res
 }
 
 // u over m rows of c channels of type T (16 bytes of channels a whole
-// number, every pointer 16-byte aligned); returns cudaGetLastError() after
-// the launch
+// number, every pointer 16-byte aligned), from x alone or, given x2, from x
+// (the first c1 channels, 16 bytes a whole number) and x2 (the rest);
+// returns cudaGetLastError() after the launch
 template <typename T = __nv_bfloat16>
 static inline int launch(const void* x, const void* sc, const void* sh, void* u, long long m,
-                         int c, int rows_per_sample, bool silu, cudaStream_t s) {
+                         int c, int rows_per_sample, bool silu, cudaStream_t s,
+                         const void* x2 = nullptr, int c1 = 0) {
   const long long chunks = m * c / (16 / sizeof(T));
   const int blocks = static_cast<int>((chunks + kThreads - 1) / kThreads);
   const auto* xp = static_cast<const T*>(x);
+  const auto* x2p = static_cast<const T*>(x2);
   const auto* scp = static_cast<const float*>(sc);
   const auto* shp = static_cast<const float*>(sh);
   auto* up = static_cast<T*>(u);
+  if (x2 == nullptr) c1 = c;
   if (silu)
-    kernel<T, true><<<blocks, kThreads, 0, s>>>(xp, scp, shp, up, chunks, c, rows_per_sample);
+    kernel<T, true><<<blocks, kThreads, 0, s>>>(xp, x2p, scp, shp, up, chunks, c, c1,
+                                                rows_per_sample);
   else
-    kernel<T, false><<<blocks, kThreads, 0, s>>>(xp, scp, shp, up, chunks, c, rows_per_sample);
+    kernel<T, false><<<blocks, kThreads, 0, s>>>(xp, x2p, scp, shp, up, chunks, c, c1,
+                                                 rows_per_sample);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -60,6 +60,15 @@
 // the same conv at batch 14 without a prologue (H100 80GB HBM3, 700 W). The
 // separate pass moves 2*|x| bytes once (92 MB, about 30 us at L0 CFG).
 //
+// Two sources (the up-block resnets' conv1, the JAX package's split-concat
+// form, svd_xtend_tpu/models/blocks.py:_conv3x3_split_cat): the input is the
+// channel concat [x, x2] of the running features (c1 channels) and a skip.
+// The prologue pass reads both and writes u at c1 + c2 channels; the GEMM
+// then reads u as it does for one source, so the mainloop is unchanged and
+// no torch.cat pass (read both, write the concat) runs before it. A second
+// A tensor map over x2 (K tiles past c1 loaded from it) would skip nothing
+// here: the prologue writes u anyway, and the GEMM's loads are u's.
+//
 // Where Ci % 64 != 0 (the UNet's conv_in, Ci 8) a K tile of 64 channels of
 // one tap does not exist; the plan sends those calls to the first mainloop,
 // kept below (conv3x3_kernel): mma.sync m16n8k16 fed by ldmatrix from a
@@ -398,7 +407,10 @@ struct ConvEpi {
 
 }  // namespace
 
-// x: (n, h, w, ci) bf16; wt: (co, 3, 3, ci) bf16; bias: (co,) f32 or null;
+// x: (n, h, w, ci) bf16, or with x2 its first c1 channels (n, h, w, c1)
+// and x2 the other ci - c1 (n, h, w, ci - c1), c1 % 8 == 0, which needs the
+// prologue (sc given); without x2, c1 is not read; wt: (co, 3, 3, ci) bf16;
+// bias: (co,) f32 or null;
 // sc, sh: (n, ci) f32, both or neither (null: no prologue); silu applies
 // only with them; u: (n, h, w, ci) bf16 scratch for the prologue's output
 // (null without sc); post: (n, co) f32 or null; res, out: (n, h, w, co)
@@ -409,13 +421,15 @@ struct ConvEpi {
 // persistent blocks; mainloop 0 = the mma.sync kernel, bn 128. Returns the first CUDA error of the launches (0
 // on success), or cudaErrorInvalidValue for a plan this file does not take
 // (a tensor map TMA refuses is found before anything launches).
-extern "C" int svdx_conv3x3(const void* x, const void* wt, const void* bias, const void* sc,
-                            const void* sh, void* u, const void* post, const void* res,
-                            void* out, void* workspace, int n, int h, int w, int ci, int co,
-                            int silu, int mainloop, int bn, int k_slices,
+extern "C" int svdx_conv3x3(const void* x, const void* x2, const void* wt, const void* bias,
+                            const void* sc, const void* sh, void* u, const void* post,
+                            const void* res, void* out, void* workspace, int n, int h, int w,
+                            int ci, int c1, int co, int silu, int mainloop, int bn, int k_slices,
                             int grid, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int m = n * h * w;
+  if (x2 != nullptr && (sc == nullptr || c1 < 8 || c1 % 8 || c1 >= ci))
+    return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap a_map, b_map, c_map, r_map;
   if (mainloop == 1) {
     int err = sm90_gemm::encode_im2col_map(&a_map, sc ? u : x, n, h, w, ci, 3, sm90_gemm::kBM);
@@ -428,7 +442,7 @@ extern "C" int svdx_conv3x3(const void* x, const void* wt, const void* bias, con
   }
   const __nv_bfloat16* xin = static_cast<const __nv_bfloat16*>(x);
   if (sc) {
-    const int err = affine_silu::launch(x, sc, sh, u, m, ci, h * w, silu != 0, s);
+    const int err = affine_silu::launch(x, sc, sh, u, m, ci, h * w, silu != 0, s, x2, c1);
     if (err) return err;
     xin = static_cast<const __nv_bfloat16*>(u);
   }

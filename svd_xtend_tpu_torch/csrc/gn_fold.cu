@@ -27,20 +27,25 @@
 // groups: where x is given (bf16 (b * rows_per_sample, c), c even, 4-byte
 // aligned) stats_kernel first fills the partials psum / psq (b,
 // gn_stats::slots(rows_per_sample), c) f32 from it, else they are read as
-// given; then sc, sh (b, c) f32 from them and scale, bias (c) f32. Returns
-// the first CUDA error of the launches, or cudaErrorInvalidValue for a
-// geometry it does not take.
-extern "C" int svdx_group_norm_fold(const void* x, void* psum, void* psq, const void* scale,
-                                    const void* bias, void* sc, void* sh, int b,
-                                    int rows_per_sample, int c, int groups, float eps,
-                                    void* stream) {
+// given; then sc, sh (b, c) f32 from them and scale, bias (c) f32. With x2
+// (the JAX package's group_norm_fold_cat, groupnorm.py:313), the c channels
+// are the concat [x, x2] of x's c1 and x2's c - c1 (both even), never
+// built: one stats_kernel launch reads each column pair from the part it
+// lies in, and the fold reads the partials as one width, so a group that
+// straddles the two parts is folded whole. Returns the first CUDA error of
+// the launches, or cudaErrorInvalidValue for a geometry it does not take.
+extern "C" int svdx_group_norm_fold(const void* x, const void* x2, void* psum, void* psq,
+                                    const void* scale, const void* bias, void* sc, void* sh,
+                                    int b, int rows_per_sample, int c, int c1, int groups,
+                                    float eps, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (b < 1 || rows_per_sample < 1 || c < 2 || c % 2 || groups < 1 || c % groups)
+  if (b < 1 || rows_per_sample < 1 || c < 2 || c % 2 || groups < 1 || c % groups ||
+      (x2 != nullptr && (x == nullptr || c1 < 2 || c1 % 2 || c1 >= c)))
     return static_cast<int>(cudaErrorInvalidValue);
   const gn_stats::Stats st{static_cast<float*>(psum), static_cast<float*>(psq), c,
                            rows_per_sample, gn_stats::slots(rows_per_sample)};
   if (x != nullptr) {
-    const int err = gn_stats::launch(x, st, b * rows_per_sample, s);
+    const int err = gn_stats::launch(x, st, b * rows_per_sample, s, x2, c1);
     if (err) return err;
   }
   return gn_stats::fold(st, b, groups, scale, bias, sc, sh, eps, s);

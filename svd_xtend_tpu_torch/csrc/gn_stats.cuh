@@ -108,26 +108,35 @@ struct Stats {
 };
 
 // the statistics of a (m, c) matrix in device memory, one column pair of one
-// chunk a thread
+// chunk a thread; with x2, of the channel concat [x, x2] of x's first c1
+// columns and x2's c - c1 (c1 even), never built: a pair reads the part it
+// lies in
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-stats_kernel(const T* __restrict__ x, const Stats st, int m) {
+stats_kernel(const T* __restrict__ x, const T* __restrict__ x2, const Stats st, int m, int c1) {
   const int pairs = st.c / 2;
   const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
   const long long chunks = (m + kChunkRows - 1) / kChunkRows;
   if (i >= chunks * pairs) return;
   const int q = static_cast<int>(i / pairs), p = static_cast<int>(i - (long long)q * pairs);
-  const int r0 = q * kChunkRows;
-  st.chunk(x + (size_t)r0 * st.c + 2 * p, st.c, r0, m, 2 * p);
+  const int r0 = q * kChunkRows, col = 2 * p;
+  if (col < c1)
+    st.chunk(x + (size_t)r0 * c1 + col, c1, r0, m, col);
+  else
+    st.chunk(x2 + (size_t)r0 * (st.c - c1) + (col - c1), st.c - c1, r0, m, col);
 }
 
 // stats_kernel over x of element type T (c even, x aligned to two
-// elements); returns cudaGetLastError()
+// elements), or over the concat [x, x2] (x holding the first c1 channels,
+// c1 even); returns cudaGetLastError()
 template <typename T = __nv_bfloat16>
-inline int launch(const void* x, const Stats& st, int m, cudaStream_t s) {
+inline int launch(const void* x, const Stats& st, int m, cudaStream_t s,
+                  const void* x2 = nullptr, int c1 = 0) {
   const long long threads = (long long)(m + kChunkRows - 1) / kChunkRows * (st.c / 2);
   const int blocks = static_cast<int>((threads + kThreads - 1) / kThreads);
-  stats_kernel<T><<<blocks, kThreads, 0, s>>>(static_cast<const T*>(x), st, m);
+  stats_kernel<T><<<blocks, kThreads, 0, s>>>(static_cast<const T*>(x),
+                                              static_cast<const T*>(x2), st, m,
+                                              x2 == nullptr ? st.c : c1);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,6 +1,7 @@
 // The GEMM mainloop for Hopper (sm_90a) shared by the conv3x3 implicit GEMM
 // (csrc/conv3x3.cu: forward and dU), the two GEMMs of the residual GEGLU
-// (csrc/geglu.cu) and the temporal resnet's frame convs (csrc/temporal_resnet.cu):
+// (csrc/geglu.cu), the temporal resnet's frame convs (csrc/temporal_resnet.cu)
+// and the upsample's four parity convs (csrc/upsample_conv.cu):
 //
 //   C (M x N, f32 accumulators) = A (M x K) . B (N x K)^T,   bf16 operands
 //
@@ -74,6 +75,8 @@
 //     levels); ops/kernels/gemm_plan.py holds the model the plans follow.
 
 #pragma once
+
+#include <type_traits>
 
 #include "sm90.cuh"
 
@@ -329,6 +332,33 @@ struct Im2colA {
 };
 using FrameIm2colA = Im2colA<1>;
 
+// Optional policy hooks, found by name (the loaders and epilogues above and
+// in the kernels' sources have neither unless they say so):
+//   - ALoad::b_batch(pos): the B map's third coordinate for the item at
+//     `pos` (0 without it). The upsample's parity convs (upsample_conv.cu)
+//     keep their four tap-summed weights as the batches of one 3-D map;
+//   - Epi::store_tile(&c_map, rows, col, row0): stores a consumer
+//     warpgroup's finished 64 rows in place of the 2-D TMA store of rows
+//     row0.. at column col (in the thread's bulk group, committed). The
+//     upsample's epilogue writes each parity's rows straight into the
+//     interleaved 2x output.
+template <class A, class = void>
+struct HasBBatch : std::false_type {};
+template <class A>
+struct HasBBatch<A, std::void_t<decltype(&A::b_batch)>> : std::true_type {};
+template <class E, class = void>
+struct HasStoreTile : std::false_type {};
+template <class E>
+struct HasStoreTile<E, std::void_t<decltype(&E::store_tile)>> : std::true_type {};
+
+template <class ALoad>
+__device__ __forceinline__ int b_batch(const ALoad& aload, const typename ALoad::Pos& pos) {
+  if constexpr (HasBBatch<ALoad>::value)
+    return aload.b_batch(pos);
+  else
+    return 0;
+}
+
 // ------------------------------------------------------------ the kernel --
 
 template <int BN, int kOutCols>
@@ -481,7 +511,8 @@ gemm_kernel(const __grid_constant__ CUtensorMap a_map, const __grid_constant__ C
           sm90::mbar_wait(&sm.empty[st], ((it / kStages) & 1) ^ 1);
           sm90::mbar_arrive_expect_tx(&sm.full[st], Sm::kABytes + Sm::kBBytes);
           aload.load(sm.a[st], &a_map, &sm.full[st], pos, kt);
-          sm90::tma_load_3d(sm.b[st], &b_map, &sm.full[st], kt * kBK, item.n0, 0);
+          sm90::tma_load_3d(sm.b[st], &b_map, &sm.full[st], kt * kBK, item.n0,
+                            b_batch(aload, pos));
           if (residual && kt == res_at) {
             for (int h = 0; h < kC; ++h) {
               sm90::mbar_wait(&sm.out_free[h], (ii & 1) ^ 1);
@@ -556,7 +587,12 @@ gemm_kernel(const __grid_constant__ CUtensorMap a_map, const __grid_constant__ C
         epilogue<BN>(epi, acc, r0, item.n0, shape.m, shape.n, t, rows, tr0 - wg * 64, residual);
         sm90::fence_proxy_async();  // the tile's writes, visible to the TMA store
         warpgroup_sync(wg);
-        if (storer) tma_store_2d(&c_map, rows, Epi::out_col(item.n0), item.m0 + wg * 64);
+        if (storer) {
+          if constexpr (HasStoreTile<Epi>::value)
+            epi.store_tile(&c_map, rows, Epi::out_col(item.n0), item.m0 + wg * 64);
+          else
+            tma_store_2d(&c_map, rows, Epi::out_col(item.n0), item.m0 + wg * 64);
+        }
         // statistics of the stored values, read back from the finished rows
         // (the next item's epilogue writes them only after its
         // warpgroup_sync, so after every thread is done here)

@@ -2,11 +2,15 @@
 
 Port of ``svd_xtend_tpu/models/blocks.py`` as plain diffusers math on
 channels-last activations: spatial blocks act on (N, H, W, C), temporal
-blocks on (B, F, H*W, C). Convs other than the 3x3 SAME ones (the 1x1
-shortcuts, the stride-2 downsamplers, the upsamplers' convs, as the JAX
+blocks on (B, F, H*W, C). Convs other than the 3x3 SAME ones and the
+upsamplers' (the 1x1 shortcuts, the stride-2 downsamplers, as the JAX
 package keeps them outside its Pallas kernel) go to ``F.conv2d`` through the
-NCHW view of the NHWC tensor (``torch.channels_last``, no copy). The up-block
-skip is concatenated; the upsample is nearest 2x then a 3x3 conv.
+NCHW view of the NHWC tensor (``torch.channels_last``, no copy). The JAX
+package's default forms: the up-block resnets take the running features
+and the skip as two parts of a channel concat that is never built
+(``ResnetBlock2D(skip_cat=)``: the GN fold, conv1 and the 1x1 shortcut
+over the parts), and the upsample is the nearest-2x + 3x3 conv by the parity
+decomposition (``ops/upsample.py``).
 
 Kernel sites on CUDA:
   - ``Conv3x3``: the conv3x3 kernel (ops/kernels/conv3x3.py) wherever its
@@ -18,6 +22,9 @@ Kernel sites on CUDA:
     for channel counts that are not multiples of 8, the UNet's ``conv_out``
     (Co 4), the VAE encoder's ``conv_in`` (Ci 3), the decoder's ``conv_in``
     (Ci 4) and ``conv_out`` (Co 3); those take ``F.conv2d``;
+  - ``Upsample2D``: the upsample kernel (ops/kernels/upsample_conv.py) on
+    every CUDA call, which it takes or raises: the UNet's up blocks and the
+    VAE decoder's;
   - every other GroupNorm(+SiLU) goes to the GroupNorm kernel
     (ops/kernels/groupnorm.py), the GN folds to the fold's kernels
     (``groupnorm.group_norm_fold``), and every TemporalResnetBlock with its
@@ -38,6 +45,7 @@ from ..ops import video
 from ..ops.kernels import conv3x3 as cvk
 from ..ops.kernels import groupnorm as gnk
 from ..ops.kernels import temporal_resnet as trk
+from ..ops.kernels import upsample_conv as uck
 from ..ops.kernels.dispatch import kernels_enabled
 
 
@@ -58,16 +66,16 @@ class GroupNormSiLU(nn.Module):
         return gnk.group_norm_silu_reference(x, self.weight, self.bias,
                                              self.groups, self.eps, self.silu)
 
-    def fold(self, x: torch.Tensor):
+    def fold(self, x: torch.Tensor, x2: Optional[torch.Tensor] = None):
         """The statistics half only: per-(sample, channel) f32 (sc, sh) with
         GN(x)·weight + bias == x·sc + sh, for a consumer that applies the
         normalise (+ SiLU) as it reads x (the JAX module's ``fold_only``).
-        Over an up-block's concatenated input it equals JAX's
+        With x2, over the channel concat [x, x2] without building it: JAX's
         ``group_norm_fold_cat``, groups straddling the two parts included.
         On the card the fold's kernels compute it (``group_norm_fold``, which
         raises on an x they do not take)."""
         fold = gnk.group_norm_fold if kernels_enabled() else gnk.group_norm_fold_reference
-        return fold(x, self.weight, self.bias, groups=self.groups, eps=self.eps)
+        return fold(x, self.weight, self.bias, x2, groups=self.groups, eps=self.eps)
 
 
 class AlphaBlender(nn.Module):
@@ -103,24 +111,34 @@ class Conv3x3(nn.Conv2d):
     package's ``Conv3x3`` (blocks.py:225-348; its int8, Winograd and tiled
     forms are not ported): ``pre=(sc, sh, silu)`` a per-(N, Ci) f32 input
     affine (+ SiLU), ``post_shift`` (N, Co) f32 and ``residual`` added to the
-    output. The parameter is diffusers' OIHW weight, stored channels_last so
-    that the kernel reads it as (Co, 3, 3, Ci) without a copy.
+    output; ``x2``, the split-concat form (blocks.py:204-222, 257-280): the
+    input is the channel concat [x, x2], which is never built, and ``pre``
+    spans its full width. The parameter is diffusers' OIHW weight, stored
+    channels_last so that the kernel reads it as (Co, 3, 3, Ci) without a
+    copy.
 
-    On CUDA every call ``supports`` takes goes to the conv3x3 kernel; the
-    rest (and every call on the CPU) takes the JAX package's route where its
-    dispatch declines: the affine as plain ops, the conv (``F.conv2d``),
-    then the shift and the residual (blocks.py:325-348)."""
+    On CUDA every call ``supports`` takes goes to the conv3x3 kernel, and
+    every call with x2 (its prologue pass reads the two parts), which the
+    kernel takes or raises; the rest (and every call on the CPU) takes the
+    JAX package's route where its dispatch declines: the affine as plain
+    ops, the conv (``F.conv2d``), then the shift and the residual
+    (blocks.py:325-348); with x2, the kernel's plain version
+    (``conv3x3_fused_reference``: per part, summed)."""
 
     def __init__(self, in_channels: int, out_channels: int):
         super().__init__(in_channels, out_channels, 3, padding=1)
         self.weight.data = self.weight.data.contiguous(memory_format=torch.channels_last)
 
     def forward(self, x: torch.Tensor, pre=None, post_shift: Optional[torch.Tensor] = None,
-                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+                residual: Optional[torch.Tensor] = None,
+                x2: Optional[torch.Tensor] = None) -> torch.Tensor:
         sc, sh, silu = pre if pre is not None else (None, None, False)
-        if kernels_enabled() and cvk.supports(x, self.weight):
+        if kernels_enabled() and (x2 is not None or cvk.supports(x, self.weight)):
             return cvk.conv3x3(x, self.weight, self.bias, pre_scale=sc, pre_shift=sh,
-                               pre_silu=silu, post_shift=post_shift, residual=residual)
+                               pre_silu=silu, post_shift=post_shift, residual=residual, x2=x2)
+        if x2 is not None:
+            return cvk.conv3x3_fused_reference(x, self.weight, self.bias, sc, sh, post_shift,
+                                               residual, silu, x2=x2)
         if pre is not None:
             x = cvk.apply_pre_affine(x, sc, sh, silu)
         y = video.nhwc(super().forward(video.nchw(x)))
@@ -129,6 +147,61 @@ class Conv3x3(nn.Conv2d):
         if residual is not None:
             y = y + residual
         return y
+
+
+class Conv1x1Cat(Conv2d):
+    """The 1x1 conv (diffusers' ``conv_shortcut``: weight (Co, Ci, 1, 1),
+    bias) over x or, given x2, over the channel concat [x, x2] without
+    building it: JAX's ``_Conv1x1Cat`` (blocks.py:351-378), x @ k[:C1] +
+    x2 @ k[C1:] + b, both products and the bias summed in f32 and cast once
+    (``torch.mm`` with an f32 output on the card, a plain matrix product as
+    JAX leaves it to XLA; the backward is its VJP, in x's dtype)."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__(in_channels, out_channels, 1)
+
+    def forward(self, x: torch.Tensor, x2: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if x2 is None:
+            return super().forward(x)
+        lead = x.shape[:-1]
+        y = _SplitLinear.apply(x.reshape(-1, x.shape[-1]), x2.reshape(-1, x2.shape[-1]),
+                               self.weight[:, :, 0, 0], self.bias)
+        return y.reshape(*lead, y.shape[-1])
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b summed and returned in f32 (bf16 products on the card's tensor
+    cores where a and b are bf16)."""
+    if a.is_cuda and a.dtype != torch.float32:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.mm(a.float(), b.float())
+
+
+class _SplitLinear(torch.autograd.Function):
+    """y = x @ w[:, :C1]ᵀ + x2 @ w[:, C1:]ᵀ + b, in f32, one cast to x's
+    dtype; x (M, C1), x2 (M, C2), w (Co, C1 + C2), b (Co)."""
+
+    @staticmethod
+    def forward(ctx, x, x2, w, b):
+        ctx.save_for_backward(x, x2, w)
+        c1 = x.shape[-1]
+        y = _mm_f32(x, w[:, :c1].t()) + _mm_f32(x2, w[:, c1:].t()) + b.to(x.dtype).float()
+        return y.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, x2, w = ctx.saved_tensors
+        c1 = x.shape[-1]
+        need_x, need_x2, need_w, need_b = ctx.needs_input_grad
+        dx = dy @ w[:, :c1].to(dy.dtype) if need_x else None
+        dx2 = dy @ w[:, c1:].to(dy.dtype) if need_x2 else None
+        dw = None
+        if need_w:
+            dw = torch.empty_like(w, dtype=dy.dtype)
+            dw[:, :c1] = dy.t() @ x
+            dw[:, c1:] = dy.t() @ x2
+        db = dy.float().sum(0).to(dy.dtype) if need_b else None
+        return dx, dx2, dw, db
 
 
 class TemporalConv(nn.Conv3d):
@@ -151,7 +224,10 @@ class ResnetBlock2D(nn.Module):
     JAX package's GN-fold form (blocks.py:494-536, its default): each
     GroupNorm contributes only its folded (sc, sh), and the normalise + SiLU,
     the time-embedding add (f32) and the skip add ride the two Conv3x3
-    calls."""
+    calls. ``skip_cat`` (the up blocks' skip; JAX's split-concat form, its
+    default, blocks.py:472-515): the block's input is the channel concat
+    [x, skip_cat], never built: norm1's fold, conv1 and the 1x1 shortcut
+    run over the two parts."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  temb_channels: Optional[int] = None, eps: float = 1e-5,
@@ -163,16 +239,20 @@ class ResnetBlock2D(nn.Module):
                               if temb_channels is not None else None)
         self.norm2 = GroupNormSiLU(out_channels, groups, eps)
         self.conv2 = Conv3x3(out_channels, out_channels)
-        self.conv_shortcut = (Conv2d(in_channels, out_channels, 1)
+        self.conv_shortcut = (Conv1x1Cat(in_channels, out_channels)
                               if in_channels != out_channels else None)
 
-    def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor] = None):
+    def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor] = None,
+                skip_cat: Optional[torch.Tensor] = None):
         t = None
         if self.time_emb_proj is not None:
             t = self.time_emb_proj(F.silu(temb)).float()
-        sc, sh = self.norm1.fold(x)
-        h = self.conv1(x, pre=(sc, sh, True), post_shift=t)
-        skip = x if self.conv_shortcut is None else self.conv_shortcut(x)
+        if skip_cat is not None and self.conv_shortcut is None:
+            raise ValueError("ResnetBlock2D: a skip to concatenate needs the 1x1 shortcut "
+                             "(in_channels != out_channels)")
+        sc, sh = self.norm1.fold(x, skip_cat)
+        h = self.conv1(x, pre=(sc, sh, True), post_shift=t, x2=skip_cat)
+        skip = x if self.conv_shortcut is None else self.conv_shortcut(x, skip_cat)
         sc2, sh2 = self.norm2.fold(h)
         return self.conv2(h, pre=(sc2, sh2, True), residual=skip)
 
@@ -227,8 +307,10 @@ class SpatioTemporalResBlock(nn.Module):
         self.time_mixer = AlphaBlender(merge_factor)
 
     def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor],
-                num_frames: int) -> torch.Tensor:
-        h = self.spatial_res_block(x, temb)
+                num_frames: int, skip_cat: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """`skip_cat`: the up blocks' skip, the second part of the spatial
+        resnet's input (the temporal resnet reads the spatial output)."""
+        h = self.spatial_res_block(x, temb, skip_cat)
         bf, hh, ww, c = h.shape
         b = bf // num_frames
         temb_frames = temb.reshape(b, num_frames, -1) if temb is not None else None
@@ -255,12 +337,19 @@ class Downsample2D(nn.Module):
 
 
 class Upsample2D(nn.Module):
-    """Nearest 2x upsample, then a 3x3 conv."""
+    """Nearest 2x upsample, then a 3x3 conv, by the parity decomposition of
+    the JAX package's default (blocks.py:677-717, ops/upsample.py): four 2x2
+    convs at the input resolution on tap-summed kernels, interleaved; no 4x
+    intermediate. The parameters stay diffusers' ``conv.weight`` (OIHW 3x3)
+    and ``conv.bias``. On CUDA the upsample kernel
+    (ops/kernels/upsample_conv.py) takes every call or raises; on the CPU,
+    and inside ``plain_versions()``, the plain version runs."""
 
     def __init__(self, channels: int):
         super().__init__()
         self.conv = Conv2d(channels, channels, 3, padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = video.nhwc(F.interpolate(video.nchw(x), scale_factor=2.0, mode="nearest"))
-        return self.conv(x)
+        if kernels_enabled():
+            return uck.upsample_conv(x, self.conv.weight, self.conv.bias)
+        return uck.upsample2x_conv3x3_reference(x, self.conv.weight, self.conv.bias)

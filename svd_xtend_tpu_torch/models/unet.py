@@ -112,8 +112,10 @@ class MidBlock(nn.Module):
 
 
 class UpBlock(nn.Module):
-    """(CrossAttn)UpBlockSpatioTemporal: each resnet takes the concat of the
-    running features and one skip; then an optional upsampler."""
+    """(CrossAttn)UpBlockSpatioTemporal: each resnet takes the running
+    features and one skip as the two parts of a channel concat that is never
+    built (the JAX package's split-concat form); then an optional
+    upsampler."""
 
     def __init__(self, prev_channels: int, out_channels: int,
                  skip_channels: Sequence[int], temb_channels: int, eps: float,
@@ -139,7 +141,7 @@ class UpBlock(nn.Module):
 
     def forward(self, x, skips: List[torch.Tensor], temb, ehs, num_frames, tokens=None):
         for i, resnet in enumerate(self.resnets):
-            x = resnet(torch.cat([x, skips[-(i + 1)]], dim=-1), temb, num_frames)
+            x = resnet(x, temb, num_frames, skip_cat=skips[-(i + 1)])
             if self.attentions is not None:
                 x = self.attentions[i](x, ehs, num_frames, tokens)
         if self.upsamplers is not None:

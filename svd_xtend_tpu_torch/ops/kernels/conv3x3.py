@@ -33,6 +33,14 @@ does), and dW as a weight-gradient conv of u and dy, which JAX leaves to
 ``lax.conv`` and the port to ``aten.convolution_backward`` (cuDNN on the
 card). db, dpost, dres, dx, dsc and dsh follow JAX's formulas.
 
+Two sources (``x2``): the up-block resnets' conv1 reads the channel concat
+[x, x2] of the running features and a skip without building it, as the
+JAX package's split-concat form (``_conv3x3_split_cat``, blocks.py:204-222:
+the affine per part, then the sum of the two parts' convs in one f32
+accumulator). The kernel's prologue pass reads both parts and writes u at
+the full width; the GEMM is the one-source GEMM over u. pre_scale and
+pre_shift span the full width; the backward splits dx at x's channels.
+
 On a CPU tensor ``conv3x3`` runs the plain version, differentiated by
 autograd; on a CUDA tensor it launches the kernel or raises. The TPU
 dispatch gates (an autotune table and margins measured on a v5e) do not
@@ -73,15 +81,24 @@ def conv3x3_fused_reference(x: torch.Tensor, weight: torch.Tensor,
                             pre_shift: Optional[torch.Tensor] = None,
                             post_shift: Optional[torch.Tensor] = None,
                             residual: Optional[torch.Tensor] = None,
-                            pre_silu: bool = False) -> torch.Tensor:
+                            pre_silu: bool = False,
+                            x2: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain version: (N, H, W, Ci) x OIHW (Co, Ci, 3, 3) -> (N, H, W, Co).
     pre_scale/pre_shift: (N, Ci) f32; post_shift: (N, Co) f32; residual
     (N, H, W, Co). The f32 conv of x-dtype values stands for the f32
-    accumulation of x-dtype products."""
+    accumulation of x-dtype products. With x2, the input is the channel
+    concat [x, x2] (Ci = C1 + C2): the affine per part, and the two parts'
+    convs summed in f32 (JAX's ``_conv3x3_split_cat``)."""
     dt = x.dtype
-    if pre_scale is not None:
-        x = apply_pre_affine(x, pre_scale, pre_shift, pre_silu)
-    y = video.nhwc(F.conv2d(video.nchw(x).float(), weight.to(dt).float(), padding=1))
+    parts = [(x, 0, x.shape[-1])]
+    if x2 is not None:
+        parts.append((x2, x.shape[-1], x.shape[-1] + x2.shape[-1]))
+    y = 0
+    for part, c0, c1 in parts:
+        if pre_scale is not None:
+            part = apply_pre_affine(part, pre_scale[:, c0:c1], pre_shift[:, c0:c1], pre_silu)
+        y = y + F.conv2d(video.nchw(part).float(), weight[:, c0:c1].to(dt).float(), padding=1)
+    y = video.nhwc(y)
     if bias is not None:
         y = y + bias.to(dt).float()
     if post_shift is not None:
@@ -103,14 +120,23 @@ def conv3x3_input_grad_reference(dy: torch.Tensor, weight: torch.Tensor) -> torc
     return conv3x3_fused_reference(dy, flipped_weight(weight), None)
 
 
-def supports(x: torch.Tensor, weight: torch.Tensor) -> bool:
+def supports(x: torch.Tensor, weight: torch.Tensor, x2: Optional[torch.Tensor] = None,
+             pre: bool = True) -> bool:
     """Structural dispatch predicate: a CUDA bf16 contiguous (N, H, W, Ci)
-    with a (Co, Ci, 3, 3) weight, Ci and Co multiples of 8."""
-    return (x.is_cuda and x.dtype == torch.bfloat16 and x.dim() == 4
-            and x.is_contiguous() and weight.dim() == 4
-            and tuple(weight.shape[1:]) == (x.shape[-1], 3, 3)
-            and x.shape[-1] % CHANNEL_MULTIPLE == 0
-            and weight.shape[0] % CHANNEL_MULTIPLE == 0)
+    with a (Co, Ci, 3, 3) weight, Ci and Co multiples of 8. With a second
+    source x2 (N, H, W, C2), the same of x2, Ci = C1 + C2 with C1 and C2
+    multiples of 8, and the prologue (`pre`: pre_scale given), whose pass
+    reads the two parts."""
+    ci = x.shape[-1] + (0 if x2 is None else x2.shape[-1])
+    ok = (x.is_cuda and x.dtype == torch.bfloat16 and x.dim() == 4
+          and x.is_contiguous() and weight.dim() == 4
+          and tuple(weight.shape[1:]) == (ci, 3, 3)
+          and x.shape[-1] % CHANNEL_MULTIPLE == 0
+          and weight.shape[0] % CHANNEL_MULTIPLE == 0)
+    if x2 is None or not ok:
+        return ok
+    return (pre and x2.device == x.device and x2.dtype == x.dtype and x2.is_contiguous()
+            and x2.shape[:-1] == x.shape[:-1] and x2.shape[-1] % CHANNEL_MULTIPLE == 0)
 
 
 @functools.cache
@@ -132,14 +158,16 @@ def _ptr(a: Optional[torch.Tensor]):
 
 
 def _run(x, weight, bias, pre_scale, pre_shift, post_shift, residual, pre_silu,
-         plan=None):
-    if not supports(x, weight):
+         plan=None, x2=None):
+    if not supports(x, weight, x2, pre_scale is not None):
         raise ValueError(
             f"conv3x3 kernel needs a CUDA bf16 contiguous (N, H, W, Ci) and a "
-            f"(Co, Ci, 3, 3) weight with Ci, Co multiples of {CHANNEL_MULTIPLE}; got "
+            f"(Co, Ci, 3, 3) weight with Ci, Co multiples of {CHANNEL_MULTIPLE} (a second "
+            f"source only with the prologue, of x's N, H, W); got "
             f"{tuple(x.shape)} {x.dtype} contiguous={x.is_contiguous()}, weight "
-            f"{tuple(weight.shape)}")
-    n, h, w, ci = x.shape
+            f"{tuple(weight.shape)}, x2 {None if x2 is None else tuple(x2.shape)}")
+    n, h, w, c1 = x.shape
+    ci = weight.shape[1]
     co = weight.shape[0]
     f32 =lambda a: None if a is None else a.float().contiguous()
     wk = weight.permute(0, 2, 3, 1).to(torch.bfloat16).contiguous()
@@ -155,8 +183,9 @@ def _run(x, weight, bias, pre_scale, pre_shift, post_shift, residual, pre_silu,
                                  or residual.device != x.device):
         raise ValueError(f"conv3x3: residual must be a contiguous bf16 {(n, h, w, co)}")
     out = torch.empty((n, h, w, co), device=x.device, dtype=torch.bfloat16)
-    u = torch.empty_like(x) if sc is not None else None   # the prologue's output
-    for a in (x, wk, bias, sc, sh, post, residual):
+    # the prologue's output, at the full width
+    u = torch.empty((n, h, w, ci), device=x.device, dtype=x.dtype) if sc is not None else None
+    for a in (x, x2, wk, bias, sc, sh, post, residual):
         if a is not None and a.data_ptr() % 16:
             raise ValueError("conv3x3: every operand must be 16-byte aligned")
     if plan is None:
@@ -164,8 +193,9 @@ def _run(x, weight, bias, pre_scale, pre_shift, post_shift, residual, pre_silu,
     ws = (torch.empty(plan.workspace_elems, device=x.device, dtype=torch.float32)
           if plan.workspace_elems else None)
     err = library().svdx_conv3x3(
-        x.data_ptr(), wk.data_ptr(), _ptr(bias), _ptr(sc), _ptr(sh), _ptr(u), _ptr(post),
-        _ptr(residual), out.data_ptr(), _ptr(ws), n, h, w, ci, co, int(bool(pre_silu)),
+        x.data_ptr(), _ptr(x2), wk.data_ptr(), _ptr(bias), _ptr(sc), _ptr(sh), _ptr(u),
+        _ptr(post), _ptr(residual), out.data_ptr(), _ptr(ws), n, h, w, ci, c1, co,
+        int(bool(pre_silu)),
         int(plan.mainloop == "tma"), plan.bn, plan.k_slices, plan.grid,
         torch.cuda.current_stream(x.device).cuda_stream)
     check(err, "conv3x3")
@@ -173,8 +203,8 @@ def _run(x, weight, bias, pre_scale, pre_shift, post_shift, residual, pre_silu,
 
 
 def _launch(x, weight, bias, pre_scale=None, pre_shift=None, post_shift=None,
-            residual=None, pre_silu=False) -> torch.Tensor:
-    out = _run(x, weight, bias, pre_scale, pre_shift, post_shift, residual, pre_silu)
+            residual=None, pre_silu=False, x2=None) -> torch.Tensor:
+    out = _run(x, weight, bias, pre_scale, pre_shift, post_shift, residual, pre_silu, x2=x2)
     conv3x3.launches += 1
     return out
 
@@ -197,56 +227,81 @@ def conv3x3_input_grad(dy: torch.Tensor, weight: torch.Tensor, *, kernel=None) -
 
 class _Conv3x3Function(torch.autograd.Function):
     """Forward through `kernel`; the explicit backward of JAX's
-    ``_conv3x3_vjp_bwd``, its dU through `input_grad_kernel`."""
+    ``_conv3x3_vjp_bwd``, its dU through `input_grad_kernel`. With a second
+    source x2, the input's gradient (and u, dW's input) is taken per part:
+    the parts' slices of dU, sc and sh, written into the channel ranges of
+    dW, dsc and dsh (no concat is built in the backward either)."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, pre_scale, pre_shift, post_shift, residual,
+    def forward(ctx, x, x2, weight, bias, pre_scale, pre_shift, post_shift, residual,
                 pre_silu, kernel, input_grad_kernel):
-        ctx.save_for_backward(x, weight, pre_scale, pre_shift)
+        ctx.save_for_backward(x, x2, weight, pre_scale, pre_shift)
         ctx.pre_silu, ctx.input_grad_kernel = pre_silu, input_grad_kernel
-        return kernel(x, weight, bias, pre_scale, pre_shift, post_shift, residual, pre_silu)
+        extra = {} if x2 is None else {"x2": x2}
+        return kernel(x, weight, bias, pre_scale, pre_shift, post_shift, residual, pre_silu,
+                      **extra)
 
     @staticmethod
     def backward(ctx, dy):
-        x, weight, sc, sh = ctx.saved_tensors
-        need_x, need_w, need_b, need_sc, need_sh, need_post, need_res = ctx.needs_input_grad[:7]
+        x, x2, weight, sc, sh = ctx.saved_tensors
+        (need_x, need_x2, need_w, need_b, need_sc, need_sh, need_post,
+         need_res) = ctx.needs_input_grad[:8]
         dy = dy.contiguous()
         dyf = dy.float()
         db = dyf.sum((0, 1, 2)).to(dy.dtype) if need_b else None
         dpost = dyf.sum((1, 2)) if need_post else None
         dres = dy if need_res else None
-        u = x
-        if sc is not None:
-            v = x.float() * sc[:, None, None, :] + sh[:, None, None, :]
-            if ctx.pre_silu:
-                sig = torch.sigmoid(v)
-                u = (v * sig).to(x.dtype)
-            else:
-                u = v.to(x.dtype)
-        dx = dw = dsc = dsh = None
-        if need_x or need_sc or need_sh:
+        c1 = x.shape[-1]
+        parts = [(x, 0, c1, need_x)]
+        if x2 is not None:
+            parts.append((x2, c1, c1 + x2.shape[-1], need_x2))
+        du = None
+        if need_x or need_x2 or need_sc or need_sh:
             du = conv3x3_input_grad(dy, weight, kernel=ctx.input_grad_kernel).float()
+        # each part fills its channel range of dW, dsc and dsh
+        dsc = torch.empty_like(sc) if need_sc else None
+        dsh = torch.empty_like(sh) if need_sh else None
+        dw = torch.empty_like(weight, dtype=dy.dtype) if need_w else None
+        dxs = []
+        for part, a, b, need in parts:
+            u = part
             if sc is not None:
-                dv = du * (sig * (1.0 + v * (1.0 - sig))) if ctx.pre_silu else du
-                dx = (dv * sc[:, None, None, :]).to(x.dtype) if need_x else None
-                dsc = (dv * x.float()).sum((1, 2)) if need_sc else None
-                dsh = dv.sum((1, 2)) if need_sh else None
-            else:
-                dx = du.to(x.dtype)
-        if need_w:
-            dw = torch.ops.aten.convolution_backward(
-                video.nchw(dy), video.nchw(u), weight, None, [1, 1], [1, 1], [1, 1],
-                False, [0, 0], 1, [False, True, False])[1]
-        return dx, dw, db, dsc, dsh, dpost, dres, None, None, None
+                v = part.float() * sc[:, None, None, a:b] + sh[:, None, None, a:b]
+                if ctx.pre_silu:
+                    sig = torch.sigmoid(v)
+                    u = (v * sig).to(part.dtype)
+                else:
+                    u = v.to(part.dtype)
+            dx = None
+            if du is not None:
+                dup = du[..., a:b]
+                if sc is not None:
+                    dv = dup * (sig * (1.0 + v * (1.0 - sig))) if ctx.pre_silu else dup
+                    dx = (dv * sc[:, None, None, a:b]).to(part.dtype) if need else None
+                    if need_sc:
+                        dsc[:, a:b] = (dv * part.float()).sum((1, 2))
+                    if need_sh:
+                        dsh[:, a:b] = dv.sum((1, 2))
+                elif need:
+                    dx = dup.to(part.dtype)
+            dxs.append(dx)
+            if need_w:
+                dw[:, a:b] = torch.ops.aten.convolution_backward(
+                    video.nchw(dy), video.nchw(u), weight[:, a:b], None, [1, 1], [1, 1],
+                    [1, 1], False, [0, 0], 1, [False, True, False])[1]
+        dx2 = dxs[1] if x2 is not None else None
+        return dxs[0], dx2, dw, db, dsc, dsh, dpost, dres, None, None, None
 
 
 def conv3x3(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None, *,
             pre_scale: Optional[torch.Tensor] = None,
             pre_shift: Optional[torch.Tensor] = None, pre_silu: bool = False,
             post_shift: Optional[torch.Tensor] = None,
-            residual: Optional[torch.Tensor] = None, kernel=None) -> torch.Tensor:
+            residual: Optional[torch.Tensor] = None, x2: Optional[torch.Tensor] = None,
+            kernel=None) -> torch.Tensor:
     """y = conv3x3([silu](x·sc + sh)) + bias [+ post_shift] [+ residual]
-    on (N, H, W, Ci) with the OIHW weight. ``kernel`` replaces the CUDA
+    on (N, H, W, Ci) with the OIHW weight; with x2 (N, H, W, C2) the input
+    is the channel concat [x, x2], never built. ``kernel`` replaces the CUDA
     launch, for the forward and for dU (the CPU tests pass the plain version
     to run the explicit backward without a card)."""
     if (pre_scale is None) != (pre_shift is None):
@@ -254,14 +309,16 @@ def conv3x3(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] 
     if kernel is None:
         if x.device.type == "cpu":
             return conv3x3_fused_reference(x, weight, bias, pre_scale, pre_shift,
-                                           post_shift, residual, pre_silu)
+                                           post_shift, residual, pre_silu, x2=x2)
         kernel, input_grad_kernel = _launch, _launch_input_grad
     else:
         input_grad_kernel = kernel
-    tensors = (x, weight, bias, pre_scale, pre_shift, post_shift, residual)
+    tensors = (x, x2, weight, bias, pre_scale, pre_shift, post_shift, residual)
     if torch.is_grad_enabled() and any(a is not None and a.requires_grad for a in tensors):
         return _Conv3x3Function.apply(*tensors, bool(pre_silu), kernel, input_grad_kernel)
-    return kernel(*tensors, bool(pre_silu))
+    extra = {} if x2 is None else {"x2": x2}
+    return kernel(x, weight, bias, pre_scale, pre_shift, post_shift, residual, bool(pre_silu),
+                  **extra)
 
 
 conv3x3.launches = 0             # forward launches

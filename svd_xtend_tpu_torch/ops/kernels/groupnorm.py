@@ -10,7 +10,11 @@ statistics pass that reads x once into per-(sample, 64-row chunk) f32
 partials (no f32 copy of x; the plain version makes two), and a fold of the
 partials into (sc, sh) in one launch. Kernel A of the temporal resnet writes
 the same partials for norm2; their plain version is
-``channel_stats_reference``.
+``channel_stats_reference``. Over two parts (``x2``: the up-block resnets'
+norm1 over the channel concat [x, x2] that is never built, JAX's
+``group_norm_fold_cat``) the statistics kernel reads each column pair from
+the part it lies in (one launch, as over one tensor) and the fold reads the
+partials as one width, so a group that straddles the parts is folded whole.
 
 ``group_norm_silu``'s kernels are ``csrc/group_norm.cu``, two paths that
 ``group_norm_plan`` chooses from the shape alone:
@@ -32,7 +36,7 @@ differentiates it (groupnorm.py:265 in the JAX package).
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -77,14 +81,28 @@ def fold_from_channel_sums(sum_c: torch.Tensor, sq_c: torch.Tensor,
 
 
 def group_norm_fold_reference(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                              *, groups: int = 32, eps: float = 1e-5):
+                              x2: Optional[torch.Tensor] = None, *, groups: int = 32,
+                              eps: float = 1e-5):
     """GroupNorm stats + affine folded into a per-(sample, channel) f32
     affine (sc, sh): GN(x)·scale + bias == x·sc + sh (before any SiLU).
-    JAX's ``group_norm_fold`` formula, on an f32 copy of x."""
+    JAX's ``group_norm_fold`` formula, on an f32 copy of x. With x2, over
+    the channel concat [x, x2] without building it (JAX's
+    ``group_norm_fold_cat``): each part's channel sums fill their range of
+    the (N, C) sums, which are folded as one."""
     n, c = x.shape[0], x.shape[-1]
     xf = x.reshape(n, -1, c).float()
-    return fold_from_channel_sums(xf.sum(1), (xf * xf).sum(1), xf.shape[1],
-                                  scale, bias, groups, eps)
+    if x2 is None:
+        return fold_from_channel_sums(xf.sum(1), (xf * xf).sum(1), xf.shape[1],
+                                      scale, bias, groups, eps)
+    x2f = x2.reshape(n, -1, x2.shape[-1]).float()
+    if x2f.shape[1] != xf.shape[1]:
+        raise ValueError(f"group_norm_fold: the parts' spatial sizes differ ({xf.shape[1]} "
+                         f"and {x2f.shape[1]})")
+    sums = xf.new_empty((2, n, c + x2f.shape[-1]))
+    for part, cols in ((xf, slice(0, c)), (x2f, slice(c, None))):
+        sums[0, :, cols] = part.sum(1)
+        sums[1, :, cols] = (part * part).sum(1)
+    return fold_from_channel_sums(sums[0], sums[1], xf.shape[1], scale, bias, groups, eps)
 
 
 # The per-channel statistics of a (samples of rows_per_sample rows, C)
@@ -125,9 +143,10 @@ def stats_supports(x: torch.Tensor) -> bool:
 _affine_f32 = per_version(lambda s, b: (s.float().contiguous(), b.float().contiguous()))
 
 
-def _fold_launch(x, psum, psq, rows: int, scale, bias, groups: int, eps: float):
+def _fold_launch(x, psum, psq, rows: int, scale, bias, groups: int, eps: float, x2=None):
     """csrc/gn_fold.cu: (sc, sh) (B, C) f32 from the partials psum / psq (B,
-    stats_slots(rows), C) f32, which it first fills from x where x is given."""
+    stats_slots(rows), C) f32, which it first fills from x where x is given
+    (and with x2, x's channels then x2's)."""
     b, slots, c = psum.shape
     if slots != stats_slots(rows) or c % groups or psq.shape != psum.shape:
         raise ValueError(f"group_norm_fold: partials {tuple(psum.shape)} do not fit {rows} "
@@ -136,36 +155,43 @@ def _fold_launch(x, psum, psq, rows: int, scale, bias, groups: int, eps: float):
     sc = torch.empty((b, c), device=psum.device, dtype=torch.float32)
     sh = torch.empty_like(sc)
     check(library().svdx_group_norm_fold(
-        None if x is None else x.data_ptr(), psum.data_ptr(), psq.data_ptr(), scf.data_ptr(),
-        bif.data_ptr(), sc.data_ptr(), sh.data_ptr(), b, rows, c, groups, float(eps),
+        None if x is None else x.data_ptr(), None if x2 is None else x2.data_ptr(),
+        psum.data_ptr(), psq.data_ptr(), scf.data_ptr(), bif.data_ptr(), sc.data_ptr(),
+        sh.data_ptr(), b, rows, c, 0 if x2 is None else x.shape[-1], groups, float(eps),
         torch.cuda.current_stream(psum.device).cuda_stream), "group_norm_fold")
     return sc, sh
 
 
 def group_norm_fold(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                    *, groups: int = 32, eps: float = 1e-5, kernel=None):
+                    x2: Optional[torch.Tensor] = None, *, groups: int = 32,
+                    eps: float = 1e-5, kernel=None):
     """``group_norm_fold_reference`` by the kernels of csrc/gn_fold.cu on a
     CUDA tensor, which they take or it raises (x read once, no f32 copy); on
-    a CPU tensor the reference. The backward recomputes the reference and
+    a CPU tensor the reference. With x2, over the channel concat [x, x2],
+    which is never built. The backward recomputes the reference and
     differentiates it. ``kernel`` replaces the CUDA launch (the CPU tests
     pass the reference to run the autograd wiring without a card)."""
     if kernel is None:
         if x.device.type == "cpu":
-            return group_norm_fold_reference(x, scale, bias, groups=groups, eps=eps)
+            return group_norm_fold_reference(x, scale, bias, x2, groups=groups, eps=eps)
         kernel = _fold
-    return differentiable(kernel, group_norm_fold_reference, x, scale, bias,
-                          groups=groups, eps=eps)
+    inputs = (x, scale, bias) if x2 is None else (x, scale, bias, x2)
+    return differentiable(kernel, group_norm_fold_reference, *inputs, groups=groups, eps=eps)
 
 
-def _fold(x, scale, bias, *, groups: int, eps: float):
-    if not stats_supports(x):
+def _fold(x, scale, bias, x2=None, *, groups: int, eps: float):
+    if not stats_supports(x) or (x2 is not None and not (
+            stats_supports(x2) and x2.shape[:-1] == x.shape[:-1])):
         raise ValueError("group_norm_fold kernel needs a CUDA bf16 contiguous 16-byte aligned "
-                         f"(N, ..., C) with C even; got {tuple(x.shape)} {x.dtype}")
-    n, c = x.shape[0], x.shape[-1]
-    rows = x.numel() // (n * c)
+                         f"(N, ..., C) with C even (and a second part of x's leading shape); "
+                         f"got {tuple(x.shape)} {x.dtype}, x2 "
+                         f"{None if x2 is None else (tuple(x2.shape), x2.dtype)}")
+    n, c1 = x.shape[0], x.shape[-1]
+    c = c1 + (0 if x2 is None else x2.shape[-1])
+    rows = x.numel() // (n * c1)
     psum = torch.empty((n, stats_slots(rows), c), device=x.device, dtype=torch.float32)
     psq = torch.empty_like(psum)
-    out = _fold_launch(x, psum, psq, rows, scale, bias, groups, eps)
+    out = _fold_launch(x, psum, psq, rows, scale, bias, groups, eps, x2)
     group_norm_fold.launches += 1
     return out
 

@@ -2,6 +2,12 @@
 14 frames, with UNetConfig() and VAEConfig() widths: chip_smoke.py times
 and checks the kernel at each, the card tests hold it against its plain
 version at each, and the tier-1 plan tests check each site's launch plan.
+The up blocks' conv1 sites read their input as two parts (the running
+features and a skip, whose concat is never built); Ci is the sum. The
+upsample kernel's sites (UPSAMPLE_SITES): the inputs of the UNet's three
+upsamplers and the VAE decoder's three, with their launches per exact
+video and per train step, derived from the configs; and generate's at two
+portrait resolutions (PORTRAIT_UPSAMPLE_SHAPES).
 
 Also the GEGLU (T, C) shapes of the UNet's four levels: training (batch 14
 frames) and generate's CFG pair (28); the temporal resnet's and
@@ -35,12 +41,15 @@ UNET_CONV_SITES = [
 ]
 # the train step's dU launches: dy (H, W, Co) -> Ci for every conv whose
 # input needs a gradient (not conv_in, not the first L0 resnet, which sit
-# before the first trainable temporal layer): (H, W, Co, Ci, launches per step)
+# before the first trainable temporal layer), and for the three upsamplers
+# (dy at their output resolution; dX is dU's 2x2 sums): (H, W, Co, Ci,
+# launches per step)
 UNET_DGRAD_SITES = [
     (40, 64, 320, 320, 5), (40, 64, 320, 960, 1), (40, 64, 320, 640, 2),
+    (40, 64, 640, 640, 1),
     (20, 32, 640, 320, 1), (20, 32, 640, 640, 6), (20, 32, 640, 1920, 1),
-    (20, 32, 640, 1280, 1), (20, 32, 640, 960, 1),
-    (10, 16, 1280, 640, 1), (10, 16, 1280, 1280, 6), (10, 16, 1280, 2560, 2),
+    (20, 32, 640, 1280, 1), (20, 32, 640, 960, 1), (20, 32, 1280, 1280, 1),
+    (10, 16, 1280, 640, 1), (10, 16, 1280, 1280, 7), (10, 16, 1280, 2560, 2),
     (10, 16, 1280, 1920, 1),
     (5, 8, 1280, 1280, 11), (5, 8, 1280, 2560, 3),
 ]
@@ -63,6 +72,71 @@ VAE_ENCODE_SITES = [
     (40, 64, 512, 512, "preS", 4), (40, 64, 512, 512, "preS+res", 4),
     (40, 64, 512, 8, "none", 1),
 ]
+
+
+def _up_split_sites():
+    """(H, W, C1, C2, Co) of every up-block resnet's conv1 in the order a
+    pass runs them, from UNetConfig(): its input is the running features
+    (C1: the previous block's channels for the first resnet, the block's
+    own after) and a skip (C2: the level's channels, the last one the
+    next-higher level's), two parts of a concat that is never built."""
+    unet, vae, pipe = UNetConfig(), VAEConfig(), PipelineConfig()
+    h, w = pipe.height // vae.downsample_factor, pipe.width // vae.downsample_factor
+    rev, n = list(reversed(unet.block_out_channels)), len(unet.block_out_channels)
+    out, prev = [], rev[0]
+    for i in range(n):
+        level = n - 1 - i
+        skips = [rev[i]] * unet.layers_per_block + [rev[min(i + 1, n - 1)]]
+        for j, c2 in enumerate(skips):
+            out.append((h >> level, w >> level, prev if j == 0 else rev[i], c2, rev[i]))
+        prev = rev[i]
+    return out
+
+
+# the up blocks' conv1 sites, (H, W, C1, C2, Co), one launch each a pass: the
+# "preS+post" sites of UNET_CONV_SITES whose Ci is C1 + C2
+UP_SPLIT_SITES = _up_split_sites()
+
+
+def _upsample_sites(height=None, width=None):
+    """(N, H, W, C, launches per exact video, launches per train step) of
+    the upsample kernel (Upsample2D's input (N, H, W, C), C -> C), from the
+    default configs (at height x width where given): the upsampler that ends every UNet up block but the
+    last (up block i at level n - 1 - i, with the reversed block channels),
+    at generate's CFG batch 2 x frames once a pass for 25 passes, and at the
+    train step's batch x frames twice a step (the forward and the "block"
+    remat recompute of the up blocks); and the VAE decoder's, ending every
+    up block but the last (reversed channels, the latent's resolution
+    doubling per block), once per decode chunk of decode_chunk_size frames,
+    the last chunk ragged."""
+    unet, vae, pipe, train = UNetConfig(), VAEConfig(), PipelineConfig(), TrainConfig()
+    h = (height or pipe.height) // vae.downsample_factor
+    w = (width or pipe.width) // vae.downsample_factor
+    rev, n = list(reversed(unet.block_out_channels)), len(unet.block_out_channels)
+    out = []
+    for batch, video, step in ((2 * pipe.num_frames, pipe.num_inference_steps, 0),
+                               (train.per_device_batch_size * train.num_frames, 0, 2)):
+        out += [(batch, h >> (n - 1 - i), w >> (n - 1 - i), rev[i], video, step)
+                for i in range(n - 1)]
+    vae_rev = list(reversed(vae.block_out_channels))
+    chunks = [min(pipe.decode_chunk_size, pipe.num_frames - f0)
+              for f0 in range(0, pipe.num_frames, pipe.decode_chunk_size)]
+    for f in dict.fromkeys(chunks):
+        out += [(f, h << i, w << i, vae_rev[i], chunks.count(f), 0)
+                for i in range(len(vae_rev) - 1)]
+    return out
+
+
+# the upsample kernel's inputs (N, H, W, C) on the main paths at the defaults
+# (512x320, 14 frames): (N, H, W, C, per exact video, per step)
+UPSAMPLE_SITES = _upsample_sites()
+
+# generate's upsample inputs (N, H, W, C) in portrait, 512x320 and 1024x576
+# (height x width): widths whose levels (UNet 5, 10, 20 and 9, 18, 36; VAE
+# 40, 80, 160 and 72, 144, 288) neither divide 64 nor are multiples of it,
+# so that the kernel's epilogue writes a warpgroup's rows in several stores
+PORTRAIT_UPSAMPLE_SHAPES = sorted({st[:4] for hw in ((512, 320), (1024, 576))
+                                   for st in _upsample_sites(*hw) if st[4]})
 
 # GEGLU (T tokens, C) at the UNet levels: the train step's T = 14 * S, then
 # generate's CFG pair, 2T

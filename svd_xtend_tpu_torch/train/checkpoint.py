@@ -11,8 +11,16 @@ Port of ``svd_xtend_tpu/train/checkpoint.py``:
     the step, f32 masters or adapter, EMA, optimizer state), written into
     ``state.tmp/`` and renamed to ``state/`` when complete. The rename
     stands in for Orbax's finalize: a directory without ``state/`` is
-    incomplete, and neither 'latest' nor the rotation counts it. Saves are
-    synchronous; ``wait()`` only rotates.
+    incomplete, and neither 'latest' nor the rotation counts it.
+  - Saves are asynchronous by default, as the JAX package's (Orbax's):
+    ``save`` fences the previous save, snapshots the state to host memory
+    and returns; a writer thread writes the file, renames it into place and
+    rotates. On the card the snapshot is device-to-host copies into pinned
+    buffers (kept for the next save) on a side stream: the training stream
+    waits on their event before its next in-place update, the host does
+    not. ``blocking=True`` (the final and the preemption saves) and
+    ``wait()`` wait for the writer; an exception in the writer is raised
+    again by the next ``save``, ``wait`` or ``restore``.
   - The diffusers-format exports (:132-155): the UNet as ``save_pretrained``
     writes it (train_svd.py:698-706), without the Tracklet2Video branch,
     and a LoRA adapter as ``save_lora_weights`` does
@@ -27,6 +35,8 @@ import json
 import os
 import re
 import shutil
+import threading
+import time
 from typing import Mapping, Optional, Tuple, Union
 
 import torch
@@ -64,40 +74,131 @@ def latest_checkpoint(output_dir: str) -> Optional[str]:
     return os.path.join(output_dir, f"{CKPT_PREFIX}{steps[-1]}") if steps else None
 
 
+def _write_state(sd: dict, path: str) -> None:
+    """The writer's torch.save of a snapshot."""
+    torch.save(sd, path)
+
+
 class CheckpointManager:
-    """save/restore a TrainState + config + data-iterator state with rotation."""
+    """save/restore a TrainState + config + data-iterator state with
+    rotation; saves are asynchronous unless asked to block. ``saves`` holds
+    one record per save that wrote: its step, the seconds ``save`` held the
+    caller (``hold_seconds``), the snapshot's copies took (``copy_seconds``:
+    on the card the device time of the device-to-host copies, which the
+    next step's work waits for on the device although ``save`` has
+    returned; on the CPU the host time of the copies) and the writer took
+    (``write_seconds``), the snapshot's bytes in host memory and the state
+    file's bytes."""
 
     def __init__(self, output_dir: str, total_limit: int = 2):
         self.output_dir = os.path.abspath(output_dir)
         self.total_limit = max(1, total_limit)
         os.makedirs(self.output_dir, exist_ok=True)
+        self.saves = []
+        self._writer: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+        self._pinned = []          # host buffers of the last snapshot, reused
+        self._stream = None        # the side stream of the device-to-host copies
 
     def save(self, step: int, state, cfg: TrainConfig,
-             data_state: Optional[dict] = None) -> str:
-        """Write checkpoint-{step} and rotate, before returning. A step whose
-        state is already complete is skipped (a preemption right after a
-        periodic save, or on the step just resumed: the state at a step
-        boundary is the same)."""
+             data_state: Optional[dict] = None, blocking: bool = False) -> str:
+        """Fence the previous save, snapshot `state` to host memory, and
+        write checkpoint-{step} on the writer thread (waiting for it with
+        `blocking`). A step whose state is already complete is skipped (a
+        preemption right after a periodic save, or on the step just resumed:
+        the state at a step boundary is the same)."""
+        t0 = time.perf_counter()
+        self._fence()
         path = os.path.join(self.output_dir, f"{CKPT_PREFIX}{step}")
-        state_dir = os.path.join(path, "state")
-        if os.path.isdir(state_dir):
+        if os.path.isdir(os.path.join(path, "state")):
             return path
-        tmp = os.path.join(path, "state.tmp")
-        shutil.rmtree(tmp, ignore_errors=True)
-        os.makedirs(tmp)
-        torch.save(state.state_dict(), os.path.join(tmp, STATE_FILE))
-        with open(os.path.join(path, "config.json"), "w") as f:
-            f.write(cfg.to_json())
-        with open(os.path.join(path, "data_state.json"), "w") as f:
-            json.dump(data_state or {}, f)
-        os.rename(tmp, state_dir)
-        self._rotate()
+        t1 = time.perf_counter()
+        sd, events = self._snapshot(state)
+        record = {"step": step, "hold_seconds": None,
+                  "copy_seconds": time.perf_counter() - t1 if events is None else None,
+                  "write_seconds": None, "snapshot_bytes": _tensor_bytes(sd), "bytes": None}
+        self.saves.append(record)
+        self._writer = threading.Thread(
+            target=self._write, args=(path, sd, events, cfg.to_json(), dict(data_state or {}),
+                                      record), name=f"checkpoint-{step}")
+        self._writer.start()
+        if blocking:
+            self._fence()
+        record["hold_seconds"] = time.perf_counter() - t0
         return path
 
     def wait(self):
-        """Saves are synchronous: only rotates (the JAX package fences an
-        in-flight asynchronous save here)."""
+        """Block until the in-flight save is durable (before the process
+        exits, and before a restore-from-latest in the same process), raise
+        its error if it failed, and rotate."""
+        self._fence()
         self._rotate()
+
+    def _fence(self):
+        if self._writer is not None:
+            self._writer.join()
+            self._writer = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise RuntimeError("the asynchronous checkpoint write failed") from err
+
+    def _snapshot(self, state):
+        """(the state dict in host memory, the events the copies start and
+        complete on, or None): CUDA tensors by asynchronous copies into
+        pinned buffers on a side stream ordered after the work queued so
+        far, which the current stream then waits on; CPU tensors copied at
+        once."""
+        pinned, index, device = self._pinned, [0], []
+        start = torch.cuda.Event(enable_timing=True) if torch.cuda.is_available() else None
+
+        def copy(t: torch.Tensor) -> torch.Tensor:
+            if not t.is_cuda:
+                return t.to("cpu", copy=True)
+            if not device:
+                device.append(t.device)
+                if self._stream is None or self._stream.device != t.device:
+                    self._stream = torch.cuda.Stream(t.device)
+                self._stream.wait_stream(torch.cuda.current_stream(t.device))
+                start.record(self._stream)
+            i = index[0]
+            index[0] += 1
+            if i == len(pinned) or pinned[i].shape != t.shape or pinned[i].dtype != t.dtype:
+                buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                pinned[i:i + 1] = [buf]
+            with torch.cuda.stream(self._stream):
+                pinned[i].copy_(t, non_blocking=True)
+            return pinned[i]
+
+        sd = state.state_dict(copy=copy)
+        del pinned[index[0]:]
+        if not device:
+            return sd, None
+        ready = torch.cuda.Event(enable_timing=True)
+        ready.record(self._stream)
+        # the next step's in-place updates come after the copies
+        torch.cuda.current_stream(device[0]).wait_event(ready)
+        return sd, (start, ready)
+
+    def _write(self, path, sd, events, config_json, data_state, record):
+        try:
+            t0 = time.perf_counter()
+            if events is not None:
+                events[1].synchronize()
+                record["copy_seconds"] = events[0].elapsed_time(events[1]) / 1e3
+            tmp = os.path.join(path, "state.tmp")
+            shutil.rmtree(tmp, ignore_errors=True)
+            os.makedirs(tmp)
+            _write_state(sd, os.path.join(tmp, STATE_FILE))
+            with open(os.path.join(path, "config.json"), "w") as f:
+                f.write(config_json)
+            with open(os.path.join(path, "data_state.json"), "w") as f:
+                json.dump(data_state, f)
+            os.rename(tmp, os.path.join(path, "state"))
+            record["bytes"] = os.path.getsize(os.path.join(path, "state", STATE_FILE))
+            record["write_seconds"] = time.perf_counter() - t0
+            self._rotate()
+        except BaseException as e:  # raised again by the next save / wait / restore
+            self._error = e
 
     def _rotate(self):
         # among COMPLETE checkpoints only: one cut short counts for nothing
@@ -109,7 +210,8 @@ class CheckpointManager:
     def restore(self, path: str, state) -> Tuple[object, TrainConfig, dict]:
         """Load checkpoint `path` (or the latest complete one for 'latest')
         into `state` in place; returns (state, its TrainConfig, its data
-        state)."""
+        state). Fences an in-flight save first, as the JAX package does."""
+        self._fence()
         if path == "latest":
             resolved = latest_checkpoint(self.output_dir)
             if resolved is None:
@@ -127,6 +229,16 @@ class CheckpointManager:
             with open(ds_path) as f:
                 data_state = json.load(f)
         return state, cfg, data_state
+
+
+def _tensor_bytes(obj) -> int:
+    if isinstance(obj, torch.Tensor):
+        return obj.numel() * obj.element_size()
+    if isinstance(obj, dict):
+        return sum(_tensor_bytes(v) for v in obj.values())
+    if isinstance(obj, (list, tuple)):
+        return sum(_tensor_bytes(v) for v in obj)
+    return 0
 
 
 # ------------------------------------------------- diffusers-format export --

@@ -323,7 +323,9 @@ def to_device(batch, device, accum: int):
 
 def main(argv=None) -> dict:
     """Train as the flags say; returns what the run measured (host seconds
-    of each step, of each checkpoint save and its bytes, of the restore, of
+    of each step; of each checkpoint save, the seconds it held the loop,
+    its snapshot's copies and its writer took, and its bytes
+    (``CheckpointManager.saves``); of the restore, of
     each validation and of the export; the loader's seconds per batch and
     the time each next() blocked)."""
     args = parse_args(argv)
@@ -401,7 +403,7 @@ def _train(args, cfg: TrainConfig, logger, preempted) -> dict:
         last_logged = start
         for step in range(start, cfg.max_train_steps):
             if preempted["flag"]:
-                manager.save(step, state, cfg, loader.state())
+                manager.save(step, state, cfg, loader.state(), blocking=True)
                 logger.warning("preemption signal: checkpoint saved at step %d", step)
                 break
             t0 = time.perf_counter()
@@ -423,14 +425,10 @@ def _train(args, cfg: TrainConfig, logger, preempted) -> dict:
                 logger.info("step %d loss %.4f (%.2f steps/s)", step + 1, metrics["loss"], sps)
 
             if (step + 1) % cfg.checkpointing_steps == 0:
-                t0 = time.perf_counter()
-                path = manager.save(step + 1, state, cfg, loader.state())
-                secs = time.perf_counter() - t0
-                nbytes = os.path.getsize(os.path.join(path, "state", ckpt_lib.STATE_FILE))
-                stats["checkpoints"].append({"step": step + 1, "seconds": secs,
-                                             "bytes": nbytes})
-                logger.info("checkpoint saved at step %d (%d bytes, %.2f s)", step + 1,
-                            nbytes, secs)
+                # asynchronous, but the last step's save is waited for
+                manager.save(step + 1, state, cfg, loader.state(),
+                             blocking=step + 1 == cfg.max_train_steps)
+                logger.info("checkpoint saved at step %d", step + 1)
 
             if (step + 1) % cfg.validation_steps == 0 or step == start:
                 t0 = time.perf_counter()
@@ -442,6 +440,7 @@ def _train(args, cfg: TrainConfig, logger, preempted) -> dict:
         stats["loader_batch_seconds"] = list(loader.batch_seconds)
         stats["loader_wait_seconds"] = list(loader.wait_seconds)
     manager.wait()
+    stats["checkpoints"] = [dict(c) for c in manager.saves]
 
     # final export (reference train_svd.py:1166-1189)
     t0 = time.perf_counter()

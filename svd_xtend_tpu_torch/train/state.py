@@ -42,7 +42,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -99,16 +99,18 @@ class TrainState:
     ema_params: Optional[List[torch.Tensor]] = None   # full scope with use_ema
     lora: Optional[lora_lib.Adapter] = None           # 'lora' scope: `params`, by target
 
-    def state_dict(self) -> dict:
+    def state_dict(self, copy: Optional[Callable] = None) -> dict:
         """Everything a resume needs, as a snapshot in CPU tensors (copies,
         also of CPU tensors): the step, the f32 masters (in the 'lora' scope
         the adapter's A and B, by peft key), the EMA copies and the
         optimizer's state (the 8-bit one's int8 codes and scales as they
-        are)."""
-        cpu = lambda ts: {n: _snapshot(t) for n, t in zip(self.names, ts)}
+        are). `copy` takes each tensor to its snapshot in place of the CPU
+        copy (the checkpoint manager's asynchronous copies into pinned
+        buffers)."""
+        cpu = lambda ts: {n: _snapshot(t, copy) for n, t in zip(self.names, ts)}
         return {"step": self.step, "params": cpu(self.params),
                 "ema_params": None if self.ema_params is None else cpu(self.ema_params),
-                "optimizer": _snapshot(self.optimizer.state_dict())}
+                "optimizer": _snapshot(self.optimizer.state_dict(), copy)}
 
     @torch.no_grad()
     def load_state_dict(self, sd: dict) -> None:
@@ -131,16 +133,16 @@ class TrainState:
         self.step = int(sd["step"])
 
 
-def _snapshot(obj):
+def _snapshot(obj, copy: Optional[Callable] = None):
     """`obj` with every tensor in it (through dicts, lists and tuples)
-    copied to the CPU: torch's optimizer state_dict and ``.cpu()`` of a CPU
-    tensor alias the live ones."""
+    copied to the CPU, or by `copy`: torch's optimizer state_dict and
+    ``.cpu()`` of a CPU tensor alias the live ones."""
     if isinstance(obj, torch.Tensor):
-        return obj.detach().to("cpu", copy=True)
+        return obj.detach().to("cpu", copy=True) if copy is None else copy(obj.detach())
     if isinstance(obj, dict):
-        return {k: _snapshot(v) for k, v in obj.items()}
+        return {k: _snapshot(v, copy) for k, v in obj.items()}
     if isinstance(obj, (list, tuple)):
-        return type(obj)(_snapshot(v) for v in obj)
+        return type(obj)(_snapshot(v, copy) for v in obj)
     return obj
 
 

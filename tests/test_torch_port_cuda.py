@@ -14,6 +14,7 @@ repository conftest (which sets up jax for the JAX package's tests):
 import copy
 import dataclasses
 import math
+import os
 
 import pytest
 import torch
@@ -29,6 +30,7 @@ from svd_xtend_tpu_torch.ops.kernels import geglu as gg
 from svd_xtend_tpu_torch.ops.kernels import groupnorm as gn
 from svd_xtend_tpu_torch.ops.kernels import temporal_attention as ta
 from svd_xtend_tpu_torch.ops.kernels import temporal_resnet as tr
+from svd_xtend_tpu_torch.ops.kernels import upsample_conv as uc
 from svd_xtend_tpu_torch.ops.kernels.dispatch import plain_versions
 from svd_xtend_tpu_torch.ops.kernels.gemm_plan import GemmPlan
 from svd_xtend_tpu_torch.scripts import sites
@@ -1212,3 +1214,217 @@ def test_conv3x3_at_1024x576_l0(rn, no_tf32):
     ref = cv.conv3x3_fused_reference(x, weight, bias, kw.get("pre_scale"), kw.get("pre_shift"),
                                      kw.get("post_shift"), kw.get("residual"), kw["pre_silu"])
     _assert_close_bf16(got, ref)
+
+
+# ----------------------------------------------- upsample and split concat --
+
+def _upsample_args(rn, n, h, w, c, co=None):
+    co = c if co is None else co
+    return rn(n, h, w, c), rn(co, c, 3, 3, sc=(9 * c) ** -0.5), 0.1 * rn(co)
+
+
+# the upsample's inputs (N, H, W, C) on the main paths at 512x320 and at
+# 1024x576 (twice each spatial dimension), and generate's in portrait
+_UPSAMPLE_SHAPES = sorted({st[:4] for st in sites.UPSAMPLE_SITES}
+                          | {(n, 2 * h, 2 * w, c) for n, h, w, c, *_ in sites.UPSAMPLE_SITES}
+                          | set(sites.PORTRAIT_UPSAMPLE_SHAPES))
+
+
+@pytest.mark.parametrize("shape", _UPSAMPLE_SHAPES, ids=lambda s: "-".join(map(str, s)))
+def test_upsample_kernel_sites(rn, no_tf32, shape):
+    """The upsample kernel on its plan at every site of the UNet (CFG and
+    training batch) and the VAE decoder (chunks of 8 and 6), at 512x320 and
+    1024x576, and of generate at 320 and 576 wide (portrait 512x320 and
+    1024x576: W 5-36 in the UNet, 40-288 in the VAE), against its plain
+    version; one launch counted."""
+    x, weight, bias = _upsample_args(rn, *shape)
+    n = uc.upsample_conv.launches
+    got = uc.upsample_conv(x, weight, bias)
+    assert uc.upsample_conv.launches == n + 1
+    assert got.shape == (shape[0], 2 * shape[1], 2 * shape[2], shape[3])
+    _assert_close_bf16(got, uc.upsample2x_conv3x3_reference(x, weight, bias))
+
+
+@pytest.mark.parametrize("shape", [(3, 5, 8, 64, 64), (1, 3, 4, 128, 72), (2, 2, 128, 64, 200),
+                                   (1, 7, 1, 64, 8), (5, 3, 16, 192, 136), (3, 4, 5, 64, 136),
+                                   (2, 3, 9, 128, 64), (2, 5, 12, 64, 200), (1, 3, 100, 64, 64),
+                                   (1, 2, 200, 64, 72)],
+                         ids=["5x8-ragged-M", "W4-Co72", "W128", "W1", "Ci192-Co136", "W5",
+                              "W9", "W12-Co200", "W100", "W200"])
+def test_upsample_kernel_small_and_ragged(rn, no_tf32, shape):
+    """Rows past the last sample in a parity's last tile (M not a multiple
+    of 128), W of 1, 4 and 128, W that neither divides 64 nor is a
+    multiple of it (5, 9, 12, 100, 200: several stores a warpgroup), Co not
+    a multiple of the tile, against the plain version; also against the
+    materialised form in f32 (nearest upsample, then the 3x3 SAME conv)
+    within the bf16 bound."""
+    import torch.nn.functional as F
+
+    from svd_xtend_tpu_torch.ops import video
+    x, weight, bias = _upsample_args(rn, *shape)
+    got = uc.upsample_conv(x, weight, bias)
+    _assert_close_bf16(got, uc.upsample2x_conv3x3_reference(x, weight, bias))
+    up = F.interpolate(video.nchw(x.float()), scale_factor=2.0, mode="nearest")
+    naive = video.nhwc(F.conv2d(up, weight.float(), bias.float(), padding=1))
+    _assert_close_bf16(got, naive)
+
+
+# (bn, k_slices): every tile width the source instantiates, and splits
+_UPSAMPLE_TILES = [(128, 1), (128, 3), (160, 1), (160, 2), (256, 1), (256, 4)]
+
+
+@pytest.mark.parametrize("w", [8, 5, 12], ids=lambda w: f"W{w}")
+@pytest.mark.parametrize("tile", _UPSAMPLE_TILES, ids=lambda t: "bn%d-ks%d" % t)
+def test_upsample_every_tile(rn, no_tf32, tile, w):
+    """Each tile width and K split a plan may pick, on a ragged shape (M
+    not a multiple of 128, Co not of the tile), at W 8 (one store a
+    warpgroup), 5 and 12 (several), against the plain version; on fewer
+    persistent blocks, the same bits. A tile width the store at W does not
+    take (160 at an odd W) is refused."""
+    bn, k_slices = tile
+    x, weight, bias = _upsample_args(rn, 3, 5, w, 128, 200)
+    m_pad = uc.padded_rows(3, 5, w)
+    plan = GemmPlan(4 * m_pad, 200, 4 * 128 // 64, bn, k_slices, 1)
+    plan = dataclasses.replace(plan, grid=min(plan.n_items, 132))
+    if bn not in uc.tile_widths(w):
+        with pytest.raises(RuntimeError):
+            uc._launch(x, weight, bias, plan)
+        return
+    got = uc._launch(x, weight, bias, plan)
+    again = uc._launch(x, weight, bias, dataclasses.replace(plan, grid=min(plan.n_items, 5)))
+    _assert_close_bf16(got, uc.upsample2x_conv3x3_reference(x, weight, bias))
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("shape", [(3, 5, 8, 128), (2, 10, 16, 64)])
+def test_upsample_gradients_and_refusals(rn, no_tf32, shape):
+    """The explicit backward (dX through conv3x3's dU kernel, one launch;
+    dW, db) against the f32 plain gradient, each within 1.5x the bf16 plain
+    version's max-abs error; dX the same bits run to run (the plain
+    version's cuDNN VJP is not); the wrapper raises on a call the kernel
+    does not take."""
+    c = shape[-1]
+    x, weight, bias = _upsample_args(rn, *shape)
+    dy = rn(shape[0], 2 * shape[1], 2 * shape[2], c)
+    inputs = [x, weight, bias]
+    n = cv.conv3x3_input_grad.launches
+    _, got = _grads(uc.upsample_conv, inputs, dy)
+    assert cv.conv3x3_input_grad.launches == n + 1
+    _, again = _grads(uc.upsample_conv, inputs, dy)
+    plain = uc.upsample2x_conv3x3_reference
+    _, bf = _grads(plain, inputs, dy)
+    _, f32 = _grads(plain, [a.float() for a in inputs], dy.float())
+    torch.cuda.synchronize()
+    for i, (g, a, p, r) in enumerate(zip(got, again, bf, f32)):
+        err, perr = ((t.float() - r).abs().max().item() for t in (g, p))
+        assert i > 0 or torch.equal(g, a)
+        assert bool(torch.isfinite(g).all()) and err <= 1.5 * perr, (i, err, perr)
+    # Ci 40, f32, a strided x
+    for bad in (rn(1, 4, 4, 40), rn(1, 4, 4, 64).float(), rn(1, 4, 12, 128)[..., :64]):
+        with pytest.raises(ValueError):
+            uc.upsample_conv(bad, rn(64, bad.shape[-1], 3, 3), rn(64))
+
+
+@pytest.mark.parametrize("site", sorted(set(sites.UP_SPLIT_SITES)),
+                         ids=lambda st: "-".join(map(str, st)))
+def test_conv3x3_two_sources_at_up_block_sites(rn, no_tf32, site):
+    """conv3x3 with a second source (the two-source prologue) at every
+    up-block conv1 site, with its epilogue (GN fold + SiLU, the shift),
+    against the plain version; and the two-part GroupNorm fold there (the
+    960 = 640 + 320 sites' 30-channel groups straddle the parts) against
+    its plain version."""
+    h, w, c1, c2, co = site
+    n = _site_batch(h)
+    x, x2 = rn(n, h, w, c1) * 2 + 0.5, rn(n, h, w, c2)
+    weight, bias = rn(co, c1 + c2, 3, 3, sc=(9 * (c1 + c2)) ** -0.5), 0.1 * rn(co)
+    scale, gbias = 1 + 0.1 * rn(c1 + c2).float(), 0.1 * rn(c1 + c2).float()
+    k = gn.group_norm_fold.launches
+    sc, sh = gn.group_norm_fold(x, scale, gbias, x2, groups=32, eps=1e-5)
+    assert gn.group_norm_fold.launches == k + 1
+    for g_, w_ in zip((sc, sh), gn.group_norm_fold_reference(x, scale, gbias, x2, groups=32,
+                                                            eps=1e-5)):
+        torch.testing.assert_close(g_, w_, atol=1e-4, rtol=1e-4)
+    post = 0.5 * rn(n, co).float()
+    k = cv.conv3x3.launches
+    got = cv.conv3x3(x, weight, bias, pre_scale=sc, pre_shift=sh, pre_silu=True,
+                     post_shift=post, x2=x2)
+    assert cv.conv3x3.launches == k + 1
+    _assert_close_bf16(got, cv.conv3x3_fused_reference(x, weight, bias, sc, sh, post, None,
+                                                       True, x2=x2))
+
+
+def test_conv3x3_two_sources_gradients_and_refusals(rn, no_tf32):
+    """The Function's gradients with a second source against the f32 plain
+    gradient (each within 1.5x the bf16 plain version's max-abs error); no
+    second source without the prologue."""
+    x, x2 = rn(3, 5, 8, 64) * 2 + 0.5, rn(3, 5, 8, 128)
+    weight, bias = rn(64, 192, 3, 3, sc=(9 * 192) ** -0.5), 0.1 * rn(64)
+    sc, sh = (1 + 0.2 * rn(3, 192).float()) / 2, 0.3 * rn(3, 192).float()
+    post = 0.5 * rn(3, 64).float()
+    inputs = [x, x2, weight, bias, sc, sh, post]
+    run = lambda x, x2, w, b, sc, sh, post: cv.conv3x3(
+        x, w, b, pre_scale=sc, pre_shift=sh, pre_silu=True, post_shift=post, x2=x2)
+    plain = lambda x, x2, w, b, sc, sh, post: cv.conv3x3_fused_reference(
+        x, w, b, sc, sh, post, None, True, x2=x2)
+    dy = rn(3, 5, 8, 64)
+    _, got = _grads(run, inputs, dy)
+    _, bf = _grads(plain, inputs, dy)
+    _, f32 = _grads(plain, [a.float() for a in inputs], dy.float())
+    torch.cuda.synchronize()
+    for i, (g, p, r) in enumerate(zip(got, bf, f32)):
+        err, perr = ((a.float() - r).abs().max().item() for a in (g, p))
+        assert bool(torch.isfinite(g).all()) and err <= 1.5 * perr, (i, err, perr)
+    with pytest.raises(ValueError):
+        cv.conv3x3(x, weight, bias, x2=x2)
+
+
+def test_conv1x1_cat_on_the_card(rn):
+    """The up-block shortcut over two parts: both products and the bias
+    summed in f32 and rounded once, against the f32 product of the concat
+    rounded once (equal but for the f32 summation order), with gradients."""
+    from svd_xtend_tpu_torch.models import blocks as tb
+    mod = tb.Conv1x1Cat(192, 64).cuda().to(torch.bfloat16)
+    x, x2 = rn(3, 5, 8, 64), rn(3, 5, 8, 128)
+    got = mod(x, x2)
+    w = mod.weight[:, :, 0, 0].float()
+    want = (torch.cat([x, x2], -1).float() @ w.T + mod.bias.float()).to(torch.bfloat16)
+    _assert_close_bf16(got, want)
+    xs = [x.clone().requires_grad_(), x2.clone().requires_grad_()]
+    gx, gx2 = torch.autograd.grad(mod(*xs).float().sum(), xs)
+    torch.testing.assert_close(gx.float(), torch.ones(3, 5, 8, 64, device="cuda") @ w[:, :64],
+                               atol=0.05, rtol=0.02)
+    assert gx2.shape == x2.shape and bool(torch.isfinite(gx2).all())
+
+
+def test_async_checkpoint_snapshot_on_the_card(card, tmp_path):
+    """save() on CUDA tensors returns after queueing device-to-host copies
+    on a side stream; work the current stream queues next (the next step's
+    in-place update) runs after them, so the file holds the values at the
+    save; the pinned buffers are reused by the next save."""
+    from svd_xtend_tpu_torch.train import checkpoint as tckpt
+
+    class _State:
+        def __init__(self):
+            self.step = 1
+            self.w = torch.arange(1 << 22, device="cuda", dtype=torch.float32)
+
+        def state_dict(self, copy=None):
+            return {"step": self.step, "w": self.w.clone().cpu() if copy is None else copy(self.w)}
+
+    st = _State()
+    want = st.w.cpu()
+    out = str(tmp_path)
+    m = tckpt.CheckpointManager(out)
+    cfg = tcfg.TrainConfig(output_dir=out)
+    m.save(1, st, cfg)
+    st.w.mul_(-1.0)                          # the next step, on the current stream
+    m.wait()
+    got = torch.load(os.path.join(out, "checkpoint-1", "state", tckpt.STATE_FILE))["w"]
+    assert torch.equal(got, want)
+    pinned = list(m._pinned)
+    m.save(2, st, cfg, blocking=True)
+    assert [p.data_ptr() for p in m._pinned] == [p.data_ptr() for p in pinned]
+    got = torch.load(os.path.join(out, "checkpoint-2", "state", tckpt.STATE_FILE))["w"]
+    assert torch.equal(got, -want)
+    # the copies' device time: 16 MB at well under PCIe's rate
+    assert all(0 < r["copy_seconds"] < 1 for r in m.saves)

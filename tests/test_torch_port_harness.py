@@ -275,8 +275,9 @@ class _State:
     def __init__(self, step):
         self.step = step
 
-    def state_dict(self):
-        return {"step": self.step, "w": torch.full((3,), float(self.step))}
+    def state_dict(self, copy=None):
+        w = torch.full((3,), float(self.step))
+        return {"step": self.step, "w": w if copy is None else copy(w)}
 
     def load_state_dict(self, sd):
         self.step = sd["step"]
@@ -288,12 +289,14 @@ def test_checkpoint_rotation_latest_and_same_step_skip(tmp_path):
     m = tckpt.CheckpointManager(out, total_limit=2)
     for s in (2, 4):
         m.save(s, _State(s), cfg, {"step": s, "seed": 1})
+    m.wait()       # saves are asynchronous: the last one is durable after wait()
     # an incomplete directory (a save cut before the rename): never latest,
     # never counted by the rotation
     os.makedirs(os.path.join(out, "checkpoint-9", "state.tmp"))
     assert tckpt.latest_checkpoint(out) == os.path.join(out, "checkpoint-4")
     assert tckpt._ckpt_steps(out) == [2, 4, 9]
     m.save(6, _State(6), cfg, {"step": 6, "seed": 1})
+    m.wait()
     assert tckpt._ckpt_steps(out) == [4, 6, 9]
     assert tckpt._ckpt_steps(out, complete_only=True) == [4, 6]
     # same step again: skipped, the file untouched
