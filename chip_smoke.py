@@ -75,6 +75,19 @@ Phases, each of which raises on failure (non-zero exit):
      the two-part GroupNorm fold (1e-4) and conv3x3's two-source prologue
      (the bf16 bound) against their plain versions; device ms of the split
      form beside cat + fold + conv, Σ per CFG UNet pass.
+  3f. int8: the int8 quantise kernel (csrc/int8_quant.cu) and the int8 GEMM
+     (csrc/int8_gemm.cu) at every int8 site: each Conv3x3 of a CFG UNet pass
+     (INT8_CONV_SITES, batch 28: the conv3x3 sites and conv_out; the up
+     blocks' conv1 with its two sources), of a decode chunk of 8 frames
+     (INT8_VAE_CONV_SITES: and the decoder's conv_in and conv_out) and each
+     QLinear of a CFG pass (INT8_DENSE_SITES): codes, (amax, scale) and
+     outputs bit for bit against the plain versions on the same inputs, two
+     runs the same bits; device ms per launch in a CUDA graph of the
+     quantise pass and the GEMM apart, beside the bf16 conv3x3 kernel at the
+     same site (where it takes it), F.conv2d bf16, bf16 F.linear and
+     torch._int_mm + the plain dequantise (the dense's library time; its
+     int32 sums checked exact), and the bound at 1,979 TOP/s int8; Σ
+     launches x device ms per CFG pass, decode chunk and video.
   3c. probe kernels: the kernels of the TPU probe scripts against their plain
      versions: the four softmax organisations of the flash forward
      (flash_variants) at the variants probe's shapes, (140, 2560) whole (also
@@ -100,6 +113,15 @@ Phases, each of which raises on failure (non-zero exit):
      full-width VAE decoder on a (1, 2, 16, 16, 4) latent, bf16 with the
      parity upsample against f32 on the host (rel-L2 <= 5e-2), the
      materialised upsample beside it.
+  4b. int8 UNet: the full-width UNet on a CFG pair (2 x 2 frames, 16x16) in
+     int8 mode, bf16 on the card against f32 on the host from the card's
+     bf16 weights: every int8 site of the card's pass bit for bit its plain
+     version on the same inputs (teacher-forced, the count held to the site
+     tables); the card's own int8 error (int8 against exact) within
+     [1/1.25, 1.25] x the host's; the card against the host within 1.25 x
+     the host's own sensitivity to its weights' rounding (the int8 pass is
+     chaotic in its codes; INT8_NOISE_RATIO). The distance beside bf16's
+     5e-2 bound, printed and not a gate.
   5. generate (the serving path): ``generate`` at the default PipelineConfig
      (512x320, 14 frames, 25 Euler steps, stacked CFG, decode chunks of 8)
      with the full UNet, VAE and CLIP in bf16 from seeded random weights,
@@ -114,6 +136,15 @@ Phases, each of which raises on failure (non-zero exit):
      UNet's structure: 81, 81 and 33), and their sums of launches x the
      kernel phases' device ms at each shape. Then utils.metrics on the
      card: video_report of the exact video and clip_fvd(exact, k3).
+  5b. int8 videos: generate at PipelineConfig() with unet_quant="int8",
+     with both modes and with int8 + the CFG cache k3 (warm-up + 3 timed
+     each, the median), beside the exact video of the same models, image
+     and noise: s/video, peak memory, rel-L2 and PSNR (utils/metrics.py)
+     against the exact video; the int8 GEMM's conv launches held to 46 a
+     UNet pass (+ 30 a decode chunk under vae_quant), its dense launches to
+     320 a pass (by shape to INT8_DENSE_SITES in the int8 video), one
+     quantise launch per GEMM launch, GEGLU none, conv3x3 the VAE's alone;
+     the int8 weight codes' bytes.
   6. train (this slice's main path): the default TrainConfig (temporal
      scope, 512x320x14f, batch 1, remat "block", AdamW with f32 masters,
      bf16 compute) through make_optimizer/create_train_state/make_train_step
@@ -169,6 +200,13 @@ Phases, each of which raises on failure (non-zero exit):
      loop beside its writer thread's, the snapshot's pinned bytes and the
      process's peak resident host memory, restore s, validation s, peak
      memory and the val/* metrics, beside the card's name and power limit.
+  6g. parallel: train/cli.py over a world of one rank (NCCL through the env
+     rendezvous on localhost, as torchrun starts a rank) over the committed
+     frames at 512x320x14f: the full scope for 3 steps without offload and
+     with --host_offload masters and masters+moments (s/step, peak memory,
+     the bytes streamed a step; each offload must stream and lower the
+     peak), then the temporal scope for 2 steps with --zero1 and without,
+     whose checkpoint-2 states must be equal bit for bit.
   6d. tracklet (Tracklet2Video, models/tracklet.py): the flash forward at
      the gated attention's (S_q, S_kv) = (S, S + 16 box tokens) of the four
      UNet levels at batches 28 and 14, then with its LSE and the backward
@@ -245,6 +283,8 @@ import torch.nn.functional as F
 
 from svd_xtend_tpu_torch.scripts import card, cuda_ms, graph_ms
 from svd_xtend_tpu_torch.scripts.sites import (FLASH_BWD_SITES, GEGLU_SHAPES, GN_SITES,
+                                               INT8_CONV_SITES, INT8_DENSE_SITES,
+                                               INT8_VAE_CONV_SITES,
                                                TRESNET_SITES, UNET_CONV_SITES,
                                                PORTRAIT_UPSAMPLE_SHAPES, UNET_DGRAD_SITES,
                                                UP_SPLIT_SITES, UPSAMPLE_SITES, VAE_DECODE_SITES,
@@ -263,6 +303,15 @@ GRAD_PLAIN_RATIO = 1.25
 # delta (alpha/r)·B·A has a std of 0.005, 9-18 % of the projections' weight
 # std (1/sqrt(fan-in), fan-in 320-1280)
 LORA_B_STD = 1e-2
+# the int8 UNet against host f32 (int8_unet_phase): its codes are chaotic
+# (a rounding moves a value to the next code, which moves the next
+# quantiser's inputs), so two int8 passes that round differently are apart
+# by about the quantisation's own error (0.04 at full width). The card's own
+# int8 error is held within [1/r, r] x the host's, and its distance to the
+# host's int8 pass to r x a control measured in the same run (the host's
+# int8 pass from the f32 weights against the same from their bf16 values),
+# r this ratio; each site is held bit for bit on its own inputs
+INT8_NOISE_RATIO = 1.25
 # flash backward: the kernels' max-abs error against the f32 plain gradient,
 # at most this multiple of the bf16 plain gradient's
 FLASH_BWD_RATIO = 1.5
@@ -1476,6 +1525,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     split_phase(dev, ph, smi)
     torch.cuda.empty_cache()
+    int8_ms = int8_kernel_phase(dev, ph, smi)
+    torch.cuda.empty_cache()
     flash_bshd_phase(dev, ph)
     torch.cuda.empty_cache()
     probe_kernel_phase(dev, ph)
@@ -1484,11 +1535,19 @@ def main() -> int:
     log("whole UNet: full widths, card bf16 kernels vs host f32 plain (output, gradient)")
     whole_unet_phase(dev)
     torch.cuda.empty_cache()
+    log("int8 UNet: full widths in int8 mode, card bf16 kernels vs host f32 plain")
+    int8_unet_phase(dev)
+    torch.cuda.empty_cache()
 
     counters = kernel_counters()
     log("generate: PipelineConfig() with full UNet/VAE/CLIP, bf16, all kernels on; then "
         "the CFG cache (k3) and DeepCache + CFG cache (n3 k3)")
     gen_launches = generate_phase(dev, smi, counters, ph)
+    torch.cuda.empty_cache()
+
+    log("int8: generate at PipelineConfig() with unet_quant, unet_quant + vae_quant and "
+        "unet_quant + k3, beside the exact video")
+    int8_launches = int8_video_phase(dev, smi, counters, int8_ms)
     torch.cuda.empty_cache()
 
     log("train: default TrainConfig (temporal scope, 512x320x14f, batch 1, remat block)")
@@ -1503,6 +1562,11 @@ def main() -> int:
     log("cli: the training CLI (train/cli.py) at 512x320x14f, temporal scope, bf16, remat "
         "block, over the committed frame folder: straight, then resumed from checkpoint-2")
     cli_launches = cli_phase(dev, smi, counters, gen_launches["generate"], train_launches)
+    torch.cuda.empty_cache()
+
+    log("parallel: the CLI over a world of one rank (NCCL): the full scope with host "
+        "offload, the temporal scope with ZeRO-1")
+    parallel_phase(dev, smi)
     torch.cuda.empty_cache()
 
     log("tracklet: the gated attention's flash kernels at (S, S + 16), the full-width "
@@ -1539,7 +1603,7 @@ def main() -> int:
 
     log("probes: the three probe scripts at their shapes")
     probe_launches = probes_phase(counters)
-    by_path = {**gen_launches, "train": train_launches, "lora": lora_launches,
+    by_path = {**gen_launches, **int8_launches, "train": train_launches, "lora": lora_launches,
                "cli": cli_launches, **tracklet_launches, "infer": infer_launches,
                "optim8": optim8_launches, "mha": mha_launches, "probes": probe_launches}
 
@@ -1572,6 +1636,13 @@ def main() -> int:
         # the parity upsample: XLA code in the JAX package, no Pallas kernel
         "upsample_conv": ("cuda", "svd_xtend_tpu_torch/csrc/upsample_conv.cu",
                           "svd_xtend_tpu/ops/upsample.py:55"),
+        # the int8 W8A8 path: XLA code in the JAX package, no Pallas kernel
+        "int8_quantize": ("cuda", "svd_xtend_tpu_torch/csrc/int8_quant.cu",
+                          "svd_xtend_tpu/ops/quant.py:142"),
+        "int8_gemm_conv": ("cuda", "svd_xtend_tpu_torch/csrc/int8_gemm.cu",
+                           "svd_xtend_tpu/ops/quant.py:258"),
+        "int8_gemm_dense": ("cuda", "svd_xtend_tpu_torch/csrc/int8_gemm.cu",
+                            "svd_xtend_tpu/ops/quant.py:240"),
         "flash_attention": ("cuda", "svd_xtend_tpu_torch/csrc/flash_attention.cu",
                             "svd_xtend_tpu/ops/pallas/flash_attention.py:103"),
         "flash_attention_headsliced": ("cuda", "svd_xtend_tpu_torch/csrc/flash_attention.cu",
@@ -1604,6 +1675,8 @@ def kernel_counters():
     from svd_xtend_tpu_torch.ops.kernels import flash_variants as fv
     from svd_xtend_tpu_torch.ops.kernels import geglu as gg
     from svd_xtend_tpu_torch.ops.kernels import groupnorm as gn
+    from svd_xtend_tpu_torch.ops.kernels import int8_gemm as ig
+    from svd_xtend_tpu_torch.ops.kernels import int8_quant as iq
     from svd_xtend_tpu_torch.ops.kernels import temporal_attention as ta
     from svd_xtend_tpu_torch.ops.kernels import temporal_resnet as tr
     from svd_xtend_tpu_torch.ops.kernels import upsample_conv as uc
@@ -1621,6 +1694,9 @@ def kernel_counters():
         "conv3x3": cv.conv3x3,
         "conv3x3_input_grad": cv.conv3x3_input_grad,
         "upsample_conv": uc.upsample_conv,
+        "int8_quantize": iq.quantize,
+        "int8_gemm_conv": ig.int8_conv3x3,
+        "int8_gemm_dense": ig.int8_dense,
         "flash_attention": fa.flash_attention,
         "flash_attention_headsliced": fa.flash_attention_headsliced,
         "flash_variants": fv.flash_variants,
@@ -1637,6 +1713,10 @@ BACKWARD_ONLY = frozenset({"flash_attention_bwd_dq", "flash_attention_bwd_dkv",
 MHA_ONLY = frozenset({"flash_attention"})
 PROBE_ONLY = frozenset({"flash_attention_headsliced", "flash_variants", "chain_bf16",
                         "chain_int8_qd"})
+# the kernels that only the int8 modes launch; the kernels no exact path
+# launches
+INT8_ONLY = frozenset({"int8_quantize", "int8_gemm_conv", "int8_gemm_dense"})
+OTHER_PATHS = MHA_ONLY | PROBE_ONLY | INT8_ONLY
 
 
 def reset(counters):
@@ -1820,7 +1900,7 @@ def generate_phase(dev, smi, counters, ph: KernelPhase):
         log(f"  {path}: timed videos {', '.join(f'{t:.3f}' for t in timed)} s; device memory "
             f"segments added during each {new_segments}")
         launches[path] = read(counters, [n for n in counters
-                                         if n not in BACKWARD_ONLY | MHA_ONLY | PROBE_ONLY])
+                                         if n not in BACKWARD_ONLY | OTHER_PATHS])
         forward_per_run(path, by_shape, GENERATE_TIMED, launches[path]["flash_attention_fwd"],
                         ph.fwd_ms["generate"], smi, "video")
         price(f"{path}: geglu_fwd", geglu_by_shape, GENERATE_TIMED, ph.geglu_ms, smi, "video")
@@ -1897,6 +1977,401 @@ def generate_phase(dev, smi, counters, ph: KernelPhase):
         "- 2 x features x sqrt(eps))")
     if not all(math.isfinite(v) for v in (*report.values(), fvd)):
         raise RuntimeError(f"metrics: non-finite {report}, {fvd}")
+    return launches
+
+
+# ------------------------------------------------------------------ int8 --
+
+INT8_CONV_KEY = lambda xq, stats, wq, *_, **__: tuple(xq.shape) + (wq.shape[0],)
+INT8_DENSE_KEY = lambda xq, stats, wq, *_, **__: (xq.shape[0], xq.shape[1], wq.shape[0])
+
+
+def _split_of(h, w, ci, co):
+    """(C1, C2) of an up-block conv1 site, else None."""
+    for sh, sw, c1, c2, sco in UP_SPLIT_SITES:
+        if (sh, sw, c1 + c2, sco) == (h, w, ci, co):
+            return c1, c2
+    return None
+
+
+def int8_kernel_phase(dev, ph: KernelPhase, smi: str):
+    """The int8 quantise kernel and the int8 GEMM at every int8 site of the
+    UNet (CFG batch 28), the VAE decoder (a chunk of 8 frames) and every
+    QLinear site of a CFG pass: codes, (amax, scale) and outputs bit for bit
+    against the plain versions on the same inputs, two runs the same bits;
+    device ms per launch in a CUDA graph of the quantise pass and the GEMM
+    apart, beside the bf16 path at the same site (the conv3x3 kernel where
+    it takes the site, F.conv2d bf16; bf16 F.linear, and torch._int_mm + the
+    plain dequantise, the library time of the dense) and the bound (int8
+    operations at 1,979 TOP/s against the bytes: the bf16 input read once,
+    the int8 weights, the bf16 output and residual). Returns {(kind, key):
+    (quantise ms, GEMM ms)} and prints Σ launches x device ms per video."""
+    from svd_xtend_tpu_torch.ops import video
+    from svd_xtend_tpu_torch.ops.kernels import conv3x3 as cv
+    from svd_xtend_tpu_torch.ops.kernels import int8_gemm as ig
+    from svd_xtend_tpu_torch.ops.kernels import int8_quant as iq
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 20)
+    rn = lambda *s, sc=1.0: (torch.randn(*s, device=dev, generator=g) * sc).to(torch.bfloat16)
+    ms = {}
+
+    def same(name, got, ref, label):
+        torch.cuda.synchronize()
+        for a, b in zip(got, ref):
+            if a.shape != b.shape or not torch.equal(a.reshape(-1), b.reshape(-1)):
+                raise RuntimeError(f"{name} {label}: not the plain version's bits (max diff "
+                                   f"{(a.float() - b.float()).abs().max().item()})")
+        ph.err[name] = max(ph.err.get(name, 0.0), 0.0)
+
+    def conv_site(n, h, w, ci, co, epi, per, first=False):
+        split = _split_of(h, w, ci, co) if "post" in epi else None
+        c1 = split[0] if split else ci
+        x = rn(n, h, w, c1) * 2
+        x2 = rn(n, h, w, ci - c1) * 2 if split else None
+        pre = ((1 + 0.2 * rn(n, ci)).float() / 2, 0.3 * rn(n, ci).float(), True) \
+            if epi.startswith("preS") else None
+        weight = rn(co, ci, 3, 3, sc=(9 * ci) ** -0.5).contiguous(
+            memory_format=torch.channels_last)
+        bias = 0.1 * rn(co)
+        post = 0.5 * rn(n, co).float() if "post" in epi else None
+        res = rn(n, h, w, co) if "res" in epi else None
+        wq, w_amax = ig.conv_codes(weight)
+        label = f"{(n, h, w, ci)} -> {co} {epi}" + (f" (two sources {split})" if split else "")
+        quant = lambda: iq.quantize(x, pre, x2)
+        xq, stats = quant()
+        same("int8_quantize", (xq, stats), iq.quantize_reference(x, pre, x2), label)
+        same("int8_quantize", (xq, stats), quant(), label + ", second run")
+        gemm = lambda: ig.int8_conv3x3(xq, stats, wq, w_amax, bias, post, res)
+        out = gemm()
+        same("int8_gemm_conv", (out,), (ig.conv_reference(xq, stats, wq, w_amax, bias, post,
+                                                          res),), label)
+        same("int8_gemm_conv", (out,), (gemm(),), label + ", second run")
+        q_ms, g_ms = graph_ms(quant), graph_ms(gemm)
+        xs = [x] if x2 is None else [x, x2]
+        ops = 2 * n * h * w * 9 * ci * co
+        moved = nbytes(*xs, wq, res) + n * h * w * co * 2
+        b_ms, b_by = bound_ms(ops, moved, PEAK_INT8_OPS)
+        kw = dict(pre_scale=pre[0], pre_shift=pre[1], pre_silu=True) if pre else {}
+        if cv.supports(x, weight, x2, pre is not None):
+            bf16 = lambda: cv.conv3x3(x, weight, bias, post_shift=post, residual=res, x2=x2, **kw)
+            k_ms = f"{graph_ms(bf16):.4f}"
+        else:
+            k_ms = "declined"
+        xin = x if x2 is None else torch.cat([x, x2], -1)
+        library = lambda: F.conv2d(video.nchw(xin), weight, bias, padding=1)
+        lib_ms = graph_ms(library)
+        if first:
+            ph.time("int8_quantize", quant, lambda: iq.quantize_reference(x, pre, x2),
+                    0, nbytes(*xs, xq), label=label, peak=PEAK_INT8_OPS)
+            ph.times["int8_quantize"]["device_ms"] = q_ms
+            ph.time("int8_gemm_conv", gemm,
+                    lambda: ig.conv_reference(xq, stats, wq, w_amax, bias, post, res),
+                    ops, nbytes(xq, wq, res) + n * h * w * co * 2, label=label,
+                    peak=PEAK_INT8_OPS)
+            ph.times["int8_gemm_conv"]["device_ms"] = g_ms
+        log(f"  int8 conv {label} x{per}: quantise {q_ms:.4f} + GEMM {g_ms:.4f} = "
+            f"{q_ms + g_ms:.4f} ms ({ops / g_ms / 1e9:.1f} TOP/s in the GEMM); bf16 conv3x3 "
+            f"kernel {k_ms}, F.conv2d bf16 {lib_ms:.4f}; bound {b_ms:.4f} ms ({b_by}), "
+            f"{100 * b_ms / (q_ms + g_ms):.1f} % of it")
+        ms[("conv", (n, h, w, ci, co))] = (q_ms, g_ms)
+        bf = float(k_ms) if k_ms != "declined" else lib_ms
+        return (q_ms + g_ms) * per, bf * per, lib_ms * per
+
+    def dense_site(rows, k, co, per, first=False):
+        x = rn(rows, k)
+        weight = rn(co, k, sc=k ** -0.5)
+        bias = 0.1 * rn(co)
+        wq, w_amax = ig.dense_codes(weight)
+        label = f"({rows}, {k}) -> {co}"
+        quant = lambda: iq.quantize(x)
+        xq, stats = quant()
+        same("int8_quantize", (xq, stats), iq.quantize_reference(x), label)
+        gemm = lambda: ig.int8_dense(xq, stats, wq, w_amax, bias)
+        out = gemm()
+        same("int8_gemm_dense", (out,), (ig.dense_reference(xq, stats, wq, w_amax, bias),),
+             label)
+        same("int8_gemm_dense", (out,), (gemm(),), label + ", second run")
+        q_ms, g_ms = graph_ms(quant), graph_ms(gemm)
+        ops = 2 * rows * k * co
+        moved = nbytes(x, wq) + rows * co * 2
+        b_ms, b_by = bound_ms(ops, moved, PEAK_INT8_OPS)
+        # the library: cuBLASLt's int8 product (rows > 16, K and N multiples of 8)
+        # and the plain dequantise
+        lib = None
+        if rows > 16:
+            lib = lambda: _int_mm_dequant(xq, wq, stats, w_amax, bias)
+            acc = torch._int_mm(xq, wq.t())
+            if not torch.equal(acc, torch.matmul(xq.double(), wq.double().t()).to(torch.int32)):
+                raise RuntimeError(f"torch._int_mm {label}: not the exact int32 sums")
+        lib_ms = graph_ms(lib) if lib else None
+        f_ms = graph_ms(lambda: F.linear(x, weight, bias))
+        if first:
+            ph.time("int8_gemm_dense", gemm,
+                    lambda: ig.dense_reference(xq, stats, wq, w_amax, bias), ops,
+                    nbytes(xq, wq) + rows * co * 2, library_fn=lib,
+                    library="torch._int_mm + the plain dequantise", label=label,
+                    peak=PEAK_INT8_OPS)
+            ph.times["int8_gemm_dense"]["device_ms"] = g_ms
+        lib_s = f"{lib_ms:.4f}" if lib_ms is not None else "none (rows <= 16)"
+        log(f"  int8 dense {label} x{per}: quantise {q_ms:.4f} + GEMM {g_ms:.4f} = "
+            f"{q_ms + g_ms:.4f} ms ({ops / g_ms / 1e9:.1f} TOP/s in the GEMM); _int_mm + "
+            f"dequantise {lib_s}, bf16 F.linear {f_ms:.4f}; bound {b_ms:.4f} ms ({b_by}), "
+            f"{100 * b_ms / (q_ms + g_ms):.1f} % of it")
+        ms[("dense", (rows, k, co))] = (q_ms, g_ms)
+        return (q_ms + g_ms) * per, f_ms * per, (lib_ms or f_ms) * per
+
+    def total(what, rows):
+        a, b, c = (sum(v) for v in zip(*rows))
+        bf16 = ("the conv3x3 kernel where it takes the site, else F.conv2d" if "conv" in what
+                else "F.linear")
+        log(f"  [{smi}] int8 {what}: launches x device ms, int8 (quantise + GEMM) {a:.3f}, "
+            f"bf16 {b:.3f} ({bf16}), library {c:.3f} ms")
+        return a, b
+
+    log("kernels: int8, every Conv3x3 of a CFG UNet pass (batch 28)")
+    unet = total("convs per CFG UNet pass", [
+        conv_site(28, *st, first=st[:5] == (40, 64, 320, 320, "preS+post"))
+        for st in INT8_CONV_SITES])
+    log("kernels: int8, every Conv3x3 of the VAE decoder (a chunk of 8 frames)")
+    vae = total("convs per decode chunk", [conv_site(8, *st) for st in INT8_VAE_CONV_SITES])
+    log("kernels: int8, every QLinear of a CFG UNet pass")
+    dense = total("dense per CFG UNet pass", [
+        dense_site(*st, first=st[:3] == (71680, 320, 320)) for st in INT8_DENSE_SITES])
+    log(f"  [{smi}] int8 per exact-schedule video (25 CFG passes, 2 decode chunks priced at "
+        f"8 frames): convs {25 * unet[0] + 2 * vae[0]:.1f} ms against bf16 "
+        f"{25 * unet[1] + 2 * vae[1]:.1f}; dense {25 * dense[0]:.1f} ms against bf16 F.linear "
+        f"{25 * dense[1]:.1f}")
+    return ms
+
+
+def _int_mm_dequant(xq, wq, stats, w_amax, bias):
+    from svd_xtend_tpu_torch.ops import quant
+    return quant.dequantize(torch._int_mm(xq, wq.t()), stats[0], w_amax, bias, torch.bfloat16)
+
+
+class Int8SiteSpy:
+    """Inside the block, every int8 site the models call (Conv3x3 and
+    QLinear in int8 mode: ``int8_gemm.conv3x3_site`` / ``linear_site``) is
+    also run through its plain versions (``dispatch.plain_versions``) on the
+    same inputs, and the two outputs compared bit for bit: a teacher-forced
+    check of each site of a real pass, free of the chaos of the whole
+    pass's codes. ``calls`` and ``differ`` count by kind, ``worst`` is the
+    largest max-abs difference seen."""
+
+    def __init__(self):
+        self.calls = {"conv": 0, "dense": 0}
+        self.differ = {"conv": 0, "dense": 0}
+        self.worst = 0.0
+
+    def _wrap(self, fn, kind):
+        from svd_xtend_tpu_torch.ops.kernels.dispatch import plain_versions
+
+        def site(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            with plain_versions():
+                ref = fn(*args, **kwargs)
+            self.calls[kind] += 1
+            if not torch.equal(out, ref):
+                self.differ[kind] += 1
+                self.worst = max(self.worst, (out.float() - ref.float()).abs().max().item())
+            return out
+        return site
+
+    def __enter__(self):
+        from svd_xtend_tpu_torch.ops.kernels import int8_gemm as ig
+        self._saved = (ig.conv3x3_site, ig.linear_site)
+        ig.conv3x3_site = self._wrap(ig.conv3x3_site, "conv")
+        ig.linear_site = self._wrap(ig.linear_site, "dense")
+        return self
+
+    def __exit__(self, *exc):
+        from svd_xtend_tpu_torch.ops.kernels import int8_gemm as ig
+        ig.conv3x3_site, ig.linear_site = self._saved
+
+
+def int8_unet_phase(dev):
+    """The full-width UNet on a CFG pair (2 x 2 frames, 16x16 latent) in int8
+    mode, bf16 on the card (the int8 kernels) against f32 on the host (the
+    plain versions). Three checks, all of which must hold:
+      - teacher-forced, per site: every int8 site of the card's pass (46
+        convs, and the QLinear calls of sites.int8_dense_sites at this
+        shape) bit for bit its plain version on the card on the same
+        inputs (Int8SiteSpy);
+      - two-sided, the quantisation's own error: the card's int8 pass
+        against its exact pass within [1/r, r] x the host's int8 pass
+        against the host's exact pass (r = INT8_NOISE_RATIO), so that a card
+        that quantised nothing, or a different share of the network, fails;
+      - the card's int8 pass against the host's (from the card's bf16
+        weights) within r x a control measured here: two host int8 passes
+        differing only in a rounding of the weights (f32 against their bf16
+        values).
+    The 5e-2 bf16 bound of the whole pass is printed beside the distance and
+    is not a gate: an int8 pass is chaotic in its codes (a value moved by a
+    rounding takes the next code, which moves the next quantiser's inputs),
+    so bf16 on the card and f32 on the host are apart by about the
+    quantisation's own error."""
+    from svd_xtend_tpu_torch.core.config import UNetConfig
+    from svd_xtend_tpu_torch.diffusion.pipeline import init_random_
+    from svd_xtend_tpu_torch.models.unet import UNetSpatioTemporalConditionModel
+    from svd_xtend_tpu_torch.ops import quant
+    from svd_xtend_tpu_torch.scripts.sites import INT8_CONV_SITES, int8_dense_sites
+
+    cfg = UNetConfig()
+    with torch.device(dev):
+        gpu = UNetSpatioTemporalConditionModel(cfg)
+    init_random_(gpu, torch.Generator(device=dev).manual_seed(SEED + 1))
+    with torch.device("meta"):
+        cpu = UNetSpatioTemporalConditionModel(cfg)
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()}, strict=True,
+                        assign=True)
+    gpu = gpu.to(torch.bfloat16).eval()
+    cpu = cpu.eval()
+    with torch.device("meta"):
+        cpu16 = UNetSpatioTemporalConditionModel(cfg)
+    cpu16.load_state_dict({k: v.float().cpu() for k, v in gpu.state_dict().items()},
+                          strict=True, assign=True)
+    cpu16 = cpu16.eval()
+    gen = torch.Generator().manual_seed(SEED + 2)
+    sample = torch.randn(2, 2, 16, 16, cfg.in_channels, generator=gen)
+    ehs = torch.randn(2, 1, cfg.cross_attention_dim, generator=gen)
+    ids = torch.tensor([[6.0, 127.0, 0.02]] * 2)
+    t = torch.tensor(0.25 * torch.log(torch.tensor(10.0)).item())
+    with torch.no_grad():
+        with quant.quantized("int8"):
+            with Int8SiteSpy() as spy:
+                got = gpu(sample.to(dev), t, ehs.to(dev), ids.to(dev)).float().cpu()
+            t0 = time.time()
+            ref = cpu16(sample, t, ehs, ids)
+            log(f"  host f32 int8 UNet forward {time.time() - t0:.1f} s")
+            ref32 = cpu(sample, t, ehs, ids)
+        exact = cpu(sample, t, ehs, ids)
+        gexact = gpu(sample.to(dev), t, ehs.to(dev), ids.to(dev)).float().cpu()
+    want = {"conv": sum(s[-1] for s in INT8_CONV_SITES),
+            "dense": sum(s[-1] for s in int8_dense_sites(height=128, width=128, frames=2,
+                                                         batch=2))}
+    log(f"  teacher-forced sites: {spy.calls} int8 site calls in the card's pass (the site "
+        f"tables at this shape: {want}); outputs differing from their plain versions on the "
+        f"same inputs: {spy.differ} (largest max-abs difference {spy.worst:.4g})")
+    rel = lambda a, b: ((a - b).norm() / b.norm()).item()
+    r, control = rel(got, ref), rel(ref, ref32)
+    own_host, own_card = rel(ref32, exact), rel(got, gexact)
+    log(f"  full-width UNet in int8 (2, 2, 16, 16, 8): card bf16 against host f32 from the "
+        f"card's weights rel_l2 {r:.4g}; against host f32 from the f32 weights "
+        f"{rel(got, ref32):.4g}; the two host passes apart {control:.4g} (the control); host "
+        f"int8 against host exact {own_host:.4g} (the quantisation's own error); card int8 "
+        f"against card exact {own_card:.4g}; card exact against host exact "
+        f"{rel(gexact, exact):.4g}")
+    log(f"  the 5e-2 bound of the whole pass ({UNET_REL_L2_BOUND}, bf16's): rel_l2 {r:.4g}, "
+        f"{'met' if r <= UNET_REL_L2_BOUND else 'NOT met'} (printed, not a gate)")
+    ratio = own_card / own_host
+    log(f"  int8 gates: sites bit for bit {not any(spy.differ.values())}, every site "
+        f"{spy.calls == want}; the card's own error / the host's {ratio:.4g} in "
+        f"[{1 / INT8_NOISE_RATIO:.4g}, {INT8_NOISE_RATIO}]; card against host {r:.4g} <= "
+        f"{INT8_NOISE_RATIO} x the control = {INT8_NOISE_RATIO * control:.4g}")
+    if any(spy.differ.values()) or spy.calls != want:
+        raise RuntimeError(f"int8 UNet phase: sites {spy.calls} (tables {want}), differing "
+                           f"from their plain versions {spy.differ}")
+    if not bool(torch.isfinite(got).all()) or not (
+            1 / INT8_NOISE_RATIO <= ratio <= INT8_NOISE_RATIO) or r > INT8_NOISE_RATIO * control:
+        raise RuntimeError(f"int8 UNet phase: own error ratio {ratio} or rel_l2 {r} against "
+                           f"{INT8_NOISE_RATIO} x {control}")
+
+
+def int8_video_phase(dev, smi, counters, ms):
+    """generate in the int8 modes at PipelineConfig() (warm-up + 3 timed
+    each, the median reported) beside the exact video of the same models,
+    image and noise: unet_quant, unet_quant + vae_quant, unet_quant + the CFG
+    cache k3. Each mode's launches held to the site tables: the int8 GEMM's
+    conv launches 46 a UNet pass (+ 30 a decode chunk under vae_quant), its
+    dense launches 320 a pass (INT8_DENSE_SITES), one quantise launch per
+    GEMM launch, GEGLU none, conv3x3 the VAE's alone (the encoder's 21, and
+    the decoder's 2 x 28 without vae_quant). The int8 video against the
+    exact one: rel-L2 and PSNR (utils/metrics.py). {path: launches}."""
+    import dataclasses
+
+    from svd_xtend_tpu_torch.core.config import PipelineConfig
+    from svd_xtend_tpu_torch.diffusion.pipeline import SVDModels, generate, prepare_int8
+    from svd_xtend_tpu_torch.ops.kernels import int8_gemm as ig
+    from svd_xtend_tpu_torch.utils.metrics import psnr
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    models = SVDModels.create(device=dev, dtype=torch.bfloat16, generator=gen)
+    exact_cfg = PipelineConfig()
+    image = torch.rand(1, exact_cfg.height, exact_cfg.width, 3, device=dev, generator=gen) * 2 - 1
+    torch.cuda.synchronize()
+    runs = {"int8_exact_baseline": exact_cfg,
+            "int8_unet": dataclasses.replace(exact_cfg, unet_quant="int8"),
+            "int8_both": dataclasses.replace(exact_cfg, unet_quant="int8", vae_quant="int8"),
+            "int8_unet_k3": dataclasses.replace(exact_cfg, unet_quant="int8",
+                                                uncond_reuse_interval=3)}
+    chunks = -(-exact_cfg.num_frames // exact_cfg.decode_chunk_size)
+    enc = sum(st[5] for st in VAE_ENCODE_SITES)
+    dec = sum(st[5] for st in VAE_DECODE_SITES)
+    launches, videos, secs = {}, {}, {}
+    for path, cfg in runs.items():
+        t0 = time.time()
+        generate(models, image, cfg, generator=torch.Generator(device=dev).manual_seed(SEED))
+        torch.cuda.synchronize()
+        log(f"  {path}: warm-up video {time.time() - t0:.2f} s")
+        timed = []
+        with calls_by(ig, "int8_conv3x3", INT8_CONV_KEY) as conv_by, \
+                calls_by(ig, "int8_dense", INT8_DENSE_KEY) as dense_by:
+            for _ in range(GENERATE_TIMED):
+                video = None
+                reset(counters)
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.time()
+                video = generate(models, image, cfg,
+                                 generator=torch.Generator(device=dev).manual_seed(SEED))
+                torch.cuda.synchronize()
+                timed.append(time.time() - t0)
+        secs[path] = sorted(timed)[len(timed) // 2]
+        peak = torch.cuda.max_memory_allocated()
+        names = [n for n in counters if n not in BACKWARD_ONLY | MHA_ONLY | PROBE_ONLY
+                 | ({"geglu_fwd"} if cfg.unet_quant else INT8_ONLY)]
+        launches[path] = read(counters, names)
+        got = {n: counters[n].launches for n in ("int8_gemm_conv", "int8_gemm_dense",
+                                                 "int8_quantize", "geglu_fwd", "conv3x3")}
+        passes = cfg.num_inference_steps
+        if cfg.unet_quant:
+            want = {"int8_gemm_conv": passes * sum(st[5] for st in INT8_CONV_SITES)
+                    + (chunks * sum(st[5] for st in INT8_VAE_CONV_SITES)
+                       if cfg.vae_quant else 0),
+                    "int8_gemm_dense": passes * sum(st[3] for st in INT8_DENSE_SITES),
+                    "geglu_fwd": 0,
+                    "conv3x3": enc + (0 if cfg.vae_quant else chunks * dec)}
+            want["int8_quantize"] = want["int8_gemm_conv"] + want["int8_gemm_dense"]
+            log(f"  {path}: int8 launches {got}; the site tables give {want}")
+            if got != want:
+                raise RuntimeError(f"{path}: launches {got}, the site tables give {want}")
+        if path == "int8_unet":     # all CFG passes: by shape, and priced
+            want_dense = collections.Counter({st[:3]: st[3] * passes * GENERATE_TIMED
+                                              for st in INT8_DENSE_SITES})
+            want_conv = collections.Counter()
+            for st in INT8_CONV_SITES:
+                want_conv[(28, *st[:4])] += st[5] * passes * GENERATE_TIMED
+            if dense_by != want_dense or conv_by != want_conv:
+                raise RuntimeError(f"{path}: int8 GEMM calls by shape differ from the site "
+                                   f"tables: dense {dict(dense_by)}, conv {dict(conv_by)}")
+            priced = sum(n / GENERATE_TIMED * sum(ms[("dense", k)]) for k, n in dense_by.items())
+            priced += sum(n / GENERATE_TIMED * sum(ms[("conv", k)]) for k, n in conv_by.items())
+            log(f"  [{smi}] {path}: int8 quantise + GEMM launches x the kernel phase's device "
+                f"ms: {priced:.1f} ms per video")
+        if not bool(torch.isfinite(video).all()) or video.abs().max().item() > 1.0:
+            raise RuntimeError(f"{path}: video not finite in [-1, 1]")
+        videos[path] = video
+        base = videos["int8_exact_baseline"]
+        cmp = ""
+        if path != "int8_exact_baseline":
+            rel = ((video - base).norm() / base.norm()).item()
+            cmp = (f"; against the exact video rel_l2 {rel:.4g}, PSNR "
+                   f"{psnr(video, base).item():.2f} dB")
+        log(f"  [{smi}] {path}: seconds/video {secs[path]:.3f} (median of {GENERATE_TIMED}: "
+            f"{', '.join(f'{t:.3f}' for t in timed)}; exact "
+            f"{secs['int8_exact_baseline']:.3f}); peak allocated {peak / 2**30:.2f} GiB{cmp}")
+    codes = prepare_int8(models.unet)
+    log(f"  int8 weight codes held on the card while the weights are unchanged: UNet "
+        f"{codes / 1e9:.3f} GB, VAE decoder {prepare_int8(models.vae.decoder) / 1e9:.3f} GB")
     return launches
 
 
@@ -2020,7 +2495,7 @@ def timed_steps(path, scope, step, state, batch, draws, counters, ph: KernelPhas
             secs.append(time.time() - t0)
             metrics.append(m)
     peak = torch.cuda.max_memory_allocated()
-    launches = read(counters, [n for n in counters if n not in MHA_ONLY | PROBE_ONLY])
+    launches = read(counters, [n for n in counters if n not in OTHER_PATHS])
     priced = {"flash_attention_fwd": forward_per_run(
         path, fwd_by_shape, TRAIN_STEPS, launches["flash_attention_fwd"] / TRAIN_STEPS,
         ph.fwd_ms["train"], smi, "step")}
@@ -2303,7 +2778,7 @@ def lora_phase(dev, smi, counters, ph: KernelPhase, conv_sums, exact_launches):
     video = generate(models, image, exact, generator=torch.Generator(device=dev).manual_seed(SEED))
     torch.cuda.synchronize()
     secs_video = time.time() - t0
-    serve = read(counters, [n for n in counters if n not in BACKWARD_ONLY | MHA_ONLY | PROBE_ONLY])
+    serve = read(counters, [n for n in counters if n not in BACKWARD_ONLY | OTHER_PATHS])
     if serve != exact_launches:
         raise RuntimeError(f"lora: the merged UNet's video launched {serve}, the exact path "
                            f"{exact_launches}")
@@ -2511,7 +2986,7 @@ def cli_phase(dev, smi, counters, exact_launches, train_launches):
         torch.cuda.synchronize()
         wall = time.time() - t0
         peak = torch.cuda.max_memory_allocated()
-        launches = read(counters, [n for n in counters if n not in MHA_ONLY | PROBE_ONLY])
+        launches = read(counters, [n for n in counters if n not in OTHER_PATHS])
         steps = len(stats["step_seconds"])
         per_step = {n: (c - sum(v[n] for v in val_launches)) / steps for n, c in launches.items()}
         want_step = {n: c / TRAIN_STEPS for n, c in train_launches.items()}
@@ -2639,6 +3114,102 @@ TRACKLET_DIM, TRACKLET_HEADS, TRACKLET_BOXES = 1024, 8, 16
 # zero (docs/TRACKLET.md, "Gradient flow note")
 TRACKLET_GATE = 0.5
 TRACKLET_CLI_STEPS = 2
+
+
+def parallel_phase(dev, smi):
+    """Data parallelism over a world of one (NCCL through the env rendezvous
+    on localhost, as torchrun starts a rank) with train/cli.py at full width
+    over the committed frames: the full scope for 3 steps without offload,
+    with --host_offload masters and masters+moments (s/step, peak memory, the
+    bytes streamed a step, the masters' placement); the temporal scope for 2
+    steps with --zero1 and without, whose checkpoints must hold the same
+    state bit for bit."""
+    import shutil
+    import socket
+
+    import torch.distributed as dist
+
+    from svd_xtend_tpu_torch import native
+    from svd_xtend_tpu_torch.data import make_fixtures as fx
+    from svd_xtend_tpu_torch.train import cli
+    from svd_xtend_tpu_torch.train.checkpoint import STATE_FILE
+
+    root = native.BUILD_DIR.parent / "parallel_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = dict(MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK="0", WORLD_SIZE="1",
+               LOCAL_RANK="0")
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+
+    def run(name, *extra):
+        out = str(root / name)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        stats = cli.main(["--base_folder", fx.FRAMES, "--mixed_precision", "bf16",
+                          "--learning_rate", "1e-5", "--lr_scheduler", "constant",
+                          "--checkpoints_total_limit", "1", "--validation_steps", "1000",
+                          "--num_inference_steps", "2", "--seed", "123", "--output_dir", out,
+                          *extra])
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        steps = stats["step_seconds"]
+        if stats["world_size"] != 1 or dist.is_initialized():
+            raise RuntimeError(f"{name}: world {stats['world_size']}, the process group left up")
+        streamed = stats["streamed_bytes"][-1]
+        log(f"  [{smi}] {name}: s/step {', '.join(f'{t:.3f}' for t in steps)} (median "
+            f"{statistics.median(steps):.3f}); peak allocated {peak / 2**30:.2f} GiB; streamed "
+            f"{streamed / 1e9:.3f} GB a step ({streamed / 1e9 / statistics.median(steps):.1f} "
+            f"GB/s of the step's time); wall {time.time() - t0:.1f} s")
+        return out, stats, peak
+
+    try:
+        full = ("--train_mode", "full", "--max_train_steps", "3", "--checkpointing_steps",
+                "1000")
+        results = {}
+        for mode in ("none", "masters", "masters+moments"):
+            results[mode] = run(f"full_{mode}", *full, "--host_offload", mode)
+            shutil.rmtree(results[mode][0], ignore_errors=True)
+        base = results["none"][2]
+        for mode in ("masters", "masters+moments"):
+            cut = (base - results[mode][2]) / 2**30
+            log(f"  [{smi}] full scope, --host_offload {mode}: peak {results[mode][2] / 2**30:.2f}"
+                f" GiB, {cut:.2f} GiB under no offload's {base / 2**30:.2f}")
+            if results[mode][1]["streamed_bytes"][-1] <= 0 or cut <= 0:
+                raise RuntimeError(f"--host_offload {mode}: nothing streamed or no memory saved")
+        temporal = ("--train_mode", "temporal", "--max_train_steps", "2",
+                    "--checkpointing_steps", "2")
+        plain = run("temporal", *temporal)[0]
+        zero = run("temporal_zero1", *temporal, "--zero1")[0]
+        load = lambda d: torch.load(os.path.join(d, "checkpoint-2", "state", STATE_FILE),
+                                    map_location="cpu", weights_only=True)
+        a, b = load(plain), load(zero)
+        same = _same_leaves(a, b)
+        log(f"  --zero1 at world 1 against without: checkpoint-2 states {compare_states(a, b)}; "
+            f"bit for bit: {same}")
+        if not same:
+            raise RuntimeError("--zero1 at world 1 holds another state than the run without it")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _same_leaves(a, b) -> bool:
+    """Equal nested dicts / lists of tensors and numbers, bit for bit."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same_leaves(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_same_leaves(x, y) for x, y in zip(a, b))
+    if torch.is_tensor(a):
+        return a.dtype == b.dtype and torch.equal(a, b)
+    return a == b
 
 
 def seeded_boxes(gen, b, f, n, device):
@@ -2832,7 +3403,7 @@ def tracklet_video_phase(dev, smi, counters, ph: KernelPhase, gen_launches):
                 timed.append(time.time() - t0)
         peak = torch.cuda.max_memory_allocated()
         launches[path] = read(counters, [n for n in counters
-                                         if n not in BACKWARD_ONLY | MHA_ONLY | PROBE_ONLY])
+                                         if n not in BACKWARD_ONLY | OTHER_PATHS])
         want = collections.Counter()
         for batch, kind in unet_schedule(cfg):
             depth = None if kind == "full" else cfg.deep_cache_depth
@@ -2979,7 +3550,7 @@ def tracklet_cli_phase(dev, smi, counters, step_launches):
         stats = cli.main(argv)
         torch.cuda.synchronize()
         wall = time.time() - t0
-        launches = read(counters, [n for n in counters if n not in MHA_ONLY | PROBE_ONLY])
+        launches = read(counters, [n for n in counters if n not in OTHER_PATHS])
         per_step = {n: (c - sum(v[n] for v in val_launches)) / TRACKLET_CLI_STEPS
                     for n, c in launches.items()}
         want = {n: c / TRAIN_STEPS for n, c in step_launches.items()}
@@ -3184,7 +3755,7 @@ def infer_phase(dev, smi, counters):
         pipeline.generate = original
     peak = torch.cuda.max_memory_allocated()
     launches = read(counters, [n for n in counters
-                               if n not in BACKWARD_ONLY | MHA_ONLY | PROBE_ONLY])
+                               if n not in BACKWARD_ONLY | OTHER_PATHS])
     cfg = PipelineConfig(height=INFER_H, width=INFER_W, num_inference_steps=30)
     want = collections.Counter()
     for batch, _ in unet_schedule(cfg):
@@ -3271,7 +3842,7 @@ def optim8_phase(dev, smi, counters):
             secs.append(time.time() - t0)
             if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])):
                 raise RuntimeError(f"optim8 {name}: non-finite metrics {m}")
-        launches.update(read(counters, [n for n in counters if n not in MHA_ONLY | PROBE_ONLY]))
+        launches.update(read(counters, [n for n in counters if n not in OTHER_PATHS]))
         peak = torch.cuda.max_memory_allocated()
         n = sum(p.numel() for p in state.params)
         moments = (state.optimizer.adamw8.moment_bytes() if cfg.use_8bit_adam else

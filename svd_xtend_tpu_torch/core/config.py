@@ -170,8 +170,10 @@ class PipelineConfig(_JsonMixin):
 
     ``uncond_reuse_interval`` (the CFG cache) and ``deep_cache_interval`` /
     ``deep_cache_depth`` (DeepCache) run as in the JAX package
-    (``diffusion/pipeline.py::generate``); the int8 modes (``unet_quant``,
-    ``vae_quant``) are not ported yet and ``generate`` refuses them."""
+    (``diffusion/pipeline.py::generate``), and so do the opt-in int8 W8A8
+    modes: ``unet_quant="int8"`` quantises every Conv3x3 and QLinear of the
+    UNet, ``vae_quant="int8"`` every Conv3x3 of the VAE decoder
+    (``ops/quant.py``); None is exact."""
 
     height: int = 320
     width: int = 512
@@ -194,7 +196,8 @@ class PipelineConfig(_JsonMixin):
 @dataclasses.dataclass(frozen=True)
 class MeshConfig(_JsonMixin):
     """Device-mesh layout. axis sizes of -1 mean "fill with what's left".
-    Not used by the port yet (one card); kept so TrainConfig matches."""
+    The port runs the 'data' axis (data-parallel ranks, ``parallel/``);
+    'model' and 'frames' must stay 1."""
 
     data: int = -1
     model: int = 1
@@ -209,8 +212,9 @@ class TrainConfig(_JsonMixin):
     AdamW with f32 masters (or 8-bit moments, ``use_8bit_adam``), f32 or
     bf16 gradients (``grad_dtype``), gradient accumulation, EMA, remat.
     ``vae_encode_in_loop`` is accepted and not read, as in the JAX package.
-    ZeRO-1 and host offload (several cards, or a TPU's host memory) are
-    refused at use (``check_ported``). ``encode_chunk_size`` chunks the
+    ZeRO-1 and host offload run over the data-parallel ranks
+    (``parallel/``); a 'model' or 'frames' mesh axis is refused at use
+    (``check_ported``). ``encode_chunk_size`` chunks the
     frozen VAE encode (0 = unchunked); the posterior noise is drawn per
     chunk, as in the JAX package."""
 
@@ -279,15 +283,14 @@ class TrainConfig(_JsonMixin):
         return super().from_dict(d)
 
     def check_ported(self) -> None:
-        """Raise ValueError for an option the port does not run yet."""
-        unported = {
-            "zero1": self.zero1,
-            "host_offload": self.host_offload != "none",
-        }
-        bad = [k for k, v in unported.items() if v]
-        if bad:
-            raise ValueError(f"not ported yet: {', '.join(bad)} (the port trains on one card "
-                             "with its optimizer state on it)")
+        """Raise ValueError for an option the port does not run yet, or an
+        unknown one."""
+        if self.mesh.model != 1 or self.mesh.frames != 1:
+            raise ValueError(f"not ported yet: a 'model' or 'frames' mesh axis (mesh "
+                             f"{self.mesh}; the tensor-parallel rules and sequence parallelism "
+                             "are TPU layouts; the port parallelises the batch alone)")
+        if self.host_offload not in ("none", "masters", "masters+moments"):
+            raise ValueError(f"unknown host_offload mode {self.host_offload!r}")
         if self.train_mode not in ("temporal", "full", "lora", "tracklet"):
             raise ValueError(f"unknown train_mode {self.train_mode!r}")
         if self.grad_dtype not in ("fp32", "bf16"):

@@ -19,7 +19,11 @@ The cache modes are ported with JAX's schedules (pipeline.py:318-450):
   uncond-refresh step (i % k == 0) runs the full pair even off the
   DeepCache interval, a DeepCache step alone refreshes the cond trunk with a
   full cond-only pass, any other step is a shallow cond-only pass.
-int8 (``unet_quant``/``vae_quant``) is refused.
+The opt-in int8 W8A8 modes (``ops/quant.py``) are scoped as in JAX
+(pipeline.py:191, 300-301, 453): ``unet_quant`` around every UNet call
+(exact, cond-only, DeepCache and tracklet passes alike), ``vae_quant``
+around the decode alone; the VAE encode and CLIP stay exact. The weight
+codes of the quantised networks are made before the loop (``prepare_int8``).
 
 Tracklet2Video (pipeline.py:291-297, 355-356, 430-431 in the JAX package):
 with a tracklet UNet (``SVDModels.with_tracklet``), ``boxes`` (B, F, N, 4)
@@ -48,6 +52,7 @@ from ..io.convert import load_unet_state
 from ..models.clip import CLIPVisionModelWithProjection, preprocess_for_clip
 from ..models.unet import UNetSpatioTemporalConditionModel
 from ..models.vae import AutoencoderKLTemporalDecoder
+from ..ops import quant
 from .scheduler import EulerDiscreteScheduler
 
 # flax lecun_normal: a normal truncated at two standard deviations, scaled so
@@ -179,6 +184,18 @@ def get_add_time_ids(fps: float, motion_bucket_id: float, noise_aug_strength: fl
     return row.expand(batch, 3).clone()
 
 
+def prepare_int8(module: nn.Module) -> int:
+    """Make the int8 weight codes of every quantisable site of `module`
+    (Conv3x3, QLinear) now, outside the sampler's loop; they are cached per
+    parameter version. Returns their bytes."""
+    total = 0
+    for m in module.modules():
+        if hasattr(m, "int8_codes"):
+            codes, scales = m.int8_codes()
+            total += codes.numel() + 4 * scales.numel()
+    return total
+
+
 @torch.no_grad()
 def decode_latents_chunked(models: SVDModels, latents: torch.Tensor,
                            decode_chunk_size: int) -> torch.Tensor:
@@ -217,8 +234,9 @@ def generate(models: SVDModels, image: torch.Tensor,
     from `generator`. `boxes` (B, F, N, 4) in [0, 1] and `box_mask`
     (B, F, N) condition a tracklet UNet."""
     cfg = config
-    if cfg.unet_quant is not None or cfg.vae_quant is not None:
-        raise ValueError("int8 quantisation (unet_quant, vae_quant) is not ported")
+    for mode in (cfg.unet_quant, cfg.vae_quant):
+        if mode not in quant.MODES:
+            raise ValueError(f"unknown quant mode {mode!r}")
     models.check_resolution(cfg.height, cfg.width)
     b, f = image.shape[0], cfg.num_frames
     device = image.device
@@ -256,8 +274,14 @@ def generate(models: SVDModels, image: torch.Tensor,
         box_pair = dict(boxes=_cfg_stack(torch.zeros_like(boxes), boxes),
                         box_mask=_cfg_stack(torch.zeros_like(box_mask), box_mask))
 
+    if cfg.unet_quant is not None:
+        prepare_int8(models.unet)
+    if cfg.vae_quant is not None:
+        prepare_int8(models.vae.decoder)
+
     def unet_out(x_in, t, ehs_, ids_, **kw):
-        out = models.unet(x_in.to(models.dtype), t, ehs_, ids_, **kw)
+        with quant.quantized(cfg.unet_quant):
+            out = models.unet(x_in.to(models.dtype), t, ehs_, ids_, **kw)
         if isinstance(out, tuple):               # return_deep: (out, deep)
             return out[0].float(), out[1]
         return out.float()
@@ -301,5 +325,6 @@ def generate(models: SVDModels, image: torch.Tensor,
         model_out = uncond + guidance * (cond - uncond)
         denoised = scheduler.denoised(model_out, latents, sigma)
         latents = scheduler.step(latents, denoised, sigma, sigma_next)
-    video = decode_latents_chunked(models, latents, cfg.decode_chunk_size)
+    with quant.quantized(cfg.vae_quant):
+        video = decode_latents_chunked(models, latents, cfg.decode_chunk_size)
     return video.clamp(-1.0, 1.0)

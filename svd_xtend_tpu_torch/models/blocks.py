@@ -13,7 +13,9 @@ over the parts), and the upsample is the nearest-2x + 3x3 conv by the parity
 decomposition (``ops/upsample.py``).
 
 Kernel sites on CUDA:
-  - ``Conv3x3``: the conv3x3 kernel (ops/kernels/conv3x3.py) wherever its
+  - ``Conv3x3`` in int8 mode (``ops/quant.py``): the int8 quantise and GEMM
+    kernels (ops/kernels/int8_quant.py, int8_gemm.py) at every call;
+  - ``Conv3x3`` otherwise: the conv3x3 kernel (ops/kernels/conv3x3.py) wherever its
     ``supports`` takes the call: both convs of every ResnetBlock2D of the UNet
     and the VAE (in the GN-fold form: the GroupNorm statistics folded into a
     per-(sample, channel) affine that the kernel's prologue applies with the
@@ -41,8 +43,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import video
+from ..ops import quant, video
 from ..ops.kernels import conv3x3 as cvk
+from ..ops.kernels import int8_gemm as i8k
 from ..ops.kernels import groupnorm as gnk
 from ..ops.kernels import temporal_resnet as trk
 from ..ops.kernels import upsample_conv as uck
@@ -108,8 +111,8 @@ class Conv2d(nn.Conv2d):
 
 class Conv3x3(nn.Conv2d):
     """3x3 stride-1 SAME conv on NHWC with the fused epilogues of the JAX
-    package's ``Conv3x3`` (blocks.py:225-348; its int8, Winograd and tiled
-    forms are not ported): ``pre=(sc, sh, silu)`` a per-(N, Ci) f32 input
+    package's ``Conv3x3`` (blocks.py:225-348; its Winograd and tiled forms
+    are not ported): ``pre=(sc, sh, silu)`` a per-(N, Ci) f32 input
     affine (+ SiLU), ``post_shift`` (N, Co) f32 and ``residual`` added to the
     output; ``x2``, the split-concat form (blocks.py:204-222, 257-280): the
     input is the channel concat [x, x2], which is never built, and ``pre``
@@ -117,7 +120,15 @@ class Conv3x3(nn.Conv2d):
     channels_last so that the kernel reads it as (Co, 3, 3, Ci) without a
     copy.
 
-    On CUDA every call ``supports`` takes goes to the conv3x3 kernel, and
+    In int8 mode (``ops.quant.quantized("int8")``; JAX's int8 branch,
+    blocks.py:274-304, which comes before its kernel dispatch) every call is
+    the W8A8 conv (``int8_gemm.conv3x3_site``): the prologue applied and
+    rounded, the activation (the concat [x, x2] with x2) quantised per
+    tensor, the int8 GEMM with the bias, the shift and the residual; on
+    CUDA through the int8 quantise and GEMM kernels, which take every
+    Conv3x3 of the UNet and the VAE decoder or raise.
+
+    Otherwise, on CUDA every call ``supports`` takes goes to the conv3x3 kernel, and
     every call with x2 (its prologue pass reads the two parts), which the
     kernel takes or raises; the rest (and every call on the CPU) takes the
     JAX package's route where its dispatch declines: the affine as plain
@@ -132,6 +143,8 @@ class Conv3x3(nn.Conv2d):
     def forward(self, x: torch.Tensor, pre=None, post_shift: Optional[torch.Tensor] = None,
                 residual: Optional[torch.Tensor] = None,
                 x2: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if quant.get_mode() == "int8":
+            return i8k.conv3x3_site(x, self.weight, self.bias, pre, post_shift, residual, x2)
         sc, sh, silu = pre if pre is not None else (None, None, False)
         if kernels_enabled() and (x2 is not None or cvk.supports(x, self.weight)):
             return cvk.conv3x3(x, self.weight, self.bias, pre_scale=sc, pre_shift=sh,
@@ -147,6 +160,11 @@ class Conv3x3(nn.Conv2d):
         if residual is not None:
             y = y + residual
         return y
+
+    def int8_codes(self):
+        """The weight's int8 codes and scales in the model's dtype (made once
+        per parameter version)."""
+        return i8k.conv_codes(self.weight)
 
 
 class Conv1x1Cat(Conv2d):

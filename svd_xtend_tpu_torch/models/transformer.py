@@ -15,6 +15,13 @@ fused residual GEGLU kernel (ops/kernels/geglu.py), as the JAX package
 runs it by default (``SVDX_PALLAS_GEGLU`` on). The GELU is the tanh form, as
 JAX's ``nn.gelu``. State-dict keys are the diffusers names.
 
+The projections at the JAX package's ``QDense`` sites (the attentions'
+to_q/k/v/out, the feed-forwards' net.0.proj / net.2, proj_in / proj_out)
+are ``QLinear``: in int8 mode (``ops/quant.py``) the W8A8 dense product,
+through the int8 quantise and GEMM kernels on CUDA, and the feed-forwards
+leave the fused GEGLU kernel for the module path, as JAX turns it off
+there (transformer.py:264).
+
 With ``tracklet_dim > 0`` each spatial block is followed by a Tracklet2Video
 gated attention (``gated_attentions``, models/tracklet.py), which runs only
 when box tokens are given (JAX transformer.py:533-539).
@@ -28,14 +35,33 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import quant
 from ..ops.attention import dot_product_attention_packed
 from ..ops.kernels import geglu as gk
+from ..ops.kernels import int8_gemm as i8k
 from ..ops.kernels import temporal_attention as tak
 from ..ops.kernels.dispatch import kernels_enabled
 from ..ops.video import spatial_tokens
 from . import attn_processor
 from .blocks import AlphaBlender, GroupNormSiLU
 from .embeddings import TimestepEmbedding, sinusoidal_embedding
+
+
+class QLinear(nn.Linear):
+    """nn.Linear with the opt-in W8A8 path of the JAX package's ``QDense``
+    (transformer.py:39-76): in int8 mode, the activation quantised per
+    tensor and the product on int8 codes (``int8_gemm.linear_site``);
+    otherwise nn.Linear. Same parameters and state-dict keys."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if quant.get_mode() == "int8":
+            return i8k.linear_site(x, self.weight, self.bias)
+        return super().forward(x)
+
+    def int8_codes(self):
+        """The weight's int8 codes and scales (made once per parameter
+        version)."""
+        return i8k.dense_codes(self.weight)
 
 
 class Attention(nn.Module):
@@ -49,10 +75,10 @@ class Attention(nn.Module):
         self.num_heads, self.head_dim = num_heads, head_dim
         inner = num_heads * head_dim
         ctx = context_dim or query_dim
-        self.to_q = nn.Linear(query_dim, inner, bias=False)
-        self.to_k = nn.Linear(ctx, inner, bias=False)
-        self.to_v = nn.Linear(ctx, inner, bias=False)
-        self.to_out = nn.ModuleList([nn.Linear(inner, out_dim or query_dim)])
+        self.to_q = QLinear(query_dim, inner, bias=False)
+        self.to_k = QLinear(ctx, inner, bias=False)
+        self.to_v = QLinear(ctx, inner, bias=False)
+        self.to_out = nn.ModuleList([QLinear(inner, out_dim or query_dim)])
         self.site = ""
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None):
@@ -79,7 +105,7 @@ class Attention(nn.Module):
 class _GEGLUProj(nn.Module):
     def __init__(self, dim: int, inner: int):
         super().__init__()
-        self.proj = nn.Linear(dim, inner * 2)
+        self.proj = QLinear(dim, inner * 2)
 
 
 class FeedForward(nn.Module):
@@ -90,7 +116,7 @@ class FeedForward(nn.Module):
         super().__init__()
         inner = dim * mult
         self.net = nn.ModuleList([_GEGLUProj(dim, inner), nn.Identity(),
-                                  nn.Linear(inner, dim)])
+                                  QLinear(inner, dim)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h, gate = self.net[0].proj(x).chunk(2, dim=-1)
@@ -100,9 +126,12 @@ class FeedForward(nn.Module):
 def residual_geglu(x: torch.Tensor, ln: nn.LayerNorm, ff: FeedForward) -> torch.Tensor:
     """x + FeedForward(LayerNorm(x)), the JAX package's ResidualGEGLU: the
     fused kernel wherever it takes the call (its plain version on the CPU),
-    the module path for a CUDA call it does not take."""
+    the module path for a CUDA call it does not take and in int8 mode
+    (LN → QLinear → h·gelu_tanh(gate) → QLinear → + x, JAX
+    transformer.py:264)."""
     proj, out = ff.net[0].proj, ff.net[2]
-    if x.is_cuda and not (kernels_enabled() and gk.supports(x, out.in_features)):
+    if quant.get_mode() == "int8" or (
+            x.is_cuda and not (kernels_enabled() and gk.supports(x, out.in_features))):
         return x + ff(ln(x))
     return gk.ln_geglu_residual(x, ln.weight, ln.bias, proj.weight, proj.bias,
                                 out.weight, out.bias)
@@ -195,7 +224,7 @@ class TransformerSpatioTemporalModel(nn.Module):
         super().__init__()
         inner = num_heads * head_dim
         self.norm = GroupNormSiLU(channels, 32, norm_eps, silu=False)
-        self.proj_in = nn.Linear(channels, inner)
+        self.proj_in = QLinear(channels, inner)
         self.transformer_blocks = nn.ModuleList(
             [BasicTransformerBlock(inner, num_heads, head_dim, context_dim)
              for _ in range(num_layers)])
@@ -204,7 +233,7 @@ class TransformerSpatioTemporalModel(nn.Module):
              for _ in range(num_layers)])
         self.time_pos_embed = TimestepEmbedding(inner, inner, hidden_dim=inner * 4)
         self.time_mixer = AlphaBlender(0.5, switch_spatial_to_temporal_mix=True)
-        self.proj_out = nn.Linear(inner, channels)
+        self.proj_out = QLinear(inner, channels)
         self.gated_attentions = None
         if tracklet_dim > 0:
             from .tracklet import GatedSelfAttention

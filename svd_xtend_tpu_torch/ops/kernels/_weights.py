@@ -6,7 +6,8 @@ every launch. ``per_version(make)`` returns a function that memoizes
 ``make(*tensors)`` while each tensor, or the tensor it is a view of (a
 module's parameter), is the same object on the same storage at the same
 in-place version, which an optimizer step bumps, and the view has the same
-geometry. Entries whose parameter is gone are dropped at the next miss.
+geometry. An entry is dropped when one of its tensors is freed (a weak
+reference's callback), so a model's prepared weights go with it.
 """
 
 from __future__ import annotations
@@ -37,10 +38,9 @@ def per_version(make: Callable) -> Callable:
         if (hit is not None and hit[1] == state
                 and all(ref() is _base(t) for ref, t in zip(hit[0], tensors))):
             return hit[2]
-        for k in [k for k, v in cache.items() if any(ref() is None for ref in v[0])]:
-            del cache[k]
         value = make(*(t.detach() for t in tensors))
-        cache[key] = (tuple(weakref.ref(_base(t)) for t in tensors), state, value)
+        drop = lambda _, key=key: cache.pop(key, None)
+        cache[key] = (tuple(weakref.ref(_base(t), drop) for t in tensors), state, value)
         return value
 
     return get

@@ -1,0 +1,217 @@
+"""int8 x int8 -> int32 GEMM with the W8A8 dequantising epilogue on a hand
+kernel, the second half of the int8 path (``ops/quant.py``), and the two
+int8 sites the models call.
+
+The functions are ``svd_xtend_tpu/ops/quant.py::int8_conv3x3`` and
+``::int8_dense`` after their activation quantisation (XLA code in the JAX
+package, no Pallas kernel). The kernel is ``csrc/int8_gemm.cu``: the 3x3 SAME
+implicit GEMM over NHWC int8 codes or a dense (M, K) product, with the
+weight codes K-major, int32 accumulators and JAX's epilogue (the scale
+product, + bias in f32, one cast, + shift, + residual in the activation
+type; the dequantising scale in XLA's jitted form, ``quant.dequant_scale``),
+bit for bit the plain versions ``conv_reference`` / ``dense_reference``.
+``int8_gemm_plan`` picks its tile width (128, or 32 for the thin outputs)
+and its loads' chunk (16 bytes, or 4 where Ci is not a multiple of 16).
+
+``int8_conv3x3`` and ``int8_dense`` take codes and ``stats`` (the (amax,
+scale) tensor of ``int8_quant.quantize``); on a CPU tensor they run the
+plain version, on a CUDA tensor they launch the kernel or raise. The sites,
+``conv3x3_site`` (``models/blocks.py::Conv3x3`` in int8 mode) and
+``linear_site`` (``models/transformer.py::QLinear``), quantise the
+activation and run the GEMM, through the kernels unless
+``dispatch.plain_versions()`` is on. The weight codes are made once per
+parameter version (``_weights.per_version``): ``generate`` makes them all
+before its loop (``prepare``), and they stay on the device while the
+parameters do (≈ 1.5 GB for the UNet).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from .. import quant
+from . import int8_quant as iq
+from ._build import check, library
+from ._weights import per_version
+from .dispatch import kernels_enabled
+
+THIN = 32    # outputs at most this wide take the 32-wide tile (csrc/int8_gemm.cu: 128 or 32)
+
+
+class Int8Plan(NamedTuple):
+    bn: int       # the tile width
+    chunk: int    # bytes of a loader's cp.async
+
+
+def int8_gemm_plan(co: int, k_unit: int) -> Int8Plan:
+    """The launch plan of an output width `co` whose K is read in runs of
+    `k_unit` bytes (a conv's Ci, a dense's K): 16-byte chunks where k_unit
+    is a multiple of 16, else 4."""
+    return Int8Plan(THIN if co <= THIN else 128, 16 if k_unit % 16 == 0 else 4)
+
+
+# (codes, clamped amaxes (Co,)): (Co, 3, 3, Ci) for a conv, (Co, K) for a dense
+conv_codes = per_version(quant.weight_codes_per_co)
+dense_codes = per_version(quant.weight_codes_per_cout)
+
+
+def conv_reference(xq, stats, wq, w_amax, bias=None, post_shift=None, residual=None,
+                   dtype=torch.bfloat16):
+    """Plain version of the conv GEMM: NHWC codes xq (N, H, W, Ci), wq (Co,
+    3, 3, Ci) with its clamped amaxes, stats (amax, scale) of xq -> (N, H, W,
+    Co) in `dtype`."""
+    return quant.dequantize(quant.conv_accumulate(xq, wq), stats[0], w_amax, bias, dtype,
+                            post_shift, residual)
+
+
+def dense_reference(xq, stats, wq, w_amax, bias=None, dtype=torch.bfloat16):
+    """Plain version of the dense GEMM: xq (M, K), wq (N, K) -> (M, N)."""
+    return quant.dequantize(quant.dense_accumulate(xq, wq), stats[0], w_amax, bias, dtype)
+
+
+def _ok(a, shape, dtype, dev):
+    return (a is None or (tuple(a.shape) == tuple(shape) and a.dtype == dtype
+                          and a.device == dev and a.is_contiguous() and a.data_ptr() % 16 == 0))
+
+
+def supports_conv(xq, wq, residual=None) -> bool:
+    """CUDA contiguous int8 NHWC codes (N, H, W, Ci), Ci % 4 == 0, with K-major
+    codes (Co, 3, 3, Ci) and a bf16 (N, H, W, Co) residual or none."""
+    if not (xq.is_cuda and xq.dim() == 4 and wq.dim() == 4):
+        return False
+    n, h, w, ci = xq.shape
+    co = wq.shape[0]
+    return (ci % 4 == 0 and _ok(xq, (n, h, w, ci), torch.int8, xq.device)
+            and _ok(wq, (co, 3, 3, ci), torch.int8, xq.device)
+            and _ok(residual, (n, h, w, co), torch.bfloat16, xq.device))
+
+
+def supports_dense(xq, wq) -> bool:
+    """CUDA contiguous int8 (M, K) codes, K % 16 == 0, with (N, K) codes."""
+    return (xq.is_cuda and xq.dim() == 2 and wq.dim() == 2 and xq.shape[1] % 16 == 0
+            and _ok(xq, xq.shape, torch.int8, xq.device)
+            and _ok(wq, (wq.shape[0], xq.shape[1]), torch.int8, xq.device))
+
+
+def _vectors(dev, co, w_amax, bias, stats):
+    f32 = lambda a: None if a is None else a.to(torch.bfloat16).float().contiguous()
+    w_amax = w_amax.float().contiguous()
+    bias = f32(bias)
+    for name, a in (("weight amaxes", w_amax), ("bias", bias)):
+        if a is not None and (tuple(a.shape) != (co,) or a.device != dev):
+            raise ValueError(f"int8 GEMM: {name} must be ({co},) on the codes' device")
+    if tuple(stats.shape) != (2,) or stats.dtype != torch.float32 or stats.device != dev:
+        raise ValueError("int8 GEMM: stats must be the (2,) f32 (amax, scale) on the device")
+    return w_amax, bias
+
+
+def _conv_launch(xq, stats, wq, w_amax, bias, post_shift, residual):
+    if not supports_conv(xq, wq, residual):
+        raise ValueError(
+            f"int8 conv kernel needs CUDA contiguous int8 NHWC codes with Ci % 4 == 0, "
+            f"(Co, 3, 3, Ci) int8 codes and a contiguous bf16 residual of the output's shape; "
+            f"got {tuple(xq.shape)} {xq.dtype}, {tuple(wq.shape)} {wq.dtype}, residual "
+            f"{None if residual is None else (tuple(residual.shape), residual.dtype)}")
+    n, h, w, ci = xq.shape
+    co = wq.shape[0]
+    w_amax, bias = _vectors(xq.device, co, w_amax, bias, stats)
+    post = None
+    if post_shift is not None:
+        post = post_shift.float().contiguous()
+        if tuple(post.shape) != (n, co) or post.device != xq.device:
+            raise ValueError(f"int8 conv: post_shift must be {(n, co)} on the device")
+    out = torch.empty((n, h, w, co), device=xq.device, dtype=torch.bfloat16)
+    plan = int8_gemm_plan(co, ci)
+    ptr = lambda a: None if a is None else a.data_ptr()
+    check(library().svdx_int8_gemm(
+        xq.data_ptr(), wq.data_ptr(), stats.data_ptr(), w_amax.data_ptr(), ptr(bias), ptr(post),
+        ptr(residual), out.data_ptr(), n * h * w, co, 9 * ci, 1, h, w, ci, plan.bn, plan.chunk,
+        torch.cuda.current_stream(xq.device).cuda_stream), "int8_conv3x3")
+    int8_conv3x3.launches += 1
+    return out
+
+
+def _dense_launch(xq, stats, wq, w_amax, bias):
+    if not supports_dense(xq, wq):
+        raise ValueError(
+            f"int8 dense kernel needs CUDA contiguous int8 (M, K) and (N, K) codes with "
+            f"K % 16 == 0; got {tuple(xq.shape)} {xq.dtype}, {tuple(wq.shape)} {wq.dtype}")
+    m, k = xq.shape
+    co = wq.shape[0]
+    w_amax, bias = _vectors(xq.device, co, w_amax, bias, stats)
+    out = torch.empty((m, co), device=xq.device, dtype=torch.bfloat16)
+    plan = int8_gemm_plan(co, k)
+    check(library().svdx_int8_gemm(
+        xq.data_ptr(), wq.data_ptr(), stats.data_ptr(), w_amax.data_ptr(),
+        None if bias is None else bias.data_ptr(), None, None, out.data_ptr(), m, co, k, 0, 0,
+        0, 0, plan.bn, plan.chunk, torch.cuda.current_stream(xq.device).cuda_stream),
+        "int8_dense")
+    int8_dense.launches += 1
+    return out
+
+
+def int8_conv3x3(xq: torch.Tensor, stats: torch.Tensor, wq: torch.Tensor, w_amax: torch.Tensor,
+                 bias: Optional[torch.Tensor] = None,
+                 post_shift: Optional[torch.Tensor] = None,
+                 residual: Optional[torch.Tensor] = None,
+                 dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The W8A8 3x3 SAME conv of NHWC codes: (N, H, W, Co) in `dtype` (bf16
+    on the card)."""
+    if xq.device.type == "cpu":
+        return conv_reference(xq, stats, wq, w_amax, bias, post_shift, residual, dtype)
+    if dtype != torch.bfloat16:
+        raise ValueError(f"int8 conv kernel writes bf16, not {dtype}")
+    return _conv_launch(xq, stats, wq, w_amax, bias, post_shift, residual)
+
+
+def int8_dense(xq: torch.Tensor, stats: torch.Tensor, wq: torch.Tensor, w_amax: torch.Tensor,
+               bias: Optional[torch.Tensor] = None,
+               dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The W8A8 dense product of codes xq (M, K) with wq (N, K): (M, N)."""
+    if xq.device.type == "cpu":
+        return dense_reference(xq, stats, wq, w_amax, bias, dtype)
+    if dtype != torch.bfloat16:
+        raise ValueError(f"int8 dense kernel writes bf16, not {dtype}")
+    return _dense_launch(xq, stats, wq, w_amax, bias)
+
+
+int8_conv3x3.launches = 0
+int8_dense.launches = 0
+
+
+def _in_dtype(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    # the weights quantise in the activation dtype, as JAX's promote_dtype
+    return weight if weight.dtype == dtype else weight.to(dtype)
+
+
+def conv3x3_site(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                 pre=None, post_shift: Optional[torch.Tensor] = None,
+                 residual: Optional[torch.Tensor] = None,
+                 x2: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A Conv3x3 in int8 mode (JAX blocks.py:274-304): quantise
+    [silu](x·sc + sh) over [x, x2], then the int8 conv with the bias, the
+    shift and the residual; weight OIHW over the full C1 + C2 width."""
+    wq, w_amax = conv_codes(_in_dtype(weight, x.dtype))
+    if kernels_enabled():
+        xq, stats = iq.quantize(x, pre, x2)
+        return int8_conv3x3(xq, stats, wq, w_amax, bias, post_shift, residual, x.dtype)
+    xq, stats = iq.quantize_reference(x, pre, x2)
+    return conv_reference(xq, stats, wq, w_amax, bias, post_shift, residual, x.dtype)
+
+
+def linear_site(x: torch.Tensor, weight: torch.Tensor,
+                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A QLinear in int8 mode (JAX transformer.py:64-66): x (..., K) with the
+    nn.Linear weight (N, K) -> (..., N) in x's dtype."""
+    lead, k = x.shape[:-1], x.shape[-1]
+    x2d = x.reshape(-1, k).contiguous()
+    wq, w_amax = dense_codes(_in_dtype(weight, x.dtype))
+    if kernels_enabled():
+        xq, stats = iq.quantize(x2d)
+        y = int8_dense(xq, stats, wq, w_amax, bias, x.dtype)
+    else:
+        xq, stats = iq.quantize_reference(x2d)
+        y = dense_reference(xq, stats, wq, w_amax, bias, x.dtype)
+    return y.reshape(*lead, y.shape[-1])

@@ -1,0 +1,247 @@
+"""Data parallelism, ZeRO-1 and host offload on ``torch.distributed``.
+
+Port of ``svd_xtend_tpu/parallel/sharding.py`` for the batch ('data') axis.
+The JAX package lays the train state and the batch out on a device mesh and
+lets GSPMD insert the collectives; here each card is a process (started by
+``torchrun``, or one process for one card), and the collectives are explicit:
+
+  - data parallelism: each rank takes its rows of the global batch
+    (``rows``); every rank draws the global batch's noise, sigmas and
+    dropout from the step's generator and keeps its rows (``local_draws``),
+    so a step over N ranks is the one-rank step over the same global batch;
+    the trainable gradients are all-reduced as a mean, in buckets, before
+    the global-norm clip (``all_reduce_mean_``), and each rank clips the same
+    replicated gradient;
+  - ZeRO-1 (sharding.py:42-47, 75-85): the optimizer moments and the EMA
+    are partitioned over the ranks by whole tensors (``owners``; whole
+    tensors keep the 8-bit AdamW's 2048-value blocks whole); each rank
+    updates its tensors and the owners broadcast the updated f32 masters
+    (``broadcast_from_owners_``), so the masters stay replicated. The update
+    is elementwise, so the result is the unpartitioned one bit for bit;
+  - host offload (sharding.py:49-68): "masters" keeps the f32 masters in
+    pinned host memory, "masters+moments" the optimizer moments too; the
+    update streams them through the card in chunks (``train/optim.py``).
+    The networks' bf16 compute copies, the EMA, the frozen weights and the
+    step counter stay on the card.
+
+A checkpoint holds the same files whatever the world size: the partitioned
+state is gathered to rank 0 for a save (``gather_to_main``), and every rank
+reads the full file on restore and keeps its part, so a run resumes at
+another world size. ``generate_rows`` is the counterpart of
+``make_sharded_generate`` (sharding.py:173-203) for the batch axis. NCCL on
+cards, gloo on the CPU. The tensor-parallel rules ('model' axis) and the
+sequence parallelism ('frames' axis) are not ported (ROADMAP).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Callable, Dict, List, Optional, Sequence
+
+import torch
+import torch.distributed as dist
+
+# an all-reduce or broadcast bucket holds at most this many values
+BUCKET_VALUES = 1 << 25
+
+
+@dataclasses.dataclass(frozen=True)
+class World:
+    """This process's place among the data-parallel ranks."""
+
+    rank: int = 0
+    size: int = 1
+    local_rank: int = 0
+
+    @property
+    def main(self) -> bool:
+        """Rank 0: the rank that logs, validates and writes."""
+        return self.rank == 0
+
+    @property
+    def collective(self) -> bool:
+        """Whether a process group is up (a world of one included)."""
+        return dist.is_available() and dist.is_initialized()
+
+
+SINGLE = World()
+
+
+def env_world() -> World:
+    """The world torchrun's RANK / WORLD_SIZE / LOCAL_RANK describe (one
+    rank without them)."""
+    env = os.environ
+    return World(int(env.get("RANK", 0)), int(env.get("WORLD_SIZE", 1)),
+                 int(env.get("LOCAL_RANK", 0)))
+
+
+def init_world(device_type: str) -> World:
+    """The data-parallel world of this process: torchrun's environment, its
+    process group started through it (``env://``: MASTER_ADDR, MASTER_PORT)
+    on NCCL for cards and gloo for the CPU when WORLD_SIZE is set, else one
+    rank without a group."""
+    world = env_world()
+    if "WORLD_SIZE" in os.environ and not (dist.is_available() and dist.is_initialized()):
+        if device_type == "cuda":
+            torch.cuda.set_device(world.local_rank)
+        dist.init_process_group("nccl" if device_type == "cuda" else "gloo",
+                                init_method="env://", rank=world.rank, world_size=world.size)
+    return world
+
+
+def close_world(world: World) -> None:
+    if world.collective:
+        dist.destroy_process_group()
+
+
+def comm_device(device: torch.device) -> torch.device:
+    """Where the collectives' buffers live: the card for NCCL, else the CPU."""
+    return device if dist.get_backend() == "nccl" else torch.device("cpu")
+
+
+def rows(n_local: int, world: World) -> slice:
+    """This rank's rows of a global batch of n_local · size rows."""
+    return slice(world.rank * n_local, (world.rank + 1) * n_local)
+
+
+def local_draws(draws, world: World, batch: int):
+    """The rows of this rank's `batch` samples out of the global batch's
+    draws (a TrainDraws of size · batch samples; its posterior noise has a
+    row per frame)."""
+    if world.size == 1:
+        return draws
+    frames = draws.latent_noise.shape[0] // draws.sigma.shape[0]
+    pick = lambda t, per: None if t is None else t[rows(batch * per, world)]
+    return type(draws)(*(pick(t, frames if name == "latent_noise" else 1)
+                         for name, t in zip(draws._fields, draws)))
+
+
+def _buckets(indices: Sequence[int], tensors: Sequence[torch.Tensor]):
+    """Runs of `indices` of one dtype with at most BUCKET_VALUES values (a
+    larger tensor alone)."""
+    run, count = [], 0
+    for i in indices:
+        t = tensors[i]
+        if run and (count + t.numel() > BUCKET_VALUES or t.dtype != tensors[run[0]].dtype):
+            yield run
+            run, count = [], 0
+        run.append(i)
+        count += t.numel()
+    if run:
+        yield run
+
+
+@torch.no_grad()
+def all_reduce_mean_(tensors: List[torch.Tensor], world: World) -> None:
+    """In place: every tensor the mean of its values over the ranks, summed
+    in buckets of one dtype (a no-op without a process group)."""
+    if not world.collective:
+        return
+    dev = comm_device(tensors[0].device) if tensors else None
+    for run in _buckets(range(len(tensors)), tensors):
+        flat = torch.cat([tensors[i].reshape(-1).to(dev) for i in run])
+        dist.all_reduce(flat)
+        flat.div_(world.size)
+        offset = 0
+        for i in run:
+            t = tensors[i]
+            t.copy_(flat[offset:offset + t.numel()].view_as(t))
+            offset += t.numel()
+
+
+def owners(sizes: Sequence[int], world: World) -> List[int]:
+    """The rank that owns each tensor under ZeRO-1: whole tensors, largest
+    first to the least loaded rank (the lowest on a tie); the same on every
+    rank."""
+    load, owner = [0] * world.size, [0] * len(sizes)
+    for i in sorted(range(len(sizes)), key=lambda i: (-sizes[i], i)):
+        r = min(range(world.size), key=lambda r: (load[r], r))
+        owner[i] = r
+        load[r] += sizes[i]
+    return owner
+
+
+@torch.no_grad()
+def broadcast_from_owners_(tensors: List[torch.Tensor], owner: Sequence[int], world: World,
+                           device: torch.device,
+                           received: Optional[Callable] = None) -> int:
+    """Each tensor from its owner to every rank, in buckets staged on the
+    collectives' device (`tensors` may live in host memory); `received(i,
+    staged)` sees each tensor a rank did not own as staged on `device`.
+    Returns the bytes this rank staged from or to host memory."""
+    if not world.collective:
+        return 0
+    dev = comm_device(device)
+    moved = 0
+    for src in range(world.size):
+        mine = [i for i in range(len(tensors)) if owner[i] == src]
+        for run in _buckets(mine, tensors):
+            if world.rank == src:
+                flat = torch.cat([tensors[i].reshape(-1).to(dev, non_blocking=True)
+                                  for i in run])
+            else:
+                flat = torch.empty(sum(tensors[i].numel() for i in run),
+                                   dtype=tensors[run[0]].dtype, device=dev)
+            dist.broadcast(flat, src=src)
+            offset = 0
+            for i in run:
+                t = tensors[i]
+                part = flat[offset:offset + t.numel()].view_as(t)
+                offset += t.numel()
+                if t.device != dev:
+                    moved += part.numel() * part.element_size()
+                if world.rank != src:
+                    t.copy_(part)
+                    if received is not None:
+                        received(i, part.to(device))
+    return moved
+
+
+def gather_to_main(obj, world: World):
+    """Every rank's `obj` (CPU tensors) as a list on rank 0, None elsewhere;
+    [obj] without a process group."""
+    if not world.collective:
+        return [obj]
+    out = [None] * world.size if world.main else None
+    dist.gather_object(obj, out, dst=0)
+    return out
+
+
+def merge_indexed(parts: Sequence[Dict[int, object]], n: int) -> List[object]:
+    """The per-tensor entries of every rank's {index: entry} as one list of
+    n (the owner's entry at each index)."""
+    merged: List[object] = [None] * n
+    for part in parts:
+        for i, v in part.items():
+            merged[i] = v
+    return merged
+
+
+def generate_rows(models, images: torch.Tensor, config, world: World, *,
+                  generator: Optional[torch.Generator] = None,
+                  image_noise: Optional[torch.Tensor] = None,
+                  latent_noise: Optional[torch.Tensor] = None, **kw) -> torch.Tensor:
+    """``generate`` over the ranks: `images` (B, H, W, 3) is the global
+    batch, each rank draws the global noise (from `generator`, or takes it
+    as given) and generates its B / size rows; returns this rank's rows of
+    the video (B / size, F, H, W, 3). With one rank, ``generate``."""
+    from ..diffusion.pipeline import generate
+
+    b = images.shape[0]
+    if b % world.size:
+        raise ValueError(f"a batch of {b} over {world.size} ranks")
+    if world.size == 1:
+        return generate(models, images, config, generator=generator, image_noise=image_noise,
+                        latent_noise=latent_noise, **kw)
+    ds = models.vae.config.downsample_factor
+    lat = (b, config.num_frames, config.height // ds, config.width // ds,
+           models.vae.config.latent_channels)
+    if image_noise is None:
+        image_noise = torch.randn(images.shape, generator=generator, device=images.device)
+    if latent_noise is None:
+        latent_noise = torch.randn(lat, generator=generator, device=images.device)
+    mine = rows(b // world.size, world)
+    boxes = {k: v[mine] for k, v in kw.items() if k in ("boxes", "box_mask") and v is not None}
+    return generate(models, images[mine], config, image_noise=image_noise[mine],
+                    latent_noise=latent_noise[mine], **{**kw, **boxes})

@@ -16,6 +16,12 @@ step (TRESNET_SITES, GN_SITES), derived from the configs; and the flash
 kernels' calls by (tokens S_q, keys S_kv): per UNet pass at any size, with
 or without the Tracklet2Video gated attentions (``flash_calls_per_pass``),
 and per train step by scope (FLASH_BWD_SITES).
+
+The int8 modes (``ops/quant.py``): INT8_CONV_SITES and INT8_VAE_CONV_SITES,
+the Conv3x3 calls of a UNet pass and of a decode chunk (the conv3x3 tables
+above plus the edge convs the bf16 kernel declines), and INT8_DENSE_SITES,
+the QLinear calls of a CFG UNet pass by (rows, K, N), derived from the
+configs.
 """
 
 from ..core.config import PipelineConfig, TrainConfig, UNetConfig, VAEConfig
@@ -293,3 +299,46 @@ def _flash_bwd_sites():
 # flash_attention_bwd calls per train step by (S_q, S_kv) at the defaults, per
 # scope ('lora', 'temporal', 'tracklet')
 FLASH_BWD_SITES = _flash_bwd_sites()
+
+
+# the int8 GEMM's conv sites (every Conv3x3 is an int8 site in int8 mode):
+# the UNet pass's 45 above and its conv_out (Co 4), 46; a decode chunk's 28
+# and the decoder's conv_in (Ci 4) and conv_out (Co 3), 30. (H, W, Ci, Co,
+# epilogue, launches per pass / chunk)
+INT8_CONV_SITES = UNET_CONV_SITES + [(40, 64, 320, 4, "none", 1)]
+INT8_VAE_CONV_SITES = VAE_DECODE_SITES + [(40, 64, 4, 512, "none", 1),
+                                          (320, 512, 128, 3, "none", 1)]
+
+
+def int8_dense_sites(unet: UNetConfig = None, height: int = None, width: int = None,
+                     frames: int = None, batch: int = 2, downsample: int = None):
+    """(rows, K, N, launches per pass) of the QLinear calls of one UNet pass
+    over `batch` samples of `frames` frames at height x width (the default
+    512x320, 14 frames; batch 2: the CFG pair, 1: a cond-only pass). Per
+    transformer model at a level of C channels and S tokens a frame (rows R
+    = batch·frames·S): proj_in, proj_out and the spatial and frame
+    self-attentions' q, k, v, out (R, C, C) x 10; the three feed-forwards'
+    net.0.proj (R, C, 8C) and net.2 (R, 4C, C); the spatial cross-attention's
+    to_v on the one CLIP token a frame (batch·frames, D, C) and its to_out
+    (batch·frames, C, C); the frame cross-attention's on one token a sample
+    (batch, D, C), (batch, C, C)."""
+    unet, pipe = unet or UNetConfig(), PipelineConfig()
+    ds = downsample or VAEConfig().downsample_factor
+    h, w = (height or pipe.height) // ds, (width or pipe.width) // ds
+    bf = batch * (frames or pipe.num_frames)
+    d, n = unet.cross_attention_dim, len(unet.block_out_channels)
+    ups = list(reversed(unet.up_block_types))
+    sites = {}
+    for i, c in enumerate(unet.block_out_channels):
+        t = unet.transformer_layers_per_block[i]
+        models = t * (unet.layers_per_block * ("CrossAttn" in unet.down_block_types[i])
+                      + (unet.layers_per_block + 1) * ("CrossAttn" in ups[i]) + (i == n - 1))
+        r = bf * (h >> i) * (w >> i)
+        for key, k in (((r, c, c), 10), ((r, c, 8 * c), 3), ((r, 4 * c, c), 3),
+                       ((bf, d, c), 1), ((bf, c, c), 1), ((batch, d, c), 1), ((batch, c, c), 1)):
+            if models:
+                sites[key] = sites.get(key, 0) + k * models
+    return sorted((k + (m,) for k, m in sites.items()), reverse=True)
+
+
+INT8_DENSE_SITES = int8_dense_sites()

@@ -40,6 +40,7 @@ import time
 from typing import Mapping, Optional, Tuple, Union
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..core.config import TrainConfig
@@ -90,10 +91,13 @@ class CheckpointManager:
     (``write_seconds``), the snapshot's bytes in host memory and the state
     file's bytes."""
 
-    def __init__(self, output_dir: str, total_limit: int = 2):
+    def __init__(self, output_dir: str, total_limit: int = 2, world=None):
         self.output_dir = os.path.abspath(output_dir)
         self.total_limit = max(1, total_limit)
-        os.makedirs(self.output_dir, exist_ok=True)
+        self.world = world        # data-parallel ranks that save together: rank 0 writes
+        self.write = world is None or world.main
+        if self.write:
+            os.makedirs(self.output_dir, exist_ok=True)
         self.saves = []
         self._writer: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
@@ -106,11 +110,19 @@ class CheckpointManager:
         write checkpoint-{step} on the writer thread (waiting for it with
         `blocking`). A step whose state is already complete is skipped (a
         preemption right after a periodic save, or on the step just resumed:
-        the state at a step boundary is the same)."""
+        the state at a step boundary is the same). A manager that does not
+        write (a data-parallel rank other than 0) takes part in gathering a
+        partitioned state and writes nothing."""
         t0 = time.perf_counter()
         self._fence()
         path = os.path.join(self.output_dir, f"{CKPT_PREFIX}{step}")
-        if os.path.isdir(os.path.join(path, "state")):
+        done = [os.path.isdir(os.path.join(path, "state"))]
+        if self.world is not None and self.world.size > 1:
+            dist.broadcast_object_list(done, src=0)       # the writer's view
+        if done[0]:
+            return path
+        if not self.write:
+            state.state_dict(copy=lambda t: t)
             return path
         t1 = time.perf_counter()
         sd, events = self._snapshot(state)
@@ -201,6 +213,8 @@ class CheckpointManager:
             self._error = e
 
     def _rotate(self):
+        if not self.write:
+            return
         # among COMPLETE checkpoints only: one cut short counts for nothing
         steps = _ckpt_steps(self.output_dir, complete_only=True)
         for s in steps[: max(0, len(steps) - self.total_limit)]:

@@ -12,10 +12,22 @@ Usage:
   python -m svd_xtend_tpu_torch.train.cli --base_folder ./frames --train_mode lora --rank 4
   python -m svd_xtend_tpu_torch.train.cli --base_folder ./frames --device cpu --tiny_model
 
-One card (``--device``, ``cuda`` by default; ``cpu`` runs the kernels'
-plain versions): the mesh flags take one card only, ``--attn_impl`` only
-``auto``, and what ``TrainConfig.check_ported`` refuses (ZeRO-1, host
-offload) stays refused. ``--train_mode tracklet`` (or ``full`` with
+One card per process (``--device``, ``cuda`` by default; ``cpu`` runs the
+kernels' plain versions), and data parallelism over the processes
+``torchrun`` starts (``parallel/``):
+
+  torchrun --nproc_per_node 4 -m svd_xtend_tpu_torch.train.cli --base_folder ./frames
+
+``--mesh_data`` is the number of ranks (-1: all of torchrun's), each taking
+its rows of the global batch of per_device_batch_size x ranks;
+``--mesh_model`` stays 1 (the tensor-parallel rules are not ported), and
+``--attn_impl`` takes only ``auto``. ``--zero1`` partitions the optimizer
+moments and the EMA over the ranks, ``--host_offload masters`` keeps the f32
+masters in host memory and ``masters+moments`` the moments too (in the
+'lora' scope the adapter's masters, its f32 compute copy staying on the
+card). Rank 0 alone logs, validates and writes; a checkpoint holds
+the same files at any world size (the partitioned state gathered to rank 0),
+so a run resumes at another. ``--train_mode tracklet`` (or ``full`` with
 ``--tracklet_dim_full``) builds the UNet with the Tracklet2Video branch,
 reads ``<video>/boxes.npz`` with ``--max_boxes`` slots, and writes the
 branch as ``tracklet_weights.safetensors`` beside the UNet export.
@@ -35,6 +47,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.config import (TINY_CLIP, TINY_UNET, TINY_VAE, CLIPVisionConfig, MeshConfig,
                            PipelineConfig, TrainConfig, UNetConfig, VAEConfig)
@@ -42,6 +55,7 @@ from ..data.dataset import FrameFolderDataset, ShardedLoader
 from ..diffusion.pipeline import SVDModels, generate, init_random_
 from ..io.media import export_to_gif
 from ..models import lora as lora_lib
+from ..parallel import close_world, comm_device, env_world, init_world
 from ..train import checkpoint as ckpt_lib
 from ..train.optim import training_schedule
 from ..train.state import (TrainState, cast_frozen_to_compute, create_train_state,
@@ -96,9 +110,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--host_offload",
                    choices=["none", "masters", "masters+moments"],
                    default="none",
-                   help="optimizer state in host memory (not ported: ROADMAP A13)")
+                   help="the f32 masters (and the moments) in host memory, streamed "
+                        "through the card for the update")
     p.add_argument("--zero1", action="store_true",
-                   help="ZeRO-1 optimizer-state sharding (not ported: ROADMAP A13)")
+                   help="ZeRO-1: the optimizer moments and the EMA partitioned over the "
+                        "data-parallel ranks")
     p.add_argument("--conditioning_dropout_prob", type=float, default=0.1)
     p.add_argument("--p_mean", type=float, default=0.7,
                    help="EDM sigma-sampling log-mean (train_svd.py:1014)")
@@ -136,7 +152,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="debug: use the tiny test configs")
     p.add_argument("--attn_impl", choices=["auto", "flash", "xla"], default="auto",
                    help="only 'auto' is ported (the flash kernels on the card)")
-    # mesh: one card
+    # mesh: the data-parallel ranks (-1: all of torchrun's); no model axis
     p.add_argument("--mesh_data", type=int, default=-1)
     p.add_argument("--mesh_model", type=int, default=1)
     p.add_argument("--remat", choices=["none", "block", "outer"],
@@ -191,11 +207,16 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(derived_seed(seed, step))
 
 
-def check_one_card(args) -> None:
-    if args.mesh_data not in (-1, 1) or args.mesh_model != 1:
-        raise ValueError(f"not ported yet: a mesh over more than one card (--mesh_data "
-                         f"{args.mesh_data} --mesh_model {args.mesh_model}; ROADMAP A13); "
-                         "the port trains on one card: --mesh_data -1 or 1, --mesh_model 1")
+def check_mesh(args) -> None:
+    """Refuse a mesh the port does not run, before any work: a 'model' axis,
+    or a 'data' axis other than the world torchrun started."""
+    if args.mesh_model != 1:
+        raise ValueError(f"not ported yet: --mesh_model {args.mesh_model} (the tensor-parallel "
+                         "rules are a TPU layout; the port parallelises the batch alone)")
+    size = env_world().size
+    if args.mesh_data not in (-1, size):
+        raise ValueError(f"--mesh_data {args.mesh_data}: the world has {size} rank(s) "
+                         "(torchrun --nproc_per_node sets it; -1 takes them all)")
     if args.attn_impl != "auto":
         raise ValueError(f"--attn_impl {args.attn_impl} is not ported: the port's attention is "
                          "'auto' (the hand-written flash kernels on the card, their plain "
@@ -235,15 +256,17 @@ def _synthetic_validation_image(height: int, width: int) -> torch.Tensor:
 
 
 @contextlib.contextmanager
-def trained_weights(models: SVDModels, state: TrainState, cfg: TrainConfig):
+def trained_weights(models: SVDModels, state: TrainState, cfg: TrainConfig, ema=None):
     """The UNet as the finetune leaves it, inside the block: the adapter
-    merged ('lora'), or the EMA copies in place of the masters' (full scope
-    with use_ema); the masters are written back after."""
+    merged ('lora'), or the EMA copies (`ema`, else the state's) in place of
+    the masters' (full scope with use_ema); the masters are written back
+    after."""
+    ema = state.ema_params if ema is None else ema
     if state.lora is not None:
         with lora_lib.merged(models.unet, state.lora, cfg.lora_alpha):
             yield
-    elif state.ema_params is not None:
-        write_back(models, cfg, state, state.ema_params)
+    elif ema is not None:
+        write_back(models, cfg, state, ema)
         try:
             yield
         finally:
@@ -253,7 +276,7 @@ def trained_weights(models: SVDModels, state: TrainState, cfg: TrainConfig):
 
 
 def run_validation(models: SVDModels, state: TrainState, args, cfg: TrainConfig,
-                   step: int, logger, writer=None) -> None:
+                   step: int, logger, writer=None, ema=None) -> None:
     """Generate videos from the validation image and save GIFs (reference
     train_svd.py:1092-1157), plus the quantitative metrics of utils/eval.py
     (CLIP frame score, temporal consistency, pixel dynamics) of the first
@@ -280,7 +303,7 @@ def run_validation(models: SVDModels, state: TrainState, args, cfg: TrainConfig,
                               fps_offset=0)   # training convention: raw fps
     out_dir = os.path.join(cfg.output_dir, "validation_images")
     os.makedirs(out_dir, exist_ok=True)
-    with trained_weights(models, state, cfg):
+    with trained_weights(models, state, cfg, ema):
         for i in range(max(1, args.num_validation_images)):
             gen = torch.Generator(device=device).manual_seed(step * 1000 + i)
             video = generate(models, image, pipe_cfg, generator=gen)
@@ -294,17 +317,20 @@ def run_validation(models: SVDModels, state: TrainState, args, cfg: TrainConfig,
     logger.info("validation GIF(s) saved at step %d", step)
 
 
-def final_unet_state(models: SVDModels, state: TrainState, cfg: TrainConfig) -> dict:
+def final_unet_state(models: SVDModels, state: TrainState, cfg: TrainConfig,
+                     ema=None) -> dict:
     """The UNet the finetune leaves, uniformly f32 (the frozen tensors are
-    stored in the compute dtype; upcasting is exact): the EMA or the masters
-    where the scope trains, the merged weights in the 'lora' scope."""
+    stored in the compute dtype; upcasting is exact): the EMA (`ema`, the
+    whole EMA under ZeRO-1, else the state's) or the masters where the scope
+    trains, the merged weights in the 'lora' scope."""
     sd = {k: v.detach().float() for k, v in models.unet.state_dict().items()}
     if state.lora is not None:
         with torch.no_grad():
             for name, w in lora_lib.merge(models.unet, state.lora, cfg.lora_alpha).items():
                 sd[f"{name}.weight"] = w.float()
     else:
-        src = state.ema_params if state.ema_params is not None else state.params
+        ema = state.ema_params if ema is None else ema
+        src = ema if ema is not None else state.params
         sd.update({n: t.detach().float() for n, t in zip(state.names, src)})
     return sd
 
@@ -330,7 +356,7 @@ def main(argv=None) -> dict:
     the time each next() blocked)."""
     args = parse_args(argv)
     cfg = build_train_config(args)
-    check_one_card(args)
+    check_mesh(args)
     cfg.check_ported()
     logger = get_logger()
 
@@ -338,16 +364,43 @@ def main(argv=None) -> dict:
     # the next step boundary; registered first, restored on the way out
     preempted = {"flag": False}
     previous = signal.signal(signal.SIGTERM, lambda *_: preempted.__setitem__("flag", True))
+    started = not (dist.is_available() and dist.is_initialized())
+    world = init_world(torch.device(args.device).type)
     try:
-        return _train(args, cfg, logger, preempted)
+        return _train(args, cfg, logger, preempted, world)
     finally:
         signal.signal(signal.SIGTERM, previous)
+        if started:
+            close_world(world)
 
 
-def _train(args, cfg: TrainConfig, logger, preempted) -> dict:
+def _agreed(flag: bool, world, device: torch.device) -> bool:
+    """Whether any rank raised `flag` (every rank stops at the same step)."""
+    if world.size == 1:
+        return flag
+    t = torch.tensor([float(flag)], device=comm_device(device))
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return bool(t.item())
+
+
+def full_ema(state: TrainState):
+    """Every trainable tensor's EMA copy on the EMA's device, for rank 0's
+    validation and export (``TrainState.whole_ema``: every rank must call
+    it; None on the other ranks under ZeRO-1)."""
+    ema = state.whole_ema()
+    if ema is None or ema is state.ema_params:
+        return ema
+    return [t.to(state.optimizer.device) for t in ema]
+
+
+def _train(args, cfg: TrainConfig, logger, preempted, world) -> dict:
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda and no CUDA card; --device cpu trains on the CPU")
+    if device.type == "cuda" and world.collective:
+        device = torch.device("cuda", world.local_rank)
+    if not world.main:
+        logger.setLevel("WARNING")
     unet_cfg, vae_cfg, clip_cfg = ((TINY_UNET, TINY_VAE, TINY_CLIP) if args.tiny_model
                                    else (UNetConfig(), VAEConfig(), CLIPVisionConfig()))
     if cfg.tracklet_dim > 0:
@@ -357,12 +410,12 @@ def _train(args, cfg: TrainConfig, logger, preempted) -> dict:
     models = load_or_init_params(SVDModels.create(unet_cfg, vae_cfg, clip_cfg, device=device),
                                  args)
     lora_gen = torch.Generator(device=device).manual_seed(derived_seed(cfg.seed, spawn_key=(1,)))
-    state = create_train_state(cfg, models, generator=lora_gen)
+    state = create_train_state(cfg, models, generator=lora_gen, world=world)
     logger.info("%s scope on %s: %d trainable tensors, %d values", cfg.train_mode, device,
                 len(state.names), sum(p.numel() for p in state.params))
 
     # param audit (reference params_freeze.txt / params_train.txt)
-    if cfg.train_mode in ("full", "temporal", "tracklet"):
+    if world.main and cfg.train_mode in ("full", "temporal", "tracklet"):
         frozen_names, train_names = param_audit(trainable_mask(models.unet, cfg.train_mode))
         os.makedirs(cfg.output_dir, exist_ok=True)
         with open(os.path.join(cfg.output_dir, "params_freeze.txt"), "w") as f:
@@ -376,8 +429,10 @@ def _train(args, cfg: TrainConfig, logger, preempted) -> dict:
         cast_frozen_to_compute(models, torch.bfloat16)
 
     stats = {"step_seconds": [], "checkpoints": [], "restore_seconds": None,
-             "validation_seconds": [], "export_seconds": None}
-    manager = ckpt_lib.CheckpointManager(cfg.output_dir, cfg.checkpoints_total_limit)
+             "validation_seconds": [], "export_seconds": None, "world_size": world.size,
+             "streamed_bytes": []}
+    manager = ckpt_lib.CheckpointManager(cfg.output_dir, cfg.checkpoints_total_limit,
+                                         world=world)
     data_step = 0
     if cfg.resume_from_checkpoint:
         t0 = time.perf_counter()
@@ -387,7 +442,7 @@ def _train(args, cfg: TrainConfig, logger, preempted) -> dict:
         data_step = int(data_state.get("step", state.step))
         logger.info("resumed at step %d (data step %d)", state.step, data_step)
 
-    step_fn = make_train_step(models, cfg)
+    step_fn = make_train_step(models, cfg, world)
     schedule = training_schedule(cfg)
     dataset = FrameFolderDataset(cfg.base_folder, cfg.width, cfg.height, cfg.num_frames,
                                  max_boxes=cfg.max_boxes if cfg.tracklet_dim > 0 else 0)
@@ -395,14 +450,16 @@ def _train(args, cfg: TrainConfig, logger, preempted) -> dict:
     accum = cfg.gradient_accumulation_steps
     local_bs = cfg.per_device_batch_size * accum
     loader = ShardedLoader(dataset, local_bs, seed=cfg.seed, start_step=data_step,
-                           num_workers=cfg.num_workers)
-    writer = MetricWriter(os.path.join(cfg.output_dir, "logs"), report_to=cfg.report_to)
+                           num_workers=cfg.num_workers, process_index=world.rank,
+                           process_count=world.size)
+    writer = (MetricWriter(os.path.join(cfg.output_dir, "logs"), report_to=cfg.report_to)
+              if world.main else None)
     try:
         start = state.step
         t_last = time.perf_counter()
         last_logged = start
         for step in range(start, cfg.max_train_steps):
-            if preempted["flag"]:
+            if _agreed(preempted["flag"], world, device):
                 manager.save(step, state, cfg, loader.state(), blocking=True)
                 logger.warning("preemption signal: checkpoint saved at step %d", step)
                 break
@@ -411,8 +468,9 @@ def _train(args, cfg: TrainConfig, logger, preempted) -> dict:
             state, metrics = step_fn(state, batch,
                                      generator=step_generator(cfg.seed, step, device))
             stats["step_seconds"].append(time.perf_counter() - t0)
+            stats["streamed_bytes"].append(state.optimizer.streamed_bytes)
 
-            if (step + 1) % 10 == 0 or step == start:
+            if world.main and ((step + 1) % 10 == 0 or step == start):
                 now = time.perf_counter()
                 # steps since the last log (the first window after a resume
                 # can be shorter than 10)
@@ -431,20 +489,27 @@ def _train(args, cfg: TrainConfig, logger, preempted) -> dict:
                 logger.info("checkpoint saved at step %d", step + 1)
 
             if (step + 1) % cfg.validation_steps == 0 or step == start:
-                t0 = time.perf_counter()
-                run_validation(models, state, args, cfg, step + 1, logger, writer=writer)
-                stats["validation_seconds"].append(time.perf_counter() - t0)
+                ema = full_ema(state)
+                if world.main:
+                    t0 = time.perf_counter()
+                    run_validation(models, state, args, cfg, step + 1, logger, writer=writer,
+                                   ema=ema)
+                    stats["validation_seconds"].append(time.perf_counter() - t0)
     finally:
         loader.close()
-        writer.close()
+        if writer is not None:
+            writer.close()
         stats["loader_batch_seconds"] = list(loader.batch_seconds)
         stats["loader_wait_seconds"] = list(loader.wait_seconds)
     manager.wait()
     stats["checkpoints"] = [dict(c) for c in manager.saves]
+    ema = full_ema(state)
+    if not world.main:
+        return stats
 
     # final export (reference train_svd.py:1166-1189)
     t0 = time.perf_counter()
-    ckpt_lib.export_unet_diffusers(final_unet_state(models, state, cfg),
+    ckpt_lib.export_unet_diffusers(final_unet_state(models, state, cfg, ema),
                                    os.path.join(cfg.output_dir, "unet"),
                                    config_json=models.unet.config.to_json())
     if state.lora is not None:
@@ -452,7 +517,7 @@ def _train(args, cfg: TrainConfig, logger, preempted) -> dict:
     if cfg.tracklet_dim > 0:
         # the branch alone (the diffusers export above leaves it out), for
         # any scope that carries it
-        ckpt_lib.export_tracklet(final_unet_state(models, state, cfg), cfg.output_dir)
+        ckpt_lib.export_tracklet(final_unet_state(models, state, cfg, ema), cfg.output_dir)
     stats["export_seconds"] = time.perf_counter() - t0
     logger.info("final model exported to %s", cfg.output_dir)
     if args.push_to_hub:

@@ -13,17 +13,21 @@ then ``torch.optim.AdamW`` (decoupled decay, eps outside the square root:
 applied at an update is the one at the count of updates before it, as in
 optax. Gradients may be bf16 (``grad_dtype="bf16"``): the clip scales them
 in f32 and rounds back, and AdamW reads them as f32 against the f32
-masters.
+masters. ZeRO-1 and host offload are ``ClippedAdamW``'s (with
+``parallel/``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Callable, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from ..core.config import TrainConfig
+from ..parallel import (SINGLE, World, broadcast_from_owners_, gather_to_main, merge_indexed,
+                        owners)
 from .quant import AdamW8bit
 
 Schedule = Callable[[int], float]
@@ -93,76 +97,305 @@ class ClippedAdamW:
     """The optimizer chain of ``make_optimizer``: the f32 global-norm clip
     (when max_grad_norm > 0), then AdamW at the schedule's learning rate
     (``torch.optim.AdamW``, or ``AdamW8bit`` with ``use_8bit_adam``).
-    Steps f32 `params` (the masters) with gradients given per step."""
+    Steps f32 `params` (the masters) with gradients given per step.
+
+    Over several data-parallel ranks (``parallel.World``) the gradients
+    come in already averaged, and every rank clips the same ones. With
+    ``zero1`` each rank holds the moments of its own tensors only
+    (``parallel.owners``: whole tensors) and updates those; the owners then
+    broadcast the updated masters. With ``host_offload`` the masters (and
+    with "masters+moments" the moments) live in host memory, pinned where
+    there is a card, and the update streams them through `device` in chunks
+    of at most OFFLOAD_CHUNK_VALUES values: each chunk's copies in on a side
+    stream while the previous chunk updates, the update on the card (the
+    same arithmetic as without offload: bit for bit the same masters), the
+    copies back on the side stream. ``streamed_bytes`` counts the bytes the
+    last step moved between host and card."""
 
     CHUNK = 32      # parameters whose bf16 gradients are copied to f32 at once
+    OFFLOAD_CHUNK_VALUES = 1 << 26
+    MOMENTS = ("exp_avg", "exp_avg_sq")
 
-    def __init__(self, params: List[torch.Tensor], schedule: Schedule, cfg: TrainConfig):
+    def __init__(self, params: List[torch.Tensor], schedule: Schedule, cfg: TrainConfig,
+                 world: World = SINGLE, device: Optional[torch.device] = None):
         self.params, self.schedule = params, schedule
         self.max_grad_norm = cfg.max_grad_norm
         self.count = 0
+        self.world = world
+        self.offload = cfg.host_offload
+        self.device = torch.device(device) if device is not None else (
+            params[0].device if params else torch.device("cpu"))
+        self.zero1 = cfg.zero1
+        n = len(params)
+        self.owner = (owners([p.numel() for p in params], world) if self.zero1
+                      else [world.rank] * n)
+        self.local = [i for i in range(n) if self.owner[i] == world.rank]
+        self.pos = {i: k for k, i in enumerate(self.local)}
+        mine = [params[i] for i in self.local]
+        if n and not mine:
+            raise ValueError(f"ZeRO-1 over {world.size} ranks and {n} trainable tensors leaves "
+                             f"rank {world.rank} none")
+        self.streamed_bytes = 0
+        self._host_moments: Dict = {}
         self.adamw = self.adamw8 = None
         if cfg.use_8bit_adam:
-            self.adamw8 = AdamW8bit(params, cfg.adam_beta1, cfg.adam_beta2, cfg.adam_epsilon,
+            self.adamw8 = AdamW8bit(mine, cfg.adam_beta1, cfg.adam_beta2, cfg.adam_epsilon,
                                     cfg.adam_weight_decay)
         else:
             self.adamw = torch.optim.AdamW(
-                params, lr=schedule(0), betas=(cfg.adam_beta1, cfg.adam_beta2),
+                mine, lr=schedule(0), betas=(cfg.adam_beta1, cfg.adam_beta2),
                 eps=cfg.adam_epsilon, weight_decay=cfg.adam_weight_decay)
+        self._place_moments()
 
-    def step(self, grads: List[torch.Tensor]) -> Tuple[float, torch.Tensor]:
+    # -- the update --
+
+    def step(self, grads: List[torch.Tensor], on_update: Optional[Callable] = None,
+             on_receive: Optional[Callable] = None) -> Tuple[float, torch.Tensor]:
         """One update with `grads` (f32 or bf16, aligned with params;
-        clipped in place). Returns the learning rate it applied and the f32
-        global norm of the gradients before clipping."""
+        clipped in place). `on_update(indices, tensors)` sees the masters this
+        rank updated right after their update (on the card, also when they
+        are offloaded), `on_receive(i, tensor)` each master a ZeRO-1 owner
+        sent it. Returns the learning rate it applied and the f32 global norm
+        of the gradients before clipping."""
         if self.max_grad_norm and self.max_grad_norm > 0:
             norm = clip_by_global_norm_f32_(grads, self.max_grad_norm)
         else:
             norm = global_norm_f32(grads)
         lr = float(self.schedule(self.count))
-        if self.adamw8 is not None:
-            self.adamw8.step(grads, lr)
-        else:
+        corrections = self.adamw8.begin_step() if self.adamw8 is not None else None
+        if self.adamw is not None:
             for group in self.adamw.param_groups:
                 group["lr"] = lr
-            # AdamW reads gradients of the masters' dtype: bf16 ones are
-            # copied to f32 CHUNK tensors at a time (AdamW skips a parameter
-            # without a gradient), so the f32 copies never all exist at once
-            n = len(self.params)
-            same = all(g.dtype == p.dtype for p, g in zip(self.params, grads))
-            for i in range(0, n, n if same else self.CHUNK):
-                part = self.params[i:i + (n if same else self.CHUNK)]
-                for p, g in zip(part, grads[i:i + len(part)]):
-                    p.grad = g.to(p.dtype)
-                self.adamw.step()
-                for p in part:
-                    p.grad = None
+        self.streamed_bytes = 0
+        if self.offload == "none":
+            self._update(self.local, grads, lr, corrections)
+            if on_update is not None:
+                on_update(self.local, [self.params[i] for i in self.local])
+        else:
+            self._streamed_update(grads, lr, corrections, on_update)
+        if self.zero1:
+            self.streamed_bytes += broadcast_from_owners_(self.params, self.owner, self.world,
+                                                          self.device, on_receive)
         self.count += 1
         return lr, norm
+
+    def _update(self, indices, grads, lr, corrections) -> None:
+        """AdamW on the masters at `indices` (where they are now)."""
+        if self.adamw8 is not None:
+            for i in indices:
+                self.adamw8.update(self.pos[i], grads[i], lr, corrections)
+            return
+        # AdamW reads gradients of the masters' dtype: bf16 ones are copied
+        # to f32 CHUNK tensors at a time (AdamW skips a parameter without a
+        # gradient), so the f32 copies never all exist at once
+        same = all(grads[i].dtype == self.params[i].dtype for i in indices)
+        step = max(1, len(indices)) if same else self.CHUNK
+        for k in range(0, len(indices), step):
+            part = indices[k:k + step]
+            for i in part:
+                self.params[i].grad = grads[i].to(self.params[i].dtype)
+            self.adamw.step()
+            for i in part:
+                self.params[i].grad = None
+
+    def _moments(self, i: int) -> List[torch.Tensor]:
+        """Tensor `i`'s moment tensors (the 8-bit ones' codes and scales;
+        none before AdamW's first step made them)."""
+        if self.adamw8 is not None:
+            k = self.pos[i]
+            return [t for m in (self.adamw8.mu[k], self.adamw8.nu[k])
+                    for t in (m if isinstance(m, tuple) else (m,))]
+        st = self.adamw.state.get(self.params[i], {})
+        return [st[key] for key in self.MOMENTS if key in st]
+
+    def _set_moments(self, i: int, tensors: List[torch.Tensor]) -> None:
+        """Put `tensors` (as ``_moments`` lists them) in place of tensor `i`'s."""
+        if self.adamw8 is not None:
+            k, it = self.pos[i], iter(tensors)
+            for lst in (self.adamw8.mu, self.adamw8.nu):
+                m = lst[k]
+                lst[k] = type(m)(*(next(it) for _ in m)) if isinstance(m, tuple) else next(it)
+            return
+        st = self.adamw.state[self.params[i]]
+        for key, t in zip([key for key in self.MOMENTS if key in st], tensors):
+            st[key] = t
+
+    def _to_host(self, key, t: torch.Tensor) -> torch.Tensor:
+        """A host copy of t in a buffer kept per `key` (pinned with a card)."""
+        buf = self._host_moments.get(key)
+        if buf is None or buf.shape != t.shape or buf.dtype != t.dtype:
+            buf = torch.empty(t.shape, dtype=t.dtype, device="cpu",
+                              pin_memory=torch.cuda.is_available())
+            self._host_moments[key] = buf
+        buf.copy_(t, non_blocking=t.is_cuda)
+        return buf
+
+    def _place_moments(self) -> None:
+        """The moments where the offload mode keeps them: on `device`, or in
+        host memory with "masters+moments"."""
+        host = self.offload == "masters+moments"
+        for i in self.local:
+            moments = self._moments(i)
+            if host:
+                self._set_moments(i, [self._to_host((i, n), t) for n, t in enumerate(moments)])
+            elif any(t.device != self.device for t in moments):
+                self._set_moments(i, [t.to(self.device) for t in moments])
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+
+    def _chunks(self):
+        run, count = [], 0
+        for i in self.local:
+            if run and count + self.params[i].numel() > self.OFFLOAD_CHUNK_VALUES:
+                yield run
+                run, count = [], 0
+            run.append(i)
+            count += self.params[i].numel()
+        if run:
+            yield run
+
+    def _streamed_update(self, grads, lr, corrections, on_update) -> None:
+        """The update of the offloaded state, a chunk at a time through the
+        card: the copies in of the next chunk on a side stream while this
+        one updates, the copies back on the side stream after it."""
+        dev = self.device
+        cuda = dev.type == "cuda"
+        side = torch.cuda.Stream(dev) if cuda else None
+        moments = self.offload == "masters+moments"
+        main = torch.cuda.current_stream(dev) if cuda else None
+
+        def fetch(chunk):
+            """{i: (device master, [device moments])} and the event they are in by."""
+            ctx = torch.cuda.stream(side) if cuda else contextlib.nullcontext()
+            with ctx:
+                out = {}
+                for i in chunk:
+                    ms = [t.to(dev, non_blocking=True, copy=True)
+                          for t in (self._moments(i) if moments else [])]
+                    out[i] = (self.params[i].data.to(dev, non_blocking=True, copy=True), ms)
+                    self.streamed_bytes += sum(t.numel() * t.element_size()
+                                               for t in (out[i][0], *ms))
+                ready = side.record_event() if cuda else None
+            return out, ready
+
+        chunks = list(self._chunks())
+        nxt = fetch(chunks[0]) if chunks else None
+        for c, chunk in enumerate(chunks):
+            staged, ready = nxt
+            if cuda:
+                main.wait_event(ready)
+                for master, ms in staged.values():
+                    for t in (master, *ms):
+                        t.record_stream(main)
+            nxt = fetch(chunks[c + 1]) if c + 1 < len(chunks) else None
+            hosts = {}
+            for i, (master, ms) in staged.items():
+                hosts[i] = self.params[i].data
+                self.params[i].data = master
+                if ms:
+                    self._set_moments(i, ms)
+            self._update(chunk, grads, lr, corrections)
+            if on_update is not None:
+                on_update(chunk, [self.params[i] for i in chunk])
+            done = main.record_event() if cuda else None
+            ctx = torch.cuda.stream(side) if cuda else contextlib.nullcontext()
+            with ctx:
+                if cuda:
+                    side.wait_event(done)
+                for i in chunk:
+                    master = self.params[i].data
+                    hosts[i].copy_(master, non_blocking=cuda)
+                    self.params[i].data = hosts[i]
+                    moved = [master]
+                    if moments:
+                        ms = self._moments(i)
+                        self._set_moments(i, [self._to_host((i, n), t)
+                                              for n, t in enumerate(ms)])
+                        moved += ms
+                    for t in moved:
+                        self.streamed_bytes += t.numel() * t.element_size()
+                        if cuda:
+                            t.record_stream(side)
+        if cuda:
+            main.wait_stream(side)
+
+    # -- the state --
+
+    @property
+    def gathers(self) -> bool:
+        """Whether the state is partitioned over several ranks, so that a
+        whole state (a checkpoint) must be gathered from them."""
+        return self.zero1 and self.world.collective and self.world.size > 1
+
+    def _local_entries(self) -> Dict[int, object]:
+        """{index in params: its moments} of this rank's tensors, on the CPU."""
+        cpu = lambda t: t.detach().to("cpu", copy=True)
+        if self.adamw8 is not None:
+            sd = self.adamw8.state_dict()
+            pack = lambda m: {k: cpu(v) for k, v in m.items()} if isinstance(m, dict) else cpu(m)
+            return {i: (pack(sd["mu"][k]), pack(sd["nu"][k])) for k, i in enumerate(self.local)}
+        sd = self.adamw.state_dict()
+        return {self.local[k]: {n: cpu(v) for n, v in st.items()}
+                for k, st in sd["state"].items()}
 
     def state_dict(self) -> dict:
         """The update count and the optimizer's state by position in
         `params`: AdamW's (its step and both moments per parameter) under
-        "adamw", or the 8-bit one's under "adamw8". The tensors are the
-        live ones."""
+        "adamw", or the 8-bit one's under "adamw8". Unpartitioned, the
+        tensors are the live ones; under ZeRO-1 over several ranks every
+        rank must call it: the owners' moments are gathered to rank 0, which
+        gets the whole state (the other ranks None)."""
+        if not self.gathers:
+            if self.adamw8 is not None:
+                return {"count": self.count, "adamw8": self.adamw8.state_dict()}
+            return {"count": self.count, "adamw": self.adamw.state_dict()}
+        parts = gather_to_main(self._local_entries(), self.world)
+        if parts is None:
+            return None
+        merged = merge_indexed(parts, len(self.params))
         if self.adamw8 is not None:
-            return {"count": self.count, "adamw8": self.adamw8.state_dict()}
-        return {"count": self.count, "adamw": self.adamw.state_dict()}
+            return {"count": self.count, "adamw8": {
+                "count": self.adamw8.count, "mu": [m for m, _ in merged],
+                "nu": [v for _, v in merged]}}
+        group = {k: v for k, v in self.adamw.state_dict()["param_groups"][0].items()}
+        group["params"] = list(range(len(self.params)))
+        return {"count": self.count, "adamw": {
+            "state": {i: st for i, st in enumerate(merged) if st is not None},
+            "param_groups": [group]}}
 
     def load_state_dict(self, sd: dict) -> None:
-        """Restore what state_dict gave onto the parameters' devices; raises
-        for the state of the other optimizer."""
+        """Restore what state_dict gave (the whole state, from any world
+        size) onto this rank's tensors where the offload mode keeps them;
+        raises for the state of the other optimizer."""
         key = "adamw8" if self.adamw8 is not None else "adamw"
         if key not in sd:
             raise ValueError(f"checkpoint holds {', '.join(k for k in sd if k != 'count')} "
                              f"optimizer state, this run's optimizer is {key}")
         self.count = int(sd["count"])
         if self.adamw8 is not None:
-            self.adamw8.load_state_dict(sd["adamw8"])
+            whole = sd["adamw8"]
+            if len(whole["mu"]) != len(self.params):
+                raise ValueError("8-bit Adam state for another number of tensors")
+            self.adamw8.load_state_dict({"count": whole["count"],
+                                         "mu": [whole["mu"][i] for i in self.local],
+                                         "nu": [whole["nu"][i] for i in self.local]})
         else:
-            self.adamw.load_state_dict(sd["adamw"])
+            whole = sd["adamw"]
+            group = dict(whole["param_groups"][0])
+            group["params"] = list(range(len(self.local)))
+            self.adamw.load_state_dict({
+                "state": {k: whole["state"][i] for k, i in enumerate(self.local)
+                          if i in whole["state"]},
+                "param_groups": [group]})
+        self._place_moments()
+
+    def moment_bytes(self) -> int:
+        """Bytes this rank's moments hold."""
+        size = lambda t: t.numel() * t.element_size()
+        return sum(size(t) for i in self.local for t in self._moments(i))
 
 
-def make_optimizer(cfg: TrainConfig, params: List[torch.Tensor],
-                   num_processes: int = 1) -> ClippedAdamW:
+def make_optimizer(cfg: TrainConfig, params: List[torch.Tensor], num_processes: int = 1,
+                   world: World = SINGLE, device=None) -> ClippedAdamW:
     cfg.check_ported()
-    return ClippedAdamW(params, training_schedule(cfg, num_processes), cfg)
+    return ClippedAdamW(params, training_schedule(cfg, num_processes), cfg, world, device)

@@ -97,22 +97,34 @@ class AdamW8bit:
 
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor], lr: float) -> None:
+        corrections = self.begin_step()
+        for i, g in enumerate(grads):
+            self.update(i, g, lr, corrections)
+
+    def begin_step(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Count one update; its bias corrections (c1, c2), for ``update``."""
         self.count += 1
         count = torch.tensor(float(self.count), dtype=torch.float32)
-        c1 = 1.0 - torch.tensor(self.b1, dtype=torch.float32) ** count
-        c2 = 1.0 - torch.tensor(self.b2, dtype=torch.float32) ** count
-        for i, (p, g) in enumerate(zip(self.params, grads)):
-            c1d, c2d = c1.to(p.device), c2.to(p.device)
-            g32 = g.float()
-            mq, nq = self.mu[i], self.nu[i]
-            m = dequantize_blockwise(mq, g.shape) if isinstance(mq, Quantized) else mq
-            v = dequantize_sqrt(nq, g.shape) if isinstance(nq, Quantized) else nq
-            m = self.b1 * m + (1.0 - self.b1) * g32
-            v = self.b2 * v + (1.0 - self.b2) * g32 * g32
-            u = ((m / c1d) / (_sqrt(v / c2d) + self.eps)).to(g.dtype)
-            self.mu[i] = quantize_blockwise(m, self.block_size) if isinstance(mq, Quantized) else m
-            self.nu[i] = quantize_sqrt(v, self.block_size) if isinstance(nq, Quantized) else v
-            p.add_((u + self.weight_decay * p) * -lr)
+        return (1.0 - torch.tensor(self.b1, dtype=torch.float32) ** count,
+                1.0 - torch.tensor(self.b2, dtype=torch.float32) ** count)
+
+    @torch.no_grad()
+    def update(self, i: int, g: torch.Tensor, lr: float, corrections) -> None:
+        """Update tensor `i` of `params` with its gradient `g` (the moments
+        and the parameter on g's device), within the step ``begin_step``
+        counted."""
+        p = self.params[i]
+        c1d, c2d = (c.to(p.device) for c in corrections)
+        g32 = g.float()
+        mq, nq = self.mu[i], self.nu[i]
+        m = dequantize_blockwise(mq, g.shape) if isinstance(mq, Quantized) else mq
+        v = dequantize_sqrt(nq, g.shape) if isinstance(nq, Quantized) else nq
+        m = self.b1 * m + (1.0 - self.b1) * g32
+        v = self.b2 * v + (1.0 - self.b2) * g32 * g32
+        u = ((m / c1d) / (_sqrt(v / c2d) + self.eps)).to(g.dtype)
+        self.mu[i] = quantize_blockwise(m, self.block_size) if isinstance(mq, Quantized) else m
+        self.nu[i] = quantize_sqrt(v, self.block_size) if isinstance(nq, Quantized) else v
+        p.add_((u + self.weight_decay * p) * -lr)
 
     def state_dict(self) -> dict:
         """The count and both moments by position in `params` (a quantized

@@ -15,7 +15,13 @@ Port of ``svd_xtend_tpu/train/state.py``:
     after each update (full scope, ``use_ema``);
   - gradient accumulation: the batch gets a leading (accum,) axis, the
     micro-batch gradients are summed in f32 (bf16 with ``grad_dtype="bf16"``)
-    and divided by accum.
+    and divided by accum;
+  - data parallelism, ZeRO-1 and host offload (``parallel/``): a rank's
+    batch is its rows of the global batch, its draws the same rows of the
+    global batch's draws, its gradients averaged over the ranks before the
+    clip; under ZeRO-1 the EMA, like the moments, is held by each tensor's
+    owner alone (None elsewhere); with host offload the masters live in
+    host memory and the EMA on the card.
 
 Mixed precision: the networks hold their weights in the compute dtype (bf16)
 and compute in it, without autocast; the state holds f32 master copies of
@@ -52,6 +58,8 @@ from ..diffusion.pipeline import SVDModels
 from ..diffusion.training import TrainDraws, sample_train_draws, training_loss
 from ..io.convert import is_branch_key, lora_state_dict
 from ..models import lora as lora_lib
+from ..parallel import (SINGLE, World, all_reduce_mean_, gather_to_main, local_draws,
+                        merge_indexed)
 from .optim import ClippedAdamW, make_optimizer
 
 TEMPORAL_SCOPE = "temporal_transformer_block"
@@ -106,11 +114,27 @@ class TrainState:
         optimizer's state (the 8-bit one's int8 codes and scales as they
         are). `copy` takes each tensor to its snapshot in place of the CPU
         copy (the checkpoint manager's asynchronous copies into pinned
-        buffers)."""
+        buffers). Under ZeRO-1 over several ranks every rank must call it:
+        the partitioned EMA and moments are gathered to rank 0, which gets
+        the whole state (the other ranks None)."""
+        optimizer = self.optimizer.state_dict()
+        ema = self.whole_ema()
+        if optimizer is None:
+            return None
         cpu = lambda ts: {n: _snapshot(t, copy) for n, t in zip(self.names, ts)}
         return {"step": self.step, "params": cpu(self.params),
-                "ema_params": None if self.ema_params is None else cpu(self.ema_params),
-                "optimizer": _snapshot(self.optimizer.state_dict(), copy)}
+                "ema_params": None if ema is None else cpu(ema),
+                "optimizer": _snapshot(optimizer, copy)}
+
+    def whole_ema(self) -> Optional[List[torch.Tensor]]:
+        """Every trainable tensor's EMA copy: the state's own, or under
+        ZeRO-1 over several ranks gathered from the owners to rank 0 (in
+        CPU tensors; None on the other ranks, and every rank must call it)."""
+        if self.ema_params is None or not self.optimizer.gathers:
+            return self.ema_params
+        parts = gather_to_main({i: e.detach().cpu() for i, e in enumerate(self.ema_params)
+                                if e is not None}, self.optimizer.world)
+        return None if parts is None else merge_indexed(parts, len(self.names))
 
     @torch.no_grad()
     def load_state_dict(self, sd: dict) -> None:
@@ -123,7 +147,8 @@ class TrainState:
             raise ValueError("checkpoint and state differ in holding an EMA")
         pairs = list(zip(self.params, sd["params"].values()))
         if self.ema_params is not None:
-            pairs += zip(self.ema_params, sd["ema_params"].values())
+            pairs += [(e, s) for e, s in zip(self.ema_params, sd["ema_params"].values())
+                      if e is not None]
         for dst, src in pairs:
             if dst.shape != src.shape:
                 raise ValueError(f"shape {tuple(src.shape)} in the checkpoint, "
@@ -147,13 +172,17 @@ def _snapshot(obj, copy: Optional[Callable] = None):
 
 
 def create_train_state(cfg: TrainConfig, models: SVDModels,
-                       generator: Optional[torch.Generator] = None) -> TrainState:
+                       generator: Optional[torch.Generator] = None,
+                       world: World = SINGLE) -> TrainState:
     """f32 masters of the scope's UNet parameters (from the networks' current
     weights), the optimizer over them, the EMA copies; the networks' own
     parameters require grad exactly where the scope trains. The 'lora'
     scope instead draws an adapter from `generator` (seed 0 by default, as
     the JAX package's key): `params` are its f32 A and B, `names` their peft
-    keys, and no network parameter requires grad."""
+    keys, and no network parameter requires grad. `world`: the optimizer's
+    data-parallel ranks (ZeRO-1 partitions over them); with host offload
+    the masters go to host memory (pinned where there is a card), the EMA
+    and the adapter's compute copy stay with the networks."""
     if cfg.train_mode == "lora":
         for net in (models.unet, models.vae, models.clip):
             net.requires_grad_(False)
@@ -162,7 +191,12 @@ def create_train_state(cfg: TrainConfig, models: SVDModels,
         adapter = lora_lib.init(models.unet, cfg.lora_rank, generator)
         sd = lora_state_dict(adapter)
         params = [p.requires_grad_(True) for p in sd.values()]
-        return TrainState(0, list(sd), params, make_optimizer(cfg, params), lora=adapter)
+        # the adapter is its own master, or with host offload the compute
+        # copy of masters in host memory
+        masters = _offloaded(cfg, [p.detach() for p in params]) or params
+        return TrainState(0, list(sd), masters,
+                          make_optimizer(cfg, masters, world=world, device=params[0].device),
+                          lora=adapter)
     if cfg.train_mode == "tracklet" and models.unet.tracklet_conditioner is None:
         raise ValueError("the 'tracklet' scope needs a UNet with the Tracklet2Video branch "
                          "(SVDModels.with_tracklet, UNetConfig.tracklet_dim > 0)")
@@ -174,23 +208,47 @@ def create_train_state(cfg: TrainConfig, models: SVDModels,
         p.requires_grad_(mask[n])
     models.vae.requires_grad_(False)
     models.clip.requires_grad_(False)
+    device = masters[0].device if masters else torch.device("cpu")
     ema = ([m.clone() for m in masters]
            if cfg.use_ema and cfg.train_mode == "full" else None)
-    state = TrainState(0, names, masters, make_optimizer(cfg, masters), ema)
+    masters = _offloaded(cfg, masters) or masters
+    optimizer = make_optimizer(cfg, masters, world=world, device=device)
+    if ema is not None and cfg.zero1:
+        ema = [e if owner == world.rank else None for e, owner in zip(ema, optimizer.owner)]
+    state = TrainState(0, names, masters, optimizer, ema)
     write_back(models, cfg, state)
     return state
 
 
+def _offloaded(cfg: TrainConfig, masters: List[torch.Tensor]) -> Optional[List[torch.Tensor]]:
+    """Host copies of `masters` (pinned where there is a card) under host
+    offload, else None."""
+    if cfg.host_offload == "none":
+        return None
+    pin = torch.cuda.is_available()
+    return [m.to("cpu", copy=True).pin_memory() if pin else m.to("cpu", copy=True)
+            for m in masters]
+
+
 @torch.no_grad()
-def write_back(models: SVDModels, cfg: TrainConfig, state: TrainState, tensors=None) -> None:
-    """Copy the state's f32 masters (or `tensors`, aligned with them) into
-    the UNet's compute copies, rounded to its dtype, and to bf16 first with
-    ``grad_dtype="bf16"``; nothing in the 'lora' scope."""
+def write_back(models: SVDModels, cfg: TrainConfig, state: TrainState, tensors=None,
+               indices=None) -> None:
+    """Copy the state's f32 masters (or `tensors`, aligned with them, or
+    with `indices` of them) into the UNet's compute copies, rounded to its
+    dtype, and to bf16 first with ``grad_dtype="bf16"``. In the 'lora' scope
+    the compute copies are the adapter's f32 tensors, which are the masters
+    themselves unless they are offloaded."""
     if state.lora is not None:
-        return
-    named = dict(models.unet.named_parameters())
-    for n, t in zip(state.names, state.params if tensors is None else tensors):
-        named[n].copy_(t.to(torch.bfloat16) if cfg.grad_dtype == "bf16" else t)
+        named = lora_state_dict(state.lora)
+    else:
+        named = dict(models.unet.named_parameters())
+    names = state.names if indices is None else [state.names[i] for i in indices]
+    for n, t in zip(names, state.params if tensors is None else tensors):
+        if named[n] is t:
+            continue
+        if state.lora is None and cfg.grad_dtype == "bf16":
+            t = t.to(torch.bfloat16)
+        named[n].copy_(t, non_blocking=t.is_pinned())
 
 
 def cast_frozen_to_compute(models: SVDModels, dtype: torch.dtype) -> SVDModels:
@@ -237,7 +295,7 @@ def loss_and_grads(models: SVDModels, cfg: TrainConfig, state: TrainState,
     return loss, grads
 
 
-def make_train_step(models: SVDModels, cfg: TrainConfig):
+def make_train_step(models: SVDModels, cfg: TrainConfig, world: World = SINGLE):
     """Build ``step(state, batch, *, generator=None, draws=None) -> (state,
     metrics)``. `batch` is (accum, B, F, H, W, 3) pixels in [-1, 1] when
     gradient_accumulation_steps > 1, else (B, F, H, W, 3); or a
@@ -246,7 +304,10 @@ def make_train_step(models: SVDModels, cfg: TrainConfig):
     list of one per micro-batch) replaces the draws from `generator`.
     Metrics: loss, grad_norm (before clipping), lr (applied). The backward
     and the update run under the profiler labels ``train.backward`` and
-    ``train.optimizer``."""
+    ``train.optimizer``. Over a data-parallel `world`, `batch` is this
+    rank's rows of the global batch, the draws from `generator` are its rows
+    of the global batch's, the gradients are averaged over the ranks before
+    the clip, and the metrics are the global batch's (the loss averaged)."""
     cfg.check_ported()
     accum = cfg.gradient_accumulation_steps
     gdt = torch.bfloat16 if cfg.grad_dtype == "bf16" else torch.float32
@@ -262,7 +323,9 @@ def make_train_step(models: SVDModels, cfg: TrainConfig):
             micro = list(batch)
         if draws is None:
             shape = pixels.shape[1:] if accum > 1 else pixels.shape
-            draws = [sample_train_draws(models, shape, cfg, generator, pixels.device)
+            whole = (shape[0] * world.size,) + tuple(shape[1:])
+            draws = [local_draws(sample_train_draws(models, whole, cfg, generator,
+                                                    pixels.device), world, shape[0])
                      for _ in range(accum)]
         elif isinstance(draws, TrainDraws):
             draws = [draws]
@@ -280,14 +343,24 @@ def make_train_step(models: SVDModels, cfg: TrainConfig):
             if accum > 1:
                 for acc in grads:
                     acc.div_(accum)
-            lr, grad_norm = state.optimizer.step(grads)
+            all_reduce_mean_(grads, world)
+            loss = loss_sum.reshape(1) / accum
+            all_reduce_mean_([loss], world)
+            step_after = state.step + 1
+
+            def updated(indices, tensors):
+                # the new masters into the compute copies, then the EMA
+                write_back(models, cfg, state, tensors, indices)
+                if state.ema_params is not None:
+                    ema_update_([state.ema_params[i] for i in indices], tensors, step_after,
+                                cfg.ema_decay)
+
+            lr, grad_norm = state.optimizer.step(
+                grads, on_update=updated,
+                on_receive=lambda i, t: write_back(models, cfg, state, [t], [i]))
             del grads
-            write_back(models, cfg, state)
-            state.step += 1
-            if state.ema_params is not None:
-                ema_update_(state.ema_params, state.params, state.step, cfg.ema_decay)
-        metrics = {"loss": (loss_sum / accum).item(), "grad_norm": grad_norm.item(),
-                   "lr": lr}
+            state.step = step_after
+        metrics = {"loss": loss.item(), "grad_norm": grad_norm.item(), "lr": lr}
         return state, metrics
 
     return step

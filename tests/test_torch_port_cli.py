@@ -85,11 +85,13 @@ def test_build_train_config_matches_jax(argv):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--zero1", "--use_8bit_adam"], "zero1"), (["--zero1"], "zero1"),
-    (["--host_offload", "masters"], "host_offload"),
-    (["--host_offload", "masters+moments", "--grad_dtype", "bf16"], "host_offload"),
-    (["--train_mode", "tracklet", "--zero1"], "zero1"), (["--mesh_data", "2"], "A13"),
-    (["--mesh_model", "2"], "A13"), (["--attn_impl", "flash"], "--attn_impl flash"),
+    (["--mesh_data", "2"], "world has 1"), (["--mesh_data", "3", "--zero1"], "world has 1"),
+    (["--train_mode", "lora", "--host_offload", "masters", "--mesh_data", "2"], "world has 1"),
+    (["--train_mode", "lora", "--host_offload", "masters+moments", "--mesh_model", "2"],
+     "mesh_model 2"),
+    (["--host_offload", "masters", "--mesh_data", "2"], "world has 1"),
+    (["--zero1", "--mesh_model", "4"], "mesh_model 4"),
+    (["--mesh_model", "2"], "mesh_model 2"), (["--attn_impl", "flash"], "--attn_impl flash"),
     (["--attn_impl", "xla"], "--attn_impl xla")])
 def test_refused_options_raise_before_any_work(tmp_path, extra, match):
     out = tmp_path / "out"

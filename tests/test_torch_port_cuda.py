@@ -1428,3 +1428,257 @@ def test_async_checkpoint_snapshot_on_the_card(card, tmp_path):
     assert torch.equal(got, -want)
     # the copies' device time: 16 MB at well under PCIe's rate
     assert all(0 < r["copy_seconds"] < 1 for r in m.saves)
+
+
+# ------------------------------------------------------ the int8 kernels --
+
+from svd_xtend_tpu_torch.ops import quant as qt                    # noqa: E402
+from svd_xtend_tpu_torch.ops.kernels import int8_gemm as ig        # noqa: E402
+from svd_xtend_tpu_torch.ops.kernels import int8_quant as iq       # noqa: E402
+
+
+def _same_bits(got, ref):
+    torch.cuda.synchronize()
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    assert torch.equal(got.reshape(-1), ref.reshape(-1)), (got.float() - ref.float()).abs().max()
+
+
+def _pre(rn, n, c, silu=True):
+    return ((1 + 0.2 * rn(n, c)).float() / 2, 0.3 * rn(n, c).float(), silu)
+
+
+@pytest.mark.parametrize("shape,c2,pre", [
+    ((28, 40, 64, 320), 0, "preS"), ((2, 10, 16, 1280), 1280, "preS"),
+    ((3, 5, 8, 640), 1280, "preS"), ((2, 9, 5, 64), 0, "pre"), ((1, 40, 64, 4), 0, ""),
+    ((28, 40, 64, 8), 0, ""), ((71680, 320), 0, ""), ((28, 1024), 0, ""), ((2, 1280), 0, ""),
+    ((3, 7, 36), 0, "")])
+def test_int8_quantize_kernel(rn, shape, c2, pre):
+    """Codes and (amax, scale) bit for bit against the plain version, with
+    and without the prologue and the second source; two runs the same."""
+    x = rn(*shape) * 3
+    x2 = rn(*shape[:-1], c2) if c2 else None
+    p = _pre(rn, shape[0], shape[-1] + c2, pre == "preS") if pre else None
+    n = iq.quantize.launches
+    q, stats = iq.quantize(x, p, x2)
+    assert iq.quantize.launches == n + 1
+    rq, rstats = iq.quantize_reference(x, p, x2)
+    _same_bits(q, rq)
+    _same_bits(stats, rstats)
+    q2, stats2 = iq.quantize(x, p, x2)
+    _same_bits(q2, q)
+    _same_bits(stats2, stats)
+
+
+def _int8_conv_inputs(rn, n, h, w, ci, co, epi):
+    x = rn(n, h, w, ci) * 2
+    xq, stats = iq.quantize(x)
+    weight = rn(co, ci, 3, 3, sc=(9 * ci) ** -0.5)
+    wq, w_amax = ig.conv_codes(weight)
+    post = 0.5 * rn(n, co).float() if "post" in epi else None
+    res = rn(n, h, w, co) if "res" in epi else None
+    return xq, stats, wq, w_amax, 0.1 * rn(co), post, res
+
+
+_INT8_CONV_SITES = sorted({st[:5] for st in sites.INT8_CONV_SITES + sites.INT8_VAE_CONV_SITES})
+
+
+@pytest.mark.parametrize("site", _INT8_CONV_SITES, ids=lambda st: "-".join(map(str, st)))
+def test_int8_conv_sites(rn, site):
+    """The int8 GEMM's conv at every Conv3x3 site of the UNet and the VAE
+    decoder (the edge convs: Ci 8, Co 4, Ci 4, Co 3): bit for bit the plain
+    version on the same codes."""
+    h, w, ci, co, epi = site
+    args = _int8_conv_inputs(rn, _site_batch(h), h, w, ci, co, epi)
+    n = ig.int8_conv3x3.launches
+    got = ig.int8_conv3x3(*args)
+    assert ig.int8_conv3x3.launches == n + 1
+    _same_bits(got, ig.conv_reference(*args))
+
+
+_INT8_DENSE_SHAPES = sorted({st[:3] for st in sites.INT8_DENSE_SITES}
+                            | {(130, 320, 320), (28, 1024, 16), (1, 64, 2560)})
+
+
+@pytest.mark.parametrize("shape", _INT8_DENSE_SHAPES, ids=lambda st: "-".join(map(str, st)))
+def test_int8_dense_sites(rn, shape):
+    """The int8 GEMM's dense product at every QLinear site of a CFG UNet
+    pass (and ragged rows, a thin output, one row): bit for bit the plain
+    version on the same codes."""
+    rows, k, co = shape
+    xq, stats = iq.quantize(rn(rows, k))
+    wq, w_amax = ig.dense_codes(rn(co, k, sc=k ** -0.5))
+    bias = 0.1 * rn(co)
+    n = ig.int8_dense.launches
+    got = ig.int8_dense(xq, stats, wq, w_amax, bias)
+    assert ig.int8_dense.launches == n + 1
+    _same_bits(got, ig.dense_reference(xq, stats, wq, w_amax, bias))
+    _same_bits(ig.int8_dense(xq, stats, wq, w_amax), ig.dense_reference(xq, stats, wq, w_amax))
+
+
+@pytest.mark.parametrize("site", sites.UP_SPLIT_SITES[:4] + [(5, 8, 1280, 1280, 1280)],
+                         ids=lambda st: "-".join(map(str, st)))
+def test_int8_conv3x3_site_two_sources(rn, site):
+    """Conv3x3's int8 site with the prologue over two sources and the shift
+    (the up blocks' conv1): the kernels against the plain site, bit for bit."""
+    h, w, c1, c2, co = site
+    n = 2
+    x, x2 = rn(n, h, w, c1), rn(n, h, w, c2)
+    weight = rn(co, c1 + c2, 3, 3, sc=(9 * (c1 + c2)) ** -0.5)
+    bias, post = 0.1 * rn(co), 0.5 * rn(n, co).float()
+    pre = _pre(rn, n, c1 + c2)
+    got = ig.conv3x3_site(x, weight, bias, pre, post, None, x2)
+    with plain_versions():
+        ref = ig.conv3x3_site(x, weight, bias, pre, post, None, x2)
+    _same_bits(got, ref)
+
+
+def test_int8_modules_on_the_card(rn):
+    """Conv3x3 and QLinear in int8 mode go through the kernels: one quantise
+    and one GEMM launch a call, the outputs the plain sites' bits."""
+    from svd_xtend_tpu_torch.models.blocks import Conv3x3
+    from svd_xtend_tpu_torch.models.transformer import QLinear
+    conv = Conv3x3(64, 32).cuda().to(torch.bfloat16)
+    lin = QLinear(64, 48).cuda().to(torch.bfloat16)
+    x, res = rn(2, 5, 8, 64), rn(2, 5, 8, 32)
+    before = (iq.quantize.launches, ig.int8_conv3x3.launches, ig.int8_dense.launches)
+    with torch.no_grad(), qt.quantized("int8"):
+        y, z = conv(x, residual=res), lin(x)
+        with plain_versions():
+            yp, zp = conv(x, residual=res), lin(x)
+    assert (iq.quantize.launches, ig.int8_conv3x3.launches, ig.int8_dense.launches) == (
+        before[0] + 2, before[1] + 1, before[2] + 1)
+    _same_bits(y, yp)
+    _same_bits(z, zp)
+
+
+def test_int8_wrappers_raise_on_untaken_calls(rn):
+    with pytest.raises(ValueError):                 # f32 activations
+        iq.quantize(rn(4, 64).float())
+    with pytest.raises(ValueError):                 # channels not a multiple of 4
+        iq.quantize(rn(2, 3, 3, 6))
+    xq, stats = iq.quantize(rn(2, 4, 4, 8))
+    with pytest.raises(ValueError):                 # Ci 6: not a multiple of 4
+        ig.int8_conv3x3(torch.zeros(2, 4, 4, 6, dtype=torch.int8, device="cuda"), stats,
+                        torch.zeros(8, 3, 3, 6, dtype=torch.int8, device="cuda"),
+                        torch.ones(8, device="cuda"))
+    with pytest.raises(ValueError):                 # dense K 24: not a multiple of 16
+        ig.int8_dense(torch.zeros(4, 24, dtype=torch.int8, device="cuda"), stats,
+                      torch.zeros(8, 24, dtype=torch.int8, device="cuda"),
+                      torch.ones(8, device="cuda"))
+    wq, w_amax = ig.conv_codes(rn(16, 8, 3, 3))
+    with pytest.raises(ValueError):                 # an f32 output
+        ig.int8_conv3x3(xq, stats, wq, w_amax, dtype=torch.float32)
+
+
+# ------------------------------------------- data parallelism on the card --
+
+def _tiny_train(offload="none", zero1=False, world=None, steps=2, scope="full"):
+    from svd_xtend_tpu_torch import parallel
+    from svd_xtend_tpu_torch.train.state import (cast_frozen_to_compute, create_train_state,
+                                                 make_train_step)
+    world = world or parallel.SINGLE
+    cfg = tcfg.TrainConfig(train_mode=scope, use_ema=scope == "full", learning_rate=1e-3,
+                           height=32,
+                           width=32, num_frames=3, lr_warmup_steps=0, host_offload=offload,
+                           zero1=zero1)
+    models = tpipe.SVDModels.create(tcfg.TINY_UNET, tcfg.TINY_VAE, tcfg.TINY_CLIP,
+                                    device="cuda", generator=torch.Generator("cuda").manual_seed(0))
+    state = create_train_state(cfg, models, world=world)
+    cast_frozen_to_compute(models, torch.bfloat16)
+    step = make_train_step(models, cfg, world)
+    for s in range(steps):
+        batch = torch.rand(1, 3, 32, 32, 3, device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(s)) * 2 - 1
+        state, _ = step(state, batch, generator=torch.Generator("cuda").manual_seed(s))
+    torch.cuda.synchronize()
+    return models, state
+
+
+@pytest.mark.parametrize("mode", ["masters", "masters+moments"])
+def test_host_offload_on_the_card(rn, mode, monkeypatch):
+    """The masters (and the moments) in pinned host memory, the EMA, the
+    compute copies on the card; the steps' masters, moments, EMA and
+    compute copies bit for bit those without offload, in several chunks."""
+    from svd_xtend_tpu_torch.train.optim import ClippedAdamW
+    monkeypatch.setattr(ClippedAdamW, "OFFLOAD_CHUNK_VALUES", 200_000)
+    m0, plain = _tiny_train()
+    m1, off = _tiny_train(mode)
+    assert all(p.device.type == "cpu" and p.is_pinned() for p in off.params)
+    assert all(e.is_cuda for e in off.ema_params)
+    opt = off.optimizer
+    moments = [t for i in opt.local for t in opt._moments(i)]
+    if mode == "masters":
+        assert all(t.is_cuda for t in moments)
+    else:
+        assert all(t.device.type == "cpu" and t.is_pinned() for t in moments)
+    assert len(list(opt._chunks())) > 1 and opt.streamed_bytes > 0
+    for a, b in zip(plain.params, off.params):
+        assert torch.equal(a.cpu(), b)
+    for a, b in zip(plain.ema_params, off.ema_params):
+        assert torch.equal(a, b)
+    for (n, a), (_, b) in zip(m0.unet.named_parameters(), m1.unet.named_parameters()):
+        assert torch.equal(a, b), n
+    sa, sb = plain.optimizer.state_dict()["adamw"], opt.state_dict()["adamw"]
+    for i, st in sa["state"].items():
+        for k in ("exp_avg", "exp_avg_sq"):
+            assert torch.equal(st[k].cpu(), sb["state"][i][k].cpu())
+
+
+@pytest.mark.parametrize("mode", ["masters", "masters+moments"])
+def test_host_offload_lora_on_the_card(rn, mode):
+    """The 'lora' scope: the adapter's f32 masters in pinned host memory,
+    its compute copy on the card; both bit for bit the adapter without
+    offload after the steps."""
+    from svd_xtend_tpu_torch.io.convert import lora_state_dict
+    _, plain = _tiny_train(scope="lora")
+    _, off = _tiny_train(mode, scope="lora")
+    assert all(p.device.type == "cpu" and p.is_pinned() for p in off.params)
+    adapter = list(lora_state_dict(off.lora).values())
+    assert all(a.is_cuda for a in adapter) and off.optimizer.streamed_bytes > 0
+    for a, b, c in zip(plain.params, off.params, adapter):
+        assert torch.equal(a.cpu(), b) and torch.equal(a, c)
+
+
+def test_world_of_one_over_nccl(rn, monkeypatch):
+    """One rank in an NCCL process group (the gradient all-reduce, ZeRO-1's
+    broadcast and gather go through it) steps as the rank without a group,
+    bit for bit."""
+    import socket
+
+    import torch.distributed as dist
+
+    from svd_xtend_tpu_torch import parallel
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    for k, v in dict(MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK="0",
+                     WORLD_SIZE="1", LOCAL_RANK="0").items():
+        monkeypatch.setenv(k, v)
+    _, plain = _tiny_train()
+    world = parallel.init_world("cuda")
+    try:
+        assert dist.get_backend() == "nccl" and world.collective
+        _, zero = _tiny_train(zero1=True, world=world)
+        sd = zero.state_dict()
+    finally:
+        parallel.close_world(world)
+    for a, b in zip(plain.params, zero.params):
+        assert torch.equal(a, b)
+    for a, b in zip(plain.ema_params, zero.ema_params):
+        assert torch.equal(a, b)
+    assert len(sd["optimizer"]["adamw"]["state"]) == len(plain.params)
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 40, 320, 320), (2, 32, 20, 640, 640),
+                                   (2, 8, 5, 1280, 1280), (1, 72, 128, 320, 320),
+                                   (2, 36, 64, 640, 640), (2, 9, 16, 1280, 1280),
+                                   (1, 72, 128, 8, 320), (1, 72, 128, 320, 4),
+                                   (1, 576, 1024, 128, 3), (1, 72, 128, 4, 512)],
+                         ids=lambda st: "-".join(map(str, st)))
+def test_int8_conv_at_other_resolutions(rn, shape):
+    """The int8 conv at the 320x512 portrait latents (64x40 and its levels)
+    and at 1024x576 (72x128 and its levels; the edge convs there): bit for
+    bit the plain version."""
+    n, h, w, ci, co = shape
+    args = _int8_conv_inputs(rn, n, h, w, ci, co, "post" if ci == co else "none")
+    _same_bits(ig.int8_conv3x3(*args), ig.conv_reference(*args))

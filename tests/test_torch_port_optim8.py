@@ -126,9 +126,13 @@ def test_adamw_8bit_matches_jax_over_five_steps(gdt):
     (dict(use_8bit_adam=True), True), (dict(grad_dtype="bf16"), True),
     (dict(train_mode="tracklet", tracklet_dim=8), True), (dict(vae_encode_in_loop=False), True),
     (dict(use_8bit_adam=True, grad_dtype="bf16", train_mode="lora"), True),
-    (dict(zero1=True), False), (dict(host_offload="masters"), False),
-    (dict(host_offload="masters+moments", use_8bit_adam=True), False),
-    (dict(grad_dtype="fp16"), False), (dict(train_mode="encoder"), False)])
+    (dict(zero1=True, mesh=tcfg.MeshConfig(model=2)), False),
+    (dict(host_offload="masters", train_mode="lora", mesh=tcfg.MeshConfig(frames=2)), False),
+    (dict(host_offload="all", use_8bit_adam=True), False),
+    (dict(grad_dtype="fp16"), False), (dict(train_mode="encoder"), False),
+    (dict(zero1=True), True), (dict(host_offload="masters"), True),
+    (dict(host_offload="masters+moments", use_8bit_adam=True), True),
+    (dict(host_offload="masters+moments", train_mode="lora"), True)])
 def test_check_ported_takes_and_refuses(kw, ok):
     cfg = tcfg.TrainConfig(**kw)
     if ok:

@@ -95,13 +95,14 @@ def test_decode_latents_chunked_matches_jax(pair, frames, chunk):
 
 
 def test_generate_refuses_unported_modes(pair):
-    """int8 (UNet or VAE) is refused by generate; the cache modes
+    """An unknown quantisation mode (UNet or VAE) is refused by generate;
+    the int8 modes (test_torch_port_quant.py), the cache modes
     (test_torch_port_cache.py) and the Tracklet2Video branch
     (test_torch_port_tracklet.py) are ported: a tracklet UNet builds."""
     _, _, tm = pair
     image = torch.zeros(1, 32, 32, 3)
-    for kw in (dict(unet_quant="int8"), dict(vae_quant="int8")):
-        with pytest.raises(ValueError, match="int8"):
+    for kw in (dict(unet_quant="int4"), dict(vae_quant="int4")):
+        with pytest.raises(ValueError, match="unknown quant mode"):
             tpipe.generate(tm, image, tcfg.PipelineConfig(**CFG_KW, **kw))
     built = tpipe.SVDModels.create(dataclasses.replace(tcfg.TINY_UNET, tracklet_dim=8),
                                    tcfg.TINY_VAE, tcfg.TINY_CLIP, device="cpu")

@@ -57,10 +57,12 @@ def test_train_config_copy_matches_jax_fields(name):
     assert fields(tcfg) == fields(jcfg)
 
 
-@pytest.mark.parametrize("kw", [dict(zero1=True, use_8bit_adam=True), dict(zero1=True),
-                                dict(host_offload="masters"), dict(grad_dtype="fp16"),
-                                dict(train_mode="encoder"),
-                                dict(host_offload="masters+moments", tracklet_dim=8),
+@pytest.mark.parametrize("kw", [dict(zero1=True, mesh=tcfg.MeshConfig(model=2)),
+                                dict(mesh=tcfg.MeshConfig(frames=2)),
+                                dict(host_offload="masters", train_mode="lora",
+                                     mesh=tcfg.MeshConfig(model=2)),
+                                dict(grad_dtype="fp16"), dict(train_mode="encoder"),
+                                dict(host_offload="moments", tracklet_dim=8),
                                 dict(remat_policy="full")])
 def test_unported_train_options_are_refused(kw):
     with pytest.raises(ValueError):
