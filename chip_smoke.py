@@ -207,6 +207,26 @@ Phases, each of which raises on failure (non-zero exit):
      the bytes streamed a step; each offload must stream and lower the
      peak), then the temporal scope for 2 steps with --zero1 and without,
      whose checkpoint-2 states must be equal bit for bit.
+  6h. frames (sequence parallelism, parallel/frames.py): the one-rank runs
+     first, then two ranks, each a process of its own on the one card (a
+     gloo group on localhost, every collective staged through host memory;
+     NCCL refuses two ranks on one device), from the same seeded weights
+     (flax laws, full widths) and inputs: the UNet's CFG pass at
+     512x320x14f (each rank its 7 frames) against the one-rank pass, in f32
+     on the plain versions (rel-L2 <= 1e-4) and in bf16 on the kernels
+     (within 1.25x the distance of the one-rank pass run as two passes of
+     batch 1, whose kernels take other launch plans as a shard's do; the
+     aim of 1e-2 printed beside it), generate at PipelineConfig(num_inference_steps=5) (the whole
+     video on both ranks, the same bits, within rel-L2 5e-2 of the one-rank
+     video), the first default temporal-scope step's loss and grad_norm
+     within 1e-2 relative; the int8 quantise kernel over the frames group
+     (its two passes with the partial amaxes all-reduced between them: each
+     rank's codes its frames of the one-rank codes, bit for bit); the frame
+     attention and the temporal resnet see all 14 frames (by call shape);
+     every main-path kernel launched on each rank in the timed video and
+     the timed step. Each rank's s/video, s/step, peak memory and the bytes
+     staged through the host a CFG pass, a video and a step, beside the
+     one-rank figures and the card's name and power limit.
   6d. tracklet (Tracklet2Video, models/tracklet.py): the flash forward at
      the gated attention's (S_q, S_kv) = (S, S + 16 box tokens) of the four
      UNet levels at batches 28 and 14, then with its LSE and the backward
@@ -1234,11 +1254,11 @@ def materialised_forms():
         x = video.nhwc(F.interpolate(video.nchw(x), scale_factor=2.0, mode="nearest"))
         return video.nhwc(F.conv2d(video.nchw(x), self.conv.weight, self.conv.bias, padding=1))
 
-    def up_block(self, x, skips, temb, ehs, num_frames, tokens=None):
+    def up_block(self, x, skips, temb, ehs, num_frames, tokens=None, shard=None):
         for i, resnet in enumerate(self.resnets):
-            x = resnet(torch.cat([x, skips[-(i + 1)]], dim=-1), temb, num_frames)
+            x = resnet(torch.cat([x, skips[-(i + 1)]], dim=-1), temb, num_frames, shard=shard)
             if self.attentions is not None:
-                x = self.attentions[i](x, ehs, num_frames, tokens)
+                x = self.attentions[i](x, ehs, num_frames, tokens, shard)
         if self.upsamplers is not None:
             x = self.upsamplers[0](x)
         return x
@@ -1569,6 +1589,11 @@ def main() -> int:
     parallel_phase(dev, smi)
     torch.cuda.empty_cache()
 
+    log("frames: sequence parallelism, two gloo ranks on the one card against one rank: the "
+        "UNet's CFG pass, generate (5 steps) and a temporal-scope step at 512x320x14f")
+    frames_launches = frames_phase(dev, smi)
+    torch.cuda.empty_cache()
+
     log("tracklet: the gated attention's flash kernels at (S, S + 16), the full-width "
         "tracklet UNet against host f32, generate with boxes (gate 0 bit-equal; exact, k3, "
         "n3+k3), the 'tracklet' step and the CLI's --train_mode tracklet")
@@ -1605,7 +1630,8 @@ def main() -> int:
     probe_launches = probes_phase(counters)
     by_path = {**gen_launches, **int8_launches, "train": train_launches, "lora": lora_launches,
                "cli": cli_launches, **tracklet_launches, "infer": infer_launches,
-               "optim8": optim8_launches, "mha": mha_launches, "probes": probe_launches}
+               "optim8": optim8_launches, "mha": mha_launches, "probes": probe_launches,
+               **frames_launches}
 
     sources = {
         "flash_attention_fwd": ("cuda", "svd_xtend_tpu_torch/csrc/flash_attention.cu",
@@ -1678,6 +1704,7 @@ def kernel_counters():
     from svd_xtend_tpu_torch.ops.kernels import int8_gemm as ig
     from svd_xtend_tpu_torch.ops.kernels import int8_quant as iq
     from svd_xtend_tpu_torch.ops.kernels import temporal_attention as ta
+    from svd_xtend_tpu_torch.ops.kernels.dispatch import plain_versions
     from svd_xtend_tpu_torch.ops.kernels import temporal_resnet as tr
     from svd_xtend_tpu_torch.ops.kernels import upsample_conv as uc
     return {
@@ -3199,6 +3226,268 @@ def parallel_phase(dev, smi):
             else:
                 os.environ[k] = v
         shutil.rmtree(root, ignore_errors=True)
+
+
+FRAMES_RANKS = 2
+FRAMES_STEPS = 5            # generate's Euler steps in the frames phase
+# the UNet's CFG pass in bf16, two ranks against one: 1e-2 was the aim, but
+# the same pass as two passes of batch 1 (no collective; the kernels take
+# other launch plans for half the rows, as a frames shard's do) lies 1.246e-2
+# from it with these random weights, so the gate is that control's distance
+# times FRAMES_CONTROL_RATIO; 1e-2 is printed beside it. The sharded logic
+# itself is held in f32 on the plain versions (FRAMES_F32_REL).
+FRAMES_PASS_REL = 1e-2
+FRAMES_CONTROL_RATIO = 1.25
+FRAMES_F32_REL = 1e-4
+FRAMES_VIDEO_REL = 5e-2     # the video
+FRAMES_STEP_REL = 1e-2      # the train step's loss and grad_norm
+
+
+def frames_work(dev, world):
+    """The frames phase's runs on `world` (one rank, or a rank of the frames
+    group), from the same seeded weights and inputs on every process: the
+    UNet's CFG pass at 512x320x14f (this rank's frames of it), generate at
+    PipelineConfig(num_inference_steps=FRAMES_STEPS) (a warm-up, then a timed
+    run), and two default temporal-scope steps (the first from the shared
+    initial state, the second timed). Returns what the parent compares and
+    prints: CPU tensors and numbers."""
+    from svd_xtend_tpu_torch import parallel
+    from svd_xtend_tpu_torch.core.config import MeshConfig, PipelineConfig, TrainConfig
+    from svd_xtend_tpu_torch.diffusion.pipeline import SVDModels
+    from svd_xtend_tpu_torch.ops import quant
+    from svd_xtend_tpu_torch.ops.kernels import int8_quant as iq
+    from svd_xtend_tpu_torch.ops.kernels import temporal_attention as ta
+    from svd_xtend_tpu_torch.ops.kernels.dispatch import plain_versions
+    from svd_xtend_tpu_torch.ops.kernels import temporal_resnet as tr
+    from svd_xtend_tpu_torch.parallel.frames import STAGED
+    from svd_xtend_tpu_torch.train.state import (cast_frozen_to_compute, create_train_state,
+                                                 make_train_step)
+
+    counters = kernel_counters()
+    cfg = TrainConfig(mesh=MeshConfig(frames=world.frames))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+    models = SVDModels.create(device=dev, dtype=torch.float32, generator=gen)
+    state = create_train_state(cfg, models, world=world)
+    shard = world.frame_shard(cfg.num_frames)
+    own = (lambda t: t) if shard is None else shard.own
+    out = {}
+
+    ucfg = models.unet.config
+    sample = torch.randn(2, cfg.num_frames, cfg.height // 8, cfg.width // 8,
+                         ucfg.in_channels, device=dev, generator=gen)
+    ehs = torch.randn(2, 1, ucfg.cross_attention_dim, device=dev, generator=gen)
+    ids = torch.tensor([[6.0, 127.0, 0.02]] * 2, device=dev)
+    with torch.no_grad():
+        # f32 with the plain versions (TF32 off): the sharded pass is the
+        # one-rank pass to f32 rounding
+        with plain_versions():
+            out["pass_f32"] = models.unet(own(sample), 1.5, ehs, ids, shard=shard).cpu()
+        cast_frozen_to_compute(models, torch.bfloat16)
+        sample, ehs = sample.to(torch.bfloat16), ehs.to(torch.bfloat16)
+        STAGED.reset()
+        out["pass"] = models.unet(own(sample), 1.5, ehs, ids, shard=shard).float().cpu()
+        out["pass_staged"] = STAGED.bytes
+        if shard is None:
+            # the control: the same pass as two of batch 1, whose kernels
+            # take other launch plans (half the rows), as a frames shard's do
+            out["pass_halves"] = torch.cat([
+                models.unet(sample[i:i + 1], 1.5, ehs[i:i + 1], ids[i:i + 1]).float().cpu()
+                for i in range(2)])
+
+    # the int8 activation quantiser over the frames group: this rank's codes
+    # are its frames of the one-rank codes, bit for bit
+    x = torch.randn(2, cfg.num_frames, 40, 64, 320, device=dev,
+                    generator=gen).to(torch.bfloat16)
+    with quant.quantized("int8", shard):
+        q, stats = iq.quantize(own(x).reshape(-1, 40, 64, 320))
+    rq, rstats = iq.quantize_reference(x.reshape(-1, 40, 64, 320))
+    out["int8_same"] = bool(torch.equal(q, own(rq.reshape(x.shape)).reshape(q.shape))
+                            and torch.equal(stats, rstats))
+
+    pcfg = PipelineConfig(num_inference_steps=FRAMES_STEPS)
+    image = torch.rand(1, pcfg.height, pcfg.width, 3, device=dev, generator=gen) * 2 - 1
+    noise = (torch.randn(image.shape, device=dev, generator=gen),
+             torch.randn(1, pcfg.num_frames, pcfg.height // 8, pcfg.width // 8, 4, device=dev,
+                         generator=gen))
+
+    def video():
+        return parallel.generate_rows(models, image, pcfg, world, image_noise=noise[0],
+                                      latent_noise=noise[1])
+
+    video()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset(counters)
+    STAGED.reset()
+    with calls_by(ta, "frame_attention", SHAPE) as attention, \
+            calls_by(tr, "conv_a", SHAPE) as conv_a:
+        t0 = time.time()
+        out["video"] = video().cpu()
+        out["s_video"] = time.time() - t0
+    out["video_launches"] = {n: f.launches for n, f in counters.items()}
+    out["video_staged"] = STAGED.bytes
+    out["video_peak"] = torch.cuda.max_memory_allocated()
+    out["frame_attention_shapes"] = dict(attention)
+    out["conv_a_shapes"] = dict(conv_a)
+
+    batch = torch.rand(1, cfg.num_frames, cfg.height, cfg.width, 3, device=dev,
+                       generator=gen) * 2 - 1
+    step = make_train_step(models, cfg, world)
+    state, first = step(state, batch, generator=torch.Generator(dev).manual_seed(SEED + 31))
+    out["step"] = first
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset(counters)
+    STAGED.reset()
+    t0 = time.time()
+    state, _ = step(state, batch, generator=torch.Generator(dev).manual_seed(SEED + 32))
+    torch.cuda.synchronize()
+    out["s_step"] = time.time() - t0
+    out["step_launches"] = {n: f.launches for n, f in counters.items()}
+    out["step_staged"] = STAGED.bytes
+    out["step_peak"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def frames_rank(rank, port, results):
+    """A rank of the frames phase: a gloo group of FRAMES_RANKS ranks on
+    localhost, every rank on cuda:0 (NCCL refuses two ranks on one card), the
+    port's world laid out as one frames group over it."""
+    import traceback
+
+    import torch.distributed as dist
+
+    try:
+        os.environ.update(RANK=str(rank), WORLD_SIZE=str(FRAMES_RANKS), LOCAL_RANK="0")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                                world_size=FRAMES_RANKS)
+        from svd_xtend_tpu_torch import parallel
+        from svd_xtend_tpu_torch.core.config import MeshConfig
+        world = parallel.init_world("cuda", MeshConfig(frames=FRAMES_RANKS))
+        try:
+            # numpy, not tensors: torch would share a tensor's storage through
+            # a descriptor that dies with this process
+            out = {k: v.numpy() if torch.is_tensor(v) else v
+                   for k, v in frames_work(dev, world).items()}
+            results.put((rank, True, out))
+        finally:
+            parallel.close_world(world)
+    except BaseException:
+        results.put((rank, False, traceback.format_exc()))
+
+
+def frames_phase(dev, smi):
+    """Sequence parallelism over the 'frames' axis (parallel/frames.py): the
+    one-rank runs of frames_work here, then FRAMES_RANKS ranks, each its own
+    process on the one card over gloo with the collectives staged through
+    host memory, held to them. Returns rank 0's launches by path."""
+    import multiprocessing as mp
+    import queue
+    import socket
+
+    import numpy as np
+
+    from svd_xtend_tpu_torch import parallel
+
+    t0 = time.time()
+    one = frames_work(dev, parallel.SINGLE)
+    log(f"  [{smi}] one rank: s/video {one['s_video']:.3f} ({FRAMES_STEPS} steps), s/step "
+        f"{one['s_step']:.3f}, peak {one['video_peak'] / 2**30:.2f} / "
+        f"{one['step_peak'] / 2**30:.2f} GiB (video / step); {time.time() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    ctx = mp.get_context("spawn")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    results = ctx.Queue()
+    procs = [ctx.Process(target=frames_rank, args=(r, port, results))
+             for r in range(FRAMES_RANKS)]
+    t0 = time.time()
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        for _ in procs:
+            try:
+                rank, ok, value = results.get(timeout=600)
+            except queue.Empty:
+                raise RuntimeError("frames: a rank gave no answer within 600 s")
+            if not ok:
+                raise RuntimeError(f"frames: rank {rank} failed:\n{value}")
+            got[rank] = {k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
+                         for k, v in value.items()}
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+    log(f"  {FRAMES_RANKS} ranks: {time.time() - t0:.1f} s with their start and build")
+
+    whole = torch.cat([got[r]["pass"] for r in range(FRAMES_RANKS)], dim=1)
+    whole32 = torch.cat([got[r]["pass_f32"] for r in range(FRAMES_RANKS)], dim=1)
+    rel = lambda a, b: ((a - b).norm() / b.norm()).item()
+    control = rel(one["pass_halves"], one["pass"])
+    bf16 = rel(whole, one["pass"])
+    log(f"  UNet CFG pass in bf16: {bf16:.4g} against one rank; the control (the one-rank "
+        f"pass as two of batch 1) {control:.4g} from it; {FRAMES_PASS_REL} "
+        f"{'met' if bf16 <= FRAMES_PASS_REL else 'not met'} (printed, not a gate)")
+    checks = {"UNet CFG pass": (bf16, FRAMES_CONTROL_RATIO * control),
+              "UNet CFG pass, f32 plain versions": (rel(whole32, one["pass_f32"]),
+                                                    FRAMES_F32_REL)}
+    for r in range(FRAMES_RANKS):
+        checks[f"rank {r} video"] = (rel(got[r]["video"], one["video"]), FRAMES_VIDEO_REL)
+        for key in ("loss", "grad_norm"):
+            a, b = got[r]["step"][key], one["step"][key]
+            checks[f"rank {r} step {key}"] = (abs(a - b) / abs(b), FRAMES_STEP_REL)
+    for what, (value, bound) in checks.items():
+        log(f"  {what}: {value:.4g} against one rank (bound {bound})")
+    bad = [w for w, (v, b) in checks.items() if not v <= b]
+    if bad:
+        raise RuntimeError(f"frames: {bad} beyond their bounds")
+    if not all(torch.equal(got[r]["video"], got[0]["video"]) for r in range(FRAMES_RANKS)):
+        raise RuntimeError("frames: the ranks returned different videos")
+    if not torch.isfinite(got[0]["video"]).all():
+        raise RuntimeError("frames: the video is not finite")
+    if not all(got[r]["int8_same"] for r in range(FRAMES_RANKS)):
+        raise RuntimeError("frames: the int8 quantiser's codes over the frames group differ "
+                           "from the one-rank codes")
+    log("  int8 quantise over the frames group: each rank's codes its frames of the one-rank "
+        "codes, bit for bit")
+
+    count = 14 // FRAMES_RANKS
+    for r in range(FRAMES_RANKS):
+        g = got[r]
+        log(f"  [{smi}] rank {r}: s/video {g['s_video']:.3f} ({FRAMES_STEPS} steps), s/step "
+            f"{g['s_step']:.3f}, peak {g['video_peak'] / 2**30:.2f} / "
+            f"{g['step_peak'] / 2**30:.2f} GiB (video / step); staged through the host: "
+            f"{g['pass_staged'] / 1e6:.1f} MB a CFG UNet pass, {g['video_staged'] / 1e6:.1f} MB "
+            f"a video, {g['step_staged'] / 1e6:.1f} MB a step (two ranks share the card and "
+            "gloo stages every collective through host memory: not a multi-card rate)")
+        shapes, conv_a = g["frame_attention_shapes"], g["conv_a_shapes"]
+        log(f"  rank {r}: frame attention calls by (B, F, S_r, C): {shapes}; temporal resnet "
+            f"kernel A by (B, F, S, C): {conv_a} (batch 2: the UNet's CFG pair; batch 1: the "
+            "VAE decoder's chunks, whole on the rank that decodes them)")
+        unet = [k for k in conv_a if k[0] == 2]
+        if (not shapes or not unet or any(k[1] != 14 for k in list(shapes) + unet)
+                or any(k[2] * FRAMES_RANKS > 2560 + FRAMES_RANKS for k in shapes)):
+            raise RuntimeError("frames: the frame attention (a token shard) and the UNet's "
+                               "temporal resnets must see all 14 frames")
+        if g["pass"].shape[1] != count:
+            raise RuntimeError(f"frames: rank {r}'s pass holds {g['pass'].shape[1]} frames")
+    forward = [n for n in kernel_counters() if n not in BACKWARD_ONLY | OTHER_PATHS]
+    step_names = [n for n in kernel_counters() if n not in OTHER_PATHS]
+    for r in range(FRAMES_RANKS):
+        for path, names in (("video_launches", forward), ("step_launches", step_names)):
+            missing = [n for n in names if got[r][path][n] == 0]
+            log(f"  rank {r} {path}: {dict((n, got[r][path][n]) for n in names)}")
+            if missing:
+                raise RuntimeError(f"frames: rank {r} never launched {missing} ({path})")
+    return {"frames": got[0]["video_launches"], "frames_step": got[0]["step_launches"]}
 
 
 def _same_leaves(a, b) -> bool:

@@ -196,8 +196,10 @@ class PipelineConfig(_JsonMixin):
 @dataclasses.dataclass(frozen=True)
 class MeshConfig(_JsonMixin):
     """Device-mesh layout. axis sizes of -1 mean "fill with what's left".
-    The port runs the 'data' axis (data-parallel ranks, ``parallel/``);
-    'model' and 'frames' must stay 1."""
+    The port runs the 'data' axis (data-parallel ranks) and the 'frames'
+    axis (sequence parallelism: each rank of a frames group holds
+    num_frames / frames of every video), laid out data outer, frames inner
+    (``parallel.mesh_world``); 'model' must stay 1 (ROADMAP A18)."""
 
     data: int = -1
     model: int = 1
@@ -212,9 +214,10 @@ class TrainConfig(_JsonMixin):
     AdamW with f32 masters (or 8-bit moments, ``use_8bit_adam``), f32 or
     bf16 gradients (``grad_dtype``), gradient accumulation, EMA, remat.
     ``vae_encode_in_loop`` is accepted and not read, as in the JAX package.
-    ZeRO-1 and host offload run over the data-parallel ranks
-    (``parallel/``); a 'model' or 'frames' mesh axis is refused at use
-    (``check_ported``). ``encode_chunk_size`` chunks the
+    ZeRO-1 and host offload run over the ranks of the 'data' and 'frames'
+    mesh axes (``parallel/``; the frames axis must divide ``num_frames``);
+    a 'model' axis is refused at use (``check_ported``).
+    ``encode_chunk_size`` chunks the
     frozen VAE encode (0 = unchunked); the posterior noise is drawn per
     chunk, as in the JAX package."""
 
@@ -285,10 +288,12 @@ class TrainConfig(_JsonMixin):
     def check_ported(self) -> None:
         """Raise ValueError for an option the port does not run yet, or an
         unknown one."""
-        if self.mesh.model != 1 or self.mesh.frames != 1:
-            raise ValueError(f"not ported yet: a 'model' or 'frames' mesh axis (mesh "
-                             f"{self.mesh}; the tensor-parallel rules and sequence parallelism "
-                             "are TPU layouts; the port parallelises the batch alone)")
+        if self.mesh.model != 1:
+            raise ValueError(f"not ported yet: a 'model' mesh axis (mesh {self.mesh}; the "
+                             "tensor-parallel rules are ROADMAP A18)")
+        if self.mesh.frames < 1 or self.num_frames % self.mesh.frames:
+            raise ValueError(f"num_frames {self.num_frames} over a frames axis of "
+                             f"{self.mesh.frames}: the port takes an even split only")
         if self.host_offload not in ("none", "masters", "masters+moments"):
             raise ValueError(f"unknown host_offload mode {self.host_offload!r}")
         if self.train_mode not in ("temporal", "full", "lora", "tracklet"):

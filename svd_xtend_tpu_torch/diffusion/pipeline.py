@@ -53,6 +53,7 @@ from ..models.clip import CLIPVisionModelWithProjection, preprocess_for_clip
 from ..models.unet import UNetSpatioTemporalConditionModel
 from ..models.vae import AutoencoderKLTemporalDecoder
 from ..ops import quant
+from ..parallel.frames import FrameShard, broadcast_from, gather_frames
 from .scheduler import EulerDiscreteScheduler
 
 # flax lecun_normal: a normal truncated at two standard deviations, scaled so
@@ -198,15 +199,31 @@ def prepare_int8(module: nn.Module) -> int:
 
 @torch.no_grad()
 def decode_latents_chunked(models: SVDModels, latents: torch.Tensor,
-                           decode_chunk_size: int) -> torch.Tensor:
+                           decode_chunk_size: int,
+                           shard: Optional[FrameShard] = None) -> torch.Tensor:
     """(B, F, h, w, 4) scaled latents -> (B, F, H, W, 3) f32 pixels, decoded
     `decode_chunk_size` frames at a time. Chunks hold only real frames (the
-    last may be shorter): the decoder's frame convs mix frames in a chunk."""
+    last may be shorter): the decoder's frame convs mix frames in a chunk.
+    With a frames `shard`, `latents` hold this rank's frames: they are
+    gathered, chunk i (the one-rank chunks, whose bounds are not the
+    shards') is decoded by rank i mod n of the frames group and sent to the
+    others, and every rank returns the whole video."""
+    if shard is not None:
+        latents = gather_frames(latents, shard)
     z = latents / models.vae.config.scaling_factor
-    f = z.shape[1]
+    b, f, h, w, _ = z.shape
     cap = min(decode_chunk_size, f)
-    parts = [models.vae.decode(z[:, i:i + cap].to(models.dtype)).float()
-             for i in range(0, f, cap)]
+    starts = list(range(0, f, cap))
+    mine = lambda i: shard is None or i % shard.size == shard.index
+    parts = [models.vae.decode(z[:, s:s + cap].to(models.dtype)).float() if mine(i) else None
+             for i, s in enumerate(starts)]
+    if shard is not None:
+        ds, out_c = models.vae.config.downsample_factor, models.vae.config.out_channels
+        for i, s in enumerate(starts):
+            n = min(cap, f - s)
+            held = parts[i] if mine(i) else torch.empty(
+                (b, n, h * ds, w * ds, out_c), dtype=torch.float32, device=z.device)
+            parts[i] = broadcast_from(held, i % shard.size, shard)
     return torch.cat(parts, dim=1)
 
 
@@ -227,12 +244,21 @@ def generate(models: SVDModels, image: torch.Tensor,
              image_noise: Optional[torch.Tensor] = None,
              latent_noise: Optional[torch.Tensor] = None,
              boxes: Optional[torch.Tensor] = None,
-             box_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+             box_mask: Optional[torch.Tensor] = None,
+             shard: Optional[FrameShard] = None) -> torch.Tensor:
     """img2vid: (B, H, W, 3) image in [-1, 1] -> (B, F, H, W, 3) f32 video
     in [-1, 1]. `image_noise` (B, H, W, 3) and `latent_noise`
     (B, F, H/8, W/8, latent) are unit normals; those not given are drawn
     from `generator`. `boxes` (B, F, N, 4) in [0, 1] and `box_mask`
-    (B, F, N) condition a tracklet UNet."""
+    (B, F, N) condition a tracklet UNet.
+
+    With a frames `shard` (``parallel.World.frame_shard``; every rank of
+    the frames group calls it with the same arguments), the latents, the
+    per-frame guidance and the UNet's frames are this rank's F / n of the
+    video's (the noise is drawn, or given, for all F); CLIP and the image
+    encode run whole on every rank (the image has no frame axis), the int8
+    activation amaxes are the group's, and every rank returns the whole
+    video (``decode_latents_chunked``)."""
     cfg = config
     for mode in (cfg.unet_quant, cfg.vae_quant):
         if mode not in quant.MODES:
@@ -249,6 +275,11 @@ def generate(models: SVDModels, image: torch.Tensor,
         latent_noise = torch.randn((b, f, h8, w8, lat_c), generator=generator,
                                    device=device)
 
+    guidance = torch.linspace(cfg.min_guidance_scale, cfg.max_guidance_scale, f,
+                              dtype=torch.float32, device=device).reshape(1, f, 1, 1, 1)
+    if shard is not None:
+        latent_noise, guidance = shard.own(latent_noise), shard.own(guidance)
+        f = shard.count
     image_embeds, cond_latent = encode_conditioning(
         models, image, cfg.noise_aug_strength, image_noise)
     add_ids = get_add_time_ids(cfg.fps - cfg.fps_offset, cfg.motion_bucket_id,
@@ -261,8 +292,6 @@ def generate(models: SVDModels, image: torch.Tensor,
     scheduler = models.scheduler
     sigmas = scheduler.sigmas(cfg.num_inference_steps)
     latents = latent_noise.float() * scheduler.init_noise_sigma()
-    guidance = torch.linspace(cfg.min_guidance_scale, cfg.max_guidance_scale, f,
-                              dtype=torch.float32, device=device).reshape(1, f, 1, 1, 1)
     k_reuse = max(1, cfg.uncond_reuse_interval)
     n_deep = max(1, cfg.deep_cache_interval)
     deep_kw = dict(cache_depth=cfg.deep_cache_depth)
@@ -280,8 +309,8 @@ def generate(models: SVDModels, image: torch.Tensor,
         prepare_int8(models.vae.decoder)
 
     def unet_out(x_in, t, ehs_, ids_, **kw):
-        with quant.quantized(cfg.unet_quant):
-            out = models.unet(x_in.to(models.dtype), t, ehs_, ids_, **kw)
+        with quant.quantized(cfg.unet_quant, shard):
+            out = models.unet(x_in.to(models.dtype), t, ehs_, ids_, shard=shard, **kw)
         if isinstance(out, tuple):               # return_deep: (out, deep)
             return out[0].float(), out[1]
         return out.float()
@@ -326,5 +355,5 @@ def generate(models: SVDModels, image: torch.Tensor,
         denoised = scheduler.denoised(model_out, latents, sigma)
         latents = scheduler.step(latents, denoised, sigma, sigma_next)
     with quant.quantized(cfg.vae_quant):
-        video = decode_latents_chunked(models, latents, cfg.decode_chunk_size)
+        video = decode_latents_chunked(models, latents, cfg.decode_chunk_size, shard)
     return video.clamp(-1.0, 1.0)

@@ -19,6 +19,13 @@ Port of ``svd_xtend_tpu/diffusion/training.py``:
 The VAE and CLIP run under ``torch.no_grad`` (the JAX package's
 stop_gradient).
 
+Sequence parallelism (``shard=``, a ``parallel.FrameShard``): the pixels
+(and boxes) hold every frame of the rank's rows, the draws the rank's
+frames (``parallel.local_draws``); the rank encodes its frames, takes the
+conditioning from frame 0, which it holds, runs the UNet on its frames and
+weights its part of the loss by the global frame count, so that the sum
+over the frames group is the one-rank loss.
+
 Randomness: every draw is an explicit tensor in ``TrainDraws``, so the tests
 feed the JAX package's draws; ``sample_train_draws`` draws them from a
 ``torch.Generator`` in production.
@@ -33,6 +40,7 @@ import torch
 from ..core import edm
 from ..core.config import TrainConfig
 from ..models.clip import preprocess_for_clip
+from ..parallel.frames import FrameShard
 from .pipeline import SVDModels, get_add_time_ids
 
 
@@ -85,12 +93,14 @@ class TrainBatchEncodings(NamedTuple):
 
 @torch.no_grad()
 def encode_batch(models: SVDModels, pixel_values: torch.Tensor, cfg: TrainConfig,
-                 draws: TrainDraws) -> TrainBatchEncodings:
-    """Frozen-encoder stage on (B, F, H, W, 3) pixels in [-1, 1]."""
-    b, f, h, w, _ = pixel_values.shape
+                 draws: TrainDraws, shard: Optional[FrameShard] = None) -> TrainBatchEncodings:
+    """Frozen-encoder stage on (B, F, H, W, 3) pixels in [-1, 1]; with a
+    frames `shard`, the latents of this rank's frames."""
+    clip = pixel_values if shard is None else shard.own(pixel_values)
+    b, f, h, w, _ = clip.shape
     models.check_resolution(h, w)
     vae, dt = models.vae, models.dtype
-    frames = pixel_values.reshape(b * f, h, w, 3).to(dt)
+    frames = clip.reshape(b * f, h, w, 3).to(dt)
     sampled = vae.encode_sample_chunked(frames, cfg.encode_chunk_size, draws.latent_noise)
     latents = sampled.reshape(b, f, *sampled.shape[1:]) * vae.config.scaling_factor
 
@@ -130,8 +140,10 @@ def box_dropout(boxes: torch.Tensor, box_mask: Optional[torch.Tensor], u: torch.
 def edm_denoising_loss(models: SVDModels, enc: TrainBatchEncodings, cfg: TrainConfig,
                        sigma: torch.Tensor, noise: torch.Tensor,
                        boxes: Optional[torch.Tensor] = None,
-                       box_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The differentiable tail: UNet forward at σ with `noise`, weighted MSE."""
+                       box_mask: Optional[torch.Tensor] = None,
+                       shard: Optional[FrameShard] = None) -> torch.Tensor:
+    """The differentiable tail: UNet forward at σ with `noise`, weighted MSE
+    (with a frames `shard`, this rank's part of it)."""
     latents = enc.latents
     b = latents.shape[0]
     sigmas_b = sigma.float().reshape(b, 1, 1, 1, 1)
@@ -143,19 +155,23 @@ def edm_denoising_loss(models: SVDModels, enc: TrainBatchEncodings, cfg: TrainCo
     add_ids[:, 2] = enc.noise_aug.float()
     dt = models.dtype
     pred = models.unet(model_in.to(dt), edm.sigma_to_t(sigma), enc.image_embeds.to(dt),
-                       add_ids, remat=cfg.remat_policy, boxes=boxes, box_mask=box_mask)
+                       add_ids, remat=cfg.remat_policy, boxes=boxes, box_mask=box_mask,
+                       shard=shard)
     denoised = edm.denoise(pred, noisy, sigmas_b)
-    return edm.weighted_denoising_loss(denoised, latents, sigmas_b)
+    loss = edm.weighted_denoising_loss(denoised, latents, sigmas_b)
+    return loss if shard is None else loss * (shard.count / shard.total)
 
 
 def training_loss(models: SVDModels, pixel_values: torch.Tensor, cfg: TrainConfig,
                   draws: TrainDraws, boxes: Optional[torch.Tensor] = None,
-                  box_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  box_mask: Optional[torch.Tensor] = None,
+                  shard: Optional[FrameShard] = None) -> torch.Tensor:
     """Full loss for one micro-batch of (B, F, H, W, 3) pixels in [-1, 1],
-    with the micro-batch's boxes where it has them. The two stages run
-    under the profiler labels ``train.encode`` and ``train.unet_loss``."""
+    with the micro-batch's boxes where it has them; with a frames `shard`,
+    this rank's part of it. The two stages run under the profiler labels
+    ``train.encode`` and ``train.unet_loss``."""
     with torch.profiler.record_function("train.encode"):
-        enc = encode_batch(models, pixel_values, cfg, draws)
+        enc = encode_batch(models, pixel_values, cfg, draws, shard)
         enc = conditioning_dropout(enc, draws.dropout_u, cfg.conditioning_dropout_prob)
         if boxes is not None and cfg.conditioning_dropout_prob > 0:
             if draws.box_dropout_u is None:
@@ -163,4 +179,5 @@ def training_loss(models: SVDModels, pixel_values: torch.Tensor, cfg: TrainConfi
             box_mask = box_dropout(boxes, box_mask, draws.box_dropout_u,
                                    cfg.conditioning_dropout_prob)
     with torch.profiler.record_function("train.unet_loss"):
-        return edm_denoising_loss(models, enc, cfg, draws.sigma, draws.noise, boxes, box_mask)
+        return edm_denoising_loss(models, enc, cfg, draws.sigma, draws.noise, boxes, box_mask,
+                                  shard)

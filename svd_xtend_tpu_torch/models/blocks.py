@@ -50,6 +50,7 @@ from ..ops.kernels import groupnorm as gnk
 from ..ops.kernels import temporal_resnet as trk
 from ..ops.kernels import upsample_conv as uck
 from ..ops.kernels.dispatch import kernels_enabled
+from ..parallel.frames import FrameShard, gather_frames
 
 
 class GroupNormSiLU(nn.Module):
@@ -293,13 +294,19 @@ class TemporalResnetBlock(nn.Module):
         self.conv2 = TemporalConv(channels, channels)
 
     def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor],
-                blend_weight: torch.Tensor) -> torch.Tensor:
+                blend_weight: torch.Tensor, shard: Optional[FrameShard] = None) -> torch.Tensor:
+        """With a `shard`, x holds this rank's frames: the gather form, every
+        frame gathered, the block run on all of them (the frame convs and
+        both GroupNorms see every frame) and this rank's frames kept; each
+        rank of the frames group computes the whole block."""
         b, f, hh, ww, c = x.shape
         xs = x.reshape(b, f, hh * ww, c)
         if self.time_emb_proj is not None:
             t = self.time_emb_proj(F.silu(temb))           # (B, F, C)
         else:                                              # the VAE decoder
             t = torch.zeros(b, f, c, device=x.device, dtype=x.dtype)
+        if shard is not None:
+            xs, t = gather_frames(xs, shard), gather_frames(t, shard)
         args = (xs, t, self.conv1.taps(), self.conv1.bias, self.conv2.taps(),
                 self.conv2.bias, self.norm1.weight, self.norm1.bias,
                 self.norm2.weight, self.norm2.bias, blend_weight)
@@ -307,6 +314,8 @@ class TemporalResnetBlock(nn.Module):
             out = trk.temporal_resnet_block(*args, groups=self.groups, eps=self.eps)
         else:
             out = trk.temporal_resnet_reference(*args, self.groups, self.eps)
+        if shard is not None:
+            out = shard.own(out)
         return out.reshape(b, f, hh, ww, c)
 
 
@@ -325,16 +334,19 @@ class SpatioTemporalResBlock(nn.Module):
         self.time_mixer = AlphaBlender(merge_factor)
 
     def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor],
-                num_frames: int, skip_cat: Optional[torch.Tensor] = None) -> torch.Tensor:
+                num_frames: int, skip_cat: Optional[torch.Tensor] = None,
+                shard: Optional[FrameShard] = None) -> torch.Tensor:
         """`skip_cat`: the up blocks' skip, the second part of the spatial
-        resnet's input (the temporal resnet reads the spatial output)."""
+        resnet's input (the temporal resnet reads the spatial output).
+        `num_frames`: the frames x holds of each sample (this rank's, with
+        a frames `shard`)."""
         h = self.spatial_res_block(x, temb, skip_cat)
         bf, hh, ww, c = h.shape
         b = bf // num_frames
         temb_frames = temb.reshape(b, num_frames, -1) if temb is not None else None
         out = self.temporal_res_block(h.reshape(b, num_frames, hh, ww, c),
                                       temb_frames,
-                                      1.0 - self.time_mixer.alpha_scalar())
+                                      1.0 - self.time_mixer.alpha_scalar(), shard)
         return out.reshape(bf, hh, ww, c)
 
 

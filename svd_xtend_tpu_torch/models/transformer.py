@@ -42,6 +42,7 @@ from ..ops.kernels import int8_gemm as i8k
 from ..ops.kernels import temporal_attention as tak
 from ..ops.kernels.dispatch import kernels_enabled
 from ..ops.video import spatial_tokens
+from ..parallel.frames import FrameShard, frames_to_tokens, tokens_to_frames
 from . import attn_processor
 from .blocks import AlphaBlender, GroupNormSiLU
 from .embeddings import TimestepEmbedding, sinusoidal_embedding
@@ -242,8 +243,11 @@ class TransformerSpatioTemporalModel(nn.Module):
                                     tracklet_gate_init) for _ in range(num_layers)])
 
     def forward(self, x: torch.Tensor, encoder_hidden_states: torch.Tensor,
-                num_frames: int, tracklet_tokens: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
+                num_frames: int, tracklet_tokens: Optional[torch.Tensor] = None,
+                shard: Optional[FrameShard] = None) -> torch.Tensor:
+        """`num_frames`: the frames x holds of each sample; with a `shard`,
+        this rank's frames of its videos, and the temporal blocks run on a
+        token shard of every frame (``parallel/frames.py``)."""
         bf, h, w, c = x.shape
         f = num_frames
         b = bf // f
@@ -251,19 +255,31 @@ class TransformerSpatioTemporalModel(nn.Module):
         tokens = self.proj_in(spatial_tokens(self.norm(x)))
         inner = tokens.shape[-1]
         # cross-attention context of the temporal blocks: the first frame's
-        # encoder state of each sample, (B, N, D)
+        # encoder state of each sample, (B, N, D); the UNet repeats one state
+        # per sample over its frames, so a rank's first frame holds it too
         time_context = encoder_hidden_states.reshape(
             b, f, -1, encoder_hidden_states.shape[-1])[:, 0]
-        frame_ids = torch.arange(f, dtype=torch.float32, device=x.device)
+        # the frame position embedding of every frame: with a shard it is
+        # added on the token shard, which holds all F frames in order
+        frame_ids = torch.arange(f if shard is None else shard.total, dtype=torch.float32,
+                                 device=x.device)
         emb = self.time_pos_embed(sinusoidal_embedding(frame_ids, inner).to(tokens.dtype))
-        emb = emb.repeat(b, 1)[:, None, :]                 # (B*F, 1, inner)
+        if shard is None:
+            emb = emb.repeat(b, 1)[:, None, :]             # (B*F, 1, inner)
         gated = self.gated_attentions if tracklet_tokens is not None else None
         for i, (block, tblock) in enumerate(zip(self.transformer_blocks,
                                                 self.temporal_transformer_blocks)):
             tokens = block(tokens, encoder_hidden_states)
             if gated is not None:
                 tokens = gated[i](tokens, tracklet_tokens)
-            mix = (tokens + emb).reshape(b, f, h * w, inner)
-            mix = tblock(mix, time_context).reshape(bf, h * w, inner)
+            if shard is None:
+                mix = (tokens + emb).reshape(b, f, h * w, inner)
+                mix = tblock(mix, time_context).reshape(bf, h * w, inner)
+            else:
+                # (B, F/n, S, C) -> (B, F, S_r, C), the whole block on every
+                # frame of this rank's tokens, and back
+                mix = frames_to_tokens(tokens.reshape(b, f, h * w, inner), shard)
+                mix = tblock(mix + emb[None, :, None, :], time_context)
+                mix = tokens_to_frames(mix, shard, h * w).reshape(bf, h * w, inner)
             tokens = self.time_mixer(tokens, mix)
         return self.proj_out(tokens).reshape(bf, h, w, c) + residual

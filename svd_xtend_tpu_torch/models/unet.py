@@ -32,6 +32,14 @@ one without its downsampler, whose output only fed the skipped levels),
 ``deep`` in place of the skipped trunk, then up blocks [n_up - d, n_up) and
 the head. ``shallow(x, full(x).deep) == full(x)``: the same operations on
 the same tensors.
+
+Sequence parallelism (``shard=``, a ``parallel.FrameShard``): each rank of a
+frames group runs the spatial layers on its F / n frames; the temporal
+transformer blocks swap to a token shard of every frame and back, the
+temporal resnets gather every frame (``parallel/frames.py``). The shard is
+an argument of every block, not thread-local state, so a checkpointed
+block's recompute (on the autograd engine's thread) runs the same
+collectives in the same order on every rank.
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core.config import UNetConfig
 from ..ops.kernels.dispatch import kernels_enabled, plain_versions
+from ..parallel.frames import FrameShard
 from . import attn_processor
 from .blocks import (Conv3x3, Downsample2D, GroupNormSiLU, SpatioTemporalResBlock,
                      Upsample2D)
@@ -76,12 +85,13 @@ class DownBlock(nn.Module):
         self.downsamplers = (nn.ModuleList([Downsample2D(out_channels, out_channels)])
                              if add_downsample else None)
 
-    def forward(self, x, temb, ehs, num_frames, downsample: bool = True, tokens=None):
+    def forward(self, x, temb, ehs, num_frames, downsample: bool = True, tokens=None,
+                shard=None):
         skips = []
         for i, resnet in enumerate(self.resnets):
-            x = resnet(x, temb, num_frames)
+            x = resnet(x, temb, num_frames, shard=shard)
             if self.attentions is not None:
-                x = self.attentions[i](x, ehs, num_frames, tokens)
+                x = self.attentions[i](x, ehs, num_frames, tokens, shard)
             skips.append(x)
         if self.downsamplers is not None and downsample:
             x = self.downsamplers[0](x)
@@ -105,10 +115,10 @@ class MidBlock(nn.Module):
                                             tracklet_dim=tracklet[0],
                                             tracklet_gate_init=tracklet[1])])
 
-    def forward(self, x, temb, ehs, num_frames, tokens=None):
-        x = self.resnets[0](x, temb, num_frames)
-        x = self.attentions[0](x, ehs, num_frames, tokens)
-        return self.resnets[1](x, temb, num_frames)
+    def forward(self, x, temb, ehs, num_frames, tokens=None, shard=None):
+        x = self.resnets[0](x, temb, num_frames, shard=shard)
+        x = self.attentions[0](x, ehs, num_frames, tokens, shard)
+        return self.resnets[1](x, temb, num_frames, shard=shard)
 
 
 class UpBlock(nn.Module):
@@ -139,11 +149,12 @@ class UpBlock(nn.Module):
         self.upsamplers = (nn.ModuleList([Upsample2D(out_channels)])
                            if add_upsample else None)
 
-    def forward(self, x, skips: List[torch.Tensor], temb, ehs, num_frames, tokens=None):
+    def forward(self, x, skips: List[torch.Tensor], temb, ehs, num_frames, tokens=None,
+                shard=None):
         for i, resnet in enumerate(self.resnets):
-            x = resnet(x, temb, num_frames, skip_cat=skips[-(i + 1)])
+            x = resnet(x, temb, num_frames, skip_cat=skips[-(i + 1)], shard=shard)
             if self.attentions is not None:
-                x = self.attentions[i](x, ehs, num_frames, tokens)
+                x = self.attentions[i](x, ehs, num_frames, tokens, shard)
         if self.upsamplers is not None:
             x = self.upsamplers[0](x)
         return x
@@ -206,8 +217,12 @@ class UNetSpatioTemporalConditionModel(nn.Module):
                 cached_deep: Optional[torch.Tensor] = None, return_deep: bool = False,
                 cache_depth: int = 1, boxes: Optional[torch.Tensor] = None,
                 box_mask: Optional[torch.Tensor] = None,
-                instance_ids: Optional[torch.Tensor] = None):
-        """(B, F, H, W, out) — with ``return_deep``, (out, deep feature)."""
+                instance_ids: Optional[torch.Tensor] = None,
+                shard: Optional[FrameShard] = None):
+        """(B, F, H, W, out) — with ``return_deep``, (out, deep feature).
+        With a frames `shard`, `sample` (and `cached_deep`, the output and
+        the deep feature) hold this rank's frames, and `boxes` / `box_mask`
+        every frame."""
         cfg = self.config
         if remat not in ("none", "block", "outer"):
             raise ValueError(f"unknown remat policy {remat!r}")
@@ -227,6 +242,8 @@ class UNetSpatioTemporalConditionModel(nn.Module):
             return checkpoint(_labelled(block), *args, use_reentrant=False)
 
         b, f, h, w, _ = sample.shape
+        if shard is not None and f != shard.count:
+            raise ValueError(f"a sample of {f} frames for a shard of {shard.count}")
         dtype = self.conv_in.weight.dtype
         device = sample.device
         timestep = torch.as_tensor(timestep, dtype=torch.float32, device=device)
@@ -246,6 +263,11 @@ class UNetSpatioTemporalConditionModel(nn.Module):
             if box_mask is None:
                 box_mask = torch.ones(boxes.shape[:3], device=boxes.device)
             tokens = self.tracklet_conditioner(boxes, box_mask, instance_ids)
+            if shard is not None:
+                # the enhancer attends over frames: every rank tokenises the
+                # whole clip and keeps its frames
+                tokens = shard.own(tokens.reshape((b, -1) + tokens.shape[1:]))
+                tokens = tokens.reshape((b * f,) + tokens.shape[2:])
 
         x = self.conv_in(x)
         skips = [x]
@@ -253,10 +275,10 @@ class UNetSpatioTemporalConditionModel(nn.Module):
             if shallow and i >= cache_depth:
                 break
             downsample = not (shallow and i == cache_depth - 1)
-            x, res = run(block, i, x, emb_f, ehs_f, f, downsample, tokens)
+            x, res = run(block, i, x, emb_f, ehs_f, f, downsample, tokens, shard)
             skips.extend(res)
         if not shallow:
-            x = run(self.mid_block, None, x, emb_f, ehs_f, f, tokens)
+            x = run(self.mid_block, None, x, emb_f, ehs_f, f, tokens, shard)
         deep = None
         for i, block in enumerate(self.up_blocks):
             if shallow and i < n_up - cache_depth:
@@ -264,7 +286,7 @@ class UNetSpatioTemporalConditionModel(nn.Module):
             if shallow and i == n_up - cache_depth:
                 x = cached_deep.to(dtype).reshape((b * f,) + cached_deep.shape[2:])
             n_res = len(block.resnets)
-            x = run(block, n_levels - 1 - i, x, skips[-n_res:], emb_f, ehs_f, f, tokens)
+            x = run(block, n_levels - 1 - i, x, skips[-n_res:], emb_f, ehs_f, f, tokens, shard)
             skips = skips[:-n_res]
             if return_deep and i == n_up - cache_depth - 1:
                 deep = x

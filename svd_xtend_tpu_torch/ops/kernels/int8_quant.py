@@ -13,6 +13,13 @@ the scale on the device: ``stats`` is a (2,) f32 tensor (amax, scale) that
 the GEMM's epilogue reads (``ops/kernels/int8_gemm.py``), so nothing waits
 for the host.
 
+Under sequence parallelism (``quant.quantized(mode, shard)``) the tensor
+of a call is split over the ranks of a frames group, and its amax is the
+largest over the group: the plain version all-reduces its amax; the kernel
+runs its two passes apart (``phase`` 1, then 2) with the partial amaxes
+all-reduced between them in a buffer of MAX_BLOCKS (the ranks' grids may
+differ), which the second pass reads whole.
+
 On a CPU tensor ``quantize`` runs the plain version; on a CUDA tensor it
 launches the kernel or raises.
 """
@@ -23,6 +30,7 @@ from typing import Optional
 
 import torch
 
+from ...parallel.frames import all_reduce_max_
 from .. import quant
 from ._build import check, library
 from .conv3x3 import apply_pre_affine
@@ -51,8 +59,14 @@ def quantize_reference(x: torch.Tensor, pre=None, x2: Optional[torch.Tensor] = N
             c0 = c1
         parts = out
     v = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
-    codes, scale = quant.quantize_dynamic(v)
-    amax = v.float().abs().amax()
+    shard = quant.amax_shard()
+    if shard is None:
+        codes, scale = quant.quantize_dynamic(v)
+        amax = v.float().abs().amax()
+    else:
+        amax = all_reduce_max_(v.float().abs().amax(), shard)
+        scale = quant.scale_of(amax)
+        codes = quant.codes(v.float(), scale)
     return codes, torch.stack([amax, scale])
 
 
@@ -97,12 +111,23 @@ def _launch(x, pre, x2):
     q = torch.empty(x.shape[:-1] + (c,), device=x.device, dtype=torch.int8)
     stats = torch.empty(2, device=x.device, dtype=torch.float32)
     blocks = blocks_for(m * c)
-    partials = torch.empty(blocks, device=x.device, dtype=torch.float32)
+    shard = quant.amax_shard()
+    partials = (torch.empty(blocks, device=x.device, dtype=torch.float32) if shard is None
+                else torch.zeros(MAX_BLOCKS, device=x.device, dtype=torch.float32))
     ptr = lambda a: None if a is None else a.data_ptr()
-    check(library().svdx_int8_quantize(
-        x.data_ptr(), ptr(x2), ptr(sc), ptr(sh), q.data_ptr(), partials.data_ptr(),
-        stats.data_ptr(), m, c, c1, rows_per_sample, int(bool(silu)), blocks,
-        torch.cuda.current_stream(x.device).cuda_stream), "int8_quantize")
+
+    def run(phase):
+        check(library().svdx_int8_quantize(
+            x.data_ptr(), ptr(x2), ptr(sc), ptr(sh), q.data_ptr(), partials.data_ptr(),
+            stats.data_ptr(), m, c, c1, rows_per_sample, int(bool(silu)), blocks, phase,
+            torch.cuda.current_stream(x.device).cuda_stream), "int8_quantize")
+
+    if shard is None:
+        run(0)
+    else:
+        run(1)
+        all_reduce_max_(partials, shard)
+        run(2)
     quantize.launches += 1
     return q, stats
 

@@ -65,6 +65,7 @@ INV_QMAX2 = (torch.tensor(INV_QMAX, dtype=torch.float32) ** 2).item()
 AMAX_FLOOR = 1e-12
 
 _mode: Optional[str] = None
+_shard = None
 
 
 def set_mode(mode: Optional[str]) -> None:
@@ -81,14 +82,26 @@ def get_mode() -> Optional[str]:
 
 
 @contextmanager
-def quantized(mode: Optional[str]):
-    """The mode inside the block, the previous one after it."""
-    prev = _mode
+def quantized(mode: Optional[str], shard=None):
+    """The mode inside the block, the previous one after it. With a frames
+    `shard` (``parallel.FrameShard``), each activation's amax is the largest
+    over the frames group (``amax_shard``): the union of the ranks' tensors
+    is the one-rank tensor, whose amax the one-rank codes take."""
+    global _shard
+    prev = _mode, _shard
     set_mode(mode)
+    _shard = shard
     try:
         yield
     finally:
-        set_mode(prev)
+        set_mode(prev[0])
+        _shard = prev[1]
+
+
+def amax_shard():
+    """The frames shard whose group an activation's amax is reduced over, or
+    None."""
+    return _shard
 
 
 def clamped(amax: torch.Tensor) -> torch.Tensor:
@@ -106,7 +119,8 @@ def dequant_scale(x_amax: torch.Tensor, w_amax: torch.Tensor) -> torch.Tensor:
     return w_amax.float() * (clamped(x_amax) * INV_QMAX2)
 
 
-def _codes(v: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+def codes(v: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """The int8 codes of f32 `v` at `scale`."""
     return torch.round(v / scale).clamp_(-QMAX, QMAX).to(torch.int8)
 
 
@@ -115,14 +129,14 @@ def quantize_dynamic(x: torch.Tensor):
     0-dim tensor on x's device)."""
     xf = x.float()
     scale = scale_of(xf.abs().amax())
-    return _codes(xf, scale), scale
+    return codes(xf, scale), scale
 
 
 def _per_row(w2d: torch.Tensor):
     """Per-row int8 of (rows, K): (codes, clamped amaxes (rows,))."""
     wf = w2d.float()
     amax = clamped(wf.abs().amax(dim=1))
-    return _codes(wf, (amax * INV_QMAX)[:, None]), amax
+    return codes(wf, (amax * INV_QMAX)[:, None]), amax
 
 
 def weight_codes_per_co(weight: torch.Tensor):

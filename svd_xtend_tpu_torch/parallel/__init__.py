@@ -6,7 +6,7 @@ lets GSPMD insert the collectives; here each card is a process (started by
 ``torchrun``, or one process for one card), and the collectives are explicit:
 
   - data parallelism: each rank takes its rows of the global batch
-    (``rows``); every rank draws the global batch's noise, sigmas and
+    (``rows``, by its data index); every rank draws the global batch's noise, sigmas and
     dropout from the step's generator and keeps its rows (``local_draws``),
     so a step over N ranks is the one-rank step over the same global batch;
     the trainable gradients are all-reduced as a mean, in buckets, before
@@ -27,10 +27,21 @@ lets GSPMD insert the collectives; here each card is a process (started by
 A checkpoint holds the same files whatever the world size: the partitioned
 state is gathered to rank 0 for a save (``gather_to_main``), and every rank
 reads the full file on restore and keeps its part, so a run resumes at
-another world size. ``generate_rows`` is the counterpart of
-``make_sharded_generate`` (sharding.py:173-203) for the batch axis. NCCL on
-cards, gloo on the CPU. The tensor-parallel rules ('model' axis) and the
-sequence parallelism ('frames' axis) are not ported (ROADMAP).
+another world size and layout. NCCL on cards, gloo on the CPU.
+
+The 'frames' axis (sequence parallelism, ``frames.py``): ``mesh_world`` lays
+``MeshConfig(data, model=1, frames)`` over the ranks as the JAX package's
+``create_mesh`` reshapes its devices (core/mesh.py:36-49): data outer,
+frames inner, so rank = data index · frames + frames index. A ``World``
+then holds its frames group (the ranks of its data row) and its data group
+(the ranks of its frames index). Each rank holds F / frames of every video
+of its rows (``World.frame_shard``); the draws are the global batch's, of
+which ``local_draws`` keeps this rank's rows and frames; the gradients are
+summed over the frames group and averaged over the data group
+(``all_reduce_mean_``); ZeRO-1 partitions over every rank of the world.
+``generate_rows`` is the counterpart of ``make_sharded_generate``
+(sharding.py:173-203) for both axes. The tensor-parallel rules ('model'
+axis) are not ported (ROADMAP A18).
 """
 
 from __future__ import annotations
@@ -42,17 +53,24 @@ from typing import Callable, Dict, List, Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from .frames import FrameShard, comm_device
+
 # an all-reduce or broadcast bucket holds at most this many values
 BUCKET_VALUES = 1 << 25
 
 
 @dataclasses.dataclass(frozen=True)
 class World:
-    """This process's place among the data-parallel ranks."""
+    """This process's place among the ranks: `size` ranks in a (data,
+    frames) layout with `frames` ranks a frames group (data outer, frames
+    inner); the groups are None on a frames axis of 1."""
 
     rank: int = 0
     size: int = 1
     local_rank: int = 0
+    frames: int = 1
+    frames_group: Optional[object] = None
+    data_group: Optional[object] = None
 
     @property
     def main(self) -> bool:
@@ -63,6 +81,33 @@ class World:
     def collective(self) -> bool:
         """Whether a process group is up (a world of one included)."""
         return dist.is_available() and dist.is_initialized()
+
+    @property
+    def data(self) -> int:
+        """The size of the data axis."""
+        return self.size // self.frames
+
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.frames
+
+    @property
+    def frames_index(self) -> int:
+        return self.rank % self.frames
+
+    def frame_shard(self, num_frames: int) -> Optional[FrameShard]:
+        """This rank's frames of a video of `num_frames` (None on a frames
+        axis of 1); raises ValueError unless the axis divides them."""
+        if self.frames == 1:
+            return None
+        first = self.data_index * self.frames
+        return FrameShard(self.frames_group, tuple(range(first, first + self.frames)),
+                          self.frames_index, num_frames)
+
+    def frames_of(self, num_frames: int) -> slice:
+        """This rank's frames of a video of `num_frames`."""
+        shard = self.frame_shard(num_frames)
+        return slice(0, num_frames) if shard is None else shard.frames
 
 
 SINGLE = World()
@@ -76,18 +121,47 @@ def env_world() -> World:
                  int(env.get("LOCAL_RANK", 0)))
 
 
-def init_world(device_type: str) -> World:
-    """The data-parallel world of this process: torchrun's environment, its
-    process group started through it (``env://``: MASTER_ADDR, MASTER_PORT)
-    on NCCL for cards and gloo for the CPU when WORLD_SIZE is set, else one
-    rank without a group."""
+def init_world(device_type: str, mesh=None) -> World:
+    """The world of this process: torchrun's environment, its process group
+    started through it (``env://``: MASTER_ADDR, MASTER_PORT) on NCCL for
+    cards and gloo for the CPU when WORLD_SIZE is set, else one rank without
+    a group. A group already up is left as it is (a caller may start one
+    itself, e.g. gloo for two ranks on one card). With a `mesh`
+    (``MeshConfig``), laid out by ``mesh_world``."""
     world = env_world()
     if "WORLD_SIZE" in os.environ and not (dist.is_available() and dist.is_initialized()):
         if device_type == "cuda":
             torch.cuda.set_device(world.local_rank)
         dist.init_process_group("nccl" if device_type == "cuda" else "gloo",
                                 init_method="env://", rank=world.rank, world_size=world.size)
-    return world
+    return world if mesh is None else mesh_world(world, mesh)
+
+
+def mesh_world(world: World, mesh) -> World:
+    """`world` laid out as ``MeshConfig(data, model, frames)``: data outer,
+    frames inner (the JAX package's ``create_mesh``); a data axis of -1
+    takes the ranks the frames axis leaves. Every rank must call it (each
+    creates every group, in the same order). Raises ValueError for a layout
+    the world does not hold or the port does not run, and RuntimeError for
+    a frames axis without a process group."""
+    if mesh.model != 1:
+        raise ValueError(f"not ported yet: a 'model' mesh axis of {mesh.model} (ROADMAP A18)")
+    frames = mesh.frames
+    if frames < 1 or world.size % frames:
+        raise ValueError(f"a frames axis of {frames} over {world.size} rank(s)")
+    data = world.size // frames
+    if mesh.data not in (-1, data):
+        raise ValueError(f"mesh data {mesh.data} x frames {frames} over {world.size} rank(s)")
+    if frames == 1:
+        return dataclasses.replace(world, frames=1, frames_group=None, data_group=None)
+    if not world.collective:
+        raise RuntimeError(f"a frames axis of {frames} needs a process group")
+    frames_groups = [dist.new_group(list(range(d * frames, (d + 1) * frames)))
+                     for d in range(data)]
+    data_groups = [dist.new_group(list(range(f, world.size, frames))) for f in range(frames)]
+    return dataclasses.replace(world, frames=frames,
+                               frames_group=frames_groups[world.rank // frames],
+                               data_group=data_groups[world.rank % frames])
 
 
 def close_world(world: World) -> None:
@@ -95,26 +169,33 @@ def close_world(world: World) -> None:
         dist.destroy_process_group()
 
 
-def comm_device(device: torch.device) -> torch.device:
-    """Where the collectives' buffers live: the card for NCCL, else the CPU."""
-    return device if dist.get_backend() == "nccl" else torch.device("cpu")
-
-
 def rows(n_local: int, world: World) -> slice:
-    """This rank's rows of a global batch of n_local · size rows."""
-    return slice(world.rank * n_local, (world.rank + 1) * n_local)
+    """This rank's rows of a global batch of n_local · data rows (the rows
+    of its data index)."""
+    return slice(world.data_index * n_local, (world.data_index + 1) * n_local)
 
 
 def local_draws(draws, world: World, batch: int):
-    """The rows of this rank's `batch` samples out of the global batch's
-    draws (a TrainDraws of size · batch samples; its posterior noise has a
-    row per frame)."""
+    """This rank's part of the global batch's draws (a TrainDraws of data ·
+    batch samples of F frames): its `batch` rows, and of the per-frame
+    draws its frames (``latent_noise``, a row per frame in frame order, and
+    ``noise``, (B, F, ...)); every other draw is per sample."""
     if world.size == 1:
         return draws
     frames = draws.latent_noise.shape[0] // draws.sigma.shape[0]
-    pick = lambda t, per: None if t is None else t[rows(batch * per, world)]
-    return type(draws)(*(pick(t, frames if name == "latent_noise" else 1)
-                         for name, t in zip(draws._fields, draws)))
+    mine = world.frames_of(frames)
+    out = []
+    for name, t in zip(draws._fields, draws):
+        if t is not None:
+            if name == "latent_noise":
+                t = t.reshape((-1, frames) + t.shape[1:])[rows(batch, world), mine]
+                t = t.reshape((-1,) + t.shape[2:])
+            else:
+                t = t[rows(batch, world)]
+                if name == "noise":
+                    t = t[:, mine]
+        out.append(t)
+    return type(draws)(*out)
 
 
 def _buckets(indices: Sequence[int], tensors: Sequence[torch.Tensor]):
@@ -134,15 +215,17 @@ def _buckets(indices: Sequence[int], tensors: Sequence[torch.Tensor]):
 
 @torch.no_grad()
 def all_reduce_mean_(tensors: List[torch.Tensor], world: World) -> None:
-    """In place: every tensor the mean of its values over the ranks, summed
-    in buckets of one dtype (a no-op without a process group)."""
+    """In place: every tensor the mean over the data axis of its sum over
+    the frames axis (each rank of a frames group holds a part of its rows'
+    sum), summed over every rank in buckets of one dtype and divided by the
+    data axis's size (a no-op without a process group)."""
     if not world.collective:
         return
     dev = comm_device(tensors[0].device) if tensors else None
     for run in _buckets(range(len(tensors)), tensors):
         flat = torch.cat([tensors[i].reshape(-1).to(dev) for i in run])
         dist.all_reduce(flat)
-        flat.div_(world.size)
+        flat.div_(world.data)
         offset = 0
         for i in run:
             t = tensors[i]
@@ -224,13 +307,15 @@ def generate_rows(models, images: torch.Tensor, config, world: World, *,
                   latent_noise: Optional[torch.Tensor] = None, **kw) -> torch.Tensor:
     """``generate`` over the ranks: `images` (B, H, W, 3) is the global
     batch, each rank draws the global noise (from `generator`, or takes it
-    as given) and generates its B / size rows; returns this rank's rows of
-    the video (B / size, F, H, W, 3). With one rank, ``generate``."""
+    as given) and generates the B / data rows of its data index, over its
+    frames group's frames shards where the world has a frames axis; returns
+    this rank's rows of the whole video (B / data, F, H, W, 3), the same on
+    every rank of a frames group. With one rank, ``generate``."""
     from ..diffusion.pipeline import generate
 
     b = images.shape[0]
-    if b % world.size:
-        raise ValueError(f"a batch of {b} over {world.size} ranks")
+    if b % world.data:
+        raise ValueError(f"a batch of {b} over a data axis of {world.data}")
     if world.size == 1:
         return generate(models, images, config, generator=generator, image_noise=image_noise,
                         latent_noise=latent_noise, **kw)
@@ -241,7 +326,8 @@ def generate_rows(models, images: torch.Tensor, config, world: World, *,
         image_noise = torch.randn(images.shape, generator=generator, device=images.device)
     if latent_noise is None:
         latent_noise = torch.randn(lat, generator=generator, device=images.device)
-    mine = rows(b // world.size, world)
+    mine = rows(b // world.data, world)
     boxes = {k: v[mine] for k, v in kw.items() if k in ("boxes", "box_mask") and v is not None}
     return generate(models, images[mine], config, image_noise=image_noise[mine],
-                    latent_noise=latent_noise[mine], **{**kw, **boxes})
+                    latent_noise=latent_noise[mine], **{**kw, **boxes},
+                    shard=world.frame_shard(config.num_frames))

@@ -212,7 +212,7 @@ def check_mesh(args) -> None:
     or a 'data' axis other than the world torchrun started."""
     if args.mesh_model != 1:
         raise ValueError(f"not ported yet: --mesh_model {args.mesh_model} (the tensor-parallel "
-                         "rules are a TPU layout; the port parallelises the batch alone)")
+                         "rules are ROADMAP A18)")
     size = env_world().size
     if args.mesh_data not in (-1, size):
         raise ValueError(f"--mesh_data {args.mesh_data}: the world has {size} rank(s) "

@@ -21,7 +21,12 @@ Port of ``svd_xtend_tpu/train/state.py``:
     global batch's draws, its gradients averaged over the ranks before the
     clip; under ZeRO-1 the EMA, like the moments, is held by each tensor's
     owner alone (None elsewhere); with host offload the masters live in
-    host memory and the EMA on the card.
+    host memory and the EMA on the card;
+  - sequence parallelism (a 'frames' mesh axis): a rank's batch holds every
+    frame of its rows and it keeps its frames; the gradients are summed
+    over the frames group and averaged over the data axis, so every rank
+    clips and applies the one-rank gradient; ZeRO-1 partitions over every
+    rank of the world.
 
 Mixed precision: the networks hold their weights in the compute dtype (bf16)
 and compute in it, without autocast; the state holds f32 master copies of
@@ -263,14 +268,15 @@ def cast_frozen_to_compute(models: SVDModels, dtype: torch.dtype) -> SVDModels:
 
 
 def loss_and_grads(models: SVDModels, cfg: TrainConfig, state: TrainState,
-                   batch, draws: TrainDraws):
+                   batch, draws: TrainDraws, shard=None):
     """One micro-batch's loss and its gradients with respect to the tensors
     the scope trains: the UNet's compute copies of the masters, or the
     adapter itself (a bf16 copy of it with ``grad_dtype="bf16"``). Unused
     tensors (the q/k projections of the single-token cross-attentions and
     their adapters) get zero gradients, as under jax.grad. `batch` is the
-    micro-batch's pixels or its Tracklet2Video dict. The backward runs
-    under the profiler label ``train.backward``."""
+    micro-batch's pixels or its Tracklet2Video dict; with a frames `shard`,
+    the loss and gradients are this rank's parts. The backward runs under
+    the profiler label ``train.backward``."""
     if state.lora is None:
         named = dict(models.unet.named_parameters())
         wrt, scope = [named[n] for n in state.names], contextlib.nullcontext()
@@ -287,7 +293,7 @@ def loss_and_grads(models: SVDModels, cfg: TrainConfig, state: TrainState,
     else:
         pixels, boxes = batch, {}
     with scope:
-        loss = training_loss(models, pixels, cfg, draws, **boxes)
+        loss = training_loss(models, pixels, cfg, draws, **boxes, shard=shard)
         with torch.profiler.record_function("train.backward"):
             grads = torch.autograd.grad(loss, wrt, materialize_grads=True)
     if cfg.grad_dtype == "bf16":
@@ -307,14 +313,23 @@ def make_train_step(models: SVDModels, cfg: TrainConfig, world: World = SINGLE):
     ``train.optimizer``. Over a data-parallel `world`, `batch` is this
     rank's rows of the global batch, the draws from `generator` are its rows
     of the global batch's, the gradients are averaged over the ranks before
-    the clip, and the metrics are the global batch's (the loss averaged)."""
+    the clip, and the metrics are the global batch's (the loss averaged).
+    Over a frames axis (``cfg.mesh.frames``, which must be the world's),
+    `batch` holds every frame of the rank's rows, the rank keeps its frames
+    of them and of the draws, and the loss and gradients are summed over the
+    frames group (and averaged over the data axis): the metrics and the
+    update are the one-rank step's."""
     cfg.check_ported()
+    if cfg.mesh.frames != world.frames:
+        raise ValueError(f"a frames axis of {cfg.mesh.frames} in the config and "
+                         f"{world.frames} in the world")
     accum = cfg.gradient_accumulation_steps
     gdt = torch.bfloat16 if cfg.grad_dtype == "bf16" else torch.float32
 
     def step(state: TrainState, batch, *,
              generator: Optional[torch.Generator] = None, draws=None):
         pixels = batch["pixel_values"] if isinstance(batch, dict) else batch
+        shard = world.frame_shard(pixels.shape[-4])
         if accum == 1:
             micro = [batch]
         elif isinstance(batch, dict):
@@ -323,7 +338,7 @@ def make_train_step(models: SVDModels, cfg: TrainConfig, world: World = SINGLE):
             micro = list(batch)
         if draws is None:
             shape = pixels.shape[1:] if accum > 1 else pixels.shape
-            whole = (shape[0] * world.size,) + tuple(shape[1:])
+            whole = (shape[0] * world.data,) + tuple(shape[1:])
             draws = [local_draws(sample_train_draws(models, whole, cfg, generator,
                                                     pixels.device), world, shape[0])
                      for _ in range(accum)]
@@ -331,7 +346,7 @@ def make_train_step(models: SVDModels, cfg: TrainConfig, world: World = SINGLE):
             draws = [draws]
         grads, loss_sum = None, 0.0
         for mb, d in zip(micro, draws):
-            loss, g = loss_and_grads(models, cfg, state, mb, d)
+            loss, g = loss_and_grads(models, cfg, state, mb, d, shard)
             if grads is None:
                 grads = [x.to(gdt) for x in g]
             else:

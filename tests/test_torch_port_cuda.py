@@ -1682,3 +1682,42 @@ def test_int8_conv_at_other_resolutions(rn, shape):
     n, h, w, ci, co = shape
     args = _int8_conv_inputs(rn, n, h, w, ci, co, "post" if ci == co else "none")
     _same_bits(ig.int8_conv3x3(*args), ig.conv_reference(*args))
+
+
+def test_frames_collectives_over_a_world_of_one(rn, monkeypatch):
+    """The frames axis's collectives on card tensors in an NCCL group of one
+    (no host staging): the all-to-all pair and the gather are the identity
+    with their backward, and the int8 quantiser's two passes with the
+    partial amaxes reduced between them (quant.quantized(mode, shard)) give
+    the one-launch codes and stats bit for bit."""
+    import socket
+
+    import torch.distributed as dist
+
+    from svd_xtend_tpu_torch import parallel
+    from svd_xtend_tpu_torch.parallel import frames as fr
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    for k, v in dict(MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK="0",
+                     WORLD_SIZE="1", LOCAL_RANK="0").items():
+        monkeypatch.setenv(k, v)
+    world = parallel.init_world("cuda")
+    try:
+        shard = fr.FrameShard(dist.group.WORLD, (0,), 0, 14)
+        fr.STAGED.reset()
+        x = rn(2, 14, 40, 320).requires_grad_(True)
+        y = fr.tokens_to_frames(fr.frames_to_tokens(x, shard), shard, 40)
+        z = fr.gather_frames(y, shard)
+        assert torch.equal(z, x)
+        (g,) = torch.autograd.grad(z, x, torch.ones_like(z))
+        assert torch.equal(g, torch.ones_like(x)) and fr.STAGED.bytes == 0
+        for shape in ((28, 40, 64, 320), (71680, 320), (3, 7, 36)):
+            v = rn(*shape) * 3
+            q0, s0 = iq.quantize(v)
+            with qt.quantized("int8", shard):
+                q, stats = iq.quantize(v)
+            _same_bits(q, q0)
+            _same_bits(stats, s0)
+    finally:
+        parallel.close_world(world)

@@ -58,7 +58,7 @@ def test_train_config_copy_matches_jax_fields(name):
 
 
 @pytest.mark.parametrize("kw", [dict(zero1=True, mesh=tcfg.MeshConfig(model=2)),
-                                dict(mesh=tcfg.MeshConfig(frames=2)),
+                                dict(mesh=tcfg.MeshConfig(frames=2), num_frames=3),
                                 dict(host_offload="masters", train_mode="lora",
                                      mesh=tcfg.MeshConfig(model=2)),
                                 dict(grad_dtype="fp16"), dict(train_mode="encoder"),
