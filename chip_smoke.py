@@ -379,6 +379,7 @@ class KernelPhase:
         # path ("generate": no LSE, "train": with it) -> {(batch, S_q, S_kv): forward device ms}
         self.fwd_ms = {"generate": {}, "train": {}}
         self.geglu_ms = {}      # (T, C) -> device ms per launch
+        self.geglu_partial_ms = {}  # (T, C, inner) -> the partial form's device ms per launch
         self.tresnet_ms = {}    # x's shape (B, F, S, C) -> device (conv_a ms, conv_b ms)
         self.frame_ms = {}      # q's shape (B, F, S, H*64) -> frame attention device ms
         self.gn_ms = {}         # (x's shape, silu) -> group_norm_silu device ms
@@ -801,10 +802,49 @@ def kernel_phases(dev) -> KernelPhase:
             f"{mod_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); plan {plan}")
         del args
 
+    geglu_partial_phase(ph, rn)
+
     log("kernels: flash attention forward with LSE and backward (training batch 14 frames)")
     for b, s_len, h in [(14, 2560, 5), (14, 640, 10), (14, 160, 20), (14, 40, 20)]:
         flash_train_level(ph, rn, b, s_len, h)
     return ph
+
+
+def geglu_partial_phase(ph: KernelPhase, rn):
+    """The GEGLU kernel's partial form (tensor parallelism: a model rank's
+    inner columns, no b2, no residual) at the full-width shard shapes of a
+    model axis of 2 (inner 2C), every T of GEGLU_SHAPES, against its plain
+    version; device ms per launch in a CUDA graph beside the whole form's
+    at the same T and C."""
+    from svd_xtend_tpu_torch.ops.kernels import geglu as gg
+
+    log(f"kernels: GEGLU partial form at the shard shapes of a model axis of {MODEL_RANKS} "
+        "(inner 4C / 2 of each level); device ms per launch in a CUDA graph")
+    for t, c in GEGLU_SHAPES:
+        inner = 4 * c // MODEL_RANKS
+        args = [rn(t, c), 1 + 0.1 * rn(c), 0.1 * rn(c), rn(2 * inner, c, sc=c ** -0.5),
+                0.1 * rn(2 * inner), rn(c, inner, sc=inner ** -0.5)]
+        run = lambda: gg.ln_geglu_partial(*args)
+        plain = lambda: gg.ln_geglu_partial_reference(*args)
+        got = run()
+        ph.check("geglu_partial", got, plain(), f"T {t} C {c} inner {inner}")
+        if not torch.equal(got, run()):
+            raise RuntimeError(f"geglu_partial T {t} C {c}: two runs differ")
+        x, _, _, w1, _, w2 = args
+        flops, moved = 6 * t * c * inner, nbytes(x, x, w1, w2)
+        if t == 35840:
+            ph.time("geglu_partial", run, plain, flops, moved, label=f"L0 inner {inner}")
+        ph.geglu_partial_ms[(t, c, inner)] = dev_ms = graph_ms(run)
+        if t == 35840:
+            ph.times["geglu_partial"]["device_ms"] = dev_ms
+        b_ms, b_by = bound_ms(flops, moved)
+        plan = "; ".join(f"bn {p.bn} ks {p.k_slices} grid {p.grid}"
+                         for p in gg.geglu_plan(t, c, inner=inner))
+        whole = ph.geglu_ms.get((t, c))
+        log(f"  geglu_partial T {t} C {c} inner {inner}: device {dev_ms:.4f} ms "
+            f"({flops / dev_ms / 1e9:.1f} TFLOP/s), the whole form {whole:.4f} ms at inner "
+            f"{4 * c}; bound {b_ms:.4f} ms ({b_by}); plan {plan}")
+        del args
 
 
 def flash_train_level(ph: KernelPhase, rn, b, s_len, h, t=None):
@@ -1594,6 +1634,12 @@ def main() -> int:
     frames_launches = frames_phase(dev, smi)
     torch.cuda.empty_cache()
 
+    log(f"model: tensor parallelism, {MODEL_RANKS} gloo ranks on the one card against one "
+        "rank: the UNet's CFG pass (f32 plain versions, bf16 kernels beside the launch-plan "
+        f"control), generate ({MODEL_STEPS} steps) and two temporal-scope steps at 512x320x14f")
+    model_launches = model_phase(dev, smi, ph)
+    torch.cuda.empty_cache()
+
     log("tracklet: the gated attention's flash kernels at (S, S + 16), the full-width "
         "tracklet UNet against host f32, generate with boxes (gate 0 bit-equal; exact, k3, "
         "n3+k3), the 'tracklet' step and the CLI's --train_mode tracklet")
@@ -1631,7 +1677,7 @@ def main() -> int:
     by_path = {**gen_launches, **int8_launches, "train": train_launches, "lora": lora_launches,
                "cli": cli_launches, **tracklet_launches, "infer": infer_launches,
                "optim8": optim8_launches, "mha": mha_launches, "probes": probe_launches,
-               **frames_launches}
+               **frames_launches, **model_launches}
 
     sources = {
         "flash_attention_fwd": ("cuda", "svd_xtend_tpu_torch/csrc/flash_attention.cu",
@@ -1651,6 +1697,9 @@ def main() -> int:
                                "svd_xtend_tpu/ops/pallas/temporal_resnet.py:240"),
         "geglu_fwd": ("cuda", "svd_xtend_tpu_torch/csrc/geglu.cu",
                       "svd_xtend_tpu/ops/pallas/geglu.py:119"),
+        # the partial form of the same kernel (a model rank's inner columns)
+        "geglu_partial": ("cuda", "svd_xtend_tpu_torch/csrc/geglu.cu",
+                          "svd_xtend_tpu/ops/pallas/geglu.py:119"),
         "flash_attention_bwd_dq": ("cuda", "svd_xtend_tpu_torch/csrc/flash_backward.cu",
                                    "svd_xtend_tpu/ops/pallas/flash_attention.py:345"),
         "flash_attention_bwd_dkv": ("cuda", "svd_xtend_tpu_torch/csrc/flash_backward.cu",
@@ -1716,6 +1765,7 @@ def kernel_counters():
         "group_norm_fold": gn.group_norm_fold,
         "fold_from_partials": gn.fold_from_partials,
         "geglu_fwd": gg.ln_geglu_residual,
+        "geglu_partial": gg.ln_geglu_partial,
         "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
         "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
         "conv3x3": cv.conv3x3,
@@ -1743,7 +1793,9 @@ PROBE_ONLY = frozenset({"flash_attention_headsliced", "flash_variants", "chain_b
 # the kernels that only the int8 modes launch; the kernels no exact path
 # launches
 INT8_ONLY = frozenset({"int8_quantize", "int8_gemm_conv", "int8_gemm_dense"})
-OTHER_PATHS = MHA_ONLY | PROBE_ONLY | INT8_ONLY
+# the kernel that only a 'model' axis launches (and there in place of geglu_fwd)
+MODEL_ONLY = frozenset({"geglu_partial"})
+OTHER_PATHS = MHA_ONLY | PROBE_ONLY | INT8_ONLY | MODEL_ONLY
 
 
 def reset(counters):
@@ -2355,7 +2407,7 @@ def int8_video_phase(dev, smi, counters, ms):
         secs[path] = sorted(timed)[len(timed) // 2]
         peak = torch.cuda.max_memory_allocated()
         names = [n for n in counters if n not in BACKWARD_ONLY | MHA_ONLY | PROBE_ONLY
-                 | ({"geglu_fwd"} if cfg.unet_quant else INT8_ONLY)]
+                 | MODEL_ONLY | ({"geglu_fwd"} if cfg.unet_quant else INT8_ONLY)]
         launches[path] = read(counters, names)
         got = {n: counters[n].launches for n in ("int8_gemm_conv", "int8_gemm_dense",
                                                  "int8_quantize", "geglu_fwd", "conv3x3")}
@@ -3298,7 +3350,7 @@ def frames_work(dev, world):
     # are its frames of the one-rank codes, bit for bit
     x = torch.randn(2, cfg.num_frames, 40, 64, 320, device=dev,
                     generator=gen).to(torch.bfloat16)
-    with quant.quantized("int8", shard):
+    with quant.quantized("int8", None if shard is None else shard.group):
         q, stats = iq.quantize(own(x).reshape(-1, 40, 64, 320))
     rq, rstats = iq.quantize_reference(x.reshape(-1, 40, 64, 320))
     out["int8_same"] = bool(torch.equal(q, own(rq.reshape(x.shape)).reshape(q.shape))
@@ -3488,6 +3540,380 @@ def frames_phase(dev, smi):
             if missing:
                 raise RuntimeError(f"frames: rank {r} never launched {missing} ({path})")
     return {"frames": got[0]["video_launches"], "frames_step": got[0]["step_launches"]}
+
+
+MODEL_RANKS = 2
+MODEL_STEPS = 5             # generate's Euler steps in the model phase
+# the UNet's CFG pass in bf16, two model ranks against one: 1e-2, or where
+# the one-rank launch-plan control (split_row_products: each row-parallel
+# product as MODEL_RANKS K-slices whose bf16 partials are summed in rank
+# order, no collective) lies farther than 1e-2 from the one-rank pass,
+# MODEL_CONTROL_RATIO times the control's distance; the sharded logic itself
+# is held in f32 on the plain versions (MODEL_F32_REL)
+MODEL_PASS_REL = 1e-2
+MODEL_CONTROL_RATIO = 1.25
+MODEL_F32_REL = 1e-4
+MODEL_VIDEO_REL = 5e-2
+# the train step's loss and grad_norm: the JAX package's bounds for a
+# sharded step against one device (tests/test_sharding.py:89-92), or where
+# the one-rank launch-plan control's steps lie farther, MODEL_CONTROL_RATIO
+# times the control's distance (bf16 partials move a second step's loss by
+# more than 2e-4)
+MODEL_LOSS_RTOL = 2e-4
+MODEL_GRAD_NORM_RTOL = 2e-3
+# a flash / frame attention call's (q's shape, heads)
+HEADS_KEY = lambda q, k, v, *_, num_heads, **__: (tuple(q.shape), num_heads)
+
+
+@contextlib.contextmanager
+def split_row_products(unet, n):
+    """The model phase's one-rank launch-plan control: inside the block
+    every row-parallel product of `unet`'s transformers (the attentions'
+    to_out, proj_out and the GEGLU feed-forward's second product) runs as
+    the n K-slices of a model axis of n, each partial rounded to bf16 and
+    summed in rank order, then the bias (and the GEGLU's residual): a model
+    axis's arithmetic in one process, without a collective."""
+    from svd_xtend_tpu_torch.models import transformer as tf
+    from svd_xtend_tpu_torch.ops.kernels import geglu as gg
+    from svd_xtend_tpu_torch.parallel import tensor as tpl
+
+    sizes = {m: tpl.layout(f"{name}.weight", unet.config, n).sizes
+             for name, m in unet.named_modules()
+             if isinstance(m, tf.QLinear) and name.endswith(("to_out.0", "proj_out"))}
+    forward, residual = tf.QLinear.forward, tf.residual_geglu
+
+    def split_forward(self, x):
+        if self not in sizes:
+            return forward(self, x)
+        y, start = None, 0
+        for k in sizes[self]:
+            part = F.linear(x[..., start:start + k], self.weight[:, start:start + k])
+            y, start = part if y is None else y + part, start + k
+        return y + self.bias
+
+    def split_geglu(x, ln, ff):
+        proj, out = ff.net[0].proj, ff.net[2]
+        inner = out.in_features
+        y, start = None, 0
+        for k in tpl.ff_split(inner, n):
+            rows = lambda t: torch.cat([t[start:start + k], t[inner + start:inner + start + k]])
+            part = gg.ln_geglu_partial(x, ln.weight, ln.bias, rows(proj.weight),
+                                       rows(proj.bias),
+                                       out.weight[:, start:start + k].contiguous())
+            y, start = part if y is None else y + part, start + k
+        return x + (y + out.bias)
+
+    tf.QLinear.forward, tf.residual_geglu = split_forward, split_geglu
+    try:
+        yield
+    finally:
+        tf.QLinear.forward, tf.residual_geglu = forward, residual
+
+
+def model_work(dev, world):
+    """The model phase's runs on `world` (one rank, or a rank of the model
+    group), from the same seeded weights and inputs on every process (a
+    model rank keeps its part of them): the UNet's CFG pass at 512x320x14f,
+    generate at PipelineConfig(num_inference_steps=MODEL_STEPS) (a warm-up,
+    then a timed run), and two default temporal-scope steps (the second
+    timed). Returns what the parent compares and prints: CPU tensors and
+    numbers."""
+    from svd_xtend_tpu_torch import parallel
+    from svd_xtend_tpu_torch.core.config import MeshConfig, PipelineConfig, TrainConfig
+    from svd_xtend_tpu_torch.diffusion.pipeline import SVDModels
+    from svd_xtend_tpu_torch.ops.kernels import flash_attention as fa
+    from svd_xtend_tpu_torch.ops.kernels import geglu as gg
+    from svd_xtend_tpu_torch.ops.kernels import temporal_attention as ta
+    from svd_xtend_tpu_torch.ops.kernels.dispatch import plain_versions
+    from svd_xtend_tpu_torch.parallel import tensor as tpl
+    from svd_xtend_tpu_torch.parallel.frames import STAGED
+    from svd_xtend_tpu_torch.train.state import (cast_frozen_to_compute, create_train_state,
+                                                 make_train_step, write_back)
+
+    counters = kernel_counters()
+    cfg = TrainConfig(mesh=MeshConfig(model=world.model))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    models = SVDModels.create(device=dev, dtype=torch.float32, generator=gen,
+                              tp=world.tensor_shard())
+    state = create_train_state(cfg, models, world=world)
+    out = {}
+    counts = lambda: {n: f.launches for n, f in counters.items()}
+
+    ucfg = models.unet.config
+    sample = torch.randn(2, cfg.num_frames, cfg.height // 8, cfg.width // 8,
+                         ucfg.in_channels, device=dev, generator=gen)
+    ehs = torch.randn(2, 1, ucfg.cross_attention_dim, device=dev, generator=gen)
+    ids = torch.tensor([[6.0, 127.0, 0.02]] * 2, device=dev)
+    with torch.no_grad():
+        with plain_versions():
+            out["pass_f32"] = models.unet(sample, 1.5, ehs, ids).cpu()
+        cast_frozen_to_compute(models, torch.bfloat16)
+        sample, ehs = sample.to(torch.bfloat16), ehs.to(torch.bfloat16)
+        reset(counters)
+        STAGED.reset()
+        with calls_by(fa, "flash_attention_packed", HEADS_KEY) as flash, \
+                calls_by(ta, "frame_attention", HEADS_KEY) as frame, \
+                calls_by(tpl, "_all_reduce", SHAPE) as reduces, \
+                calls_by(tpl, "_all_gather_last", SHAPE) as gathers, \
+                calls_by(gg, "ln_geglu_partial" if world.model > 1 else "ln_geglu_residual",
+                         GEGLU_KEY) as geglu:
+            out["pass"] = models.unet(sample, 1.5, ehs, ids).float().cpu()
+        out["pass_staged"] = STAGED.bytes
+        out["pass_launches"] = counts()
+        out["flash_heads"], out["frame_heads"] = dict(flash), dict(frame)
+        out["reduces"], out["gathers"], out["geglu"] = dict(reduces), dict(gathers), dict(geglu)
+        if world.model == 1:
+            with split_row_products(models.unet, MODEL_RANKS):
+                out["pass_control"] = models.unet(sample, 1.5, ehs, ids).float().cpu()
+
+    pcfg = PipelineConfig(num_inference_steps=MODEL_STEPS)
+    image = torch.rand(1, pcfg.height, pcfg.width, 3, device=dev, generator=gen) * 2 - 1
+    noise = (torch.randn(image.shape, device=dev, generator=gen),
+             torch.randn(1, pcfg.num_frames, pcfg.height // 8, pcfg.width // 8, 4, device=dev,
+                         generator=gen))
+
+    def video():
+        return parallel.generate_rows(models, image, pcfg, world, image_noise=noise[0],
+                                      latent_noise=noise[1])
+
+    video()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset(counters)
+    STAGED.reset()
+    t0 = time.time()
+    out["video"] = video().cpu()
+    out["s_video"] = time.time() - t0
+    out["video_launches"] = counts()
+    out["video_staged"] = STAGED.bytes
+    out["video_peak"] = torch.cuda.max_memory_allocated()
+
+    batch = torch.rand(1, cfg.num_frames, cfg.height, cfg.width, 3, device=dev,
+                       generator=gen) * 2 - 1
+    step = make_train_step(models, cfg, world)
+    seeded = lambda i: torch.Generator(dev).manual_seed(SEED + 41 + i)
+    if world.model == 1:
+        # the steps' launch-plan control, from the same state, which is then
+        # restored (bit for bit, as a resume)
+        start = state.state_dict()
+        with split_row_products(models.unet, MODEL_RANKS):
+            out["steps_control"] = [step(state, batch, generator=seeded(i))[1]
+                                    for i in range(2)]
+        state.load_state_dict(start)
+        write_back(models, cfg, state)
+        del start
+    state, first = step(state, batch, generator=seeded(0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset(counters)
+    STAGED.reset()
+    t0 = time.time()
+    state, second = step(state, batch, generator=seeded(1))
+    torch.cuda.synchronize()
+    out["s_step"] = time.time() - t0
+    out["steps"] = [first, second]
+    out["step_launches"] = counts()
+    out["step_staged"] = STAGED.bytes
+    out["step_peak"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def model_rank(rank, port, results):
+    """A rank of the model phase: a gloo group of MODEL_RANKS ranks on
+    localhost, every rank on cuda:0 (NCCL refuses two ranks on one card), the
+    port's world laid out as one model group over it."""
+    import traceback
+
+    import torch.distributed as dist
+
+    try:
+        os.environ.update(RANK=str(rank), WORLD_SIZE=str(MODEL_RANKS), LOCAL_RANK="0")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                                world_size=MODEL_RANKS)
+        from svd_xtend_tpu_torch import parallel
+        from svd_xtend_tpu_torch.core.config import MeshConfig
+        world = parallel.init_world("cuda", MeshConfig(model=MODEL_RANKS))
+        try:
+            out = {k: v.numpy() if torch.is_tensor(v) else v
+                   for k, v in model_work(dev, world).items()}
+            results.put((rank, True, out))
+        finally:
+            parallel.close_world(world)
+    except BaseException:
+        results.put((rank, False, traceback.format_exc()))
+
+
+def model_phase(dev, smi, ph: KernelPhase):
+    """Tensor parallelism over the 'model' axis (parallel/tensor.py): the
+    one-rank runs of model_work here, then MODEL_RANKS ranks, each its own
+    process on the one card over gloo with the collectives staged through
+    host memory, held to them. Returns rank 0's launches by path."""
+    import multiprocessing as mp
+    import queue
+    import socket
+
+    import numpy as np
+
+    from svd_xtend_tpu_torch import parallel
+    from svd_xtend_tpu_torch.parallel import tensor as tpl
+
+    t0 = time.time()
+    one = model_work(dev, parallel.SINGLE)
+    log(f"  [{smi}] one rank: s/video {one['s_video']:.3f} ({MODEL_STEPS} steps), s/step "
+        f"{one['s_step']:.3f}, peak {one['video_peak'] / 2**30:.2f} / "
+        f"{one['step_peak'] / 2**30:.2f} GiB (video / step); {time.time() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    ctx = mp.get_context("spawn")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    results = ctx.Queue()
+    procs = [ctx.Process(target=model_rank, args=(r, port, results))
+             for r in range(MODEL_RANKS)]
+    t0 = time.time()
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        for _ in procs:
+            try:
+                rank, ok, value = results.get(timeout=600)
+            except queue.Empty:
+                raise RuntimeError("model: a rank gave no answer within 600 s")
+            if not ok:
+                raise RuntimeError(f"model: rank {rank} failed:\n{value}")
+            got[rank] = {k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
+                         for k, v in value.items()}
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+    log(f"  {MODEL_RANKS} ranks: {time.time() - t0:.1f} s with their start and build")
+
+    rel = lambda a, b: ((a - b).norm() / b.norm()).item()
+    bf16, control = rel(got[0]["pass"], one["pass"]), rel(one["pass_control"], one["pass"])
+    bound = MODEL_PASS_REL if control <= MODEL_PASS_REL else MODEL_CONTROL_RATIO * control
+    log(f"  UNet CFG pass in bf16: {bf16:.4g} against one rank; the control (each row-parallel "
+        f"product as {MODEL_RANKS} K-slices, bf16 partials summed in rank order) {control:.4g} "
+        f"from it, the ranks {rel(got[0]['pass'], one['pass_control']):.4g} from the control; "
+        f"gate {bound:.4g} ({MODEL_PASS_REL}, or {MODEL_CONTROL_RATIO} x the control above it)")
+    checks = {"UNet CFG pass": (bf16, bound),
+              "UNet CFG pass, f32 plain versions": (rel(got[0]["pass_f32"], one["pass_f32"]),
+                                                    MODEL_F32_REL)}
+    off = lambda a, b, key: abs(a[key] - b[key]) / abs(b[key])
+    for i, (c, b) in enumerate(zip(one["steps_control"], one["steps"])):
+        for key, jax_bound in (("loss", MODEL_LOSS_RTOL), ("grad_norm", MODEL_GRAD_NORM_RTOL)):
+            log(f"  step {i + 1} {key}: the control {off(c, b, key):.4g} from one rank, the "
+                f"ranks {off(got[0]['steps'][i], c, key):.4g} from the control; JAX's bound "
+                f"{jax_bound}")
+    for r in range(MODEL_RANKS):
+        checks[f"rank {r} video"] = (rel(got[r]["video"], one["video"]), MODEL_VIDEO_REL)
+        for i, (a, b) in enumerate(zip(got[r]["steps"], one["steps"])):
+            for key, jax_bound in (("loss", MODEL_LOSS_RTOL),
+                                   ("grad_norm", MODEL_GRAD_NORM_RTOL)):
+                control = MODEL_CONTROL_RATIO * off(one["steps_control"][i], b, key)
+                checks[f"rank {r} step {i + 1} {key}"] = (off(a, b, key),
+                                                          max(jax_bound, control))
+    for what, (value, b) in checks.items():
+        log(f"  {what}: {value:.4g} against one rank (bound {b})")
+    bad = [w for w, (v, b) in checks.items() if not v <= b]
+    if bad:
+        raise RuntimeError(f"model: {bad} beyond their bounds")
+    for key in ("pass", "video"):
+        if not all(torch.equal(got[r][key], got[0][key]) for r in range(MODEL_RANKS)):
+            raise RuntimeError(f"model: the ranks returned different {key} outputs")
+    if not torch.isfinite(got[0]["video"]).all():
+        raise RuntimeError("model: the video is not finite")
+
+    # every GEGLU site on the partial form's kernel, none on the module path
+    # or the whole form; every attention site on its kernel at the local heads
+    for r in range(MODEL_RANKS):
+        g = got[r]
+        for path in ("pass_launches", "video_launches", "step_launches"):
+            whole, part = one[path]["geglu_fwd"], g[path]["geglu_partial"]
+            log(f"  rank {r} {path}: geglu_partial {part} (one rank's geglu_fwd {whole}), "
+                f"flash forward {g[path]['flash_attention_fwd']}, backward dQ "
+                f"{g[path]['flash_attention_bwd_dq']} dK/dV {g[path]['flash_attention_bwd_dkv']}, "
+                f"frame attention {g[path]['frame_attention_fwd']}")
+            if part != whole or g[path]["geglu_fwd"] or not whole:
+                raise RuntimeError(f"model: rank {r} {path}: {part} partial-form GEGLU launches "
+                                   f"and {g[path]['geglu_fwd']} whole-form ones, one rank "
+                                   f"{whole}")
+            for name in ("flash_attention_fwd", "frame_attention_fwd", "flash_attention_bwd_dq",
+                         "flash_attention_bwd_dkv"):
+                if g[path][name] != one[path][name]:
+                    raise RuntimeError(f"model: rank {r} {path}: {g[path][name]} {name} "
+                                       f"launches, one rank {one[path][name]}")
+        for key in ("flash_heads", "frame_heads"):
+            want = collections.Counter()
+            for (shape, heads), n in one[key].items():
+                local = tpl.split(heads, MODEL_RANKS)[r]
+                want[(shape[:-1] + (local * shape[-1] // heads,), local)] += n
+            log(f"  rank {r} {key} by (q's shape, heads): {g[key]}")
+            if g[key] != dict(want):
+                raise RuntimeError(f"model: rank {r} {key} {g[key]}, not the local heads {want}")
+
+    # what the name rules cover: the UNet's sharded values, and the frozen
+    # towers' values JAX's layout would shard where the port replicates
+    from svd_xtend_tpu_torch.core.config import CLIPVisionConfig, UNetConfig, VAEConfig
+    from svd_xtend_tpu_torch.models.clip import CLIPVisionModelWithProjection
+    from svd_xtend_tpu_torch.models.unet import UNetSpatioTemporalConditionModel
+    from svd_xtend_tpu_torch.models.vae import AutoencoderKLTemporalDecoder
+    for build, cfg in ((UNetSpatioTemporalConditionModel, UNetConfig()),
+                       (CLIPVisionModelWithProjection, CLIPVisionConfig()),
+                       (AutoencoderKLTemporalDecoder, VAEConfig())):
+        with torch.device("meta"):
+            net = build(cfg)
+        ruled = sum(p.numel() for name, p in net.named_parameters() if p.dim() >= 2 and (
+            tpl.COLUMN_PARALLEL.search(name.rsplit(".", 1)[0])
+            or tpl.ROW_PARALLEL.search(name.rsplit(".", 1)[0])))
+        total = sum(p.numel() for p in net.parameters())
+        log(f"  {build.__name__}: {total / 1e6:.1f}M values, {ruled / 1e6:.1f}M under the "
+            f"tensor-parallel name rules ({ruled * (MODEL_RANKS - 1) / MODEL_RANKS * 2 / 1e9:.3f} "
+            f"GB of bf16 a rank saves at model {MODEL_RANKS} where they are sharded)")
+    g = got[0]
+    reduce_bytes = sum(math.prod(shape) * n * 2 for shape, n in g["reduces"].items())
+    gather_bytes = sum(math.prod(shape) * n * 2 for shape, n in g["gathers"].items())
+    n_models = 16
+    log(f"  collectives a CFG UNet pass per rank: {sum(g['reduces'].values())} all-reduces "
+        f"({reduce_bytes / 1e9:.3f} GB of bf16), {sum(g['gathers'].values())} all-gathers "
+        f"({gather_bytes / 1e9:.3f} GB of a rank's parts); per transformer model (of "
+        f"{n_models}) {sum(g['reduces'].values()) / n_models:.2f} all-reduces; by shape "
+        f"{g['reduces']}")
+    whole_ms = sum(ph.geglu_ms[tc] * n for tc, n in one["geglu"].items())
+    part_ms = sum(ph.geglu_partial_ms[(t, c, 4 * c // MODEL_RANKS)] * n
+                  for (t, c), n in g["geglu"].items())
+    log(f"  [{smi}] GEGLU a CFG UNet pass, launches x the kernel phase's device ms: partial form "
+        f"{part_ms:.3f} ms a rank ({g['geglu']}), whole form {whole_ms:.3f} ms on one rank")
+    for r in range(MODEL_RANKS):
+        g = got[r]
+        log(f"  [{smi}] rank {r}: s/video {g['s_video']:.3f} ({MODEL_STEPS} steps), s/step "
+            f"{g['s_step']:.3f}, peak {g['video_peak'] / 2**30:.2f} / "
+            f"{g['step_peak'] / 2**30:.2f} GiB (video / step; one rank "
+            f"{one['video_peak'] / 2**30:.2f} / {one['step_peak'] / 2**30:.2f}); staged through "
+            f"the host: {g['pass_staged'] / 1e6:.1f} MB a CFG UNet pass, "
+            f"{g['video_staged'] / 1e6:.1f} MB a video, {g['step_staged'] / 1e6:.1f} MB a step "
+            "(two ranks share the card and gloo stages every collective through host memory: "
+            "not a multi-card rate)")
+        for i, (a, b) in enumerate(zip(g["steps"], one["steps"])):
+            log(f"  rank {r} step {i + 1}: loss {a['loss']:.6g} (one rank {b['loss']:.6g}), "
+                f"grad_norm {a['grad_norm']:.6g} ({b['grad_norm']:.6g})")
+    forward = [n for n in kernel_counters() if n not in BACKWARD_ONLY | OTHER_PATHS
+               | {"geglu_fwd"}] + ["geglu_partial"]
+    step_names = [n for n in kernel_counters() if n not in OTHER_PATHS | {"geglu_fwd"}]
+    step_names.append("geglu_partial")
+    for r in range(MODEL_RANKS):
+        for path, names in (("video_launches", forward), ("step_launches", step_names)):
+            missing = [n for n in names if got[r][path][n] == 0]
+            if missing:
+                raise RuntimeError(f"model: rank {r} never launched {missing} ({path})")
+    return {"model": got[0]["video_launches"], "model_step": got[0]["step_launches"]}
 
 
 def _same_leaves(a, b) -> bool:

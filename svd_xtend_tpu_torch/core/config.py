@@ -198,8 +198,10 @@ class MeshConfig(_JsonMixin):
     """Device-mesh layout. axis sizes of -1 mean "fill with what's left".
     The port runs the 'data' axis (data-parallel ranks) and the 'frames'
     axis (sequence parallelism: each rank of a frames group holds
-    num_frames / frames of every video), laid out data outer, frames inner
-    (``parallel.mesh_world``); 'model' must stay 1 (ROADMAP A18)."""
+    num_frames / frames of every video) and a 'model' axis (tensor
+    parallelism: each rank of a model group holds its part of the UNet's
+    transformer matrices), laid out data outer, model in the middle, frames
+    inner (``parallel.mesh_world``)."""
 
     data: int = -1
     model: int = 1
@@ -215,8 +217,10 @@ class TrainConfig(_JsonMixin):
     bf16 gradients (``grad_dtype``), gradient accumulation, EMA, remat.
     ``vae_encode_in_loop`` is accepted and not read, as in the JAX package.
     ZeRO-1 and host offload run over the ranks of the 'data' and 'frames'
-    mesh axes (``parallel/``; the frames axis must divide ``num_frames``);
-    a 'model' axis is refused at use (``check_ported``).
+    mesh axes (``parallel/``; the frames axis must divide ``num_frames``),
+    ZeRO-1 over those of each model index under a 'model' axis; under a
+    'model' axis the 'lora' scope, 8-bit AdamW and host offload are
+    refused at use (``check_ported``; ROADMAP A20).
     ``encode_chunk_size`` chunks the
     frozen VAE encode (0 = unchunked); the posterior noise is drawn per
     chunk, as in the JAX package."""
@@ -288,9 +292,16 @@ class TrainConfig(_JsonMixin):
     def check_ported(self) -> None:
         """Raise ValueError for an option the port does not run yet, or an
         unknown one."""
-        if self.mesh.model != 1:
-            raise ValueError(f"not ported yet: a 'model' mesh axis (mesh {self.mesh}; the "
-                             "tensor-parallel rules are ROADMAP A18)")
+        if self.mesh.model < 1:
+            raise ValueError(f"a 'model' mesh axis of {self.mesh.model}")
+        if self.mesh.model > 1:
+            refused = [what for what, on in (("the 'lora' scope", self.train_mode == "lora"),
+                                             ("8-bit AdamW", self.use_8bit_adam),
+                                             ("host offload", self.host_offload != "none"))
+                       if on]
+            if refused:
+                raise ValueError(f"not ported yet: {', '.join(refused)} under a 'model' mesh "
+                                 f"axis (mesh {self.mesh}; ROADMAP A20)")
         if self.mesh.frames < 1 or self.num_frames % self.mesh.frames:
             raise ValueError(f"num_frames {self.num_frames} over a frames axis of "
                              f"{self.mesh.frames}: the port takes an even split only")

@@ -51,6 +51,15 @@
 // Not done: the LayerNorm inside gemm1's loads (it is a pass of 2*|x|
 // bytes, about 14 us at T 35840); gemm1's GELU epilogue still runs while
 // its block's tensor cores idle.
+//
+// The partial form (svdx_ln_geglu_partial; tensor parallelism over the
+// 'model' axis, ops/kernels/geglu.py::ln_geglu_partial): a model rank's
+// inner columns I (a multiple of 64, I <= 4C; W1p its 2I packed rows, W2
+// (C, I)), the same three launches with gemm2's epilogue writing
+// bf16(acc) alone (PartialEpi): b2 and the residual are added by the caller
+// after the ranks' parts are summed. b1 comes with each half padded to a
+// whole 128-column tile of u (b1_stride), since the last tile's epilogue
+// reads its biases whole where I is not a multiple of 128.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -117,8 +126,8 @@ struct GegluEpi {
   template <int BN>
   static constexpr int kOutCols = BN / 2;
   __device__ static int out_col(int n0) { return n0 / 2; }
-  const float* b1;     // (2 * inner) f32, the unpacked order
-  int inner;
+  const float* b1;     // f32, the unpacked order: values at [0, inner), gates from b1_stride
+  int b1_stride;
   template <int BN>
   __device__ __forceinline__ void tile(float (&d)[BN / 2], int, int n0, int, int t,
                                        __nv_bfloat16* out, int tr0) const {
@@ -128,7 +137,7 @@ struct GegluEpi {
       for (int jb = 0; jb < 8; ++jb) {
         const int c = 64 * q + 8 * jb + 2 * t;  // u column within the tile
         const float2 bh = __ldg(reinterpret_cast<const float2*>(b1 + n0 / 2 + c));
-        const float2 bg = __ldg(reinterpret_cast<const float2*>(b1 + inner + n0 / 2 + c));
+        const float2 bg = __ldg(reinterpret_cast<const float2*>(b1 + b1_stride + n0 / 2 + c));
         const float* hv = d + 4 * (16 * q + jb);
         const float* gv = d + 4 * (16 * q + jb + 8);
         uint32_t* o = reinterpret_cast<uint32_t*>(out + tr0 * (BN / 2) + c);
@@ -169,6 +178,59 @@ struct ResidualEpi {
   }
 };
 
+// gemm2's epilogue in the partial form: out = bf16(acc), no bias, no residual
+struct PartialEpi {
+  static constexpr bool kPairs = true;
+  static constexpr bool kStats = false;
+  template <int BN>
+  static constexpr int kOutCols = BN;
+  __device__ static int out_col(int n0) { return n0; }
+  __nv_bfloat16* out;       // (T, C)
+  int c;
+  struct Row {};
+  __device__ __forceinline__ Row row(int) const { return {}; }
+  __device__ __forceinline__ float2 residual(int, int) const { return make_float2(0.f, 0.f); }
+  __device__ __forceinline__ void finish(const Row&, int, float2, float&, float&) const {}
+  __device__ __forceinline__ void store(int row, int col, float v0, float v1) const {
+    *reinterpret_cast<uint32_t*>(out + (size_t)row * c + col) = sm90::pack_bf16(v0, v1);
+  }
+};
+
+// the LayerNorm, gemm1 and gemm2 (epilogue epi2; residual: gemm2 adds x)
+// over an inner width `inner`, b1's gates at b1_stride
+template <class Epi2>
+int ln_geglu(const void* x, const void* ls, const void* lb, const void* w1p, const void* b1,
+             const void* w2, void* xn, void* u, void* out, void* workspace, int n_tok, int c,
+             int inner, int b1_stride, int bn1, int grid1, int bn2, int ks2, int grid2,
+             const Epi2& epi2, int residual, cudaStream_t s) {
+  CUtensorMap a1, b1m, c1, a2, b2m, c2, r2;
+  int err = sm90_gemm::encode_matrix_map(&a1, xn, c, n_tok, sm90_gemm::kBM);
+  if (err == 0) err = sm90_gemm::encode_matrix_map(&b1m, w1p, c, 2 * inner, bn1);
+  if (err == 0) err = sm90_gemm::encode_tile_map(&c1, u, inner, n_tok, bn1 / 2, 64);
+  if (err == 0) err = sm90_gemm::encode_matrix_map(&a2, u, inner, n_tok, sm90_gemm::kBM);
+  if (err == 0) err = sm90_gemm::encode_matrix_map(&b2m, w2, inner, c, bn2);
+  if (err == 0) err = sm90_gemm::encode_tile_map(&c2, out, c, n_tok, bn2, 64);
+  if (err == 0) err = sm90_gemm::encode_tile_map(&r2, residual ? x : out, c, n_tok, bn2, 64);
+  if (err != 0) return err;
+
+  const auto* xp = static_cast<const __nv_bfloat16*>(x);
+  ln_kernel<<<(n_tok + 7) / 8, kLnThreads, 0, s>>>(xp, static_cast<const float*>(ls),
+                                                  static_cast<const float*>(lb),
+                                                  static_cast<__nv_bfloat16*>(xn), n_tok, c);
+  if ((err = static_cast<int>(cudaGetLastError()))) return err;
+
+  const sm90_gemm::Shape shape1{n_tok, 2 * inner, c / sm90_gemm::kBK, 1, nullptr, 0};
+  const GegluEpi epi1{static_cast<const float*>(b1), b1_stride};
+  err = sm90_gemm::launch_tile<sm90_gemm::RowsA, GegluEpi, SVDX_GEGLU1_TILE_N>(
+      bn1, a1, b1m, c1, c1, shape1, sm90_gemm::RowsA{}, epi1, grid1, s);
+  if (err) return err;
+
+  const sm90_gemm::Shape shape2{n_tok, c, inner / sm90_gemm::kBK, ks2,
+                                static_cast<float*>(workspace), residual};
+  return sm90_gemm::launch_tile<sm90_gemm::RowsA, Epi2, SVDX_GEGLU2_TILE_N>(
+      bn2, a2, b2m, c2, r2, shape2, sm90_gemm::RowsA{}, epi2, grid2, s);
+}
+
 }  // namespace
 
 // x, out: (n_tok, c) bf16; xn: (n_tok, c) bf16 and u: (n_tok, 4c) bf16
@@ -185,33 +247,26 @@ extern "C" int svdx_ln_geglu_residual(const void* x, const void* ls, const void*
                                       const void* b2, void* xn, void* u, void* out,
                                       void* workspace, int n_tok, int c, int bn1, int grid1,
                                       int bn2, int ks2, int grid2, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int inner = 4 * c;
-  CUtensorMap a1, b1m, c1, a2, b2m, c2, r2;
-  int err = sm90_gemm::encode_matrix_map(&a1, xn, c, n_tok, sm90_gemm::kBM);
-  if (err == 0) err = sm90_gemm::encode_matrix_map(&b1m, w1p, c, 2 * inner, bn1);
-  if (err == 0) err = sm90_gemm::encode_tile_map(&c1, u, inner, n_tok, bn1 / 2, 64);
-  if (err == 0) err = sm90_gemm::encode_matrix_map(&a2, u, inner, n_tok, sm90_gemm::kBM);
-  if (err == 0) err = sm90_gemm::encode_matrix_map(&b2m, w2, inner, c, bn2);
-  if (err == 0) err = sm90_gemm::encode_tile_map(&c2, out, c, n_tok, bn2, 64);
-  if (err == 0) err = sm90_gemm::encode_tile_map(&r2, x, c, n_tok, bn2, 64);
-  if (err != 0) return err;
+  const ResidualEpi epi2{static_cast<const float*>(b2), static_cast<const __nv_bfloat16*>(x),
+                         static_cast<__nv_bfloat16*>(out), c};
+  return ln_geglu(x, ls, lb, w1p, b1, w2, xn, u, out, workspace, n_tok, c, 4 * c, 4 * c, bn1,
+                  grid1, bn2, ks2, grid2, epi2, 1, static_cast<cudaStream_t>(stream));
+}
 
-  const auto* xp = static_cast<const __nv_bfloat16*>(x);
-  ln_kernel<<<(n_tok + 7) / 8, kLnThreads, 0, s>>>(xp, static_cast<const float*>(ls),
-                                                  static_cast<const float*>(lb),
-                                                  static_cast<__nv_bfloat16*>(xn), n_tok, c);
-  if ((err = static_cast<int>(cudaGetLastError()))) return err;
-
-  const sm90_gemm::Shape shape1{n_tok, 2 * inner, c / sm90_gemm::kBK, 1, nullptr, 0};
-  const GegluEpi epi1{static_cast<const float*>(b1), inner};
-  err = sm90_gemm::launch_tile<sm90_gemm::RowsA, GegluEpi, SVDX_GEGLU1_TILE_N>(
-      bn1, a1, b1m, c1, c1, shape1, sm90_gemm::RowsA{}, epi1, grid1, s);
-  if (err) return err;
-
-  const sm90_gemm::Shape shape2{n_tok, c, inner / sm90_gemm::kBK, ks2,
-                                static_cast<float*>(workspace), 1};
-  const ResidualEpi epi2{static_cast<const float*>(b2), xp, static_cast<__nv_bfloat16*>(out), c};
-  return sm90_gemm::launch_tile<sm90_gemm::RowsA, ResidualEpi, SVDX_GEGLU2_TILE_N>(
-      bn2, a2, b2m, c2, r2, shape2, sm90_gemm::RowsA{}, epi2, grid2, s);
+// The partial form: x, out (n_tok, c) bf16, out the rank's part of the
+// second product; xn (n_tok, c) and u (n_tok, inner) bf16 scratch; w1p: (2 *
+// inner, c) bf16 in pack_w1's order; w2: (c, inner) bf16; ls, lb: (c,) f32;
+// b1: (2 * b1_stride,) f32, the values at [0, inner) and the gates at
+// [b1_stride, b1_stride + inner), b1_stride >= inner a multiple of 128;
+// workspace as above. inner % 64 == 0, 0 < inner <= 4c (the wrapper checks).
+extern "C" int svdx_ln_geglu_partial(const void* x, const void* ls, const void* lb,
+                                     const void* w1p, const void* b1, const void* w2, void* xn,
+                                     void* u, void* out, void* workspace, int n_tok, int c,
+                                     int inner, int b1_stride, int bn1, int grid1, int bn2,
+                                     int ks2, int grid2, void* stream) {
+  if (inner <= 0 || inner % 64 || inner > 4 * c || b1_stride < inner || b1_stride % 128)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const PartialEpi epi2{static_cast<__nv_bfloat16*>(out), c};
+  return ln_geglu(x, ls, lb, w1p, b1, w2, xn, u, out, workspace, n_tok, c, inner, b1_stride,
+                  bn1, grid1, bn2, ks2, grid2, epi2, 0, static_cast<cudaStream_t>(stream));
 }

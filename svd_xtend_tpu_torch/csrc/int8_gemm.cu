@@ -48,6 +48,12 @@
 // wgmma m64nNk32 .s8 form is the redesign to try when these times call for
 // it (the chip_smoke int8 phase prints each site's time beside the bf16
 // kernel's and its bound).
+//
+// The raw form (dense only, stats null): the exact int32 sums acc written as
+// they are, with no epilogue. A row-parallel product under tensor
+// parallelism (parallel/tensor.py) sums its ranks' int32 partials exactly
+// over the model group and dequantises the sum once, so the output is the
+// one-rank product's bit for bit (ops/kernels/int8_gemm.py::dense_sums).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -123,6 +129,7 @@ struct Params {
   const float* post;         // (m / hw, co) f32 or null
   const __nv_bfloat16* res;  // (m, co) or null
   __nv_bfloat16* out;        // (m, co)
+  int32_t* sums;             // (m, co): the raw form's output
   int m, co, kdim;
   int h, wd, ci, hw;         // the conv's geometry (unused for dense)
 };
@@ -131,7 +138,7 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-template <int BN, int kWarpsM, int kWarpsN, int kChunk, bool kConv>
+template <int BN, int kWarpsM, int kWarpsN, int kChunk, bool kConv, bool kRaw>
 __global__ void __launch_bounds__(32 * kWarpsM * kWarpsN)
 gemm_kernel(const Params p) {
   using T = Tile<BN, kWarpsM, kWarpsN, kChunk>;
@@ -236,11 +243,28 @@ gemm_kernel(const Params p) {
   }
   cp_async_wait<0>();
 
+  const int g = lane >> 2, t = lane & 3;
+  if constexpr (kRaw) {
+#pragma unroll
+    for (int ni = 0; ni < T::kNI; ++ni) {
+      const int col = n0 + wn * T::kWN + ni * 8 + 2 * t;
+#pragma unroll
+      for (int mi = 0; mi < T::kMI; ++mi)
+#pragma unroll
+        for (int hlf = 0; hlf < 2; ++hlf) {
+          const int row = m0 + wm * T::kWM + mi * 16 + g + 8 * hlf;
+          if (row >= p.m) continue;
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (col + e < p.co) p.sums[(size_t)row * p.co + col + e] = acc[mi][ni][2 * hlf + e];
+        }
+    }
+    return;
+  }
   // epilogue, in JAX's order: (sx * sw) first, * acc, + bias in f32, cast;
   // + bf16(post), cast; + res, cast
   constexpr float kInvQmax2 = 0x1.040c2p-14f;   // f32(f32(1/127)^2), XLA's folded constant
   const float sxc = __fmul_rn(fmaxf(__ldg(p.stats), 1e-12f), kInvQmax2);
-  const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int ni = 0; ni < T::kNI; ++ni) {
     const int col = n0 + wn * T::kWN + ni * 8 + 2 * t;
@@ -283,10 +307,10 @@ gemm_kernel(const Params p) {
   }
 }
 
-template <int BN, int kWarpsM, int kWarpsN, int kChunk, bool kConv>
+template <int BN, int kWarpsM, int kWarpsN, int kChunk, bool kConv, bool kRaw>
 int launch(const Params& p, cudaStream_t s) {
   using T = Tile<BN, kWarpsM, kWarpsN, kChunk>;
-  const auto kernel = gemm_kernel<BN, kWarpsM, kWarpsN, kChunk, kConv>;
+  const auto kernel = gemm_kernel<BN, kWarpsM, kWarpsN, kChunk, kConv, kRaw>;
   int err = static_cast<int>(
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes));
   if (err) return err;
@@ -295,10 +319,10 @@ int launch(const Params& p, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int kChunk, bool kConv>
+template <int kChunk, bool kConv, bool kRaw = false>
 int launch_width(const Params& p, int bn, cudaStream_t s) {
-  if (bn == 128) return launch<128, 2, 4, kChunk, kConv>(p, s);
-  if (bn == 32) return launch<32, 4, 1, kChunk, kConv>(p, s);
+  if (bn == 128) return launch<128, 2, 4, kChunk, kConv, kRaw>(p, s);
+  if (bn == 32) return launch<32, 4, 1, kChunk, kConv, kRaw>(p, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -310,7 +334,9 @@ int launch_width(const Params& p, int bn, cudaStream_t s) {
 // (amax, scale) f32 on the device (csrc/int8_quant.cu); wamax: (co) f32, the
 // weights' amaxes clamped at 1e-12; bias:
 // (co) f32 or null; post: (n, co) f32 or null (conv only); res, out:
-// (m, co) bf16, res may be null. bn: 128 or 32 (the wrapper's int8_gemm_plan);
+// (m, co) bf16, res may be null; with stats null (dense only, no bias,
+// post or res) the raw form: out is (m, co) int32, the exact sums. bn: 128
+// or 32 (the wrapper's int8_gemm_plan);
 // chunk: 16 where kdim (dense) or ci (conv) is a multiple of 16, else 4 (conv
 // only, ci % 4 == 0). Returns the CUDA error of the launch, or
 // cudaErrorInvalidValue for an argument this file does not take.
@@ -329,6 +355,7 @@ extern "C" int svdx_int8_gemm(const void* a, const void* b, const void* stats, c
   p.post = static_cast<const float*>(post);
   p.res = static_cast<const __nv_bfloat16*>(res);
   p.out = static_cast<__nv_bfloat16*>(out);
+  p.sums = static_cast<int32_t*>(out);
   p.m = m;
   p.co = co;
   p.kdim = kdim;
@@ -344,5 +371,10 @@ extern "C" int svdx_int8_gemm(const void* a, const void* b, const void* stats, c
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (post != nullptr || chunk != 16 || kdim % 16) return static_cast<int>(cudaErrorInvalidValue);
+  if (stats == nullptr) {
+    if (wamax != nullptr || bias != nullptr || res != nullptr)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return launch_width<16, false, true>(p, bn, s);
+  }
   return launch_width<16, false>(p, bn, s);
 }

@@ -31,6 +31,12 @@ and ``box_mask`` (B, F, N; all ones when not given) condition the cond
 half; the uncond half of every stacked pair gets zero boxes and a zero
 mask (the null tokens); a cond-only pass gets the boxes alone.
 
+Tensor parallelism (the 'model' mesh axis): ``SVDModels.create(...,
+tp=)`` builds the UNet for a model rank's part (``parallel/tensor.py``;
+seeded weights are made whole and sliced, so every rank holds its part of
+the one-rank weights); ``generate`` then runs as it does, the collectives
+inside the UNet's modules, and every model rank returns the same video.
+
 Randomness: ``generate`` takes a ``torch.Generator``; ``image_noise`` and
 ``latent_noise`` may be given explicitly instead (the tests feed the JAX
 draws through them). Weights come from ``io/convert.state_dict_from_jax`` or
@@ -41,7 +47,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -54,6 +60,7 @@ from ..models.unet import UNetSpatioTemporalConditionModel
 from ..models.vae import AutoencoderKLTemporalDecoder
 from ..ops import quant
 from ..parallel.frames import FrameShard, broadcast_from, gather_frames
+from ..parallel.tensor import TensorShard, shard_state_dict
 from .scheduler import EulerDiscreteScheduler
 
 # flax lecun_normal: a normal truncated at two standard deviations, scaled so
@@ -108,11 +115,14 @@ class SVDModels:
                clip_config: CLIPVisionConfig = CLIPVisionConfig(),
                scheduler_config: SchedulerConfig = SchedulerConfig(), *,
                device=None, dtype: torch.dtype = torch.float32,
-               generator: Optional[torch.Generator] = None) -> "SVDModels":
+               generator: Optional[torch.Generator] = None,
+               tp: Optional[TensorShard] = None) -> "SVDModels":
         """Build the networks on `device` (by default the card: without one
         this raises; pass ``device="cpu"`` to build on the CPU); with a
         generator, initialise them (in f32, on the device) from it, then cast
-        to `dtype`."""
+        to `dtype`. With `tp` (``parallel.World.tensor_shard``) the UNet is
+        built for that model rank; seeded, it is initialised whole (the same
+        draws as one rank's) and sliced."""
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError("SVDModels.create builds on the CUDA device by "
@@ -127,12 +137,24 @@ class SVDModels:
                 net = build(cfg)
             if generator is not None:
                 init_random_(net, generator)
+            if tp is not None and build is UNetSpatioTemporalConditionModel:
+                net = _sharded_unet(net, tp)
             nets.append(net.to(dtype).eval().requires_grad_(False))
         return cls(*nets, EulerDiscreteScheduler(scheduler_config))
 
     @property
     def dtype(self) -> torch.dtype:
         return self.unet.conv_in.weight.dtype
+
+    @property
+    def tp(self) -> Optional[TensorShard]:
+        """The UNet's model rank (None without a 'model' axis)."""
+        return self.unet.tp
+
+    def load_unet_whole(self, sd) -> None:
+        """Load a whole UNet state dict (strict), sliced for this UNet's
+        model rank."""
+        self.unet.load_state_dict(shard_state_dict(sd, self.tp, self.unet.config), strict=True)
 
     def with_tracklet(self, dim: int, heads: Optional[int] = None,
                       gate_init: Optional[float] = None,
@@ -154,6 +176,10 @@ class SVDModels:
         if generator is None:
             generator = torch.Generator(device).manual_seed(0)
         init_random_(unet, generator)
+        if self.tp is not None:
+            # the branch's draws are the whole UNet's (made whole, as one
+            # rank does), the branch replicated; the rest is this rank's
+            unet = _sharded_unet(unet, self.tp)
         load_unet_state(unet, self.unet.state_dict())
         unet = unet.to(self.dtype).eval().requires_grad_(False)
         return dataclasses.replace(self, unet=unet)
@@ -164,6 +190,16 @@ class SVDModels:
         if height % unet_div or width % unet_div:
             raise ValueError(f"height/width must be divisible by {unet_div} "
                              f"(VAE {ds}x downsample x UNet levels); got {width}x{height}")
+
+
+def _sharded_unet(whole: UNetSpatioTemporalConditionModel,
+                  tp: TensorShard) -> UNetSpatioTemporalConditionModel:
+    """A UNet of `whole`'s config on its device, built for the model rank
+    `tp` and holding its part of `whole`'s weights."""
+    with torch.device(whole.conv_in.weight.device):
+        unet = UNetSpatioTemporalConditionModel(whole.config, tp=tp)
+    unet.load_state_dict(shard_state_dict(whole.state_dict(), tp, whole.config), strict=True)
+    return unet.to(whole.conv_in.weight.dtype)
 
 
 def encode_conditioning(models: SVDModels, image: torch.Tensor,
@@ -245,7 +281,9 @@ def generate(models: SVDModels, image: torch.Tensor,
              latent_noise: Optional[torch.Tensor] = None,
              boxes: Optional[torch.Tensor] = None,
              box_mask: Optional[torch.Tensor] = None,
-             shard: Optional[FrameShard] = None) -> torch.Tensor:
+             shard: Optional[FrameShard] = None,
+             amax_groups: Tuple[Optional[object], Optional[object]] = (None, None)
+             ) -> torch.Tensor:
     """img2vid: (B, H, W, 3) image in [-1, 1] -> (B, F, H, W, 3) f32 video
     in [-1, 1]. `image_noise` (B, H, W, 3) and `latent_noise`
     (B, F, H/8, W/8, latent) are unit normals; those not given are drawn
@@ -256,9 +294,11 @@ def generate(models: SVDModels, image: torch.Tensor,
     the frames group calls it with the same arguments), the latents, the
     per-frame guidance and the UNet's frames are this rank's F / n of the
     video's (the noise is drawn, or given, for all F); CLIP and the image
-    encode run whole on every rank (the image has no frame axis), the int8
-    activation amaxes are the group's, and every rank returns the whole
-    video (``decode_latents_chunked``)."""
+    encode run whole on every rank (the image has no frame axis), and every
+    rank returns the whole video (``decode_latents_chunked``). Under int8
+    the activation amaxes of the UNet and of the decoder are the largest
+    over the process groups `amax_groups` (``parallel.World.amax_groups``:
+    the ranks that hold parts of the same global tensors)."""
     cfg = config
     for mode in (cfg.unet_quant, cfg.vae_quant):
         if mode not in quant.MODES:
@@ -309,7 +349,7 @@ def generate(models: SVDModels, image: torch.Tensor,
         prepare_int8(models.vae.decoder)
 
     def unet_out(x_in, t, ehs_, ids_, **kw):
-        with quant.quantized(cfg.unet_quant, shard):
+        with quant.quantized(cfg.unet_quant, amax_groups[0]):
             out = models.unet(x_in.to(models.dtype), t, ehs_, ids_, shard=shard, **kw)
         if isinstance(out, tuple):               # return_deep: (out, deep)
             return out[0].float(), out[1]
@@ -354,6 +394,6 @@ def generate(models: SVDModels, image: torch.Tensor,
         model_out = uncond + guidance * (cond - uncond)
         denoised = scheduler.denoised(model_out, latents, sigma)
         latents = scheduler.step(latents, denoised, sigma, sigma_next)
-    with quant.quantized(cfg.vae_quant):
+    with quant.quantized(cfg.vae_quant, amax_groups[1]):
         video = decode_latents_chunked(models, latents, cfg.decode_chunk_size, shard)
     return video.clamp(-1.0, 1.0)

@@ -25,6 +25,17 @@ there (transformer.py:264).
 With ``tracklet_dim > 0`` each spatial block is followed by a Tracklet2Video
 gated attention (``gated_attentions``, models/tracklet.py), which runs only
 when box tokens are given (JAX transformer.py:533-539).
+
+Tensor parallelism (``tp=``, a ``parallel.TensorShard``; the 'model' mesh
+axis, ``parallel/tensor.py``): each module is built for its rank's part.
+Attention runs its rank's whole heads (q/k/v column-parallel, ``to_out``
+row-parallel); the feed-forward its columns of the inner width, through
+the GEGLU kernel's partial form (``ln_geglu_partial``: no b2, no residual)
+and an all-reduce, then b2 and x; ``proj_in`` column-parallel with its
+channels gathered, ``proj_out`` row-parallel on this rank's channels. The
+shard is a property of the modules as built, not a per-call setting, so a
+remat recompute (on the autograd engine's thread) runs the same
+collectives. The gated attentions stay replicated.
 """
 
 from __future__ import annotations
@@ -43,6 +54,8 @@ from ..ops.kernels import temporal_attention as tak
 from ..ops.kernels.dispatch import kernels_enabled
 from ..ops.video import spatial_tokens
 from ..parallel.frames import FrameShard, frames_to_tokens, tokens_to_frames
+from ..parallel.tensor import (TensorShard, enter, gather_channels, reduce,
+                               scatter_channels)
 from . import attn_processor
 from .blocks import AlphaBlender, GroupNormSiLU
 from .embeddings import TimestepEmbedding, sinusoidal_embedding
@@ -65,25 +78,73 @@ class QLinear(nn.Linear):
         return i8k.dense_codes(self.weight)
 
 
+class RowParallelLinear(QLinear):
+    """A row-parallel QLinear: this model rank's `in_features` columns of the
+    weight and the whole bias; the partial products are summed over the
+    model group (``parallel.tensor.reduce``), then the bias is added once.
+    In int8 mode the int32 sums are summed instead (``linear_site(...,
+    group=)``), with each output channel's weight amax the whole
+    channel's."""
+
+    def __init__(self, in_features: int, out_features: int, tp: TensorShard,
+                 bias: bool = True):
+        super().__init__(in_features, out_features, bias=bias)
+        self.tp = tp
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if quant.get_mode() == "int8":
+            return i8k.linear_site(x, self.weight, self.bias, group=self.tp.group)
+        y = reduce(F.linear(x, self.weight), self.tp)
+        return y if self.bias is None else y + self.bias
+
+    def int8_codes(self):
+        return i8k.row_dense_codes(self.weight, self.tp.group)
+
+
+def _out_proj(inner: int, out: int, tp: Optional[TensorShard]) -> QLinear:
+    return QLinear(inner, out) if tp is None else RowParallelLinear(inner, out, tp)
+
+
 class Attention(nn.Module):
     """Multi-head attention, diffusers names: to_q/to_k/to_v bias-free,
     to_out.0 biased. ``site`` is its key in the processor registry (the
-    UNet sets it to the module's name)."""
+    UNet sets it to the module's name). With `tp`, this model rank's heads
+    (``num_heads`` is theirs)."""
 
     def __init__(self, query_dim: int, num_heads: int, head_dim: int,
-                 context_dim: Optional[int] = None, out_dim: Optional[int] = None):
+                 context_dim: Optional[int] = None, out_dim: Optional[int] = None,
+                 tp: Optional[TensorShard] = None):
         super().__init__()
+        self.tp = tp
+        if tp is not None:
+            num_heads = tp.heads(num_heads)
         self.num_heads, self.head_dim = num_heads, head_dim
         inner = num_heads * head_dim
         ctx = context_dim or query_dim
         self.to_q = QLinear(query_dim, inner, bias=False)
         self.to_k = QLinear(ctx, inner, bias=False)
         self.to_v = QLinear(ctx, inner, bias=False)
-        self.to_out = nn.ModuleList([QLinear(inner, out_dim or query_dim)])
+        self.to_out = nn.ModuleList([_out_proj(inner, out_dim or query_dim, tp)])
         self.site = ""
 
-    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None):
+    def _processor(self):
         proc = attn_processor.get_processor(self.site)
+        if proc is not None and self.tp is not None:
+            raise ValueError(f"an attention processor at {self.site!r} under a 'model' mesh "
+                             "axis: not ported (ROADMAP A20)")
+        return proc
+
+    def _enter(self, x, context):
+        """x and the context (x where None), entering the model group."""
+        if self.tp is None:
+            return x, (x if context is None else context)
+        if context is None:
+            x, = enter(self.tp, x)
+            return x, x
+        return enter(self.tp, x, context)
+
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None):
+        proc = self._processor()
         if proc is not None:
             # full projections, no one-token shortcut (the processor may do
             # other math at this site)
@@ -94,11 +155,16 @@ class Attention(nn.Module):
         if context is not None and context.shape[-2] == 1:
             # Single-key cross-attention (the one CLIP token): softmax over
             # one key is 1, so every query's output is to_out(to_v(ctx)).
+            if self.tp is not None:
+                context, = enter(self.tp, context)
             out = self.to_out[0](self.to_v(context))        # (B, 1, out)
             return out.expand(x.shape[:-1] + (out.shape[-1],))
-        ctx = x if context is None else context
-        o = dot_product_attention_packed(self.to_q(x), self.to_k(ctx), self.to_v(ctx),
-                                         num_heads=self.num_heads,
+        x, ctx = self._enter(x, context)
+        q, k, v = self.to_q(x), self.to_k(ctx), self.to_v(ctx)
+        if self.num_heads == 0:
+            # a model rank without a head: its (..., 0) part, a zero partial
+            return self.to_out[0](q)
+        o = dot_product_attention_packed(q, k, v, num_heads=self.num_heads,
                                          scale=self.head_dim ** -0.5)
         return self.to_out[0](o)
 
@@ -111,15 +177,20 @@ class _GEGLUProj(nn.Module):
 
 class FeedForward(nn.Module):
     """GEGLU feed-forward: Linear(2·4C) -> h·gelu_tanh(gate) -> Linear(C);
-    diffusers keys net.0.proj and net.2."""
+    diffusers keys net.0.proj and net.2. With `tp`, this model rank's
+    columns of the inner width (net.0.proj its value rows, then the same
+    gate rows; net.2 row-parallel)."""
 
-    def __init__(self, dim: int, mult: int = 4):
+    def __init__(self, dim: int, mult: int = 4, tp: Optional[TensorShard] = None):
         super().__init__()
-        inner = dim * mult
+        self.tp = tp
+        inner = dim * mult if tp is None else tp.ff(dim * mult)
         self.net = nn.ModuleList([_GEGLUProj(dim, inner), nn.Identity(),
-                                  QLinear(inner, dim)])
+                                  _out_proj(inner, dim, tp)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            x, = enter(self.tp, x)
         h, gate = self.net[0].proj(x).chunk(2, dim=-1)
         return self.net[2](h * F.gelu(gate, approximate="tanh"))
 
@@ -129,26 +200,39 @@ def residual_geglu(x: torch.Tensor, ln: nn.LayerNorm, ff: FeedForward) -> torch.
     fused kernel wherever it takes the call (its plain version on the CPU),
     the module path for a CUDA call it does not take and in int8 mode
     (LN → QLinear → h·gelu_tanh(gate) → QLinear → + x, JAX
-    transformer.py:264)."""
+    transformer.py:264). Under tensor parallelism the kernel's partial form
+    gives this rank's part of the second product, summed over the model
+    group, then b2 and x are added."""
     proj, out = ff.net[0].proj, ff.net[2]
+    inner = out.in_features
+    if ff.tp is None:
+        if quant.get_mode() == "int8" or (
+                x.is_cuda and not (kernels_enabled() and gk.supports(x, inner))):
+            return x + ff(ln(x))
+        return gk.ln_geglu_residual(x, ln.weight, ln.bias, proj.weight, proj.bias,
+                                    out.weight, out.bias)
     if quant.get_mode() == "int8" or (
-            x.is_cuda and not (kernels_enabled() and gk.supports(x, out.in_features))):
+            x.is_cuda and not (kernels_enabled() and gk.supports_partial(x, inner))):
         return x + ff(ln(x))
-    return gk.ln_geglu_residual(x, ln.weight, ln.bias, proj.weight, proj.bias,
-                                out.weight, out.bias)
+    # the LayerNorm runs inside the kernel, after the model group's entry:
+    # its weights enter too, so their gradients are summed
+    xe, ls, lb = enter(ff.tp, x, ln.weight, ln.bias)
+    y = reduce(gk.ln_geglu_partial(xe, ls, lb, proj.weight, proj.bias, out.weight), ff.tp)
+    return x + (y + out.bias)
 
 
 class BasicTransformerBlock(nn.Module):
     """Pre-LN: self-attention, cross-attention, GEGLU feed-forward."""
 
-    def __init__(self, dim: int, num_heads: int, head_dim: int, context_dim: int):
+    def __init__(self, dim: int, num_heads: int, head_dim: int, context_dim: int,
+                 tp: Optional[TensorShard] = None):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
-        self.attn1 = Attention(dim, num_heads, head_dim)
+        self.attn1 = Attention(dim, num_heads, head_dim, tp=tp)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
-        self.attn2 = Attention(dim, num_heads, head_dim, context_dim=context_dim)
+        self.attn2 = Attention(dim, num_heads, head_dim, context_dim=context_dim, tp=tp)
         self.norm3 = nn.LayerNorm(dim, eps=1e-5)
-        self.ff = FeedForward(dim)
+        self.ff = FeedForward(dim, tp=tp)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
         x = x + self.attn1(self.norm1(x))
@@ -163,7 +247,7 @@ class FrameAxisAttention(Attention):
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None):
         b, f, s, _ = x.shape
-        proc = attn_processor.get_processor(self.site)
+        proc = self._processor()
         if proc is not None:
             # the reference's temporal-token view (B·S, F, C), so one
             # processor signature covers spatial and frame sites
@@ -182,10 +266,15 @@ class FrameAxisAttention(Attention):
         if context is not None:
             if context.shape[-2] != 1:
                 raise ValueError("FrameAxisAttention takes a single-token context")
+            if self.tp is not None:
+                context, = enter(self.tp, context)
             out = self.to_out[0](self.to_v(context))        # (B, 1, out)
             return out[:, :, None, :].expand(b, f, s, out.shape[-1])
+        x, _ = self._enter(x, None)
         q, k, v = self.to_q(x), self.to_k(x), self.to_v(x)
         scale = self.head_dim ** -0.5
+        if self.num_heads == 0:
+            return self.to_out[0](q)
         if kernels_enabled() and tak.supports(q, self.num_heads):
             o = tak.frame_attention(q, k, v, num_heads=self.num_heads, scale=scale)
         else:
@@ -197,16 +286,18 @@ class FrameAxisAttention(Attention):
 class TemporalBasicTransformerBlock(nn.Module):
     """FF-in, self-attention over frames, cross-attention, FF on (B, F, S, C)."""
 
-    def __init__(self, dim: int, num_heads: int, head_dim: int, context_dim: int):
+    def __init__(self, dim: int, num_heads: int, head_dim: int, context_dim: int,
+                 tp: Optional[TensorShard] = None):
         super().__init__()
         self.norm_in = nn.LayerNorm(dim, eps=1e-5)
-        self.ff_in = FeedForward(dim)
+        self.ff_in = FeedForward(dim, tp=tp)
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
-        self.attn1 = FrameAxisAttention(dim, num_heads, head_dim)
+        self.attn1 = FrameAxisAttention(dim, num_heads, head_dim, tp=tp)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
-        self.attn2 = FrameAxisAttention(dim, num_heads, head_dim, context_dim=context_dim)
+        self.attn2 = FrameAxisAttention(dim, num_heads, head_dim, context_dim=context_dim,
+                                        tp=tp)
         self.norm3 = nn.LayerNorm(dim, eps=1e-5)
-        self.ff = FeedForward(dim)
+        self.ff = FeedForward(dim, tp=tp)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
         x = residual_geglu(x, self.norm_in, self.ff_in)
@@ -221,20 +312,26 @@ class TransformerSpatioTemporalModel(nn.Module):
 
     def __init__(self, channels: int, num_heads: int, head_dim: int,
                  context_dim: int, num_layers: int = 1, norm_eps: float = 1e-6,
-                 tracklet_dim: int = 0, tracklet_gate_init: float = 0.0):
+                 tracklet_dim: int = 0, tracklet_gate_init: float = 0.0,
+                 tp: Optional[TensorShard] = None):
         super().__init__()
         inner = num_heads * head_dim
+        self.tp = tp
+        # under tensor parallelism proj_in's outputs and proj_out's inputs
+        # are this rank's channels of the inner width
+        self.channel_sizes = None if tp is None else tp.channels(inner)
+        local = inner if tp is None else self.channel_sizes[tp.index]
         self.norm = GroupNormSiLU(channels, 32, norm_eps, silu=False)
-        self.proj_in = QLinear(channels, inner)
+        self.proj_in = QLinear(channels, local)
         self.transformer_blocks = nn.ModuleList(
-            [BasicTransformerBlock(inner, num_heads, head_dim, context_dim)
+            [BasicTransformerBlock(inner, num_heads, head_dim, context_dim, tp)
              for _ in range(num_layers)])
         self.temporal_transformer_blocks = nn.ModuleList(
-            [TemporalBasicTransformerBlock(inner, num_heads, head_dim, context_dim)
+            [TemporalBasicTransformerBlock(inner, num_heads, head_dim, context_dim, tp)
              for _ in range(num_layers)])
         self.time_pos_embed = TimestepEmbedding(inner, inner, hidden_dim=inner * 4)
         self.time_mixer = AlphaBlender(0.5, switch_spatial_to_temporal_mix=True)
-        self.proj_out = QLinear(inner, channels)
+        self.proj_out = _out_proj(local, channels, tp)
         self.gated_attentions = None
         if tracklet_dim > 0:
             from .tracklet import GatedSelfAttention
@@ -252,7 +349,13 @@ class TransformerSpatioTemporalModel(nn.Module):
         f = num_frames
         b = bf // f
         residual = x
-        tokens = self.proj_in(spatial_tokens(self.norm(x)))
+        tp = self.tp
+        tokens = spatial_tokens(self.norm(x))
+        if tp is None:
+            tokens = self.proj_in(tokens)
+        else:
+            tokens, = enter(tp, tokens)
+            tokens = gather_channels(self.proj_in(tokens), tp, self.channel_sizes)
         inner = tokens.shape[-1]
         # cross-attention context of the temporal blocks: the first frame's
         # encoder state of each sample, (B, N, D); the UNet repeats one state
@@ -282,4 +385,6 @@ class TransformerSpatioTemporalModel(nn.Module):
                 mix = tblock(mix + emb[None, :, None, :], time_context)
                 mix = tokens_to_frames(mix, shard, h * w).reshape(bf, h * w, inner)
             tokens = self.time_mixer(tokens, mix)
+        if tp is not None:
+            tokens = scatter_channels(tokens, tp, self.channel_sizes)
         return self.proj_out(tokens).reshape(bf, h, w, c) + residual

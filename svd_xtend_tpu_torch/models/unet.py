@@ -40,6 +40,13 @@ temporal resnets gather every frame (``parallel/frames.py``). The shard is
 an argument of every block, not thread-local state, so a checkpointed
 block's recompute (on the autograd engine's thread) runs the same
 collectives in the same order on every rank.
+
+Tensor parallelism (``tp=``, a ``parallel.TensorShard``): the transformers
+are built for this model rank's part of their matrices
+(``models/transformer.py``, ``parallel/tensor.py``); every other layer is
+replicated. Unlike the frames shard, the model shard is a property of the
+module as built: ``parallel.tensor.shard_state_dict`` slices a whole state
+dict for it.
 """
 
 from __future__ import annotations
@@ -67,7 +74,8 @@ class DownBlock(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, temb_channels: int,
                  num_layers: int, eps: float, add_downsample: bool,
                  num_heads: Optional[int] = None, context_dim: int = 0,
-                 transformer_layers: int = 1, tracklet: Tuple[int, float] = (0, 0.0)):
+                 transformer_layers: int = 1, tracklet: Tuple[int, float] = (0, 0.0),
+                 tp=None):
         super().__init__()
         self.resnets = nn.ModuleList(
             [SpatioTemporalResBlock(in_channels if i == 0 else out_channels,
@@ -80,7 +88,7 @@ class DownBlock(nn.Module):
                                                 out_channels // num_heads,
                                                 context_dim, transformer_layers,
                                                 tracklet_dim=tracklet[0],
-                                                tracklet_gate_init=tracklet[1])
+                                                tracklet_gate_init=tracklet[1], tp=tp)
                  for _ in range(num_layers)])
         self.downsamplers = (nn.ModuleList([Downsample2D(out_channels, out_channels)])
                              if add_downsample else None)
@@ -104,7 +112,7 @@ class MidBlock(nn.Module):
 
     def __init__(self, channels: int, temb_channels: int, eps: float,
                  num_heads: int, context_dim: int, transformer_layers: int = 1,
-                 tracklet: Tuple[int, float] = (0, 0.0)):
+                 tracklet: Tuple[int, float] = (0, 0.0), tp=None):
         super().__init__()
         self.resnets = nn.ModuleList(
             [SpatioTemporalResBlock(channels, channels, temb_channels, eps)
@@ -113,7 +121,7 @@ class MidBlock(nn.Module):
             [TransformerSpatioTemporalModel(channels, num_heads, channels // num_heads,
                                             context_dim, transformer_layers,
                                             tracklet_dim=tracklet[0],
-                                            tracklet_gate_init=tracklet[1])])
+                                            tracklet_gate_init=tracklet[1], tp=tp)])
 
     def forward(self, x, temb, ehs, num_frames, tokens=None, shard=None):
         x = self.resnets[0](x, temb, num_frames, shard=shard)
@@ -131,7 +139,7 @@ class UpBlock(nn.Module):
                  skip_channels: Sequence[int], temb_channels: int, eps: float,
                  add_upsample: bool, num_heads: Optional[int] = None,
                  context_dim: int = 0, transformer_layers: int = 1,
-                 tracklet: Tuple[int, float] = (0, 0.0)):
+                 tracklet: Tuple[int, float] = (0, 0.0), tp=None):
         super().__init__()
         self.resnets = nn.ModuleList(
             [SpatioTemporalResBlock((prev_channels if i == 0 else out_channels) + sc,
@@ -144,7 +152,7 @@ class UpBlock(nn.Module):
                                                 out_channels // num_heads,
                                                 context_dim, transformer_layers,
                                                 tracklet_dim=tracklet[0],
-                                                tracklet_gate_init=tracklet[1])
+                                                tracklet_gate_init=tracklet[1], tp=tp)
                  for _ in skip_channels])
         self.upsamplers = (nn.ModuleList([Upsample2D(out_channels)])
                            if add_upsample else None)
@@ -161,9 +169,10 @@ class UpBlock(nn.Module):
 
 
 class UNetSpatioTemporalConditionModel(nn.Module):
-    def __init__(self, config: UNetConfig):
+    def __init__(self, config: UNetConfig, tp=None):
         super().__init__()
         cfg = self.config = config
+        self.tp = tp
         chs = cfg.block_out_channels
         tdim = cfg.time_embed_dim
         ctx = cfg.cross_attention_dim
@@ -181,10 +190,10 @@ class UNetSpatioTemporalConditionModel(nn.Module):
             self.down_blocks.append(DownBlock(
                 cin, chs[i], tdim, cfg.layers_per_block, eps, i < n - 1,
                 cfg.num_attention_heads[i] if cross else None, ctx,
-                cfg.transformer_layers_per_block[i], tracklet))
+                cfg.transformer_layers_per_block[i], tracklet, tp))
             cin = chs[i]
         self.mid_block = MidBlock(chs[-1], tdim, eps, cfg.num_attention_heads[-1],
-                                  ctx, cfg.transformer_layers_per_block[-1], tracklet)
+                                  ctx, cfg.transformer_layers_per_block[-1], tracklet, tp)
 
         rev = list(reversed(chs))
         rev_heads = list(reversed(cfg.num_attention_heads))
@@ -199,7 +208,7 @@ class UNetSpatioTemporalConditionModel(nn.Module):
             skip_ch = [rev[i]] * (n_res - 1) + [rev[min(i + 1, n - 1)]]
             self.up_blocks.append(UpBlock(
                 prev, rev[i], skip_ch, tdim, eps, i < n - 1,
-                rev_heads[i] if cross else None, ctx, rev_tl[i], tracklet))
+                rev_heads[i] if cross else None, ctx, rev_tl[i], tracklet, tp))
             prev = rev[i]
         self.conv_norm_out = GroupNormSiLU(chs[0], 32, eps)
         self.conv_out = Conv3x3(chs[0], cfg.out_channels)

@@ -48,6 +48,7 @@ _SIGNATURES = {
     "svdx_flash_attention_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                                      _P],
     "svdx_ln_geglu_residual": [_P] * 11 + [_I] * 7 + [_P],
+    "svdx_ln_geglu_partial": [_P] * 10 + [_I] * 9 + [_P],
     "svdx_frame_attention_fwd": [_P, _P, _P, _P] + [_I] * 7 + [_F, _P],
     "svdx_temporal_resnet_conv": [_P] * 12 + [_I] * 8 + [_P],
     "svdx_group_norm_fold": [_P] * 8 + [_I] * 5 + [_F, _P],

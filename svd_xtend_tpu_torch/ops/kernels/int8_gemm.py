@@ -23,14 +23,26 @@ activation and run the GEMM, through the kernels unless
 parameter version (``_weights.per_version``): ``generate`` makes them all
 before its loop (``prepare``), and they stay on the device while the
 parameters do (≈ 1.5 GB for the UNet).
+
+Under tensor parallelism (``parallel/tensor.py``) a row-parallel dense
+holds its columns of every output channel: ``row_dense_codes`` takes each
+channel's weight amax as the largest over the model group (the whole
+channel's, which the one-rank codes take), and ``linear_site(...,
+group=)`` runs the kernel's raw form (``dense_sums``: the exact int32
+sums, no epilogue), sums them over the group exactly and dequantises the
+sum once: the one-rank product bit for bit. A rank whose part is empty (no
+head, no feed-forward columns) adds zero sums and launches no GEMM.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
 
+from ...parallel.frames import all_reduce_max_
+from ...parallel.tensor import all_reduce_sum_
 from .. import quant
 from . import int8_quant as iq
 from ._build import check, library
@@ -55,6 +67,26 @@ def int8_gemm_plan(co: int, k_unit: int) -> Int8Plan:
 # (codes, clamped amaxes (Co,)): (Co, 3, 3, Ci) for a conv, (Co, K) for a dense
 conv_codes = per_version(quant.weight_codes_per_co)
 dense_codes = per_version(quant.weight_codes_per_cout)
+
+
+def _reduced_codes(weight: torch.Tensor, group):
+    wf = weight.float()
+    amax = wf.abs().amax(dim=1) if wf.shape[1] else wf.new_zeros(wf.shape[0])
+    amax = quant.clamped(all_reduce_max_(amax, group))
+    return quant.codes(wf, (amax * quant.INV_QMAX)[:, None]), amax
+
+
+@functools.lru_cache(maxsize=None)
+def _reduced_cache(group):
+    return per_version(lambda w: _reduced_codes(w, group))
+
+
+def row_dense_codes(weight: torch.Tensor, group):
+    """(codes (Cout, K_r), clamped amaxes (Cout,)) of this rank's columns of
+    a row-parallel nn.Linear weight, each row's amax the largest over the
+    model `group` (made once per parameter version; every rank of the
+    group makes them together)."""
+    return _reduced_cache(group)(weight)
 
 
 def conv_reference(xq, stats, wq, w_amax, bias=None, post_shift=None, residual=None,
@@ -177,6 +209,28 @@ def int8_dense(xq: torch.Tensor, stats: torch.Tensor, wq: torch.Tensor, w_amax: 
     return _dense_launch(xq, stats, wq, w_amax, bias)
 
 
+def dense_sums(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """The exact int32 sums of codes xq (M, K) with wq (N, K): (M, N) int32,
+    through the kernel's raw form on a CUDA tensor (counted with
+    ``int8_dense``)."""
+    if xq.device.type == "cpu":
+        return quant.dense_accumulate(xq, wq)
+    if not supports_dense(xq, wq):
+        raise ValueError(
+            f"int8 dense kernel needs CUDA contiguous int8 (M, K) and (N, K) codes with "
+            f"K % 16 == 0; got {tuple(xq.shape)} {xq.dtype}, {tuple(wq.shape)} {wq.dtype}")
+    m, k = xq.shape
+    co = wq.shape[0]
+    out = torch.empty((m, co), device=xq.device, dtype=torch.int32)
+    plan = int8_gemm_plan(co, k)
+    check(library().svdx_int8_gemm(
+        xq.data_ptr(), wq.data_ptr(), None, None, None, None, None, out.data_ptr(), m, co, k,
+        0, 0, 0, 0, plan.bn, plan.chunk, torch.cuda.current_stream(xq.device).cuda_stream),
+        "int8_dense_sums")
+    int8_dense.launches += 1
+    return out
+
+
 int8_conv3x3.launches = 0
 int8_dense.launches = 0
 
@@ -202,16 +256,29 @@ def conv3x3_site(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Ten
 
 
 def linear_site(x: torch.Tensor, weight: torch.Tensor,
-                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                bias: Optional[torch.Tensor] = None, group=None) -> torch.Tensor:
     """A QLinear in int8 mode (JAX transformer.py:64-66): x (..., K) with the
-    nn.Linear weight (N, K) -> (..., N) in x's dtype."""
+    nn.Linear weight (N, K) -> (..., N) in x's dtype. With a model `group`,
+    a row-parallel product: x and the weight are this rank's K columns, the
+    int32 sums are summed over the group and dequantised once (with the
+    bias); every rank of the group gets the whole output."""
     lead, k = x.shape[:-1], x.shape[-1]
-    x2d = x.reshape(-1, k).contiguous()
-    wq, w_amax = dense_codes(_in_dtype(weight, x.dtype))
-    if kernels_enabled():
-        xq, stats = iq.quantize(x2d)
+    x2d = x.reshape(lead.numel(), k).contiguous()
+    w = _in_dtype(weight, x.dtype)
+    wq, w_amax = dense_codes(w) if group is None else row_dense_codes(w, group)
+    kernels = kernels_enabled()
+    xq, stats = iq.quantize(x2d) if kernels else iq.quantize_reference(x2d)
+    empty = x2d.shape[0] == 0 or k == 0 or wq.shape[0] == 0
+    if group is not None:
+        sums = (torch.zeros((x2d.shape[0], wq.shape[0]), dtype=torch.int32, device=x.device)
+                if empty else dense_sums(xq, wq) if kernels
+                else quant.dense_accumulate(xq, wq))
+        y = quant.dequantize(all_reduce_sum_(sums, group), stats[0], w_amax, bias, x.dtype)
+    elif empty:
+        y = quant.dequantize(torch.zeros((x2d.shape[0], wq.shape[0]), dtype=torch.int32,
+                                         device=x.device), stats[0], w_amax, bias, x.dtype)
+    elif kernels:
         y = int8_dense(xq, stats, wq, w_amax, bias, x.dtype)
     else:
-        xq, stats = iq.quantize_reference(x2d)
         y = dense_reference(xq, stats, wq, w_amax, bias, x.dtype)
     return y.reshape(*lead, y.shape[-1])

@@ -13,12 +13,14 @@ the scale on the device: ``stats`` is a (2,) f32 tensor (amax, scale) that
 the GEMM's epilogue reads (``ops/kernels/int8_gemm.py``), so nothing waits
 for the host.
 
-Under sequence parallelism (``quant.quantized(mode, shard)``) the tensor
-of a call is split over the ranks of a frames group, and its amax is the
-largest over the group: the plain version all-reduces its amax; the kernel
-runs its two passes apart (``phase`` 1, then 2) with the partial amaxes
-all-reduced between them in a buffer of MAX_BLOCKS (the ranks' grids may
-differ), which the second pass reads whole.
+Over several ranks (``quant.quantized(mode, group)``) the tensor of a call
+is split over the ranks of the group (data rows, frames, a row-parallel
+product's inputs), and its amax is the largest over the group: the plain
+version all-reduces its amax; the kernel runs its two passes apart
+(``phase`` 1, then 2) with the partial amaxes all-reduced between them in a
+buffer of MAX_BLOCKS (the ranks' grids may differ), which the second pass
+reads whole. A rank whose part is empty (a model rank without a head) adds
+an amax of 0 to the reduction and launches nothing.
 
 On a CPU tensor ``quantize`` runs the plain version; on a CUDA tensor it
 launches the kernel or raises.
@@ -59,12 +61,14 @@ def quantize_reference(x: torch.Tensor, pre=None, x2: Optional[torch.Tensor] = N
             c0 = c1
         parts = out
     v = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
-    shard = quant.amax_shard()
-    if shard is None:
+    group = quant.amax_group()
+    if group is None and v.numel():
         codes, scale = quant.quantize_dynamic(v)
         amax = v.float().abs().amax()
     else:
-        amax = all_reduce_max_(v.float().abs().amax(), shard)
+        amax = v.float().abs().amax() if v.numel() else v.new_zeros((), dtype=torch.float32)
+        if group is not None:
+            amax = all_reduce_max_(amax, group)
         scale = quant.scale_of(amax)
         codes = quant.codes(v.float(), scale)
     return codes, torch.stack([amax, scale])
@@ -109,10 +113,17 @@ def _launch(x, pre, x2):
                                  f"on x's device, got {tuple(a.shape)}")
         rows_per_sample = m // n
     q = torch.empty(x.shape[:-1] + (c,), device=x.device, dtype=torch.int8)
+    group = quant.amax_group()
+    if m * c == 0:
+        # an empty part: an amax of 0 into the group's reduction, no launch
+        partials = torch.zeros(MAX_BLOCKS, device=x.device, dtype=torch.float32)
+        if group is not None:
+            all_reduce_max_(partials, group)
+        amax = partials.max()
+        return q, torch.stack([amax, quant.scale_of(amax)])
     stats = torch.empty(2, device=x.device, dtype=torch.float32)
     blocks = blocks_for(m * c)
-    shard = quant.amax_shard()
-    partials = (torch.empty(blocks, device=x.device, dtype=torch.float32) if shard is None
+    partials = (torch.empty(blocks, device=x.device, dtype=torch.float32) if group is None
                 else torch.zeros(MAX_BLOCKS, device=x.device, dtype=torch.float32))
     ptr = lambda a: None if a is None else a.data_ptr()
 
@@ -122,11 +133,11 @@ def _launch(x, pre, x2):
             stats.data_ptr(), m, c, c1, rows_per_sample, int(bool(silu)), blocks, phase,
             torch.cuda.current_stream(x.device).cuda_stream), "int8_quantize")
 
-    if shard is None:
+    if group is None:
         run(0)
     else:
         run(1)
-        all_reduce_max_(partials, shard)
+        all_reduce_max_(partials, group)
         run(2)
     quantize.launches += 1
     return q, stats

@@ -65,7 +65,7 @@ INV_QMAX2 = (torch.tensor(INV_QMAX, dtype=torch.float32) ** 2).item()
 AMAX_FLOOR = 1e-12
 
 _mode: Optional[str] = None
-_shard = None
+_group = None
 
 
 def set_mode(mode: Optional[str]) -> None:
@@ -82,26 +82,27 @@ def get_mode() -> Optional[str]:
 
 
 @contextmanager
-def quantized(mode: Optional[str], shard=None):
-    """The mode inside the block, the previous one after it. With a frames
-    `shard` (``parallel.FrameShard``), each activation's amax is the largest
-    over the frames group (``amax_shard``): the union of the ranks' tensors
-    is the one-rank tensor, whose amax the one-rank codes take."""
-    global _shard
-    prev = _mode, _shard
+def quantized(mode: Optional[str], group=None):
+    """The mode inside the block, the previous one after it. With a process
+    `group` (``parallel.World.amax_groups``), each activation's amax is the
+    largest over the group (``amax_group``): its ranks hold the parts of
+    one global tensor (the data rows, the frames, a row-parallel product's
+    inputs) or copies of it, and the global tensor's amax is what the
+    one-rank codes take, as GSPMD's global max in the JAX package."""
+    global _group
+    prev = _mode, _group
     set_mode(mode)
-    _shard = shard
+    _group = group
     try:
         yield
     finally:
         set_mode(prev[0])
-        _shard = prev[1]
+        _group = prev[1]
 
 
-def amax_shard():
-    """The frames shard whose group an activation's amax is reduced over, or
-    None."""
-    return _shard
+def amax_group():
+    """The process group an activation's amax is reduced over, or None."""
+    return _group
 
 
 def clamped(amax: torch.Tensor) -> torch.Tensor:

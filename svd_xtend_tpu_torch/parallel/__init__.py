@@ -29,31 +29,38 @@ state is gathered to rank 0 for a save (``gather_to_main``), and every rank
 reads the full file on restore and keeps its part, so a run resumes at
 another world size and layout. NCCL on cards, gloo on the CPU.
 
-The 'frames' axis (sequence parallelism, ``frames.py``): ``mesh_world`` lays
-``MeshConfig(data, model=1, frames)`` over the ranks as the JAX package's
-``create_mesh`` reshapes its devices (core/mesh.py:36-49): data outer,
-frames inner, so rank = data index · frames + frames index. A ``World``
-then holds its frames group (the ranks of its data row) and its data group
-(the ranks of its frames index). Each rank holds F / frames of every video
-of its rows (``World.frame_shard``); the draws are the global batch's, of
+The 'frames' axis (sequence parallelism, ``frames.py``) and the 'model'
+axis (tensor parallelism, ``tensor.py``): ``mesh_world`` lays
+``MeshConfig(data, model, frames)`` over the ranks as the JAX package's
+``create_mesh`` reshapes its devices (core/mesh.py:34-47): data outer,
+model in the middle, frames inner, so rank = (data index · model + model
+index) · frames + frames index. A ``World`` then holds its frames group
+(the ranks of its data row and model index), its model group (those of its
+data row and frames index) and its replica group (every rank of its model
+index: they hold the same parameters). Each rank holds F / frames of every
+video of its rows (``World.frame_shard``) and its part of the UNet's
+transformer matrices (``World.tensor_shard``); every model rank of a data
+index takes the same rows and draws; the draws are the global batch's, of
 which ``local_draws`` keeps this rank's rows and frames; the gradients are
-summed over the frames group and averaged over the data group
-(``all_reduce_mean_``); ZeRO-1 partitions over every rank of the world.
-``generate_rows`` is the counterpart of ``make_sharded_generate``
-(sharding.py:173-203) for both axes. The tensor-parallel rules ('model'
-axis) are not ported (ROADMAP A18).
+summed over the frames group and averaged over the data axis, over the
+replica group (``all_reduce_mean_``); ZeRO-1 partitions over the replica
+group. ``generate_rows`` is the counterpart of ``make_sharded_generate``
+(sharding.py:173-203) for the three axes; under int8 an activation's amax
+is the largest over every rank that holds part of the same global tensor
+(``World.amax_groups``), as GSPMD's global max is.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 from .frames import FrameShard, comm_device
+from .tensor import TensorShard
 
 # an all-reduce or broadcast bucket holds at most this many values
 BUCKET_VALUES = 1 << 25
@@ -62,15 +69,19 @@ BUCKET_VALUES = 1 << 25
 @dataclasses.dataclass(frozen=True)
 class World:
     """This process's place among the ranks: `size` ranks in a (data,
-    frames) layout with `frames` ranks a frames group (data outer, frames
-    inner); the groups are None on a frames axis of 1."""
+    model, frames) layout (data outer, frames inner) with `frames` ranks a
+    frames group and `model` a model group; a group is None where its axis
+    is 1, the replica group None where it is the whole world."""
 
     rank: int = 0
     size: int = 1
     local_rank: int = 0
     frames: int = 1
     frames_group: Optional[object] = None
-    data_group: Optional[object] = None
+    model: int = 1
+    model_group: Optional[object] = None
+    replica_group: Optional[object] = None
+    chunk_group: Optional[object] = None
 
     @property
     def main(self) -> bool:
@@ -85,22 +96,41 @@ class World:
     @property
     def data(self) -> int:
         """The size of the data axis."""
-        return self.size // self.frames
+        return self.size // (self.frames * self.model)
 
     @property
     def data_index(self) -> int:
-        return self.rank // self.frames
+        return self.rank // (self.frames * self.model)
+
+    @property
+    def model_index(self) -> int:
+        return self.rank // self.frames % self.model
 
     @property
     def frames_index(self) -> int:
         return self.rank % self.frames
+
+    def _rank_of(self, d: int, m: int, f: int) -> int:
+        return (d * self.model + m) * self.frames + f
+
+    @property
+    def replicas(self) -> List[int]:
+        """The global ranks of this rank's model index (data outer, frames
+        inner): they hold the same parameters."""
+        return [self._rank_of(d, self.model_index, f)
+                for d in range(self.data) for f in range(self.frames)]
+
+    @property
+    def replica_index(self) -> int:
+        """This rank's place in ``replicas``."""
+        return self.data_index * self.frames + self.frames_index
 
     def frame_shard(self, num_frames: int) -> Optional[FrameShard]:
         """This rank's frames of a video of `num_frames` (None on a frames
         axis of 1); raises ValueError unless the axis divides them."""
         if self.frames == 1:
             return None
-        first = self.data_index * self.frames
+        first = self._rank_of(self.data_index, self.model_index, 0)
         return FrameShard(self.frames_group, tuple(range(first, first + self.frames)),
                           self.frames_index, num_frames)
 
@@ -108,6 +138,25 @@ class World:
         """This rank's frames of a video of `num_frames`."""
         shard = self.frame_shard(num_frames)
         return slice(0, num_frames) if shard is None else shard.frames
+
+    def tensor_shard(self) -> Optional[TensorShard]:
+        """This rank's part of the 'model' axis (None on an axis of 1)."""
+        if self.model == 1:
+            return None
+        return TensorShard(self.model_group,
+                           tuple(self._rank_of(self.data_index, m, self.frames_index)
+                                 for m in range(self.model)), self.model_index)
+
+    def amax_groups(self) -> Tuple[Optional[object], Optional[object]]:
+        """The process groups over which an int8 activation's amax is the
+        largest (None: this rank alone): the UNet's, every rank (each holds
+        part of the global batch's tensor at every site, or the same values
+        at a site replicated over the model axis); the decoder's, the ranks
+        that decode the same chunks (every rank, or on a frames axis those of
+        this frames index)."""
+        if self.size == 1:
+            return None, None
+        return dist.group.WORLD, (dist.group.WORLD if self.frames == 1 else self.chunk_group)
 
 
 SINGLE = World()
@@ -140,28 +189,49 @@ def init_world(device_type: str, mesh=None) -> World:
 def mesh_world(world: World, mesh) -> World:
     """`world` laid out as ``MeshConfig(data, model, frames)``: data outer,
     frames inner (the JAX package's ``create_mesh``); a data axis of -1
-    takes the ranks the frames axis leaves. Every rank must call it (each
+    takes the ranks the other axes leave. Every rank must call it (each
     creates every group, in the same order). Raises ValueError for a layout
-    the world does not hold or the port does not run, and RuntimeError for
-    a frames axis without a process group."""
-    if mesh.model != 1:
-        raise ValueError(f"not ported yet: a 'model' mesh axis of {mesh.model} (ROADMAP A18)")
-    frames = mesh.frames
-    if frames < 1 or world.size % frames:
-        raise ValueError(f"a frames axis of {frames} over {world.size} rank(s)")
-    data = world.size // frames
+    the world does not hold, and RuntimeError for a frames or model axis
+    without a process group."""
+    frames, model = mesh.frames, mesh.model
+    if frames < 1 or model < 1 or world.size % (frames * model):
+        raise ValueError(f"a model axis of {model} x frames axis of {frames}: the world has "
+                         f"{world.size} rank(s)")
+    data = world.size // (frames * model)
     if mesh.data not in (-1, data):
-        raise ValueError(f"mesh data {mesh.data} x frames {frames} over {world.size} rank(s)")
-    if frames == 1:
-        return dataclasses.replace(world, frames=1, frames_group=None, data_group=None)
+        raise ValueError(f"mesh data {mesh.data} x model {model} x frames {frames}: the world "
+                         f"has {world.size} rank(s)")
+    out = dataclasses.replace(world, frames=frames, frames_group=None, model=model,
+                              model_group=None, replica_group=None, chunk_group=None)
+    if frames == 1 and model == 1:
+        return out
     if not world.collective:
-        raise RuntimeError(f"a frames axis of {frames} needs a process group")
-    frames_groups = [dist.new_group(list(range(d * frames, (d + 1) * frames)))
-                     for d in range(data)]
-    data_groups = [dist.new_group(list(range(f, world.size, frames))) for f in range(frames)]
-    return dataclasses.replace(world, frames=frames,
-                               frames_group=frames_groups[world.rank // frames],
-                               data_group=data_groups[world.rank % frames])
+        raise RuntimeError(f"a model axis of {model} and frames axis of {frames} need a "
+                           "process group")
+    at = out._rank_of
+    groups = {}
+    if frames > 1:
+        for d in range(data):
+            for m in range(model):
+                g = dist.new_group([at(d, m, f) for f in range(frames)])
+                if (d, m) == (out.data_index, out.model_index):
+                    groups["frames_group"] = g
+        if data * model > 1:
+            for f in range(frames):
+                g = dist.new_group([at(d, m, f) for d in range(data) for m in range(model)])
+                if f == out.frames_index:
+                    groups["chunk_group"] = g
+    if model > 1:
+        for d in range(data):
+            for f in range(frames):
+                g = dist.new_group([at(d, m, f) for m in range(model)])
+                if (d, f) == (out.data_index, out.frames_index):
+                    groups["model_group"] = g
+        for m in range(model):
+            g = dist.new_group([at(d, m, f) for d in range(data) for f in range(frames)])
+            if m == out.model_index:
+                groups["replica_group"] = g
+    return dataclasses.replace(out, **groups)
 
 
 def close_world(world: World) -> None:
@@ -171,7 +241,7 @@ def close_world(world: World) -> None:
 
 def rows(n_local: int, world: World) -> slice:
     """This rank's rows of a global batch of n_local · data rows (the rows
-    of its data index)."""
+    of its data index, the same on every model and frames rank of it)."""
     return slice(world.data_index * n_local, (world.data_index + 1) * n_local)
 
 
@@ -217,14 +287,16 @@ def _buckets(indices: Sequence[int], tensors: Sequence[torch.Tensor]):
 def all_reduce_mean_(tensors: List[torch.Tensor], world: World) -> None:
     """In place: every tensor the mean over the data axis of its sum over
     the frames axis (each rank of a frames group holds a part of its rows'
-    sum), summed over every rank in buckets of one dtype and divided by the
-    data axis's size (a no-op without a process group)."""
+    sum), summed over the replica group in buckets of one dtype and divided
+    by the data axis's size (a no-op without a process group). On a model
+    axis each model index does this apart: its ranks' tensors are its parts
+    (or replicated ones, whose gradients every model rank holds whole)."""
     if not world.collective:
         return
     dev = comm_device(tensors[0].device) if tensors else None
     for run in _buckets(range(len(tensors)), tensors):
         flat = torch.cat([tensors[i].reshape(-1).to(dev) for i in run])
-        dist.all_reduce(flat)
+        dist.all_reduce(flat, group=world.replica_group)
         flat.div_(world.data)
         offset = 0
         for i in run:
@@ -234,12 +306,14 @@ def all_reduce_mean_(tensors: List[torch.Tensor], world: World) -> None:
 
 
 def owners(sizes: Sequence[int], world: World) -> List[int]:
-    """The rank that owns each tensor under ZeRO-1: whole tensors, largest
-    first to the least loaded rank (the lowest on a tie); the same on every
-    rank."""
-    load, owner = [0] * world.size, [0] * len(sizes)
+    """The rank that owns each tensor under ZeRO-1, as its place in
+    ``world.replicas`` (the world's ranks on a model axis of 1): whole
+    tensors, largest first to the least loaded rank (the lowest on a tie);
+    the same on every rank of the replica group."""
+    n = len(world.replicas)
+    load, owner = [0] * n, [0] * len(sizes)
     for i in sorted(range(len(sizes)), key=lambda i: (-sizes[i], i)):
-        r = min(range(world.size), key=lambda r: (load[r], r))
+        r = min(range(n), key=lambda r: (load[r], r))
         owner[i] = r
         load[r] += sizes[i]
     return owner
@@ -249,7 +323,8 @@ def owners(sizes: Sequence[int], world: World) -> List[int]:
 def broadcast_from_owners_(tensors: List[torch.Tensor], owner: Sequence[int], world: World,
                            device: torch.device,
                            received: Optional[Callable] = None) -> int:
-    """Each tensor from its owner to every rank, in buckets staged on the
+    """Each tensor from its owner (``owners``: a place in the replica
+    group) to every rank of the replica group, in buckets staged on the
     collectives' device (`tensors` may live in host memory); `received(i,
     staged)` sees each tensor a rank did not own as staged on `device`.
     Returns the bytes this rank staged from or to host memory."""
@@ -257,16 +332,17 @@ def broadcast_from_owners_(tensors: List[torch.Tensor], owner: Sequence[int], wo
         return 0
     dev = comm_device(device)
     moved = 0
-    for src in range(world.size):
+    ranks = world.replicas
+    for src in range(len(ranks)):
         mine = [i for i in range(len(tensors)) if owner[i] == src]
         for run in _buckets(mine, tensors):
-            if world.rank == src:
+            if world.replica_index == src:
                 flat = torch.cat([tensors[i].reshape(-1).to(dev, non_blocking=True)
                                   for i in run])
             else:
                 flat = torch.empty(sum(tensors[i].numel() for i in run),
                                    dtype=tensors[run[0]].dtype, device=dev)
-            dist.broadcast(flat, src=src)
+            dist.broadcast(flat, src=ranks[src], group=world.replica_group)
             offset = 0
             for i in run:
                 t = tensors[i]
@@ -274,7 +350,7 @@ def broadcast_from_owners_(tensors: List[torch.Tensor], owner: Sequence[int], wo
                 offset += t.numel()
                 if t.device != dev:
                     moved += part.numel() * part.element_size()
-                if world.rank != src:
+                if world.replica_index != src:
                     t.copy_(part)
                     if received is not None:
                         received(i, part.to(device))
@@ -308,9 +384,12 @@ def generate_rows(models, images: torch.Tensor, config, world: World, *,
     """``generate`` over the ranks: `images` (B, H, W, 3) is the global
     batch, each rank draws the global noise (from `generator`, or takes it
     as given) and generates the B / data rows of its data index, over its
-    frames group's frames shards where the world has a frames axis; returns
-    this rank's rows of the whole video (B / data, F, H, W, 3), the same on
-    every rank of a frames group. With one rank, ``generate``."""
+    frames group's frames shards where the world has a frames axis, with
+    `models` built for its model rank where it has a model axis
+    (``SVDModels.create(..., tp=world.tensor_shard())``); under int8 the
+    amaxes span ``world.amax_groups()``. Returns this rank's rows of the
+    whole video (B / data, F, H, W, 3), the same on every rank of a data
+    index. With one rank, ``generate``."""
     from ..diffusion.pipeline import generate
 
     b = images.shape[0]
@@ -319,6 +398,10 @@ def generate_rows(models, images: torch.Tensor, config, world: World, *,
     if world.size == 1:
         return generate(models, images, config, generator=generator, image_noise=image_noise,
                         latent_noise=latent_noise, **kw)
+    tp = world.tensor_shard()
+    if getattr(models.unet, "tp", None) != tp:
+        raise ValueError(f"a UNet built for {getattr(models.unet, 'tp', None)} on the model "
+                         f"rank {tp}")
     ds = models.vae.config.downsample_factor
     lat = (b, config.num_frames, config.height // ds, config.width // ds,
            models.vae.config.latent_channels)
@@ -330,4 +413,5 @@ def generate_rows(models, images: torch.Tensor, config, world: World, *,
     boxes = {k: v[mine] for k, v in kw.items() if k in ("boxes", "box_mask") and v is not None}
     return generate(models, images[mine], config, image_noise=image_noise[mine],
                     latent_noise=latent_noise[mine], **{**kw, **boxes},
-                    shard=world.frame_shard(config.num_frames))
+                    shard=world.frame_shard(config.num_frames),
+                    amax_groups=world.amax_groups())

@@ -23,7 +23,8 @@ The collectives run on NCCL with the tensors where they are, or on gloo
 with the buffers staged through host memory (``comm_device``): gloo is the
 CPU's backend, and the one that runs two ranks on one card (NCCL refuses
 two ranks on one device). ``STAGED`` counts the bytes staged through the
-host. A collective that fails raises; nothing falls back to one rank.
+host by these collectives and by the 'model' axis's (``tensor.py``). A
+collective that fails raises; nothing falls back to one rank.
 """
 
 from __future__ import annotations
@@ -192,11 +193,12 @@ def gather_frames(x: torch.Tensor, shard: FrameShard) -> torch.Tensor:
     return _GatherFrames.apply(x, shard)
 
 
-def all_reduce_max_(t: torch.Tensor, shard: FrameShard) -> torch.Tensor:
-    """In place: the largest of every rank's `t`, elementwise (no gradient)."""
+def all_reduce_max_(t: torch.Tensor, group) -> torch.Tensor:
+    """In place: the largest of every rank's `t` over the process group
+    `group`, elementwise (no gradient)."""
     dev = comm_device(t.device)
     staged = STAGED.to(t, dev)
-    dist.all_reduce(staged, op=dist.ReduceOp.MAX, group=shard.group)
+    dist.all_reduce(staged, op=dist.ReduceOp.MAX, group=group)
     if staged is not t:
         t.copy_(STAGED.to(staged, t.device))
     return t

@@ -18,11 +18,16 @@ kernels' plain versions), and data parallelism over the processes
 
   torchrun --nproc_per_node 4 -m svd_xtend_tpu_torch.train.cli --base_folder ./frames
 
-``--mesh_data`` is the number of ranks (-1: all of torchrun's), each taking
-its rows of the global batch of per_device_batch_size x ranks;
-``--mesh_model`` stays 1 (the tensor-parallel rules are not ported), and
-``--attn_impl`` takes only ``auto``. ``--zero1`` partitions the optimizer
-moments and the EMA over the ranks, ``--host_offload masters`` keeps the f32
+``--mesh_data`` is the size of the data axis (-1: the ranks the model axis
+leaves), each data index taking its rows of the global batch of
+per_device_batch_size x data; ``--mesh_model`` the size of the 'model'
+axis (tensor parallelism, ``parallel/tensor.py``: each rank of a model
+group holds its part of the UNet's transformers; the world must hold data
+x model ranks, laid out data outer), and ``--attn_impl`` takes only
+``auto``. Under a model axis every rank runs the validation videos (rank
+0 writes them) and the export gathers the UNet whole to rank 0.
+``--zero1`` partitions the optimizer moments and the EMA over the ranks
+(of each model index), ``--host_offload masters`` keeps the f32
 masters in host memory and ``masters+moments`` the moments too (in the
 'lora' scope the adapter's masters, its f32 compute copy staying on the
 card). Rank 0 alone logs, validates and writes; a checkpoint holds
@@ -44,6 +49,7 @@ import dataclasses
 import os
 import signal
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -55,7 +61,10 @@ from ..data.dataset import FrameFolderDataset, ShardedLoader
 from ..diffusion.pipeline import SVDModels, generate, init_random_
 from ..io.media import export_to_gif
 from ..models import lora as lora_lib
-from ..parallel import close_world, comm_device, env_world, init_world
+from ..models.unet import UNetSpatioTemporalConditionModel
+from ..parallel import (broadcast_from_owners_, close_world, comm_device, env_world,
+                        gather_to_main, init_world)
+from ..parallel.tensor import layout
 from ..train import checkpoint as ckpt_lib
 from ..train.optim import training_schedule
 from ..train.state import (TrainState, cast_frozen_to_compute, create_train_state,
@@ -208,15 +217,16 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
 
 
 def check_mesh(args) -> None:
-    """Refuse a mesh the port does not run, before any work: a 'model' axis,
-    or a 'data' axis other than the world torchrun started."""
-    if args.mesh_model != 1:
-        raise ValueError(f"not ported yet: --mesh_model {args.mesh_model} (the tensor-parallel "
-                         "rules are ROADMAP A18)")
+    """Refuse a mesh the world torchrun started does not hold, before any
+    work: data x model must be its ranks."""
     size = env_world().size
-    if args.mesh_data not in (-1, size):
-        raise ValueError(f"--mesh_data {args.mesh_data}: the world has {size} rank(s) "
-                         "(torchrun --nproc_per_node sets it; -1 takes them all)")
+    if args.mesh_model < 1 or size % args.mesh_model:
+        raise ValueError(f"--mesh_model {args.mesh_model}: the world has {size} rank(s) "
+                         "(torchrun --nproc_per_node sets it)")
+    if args.mesh_data not in (-1, size // args.mesh_model):
+        raise ValueError(f"--mesh_data {args.mesh_data} x --mesh_model {args.mesh_model}: the "
+                         f"world has {size} rank(s) (torchrun --nproc_per_node sets it; -1 "
+                         "takes the ranks the model axis leaves)")
     if args.attn_impl != "auto":
         raise ValueError(f"--attn_impl {args.attn_impl} is not ported: the port's attention is "
                          "'auto' (the hand-written flash kernels on the card, their plain "
@@ -229,15 +239,23 @@ def load_or_init_params(models: SVDModels, args) -> SVDModels:
     given (reference train_svd.py:553-558, 643-656). In place."""
     device = models.unet.conv_in.weight.device
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    for net in (models.unet, models.vae, models.clip):
+    whole = models
+    if models.tp is not None:
+        # a model rank initialises and loads the whole UNet, then keeps its part
+        with torch.device(device):
+            unet = UNetSpatioTemporalConditionModel(models.unet.config)
+        whole = dataclasses.replace(models, unet=unet.to(models.dtype))
+    for net in (whole.unet, whole.vae, whole.clip):
         init_random_(net, gen)
     if args.pretrained_model_path:
         from ..io import convert
-        convert.load_diffusers_checkpoint(args.pretrained_model_path, models)
+        convert.load_diffusers_checkpoint(args.pretrained_model_path, whole)
     if args.pretrain_unet:
         from ..io import convert
-        convert.load_unet_state(models.unet,
+        convert.load_unet_state(whole.unet,
                                 convert.load_component_state(args.pretrain_unet, UNET_FILE))
+    if models.tp is not None:
+        models.load_unet_whole(whole.unet.state_dict())
     return models
 
 
@@ -276,11 +294,12 @@ def trained_weights(models: SVDModels, state: TrainState, cfg: TrainConfig, ema=
 
 
 def run_validation(models: SVDModels, state: TrainState, args, cfg: TrainConfig,
-                   step: int, logger, writer=None, ema=None) -> None:
+                   step: int, logger, writer=None, ema=None, write: bool = True) -> None:
     """Generate videos from the validation image and save GIFs (reference
     train_svd.py:1092-1157), plus the quantitative metrics of utils/eval.py
     (CLIP frame score, temporal consistency, pixel dynamics) of the first
-    into the writer."""
+    into the writer. With `write` False (a model rank other than 0, which
+    takes part in the videos) nothing is saved or logged."""
     device = models.unet.conv_in.weight.device
     if args.validation_image and os.path.exists(args.validation_image):
         try:
@@ -302,11 +321,14 @@ def run_validation(models: SVDModels, state: TrainState, args, cfg: TrainConfig,
                               num_inference_steps=args.num_inference_steps,
                               fps_offset=0)   # training convention: raw fps
     out_dir = os.path.join(cfg.output_dir, "validation_images")
-    os.makedirs(out_dir, exist_ok=True)
+    if write:
+        os.makedirs(out_dir, exist_ok=True)
     with trained_weights(models, state, cfg, ema):
         for i in range(max(1, args.num_validation_images)):
             gen = torch.Generator(device=device).manual_seed(step * 1000 + i)
             video = generate(models, image, pipe_cfg, generator=gen)
+            if not write:
+                continue
             frames = [((video[0, j] + 1) / 2).cpu().numpy() for j in range(video.shape[1])]
             suffix = f"_{i}" if args.num_validation_images > 1 else ""
             export_to_gif(frames, os.path.join(out_dir, f"val_img_{step}{suffix}.gif"))
@@ -314,7 +336,8 @@ def run_validation(models: SVDModels, state: TrainState, args, cfg: TrainConfig,
                 from ..utils.eval import video_metrics
                 m = video_metrics(models, video, image)
                 writer.write(step, {f"val/{k}": float(v) for k, v in m.items()})
-    logger.info("validation GIF(s) saved at step %d", step)
+    if write:
+        logger.info("validation GIF(s) saved at step %d", step)
 
 
 def final_unet_state(models: SVDModels, state: TrainState, cfg: TrainConfig,
@@ -332,6 +355,26 @@ def final_unet_state(models: SVDModels, state: TrainState, cfg: TrainConfig,
         ema = state.ema_params if ema is None else ema
         src = ema if ema is not None else state.params
         sd.update({n: t.detach().float() for n, t in zip(state.names, src)})
+    return sd
+
+
+def whole_final_unet_state(models: SVDModels, state: TrainState, world) -> Optional[dict]:
+    """``final_unet_state`` on a model axis: every rank's parts of the UNet
+    and of the state gathered to rank 0 and joined whole (every rank calls
+    it; None on the other ranks)."""
+    whole_state = state.state_dict()
+    first = world.data_index == 0 and world.frames_index == 0
+    mine = {k: v.detach().cpu() for k, v in models.unet.state_dict().items()} if first else None
+    parts = gather_to_main(mine, world)
+    if parts is None:
+        return None
+    by_model = [parts[(m * world.frames)] for m in range(world.model)]
+    sd = {}
+    for k, v in by_model[0].items():
+        lay = layout(k, models.unet.config, world.model)
+        sd[k] = (v if lay is None else lay.unshard([p[k] for p in by_model])).float()
+    src = whole_state["ema_params"] or whole_state["params"]
+    sd.update({n: t.float() for n, t in src.items()})
     return sd
 
 
@@ -356,8 +399,8 @@ def main(argv=None) -> dict:
     the time each next() blocked)."""
     args = parse_args(argv)
     cfg = build_train_config(args)
-    check_mesh(args)
     cfg.check_ported()
+    check_mesh(args)
     logger = get_logger()
 
     # preemption (the reference has none): flag on SIGTERM, checkpoint at
@@ -365,7 +408,7 @@ def main(argv=None) -> dict:
     preempted = {"flag": False}
     previous = signal.signal(signal.SIGTERM, lambda *_: preempted.__setitem__("flag", True))
     started = not (dist.is_available() and dist.is_initialized())
-    world = init_world(torch.device(args.device).type)
+    world = init_world(torch.device(args.device).type, cfg.mesh)
     try:
         return _train(args, cfg, logger, preempted, world)
     finally:
@@ -386,7 +429,17 @@ def _agreed(flag: bool, world, device: torch.device) -> bool:
 def full_ema(state: TrainState):
     """Every trainable tensor's EMA copy on the EMA's device, for rank 0's
     validation and export (``TrainState.whole_ema``: every rank must call
-    it; None on the other ranks under ZeRO-1)."""
+    it; None on the other ranks under ZeRO-1). On a model axis, where every
+    rank validates, this rank's parts of every tensor's EMA, broadcast from
+    their ZeRO-1 owners within its model index."""
+    if state.layouts is not None and state.ema_params is not None and state.optimizer.gathers:
+        ema = [e if e is not None else torch.zeros_like(p, device=state.optimizer.device)
+               for e, p in zip(state.ema_params, state.params)]
+        broadcast_from_owners_(ema, state.optimizer.owner, state.optimizer.world,
+                               state.optimizer.device)
+        return ema
+    if state.layouts is not None:
+        return state.ema_params
     ema = state.whole_ema()
     if ema is None or ema is state.ema_params:
         return ema
@@ -407,8 +460,8 @@ def _train(args, cfg: TrainConfig, logger, preempted, world) -> dict:
         # the branch of SVDModels.with_tracklet, initialised with the rest
         unet_cfg = dataclasses.replace(unet_cfg, tracklet_dim=cfg.tracklet_dim,
                                        tracklet_gate_init=cfg.tracklet_gate_init)
-    models = load_or_init_params(SVDModels.create(unet_cfg, vae_cfg, clip_cfg, device=device),
-                                 args)
+    models = load_or_init_params(SVDModels.create(unet_cfg, vae_cfg, clip_cfg, device=device,
+                                                  tp=world.tensor_shard()), args)
     lora_gen = torch.Generator(device=device).manual_seed(derived_seed(cfg.seed, spawn_key=(1,)))
     state = create_train_state(cfg, models, generator=lora_gen, world=world)
     logger.info("%s scope on %s: %d trainable tensors, %d values", cfg.train_mode, device,
@@ -449,9 +502,10 @@ def _train(args, cfg: TrainConfig, logger, preempted, world) -> dict:
     stats["decoder"] = dataset.decoder
     accum = cfg.gradient_accumulation_steps
     local_bs = cfg.per_device_batch_size * accum
+    # every model rank of a data index takes the same rows
     loader = ShardedLoader(dataset, local_bs, seed=cfg.seed, start_step=data_step,
-                           num_workers=cfg.num_workers, process_index=world.rank,
-                           process_count=world.size)
+                           num_workers=cfg.num_workers, process_index=world.data_index,
+                           process_count=world.data)
     writer = (MetricWriter(os.path.join(cfg.output_dir, "logs"), report_to=cfg.report_to)
               if world.main else None)
     try:
@@ -490,10 +544,10 @@ def _train(args, cfg: TrainConfig, logger, preempted, world) -> dict:
 
             if (step + 1) % cfg.validation_steps == 0 or step == start:
                 ema = full_ema(state)
-                if world.main:
+                if world.main or world.model > 1:
                     t0 = time.perf_counter()
                     run_validation(models, state, args, cfg, step + 1, logger, writer=writer,
-                                   ema=ema)
+                                   ema=ema, write=world.main)
                     stats["validation_seconds"].append(time.perf_counter() - t0)
     finally:
         loader.close()
@@ -503,21 +557,24 @@ def _train(args, cfg: TrainConfig, logger, preempted, world) -> dict:
         stats["loader_wait_seconds"] = list(loader.wait_seconds)
     manager.wait()
     stats["checkpoints"] = [dict(c) for c in manager.saves]
-    ema = full_ema(state)
+    if world.model > 1:
+        final = whole_final_unet_state(models, state, world)
+    else:
+        ema = full_ema(state)
+        final = final_unet_state(models, state, cfg, ema) if world.main else None
     if not world.main:
         return stats
 
     # final export (reference train_svd.py:1166-1189)
     t0 = time.perf_counter()
-    ckpt_lib.export_unet_diffusers(final_unet_state(models, state, cfg, ema),
-                                   os.path.join(cfg.output_dir, "unet"),
+    ckpt_lib.export_unet_diffusers(final, os.path.join(cfg.output_dir, "unet"),
                                    config_json=models.unet.config.to_json())
     if state.lora is not None:
         ckpt_lib.export_lora_diffusers(state.lora, cfg.output_dir)
     if cfg.tracklet_dim > 0:
         # the branch alone (the diffusers export above leaves it out), for
         # any scope that carries it
-        ckpt_lib.export_tracklet(final_unet_state(models, state, cfg, ema), cfg.output_dir)
+        ckpt_lib.export_tracklet(final, cfg.output_dir)
     stats["export_seconds"] = time.perf_counter() - t0
     logger.info("final model exported to %s", cfg.output_dir)
     if args.push_to_hub:

@@ -28,6 +28,7 @@ import torch
 from ..core.config import TrainConfig
 from ..parallel import (SINGLE, World, broadcast_from_owners_, gather_to_main, merge_indexed,
                         owners)
+from ..parallel.tensor import all_reduce_sum_
 from .quant import AdamW8bit
 
 Schedule = Callable[[int], float]
@@ -78,15 +79,28 @@ def training_schedule(cfg: TrainConfig, num_processes: int = 1) -> Schedule:
                         cfg.max_train_steps * num_processes)
 
 
-def global_norm_f32(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, accumulated in f32."""
-    return torch.sqrt(sum(t.float().square().sum() for t in tensors))
+def global_norm_f32(tensors: Sequence[torch.Tensor], sharded: Optional[Sequence[bool]] = None,
+                    group=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every element, accumulated in f32.
+    Under tensor parallelism the tensors marked `sharded` are this rank's
+    parts: their sum of squares is summed over the model `group`, the
+    replicated ones counted once."""
+    if not sharded or not any(sharded):
+        return torch.sqrt(sum(t.float().square().sum() for t in tensors))
+    square = lambda ts: sum((t.float().square().sum() for t in ts),
+                            torch.zeros((), device=tensors[0].device))
+    parts = square([t for t, s in zip(tensors, sharded) if s])
+    all_reduce_sum_(parts, group)
+    return torch.sqrt(parts + square([t for t, s in zip(tensors, sharded) if not s]))
 
 
-def clip_by_global_norm_f32_(grads: Sequence[torch.Tensor], max_norm: float) -> torch.Tensor:
-    """In place: when the f32 global norm is not below max_norm, scale every
-    gradient by max_norm / norm. Returns the norm before clipping."""
-    norm = global_norm_f32(grads)
+def clip_by_global_norm_f32_(grads: Sequence[torch.Tensor], max_norm: float,
+                             norm: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """In place: when the f32 global norm (`norm`, else ``global_norm_f32``
+    of the gradients) is not below max_norm, scale every gradient by
+    max_norm / norm. Returns the norm before clipping."""
+    if norm is None:
+        norm = global_norm_f32(grads)
     if norm.item() >= max_norm:
         for g in grads:
             g.copy_(g.float() / norm * max_norm)
@@ -102,8 +116,10 @@ class ClippedAdamW:
     Over several data-parallel ranks (``parallel.World``) the gradients
     come in already averaged, and every rank clips the same ones. With
     ``zero1`` each rank holds the moments of its own tensors only
-    (``parallel.owners``: whole tensors) and updates those; the owners then
-    broadcast the updated masters. With ``host_offload`` the masters (and
+    (``parallel.owners``: whole tensors, over the ranks of its model index)
+    and updates those; the owners then broadcast the updated masters. Under
+    tensor parallelism the tensors marked `sharded` are this model rank's
+    parts, and the global norm counts each part once. With ``host_offload`` the masters (and
     with "masters+moments" the moments) live in host memory, pinned where
     there is a card, and the update streams them through `device` in chunks
     of at most OFFLOAD_CHUNK_VALUES values: each chunk's copies in on a side
@@ -117,8 +133,10 @@ class ClippedAdamW:
     MOMENTS = ("exp_avg", "exp_avg_sq")
 
     def __init__(self, params: List[torch.Tensor], schedule: Schedule, cfg: TrainConfig,
-                 world: World = SINGLE, device: Optional[torch.device] = None):
+                 world: World = SINGLE, device: Optional[torch.device] = None,
+                 sharded: Optional[Sequence[bool]] = None):
         self.params, self.schedule = params, schedule
+        self.sharded = list(sharded) if sharded is not None else None
         self.max_grad_norm = cfg.max_grad_norm
         self.count = 0
         self.world = world
@@ -128,13 +146,13 @@ class ClippedAdamW:
         self.zero1 = cfg.zero1
         n = len(params)
         self.owner = (owners([p.numel() for p in params], world) if self.zero1
-                      else [world.rank] * n)
-        self.local = [i for i in range(n) if self.owner[i] == world.rank]
+                      else [world.replica_index] * n)
+        self.local = [i for i in range(n) if self.owner[i] == world.replica_index]
         self.pos = {i: k for k, i in enumerate(self.local)}
         mine = [params[i] for i in self.local]
         if n and not mine:
-            raise ValueError(f"ZeRO-1 over {world.size} ranks and {n} trainable tensors leaves "
-                             f"rank {world.rank} none")
+            raise ValueError(f"ZeRO-1 over {len(world.replicas)} ranks and {n} trainable "
+                             f"tensors leaves rank {world.rank} none")
         self.streamed_bytes = 0
         self._host_moments: Dict = {}
         self.adamw = self.adamw8 = None
@@ -157,10 +175,9 @@ class ClippedAdamW:
         are offloaded), `on_receive(i, tensor)` each master a ZeRO-1 owner
         sent it. Returns the learning rate it applied and the f32 global norm
         of the gradients before clipping."""
+        norm = global_norm_f32(grads, self.sharded, self.world.model_group)
         if self.max_grad_norm and self.max_grad_norm > 0:
-            norm = clip_by_global_norm_f32_(grads, self.max_grad_norm)
-        else:
-            norm = global_norm_f32(grads)
+            clip_by_global_norm_f32_(grads, self.max_grad_norm, norm)
         lr = float(self.schedule(self.count))
         corrections = self.adamw8.begin_step() if self.adamw8 is not None else None
         if self.adamw is not None:
@@ -325,7 +342,7 @@ class ClippedAdamW:
     def gathers(self) -> bool:
         """Whether the state is partitioned over several ranks, so that a
         whole state (a checkpoint) must be gathered from them."""
-        return self.zero1 and self.world.collective and self.world.size > 1
+        return self.zero1 and self.world.collective and len(self.world.replicas) > 1
 
     def _local_entries(self) -> Dict[int, object]:
         """{index in params: its moments} of this rank's tensors, on the CPU."""
@@ -396,6 +413,8 @@ class ClippedAdamW:
 
 
 def make_optimizer(cfg: TrainConfig, params: List[torch.Tensor], num_processes: int = 1,
-                   world: World = SINGLE, device=None) -> ClippedAdamW:
+                   world: World = SINGLE, device=None,
+                   sharded: Optional[Sequence[bool]] = None) -> ClippedAdamW:
     cfg.check_ported()
-    return ClippedAdamW(params, training_schedule(cfg, num_processes), cfg, world, device)
+    return ClippedAdamW(params, training_schedule(cfg, num_processes), cfg, world, device,
+                        sharded)

@@ -26,7 +26,16 @@ Port of ``svd_xtend_tpu/train/state.py``:
     frame of its rows and it keeps its frames; the gradients are summed
     over the frames group and averaged over the data axis, so every rank
     clips and applies the one-rank gradient; ZeRO-1 partitions over every
-    rank of the world.
+    rank of the world;
+  - tensor parallelism (a 'model' axis, ``parallel/tensor.py``): the UNet
+    is built for the rank's part (``SVDModels.create(..., tp=)``), so the
+    masters, moments and EMA of the sharded tensors are the rank's parts
+    (``TrainState.layouts``); the sharded gradients are the rank's own,
+    the replicated ones come out whole on every model rank; the mean runs
+    over each model index's ranks, the global norm counts each part once,
+    and ZeRO-1 partitions over each model index's ranks. A state dict (a
+    checkpoint) holds the whole tensors, the same files as one rank's:
+    gathered to rank 0 for a save, sliced on every rank at a restore.
 
 Mixed precision: the networks hold their weights in the compute dtype (bf16)
 and compute in it, without autocast; the state holds f32 master copies of
@@ -65,6 +74,7 @@ from ..io.convert import is_branch_key, lora_state_dict
 from ..models import lora as lora_lib
 from ..parallel import (SINGLE, World, all_reduce_mean_, gather_to_main, local_draws,
                         merge_indexed)
+from ..parallel.tensor import Layout, layout
 from .optim import ClippedAdamW, make_optimizer
 
 TEMPORAL_SCOPE = "temporal_transformer_block"
@@ -111,6 +121,8 @@ class TrainState:
     optimizer: ClippedAdamW
     ema_params: Optional[List[torch.Tensor]] = None   # full scope with use_ema
     lora: Optional[lora_lib.Adapter] = None           # 'lora' scope: `params`, by target
+    # on a 'model' axis: how each tensor splits (None: replicated)
+    layouts: Optional[List[Optional[Layout]]] = None
 
     def state_dict(self, copy: Optional[Callable] = None) -> dict:
         """Everything a resume needs, as a snapshot in CPU tensors (copies,
@@ -121,7 +133,11 @@ class TrainState:
         copy (the checkpoint manager's asynchronous copies into pinned
         buffers). Under ZeRO-1 over several ranks every rank must call it:
         the partitioned EMA and moments are gathered to rank 0, which gets
-        the whole state (the other ranks None)."""
+        the whole state (the other ranks None); so it is on a 'model' axis,
+        where the sharded tensors are joined whole."""
+        if self.layouts is not None:
+            sd = self._gathered()
+            return None if sd is None else _snapshot(sd, copy)
         optimizer = self.optimizer.state_dict()
         ema = self.whole_ema()
         if optimizer is None:
@@ -141,11 +157,82 @@ class TrainState:
                                 if e is not None}, self.optimizer.world)
         return None if parts is None else merge_indexed(parts, len(self.names))
 
+    def _gathered(self) -> Optional[dict]:
+        """On a 'model' axis: every rank's parts (masters, EMA, moments, of
+        the tensors it owns under ZeRO-1) to rank 0, which joins them into
+        the whole state; None on the other ranks."""
+        opt = self.optimizer
+        world = opt.world
+        cpu = lambda t: t.detach().to("cpu", copy=True)
+        first = world.data_index == 0 and world.frames_index == 0
+        mine = {"model": world.model_index,
+                "params": [cpu(p) for p in self.params] if first else None,
+                "ema": {i: cpu(e) for i, e in enumerate(self.ema_params or []) if e is not None},
+                "moments": opt._local_entries()}
+        parts = gather_to_main(mine, world)
+        if parts is None:
+            return None
+        by_model = [[p for p in parts if p["model"] == m] for m in range(world.model)]
+
+        def whole(i, pieces):
+            lay = self.layouts[i]
+            return pieces[0] if lay is None or pieces[0].dim() == 0 else lay.unshard(pieces)
+
+        def held(key, i):
+            """Each model index's piece of entry i under `key` (from the
+            rank that holds it), or None where one has none."""
+            pieces = []
+            for ps in by_model:
+                tables = [p[key] for p in ps if p[key] is not None]
+                found = [t[i] for t in tables if key == "params" or i in t]
+                if not found:
+                    return None
+                pieces.append(found[0])
+            return pieces
+
+        n = len(self.names)
+        params = {name: whole(i, held("params", i)) for i, name in enumerate(self.names)}
+        ema = None
+        if self.ema_params is not None:
+            ema = {name: whole(i, held("ema", i)) for i, name in enumerate(self.names)}
+        state = {}
+        for i in range(n):
+            entries = held("moments", i)
+            if entries is not None:
+                state[i] = {k: whole(i, [e[k] for e in entries]) for k in entries[0]}
+        group = dict(opt.adamw.state_dict()["param_groups"][0])
+        group["params"] = list(range(n))
+        return {"step": self.step, "params": params, "ema_params": ema,
+                "optimizer": {"count": opt.count,
+                              "adamw": {"state": state, "param_groups": [group]}}}
+
+    def _local_of(self, sd: dict) -> dict:
+        """On a 'model' axis: this rank's parts of a whole state dict."""
+        index = self.optimizer.world.model_index
+        part = lambda i, t: (t if self.layouts[i] is None or t.dim() == 0
+                             else self.layouts[i].shard(t, index))
+        out = dict(sd)
+        out["params"] = {n: part(i, t) for i, (n, t) in enumerate(sd["params"].items())}
+        if sd["ema_params"] is not None:
+            out["ema_params"] = {n: part(i, t)
+                                 for i, (n, t) in enumerate(sd["ema_params"].items())}
+        whole = sd["optimizer"]["adamw"]
+        out["optimizer"] = {**sd["optimizer"], "adamw": {
+            **whole, "state": {i: {k: part(i, v) for k, v in st.items()}
+                               for i, st in whole["state"].items()}}}
+        return out
+
     @torch.no_grad()
     def load_state_dict(self, sd: dict) -> None:
         """In place, onto this state's tensors and devices; raises where the
         names, shapes or the EMA's presence differ. The networks' compute
-        copies are the caller's to refresh."""
+        copies are the caller's to refresh. On a 'model' axis `sd` is the
+        whole state, of which this rank keeps its parts."""
+        if self.layouts is not None:
+            if "adamw" not in sd["optimizer"]:
+                raise ValueError("checkpoint holds 8-bit Adam state, which a 'model' axis "
+                                 "does not run (ROADMAP A20)")
+            sd = self._local_of(sd)
         if list(sd["params"]) != self.names:
             raise ValueError("checkpoint holds other trainable tensors than this state")
         if (sd["ema_params"] is None) != (self.ema_params is None):
@@ -217,12 +304,26 @@ def create_train_state(cfg: TrainConfig, models: SVDModels,
     ema = ([m.clone() for m in masters]
            if cfg.use_ema and cfg.train_mode == "full" else None)
     masters = _offloaded(cfg, masters) or masters
-    optimizer = make_optimizer(cfg, masters, world=world, device=device)
+    layouts = None
+    if world.model > 1:
+        _check_model_rank(models, world)
+        layouts = [layout(n, models.unet.config, world.model) for n in names]
+    optimizer = make_optimizer(cfg, masters, world=world, device=device,
+                               sharded=None if layouts is None else
+                               [lay is not None for lay in layouts])
     if ema is not None and cfg.zero1:
-        ema = [e if owner == world.rank else None for e, owner in zip(ema, optimizer.owner)]
-    state = TrainState(0, names, masters, optimizer, ema)
+        ema = [e if owner == world.replica_index else None
+               for e, owner in zip(ema, optimizer.owner)]
+    state = TrainState(0, names, masters, optimizer, ema, layouts=layouts)
     write_back(models, cfg, state)
     return state
+
+
+def _check_model_rank(models: SVDModels, world: World) -> None:
+    if models.tp != world.tensor_shard():
+        raise ValueError(f"a UNet built for {models.tp} on the model rank "
+                         f"{world.tensor_shard()} (SVDModels.create(..., "
+                         "tp=world.tensor_shard()))")
 
 
 def _offloaded(cfg: TrainConfig, masters: List[torch.Tensor]) -> Optional[List[torch.Tensor]]:
@@ -318,11 +419,14 @@ def make_train_step(models: SVDModels, cfg: TrainConfig, world: World = SINGLE):
     `batch` holds every frame of the rank's rows, the rank keeps its frames
     of them and of the draws, and the loss and gradients are summed over the
     frames group (and averaged over the data axis): the metrics and the
-    update are the one-rank step's."""
+    update are the one-rank step's. Over a model axis (``cfg.mesh.model``,
+    the world's, with `models` built for the rank) every model rank takes
+    the same rows and frames and keeps the metrics of the one-rank step."""
     cfg.check_ported()
-    if cfg.mesh.frames != world.frames:
-        raise ValueError(f"a frames axis of {cfg.mesh.frames} in the config and "
-                         f"{world.frames} in the world")
+    if cfg.mesh.frames != world.frames or cfg.mesh.model != world.model:
+        raise ValueError(f"a (model, frames) axis of ({cfg.mesh.model}, {cfg.mesh.frames}) in "
+                         f"the config and ({world.model}, {world.frames}) in the world")
+    _check_model_rank(models, world)
     accum = cfg.gradient_accumulation_steps
     gdt = torch.bfloat16 if cfg.grad_dtype == "bf16" else torch.float32
 

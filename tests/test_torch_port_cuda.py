@@ -620,6 +620,45 @@ def test_geglu_kernel_serving_and_ragged(rn, t, c):
     _assert_close_bf16(got, gg.ln_geglu_residual_reference(*args))
 
 
+@pytest.mark.parametrize("t,c,inner", [(71680, 320, 640), (17920, 640, 1280),
+                                       (4480, 1280, 2560), (1120, 1280, 2560),
+                                       (35840, 320, 320), (2240, 1280, 192), (130, 64, 64),
+                                       (1000, 64, 128)])
+def test_geglu_partial_kernel(rn, t, c, inner):
+    """The partial form (a model rank's inner columns, no b2, no residual) at
+    the shard shapes of a model axis of 2 (inner 2C), of 4 (320: a width
+    that is not a whole number of 128-column tiles of u) and an uneven
+    split of 8 (192), and small C; the whole form's K split at the 5x8
+    level."""
+    args = [rn(t, c), 1 + 0.1 * rn(c), 0.1 * rn(c), rn(2 * inner, c, sc=c ** -0.5),
+            0.1 * rn(2 * inner), rn(c, inner, sc=inner ** -0.5)]
+    n = gg.ln_geglu_partial.launches
+    got = gg.ln_geglu_partial(*args)
+    assert gg.ln_geglu_partial.launches == n + 1
+    _assert_close_bf16(got, gg.ln_geglu_partial_reference(*args))
+    assert torch.equal(got, gg.ln_geglu_partial(*args))
+
+
+def test_geglu_partial_wrapper_raises_on_untaken_shapes(rn):
+    args = [rn(10, 64), 1 + 0.1 * rn(64), 0.1 * rn(64), rn(2 * 96, 64), 0.1 * rn(2 * 96),
+            rn(64, 96)]
+    with pytest.raises(ValueError):
+        gg.ln_geglu_partial(*args)          # inner 96: not a multiple of 64
+
+
+@pytest.mark.parametrize("shape", [(71680, 320, 320), (4480, 1280, 640), (130, 2560, 1280)])
+def test_int8_dense_sums(rn, shape):
+    """The int8 GEMM's raw form (the row-parallel product's int32 sums):
+    bit for bit the plain version's exact sums."""
+    rows, k, co = shape
+    xq, _ = iq.quantize(rn(rows, k))
+    wq, _ = ig.dense_codes(rn(co, k, sc=k ** -0.5))
+    n = ig.int8_dense.launches
+    got = ig.dense_sums(xq, wq)
+    assert ig.int8_dense.launches == n + 1 and got.dtype == torch.int32
+    _same_bits(got, qt.dense_accumulate(xq.cpu(), wq.cpu()).to(got.device))
+
+
 # (first GEMM's bn; second's bn, k_slices)
 _GEGLU_TILES = [(256, 128, 1), (256, 128, 3), (256, 160, 1), (256, 160, 2), (256, 160, 4)]
 
@@ -1688,7 +1727,7 @@ def test_frames_collectives_over_a_world_of_one(rn, monkeypatch):
     """The frames axis's collectives on card tensors in an NCCL group of one
     (no host staging): the all-to-all pair and the gather are the identity
     with their backward, and the int8 quantiser's two passes with the
-    partial amaxes reduced between them (quant.quantized(mode, shard)) give
+    partial amaxes reduced between them (quant.quantized(mode, group)) give
     the one-launch codes and stats bit for bit."""
     import socket
 
@@ -1715,7 +1754,7 @@ def test_frames_collectives_over_a_world_of_one(rn, monkeypatch):
         for shape in ((28, 40, 64, 320), (71680, 320), (3, 7, 36)):
             v = rn(*shape) * 3
             q0, s0 = iq.quantize(v)
-            with qt.quantized("int8", shard):
+            with qt.quantized("int8", shard.group):
                 q, stats = iq.quantize(v)
             _same_bits(q, q0)
             _same_bits(stats, s0)
