@@ -216,7 +216,7 @@ Phases, each of which raises on failure (non-zero exit):
      on the plain versions (rel-L2 <= 1e-4) and in bf16 on the kernels
      (within 1.25x the distance of the one-rank pass run as two passes of
      batch 1, whose kernels take other launch plans as a shard's do; the
-     aim of 1e-2 printed beside it), generate at PipelineConfig(num_inference_steps=5) (the whole
+     aim of 1e-2 printed beside it), generate at PipelineConfig(num_inference_steps=2) (the whole
      video on both ranks, the same bits, within rel-L2 5e-2 of the one-rank
      video), the first default temporal-scope step's loss and grad_norm
      within 1e-2 relative; the int8 quantise kernel over the frames group
@@ -226,7 +226,26 @@ Phases, each of which raises on failure (non-zero exit):
      every main-path kernel launched on each rank in the timed video and
      the timed step. Each rank's s/video, s/step, peak memory and the bytes
      staged through the host a CFG pass, a video and a step, beside the
-     one-rank figures and the card's name and power limit.
+     one-rank figures and the card's name and power limit. Then an uneven
+     split: 14 frames over four ranks (4, 4, 3, 3), generate for 2 steps
+     against the one-rank video (rel-L2 5e-2), the ranks' videos the same
+     bits, the frame attention and temporal resnets seeing all 14 frames,
+     every forward kernel launched on each rank.
+  6i. model (tensor parallelism, parallel/tensor.py): the one-rank runs,
+     then two gloo ranks on the one card, from the same seeded weights: the
+     UNet's CFG pass (f32 plain versions within 1e-4; bf16 at 1e-2 or 1.25x
+     the one-rank launch-plan control, each row-parallel product as two
+     K-slices whose bf16 partials are summed in rank order), generate for 2
+     steps (5e-2) and two temporal-scope steps (JAX's bounds 2e-4 / 2e-3 on
+     loss / grad_norm, or 1.25x the control's distance); then one step each
+     in the 'lora' scope, with 8-bit AdamW, with host_offload
+     "masters+moments" and with an attention processor that mixes heads
+     (every head gathered for it), from the same start, held the same way,
+     the masters changed; and one model-axis 8-bit update of every split
+     tensor of the temporal scope on seeded whole gradients, whose codes and
+     scales must be the one-rank update's at each rank's values bit for
+     bit. Launches of the partial GEGLU and of the attention kernels at the
+     local heads, the collectives a pass, peaks and staged bytes.
   6d. tracklet (Tracklet2Video, models/tracklet.py): the flash forward at
      the gated attention's (S_q, S_kv) = (S, S + 16 box tokens) of the four
      UNet levels at batches 28 and 14, then with its LSE and the backward
@@ -258,8 +277,9 @@ Phases, each of which raises on failure (non-zero exit):
      wall time, peak.
   6f. optim8: one warm-up and one timed full-scope step with use_8bit_adam,
      then with grad_dtype="bf16" (s/step, peak, the moments' bytes), and
-     the 8-bit AdamW on the card against the CPU for 3 steps on a mixed tree:
-     the int8 codes apart in at most 1e-4 of the values, each by one.
+     the 8-bit AdamW on the card against the CPU for 3 steps on a mixed tree,
+     its blocks cut in each tensor's JAX order: the int8 codes apart in at
+     most 1e-4 of the values, each by one (the first codes printed).
   7. mha (the head-major attention entry point, ops/attention.py::mha, as a
      caller outside the UNet uses it): the UNet's L0 self-attention shape,
      (2x14, 2560, 320) in 5 heads of 64, through the BSHD flash kernel: its
@@ -1630,13 +1650,16 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     log("frames: sequence parallelism, two gloo ranks on the one card against one rank: the "
-        "UNet's CFG pass, generate (5 steps) and a temporal-scope step at 512x320x14f")
+        f"UNet's CFG pass, generate ({FRAMES_STEPS} steps) and a temporal-scope step at "
+        f"512x320x14f; then 14 frames over {UNEVEN_RANKS} ranks ({UNEVEN_STEPS} steps)")
     frames_launches = frames_phase(dev, smi)
     torch.cuda.empty_cache()
 
     log(f"model: tensor parallelism, {MODEL_RANKS} gloo ranks on the one card against one "
         "rank: the UNet's CFG pass (f32 plain versions, bf16 kernels beside the launch-plan "
-        f"control), generate ({MODEL_STEPS} steps) and two temporal-scope steps at 512x320x14f")
+        f"control), generate ({MODEL_STEPS} steps) and two temporal-scope steps at 512x320x14f; "
+        "then a step each in the 'lora' scope, with 8-bit AdamW, host offload and a "
+        "head-mixing attention processor, and one model-axis 8-bit update")
     model_launches = model_phase(dev, smi, ph)
     torch.cuda.empty_cache()
 
@@ -3281,7 +3304,7 @@ def parallel_phase(dev, smi):
 
 
 FRAMES_RANKS = 2
-FRAMES_STEPS = 5            # generate's Euler steps in the frames phase
+FRAMES_STEPS = 2            # generate's Euler steps in the frames phase
 # the UNet's CFG pass in bf16, two ranks against one: 1e-2 was the aim, but
 # the same pass as two passes of batch 1 (no collective; the kernels take
 # other launch plans for half the rows, as a frames shard's do) lies 1.246e-2
@@ -3293,6 +3316,10 @@ FRAMES_CONTROL_RATIO = 1.25
 FRAMES_F32_REL = 1e-4
 FRAMES_VIDEO_REL = 5e-2     # the video
 FRAMES_STEP_REL = 1e-2      # the train step's loss and grad_norm
+# the uneven split (ROADMAP A19): 14 frames over a frames axis of 4 (4, 4,
+# 3, 3), generate alone (a train batch takes an even split only)
+UNEVEN_RANKS = 4
+UNEVEN_STEPS = 2
 
 
 def frames_work(dev, world):
@@ -3401,30 +3428,31 @@ def frames_work(dev, world):
     return out
 
 
-def frames_rank(rank, port, results):
-    """A rank of the frames phase: a gloo group of FRAMES_RANKS ranks on
+def work_rank(rank, port, results, size, mesh_kw, work):
+    """A rank of a multi-rank phase: a gloo group of `size` ranks on
     localhost, every rank on cuda:0 (NCCL refuses two ranks on one card), the
-    port's world laid out as one frames group over it."""
+    port's world laid out as ``MeshConfig(**mesh_kw)`` over it; runs the
+    module function named `work` on (device, world)."""
     import traceback
 
     import torch.distributed as dist
 
     try:
-        os.environ.update(RANK=str(rank), WORLD_SIZE=str(FRAMES_RANKS), LOCAL_RANK="0")
+        os.environ.update(RANK=str(rank), WORLD_SIZE=str(size), LOCAL_RANK="0")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         dev = torch.device("cuda", 0)
         torch.cuda.set_device(dev)
         dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
-                                world_size=FRAMES_RANKS)
+                                world_size=size)
         from svd_xtend_tpu_torch import parallel
         from svd_xtend_tpu_torch.core.config import MeshConfig
-        world = parallel.init_world("cuda", MeshConfig(frames=FRAMES_RANKS))
+        world = parallel.init_world("cuda", MeshConfig(**mesh_kw))
         try:
             # numpy, not tensors: torch would share a tensor's storage through
             # a descriptor that dies with this process
             out = {k: v.numpy() if torch.is_tensor(v) else v
-                   for k, v in frames_work(dev, world).items()}
+                   for k, v in globals()[work](dev, world).items()}
             results.put((rank, True, out))
         finally:
             parallel.close_world(world)
@@ -3432,33 +3460,22 @@ def frames_rank(rank, port, results):
         results.put((rank, False, traceback.format_exc()))
 
 
-def frames_phase(dev, smi):
-    """Sequence parallelism over the 'frames' axis (parallel/frames.py): the
-    one-rank runs of frames_work here, then FRAMES_RANKS ranks, each its own
-    process on the one card over gloo with the collectives staged through
-    host memory, held to them. Returns rank 0's launches by path."""
+def run_ranks(size, mesh_kw, work, what):
+    """`size` processes of ``work_rank`` running `work`; their results by
+    rank (numpy arrays back as tensors)."""
     import multiprocessing as mp
     import queue
     import socket
 
     import numpy as np
 
-    from svd_xtend_tpu_torch import parallel
-
-    t0 = time.time()
-    one = frames_work(dev, parallel.SINGLE)
-    log(f"  [{smi}] one rank: s/video {one['s_video']:.3f} ({FRAMES_STEPS} steps), s/step "
-        f"{one['s_step']:.3f}, peak {one['video_peak'] / 2**30:.2f} / "
-        f"{one['step_peak'] / 2**30:.2f} GiB (video / step); {time.time() - t0:.1f} s")
-    torch.cuda.empty_cache()
-
     ctx = mp.get_context("spawn")
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
     results = ctx.Queue()
-    procs = [ctx.Process(target=frames_rank, args=(r, port, results))
-             for r in range(FRAMES_RANKS)]
+    procs = [ctx.Process(target=work_rank, args=(r, port, results, size, mesh_kw, work))
+             for r in range(size)]
     t0 = time.time()
     for p in procs:
         p.start()
@@ -3468,9 +3485,9 @@ def frames_phase(dev, smi):
             try:
                 rank, ok, value = results.get(timeout=600)
             except queue.Empty:
-                raise RuntimeError("frames: a rank gave no answer within 600 s")
+                raise RuntimeError(f"{what}: a rank gave no answer within 600 s")
             if not ok:
-                raise RuntimeError(f"frames: rank {rank} failed:\n{value}")
+                raise RuntimeError(f"{what}: rank {rank} failed:\n{value}")
             got[rank] = {k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
                          for k, v in value.items()}
     finally:
@@ -3478,7 +3495,106 @@ def frames_phase(dev, smi):
             p.join(timeout=60)
             if p.is_alive():
                 p.kill()
-    log(f"  {FRAMES_RANKS} ranks: {time.time() - t0:.1f} s with their start and build")
+    log(f"  {size} ranks: {time.time() - t0:.1f} s with their start and build")
+    return got
+
+
+def uneven_work(dev, world):
+    """The uneven frames video on `world` (one rank, or a rank of a frames
+    group of UNEVEN_RANKS): generate at PipelineConfig(num_inference_steps=
+    UNEVEN_STEPS), 512x320x14f, from the frames phase's seeded weights;
+    its seconds, launches and the frame attention and temporal resnet calls
+    by shape."""
+    from svd_xtend_tpu_torch import parallel
+    from svd_xtend_tpu_torch.core.config import PipelineConfig
+    from svd_xtend_tpu_torch.diffusion.pipeline import SVDModels
+    from svd_xtend_tpu_torch.ops.kernels import temporal_attention as ta
+    from svd_xtend_tpu_torch.ops.kernels import temporal_resnet as tr
+    from svd_xtend_tpu_torch.parallel.frames import STAGED
+    from svd_xtend_tpu_torch.train.state import cast_frozen_to_compute
+
+    counters = kernel_counters()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+    models = cast_frozen_to_compute(SVDModels.create(device=dev, dtype=torch.float32,
+                                                     generator=gen), torch.bfloat16)
+    pcfg = PipelineConfig(num_inference_steps=UNEVEN_STEPS)
+    image = torch.rand(1, pcfg.height, pcfg.width, 3, device=dev, generator=gen) * 2 - 1
+    noise = (torch.randn(image.shape, device=dev, generator=gen),
+             torch.randn(1, pcfg.num_frames, pcfg.height // 8, pcfg.width // 8, 4, device=dev,
+                         generator=gen))
+    shard = world.frame_shard(pcfg.num_frames)
+    reset(counters)
+    STAGED.reset()
+    with calls_by(ta, "frame_attention", SHAPE) as attention, \
+            calls_by(tr, "conv_a", SHAPE) as conv_a:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        video = parallel.generate_rows(models, image, pcfg, world, image_noise=noise[0],
+                                       latent_noise=noise[1])
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+    return {"video": video.cpu(), "s_video": seconds,
+            "launches": {n: f.launches for n, f in counters.items()},
+            "staged": STAGED.bytes, "frames": None if shard is None else shard.count,
+            "frame_attention_shapes": dict(attention), "conv_a_shapes": dict(conv_a)}
+
+
+def uneven_frames(smi, dev):
+    """14 frames over a frames axis of UNEVEN_RANKS (four gloo ranks on the
+    one card) against the one-rank video of the same UNEVEN_STEPS steps,
+    at the frames phase's video bound; every rank returns the same video,
+    holds its 4 or 3 frames, and its frame attention and temporal resnets
+    see all 14. Returns rank 0's launches."""
+    from svd_xtend_tpu_torch import parallel
+
+    one = uneven_work(dev, parallel.SINGLE)
+    torch.cuda.empty_cache()
+    got = run_ranks(UNEVEN_RANKS, dict(frames=UNEVEN_RANKS), "uneven_work", "frames uneven")
+    rel = lambda a, b: ((a - b).norm() / b.norm()).item()
+    counts = [got[r]["frames"] for r in range(UNEVEN_RANKS)]
+    log(f"  [{smi}] uneven split, 14 frames over {UNEVEN_RANKS} ranks as {counts}: one rank "
+        f"s/video {one['s_video']:.3f} ({UNEVEN_STEPS} steps); ranks "
+        f"{[round(got[r]['s_video'], 3) for r in range(UNEVEN_RANKS)]}, staged "
+        f"{got[0]['staged'] / 1e6:.1f} MB a video a rank")
+    for r in range(UNEVEN_RANKS):
+        g = got[r]
+        d = rel(g["video"], one["video"])
+        log(f"  rank {r} ({counts[r]} frames): the video {d:.4g} against one rank (bound "
+            f"{FRAMES_VIDEO_REL}); frame attention by (B, F, S_r, C) "
+            f"{g['frame_attention_shapes']}; kernel A by shape {g['conv_a_shapes']}")
+        if not d <= FRAMES_VIDEO_REL:
+            raise RuntimeError(f"frames uneven: rank {r}'s video {d} from one rank")
+        if not torch.equal(g["video"], got[0]["video"]):
+            raise RuntimeError("frames uneven: the ranks returned different videos")
+        shapes = list(g["frame_attention_shapes"]) + [k for k in g["conv_a_shapes"]
+                                                      if k[0] == 2]
+        if not shapes or any(k[1] != 14 for k in shapes):
+            raise RuntimeError("frames uneven: the frame attention and the UNet's temporal "
+                               "resnets must see all 14 frames")
+        missing = [n for n in kernel_counters() if n not in BACKWARD_ONLY | OTHER_PATHS
+                   and g["launches"][n] == 0]
+        if missing:
+            raise RuntimeError(f"frames uneven: rank {r} never launched {missing}")
+    if counts != [4, 4, 3, 3] or not torch.isfinite(got[0]["video"]).all():
+        raise RuntimeError(f"frames uneven: frames {counts}, or a video that is not finite")
+    return got[0]["launches"]
+
+
+def frames_phase(dev, smi):
+    """Sequence parallelism over the 'frames' axis (parallel/frames.py): the
+    one-rank runs of frames_work here, then FRAMES_RANKS ranks, each its own
+    process on the one card over gloo with the collectives staged through
+    host memory, held to them; then the uneven video (``uneven_frames``).
+    Returns rank 0's launches by path."""
+    from svd_xtend_tpu_torch import parallel
+
+    t0 = time.time()
+    one = frames_work(dev, parallel.SINGLE)
+    log(f"  [{smi}] one rank: s/video {one['s_video']:.3f} ({FRAMES_STEPS} steps), s/step "
+        f"{one['s_step']:.3f}, peak {one['video_peak'] / 2**30:.2f} / "
+        f"{one['step_peak'] / 2**30:.2f} GiB (video / step); {time.time() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    got = run_ranks(FRAMES_RANKS, dict(frames=FRAMES_RANKS), "frames_work", "frames")
 
     whole = torch.cat([got[r]["pass"] for r in range(FRAMES_RANKS)], dim=1)
     whole32 = torch.cat([got[r]["pass_f32"] for r in range(FRAMES_RANKS)], dim=1)
@@ -3539,11 +3655,12 @@ def frames_phase(dev, smi):
             log(f"  rank {r} {path}: {dict((n, got[r][path][n]) for n in names)}")
             if missing:
                 raise RuntimeError(f"frames: rank {r} never launched {missing} ({path})")
-    return {"frames": got[0]["video_launches"], "frames_step": got[0]["step_launches"]}
+    return {"frames": got[0]["video_launches"], "frames_step": got[0]["step_launches"],
+            "frames_uneven": uneven_frames(smi, dev)}
 
 
 MODEL_RANKS = 2
-MODEL_STEPS = 5             # generate's Euler steps in the model phase
+MODEL_STEPS = 2             # generate's Euler steps in the model phase
 # the UNet's CFG pass in bf16, two model ranks against one: 1e-2, or where
 # the one-rank launch-plan control (split_row_products: each row-parallel
 # product as MODEL_RANKS K-slices whose bf16 partials are summed in rank
@@ -3610,6 +3727,103 @@ def split_row_products(unet, n):
         tf.QLinear.forward, tf.residual_geglu = forward, residual
 
 
+# the combinations a 'model' axis took last (ROADMAP A20), one default
+# temporal-scope-sized step each at model MODEL_RANKS against one rank
+A20_SCOPES = {"lora": dict(train_mode="lora"), "8-bit AdamW": dict(use_8bit_adam=True),
+              "host offload": dict(host_offload="masters+moments"),
+              "head-mixing processor": dict()}
+
+
+def mix_heads(q, k, v, *, num_heads, scale, site):
+    """An attention processor that mixes heads (each head's queries plus the
+    previous head's, then SDPA per head): under a model axis it needs every
+    head, which the port gathers for it."""
+    heads = lambda x: x.unflatten(-1, (num_heads, -1)).transpose(1, 2)
+    qh = heads(q)
+    o = F.scaled_dot_product_attention(qh + qh.roll(1, dims=1), heads(k), heads(v), scale=scale)
+    return o.transpose(1, 2).flatten(2)
+
+
+def a20_steps(dev, world, models, cfg, state, start, batch, seeded):
+    """One step of each A20_SCOPES combination from the weights `start`
+    (the temporal masters the phase began with, host copies written back
+    before each);
+    on one rank each also under the launch-plan control. Returns
+    {name: metrics with the step's seconds and its masters' change}."""
+    import dataclasses
+
+    from svd_xtend_tpu_torch.models import attn_processor
+    from svd_xtend_tpu_torch.train.state import (create_train_state, make_train_step,
+                                                 write_back)
+
+    def one_step(scope_kw, proc, control):
+        write_back(models, cfg, state, start)
+        acfg = dataclasses.replace(cfg, **scope_kw)
+        st = create_train_state(acfg, models, world=world)
+        before = [p.detach().to(dev, copy=True) for p in st.params]
+        fn = make_train_step(models, acfg, world)
+        with (split_row_products(models.unet, MODEL_RANKS) if control
+              else contextlib.nullcontext()), \
+                (attn_processor.processors(proc) if proc else contextlib.nullcontext()):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            st, m = fn(st, batch, generator=seeded(0))
+            torch.cuda.synchronize()
+            m["s"] = time.time() - t0
+        change = [p.detach().to(dev) - b for p, b in zip(st.params, before)]
+        m["changed"] = sum(int((c != 0).sum()) for c in change)
+        m["change_norm"] = math.sqrt(sum(float(c.double().square().sum()) for c in change))
+        m["offloaded"] = all(not p.is_cuda for p in st.params)
+        m["moment_bytes"] = st.optimizer.moment_bytes()
+        del st, fn, before, change
+        torch.cuda.empty_cache()
+        return m
+
+    out = {}
+    for what, scope_kw in A20_SCOPES.items():
+        proc = mix_heads if what == "head-mixing processor" else None
+        out[what] = one_step(scope_kw, proc, False)
+        if world.model == 1:
+            out[what + " control"] = one_step(scope_kw, proc, True)
+    write_back(models, cfg, state, start)
+    return out
+
+
+def direct_8bit(dev, world, state):
+    """The model-axis 8-bit update against the one-rank one on the card: the
+    same seeded whole gradients of every split tensor of the temporal scope
+    (each rank generates them all), one AdamW8bit update over the whole
+    tensors and one over this rank's parts (the block absmaxes joined over
+    the model group); this rank's codes and scales must be the one-rank
+    update's at its values, bit for bit. Returns (tensors, codes compared,
+    int8 moments, whether all were equal)."""
+    from svd_xtend_tpu_torch.train.quant import AdamW8bit, Quantized, part_of
+
+    opt = state.optimizer
+    idx = [i for i, part in enumerate(opt.parts) if part is not None]
+    gen = torch.Generator(dev).manual_seed(SEED + 45)
+    wholes = [torch.randn(opt.parts[i].shape, device=dev, generator=gen) * 10.0 ** -(1 + k % 4)
+              for k, i in enumerate(idx)]
+    parts, axes = [opt.parts[i] for i in idx], [opt.axes[i] for i in idx]
+    local = [p.layout.shard(g, p.index) for p, g in zip(parts, wholes)]
+    one = AdamW8bit([torch.zeros_like(g) for g in wholes], axes=axes)
+    one.step(wholes, 1e-4)
+    split = AdamW8bit([torch.zeros_like(g) for g in local], axes=axes, parts=parts,
+                      group=world.model_group)
+    split.step(local, 1e-4)
+    equal, codes, int8 = True, 0, 0
+    for k in range(len(idx)):
+        for ref, mine in ((one.mu[k], split.mu[k]), (one.nu[k], split.nu[k])):
+            if isinstance(ref, Quantized):
+                want = part_of({"q": ref.q, "scale": ref.scale}, parts[k], axes[k])
+                equal &= bool(torch.equal(mine.q, want["q"]) and torch.equal(mine.scale,
+                                                                             want["scale"]))
+                codes, int8 = codes + mine.q.numel(), int8 + 1
+            else:
+                equal &= bool(torch.equal(mine, parts[k].layout.shard(ref, parts[k].index)))
+    return len(idx), codes, int8, equal
+
+
 def model_work(dev, world):
     """The model phase's runs on `world` (one rank, or a rank of the model
     group), from the same seeded weights and inputs on every process (a
@@ -3636,6 +3850,8 @@ def model_work(dev, world):
     models = SVDModels.create(device=dev, dtype=torch.float32, generator=gen,
                               tp=world.tensor_shard())
     state = create_train_state(cfg, models, world=world)
+    # the A20 steps' start, in host memory (out of the card's peaks)
+    masters = [p.detach().cpu() for p in state.params]
     out = {}
     counts = lambda: {n: f.launches for n, f in counters.items()}
 
@@ -3715,36 +3931,10 @@ def model_work(dev, world):
     out["step_launches"] = counts()
     out["step_staged"] = STAGED.bytes
     out["step_peak"] = torch.cuda.max_memory_allocated()
+    out["a20"] = a20_steps(dev, world, models, cfg, state, masters, batch, seeded)
+    if world.model > 1:
+        out["direct_8bit"] = direct_8bit(dev, world, state)
     return out
-
-
-def model_rank(rank, port, results):
-    """A rank of the model phase: a gloo group of MODEL_RANKS ranks on
-    localhost, every rank on cuda:0 (NCCL refuses two ranks on one card), the
-    port's world laid out as one model group over it."""
-    import traceback
-
-    import torch.distributed as dist
-
-    try:
-        os.environ.update(RANK=str(rank), WORLD_SIZE=str(MODEL_RANKS), LOCAL_RANK="0")
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        dev = torch.device("cuda", 0)
-        torch.cuda.set_device(dev)
-        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
-                                world_size=MODEL_RANKS)
-        from svd_xtend_tpu_torch import parallel
-        from svd_xtend_tpu_torch.core.config import MeshConfig
-        world = parallel.init_world("cuda", MeshConfig(model=MODEL_RANKS))
-        try:
-            out = {k: v.numpy() if torch.is_tensor(v) else v
-                   for k, v in model_work(dev, world).items()}
-            results.put((rank, True, out))
-        finally:
-            parallel.close_world(world)
-    except BaseException:
-        results.put((rank, False, traceback.format_exc()))
 
 
 def model_phase(dev, smi, ph: KernelPhase):
@@ -3752,12 +3942,6 @@ def model_phase(dev, smi, ph: KernelPhase):
     one-rank runs of model_work here, then MODEL_RANKS ranks, each its own
     process on the one card over gloo with the collectives staged through
     host memory, held to them. Returns rank 0's launches by path."""
-    import multiprocessing as mp
-    import queue
-    import socket
-
-    import numpy as np
-
     from svd_xtend_tpu_torch import parallel
     from svd_xtend_tpu_torch.parallel import tensor as tpl
 
@@ -3767,34 +3951,7 @@ def model_phase(dev, smi, ph: KernelPhase):
         f"{one['s_step']:.3f}, peak {one['video_peak'] / 2**30:.2f} / "
         f"{one['step_peak'] / 2**30:.2f} GiB (video / step); {time.time() - t0:.1f} s")
     torch.cuda.empty_cache()
-
-    ctx = mp.get_context("spawn")
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
-    results = ctx.Queue()
-    procs = [ctx.Process(target=model_rank, args=(r, port, results))
-             for r in range(MODEL_RANKS)]
-    t0 = time.time()
-    for p in procs:
-        p.start()
-    got = {}
-    try:
-        for _ in procs:
-            try:
-                rank, ok, value = results.get(timeout=600)
-            except queue.Empty:
-                raise RuntimeError("model: a rank gave no answer within 600 s")
-            if not ok:
-                raise RuntimeError(f"model: rank {rank} failed:\n{value}")
-            got[rank] = {k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
-                         for k, v in value.items()}
-    finally:
-        for p in procs:
-            p.join(timeout=60)
-            if p.is_alive():
-                p.kill()
-    log(f"  {MODEL_RANKS} ranks: {time.time() - t0:.1f} s with their start and build")
+    got = run_ranks(MODEL_RANKS, dict(model=MODEL_RANKS), "model_work", "model")
 
     rel = lambda a, b: ((a - b).norm() / b.norm()).item()
     bf16, control = rel(got[0]["pass"], one["pass"]), rel(one["pass_control"], one["pass"])
@@ -3820,11 +3977,40 @@ def model_phase(dev, smi, ph: KernelPhase):
                 control = MODEL_CONTROL_RATIO * off(one["steps_control"][i], b, key)
                 checks[f"rank {r} step {i + 1} {key}"] = (off(a, b, key),
                                                           max(jax_bound, control))
+    for what in A20_SCOPES:
+        b, c = one["a20"][what], one["a20"][what + " control"]
+        for key, jax_bound in (("loss", MODEL_LOSS_RTOL), ("grad_norm", MODEL_GRAD_NORM_RTOL)):
+            log(f"  {what} step {key}: the control {off(c, b, key):.4g} from one rank, the ranks "
+                f"{off(got[0]['a20'][what], c, key):.4g} from the control")
+            for r in range(MODEL_RANKS):
+                checks[f"rank {r} {what} step {key}"] = (
+                    off(got[r]["a20"][what], b, key),
+                    max(jax_bound, MODEL_CONTROL_RATIO * off(c, b, key)))
     for what, (value, b) in checks.items():
         log(f"  {what}: {value:.4g} against one rank (bound {b})")
     bad = [w for w, (v, b) in checks.items() if not v <= b]
     if bad:
         raise RuntimeError(f"model: {bad} beyond their bounds")
+    for what in A20_SCOPES:
+        for r, g in [(None, one)] + [(r, got[r]) for r in range(MODEL_RANKS)]:
+            m = g["a20"][what]
+            log(f"  [{smi}] {'one rank' if r is None else f'rank {r}'} {what}: loss "
+                f"{m['loss']:.6g}, grad_norm {m['grad_norm']:.6g}, {m['s']:.3f} s the step, "
+                f"{m['changed']} master values changed (norm of the change "
+                f"{m['change_norm']:.4g}), moments {m['moment_bytes']} bytes"
+                + (", masters in host memory" if m["offloaded"] else ""))
+            if not (m["changed"] and math.isfinite(m["change_norm"])):
+                raise RuntimeError(f"model: {what} left the masters unchanged or not finite")
+            if (what == "host offload") != m["offloaded"]:
+                raise RuntimeError(f"model: {what}: masters in host memory {m['offloaded']}")
+    for r in range(MODEL_RANKS):
+        tensors, codes, int8, equal = got[r]["direct_8bit"]
+        log(f"  rank {r}: one model-axis 8-bit update on the one-rank update's gradients (every "
+            f"split tensor of the temporal scope, {tensors}): {codes} int8 codes of {int8} "
+            f"moments and their whole blocks' scales {'equal' if equal else 'NOT equal'} to the "
+            "one-rank update's, bit for bit")
+        if not equal or not int8:
+            raise RuntimeError(f"model: rank {r}'s 8-bit codes differ from one rank's")
     for key in ("pass", "video"):
         if not all(torch.equal(got[r][key], got[0][key]) for r in range(MODEL_RANKS)):
             raise RuntimeError(f"model: the ranks returned different {key} outputs")
@@ -4530,6 +4716,7 @@ def optim8_phase(dev, smi, counters):
 
     from svd_xtend_tpu_torch.core.config import TrainConfig
     from svd_xtend_tpu_torch.diffusion.pipeline import SVDModels
+    from svd_xtend_tpu_torch.io.convert import flax_axes
     from svd_xtend_tpu_torch.train.quant import AdamW8bit, Quantized
     from svd_xtend_tpu_torch.train.state import (cast_frozen_to_compute, create_train_state,
                                                  make_train_step)
@@ -4576,7 +4763,10 @@ def optim8_phase(dev, smi, counters):
     params = [torch.randn(s, generator=g) * 0.05 for s in OPTIM8_SHAPES]
     grads = [[torch.randn(s, generator=g) * 10.0 ** (-i - 2) for s in OPTIM8_SHAPES]
              for i in range(OPTIM8_STEPS)]
-    opts = {d: AdamW8bit([p.clone().to(d) for p in params]) for d in ("cpu", dev)}
+    # blocks cut in each tensor's JAX order: a Linear's (out, in) as (in,
+    # out), a conv's OIHW as HWIO
+    axes = [flax_axes(f"t{i}.weight", len(s)) for i, s in enumerate(OPTIM8_SHAPES)]
+    opts = {d: AdamW8bit([p.clone().to(d) for p in params], axes=axes) for d in ("cpu", dev)}
     for i in range(OPTIM8_STEPS):
         for d, opt in opts.items():
             opt.step([x.to(d) for x in grads[i]], 1e-3)
@@ -4593,6 +4783,12 @@ def optim8_phase(dev, smi, counters):
         else:
             rel = max(rel, ((mh - mc.cpu()).abs() / mh.abs().clamp_min(1e-30)).max().item())
     pdiff = max((a - b.cpu()).abs().max().item() for a, b in zip(host.params, card_.params))
+    for k, (shape, ax) in enumerate(zip(OPTIM8_SHAPES, axes)):
+        m = card_.mu[k]
+        if isinstance(m, Quantized):
+            log(f"  optim8: {shape} blocked in the order {ax or 'as stored'}: first moment's "
+                f"block 0 codes {m.q[0, :8].tolist()} (CPU {host.mu[k].q[0, :8].tolist()}), "
+                f"{m.q.shape[0]} blocks, scales {m.scale[:3, 0].tolist()}")
     log(f"  optim8: AdamW8bit on the card against the CPU after {OPTIM8_STEPS} steps on "
         f"{OPTIM8_SHAPES}: {apart} of {codes} int8 codes apart (at most {worst}; bound "
         f"{OPTIM8_CODE_SHARE} of them, each by 1), scales and f32 moments within {rel:.3g} "

@@ -217,10 +217,11 @@ class TrainConfig(_JsonMixin):
     bf16 gradients (``grad_dtype``), gradient accumulation, EMA, remat.
     ``vae_encode_in_loop`` is accepted and not read, as in the JAX package.
     ZeRO-1 and host offload run over the ranks of the 'data' and 'frames'
-    mesh axes (``parallel/``; the frames axis must divide ``num_frames``),
-    ZeRO-1 over those of each model index under a 'model' axis; under a
-    'model' axis the 'lora' scope, 8-bit AdamW and host offload are
-    refused at use (``check_ported``; ROADMAP A20).
+    mesh axes (``parallel/``; the frames axis must divide ``num_frames``,
+    as the JAX package's ``shard_batch`` needs: generate alone takes an
+    uneven split), ZeRO-1 over those of each model index under a 'model'
+    axis, which takes every scope ('lora' included), 8-bit AdamW (the
+    whole tensors' blocks) and host offload.
     ``encode_chunk_size`` chunks the
     frozen VAE encode (0 = unchunked); the posterior noise is drawn per
     chunk, as in the JAX package."""
@@ -294,17 +295,11 @@ class TrainConfig(_JsonMixin):
         unknown one."""
         if self.mesh.model < 1:
             raise ValueError(f"a 'model' mesh axis of {self.mesh.model}")
-        if self.mesh.model > 1:
-            refused = [what for what, on in (("the 'lora' scope", self.train_mode == "lora"),
-                                             ("8-bit AdamW", self.use_8bit_adam),
-                                             ("host offload", self.host_offload != "none"))
-                       if on]
-            if refused:
-                raise ValueError(f"not ported yet: {', '.join(refused)} under a 'model' mesh "
-                                 f"axis (mesh {self.mesh}; ROADMAP A20)")
         if self.mesh.frames < 1 or self.num_frames % self.mesh.frames:
             raise ValueError(f"num_frames {self.num_frames} over a frames axis of "
-                             f"{self.mesh.frames}: the port takes an even split only")
+                             f"{self.mesh.frames}: a train batch takes an even split only, as "
+                             "the JAX package's shard_batch places it (generate takes an "
+                             "uneven one)")
         if self.host_offload not in ("none", "masters", "masters+moments"):
             raise ValueError(f"unknown host_offload mode {self.host_offload!r}")
         if self.train_mode not in ("temporal", "full", "lora", "tracklet"):

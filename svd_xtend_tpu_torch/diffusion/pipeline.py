@@ -47,8 +47,9 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -292,8 +293,8 @@ def generate(models: SVDModels, image: torch.Tensor,
 
     With a frames `shard` (``parallel.World.frame_shard``; every rank of
     the frames group calls it with the same arguments), the latents, the
-    per-frame guidance and the UNet's frames are this rank's F / n of the
-    video's (the noise is drawn, or given, for all F); CLIP and the image
+    per-frame guidance and the UNet's frames are this rank's of the
+    video's (F / n, or an uneven split) (the noise is drawn, or given, for all F); CLIP and the image
     encode run whole on every rank (the image has no frame axis), and every
     rank returns the whole video (``decode_latents_chunked``). Under int8
     the activation amaxes of the UNet and of the decoder are the largest
@@ -397,3 +398,13 @@ def generate(models: SVDModels, image: torch.Tensor,
     with quant.quantized(cfg.vae_quant, amax_groups[1]):
         video = decode_latents_chunked(models, latents, cfg.decode_chunk_size, shard)
     return video.clamp(-1.0, 1.0)
+
+
+def generate_frames_uint8(models: SVDModels, image: torch.Tensor,
+                          config: PipelineConfig = PipelineConfig(), **kw) -> List[np.ndarray]:
+    """``generate`` (its keyword arguments as there) as host frames for
+    export (io/media.py): the (H, W, 3) uint8 frames of row 0,
+    ((v + 1) / 2).clip(0, 1) · 255 in f32 numpy, truncated, as the JAX
+    package's ``generate_frames_uint8`` computes them."""
+    video = generate(models, image, config, **kw)[0].float().cpu().numpy()
+    return list((((video + 1.0) / 2.0).clip(0, 1) * 255).astype(np.uint8))

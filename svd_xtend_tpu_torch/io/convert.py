@@ -37,7 +37,7 @@ from __future__ import annotations
 import json
 import os
 import re
-from typing import Dict, Mapping, Sequence
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -76,15 +76,34 @@ def _module_key(path: str) -> str:
     return re.sub(r"\bto_out\b", "to_out.0", key)
 
 
+# the flax axis at each torch axis of a kernel: Dense (in, out) -> (out, in);
+# Conv HWIO and the temporal conv's (3, 1, I, O) -> (O, I, kh, kw)
+_TORCH_AXES = {2: (1, 0), 4: (3, 2, 0, 1)}
+
+
 def _kernel(path: str, arr: np.ndarray) -> np.ndarray:
     temporal = ("temporal_res_block" in path or "time_conv_out" in path)
-    if arr.ndim == 2:
-        return arr.T
+    if arr.ndim not in _TORCH_AXES:
+        raise ValueError(f"unhandled kernel rank for {path}: {arr.shape}")
+    out = arr.transpose(_TORCH_AXES[arr.ndim])
     if arr.ndim == 4 and temporal and arr.shape[:2] == (3, 1):
-        return arr.transpose(3, 2, 0, 1)[..., None]
-    if arr.ndim == 4:
-        return arr.transpose(3, 2, 0, 1)
-    raise ValueError(f"unhandled kernel rank for {path}: {arr.shape}")
+        return out[..., None]
+    return out
+
+
+def flax_axes(name: str, ndim: int) -> Optional[Tuple[int, ...]]:
+    """The permutation of a UNet parameter's (or a LoRA factor's) axes that
+    gives its JAX leaf's layout, ``_kernel``'s inverse: ``t.permute(axes)``
+    flattens in the JAX package's order (a temporal conv's trailing axis of
+    1 last). None where the layouts are the same: 1-D tensors and the
+    Tracklet2Video instance embedding."""
+    if ndim == 1 or name.endswith("instance_embedding.weight"):
+        return None
+    if ndim == 5:
+        return flax_axes(name, 4) + (4,)
+    if ndim not in _TORCH_AXES:
+        raise ValueError(f"{name}: no JAX layout for a tensor of {ndim} axes")
+    return tuple(int(a) for a in np.argsort(_TORCH_AXES[ndim]))
 
 
 def _tensor(arr: np.ndarray) -> torch.Tensor:

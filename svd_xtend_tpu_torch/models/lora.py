@@ -12,6 +12,12 @@ map one to one (``io/convert.py::lora_state_dict``). No module is wrapped:
 base weights while a forward and its backward run (training), and
 ``merge_`` writes them into the UNet (serving: merge once, run the base
 model).
+
+On a UNet built for a 'model' rank's part (``SVDModels.create(..., tp=)``)
+the adapter is the whole one (``targets`` reads the whole shapes from
+``parallel.tensor.layout``): each rank merges its slice of it into its
+part of a target, B's rows for a column-parallel one (to_q, to_k, to_v),
+A's columns for a row-parallel one (to_out.0).
 """
 
 from __future__ import annotations
@@ -21,6 +27,8 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+
+from ..parallel.tensor import Layout, layout
 
 Adapter = Dict[str, Dict[str, torch.Tensor]]
 
@@ -40,10 +48,21 @@ def _jax_order(name: str) -> Tuple[str, ...]:
     return tuple(segs)
 
 
+def _layout(unet: nn.Module, name: str) -> Optional[Layout]:
+    """How target `name`'s weight splits over the UNet's model axis (None:
+    whole)."""
+    tp = getattr(unet, "tp", None)
+    return None if tp is None else layout(f"{name}.weight", unet.config, tp.size)
+
+
 def targets(unet: nn.Module) -> List[Tuple[str, Tuple[int, int]]]:
     """(module name, (out, in)) of every nn.Linear whose name ends in one of
-    TARGETS, in the JAX package's order (``target_paths``)."""
-    found = [(n, tuple(m.weight.shape)) for n, m in unet.named_modules()
+    TARGETS, in the JAX package's order (``target_paths``); the whole
+    target's shape on a model rank's UNet."""
+    def shape(n, m):
+        lay = _layout(unet, n)
+        return tuple(m.weight.shape) if lay is None else lay.whole_shape(m.weight.shape)
+    found = [(n, shape(n, m)) for n, m in unet.named_modules()
              if isinstance(m, nn.Linear) and any(n == t or n.endswith("." + t)
                                                  for t in TARGETS)]
     if not found:
@@ -67,12 +86,22 @@ def init(unet: nn.Module, rank: int = 4,
 
 def merge(unet: nn.Module, lora: Adapter, alpha: float = 4.0) -> Dict[str, torch.Tensor]:
     """{module name: (W.float() + (alpha/r)·B·A).to(W.dtype)} for every
-    adapter, r from A's shape; differentiable in A and B, W never written."""
+    adapter, r from A's shape; differentiable in A and B, W never written.
+    On a model rank, W is its part and B·A its slice of the whole delta."""
     modules = dict(unet.named_modules())
+    index = getattr(getattr(unet, "tp", None), "index", 0)
     merged_w = {}
     for name, ab in lora.items():
         w = modules[name].weight
-        delta = (ab["b"] @ ab["a"]) * (alpha / ab["a"].shape[0])
+        a, b = ab["a"], ab["b"]
+        lay = _layout(unet, name)
+        if lay is not None:
+            start, count = lay.bounds(index)
+            if lay.dim == 0:
+                b = b.narrow(0, start, count)
+            else:
+                a = a.narrow(1, start, count)
+        delta = (b @ a) * (alpha / a.shape[0])
         merged_w[name] = (w.float() + delta).to(w.dtype)
     return merged_w
 

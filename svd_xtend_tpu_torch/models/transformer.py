@@ -35,7 +35,12 @@ and an all-reduce, then b2 and x; ``proj_in`` column-parallel with its
 channels gathered, ``proj_out`` row-parallel on this rank's channels. The
 shard is a property of the modules as built, not a per-call setting, so a
 remat recompute (on the autograd engine's thread) runs the same
-collectives. The gated attentions stay replicated.
+collectives. The gated attentions stay replicated. An attention
+processor sees every head, as under JAX's GSPMD: q, k and v are gathered
+over the model group (``gather_channels``, whose backward keeps this
+rank's columns), the processor runs on the whole heads on every rank, and
+this rank keeps its heads' columns of its output (``scatter_channels``)
+for its row-parallel ``to_out``; the default path stays head-local.
 """
 
 from __future__ import annotations
@@ -55,7 +60,7 @@ from ..ops.kernels.dispatch import kernels_enabled
 from ..ops.video import spatial_tokens
 from ..parallel.frames import FrameShard, frames_to_tokens, tokens_to_frames
 from ..parallel.tensor import (TensorShard, enter, gather_channels, reduce,
-                               scatter_channels)
+                               scatter_channels, split)
 from . import attn_processor
 from .blocks import AlphaBlender, GroupNormSiLU
 from .embeddings import TimestepEmbedding, sinusoidal_embedding
@@ -116,6 +121,7 @@ class Attention(nn.Module):
                  tp: Optional[TensorShard] = None):
         super().__init__()
         self.tp = tp
+        self.total_heads = num_heads
         if tp is not None:
             num_heads = tp.heads(num_heads)
         self.num_heads, self.head_dim = num_heads, head_dim
@@ -128,11 +134,19 @@ class Attention(nn.Module):
         self.site = ""
 
     def _processor(self):
-        proc = attn_processor.get_processor(self.site)
-        if proc is not None and self.tp is not None:
-            raise ValueError(f"an attention processor at {self.site!r} under a 'model' mesh "
-                             "axis: not ported (ROADMAP A20)")
-        return proc
+        return attn_processor.get_processor(self.site)
+
+    def _process(self, proc, q, k, v):
+        """`proc` over every head: on a model rank, q, k and v gathered over
+        the model group and this rank's heads' columns of the output kept."""
+        if self.tp is None:
+            return proc(q, k, v, num_heads=self.num_heads, scale=self.head_dim ** -0.5,
+                        site=self.site)
+        sizes = [h * self.head_dim for h in split(self.total_heads, self.tp.size)]
+        q, k, v = (gather_channels(t, self.tp, sizes) for t in (q, k, v))
+        o = proc(q, k, v, num_heads=self.total_heads, scale=self.head_dim ** -0.5,
+                 site=self.site)
+        return scatter_channels(o, self.tp, sizes)
 
     def _enter(self, x, context):
         """x and the context (x where None), entering the model group."""
@@ -148,9 +162,8 @@ class Attention(nn.Module):
         if proc is not None:
             # full projections, no one-token shortcut (the processor may do
             # other math at this site)
-            ctx = x if context is None else context
-            o = proc(self.to_q(x), self.to_k(ctx), self.to_v(ctx), num_heads=self.num_heads,
-                     scale=self.head_dim ** -0.5, site=self.site)
+            x, ctx = self._enter(x, context)
+            o = self._process(proc, self.to_q(x), self.to_k(ctx), self.to_v(ctx))
             return self.to_out[0](o)
         if context is not None and context.shape[-2] == 1:
             # Single-key cross-attention (the one CLIP token): softmax over
@@ -252,16 +265,16 @@ class FrameAxisAttention(Attention):
             # the reference's temporal-token view (B·S, F, C), so one
             # processor signature covers spatial and frame sites
             inner = self.num_heads * self.head_dim
+            x, ctx = self._enter(x, context)
             tokens = lambda a: a.transpose(1, 2).reshape(b * s, f, inner)
             q = tokens(self.to_q(x))
             if context is None:
                 k, v = tokens(self.to_k(x)), tokens(self.to_v(x))
             else:
-                n = context.shape[-2]
+                n = ctx.shape[-2]
                 rows = lambda a: a[:, None].expand(b, s, n, inner).reshape(b * s, n, inner)
-                k, v = rows(self.to_k(context)), rows(self.to_v(context))
-            o = proc(q, k, v, num_heads=self.num_heads, scale=self.head_dim ** -0.5,
-                     site=self.site)
+                k, v = rows(self.to_k(ctx)), rows(self.to_v(ctx))
+            o = self._process(proc, q, k, v)
             return self.to_out[0](o.reshape(b, s, f, inner).transpose(1, 2))
         if context is not None:
             if context.shape[-2] != 1:

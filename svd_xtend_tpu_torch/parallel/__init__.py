@@ -127,7 +127,7 @@ class World:
 
     def frame_shard(self, num_frames: int) -> Optional[FrameShard]:
         """This rank's frames of a video of `num_frames` (None on a frames
-        axis of 1); raises ValueError unless the axis divides them."""
+        axis of 1; an uneven split as ``FrameShard`` lays it out)."""
         if self.frames == 1:
             return None
         first = self._rank_of(self.data_index, self.model_index, 0)
@@ -384,7 +384,8 @@ def generate_rows(models, images: torch.Tensor, config, world: World, *,
     """``generate`` over the ranks: `images` (B, H, W, 3) is the global
     batch, each rank draws the global noise (from `generator`, or takes it
     as given) and generates the B / data rows of its data index, over its
-    frames group's frames shards where the world has a frames axis, with
+    frames group's frames shards where the world has a frames axis (uneven
+    where the axis does not divide the frames, ``FrameShard``), with
     `models` built for its model rank where it has a model axis
     (``SVDModels.create(..., tp=world.tensor_shard())``); under int8 the
     amaxes span ``world.amax_groups()``. Returns this rank's rows of the

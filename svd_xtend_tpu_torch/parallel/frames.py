@@ -3,7 +3,8 @@
 Port of the 'frames' half of ``svd_xtend_tpu/core/mesh.py`` and
 ``parallel/sharding.py``. There GSPMD shards a video's F axis over the
 axis and inserts the collectives the temporal layers need; here each rank
-of a frames group holds F / n frames of every video (``FrameShard``), the
+of a frames group holds its frames of every video (``FrameShard``: F / n,
+or where n does not divide F, as evenly as they go), the
 spatial layers run on those frames alone, and the temporal layers reach the
 other frames through explicit collectives, each an autograd ``Function``
 whose backward is exact:
@@ -15,9 +16,10 @@ whose backward is exact:
     n). Each is a permutation of the values, so each one's backward is the
     other;
   - ``gather_frames``: every rank's frames, (B, F/n, ...) -> (B, F, ...)
-    (the temporal resnet's gather form). Its backward sums the gradient
-    over the group with an all-reduce and keeps this rank's frames; it is
-    not built on reduce_scatter, which several torch versions of gloo lack.
+    (the temporal resnet's gather form; uneven parts are padded to the
+    largest for the all-gather). Its backward sums the gradient over the
+    group with an all-reduce and keeps this rank's frames; it is not built
+    on reduce_scatter, which several torch versions of gloo lack.
 
 The collectives run on NCCL with the tensors where they are, or on gloo
 with the buffers staged through host memory (``comm_device``): gloo is the
@@ -60,11 +62,21 @@ class _Staged:
 STAGED = _Staged()
 
 
+def balanced(total: int, n: int) -> List[int]:
+    """`total` over n ranks as evenly as it goes, the first total mod n
+    ranks one more."""
+    return [total // n + (1 if r < total % n else 0) for r in range(n)]
+
+
 @dataclasses.dataclass(frozen=True)
 class FrameShard:
     """This rank's frames of every video: frames [start, start + count) of
     `total`, over the frames group `group` of global ranks `ranks` (in
-    frames order; this rank is `ranks[index]`)."""
+    frames order; this rank is `ranks[index]`). The frames split as evenly
+    as they go, the first total mod n ranks one more (``counts``: 14 over 4
+    as 4, 4, 3, 3), where JAX's GSPMD pads the axis to a multiple of n; a
+    rank holds at least one frame. The train step takes an even split only
+    (``TrainConfig.check_ported``), as the JAX package's ``shard_batch``."""
 
     group: object
     ranks: Tuple[int, ...]
@@ -72,21 +84,26 @@ class FrameShard:
     total: int
 
     def __post_init__(self):
-        if self.total % self.size:
-            raise ValueError(f"{self.total} frames over a frames axis of {self.size}: the "
-                             "port takes an even split only")
+        if self.total < self.size:
+            raise ValueError(f"{self.total} frames over a frames axis of {self.size}: a rank "
+                             "would hold none")
 
     @property
     def size(self) -> int:
         return len(self.ranks)
 
     @property
+    def counts(self) -> List[int]:
+        """Every rank's count of frames."""
+        return balanced(self.total, self.size)
+
+    @property
     def count(self) -> int:
-        return self.total // self.size
+        return self.counts[self.index]
 
     @property
     def start(self) -> int:
-        return self.index * self.count
+        return sum(self.counts[:self.index])
 
     @property
     def frames(self) -> slice:
@@ -97,7 +114,7 @@ class FrameShard:
         goes, the first S mod n ranks one more."""
         if s < self.size:
             raise ValueError(f"{s} tokens over a frames axis of {self.size}")
-        return [s // self.size + (1 if r < s % self.size else 0) for r in range(self.size)]
+        return balanced(s, self.size)
 
     def own(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
         """This rank's frames of `x`, whose axis `dim` holds all of them."""
@@ -121,17 +138,18 @@ def _all_to_all(send: Sequence[torch.Tensor], shapes: Sequence[torch.Size],
 
 
 def _to_tokens(x: torch.Tensor, shard: FrameShard) -> torch.Tensor:
-    b, f, s, c = x.shape
+    b, _, s, c = x.shape
     splits = shard.token_splits(s)
     mine = splits[shard.index]
-    got = _all_to_all(list(x.split(splits, dim=2)), [(b, f, mine, c)] * shard.size, shard)
+    got = _all_to_all(list(x.split(splits, dim=2)), [(b, f, mine, c) for f in shard.counts],
+                      shard)
     return torch.cat(got, dim=1)
 
 
 def _to_frames(y: torch.Tensor, shard: FrameShard, s: int) -> torch.Tensor:
     b, _, _, c = y.shape
     splits = shard.token_splits(s)
-    got = _all_to_all(list(y.split(shard.count, dim=1)),
+    got = _all_to_all(list(y.split(shard.counts, dim=1)),
                       [(b, shard.count, n, c) for n in splits], shard)
     return torch.cat(got, dim=2)
 
@@ -163,10 +181,16 @@ class _GatherFrames(torch.autograd.Function):
     def forward(ctx, x, shard):
         ctx.shard = shard
         dev = comm_device(x.device)
-        part = STAGED.to(x.contiguous(), dev)
+        counts = shard.counts
+        part = x.contiguous()
+        if x.shape[1] < max(counts):
+            part = x.new_zeros((x.shape[0], max(counts)) + x.shape[2:])
+            part[:, :x.shape[1]] = x
+        part = STAGED.to(part, dev)
         parts = [torch.empty_like(part) for _ in range(shard.size)]
         dist.all_gather(parts, part, group=shard.group)
-        return STAGED.to(torch.cat(parts, dim=1), x.device)
+        whole = torch.cat([p[:, :n] for p, n in zip(parts, counts)], dim=1)
+        return STAGED.to(whole, x.device)
 
     @staticmethod
     def backward(ctx, g):

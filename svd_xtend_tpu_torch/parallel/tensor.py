@@ -116,14 +116,22 @@ class Layout:
     sizes: Tuple[int, ...]
     paired: bool = False
 
-    def _bounds(self, index: int) -> Tuple[int, int]:
+    def bounds(self, index: int) -> Tuple[int, int]:
+        """(start, count) of rank `index`'s part along `dim` (of each half
+        where `paired`)."""
         return sum(self.sizes[:index]), self.sizes[index]
 
     def shard(self, t: torch.Tensor, index: int) -> torch.Tensor:
         """Rank `index`'s part of the whole `t` (a copy)."""
-        start, count = self._bounds(index)
+        start, count = self.bounds(index)
         halves = t.chunk(2, self.dim) if self.paired else (t,)
         return torch.cat([h.narrow(self.dim, start, count) for h in halves], self.dim).clone()
+
+    def whole_shape(self, shape: Sequence[int]) -> Tuple[int, ...]:
+        """The whole tensor's shape, from the shape of a part."""
+        out = list(shape)
+        out[self.dim] = sum(self.sizes) * (2 if self.paired else 1)
+        return tuple(out)
 
     def unshard(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
         """The whole tensor from every rank's part, in rank order."""

@@ -23,9 +23,11 @@ leaves), each data index taking its rows of the global batch of
 per_device_batch_size x data; ``--mesh_model`` the size of the 'model'
 axis (tensor parallelism, ``parallel/tensor.py``: each rank of a model
 group holds its part of the UNet's transformers; the world must hold data
-x model ranks, laid out data outer), and ``--attn_impl`` takes only
-``auto``. Under a model axis every rank runs the validation videos (rank
-0 writes them) and the export gathers the UNet whole to rank 0.
+x model ranks, laid out data outer; every scope, ``--use_8bit_adam``,
+``--zero1`` and ``--host_offload`` run over it), and ``--attn_impl``
+takes only ``auto``. Under a model axis every rank runs the validation
+videos (rank 0 writes them) and the export gathers the UNet whole to rank
+0 (the adapter file, whole on every rank, is written once).
 ``--zero1`` partitions the optimizer moments and the EMA over the ranks
 (of each model index), ``--host_offload masters`` keeps the f32
 masters in host memory and ``masters+moments`` the moments too (in the
@@ -358,13 +360,21 @@ def final_unet_state(models: SVDModels, state: TrainState, cfg: TrainConfig,
     return sd
 
 
-def whole_final_unet_state(models: SVDModels, state: TrainState, world) -> Optional[dict]:
+def whole_final_unet_state(models: SVDModels, state: TrainState, cfg: TrainConfig,
+                           world) -> Optional[dict]:
     """``final_unet_state`` on a model axis: every rank's parts of the UNet
-    and of the state gathered to rank 0 and joined whole (every rank calls
-    it; None on the other ranks)."""
+    (in the 'lora' scope with its slice of the adapter merged) and of the
+    state gathered to rank 0 and joined whole (every rank calls it; None on
+    the other ranks)."""
     whole_state = state.state_dict()
     first = world.data_index == 0 and world.frames_index == 0
-    mine = {k: v.detach().cpu() for k, v in models.unet.state_dict().items()} if first else None
+    mine = None
+    if first:
+        mine = {k: v.detach().cpu() for k, v in models.unet.state_dict().items()}
+        if state.lora is not None:
+            with torch.no_grad():
+                for name, w in lora_lib.merge(models.unet, state.lora, cfg.lora_alpha).items():
+                    mine[f"{name}.weight"] = w.cpu()
     parts = gather_to_main(mine, world)
     if parts is None:
         return None
@@ -373,8 +383,9 @@ def whole_final_unet_state(models: SVDModels, state: TrainState, world) -> Optio
     for k, v in by_model[0].items():
         lay = layout(k, models.unet.config, world.model)
         sd[k] = (v if lay is None else lay.unshard([p[k] for p in by_model])).float()
-    src = whole_state["ema_params"] or whole_state["params"]
-    sd.update({n: t.float() for n, t in src.items()})
+    if state.lora is None:
+        src = whole_state["ema_params"] or whole_state["params"]
+        sd.update({n: t.float() for n, t in src.items()})
     return sd
 
 
@@ -558,7 +569,7 @@ def _train(args, cfg: TrainConfig, logger, preempted, world) -> dict:
     manager.wait()
     stats["checkpoints"] = [dict(c) for c in manager.saves]
     if world.model > 1:
-        final = whole_final_unet_state(models, state, world)
+        final = whole_final_unet_state(models, state, cfg, world)
     else:
         ema = full_ema(state)
         final = final_unet_state(models, state, cfg, ema) if world.main else None

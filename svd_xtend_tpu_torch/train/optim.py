@@ -29,7 +29,7 @@ from ..core.config import TrainConfig
 from ..parallel import (SINGLE, World, broadcast_from_owners_, gather_to_main, merge_indexed,
                         owners)
 from ..parallel.tensor import all_reduce_sum_
-from .quant import AdamW8bit
+from .quant import BLOCK_ORDER, AdamW8bit, Axes, Part
 
 Schedule = Callable[[int], float]
 
@@ -118,8 +118,13 @@ class ClippedAdamW:
     ``zero1`` each rank holds the moments of its own tensors only
     (``parallel.owners``: whole tensors, over the ranks of its model index)
     and updates those; the owners then broadcast the updated masters. Under
-    tensor parallelism the tensors marked `sharded` are this model rank's
-    parts, and the global norm counts each part once. With ``host_offload`` the masters (and
+    tensor parallelism the tensors with a `parts` entry (``quant.Part``)
+    are this model rank's parts: the global norm counts each part once,
+    ZeRO-1 assigns owners by the whole tensors' sizes (so every model rank
+    of a data index owns the same tensors), and the 8-bit moments are the
+    whole tensors' (``AdamW8bit.sync_scales``). `axes`: each tensor's JAX
+    layout (``io/convert.py::flax_axes``), in whose order the 8-bit moments
+    are blocked. With ``host_offload`` the masters (and
     with "masters+moments" the moments) live in host memory, pinned where
     there is a card, and the update streams them through `device` in chunks
     of at most OFFLOAD_CHUNK_VALUES values: each chunk's copies in on a side
@@ -134,9 +139,13 @@ class ClippedAdamW:
 
     def __init__(self, params: List[torch.Tensor], schedule: Schedule, cfg: TrainConfig,
                  world: World = SINGLE, device: Optional[torch.device] = None,
-                 sharded: Optional[Sequence[bool]] = None):
+                 parts: Optional[Sequence[Optional[Part]]] = None,
+                 axes: Optional[Sequence[Axes]] = None):
         self.params, self.schedule = params, schedule
-        self.sharded = list(sharded) if sharded is not None else None
+        n = len(params)
+        self.parts = list(parts) if parts is not None else [None] * n
+        self.axes = list(axes) if axes is not None else [None] * n
+        self.sharded = [p is not None for p in self.parts]
         self.max_grad_norm = cfg.max_grad_norm
         self.count = 0
         self.world = world
@@ -144,9 +153,9 @@ class ClippedAdamW:
         self.device = torch.device(device) if device is not None else (
             params[0].device if params else torch.device("cpu"))
         self.zero1 = cfg.zero1
-        n = len(params)
-        self.owner = (owners([p.numel() for p in params], world) if self.zero1
-                      else [world.replica_index] * n)
+        sizes = [p.numel() if part is None else math.prod(part.shape)
+                 for p, part in zip(params, self.parts)]
+        self.owner = owners(sizes, world) if self.zero1 else [world.replica_index] * n
         self.local = [i for i in range(n) if self.owner[i] == world.replica_index]
         self.pos = {i: k for k, i in enumerate(self.local)}
         mine = [params[i] for i in self.local]
@@ -158,7 +167,10 @@ class ClippedAdamW:
         self.adamw = self.adamw8 = None
         if cfg.use_8bit_adam:
             self.adamw8 = AdamW8bit(mine, cfg.adam_beta1, cfg.adam_beta2, cfg.adam_epsilon,
-                                    cfg.adam_weight_decay)
+                                    cfg.adam_weight_decay,
+                                    axes=[self.axes[i] for i in self.local],
+                                    parts=[self.parts[i] for i in self.local],
+                                    group=world.model_group)
         else:
             self.adamw = torch.optim.AdamW(
                 mine, lr=schedule(0), betas=(cfg.adam_beta1, cfg.adam_beta2),
@@ -184,6 +196,8 @@ class ClippedAdamW:
             for group in self.adamw.param_groups:
                 group["lr"] = lr
         self.streamed_bytes = 0
+        if self.adamw8 is not None:
+            self._sync_scales(grads)
         if self.offload == "none":
             self._update(self.local, grads, lr, corrections)
             if on_update is not None:
@@ -195,6 +209,16 @@ class ClippedAdamW:
                                                           self.device, on_receive)
         self.count += 1
         return lr, norm
+
+    def _sync_scales(self, grads) -> None:
+        """The 8-bit parts' whole-block scales (``AdamW8bit.sync_scales``),
+        their offloaded moments read through the card."""
+        items = [(self.pos[i], grads[i]) for i in self.local]
+        if self.offload == "masters+moments":
+            self.streamed_bytes += sum(t.numel() * t.element_size() for i in self.local
+                                       if self.adamw8._split(self.pos[i])
+                                       for t in self._moments(i))
+        self.adamw8.sync_scales(items)
 
     def _update(self, indices, grads, lr, corrections) -> None:
         """AdamW on the masters at `indices` (where they are now)."""
@@ -372,8 +396,8 @@ class ClippedAdamW:
         merged = merge_indexed(parts, len(self.params))
         if self.adamw8 is not None:
             return {"count": self.count, "adamw8": {
-                "count": self.adamw8.count, "mu": [m for m, _ in merged],
-                "nu": [v for _, v in merged]}}
+                "count": self.adamw8.count, "block_order": BLOCK_ORDER,
+                "mu": [m for m, _ in merged], "nu": [v for _, v in merged]}}
         group = {k: v for k, v in self.adamw.state_dict()["param_groups"][0].items()}
         group["params"] = list(range(len(self.params)))
         return {"count": self.count, "adamw": {
@@ -393,8 +417,7 @@ class ClippedAdamW:
             whole = sd["adamw8"]
             if len(whole["mu"]) != len(self.params):
                 raise ValueError("8-bit Adam state for another number of tensors")
-            self.adamw8.load_state_dict({"count": whole["count"],
-                                         "mu": [whole["mu"][i] for i in self.local],
+            self.adamw8.load_state_dict({**whole, "mu": [whole["mu"][i] for i in self.local],
                                          "nu": [whole["nu"][i] for i in self.local]})
         else:
             whole = sd["adamw"]
@@ -414,7 +437,8 @@ class ClippedAdamW:
 
 def make_optimizer(cfg: TrainConfig, params: List[torch.Tensor], num_processes: int = 1,
                    world: World = SINGLE, device=None,
-                   sharded: Optional[Sequence[bool]] = None) -> ClippedAdamW:
+                   parts: Optional[Sequence[Optional[Part]]] = None,
+                   axes: Optional[Sequence[Axes]] = None) -> ClippedAdamW:
     cfg.check_ported()
     return ClippedAdamW(params, training_schedule(cfg, num_processes), cfg, world, device,
-                        sharded)
+                        parts, axes)

@@ -33,9 +33,16 @@ Port of ``svd_xtend_tpu/train/state.py``:
     (``TrainState.layouts``); the sharded gradients are the rank's own,
     the replicated ones come out whole on every model rank; the mean runs
     over each model index's ranks, the global norm counts each part once,
-    and ZeRO-1 partitions over each model index's ranks. A state dict (a
-    checkpoint) holds the whole tensors, the same files as one rank's:
-    gathered to rank 0 for a save, sliced on every rank at a restore.
+    and ZeRO-1 partitions over each model index's ranks; the 8-bit
+    moments are the whole tensors' blocks (``train/quant.py``). A state
+    dict (a checkpoint) holds the whole tensors, the same files as one
+    rank's (the 8-bit codes and scales too): gathered to rank 0 for a
+    save, sliced on every rank at a restore. In the 'lora' scope the
+    adapter is the whole one on every model rank (drawn at the targets'
+    whole shapes, replicated as JAX's ``param_pspec`` leaves it); each
+    rank merges its slice of it into its part of a target, so its
+    gradients are partial and are summed over the model group before the
+    mean over the data axis.
 
 Mixed precision: the networks hold their weights in the compute dtype (bf16)
 and compute in it, without autocast; the state holds f32 master copies of
@@ -70,12 +77,13 @@ from torch import nn
 from ..core.config import TrainConfig
 from ..diffusion.pipeline import SVDModels
 from ..diffusion.training import TrainDraws, sample_train_draws, training_loss
-from ..io.convert import is_branch_key, lora_state_dict
+from ..io.convert import flax_axes, is_branch_key, lora_state_dict
 from ..models import lora as lora_lib
 from ..parallel import (SINGLE, World, all_reduce_mean_, gather_to_main, local_draws,
                         merge_indexed)
-from ..parallel.tensor import Layout, layout
+from ..parallel.tensor import Layout, all_reduce_sum_, layout
 from .optim import ClippedAdamW, make_optimizer
+from .quant import BLOCK_ORDER, Part, join_parts, part_of
 
 TEMPORAL_SCOPE = "temporal_transformer_block"
 
@@ -198,13 +206,39 @@ class TrainState:
         state = {}
         for i in range(n):
             entries = held("moments", i)
-            if entries is not None:
+            if entries is None:
+                continue
+            if opt.adamw8 is not None:
+                state[i] = [self._whole_moment(i, [e[k] for e in entries]) for k in (0, 1)]
+            else:
                 state[i] = {k: whole(i, [e[k] for e in entries]) for k in entries[0]}
-        group = dict(opt.adamw.state_dict()["param_groups"][0])
-        group["params"] = list(range(n))
+        if opt.adamw8 is not None:
+            optimizer = {"count": opt.adamw8.count, "block_order": BLOCK_ORDER,
+                         "mu": [state[i][0] for i in range(n)],
+                         "nu": [state[i][1] for i in range(n)]}
+        else:
+            group = dict(opt.adamw.state_dict()["param_groups"][0])
+            group["params"] = list(range(n))
+            optimizer = {"state": state, "param_groups": [group]}
         return {"step": self.step, "params": params, "ema_params": ema,
                 "optimizer": {"count": opt.count,
-                              "adamw": {"state": state, "param_groups": [group]}}}
+                              "adamw8" if opt.adamw8 is not None else "adamw": optimizer}}
+
+    def _parts_of(self, i: int) -> Optional[List[Part]]:
+        """Every model index's ``Part`` of tensor i (None where replicated)."""
+        part = self.optimizer.parts[i]
+        return None if part is None else [part._replace(index=m)
+                                          for m in range(self.optimizer.world.model)]
+
+    def _whole_moment(self, i: int, pieces):
+        """Tensor i's whole 8-bit moment (codes and scales, or f32) from
+        every model index's piece."""
+        parts = self._parts_of(i)
+        if parts is None:
+            return pieces[0]
+        if isinstance(pieces[0], dict):
+            return join_parts(pieces, parts, self.optimizer.axes[i])
+        return parts[0].layout.unshard(pieces)
 
     def _local_of(self, sd: dict) -> dict:
         """On a 'model' axis: this rank's parts of a whole state dict."""
@@ -216,6 +250,17 @@ class TrainState:
         if sd["ema_params"] is not None:
             out["ema_params"] = {n: part(i, t)
                                  for i, (n, t) in enumerate(sd["ema_params"].items())}
+        if "adamw8" in sd["optimizer"]:
+            whole = sd["optimizer"]["adamw8"]
+
+            def moment(i, m):
+                if self.layouts[i] is None or not isinstance(m, dict):
+                    return part(i, m)
+                return part_of(m, self._parts_of(i)[index], self.optimizer.axes[i])
+            out["optimizer"] = {**sd["optimizer"], "adamw8": {
+                **whole, **{k: [moment(i, m) for i, m in enumerate(whole[k])]
+                            for k in ("mu", "nu")}}}
+            return out
         whole = sd["optimizer"]["adamw"]
         out["optimizer"] = {**sd["optimizer"], "adamw": {
             **whole, "state": {i: {k: part(i, v) for k, v in st.items()}
@@ -229,9 +274,6 @@ class TrainState:
         copies are the caller's to refresh. On a 'model' axis `sd` is the
         whole state, of which this rank keeps its parts."""
         if self.layouts is not None:
-            if "adamw" not in sd["optimizer"]:
-                raise ValueError("checkpoint holds 8-bit Adam state, which a 'model' axis "
-                                 "does not run (ROADMAP A20)")
             sd = self._local_of(sd)
         if list(sd["params"]) != self.names:
             raise ValueError("checkpoint holds other trainable tensors than this state")
@@ -274,7 +316,11 @@ def create_train_state(cfg: TrainConfig, models: SVDModels,
     keys, and no network parameter requires grad. `world`: the optimizer's
     data-parallel ranks (ZeRO-1 partitions over them); with host offload
     the masters go to host memory (pinned where there is a card), the EMA
-    and the adapter's compute copy stay with the networks."""
+    and the adapter's compute copy stay with the networks. On a 'model'
+    axis `models` is built for the rank's part (``SVDModels.create(...,
+    tp=world.tensor_shard())``); the adapter is the whole one."""
+    if world.model > 1:
+        _check_model_rank(models, world)
     if cfg.train_mode == "lora":
         for net in (models.unet, models.vae, models.clip):
             net.requires_grad_(False)
@@ -286,8 +332,10 @@ def create_train_state(cfg: TrainConfig, models: SVDModels,
         # the adapter is its own master, or with host offload the compute
         # copy of masters in host memory
         masters = _offloaded(cfg, [p.detach() for p in params]) or params
+        axes = [flax_axes(n, p.dim()) for n, p in sd.items()]
         return TrainState(0, list(sd), masters,
-                          make_optimizer(cfg, masters, world=world, device=params[0].device),
+                          make_optimizer(cfg, masters, world=world, device=params[0].device,
+                                         axes=axes),
                           lora=adapter)
     if cfg.train_mode == "tracklet" and models.unet.tracklet_conditioner is None:
         raise ValueError("the 'tracklet' scope needs a UNet with the Tracklet2Video branch "
@@ -304,13 +352,13 @@ def create_train_state(cfg: TrainConfig, models: SVDModels,
     ema = ([m.clone() for m in masters]
            if cfg.use_ema and cfg.train_mode == "full" else None)
     masters = _offloaded(cfg, masters) or masters
-    layouts = None
+    layouts = parts = None
     if world.model > 1:
-        _check_model_rank(models, world)
         layouts = [layout(n, models.unet.config, world.model) for n in names]
-    optimizer = make_optimizer(cfg, masters, world=world, device=device,
-                               sharded=None if layouts is None else
-                               [lay is not None for lay in layouts])
+        parts = [None if lay is None else Part(lay, world.model_index, lay.whole_shape(m.shape))
+                 for lay, m in zip(layouts, masters)]
+    optimizer = make_optimizer(cfg, masters, world=world, device=device, parts=parts,
+                               axes=[flax_axes(n, m.dim()) for n, m in zip(names, masters)])
     if ema is not None and cfg.zero1:
         ema = [e if owner == world.replica_index else None
                for e, owner in zip(ema, optimizer.owner)]
@@ -434,6 +482,10 @@ def make_train_step(models: SVDModels, cfg: TrainConfig, world: World = SINGLE):
              generator: Optional[torch.Generator] = None, draws=None):
         pixels = batch["pixel_values"] if isinstance(batch, dict) else batch
         shard = world.frame_shard(pixels.shape[-4])
+        if shard is not None and shard.total % shard.size:
+            raise ValueError(f"{shard.total} frames over a frames axis of {shard.size}: a "
+                             "train batch takes an even split only, as the JAX package's "
+                             "shard_batch places it")
         if accum == 1:
             micro = [batch]
         elif isinstance(batch, dict):
@@ -462,6 +514,12 @@ def make_train_step(models: SVDModels, cfg: TrainConfig, world: World = SINGLE):
             if accum > 1:
                 for acc in grads:
                     acc.div_(accum)
+            if state.lora is not None and world.model > 1:
+                # each model rank's partial gradient of the whole adapter
+                flat = all_reduce_sum_(torch.cat([g.reshape(-1) for g in grads]),
+                                       world.model_group)
+                for acc, part in zip(grads, flat.split([g.numel() for g in grads])):
+                    acc.copy_(part.view_as(acc))
             all_reduce_mean_(grads, world)
             loss = loss_sum.reshape(1) / accum
             all_reduce_mean_([loss], world)

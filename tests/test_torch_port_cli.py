@@ -87,8 +87,8 @@ def test_build_train_config_matches_jax(argv):
 @pytest.mark.parametrize("extra,match", [
     (["--mesh_data", "2"], "world has 1"), (["--mesh_data", "3", "--zero1"], "world has 1"),
     (["--train_mode", "lora", "--host_offload", "masters", "--mesh_data", "2"], "world has 1"),
-    (["--train_mode", "lora", "--host_offload", "masters+moments", "--mesh_model", "2"],
-     "A20"),
+    (["--train_mode", "lora", "--host_offload", "masters+moments", "--mesh_model", "2",
+      "--use_8bit_adam"], "world has 1"),
     (["--host_offload", "masters", "--mesh_data", "2"], "world has 1"),
     (["--zero1", "--mesh_model", "4"], "world has 1"),
     (["--mesh_model", "2"], "world has 1"), (["--attn_impl", "flash"], "--attn_impl flash"),

@@ -25,7 +25,12 @@ JAX references and one-rank runs are computed while the ranks work.
     tokens, split 21 / 20 / 20 / 20 (the counterpart of JAX's frames-7
     test): generate and a train step against one rank;
   - (g) ``check_ported`` takes a frames axis (and a 'model' axis beside
-    it) and refuses an uneven split.
+    it) and refuses an uneven split, as the JAX package's ``shard_batch``
+    refuses to place such a batch;
+  - (h) ``generate_rows`` over an uneven split (6 frames over 4, 5 over 2:
+    2 / 2 / 1 / 1 and 3 / 2) against the one-rank video (float64, 1e-12)
+    and ``make_sharded_generate`` over the same mesh (2e-3), whose GSPMD
+    pads the frame axis.
 """
 
 import multiprocessing as mp
@@ -484,6 +489,60 @@ def test_frames_four_over_an_uneven_token_split(four):
             np.testing.assert_allclose(a["grad_norm"], b["grad_norm"], rtol=1e-5)
 
 
+UNEVEN = [(4, 6), (2, 5)]
+
+
+@pytest.mark.parametrize("frames,num_frames", UNEVEN, ids=["6-over-4", "5-over-2"])
+def test_generate_over_an_uneven_frames_split(two, four, jax_pair, frames, num_frames):
+    """(h): one image; decode chunks of 4 over the uneven shards."""
+    import jax
+    import jax.numpy as jnp
+
+    from svd_xtend_tpu.core import config as jcfg
+    from svd_xtend_tpu.parallel.sharding import make_sharded_generate
+    from test_torch_port_pipeline import _jax_noise
+
+    pool = four if frames == 4 else two
+    cfg_kw = {**GEN_KW, "num_frames": num_frames, "decode_chunk_size": 4}
+    g = torch.Generator().manual_seed(8)
+    images = torch.rand(1, 32, 32, 3, generator=g) * 2 - 1
+    noise = (torch.randn(1, 32, 32, 3, generator=g).double(),
+             torch.randn(1, num_frames, 16, 16, 4, generator=g).double())
+    pool.submit("generate", frames, None, torch.float64, images, cfg_kw, False, noise)
+    whole = generate(_models(None, torch.float64), images.double(), PipelineConfig(**cfg_kw),
+                     image_noise=noise[0], latent_noise=noise[1])
+    got = pool.collect("generate")
+    for rank in range(frames):
+        assert got[rank].shape == (1, num_frames, 32, 32, 3)
+        assert _rel([got[rank]], [whole]) <= 1e-12
+
+    jm, params, sds = jax_pair
+    rng = jax.random.PRNGKey(4)
+    jnoise = tuple(map(torch.from_numpy, _jax_noise(rng, images.shape,
+                                                    (1, num_frames, 16, 16, 4))))
+    pool.submit("generate", frames, sds, torch.float32, images, cfg_kw, False, jnoise)
+    gen, place_params, place_images = make_sharded_generate(jm, _jax_mesh(1, frames))
+    want = np.asarray(gen(place_params(params), place_images(jnp.asarray(images.numpy())), rng,
+                          jcfg.PipelineConfig(**cfg_kw)))
+    got = pool.collect("generate")
+    for rank in range(frames):
+        np.testing.assert_allclose(got[rank].numpy(), want, atol=2e-3, rtol=2e-3)
+
+
+def test_an_uneven_train_batch_is_refused_in_both_packages():
+    """(g): JAX's shard_batch cannot place 6 frames over a frames axis of
+    4; the port's config and train step refuse that split too."""
+    import jax
+
+    from svd_xtend_tpu.parallel.sharding import shard_batch
+
+    with pytest.raises(Exception):
+        jax.block_until_ready(shard_batch(np.zeros((1, 6, 8, 8, 3), np.float32),
+                                          _jax_mesh(1, 4)))
+    with pytest.raises(ValueError, match="even split"):
+        _cfg(dict(), 4, num_frames=6).check_ported()
+
+
 @pytest.mark.parametrize("kw,ok", [
     (dict(mesh=MeshConfig(frames=2)), True),
     (dict(mesh=MeshConfig(data=2, frames=7), num_frames=14), True),
@@ -505,14 +564,18 @@ def test_check_ported_takes_frames_and_refuses_the_rest(kw, ok):
 def test_frame_shard_layout():
     """Data outer, frames inner (JAX's create_mesh): rank 5 of (2, 4) is
     frames index 1 of data row 1; its rows and frames; a frames axis that
-    does not divide F raises."""
+    does not divide F splits them as evenly as they go, the first ranks one
+    more; fewer frames than ranks raises."""
     world = parallel.World(5, 8, frames=4)
     assert (world.data, world.data_index, world.frames_index) == (2, 1, 1)
     shard = world.frame_shard(8)
     assert shard.ranks == (4, 5, 6, 7) and shard.frames == slice(2, 4)
     assert parallel.rows(3, world) == slice(3, 6)
+    uneven = world.frame_shard(6)
+    assert uneven.counts == [2, 2, 1, 1] and uneven.frames == slice(2, 4)
+    assert parallel.World(7, 8, frames=4).frame_shard(14).frames == slice(11, 14)
     with pytest.raises(ValueError):
-        world.frame_shard(6)
+        world.frame_shard(3)
     with pytest.raises(ValueError):
         shard.token_splits(3)
     assert parallel.World(1, 2).frame_shard(8) is None

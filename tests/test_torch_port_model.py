@@ -34,7 +34,15 @@ the JAX references and one-rank runs are computed while the ranks work.
   - (i) the GEGLU partial form's plain version summed over the ranks, plus
     b2 and x, is ``ln_geglu_residual_reference``;
   - (j) ``shard_state_dict``'s rules against JAX's ``param_pspec`` on every
-    UNet leaf; the layout of the world and its groups.
+    UNet leaf; the layout of the world and its groups;
+  - (k) what a 'model' axis took last: 8-bit AdamW (the ranks' codes and
+    scales are the one-rank ones bit for bit on the same gradients, with
+    and without ZeRO-1; the gathered state is the one-rank state), the
+    'lora' scope, host offload (bit for bit no offload) and an attention
+    processor that mixes heads (the one-rank UNet to 1e-12 in float64, and
+    steps through its gathers' backward); steps of each against one rank
+    as (e), 'lora' and 8-bit against JAX's ``make_sharded_train_step`` as
+    (b), and their checkpoints saved at (2, 2) restored on one rank as (g).
 """
 
 import dataclasses
@@ -48,9 +56,11 @@ from svd_xtend_tpu_torch import parallel
 from svd_xtend_tpu_torch.core.config import (TINY_CLIP, TINY_UNET, TINY_VAE, MeshConfig,
                                              PipelineConfig, TrainConfig)
 from svd_xtend_tpu_torch.diffusion.pipeline import SVDModels, generate
+from svd_xtend_tpu_torch.models import attn_processor
 from svd_xtend_tpu_torch.ops.kernels import geglu as gg
 from svd_xtend_tpu_torch.parallel import tensor as tpl
 from svd_xtend_tpu_torch.train import checkpoint as ckpt_lib
+from svd_xtend_tpu_torch.train import quant as q8
 from svd_xtend_tpu_torch.train.state import (cast_frozen_to_compute, create_train_state,
                                              make_train_step, write_back)
 
@@ -142,13 +152,19 @@ def job_generate(base, mesh_kw, ucfg, sds, dtype, images, cfg_kw, noise, trackle
                                   **kw)
 
 
-def job_jax_step(base, mesh_kw, ucfg, sds, kw, batches, draws):
+def job_jax_step(base, mesh_kw, ucfg, sds, kw, batches, draws, lora=None):
     """Steps from the JAX weights with JAX's draws (the global batch's; each
-    rank keeps its rows)."""
+    rank keeps its rows); in the 'lora' scope from JAX's `lora` adapter (the
+    port's form, whole)."""
     world = _world(base, mesh_kw)
     models = _models(ucfg, sds, tp=world.tensor_shard())
     cfg = TrainConfig(**kw, mesh=MeshConfig(**mesh_kw))
     state = create_train_state(cfg, models, world=world)
+    if lora is not None:
+        with torch.no_grad():
+            for name, ab in state.lora.items():
+                ab["a"].copy_(lora[name]["a"])
+                ab["b"].copy_(lora[name]["b"])
     cast_frozen_to_compute(models, torch.float32)
     step = make_train_step(models, cfg, world)
     out = []
@@ -191,6 +207,71 @@ def job_save(base, mesh_kw, scope_kw, out, steps):
     return None if sd is None else list(sd["params"].values())
 
 
+def job_codes(base, mesh_kw, scope_kw, grads):
+    """Two 8-bit updates on the whole gradients `grads` (by trainable
+    tensor; each rank takes its parts), without the clip: this rank's
+    moments by tensor index, the optimizer's parts and axes, and the
+    gathered state's optimizer (rank 0)."""
+    world = _world(base, mesh_kw)
+    models = _models(tp=world.tensor_shard())
+    state = create_train_state(_cfg(scope_kw, MeshConfig(**mesh_kw), max_grad_norm=0.0), models,
+                               world=world)
+    opt = state.optimizer
+    local = [g if lay is None else lay.shard(g, world.model_index)
+             for g, lay in zip(grads, state.layouts)]
+    for _ in range(2):
+        opt.step([g.clone() for g in local])
+    sd = state.state_dict()
+    return (opt._local_entries(), opt.parts, opt.axes,
+            None if sd is None else sd["optimizer"])
+
+
+def job_variant(base, mesh_kw, scope_kw, extra_kw):
+    """Two steps in `scope_kw`, then two from the same start with
+    `extra_kw` added: both runs' masters."""
+    world = _world(base, mesh_kw)
+    mesh = MeshConfig(**mesh_kw)
+    _, plain, _ = _run(scope_kw, world, 2, mesh)
+    _, other, _ = _run({**scope_kw, **extra_kw}, world, 2, mesh)
+    return _masters(plain), _masters(other)
+
+
+def mix_heads(q, k, v, *, num_heads, scale, site):
+    """An attention processor that mixes heads: each head's queries plus the
+    previous head's, then softmax attention per head (plain torch)."""
+    heads = lambda x: x.reshape(x.shape[:2] + (num_heads, -1)).transpose(1, 2)
+    qh = heads(q)
+    w = torch.softmax((qh + qh.roll(1, dims=1)) @ heads(k).transpose(-1, -2) * scale, dim=-1)
+    return (w @ heads(v)).transpose(1, 2).reshape(q.shape[:2] + (-1,))
+
+
+def job_processor(base, mesh_kw, inputs):
+    """Under ``mix_heads`` at every site: the ODD_UNET's output in float64
+    on `inputs`, and two temporal-scope steps (f32)."""
+    world = _world(base, mesh_kw)
+    models = _models(ODD_UNET, dtype=torch.float64, tp=world.tensor_shard())
+    with attn_processor.processors(mix_heads):
+        with torch.no_grad():
+            out = models.unet(*inputs)
+        _, _, metrics = _run(dict(), world, 2, MeshConfig(**mesh_kw))
+    return out, metrics
+
+
+def job_save_lora(base, mesh_kw, scope_kw, out, steps):
+    """`job_save`, then the adapter file written by rank 0."""
+    world = _world(base, mesh_kw)
+    mesh = MeshConfig(**mesh_kw)
+    models, state, _ = _run(scope_kw, world, steps, mesh)
+    manager = ckpt_lib.CheckpointManager(out, 3, world=world)
+    manager.save(steps, state, _cfg(scope_kw, mesh), {"step": steps}, blocking=True)
+    manager.wait()
+    if world.main and state.lora is not None:
+        ckpt_lib.export_lora_diffusers(state.lora, out)
+    _, state, _ = _run(scope_kw, world, 1, mesh, state, models, start=steps)
+    sd = state.state_dict()
+    return None if sd is None else list(sd["params"].values())
+
+
 def job_cli(base, argv):
     from svd_xtend_tpu_torch.train import cli as tcli
     stats = tcli.main(argv)
@@ -198,7 +279,8 @@ def job_cli(base, argv):
 
 
 JOBS = {"generate": job_generate, "jax_step": job_jax_step, "steps": job_steps,
-        "zero1": job_zero1, "save": job_save, "cli": job_cli}
+        "zero1": job_zero1, "save": job_save, "cli": job_cli, "codes": job_codes,
+        "variant": job_variant, "processor": job_processor, "save_lora": job_save_lora}
 
 
 @pytest.fixture(scope="module")
@@ -309,6 +391,18 @@ def test_int8_amax_spans_the_data_axis(two, jax_odd, monkeypatch):
                          ids=["model2-odd", "data2-model2"])
 def test_train_step_over_model_matches_jax(two, four, jax_odd, mesh_kw):
     """(b): two steps of two videos of 4 frames, odd heads."""
+    _steps_match_jax(two if mesh_kw["data"] == 1 else four, jax_odd, mesh_kw, {})
+
+
+@pytest.mark.parametrize("scope_kw", [dict(train_mode="lora"), dict(use_8bit_adam=True)],
+                         ids=["lora", "8bit"])
+def test_lora_and_8bit_over_model_match_jax(two, jax_odd, scope_kw):
+    """(k): (b) at (data 1, model 2) in the 'lora' scope (JAX's A, a seeded
+    nonzero B: test_torch_port_train.py's start) and with 8-bit AdamW."""
+    _steps_match_jax(two, jax_odd, dict(data=1, model=2), scope_kw)
+
+
+def _steps_match_jax(pool, jax_odd, mesh_kw, scope_kw):
     import jax
     import jax.numpy as jnp
 
@@ -316,25 +410,29 @@ def test_train_step_over_model_matches_jax(two, four, jax_odd, mesh_kw):
     from svd_xtend_tpu.parallel import make_sharded_train_step
     from svd_xtend_tpu.train import optim as joptim
     from svd_xtend_tpu.train import state as jstate
-    from test_torch_port_train import jax_draws
+    from svd_xtend_tpu_torch.io.convert import lora_from_jax
+    from test_torch_port_train import _seed_lora, jax_draws
 
-    pool = two if mesh_kw["data"] == 1 else four
     jm, params, sds = jax_odd
     ucfg = ODD_UNET
-    kw = dict(train_mode="temporal", learning_rate=1e-3, lr_scheduler="constant",
-              height=32, width=32, num_frames=F)
+    kw = {**dict(train_mode="temporal", learning_rate=1e-3, lr_scheduler="constant",
+                 height=32, width=32, num_frames=F), **scope_kw}
     jc = jcfg.TrainConfig(**kw)
     rng = jax.random.PRNGKey(3)
     batches = [np.random.RandomState(40 + i).uniform(-1, 1, (2, F, 32, 32, 3))
                .astype(np.float32) for i in range(2)]
     draws = [jax_draws(jax.random.fold_in(rng, i), batches[i].shape, jc) for i in range(2)]
-    pool.submit("jax_step", mesh_kw, ucfg, sds, kw, [torch.from_numpy(b) for b in batches],
-                draws)
-
     opt = joptim.make_optimizer(jc)
-    mesh = _jax_mesh(mesh_kw["data"], mesh_kw["model"])
     state = jstate.create_train_state(jc, jax.tree.map(lambda x: x.copy(), params["unet"]),
                                       opt)
+    lora = None
+    if jc.train_mode == "lora":
+        state = _seed_lora(state, opt)
+        lora = lora_from_jax(jax.tree.map(np.asarray, state.params))
+    pool.submit("jax_step", mesh_kw, ucfg, sds, kw, [torch.from_numpy(b) for b in batches],
+                draws, lora)
+
+    mesh = _jax_mesh(mesh_kw["data"], mesh_kw["model"])
     step, place_state, place_batch = make_sharded_train_step(
         jm, jc, opt, {"vae": params["vae"], "clip": params["clip"]}, mesh)
     want = []
@@ -408,11 +506,17 @@ def test_generate_over_data_and_model_is_the_one_rank_video(four, mode):
 SCOPES = [(dict(data=2, model=2), dict()),
           (dict(data=2, model=2), dict(train_mode="full", use_ema=True)),
           (dict(data=2, model=2), dict(train_mode="tracklet", tracklet_dim=16)),
-          (dict(data=1, model=2, frames=2), dict())]
+          (dict(data=1, model=2, frames=2), dict()),
+          (dict(data=2, model=2), dict(train_mode="lora")),
+          (dict(data=2, model=2), dict(use_8bit_adam=True)),
+          (dict(data=2, model=2), dict(use_8bit_adam=True, zero1=True,
+                                       host_offload="masters+moments")),
+          (dict(data=1, model=2, frames=2), dict(train_mode="lora", host_offload="masters"))]
 
 
 @pytest.mark.parametrize("mesh_kw,scope_kw", SCOPES,
-                         ids=["temporal", "full-ema", "tracklet", "model2-frames2"])
+                         ids=["temporal", "full-ema", "tracklet", "model2-frames2", "lora",
+                              "8bit", "8bit-zero1-offload", "lora-frames2-offload"])
 def test_model_steps_as_one_rank(four, mesh_kw, scope_kw):
     """(e): the global batch of two videos."""
     four.submit("steps", mesh_kw, scope_kw)
@@ -476,6 +580,142 @@ def test_checkpoint_from_model_resumes_on_one_rank(four, tmp_path):
     assert _rel([a - b for a, b in zip(_masters(one), start)],
                 [a - b for a, b in zip(after[0], start)]) <= DP_REL
     assert all(after[r] is None for r in range(1, 4))
+
+
+def _whole_grads(scope_kw):
+    """Seeded whole gradients of the scope's trainable tensors (one-rank
+    shapes), of scales 1e-1 to 1e-4 so that the blocks' absmaxes differ."""
+    state = create_train_state(_cfg(scope_kw), _models())
+    g = torch.Generator().manual_seed(7)
+    return [torch.randn(p.shape, generator=g) * 10.0 ** -(1 + i % 4)
+            for i, p in enumerate(state.params)]
+
+
+@pytest.mark.parametrize("scope_kw", [dict(use_8bit_adam=True),
+                                      dict(use_8bit_adam=True, zero1=True)],
+                         ids=["8bit", "8bit-zero1"])
+def test_8bit_codes_over_model_are_the_one_rank_codes(four, scope_kw):
+    """(k): two 8-bit updates at (2, 2) on the same whole gradients as one
+    rank (no clip, whose global norm sums in another order): each rank's
+    codes are its values' one-rank codes and its scales the whole blocks'
+    one-rank scales, bit for bit (the whole tensor's blocks, cut in JAX's
+    order, as GSPMD computes them), its f32 moments its parts of the
+    one-rank ones; rank 0's gathered state is the one-rank state."""
+    grads = _whole_grads(scope_kw)
+    four.submit("codes", dict(data=2, model=2), scope_kw, grads)
+    one = create_train_state(_cfg(scope_kw, max_grad_norm=0.0), _models())
+    for _ in range(2):
+        one.optimizer.step([g.clone() for g in grads])
+    whole = one.state_dict()["optimizer"]["adamw8"]
+    got = four.collect("codes")
+    split = 0
+    for rank in range(4):
+        entries, parts, axes, _ = got[rank]
+        for i, moments in entries.items():
+            for mine, ref in zip(moments, (whole["mu"][i], whole["nu"][i])):
+                if parts[i] is None:
+                    want = ref
+                elif isinstance(ref, dict):
+                    want, split = q8.part_of(ref, parts[i], axes[i]), split + 1
+                else:
+                    want = parts[i].layout.shard(ref, parts[i].index)
+                if isinstance(ref, dict):
+                    assert torch.equal(mine["q"], want["q"]), (rank, i)
+                    assert torch.equal(mine["scale"], want["scale"]), (rank, i)
+                else:
+                    assert torch.equal(mine, want), (rank, i)
+    assert split > 0
+    gathered = got[0][3]["adamw8"]
+    assert gathered["count"] == whole["count"] and gathered["block_order"] == q8.BLOCK_ORDER
+    for key in ("mu", "nu"):
+        for a, b in zip(gathered[key], whole[key]):
+            if isinstance(b, dict):
+                assert torch.equal(a["q"], b["q"]) and torch.equal(a["scale"], b["scale"])
+            else:
+                assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("scope_kw", [dict(), dict(use_8bit_adam=True)], ids=["fp32", "8bit"])
+def test_host_offload_under_model_is_exact(four, scope_kw):
+    """(k): host offload of the masters and moments at (2, 2) gives the
+    masters without offload bit for bit; it works per local tensor (8-bit:
+    the scales' all-reduce reads the offloaded moments through the
+    device)."""
+    got = four("variant", dict(data=2, model=2), scope_kw,
+               dict(host_offload="masters+moments"))
+    for rank in range(4):
+        _same(got[rank][0], got[rank][1])
+
+
+def test_head_mixing_processor_over_model_is_one_rank(two):
+    """(k): an attention processor that mixes heads sees every head under a
+    model axis: the ODD_UNET (a rank without a head at level 0, 2 / 1 at
+    level 1) in float64 is the one-rank output to 1e-12, and two temporal
+    steps through the gathers' backward give the one-rank metrics within
+    1e-5 relative."""
+    g = torch.Generator().manual_seed(3)
+    ucfg = ODD_UNET
+    inputs = (torch.randn(2, F, 8, 8, ucfg.in_channels, generator=g).double(),
+              torch.tensor([1.5, 0.5], dtype=torch.float64),
+              torch.randn(2, 1, ucfg.cross_attention_dim, generator=g).double(),
+              torch.rand(2, 3, generator=g).double() * 10)
+    two.submit("processor", dict(model=2), inputs)
+    unet = _models(ODD_UNET, dtype=torch.float64).unet
+    with attn_processor.processors(mix_heads):
+        with torch.no_grad():
+            want = unet(*inputs)
+        _, _, metrics = _run(dict(), parallel.SINGLE, 2)
+    with torch.no_grad():
+        assert _rel([unet(*inputs)], [want]) > 1e-3      # the processor changes the output
+    got = two.collect("processor")
+    for rank in range(2):
+        out, m = got[rank]
+        assert _rel([out], [want]) <= 1e-12
+        for a, b in zip(m, metrics):
+            np.testing.assert_allclose(a["loss"], b["loss"], rtol=1e-5)
+            np.testing.assert_allclose(a["grad_norm"], b["grad_norm"], rtol=1e-5)
+
+
+@pytest.mark.parametrize("scope_kw", [dict(use_8bit_adam=True, zero1=True),
+                                      dict(train_mode="lora")], ids=["8bit-zero1", "lora"])
+def test_8bit_and_lora_checkpoints_from_model_resume_on_one_rank(four, tmp_path, scope_kw):
+    """(k): as (g) for an 8-bit ZeRO-1 state (the file holds the one-rank
+    moments: whole codes and scales in JAX's block order) and the 'lora'
+    scope (the whole adapter; rank 0's adapter file holds the one-rank
+    file's keys and shapes, and its values are the ranks' adapter)."""
+    from svd_xtend_tpu_torch.io import safetensors_io as st_io
+    from svd_xtend_tpu_torch.io.convert import lora_state_dict
+
+    out = str(tmp_path / "four")
+    four.submit("save_lora", dict(data=2, model=2), scope_kw, out, 2)
+    one_kw = {k: v for k, v in scope_kw.items() if k != "zero1"}
+    models = _models()
+    one = create_train_state(_cfg(one_kw), models)
+    cast_frozen_to_compute(models, torch.float32)
+    ref = one.state_dict()
+    after = four.collect("save_lora")
+    path = os.path.join(out, "checkpoint-2")
+    sd = torch.load(os.path.join(path, "state", ckpt_lib.STATE_FILE), weights_only=True)
+    assert sd["step"] == 2
+    assert {k: v.shape for k, v in sd["params"].items()} == {k: v.shape
+                                                            for k, v in ref["params"].items()}
+    key = "adamw8" if scope_kw.get("use_8bit_adam") else "adamw"
+    shapes = lambda o: [{k: v.shape for k, v in m.items()} if isinstance(m, dict) else m.shape
+                        for m in o[key]["mu"] + o[key]["nu"]]
+    if key == "adamw8":
+        assert shapes(sd["optimizer"]) == shapes(ref["optimizer"])
+    one, _, _ = ckpt_lib.CheckpointManager(out, 3).restore(path, one)
+    write_back(models, _cfg(one_kw), one)
+    _same([t for t in one.state_dict()["params"].values()], list(sd["params"].values()))
+    if one.lora is not None:
+        adapter = st_io.load_file(os.path.join(out, "pytorch_lora_weights.safetensors"))
+        mine = lora_state_dict(one.lora)
+        assert {k: v.shape for k, v in adapter.items()} == {k: v.shape for k, v in mine.items()}
+        _same([adapter[k] for k in mine], list(sd["params"].values()))
+    _, one, _ = _run(one_kw, parallel.SINGLE, 1, state=one, models=models, start=2)
+    start = list(sd["params"].values())
+    assert _rel([a - b for a, b in zip(_masters(one), start)],
+                [a - b for a, b in zip(after[0], start)]) <= DP_REL
 
 
 def test_cli_over_a_model_axis(two, tmp_path):

@@ -225,6 +225,88 @@ def test_train_step_matches_jax(pair, option, accum):
     assert rel <= UPDATE_REL_L2[next(iter(option))]
 
 
+def _jax_moments(tree, params):
+    """{port parameter name: JAX moment leaf} of an 8-bit moment tree over
+    the JAX train params (a Quantized, or an f32 array)."""
+    from jax.tree_util import tree_flatten_with_path
+
+    from svd_xtend_tpu.core.mesh import path_str
+    from svd_xtend_tpu_torch.io.convert import diffusers_state_dict
+
+    shapes = {path_str(p): v.shape for p, v in tree_flatten_with_path(params)[0]}
+    out = {}
+    for path, leaf in tree_flatten_with_path(
+            tree, is_leaf=lambda x: isinstance(x, jquant.Quantized))[0]:
+        key = path_str(path)
+        (name,) = diffusers_state_dict({key: np.zeros(shapes[key], np.float32)})
+        out[name] = leaf
+    return out
+
+
+def test_8bit_moments_are_blocked_in_jax_order(pair):
+    """One TINY temporal-scope 8-bit step against JAX's make_train_step with
+    its draws: every quantised moment's blocks are cut in its JAX leaf's
+    flattening order (a Linear's (out, in) as (in, out)), so the codes
+    equal JAX's in all but 1e-3 of the values, those by one code, and the
+    scales within 1e-5 relative (the bounds of
+    test_adamw_8bit_matches_jax_over_five_steps), and the same tensors
+    hold int8 moments on both sides. Blocks cut in torch's order would put
+    most codes of every 2-D moment elsewhere."""
+    jm, params, sds = pair
+    kw = dict(train_mode="temporal", learning_rate=1e-3, lr_scheduler="constant",
+              encode_chunk_size=2, adam_epsilon=1e-6, use_8bit_adam=True)
+    jc = jcfg.TrainConfig(**kw)
+    opt = joptim.make_optimizer(jc)
+    jst = jstate.create_train_state(jc, params["unet"], opt)
+    jstep = jax.jit(jstate.make_train_step(jm, jc, opt, {"vae": params["vae"],
+                                                         "clip": params["clip"]}))
+    tm = _port_models(sds)
+    tc = tcfg.TrainConfig(**kw)
+    tst = tstate.create_train_state(tc, tm)
+    tstep = tstate.make_train_step(tm, tc)
+    batch = np.random.RandomState(30).uniform(-1, 1, (1, F, H, W, 3)).astype(np.float32)
+    rng = jax.random.PRNGKey(21)
+    jst, _ = jstep(jst, jnp.asarray(batch), rng)
+    tst, _ = tstep(tst, _t(batch), draws=[jax_draws(jax.random.fold_in(rng, 0),
+                                                    batch.shape, jc)])
+    adam = jst.opt_state[1][0]
+    mus, nus = _jax_moments(adam.mu, jst.params), _jax_moments(adam.nu, jst.params)
+    assert sorted(mus) == sorted(tst.names)
+    own = tst.optimizer.adamw8
+    codes = apart = quantized = 0
+    for k, name in enumerate(tst.names):
+        for jm_, tm_ in ((mus[name], own.mu[k]), (nus[name], own.nu[k])):
+            assert isinstance(tm_, quant.Quantized) == isinstance(jm_, jquant.Quantized), name
+            if isinstance(tm_, quant.Quantized):
+                quantized += own.axes[k] is not None
+                d = np.abs(tm_.q.numpy().astype(int) - np.asarray(jm_.q).astype(int))
+                assert d.max() <= 1, name
+                codes, apart = codes + d.size, apart + int((d > 0).sum())
+                np.testing.assert_allclose(tm_.scale.numpy(), np.asarray(jm_.scale), rtol=1e-5,
+                                           err_msg=name)
+    print(f"{apart} of {codes} codes one apart; {quantized} permuted int8 moments")
+    assert quantized > 0 and apart <= 1e-3 * codes
+
+
+def test_an_8bit_state_in_torch_block_order_is_refused(pair):
+    """A state dict of 8-bit moments without the block-order mark (the form
+    the moments had while their blocks were cut in torch's order) raises
+    when loaded, rather than loading codes into other blocks; one with the
+    mark loads."""
+    _, _, sds = pair
+    cfg = tcfg.TrainConfig(use_8bit_adam=True, encode_chunk_size=2)
+    st = tstate.create_train_state(cfg, _port_models(sds))
+    sd = st.state_dict()
+    assert sd["optimizer"]["adamw8"]["block_order"] == quant.BLOCK_ORDER
+    st.load_state_dict(sd)
+    del sd["optimizer"]["adamw8"]["block_order"]
+    with pytest.raises(ValueError, match="block order"):
+        st.load_state_dict(sd)
+    with pytest.raises(ValueError, match="block order"):
+        st.optimizer.adamw8.load_state_dict(st.optimizer.adamw8.state_dict() | {
+            "block_order": "torch"})
+
+
 def test_bf16_gradients_are_bf16_and_the_forward_sees_rounded_weights(pair):
     """loss_and_grads with grad_dtype="bf16": bf16 gradients; after the
     state is made, each trained compute copy holds its f32 master rounded

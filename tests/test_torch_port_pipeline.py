@@ -131,3 +131,22 @@ def test_create_builds_on_the_card_by_default():
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tpipe.SVDModels.create(tcfg.TINY_UNET, tcfg.TINY_VAE, tcfg.TINY_CLIP)
+
+
+def test_generate_frames_uint8_matches_jax(monkeypatch):
+    """``generate_frames_uint8``: the same float video (each package's
+    ``generate`` stubbed to return it; values past [-1, 1] and on the
+    rounding edges of the scale by 255) gives JAX's uint8 frames of row 0
+    bit for bit: f32 numpy, clipped, truncated."""
+    rs = np.random.RandomState(9)
+    video = rs.uniform(-1.1, 1.1, (2, 3, 8, 6, 3)).astype(np.float32)
+    video[0, 0, 0, :, 0] = np.array([-1, 1, 0, 1 / 255, 2 / 255 - 1, 1 - 1 / 255],
+                                    np.float32)
+    monkeypatch.setattr(jpipe, "generate", lambda *a, **k: jnp.asarray(video))
+    monkeypatch.setattr(tpipe, "generate", lambda *a, **k: torch.from_numpy(video))
+    want = jpipe.generate_frames_uint8(None, None, None, None)
+    got = tpipe.generate_frames_uint8(None, None)
+    assert len(got) == len(want) == 3
+    for a, b in zip(got, want):
+        assert a.dtype == np.uint8 and a.shape == (8, 6, 3)
+        np.testing.assert_array_equal(a, b)
