@@ -83,11 +83,14 @@ Phases, each of which raises on failure (non-zero exit):
      QLinear of a CFG pass (INT8_DENSE_SITES): codes, (amax, scale) and
      outputs bit for bit against the plain versions on the same inputs, two
      runs the same bits; device ms per launch in a CUDA graph of the
-     quantise pass and the GEMM apart, beside the bf16 conv3x3 kernel at the
-     same site (where it takes it), F.conv2d bf16, bf16 F.linear and
-     torch._int_mm + the plain dequantise (the dense's library time; its
-     int32 sums checked exact), and the bound at 1,979 TOP/s int8; Σ
-     launches x device ms per CFG pass, decode chunk and video.
+     quantise pass and the GEMM apart (the GEMM under its plan: the wgmma
+     kernels on the shared TMA mainloop, the mma.sync kernel at the edge
+     convs), the mma.sync kernel launched with its explicit plan beside it
+     (bit for bit too), the bf16 conv3x3 kernel at the same site (where it
+     takes it), F.conv2d bf16, bf16 F.linear and torch._int_mm + the plain
+     dequantise (the dense's library time; its int32 sums checked exact),
+     and the bound at 1,979 TOP/s int8; Σ launches x device ms per CFG
+     pass, decode chunk and video, each GEMM's beside the mma.sync kernel's.
   3c. probe kernels: the kernels of the TPU probe scripts against their plain
      versions: the four softmax organisations of the flash forward
      (flash_variants) at the variants probe's shapes, (140, 2560) whole (also
@@ -144,7 +147,9 @@ Phases, each of which raises on failure (non-zero exit):
      UNet pass (+ 30 a decode chunk under vae_quant), its dense launches to
      320 a pass (by shape to INT8_DENSE_SITES in the int8 video), one
      quantise launch per GEMM launch, GEGLU none, conv3x3 the VAE's alone;
-     the int8 weight codes' bytes.
+     the int8 weight codes' bytes; unet_quant's Σ device time over one
+     more video traced by torch.profiler, and the int8 kernels' share of it,
+     beside its host clock.
   6. train (this slice's main path): the default TrainConfig (temporal
      scope, 512x320x14f, batch 1, remat "block", AdamW with f32 masters,
      bf16 compute) through make_optimizer/create_train_state/make_train_step
@@ -2102,12 +2107,16 @@ def int8_kernel_phase(dev, ph: KernelPhase, smi: str):
     QLinear site of a CFG pass: codes, (amax, scale) and outputs bit for bit
     against the plain versions on the same inputs, two runs the same bits;
     device ms per launch in a CUDA graph of the quantise pass and the GEMM
-    apart, beside the bf16 path at the same site (the conv3x3 kernel where
-    it takes the site, F.conv2d bf16; bf16 F.linear, and torch._int_mm + the
+    apart (the GEMM under its plan, int8_gemm.int8_gemm_plan: the wgmma
+    kernels, or the mma.sync kernel at the edge convs), the mma.sync kernel
+    launched with its explicit plan beside it (the first version, bit for
+    bit too), the bf16 path at the same site (the conv3x3 kernel where it
+    takes the site, F.conv2d bf16; bf16 F.linear, and torch._int_mm + the
     plain dequantise, the library time of the dense) and the bound (int8
     operations at 1,979 TOP/s against the bytes: the bf16 input read once,
     the int8 weights, the bf16 output and residual). Returns {(kind, key):
-    (quantise ms, GEMM ms)} and prints Σ launches x device ms per video."""
+    (quantise ms, GEMM ms)} and prints Σ launches x device ms per video,
+    each GEMM's beside the mma.sync kernel's."""
     from svd_xtend_tpu_torch.ops import video
     from svd_xtend_tpu_torch.ops.kernels import conv3x3 as cv
     from svd_xtend_tpu_torch.ops.kernels import int8_gemm as ig
@@ -2144,11 +2153,15 @@ def int8_kernel_phase(dev, ph: KernelPhase, smi: str):
         same("int8_quantize", (xq, stats), iq.quantize_reference(x, pre, x2), label)
         same("int8_quantize", (xq, stats), quant(), label + ", second run")
         gemm = lambda: ig.int8_conv3x3(xq, stats, wq, w_amax, bias, post, res)
+        plan, old = ig.int8_gemm_plan(n * h * w, co, ci, 9), ig.mma_plan(n * h * w, co, ci, 9)
+        mma = lambda: ig.int8_conv3x3(xq, stats, wq, w_amax, bias, post, res, plan=old)
         out = gemm()
         same("int8_gemm_conv", (out,), (ig.conv_reference(xq, stats, wq, w_amax, bias, post,
                                                           res),), label)
         same("int8_gemm_conv", (out,), (gemm(),), label + ", second run")
+        same("int8_gemm_conv", (out,), (mma(),), label + ", the mma.sync kernel")
         q_ms, g_ms = graph_ms(quant), graph_ms(gemm)
+        o_ms = g_ms if plan == old else graph_ms(mma)
         xs = [x] if x2 is None else [x, x2]
         ops = 2 * n * h * w * 9 * ci * co
         moved = nbytes(*xs, wq, res) + n * h * w * co * 2
@@ -2170,14 +2183,16 @@ def int8_kernel_phase(dev, ph: KernelPhase, smi: str):
                     lambda: ig.conv_reference(xq, stats, wq, w_amax, bias, post, res),
                     ops, nbytes(xq, wq, res) + n * h * w * co * 2, label=label,
                     peak=PEAK_INT8_OPS)
-            ph.times["int8_gemm_conv"]["device_ms"] = g_ms
+            ph.times["int8_gemm_conv"].update(device_ms=g_ms, mma_device_ms=o_ms)
+        g_b, _ = bound_ms(ops, nbytes(xq, wq, res) + n * h * w * co * 2, PEAK_INT8_OPS)
         log(f"  int8 conv {label} x{per}: quantise {q_ms:.4f} + GEMM {g_ms:.4f} = "
-            f"{q_ms + g_ms:.4f} ms ({ops / g_ms / 1e9:.1f} TOP/s in the GEMM); bf16 conv3x3 "
+            f"{q_ms + g_ms:.4f} ms ({ops / g_ms / 1e9:.1f} TOP/s in the GEMM, {plan_tag(plan)}; "
+            f"the mma.sync kernel {o_ms:.4f}, the GEMM's bound {g_b:.4f}); bf16 conv3x3 "
             f"kernel {k_ms}, F.conv2d bf16 {lib_ms:.4f}; bound {b_ms:.4f} ms ({b_by}), "
             f"{100 * b_ms / (q_ms + g_ms):.1f} % of it")
         ms[("conv", (n, h, w, ci, co))] = (q_ms, g_ms)
         bf = float(k_ms) if k_ms != "declined" else lib_ms
-        return (q_ms + g_ms) * per, bf * per, lib_ms * per
+        return (q_ms + g_ms) * per, bf * per, lib_ms * per, q_ms * per, g_ms * per, o_ms * per
 
     def dense_site(rows, k, co, per, first=False):
         x = rn(rows, k)
@@ -2189,11 +2204,15 @@ def int8_kernel_phase(dev, ph: KernelPhase, smi: str):
         xq, stats = quant()
         same("int8_quantize", (xq, stats), iq.quantize_reference(x), label)
         gemm = lambda: ig.int8_dense(xq, stats, wq, w_amax, bias)
+        plan, old = ig.int8_gemm_plan(rows, co, k), ig.mma_plan(rows, co, k)
+        mma = lambda: ig.int8_dense(xq, stats, wq, w_amax, bias, plan=old)
         out = gemm()
         same("int8_gemm_dense", (out,), (ig.dense_reference(xq, stats, wq, w_amax, bias),),
              label)
         same("int8_gemm_dense", (out,), (gemm(),), label + ", second run")
+        same("int8_gemm_dense", (out,), (mma(),), label + ", the mma.sync kernel")
         q_ms, g_ms = graph_ms(quant), graph_ms(gemm)
+        o_ms = g_ms if plan == old else graph_ms(mma)
         ops = 2 * rows * k * co
         moved = nbytes(x, wq) + rows * co * 2
         b_ms, b_by = bound_ms(ops, moved, PEAK_INT8_OPS)
@@ -2213,22 +2232,26 @@ def int8_kernel_phase(dev, ph: KernelPhase, smi: str):
                     nbytes(xq, wq) + rows * co * 2, library_fn=lib,
                     library="torch._int_mm + the plain dequantise", label=label,
                     peak=PEAK_INT8_OPS)
-            ph.times["int8_gemm_dense"]["device_ms"] = g_ms
+            ph.times["int8_gemm_dense"].update(device_ms=g_ms, mma_device_ms=o_ms)
+        g_b, _ = bound_ms(ops, nbytes(xq, wq) + rows * co * 2, PEAK_INT8_OPS)
         lib_s = f"{lib_ms:.4f}" if lib_ms is not None else "none (rows <= 16)"
         log(f"  int8 dense {label} x{per}: quantise {q_ms:.4f} + GEMM {g_ms:.4f} = "
-            f"{q_ms + g_ms:.4f} ms ({ops / g_ms / 1e9:.1f} TOP/s in the GEMM); _int_mm + "
+            f"{q_ms + g_ms:.4f} ms ({ops / g_ms / 1e9:.1f} TOP/s in the GEMM, {plan_tag(plan)}; "
+            f"the mma.sync kernel {o_ms:.4f}, the GEMM's bound {g_b:.4f}); _int_mm + "
             f"dequantise {lib_s}, bf16 F.linear {f_ms:.4f}; bound {b_ms:.4f} ms ({b_by}), "
             f"{100 * b_ms / (q_ms + g_ms):.1f} % of it")
         ms[("dense", (rows, k, co))] = (q_ms, g_ms)
-        return (q_ms + g_ms) * per, f_ms * per, (lib_ms or f_ms) * per
+        return (q_ms + g_ms) * per, f_ms * per, (lib_ms or f_ms) * per, q_ms * per, \
+            g_ms * per, o_ms * per
 
     def total(what, rows):
-        a, b, c = (sum(v) for v in zip(*rows))
+        a, b, c, q, g_, o = (sum(v) for v in zip(*rows))
         bf16 = ("the conv3x3 kernel where it takes the site, else F.conv2d" if "conv" in what
                 else "F.linear")
-        log(f"  [{smi}] int8 {what}: launches x device ms, int8 (quantise + GEMM) {a:.3f}, "
+        log(f"  [{smi}] int8 {what}: launches x device ms, int8 (quantise + GEMM) {a:.3f} "
+            f"(quantise {q:.3f}, GEMM {g_:.3f}; the mma.sync kernel's GEMM {o:.3f}), "
             f"bf16 {b:.3f} ({bf16}), library {c:.3f} ms")
-        return a, b
+        return a, b, q, g_, o
 
     log("kernels: int8, every Conv3x3 of a CFG UNet pass (batch 28)")
     unet = total("convs per CFG UNet pass", [
@@ -2239,11 +2262,23 @@ def int8_kernel_phase(dev, ph: KernelPhase, smi: str):
     log("kernels: int8, every QLinear of a CFG UNet pass")
     dense = total("dense per CFG UNet pass", [
         dense_site(*st, first=st[:3] == (71680, 320, 320)) for st in INT8_DENSE_SITES])
+    video = lambda i, with_vae=True: 25 * unet[i] + (2 * vae[i] if with_vae else 0)
     log(f"  [{smi}] int8 per exact-schedule video (25 CFG passes, 2 decode chunks priced at "
-        f"8 frames): convs {25 * unet[0] + 2 * vae[0]:.1f} ms against bf16 "
-        f"{25 * unet[1] + 2 * vae[1]:.1f}; dense {25 * dense[0]:.1f} ms against bf16 F.linear "
-        f"{25 * dense[1]:.1f}")
+        f"8 frames): convs {video(0):.1f} ms against bf16 {video(1):.1f}; dense "
+        f"{25 * dense[0]:.1f} ms against bf16 F.linear {25 * dense[1]:.1f}")
+    log(f"  [{smi}] int8 GEMMs per int8_both video (launches x device ms): int8_gemm_conv "
+        f"{video(3):.1f} ms (the mma.sync kernel {video(4):.1f}), int8_gemm_dense "
+        f"{25 * dense[3]:.1f} ms (the mma.sync kernel {25 * dense[4]:.1f}), int8_quantize "
+        f"{video(2) + 25 * dense[2]:.1f} ms; int8_unet (no VAE): conv GEMM "
+        f"{video(3, False):.1f} ms (mma.sync {video(4, False):.1f})")
     return ms
+
+
+def plan_tag(plan) -> str:
+    """A GEMM plan in a log line: the kernel and its tile."""
+    if plan.mainloop == "tma":
+        return f"wgmma bn {plan.bn} kb {plan.k_bytes} ks {plan.k_slices}"
+    return f"mma.sync bn {plan.bn}"
 
 
 def _int_mm_dequant(xq, wq, stats, w_amax, bias):
@@ -2388,7 +2423,8 @@ def int8_video_phase(dev, smi, counters, ms):
     dense launches 320 a pass (INT8_DENSE_SITES), one quantise launch per
     GEMM launch, GEGLU none, conv3x3 the VAE's alone (the encoder's 21, and
     the decoder's 2 x 28 without vae_quant). The int8 video against the
-    exact one: rel-L2 and PSNR (utils/metrics.py). {path: launches}."""
+    exact one: rel-L2 and PSNR (utils/metrics.py). unet_quant's Σ device time
+    over one more, traced video beside its host clock. {path: launches}."""
     import dataclasses
 
     from svd_xtend_tpu_torch.core.config import PipelineConfig
@@ -2471,10 +2507,39 @@ def int8_video_phase(dev, smi, counters, ms):
         log(f"  [{smi}] {path}: seconds/video {secs[path]:.3f} (median of {GENERATE_TIMED}: "
             f"{', '.join(f'{t:.3f}' for t in timed)}; exact "
             f"{secs['int8_exact_baseline']:.3f}); peak allocated {peak / 2**30:.2f} GiB{cmp}")
+        if path != "int8_unet":
+            continue
+        busy, int8_busy = device_time(lambda: generate(
+            models, image, cfg, generator=torch.Generator(device=dev).manual_seed(SEED)))
+        if busy is None:
+            log(f"  {path}: Σ device time not measured (the profiler recorded no device time)")
+        else:
+            log(f"  [{smi}] {path}: Σ device time of one traced video {busy:.1f} ms (the int8 "
+                f"quantise and GEMM kernels {int8_busy:.1f} ms) beside its host clock "
+                f"{1e3 * secs[path]:.1f} ms (the untraced median): the device idle "
+                f"{100 * (1 - busy / (1e3 * secs[path])):.1f} % of the video")
     codes = prepare_int8(models.unet)
     log(f"  int8 weight codes held on the card while the weights are unchanged: UNet "
         f"{codes / 1e9:.3f} GB, VAE decoder {prepare_int8(models.vae.decoder) / 1e9:.3f} GB")
     return launches
+
+
+def device_time(fn):
+    """(Σ device ms of the kernels `fn` launches, Σ of those whose name says
+    int8) from torch.profiler's device records, or (None, None) where it
+    records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    total = int8 = 0.0
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        us = getattr(e, "self_cuda_time_total", 0.0) if us is None else us
+        total += us
+        int8 += us if "int8" in e.key else 0.0
+    return (total / 1e3, int8 / 1e3) if total > 0 else (None, None)
 
 
 def mha_phase(dev, counters):

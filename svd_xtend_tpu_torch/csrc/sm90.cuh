@@ -224,6 +224,12 @@ __device__ __forceinline__ void fence_regs(float (&d)[kN]) {
   for (int i = 0; i < kN; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+template <int kN>
+__device__ __forceinline__ void fence_regs(int32_t (&d)[kN]) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
 #define SVDX_D8(i)                                                                    \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),         \
       "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])

@@ -290,6 +290,108 @@ __device__ __forceinline__ void wgmma_ss_n(float (&d)[kN / 2], uint64_t desc_a, 
 #undef SVDX_G8
 #undef SVDX_G4
 
+#define SVDX_R4(i) "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3])
+#define SVDX_R8(i) SVDX_R4(i), SVDX_R4(i + 4)
+#define SVDX_R32(i) SVDX_R8(i), SVDX_R8(i + 8), SVDX_R8(i + 16), SVDX_R8(i + 24)
+// one wgmma m64nNk32 .s32.s8.s8, A and B K-major from shared memory (the
+// integer forms take neither transposes nor operand negation); the operands
+// are the N / 2 accumulators, then desc_a (%IA), desc_b (%IB), scale_d (%IS)
+#define SVDX_WGMMA_S8(N, IA, IB, IS, REGS, ...)                                   \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #IS ", 0;\n"                   \
+               "wgmma.mma_async.sync.aligned.m64n" #N "k32.s32.s8.s8 {" REGS      \
+               "}, %" #IA ", %" #IB ", p;\n}\n"                                   \
+               : __VA_ARGS__                                                      \
+               : "l"(desc_a), "l"(desc_b), "r"(scale_d))
+
+// d (64 x kN s32) (+)= A (64 x 32 s8) . B (kN x 32 s8)^T, both K-major in
+// shared memory; exact integer sums. kN is one of the int8 tile widths.
+template <int kN>
+__device__ __forceinline__ void wgmma_s8_n(int32_t (&d)[kN / 2], uint64_t desc_a,
+                                           uint64_t desc_b, int scale_d) {
+  static_assert(kN == 128 || kN == 160 || kN == 256, "no int8 wgmma form for this tile width");
+  if constexpr (kN == 128) {
+    SVDX_WGMMA_S8(128, 64, 65, 66,
+                  "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,"
+                  "%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,"
+                  "%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,%48,%49,"
+                  "%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63",
+                  SVDX_R32(0), SVDX_R32(32));
+  } else if constexpr (kN == 160) {
+    SVDX_WGMMA_S8(160, 80, 81, 82,
+                  "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,"
+                  "%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,"
+                  "%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,%48,%49,"
+                  "%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63,%64,%65,"
+                  "%66,%67,%68,%69,%70,%71,%72,%73,%74,%75,%76,%77,%78,%79",
+                  SVDX_R32(0), SVDX_R32(32), SVDX_R8(64), SVDX_R8(72));
+  } else if constexpr (kN == 256) {
+    SVDX_WGMMA_S8(256, 128, 129, 130,
+                  "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,"
+                  "%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,"
+                  "%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,%48,%49,"
+                  "%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63,%64,%65,"
+                  "%66,%67,%68,%69,%70,%71,%72,%73,%74,%75,%76,%77,%78,%79,%80,%81,"
+                  "%82,%83,%84,%85,%86,%87,%88,%89,%90,%91,%92,%93,%94,%95,%96,%97,"
+                  "%98,%99,%100,%101,%102,%103,%104,%105,%106,%107,%108,%109,%110,"
+                  "%111,%112,%113,%114,%115,%116,%117,%118,%119,%120,%121,%122,"
+                  "%123,%124,%125,%126,%127",
+                  SVDX_R32(0), SVDX_R32(32), SVDX_R32(64), SVDX_R32(96));
+  }
+}
+
+#undef SVDX_WGMMA_S8
+#undef SVDX_R32
+#undef SVDX_R8
+#undef SVDX_R4
+
+// ------------------------------------------------------ operand types --
+
+// What a stage holds and how the consumers multiply it. A stage is kKBytes
+// of K for each of its BM + BN rows, one swizzle atom wide; the consumers
+// run kKBytes / 32 wgmma steps on it, each 32 bytes further along K (a k16
+// step of bf16, a k32 step of int8), so the ring, the barriers and the
+// producer work in bytes and do not depend on the type.
+//   - Bf16Ops (the default): 64 bf16 = 128 bytes, four k16 steps, f32
+//     accumulators;
+//   - S8Ops: 128 int8 codes = 128 bytes, four k32 steps, exact int32
+//     accumulators (csrc/int8_gemm.cu).
+// Both tiles are TMA's 128-byte swizzle (sm90::sw128_desc).
+// An epilogue picks the type by a member `using Ops = ...` (OpsOf).
+struct Bf16Ops {
+  using Elem = __nv_bfloat16;
+  using Acc = float;
+  static constexpr int kKBytes = 128;
+  static constexpr int kKElems = kBK;
+  __device__ static __forceinline__ uint64_t desc(const void* p) { return sm90::sw128_desc(p); }
+  template <int BN>
+  __device__ static __forceinline__ void mma(float (&d)[BN / 2], uint64_t a, uint64_t b,
+                                             int scale_d) {
+    wgmma_ss_n<BN>(d, a, b, scale_d);
+  }
+};
+
+struct S8Ops {
+  using Elem = int8_t;
+  using Acc = int32_t;
+  static constexpr int kKBytes = 128;
+  static constexpr int kKElems = 128;
+  __device__ static __forceinline__ uint64_t desc(const void* p) { return sm90::sw128_desc(p); }
+  template <int BN>
+  __device__ static __forceinline__ void mma(int32_t (&d)[BN / 2], uint64_t a, uint64_t b,
+                                             int scale_d) {
+    wgmma_s8_n<BN>(d, a, b, scale_d);
+  }
+};
+
+template <class E, class = void>
+struct OpsOf {
+  using type = Bf16Ops;
+};
+template <class E>
+struct OpsOf<E, std::void_t<typename E::Ops>> {
+  using type = typename E::Ops;
+};
+
 // ---------------------------------------------------------- A loaders --
 
 // A is a (rows, K) matrix: the item's rows m0.. of K tile kt
@@ -341,7 +443,12 @@ using FrameIm2colA = Im2colA<1>;
 //     warpgroup's finished 64 rows in place of the 2-D TMA store of rows
 //     row0.. at column col (in the thread's bulk group, committed). The
 //     upsample's epilogue writes each parity's rows straight into the
-//     interleaved 2x output.
+//     interleaved 2x output;
+//   - ALoad::load_b(dst, &b_map, bar, pos, kt, n0): loads K tile kt of the
+//     B rows n0.. in place of the 3-D load at (kt * kKElems, n0,
+//     b_batch(pos)). The int8 conv (int8_gemm.cu) reads its weights per tap;
+//   - Epi::reduce(shape, stream): the split-K reduction and epilogue of an
+//     epilogue without kPairs (the int8 GEMM's, over int32 partials).
 template <class A, class = void>
 struct HasBBatch : std::false_type {};
 template <class A>
@@ -350,6 +457,15 @@ template <class E, class = void>
 struct HasStoreTile : std::false_type {};
 template <class E>
 struct HasStoreTile<E, std::void_t<decltype(&E::store_tile)>> : std::true_type {};
+
+template <class A, class = void>
+struct HasLoadB : std::false_type {};
+template <class A>
+struct HasLoadB<A, std::void_t<decltype(&A::load_b)>> : std::true_type {};
+template <class E, class = void>
+struct HasReduce : std::false_type {};
+template <class E>
+struct HasReduce<E, std::void_t<decltype(&E::reduce)>> : std::true_type {};
 
 template <class ALoad>
 __device__ __forceinline__ int b_batch(const ALoad& aload, const typename ALoad::Pos& pos) {
@@ -361,10 +477,10 @@ __device__ __forceinline__ int b_batch(const ALoad& aload, const typename ALoad:
 
 // ------------------------------------------------------------ the kernel --
 
-template <int BN, int kOutCols>
+template <int BN, int kOutCols, class Ops = Bf16Ops>
 struct Smem {
   static constexpr int kThreads = 128 * (kC + 1);
-  static constexpr uint32_t kABytes = kBM * kBK * 2, kBBytes = BN * kBK * 2;
+  static constexpr uint32_t kABytes = kBM * Ops::kKBytes, kBBytes = BN * Ops::kKBytes;
   // the budget less 1 KB of alignment slack and the barriers
   static constexpr int kOutBytes = kBM * kOutCols * 2;
   static constexpr int kBudget = kSmemCap - 1024 - 256 - kOutBytes;
@@ -374,8 +490,9 @@ struct Smem {
   static constexpr uint32_t kConsumerRegs =
       (kThreads * kLaunchRegs - 128 * kProducerRegs) / (128 * kC) / 8 * 8;
   static_assert(kStages >= 2, "tile too large for a ring of two stages");
-  __nv_bfloat16 a[kStages][kBM * kBK];  // each 16 KB: 1024-byte aligned
-  __nv_bfloat16 b[kStages][BN * kBK];   // BN * 128 bytes, BN % 8 == 0
+  // each BM * kKBytes = 16 KB: 1024-byte aligned
+  typename Ops::Elem a[kStages][kBM * Ops::kKElems];
+  typename Ops::Elem b[kStages][BN * Ops::kKElems];  // BN * kKBytes bytes, BN % 8 == 0
   __nv_bfloat16 out[kBM * kOutCols];     // the finished tile, row-major, for the TMA store
   uint64_t full[kStages];
   uint64_t empty[kStages];
@@ -412,8 +529,8 @@ __host__ __device__ __forceinline__ int n_items(const Shape& s) {
 // stores: entries 4j, 4j + 1 are row r0 (= the warp's 16-row group + lane /
 // 4), columns n0 + 8j + 2t and + 1; 4j + 2, 4j + 3 row r0 + 8 (sm90.cuh).
 // Rows >= m and columns >= n are skipped (n is even).
-template <int BN, class F>
-__device__ __forceinline__ void for_pairs(float (&d)[BN / 2], int r0, int n0, int m, int n, int t,
+template <int BN, class T, class F>
+__device__ __forceinline__ void for_pairs(T (&d)[BN / 2], int r0, int n0, int m, int n, int t,
                                           F&& f) {
 #pragma unroll
   for (int j = 0; j < BN / 8; ++j) {
@@ -440,8 +557,8 @@ __device__ __forceinline__ void for_pairs(float (&d)[BN / 2], int r0, int n0, in
 // 64 rows back, stats<kOutCols>(rows, first row, n0, m, thread), once they
 // are in shared memory (temporal_resnet.cu's kernel A: norm2's statistics of
 // the stored bf16 values); the split-K path leaves that to its caller.
-template <int BN, class Epi>
-__device__ __forceinline__ void epilogue(const Epi& epi, float (&d)[BN / 2], int r0, int n0,
+template <int BN, class Epi, class T>
+__device__ __forceinline__ void epilogue(const Epi& epi, T (&d)[BN / 2], int r0, int n0,
                                          int m, int n, int t, __nv_bfloat16* tile, int tr0,
                                          bool residual) {
   if constexpr (Epi::kPairs) {
@@ -473,7 +590,9 @@ __global__ void __launch_bounds__(Smem<BN, Epi::template kOutCols<BN>>::kThreads
 gemm_kernel(const __grid_constant__ CUtensorMap a_map, const __grid_constant__ CUtensorMap b_map,
             const __grid_constant__ CUtensorMap c_map, const __grid_constant__ CUtensorMap r_map,
             const Shape shape, const ALoad aload, const Epi epi) {
-  using Sm = Smem<BN, Epi::template kOutCols<BN>>;
+  using Ops = typename OpsOf<Epi>::type;
+  using Acc = typename Ops::Acc;
+  using Sm = Smem<BN, Epi::template kOutCols<BN>, Ops>;
   constexpr int kStages = Sm::kStages;
   extern __shared__ char smem_raw[];
   Sm& sm = sm90::aligned_smem<Sm>(smem_raw);
@@ -511,8 +630,11 @@ gemm_kernel(const __grid_constant__ CUtensorMap a_map, const __grid_constant__ C
           sm90::mbar_wait(&sm.empty[st], ((it / kStages) & 1) ^ 1);
           sm90::mbar_arrive_expect_tx(&sm.full[st], Sm::kABytes + Sm::kBBytes);
           aload.load(sm.a[st], &a_map, &sm.full[st], pos, kt);
-          sm90::tma_load_3d(sm.b[st], &b_map, &sm.full[st], kt * kBK, item.n0,
-                            b_batch(aload, pos));
+          if constexpr (HasLoadB<ALoad>::value)
+            aload.load_b(sm.b[st], &b_map, &sm.full[st], pos, kt, item.n0);
+          else
+            sm90::tma_load_3d(sm.b[st], &b_map, &sm.full[st], kt * Ops::kKElems, item.n0,
+                              b_batch(aload, pos));
           if (residual && kt == res_at) {
             for (int h = 0; h < kC; ++h) {
               sm90::mbar_wait(&sm.out_free[h], (ii & 1) ^ 1);
@@ -534,21 +656,21 @@ gemm_kernel(const __grid_constant__ CUtensorMap a_map, const __grid_constant__ C
       if (lane == 0) sm90::mbar_arrive(&sm.empty[st]);
     };
     const bool residual = shape.residual && shape.k_slices == 1;
-    float acc[BN / 2];
+    Acc acc[BN / 2];
     int it = 0;
     for (int w = blockIdx.x, ii = 0; w < items; w += gridDim.x, ++ii) {
       const Item item = item_of<BN>(shape, w);
       for (int kt = item.k0; kt < item.k1; ++kt, ++it) {
         const int st = it % kStages;
         sm90::mbar_wait(&sm.full[st], (it / kStages) & 1);
-        const uint64_t ad = sm90::sw128_desc(sm.a[st] + wg * 64 * kBK);
-        const uint64_t bd = sm90::sw128_desc(sm.b[st]);
+        const uint64_t ad = Ops::desc(sm.a[st] + wg * 64 * Ops::kKElems);
+        const uint64_t bd = Ops::desc(sm.b[st]);
         sm90::wgmma_fence();
         sm90::fence_regs(acc);
 #pragma unroll
-        for (int kk = 0; kk < kBK / 16; ++kk)
-          wgmma_ss_n<BN>(acc, sm90::kmajor_slice(ad, kk), sm90::kmajor_slice(bd, kk),
-                         kt > item.k0 || kk > 0);
+        for (int kk = 0; kk < Ops::kKBytes / 32; ++kk)
+          Ops::template mma<BN>(acc, sm90::kmajor_slice(ad, kk), sm90::kmajor_slice(bd, kk),
+                                kt > item.k0 || kk > 0);
         sm90::wgmma_commit();
         // the last item's store has read its rows by now: the producer may
         // bring this item's residual into them
@@ -568,11 +690,15 @@ gemm_kernel(const __grid_constant__ CUtensorMap a_map, const __grid_constant__ C
       const int tr0 = wg * 64 + 16 * warp + (lane >> 2);  // this thread's first tile row
       const int r0 = item.m0 + tr0;
       if (shape.k_slices > 1) {
-        float* part = shape.partial + (size_t)item.slice * shape.m * shape.n;
+        // f32 partials, or the int8 GEMM's exact int32 ones, in the same words
+        Acc* part = reinterpret_cast<Acc*>(shape.partial) + (size_t)item.slice * shape.m * shape.n;
         for_pairs<BN>(acc, r0, item.n0, shape.m, shape.n, t,
-                      [&](int row, int col, float& v0, float& v1) {
-                        *reinterpret_cast<float2*>(part + (size_t)row * shape.n + col) =
-                            make_float2(v0, v1);
+                      [&](int row, int col, Acc& v0, Acc& v1) {
+                        Acc* p = part + (size_t)row * shape.n + col;
+                        if constexpr (std::is_same_v<Acc, float>)
+                          *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+                        else
+                          *reinterpret_cast<int2*>(p) = make_int2(v0, v1);
                       });
       } else {
         // each warpgroup stores its own 64 rows, so neither waits for the
@@ -643,7 +769,7 @@ template <int BN, class ALoad, class Epi>
 int launch(const CUtensorMap& a_map, const CUtensorMap& b_map, const CUtensorMap& c_map,
            const CUtensorMap& r_map, const Shape& shape, const ALoad& aload, const Epi& epi,
            int grid, cudaStream_t stream) {
-  using Sm = Smem<BN, Epi::template kOutCols<BN>>;
+  using Sm = Smem<BN, Epi::template kOutCols<BN>, typename OpsOf<Epi>::type>;
   // an epilogue that reads its finished rows back (kStats) cannot share them
   // with a residual the producer brings in
   if (grid < 1 || grid > n_items<BN>(shape) || grid > sm_count() ||
@@ -663,6 +789,8 @@ int launch(const CUtensorMap& a_map, const CUtensorMap& b_map, const CUtensorMap
       const long long want = (pairs + 255) / 256, cap = 16LL * sm_count();
       reduce_kernel<<<static_cast<int>(want < cap ? want : cap), 256, 0, stream>>>(shape, epi);
       err = static_cast<int>(cudaGetLastError());
+    } else if constexpr (HasReduce<Epi>::value) {
+      err = epi.reduce(shape, stream);
     } else {
       err = static_cast<int>(cudaErrorInvalidValue);
     }

@@ -57,7 +57,7 @@ _SIGNATURES = {
     "svdx_conv3x3": [_P] * 11 + [_I] * 11 + [_P],
     "svdx_upsample_conv": [_P] * 5 + [_I] * 8 + [_P],
     "svdx_int8_quantize": [_P] * 7 + [ctypes.c_longlong] + [_I] * 6 + [_P],
-    "svdx_int8_gemm": [_P] * 8 + [_I] * 9 + [_P],
+    "svdx_int8_gemm": [_P] * 9 + [_I] * 11 + [_P],
     "svdx_flash_variant_fwd": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     "svdx_chain_bf16": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
     "svdx_chain_int8_qd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],

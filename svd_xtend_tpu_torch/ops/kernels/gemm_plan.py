@@ -2,7 +2,9 @@
 (``csrc/sm90_gemm.cuh``): tile width, K slices and grid, chosen on the host
 from the shape alone.
 
-C (M x N) = A (M x K) · Bᵀ with K in tiles of 64. A block (two consumer
+C (M x N) = A (M x K) · Bᵀ with K in tiles of one 128-byte swizzle atom
+(``k_bytes``): 64 bf16, or for the int8 GEMM (``int8_gemm.int8_gemm_plan``)
+128 int8 codes. A block (two consumer
 warpgroups) computes BM = 128 rows by ``bn`` columns; its items are
 (N tile, M tile, K slice) with the N tile fastest (``GemmPlan.items`` walks
 them in the kernel's order), and ``grid`` persistent blocks take items
@@ -15,7 +17,10 @@ times of every candidate at the UNet's conv3x3 sites and dU shapes on an
 H100 80GB HBM3 at 700 W (``scripts/bench_gemm_plans.py``; PERF.md), in µs: a K tile of an item
 costs c1·bn/64 + c0; an item adds o1 for its epilogue where it finishes
 its own outputs; a split adds its partials' traffic at rho µs a GB; items
-are spread over the SMs in whole rounds. Where some candidate gives every
+are spread over the SMs in whole rounds. A K tile of int8 codes costs
+c1·(k_bytes / 128)·bn/64 + c0: the tensor cores take int8 at twice the bf16
+rate, so a byte of K costs the same in both, and c0 is paid per stage.
+Where some candidate gives every
 SM an item (K slices), one that does not is not taken. Over the 40
 measured shapes (32 conv3x3, GEGLU's second GEMM at 8) the model's pick was
 2.7 % slower than the fastest candidate on average, 39 % at worst (the 5x8
@@ -60,6 +65,8 @@ class GemmPlan:
     k_slices: int
     grid: int
     mainloop: str = "tma"
+    k_bytes: int = 2 * K_TILE    # bytes of K a stage holds (one swizzle atom)
+    elem_bytes: int = 2          # bytes of an operand value: bf16 2, int8 1
     bm = BM
 
     @property
@@ -75,13 +82,19 @@ class GemmPlan:
         return self.m_tiles * self.n_tiles * self.k_slices
 
     @property
+    def k_elems(self) -> int:
+        """Values of K a stage holds: 64 bf16 or 128 int8 codes (the
+        mma.sync int8 kernel's tiles: 64)."""
+        return self.k_bytes // self.elem_bytes
+
+    @property
     def a_box(self) -> tuple:
-        """(inner elements, rows) of A's TMA box: 64 bf16 = 128 bytes."""
-        return (K_TILE, self.bm)
+        """(inner elements, rows) of A's TMA box: one swizzle atom of K."""
+        return (self.k_elems, self.bm)
 
     @property
     def b_box(self) -> tuple:
-        return (K_TILE, self.bn)
+        return (self.k_elems, self.bn)
 
     @property
     def workspace_elems(self) -> int:
@@ -105,7 +118,7 @@ def slice_bounds(k_tiles: int, k_slices: int) -> list:
 def cost(plan: GemmPlan, sm_count: int = SM_COUNT) -> float:
     """The model's µs for one launch (see the module docstring)."""
     k_per_item = -(-plan.k_tiles // plan.k_slices)
-    tile = _C1 * plan.bn / 64 + _C0
+    tile = _C1 * plan.k_bytes / 128 * plan.bn / 64 + _C0
     rounds = -(-plan.n_items // sm_count)
     if plan.k_slices == 1:
         return rounds * (k_per_item * tile + _O1)
@@ -114,27 +127,32 @@ def cost(plan: GemmPlan, sm_count: int = SM_COUNT) -> float:
 
 
 def candidates(m: int, n: int, k_tiles: int, widths: Sequence[int],
-               sm_count: int = SM_COUNT, max_slices: int = MAX_SLICES) -> list:
-    """Every plan the kernels take for the shape, each with its grid."""
+               sm_count: int = SM_COUNT, max_slices: int = MAX_SLICES, **operand) -> list:
+    """Every plan the kernels take for the shape, each with its grid;
+    `operand`: GemmPlan's k_bytes and elem_bytes (bf16's by default)."""
     out = []
     for bn in widths:
         for k_slices in range(1, max_slices + 1):
             if k_slices > 1 and k_tiles // k_slices < MIN_SLICE_TILES:
                 break
-            plan = GemmPlan(m, n, k_tiles, bn, k_slices, 1)
+            plan = GemmPlan(m, n, k_tiles, bn, k_slices, 1, **operand)
             out.append(dataclasses.replace(plan, grid=min(plan.n_items, sm_count)))
     return out
 
 
+def best(plans: Sequence[GemmPlan], sm_count: int = SM_COUNT) -> GemmPlan:
+    """The cheapest of `plans` under `cost`, those with an item for every SM
+    first; ties: fewer slices, then wider tiles."""
+    return min(plans, key=lambda p: (p.n_items < sm_count, cost(p, sm_count), p.k_slices, -p.bn))
+
+
 def plan_gemm(m: int, n: int, k_tiles: int, widths: Sequence[int], sm_count: int = SM_COUNT,
-              max_slices: int = MAX_SLICES) -> GemmPlan:
+              max_slices: int = MAX_SLICES, **operand) -> GemmPlan:
     """The cheapest plan under `cost` among those the kernels take (those
     with an item for every SM first)."""
     if m < 1 or n < 1 or k_tiles < 1 or n % 2:
         raise ValueError(f"gemm plan: no plan for M {m}, N {n}, {k_tiles} K tiles")
-    # ties: fewer slices, then wider tiles
-    return min(candidates(m, n, k_tiles, widths, sm_count, max_slices),
-               key=lambda p: (p.n_items < sm_count, cost(p, sm_count), p.k_slices, -p.bn))
+    return best(candidates(m, n, k_tiles, widths, sm_count, max_slices, **operand), sm_count)
 
 
 # the tile widths csrc/temporal_resnet.cu instantiates (SVDX_TRESNET_TILE_N)

@@ -4,14 +4,20 @@ int8 sites the models call.
 
 The functions are ``svd_xtend_tpu/ops/quant.py::int8_conv3x3`` and
 ``::int8_dense`` after their activation quantisation (XLA code in the JAX
-package, no Pallas kernel). The kernel is ``csrc/int8_gemm.cu``: the 3x3 SAME
-implicit GEMM over NHWC int8 codes or a dense (M, K) product, with the
+package, no Pallas kernel). The kernels are ``csrc/int8_gemm.cu``: the 3x3
+SAME implicit GEMM over NHWC int8 codes or a dense (M, K) product, with the
 weight codes K-major, int32 accumulators and JAX's epilogue (the scale
 product, + bias in f32, one cast, + shift, + residual in the activation
 type; the dequantising scale in XLA's jitted form, ``quant.dequant_scale``),
 bit for bit the plain versions ``conv_reference`` / ``dense_reference``.
-``int8_gemm_plan`` picks its tile width (128, or 32 for the thin outputs)
-and its loads' chunk (16 bytes, or 4 where Ci is not a multiple of 16).
+``int8_gemm_plan``, a pure function of the shape, picks the kernel: the
+persistent TMA + wgmma mainloop of ``csrc/sm90_gemm.cuh`` on int8 operands
+(its tile width, K slices and grid by ``gemm_plan``'s cost model; K in
+tiles of 128 codes, a conv's per tap), or, for the shapes TMA cannot take (a conv's Ci or a dense K not a
+multiple of 16, an output not a multiple of 8 wide) and the thin outputs
+(Co <= 32), the first mma.sync kernel. The wrappers take an explicit
+``plan=`` (chip_smoke.py times the mma.sync kernel beside the new one at
+every site).
 
 ``int8_conv3x3`` and ``int8_dense`` take codes and ``stats`` (the (amax,
 scale) tensor of ``int8_quant.quantize``); on a CPU tensor they run the
@@ -36,8 +42,9 @@ head, no feed-forward columns) adds zero sums and launches no GEMM.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
-from typing import NamedTuple, Optional
+from typing import Optional
 
 import torch
 
@@ -48,20 +55,61 @@ from . import int8_quant as iq
 from ._build import check, library
 from ._weights import per_version
 from .dispatch import kernels_enabled
+from .gemm_plan import SM_COUNT, GemmPlan, best, candidates, sm_count
 
-THIN = 32    # outputs at most this wide take the 32-wide tile (csrc/int8_gemm.cu: 128 or 32)
+THIN = 32    # outputs at most this wide take the mma.sync kernel's 32-wide tile
+# the tile widths csrc/int8_gemm.cu's wgmma kernels instantiate and the codes
+# of K a stage holds (SVDX_INT8_TILE_N, SVDX_INT8_K_BYTES)
+INT8_TILE_N = (128, 160, 256)
+INT8_K_TILE = 128
+MMA_K_TILE = 64        # the mma.sync kernel's K tile (bytes)
 
 
-class Int8Plan(NamedTuple):
-    bn: int       # the tile width
-    chunk: int    # bytes of a loader's cp.async
+def takes_wgmma(co: int, k_unit: int) -> bool:
+    """Whether the wgmma kernels take an output width `co` whose K comes in
+    runs of `k_unit` codes (a conv's Ci, a dense's K): TMA's 16-byte global
+    strides (the codes' rows, the bf16 output's rows) and a width above the
+    thin outputs'."""
+    return co > THIN and co % 8 == 0 and k_unit % 16 == 0
 
 
-def int8_gemm_plan(co: int, k_unit: int) -> Int8Plan:
-    """The launch plan of an output width `co` whose K is read in runs of
-    `k_unit` bytes (a conv's Ci, a dense's K): 16-byte chunks where k_unit
-    is a multiple of 16, else 4."""
-    return Int8Plan(THIN if co <= THIN else 128, 16 if k_unit % 16 == 0 else 4)
+def mma_plan(m: int, co: int, k_unit: int, taps: int = 1) -> GemmPlan:
+    """The mma.sync kernel's plan: 128 x bn tiles (bn 32 for the thin
+    outputs), one block each, K in 64-byte tiles."""
+    plan = GemmPlan(m, co, -(-taps * k_unit // MMA_K_TILE), THIN if co <= THIN else 128, 1, 1,
+                    mainloop="mma", k_bytes=MMA_K_TILE, elem_bytes=1)
+    return dataclasses.replace(plan, grid=plan.n_items)
+
+
+def wgmma_plans(m: int, co: int, k_unit: int, taps: int = 1, sms: int = SM_COUNT) -> list:
+    """Every plan the wgmma kernels take: tile widths x K slices. A K tile
+    is 128 codes of one tap (a conv's tap ends in a tile that TMA zero-fills
+    past Ci)."""
+    return candidates(m, co, taps * -(-k_unit // INT8_K_TILE), INT8_TILE_N, sms,
+                      k_bytes=INT8_K_TILE, elem_bytes=1)
+
+
+@functools.lru_cache(maxsize=None)
+def int8_gemm_plan(m: int, co: int, k_unit: int, taps: int = 1, sms: int = SM_COUNT) -> GemmPlan:
+    """The launch plan of an (m, taps·k_unit) x (co, taps·k_unit) int8 GEMM on
+    a card of `sms` SMs (a conv: taps 9, k_unit Ci; a dense: taps 1, k_unit
+    K): the wgmma kernels' cheapest plan under gemm_plan's model where
+    ``takes_wgmma``, else the mma.sync kernel's. Memoized: no plan is
+    computed per launch."""
+    if m < 1 or co < 1 or k_unit < 1:
+        raise ValueError(f"int8 GEMM plan: no plan for M {m}, N {co}, K {taps} x {k_unit}")
+    if not takes_wgmma(co, k_unit):
+        return mma_plan(m, co, k_unit, taps)
+    return best(wgmma_plans(m, co, k_unit, taps, sms), sms)
+
+
+def _check_plan(plan: GemmPlan, m: int, co: int, k_unit: int, taps: int) -> None:
+    want = (wgmma_plans(m, co, k_unit, taps)[0] if plan.mainloop == "tma"
+            else mma_plan(m, co, k_unit, taps))
+    if (plan.m, plan.n, plan.k_tiles, plan.k_bytes, plan.elem_bytes) != (
+            want.m, want.n, want.k_tiles, want.k_bytes, want.elem_bytes):
+        raise ValueError(f"int8 GEMM: plan {plan} is not one of M {m}, N {co}, K {taps} x "
+                         f"{k_unit}")
 
 
 # (codes, clamped amaxes (Co,)): (Co, 3, 3, Ci) for a conv, (Co, K) for a dense
@@ -139,7 +187,24 @@ def _vectors(dev, co, w_amax, bias, stats):
     return w_amax, bias
 
 
-def _conv_launch(xq, stats, wq, w_amax, bias, post_shift, residual):
+def _gemm(xq, wq, stats, w_amax, bias, post, residual, out, plan, conv_hwc=None):
+    """One launch of csrc/int8_gemm.cu under `plan` (its split's int32
+    workspace allocated here); conv_hwc: the conv's (h, w, ci)."""
+    co = out.shape[-1]
+    m = out.numel() // co
+    h, w, ci = conv_hwc or (0, 0, 0)
+    ws = (torch.empty(plan.workspace_elems, device=xq.device, dtype=torch.int32)
+          if plan.workspace_elems else None)
+    ptr = lambda a: None if a is None else a.data_ptr()
+    return library().svdx_int8_gemm(
+        xq.data_ptr(), wq.data_ptr(), ptr(stats), ptr(w_amax), ptr(bias), ptr(post),
+        ptr(residual), out.data_ptr(), ptr(ws), m, co, 9 * ci if conv_hwc else xq.shape[1],
+        int(conv_hwc is not None), h, w, ci, int(plan.mainloop == "tma"), plan.bn,
+        plan.k_slices, plan.grid,
+        torch.cuda.current_stream(xq.device).cuda_stream)
+
+
+def _conv_launch(xq, stats, wq, w_amax, bias, post_shift, residual, plan=None):
     if not supports_conv(xq, wq, residual):
         raise ValueError(
             f"int8 conv kernel needs CUDA contiguous int8 NHWC codes with Ci % 4 == 0, "
@@ -155,17 +220,17 @@ def _conv_launch(xq, stats, wq, w_amax, bias, post_shift, residual):
         if tuple(post.shape) != (n, co) or post.device != xq.device:
             raise ValueError(f"int8 conv: post_shift must be {(n, co)} on the device")
     out = torch.empty((n, h, w, co), device=xq.device, dtype=torch.bfloat16)
-    plan = int8_gemm_plan(co, ci)
-    ptr = lambda a: None if a is None else a.data_ptr()
-    check(library().svdx_int8_gemm(
-        xq.data_ptr(), wq.data_ptr(), stats.data_ptr(), w_amax.data_ptr(), ptr(bias), ptr(post),
-        ptr(residual), out.data_ptr(), n * h * w, co, 9 * ci, 1, h, w, ci, plan.bn, plan.chunk,
-        torch.cuda.current_stream(xq.device).cuda_stream), "int8_conv3x3")
+    if plan is None:
+        plan = int8_gemm_plan(n * h * w, co, ci, 9, sm_count(xq.device))
+    else:
+        _check_plan(plan, n * h * w, co, ci, 9)
+    check(_gemm(xq, wq, stats, w_amax, bias, post, residual, out, plan, (h, w, ci)),
+          "int8_conv3x3")
     int8_conv3x3.launches += 1
     return out
 
 
-def _dense_launch(xq, stats, wq, w_amax, bias):
+def _dense_launch(xq, stats, wq, w_amax, bias, plan=None):
     if not supports_dense(xq, wq):
         raise ValueError(
             f"int8 dense kernel needs CUDA contiguous int8 (M, K) and (N, K) codes with "
@@ -174,12 +239,11 @@ def _dense_launch(xq, stats, wq, w_amax, bias):
     co = wq.shape[0]
     w_amax, bias = _vectors(xq.device, co, w_amax, bias, stats)
     out = torch.empty((m, co), device=xq.device, dtype=torch.bfloat16)
-    plan = int8_gemm_plan(co, k)
-    check(library().svdx_int8_gemm(
-        xq.data_ptr(), wq.data_ptr(), stats.data_ptr(), w_amax.data_ptr(),
-        None if bias is None else bias.data_ptr(), None, None, out.data_ptr(), m, co, k, 0, 0,
-        0, 0, plan.bn, plan.chunk, torch.cuda.current_stream(xq.device).cuda_stream),
-        "int8_dense")
+    if plan is None:
+        plan = int8_gemm_plan(m, co, k, 1, sm_count(xq.device))
+    else:
+        _check_plan(plan, m, co, k, 1)
+    check(_gemm(xq, wq, stats, w_amax, bias, None, None, out, plan), "int8_dense")
     int8_dense.launches += 1
     return out
 
@@ -188,31 +252,35 @@ def int8_conv3x3(xq: torch.Tensor, stats: torch.Tensor, wq: torch.Tensor, w_amax
                  bias: Optional[torch.Tensor] = None,
                  post_shift: Optional[torch.Tensor] = None,
                  residual: Optional[torch.Tensor] = None,
-                 dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+                 dtype: torch.dtype = torch.bfloat16, plan: Optional[GemmPlan] = None
+                 ) -> torch.Tensor:
     """The W8A8 3x3 SAME conv of NHWC codes: (N, H, W, Co) in `dtype` (bf16
-    on the card)."""
+    on the card); `plan` in place of int8_gemm_plan's."""
     if xq.device.type == "cpu":
         return conv_reference(xq, stats, wq, w_amax, bias, post_shift, residual, dtype)
     if dtype != torch.bfloat16:
         raise ValueError(f"int8 conv kernel writes bf16, not {dtype}")
-    return _conv_launch(xq, stats, wq, w_amax, bias, post_shift, residual)
+    return _conv_launch(xq, stats, wq, w_amax, bias, post_shift, residual, plan)
 
 
 def int8_dense(xq: torch.Tensor, stats: torch.Tensor, wq: torch.Tensor, w_amax: torch.Tensor,
                bias: Optional[torch.Tensor] = None,
-               dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    """The W8A8 dense product of codes xq (M, K) with wq (N, K): (M, N)."""
+               dtype: torch.dtype = torch.bfloat16, plan: Optional[GemmPlan] = None
+               ) -> torch.Tensor:
+    """The W8A8 dense product of codes xq (M, K) with wq (N, K): (M, N);
+    `plan` in place of int8_gemm_plan's."""
     if xq.device.type == "cpu":
         return dense_reference(xq, stats, wq, w_amax, bias, dtype)
     if dtype != torch.bfloat16:
         raise ValueError(f"int8 dense kernel writes bf16, not {dtype}")
-    return _dense_launch(xq, stats, wq, w_amax, bias)
+    return _dense_launch(xq, stats, wq, w_amax, bias, plan)
 
 
-def dense_sums(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+def dense_sums(xq: torch.Tensor, wq: torch.Tensor, plan: Optional[GemmPlan] = None
+               ) -> torch.Tensor:
     """The exact int32 sums of codes xq (M, K) with wq (N, K): (M, N) int32,
-    through the kernel's raw form on a CUDA tensor (counted with
-    ``int8_dense``)."""
+    through the kernels' raw form on a CUDA tensor (counted with
+    ``int8_dense``); `plan` in place of int8_gemm_plan's."""
     if xq.device.type == "cpu":
         return quant.dense_accumulate(xq, wq)
     if not supports_dense(xq, wq):
@@ -222,11 +290,11 @@ def dense_sums(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     m, k = xq.shape
     co = wq.shape[0]
     out = torch.empty((m, co), device=xq.device, dtype=torch.int32)
-    plan = int8_gemm_plan(co, k)
-    check(library().svdx_int8_gemm(
-        xq.data_ptr(), wq.data_ptr(), None, None, None, None, None, out.data_ptr(), m, co, k,
-        0, 0, 0, 0, plan.bn, plan.chunk, torch.cuda.current_stream(xq.device).cuda_stream),
-        "int8_dense_sums")
+    if plan is None:
+        plan = int8_gemm_plan(m, co, k, 1, sm_count(xq.device))
+    else:
+        _check_plan(plan, m, co, k, 1)
+    check(_gemm(xq, wq, None, None, None, None, None, out, plan), "int8_dense_sums")
     int8_dense.launches += 1
     return out
 

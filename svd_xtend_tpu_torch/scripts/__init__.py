@@ -14,8 +14,10 @@ libjpeg);
 
 ``bench_flash_forward``, the flash forward's device time at the UNet's
 shapes and the variants' per mode, for comparing builds of the kernels;
-``bench_gemm_plans``, conv3x3's and GEGLU's device time under each launch
-plan of the shared GEMM mainloop; ``bench_frame_gn``, the frame attention's
+``bench_gemm_plans``, conv3x3's, GEGLU's and the int8 GEMM's device time
+under each launch plan of the shared GEMM mainloop; ``compare_sass``, the
+SASS of the kernels on that mainloop against another tree's;
+``bench_frame_gn``, the frame attention's
 and GroupNorm's device time at every shape of the main paths, beside
 another tree's; and ``sites``, the conv3x3 sites and GEGLU
 shapes of the main paths (chip_smoke.py, the card tests and the plan tests

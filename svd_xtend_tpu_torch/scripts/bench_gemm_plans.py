@@ -3,14 +3,26 @@ the card: device time per launch (a CUDA graph) of conv3x3 at the UNet's
 sites (CFG batch 28), its dU at the train step's shapes (batch 14), and
 GEGLU at its eight (T, C) shapes, each under the plan the wrapper picks
 and under every other (tile width, K slices up to 4) the kernels take,
-beside F.conv2d alone or the unfused module path. The model constants of
-ops/kernels/gemm_plan.py were fitted to its JSON.
+beside F.conv2d alone or the unfused module path; and the int8 GEMM
+(ops/kernels/int8_gemm.py) at every int8 site (the UNet's Conv3x3 sites at
+CFG batch 28, the VAE decoder's at a chunk of 8 frames, a CFG pass's
+QLinear sites) under the model's plan, every plan of the wgmma kernels (K
+tiles of 64 and 128 codes, tile widths, K slices) and the mma.sync kernel's,
+the wgmma outputs checked against the model plan's bits. The model
+constants of ops/kernels/gemm_plan.py were fitted to its JSON.
 
-    python -m svd_xtend_tpu_torch.scripts.bench_gemm_plans [--quick] [--json PATH]
+    python -m svd_xtend_tpu_torch.scripts.bench_gemm_plans [--quick] [--int8] [--json PATH]
+    python -m svd_xtend_tpu_torch.scripts.bench_gemm_plans --trees DIR [DIR ...]
 
---quick times the plan and F.conv2d only. Prints one line per shape: the
-plan's ms, the fastest alternative's, the library's, and the model's rank
-of the fastest.
+--quick times the plan and F.conv2d only; --int8 times the int8 GEMM's
+plans alone. Prints one line per shape: the plan's ms, the fastest
+alternative's, the library's, and the model's rank of the fastest.
+--trees times the int8 GEMM under its model's plan (--int8 --quick) in
+this tree and in each other checkout named, each in a process of its own
+(its svd_xtend_tpu_torch, its kernels), in the order this, A, B, ..., B,
+A, this, and prints every int8 site's device ms per tree beside Σ launches
+x device ms per int8_both video (25 CFG passes, 2 decode chunks of 8
+frames) of each GEMM.
 """
 
 from __future__ import annotations
@@ -128,16 +140,136 @@ def geglu_shapes(quick, rows):
         del args, x, w1, w2
 
 
+def _int8_row(kind, shape, label, run, m, co, k_unit, taps, sms, quick):
+    from ..ops.kernels import int8_gemm as ig
+    plan = ig.int8_gemm_plan(m, co, k_unit, taps, sms)
+    ref = run(plan)
+    row = dict(kind=kind, shape=list(shape), epi=label, plan=_tag8(plan),
+               plan_ms=graph_ms(lambda: run(plan)), flops=2 * m * taps * k_unit * co)
+    old = ig.mma_plan(m, co, k_unit, taps)
+    row["mma_ms"] = row["plan_ms"] if plan == old else graph_ms(lambda: run(old))
+    if not quick and plan.mainloop == "tma":
+        alts = ig.wgmma_plans(m, co, k_unit, taps, sms)
+        times = {}
+        for alt in alts:
+            if not torch.equal(run(alt), ref):
+                raise RuntimeError(f"int8 {kind} {shape}: plan {_tag8(alt)} differs from "
+                                   f"{_tag8(plan)}")
+            times[_tag8(alt)] = graph_ms(lambda: run(alt))
+        fastest = min(alts, key=lambda a: times[_tag8(a)])
+        row.update(best=_tag8(fastest), best_ms=times[_tag8(fastest)], all_ms=times,
+                   model_rank_of_best=_rank(alts, fastest))
+    print(f"  int8 {kind} {tuple(shape)} {label}: plan ({row['plan']}) {row['plan_ms']:.4f} ms, "
+          f"{row['flops'] / row['plan_ms'] / 1e9:.0f} TOP/s; "
+          + (f"best ({row['best']}) {row['best_ms']:.4f}, model rank "
+             f"{row['model_rank_of_best']}; " if "best" in row else "")
+          + f"mma.sync kernel {row['mma_ms']:.4f}", flush=True)
+    return row
+
+
+def _tag8(p):
+    return (f"{p.mainloop} bn {p.bn} kb {p.k_bytes} ks {p.k_slices}" if p.mainloop == "tma"
+            else f"mma bn {p.bn}")
+
+
+def int8_sites(quick, rows):
+    from ..ops.kernels import int8_gemm as ig
+    from ..ops.kernels import int8_quant as iq
+    from ..ops.kernels.gemm_plan import sm_count
+    from .sites import INT8_CONV_SITES, INT8_DENSE_SITES, INT8_VAE_CONV_SITES
+
+    dev = torch.device("cuda")
+    sms = sm_count(dev)
+    g = torch.Generator(device=dev).manual_seed(2)
+    rn = lambda *s, sc=1.0: (torch.randn(*s, device=dev, generator=g) * sc).to(torch.bfloat16)
+    convs = ([(28, *st[:5]) for st in INT8_CONV_SITES]
+             + [(8, *st[:5]) for st in INT8_VAE_CONV_SITES])
+    for n, h, w, ci, co, epi in convs:
+        xq, stats = iq.quantize(rn(n, h, w, ci))
+        wq, w_amax = ig.conv_codes(rn(co, ci, 3, 3, sc=(9 * ci) ** -0.5))
+        bias = 0.1 * rn(co)
+        post = 0.5 * rn(n, co).float() if "post" in epi else None
+        res = rn(n, h, w, co) if "res" in epi else None
+        run = lambda plan: ig.int8_conv3x3(xq, stats, wq, w_amax, bias, post, res, plan=plan)
+        rows.append(_int8_row("conv", (n, h, w, ci, co), epi, run, n * h * w, co, ci, 9, sms,
+                              quick))
+        del xq, res
+    for m, k, co, _ in INT8_DENSE_SITES:
+        xq, stats = iq.quantize(rn(m, k))
+        wq, w_amax = ig.dense_codes(rn(co, k, sc=k ** -0.5))
+        bias = 0.1 * rn(co)
+        run = lambda plan: ig.int8_dense(xq, stats, wq, w_amax, bias, plan=plan)
+        rows.append(_int8_row("dense", (m, k, co), "bias", run, m, co, k, 1, sms, quick))
+        del xq
+
+
+def _video_launches(kind, shape, epi):
+    """Launches of an int8 site per int8_both video."""
+    from .sites import INT8_CONV_SITES, INT8_DENSE_SITES, INT8_VAE_CONV_SITES
+    if kind == "dense":
+        return sum(25 * st[3] for st in INT8_DENSE_SITES if list(st[:3]) == shape)
+    n = shape[0]
+    table, per = (INT8_CONV_SITES, 25) if n == 28 else (INT8_VAE_CONV_SITES, 2)
+    return sum(per * st[5] for st in table if list(st[:4]) == shape[1:] and st[4] == epi)
+
+
+def compare_trees(trees):
+    """--trees: the int8 sites under each tree's model plan, in a process a run."""
+    import os
+    import subprocess
+    import sys
+    import tempfile
+    from pathlib import Path
+
+    here = Path(__file__).resolve().parents[2]
+    others = [Path(t).resolve() for t in trees]
+    order = [here, *others, *reversed(others), here]
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, root in enumerate(order):
+            out = Path(tmp, f"{i}.json")
+            proc = subprocess.run(
+                [sys.executable, "-m", "svd_xtend_tpu_torch.scripts.bench_gemm_plans", "--int8",
+                 "--quick", "--json", str(out)], cwd=root,
+                env=dict(os.environ, PYTHONPATH=str(root)), capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"{root}: exit {proc.returncode}\n{proc.stderr[-4000:]}")
+            runs.append((root, json.loads(out.read_text())))
+    names = {here: "this"} | {t: f"tree {i + 1}" for i, t in enumerate(others)}
+    print(runs[0][1]["card"], "; trees: " + ", ".join(f"{names[t]} = {t}" for t in [here, *others]))
+    totals = {}
+    for j, row in enumerate(runs[0][1]["rows"]):
+        per = _video_launches(row["kind"], row["shape"], row["epi"])
+        cells = []
+        for t in [here, *others]:
+            vals = [res["rows"][j]["plan_ms"] for root, res in runs if root == t]
+            key = (names[t], row["kind"])
+            totals[key] = totals.get(key, 0.0) + per * sum(vals) / len(vals)
+            cells.append(f"{names[t]} " + ", ".join(f"{v:.4f}" for v in vals))
+        print(f"  int8 {row['kind']} {tuple(row['shape'])} {row['epi']} x{per}: "
+              + " | ".join(cells), flush=True)
+    for (name, kind), v in sorted(totals.items()):
+        print(f"  Σ launches x device ms per int8_both video, {kind} GEMM ({name}): {v:.1f} ms")
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--quick", action="store_true")
+    parser.add_argument("--int8", action="store_true", help="the int8 GEMM's plans alone")
+    parser.add_argument("--trees", nargs="*", default=None,
+                        help="other checkouts whose int8 GEMM to time beside this tree's")
     parser.add_argument("--json", default="")
     args = parser.parse_args(argv)
+    if args.trees:
+        compare_trees(args.trees)
+        return
     print(card(), flush=True)
     torch.backends.cudnn.allow_tf32 = False
     rows = []
-    conv_sites(args.quick, rows)
-    geglu_shapes(args.quick, rows)
+    if not args.int8:
+        conv_sites(args.quick, rows)
+        geglu_shapes(args.quick, rows)
+    int8_sites(args.quick, rows)
     if args.json:
         with open(args.json, "w") as fh:
             json.dump({"card": card(), "rows": rows}, fh, indent=1)

@@ -1554,6 +1554,68 @@ def test_int8_dense_sites(rn, shape):
     _same_bits(ig.int8_dense(xq, stats, wq, w_amax), ig.dense_reference(xq, stats, wq, w_amax))
 
 
+# the wgmma kernels under every plan they take: one conv site per UNet level
+# and the VAE's widest, Ci 320 and 960 (taps ending mid-tile at 128-byte K
+# tiles), a residual and a shift site each, the 5x8 level at CFG batch 28
+# (the model's plan splits K); (batch, H, W, Ci, Co, epilogue)
+_INT8_WGMMA_CONVS = [(4, 40, 64, 320, 320, "post"), (4, 40, 64, 320, 320, "res"),
+                     (2, 40, 64, 960, 320, "post"), (4, 20, 32, 640, 640, "res"),
+                     (4, 10, 16, 1280, 1280, "post"), (28, 5, 8, 1280, 1280, "res"),
+                     (28, 5, 8, 2560, 1280, "post"), (2, 40, 64, 512, 512, "none")]
+
+
+@pytest.mark.parametrize("site", _INT8_WGMMA_CONVS, ids=lambda st: "-".join(map(str, st)))
+def test_int8_conv_every_wgmma_plan(rn, site):
+    """Every plan of the wgmma kernels (K tiles of 64 and 128 codes, tile
+    widths, K slices) bit for bit the plain version; the model's plan is
+    one of them."""
+    n, h, w, ci, co, epi = site
+    args = _int8_conv_inputs(rn, n, h, w, ci, co, epi)
+    plans = ig.wgmma_plans(n * h * w, co, ci, 9)
+    assert ig.int8_gemm_plan(n * h * w, co, ci, 9) in plans
+    ref = ig.conv_reference(*args)
+    for plan in plans:
+        _same_bits(ig.int8_conv3x3(*args, plan=plan), ref)
+    if (n, h, w) == (28, 5, 8):
+        assert ig.int8_gemm_plan(n * h * w, co, ci, 9).k_slices > 1
+
+
+# one dense site per level (the feed-forward's wide output at L0), the split
+# 5x8 sites, the CLIP token's 28 and 2 rows, ragged K and rows
+_INT8_WGMMA_DENSES = [(71680, 320, 2560), (17920, 640, 640), (4480, 5120, 1280),
+                      (1120, 5120, 1280), (1120, 1280, 1280), (28, 1024, 320), (2, 320, 320),
+                      (130, 48, 40)]
+
+
+@pytest.mark.parametrize("shape", _INT8_WGMMA_DENSES, ids=lambda st: "-".join(map(str, st)))
+@pytest.mark.parametrize("raw", [False, True])
+def test_int8_dense_every_wgmma_plan(rn, shape, raw):
+    """Every plan of the wgmma kernels bit for bit the plain version, with
+    the epilogue and in the raw form (the exact int32 sums)."""
+    rows, k, co = shape
+    xq, stats = iq.quantize(rn(rows, k))
+    wq, w_amax = ig.dense_codes(rn(co, k, sc=k ** -0.5))
+    bias = 0.1 * rn(co)
+    if raw:
+        ref = qt.dense_accumulate(xq.cpu(), wq.cpu()).to(xq.device)
+        run = lambda plan: ig.dense_sums(xq, wq, plan=plan)
+    else:
+        ref = ig.dense_reference(xq, stats, wq, w_amax, bias)
+        run = lambda plan: ig.int8_dense(xq, stats, wq, w_amax, bias, plan=plan)
+    for plan in ig.wgmma_plans(rows, co, k):
+        _same_bits(run(plan), ref)
+
+
+@pytest.mark.parametrize("site", [(2, 40, 64, 320, 320, "post"), (2, 5, 8, 1280, 1280, "res")])
+def test_int8_mma_kernel_by_explicit_plan(rn, site):
+    """The mma.sync kernel still takes the wide sites when its plan is given
+    (chip_smoke.py times it beside the wgmma kernels): bit for bit."""
+    n, h, w, ci, co, epi = site
+    args = _int8_conv_inputs(rn, n, h, w, ci, co, epi)
+    _same_bits(ig.int8_conv3x3(*args, plan=ig.mma_plan(n * h * w, co, ci, 9)),
+               ig.conv_reference(*args))
+
+
 @pytest.mark.parametrize("site", sites.UP_SPLIT_SITES[:4] + [(5, 8, 1280, 1280, 1280)],
                          ids=lambda st: "-".join(map(str, st)))
 def test_int8_conv3x3_site_two_sources(rn, site):

@@ -7,7 +7,9 @@ problem once, TMA-legal boxes, tile widths the sources instantiate); the
 packed W1 against the plain GEGLU. Also the frame attention's launch
 geometry (csrc/temporal_attention.cu) for every frame count it takes, and
 group_norm_silu's path choice (csrc/group_norm.cu) at every site of the
-main paths."""
+main paths. And the int8 GEMM's plans (ops/kernels/int8_gemm.py) at every
+int8 site: the wgmma kernels' where TMA takes the shape, the mma.sync
+kernel's for the edge convs alone."""
 
 import collections
 import math
@@ -23,6 +25,7 @@ from svd_xtend_tpu_torch.ops.kernels import conv3x3 as cv
 from svd_xtend_tpu_torch.ops.kernels import geglu as gg
 from svd_xtend_tpu_torch.ops.kernels import gemm_plan
 from svd_xtend_tpu_torch.ops.kernels import groupnorm as gn
+from svd_xtend_tpu_torch.ops.kernels import int8_gemm as ig
 from svd_xtend_tpu_torch.ops.kernels import temporal_attention as ta
 from svd_xtend_tpu_torch.ops.kernels.gemm_plan import K_TILE, MAX_BOX, SM_COUNT, slice_bounds
 from svd_xtend_tpu_torch.scripts import sites
@@ -316,3 +319,91 @@ def test_group_norm_plan_largest_cluster_sample(c, dtype):
 def test_group_norm_plan_refuses_more_groups_than_the_kernel_holds():
     assert gn.group_norm_plan((2, 64, 1280), torch.bfloat16, gn.GN_MAX_GROUPS).path == "cluster"
     assert gn.group_norm_plan((2, 64, 1280), torch.bfloat16, 128).path == "two_pass"
+
+
+# ------------------------------------------------------------- int8 GEMM --
+
+def _int8_sites():
+    """(kind, M, Co, K unit, taps, label) of every int8 GEMM launch of the
+    paths: the UNet's Conv3x3 sites at CFG batch 28, the VAE decoder's at a
+    chunk of 8 frames, and a CFG pass's QLinear sites."""
+    out = [("conv", 28 * h * w, co, ci, 9, f"unet-{h}x{w}-{ci}-{co}-{epi}")
+           for h, w, ci, co, epi, _ in sites.INT8_CONV_SITES]
+    out += [("conv", 8 * h * w, co, ci, 9, f"vae-{h}x{w}-{ci}-{co}-{epi}")
+            for h, w, ci, co, epi, _ in sites.INT8_VAE_CONV_SITES]
+    out += [("dense", r, co, k, 1, f"dense-{r}-{k}-{co}") for r, k, co, _ in sites.INT8_DENSE_SITES]
+    return sorted(set(out))
+
+
+def _check_int8_k_cover(plan, k_unit, taps):
+    """The K tiles cover each tap's k_unit values once: the wgmma kernels
+    read ceil(k_unit / 128) tiles a tap, the last one zero-filled past
+    k_unit (fewer than 128 surplus values); the mma.sync kernel's
+    64-byte tiles run over the whole taps·k_unit."""
+    if plan.mainloop == "tma":
+        per_tap = plan.k_tiles // taps
+        assert per_tap * taps == plan.k_tiles
+        assert (per_tap - 1) * plan.k_bytes < k_unit <= per_tap * plan.k_bytes
+    else:
+        assert (plan.k_tiles - 1) * plan.k_bytes < taps * k_unit <= plan.k_tiles * plan.k_bytes
+
+
+@pytest.mark.parametrize("site", _int8_sites(), ids=lambda st: st[-1])
+def test_int8_gemm_plan_at_site(site):
+    """Every int8 site has a plan; exactly the edge convs (Ci 8 and 4, Co 4
+    and 3) take the mma.sync kernel, every other site the wgmma kernels at a
+    width and K tile bytes csrc/int8_gemm.cu instantiates; the items and K
+    slices cover the product once, the K tiles every tap once."""
+    kind, m, co, k_unit, taps, label = site
+    plan = ig.int8_gemm_plan(m, co, k_unit, taps)
+    assert (plan.m, plan.n, plan.elem_bytes) == (m, co, 1)
+    edge = kind == "conv" and (k_unit in (4, 8) or co <= ig.THIN)
+    assert (plan.mainloop == "mma") == edge
+    if edge:
+        assert plan.bn == (ig.THIN if co <= ig.THIN else 128) and plan.k_slices == 1
+    else:
+        assert plan.bn in _source_widths("SVDX_INT8_TILE_N")
+        assert (plan.k_bytes,) == _source_widths("SVDX_INT8_K_BYTES")
+        assert plan.a_box == (plan.k_bytes, 128) and plan.b_box == (plan.k_bytes, plan.bn)
+        assert all(1 <= d <= MAX_BOX for d in plan.a_box + plan.b_box)
+        assert plan.workspace_elems == (plan.k_slices * m * co if plan.k_slices > 1 else 0)
+        assert plan == min(ig.wgmma_plans(m, co, k_unit, taps),
+                           key=lambda p: (p.n_items < SM_COUNT, gemm_plan.cost(p), p.k_slices,
+                                          -p.bn))
+    _check_cover(plan)
+    _check_int8_k_cover(plan, k_unit, taps)
+
+
+def test_int8_plans_mirror_the_source():
+    """The widths and K tile the wrapper offers are the ones the source
+    instantiates, and every candidate covers K once."""
+    assert ig.INT8_TILE_N == _source_widths("SVDX_INT8_TILE_N")
+    assert (ig.INT8_K_TILE,) == _source_widths("SVDX_INT8_K_BYTES")
+    for m, co, k_unit, taps in [(71680, 320, 320, 9), (1120, 1280, 2560, 9), (2, 320, 1024, 1),
+                                (130, 48, 16, 1)]:
+        plans = ig.wgmma_plans(m, co, k_unit, taps)
+        assert {p.k_bytes for p in plans} == {ig.INT8_K_TILE}
+        assert {p.bn for p in plans} == set(ig.INT8_TILE_N)
+        for p in plans:
+            _check_cover(p)
+            _check_int8_k_cover(p, k_unit, taps)
+
+
+@pytest.mark.parametrize("co,k_unit,wgmma", [(320, 320, True), (48, 16, True), (40, 64, True),
+                                             (32, 320, False), (4, 320, False), (320, 8, False),
+                                             (320, 4, False), (36, 64, False), (320, 24, False)])
+def test_int8_takes_wgmma_rule(co, k_unit, wgmma):
+    """The structural rule: TMA's 16-byte strides (K runs of a multiple of
+    16 codes, a bf16 output a multiple of 8 wide) and an output wider than
+    the thin tile; anything else is the mma.sync kernel's."""
+    assert ig.takes_wgmma(co, k_unit) == wgmma
+    plan = ig.int8_gemm_plan(256, co, k_unit, 9)
+    assert (plan.mainloop == "tma") == wgmma
+    _check_cover(plan)
+    _check_int8_k_cover(plan, k_unit, 9)
+
+
+def test_int8_plan_takes_the_card_sm_count():
+    plan = ig.int8_gemm_plan(71680, 320, 320, 9, sms=114)
+    assert plan.mainloop == "tma" and plan.grid <= 114
+    assert ig.int8_gemm_plan(71680, 320, 320, 9) is ig.int8_gemm_plan(71680, 320, 320, 9)

@@ -56,6 +56,7 @@ from svd_xtend_tpu_torch.models import blocks as tb
 from svd_xtend_tpu_torch.models import transformer as tt
 from svd_xtend_tpu_torch.ops import quant
 from svd_xtend_tpu_torch.ops.kernels import int8_gemm as ig
+from svd_xtend_tpu_torch.ops.kernels import gemm_plan
 from svd_xtend_tpu_torch.ops.kernels import int8_quant as iq
 
 torch.set_num_threads(1)
@@ -171,6 +172,74 @@ def test_int8_conv3x3_matches_jax(epi):
     wq, w_amax = ig.conv_codes(tw)
     got2 = ig.int8_conv3x3(xq, stats, wq, w_amax, tv(bias), tv(post), tv(res), torch.float32)
     np.testing.assert_array_equal(got2.numpy(), got.numpy())
+
+
+def _tiled_conv_sums(xq, wq, k_bytes, k_slices):
+    """The int32 sums of the int8 conv as the wgmma kernels take them: K
+    tile kt is k_bytes channels (kt % cblocks)·k_bytes.. of tap kt //
+    cblocks, A's pixels shifted by the tap with the SAME padding and both
+    operands zero past Ci (TMA's fill), the tiles of each K slice summed in
+    int32 and the slices added (csrc/int8_gemm.cu, gemm_plan.slice_bounds)."""
+    n, h, w, ci = xq.shape
+    cblocks = -(-ci // k_bytes)
+    pad = torch.zeros(n, h + 2, w + 2, cblocks * k_bytes, dtype=torch.int64)
+    pad[:, 1:-1, 1:-1, :ci] = xq.long()
+    wt = torch.zeros(wq.shape[0], 9, cblocks * k_bytes, dtype=torch.int64)
+    wt[..., :ci] = wq.reshape(wq.shape[0], 9, ci).long()
+    total = 0
+    for k0, k1 in gemm_plan.slice_bounds(9 * cblocks, k_slices):
+        part = torch.zeros(n, h, w, wq.shape[0], dtype=torch.int64)
+        for kt in range(k0, k1):
+            tap, c0 = kt // cblocks, (kt % cblocks) * k_bytes
+            a = pad[:, tap // 3:tap // 3 + h, tap % 3:tap % 3 + w, c0:c0 + k_bytes]
+            part += a @ wt[:, tap, c0:c0 + k_bytes].T
+        assert part.abs().max() < 2 ** 31       # each slice's int32 partials
+        total = total + part
+    return total.to(torch.int32)
+
+
+@pytest.mark.parametrize("ci", [64, 320, 960])
+def test_int8_conv_tiles_match_jax(ci):
+    """The wgmma kernels' K tiling of the conv (per-tap tiles of 128 codes,
+    a tap whose Ci is not a multiple of the tile ending in zero-filled
+    channels, K split into slices) reproduces the exact int32
+    sums of the plain version, and, dequantised, JAX's int8_conv3x3 bit for
+    bit (no bias), at Ci 320 and 960, whose taps end mid-tile at 128."""
+    x = _rand(11, 2, 5, 6, ci)
+    w = _rand(12, 3, 3, ci, 24, scale=0.1)
+    ref = np.asarray(jax.jit(jq.int8_conv3x3)(jnp.asarray(x), jnp.asarray(w)))
+    xq, stats = iq.quantize(_t(x))
+    wq, w_amax = ig.conv_codes(_t(w.transpose(3, 2, 0, 1)))
+    exact = quant.conv_accumulate(xq, wq)
+    for k_slices in (1, 2, 3):
+        sums = _tiled_conv_sums(xq, wq, ig.INT8_K_TILE, k_slices)
+        assert torch.equal(sums, exact), k_slices
+    got = quant.dequantize(sums, stats[0], w_amax, None, torch.float32)
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+@pytest.mark.parametrize("k", [64, 320, 1024])
+def test_int8_dense_tiles_match_jax(k):
+    """The dense K in tiles of 128 codes, the last zero-filled past K
+    (K 320 at 128), in 1-3 slices: the plain version's exact sums and,
+    dequantised, JAX's int8_dense bit for bit (no bias)."""
+    x = _rand(13, 7, k)
+    wk = _rand(14, k, 24, scale=0.1)
+    ref = np.asarray(jax.jit(jq.int8_dense)(jnp.asarray(x), jnp.asarray(wk), None))
+    xq, stats = iq.quantize(_t(x))
+    wq, w_amax = ig.dense_codes(_t(wk.T))
+    exact = quant.dense_accumulate(xq, wq)
+    kb = ig.INT8_K_TILE
+    tiles = -(-k // kb)
+    a = torch.zeros(7, tiles * kb, dtype=torch.int64)
+    b = torch.zeros(24, tiles * kb, dtype=torch.int64)
+    a[:, :k], b[:, :k] = xq.long(), wq.long()
+    for k_slices in (1, 2, 3):
+        sums = sum(a[:, k0 * kb:k1 * kb] @ b[:, k0 * kb:k1 * kb].T
+                   for k0, k1 in gemm_plan.slice_bounds(tiles, k_slices) if k1 > k0)
+        assert torch.equal(sums.to(torch.int32), exact), k_slices
+    got = quant.dequantize(exact, stats[0], w_amax, None, torch.float32)
+    np.testing.assert_array_equal(got.numpy(), ref)
 
 
 @pytest.mark.parametrize("bias", [False, True])
