@@ -80,10 +80,14 @@ Phases, each of which raises on failure (non-zero exit):
      (INT8_CONV_SITES, batch 28: the conv3x3 sites and conv_out; the up
      blocks' conv1 with its two sources), of a decode chunk of 8 frames
      (INT8_VAE_CONV_SITES: and the decoder's conv_in and conv_out) and each
-     QLinear of a CFG pass (INT8_DENSE_SITES): codes, (amax, scale) and
-     outputs bit for bit against the plain versions on the same inputs, two
-     runs the same bits; device ms per launch in a CUDA graph of the
-     quantise pass and the GEMM apart (the GEMM under its plan: the wgmma
+     QLinear of a CFG pass (INT8_DENSE_SITES; the quantise of their inputs by
+     INT8_QUANTISE_SITES, net.2's with the gate, beside the module path it
+     replaces: F.gelu, the product, the quantise). First the quantise's
+     proofs (its codes against the IEEE division over every bf16 pair, its
+     SiLU over every f32 |a| <= 16, its GELU table over every bf16 gate
+     value). Codes, (amax, scale) and outputs bit for bit against the plain
+     versions on the same inputs, two runs the same bits; device ms per
+     launch in a CUDA graph of the quantise and the GEMM apart (the GEMM under its plan: the wgmma
      kernels on the shared TMA mainloop, the mma.sync kernel at the edge
      convs), the mma.sync kernel launched with its explicit plan beside it
      (bit for bit too), the bf16 conv3x3 kernel at the same site (where it
@@ -145,8 +149,9 @@ Phases, each of which raises on failure (non-zero exit):
      and noise: s/video, peak memory, rel-L2 and PSNR (utils/metrics.py)
      against the exact video; the int8 GEMM's conv launches held to 46 a
      UNet pass (+ 30 a decode chunk under vae_quant), its dense launches to
-     320 a pass (by shape to INT8_DENSE_SITES in the int8 video), one
-     quantise launch per GEMM launch, GEGLU none, conv3x3 the VAE's alone;
+     320 a pass (by shape to INT8_DENSE_SITES in the int8 video), the
+     quantise's to 302 a pass (by shape to INT8_QUANTISE_SITES), F.gelu's to
+     the exact video's, GEGLU none, conv3x3 the VAE's alone;
      the int8 weight codes' bytes; unet_quant's Σ device time over one
      more video traced by torch.profiler, and the int8 kernels' share of it,
      beside its host clock.
@@ -329,6 +334,7 @@ import torch.nn.functional as F
 from svd_xtend_tpu_torch.scripts import card, cuda_ms, graph_ms
 from svd_xtend_tpu_torch.scripts.sites import (FLASH_BWD_SITES, GEGLU_SHAPES, GN_SITES,
                                                INT8_CONV_SITES, INT8_DENSE_SITES,
+                                               INT8_QUANTISE_SITES, INT8_QUANTIZE_CALLS,
                                                INT8_VAE_CONV_SITES,
                                                TRESNET_SITES, UNET_CONV_SITES,
                                                PORTRAIT_UPSAMPLE_SHAPES, UNET_DGRAD_SITES,
@@ -2090,6 +2096,9 @@ def generate_phase(dev, smi, counters, ph: KernelPhase):
 # ------------------------------------------------------------------ int8 --
 
 INT8_CONV_KEY = lambda xq, stats, wq, *_, **__: tuple(xq.shape) + (wq.shape[0],)
+# a quantise call: a QLinear input's (rows, width, code width), "conv" at a Conv3x3
+INT8_QUANTISE_KEY = lambda x, *_, gate=False, **__: "conv" if x.dim() == 4 else (
+    x.shape[0], x.shape[1], x.shape[1] // (2 if gate else 1))
 INT8_DENSE_KEY = lambda xq, stats, wq, *_, **__: (xq.shape[0], xq.shape[1], wq.shape[0])
 
 
@@ -2104,19 +2113,27 @@ def _split_of(h, w, ci, co):
 def int8_kernel_phase(dev, ph: KernelPhase, smi: str):
     """The int8 quantise kernel and the int8 GEMM at every int8 site of the
     UNet (CFG batch 28), the VAE decoder (a chunk of 8 frames) and every
-    QLinear site of a CFG pass: codes, (amax, scale) and outputs bit for bit
-    against the plain versions on the same inputs, two runs the same bits;
-    device ms per launch in a CUDA graph of the quantise pass and the GEMM
-    apart (the GEMM under its plan, int8_gemm.int8_gemm_plan: the wgmma
-    kernels, or the mma.sync kernel at the edge convs), the mma.sync kernel
-    launched with its explicit plan beside it (the first version, bit for
-    bit too), the bf16 path at the same site (the conv3x3 kernel where it
-    takes the site, F.conv2d bf16; bf16 F.linear, and torch._int_mm + the
-    plain dequantise, the library time of the dense) and the bound (int8
-    operations at 1,979 TOP/s against the bytes: the bf16 input read once,
-    the int8 weights, the bf16 output and residual). Returns {(kind, key):
-    (quantise ms, GEMM ms)} and prints Σ launches x device ms per video,
-    each GEMM's beside the mma.sync kernel's."""
+    QLinear site of a CFG pass. First the quantise's proofs: its codes
+    against the IEEE division over every (bf16 v, bf16 amax) pair, its
+    branch-free SiLU against the exact form over every f32 |a| <= 16, its
+    GELU table (the gate) against torch's F.gelu and product over every bf16
+    gate value. Then codes, (amax, scale) and outputs bit for bit against the
+    plain versions on the same inputs, two runs the same bits; device ms per
+    launch in a CUDA graph of the quantise and the GEMM apart (the GEMM
+    under its plan, int8_gemm.int8_gemm_plan: the wgmma kernels, or the
+    mma.sync kernel at the edge convs), the mma.sync kernel launched with its
+    explicit plan beside it (the first version, bit for bit too), the bf16
+    path at the same site (the conv3x3 kernel where it takes the site,
+    F.conv2d bf16; bf16 F.linear, and torch._int_mm + the plain dequantise,
+    the library time of the dense) and the bound (int8 operations at 1,979
+    TOP/s against the bytes: the bf16 input read once, the int8 weights, the
+    bf16 output and residual). The quantise at the QLinear inputs by
+    INT8_QUANTISE_SITES (one a self-attention's q, k and v; net.2's the
+    gate, beside the module path it replaces: F.gelu, the product, then the
+    quantise, bit for bit the same codes). Returns {(kind, key): ms} ("conv":
+    (quantise ms, GEMM ms); "dense": GEMM ms; "quantise": ms) and prints Σ
+    launches x device ms per video, each GEMM's beside the mma.sync
+    kernel's."""
     from svd_xtend_tpu_torch.ops import video
     from svd_xtend_tpu_torch.ops.kernels import conv3x3 as cv
     from svd_xtend_tpu_torch.ops.kernels import int8_gemm as ig
@@ -2133,6 +2150,23 @@ def int8_kernel_phase(dev, ph: KernelPhase, smi: str):
                 raise RuntimeError(f"{name} {label}: not the plain version's bits (max diff "
                                    f"{(a.float() - b.float()).abs().max().item()})")
         ph.err[name] = max(ph.err.get(name, 0.0), 0.0)
+
+    bad, pairs = iq.code_selftest(dev)
+    slow_bad, values = iq.silu_selftest(dev)
+    gates = torch.arange(65536, dtype=torch.int32).to(torch.int16).view(torch.bfloat16).to(dev)
+    gate_bad = 0
+    for h in (torch.ones_like(gates), rn(65536)):
+        y = torch.cat([h, gates]).reshape(1, -1)
+        got, ref = iq.gate_values(y), iq.gate_reference(y)
+        nan = torch.isnan(ref)
+        gate_bad += int((~((got.view(torch.int16) == ref.view(torch.int16))
+                           | (nan & torch.isnan(got)))).sum())
+    log(f"  int8_quantize proofs: codes against the IEEE division {bad} of {pairs} (bf16 v, "
+        f"amax) pairs apart; the branch-free SiLU {slow_bad} of {values} f32 |a| <= 16 apart "
+        f"from the exact form; the gate's GELU table and product {gate_bad} of 2 x 65536 bf16 "
+        f"gate values apart from F.gelu(approximate='tanh') and torch's product")
+    if bad or slow_bad or gate_bad:
+        raise RuntimeError("int8_quantize: a proof failed")
 
     def conv_site(n, h, w, ci, co, epi, per, first=False):
         split = _split_of(h, w, ci, co) if "post" in epi else None
@@ -2166,6 +2200,7 @@ def int8_kernel_phase(dev, ph: KernelPhase, smi: str):
         ops = 2 * n * h * w * 9 * ci * co
         moved = nbytes(*xs, wq, res) + n * h * w * co * 2
         b_ms, b_by = bound_ms(ops, moved, PEAK_INT8_OPS)
+        q_b, _ = bound_ms(0, nbytes(*xs, xq))
         kw = dict(pre_scale=pre[0], pre_shift=pre[1], pre_silu=True) if pre else {}
         if cv.supports(x, weight, x2, pre is not None):
             bf16 = lambda: cv.conv3x3(x, weight, bias, post_shift=post, residual=res, x2=x2, **kw)
@@ -2185,10 +2220,11 @@ def int8_kernel_phase(dev, ph: KernelPhase, smi: str):
                     peak=PEAK_INT8_OPS)
             ph.times["int8_gemm_conv"].update(device_ms=g_ms, mma_device_ms=o_ms)
         g_b, _ = bound_ms(ops, nbytes(xq, wq, res) + n * h * w * co * 2, PEAK_INT8_OPS)
-        log(f"  int8 conv {label} x{per}: quantise {q_ms:.4f} + GEMM {g_ms:.4f} = "
-            f"{q_ms + g_ms:.4f} ms ({ops / g_ms / 1e9:.1f} TOP/s in the GEMM, {plan_tag(plan)}; "
-            f"the mma.sync kernel {o_ms:.4f}, the GEMM's bound {g_b:.4f}); bf16 conv3x3 "
-            f"kernel {k_ms}, F.conv2d bf16 {lib_ms:.4f}; bound {b_ms:.4f} ms ({b_by}), "
+        log(f"  int8 conv {label} x{per}: quantise {q_ms:.4f} (its bound {q_b:.4f}, "
+            f"{100 * q_b / q_ms:.1f} %) + GEMM {g_ms:.4f} = {q_ms + g_ms:.4f} ms "
+            f"({ops / g_ms / 1e9:.1f} TOP/s in the GEMM, {plan_tag(plan)}; the mma.sync kernel "
+            f"{o_ms:.4f}, the GEMM's bound {g_b:.4f}); bf16 conv3x3 kernel {k_ms}, F.conv2d "
+            f"bf16 {lib_ms:.4f}; bound {b_ms:.4f} ms ({b_by}), "
             f"{100 * b_ms / (q_ms + g_ms):.1f} % of it")
         ms[("conv", (n, h, w, ci, co))] = (q_ms, g_ms)
         bf = float(k_ms) if k_ms != "declined" else lib_ms
@@ -2200,9 +2236,7 @@ def int8_kernel_phase(dev, ph: KernelPhase, smi: str):
         bias = 0.1 * rn(co)
         wq, w_amax = ig.dense_codes(weight)
         label = f"({rows}, {k}) -> {co}"
-        quant = lambda: iq.quantize(x)
-        xq, stats = quant()
-        same("int8_quantize", (xq, stats), iq.quantize_reference(x), label)
+        xq, stats = iq.quantize(x)
         gemm = lambda: ig.int8_dense(xq, stats, wq, w_amax, bias)
         plan, old = ig.int8_gemm_plan(rows, co, k), ig.mma_plan(rows, co, k)
         mma = lambda: ig.int8_dense(xq, stats, wq, w_amax, bias, plan=old)
@@ -2211,11 +2245,9 @@ def int8_kernel_phase(dev, ph: KernelPhase, smi: str):
              label)
         same("int8_gemm_dense", (out,), (gemm(),), label + ", second run")
         same("int8_gemm_dense", (out,), (mma(),), label + ", the mma.sync kernel")
-        q_ms, g_ms = graph_ms(quant), graph_ms(gemm)
+        g_ms = graph_ms(gemm)
         o_ms = g_ms if plan == old else graph_ms(mma)
         ops = 2 * rows * k * co
-        moved = nbytes(x, wq) + rows * co * 2
-        b_ms, b_by = bound_ms(ops, moved, PEAK_INT8_OPS)
         # the library: cuBLASLt's int8 product (rows > 16, K and N multiples of 8)
         # and the plain dequantise
         lib = None
@@ -2233,16 +2265,40 @@ def int8_kernel_phase(dev, ph: KernelPhase, smi: str):
                     library="torch._int_mm + the plain dequantise", label=label,
                     peak=PEAK_INT8_OPS)
             ph.times["int8_gemm_dense"].update(device_ms=g_ms, mma_device_ms=o_ms)
-        g_b, _ = bound_ms(ops, nbytes(xq, wq) + rows * co * 2, PEAK_INT8_OPS)
+        g_b, g_by = bound_ms(ops, nbytes(xq, wq) + rows * co * 2, PEAK_INT8_OPS)
         lib_s = f"{lib_ms:.4f}" if lib_ms is not None else "none (rows <= 16)"
-        log(f"  int8 dense {label} x{per}: quantise {q_ms:.4f} + GEMM {g_ms:.4f} = "
-            f"{q_ms + g_ms:.4f} ms ({ops / g_ms / 1e9:.1f} TOP/s in the GEMM, {plan_tag(plan)}; "
-            f"the mma.sync kernel {o_ms:.4f}, the GEMM's bound {g_b:.4f}); _int_mm + "
-            f"dequantise {lib_s}, bf16 F.linear {f_ms:.4f}; bound {b_ms:.4f} ms ({b_by}), "
-            f"{100 * b_ms / (q_ms + g_ms):.1f} % of it")
-        ms[("dense", (rows, k, co))] = (q_ms, g_ms)
-        return (q_ms + g_ms) * per, f_ms * per, (lib_ms or f_ms) * per, q_ms * per, \
-            g_ms * per, o_ms * per
+        log(f"  int8 dense GEMM {label} x{per}: {g_ms:.4f} ms ({ops / g_ms / 1e9:.1f} TOP/s, "
+            f"{plan_tag(plan)}; the mma.sync kernel {o_ms:.4f}; bound {g_b:.4f} ({g_by}), "
+            f"{100 * g_b / g_ms:.1f} % of it); _int_mm + dequantise {lib_s}, bf16 F.linear "
+            f"{f_ms:.4f}")
+        ms[("dense", (rows, k, co))] = g_ms
+        return g_ms * per, f_ms * per, (lib_ms or f_ms) * per, 0.0, g_ms * per, o_ms * per
+
+    def quantise_site(rows, k_in, k, per):
+        """The quantise of a QLinear input (rows, k_in) -> (rows, k) codes: at
+        net.2 (k_in = 2k) the gate, beside the module path it replaces."""
+        gate = k_in == 2 * k
+        x = rn(rows, k_in)
+        label = f"({rows}, {k_in}) -> ({rows}, {k})" + (" gate" if gate else "")
+        quant = lambda: iq.quantize(x, gate=gate)
+        xq, stats = quant()
+        same("int8_quantize", (xq, stats), iq.quantize_reference(x, gate=gate), label)
+        same("int8_quantize", (xq, stats), quant(), label + ", second run")
+        q_ms = graph_ms(quant)
+        b_ms, _ = bound_ms(0, nbytes(x, xq))
+        module = ""
+        m_ms = q_ms
+        if gate:
+            h, gg = x.chunk(2, dim=-1)
+            path = lambda: iq.quantize(h * F.gelu(gg, approximate="tanh"))
+            same("int8_quantize", (xq, stats), path(), label + ", the module path's codes")
+            m_ms = graph_ms(path)
+            module = (f"; the module path it replaces (F.gelu, the product, the quantise) "
+                      f"{m_ms:.4f} ms, {m_ms / q_ms:.2f}x")
+        log(f"  int8 quantise {label} x{per}: {q_ms:.4f} ms, bound {b_ms:.4f} "
+            f"({100 * b_ms / q_ms:.1f} %){module}")
+        ms[("quantise", (rows, k_in, k))] = q_ms
+        return q_ms * per, m_ms * per
 
     def total(what, rows):
         a, b, c, q, g_, o = (sum(v) for v in zip(*rows))
@@ -2253,24 +2309,41 @@ def int8_kernel_phase(dev, ph: KernelPhase, smi: str):
             f"bf16 {b:.3f} ({bf16}), library {c:.3f} ms")
         return a, b, q, g_, o
 
+    # the grid barrier's cost: one tile a block over every SM against one
+    # block's tile alone (no barrier), the same work a block
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = iq.quantize_plan(sms * 16, (512,), sms=sms)
+    wide, alone = rn(sms * plan.tile_rows, 512), rn(plan.tile_rows, 512)
+    b_ms, a_ms = graph_ms(lambda: iq.quantize(wide)), graph_ms(lambda: iq.quantize(alone))
+    log(f"  int8_quantize's grid barrier: {sms} blocks of one {plan.tile_rows}-row tile "
+        f"{b_ms:.4f} ms against one block's tile alone {a_ms:.4f} ms: {b_ms - a_ms:.4f} ms")
     log("kernels: int8, every Conv3x3 of a CFG UNet pass (batch 28)")
     unet = total("convs per CFG UNet pass", [
         conv_site(28, *st, first=st[:5] == (40, 64, 320, 320, "preS+post"))
         for st in INT8_CONV_SITES])
     log("kernels: int8, every Conv3x3 of the VAE decoder (a chunk of 8 frames)")
     vae = total("convs per decode chunk", [conv_site(8, *st) for st in INT8_VAE_CONV_SITES])
-    log("kernels: int8, every QLinear of a CFG UNet pass")
-    dense = total("dense per CFG UNet pass", [
+    log("kernels: int8, every QLinear GEMM of a CFG UNet pass")
+    dense = total("dense GEMMs per CFG UNet pass", [
         dense_site(*st, first=st[:3] == (71680, 320, 320)) for st in INT8_DENSE_SITES])
+    log("kernels: int8, the quantise of every QLinear input of a CFG UNet pass")
+    qd, qm = (sum(v) for v in zip(*[quantise_site(*st) for st in INT8_QUANTISE_SITES]))
+    gates = [st for st in INT8_QUANTISE_SITES if st[1] == 2 * st[2]]
+    qg = sum(ms[("quantise", st[:3])] * st[3] for st in gates)
+    log(f"  [{smi}] int8 quantise at the QLinear inputs per CFG pass: {qd:.3f} ms (the gate "
+        f"sites {qg:.3f}); with the module path at the gate sites (F.gelu, the product, the "
+        f"quantise) {qm:.3f} ms")
     video = lambda i, with_vae=True: 25 * unet[i] + (2 * vae[i] if with_vae else 0)
     log(f"  [{smi}] int8 per exact-schedule video (25 CFG passes, 2 decode chunks priced at "
         f"8 frames): convs {video(0):.1f} ms against bf16 {video(1):.1f}; dense "
-        f"{25 * dense[0]:.1f} ms against bf16 F.linear {25 * dense[1]:.1f}")
-    log(f"  [{smi}] int8 GEMMs per int8_both video (launches x device ms): int8_gemm_conv "
+        f"{25 * (dense[0] + qd):.1f} ms against bf16 F.linear {25 * dense[1]:.1f}")
+    log(f"  [{smi}] int8 per int8_both video (launches x device ms): int8_quantize "
+        f"{video(2) + 25 * qd:.1f} ms (convs {video(2):.1f}, QLinear inputs {25 * qd:.1f}; "
+        f"{video(2) + 25 * qm:.1f} with the module path at the gate sites), int8_gemm_conv "
         f"{video(3):.1f} ms (the mma.sync kernel {video(4):.1f}), int8_gemm_dense "
-        f"{25 * dense[3]:.1f} ms (the mma.sync kernel {25 * dense[4]:.1f}), int8_quantize "
-        f"{video(2) + 25 * dense[2]:.1f} ms; int8_unet (no VAE): conv GEMM "
-        f"{video(3, False):.1f} ms (mma.sync {video(4, False):.1f})")
+        f"{25 * dense[3]:.1f} ms (the mma.sync kernel {25 * dense[4]:.1f}); int8_unet (no "
+        f"VAE): quantise {video(2, False) + 25 * qd:.1f}, conv GEMM {video(3, False):.1f} ms "
+        f"(mma.sync {video(4, False):.1f})")
     return ms
 
 
@@ -2292,8 +2365,10 @@ class Int8SiteSpy:
     also run through its plain versions (``dispatch.plain_versions``) on the
     same inputs, and the two outputs compared bit for bit: a teacher-forced
     check of each site of a real pass, free of the chaos of the whole
-    pass's codes. ``calls`` and ``differ`` count by kind, ``worst`` is the
-    largest max-abs difference seen."""
+    pass's codes. The plain run quantises each site's input itself (a
+    self-attention's to_q, to_k and to_v share the kernels' codes; net.2's
+    input is the gate's, as in the kernels' run). ``calls`` and ``differ``
+    count by kind, ``worst`` is the largest max-abs difference seen."""
 
     def __init__(self):
         self.calls = {"conv": 0, "dense": 0}
@@ -2305,8 +2380,11 @@ class Int8SiteSpy:
 
         def site(*args, **kwargs):
             out = fn(*args, **kwargs)
+            # the plain run quantises the site's input itself, where the
+            # kernels' run may take codes shared with other sites
+            plain = {k: v for k, v in kwargs.items() if k != "codes"}
             with plain_versions():
-                ref = fn(*args, **kwargs)
+                ref = fn(*args, **plain)
             self.calls[kind] += 1
             if not torch.equal(out, ref):
                 self.differ[kind] += 1
@@ -2420,16 +2498,23 @@ def int8_video_phase(dev, smi, counters, ms):
     image and noise: unet_quant, unet_quant + vae_quant, unet_quant + the CFG
     cache k3. Each mode's launches held to the site tables: the int8 GEMM's
     conv launches 46 a UNet pass (+ 30 a decode chunk under vae_quant), its
-    dense launches 320 a pass (INT8_DENSE_SITES), one quantise launch per
-    GEMM launch, GEGLU none, conv3x3 the VAE's alone (the encoder's 21, and
-    the decoder's 2 x 28 without vae_quant). The int8 video against the
-    exact one: rel-L2 and PSNR (utils/metrics.py). unet_quant's Σ device time
-    over one more, traced video beside its host clock. {path: launches}."""
+    dense launches 320 a pass (INT8_DENSE_SITES), the quantise's 302 a pass
+    (INT8_QUANTIZE_CALLS: one a Conv3x3, one a self-attention's q, k and v,
+    net.2's the gate; + 30 a decode chunk), GEGLU none, conv3x3 the VAE's
+    alone (the encoder's 21, and the decoder's 2 x 28 without vae_quant);
+    F.gelu as often as in the exact video (the int8 feed-forward's gate is
+    the quantise's, not the module path's); in the unet_quant videos every
+    GEMM and quantise call by shape (INT8_DENSE_SITES, INT8_CONV_SITES,
+    INT8_QUANTISE_SITES), priced at the kernel phase's device ms. The int8
+    video against the exact one: rel-L2 and PSNR (utils/metrics.py).
+    unet_quant's Σ device time over one more, traced video beside its host
+    clock. {path: launches}."""
     import dataclasses
 
     from svd_xtend_tpu_torch.core.config import PipelineConfig
     from svd_xtend_tpu_torch.diffusion.pipeline import SVDModels, generate, prepare_int8
     from svd_xtend_tpu_torch.ops.kernels import int8_gemm as ig
+    from svd_xtend_tpu_torch.ops.kernels import int8_quant as iq
     from svd_xtend_tpu_torch.utils.metrics import psnr
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
@@ -2445,7 +2530,7 @@ def int8_video_phase(dev, smi, counters, ms):
     chunks = -(-exact_cfg.num_frames // exact_cfg.decode_chunk_size)
     enc = sum(st[5] for st in VAE_ENCODE_SITES)
     dec = sum(st[5] for st in VAE_DECODE_SITES)
-    launches, videos, secs = {}, {}, {}
+    launches, videos, secs, gelus = {}, {}, {}, {}
     for path, cfg in runs.items():
         t0 = time.time()
         generate(models, image, cfg, generator=torch.Generator(device=dev).manual_seed(SEED))
@@ -2453,7 +2538,9 @@ def int8_video_phase(dev, smi, counters, ms):
         log(f"  {path}: warm-up video {time.time() - t0:.2f} s")
         timed = []
         with calls_by(ig, "int8_conv3x3", INT8_CONV_KEY) as conv_by, \
-                calls_by(ig, "int8_dense", INT8_DENSE_KEY) as dense_by:
+                calls_by(ig, "int8_dense", INT8_DENSE_KEY) as dense_by, \
+                calls_by(iq, "quantize", INT8_QUANTISE_KEY) as quant_by, \
+                calls_by(F, "gelu", lambda *_, **__: "F.gelu") as gelu_by:
             for _ in range(GENERATE_TIMED):
                 video = None
                 reset(counters)
@@ -2478,23 +2565,38 @@ def int8_video_phase(dev, smi, counters, ms):
                     "int8_gemm_dense": passes * sum(st[3] for st in INT8_DENSE_SITES),
                     "geglu_fwd": 0,
                     "conv3x3": enc + (0 if cfg.vae_quant else chunks * dec)}
-            want["int8_quantize"] = want["int8_gemm_conv"] + want["int8_gemm_dense"]
+            want["int8_quantize"] = passes * INT8_QUANTIZE_CALLS + (
+                chunks * sum(st[5] for st in INT8_VAE_CONV_SITES) if cfg.vae_quant else 0)
             log(f"  {path}: int8 launches {got}; the site tables give {want}")
             if got != want:
                 raise RuntimeError(f"{path}: launches {got}, the site tables give {want}")
+        gelus[path] = gelu_by["F.gelu"] / GENERATE_TIMED
+        if gelus[path] != gelus["int8_exact_baseline"]:
+            raise RuntimeError(f"{path}: {gelus[path]} F.gelu calls a video, the exact video "
+                               f"{gelus['int8_exact_baseline']}: the int8 feed-forward's gate "
+                               f"is not the quantise's")
         if path == "int8_unet":     # all CFG passes: by shape, and priced
             want_dense = collections.Counter({st[:3]: st[3] * passes * GENERATE_TIMED
                                               for st in INT8_DENSE_SITES})
             want_conv = collections.Counter()
             for st in INT8_CONV_SITES:
                 want_conv[(28, *st[:4])] += st[5] * passes * GENERATE_TIMED
-            if dense_by != want_dense or conv_by != want_conv:
-                raise RuntimeError(f"{path}: int8 GEMM calls by shape differ from the site "
-                                   f"tables: dense {dict(dense_by)}, conv {dict(conv_by)}")
-            priced = sum(n / GENERATE_TIMED * sum(ms[("dense", k)]) for k, n in dense_by.items())
-            priced += sum(n / GENERATE_TIMED * sum(ms[("conv", k)]) for k, n in conv_by.items())
-            log(f"  [{smi}] {path}: int8 quantise + GEMM launches x the kernel phase's device "
-                f"ms: {priced:.1f} ms per video")
+            want_quant = collections.Counter({st[:3]: st[3] * passes * GENERATE_TIMED
+                                              for st in INT8_QUANTISE_SITES})
+            want_quant["conv"] = sum(want_conv.values())
+            if dense_by != want_dense or conv_by != want_conv or quant_by != want_quant:
+                raise RuntimeError(f"{path}: int8 calls by shape differ from the site tables: "
+                                   f"dense {dict(dense_by)}, conv {dict(conv_by)}, quantise "
+                                   f"{dict(quant_by)}")
+            q = sum(n / GENERATE_TIMED * ms[("quantise", k)] for k, n in quant_by.items()
+                    if k != "conv")
+            q += sum(n / GENERATE_TIMED * ms[("conv", k)][0] for k, n in conv_by.items())
+            g = sum(n / GENERATE_TIMED * ms[("dense", k)] for k, n in dense_by.items())
+            g += sum(n / GENERATE_TIMED * ms[("conv", k)][1] for k, n in conv_by.items())
+            log(f"  [{smi}] {path}: int8 launches x the kernel phase's device ms per video: "
+                f"quantise {q:.1f} ms, GEMMs {g:.1f} ms (quantise launches by shape held to "
+                f"INT8_QUANTISE_SITES and the conv sites; F.gelu calls a video "
+                f"{gelus[path]:g}, the exact video's {gelus['int8_exact_baseline']:g})")
         if not bool(torch.isfinite(video).all()) or video.abs().max().item() > 1.0:
             raise RuntimeError(f"{path}: video not finite in [-1, 1]")
         videos[path] = video

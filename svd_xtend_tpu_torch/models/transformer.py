@@ -72,9 +72,12 @@ class QLinear(nn.Linear):
     tensor and the product on int8 codes (``int8_gemm.linear_site``);
     otherwise nn.Linear. Same parameters and state-dict keys."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, codes=None, gate: bool = False) -> torch.Tensor:
+        """`codes` and `gate` are the int8 mode's (``int8_gemm.linear_site``):
+        x's codes made once for the projections that share it, and x as
+        net.0.proj's [h, g] for the product's input h·gelu_tanh(g)."""
         if quant.get_mode() == "int8":
-            return i8k.linear_site(x, self.weight, self.bias)
+            return i8k.linear_site(x, self.weight, self.bias, codes=codes, gate=gate)
         return super().forward(x)
 
     def int8_codes(self):
@@ -96,9 +99,10 @@ class RowParallelLinear(QLinear):
         super().__init__(in_features, out_features, bias=bias)
         self.tp = tp
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, codes=None, gate: bool = False) -> torch.Tensor:
         if quant.get_mode() == "int8":
-            return i8k.linear_site(x, self.weight, self.bias, group=self.tp.group)
+            return i8k.linear_site(x, self.weight, self.bias, group=self.tp.group, codes=codes,
+                                   gate=gate)
         y = reduce(F.linear(x, self.weight), self.tp)
         return y if self.bias is None else y + self.bias
 
@@ -148,6 +152,15 @@ class Attention(nn.Module):
                  site=self.site)
         return scatter_channels(o, self.tp, sizes)
 
+    def _project(self, x, ctx):
+        """to_q(x), to_k(ctx), to_v(ctx). In int8 mode a self-attention (ctx
+        is x) quantises x once and the three products read those codes, bit
+        for bit what three quantisations give."""
+        if ctx is x and quant.get_mode() == "int8":
+            codes = i8k.linear_codes(x)
+            return tuple(p(x, codes=codes) for p in (self.to_q, self.to_k, self.to_v))
+        return self.to_q(x), self.to_k(ctx), self.to_v(ctx)
+
     def _enter(self, x, context):
         """x and the context (x where None), entering the model group."""
         if self.tp is None:
@@ -163,7 +176,7 @@ class Attention(nn.Module):
             # full projections, no one-token shortcut (the processor may do
             # other math at this site)
             x, ctx = self._enter(x, context)
-            o = self._process(proc, self.to_q(x), self.to_k(ctx), self.to_v(ctx))
+            o = self._process(proc, *self._project(x, ctx))
             return self.to_out[0](o)
         if context is not None and context.shape[-2] == 1:
             # Single-key cross-attention (the one CLIP token): softmax over
@@ -173,7 +186,7 @@ class Attention(nn.Module):
             out = self.to_out[0](self.to_v(context))        # (B, 1, out)
             return out.expand(x.shape[:-1] + (out.shape[-1],))
         x, ctx = self._enter(x, context)
-        q, k, v = self.to_q(x), self.to_k(ctx), self.to_v(ctx)
+        q, k, v = self._project(x, ctx)
         if self.num_heads == 0:
             # a model rank without a head: its (..., 0) part, a zero partial
             return self.to_out[0](q)
@@ -204,7 +217,11 @@ class FeedForward(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.tp is not None:
             x, = enter(self.tp, x)
-        h, gate = self.net[0].proj(x).chunk(2, dim=-1)
+        y = self.net[0].proj(x)
+        if quant.get_mode() == "int8":
+            # the quantise kernel computes h·gelu_tanh(g) as it reads y
+            return self.net[2](y, gate=True)
+        h, gate = y.chunk(2, dim=-1)
         return self.net[2](h * F.gelu(gate, approximate="tanh"))
 
 
@@ -267,10 +284,10 @@ class FrameAxisAttention(Attention):
             inner = self.num_heads * self.head_dim
             x, ctx = self._enter(x, context)
             tokens = lambda a: a.transpose(1, 2).reshape(b * s, f, inner)
-            q = tokens(self.to_q(x))
             if context is None:
-                k, v = tokens(self.to_k(x)), tokens(self.to_v(x))
+                q, k, v = (tokens(t) for t in self._project(x, x))
             else:
+                q = tokens(self.to_q(x))
                 n = ctx.shape[-2]
                 rows = lambda a: a[:, None].expand(b, s, n, inner).reshape(b * s, n, inner)
                 k, v = rows(self.to_k(ctx)), rows(self.to_v(ctx))
@@ -284,7 +301,7 @@ class FrameAxisAttention(Attention):
             out = self.to_out[0](self.to_v(context))        # (B, 1, out)
             return out[:, :, None, :].expand(b, f, s, out.shape[-1])
         x, _ = self._enter(x, None)
-        q, k, v = self.to_q(x), self.to_k(x), self.to_v(x)
+        q, k, v = self._project(x, x)
         scale = self.head_dim ** -0.5
         if self.num_heads == 0:
             return self.to_out[0](q)

@@ -56,7 +56,11 @@ _SIGNATURES = {
     "svdx_affine_silu": [_P] * 4 + [_I] * 3 + [_P],
     "svdx_conv3x3": [_P] * 11 + [_I] * 11 + [_P],
     "svdx_upsample_conv": [_P] * 5 + [_I] * 8 + [_P],
-    "svdx_int8_quantize": [_P] * 7 + [ctypes.c_longlong] + [_I] * 6 + [_P],
+    "svdx_int8_quantize": [_P] * 9 + [_I] * 14 + [_P],
+    "svdx_int8_gate_lut": [_P, _P],
+    "svdx_int8_gate_values": [_P, _P, _P, ctypes.c_longlong, _I, _P],
+    "svdx_int8_code_selftest": [_P, _P],
+    "svdx_int8_silu_selftest": [_P, _P],
     "svdx_int8_gemm": [_P] * 9 + [_I] * 11 + [_P],
     "svdx_flash_variant_fwd": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     "svdx_chain_bf16": [_P, _P, _P, _P, _I, _I, _I, _F, _P],

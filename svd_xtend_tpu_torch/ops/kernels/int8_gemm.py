@@ -323,27 +323,44 @@ def conv3x3_site(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Ten
     return conv_reference(xq, stats, wq, w_amax, bias, post_shift, residual, x.dtype)
 
 
+def linear_codes(x: torch.Tensor, gate: bool = False):
+    """(codes (rows, K), stats) of a QLinear's input x (..., K), through the
+    quantise kernel unless ``dispatch.plain_versions()`` is on; with `gate`,
+    of h·gelu_tanh(g) of x = [h, g] (..., 2K). The self-attentions' to_q,
+    to_k and to_v read one such pair (``linear_site(..., codes=)``)."""
+    x2d = x.reshape(x.shape[:-1].numel(), x.shape[-1]).contiguous()
+    if kernels_enabled():
+        return iq.quantize(x2d, gate=gate)
+    return iq.quantize_reference(x2d, gate=gate)
+
+
 def linear_site(x: torch.Tensor, weight: torch.Tensor,
-                bias: Optional[torch.Tensor] = None, group=None) -> torch.Tensor:
+                bias: Optional[torch.Tensor] = None, group=None, *, codes=None,
+                gate: bool = False) -> torch.Tensor:
     """A QLinear in int8 mode (JAX transformer.py:64-66): x (..., K) with the
-    nn.Linear weight (N, K) -> (..., N) in x's dtype. With a model `group`,
-    a row-parallel product: x and the weight are this rank's K columns, the
-    int32 sums are summed over the group and dequantised once (with the
-    bias); every rank of the group gets the whole output."""
-    lead, k = x.shape[:-1], x.shape[-1]
-    x2d = x.reshape(lead.numel(), k).contiguous()
+    nn.Linear weight (N, K) -> (..., N) in x's dtype. `codes`: x's (codes,
+    stats) from ``linear_codes``, made once for the projections that share
+    x. `gate`: x is net.0.proj's output [h, g] (..., 2K) and the product's
+    input h·gelu_tanh(g), which the quantise kernel computes as it reads.
+    With a model `group`, a row-parallel product: x and the weight are this
+    rank's K columns, the int32 sums are summed over the group and
+    dequantised once (with the bias); every rank of the group gets the
+    whole output."""
+    lead = x.shape[:-1]
+    rows = lead.numel()
     w = _in_dtype(weight, x.dtype)
     wq, w_amax = dense_codes(w) if group is None else row_dense_codes(w, group)
     kernels = kernels_enabled()
-    xq, stats = iq.quantize(x2d) if kernels else iq.quantize_reference(x2d)
-    empty = x2d.shape[0] == 0 or k == 0 or wq.shape[0] == 0
+    xq, stats = linear_codes(x, gate) if codes is None else codes
+    k = xq.shape[-1]
+    empty = rows == 0 or k == 0 or wq.shape[0] == 0
     if group is not None:
-        sums = (torch.zeros((x2d.shape[0], wq.shape[0]), dtype=torch.int32, device=x.device)
+        sums = (torch.zeros((rows, wq.shape[0]), dtype=torch.int32, device=x.device)
                 if empty else dense_sums(xq, wq) if kernels
                 else quant.dense_accumulate(xq, wq))
         y = quant.dequantize(all_reduce_sum_(sums, group), stats[0], w_amax, bias, x.dtype)
     elif empty:
-        y = quant.dequantize(torch.zeros((x2d.shape[0], wq.shape[0]), dtype=torch.int32,
+        y = quant.dequantize(torch.zeros((rows, wq.shape[0]), dtype=torch.int32,
                                          device=x.device), stats[0], w_amax, bias, x.dtype)
     elif kernels:
         y = int8_dense(xq, stats, wq, w_amax, bias, x.dtype)

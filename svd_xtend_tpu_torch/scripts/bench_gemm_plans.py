@@ -12,6 +12,7 @@ the wgmma outputs checked against the model plan's bits. The model
 constants of ops/kernels/gemm_plan.py were fitted to its JSON.
 
     python -m svd_xtend_tpu_torch.scripts.bench_gemm_plans [--quick] [--int8] [--json PATH]
+    python -m svd_xtend_tpu_torch.scripts.bench_gemm_plans --quantise [--json PATH]
     python -m svd_xtend_tpu_torch.scripts.bench_gemm_plans --trees DIR [DIR ...]
 
 --quick times the plan and F.conv2d only; --int8 times the int8 GEMM's
@@ -22,19 +23,25 @@ this tree and in each other checkout named, each in a process of its own
 (its svd_xtend_tpu_torch, its kernels), in the order this, A, B, ..., B,
 A, this, and prints every int8 site's device ms per tree beside Σ launches
 x device ms per int8_both video (25 CFG passes, 2 decode chunks of 8
-frames) of each GEMM.
+frames) of each GEMM; then the same for the quantise at every site
+(--quantise, this file's timing run against each tree's package: the
+quantise as that tree calls it, with the module path's F.gelu and product
+at the gate sites of a tree whose quantise does not take the gate).
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 
 import torch
 import torch.nn.functional as F
 
-from . import card, graph_ms
-from .sites import GEGLU_SHAPES, UNET_CONV_SITES, UNET_DGRAD_SITES
+# absolute: --trees runs this file by its path inside another checkout, whose
+# package these then name (its kernels, its tables)
+from svd_xtend_tpu_torch.scripts import card, graph_ms
+from svd_xtend_tpu_torch.scripts.sites import GEGLU_SHAPES, UNET_CONV_SITES, UNET_DGRAD_SITES
 
 
 def _alternatives(plan, widths, sms, max_slices=4):
@@ -213,28 +220,96 @@ def _video_launches(kind, shape, epi):
     return sum(per * st[5] for st in table if list(st[:4]) == shape[1:] and st[4] == epi)
 
 
-def compare_trees(trees):
-    """--trees: the int8 sites under each tree's model plan, in a process a run."""
+def quantise_sites(rows):
+    """The int8 quantise at every site of an int8_both video, in whichever
+    tree's package is imported, as that tree calls it: each Conv3x3 of a CFG
+    pass (batch 28) and of a decode chunk (8 frames), with the GN-fold + SiLU
+    prologue and the up blocks' two sources; each QLinear input of a pass.
+    A tree whose quantise takes the gate (``quantize(..., gate=True)``)
+    quantises by INT8_QUANTISE_SITES (a self-attention's x once; net.2's
+    input as net.0.proj's output); an older tree once a QLinear call, net.2's
+    after F.gelu and the product (the module path), timed with them. Rows:
+    kind, shape, launches per int8_both video, device ms."""
+    import inspect
+
+    from svd_xtend_tpu_torch.ops.kernels import int8_quant as iq
+    from svd_xtend_tpu_torch.scripts import sites
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    rn = lambda *s: (torch.randn(*s, device=dev, generator=g) * 2).to(torch.bfloat16)
+    split = {(h, w, c1 + c2, co): (c1, c2) for h, w, c1, c2, co in sites.UP_SPLIT_SITES}
+    per_conv = {}
+    for n, table, per in ((28, sites.INT8_CONV_SITES, 25), (8, sites.INT8_VAE_CONV_SITES, 2)):
+        for h, w, ci, co, epi, launches in table:
+            sp = split.get((h, w, ci, co)) if "post" in epi else None
+            key = (n, h, w) + (sp or (ci,)) + (epi.startswith("pre"),)
+            per_conv[key] = per_conv.get(key, 0) + per * launches
+    for key, per in per_conv.items():
+        n, h, w, *widths, pre_on = key
+        x = rn(n, h, w, widths[0])
+        x2 = rn(n, h, w, widths[1]) if len(widths) > 1 else None
+        c = sum(widths)
+        pre = ((1 + 0.1 * rn(n, c)).float() / 2, 0.1 * rn(n, c).float(), True) if pre_on else None
+        _quantise_row(rows, "conv", list(key), per, lambda: iq.quantize(x, pre, x2))
+        del x, x2
+    if "gate" in inspect.signature(iq.quantize).parameters:
+        for m, k_in, k, launches in sites.INT8_QUANTISE_SITES:
+            y = rn(m, k_in)
+            gate = k_in == 2 * k
+            _quantise_row(rows, "gate" if gate else "dense", [m, k_in, k], 25 * launches,
+                          lambda: iq.quantize(y, gate=gate))
+            del y
+    else:
+        for m, k, n, launches in sites.INT8_DENSE_SITES:
+            if k == 4 * n:      # net.2: the module path's F.gelu and product, then the quantise
+                y = rn(m, 2 * k)
+                h, gate = y.chunk(2, dim=-1)
+                _quantise_row(rows, "gate", [m, 2 * k, k], 25 * launches,
+                              lambda: iq.quantize(h * F.gelu(gate, approximate="tanh")))
+            else:
+                y = rn(m, k)
+                _quantise_row(rows, "dense", [m, k, k], 25 * launches, lambda: iq.quantize(y))
+            del y
+
+
+def _quantise_row(rows, kind, shape, per, fn):
+    rows.append(dict(kind=kind, shape=shape, per_video=per, ms=graph_ms(fn)))
+    print(f"  int8 quantise {kind} {tuple(shape)} x{per}: {rows[-1]['ms']:.4f} ms", flush=True)
+
+
+def _run_trees(order, argv, path=None):
+    """Each tree of `order` in a process of its own: this module (or the file
+    at `path`, run against that tree's package) with `argv` and --json."""
     import os
     import subprocess
     import sys
     import tempfile
     from pathlib import Path
 
-    here = Path(__file__).resolve().parents[2]
-    others = [Path(t).resolve() for t in trees]
-    order = [here, *others, *reversed(others), here]
     runs = []
     with tempfile.TemporaryDirectory() as tmp:
         for i, root in enumerate(order):
             out = Path(tmp, f"{i}.json")
-            proc = subprocess.run(
-                [sys.executable, "-m", "svd_xtend_tpu_torch.scripts.bench_gemm_plans", "--int8",
-                 "--quick", "--json", str(out)], cwd=root,
-                env=dict(os.environ, PYTHONPATH=str(root)), capture_output=True, text=True)
+            target = [str(path)] if path else ["-m", "svd_xtend_tpu_torch.scripts.bench_gemm_plans"]
+            proc = subprocess.run([sys.executable, *target, *argv, "--json", str(out)], cwd=root,
+                                  env=dict(os.environ, PYTHONPATH=str(root)),
+                                  capture_output=True, text=True)
             if proc.returncode != 0:
                 raise RuntimeError(f"{root}: exit {proc.returncode}\n{proc.stderr[-4000:]}")
             runs.append((root, json.loads(out.read_text())))
+    return runs
+
+
+def compare_trees(trees):
+    """--trees: the int8 GEMM's sites under each tree's model plan, then the
+    quantise at every site as each tree calls it, in a process a run."""
+    from pathlib import Path
+
+    here = Path(__file__).resolve().parents[2]
+    others = [Path(t).resolve() for t in trees]
+    order = [here, *others, *reversed(others), here]
+    runs = _run_trees(order, ["--int8", "--quick"])
     names = {here: "this"} | {t: f"tree {i + 1}" for i, t in enumerate(others)}
     print(runs[0][1]["card"], "; trees: " + ", ".join(f"{names[t]} = {t}" for t in [here, *others]))
     totals = {}
@@ -250,6 +325,29 @@ def compare_trees(trees):
               + " | ".join(cells), flush=True)
     for (name, kind), v in sorted(totals.items()):
         print(f"  Σ launches x device ms per int8_both video, {kind} GEMM ({name}): {v:.1f} ms")
+    # the quantise as each tree calls it, this file's timing in each tree's process
+    runs = _run_trees(order, ["--quantise"], path=Path(__file__).resolve())
+    sums = {}
+    for root, res in runs:
+        for row in res["rows"]:
+            k = (names[root], row["kind"])
+            sums.setdefault(k, []).append(row["per_video"] * row["ms"])
+    by_site = {}
+    for root, res in runs:
+        for row in res["rows"]:
+            by_site.setdefault((row["kind"], tuple(row["shape"]), row["per_video"]), {}) \
+                .setdefault(names[root], []).append(row["ms"])
+    for (kind, shape, per), cells in by_site.items():
+        print(f"  int8 quantise {kind} {shape} x{per}: "
+              + " | ".join(f"{t} " + ", ".join(f"{v:.4f}" for v in vals)
+                           for t, vals in cells.items()), flush=True)
+    runs_of = collections.Counter(names[root] for root, _ in runs)
+    for name in dict.fromkeys(names[root] for root, _ in runs):
+        parts = {kind: sum(v) / runs_of[name] for (n, kind), v in sums.items() if n == name}
+        print(f"  Σ launches x device ms per int8_both video, int8_quantize ({name}; at the "
+              f"gate sites with the module path's F.gelu and product where the tree runs them): "
+              f"{sum(parts.values()):.1f} ms (" + ", ".join(f"{k} {v:.1f}" for k, v in
+                                                           sorted(parts.items())) + ")")
 
 
 def main(argv=None):
@@ -258,12 +356,21 @@ def main(argv=None):
     parser.add_argument("--int8", action="store_true", help="the int8 GEMM's plans alone")
     parser.add_argument("--trees", nargs="*", default=None,
                         help="other checkouts whose int8 GEMM to time beside this tree's")
+    parser.add_argument("--quantise", action="store_true",
+                        help="the int8 quantise at every site of an int8_both video alone")
     parser.add_argument("--json", default="")
     args = parser.parse_args(argv)
     if args.trees:
         compare_trees(args.trees)
         return
     print(card(), flush=True)
+    if args.quantise:
+        rows = []
+        quantise_sites(rows)
+        if args.json:
+            with open(args.json, "w") as fh:
+                json.dump({"card": card(), "rows": rows}, fh, indent=1)
+        return
     torch.backends.cudnn.allow_tf32 = False
     rows = []
     if not args.int8:

@@ -7,9 +7,13 @@ mangled name). By default the sources built on the shared GEMM mainloop
 (csrc/sm90_gemm.cuh): conv3x3, geglu, temporal_resnet, upsample_conv.
 
     python -m svd_xtend_tpu_torch.scripts.compare_sass --tree OTHER_CHECKOUT [--out DIR]
+    python -m svd_xtend_tpu_torch.scripts.compare_sass --loops SOURCE [--match TEXT]
 
 Prints, per source, whether the listings are the same and how many lines
-differ; exits 1 if any differs or fails to build.
+differ; exits 1 if any differs or fails to build. --loops prints this
+tree's loop bodies in SOURCE's kernels (the instructions between a backward
+branch and its target, the largest first; --match keeps the kernels whose
+mangled name holds TEXT), to count a hot loop's instructions.
 """
 
 from __future__ import annotations
@@ -42,12 +46,49 @@ def listing(tree: Path, name: str, work: Path) -> str:
     return _ANON.sub("_GLOBAL__N__#_", out)
 
 
+_FUNCTION = re.compile(r"Function : (\S+)\n(.*?)(?=\n\s*Function :|\Z)", re.S)
+_INSTRUCTION = re.compile(r"/\*([0-9a-f]{4,6})\*/\s+(.*?)\s*;")
+
+
+def loops(text: str, match: str = "", top: int = 6):
+    """(kernel, [(instructions, MUFU instructions, loop start address)]) of
+    each kernel whose name holds `match`: its innermost loops (a backward
+    branch and its target, holding no other), the largest first."""
+    out = []
+    for name, body in _FUNCTION.findall(text):
+        if match not in name:
+            continue
+        code = [(int(a, 16), ins) for a, ins in _INSTRUCTION.findall(body)]
+        spans = []
+        for addr, ins in code:
+            target = re.search(r"BRA (?:\S+ )?0x([0-9a-f]+)", ins)
+            if target and int(target.group(1), 16) < addr:
+                spans.append((int(target.group(1), 16), addr))
+        inner = [(a, b) for a, b in spans
+                 if not any(a <= c and d <= b and (c, d) != (a, b) for c, d in spans)]
+        found = [(sum(1 for x, _ in code if a <= x <= b),
+                  sum(1 for x, i in code if a <= x <= b and i.startswith("MUFU")), hex(a))
+                 for a, b in inner]
+        out.append((name, sorted(found, reverse=True)[:top]))
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--tree", required=True, help="the other checkout's root")
+    parser.add_argument("--loops", default="", help="this tree's loop bodies in this source")
+    parser.add_argument("--match", default="")
+    parser.add_argument("--tree", help="the other checkout's root")
     parser.add_argument("--sources", nargs="*", default=list(SOURCES))
     parser.add_argument("--out", default="", help="write both listings here")
     args = parser.parse_args(argv)
+    if args.loops:
+        with tempfile.TemporaryDirectory() as tmp:
+            text = listing(_build.PACKAGE_ROOT.parent, args.loops, Path(tmp))
+        for name, found in loops(text, args.match):
+            print(f"{name}: innermost loops (instructions, MUFU, start) {found}", flush=True)
+        return 0
+    if not args.tree:
+        parser.error("--tree or --loops")
     trees = {"this": _build.PACKAGE_ROOT.parent, "other": Path(args.tree).resolve()}
     with tempfile.TemporaryDirectory() as tmp, concurrent.futures.ThreadPoolExecutor(
             os.cpu_count() or 4) as pool:

@@ -21,7 +21,10 @@ The int8 modes (``ops/quant.py``): INT8_CONV_SITES and INT8_VAE_CONV_SITES,
 the Conv3x3 calls of a UNet pass and of a decode chunk (the conv3x3 tables
 above plus the edge convs the bf16 kernel declines), and INT8_DENSE_SITES,
 the QLinear calls of a CFG UNet pass by (rows, K, N), derived from the
-configs.
+configs; INT8_GATE_SITES, the feed-forwards' net.2 calls, whose quantise
+takes the gate as its prologue; INT8_QUANTISE_SITES, the quantise calls of
+those QLinear sites by input shape; and INT8_QUANTIZE_CALLS, every quantise
+call of a pass.
 """
 
 from ..core.config import PipelineConfig, TrainConfig, UNetConfig, VAEConfig
@@ -310,6 +313,23 @@ INT8_VAE_CONV_SITES = VAE_DECODE_SITES + [(40, 64, 4, 512, "none", 1),
                                           (320, 512, 128, 3, "none", 1)]
 
 
+def _models_by_level(unet: UNetConfig):
+    """(level, channels, transformer models at the level) of a UNet pass."""
+    n, ups = len(unet.block_out_channels), list(reversed(unet.up_block_types))
+    for i, c in enumerate(unet.block_out_channels):
+        t = unet.transformer_layers_per_block[i]
+        yield i, c, t * (unet.layers_per_block * ("CrossAttn" in unet.down_block_types[i])
+                         + (unet.layers_per_block + 1) * ("CrossAttn" in ups[i])
+                         + (i == n - 1))
+
+
+def _pass_rows(unet, height, width, frames, batch, downsample):
+    pipe = PipelineConfig()
+    ds = downsample or VAEConfig().downsample_factor
+    h, w = (height or pipe.height) // ds, (width or pipe.width) // ds
+    return batch * (frames or pipe.num_frames), h, w
+
+
 def int8_dense_sites(unet: UNetConfig = None, height: int = None, width: int = None,
                      frames: int = None, batch: int = 2, downsample: int = None):
     """(rows, K, N, launches per pass) of the QLinear calls of one UNet pass
@@ -322,17 +342,11 @@ def int8_dense_sites(unet: UNetConfig = None, height: int = None, width: int = N
     to_v on the one CLIP token a frame (batch·frames, D, C) and its to_out
     (batch·frames, C, C); the frame cross-attention's on one token a sample
     (batch, D, C), (batch, C, C)."""
-    unet, pipe = unet or UNetConfig(), PipelineConfig()
-    ds = downsample or VAEConfig().downsample_factor
-    h, w = (height or pipe.height) // ds, (width or pipe.width) // ds
-    bf = batch * (frames or pipe.num_frames)
-    d, n = unet.cross_attention_dim, len(unet.block_out_channels)
-    ups = list(reversed(unet.up_block_types))
+    unet = unet or UNetConfig()
+    bf, h, w = _pass_rows(unet, height, width, frames, batch, downsample)
+    d = unet.cross_attention_dim
     sites = {}
-    for i, c in enumerate(unet.block_out_channels):
-        t = unet.transformer_layers_per_block[i]
-        models = t * (unet.layers_per_block * ("CrossAttn" in unet.down_block_types[i])
-                      + (unet.layers_per_block + 1) * ("CrossAttn" in ups[i]) + (i == n - 1))
+    for i, c, models in _models_by_level(unet):
         r = bf * (h >> i) * (w >> i)
         for key, k in (((r, c, c), 10), ((r, c, 8 * c), 3), ((r, 4 * c, c), 3),
                        ((bf, d, c), 1), ((bf, c, c), 1), ((batch, d, c), 1), ((batch, c, c), 1)):
@@ -341,4 +355,62 @@ def int8_dense_sites(unet: UNetConfig = None, height: int = None, width: int = N
     return sorted((k + (m,) for k, m in sites.items()), reverse=True)
 
 
+def int8_gate_sites(unet: UNetConfig = None, height: int = None, width: int = None,
+                    frames: int = None, batch: int = 2, downsample: int = None):
+    """(rows, 8C, 4C, launches per pass) of the feed-forwards' net.2 calls,
+    whose quantise reads net.0.proj's (rows, 8C) output and computes the
+    gate h·gelu_tanh(g) as it reads: three a transformer model."""
+    unet = unet or UNetConfig()
+    bf, h, w = _pass_rows(unet, height, width, frames, batch, downsample)
+    sites = {}
+    for i, c, models in _models_by_level(unet):
+        if models:
+            key = (bf * (h >> i) * (w >> i), 8 * c, 4 * c)
+            sites[key] = sites.get(key, 0) + 3 * models
+    return sorted((k + (m,) for k, m in sites.items()), reverse=True)
+
+
+def int8_conv_calls(unet: UNetConfig = None) -> int:
+    """The Conv3x3 calls of a UNet pass: conv_in, conv_out and two a
+    spatial resnet (layers_per_block a down block, one more an up block,
+    1 + the last level's transformer layers in the mid block)."""
+    unet = unet or UNetConfig()
+    n = len(unet.block_out_channels)
+    resnets = (n * (2 * unet.layers_per_block + 1) + 1
+               + unet.transformer_layers_per_block[-1])
+    return 2 + 2 * resnets
+
+
+def int8_quantise_sites(unet: UNetConfig = None, height: int = None, width: int = None,
+                        frames: int = None, batch: int = 2, downsample: int = None):
+    """(rows, input width, code width, calls per pass) of the quantise calls
+    at the QLinear sites of one UNet pass (int8_dense_sites' shapes): one a
+    call, but for the spatial and frame self-attentions' to_k and to_v,
+    which read to_q's codes (4 fewer a transformer model), and for net.2,
+    whose quantise reads net.0.proj's (rows, 8C) output (the gate: input
+    width twice the code width)."""
+    unet = unet or UNetConfig()
+    bf, h, w = _pass_rows(unet, height, width, frames, batch, downsample)
+    d = unet.cross_attention_dim
+    sites = {}
+    for i, c, models in _models_by_level(unet):
+        r = bf * (h >> i) * (w >> i)
+        for key, k in (((r, c, c), 6 + 3), ((r, 8 * c, 4 * c), 3), ((bf, d, d), 1),
+                       ((bf, c, c), 1), ((batch, d, d), 1), ((batch, c, c), 1)):
+            if models:
+                sites[key] = sites.get(key, 0) + k * models
+    return sorted((k + (m,) for k, m in sites.items()), reverse=True)
+
+
+def int8_quantize_calls(unet: UNetConfig = None, **shape) -> int:
+    """The quantise calls of a UNet pass (CFG pair or cond-only alike): one a
+    Conv3x3 and int8_quantise_sites' (302 at the defaults: 46 convs and 320
+    QLinears, less the 64 self-attention to_k and to_v that share to_q's
+    codes)."""
+    return int8_conv_calls(unet) + sum(st[3] for st in int8_quantise_sites(unet, **shape))
+
+
 INT8_DENSE_SITES = int8_dense_sites()
+INT8_GATE_SITES = int8_gate_sites()
+INT8_QUANTISE_SITES = int8_quantise_sites()
+INT8_QUANTIZE_CALLS = int8_quantize_calls()

@@ -1508,6 +1508,177 @@ def test_int8_quantize_kernel(rn, shape, c2, pre):
     _same_bits(stats2, stats)
 
 
+def _split_site(h, w, ci, co):
+    for sh, sw, c1, c2, sco in sites.UP_SPLIT_SITES:
+        if (sh, sw, c1 + c2, sco) == (h, w, ci, co):
+            return c1, c2
+    return None
+
+
+_QUANT_CONV_SITES = sorted({(28,) + st[:5] for st in sites.INT8_CONV_SITES}
+                           | {(8,) + st[:5] for st in sites.INT8_VAE_CONV_SITES})
+
+
+@pytest.mark.parametrize("site", _QUANT_CONV_SITES, ids=lambda st: "-".join(map(str, st)))
+def test_int8_quantize_at_conv_sites(rn, site):
+    """The single-launch kernel at every Conv3x3 site of a CFG UNet pass and
+    a decode chunk (the GN-fold + SiLU prologue, the up blocks' two sources,
+    conv_in's Ci 8 and 4): codes and stats bit for bit the plain version's,
+    one launch."""
+    n, h, w, ci, co, epi = site
+    split = _split_site(h, w, ci, co) if "post" in epi else None
+    x = rn(n, h, w, split[0] if split else ci) * 2
+    x2 = rn(n, h, w, split[1]) * 2 if split else None
+    pre = _pre(rn, n, ci) if epi.startswith("pre") else None
+    launches = iq.quantize.launches
+    got = iq.quantize(x, pre, x2)
+    assert iq.quantize.launches == launches + 1
+    for a, b in zip(got, iq.quantize_reference(x, pre, x2)):
+        _same_bits(a, b)
+
+
+@pytest.mark.parametrize("site", sites.INT8_QUANTISE_SITES, ids=lambda st: "-".join(map(str, st)))
+def test_int8_quantize_at_dense_and_gate_sites(rn, site):
+    """The quantise of every QLinear input of a CFG pass, net.2's with the
+    gate (net.0.proj's (rows, 8C) output): bit for bit the plain version's
+    and, at the gate, the module path's codes (F.gelu, the product, the
+    quantise)."""
+    rows, k_in, k = site[:3]
+    gate = k_in == 2 * k
+    y = rn(rows, k_in) * 2
+    launches = iq.quantize.launches
+    got = iq.quantize(y, gate=gate)
+    assert iq.quantize.launches == launches + 1 and got[0].shape == (rows, k)
+    for a, b in zip(got, iq.quantize_reference(y, gate=gate)):
+        _same_bits(a, b)
+    if gate:
+        h, g = y.chunk(2, dim=-1)
+        for a, b in zip(got, iq.quantize(h * torch.nn.functional.gelu(g, approximate="tanh"))):
+            _same_bits(a, b)
+
+
+def _residency_edge(width, gate=False):
+    """Rows at which every block of the device's plan just keeps all its
+    tiles in shared memory (one row more streams a tile)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = iq.quantize_plan(10 ** 7, (width,), gate, sms=sms)
+    budget = iq.MAX_SMEM - iq.HEADER - (iq.LUT_BYTES if gate else 0)
+    return sms * min(iq.MAX_SLOTS, budget // plan.slot_bytes) * plan.tile_rows
+
+
+@pytest.mark.parametrize("width,gate", [(320, False), (1280, False), (2560, True)])
+def test_int8_quantize_around_residency(rn, width, gate):
+    """Just under and over the shared memory's residency (every tile kept,
+    one tile read again after the barrier) and the one-block call's size:
+    bit for bit."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    edge = _residency_edge(width, gate)
+    tiny = iq.TINY_BYTES // (2 * width)
+    for rows in (edge, edge + 1, tiny, tiny + 1):
+        plan = iq.quantize_plan(rows, (width,), gate, sms=sms)
+        if rows == edge:
+            assert plan.kept_tiles == plan.tiles
+        if rows == edge + 1:
+            assert plan.streamed_tiles > 0
+        y = rn(rows, width) * 3
+        for a, b in zip(iq.quantize(y, gate=gate), iq.quantize_reference(y, gate=gate)):
+            _same_bits(a, b)
+
+
+def test_int8_quantize_phased_form(rn, monkeypatch):
+    """Under an amax group: two launches (the blocks' maxima, then the codes)
+    with the partials reduced between them (a group of one here), the
+    one-launch codes and stats bit for bit; an empty part launches nothing
+    and adds an amax of 0."""
+    monkeypatch.setattr(iq, "all_reduce_max_", lambda t, group: t)
+    cases = [((28, 40, 64, 320), None, False), ((71680, 320), None, False),
+             ((3, 7, 36), None, False), ((17920, 5120), None, True),
+             ((2, 10, 16, 1280), "pre", False)]
+    for shape, pre, gate in cases:
+        x = rn(*shape) * 3
+        p = _pre(rn, shape[0], shape[-1]) if pre else None
+        want = iq.quantize(x, p, gate=gate)
+        with qt.quantized("int8", object()):
+            launches = iq.quantize.launches
+            got = iq.quantize(x, p, gate=gate)
+            assert iq.quantize.launches == launches + 2
+            empty = iq.quantize(rn(0, 64))
+            assert iq.quantize.launches == launches + 2 and empty[0].shape == (0, 64)
+        for a, b in zip(got, want):
+            _same_bits(a, b)
+        _same_bits(empty[1], torch.tensor([0.0, 1e-12 * qt.INV_QMAX], device="cuda"))
+
+
+def test_int8_gate_gelu_over_every_bf16_value(rn):
+    """The gate's GELU table and product against torch's F.gelu (tanh, bf16)
+    and product over all 65536 bf16 gate values, at h = 1 and at random h:
+    the same bits (NaN for NaN)."""
+    g = torch.arange(65536, dtype=torch.int32).to(torch.int16).view(torch.bfloat16).cuda()
+    for h in (torch.ones_like(g), rn(65536) * 4):
+        y = torch.cat([h, g]).reshape(1, -1)
+        got, ref = iq.gate_values(y), iq.gate_reference(y)
+        torch.cuda.synchronize()
+        nan = torch.isnan(ref)
+        assert torch.equal(torch.isnan(got), nan)
+        assert torch.equal(got.view(torch.int16)[~nan], ref.view(torch.int16)[~nan])
+
+
+def test_int8_quantize_arithmetic_proofs(rn):
+    """The quantise's replacements of the IEEE divisions, each over its whole
+    domain: the codes (reciprocal and one Newton step) over every bf16 v
+    and bf16 amax >= |v|, the SiLU's reciprocal over every f32 |a| <= 16."""
+    bad, pairs = iq.code_selftest()
+    assert bad == 0 and pairs > 10 ** 9
+    bad, values = iq.silu_selftest()
+    assert bad == 0 and values == 2 * (0x41800000 + 1)
+
+
+def test_int8_quantize_in_a_cuda_graph(rn):
+    """20 launches captured in a graph and replayed: the grid barrier's
+    counter resets itself, every replay gives the same bits."""
+    x = rn(71680, 320) * 2
+    want = iq.quantize(x)
+    outs = []
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(20):
+            outs.append(iq.quantize(x))
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        for q, stats in outs:
+            _same_bits(q, want[0])
+            _same_bits(stats, want[1])
+
+
+def test_int8_quantize_raises_on_untaken_calls(rn):
+    with pytest.raises(ValueError):                 # the gate over an odd half
+        iq.quantize(rn(4, 12), gate=True)
+    with pytest.raises(ValueError):                 # the gate with a prologue
+        iq.quantize(rn(2, 4, 4, 16), _pre(rn, 2, 8), gate=True)
+    with pytest.raises(ValueError):                 # the gate with a second source
+        iq.quantize(rn(4, 16), x2=rn(4, 16), gate=True)
+    with pytest.raises(ValueError):                 # two rows do not fit a block
+        iq.quantize(rn(2, 60000))
+    with pytest.raises(ValueError):                 # a part not on the card
+        iq.quantize(rn(4, 16), x2=torch.zeros(4, 16, dtype=torch.bfloat16))
+
+
+def test_int8_self_attention_shares_codes_on_the_card(rn):
+    """Attention in int8 mode on the card: one quantise launch for q, k and v
+    (two with to_out), the output the plain versions' bits."""
+    from svd_xtend_tpu_torch.models.transformer import Attention
+    attn = Attention(64, 2, 32).cuda().to(torch.bfloat16)
+    x = rn(2, 40, 64)
+    with torch.no_grad(), qt.quantized("int8"):
+        launches = iq.quantize.launches
+        got = attn(x)
+        assert iq.quantize.launches == launches + 2
+        with plain_versions():
+            ref = attn(x)
+    _same_bits(got, ref)
+
+
 def _int8_conv_inputs(rn, n, h, w, ci, co, epi):
     x = rn(n, h, w, ci) * 2
     xq, stats = iq.quantize(x)

@@ -486,39 +486,65 @@ def test_prepare_makes_every_site_code_once():
 
 @pytest.mark.parametrize("batch", [2, 1])
 def test_int8_site_tables_count_a_tiny_pass(monkeypatch, batch):
-    """sites.int8_dense_sites and the int8 conv count, which chip_smoke.py
-    holds the card's launches to at full size, against the calls a TINY UNet
-    pass makes (a CFG pair and a cond-only pass): every QLinear by (rows, K,
-    N), and one conv site per Conv3x3."""
+    """sites.int8_dense_sites, the int8 conv count and the quantise calls,
+    which chip_smoke.py holds the card's launches to at full size, against
+    the calls a TINY UNet pass makes (a CFG pair and a cond-only pass):
+    every QLinear by its GEMM's (rows, K, N) (net.2's quantise reads
+    net.0.proj's (rows, 2K) output, the gate), one conv site per Conv3x3,
+    and one quantise call a site but for the self-attentions' to_k and to_v
+    (sites.int8_quantize_calls), each QLinear input by its shape
+    (sites.int8_quantise_sites)."""
+    from svd_xtend_tpu_torch.ops.kernels import int8_quant as iq
     from svd_xtend_tpu_torch.scripts import sites
     m = tpipe.SVDModels.create(tcfg.TINY_UNET, tcfg.TINY_VAE, tcfg.TINY_CLIP, device="cpu",
                                generator=torch.Generator().manual_seed(0))
     calls = {}
-    dense, conv = ig.linear_site, ig.conv3x3_site
+    dense, conv, quantize = ig.linear_site, ig.conv3x3_site, iq.quantize
 
-    def count_dense(x, weight, bias=None):
-        key = (x.numel() // x.shape[-1], x.shape[-1], weight.shape[0])
+    def count_dense(x, weight, bias=None, group=None, **kw):
+        key = (x.numel() // x.shape[-1], weight.shape[1], weight.shape[0])
+        assert x.shape[-1] == (2 if kw.get("gate") else 1) * weight.shape[1]
         calls[key] = calls.get(key, 0) + 1
-        return dense(x, weight, bias)
+        calls["gate"] = calls.get("gate", 0) + bool(kw.get("gate"))
+        return dense(x, weight, bias, group, **kw)
 
     def count_conv(*a, **kw):
         calls["conv"] = calls.get("conv", 0) + 1
         return conv(*a, **kw)
 
+    def count_quantize(x, *a, **kw):
+        calls["quantize"] = calls.get("quantize", 0) + 1
+        if x.dim() == 2:    # a QLinear's input, by (rows, width, code width)
+            key = ("q", x.shape[0], x.shape[1], x.shape[1] // (2 if kw.get("gate") else 1))
+            calls[key] = calls.get(key, 0) + 1
+        return quantize(x, *a, **kw)
+
     monkeypatch.setattr(ig, "linear_site", count_dense)
     monkeypatch.setattr(ig, "conv3x3_site", count_conv)
+    monkeypatch.setattr(iq, "quantize", count_quantize)
     f, h = 3, 16
     x = torch.randn(batch, f, h // 2, h // 2, tcfg.TINY_UNET.in_channels)
     ehs = torch.randn(batch, 1, tcfg.TINY_UNET.cross_attention_dim)
     with torch.no_grad(), quant.quantized("int8"):
         m.unet(x, torch.tensor(0.5), ehs, torch.ones(batch, 3))
-    want = sites.int8_dense_sites(tcfg.TINY_UNET, h, h, f, batch, downsample=2)
-    assert calls.pop("conv") == sum(1 for mod in m.unet.modules() if isinstance(mod, tb.Conv3x3))
+    shape = dict(height=h, width=h, frames=f, batch=batch, downsample=2)
+    want = sites.int8_dense_sites(tcfg.TINY_UNET, **shape)
+    n_conv = sum(1 for mod in m.unet.modules() if isinstance(mod, tb.Conv3x3))
+    assert calls.pop("conv") == n_conv == sites.int8_conv_calls(tcfg.TINY_UNET)
+    assert calls.pop("quantize") == sites.int8_quantize_calls(tcfg.TINY_UNET, **shape)
+    quantised = {k[1:]: calls.pop(k) for k in list(calls) if k[0] == "q"}
+    assert quantised == {st[:3]: st[3] for st in sites.int8_quantise_sites(tcfg.TINY_UNET,
+                                                                           **shape)}
+    assert calls.pop("gate") == sum(st[3] for st in sites.int8_gate_sites(tcfg.TINY_UNET,
+                                                                           **shape))
     assert calls == {st[:3]: st[3] for st in want}
-    # the full-size tables: 46 convs and 320 dense calls a CFG pass, 30 convs a decode chunk
-    assert sum(st[5] for st in sites.INT8_CONV_SITES) == 46
+    # the full-size tables: 46 convs and 320 dense calls a CFG pass, 30 convs a
+    # decode chunk; 302 quantise calls a pass, 48 of them at the gate
+    assert sum(st[5] for st in sites.INT8_CONV_SITES) == 46 == sites.int8_conv_calls()
     assert sum(st[5] for st in sites.INT8_VAE_CONV_SITES) == 30
     assert sum(st[3] for st in sites.INT8_DENSE_SITES) == 320
+    assert sites.INT8_QUANTIZE_CALLS == 302 == sites.int8_quantize_calls(batch=1)
+    assert sum(st[3] for st in sites.INT8_GATE_SITES) == 48
 
 
 def test_int8_composes_with_boxes_cache_and_merged_lora():
