@@ -48,10 +48,18 @@ Phases, each of which raises on failure (non-zero exit):
      sums' gate again over 16 more seeds at the 560-row sites. Device ms per
      launch in a CUDA graph beside F.conv2d of the frame conv alone and the
      bound, the plan, and Σ launches x device ms per exact video and per
-     train step; at the UNet levels (and the VAE decoder's top) the block's
-     device time split into norm1's fold, the kernels (with their prologue
-     passes) and norm2's fold, and its host ms; the GroupNorm fold's kernels
-     (group_norm_fold, fold_from_partials) against their plain versions.
+     train step; kernel A's norm2 fold (sc2, sh2), folded after its last
+     tile, within 1e-4 of the plain fold of its h and bit for bit the fold
+     kernel's from that h, under the shape's plan and, where it splits K, the
+     unsplit plan too; at the UNet levels (and the VAE decoder's top) the
+     block's device time split into norm1's fold and the kernels (with
+     their prologue passes; three launches, no fold of norm2's own), and its
+     host ms. Then the GroupNorm fold (one launch: statistics, a grid
+     barrier, the fold) at the L0 temporal x, the UNet's L0 norm1 and the
+     VAE decoder's top: partials, sc and sh against their plain versions,
+     the same bits over two calls, three CUDA-graph replays and
+     fold_from_partials (the same kernel over given partials); device and
+     host ms.
   3b. conv3x3: the kernel against its plain version at every site of the
      UNet (CFG batch 28 for generate, batch 14 for the train step, each with
      the epilogue that site uses), at every dU shape of the train step's
@@ -103,8 +111,9 @@ Phases, each of which raises on failure (non-zero exit):
      those would hold ~85 GB of f32 scores), nosoftmax on positive inputs;
      the head-sliced forward with its LSE at the head-slice probe's shapes;
      the bf16 and int8 chains at the int8 probe's tiles for 1, 2 and 4 steps
-     (int8 bit for bit), timed at 60. Each timed beside its bound, plain
-     version and library call (SDPA; none for the chains).
+     (int8 bit for bit, twice), timed at 60 at each tile with the probe's
+     int8 / bf16 ratio. Each timed beside its bound, plain version and
+     library call (SDPA; none for the chains).
   4. whole UNet: full SVD widths on a 2-frame 16x16 latent (all kernels
      engage), bf16 with the kernels on the card against f32 with the plain
      versions on the host CPU, from the same seeded weights: the forward
@@ -481,7 +490,7 @@ def tresnet_phase(dev, ph: KernelPhase, smi: str):
     the plan; Σ launches x device ms per exact video and per train step. At
     the UNet levels (and the VAE decoder's top) the block's device time split
     into its parts, and its host ms. Then the channel sums' bound over more
-    seeds at the 560-row level, and the GroupNorm fold's kernels."""
+    seeds at the 560-row level, and the GroupNorm fold (fold_phase)."""
     from svd_xtend_tpu_torch.ops import video
     from svd_xtend_tpu_torch.ops.kernels import gemm_plan
     from svd_xtend_tpu_torch.ops.kernels import temporal_resnet as tr
@@ -491,10 +500,13 @@ def tresnet_phase(dev, ph: KernelPhase, smi: str):
     for b, f, s, c, per_video, per_step in TRESNET_SITES:
         x, t, k1, b1, k2, b2, sc1, sh1, w = tresnet_inputs(dev, b, f, s, c, SEED + 10)
         (wt1, b1f), (wt2, b2f) = tr.packed(k1, b1), tr.packed(k2, b2)
+        g = torch.Generator(device=dev).manual_seed(SEED + 12)
+        sc, bi = 1 + 0.1 * torch.randn(c, device=dev, generator=g), 0.1 * torch.randn(
+            c, device=dev, generator=g)
         label = f"{(b, f, s, c)}"
-        run_a = lambda: tr.conv_a(x, wt1, b1f, sc1, sh1, t)
+        run_a = lambda: tr.conv_a(x, wt1, b1f, sc1, sh1, t, sc, bi, 32, 1e-5)
         plain_a = lambda: tr.conv_a_reference(x, k1, b1, sc1, sh1, t)
-        h, psum, psq = run_a()
+        h, psum, psq, sc2, sh2 = run_a()
         rh, rsum, rsq = plain_a()
         ph.check("temporal_resnet_conv_a", h, rh, label)
         readings = check_tresnet_stats(label, (x, k1, b1, sc1, sh1, t), h, psum, psq, rh, rsum, rsq)
@@ -502,16 +514,14 @@ def tresnet_phase(dev, ph: KernelPhase, smi: str):
             f"control {readings[1]:.3g} (bound {tr.sums_tolerance(f * s):.3g}); slots against "
             f"the stored h's {readings[2]:.3g}, pre-rounding control {readings[3]:.3g} "
             f"(bound {SLOT_BOUND})")
+        check_norm2_fold(label, x, (wt1, b1f, sc1, sh1, t), (h, psum, psq, sc2, sh2), sc, bi)
         run_b = lambda: tr.conv_b(rh, wt2, b2f, sc1, sh1, x, w)
         plain_b = lambda: tr.conv_b_reference(rh, k2, b2, sc1, sh1, x, w)
         out = run_b()
         ph.check("temporal_resnet_conv_b", out, plain_b(), label)
         again = (*run_a(), run_b())
-        if not all(torch.equal(u, v) for u, v in zip((h, psum, psq, out), again)):
+        if not all(torch.equal(u, v) for u, v in zip((h, psum, psq, sc2, sh2, out), again)):
             raise RuntimeError(f"temporal resnet {label}: two runs differ")
-        g = torch.Generator(device=dev).manual_seed(SEED + 12)
-        sc, bi = 1 + 0.1 * torch.randn(c, device=dev, generator=g), 0.1 * torch.randn(
-            c, device=dev, generator=g)
         args = (x, t, k1, b1, k2, b2, sc, bi, sc, bi, w)
         block = lambda: tr.temporal_resnet_block(*args, groups=32, eps=1e-5)
         ph.check("temporal_resnet_block", block(), tr.temporal_resnet_reference(*args, 32, 1e-5),
@@ -538,7 +548,7 @@ def tresnet_phase(dev, ph: KernelPhase, smi: str):
             for key, v in (("a", a_ms), ("b", b_ms), ("conv2d", 2 * lib_ms), ("bound", 2 * bound)):
                 totals[path, key] += n * v
         if b == 2 or (b, f, s) == (1, 8, 163840):
-            tresnet_block_parts(label, x, sc, bi, sc1, sh1, psum, psq, a_ms, b_ms, block)
+            tresnet_block_parts(label, x, sc, bi, sc1, sh1, a_ms, b_ms, block)
         del x, h, rh, out, again, u
     for path in ("exact video", "train step"):
         a, b_, lib, bound = (totals[path, k] for k in ("a", "b", "conv2d", "bound"))
@@ -550,6 +560,39 @@ def tresnet_phase(dev, ph: KernelPhase, smi: str):
 
 
 SLOT_BOUND = 1e-5   # kernel A's partials against the plain statistics of its own h
+FOLD_BOUND = 1e-4   # a fold's (sc, sh) against the plain fold (allclose atol and rtol)
+
+
+def check_norm2_fold(label, x, a_args, got, scale2, bias2):
+    """Kernel A's norm2 fold (sc2, sh2): within FOLD_BOUND of the plain fold
+    of its stored h, and bit for bit the fold kernel's (statistics from h in
+    device memory, then the same fixed-order fold); under the shape's plan
+    and, where that splits K, under the unsplit plan too (h may then differ
+    in the last bit; the fold of each h must not)."""
+    from dataclasses import replace
+
+    from svd_xtend_tpu_torch.ops.kernels import gemm_plan
+    from svd_xtend_tpu_torch.ops.kernels import groupnorm as gn
+    from svd_xtend_tpu_torch.ops.kernels import temporal_resnet as tr
+
+    b, f, s, c = x.shape
+    plan = gemm_plan.tresnet_plan(b, f, s, c)
+    runs = [("plan", got)]
+    if plan.k_slices > 1:
+        whole = replace(plan, k_slices=1)
+        whole = replace(whole, grid=min(whole.n_items, plan.grid))
+        runs.append(("unsplit", tr.conv_a(x, *a_args, scale2, bias2, 32, 1e-5, plan=whole)))
+    for name, (h, psum, psq, sc2, sh2) in runs:
+        ref = tr.norm2_fold_reference(h, scale2, bias2, 32, 1e-5)
+        err = max((a - r).abs().max().item() for a, r in zip((sc2, sh2), ref))
+        own = gn.fold_with_partials(h, scale2, bias2, groups=32, eps=1e-5)
+        same = all(torch.equal(a, o) for a, o in zip((psum, psq, sc2, sh2), own))
+        log(f"    norm2 fold ({name} plan, k_slices {1 if name == 'unsplit' else plan.k_slices}):"
+            f" max |err| {err:.3g} against the plain fold of its h (allclose {FOLD_BOUND}); "
+            f"partials and (sc2, sh2) the fold kernel's bits from h: {same}")
+        if not same or not all(torch.allclose(a, r, FOLD_BOUND, FOLD_BOUND)
+                               for a, r in zip((sc2, sh2), ref)):
+            raise RuntimeError(f"temporal_resnet_conv_a {label}: norm2 fold ({name}) off")
 
 
 def tresnet_inputs(dev, b, f, s, c, seed):
@@ -618,7 +661,9 @@ def tresnet_sums_seeds(dev, seeds=16):
             x, t, k1, b1, *_, sc1, sh1, _ = tresnet_inputs(dev, b, f, s, c, SEED + 100 + i)
             wt1, b1f = tr.packed(k1, b1)
             a_args = (x, k1, b1, sc1, sh1, t)
-            got, ref = tr.conv_a(x, wt1, b1f, sc1, sh1, t), tr.conv_a_reference(*a_args)
+            ones, zeros = torch.ones(c, device=dev), torch.zeros(c, device=dev)
+            got = tr.conv_a(x, wt1, b1f, sc1, sh1, t, ones, zeros, 32, 1e-5)[:3]
+            ref = tr.conv_a_reference(*a_args)
             readings.append(check_tresnet_stats(f"{(b, f, s, c)} seed {i}", a_args, *got, *ref))
         log(f"    {(b, f, s, c)} over {seeds} seeds: channel sums against conv_a_reference's "
             f"at most {max(r[0] for r in readings):.3g}, truncated-h control at least "
@@ -627,18 +672,18 @@ def tresnet_sums_seeds(dev, seeds=16):
             f"{min(r[3] for r in readings):.3g} (bound {SLOT_BOUND})")
 
 
-def tresnet_block_parts(label, x, sc, bi, sc1, sh1, psum, psq, a_ms, b_ms, block):
-    """The block's device ms in a CUDA graph and its parts: norm1's fold, the
-    prologue pass (twice in the block, inside each kernel's time), kernels A
-    and B, norm2's fold from A's statistics (the weights are packed once per
-    parameter version, nothing per call); and the block's host ms per call
-    (enqueue, no synchronise)."""
+def tresnet_block_parts(label, x, sc, bi, sc1, sh1, a_ms, b_ms, block):
+    """The block's device ms in a CUDA graph and its parts: norm1's fold (one
+    launch), the prologue pass (twice in the block, inside each kernel's
+    time), kernel A (norm2's statistics in its epilogue, their fold after
+    its last tile) and kernel
+    B: three launches, no fold of norm2's own (the weights are packed once
+    per parameter version, nothing per call); and the block's host ms per
+    call (enqueue, no synchronise)."""
     from svd_xtend_tpu_torch.ops.kernels import groupnorm as gn
     from svd_xtend_tpu_torch.ops.kernels import temporal_resnet as tr
 
-    f, s = x.shape[1], x.shape[2]
     fold1 = graph_ms(lambda: gn.group_norm_fold(x, sc, bi, groups=32, eps=1e-5))
-    fold2 = graph_ms(lambda: gn.fold_from_partials(psum, psq, f * s, sc, bi, 32, 1e-5))
     prologue = graph_ms(lambda: tr.affine_silu(x, sc1, sh1))
     dev_ms = graph_ms(block)
     block()
@@ -649,67 +694,92 @@ def tresnet_block_parts(label, x, sc, bi, sc1, sh1, psum, psq, a_ms, b_ms, block
     host = (time.perf_counter() - t0) / 20 * 1e3
     torch.cuda.synchronize()
     log(f"    block {label}: device {dev_ms:.4f} ms = fold1 {fold1:.4f} + conv_a {a_ms:.4f} "
-        f"(prologue {prologue:.4f} of it) + fold2 {fold2:.4f} + conv_b {b_ms:.4f} (+ prologue) "
-        f"+ weights 0 (packed once per version); host {host:.4f} ms a call (enqueue)")
+        f"(prologue {prologue:.4f} of it; norm2's fold after its tiles) + conv_b {b_ms:.4f} "
+        f"(+ prologue), 3 launches, no fold2 launch; weights 0 (packed once per version); "
+        f"host {host:.4f} ms a call (enqueue)")
+
+
+FOLD_SHAPES = [(2, 14, 2560, 320), (28, 40, 64, 320), (8, 320, 512, 128)]
 
 
 def fold_phase(dev, ph: KernelPhase):
-    """The GroupNorm fold's kernels (csrc/gn_fold.cu) at the L0 temporal
-    block's x (2, 14, 2560, 320): group_norm_fold (statistics pass and fold)
-    against its plain version, its partials slot by slot against
-    channel_stats_reference (1e-5 relative), and fold_from_partials from
-    them against the plain fold of their slot sums; sc, sh within 1e-4
-    (f32 sums in another order, E[x^2] - mean^2 as the JAX formula). Each
-    timed beside its plain version and the bound (inputs read once, outputs
-    written once; the partials between the two passes are scratch)."""
+    """The GroupNorm fold (csrc/gn_fold.cu, one launch: statistics, a grid
+    barrier, the fold)
+    at the L0 temporal x, the UNet's L0 norm1 at CFG batch and the VAE
+    decoder's top resnet: its partials slot by slot against
+    channel_stats_reference (1e-5 relative), sc, sh within FOLD_BOUND of the
+    plain fold (f32 sums in another order, E[x^2] - mean^2 as the JAX
+    formula), the same bits over two eager calls and three replays of one
+    CUDA graph (its barrier resets itself); fold_from_partials (the same
+    kernel over given partials) the same bits again, and within FOLD_BOUND of
+    the plain fold of the slot sums. Device ms in a CUDA graph beside the
+    plain version and the bound (x read once); host ms a call. The L0 shape
+    is the kernels line's."""
     from svd_xtend_tpu_torch.ops.kernels import groupnorm as gn
 
     g = torch.Generator(device=dev).manual_seed(SEED + 11)
-    x = (torch.randn(2, 14, 2560, 320, device=dev, generator=g) * 2 + 0.5).to(torch.bfloat16)
-    scale = 1 + 0.1 * torch.randn(320, device=dev, generator=g)
-    bias = 0.1 * torch.randn(320, device=dev, generator=g)
-    rows = 14 * 2560
-    psum = torch.empty(2, gn.stats_slots(rows), 320, device=dev)
-    psq = torch.empty_like(psum)
-    gn._fold_launch(x, psum, psq, rows, scale, bias, 32, 1e-5)
-    for got, ref in zip((psum, psq), gn.channel_stats_reference(x.reshape(-1, 320), rows)):
-        rel = ((got - ref).abs().max() / ref.abs().max()).item()
-        log(f"  fold statistics partials: max rel err {rel:.3g} (bound 1e-5)")
-        if not bool(torch.isfinite(got).all()) or rel > 1e-5:
-            raise RuntimeError(f"group_norm_fold: partials off by {rel}")
-    cases = (("group_norm_fold", lambda: gn.group_norm_fold(x, scale, bias, groups=32, eps=1e-5),
-              lambda: gn.group_norm_fold_reference(x, scale, bias, groups=32, eps=1e-5),
-              nbytes(x)),
-             ("fold_from_partials",
-              lambda: gn.fold_from_partials(psum, psq, rows, scale, bias, 32, 1e-5),
-              lambda: gn.fold_from_channel_sums(psum.sum(1), psq.sum(1), rows, scale, bias, 32,
-                                                1e-5),
-              nbytes(psum, psq)))
-    for name, run, plain, moved in cases:
-        err = 0.0
-        for got, ref in zip(run(), plain()):
-            err = max(err, (got - ref).abs().max().item())
-            if not bool(torch.isfinite(got).all()) or not torch.allclose(got, ref, 1e-4, 1e-4):
-                raise RuntimeError(f"{name}: error {err}")
-        ph.err[name] = err
-        ph.time(name, run, plain, 0, moved + 2 * 2 * 320 * 4)      # + sc, sh
-        ph.times[name]["device_ms"] = graph_ms(run)
-        log(f"    {name}: max_abs_err {err:.4g} (allclose 1e-4), device "
-            f"{ph.times[name]['device_ms']:.4f} ms")
-    # the folds of ResnetBlock2D (conv3x3's pre-affine): the UNet's L0 norm1
-    # at CFG batch and the VAE decoder's top resnet
-    for shape in ((28, 40, 64, 320), (8, 320, 512, 128)):
+    for shape in FOLD_SHAPES:
         x = (torch.randn(*shape, device=dev, generator=g) * 2 + 0.5).to(torch.bfloat16)
-        c = shape[-1]
-        scale, bias = scale[:c], bias[:c]
+        c, rows = shape[-1], math.prod(shape[1:-1])
+        scale = 1 + 0.1 * torch.randn(c, device=dev, generator=g)
+        bias = 0.1 * torch.randn(c, device=dev, generator=g)
         run = lambda: gn.group_norm_fold(x, scale, bias, groups=32, eps=1e-5)
         plain = lambda: gn.group_norm_fold_reference(x, scale, bias, groups=32, eps=1e-5)
-        for got, ref in zip(run(), plain()):
-            if not torch.allclose(got, ref, 1e-4, 1e-4):
-                raise RuntimeError(f"group_norm_fold {shape}: off")
-        log(f"    group_norm_fold {shape}: device {graph_ms(run):.4f} ms, plain "
-            f"{graph_ms(plain):.4f} ms, bound {bound_ms(0, nbytes(x))[0]:.4f} ms (bytes)")
-        del x
+        full = gn.fold_with_partials(x, scale, bias, groups=32, eps=1e-5)
+        rel = max(((got - ref).abs().max() / ref.abs().max()).item() for got, ref in
+                  zip((full.psum, full.psq), gn.channel_stats_reference(x.reshape(-1, c), rows)))
+        if not (bool(torch.isfinite(full.psum).all()) and rel <= 1e-5):
+            raise RuntimeError(f"group_norm_fold {shape}: partials off by {rel}")
+        want = (full.sc, full.sh)
+        eager = [run(), run()]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            static = run()
+        replays = []
+        for _ in range(3):
+            graph.replay()
+            torch.cuda.synchronize()
+            replays.append(tuple(t.clone() for t in static))
+        parts = gn.fold_from_partials(full.psum, full.psq, rows, scale, bias, 32, 1e-5)
+        same = all(torch.equal(a, w) for got in eager + replays + [parts]
+                   for a, w in zip(got, want))
+        refs = [plain(), gn.fold_from_channel_sums(full.psum.sum(1), full.psq.sum(1), rows,
+                                                   scale, bias, 32, 1e-5)]
+        err, slot_err = (max((a - r).abs().max().item() for a, r in zip(got, ref))
+                         for got, ref in zip((want, parts), refs))
+        ok = all(torch.allclose(a, r, FOLD_BOUND, FOLD_BOUND)
+                 for got, ref in zip((want, parts), refs) for a, r in zip(got, ref))
+        dev_ms, plain_ms, parts_ms = graph_ms(run), graph_ms(plain), graph_ms(
+            lambda: gn.fold_from_partials(full.psum, full.psq, rows, scale, bias, 32, 1e-5))
+        run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            run()
+        host = (time.perf_counter() - t0) / 50 * 1e3
+        torch.cuda.synchronize()
+        log(f"  group_norm_fold {shape}: partials rel err {rel:.3g} (1e-5); sc, sh max |err| "
+            f"{err:.4g} (allclose {FOLD_BOUND}); the same bits over 2 eager calls, 3 graph "
+            f"replays and fold_from_partials: {same}; device {dev_ms:.4f} ms (one launch), "
+            f"plain {plain_ms:.4f}, bound {bound_ms(0, nbytes(x))[0]:.4f} ms (bytes); host "
+            f"{host:.4f} ms a call; fold_from_partials device {parts_ms:.4f} ms, max |err| "
+            f"{slot_err:.4g} against the plain fold of its slot sums")
+        if not (same and ok):
+            raise RuntimeError(f"group_norm_fold {shape}: same bits {same}, error {err}, "
+                               f"from partials {slot_err}")
+        if shape == FOLD_SHAPES[0]:
+            cases = (("group_norm_fold", run, plain, nbytes(x), err),
+                     ("fold_from_partials",
+                      lambda: gn.fold_from_partials(full.psum, full.psq, rows, scale, bias, 32,
+                                                    1e-5),
+                      lambda: gn.fold_from_channel_sums(full.psum.sum(1), full.psq.sum(1), rows,
+                                                        scale, bias, 32, 1e-5),
+                      nbytes(full.psum, full.psq), slot_err))
+            for name, fn, pl, moved, e in cases:
+                ph.err[name] = e
+                ph.time(name, fn, pl, 0, moved + 2 * shape[0] * c * 4)      # + sc, sh
+                ph.times[name]["device_ms"] = dev_ms if name == "group_norm_fold" else parts_ms
+        del x, full, eager, replays, static, graph
 
 
 def kernel_phases(dev) -> KernelPhase:
@@ -1135,8 +1205,8 @@ def upsample_phase(dev, ph: KernelPhase, smi: str):
 
 def split_phase(dev, ph: KernelPhase, smi: str):
     """The up blocks' conv1 over two sources at every UP_SPLIT_SITES site
-    (CFG batch 28): the two-part GroupNorm fold (gn_fold.cu: one statistics
-    launch reading each column from its part) within 1e-4 of its plain
+    (CFG batch 28): the two-part GroupNorm fold (gn_fold.cu: one launch
+    reading each channel vector from its part, and folding) within 1e-4 of its plain
     version, and
     conv3x3 with its two-source prologue against its plain version (the
     bf16 bound), two runs the same bits; device ms per launch in a CUDA
@@ -1273,7 +1343,8 @@ def probe_kernel_phase(dev, ph: KernelPhase):
                                                            scale=0.125), "SDPA")
         del q, k, v, o, ref_o
 
-    log("kernels: QK.PV chains, bf16 and int8 with dynamic quantisation (int8: bit for bit)")
+    log("kernels: QK.PV chains, bf16 and int8 with dynamic quantisation (int8: bit for bit); "
+        "device ms of a 60-step launch at each probe tile, and the probe's ratio")
     ph.err["chain_int8_qd"] = 0.0
     for bq, bkm in pi8.TILES:
         q, kT, v, kTi, vi = pi8.inputs(bq, bkm, SEED)
@@ -1282,22 +1353,28 @@ def probe_kernel_phase(dev, ph: KernelPhase):
             ph.check("chain_bf16", fc.chain_bf16(q, kT, v, n),
                      fc.chain_bf16_reference(q, kT, v, n), label)
             got, ref = fc.chain_int8_qd(q, kTi, vi, n), fc.chain_int8_qd_reference(q, kTi, vi, n)
+            again = fc.chain_int8_qd(q, kTi, vi, n)     # the barrier's workspace was left at 0
             torch.cuda.synchronize()
-            log(f"  chain_int8_qd {label}: bit-identical {torch.equal(got, ref)}, "
-                f"max |out| {ref.abs().max().item():.4g}")
-            if not torch.equal(got, ref):
+            log(f"  chain_int8_qd {label}: bit-identical {torch.equal(got, ref)}, again "
+                f"{torch.equal(again, ref)}, max |out| {ref.abs().max().item():.4g}")
+            if not (torch.equal(got, ref) and torch.equal(again, ref)):
                 raise RuntimeError(f"chain_int8_qd {label}: differs from its plain version by "
                                    f"{(got - ref).abs().max().item()}")
+        n = pi8.N_INNER
+        ops = n * 4 * bq * 64 * bkm     # dependent steps: a latency chain
+        run_bf = lambda: fc.chain_bf16(q, kT, v, n)
+        run_qd = lambda: fc.chain_int8_qd(q, kTi, vi, n)
         if (bq, bkm) == (1280, 1280):
-            n = pi8.N_INNER
-            ops = n * 4 * bq * 64 * bkm     # dependent steps: a latency chain
-            ph.time("chain_bf16", lambda: fc.chain_bf16(q, kT, v, n),
-                    lambda: fc.chain_bf16_reference(q, kT, v, n), ops,
+            ph.time("chain_bf16", run_bf, lambda: fc.chain_bf16_reference(q, kT, v, n), ops,
                     nbytes(q, kT, v) + bq * 64 * 4, label=f"bq {bq} bkm {bkm} steps {n}")
-            ph.time("chain_int8_qd", lambda: fc.chain_int8_qd(q, kTi, vi, n),
-                    lambda: fc.chain_int8_qd_reference(q, kTi, vi, n), ops,
-                    nbytes(q, kTi, vi) + bq * 64 * 4, label=f"bq {bq} bkm {bkm} steps {n}",
+            ph.time("chain_int8_qd", run_qd, lambda: fc.chain_int8_qd_reference(q, kTi, vi, n),
+                    ops, nbytes(q, kTi, vi) + bq * 64 * 4, label=f"bq {bq} bkm {bkm} steps {n}",
                     peak=PEAK_INT8_OPS)
+        bf_ms, qd_ms = cuda_ms(run_bf, 10), cuda_ms(run_qd, 10)
+        log(f"  chains at (bq {bq}, bkm {bkm}), {n} steps: bf16 {bf_ms:.4f} ms, int8_qd "
+            f"{qd_ms:.4f} ms; int8_qd / bf16 speed {bf_ms / qd_ms:.3f}x (the probe's rule: "
+            f">= {pi8.DECISION_RATIO}x); clusters of {fc.cluster_size(bkm, fc.CLUSTER)} / "
+            f"{fc.cluster_size(bkm, fc.CLUSTER_INT8)} blocks")
 
 
 def probes_phase(counters):
@@ -1829,7 +1906,10 @@ PROBE_ONLY = frozenset({"flash_attention_headsliced", "flash_variants", "chain_b
 INT8_ONLY = frozenset({"int8_quantize", "int8_gemm_conv", "int8_gemm_dense"})
 # the kernel that only a 'model' axis launches (and there in place of geglu_fwd)
 MODEL_ONLY = frozenset({"geglu_partial"})
-OTHER_PATHS = MHA_ONLY | PROBE_ONLY | INT8_ONLY | MODEL_ONLY
+# the entry that folds given partials: no path launches it (kernel A folds
+# its own partials), and read() holds every path to that
+ENTRY_ONLY = frozenset({"fold_from_partials"})
+OTHER_PATHS = MHA_ONLY | PROBE_ONLY | INT8_ONLY | MODEL_ONLY | ENTRY_ONLY
 
 
 def reset(counters):
@@ -1843,7 +1923,10 @@ def read(counters, names):
     missing = [n for n, c in launches.items() if c == 0]
     if missing:
         raise RuntimeError(f"kernels never launched on the path: {missing}")
-    return launches
+    stray = {n: counters[n].launches for n in ENTRY_ONLY if counters[n].launches}
+    if stray:
+        raise RuntimeError(f"entry points no path launches were launched: {stray}")
+    return {**launches, **{n: 0 for n in ENTRY_ONLY}}
 
 
 def unet_schedule(cfg):
@@ -1901,16 +1984,17 @@ def check_upsample(path, launches, want, runs=1):
 
 def fold_launches(unet_passes, encodes, decode_chunks, col):
     """The GroupNorm folds the configs imply, from the site tables: one
-    group_norm_fold per GN-fold conv3x3 (every site whose epilogue starts
-    with "preS") of `unet_passes` UNet passes, `encodes` VAE encodes and
-    `decode_chunks` decode chunks; and per temporal resnet (column `col` of
-    TRESNET_SITES: 4 per exact video, 5 per train step) one group_norm_fold
-    (norm1) and one fold_from_partials (norm2, from kernel A's partials)."""
+    group_norm_fold launch per GN-fold conv3x3 (every site whose epilogue
+    starts with "preS") of `unet_passes` UNet passes, `encodes` VAE encodes
+    and `decode_chunks` decode chunks; and per temporal resnet (column `col`
+    of TRESNET_SITES: 4 per exact video, 5 per train step) one
+    group_norm_fold (norm1). norm2's fold runs in kernel A's epilogue:
+    fold_from_partials launches never."""
     pre = lambda sites: sum(st[5] for st in sites if st[4].startswith("preS"))
     spatial = (unet_passes * pre(UNET_CONV_SITES) + encodes * pre(VAE_ENCODE_SITES)
                + decode_chunks * pre(VAE_DECODE_SITES))
     temporal = sum(st[col] for st in TRESNET_SITES)
-    return {"group_norm_fold": spatial + temporal, "fold_from_partials": temporal}
+    return {"group_norm_fold": spatial + temporal, "fold_from_partials": 0}
 
 
 def check_folds(path, launches, want, runs=1):
@@ -2553,7 +2637,7 @@ def int8_video_phase(dev, smi, counters, ms):
         secs[path] = sorted(timed)[len(timed) // 2]
         peak = torch.cuda.max_memory_allocated()
         names = [n for n in counters if n not in BACKWARD_ONLY | MHA_ONLY | PROBE_ONLY
-                 | MODEL_ONLY | ({"geglu_fwd"} if cfg.unet_quant else INT8_ONLY)]
+                 | MODEL_ONLY | ENTRY_ONLY | ({"geglu_fwd"} if cfg.unet_quant else INT8_ONLY)]
         launches[path] = read(counters, names)
         got = {n: counters[n].launches for n in ("int8_gemm_conv", "int8_gemm_dense",
                                                  "int8_quantize", "geglu_fwd", "conv3x3")}

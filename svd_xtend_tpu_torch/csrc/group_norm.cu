@@ -49,8 +49,9 @@
 //   samples the cluster does not hold (the VAE decoder's (8, 163840, 128),
 //   42 MB a sample, and its (2560, 512) mid-block, 2.6 MB): the statistics
 //   as per-(sample, 64-row chunk, channel) partials read in full, coalesced
-//   rows (csrc/gn_stats.cuh), their fold into (sc, sh) (gn_stats::fold), and
-//   one elementwise pass x * sc + sh (+ SiLU) (csrc/affine_silu.cuh).
+//   rows (csrc/gn_stats.cuh), folded into (sc, sh) in the same launch (a
+//   grid barrier, then the fold a (sample, group) a block), and one elementwise pass
+//   x * sc + sh (+ SiLU) (csrc/affine_silu.cuh): two launches.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -333,13 +334,14 @@ int launch(const void* x, void* y, const void* scale, const void* bias, int n, i
 // the two-pass path in element type T (see the top of the file)
 template <typename T>
 int two_pass(const void* x, void* y, const void* scale, const void* bias, void* psum, void* psq,
-             void* sc, void* sh, int n, int rows, int c, int groups, float eps, bool silu,
-             cudaStream_t s) {
+             void* bar, void* sc, void* sh, int n, int rows, int c, int groups,
+             float eps, bool silu, cudaStream_t s) {
   if (c % (16 / (int)sizeof(T))) return static_cast<int>(cudaErrorInvalidValue);
   const gn_stats::Stats st{static_cast<float*>(psum), static_cast<float*>(psq), c, rows,
                            gn_stats::slots(rows)};
-  int err = gn_stats::launch<T>(x, st, n * rows, s);
-  if (err == 0) err = gn_stats::fold(st, n, groups, scale, bias, sc, sh, eps, s);
+  const gn_stats::Fold fd =
+      gn_stats::make_fold(bar, scale, bias, sc, sh, n, rows, c, groups, eps);
+  int err = gn_stats::launch<T>(x, st, fd, n * rows, s);
   if (err == 0) err = affine_silu::launch<T>(x, sc, sh, y, (long long)n * rows, c, rows, silu, s);
   return err;
 }
@@ -349,13 +351,15 @@ int two_pass(const void* x, void* y, const void* scale, const void* bias, void* 
 // group_norm_silu on x, y (n, rows, c) of dtype 0 = bf16, 1 = fp16, 2 = f32,
 // contiguous and 16-byte aligned, scale / bias (c) f32, by the path
 // ops/kernels/groupnorm.py's group_norm_plan chose: rows_per_cta > 0 the
-// sample-resident cluster kernel with that many rows a CTA (psum, psq, sc,
-// sh unused), 0 the two-pass path with the partials psum / psq (n,
-// gn_stats::slots(rows), c) f32 and sc / sh (n, c) f32 as scratch. Returns
+// sample-resident cluster kernel with that many rows a CTA (psum .. sh
+// unused), 0 the two-pass path with the partials psum / psq (n,
+// gn_stats::slots(rows), c) f32, the stream's barrier words `bar` and sc /
+// sh (n, c) f32 as scratch. Returns
 // the first CUDA error of the launches (a cluster launch the card refuses
 // included), or cudaErrorInvalidValue for a geometry the path does not take.
 extern "C" int svdx_group_norm_silu(const void* x, void* y, const void* scale, const void* bias,
-                                    void* psum, void* psq, void* sc, void* sh, int n, int rows,
+                                    void* psum, void* psq, void* bar, void* sc,
+                                    void* sh, int n, int rows,
                                     int c, int groups, int rows_per_cta, int dtype, int silu,
                                     float eps, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -372,11 +376,11 @@ extern "C" int svdx_group_norm_silu(const void* x, void* y, const void* scale, c
                                      silu != 0, s);
   }
   if (dtype == 0)
-    return two_pass<__nv_bfloat16>(x, y, scale, bias, psum, psq, sc, sh, n, rows, c, groups,
-                                   eps, silu != 0, s);
+    return two_pass<__nv_bfloat16>(x, y, scale, bias, psum, psq, bar, sc, sh, n, rows,
+                                   c, groups, eps, silu != 0, s);
   if (dtype == 1)
-    return two_pass<__half>(x, y, scale, bias, psum, psq, sc, sh, n, rows, c, groups, eps,
-                            silu != 0, s);
-  return two_pass<float>(x, y, scale, bias, psum, psq, sc, sh, n, rows, c, groups, eps,
-                         silu != 0, s);
+    return two_pass<__half>(x, y, scale, bias, psum, psq, bar, sc, sh, n, rows, c, groups,
+                            eps, silu != 0, s);
+  return two_pass<float>(x, y, scale, bias, psum, psq, bar, sc, sh, n, rows, c, groups,
+                         eps, silu != 0, s);
 }

@@ -556,7 +556,10 @@ __device__ __forceinline__ void for_pairs(T (&d)[BN / 2], int r0, int n0, int m,
 // first. An epilogue with kStats = true also reads its warpgroup's finished
 // 64 rows back, stats<kOutCols>(rows, first row, n0, m, thread), once they
 // are in shared memory (temporal_resnet.cu's kernel A: norm2's statistics of
-// the stored bf16 values); the split-K path leaves that to its caller.
+// the stored bf16 values), and after its last item every consumer thread
+// calls fold(thread, the output tile's memory as 2 x 256 floats), which may
+// wait on every block of the grid (kernel A's fold of those statistics: the
+// launch is then cooperative); the split-K path leaves both to its caller.
 template <int BN, class Epi, class T>
 __device__ __forceinline__ void epilogue(const Epi& epi, T (&d)[BN / 2], int r0, int n0,
                                          int m, int n, int t, __nv_bfloat16* tile, int tr0,
@@ -660,6 +663,13 @@ gemm_kernel(const __grid_constant__ CUtensorMap a_map, const __grid_constant__ C
     int it = 0;
     for (int w = blockIdx.x, ii = 0; w < items; w += gridDim.x, ++ii) {
       const Item item = item_of<BN>(shape, w);
+      if constexpr (Epi::kStats) {
+        // the item's first product overwrites them; defined here, they are
+        // dead between items, which leaves the fold after the last item its
+        // registers (at BN = 256 it spilled)
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) acc[i] = Acc(0);
+      }
       for (int kt = item.k0; kt < item.k1; ++kt, ++it) {
         const int st = it % kStages;
         sm90::mbar_wait(&sm.full[st], (it / kStages) & 1);
@@ -728,6 +738,10 @@ gemm_kernel(const __grid_constant__ CUtensorMap a_map, const __grid_constant__ C
       }
     }
     if (storer) tma_store_wait<false>();
+    // the stores have read the output tile: its first 2 KB are the fold's
+    if constexpr (Epi::kStats)
+      if (shape.k_slices == 1)
+        epi.fold(threadIdx.x, reinterpret_cast<float(*)[256]>(sm.out));
   }
 }
 
@@ -781,7 +795,20 @@ int launch(const CUtensorMap& a_map, const CUtensorMap& b_map, const CUtensorMap
   int err = static_cast<int>(
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
   if (err) return err;
-  kernel<<<grid, Sm::kThreads, smem, stream>>>(a_map, b_map, c_map, r_map, shape, aload, epi);
+  if constexpr (Epi::kStats) {
+    // its fold waits for every block: all of them resident at once
+    CUtensorMap maps[4] = {a_map, b_map, c_map, r_map};
+    Shape sh = shape;
+    ALoad al = aload;
+    Epi ep = epi;
+    void* args[] = {&maps[0], &maps[1], &maps[2], &maps[3], &sh, &al, &ep};
+    err = static_cast<int>(cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
+                                                       dim3(grid), dim3(Sm::kThreads), args,
+                                                       smem, stream));
+    if (err) return err;
+  } else {
+    kernel<<<grid, Sm::kThreads, smem, stream>>>(a_map, b_map, c_map, r_map, shape, aload, epi);
+  }
   if ((err = static_cast<int>(cudaGetLastError()))) return err;
   if (shape.k_slices > 1) {
     if constexpr (Epi::kPairs) {

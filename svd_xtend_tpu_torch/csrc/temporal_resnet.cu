@@ -35,16 +35,22 @@
 // arrive as zeros. B is the (C, 3C) packed taps by a 2-D map. Kernel B's
 // residual x is prefetched into the output tile by the producer.
 //
-// Norm2's statistics (kernel A): after a consumer warpgroup has finished its
-// 64 rows of the tile as bf16 in shared memory, each thread reads back one
-// column pair down those rows, in row order, and writes f32 sums and sums of
-// squares per (sample, 64-row chunk) to the partials of csrc/gn_stats.cuh (a
-// chunk straddles samples wherever F*S % 64 != 0, as at the 5x8 level's
-// 560 rows a sample). No atomics: the fold (csrc/gn_fold.cu) reduces them
-// in a fixed order, so two runs give the same bits. Where the plan splits K
-// the tile epilogue does not run: reduce_kernel stores h, and
-// gn_stats::stats_kernel reads it back with the same per-chunk function, so
-// the statistics are the same bits either way.
+// Norm2's statistics and fold (kernel A): after a consumer warpgroup has
+// finished its 64 rows of the tile as bf16 in shared memory, each thread
+// reads back one column pair down those rows, in row order, and writes f32
+// sums and sums of squares per (sample, 64-row chunk) to the partials of
+// csrc/gn_stats.cuh (a chunk straddles samples wherever F*S % 64 != 0, as
+// at the 5x8 level's 560 rows a sample). After its last item the block's
+// consumers meet every other block at a grid barrier (the persistent grid,
+// one block an SM, launched cooperatively) and the consumers fold the
+// statistics into norm2's (sc2, sh2) for kernel B (gn_stats::fold_phase),
+// so the fold takes no launch of its own and the block is three launches
+// (norm1's fold, A, B). The sums run in the order of the fold launch this
+// replaces, whatever block runs them, so (sc2, sh2) keep their bits. Where the plan
+// splits K the tile epilogue does not run: reduce_kernel stores h, and
+// gn_stats::stats_kernel reads it back with the same per-chunk function and
+// folds in the same order, so the statistics and (sc2, sh2) are the same
+// bits as the unsplit path's for the same h.
 //
 // Measured (NVIDIA H100 80GB HBM3, 700.00 W, device time per launch in a
 // CUDA graph, chip_smoke.py; PERF.md §6 has every shape):
@@ -64,6 +70,14 @@
 //     epilogue's read-back: conv_a 0.177 at L0 against 0.166 in the same
 //     call, slower at every unsplit shape, 136.3 ms a video against 127.5:
 //     taken out again;
+//   - norm2's fold as a launch of its own between A and B (gn_stats::
+//     fold_kernel, one block per (group, sample)): 0.0058 ms of device time
+//     and 0.029-0.030 ms of host time a block, 44 launches a train step and
+//     578 an exact video; in kernel A after its last tile (the same bits)
+//     the block at L0 took 0.3222 ms of device time against 0.3206-0.3233
+//     with the launch (scripts/bench_fold.py --tree, one call), and tickets
+//     paid at every tile in place of the barrier made kernel A ~0.12 ms
+//     slower at L0;
 //   - not tried: the activation in the consumers where one N tile covers C
 //     (C <= 256, the VAE decoder's lower levels). There the prologue pass is
 //     0.26 ms of conv_a's 0.74-0.85 at (1, 8, 163840, 128); it would save
@@ -82,8 +96,17 @@
 
 namespace {
 
+// the two consumer warpgroups' named barrier (ids 1 and 2 are each
+// warpgroup's own)
+struct ConsumersSync {
+  __device__ __forceinline__ void operator()() const {
+    asm volatile("bar.sync 3, 256;\n" ::: "memory");
+  }
+};
+
 // Kernel A's epilogue: h = acc + b1 + temb[row / S] in f32, one cast; then
-// the statistics of the stored h from the tile in shared memory.
+// the statistics of the stored h from the tile in shared memory, and their
+// fold into norm2's (sc2, sh2).
 struct ConvAEpi {
   static constexpr bool kPairs = true;
   static constexpr bool kStats = true;
@@ -94,6 +117,7 @@ struct ConvAEpi {
   const __nv_bfloat16* temb;   // (B * F, C): row (b, f, s) adds temb[b * F + f]
   __nv_bfloat16* out;          // (M, C)
   gn_stats::Stats st;
+  gn_stats::Fold fold_args;
   int c, s;
   struct Row {
     const __nv_bfloat16* t;  // the row's frame's time embedding
@@ -117,7 +141,14 @@ struct ConvAEpi {
                                         int t) const {
     if (r0 >= m) return;
     for (int p = t; p < kCols / 2; p += 128)
-      if (n0 + 2 * p < c) st.chunk(rows + 2 * p, kCols, r0, m, n0 + 2 * p);
+      if (n0 + 2 * p < c)
+        st.chunk<gn_stats::PairBf16Tile>(rows + 2 * p, kCols, r0, m, n0 + 2 * p);
+  }
+  // after the last item, every consumer thread (256 a block), `red` free
+  // shared memory: the fold of every block's statistics into norm2's (sc2,
+  // sh2), a (sample, group) at a time per block
+  __device__ __forceinline__ void fold(int t, float (*red)[gn_stats::kFoldThreads]) const {
+    gn_stats::fold_phase(st, fold_args, blockIdx.x, gridDim.x, t, red, ConsumersSync{}, true);
   }
 };
 
@@ -158,21 +189,28 @@ struct ConvBEpi {
 // prologue u = bf16(silu(x*sc + sh)) (sc, sh: (b, c) f32; u: (b, f, s, c)
 // bf16 scratch), then the GEMM with the packed taps wt (c, 3c) bf16 and bias
 // (c) f32. first != 0: kernel A, extra = temb (b, f, c) bf16, psum / psq the
-// (b, stats slots, c) f32 statistics, w null. Else kernel B, extra = the
-// residual (b, f, s, c) bf16, w one f32. workspace: (k_slices, b*f*s, c) f32
-// when k_slices > 1, else null. All contiguous and 16-byte aligned (the
-// wrapper checks). The plan (gemm_plan.tresnet_plan): tile width bn, the K
-// split and `grid` persistent blocks. Returns the first CUDA error of the
-// launches (0 on success), or cudaErrorInvalidValue for a plan this file
-// does not take (a tensor map TMA refuses is found before anything runs).
+// (b, stats slots, c) f32 statistics, folded with scale2 / bias2 (c) f32
+// (bf16 with affine_bf16) in
+// `groups` groups into sc2 / sh2 (b, c) f32 (bar: the stream's barrier
+// words), w null. Else kernel B,
+// extra = the residual (b, f, s, c) bf16, w one f32, the norm2 arguments
+// null. workspace: (k_slices, b*f*s, c) f32 when k_slices > 1, else null.
+// All contiguous and 16-byte aligned (the wrapper checks). The plan
+// (gemm_plan.tresnet_plan): tile width bn, the K split and `grid`
+// persistent blocks. Returns the first CUDA error of the launches (0 on
+// success), or cudaErrorInvalidValue for a plan this file does not take (a
+// tensor map TMA refuses is found before anything runs).
 extern "C" int svdx_temporal_resnet_conv(const void* x, const void* wt, const void* bias,
                                          const void* sc, const void* sh, void* u,
                                          const void* extra, const void* w, void* out,
-                                         void* psum, void* psq, void* workspace, int b, int f,
+                                         void* psum, void* psq, void* workspace,
+                                         const void* scale2, const void* bias2, void* sc2,
+                                         void* sh2, void* bar, int b, int f,
                                          int s, int c, int first, int bn, int k_slices, int grid,
-                                         void* stream) {
+                                         int groups, int affine_bf16, float eps, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int m = b * f * s;
+  if (first && (groups < 1 || c % groups)) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap a_map, b_map, c_map, r_map;
   int err = sm90_gemm::encode_im2col_map(&a_map, u, b, f, s, c, 1, sm90_gemm::kBM);
   if (err == 0) err = sm90_gemm::encode_matrix_map(&b_map, wt, 3 * c, c, bn);
@@ -189,11 +227,14 @@ extern "C" int svdx_temporal_resnet_conv(const void* x, const void* wt, const vo
   if (first) {
     const gn_stats::Stats stats{static_cast<float*>(psum), static_cast<float*>(psq), c, f * s,
                                 gn_stats::slots(f * s)};
-    const ConvAEpi epi{bp, ep, op, stats, c, s};
+    const gn_stats::Fold fold =
+        gn_stats::make_fold(bar, scale2, bias2, sc2, sh2, b, f * s, c, groups, eps,
+                            affine_bf16);
+    const ConvAEpi epi{bp, ep, op, stats, fold, c, s};
     err = sm90_gemm::launch_tile<sm90_gemm::FrameIm2colA, ConvAEpi, SVDX_TRESNET_TILE_N>(
         bn, a_map, b_map, c_map, r_map, shape, aload, epi, grid, st);
-    // split K: reduce_kernel stored h; its statistics from device memory
-    if (err == 0 && k_slices > 1) err = gn_stats::launch(out, stats, m, st);
+    // split K: reduce_kernel stored h; its statistics from device memory, folded
+    if (err == 0 && k_slices > 1) err = gn_stats::launch(out, stats, fold, m, st);
     return err;
   }
   const ConvBEpi epi{bp, static_cast<const float*>(w), ep, op, c};

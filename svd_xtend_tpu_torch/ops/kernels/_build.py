@@ -50,9 +50,9 @@ _SIGNATURES = {
     "svdx_ln_geglu_residual": [_P] * 11 + [_I] * 7 + [_P],
     "svdx_ln_geglu_partial": [_P] * 10 + [_I] * 9 + [_P],
     "svdx_frame_attention_fwd": [_P, _P, _P, _P] + [_I] * 7 + [_F, _P],
-    "svdx_temporal_resnet_conv": [_P] * 12 + [_I] * 8 + [_P],
-    "svdx_group_norm_fold": [_P] * 8 + [_I] * 5 + [_F, _P],
-    "svdx_group_norm_silu": [_P] * 8 + [_I] * 7 + [_F, _P],
+    "svdx_temporal_resnet_conv": [_P] * 17 + [_I] * 10 + [_F, _P],
+    "svdx_group_norm_fold": [_P] * 9 + [_I] * 6 + [_F, _P],
+    "svdx_group_norm_silu": [_P] * 9 + [_I] * 7 + [_F, _P],
     "svdx_affine_silu": [_P] * 4 + [_I] * 3 + [_P],
     "svdx_conv3x3": [_P] * 11 + [_I] * 11 + [_P],
     "svdx_upsample_conv": [_P] * 5 + [_I] * 8 + [_P],
@@ -63,8 +63,8 @@ _SIGNATURES = {
     "svdx_int8_silu_selftest": [_P, _P],
     "svdx_int8_gemm": [_P] * 9 + [_I] * 11 + [_P],
     "svdx_flash_variant_fwd": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
-    "svdx_chain_bf16": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
-    "svdx_chain_int8_qd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "svdx_chain_bf16": [_P] * 4 + [_I] * 4 + [_F, _P],
+    "svdx_chain_int8_qd": [_P] * 5 + [_I] * 4 + [_F, _P],
     "svdx_sm90_selftest": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "svdx_sm90_gemm_selftest": [_P, _P, _P, _I, _P],
 }

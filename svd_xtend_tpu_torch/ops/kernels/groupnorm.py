@@ -4,17 +4,23 @@ Port of ``svd_xtend_tpu/ops/pallas/groupnorm.py``: ``group_norm_silu`` (its
 kernels ``_gn_silu_kernel``, ``_stats_kernel`` and ``_norm_kernel``), the plain
 ``group_norm_silu_reference``, and ``group_norm_fold`` (XLA code in the JAX
 package: per-channel sums in one pass, then the fold on the (N, C) sums).
-On the card ``group_norm_fold`` and ``fold_from_partials`` (JAX's
-``_fold_from_channel_sums``) are the kernels of ``csrc/gn_fold.cu``: a
-statistics pass that reads x once into per-(sample, 64-row chunk) f32
-partials (no f32 copy of x; the plain version makes two), and a fold of the
-partials into (sc, sh) in one launch. Kernel A of the temporal resnet writes
-the same partials for norm2; their plain version is
-``channel_stats_reference``. Over two parts (``x2``: the up-block resnets'
-norm1 over the channel concat [x, x2] that is never built, JAX's
-``group_norm_fold_cat``) the statistics kernel reads each column pair from
-the part it lies in (one launch, as over one tensor) and the fold reads the
-partials as one width, so a group that straddles the parts is folded whole.
+On the card ``group_norm_fold`` is one launch of the kernel of
+``csrc/gn_fold.cu`` (``csrc/gn_stats.cuh``): it reads x once, 16 bytes a
+thread (bf16 pairs where a call is too small for that), into per-(sample,
+64-row chunk) f32 partials (no f32 copy of x; the plain version makes two),
+then meets at a grid barrier and folds them into (sc, sh) a (sample, group)
+at a time per block, in the order of the fold launch it replaces
+(``fold_order_reference``), so sc and sh keep their bits. Kernel A of the
+temporal resnet writes the same partials for norm2 and folds them the same
+way after its last tile; their plain version is ``channel_stats_reference``.
+``fold_from_partials`` (JAX's ``_fold_from_channel_sums``) is the same
+kernel over given partials; no main path launches it. Over two parts
+(``x2``: the up-block resnets' norm1 over the channel concat [x, x2] that is
+never built, JAX's ``group_norm_fold_cat``) the statistics read each vector
+from the part it lies in (one launch, as over one tensor) and the fold
+reads the partials as one width, so a group that straddles the parts is
+folded whole. Each call's scratch (partials, sc, sh) is one allocation; the
+barrier's words are a workspace per (device, stream), made once.
 
 ``group_norm_silu``'s kernels are ``csrc/group_norm.cu``, two paths that
 ``group_norm_plan`` chooses from the shape alone:
@@ -23,8 +29,8 @@ partials as one width, so a group that straddles the parts is folded whole.
              the group statistics through distributed shared memory and
              writes y once (every UNet site);
   two_pass - for samples the cluster does not hold (the VAE decoder's): the
-             per-channel statistics partials above, their fold into (sc,
-             sh), and one elementwise pass x·sc + sh (+ SiLU).
+             per-channel statistics partials above, folded into (sc, sh) in
+             the same launch, and one elementwise pass x·sc + sh (+ SiLU).
 Both take the variance as max(E[x²] − mean², 0) (groupnorm.py:63-64).
 GroupNorm has no matrix product, so it is bound by device-memory bytes.
 
@@ -134,43 +140,192 @@ def channel_stats_reference(x: torch.Tensor, rows_per_sample: int):
 
 def stats_supports(x: torch.Tensor) -> bool:
     """Structural dispatch predicate of the fold's statistics kernel: a CUDA
-    bf16 contiguous (N, ..., C), C even, 16-byte aligned."""
+    bf16 contiguous (N, ..., C), C a multiple of 8 (its 16-byte vectors),
+    16-byte aligned."""
     return (x.is_cuda and x.dtype == torch.bfloat16 and x.dim() >= 2 and x.is_contiguous()
-            and x.shape[-1] % 2 == 0 and x.data_ptr() % 16 == 0)
+            and x.shape[-1] % STATS_VEC == 0 and x.data_ptr() % 16 == 0)
 
 
-# the GroupNorm affine as the fold kernel reads it, made once per version
+# The fold in the launch that writes the partials (csrc/gn_stats.cuh): a
+# grid barrier once every partial is written, then one (sample, group) at a
+# time on each unit of FOLD_THREADS threads, in the order of the fold launch
+# it replaces (``fold_order_reference`` is that order's plain version), so
+# sc and sh keep their bits. The barrier's words are a workspace per
+# (device, stream), made once outside any CUDA graph capture and left at
+# zero.
+STATS_VEC = 8          # channels of a statistics thread's 16-byte bf16 vector (C a multiple)
+FOLD_THREADS = 256     # kFoldThreads: the threads of a fold unit
+BARRIER_WORDS = 64     # kArrive and kExit, each on its own 128 bytes
+BARRIER_STREAMS = 64
+
+
+def fold_order_reference(psum: torch.Tensor, psq: torch.Tensor, groups: int):
+    """The kernels' sums of the statistics partials (B, slots, C) per (sample,
+    group), in their f32 order: thread t of a unit sums the group's values
+    i = t, t + FOLD_THREADS, ... in (slot, channel) order, and a tree halves
+    the FOLD_THREADS sums (t += t + h for h = 128, 64, ..., 1). Returns the
+    two (B, groups) sums."""
+    n, slots, c = psum.shape
+    gs = c // groups
+    out = []
+    for part in (psum, psq):
+        v = part.reshape(n, slots, groups, gs).permute(0, 2, 1, 3).reshape(n, groups, -1)
+        pad = -v.shape[-1] % FOLD_THREADS
+        v = torch.nn.functional.pad(v, (0, pad)).reshape(n, groups, -1, FOLD_THREADS)
+        acc = torch.zeros(n, groups, FOLD_THREADS, dtype=torch.float32, device=part.device)
+        for r in range(v.shape[2]):          # each thread's values in order
+            acc = acc + v[:, :, r]
+        h = FOLD_THREADS // 2
+        while h:
+            acc = torch.cat([acc[..., :h] + acc[..., h:2 * h], acc[..., h:]], -1)
+            h //= 2
+        out.append(acc[..., 0])
+    return out[0], out[1]
+
+
+_barriers = {}
+_barrier_slots = {}
+
+
+def fold_barrier(device: torch.device, stream: int) -> torch.Tensor:
+    """This (device, stream)'s BARRIER_WORDS words of the device's
+    workspace (the barrier's arrivals and exits), zeroed once (outside any
+    CUDA graph capture); every launch leaves them at zero."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    ws = _barriers.get(index)
+    if ws is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("group_norm_fold: the first call on a device must come before "
+                               "any CUDA graph capture (its barrier words are made once)")
+        ws = _barriers[index] = torch.zeros(BARRIER_STREAMS, BARRIER_WORDS, dtype=torch.int32,
+                                            device=device)
+    slot = _barrier_slots.setdefault((index, stream),
+                                     sum(k[0] == index for k in _barrier_slots))
+    if slot >= BARRIER_STREAMS:
+        raise RuntimeError(f"group_norm_fold: more than {BARRIER_STREAMS} streams on a device")
+    return ws[slot]
+
+
+class FoldScratch(NamedTuple):
+    """A fold call's scratch, views of one f32 allocation: the statistics
+    partials psum, psq (N, stats_slots(rows), C) and the outputs sc, sh (N,
+    C)."""
+    psum: torch.Tensor
+    psq: torch.Tensor
+    sc: torch.Tensor
+    sh: torch.Tensor
+
+
+def _scratch_sizes(n, rows, c):
+    part = n * stats_slots(rows) * c
+    return part, part, n * c, n * c
+
+
+def fold_scratch(n: int, rows: int, c: int, device) -> FoldScratch:
+    """One allocation for a fold call: partials, sc and sh, each 16-byte
+    aligned (C % 4 == 0)."""
+    sizes = _scratch_sizes(n, rows, c)
+    psum, psq, sc, sh = torch.split(
+        torch.empty(sum(sizes), device=device, dtype=torch.float32), sizes)
+    shape = (n, stats_slots(rows), c)
+    return FoldScratch(psum.view(shape), psq.view(shape), sc.view(n, c), sh.view(n, c))
+
+
+# the GroupNorm affine as group_norm_silu's kernels read it, made once per version
 _affine_f32 = per_version(lambda s, b: (s.float().contiguous(), b.float().contiguous()))
 
+# the current stream's handle by device index (torch's own fast accessor
+# where this build has it)
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
-def _fold_launch(x, psum, psq, rows: int, scale, bias, groups: int, eps: float, x2=None):
-    """csrc/gn_fold.cu: (sc, sh) (B, C) f32 from the partials psum / psq (B,
-    stats_slots(rows), C) f32, which it first fills from x where x is given
-    (and with x2, x's channels then x2's)."""
-    b, slots, c = psum.shape
-    if slots != stats_slots(rows) or c % groups or psq.shape != psum.shape:
-        raise ValueError(f"group_norm_fold: partials {tuple(psum.shape)} do not fit {rows} "
-                         f"rows a sample and {groups} groups")
-    scf, bif = _affine_f32(scale, bias)
-    sc = torch.empty((b, c), device=psum.device, dtype=torch.float32)
-    sh = torch.empty_like(sc)
+
+def stream_of(device: torch.device) -> int:
+    if _raw_stream is not None:
+        return _raw_stream(device.index if device.index is not None
+                           else torch.cuda.current_device())
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def fold_affine(scale: torch.Tensor, bias: torch.Tensor):
+    """(scale, bias, 1 if bf16 else 0) as the fold reads them: bf16 or f32
+    contiguous tensors of one type as they are (no copy a call), anything
+    else as f32 made once per version."""
+    if (scale.dtype == bias.dtype and scale.dtype in (torch.bfloat16, torch.float32)
+            and scale.is_contiguous() and bias.is_contiguous()):
+        return scale, bias, int(scale.dtype == torch.bfloat16)
+    return (*_affine_f32(scale, bias), 0)
+
+
+def check_fold_shape(n: int, rows: int, c: int, groups: int) -> None:
+    if c % groups or n * stats_slots(rows) * c >= 2 ** 31:
+        raise ValueError(f"group_norm_fold: {n} samples of {rows} rows of {c} channels in "
+                         f"{groups} groups do not fit the kernel")
+
+
+def _fold_call(x, x2, ptrs, n: int, rows: int, c: int, scale, bias, groups: int, eps: float,
+               device) -> None:
+    """csrc/gn_fold.cu, one launch: ptrs = (psum, psq, sc, sh) f32
+    addresses; the partials (N, stats_slots(rows), C) are filled from x
+    where x is given (and with x2, x's channels then x2's), else read."""
+    scale, bias, bf16 = fold_affine(scale, bias)
+    if scale.shape != (c,) or bias.shape != (c,) or scale.device != device:
+        raise ValueError(f"group_norm_fold: scale and bias must be ({c},) on {device}")
+    stream = stream_of(device)
     check(library().svdx_group_norm_fold(
-        None if x is None else x.data_ptr(), None if x2 is None else x2.data_ptr(),
-        psum.data_ptr(), psq.data_ptr(), scf.data_ptr(), bif.data_ptr(), sc.data_ptr(),
-        sh.data_ptr(), b, rows, c, 0 if x2 is None else x.shape[-1], groups, float(eps),
-        torch.cuda.current_stream(psum.device).cuda_stream), "group_norm_fold")
-    return sc, sh
+        None if x is None else x.data_ptr(), None if x2 is None else x2.data_ptr(), *ptrs,
+        fold_barrier(device, stream).data_ptr(), scale.data_ptr(), bias.data_ptr(), n, rows,
+        c, 0 if x2 is None else x.shape[-1], groups, bf16, float(eps), stream),
+        "group_norm_fold")
+
+
+class _FoldPlan(NamedTuple):
+    """A fold call's shape-only work: samples, rows a sample, channels, the
+    scratch's byte offsets (psum, psq, sc, sh) and its f32 size."""
+    n: int
+    rows: int
+    c: int
+    offsets: tuple
+    size: int
+
+
+_fold_plans = {}
+
+
+def _fold_plan(x, x2, groups: int) -> _FoldPlan:
+    key = (x.shape, None if x2 is None else x2.shape, groups)
+    plan = _fold_plans.get(key)
+    if plan is None:
+        n, c1 = x.shape[0], x.shape[-1]
+        rows = x.numel() // (n * c1)
+        c = c1 if x2 is None else c1 + x2.shape[-1]
+        if x2 is not None and x2.shape[:-1] != x.shape[:-1]:
+            raise ValueError(f"group_norm_fold: the parts' leading shapes differ ("
+                             f"{tuple(x.shape)}, {tuple(x2.shape)})")
+        check_fold_shape(n, rows, c, groups)
+        sizes = _scratch_sizes(n, rows, c)
+        offsets = tuple(4 * sum(sizes[:i]) for i in range(len(sizes)))
+        plan = _fold_plans[key] = _FoldPlan(n, rows, c, offsets, sum(sizes))
+    return plan
+
+
+def _check_fold_input(x, x2):
+    if not stats_supports(x) or (x2 is not None and not stats_supports(x2)):
+        raise ValueError("group_norm_fold kernel needs a CUDA bf16 contiguous 16-byte aligned "
+                         f"(N, ..., C) with C % {STATS_VEC} == 0 (and a second part of x's "
+                         f"leading shape); got {tuple(x.shape)} {x.dtype}, x2 "
+                         f"{None if x2 is None else (tuple(x2.shape), x2.dtype)}")
 
 
 def group_norm_fold(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                     x2: Optional[torch.Tensor] = None, *, groups: int = 32,
                     eps: float = 1e-5, kernel=None):
-    """``group_norm_fold_reference`` by the kernels of csrc/gn_fold.cu on a
-    CUDA tensor, which they take or it raises (x read once, no f32 copy); on
-    a CPU tensor the reference. With x2, over the channel concat [x, x2],
-    which is never built. The backward recomputes the reference and
-    differentiates it. ``kernel`` replaces the CUDA launch (the CPU tests
-    pass the reference to run the autograd wiring without a card)."""
+    """``group_norm_fold_reference`` by the kernel of csrc/gn_fold.cu on a
+    CUDA tensor, which it takes or this raises (one launch: x read once, no
+    f32 copy, the fold in the same launch); on a CPU tensor the reference.
+    With x2, over the channel concat [x, x2], which is never built. The
+    backward recomputes the reference and differentiates it. ``kernel``
+    replaces the CUDA launch (the CPU tests pass the reference to run the
+    autograd wiring without a card)."""
     if kernel is None:
         if x.device.type == "cpu":
             return group_norm_fold_reference(x, scale, bias, x2, groups=groups, eps=eps)
@@ -179,34 +334,58 @@ def group_norm_fold(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return differentiable(kernel, group_norm_fold_reference, *inputs, groups=groups, eps=eps)
 
 
-def _fold(x, scale, bias, x2=None, *, groups: int, eps: float):
-    if not stats_supports(x) or (x2 is not None and not (
-            stats_supports(x2) and x2.shape[:-1] == x.shape[:-1])):
-        raise ValueError("group_norm_fold kernel needs a CUDA bf16 contiguous 16-byte aligned "
-                         f"(N, ..., C) with C even (and a second part of x's leading shape); "
-                         f"got {tuple(x.shape)} {x.dtype}, x2 "
-                         f"{None if x2 is None else (tuple(x2.shape), x2.dtype)}")
-    n, c1 = x.shape[0], x.shape[-1]
-    c = c1 + (0 if x2 is None else x2.shape[-1])
-    rows = x.numel() // (n * c1)
-    psum = torch.empty((n, stats_slots(rows), c), device=x.device, dtype=torch.float32)
-    psq = torch.empty_like(psum)
-    out = _fold_launch(x, psum, psq, rows, scale, bias, groups, eps, x2)
+def _fold_into(x, x2, scale, bias, groups: int, eps: float):
+    """The fold kernel's one launch on CUDA x (and x2) into one allocation
+    laid out by the shape's plan: (plan, the allocation)."""
+    _check_fold_input(x, x2)
+    plan = _fold_plan(x, x2, groups)
+    buf = torch.empty(plan.size, device=x.device, dtype=torch.float32)
+    at = buf.data_ptr()
+    _fold_call(x, x2, [at + o for o in plan.offsets], plan.n, plan.rows, plan.c, scale, bias,
+               groups, eps, x.device)
     group_norm_fold.launches += 1
-    return out
+    return plan, buf
+
+
+def fold_with_partials(x, scale, bias, x2=None, *, groups: int, eps: float) -> FoldScratch:
+    """The fold kernel's one launch, keeping its statistics partials: the
+    scratch (psum, psq, sc, sh) it wrote."""
+    plan, buf = _fold_into(x, x2, scale, bias, groups, eps)
+    at = [o // 4 for o in plan.offsets] + [plan.size]
+    parts = [buf[a:b] for a, b in zip(at, at[1:])]
+    shape = (plan.n, stats_slots(plan.rows), plan.c)
+    return FoldScratch(parts[0].view(shape), parts[1].view(shape),
+                       parts[2].view(plan.n, plan.c), parts[3].view(plan.n, plan.c))
+
+
+def _fold(x, scale, bias, x2=None, *, groups: int, eps: float):
+    """The main path's fold: (sc, sh), views of the call's one allocation."""
+    plan, buf = _fold_into(x, x2, scale, bias, groups, eps)
+    nc, sc_at = plan.n * plan.c, plan.offsets[2] // 4
+    return buf[sc_at:sc_at + nc].view(plan.n, plan.c), buf[sc_at + nc:].view(plan.n, plan.c)
 
 
 def fold_from_partials(psum: torch.Tensor, psq: torch.Tensor, count: int,
                        scale: torch.Tensor, bias: torch.Tensor, groups: int, eps: float):
     """JAX's ``_fold_from_channel_sums``: (sc, sh) from the statistics
     partials (B, stats_slots(count), C) over `count` rows a sample. On a CUDA
-    tensor the fold kernel, on a CPU tensor ``fold_from_channel_sums`` of
-    their slot sums."""
+    tensor the fold kernel in its partials-only form (no main path launches
+    it: kernel A folds its own partials), on a CPU tensor
+    ``fold_from_channel_sums`` of their slot sums."""
     if psum.device.type == "cpu":
         return fold_from_channel_sums(psum.sum(1), psq.sum(1), count, scale, bias, groups, eps)
-    out = _fold_launch(None, psum, psq, count, scale, bias, groups, eps)
+    n, slots, c = psum.shape
+    if (slots != stats_slots(count) or psq.shape != psum.shape or psum.dtype != torch.float32
+            or not (psum.is_contiguous() and psq.is_contiguous())):
+        raise ValueError(f"fold_from_partials: partials {tuple(psum.shape)} {psum.dtype} do not "
+                         f"fit {count} rows a sample")
+    check_fold_shape(n, count, c, groups)
+    out = torch.empty((2, n, c), device=psum.device, dtype=torch.float32)
+    _fold_call(None, None, [psum.data_ptr(), psq.data_ptr(), out[0].data_ptr(),
+                            out[1].data_ptr()], n, count, c, scale, bias, groups, eps,
+               psum.device)
     fold_from_partials.launches += 1
-    return out
+    return out[0], out[1]
 
 
 group_norm_fold.launches = 0
@@ -296,16 +475,16 @@ def _launch(x, scale, bias, *, groups: int, eps: float, silu: bool) -> torch.Ten
     plan = group_norm_plan(x.shape, x.dtype, groups)
     scf, bif = _affine_f32(scale, bias)
     y = torch.empty_like(x)
-    scratch = [None] * 4
+    stream = stream_of(x.device)
+    scratch = [None] * 5
     if plan.path == "two_pass":
-        psum = torch.empty((n, stats_slots(rows), c), device=x.device, dtype=torch.float32)
-        sc = torch.empty((n, c), device=x.device, dtype=torch.float32)
-        scratch = [psum, torch.empty_like(psum), sc, torch.empty_like(sc)]
+        f = fold_scratch(n, rows, c, x.device)
+        scratch = [f.psum, f.psq, fold_barrier(x.device, stream), f.sc, f.sh]
     check(library().svdx_group_norm_silu(
         x.data_ptr(), y.data_ptr(), scf.data_ptr(), bif.data_ptr(),
         *(None if t is None else t.data_ptr() for t in scratch), n, rows, c, groups,
-        plan.rows_per_cta, _DTYPE_CODE[x.dtype], int(silu), float(eps),
-        torch.cuda.current_stream(x.device).cuda_stream), f"group_norm_silu ({plan.path})")
+        plan.rows_per_cta, _DTYPE_CODE[x.dtype], int(silu), float(eps), stream),
+        f"group_norm_silu ({plan.path})")
     group_norm_silu.launches += 1
     return y
 

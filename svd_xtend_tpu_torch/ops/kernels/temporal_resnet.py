@@ -12,14 +12,18 @@ the GroupNorm normalise + SiLU of its input as a pass of its own, then an
 implicit GEMM with K = 3·C on the shared Hopper mainloop of
 ``csrc/sm90_gemm.cuh``, its A tiles by TMA's im2col mode over (B, F, S, C)
 (the out-of-frame taps read as zeros). Kernel A adds b1 and the per-frame
-temb and writes norm2's statistics of its stored bf16 output as
-per-(sample, 64-row chunk) partials (``groupnorm.stats_slots``); kernel B
-adds the residual, out = x + w·(conv2 + b2), with the blend weight w an f32
-scalar on the device (the JAX package folds w into conv2's weights; here
-the weights are packed once per parameter version, ``packed``). The launch
-plan is ``gemm_plan.tresnet_plan``, a pure function of the shape. norm1's
-fold reads x once through the fold's kernels (``group_norm_fold``); norm2's
-folds kernel A's partials (``fold_from_partials``).
+temb, writes norm2's statistics of its stored bf16 output as
+per-(sample, 64-row chunk) partials (``groupnorm.stats_slots``) and, after
+its last tile, meets every block at a grid barrier (a cooperative launch of
+its persistent grid) and folds them into norm2's (sc2, sh2) on its
+consumers, in the order of the fold launch this replaces
+(``groupnorm.fold_order_reference``); kernel B adds the residual,
+out = x + w·(conv2 + b2), with the blend weight w an f32 scalar on the
+device (the JAX package folds w into conv2's weights; here the weights are
+packed once per parameter version, ``packed``). The launch plan is
+``gemm_plan.tresnet_plan``, a pure function of the shape. norm1's fold is
+one launch of the fold's kernel (``group_norm_fold``), so a block is three
+launches: the fold, A and B.
 
 On a CPU tensor ``temporal_resnet_block`` runs the reference; on a CUDA
 tensor it launches the kernels or raises. The backward recomputes the
@@ -36,8 +40,8 @@ from ._autograd import differentiable
 from ._build import check, library
 from ._weights import per_version
 from .gemm_plan import sm_count, tresnet_plan
-from .groupnorm import (fold_from_partials, group_norm_fold, group_norm_silu_reference,
-                        stats_slots)
+from .groupnorm import (check_fold_shape, fold_affine, fold_barrier, fold_from_channel_sums,
+                        fold_scratch, group_norm_fold, group_norm_silu_reference, stream_of)
 
 CHANNEL_MULTIPLE = 64    # K tiles of 64 channels of one frame tap
 
@@ -111,6 +115,14 @@ def sums_tolerance(rows_per_sample: int) -> float:
     return SUMS_TOLERANCE_SCALE / rows_per_sample ** 0.5
 
 
+def norm2_fold_reference(h, scale2, bias2, groups: int, eps: float):
+    """Plain kernel A's fold of norm2: (sc2, sh2) from the channel sums of
+    the stored h (B, F, S, C)."""
+    hf = h.float().flatten(1, 2)
+    return fold_from_channel_sums(hf.sum(1), (hf * hf).sum(1), hf.shape[1], scale2, bias2,
+                                  groups, eps)
+
+
 def conv_b_reference(h, k, bias, sc, sh, res, w):
     """Plain kernel B on taps k (3, C, C): res + w·(conv(silu(h·sc + sh)) +
     bias), w the blend weight."""
@@ -118,12 +130,14 @@ def conv_b_reference(h, k, bias, sc, sh, res, w):
     return (res.float() + w.float() * acc).to(h.dtype)
 
 
-def _launch(x, wt, bias, sc, sh, extra, w, out, psum, psq, first: bool, plan=None) -> None:
-    """One kernel on the shape's plan (tests pass others)."""
+def _launch(x, wt, bias, sc, sh, extra, w, out, first: bool, norm2=None, plan=None) -> None:
+    """One kernel on the shape's plan (tests pass others); kernel A with
+    norm2 = (scratch, scale2, bias2, groups, eps), its statistics partials
+    and (sc2, sh2) in the scratch (``fold_scratch``)."""
     b, f, s, c = x.shape
     if plan is None:
         plan = tresnet_plan(b, f, s, c, sm_count(x.device))
-    for a in (x, wt, bias, sc, sh, extra, w, out, psum, psq):
+    for a in (x, wt, bias, sc, sh, extra, w, out):
         if a is not None and (not a.is_contiguous() or a.data_ptr() % 16 or a.device != x.device):
             raise ValueError("temporal_resnet: every operand must be contiguous, 16-byte "
                              "aligned and on x's device")
@@ -131,32 +145,44 @@ def _launch(x, wt, bias, sc, sh, extra, w, out, psum, psq, first: bool, plan=Non
     ws = (torch.empty(plan.workspace_elems, device=x.device, dtype=torch.float32)
           if plan.workspace_elems else None)
     ptr = lambda a: None if a is None else a.data_ptr()
+    stream = stream_of(x.device)
+    psum = psq = scf = bif = sc2 = sh2 = bar = None
+    groups, bf16, eps = 0, 0, 0.0
+    if first:
+        (psum, psq, sc2, sh2), scale2, bias2, groups, eps = norm2
+        check_fold_shape(b, f * s, c, groups)
+        scf, bif, bf16 = fold_affine(scale2, bias2)
+        if scf.shape != (c,) or bif.shape != (c,):
+            raise ValueError(f"temporal_resnet: norm2's scale and bias must be ({c},)")
+        bar = fold_barrier(x.device, stream)
     err = library().svdx_temporal_resnet_conv(
         x.data_ptr(), wt.data_ptr(), bias.data_ptr(), sc.data_ptr(), sh.data_ptr(),
         u.data_ptr(), extra.data_ptr(), ptr(w), out.data_ptr(), ptr(psum), ptr(psq), ptr(ws),
-        b, f, s, c, int(first), plan.bn, plan.k_slices, plan.grid,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        ptr(scf), ptr(bif), ptr(sc2), ptr(sh2), ptr(bar), b, f, s, c, int(first),
+        plan.bn, plan.k_slices, plan.grid, groups, bf16, float(eps), stream)
     check(err, "temporal_resnet_conv_a" if first else "temporal_resnet_conv_b")
 
 
-def conv_a(x, wt, bias, sc, sh, t):
+def conv_a(x, wt, bias, sc, sh, t, scale2, bias2, groups: int, eps: float, plan=None):
     """Kernel A: h = conv(silu(x·sc + sh)) + bias + t[b, f] on the packed
-    taps wt (C, 3C) and the f32 bias, plus norm2's statistics of the stored
-    h: (h, psum, psq), the partials (B, stats_slots(F·S), C) f32."""
+    taps wt (C, 3C) and the f32 bias, norm2's statistics of the stored h and
+    their fold with norm2's affine (scale2, bias2): (h, psum, psq, sc2, sh2),
+    the partials (B, stats_slots(F·S), C) f32, (sc2, sh2) (B, C) f32 (all
+    but h views of one allocation). ``plan`` replaces the shape's launch
+    plan (tests and chip_smoke compare plans)."""
     b, f, s, c = x.shape
     h = torch.empty_like(x)
-    psum = torch.empty((b, stats_slots(f * s), c), device=x.device, dtype=torch.float32)
-    psq = torch.empty_like(psum)
-    _launch(x, wt, bias, sc, sh, t, None, h, psum, psq, True)
+    scratch = fold_scratch(b, f * s, c, x.device)
+    _launch(x, wt, bias, sc, sh, t, None, h, True, (scratch, scale2, bias2, groups, eps), plan)
     conv_a.launches += 1
-    return h, psum, psq
+    return h, scratch.psum, scratch.psq, scratch.sc, scratch.sh
 
 
 def conv_b(h, wt, bias, sc, sh, res, w):
     """Kernel B: res + w·(conv(silu(h·sc + sh)) + bias), w one f32 on the
     device."""
     out = torch.empty_like(h)
-    _launch(h, wt, bias, sc, sh, res, w, out, None, None, False)
+    _launch(h, wt, bias, sc, sh, res, w, out, False)
     conv_b.launches += 1
     return out
 
@@ -208,11 +234,12 @@ def temporal_resnet_block(x, t, k1, b1, k2, b2, scale1, bias1, scale2, bias2,
 
 def _launch_block(x, t, k1, b1, k2, b2, scale1, bias1, scale2, bias2, w, *,
                   groups: int, eps: float):
+    """Three launches: norm1's fold, kernel A (which folds norm2) and kernel B
+    on A's (sc2, sh2)."""
     _validate(x, t, k1, k2)
-    _, f, s, _ = x.shape
     sc1, sh1 = group_norm_fold(x, scale1, bias1, groups=groups, eps=eps)
     wt1, b1f = packed(k1, b1)
     wt2, b2f = packed(k2, b2)
-    h, psum, psq = conv_a(x, wt1, b1f, sc1, sh1, t.to(x.dtype).contiguous())
-    sc2, sh2 = fold_from_partials(psum, psq, f * s, scale2, bias2, groups, eps)
+    h, _, _, sc2, sh2 = conv_a(x, wt1, b1f, sc1, sh1, t.to(x.dtype).contiguous(), scale2,
+                               bias2, groups, eps)
     return conv_b(h, wt2, b2f, sc2, sh2, x, w.float().reshape(1))

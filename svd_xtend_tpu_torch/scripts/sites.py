@@ -12,7 +12,8 @@ portrait resolutions (PORTRAIT_UPSAMPLE_SHAPES).
 Also the GEGLU (T, C) shapes of the UNet's four levels: training (batch 14
 frames) and generate's CFG pair (28); the temporal resnet's and
 group_norm_silu's shapes with their launches per exact video and per train
-step (TRESNET_SITES, GN_SITES), derived from the configs; and the flash
+step (TRESNET_SITES, GN_SITES) and group_norm_fold's per exact video
+(FOLD_SITES), derived from the configs; and the flash
 kernels' calls by (tokens S_q, keys S_kv): per UNet pass at any size, with
 or without the Tracklet2Video gated attentions (``flash_calls_per_pass``),
 and per train step by scope (FLASH_BWD_SITES).
@@ -187,6 +188,38 @@ def _tresnet_sites():
 # the temporal resnet's shapes x (B, F, S, C) on the main paths at the
 # defaults (512x320, 14 frames): (B, F, S, C, per exact video, per step)
 TRESNET_SITES = _tresnet_sites()
+
+
+def _fold_sites():
+    """(x's shape, launches per exact video) of group_norm_fold, from the
+    tables above: the norm1 of every GN-fold conv3x3 (an epilogue starting
+    with "preS") of generate's 25 CFG passes (N = 2 x frames; the up blocks'
+    two-part folds by their total width), of the conditioning image's encode
+    (N = 1) and of each decode chunk (N = its frames), and norm1 of every
+    temporal resnet (TRESNET_SITES). norm2 of the temporal resnet folds in
+    kernel A and launches nothing."""
+    pipe = PipelineConfig()
+    passes, n = pipe.num_inference_steps, 2 * pipe.num_frames
+    chunks = [min(pipe.decode_chunk_size, pipe.num_frames - f0)
+              for f0 in range(0, pipe.num_frames, pipe.decode_chunk_size)]
+    sites = {}
+
+    def add(shape, launches):
+        sites[shape] = sites.get(shape, 0) + launches
+
+    for batch, runs, table in ([(n, passes, UNET_CONV_SITES), (1, 1, VAE_ENCODE_SITES)]
+                               + [(f, 1, VAE_DECODE_SITES) for f in chunks]):
+        for h, w, ci, _, epi, per in table:
+            if epi.startswith("preS"):
+                add((batch, h, w, ci), runs * per)
+    for b, f, s, c, video, _ in TRESNET_SITES:
+        if video:
+            add((b, f, s, c), video)
+    return sorted(sites.items())
+
+
+# group_norm_fold's shapes per exact video at the defaults: (shape, launches)
+FOLD_SITES = _fold_sites()
 
 
 def _gn_sites():

@@ -104,24 +104,34 @@ def _tresnet_ab(inputs, plans=(None, None)):
     their plain versions: h within 4 bf16 ulps; the statistics' channel
     sums within temporal_resnet.sums_tolerance of conv_a_reference's and,
     slot by slot, 1e-5 of the plain statistics of the kernel's own h;
-    kernel B within 4 ulps. Returns (h, psum, psq, out)."""
+    norm2's fold (sc2, sh2) in kernel A within 1e-4 of the plain fold of its
+    h and bit for bit the fold kernel's from that h (statistics read back
+    from device memory, the same fixed-order fold: split K or not); kernel
+    B within 4 ulps. Returns (h, psum, psq, sc2, sh2, out)."""
     x, t, k1, b1, k2, b2, sc1, sh1, w = inputs
     b, f, s, c = x.shape
     (wt1, b1f), (wt2, b2f) = tr.packed(k1, b1), tr.packed(k2, b2)
+    scale2, bias2 = 1 + 0.1 * sc1[0], 0.1 * sh1[-1]
     h = torch.empty_like(x)
-    psum = torch.empty((b, gn.stats_slots(f * s), c), device="cuda")
-    psq = torch.empty_like(psum)
-    tr._launch(x, wt1, b1f, sc1, sh1, t, None, h, psum, psq, True, plans[0])
+    scratch = gn.fold_scratch(b, f * s, c, x.device)
+    tr._launch(x, wt1, b1f, sc1, sh1, t, None, h, True, (scratch, scale2, bias2, 32, 1e-5),
+               plans[0])
+    psum, psq, sc2, sh2 = scratch
     rh, rsum, rsq = tr.conv_a_reference(x, k1, b1, sc1, sh1, t)
     _assert_close_bf16(h, rh)
     own = gn.channel_stats_reference(h.reshape(-1, c), f * s)
     for got, ref, mine in ((psum, rsum, own[0]), (psq, rsq, own[1])):
         assert _rel(got.sum(1), ref) <= tr.sums_tolerance(f * s)
         assert _rel(got, mine) <= 1e-5
+    for got, ref in zip((sc2, sh2), tr.norm2_fold_reference(h, scale2, bias2, 32, 1e-5)):
+        torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+    back = gn.fold_with_partials(h, scale2, bias2, groups=32, eps=1e-5)
+    assert all(torch.equal(a, o) for a, o in zip((psum, psq, sc2, sh2),
+                                                 (back.psum, back.psq, back.sc, back.sh)))
     out = torch.empty_like(x)
-    tr._launch(rh, wt2, b2f, sc1, sh1, x, w, out, None, None, False, plans[1])
+    tr._launch(rh, wt2, b2f, sc1, sh1, x, w, out, False, None, plans[1])
     _assert_close_bf16(out, tr.conv_b_reference(rh, k2, b2, sc1, sh1, x, w))
-    return h, psum, psq, out
+    return h, psum, psq, sc2, sh2, out
 
 
 @pytest.mark.parametrize("site", sites.TRESNET_SITES, ids=lambda st: "-".join(map(str, st)))
@@ -171,41 +181,81 @@ def test_tresnet_refuses_plans_it_does_not_take(rn):
     x, t = rn(1, 2, 8, 64), rn(1, 2, 64)
     wt, bias = tr.pack_taps(rn(3, 64, 64)), rn(64).float()
     sc, sh = rn(1, 64).float(), rn(1, 64).float()
-    h, psum = torch.empty_like(x), torch.empty(1, gn.stats_slots(16), 64, device="cuda")
+    h, scratch = torch.empty_like(x), gn.fold_scratch(1, 16, 64, x.device)
     for plan in (GemmPlan(16, 64, 3, 64, 1, 1), GemmPlan(16, 64, 3, 96, 1, 1),
                  GemmPlan(16, 64, 3, 128, 4, 1), GemmPlan(16, 64, 3, 128, 1, 0)):
         with pytest.raises(RuntimeError):
-            tr._launch(x, wt, bias, sc, sh, t, None, h, psum, psum.clone(), True, plan)
+            tr._launch(x, wt, bias, sc, sh, t, None, h, True, (scratch, bias, bias, 32, 1e-5),
+                       plan)
+
+
+def test_tresnet_block_is_three_launches(rn):
+    """The block launches norm1's fold, kernel A and kernel B, and no
+    fold_from_partials; the stream's barrier counters are left at zero."""
+    args = [*_tresnet_inputs(2, 14, 40, 1280)[:6], 1 + 0.1 * rn(1280).float(),
+            0.1 * rn(1280).float(), 1 + 0.1 * rn(1280).float(), 0.1 * rn(1280).float(),
+            torch.tensor(0.37, device="cuda")]
+    counts = lambda: (gn.group_norm_fold.launches, gn.fold_from_partials.launches,
+                      tr.conv_a.launches, tr.conv_b.launches)
+    before = counts()
+    got = tr.temporal_resnet_block(*args, groups=32, eps=1e-5)
+    assert [a - b for a, b in zip(counts(), before)] == [1, 0, 1, 1]
+    _assert_close_bf16(got, tr.temporal_resnet_reference(*args, 32, 1e-5))
+    stream = torch.cuda.current_stream().cuda_stream
+    assert not gn.fold_barrier(got.device, stream).any()           # the barrier's counters at 0
 
 
 @pytest.mark.parametrize("shape", [(2, 14, 40, 1280), (3, 7, 9, 64), (28, 40, 64, 320),
                                    (8, 5, 8, 2560)])
 def test_group_norm_fold_kernel(rn, shape):
-    """The fold's kernels: the statistics partials against their plain
+    """The fold's one launch: the statistics partials against their plain
     version slot by slot (1e-5 relative, f32 sums in another order), the
     fold against the plain fold and fold_from_partials against the plain
-    fold of the slot sums (1e-4); two runs give the same bits."""
+    fold of the slot sums (1e-4); two calls, fold_from_partials and three
+    replays of a CUDA graph give the same bits, and leave the barriers'
+    counters at zero."""
     x = rn(*shape) * 2 + 0.5
     c = shape[-1]
     rows = x.numel() // (shape[0] * c)
     scale, bias = 1 + 0.1 * rn(c).float(), 0.1 * rn(c).float()
-    psum = torch.empty(shape[0], gn.stats_slots(rows), c, device="cuda")
-    psq = torch.empty_like(psum)
-    gn._fold_launch(x, psum, psq, rows, scale, bias, 32, 1e-5)
-    for got, r in zip((psum, psq), gn.channel_stats_reference(x.reshape(-1, c), rows)):
+    full = gn.fold_with_partials(x, scale, bias, groups=32, eps=1e-5)
+    for got, r in zip((full.psum, full.psq), gn.channel_stats_reference(x.reshape(-1, c), rows)):
         assert ((got - r).abs().max() / r.abs().max()).item() <= 1e-5
     n = gn.group_norm_fold.launches
     got = gn.group_norm_fold(x, scale, bias, groups=32, eps=1e-5)
     assert gn.group_norm_fold.launches == n + 1
     again = gn.group_norm_fold(x, scale, bias, groups=32, eps=1e-5)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert all(torch.equal(a, b) for a, b in zip(got, (full.sc, full.sh)))
     want = gn.group_norm_fold_reference(x, scale, bias, groups=32, eps=1e-5)
     for g_, w_ in zip(got, want):
         torch.testing.assert_close(g_, w_, atol=1e-4, rtol=1e-4)
     n = gn.fold_from_partials.launches
-    got = gn.fold_from_partials(psum, psq, rows, scale, bias, 32, 1e-5)
+    parts = gn.fold_from_partials(full.psum, full.psq, rows, scale, bias, 32, 1e-5)
     assert gn.fold_from_partials.launches == n + 1
-    want = gn.fold_from_channel_sums(psum.sum(1), psq.sum(1), rows, scale, bias, 32, 1e-5)
+    assert all(torch.equal(a, b) for a, b in zip(got, parts))
+    want = gn.fold_from_channel_sums(full.psum.sum(1), full.psq.sum(1), rows, scale, bias, 32,
+                                     1e-5)
+    for g_, w_ in zip(parts, want):
+        torch.testing.assert_close(g_, w_, atol=1e-4, rtol=1e-4)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = gn.group_norm_fold(x, scale, bias, groups=32, eps=1e-5)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(static, got))
+    torch.cuda.synchronize()
+    assert not any(ws.any() for ws in gn._barriers.values())   # the barriers' counters at 0
+
+
+def test_group_norm_fold_two_parts(rn):
+    """The two-part form (the up blocks' concat, never built) against the
+    plain fold of the concat, a group straddling the parts (C1 = 200)."""
+    x, x2 = rn(4, 6, 10, 200) * 2 + 0.5, rn(4, 6, 10, 120) - 0.5
+    scale, bias = 1 + 0.1 * rn(320).float(), 0.1 * rn(320).float()
+    got = gn.group_norm_fold(x, scale, bias, x2, groups=32, eps=1e-5)
+    want = gn.group_norm_fold_reference(torch.cat([x, x2], -1), scale, bias, groups=32, eps=1e-5)
     for g_, w_ in zip(got, want):
         torch.testing.assert_close(g_, w_, atol=1e-4, rtol=1e-4)
 
@@ -953,22 +1003,32 @@ def _chain_inputs(rn, bq, bkm):
     return q, kT, v, to8(kT), to8(v)
 
 
+# (bq, bkm, cluster): the probe's tiles at every cluster size whose blocks
+# hold their keys (fc.fits), and a small tile
+_CHAIN_CASES = [(bq, bkm, k) for bq, bkm in [(128, 128), (640, 640), (1280, 1280), (1024, 1536)]
+                for k in (1, 2, 4, 8) if fc.fits(bkm, k, True) and k <= bkm // 64]
+
+
 @pytest.mark.parametrize("n_inner", [1, 2, 4])
-@pytest.mark.parametrize("bq,bkm", [(128, 128), (640, 640), (1024, 1536)])
-def test_flash_chain_kernels(rn, n_inner, bq, bkm):
-    """chain_bf16 within 4 bf16 ulps of the output's scale (the kernel and the
-    plain version sum in another order, so a rounding of p or q may differ by
-    one ulp); chain_int8_qd equal bit for bit (int32 sums, the same f32
-    roundings in the same order)."""
+@pytest.mark.parametrize("bq,bkm,cluster", _CHAIN_CASES)
+def test_flash_chain_kernels(rn, n_inner, bq, bkm, cluster):
+    """chain_bf16 within 4 bf16 ulps of the output's scale, against the plain
+    chain and against the plain version of its key split (the kernel and the
+    plain versions sum in another order, so a rounding of p or q may differ
+    by one ulp); chain_int8_qd equal bit for bit under every split (int32
+    sums, the same f32 roundings in the same order), its barrier workspace
+    left at zero."""
     q, kT, v, kTi, vi = _chain_inputs(rn, bq, bkm)
     n8 = fc.chain_int8_qd.launches
-    got = fc.chain_int8_qd(q, kTi, vi, n_inner)
+    got = fc.chain_int8_qd(q, kTi, vi, n_inner, cluster)
     assert fc.chain_int8_qd.launches == n8 + 1
     ref = fc.chain_int8_qd_reference(q, kTi, vi, n_inner)
     torch.cuda.synchronize()
     assert torch.equal(got, ref), (got - ref).abs().max().item()
-    _assert_close_bf16(fc.chain_bf16(q, kT, v, n_inner),
-                       fc.chain_bf16_reference(q, kT, v, n_inner))
+    assert not fc._workspace(q.device, torch.cuda.current_stream().cuda_stream).any()
+    bf = fc.chain_bf16(q, kT, v, n_inner, cluster)
+    _assert_close_bf16(bf, fc.chain_bf16_reference(q, kT, v, n_inner))
+    _assert_close_bf16(bf, fc.chain_bf16_split_reference(q, kT, v, n_inner, cluster))
 
 
 def test_flash_chain_wrappers_raise_on_untaken_calls(rn):
@@ -977,6 +1037,9 @@ def test_flash_chain_wrappers_raise_on_untaken_calls(rn):
         fc.chain_bf16(rn(100, 64), kT, v)
     with pytest.raises(ValueError):                 # bf16 kᵀ for the int8 chain
         fc.chain_int8_qd(q, kT, vi)
+    q, kT, v, kTi, vi = _chain_inputs(rn, 128, 1536)
+    with pytest.raises(ValueError):                 # 1536 keys' K and V in one block
+        fc.chain_int8_qd(q, kTi, vi, 1, cluster=1)
 
 
 # ------------------------------------------------------- cache-mode generate --

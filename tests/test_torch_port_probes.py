@@ -165,3 +165,25 @@ def test_quant_scale_matches_xla():
     xs = [(rs.randn(64) * rs.uniform(0.1, 1000)).astype(np.float32) for _ in range(400)]
     got = np.array([fc._quant(torch.from_numpy(x))[1].item() for x in xs], np.float32)
     np.testing.assert_array_equal(got, np.array([xla(x) for x in xs], np.float32))
+
+
+@pytest.mark.parametrize("n_inner", [1, 2, 4])
+def test_flash_chain_kernel_arithmetic_matches_tpu_kernels(chain, monkeypatch, n_inner):
+    """The card kernels' arithmetic as plain functions: the int8 chain with
+    p's scale from the int32 scores' maximum (its one-pass max) bit for bit
+    the TPU kernel and the plain chain; the bf16 chain with the cluster's
+    key split (partial P·V summed in rank order), at 2 and 4 blocks, within
+    4 bf16 ulps of the TPU kernel, as the plain chain is."""
+    monkeypatch.setattr(chain, "N_INNER", n_inner)
+    q, kT, v, kTi, vi = _chain_inputs(n_inner + 10, bq=64, bkm=256)
+    t = lambda a: torch.from_numpy(np.asarray(a.astype(np.float32))).to(
+        torch.int8 if a.dtype == np.int8 else torch.bfloat16)
+    ref8 = _tpu_chain(chain, chain._chain_int8_qd, q, kTi, vi)
+    got8 = fc.chain_int8_qd_intmax_reference(t(q), t(kTi), t(vi), n_inner).numpy()
+    np.testing.assert_array_equal(got8, ref8)
+    np.testing.assert_array_equal(got8, fc.chain_int8_qd_reference(t(q), t(kTi), t(vi),
+                                                                   n_inner).numpy())
+    ref = _tpu_chain(chain, chain._chain_bf16, q, kT, v)
+    for cluster in (2, 4):
+        got = fc.chain_bf16_split_reference(t(q), t(kT), t(v), n_inner, cluster).numpy()
+        np.testing.assert_allclose(got, ref, rtol=0, atol=_bf16_ulps(ref))
