@@ -141,7 +141,7 @@ Phases, each of which raises on failure (non-zero exit):
   5. generate (the serving path): ``generate`` at the default PipelineConfig
      (512x320, 14 frames, 25 Euler steps, stacked CFG, decode chunks of 8)
      with the full UNet, VAE and CLIP in bf16 from seeded random weights,
-     batch 1, GEGLU kernel on: one warm-up run, then 3 timed runs (the
+     batch 1, GEGLU kernel on: one warm-up run, then 1 timed run (the
      median s/video is reported, beside each run's and the device memory
      segments the allocator added during it); the last run's forward-kernel
      launch counts must all be > 0; the flash forward's, GEGLU's, the
@@ -153,7 +153,7 @@ Phases, each of which raises on failure (non-zero exit):
      kernel phases' device ms at each shape. Then utils.metrics on the
      card: video_report of the exact video and clip_fvd(exact, k3).
   5b. int8 videos: generate at PipelineConfig() with unet_quant="int8",
-     with both modes and with int8 + the CFG cache k3 (warm-up + 3 timed
+     with both modes and with int8 + the CFG cache k3 (warm-up + 1 timed
      each, the median), beside the exact video of the same models, image
      and noise: s/video, peak memory, rel-L2 and PSNR (utils/metrics.py)
      against the exact video; the int8 GEMM's conv launches held to 46 a
@@ -164,6 +164,23 @@ Phases, each of which raises on failure (non-zero exit):
      the int8 weight codes' bytes; unet_quant's Σ device time over one
      more video traced by torch.profiler, and the int8 kernels' share of it,
      beside its host clock.
+  5c. eval: the evaluation entry points through their main()s.
+     scripts/eval_approx.py at 512x320x14f, 25 steps, all 12 modes
+     (--iters 1), on the generate phase's seeded models, image and noise:
+     the exact video bit for bit the generate phase's; the int8 mode's
+     PSNR to exact the int8 phase's both-modes figure to 0.01 dB; every
+     mode's timed video held to the site tables (the flash forward's,
+     the upsample's and conv3x3's launches by the mode's schedule, the int8
+     GEMMs' and the quantise's where no pass is shallow), every kernel of
+     the exact (or int8) video launched, and the exact, k3, n3+k3 and int8
+     modes' launches of every kernel equal to the generate and int8
+     phases'; every mode's row printed. Then scripts/eval_tracklet.py at
+     --steps 50 --infer_steps 4 (its TINY networks in f32): the JAX
+     script's summary schema, tracklet_weights.safetensors read back, the
+     kernels the run launches by kernel (group_norm_silu alone takes f32),
+     and its denoiser probe on the card against the same probe on the host
+     CPU (plain versions) from the same weights, draws and noise, within
+     1e-4 of the largest MSE and the probe's rounding to 5 decimals.
   6. train (this slice's main path): the default TrainConfig (temporal
      scope, 512x320x14f, batch 1, remat "block", AdamW with f32 masters,
      bf16 compute) through make_optimizer/create_train_state/make_train_step
@@ -274,7 +291,7 @@ Phases, each of which raises on failure (non-zero exit):
      the branch gradient < 0.1 and <= 1.25x the bf16 plain path's); at
      gate 0 the exact video with 16 boxes equal to the branch-free video bit
      for bit; at gate 0.5 the exact, k3 and n3+k3 videos with boxes (warm-up
-     + 3 timed each): the flash forward's calls by (batch, S_q, S_kv) held to
+     + 1 timed each): the flash forward's calls by (batch, S_q, S_kv) held to
      the schedule x sites.flash_calls_per_pass, every other kernel's
      launches equal to the same mode's without boxes, s/video and peak; the
      'tracklet' step (warm-up + 3 timed) held to the site tables like the
@@ -385,7 +402,8 @@ PEAK_BYTES = 3.35e12
 LSE_ATOL = 1e-4
 TRAIN_STEPS = 3
 # timed videos per generate mode, after its warm-up; the median is reported
-GENERATE_TIMED = 3
+# (one, to keep the whole run inside its time limit)
+GENERATE_TIMED = 1
 
 
 def log(*a):
@@ -1679,12 +1697,15 @@ def main() -> int:
 
     from svd_xtend_tpu_torch.ops.kernels import _build
     t0 = time.time()
+    # each phase's header carries the seconds since the build began
+    phase = lambda msg: log(f"[{time.time() - t0:.0f} s] {msg}")
     _build.library()
     log(f"build: {time.time() - t0:.1f} s -> {_build.library_path().name}")
 
+    phase("kernels")
     ph = kernel_phases(dev)
     torch.cuda.empty_cache()
-    log("kernels: temporal resnet A and B at every site of the exact video and the train step")
+    phase("kernels: temporal resnet A and B at every site of the exact video and the train step")
     tresnet_phase(dev, ph, smi)
     torch.cuda.empty_cache()
     conv_sums = conv_phase(dev, ph, smi)
@@ -1700,50 +1721,60 @@ def main() -> int:
     probe_kernel_phase(dev, ph)
     torch.cuda.empty_cache()
 
-    log("whole UNet: full widths, card bf16 kernels vs host f32 plain (output, gradient)")
+    phase("whole UNet: full widths, card bf16 kernels vs host f32 plain (output, gradient)")
     whole_unet_phase(dev)
     torch.cuda.empty_cache()
-    log("int8 UNet: full widths in int8 mode, card bf16 kernels vs host f32 plain")
+    phase("int8 UNet: full widths in int8 mode, card bf16 kernels vs host f32 plain")
     int8_unet_phase(dev)
     torch.cuda.empty_cache()
 
     counters = kernel_counters()
-    log("generate: PipelineConfig() with full UNet/VAE/CLIP, bf16, all kernels on; then "
+    phase("generate: PipelineConfig() with full UNet/VAE/CLIP, bf16, all kernels on; then "
         "the CFG cache (k3) and DeepCache + CFG cache (n3 k3)")
-    gen_launches = generate_phase(dev, smi, counters, ph)
+    gen_launches, exact_video = generate_phase(dev, smi, counters, ph)
     torch.cuda.empty_cache()
 
-    log("int8: generate at PipelineConfig() with unet_quant, unet_quant + vae_quant and "
+    phase("int8: generate at PipelineConfig() with unet_quant, unet_quant + vae_quant and "
         "unet_quant + k3, beside the exact video")
-    int8_launches = int8_video_phase(dev, smi, counters, int8_ms)
+    int8_launches, int8_psnrs = int8_video_phase(dev, smi, counters, int8_ms)
     torch.cuda.empty_cache()
 
-    log("train: default TrainConfig (temporal scope, 512x320x14f, batch 1, remat block)")
+    phase("eval: scripts/eval_approx.py's 12 modes at 512x320x14f, 25 steps, on the generate "
+        "phase's models, image and noise; scripts/eval_tracklet.py reduced "
+        f"({' '.join(TRACKLET_EVAL_ARGV)})")
+    eval_launches = eval_approx_phase(dev, smi, counters, gen_launches, int8_launches,
+                                      exact_video, int8_psnrs)
+    del exact_video
+    torch.cuda.empty_cache()
+    eval_launches["eval_tracklet"] = eval_tracklet_phase(dev, smi, counters)
+    torch.cuda.empty_cache()
+
+    phase("train: default TrainConfig (temporal scope, 512x320x14f, batch 1, remat block)")
     train_launches = train_phase(dev, smi, counters, args.profile, ph, conv_sums)
     torch.cuda.empty_cache()
 
-    log("lora: TrainConfig(train_mode='lora') (rank 4, alpha 4, 512x320x14f, batch 1, remat "
+    phase("lora: TrainConfig(train_mode='lora') (rank 4, alpha 4, 512x320x14f, batch 1, remat "
         "block); export, read back, merge, an exact video; the VAE as a sharded component")
     lora_launches = lora_phase(dev, smi, counters, ph, conv_sums, gen_launches["generate"])
     torch.cuda.empty_cache()
 
-    log("cli: the training CLI (train/cli.py) at 512x320x14f, temporal scope, bf16, remat "
+    phase("cli: the training CLI (train/cli.py) at 512x320x14f, temporal scope, bf16, remat "
         "block, over the committed frame folder: straight, then resumed from checkpoint-2")
     cli_launches = cli_phase(dev, smi, counters, gen_launches["generate"], train_launches)
     torch.cuda.empty_cache()
 
-    log("parallel: the CLI over a world of one rank (NCCL): the full scope with host "
+    phase("parallel: the CLI over a world of one rank (NCCL): the full scope with host "
         "offload, the temporal scope with ZeRO-1")
     parallel_phase(dev, smi)
     torch.cuda.empty_cache()
 
-    log("frames: sequence parallelism, two gloo ranks on the one card against one rank: the "
+    phase("frames: sequence parallelism, two gloo ranks on the one card against one rank: the "
         f"UNet's CFG pass, generate ({FRAMES_STEPS} steps) and a temporal-scope step at "
         f"512x320x14f; then 14 frames over {UNEVEN_RANKS} ranks ({UNEVEN_STEPS} steps)")
     frames_launches = frames_phase(dev, smi)
     torch.cuda.empty_cache()
 
-    log(f"model: tensor parallelism, {MODEL_RANKS} gloo ranks on the one card against one "
+    phase(f"model: tensor parallelism, {MODEL_RANKS} gloo ranks on the one card against one "
         "rank: the UNet's CFG pass (f32 plain versions, bf16 kernels beside the launch-plan "
         f"control), generate ({MODEL_STEPS} steps) and two temporal-scope steps at 512x320x14f; "
         "then a step each in the 'lora' scope, with 8-bit AdamW, host offload and a "
@@ -1751,7 +1782,7 @@ def main() -> int:
     model_launches = model_phase(dev, smi, ph)
     torch.cuda.empty_cache()
 
-    log("tracklet: the gated attention's flash kernels at (S, S + 16), the full-width "
+    phase("tracklet: the gated attention's flash kernels at (S, S + 16), the full-width "
         "tracklet UNet against host f32, generate with boxes (gate 0 bit-equal; exact, k3, "
         "n3+k3), the 'tracklet' step and the CLI's --train_mode tracklet")
     tracklet_kernel_phase(dev, ph)
@@ -1767,25 +1798,26 @@ def main() -> int:
                                                            tracklet_launches["tracklet_step"])
     torch.cuda.empty_cache()
 
-    log("infer: the kernels at 1024x576, then python -m svd_xtend_tpu_torch.scripts.infer_svd "
+    phase("infer: the kernels at 1024x576, then python -m svd_xtend_tpu_torch.scripts.infer_svd "
         "at its defaults with boxes, a LoRA file and a tracklet file")
     infer_kernel_phase(dev, ph)
     torch.cuda.empty_cache()
     infer_launches = infer_phase(dev, smi, counters)
     torch.cuda.empty_cache()
 
-    log("optim8: full-scope steps with 8-bit AdamW and with bf16 gradients; int8 codes on the "
+    phase("optim8: full-scope steps with 8-bit AdamW and with bf16 gradients; int8 codes on the "
         "card against the CPU")
     optim8_launches = optim8_phase(dev, smi, counters)
     torch.cuda.empty_cache()
 
-    log("mha: the head-major attention entry point at the UNet's L0 shape")
+    phase("mha: the head-major attention entry point at the UNet's L0 shape")
     mha_launches = mha_phase(dev, counters)
     torch.cuda.empty_cache()
 
-    log("probes: the three probe scripts at their shapes")
+    phase("probes: the three probe scripts at their shapes")
     probe_launches = probes_phase(counters)
-    by_path = {**gen_launches, **int8_launches, "train": train_launches, "lora": lora_launches,
+    by_path = {**gen_launches, **int8_launches, **eval_launches, "train": train_launches,
+               "lora": lora_launches,
                "cli": cli_launches, **tracklet_launches, "infer": infer_launches,
                "optim8": optim8_launches, "mha": mha_launches, "probes": probe_launches,
                **frames_launches, **model_launches}
@@ -1846,6 +1878,7 @@ def main() -> int:
         kernels.append({"name": name, "route": route, "source": src, "replaces": replaces,
                         "launches": sum(paths.values()), "max_abs_err": ph.err[name],
                         **ph.times[name], "launches_by_path": paths})
+    log(f"[{time.time() - t0:.0f} s] done")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -2035,7 +2068,8 @@ def forward_per_run(path, by_shape, runs, launches, fwd_ms, smi, unit):
 
 def generate_phase(dev, smi, counters, ph: KernelPhase):
     """The exact generate, then the two cache modes on the same image and
-    noise; {path: launches} of each mode's last timed run. The kernel
+    noise; ({path: launches} of each mode's last timed run, the exact
+    video). The kernel
     phase's device times per launch price the launches per video of the
     flash forward, GEGLU and the temporal resnet by shape."""
     import dataclasses
@@ -2174,7 +2208,7 @@ def generate_phase(dev, smi, counters, ph: KernelPhase):
         "- 2 x features x sqrt(eps))")
     if not all(math.isfinite(v) for v in (*report.values(), fvd)):
         raise RuntimeError(f"metrics: non-finite {report}, {fvd}")
-    return launches
+    return launches, videos["generate"]
 
 
 # ------------------------------------------------------------------ int8 --
@@ -2577,7 +2611,7 @@ def int8_unet_phase(dev):
 
 
 def int8_video_phase(dev, smi, counters, ms):
-    """generate in the int8 modes at PipelineConfig() (warm-up + 3 timed
+    """generate in the int8 modes at PipelineConfig() (warm-up + 1 timed
     each, the median reported) beside the exact video of the same models,
     image and noise: unet_quant, unet_quant + vae_quant, unet_quant + the CFG
     cache k3. Each mode's launches held to the site tables: the int8 GEMM's
@@ -2592,7 +2626,7 @@ def int8_video_phase(dev, smi, counters, ms):
     INT8_QUANTISE_SITES), priced at the kernel phase's device ms. The int8
     video against the exact one: rel-L2 and PSNR (utils/metrics.py).
     unet_quant's Σ device time over one more, traced video beside its host
-    clock. {path: launches}."""
+    clock. ({path: launches}, {path: PSNR to the exact video in dB})."""
     import dataclasses
 
     from svd_xtend_tpu_torch.core.config import PipelineConfig
@@ -2614,7 +2648,7 @@ def int8_video_phase(dev, smi, counters, ms):
     chunks = -(-exact_cfg.num_frames // exact_cfg.decode_chunk_size)
     enc = sum(st[5] for st in VAE_ENCODE_SITES)
     dec = sum(st[5] for st in VAE_DECODE_SITES)
-    launches, videos, secs, gelus = {}, {}, {}, {}
+    launches, videos, secs, gelus, psnrs = {}, {}, {}, {}, {}
     for path, cfg in runs.items():
         t0 = time.time()
         generate(models, image, cfg, generator=torch.Generator(device=dev).manual_seed(SEED))
@@ -2688,8 +2722,8 @@ def int8_video_phase(dev, smi, counters, ms):
         cmp = ""
         if path != "int8_exact_baseline":
             rel = ((video - base).norm() / base.norm()).item()
-            cmp = (f"; against the exact video rel_l2 {rel:.4g}, PSNR "
-                   f"{psnr(video, base).item():.2f} dB")
+            psnrs[path] = psnr(video, base).item()
+            cmp = f"; against the exact video rel_l2 {rel:.4g}, PSNR {psnrs[path]:.2f} dB"
         log(f"  [{smi}] {path}: seconds/video {secs[path]:.3f} (median of {GENERATE_TIMED}: "
             f"{', '.join(f'{t:.3f}' for t in timed)}; exact "
             f"{secs['int8_exact_baseline']:.3f}); peak allocated {peak / 2**30:.2f} GiB{cmp}")
@@ -2707,6 +2741,232 @@ def int8_video_phase(dev, smi, counters, ms):
     codes = prepare_int8(models.unet)
     log(f"  int8 weight codes held on the card while the weights are unchanged: UNet "
         f"{codes / 1e9:.3f} GB, VAE decoder {prepare_int8(models.vae.decoder) / 1e9:.3f} GB")
+    return launches, psnrs
+
+
+# ------------------------------------------------------------------ eval --
+
+EVAL_ITERS = 1              # eval_approx's timed videos a mode (its default is 2)
+EVAL_PSNR_DB = 0.01         # its int8 video's PSNR against the int8 phase's
+# eval_tracklet cut to fit the run: 50 training steps (its default 3000),
+# 4-step generations (8); every other flag its default
+TRACKLET_EVAL_ARGV = ["--steps", "50", "--infer_steps", "4"]
+# the denoiser probe on the card (f32, TF32 off) against the CPU from the
+# same weights, draws and noise: relative to the largest MSE. Both sides are
+# f32 throughout and differ only in summation order (cuBLAS / cuDNN and
+# group_norm_silu's kernel against the CPU's), ~1e-6 relative a layer over
+# the TINY UNet's ~40 layers; a weight that did not load, or another
+# conditioning, moves an MSE by 1e-2 relative or more
+TRACKLET_PROBE_REL = 1e-4
+TRACKLET_SUMMARY_KEYS = ["steps", "lr", "dim", "mode", "gate_init", "batch", "denoiser_probe",
+                         "train_inside_frac", "held_out_inside_frac", "steers_train",
+                         "steers_held_out"]
+TRACKLET_ROW_KEYS = ["true", "null", "wrong", "wrong_vs_its_own_boxes", "held_out"]
+
+
+def mode_launches(cfg):
+    """The launches per video the site tables give a mode: the flash
+    forward's (flash_calls_per_pass over the schedule's full and shallow
+    passes), the upsample's (the UNet's and the decoder's structure),
+    conv3x3's (the VAE's alone under unet_quant, the decoder's int8 too
+    under vae_quant) and, where no pass is shallow, the int8 GEMMs' and the
+    quantise's (46 convs, 320 denses and 302 quantise calls a pass, 30
+    convs a decode chunk under vae_quant)."""
+    h, w = cfg.height, cfg.width
+    full = sum(flash_calls_per_pass(h, w).values())
+    shallow = sum(flash_calls_per_pass(h, w, depth=cfg.deep_cache_depth).values())
+    schedule = unet_schedule(cfg)
+    want = {"flash_attention_fwd": sum(full if kind == "full" else shallow
+                                       for _, kind in schedule),
+            "upsample_conv": upsample_launches(cfg)}
+    chunks = -(-cfg.num_frames // cfg.decode_chunk_size)
+    enc = sum(st[5] for st in VAE_ENCODE_SITES)
+    dec = sum(st[5] for st in VAE_DECODE_SITES)
+    if not cfg.unet_quant:
+        want["conv3x3"] = conv3x3_launches(cfg)
+        return want
+    want["conv3x3"] = enc + (0 if cfg.vae_quant else chunks * dec)
+    if all(kind == "full" for _, kind in schedule):
+        vae_convs = chunks * sum(st[5] for st in INT8_VAE_CONV_SITES) if cfg.vae_quant else 0
+        want.update(int8_gemm_conv=len(schedule) * sum(st[5] for st in INT8_CONV_SITES)
+                    + vae_convs,
+                    int8_gemm_dense=len(schedule) * sum(st[3] for st in INT8_DENSE_SITES),
+                    int8_quantize=len(schedule) * INT8_QUANTIZE_CALLS + vae_convs)
+    return want
+
+
+def eval_approx_phase(dev, smi, counters, gen_launches, int8_launches, exact_video, int8_psnrs):
+    """``scripts/eval_approx.py`` through its main() at 512x320x14f, 25 steps,
+    all 12 modes (--iters EVAL_ITERS), on the generate phase's seeded
+    models, image and noise. Every mode's launches (its timed video) held
+    to ``mode_launches``, and the exact, k3, n3+k3 and int8 (both) modes'
+    launches of every kernel to the generate and int8 phases'; the exact
+    video bit for bit the generate phase's; the int8 video's PSNR to the
+    exact one the int8 phase's to EVAL_PSNR_DB; every row printed.
+    {"eval_<mode>": launches}."""
+    import shutil
+
+    from svd_xtend_tpu_torch import native
+    from svd_xtend_tpu_torch.diffusion.pipeline import SVDModels
+    from svd_xtend_tpu_torch.scripts import eval_approx as ea
+    from svd_xtend_tpu_torch.utils.metrics import psnr
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    models = SVDModels.create(device=dev, dtype=torch.bfloat16, generator=gen)
+    image = torch.rand(1, 320, 512, 3, device=dev, generator=gen) * 2 - 1
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    # generate's own draws from the generate phase's generator, in its order
+    noise = (torch.randn(image.shape, generator=g, device=dev),
+             torch.randn((1, 14, 40, 64, 4), generator=g, device=dev))
+    vdir = native.BUILD_DIR.parent / "eval_approx_smoke"
+    argv = ["--iters", str(EVAL_ITERS), "--videos", str(vdir), "--out", str(vdir / "table.json")]
+    args = ea.parse_args(argv)
+    names = {cfg: name for name, cfg in ea.build(args, models)[3]}
+    launches, videos, real = {}, {}, ea.generate
+
+    def counted(models, image, cfg, **kw):
+        """Each mode's last video (its timed one) and launches."""
+        reset(counters)
+        video = real(models, image, cfg, **kw)
+        torch.cuda.synchronize()
+        launches[names[cfg]] = {n: fn.launches for n, fn in counters.items()}
+        videos[names[cfg]] = video
+        return video
+
+    shutil.rmtree(vdir, ignore_errors=True)
+    ea.generate = counted
+    t0 = time.time()
+    try:
+        table = ea.main(argv, models=models, image=image, noise=noise)
+    finally:
+        ea.generate = real
+        shutil.rmtree(vdir, ignore_errors=True)
+    log(f"  [{smi}] eval_approx ({time.time() - t0:.1f} s, {len(table['modes'])} modes; "
+        f"operating point {table['operating_point']}):")
+    for name, row in table["modes"].items():
+        log(f"    {name}: {json.dumps(row)}")
+    if list(table["modes"]) != list(names.values()):
+        raise RuntimeError(f"eval_approx: modes {list(table['modes'])}, expected "
+                           f"{list(names.values())}")
+    for name, row in table["modes"].items():
+        if not all(math.isfinite(v) for v in row.values()):
+            raise RuntimeError(f"eval_approx {name}: non-finite metrics {row}")
+    if not torch.equal(videos["exact"], exact_video):
+        d = (videos["exact"] - exact_video).abs().max().item()
+        raise RuntimeError(f"eval_approx: the exact video differs from the generate phase's "
+                           f"(max |d| {d})")
+    log("  eval_approx: its exact video is the generate phase's bit for bit")
+    got = psnr(videos["int8"], videos["exact"]).item()
+    want = int8_psnrs["int8_both"]
+    log(f"  eval_approx: int8 PSNR to exact {got:.4f} dB (table "
+        f"{table['modes']['int8']['psnr_vs_exact_db']}); the int8 phase's both modes "
+        f"{want:.4f} dB")
+    if abs(got - want) > EVAL_PSNR_DB or abs(
+            table["modes"]["int8"]["psnr_vs_exact_db"] - want) > EVAL_PSNR_DB:
+        raise RuntimeError(f"eval_approx: int8 PSNR {got} dB, the int8 phase's {want} dB")
+    twins = {"exact": gen_launches["generate"], "cfg_cache_k3": gen_launches["generate_k3"],
+             "deep_n3_cfg_k3": gen_launches["generate_n3k3"], "int8": int8_launches["int8_both"]}
+    for name, cfg in ((n, c) for c, n in names.items()):
+        got = launches[name]
+        # the kernels of the path: those the exact (or int8) video launches
+        needed = twins["int8" if cfg.unet_quant else "exact"]
+        missing = [n for n, c in needed.items() if c and not got[n]]
+        stray = [n for n in ENTRY_ONLY if got[n]]
+        if missing or stray:
+            raise RuntimeError(f"eval_approx {name}: kernels never launched {missing}, "
+                               f"entry points no path launches launched {stray}")
+        want = mode_launches(cfg)
+        if any(got[k] != v for k, v in want.items()):
+            raise RuntimeError(f"eval_approx {name}: launches {got}, the site tables give "
+                               f"{want}")
+        if name in twins and any(got[k] != v for k, v in twins[name].items()):
+            raise RuntimeError(f"eval_approx {name}: launches {got}, the same mode's in the "
+                               f"generate / int8 phase {twins[name]}")
+        log(f"  eval_approx {name}: launches held to the site tables {want}"
+            + (" and equal to its generate / int8 phase twin's" if name in twins else ""))
+    return {f"eval_{name}": {k: launches[name][k] for k in counters} for name in names.values()}
+
+
+def eval_tracklet_phase(dev, smi, counters):
+    """``scripts/eval_tracklet.py`` through its main() (TRACKLET_EVAL_ARGV,
+    on the card): its summary in the JAX script's schema, finite, the
+    run's tracklet_weights.safetensors read back onto a TINY UNet's branch;
+    the kernels its TINY f32 networks launch, by kernel; then its denoiser
+    probe from the run's weights on the card and on the CPU (plain
+    versions), fed the same draws and noise, within TRACKLET_PROBE_REL of
+    the largest MSE and the probe's rounding.
+    The launches of the whole run (training, generations, probe)."""
+    import shutil
+
+    from svd_xtend_tpu_torch import native
+    from svd_xtend_tpu_torch.io.safetensors_io import load_file
+    from svd_xtend_tpu_torch.scripts import eval_tracklet as et
+    from svd_xtend_tpu_torch.train.checkpoint import TRACKLET_FILE
+
+    work = native.BUILD_DIR.parent / "eval_tracklet_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    reset(counters)
+    t0 = time.time()
+    try:
+        out = et.main([*TRACKLET_EVAL_ARGV, "--workdir", str(work)])
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        launches = {n: fn.launches for n, fn in counters.items()}
+        summary, rows = out["summary"], out["per_trajectory"]
+        log(f"  [{smi}] eval_tracklet ({secs:.1f} s): {json.dumps(summary)}")
+        for lane, row in rows.items():
+            log(f"    {lane}: {json.dumps(row)}")
+        log(f"  eval_tracklet: kernel launches of the run (TINY, f32) "
+            f"{ {n: c for n, c in launches.items() if c} }; none of "
+            f"{sorted(n for n, c in launches.items() if not c)}")
+        if list(summary) != TRACKLET_SUMMARY_KEYS or sorted(rows) != sorted(
+                et.TRAIN_KINDS + et.HELD_OUT) or any(list(r) != TRACKLET_ROW_KEYS
+                                                      for r in rows.values()):
+            raise RuntimeError(f"eval_tracklet: not the JAX script's schema: {list(summary)}, "
+                               f"{ {k: list(r) for k, r in rows.items()} }")
+        probe_keys = [f"{k}@s{s:g}" for s in et.PROBE_SIGMAS
+                      for k in ("noisy_right", "noisy_left", "steer_margin")] + ["steer_margin"]
+        if list(summary["denoiser_probe"]) != probe_keys:
+            raise RuntimeError(f"eval_tracklet: probe keys {list(summary['denoiser_probe'])}")
+        flat = load_file(str(work / "run" / TRACKLET_FILE))
+        if not flat or not all(bool(torch.isfinite(t.float()).all()) for t in flat.values()):
+            raise RuntimeError("eval_tracklet: tracklet_weights.safetensors empty or non-finite")
+        dim = int(summary["dim"])
+        card_models, gates = et.load_models_and_params(str(work / "run"), dim, "cuda")
+        host_models, _ = et.load_models_and_params(str(work / "run"), dim, "cpu")
+        # the UNet comes from the run's files; the VAE and CLIP are drawn from
+        # seed 0 on each device's generator: the host takes the card's
+        for name in ("vae", "clip"):
+            getattr(host_models, name).load_state_dict(getattr(card_models, name).state_dict())
+        log(f"  eval_tracklet: {TRACKLET_FILE} read back ({len(flat)} tensors, {len(gates)} "
+            f"gates) onto the card's and the host's TINY UNet")
+        draws = et.probe_draws(host_models, summary["mode"], dim)
+        ds = host_models.vae.config.downsample_factor
+        noise = torch.randn((1, et.FRAMES, et.H // ds, et.W // ds,
+                             host_models.vae.config.latent_channels),
+                            generator=torch.Generator().manual_seed(et.PROBE_NOISE_SEED))
+        lanes = ("right", "left")
+        on_card = et.denoiser_probe(card_models, lanes, summary["mode"], dim,
+                                    draws=type(draws)(*(None if d is None else d.to(dev)
+                                                        for d in draws)),
+                                    noise=noise.to(dev))
+        on_host = et.denoiser_probe(host_models, lanes, summary["mode"], dim, draws=draws,
+                                    noise=noise)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    mses = [(row[k2], on_host[k][cl][k2]) for k, by in on_card.items()
+            if isinstance(by, dict) for cl, row in by.items() for k2 in row]
+    scale = max(abs(h) for _, h in mses)
+    err = max(abs(c - h) for c, h in mses)
+    # the probe reports its MSEs to 5 decimals: each side may round by 5e-6
+    bound = TRACKLET_PROBE_REL * scale + 1e-5
+    log(f"  [{smi}] eval_tracklet denoiser probe, card against host: {len(mses)} MSEs, max "
+        f"|d| {err:.3g} (bound {bound:.3g}: {TRACKLET_PROBE_REL:g} x the largest MSE "
+        f"{scale:.5g}, and the rounding); steer_margin@s2 {on_card['steer_margin@s2']:.6g} / "
+        f"{on_host['steer_margin@s2']:.6g}, @s8 {on_card['steer_margin@s8']:.6g} / "
+        f"{on_host['steer_margin@s8']:.6g}")
+    if not math.isfinite(err) or err > bound:
+        raise RuntimeError(f"eval_tracklet: the card's probe differs from the host's by {err}")
     return launches
 
 

@@ -49,7 +49,7 @@ from ..ops.kernels import int8_gemm as i8k
 from ..ops.kernels import groupnorm as gnk
 from ..ops.kernels import temporal_resnet as trk
 from ..ops.kernels import upsample_conv as uck
-from ..ops.kernels.dispatch import kernels_enabled
+from ..ops.kernels.dispatch import bf16_site, kernels_enabled
 from ..parallel.frames import FrameShard, gather_frames
 
 
@@ -76,9 +76,10 @@ class GroupNormSiLU(nn.Module):
         normalise (+ SiLU) as it reads x (the JAX module's ``fold_only``).
         With x2, over the channel concat [x, x2] without building it: JAX's
         ``group_norm_fold_cat``, groups straddling the two parts included.
-        On the card the fold's kernels compute it (``group_norm_fold``, which
-        raises on an x they do not take)."""
-        fold = gnk.group_norm_fold if kernels_enabled() else gnk.group_norm_fold_reference
+        On the card the fold's kernels compute a bf16 x (``group_norm_fold``,
+        which raises on one they do not take); another dtype takes the plain
+        fold."""
+        fold = gnk.group_norm_fold if bf16_site(x) else gnk.group_norm_fold_reference
         return fold(x, self.weight, self.bias, x2, groups=self.groups, eps=self.eps)
 
 
@@ -147,7 +148,8 @@ class Conv3x3(nn.Conv2d):
         if quant.get_mode() == "int8":
             return i8k.conv3x3_site(x, self.weight, self.bias, pre, post_shift, residual, x2)
         sc, sh, silu = pre if pre is not None else (None, None, False)
-        if kernels_enabled() and (x2 is not None or cvk.supports(x, self.weight)):
+        if (x2 is not None and bf16_site(x)) or (kernels_enabled()
+                                                  and cvk.supports(x, self.weight)):
             return cvk.conv3x3(x, self.weight, self.bias, pre_scale=sc, pre_shift=sh,
                                pre_silu=silu, post_shift=post_shift, residual=residual, x2=x2)
         if x2 is not None:
@@ -372,14 +374,15 @@ class Upsample2D(nn.Module):
     convs at the input resolution on tap-summed kernels, interleaved; no 4x
     intermediate. The parameters stay diffusers' ``conv.weight`` (OIHW 3x3)
     and ``conv.bias``. On CUDA the upsample kernel
-    (ops/kernels/upsample_conv.py) takes every call or raises; on the CPU,
-    and inside ``plain_versions()``, the plain version runs."""
+    (ops/kernels/upsample_conv.py) takes every bf16 call or raises; on the
+    CPU, for another dtype on the card and inside ``plain_versions()``, the
+    plain version runs."""
 
     def __init__(self, channels: int):
         super().__init__()
         self.conv = Conv2d(channels, channels, 3, padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if kernels_enabled():
+        if bf16_site(x):
             return uck.upsample_conv(x, self.conv.weight, self.conv.bias)
         return uck.upsample2x_conv3x3_reference(x, self.conv.weight, self.conv.bias)

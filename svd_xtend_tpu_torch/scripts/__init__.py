@@ -12,6 +12,11 @@ card as ``python -m svd_xtend_tpu_torch.scripts.<name>``.
 (why the frame loader carries its own decoder for machines without
 libjpeg);
 
+``infer_svd``, the inference entry; ``eval_approx`` and ``eval_tracklet``,
+the evaluation entry points (the approximate modes' quality against the
+exact video; Tracklet2Video's box adherence), ports of the JAX package's
+scripts of the same names;
+
 ``bench_flash_forward``, the flash forward's device time at the UNet's
 shapes and the variants' per mode, for comparing builds of the kernels;
 ``bench_gemm_plans``, conv3x3's, GEGLU's and the int8 GEMM's device time

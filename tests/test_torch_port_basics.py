@@ -53,12 +53,15 @@ def test_derived_config_properties_match_jax():
 
 
 def test_package_imports_no_jax():
-    """Importing every port module leaves jax out of sys.modules."""
+    """Importing every port module (the evaluation entry points among them)
+    leaves jax out of sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import svd_xtend_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        "assert {'svd_xtend_tpu_torch.scripts.eval_approx',\n"
+        "        'svd_xtend_tpu_torch.scripts.eval_tracklet'} <= set(sys.modules)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'svd_xtend_tpu.'))]\n"
         "assert not bad, bad\n"
         "print('ok')\n")

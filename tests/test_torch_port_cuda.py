@@ -2056,3 +2056,33 @@ def test_frames_collectives_over_a_world_of_one(rn, monkeypatch):
             _same_bits(stats, s0)
     finally:
         parallel.close_world(world)
+
+
+def test_an_f32_pipeline_runs_on_the_card(rn, monkeypatch):
+    """F8: the TINY networks in f32 on the card (as eval_tracklet runs
+    them): the GroupNorm fold, the two-source conv3x3 and the upsample,
+    whose kernels take bf16 alone, run their plain versions, as the other
+    sites do where their ``supports`` say no; the video against the same
+    networks on the CPU, from the same noise, at the f32 pipeline tests'
+    tolerance (TF32 off)."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = tcfg.PipelineConfig(height=32, width=32, num_frames=3, num_inference_steps=2,
+                              decode_chunk_size=2)
+    nets = {d: tpipe.SVDModels.create(tcfg.TINY_UNET, tcfg.TINY_VAE, tcfg.TINY_CLIP,
+                                      device=d, generator=torch.Generator(d).manual_seed(0))
+            for d in ("cpu", "cuda")}
+    for name in ("unet", "vae", "clip"):
+        getattr(nets["cuda"], name).load_state_dict(getattr(nets["cpu"], name).state_dict())
+    g = torch.Generator().manual_seed(1)
+    image = torch.rand(1, 32, 32, 3, generator=g) * 2 - 1
+    noise = (torch.randn(1, 32, 32, 3, generator=g), torch.randn(1, 3, 16, 16, 4, generator=g))
+    n = {k: c.launches for k, c in (("fold", gn.group_norm_fold), ("up", uc.upsample_conv),
+                                     ("conv", cv.conv3x3))}
+    got = tpipe.generate(nets["cuda"], image.cuda(), cfg, image_noise=noise[0].cuda(),
+                         latent_noise=noise[1].cuda()).cpu()
+    want = tpipe.generate(nets["cpu"], image, cfg, image_noise=noise[0], latent_noise=noise[1])
+    assert (gn.group_norm_fold.launches, uc.upsample_conv.launches, cv.conv3x3.launches) == (
+        n["fold"], n["up"], n["conv"])
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-3)

@@ -35,8 +35,7 @@ JAX references and one-rank runs are computed while the ranks work.
 
 import multiprocessing as mp
 import os
-import queue
-import socket
+import shutil
 import traceback
 
 import numpy as np
@@ -51,11 +50,10 @@ from svd_xtend_tpu_torch.train import checkpoint as ckpt_lib
 from svd_xtend_tpu_torch.train.state import (cast_frozen_to_compute, create_train_state,
                                              make_train_step, write_back)
 
-from test_torch_port_parallel import DP_REL, _rel, _same
+from test_torch_port_parallel import DP_REL, _rel, _same, answers, rendezvous, start_group
 
 torch.set_num_threads(1)
 
-JOB_SECONDS = 240
 ROWS = 2                    # the global batch of the train jobs
 F = 4
 
@@ -178,11 +176,8 @@ JOBS = {"jax_step": job_jax_step, "steps": job_steps, "zero1": job_zero1, "save"
         "generate": job_generate}
 
 
-def _worker(rank, size, port, jobs, results, table):
-    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK=str(rank),
-                      WORLD_SIZE=str(size), LOCAL_RANK=str(rank))
-    torch.set_num_threads(1)
-    world = parallel.init_world("cpu")
+def _worker(rank, size, store, jobs, results, table):
+    world = start_group(rank, size, store)
     try:
         while True:
             job = jobs.get()
@@ -203,17 +198,16 @@ class Pool:
     """`size` gloo ranks running the jobs of `table` (this module's JOBS by
     default; module-level functions, which the spawned ranks import);
     ``submit(name, *args)`` sends a job to every rank, ``collect(name)``
-    returns their answers by rank within JOB_SECONDS."""
+    returns their answers by rank (``answers``: within its time limit,
+    failing at once where a rank has died)."""
 
     def __init__(self, size, table=None):
         ctx = mp.get_context("spawn")
-        with socket.socket() as s:
-            s.bind(("localhost", 0))
-            port = s.getsockname()[1]
+        self.tmp, store = rendezvous()
         self.size = size
         self.jobs = [ctx.Queue() for _ in range(size)]
         self.results = ctx.Queue()
-        self.procs = [ctx.Process(target=_worker, args=(r, size, port, self.jobs[r],
+        self.procs = [ctx.Process(target=_worker, args=(r, size, store, self.jobs[r],
                                                         self.results, table or JOBS),
                                   daemon=True)
                       for r in range(size)]
@@ -225,17 +219,7 @@ class Pool:
             q.put((name, args))
 
     def collect(self, name):
-        out = {}
-        for _ in range(self.size):
-            try:
-                rank, got, ok, value = self.results.get(timeout=JOB_SECONDS)
-            except queue.Empty:
-                pytest.fail(f"job {name}: no answer within {JOB_SECONDS} s")
-            assert got == name
-            if not ok:
-                pytest.fail(f"job {name} on rank {rank}:\n{value}")
-            out[rank] = value
-        return out
+        return answers(self.results, self.procs, name)
 
     def __call__(self, name, *args):
         self.submit(name, *args)
@@ -248,6 +232,7 @@ class Pool:
             p.join(timeout=30)
             if p.is_alive():
                 p.kill()
+        shutil.rmtree(self.tmp, ignore_errors=True)
 
 
 @pytest.fixture(scope="module")

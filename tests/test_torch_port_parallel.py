@@ -26,12 +26,16 @@ import dataclasses
 import multiprocessing as mp
 import os
 import queue
-import socket
+import shutil
+import sys
+import tempfile
+import time
 import traceback
 
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from svd_xtend_tpu_torch import parallel
 from svd_xtend_tpu_torch.core.config import (TINY_CLIP, TINY_UNET, TINY_VAE, PipelineConfig,
@@ -51,6 +55,7 @@ RANKS = 2
 # order with the other sign (1.3e-3 measured in the TINY full scope)
 DP_REL = 5e-3
 JOB_SECONDS = 240
+POLL_SECONDS = 1.0          # how often a wait for answers checks that the ranks live
 
 
 # ------------------------------------------------------------ the jobs --
@@ -153,11 +158,47 @@ JOBS = {"dp_step": job_dp_step, "zero1": job_zero1, "save": job_save, "resume": 
         "generate": job_generate, "cli": job_cli}
 
 
-def _worker(rank, port, jobs, results):
-    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK=str(rank),
-                      WORLD_SIZE=str(RANKS), LOCAL_RANK=str(rank))
+def start_group(rank, size, store):
+    """Join the ranks' gloo group, which meets on the file `store` (a
+    FileStore: no other pool can take it, as one could take a TCP port
+    found free and released before the ranks bind it); the world."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(size), LOCAL_RANK=str(rank))
     torch.set_num_threads(1)
-    world = parallel.init_world("cpu")
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=size)
+    return parallel.init_world("cpu")
+
+
+def rendezvous():
+    """(a directory of its own, the FileStore file in it) for one pool."""
+    d = tempfile.mkdtemp(prefix="gloo_ranks_")
+    return d, os.path.join(d, "store")
+
+
+def answers(results, procs, name):
+    """Every rank's answer to job `name`, by rank: fails at once where a
+    rank's process has died, and after JOB_SECONDS without an answer."""
+    out = {}
+    deadline = time.monotonic() + JOB_SECONDS
+    while len(out) < len(procs):
+        try:
+            rank, got, ok, value = results.get(timeout=POLL_SECONDS)
+        except queue.Empty:
+            dead = {r: p.exitcode for r, p in enumerate(procs) if not p.is_alive()}
+            if dead:
+                pytest.fail(f"job {name}: rank process(es) ended without an answer, exit "
+                            f"codes {dead}")
+            if time.monotonic() > deadline:
+                pytest.fail(f"job {name}: no answer within {JOB_SECONDS} s")
+            continue
+        assert got == name
+        if not ok:
+            pytest.fail(f"job {name} on rank {rank}:\n{value}")
+        out[rank] = value
+    return out
+
+
+def _worker(rank, store, jobs, results):
+    world = start_group(rank, RANKS, store)
     try:
         while True:
             job = jobs.get()
@@ -179,12 +220,10 @@ def ranks():
     """Two gloo ranks; `ranks(name, *args)` runs a job on both and returns
     their answers by rank, within JOB_SECONDS."""
     ctx = mp.get_context("spawn")
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
+    tmp, store = rendezvous()
     jobs = [ctx.Queue() for _ in range(RANKS)]
     results = ctx.Queue()
-    procs = [ctx.Process(target=_worker, args=(r, port, jobs[r], results), daemon=True)
+    procs = [ctx.Process(target=_worker, args=(r, store, jobs[r], results), daemon=True)
              for r in range(RANKS)]
     for p in procs:
         p.start()
@@ -192,17 +231,7 @@ def ranks():
     def run(name, *args):
         for q in jobs:
             q.put((name, args))
-        out = {}
-        for _ in range(RANKS):
-            try:
-                rank, got, ok, value = results.get(timeout=JOB_SECONDS)
-            except queue.Empty:
-                pytest.fail(f"job {name}: no answer within {JOB_SECONDS} s")
-            assert got == name
-            if not ok:
-                pytest.fail(f"job {name} on rank {rank}:\n{value}")
-            out[rank] = value
-        return out
+        return answers(results, procs, name)
 
     yield run
     for q in jobs:
@@ -211,6 +240,22 @@ def ranks():
         p.join(timeout=30)
         if p.is_alive():
             p.kill()
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
+def test_answers_fail_at_once_when_a_rank_has_died():
+    """A rank whose process ended (here at once, exit code 3) fails the job
+    within a few polls, not after JOB_SECONDS."""
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    proc = ctx.Process(target=sys.exit, args=(3,), daemon=True)
+    proc.start()
+    proc.join(timeout=60)
+    assert not proc.is_alive()
+    t0 = time.monotonic()
+    with pytest.raises(pytest.fail.Exception, match=r"exit codes \{0: 3\}"):
+        answers(results, [proc], "job")
+    assert time.monotonic() - t0 < 10 * POLL_SECONDS
 
 
 def _rel(a, b):
