@@ -41,6 +41,7 @@ from ..core import edm
 from ..core.config import TrainConfig
 from ..models.clip import preprocess_for_clip
 from ..parallel.frames import FrameShard
+from ..utils.profiling import span
 from .pipeline import SVDModels, get_add_time_ids
 
 
@@ -168,9 +169,9 @@ def training_loss(models: SVDModels, pixel_values: torch.Tensor, cfg: TrainConfi
                   shard: Optional[FrameShard] = None) -> torch.Tensor:
     """Full loss for one micro-batch of (B, F, H, W, 3) pixels in [-1, 1],
     with the micro-batch's boxes where it has them; with a frames `shard`,
-    this rank's part of it. The two stages run under the profiler labels
-    ``train.encode`` and ``train.unet_loss``."""
-    with torch.profiler.record_function("train.encode"):
+    this rank's part of it. The two stages run under the spans
+    ``train.encode`` and ``train.unet_loss`` (``utils/profiling.py``)."""
+    with span("train.encode"):
         enc = encode_batch(models, pixel_values, cfg, draws, shard)
         enc = conditioning_dropout(enc, draws.dropout_u, cfg.conditioning_dropout_prob)
         if boxes is not None and cfg.conditioning_dropout_prob > 0:
@@ -178,6 +179,6 @@ def training_loss(models: SVDModels, pixel_values: torch.Tensor, cfg: TrainConfi
                 raise ValueError("boxes with conditioning dropout need draws.box_dropout_u")
             box_mask = box_dropout(boxes, box_mask, draws.box_dropout_u,
                                    cfg.conditioning_dropout_prob)
-    with torch.profiler.record_function("train.unet_loss"):
+    with span("train.unet_loss"):
         return edm_denoising_loss(models, enc, cfg, draws.sigma, draws.noise, boxes, box_mask,
                                   shard)

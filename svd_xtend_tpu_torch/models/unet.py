@@ -21,7 +21,7 @@ those of resolution levels 0-1 (down blocks 0-1 and their up mirrors),
 which hold most of the activation bytes. It uses
 ``torch.utils.checkpoint(use_reentrant=False)`` and applies only while grad
 mode is on; the kernels launch again in the recompute. Each checkpointed
-block runs under the profiler label ``unet.checkpointed_block``, so a trace
+block runs under the span ``unet.checkpointed_block``, so a trace
 tells its recompute (inside the backward) from the rest of the backward.
 
 DeepCache (``cache_depth=d``, unet.py:217-392 in the JAX package):
@@ -60,6 +60,7 @@ from torch.utils.checkpoint import checkpoint
 from ..core.config import UNetConfig
 from ..ops.kernels.dispatch import kernels_enabled, plain_versions
 from ..parallel.frames import FrameShard
+from ..utils.profiling import span
 from . import attn_processor
 from .blocks import (Conv3x3, Downsample2D, GroupNormSiLU, SpatioTemporalResBlock,
                      Upsample2D)
@@ -307,7 +308,7 @@ class UNetSpatioTemporalConditionModel(nn.Module):
 
 
 def _labelled(block):
-    """`block` under its profiler label, with the kernel dispatch and the
+    """`block` under its span, with the kernel dispatch and the
     attention processors in force when it is wrapped (the forward) also in
     its recompute: that runs in the backward, on a CUDA tensor on the
     autograd engine's own thread, which does not see the thread-local
@@ -315,7 +316,7 @@ def _labelled(block):
     plain, proc = not kernels_enabled(), attn_processor.current()
 
     def run(*args):
-        with torch.profiler.record_function("unet.checkpointed_block"), \
+        with span("unet.checkpointed_block"), \
                 plain_versions(plain), attn_processor.processors(proc):
             return block(*args)
     return run

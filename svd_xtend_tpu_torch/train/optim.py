@@ -29,6 +29,7 @@ from ..core.config import TrainConfig
 from ..parallel import (SINGLE, World, broadcast_from_owners_, gather_to_main, merge_indexed,
                         owners)
 from ..parallel.tensor import all_reduce_sum_
+from ..utils.profiling import read
 from .quant import BLOCK_ORDER, AdamW8bit, Axes, Part
 
 Schedule = Callable[[int], float]
@@ -98,10 +99,11 @@ def clip_by_global_norm_f32_(grads: Sequence[torch.Tensor], max_norm: float,
                              norm: Optional[torch.Tensor] = None) -> torch.Tensor:
     """In place: when the f32 global norm (`norm`, else ``global_norm_f32``
     of the gradients) is not below max_norm, scale every gradient by
-    max_norm / norm. Returns the norm before clipping."""
+    max_norm / norm. Returns the norm before clipping. The decision reads
+    the norm on the host (the span ``sync.clip``)."""
     if norm is None:
         norm = global_norm_f32(grads)
-    if norm.item() >= max_norm:
+    if read("sync.clip", norm) >= max_norm:
         for g in grads:
             g.copy_(g.float() / norm * max_norm)
     return norm

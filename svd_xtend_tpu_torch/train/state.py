@@ -82,6 +82,7 @@ from ..models import lora as lora_lib
 from ..parallel import (SINGLE, World, all_reduce_mean_, gather_to_main, local_draws,
                         merge_indexed)
 from ..parallel.tensor import Layout, all_reduce_sum_, layout
+from ..utils.profiling import STEP, read, span
 from .optim import ClippedAdamW, make_optimizer
 from .quant import BLOCK_ORDER, Part, join_parts, part_of
 
@@ -425,7 +426,7 @@ def loss_and_grads(models: SVDModels, cfg: TrainConfig, state: TrainState,
     their adapters) get zero gradients, as under jax.grad. `batch` is the
     micro-batch's pixels or its Tracklet2Video dict; with a frames `shard`,
     the loss and gradients are this rank's parts. The backward runs under
-    the profiler label ``train.backward``."""
+    the span ``train.backward``."""
     if state.lora is None:
         named = dict(models.unet.named_parameters())
         wrt, scope = [named[n] for n in state.names], contextlib.nullcontext()
@@ -443,7 +444,7 @@ def loss_and_grads(models: SVDModels, cfg: TrainConfig, state: TrainState,
         pixels, boxes = batch, {}
     with scope:
         loss = training_loss(models, pixels, cfg, draws, **boxes, shard=shard)
-        with torch.profiler.record_function("train.backward"):
+        with span("train.backward"):
             grads = torch.autograd.grad(loss, wrt, materialize_grads=True)
     if cfg.grad_dtype == "bf16":
         grads = tuple(g.to(torch.bfloat16) for g in grads)
@@ -457,9 +458,11 @@ def make_train_step(models: SVDModels, cfg: TrainConfig, world: World = SINGLE):
     Tracklet2Video dict of such pixels (``pixel_values``) with ``boxes`` and
     ``box_mask`` of the same leading axes. `draws` (one TrainDraws, or a
     list of one per micro-batch) replaces the draws from `generator`.
-    Metrics: loss, grad_norm (before clipping), lr (applied). The backward
-    and the update run under the profiler labels ``train.backward`` and
-    ``train.optimizer``. Over a data-parallel `world`, `batch` is this
+    Metrics: loss, grad_norm (before clipping), lr (applied). A call runs
+    under the span ``train.step``, the backward and the update under
+    ``train.backward`` and ``train.optimizer``, the reads of the loss and
+    the norm under ``sync.loss`` and ``sync.grad_norm`` (``utils/profiling.py``;
+    the clip's read is ``sync.clip``). Over a data-parallel `world`, `batch` is this
     rank's rows of the global batch, the draws from `generator` are its rows
     of the global batch's, the gradients are averaged over the ranks before
     the clip, and the metrics are the global batch's (the loss averaged).
@@ -480,6 +483,10 @@ def make_train_step(models: SVDModels, cfg: TrainConfig, world: World = SINGLE):
 
     def step(state: TrainState, batch, *,
              generator: Optional[torch.Generator] = None, draws=None):
+        with span(STEP):
+            return state, step_metrics(state, batch, generator, draws)
+
+    def step_metrics(state: TrainState, batch, generator, draws) -> Dict:
         pixels = batch["pixel_values"] if isinstance(batch, dict) else batch
         shard = world.frame_shard(pixels.shape[-4])
         if shard is not None and shard.total % shard.size:
@@ -510,7 +517,7 @@ def make_train_step(models: SVDModels, cfg: TrainConfig, world: World = SINGLE):
                     acc.add_(x.to(gdt))
             loss_sum = loss_sum + loss.detach()
             del loss, g
-        with torch.profiler.record_function("train.optimizer"):
+        with span("train.optimizer"):
             if accum > 1:
                 for acc in grads:
                     acc.div_(accum)
@@ -537,7 +544,7 @@ def make_train_step(models: SVDModels, cfg: TrainConfig, world: World = SINGLE):
                 on_receive=lambda i, t: write_back(models, cfg, state, [t], [i]))
             del grads
             state.step = step_after
-        metrics = {"loss": loss.item(), "grad_norm": grad_norm.item(), "lr": lr}
-        return state, metrics
+        return {"loss": read("sync.loss", loss), "grad_norm": read("sync.grad_norm", grad_norm),
+                "lr": lr}
 
     return step
